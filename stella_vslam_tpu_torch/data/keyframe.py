@@ -1,0 +1,114 @@
+"""Keyframe: immutable observation + mutable pose + graph node.
+
+Reference: src/stella_vslam/data/keyframe.{h,cc} — landmark slots (one per
+keypoint), covisibility graph_node. Copy of the part of
+stella_vslam_tpu/data/keyframe.py the RGBD tracking slice calls; device
+tensors are the source frame's. Culling, serialization and the loaded-map
+stub come with the mapping module and map IO.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from stella_vslam_tpu_torch.data.frame import Frame
+from stella_vslam_tpu_torch.data.graph_node import GraphNode
+
+
+class Keyframe:
+    def __init__(self, frame: Frame, map_db, keyfrm_id: Optional[int] = None):
+        self.id = map_db.next_keyframe_id() if keyfrm_id is None else keyfrm_id
+        self.src_frm_id = frame.id
+        self.timestamp = frame.timestamp
+        self.camera = frame.camera
+        self.orb_params = frame.orb_params
+        self.num_slots = frame.num_slots
+
+        # device tensors shared with the source frame (immutable
+        # observation), delegated via properties below
+        self._frame_ref = frame
+        self.lm_ids = frame.lm_ids.copy()
+        self.pose_cw = frame.pose_cw.copy()
+        self.graph_node = GraphNode(self, map_db.min_num_shared_lms)
+        self.will_be_erased = False
+
+    # device tensors delegate to the source frame
+    @property
+    def feats(self):
+        return self._frame_ref.feats
+
+    @property
+    def undist_xy(self):
+        return self._frame_ref.undist_xy
+
+    @property
+    def bearings(self):
+        return self._frame_ref.bearings
+
+    @property
+    def x_right(self):
+        return self._frame_ref.x_right
+
+    @property
+    def depths(self):
+        return self._frame_ref.depths
+
+    # host mirrors delegate to the frame cache
+    @property
+    def h_xy(self):
+        return self._frame_ref.h_xy
+
+    @property
+    def h_undist_xy(self):
+        return self._frame_ref.h_undist_xy
+
+    @property
+    def h_bearings(self):
+        return self._frame_ref.h_bearings
+
+    @property
+    def h_level(self):
+        return self._frame_ref.h_level
+
+    @property
+    def h_angle(self):
+        return self._frame_ref.h_angle
+
+    @property
+    def h_valid(self):
+        return self._frame_ref.h_valid
+
+    @property
+    def h_desc(self):
+        return self._frame_ref.h_desc
+
+    @property
+    def h_x_right(self):
+        return self._frame_ref.h_x_right
+
+    @property
+    def h_depths(self):
+        return self._frame_ref.h_depths
+
+    # ---- pose ----
+    def set_pose_cw(self, pose_cw: np.ndarray):
+        # rebinds (never mutates in place): anyone holding the previous
+        # array — e.g. a TableSnap's kf_poses — keeps a true snapshot
+        self.pose_cw = np.asarray(pose_cw, dtype=np.float64).copy()
+
+    @property
+    def rot_cw(self):
+        return self.pose_cw[:3, :3]
+
+    @property
+    def trans_cw(self):
+        return self.pose_cw[:3, 3]
+
+    @property
+    def cam_center(self):
+        return -self.rot_cw.T @ self.trans_cw
+
+    # ---- landmark slots ----
+    def add_landmark(self, lm_id: int, idx: int):
+        self.lm_ids[idx] = lm_id

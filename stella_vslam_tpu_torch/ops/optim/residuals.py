@@ -1,0 +1,52 @@
+"""Perspective reprojection residual + analytic pose Jacobian.
+
+Port of `perspective_residual` (stella_vslam_tpu/ops/optim/residuals.py:46)
+and `CamScalars`: mono r = [u, v] (2 dof), stereo/RGBD adds
+u_right = u - fx*baseline/z (3 dof); the pose tangent is xi = [rho, phi]
+with left-multiplicative updates (ops/lie.se3_update_left).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from stella_vslam_tpu_torch.ops import lie
+
+
+class CamScalars(NamedTuple):
+    """Camera scalars the residuals use (f32-rounded Python floats)."""
+
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    width: float
+    height: float
+    focal_x_baseline: float
+
+
+def perspective_residual(R_cw, t_cw, pos_w, obs_uv, obs_x_right, cam: CamScalars):
+    """Returns (r [N,3], J_pose [N,3,6], dof_mask [N,3], depth_ok [N])."""
+    Xc = pos_w @ R_cw.T + t_cw
+    x, y, z = Xc[:, 0], Xc[:, 1], Xc[:, 2]
+    z_safe = torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
+    iz = 1.0 / z_safe
+    iz2 = iz * iz
+    u = cam.fx * x * iz + cam.cx
+    v = cam.fy * y * iz + cam.cy
+    u_r = u - cam.focal_x_baseline * iz
+    has_stereo = obs_x_right > 0
+    zero = torch.zeros_like(x)
+    r = torch.stack([u - obs_uv[:, 0], v - obs_uv[:, 1],
+                     torch.where(has_stereo, u_r - obs_x_right, zero)], dim=-1)
+    row_u = torch.stack([cam.fx * iz, zero, -cam.fx * x * iz2], dim=-1)
+    row_v = torch.stack([zero, cam.fy * iz, -cam.fy * y * iz2], dim=-1)
+    row_r = torch.stack(
+        [cam.fx * iz, zero, -cam.fx * x * iz2 + cam.focal_x_baseline * iz2], dim=-1)
+    dpi = torch.stack([row_u, row_v, row_r], dim=-2)  # [N,3,3]
+    eye = torch.eye(3, dtype=Xc.dtype, device=Xc.device).expand(Xc.shape[0], 3, 3)
+    J_pose = dpi @ torch.cat([eye, -lie.hat(Xc)], dim=-1)  # [N,3,6]
+    dof = torch.stack([torch.ones_like(z), torch.ones_like(z),
+                       has_stereo.to(z.dtype)], dim=-1)
+    return r, J_pose, dof, z > 1e-4

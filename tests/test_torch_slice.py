@@ -1,0 +1,101 @@
+"""The port's RGBD tracking slice against the JAX System, end to end.
+
+Both systems run RGBD with mapping disabled on the same rendered frames of
+the test plane world (400x300, 4 levels, min_size 400, 10 frames of
+lateral_trajectory at 0.03 m/frame, exact uint16 depth at factor 5000). The
+port runs its plain CPU versions of kernels A-D. Measured on this input
+(CPU): both track 10/10; camera centres agree within 2.4e-5 m and rotations
+within 0.023 deg; rigid ATE 3.010 mm (JAX) and 3.008 mm (port). Bounds:
+centres within 0.2 mm (the slice's 2 mm budget, tightened to ~8x the
+measured gap), rotations within 0.1 deg, the port's ATE within the JAX
+run's plus 1 mm.
+"""
+import numpy as np
+import pytest
+import torch
+
+from stella_vslam_tpu.config import Config as JConfig
+from stella_vslam_tpu.system import System as JSystem
+from stella_vslam_tpu_torch.config import Config
+from stella_vslam_tpu_torch.system import System
+from tests.synthetic_world import PlaneWorld, lateral_trajectory
+
+torch.set_num_threads(1)
+
+
+def _cfg(world):
+    cam = world.camera_yaml()
+    cam["setup"] = "RGBD"
+    cam["focal_x_baseline"] = world.fx * 0.12
+    return {"Camera": cam, "Feature": {"num_levels": 4},
+            "Preprocessing": {"min_size": 400, "depthmap_factor": 5000.0},
+            "Initializer": {"use_fixed_seed": True}}
+
+
+def _ate(poses, gt_poses):
+    est = np.stack([-p[:3, :3].T @ p[:3, 3] for p in poses])
+    gt = np.stack([-T[:3, :3].T @ T[:3, 3] for T in gt_poses])
+    mu_e, mu_g = est.mean(0), gt.mean(0)
+    U, _, Vt = np.linalg.svd((gt - mu_g).T @ (est - mu_e) / len(est))
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    aligned = (U @ D @ Vt @ (est - mu_e).T).T + mu_g
+    return float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, 1))))
+
+
+def _by_feed_order(slam, n):
+    res = slam.frame_poses
+    fid0 = res[0][3]
+    out = [None] * n
+    for (_, pose, _, fid) in res:
+        out[fid - fid0] = pose
+    return out
+
+
+def run_both():
+    """(ground truth, JAX poses, port poses, port System) in feed order."""
+    world = PlaneWorld()
+    gt = lateral_trajectory(10, step=0.03)
+    images = [world.render(T) for T in gt]
+    depth = np.full((world.H, world.W), 20000, np.uint16)
+
+    jslam = JSystem(JConfig.from_dict(_cfg(world)), inline_mapping=True)
+    jslam.disable_mapping_module()
+    jslam.tracker.mapper = None  # the mapper's pass must not touch the map
+    jslam.startup()
+    tslam = System(Config.from_dict(_cfg(world)), device="cpu")
+    tslam.disable_mapping_module()
+    tslam.startup()
+    for i, img in enumerate(images):
+        jslam.feed_RGBD_frame(img, depth, i * 0.05)
+        tslam.feed_RGBD_frame(img, depth, i * 0.05)
+    jslam.shutdown()
+    tslam.shutdown()
+    return gt, _by_feed_order(jslam, 10), _by_feed_order(tslam, 10), tslam
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return run_both()
+
+
+def test_slice_tracks_every_frame(runs):
+    gt, jp, tp, _ = runs
+    assert sum(p is not None for p in jp) == 10
+    assert sum(p is not None for p in tp) == 10
+
+
+def test_slice_poses_match_jax(runs):
+    gt, jp, tp, _ = runs
+    for a, b in zip(jp, tp):
+        ca = -a[:3, :3].T @ a[:3, 3]
+        cb = -b[:3, :3].T @ b[:3, 3]
+        assert np.linalg.norm(ca - cb) < 2e-4
+        cosang = np.clip((np.trace(a[:3, :3] @ b[:3, :3].T) - 1) / 2, -1, 1)
+        assert np.degrees(np.arccos(cosang)) < 0.1
+
+
+def test_slice_ate_within_jax(runs):
+    gt, jp, tp, tslam = runs
+    ate_j, ate_t = _ate(jp, gt), _ate(tp, gt)
+    assert ate_t <= ate_j + 1e-3, (ate_t, ate_j)
+    assert tslam.map_db.num_landmarks() > 100
