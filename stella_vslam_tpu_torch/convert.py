@@ -8,7 +8,10 @@ and return the port's tensors.
   blur taps, moment masks, steered BRIEF offsets) in the form
   `feature.orb_extractor.OrbExtractor(tables=...)` takes;
 * `table_snap`: a TableSnap's packed device landmark table;
-* `frame_features`: a frame's FrameFeatures.
+* `frame_features`: a frame's FrameFeatures;
+* `frame`: a whole frame (features, undistorted keypoints, bearings), the
+  input of the initializer;
+* `ba_problem`: a BAProblem.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ def extractor_tables(jax_extractor) -> dict:
             "offsets": offsets}
 
 
-def table_snap(snap, device="cpu"):
+def table_snap(snap, device="cuda"):
     """-> (tbl_f32 [C,8] f32, tbl_u32 [C,10] int32 with the uint32 bits)."""
     f32 = np.asarray(snap.tbl_f32, np.float32)
     u32 = np.ascontiguousarray(np.asarray(snap.tbl_u32, np.uint32))
@@ -49,10 +52,34 @@ def table_snap(snap, device="cpu"):
             torch.from_numpy(u32.view(np.int32).copy()).to(device))
 
 
-def frame_features(feats, device="cpu") -> FrameFeatures:
+def frame_features(feats, device="cuda") -> FrameFeatures:
     desc = np.ascontiguousarray(np.asarray(feats.desc, np.uint32)).view(np.int32)
     t = lambda a, dt: torch.from_numpy(np.array(a, dtype=dt)).to(device)
     return FrameFeatures(
         xy=t(feats.xy, np.float32), response=t(feats.response, np.float32),
         angle=t(feats.angle, np.float32), level=t(feats.level, np.int32),
         valid=t(feats.valid, bool), desc=torch.from_numpy(desc.copy()).to(device))
+
+
+def frame(jax_frame, camera, orb_params, device="cuda"):
+    """A port Frame with the JAX frame's features, undistorted keypoints and
+    bearings (and its timestamp); landmarks and pose start empty."""
+    from stella_vslam_tpu_torch.data.frame import Frame, pack_host_cols
+
+    t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+    feats = frame_features(jax_frame.feats, device)
+    frm = Frame(jax_frame.timestamp, camera, orb_params, feats,
+                t(jax_frame.undist_xy), t(jax_frame.bearings))
+    frm.attach_packed_host(pack_host_cols(
+        feats.xy, frm.undist_xy, frm.bearings, feats.level, feats.angle,
+        feats.valid, feats.response, frm.x_right, frm.depths, feats.desc))
+    return frm
+
+
+def ba_problem(jax_prob, device="cuda"):
+    """The port's BAProblem with the same arrays (optional fields kept)."""
+    from stella_vslam_tpu_torch.ops.optim.ba import BAProblem
+
+    return BAProblem(**{
+        name: None if v is None else torch.from_numpy(np.array(v)).to(device)
+        for name, v in jax_prob._asdict().items()})

@@ -1,11 +1,12 @@
 // Kernel C: gated 256-bit Hamming best/second-best search.
 //
 // Replaces the [M,N] distance matrix of stella_vslam_tpu/match/hamming.py
-// (pairwise_hamming :31, best_and_second :96) as the tracking matchers use
-// it: match/projection.py match_frame_and_landmarks (:25) and
+// (pairwise_hamming :31, best_and_second :96) as the matchers use it:
+// match/projection.py match_frame_and_landmarks (:25) and
 // match_current_and_last_frames (:99), match/robust.py brute_force_match
-// (:92). The TPU form is a +/-1 int8 matmul into an [M,N] matrix, masked by
-// [M,N] gate tensors, then argmin passes over the rows.
+// (:92), and the initializer's match/area.py match_in_consistent_area (:19).
+// The TPU form is a +/-1 int8 matmul into an [M,N] matrix, masked by [M,N]
+// gate tensors, then argmin passes over the rows.
 //
 // On Hopper: one warp per query row. Each lane walks a strided share of the
 // targets, evaluates the gates in registers (search window, level range,
@@ -22,8 +23,13 @@
 // ties to the lowest target index, so best, best_idx, second and second_idx
 // are those of jnp.min/argmin over the JAX version's masked matrix (with
 // second_idx 0 when no second candidate exists, as argmin over an all-257
-// row gives). The orientation cosine is rounded as the JAX expression is
-// (two products, one sum, no FMA).
+// row gives). Two orientation gates: mode 1, the tracking matchers' cosine,
+// rounded as the JAX expression is (two products, one sum, no FMA); mode 2,
+// the area matcher's angle test |atan2(sin d, cos d)| <= thr with
+// d = row angle - col angle, evaluated literally with CUDA's accurate
+// sinf / cosf / atan2f (no fast-math), which may differ from the host's in
+// the last ulp, so a pair within an ulp of the threshold can gate the other
+// way.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,10 +77,8 @@ hamming_top2_kernel(int M, int N, const uint32_t* __restrict__ q,
     lo = row_lo[row];
     hi = row_hi[row];
   }
-  if (use_orient) {
-    rc = row_c[row];
-    rs = row_s[row];
-  }
+  if (use_orient) rc = row_c[row];
+  if (use_orient == 1) rs = row_s[row];
   uint32_t k1 = kNone, k2 = kNone;
   for (int j = lane; j < N; j += 32) {
     bool cand = rok && col_ok[j] != 0;
@@ -85,8 +89,12 @@ hamming_top2_kernel(int M, int N, const uint32_t* __restrict__ q,
              lvl >= lo && lvl <= hi &&
              (!(cxr > 0.f && rxr > 0.f) || fabsf(rxr - cxr) <= rad);
     }
-    if (cand && use_orient)
+    if (cand && use_orient == 1)
       cand = __fadd_rn(__fmul_rn(rc, col_c[j]), __fmul_rn(rs, col_s[j])) >= cos_thr;
+    if (cand && use_orient == 2) {
+      const float d = __fsub_rn(rc, col_c[j]);
+      cand = fabsf(atan2f(sinf(d), cosf(d))) <= cos_thr;
+    }
     uint32_t dist = 257;
     if (cand) {
       dist = 0;

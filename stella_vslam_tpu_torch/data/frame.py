@@ -146,6 +146,9 @@ class Frame:
     def h_response(self):
         return self._host("response")
 
+    def add_landmark(self, lm_id: int, idx: int):
+        self.lm_ids[idx] = lm_id
+
     # ---- pose helpers ----
     def set_pose_cw(self, pose_cw: np.ndarray):
         self.pose_cw = np.asarray(pose_cw, dtype=np.float64)

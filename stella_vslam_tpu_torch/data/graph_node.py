@@ -3,7 +3,9 @@
 Reference: src/stella_vslam/data/graph_node.{h,cc} — weighted connections
 (>= min shared landmarks, default 15), ordered covisibility lists, spanning
 tree parent/children. Copy of the part of stella_vslam_tpu/data/graph_node.py
-the RGBD tracking slice calls (update_connections at map creation).
+the tracking and initialization slices call: update_connections at map
+creation, the covisibility queries of the local device table, and the edge
+and spanning-tree repair of a keyframe erasure.
 """
 from __future__ import annotations
 
@@ -55,6 +57,38 @@ class GraphNode:
             if parent is not None:
                 self.spanning_parent = best_id
                 parent.graph_node.spanning_children.add(kf.id)
+
+    def get_covisibilities(self) -> List[int]:
+        return list(self._ordered_ids)
+
+    def get_top_n_covisibilities(self, n: int) -> List[int]:
+        return self._ordered_ids[:n]
+
+    def erase_connection(self, keyfrm_id: int):
+        if self.connections.pop(keyfrm_id, None) is not None:
+            self._sort_connections()
+
+    def erase_all_connections(self, map_db):
+        for kid in list(self.connections):
+            other = map_db.keyframes.get(kid)
+            if other is not None:
+                other.graph_node.erase_connection(self.owner.id)
+        self.connections = {}
+        self._ordered_ids = []
+
+    def recompute_spanning_parent_on_erase(self, map_db):
+        """Children of an erased node reattach to its parent."""
+        parent_id = self.spanning_parent
+        pkf = map_db.keyframes.get(parent_id) if parent_id is not None else None
+        for child_id in list(self.spanning_children):
+            child = map_db.keyframes.get(child_id)
+            if child is None:
+                continue
+            child.graph_node.spanning_parent = parent_id
+            if pkf is not None:
+                pkf.graph_node.spanning_children.add(child_id)
+        if pkf is not None:
+            pkf.graph_node.spanning_children.discard(self.owner.id)
 
     def _sort_connections(self):
         self._ordered_ids = sorted(

@@ -1,15 +1,23 @@
 """Landmark: 3D point with observation bookkeeping.
 
 Reference: src/stella_vslam/data/landmark.{h,cc}. Copy of the part of
-stella_vslam_tpu/data/landmark.py the RGBD tracking slice calls: the
-store-backed geometric fields and observation registration (statistics are
-refreshed in bulk by MapDatabase.batch_refresh_landmark_stats).
+stella_vslam_tpu/data/landmark.py the RGBD tracking and monocular
+initialization slices call: the store-backed geometric fields, observation
+registration and erasure, and the per-landmark statistics
+`compute_descriptor` (:156) and `update_mean_normal_and_obs_scale_variance`
+(:177) that the two-keyframe map needs (MapDatabase.batch_refresh_landmark_
+stats refreshes them in bulk).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import numpy as np
+
+
+def _hamming_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    x = np.bitwise_xor(a, b)
+    return np.unpackbits(x.view(np.uint8), axis=-1).sum(axis=-1)
 
 
 class Landmark:
@@ -113,3 +121,59 @@ class Landmark:
         store = getattr(self, "_store", None)
         if store is not None:
             store.add(self.id, keyfrm_id, idx)
+
+    def erase_observation(self, keyfrm_id: int):
+        self.observations.pop(keyfrm_id, None)
+        store = getattr(self, "_store", None)
+        if store is not None:
+            store.erase(self.id, keyfrm_id)
+        if self.ref_keyfrm_id == keyfrm_id and self.observations:
+            self.ref_keyfrm_id = next(iter(self.observations))
+
+    # ---- statistics (reference landmark.cc) ----
+    def compute_descriptor(self, map_db):
+        """Representative descriptor: the observation's descriptor with the
+        least median Hamming distance to the others."""
+        descs = []
+        for kf_id, idx in self.observations.items():
+            kf = map_db.keyframes.get(kf_id)
+            if kf is None or kf.will_be_erased:
+                continue
+            descs.append(kf.h_desc[idx])
+        if not descs:
+            return
+        D = np.stack(descs)
+        if len(D) > 2:
+            from stella_vslam_tpu_torch.native.assoc_store import median_hamming_descriptor
+
+            self.descriptor = D[median_hamming_descriptor(D)].copy()
+        else:
+            medians = np.median(_hamming_np(D[:, None, :], D[None, :, :]), axis=1)
+            self.descriptor = D[int(np.argmin(medians))].copy()
+
+    def update_mean_normal_and_obs_scale_variance(self, map_db):
+        """Mean viewing direction over the observers, and the valid distance
+        range from the reference keyframe's distance and octave."""
+        if not self.observations:
+            return
+        normals = []
+        for kf_id in self.observations:
+            kf = map_db.keyframes.get(kf_id)
+            if kf is None:
+                continue
+            v = self.pos_w - kf.cam_center
+            n = np.linalg.norm(v)
+            if n > 1e-9:
+                normals.append(v / n)
+        if normals:
+            m = np.mean(normals, axis=0)
+            nm = np.linalg.norm(m)
+            self.mean_normal = m / nm if nm > 1e-9 else m
+        ref = map_db.keyframes.get(self.ref_keyfrm_id)
+        idx = self.observations.get(self.ref_keyfrm_id)
+        if ref is None or idx is None:
+            return
+        dist = float(np.linalg.norm(self.pos_w - ref.cam_center))
+        p = ref.orb_params
+        self.max_valid_dist = dist * p.scale_factors[int(ref.h_level[idx])]
+        self.min_valid_dist = self.max_valid_dist / p.scale_factors[p.num_levels - 1]

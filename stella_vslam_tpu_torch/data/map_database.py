@@ -10,11 +10,13 @@ tracking kernels consume directly; it is refreshed after map mutations,
 never uploaded per frame.
 
 Copy of the part of stella_vslam_tpu/data/map_database.py the RGBD tracking
-slice calls: the host database and field store, and the device table, whose
-two packed buffers are torch tensors on the database's device (tbl_f32
-[C,8] f32, tbl_u32 [C,10] int32 holding the uint32 bits). Erasure, fusion,
-proximity queries, submap roots and serialization come with the mapping,
-relocalization and map-IO items.
+and monocular initialization slices call: the host database and field
+store, landmark and keyframe erasure (a failed initialization undoes
+itself), and the device table, whose two packed buffers are torch tensors
+on the database's device (tbl_f32 [C,8] f32, tbl_u32 [C,10] int32 holding
+the uint32 bits), published for all landmarks or for the covisibility
+neighbourhood of a keyframe. Fusion, proximity queries and serialization
+come with the mapping, relocalization and map-IO items.
 """
 from __future__ import annotations
 
@@ -91,6 +93,14 @@ class LandmarkFieldStore:
         self.alive[:] = False
 
 
+def stable_unique(arr: np.ndarray) -> np.ndarray:
+    """Unique values in first-occurrence order."""
+    if len(arr) == 0:
+        return arr
+    _, first = np.unique(arr, return_index=True)
+    return arr[np.sort(first)]
+
+
 class TableSnap:
     """One coherent published state of the device landmark table.
 
@@ -125,7 +135,7 @@ class DeviceLandmarkTable:
     shape for the whole run (the JAX version's compiled programs depend on
     it; the port keeps the same layout), rows beyond capacity truncated."""
 
-    def __init__(self, capacity: Optional[int] = None, device="cpu"):
+    def __init__(self, capacity: Optional[int] = None, device="cuda"):
         self.capacity = 4096 if capacity is None else capacity
         self.device = torch.device(device)
         self.count = 0
@@ -195,11 +205,17 @@ class DeviceLandmarkTable:
                 if lm is not None:
                     setattr(lm, attr, getattr(lm, attr) + int(arr[lm_id]))
 
-    def refresh(self, landmarks: Dict[int, Landmark], map_db):
-        """Publish all live landmarks (up to the capacity) as a new snap."""
+    def refresh(self, landmarks: Dict[int, Landmark], map_db, local_ids=None):
+        """Publish the live landmarks (up to the capacity) as a new snap:
+        all of them, or `local_ids` in their priority order (rows past the
+        capacity are dropped from the back)."""
         self._fold_counters(landmarks)
         fs = map_db.fields
-        sel = fs.live(np.fromiter(landmarks.keys(), np.int64, len(landmarks)))
+        if local_ids is None:
+            sel = np.fromiter(landmarks.keys(), np.int64, len(landmarks))
+        else:
+            sel = np.asarray(local_ids, np.int64)
+        sel = fs.live(sel)
         C = self.capacity
         sel = sel[:C]
         n = len(sel)
@@ -249,7 +265,7 @@ class DeviceLandmarkTable:
 
 class MapDatabase:
     def __init__(self, min_num_shared_lms: int = 15,
-                 device_table_capacity: Optional[int] = None, device="cpu"):
+                 device_table_capacity: Optional[int] = None, device="cuda"):
         self.lock = threading.RLock()
         self.keyframes: Dict[int, Keyframe] = {}
         self.landmarks: Dict[int, Landmark] = {}
@@ -343,6 +359,39 @@ class MapDatabase:
             fs.dmin[lm_ids[m]] = dmin[m]
             fs.dmax[lm_ids[m]] = dmax[m]
 
+    def erase_landmark(self, lm_id: int):
+        with self.lock:
+            lm = self.landmarks.pop(lm_id, None)
+            if lm is None:
+                return
+            lm.will_be_erased = True
+            self.fields.kill(lm_id)
+            for kf_id, idx in lm.observations.items():
+                kf = self.keyframes.get(kf_id)
+                if kf is not None and kf.lm_ids[idx] == lm_id:
+                    kf.lm_ids[idx] = -1
+            self.assoc_store.erase_landmark(lm_id)
+
+    def erase_keyframe(self, kf_id: int):
+        """Drop a keyframe, its observations and graph edges (a component's
+        spanning root cannot be erased)."""
+        with self.lock:
+            kf = self.keyframes.get(kf_id)
+            if kf is None:
+                return
+            if kf_id in self.spanning_roots:
+                _log.warning("cannot erase spanning root %d", kf_id)
+                return
+            kf.will_be_erased = True
+            for lm_id in kf.lm_ids[kf.lm_ids >= 0]:
+                lm = self.landmarks.get(int(lm_id))
+                if lm is not None:
+                    lm.erase_observation(kf_id)
+            kf.graph_node.erase_all_connections(self)
+            kf.graph_node.recompute_spanning_parent_on_erase(self)
+            del self.keyframes[kf_id]
+            self.assoc_store.erase_keyframe_data(kf_id)
+
     def resolve_landmark_id(self, lm_id: int) -> int:
         """Follow the replacement chain to the surviving landmark id;
         returns -1 if the landmark (or its replacement) was erased."""
@@ -375,12 +424,33 @@ class MapDatabase:
         return len(self.landmarks)
 
     # ---- device mirror ----
-    def refresh_device_table(self):
-        """Publish every live landmark to the device table (the JAX version
-        can restrict it to a covisibility neighbourhood; that comes with
-        the relocalizer and submaps)."""
+    def refresh_device_table(self, center_kf_id: Optional[int] = None,
+                             max_local_keyframes: int = 60):
+        """Publish the device landmark table: every live landmark, or, with
+        `center_kf_id`, the covisibility-local map around that keyframe
+        (its 1st-order covisibilities, capped, plus their top-10 2nd-order
+        neighbours; reference local_map_updater.cc:26-248), nearer
+        keyframes' landmarks first."""
         with self.lock:
-            self.device_table.refresh(self.landmarks, self)
+            local_ids = None
+            center = self.keyframes.get(center_kf_id) if center_kf_id is not None else None
+            if center is not None:
+                kf_ids = [center.id] + center.graph_node.get_covisibilities()[
+                    :max_local_keyframes]
+                second = []
+                for k in kf_ids[1:]:
+                    kf = self.keyframes.get(k)
+                    if kf is not None:
+                        second += kf.graph_node.get_top_n_covisibilities(10)
+                arrs = []
+                for k in dict.fromkeys(kf_ids + second):
+                    kf = self.keyframes.get(k)
+                    if kf is None or kf.will_be_erased:
+                        continue
+                    arrs.append(kf.lm_ids[kf.lm_ids >= 0])
+                local_ids = (stable_unique(np.concatenate(arrs)) if arrs
+                             else np.zeros(0, np.int64))
+            self.device_table.refresh(self.landmarks, self, local_ids=local_ids)
 
     # ---- reset / serialization ----
     def clear(self):

@@ -322,7 +322,7 @@ class OrbExtractor:
 
     def __init__(self, params: OrbParams, width: int, height: int,
                  min_area: int = 800, descriptor_pattern: str = "native",
-                 device="cpu", tables: Optional[dict] = None):
+                 device="cuda", tables: Optional[dict] = None):
         """`tables` replaces the built tables (see convert.extractor_tables)."""
         self.params = params
         self.width = int(width)

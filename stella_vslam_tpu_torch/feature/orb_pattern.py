@@ -25,11 +25,9 @@ PATCH_SIZE = 31
 HALF_PATCH = PATCH_SIZE // 2  # 15; reference orb_impl.h fast_half_patch_size_
 EDGE_BORDER = 19  # reference orb_extractor.h orb_patch_radius_
 NUM_PAIRS = 256
-# the table ships once, with the JAX package; it is read by file path so that
-# this package never imports stella_vslam_tpu (whose __init__ imports jax)
+# the package's own copy of the table, beside this module
 _OPENCV_PAIRS_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "stella_vslam_tpu", "feature", "opencv_orb_pairs.npy")
+    os.path.dirname(os.path.abspath(__file__)), "opencv_orb_pairs.npy")
 _PATTERN_SEED = 0x5713A
 
 

@@ -1,8 +1,9 @@
 """Build the Hopper kernels of `csrc/` with nvcc and bind them with ctypes.
 
-All `csrc/*.cu` files compile, in one nvcc call, into one shared library with
-a plain C interface (`-gencode arch=compute_90a,code=sm_90a -O3 -shared
--Xcompiler -fPIC`). No source includes PyTorch's headers, so a build takes
+Every `csrc/*.cu` file compiles in its own nvcc process, all started
+together (`-gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC -c`),
+and one more nvcc call links the objects into one shared library with a
+plain C interface. No source includes PyTorch's headers, so a build takes
 seconds instead of minutes. The library goes into `_build/kernels/` inside
 the package (listed in .gitignore), named by a hash of the sources, and is
 built at the first launch of any kernel — never at import, since machines
@@ -28,11 +29,11 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build", "kernels")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
-# seconds the nvcc call took in this process (0.0 when the library was found
+# seconds the nvcc calls took in this process (0.0 when the library was found
 # already built) and the compiler's register / shared-memory report
 build_seconds = 0.0
 build_log = ""
@@ -40,6 +41,7 @@ build_log = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 
 # argument types of every C entry point (pointers and the stream as void*)
 _SIGNATURES = {
@@ -59,6 +61,31 @@ _SIGNATURES = {
     # inlier_out, chi2_out, stream
     "svt_pose_lm": [_I, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F,
                     _I, _I, _I, _P, _P, _P, _P, _P],
+    # model, N, pts1, pts2, valid, seed, B, thr, out_model, out_cost,
+    # out_count, stream
+    "svt_ransac_minimal": [_I, _I, _P, _P, _P, _U, _I, _F, _P, _P, _P, _P],
+    # model, N, pts1, pts2, valid, B, models, costs, counts, min_inliers,
+    # thr, out_model, out_mask, out_cost, out_ok, stream
+    "svt_ransac_select": [_I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _F, _P, _P,
+                          _P, _P, _P],
+    # model, N, pts1, pts2, valid, mask_in, thr, out_model, out_mask, stream
+    "svt_ransac_refit": [_I, _I, _P, _P, _P, _P, _F, _P, _P, _P],
+    # K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier,
+    # lm_valid, lm_fixed, cam_free, fx, fy, cx, cy, fxb, cam_R, cam_t, lm,
+    # use_huber, ctrl, Wg, lmblk, hc, S, rhs, stream
+    "svt_ba_linearize": [_I, _I, _I] + [_P] * 9 + [_F] * 5 + [_P] * 3
+                        + [_I] + [_P] * 7,
+    # K, cam_free, cam_R, cam_t, ctrl, hc, S, rhs, dx, cam_Rn, cam_tn, stream
+    "svt_ba_solve": [_I] + [_P] * 11,
+    # K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier,
+    # lm_valid, lm_fixed, cam_free, fx, fy, cx, cy, fxb, cam_R, cam_t, lm,
+    # use_huber, ctrl, counter, Wg, lmblk, dx, cam_Rn, cam_tn, lmn, stream
+    "svt_ba_backsub": [_I, _I, _I] + [_P] * 9 + [_F] * 5 + [_P] * 3
+                      + [_I] + [_P] * 9,
+    # K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, fx, fy, cx, cy,
+    # fxb, cam_R, cam_t, lm, keep, mode, out, stream
+    "svt_ba_classify": [_I, _I, _I] + [_P] * 5 + [_F] * 5 + [_P] * 4 + [_I]
+                       + [_P] * 2,
 }
 
 
@@ -93,15 +120,28 @@ def load() -> ctypes.CDLL:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so_path}.{os.getpid()}.tmp"
             cu = [s for s in srcs if s.endswith(".cu")]
+            objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cu]
+            nvcc = _nvcc()
             t0 = time.monotonic()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *cu],
-                capture_output=True, text=True)
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o", o, s],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for s, o in zip(cu, objs)]
+            build_log = "".join(p.communicate()[0] for p in procs)
+            failed = [s for s, p in zip(cu, procs) if p.returncode != 0]
+            if not failed:
+                link = subprocess.run(
+                    [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                     "-o", tmp, *objs], capture_output=True, text=True)
+                build_log += link.stdout + link.stderr
+                if link.returncode != 0:
+                    failed = ["(link)"]
+            for o in objs:
+                if os.path.exists(o):
+                    os.remove(o)
             build_seconds = time.monotonic() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{build_log}")
+            if failed:
+                raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
             os.replace(tmp, so_path)
         lib = ctypes.CDLL(so_path)
         for name, argtypes in _SIGNATURES.items():

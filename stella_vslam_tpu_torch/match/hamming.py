@@ -6,7 +6,9 @@ the matchers here call `hamming_top2`, which returns per query row the best
 and second-best distance and their target indices over the gated targets:
 
 * on CUDA tensors, kernel C (csrc/hamming_top2.cu): XOR + popcount with the
-  gates evaluated in registers, the [M,N] matrix never stored;
+  gates evaluated in registers, the [M,N] matrix never stored; the gates
+  are a projection window, an orientation cosine (tracking) or an angle
+  difference (the initializer's area matcher);
 * on CPU tensors, `hamming_top2_plain`: the JAX version's dense form (a
   +/-1 f32 matmul — exact, every sum is an integer of magnitude <= 256).
 
@@ -16,7 +18,7 @@ duplicate resolution stay plain torch on the [M] outputs.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -54,6 +56,15 @@ class OrientGate(NamedTuple):
     cos_thr: float
 
 
+class AngleGate(NamedTuple):
+    """Orientation gate of the area matcher: |atan2(sin d, cos d)| <= thr
+    with d = row_angle - col_angle (match/area.py:49-51)."""
+
+    row_angle: torch.Tensor  # [M] f32 radians
+    col_angle: torch.Tensor  # [N] f32
+    thr: float  # radians
+
+
 def unpack_bits_pm1(desc: torch.Tensor) -> torch.Tensor:
     """[N,8] int32 descriptor words -> [N,256] f32 in {-1, +1}."""
     shifts = torch.arange(32, device=desc.device, dtype=torch.int32)
@@ -76,7 +87,7 @@ def angle_diff_ok(angle1, angle2, thr_deg: float = 30.0) -> torch.Tensor:
 
 
 def gate_matrix(row_ok, col_ok, window: Optional[WindowGate],
-                orient: Optional[OrientGate]) -> torch.Tensor:
+                orient: Union[OrientGate, AngleGate, None]) -> torch.Tensor:
     """[M,N] bool candidate mask (plain version of the kernel's gates)."""
     cand = row_ok[:, None] & col_ok[None, :]
     if window is not None:
@@ -88,7 +99,10 @@ def gate_matrix(row_ok, col_ok, window: Optional[WindowGate],
             & (w.col_level[None, :] <= w.row_hi[:, None])
         both = (w.col_xr[None, :] > 0) & (w.row_xr[:, None] > 0)
         cand = cand & (~both | (torch.abs(w.row_xr[:, None] - w.col_xr[None, :]) <= rad))
-    if orient is not None:
+    if isinstance(orient, AngleGate):
+        d = orient.row_angle[:, None] - orient.col_angle[None, :]
+        cand = cand & (torch.abs(torch.atan2(torch.sin(d), torch.cos(d))) <= orient.thr)
+    elif orient is not None:
         o = orient
         cosd = o.row_c[:, None] * o.col_c[None, :] + o.row_s[:, None] * o.col_s[None, :]
         cand = cand & (cosd >= o.cos_thr)
@@ -97,7 +111,7 @@ def gate_matrix(row_ok, col_ok, window: Optional[WindowGate],
 
 def hamming_top2_plain(q_desc, t_desc, row_ok, col_ok,
                        window: Optional[WindowGate] = None,
-                       orient: Optional[OrientGate] = None):
+                       orient: Union[OrientGate, AngleGate, None] = None):
     """(best, best_idx, second, second_idx), each [M] int32."""
     dist = pairwise_hamming(q_desc, t_desc)
     dist = torch.where(gate_matrix(row_ok, col_ok, window, orient), dist,
@@ -118,7 +132,7 @@ def _check(t, shape, dtype, name):
 
 def hamming_top2(q_desc, t_desc, row_ok, col_ok,
                  window: Optional[WindowGate] = None,
-                 orient: Optional[OrientGate] = None):
+                 orient: Union[OrientGate, AngleGate, None] = None):
     """Kernel C on CUDA tensors, the plain version on CPU tensors."""
     if not q_desc.is_cuda:
         return hamming_top2_plain(q_desc, t_desc, row_ok, col_ok, window, orient)
@@ -137,19 +151,26 @@ def hamming_top2(q_desc, t_desc, row_ok, col_ok,
                 else torch.float32
             _check(t, (n,), dt, name)
             w_ptrs[i] = t.data_ptr()
-    o_ptrs, cos_thr = [0] * 4, 0.0
-    if orient is not None:
+    # orientation mode 1 (cosine) reads row_c, row_s, col_c, col_s; mode 2
+    # (angle) reads the angles through the row_c and col_c slots
+    o_ptrs, o_thr, o_mode = [0] * 4, 0.0, 0
+    if isinstance(orient, AngleGate):
+        _check(orient.row_angle, (M,), torch.float32, "row_angle")
+        _check(orient.col_angle, (N,), torch.float32, "col_angle")
+        o_ptrs[0], o_ptrs[2] = orient.row_angle.data_ptr(), orient.col_angle.data_ptr()
+        o_thr, o_mode = float(orient.thr), 2
+    elif orient is not None:
         for i, name in enumerate(OrientGate._fields[:4]):
             t = orient[i]
             _check(t, (M if name.startswith("row") else N,), torch.float32, name)
             o_ptrs[i] = t.data_ptr()
-        cos_thr = float(orient.cos_thr)
+        o_thr, o_mode = float(orient.cos_thr), 1
     out = torch.empty((M, 4), dtype=torch.int32, device=q_desc.device)
     lib = kbuild.load()
     kbuild.check(lib.svt_hamming_top2(
         M, N, q_desc.data_ptr(), t_desc.data_ptr(), row_ok.data_ptr(),
         col_ok.data_ptr(), int(window is not None), *w_ptrs,
-        int(orient is not None), *o_ptrs, cos_thr, out.data_ptr(),
+        o_mode, *o_ptrs, o_thr, out.data_ptr(),
         kbuild.stream_ptr(q_desc.device)), "hamming_top2")
     hamming_top2.launches += 1
     return out[:, 0], out[:, 1], out[:, 2], out[:, 3]

@@ -91,7 +91,7 @@ def make_cam_scalars(camera) -> CamScalars:
 class TrackingKernels:
     """The cascade, specialised to (camera, orb_params) on one device."""
 
-    def __init__(self, camera, orb_params, device="cpu", margin_last: float = 20.0,
+    def __init__(self, camera, orb_params, device="cuda", margin_last: float = 20.0,
                  margin_local: float = 5.0, num_matches_thr: int = 10):
         self.camera = camera
         self.orb = orb_params

@@ -1,7 +1,8 @@
 """SO(3) / SE(3) operations on torch tensors (f32, batched over leading dims).
 
-Port of the SE(3) part of stella_vslam_tpu/ops/lie.py used by tracking:
-`hat`, `so3_project`, `so3_exp`, `se3_exp`, `se3_update_left`, with the
+Port of the SE(3) part of stella_vslam_tpu/ops/lie.py used by tracking and
+bundle adjustment: `hat`, `so3_project`, `so3_exp`, `se3_exp`,
+`se3_compose`, `se3_update_left`, with the
 same Taylor switches (torch.where on a safe denominator) and conventions:
 camera-from-world poses, tangent xi = [rho(3), phi(3)], left Jacobian.
 """
@@ -72,4 +73,9 @@ def se3_exp(xi: torch.Tensor):
 def se3_update_left(R, t, xi):
     """Left-multiplicative update Exp(xi) * (R, t) — the GN/LM retraction."""
     dR, dt = se3_exp(xi)
-    return dR @ R, (dR @ t[..., None])[..., 0] + dt
+    return se3_compose(dR, dt, R, t)
+
+
+def se3_compose(Ra, ta, Rb, tb):
+    """(Ra, ta) * (Rb, tb): apply b, then a."""
+    return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta

@@ -1,12 +1,13 @@
-"""Public system API of the port: construction, RGBD frame feeding, results.
+"""Public system API of the port: construction, frame feeding, results.
 
-Port of stella_vslam_tpu/system.py for the RGBD tracking slice:
-`System(cfg, device, inline_mapping=True)` with startup / shutdown,
-`create_RGBD_frame` / `feed_RGBD_frame` (ORB extraction on kernels A and B,
-undistortion, bearings, depth sampling and the packed host mirror, all on
-the device) and `frame_poses`. The mapping module is not ported yet, so the
-system runs with mapping disabled; `feed_monocular_frame` and
-`feed_stereo_frame` raise NotImplementedError naming their ROADMAP items.
+Port of stella_vslam_tpu/system.py for the RGBD tracking and monocular
+slices: `System(cfg, device, inline_mapping=True)` with startup / shutdown,
+`create_monocular_frame` / `feed_monocular_frame` and `create_RGBD_frame` /
+`feed_RGBD_frame` (ORB extraction on kernels A and B, undistortion,
+bearings, depth sampling for RGBD and the packed host mirror, all on the
+device) and `frame_poses`. The mapping module is not ported yet, so the
+system runs with mapping disabled; `feed_stereo_frame` raises
+NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -52,6 +53,7 @@ class System:
         tr = cfg.section("Tracking")
         self.tracker = TrackingModule(
             self.map_db, self.camera, self.orb_params, device=self.device,
+            use_fixed_seed=bool(cfg.get("Initializer", "use_fixed_seed", False)),
             margin_last_frame_projection=float(
                 tr.get("margin_last_frame_projection", 20.0)),
             margin_local_map_projection=float(
@@ -77,9 +79,23 @@ class System:
             "the mapping module is not ported yet (ROADMAP Queue 1 item 9)")
 
     # ------------------------------------------------------------------
+    def create_monocular_frame(self, img, timestamp: float, mask=None) -> Frame:
+        """Extraction, undistortion, bearings and the packed host mirror of
+        one gray image (the RGBD preprocess with x_right and depth at -1)."""
+        if self.camera.setup != Setup.MONOCULAR:
+            raise ValueError("feed_monocular_frame needs a camera with setup monocular")
+        feats, und, bear = self._extract(img, mask)
+        frm = Frame(timestamp, self.camera, self.orb_params, feats, und, bear)
+        frm.attach_packed_host(pack_host_cols(
+            feats.xy, und, bear, feats.level, feats.angle, feats.valid,
+            feats.response, frm.x_right, frm.depths, feats.desc))
+        return frm
+
     def feed_monocular_frame(self, img, timestamp: float, mask=None):
-        raise NotImplementedError(
-            "monocular tracking needs the initializer (ROADMAP Queue 1 item 7)")
+        """Initialize or track one frame; returns its pose_cw, or None while
+        initializing or lost."""
+        return self.tracker.feed_frame(
+            self.create_monocular_frame(img, timestamp, mask))
 
     def feed_stereo_frame(self, img_left, img_right, timestamp: float, mask=None):
         raise NotImplementedError(
@@ -90,16 +106,9 @@ class System:
         host mirror for one gray image and its raw depth map."""
         if self.camera.setup != Setup.RGBD:
             raise ValueError("feed_RGBD_frame needs a camera with setup RGBD")
-        if mask is not None:
-            raise NotImplementedError(
-                "extraction masks are not ported yet (ROADMAP Queue 1 item 14)")
-        dev = self.device
-        image = torch.from_numpy(self._to_gray(img)).to(dev, non_blocking=True)
-        depth_map = torch.from_numpy(np.asarray(depth, np.float32)).to(dev)
-        feats = self.extractor.extract(image)
+        feats, und, bear = self._extract(img, mask)
         cam = self.camera
-        und = cam.undistort(feats.xy)
-        bear = cam.bearings(und)
+        depth_map = torch.from_numpy(np.asarray(depth, np.float32)).to(self.device)
         h, w = depth_map.shape
         xs = torch.clamp(feats.xy[:, 0].to(torch.int64), 0, w - 1)
         ys = torch.clamp(feats.xy[:, 1].to(torch.int64), 0, h - 1)
@@ -121,6 +130,16 @@ class System:
         """Track one frame; returns its pose_cw, or None when lost."""
         return self.tracker.feed_frame(
             self.create_RGBD_frame(img, depth, timestamp, mask))
+
+    def _extract(self, img, mask):
+        """(features, undistorted keypoints, bearings) of one image."""
+        if mask is not None:
+            raise NotImplementedError(
+                "extraction masks are not ported yet (ROADMAP Queue 1 item 14)")
+        image = torch.from_numpy(self._to_gray(img)).to(self.device, non_blocking=True)
+        feats = self.extractor.extract(image)
+        und = self.camera.undistort(feats.xy)
+        return feats, und, self.camera.bearings(und)
 
     @staticmethod
     def _to_gray(img) -> np.ndarray:

@@ -5,13 +5,15 @@ Port of stella_vslam_tpu/tracking_module.py with the behaviour of its
 tracking cascade (module/tracking_kernels.py) and finalized before
 feed_frame returns. States Initializing -> Tracking -> Lost as in the
 reference (tracking_module.cc:153-167); stereo/RGBD initialize from depth in
-one frame (`_create_map_for_stereo`).
+one frame (`_create_map_for_stereo`), monocular from two frames through the
+Initializer and the two-keyframe map's bundle adjustment
+(`_create_map_for_monocular`, `_init_map_ba`).
 
 Not ported yet, and where they come in (ROADMAP Queue 1): the batched result
 fetcher and finalize thread of the pipelined mode (item 8), the chain rebase
 at a table publish and keyframe insertion (they follow map updates by the
-mapping module, item 9), the monocular initializer (item 7) and the
-relocalizer (item 13) — a lost frame stays lost.
+mapping module, item 9) and the relocalizer (item 13) — a lost frame stays
+lost.
 
 The device-chained association state (positions, validity, landmark ids of
 the last frame's inliers) and the chained poses stay on the device between
@@ -28,8 +30,12 @@ import torch
 from stella_vslam_tpu_torch.camera.base import Setup
 from stella_vslam_tpu_torch.data.frame import Frame
 from stella_vslam_tpu_torch.data.keyframe import Keyframe
+from stella_vslam_tpu_torch.data.landmark import Landmark
+from stella_vslam_tpu_torch.module.initializer import Initializer
 from stella_vslam_tpu_torch.module.keyframe_inserter import KeyframeInserter
-from stella_vslam_tpu_torch.module.tracking_kernels import TrackingKernels
+from stella_vslam_tpu_torch.module.tracking_kernels import (
+    TrackingKernels, make_cam_scalars)
+from stella_vslam_tpu_torch.ops.optim import ba as ba_mod
 
 _log = logging.getLogger(__name__)
 
@@ -39,7 +45,8 @@ STATE_LOST = "Lost"
 
 
 class TrackingModule:
-    def __init__(self, map_db, camera, orb_params, *, device="cpu",
+    def __init__(self, map_db, camera, orb_params, *, device="cuda",
+                 use_fixed_seed: bool = False,
                  num_matches_thr: int = 10, min_num_tracked_lms: int = 20,
                  margin_last_frame_projection: float = 20.0,
                  margin_local_map_projection: float = 5.0):
@@ -51,6 +58,8 @@ class TrackingModule:
             camera, orb_params, device=device, num_matches_thr=num_matches_thr,
             margin_last=margin_last_frame_projection,
             margin_local=margin_local_map_projection)
+        self.initializer = Initializer(camera, orb_params,
+                                       use_fixed_seed=use_fixed_seed)
         self.keyfrm_inserter = KeyframeInserter(camera)
         self.num_matches_thr = num_matches_thr
         self.min_num_tracked_lms = min_num_tracked_lms
@@ -254,12 +263,137 @@ class TrackingModule:
         self._kf_for_assoc = kf
 
     # ------------------------------------------------------------------
+    def reset(self):
+        """Clear the map and go back to Initializing; the initializer
+        restarts too."""
+        self.map_db.clear()
+        self.initializer.reset()
+        self.state = STATE_INITIALIZING
+        self.last_frm = None
+        self.twist = None
+        self.ref_keyfrm_id = None
+        self._last_assoc_pos = None
+        self._last_assoc_valid = None
+        self._last_assoc_id = None
+        self._dev_pose = None
+        self._dev_pose_prev = None
+        self._kf_for_assoc = None
+
+    # ------------------------------------------------------------------
     def _initialize(self, frm: Frame) -> bool:
         if self.camera.setup == Setup.MONOCULAR:
-            raise NotImplementedError(
-                "the monocular initializer is not ported yet "
-                "(ROADMAP Queue 1 item 7)")
+            if not self.initializer.try_initialize_monocular(frm):
+                return False
+            return self._create_map_for_monocular(frm)
         return self._create_map_for_stereo(frm)
+
+    def _create_map_for_monocular(self, cur_frm: Frame) -> bool:
+        """The two-keyframe map of a successful initialization: landmarks
+        from the triangulated matches, then the init BA. Fewer than 20
+        landmarks undo the attempt."""
+        init = self.initializer
+        ref_frm = init.init_frame
+        map_db = self.map_db
+        ref_frm.set_pose_cw(np.eye(4))
+        T = np.eye(4)
+        T[:3, :3] = init.R_21
+        T[:3, 3] = init.t_21
+        cur_frm.set_pose_cw(T)
+        ref_kf = Keyframe(ref_frm, map_db)
+        map_db.add_keyframe(ref_kf)
+        cur_kf = Keyframe(cur_frm, map_db)
+        map_db.add_keyframe(cur_kf)
+        matches = init.init_matches
+        pts = init.triangulated_pts
+        created = 0
+        for ref_idx in np.nonzero(init.triangulated_ok)[0]:
+            cur_idx = int(matches[ref_idx])
+            if cur_idx < 0:
+                continue
+            lm = Landmark(map_db.next_landmark_id(), pts[ref_idx], cur_kf.id)
+            lm.first_keyfrm_id = ref_kf.id
+            lm.add_observation(ref_kf.id, int(ref_idx))
+            lm.add_observation(cur_kf.id, cur_idx)
+            ref_kf.add_landmark(lm.id, int(ref_idx))
+            cur_kf.add_landmark(lm.id, cur_idx)
+            cur_frm.add_landmark(lm.id, cur_idx)
+            map_db.add_landmark(lm)
+            lm.compute_descriptor(map_db)
+            lm.update_mean_normal_and_obs_scale_variance(map_db)
+            created += 1
+        if created < 20:
+            map_db.clear()
+            init.reset()
+            return False
+        ref_kf.graph_node.update_connections(map_db)
+        cur_kf.graph_node.update_connections(map_db)
+        self._init_map_ba(ref_kf, cur_kf)
+        cur_frm.set_pose_cw(cur_kf.pose_cw)
+        self.ref_keyfrm_id = cur_kf.id
+        cur_frm.ref_keyfrm_id = cur_kf.id
+        map_db.refresh_device_table()
+        self.twist = None
+        return True
+
+    @staticmethod
+    def _init_ba_capacity(num_slots: int) -> int:
+        """Landmark rows of the two-keyframe BA: one fixed shape per feature
+        budget (the next power of two, at least 64)."""
+        return max(64, 1 << int(np.ceil(np.log2(max(num_slots, 2)))))
+
+    def _init_map_ba(self, kf1: Keyframe, kf2: Keyframe):
+        """Global BA of the two init keyframes (kf1 fixed) and their
+        landmarks, on kernels F, G, H, I; writes back kf2's pose and the
+        landmark positions and statistics."""
+        map_db = self.map_db
+        lm_ids = sorted({int(i) for i in kf1.lm_ids if i >= 0}
+                        | {int(i) for i in kf2.lm_ids if i >= 0})
+        L = self._init_ba_capacity(kf1.num_slots)
+        lm_ids = lm_ids[:L]
+        D = 2
+        inv_sigma = np.asarray(self.orb_params.inv_level_sigma_sq, np.float32)
+        lm_pos = np.zeros((L, 3), np.float32)
+        lm_valid = np.zeros(L, bool)
+        obs_cam = np.zeros((L, D), np.int32)
+        obs_uv = np.zeros((L, D, 2), np.float32)
+        obs_w = np.ones((L, D), np.float32)
+        obs_valid = np.zeros((L, D), bool)
+        slots = {kf1.id: 0, kf2.id: 1}
+        kfs = {kf1.id: kf1, kf2.id: kf2}
+        for l, lm_id in enumerate(lm_ids):
+            lm = map_db.landmarks[lm_id]
+            lm_pos[l] = lm.pos_w
+            lm_valid[l] = True
+            for d, (kf_id, idx) in enumerate(lm.observations.items()):
+                if d >= D:
+                    break
+                kf = kfs[kf_id]
+                obs_cam[l, d] = slots[kf_id]
+                obs_uv[l, d] = kf.h_undist_xy[idx]
+                obs_w[l, d] = inv_sigma[int(kf.h_level[idx])]
+                obs_valid[l, d] = True
+        dev = self.device
+        t = lambda a: torch.from_numpy(a).to(dev)
+        prob = ba_mod.BAProblem(
+            cam_R=t(np.stack([kf1.rot_cw, kf2.rot_cw]).astype(np.float32)),
+            cam_t=t(np.stack([kf1.trans_cw, kf2.trans_cw]).astype(np.float32)),
+            cam_fixed=t(np.array([True, False])), cam_valid=t(np.array([True, True])),
+            lm_pos=t(lm_pos), lm_valid=t(lm_valid), obs_cam=t(obs_cam),
+            obs_uv=t(obs_uv), obs_x_right=t(np.full((L, D), -1.0, np.float32)),
+            obs_inv_sigma_sq=t(obs_w), obs_valid=t(obs_valid))
+        res = ba_mod.bundle_adjust(prob, make_cam_scalars(self.camera),
+                                   model=self.camera.model.name.lower())
+        camR, camt = res.cam_R.cpu().numpy(), res.cam_t.cpu().numpy()
+        lm_new = res.lm_pos.cpu().numpy()
+        T = np.eye(4)
+        T[:3, :3] = camR[1]
+        T[:3, 3] = camt[1]
+        kf2.set_pose_cw(T)
+        for l, lm_id in enumerate(lm_ids):
+            lm = map_db.landmarks.get(lm_id)
+            if lm is not None:
+                lm.pos_w = lm_new[l].astype(np.float64)
+                lm.update_mean_normal_and_obs_scale_variance(map_db)
 
     def _create_map_for_stereo(self, cur_frm: Frame) -> bool:
         depths = cur_frm.h_depths

@@ -112,3 +112,141 @@ def test_pose_lm_kernel_matches_plain(dev, N):
     assert float((rk.R_cw - rp.R_cw).abs().max()) < 1e-4
     assert float((rk.t_cw - rp.t_cw).abs().max()) < 1e-4
     assert float((rk.is_inlier != rp.is_inlier).float().mean()) <= 0.01
+
+
+def test_hamming_top2_angle_gate_matches_plain(dev):
+    """Kernel C's angle-gate mode (the area matcher) against the plain
+    version: CUDA's sinf / atan2f may differ from torch's in the last ulp,
+    so a pair within an ulp of the 30 degree threshold may gate the other
+    way; at most 0.5% of the rows may differ."""
+    from stella_vslam_tpu_torch.match import area
+
+    g = torch.Generator().manual_seed(3)
+    M, N = 700, 900
+    q = torch.randint(-2 ** 31, 2 ** 31, (M, 8), generator=g, dtype=torch.int64)
+    t = torch.randint(-2 ** 31, 2 ** 31, (N, 8), generator=g, dtype=torch.int64)
+    t[:M] = q ^ (torch.randint(0, 2, (M, 8), generator=g) << 5)
+    q, t = q.to(torch.int32).to(dev), t.to(torch.int32).to(dev)
+    ang = lambda n: (torch.rand(n, generator=g) * 12.0 - 6.0).to(dev)
+    ori = H.AngleGate(ang(M), ang(N), area.ANGLE_THR)
+    ok_q = (torch.rand(M, generator=g) < 0.9).to(dev)
+    ok_t = (torch.rand(N, generator=g) < 0.9).to(dev)
+    k = H.hamming_top2(q, t, ok_q, ok_t, orient=ori)
+    p = H.hamming_top2_plain(q, t, ok_q, ok_t, orient=ori)
+    differ = torch.zeros(M, dtype=torch.bool, device=dev)
+    for a, b in zip(k, p):
+        differ |= a != b
+    assert float(differ.float().mean()) <= 0.005
+
+
+def _two_view_dev(dev, n, planar, seed):
+    rng = np.random.default_rng(seed)
+    fx, cx, cy = 458.0, 376.0, 240.0
+    uv1 = np.stack([rng.uniform(10, 742, n), rng.uniform(10, 470, n)], -1)
+    z = np.full(n, 4.0) if planar else rng.uniform(2.0, 8.0, n)
+    X = np.stack([(uv1[:, 0] - cx) * z / fx, (uv1[:, 1] - cy) * z / fx, z], -1)
+    Xc = X + np.array([0.3, 0.02, 0.05])
+    uv2 = np.stack([fx * Xc[:, 0] / Xc[:, 2] + cx, fx * Xc[:, 1] / Xc[:, 2] + cy], -1)
+    uv2 = uv2 + rng.normal(0, 0.5, uv2.shape)
+    out = rng.random(n) < 0.3
+    uv2[out] = rng.uniform(0, 700, (int(out.sum()), 2))
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev).contiguous()
+    return f(uv1), f(uv2), torch.as_tensor(rng.random(n) < 0.9, device=dev)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4])
+@pytest.mark.parametrize("which", ["H", "F"])
+def test_ransac_kernel_matches_plain(dev, which, seed):
+    """Kernel E's three entry points against their plain versions: the same
+    hashed sets, models within f32 tolerance, the same best inlier count."""
+    from stella_vslam_tpu_torch.ops.solve import fundamental as Fm
+    from stella_vslam_tpu_torch.ops.solve import homography as Hm
+    from stella_vslam_tpu_torch.ops.solve import ransac as R
+
+    mod = Hm if which == "H" else Fm
+    p1, p2, v = _two_view_dev(dev, 517, which == "H", seed)
+    Mk, ck, nk = R.minimal_hypotheses(mod.MODEL, 1233 + seed, p1, p2, v, 200)
+    Mp, cp, np_ = R.minimal_hypotheses_plain(mod.MODEL, 1233 + seed, p1, p2, v, 200, 1.0)
+    # Where a minimal set's A^T A has a small eigen-gap, 18 squarings do not
+    # converge, and the kernel's float32 sums (in another order than
+    # torch's) give another null vector. Most hypotheses, not all, score the
+    # same count. Measured on the card (H100 80GB HBM3, seeds 1-4): H 0.985,
+    # 0.970, 0.990, 0.965; F 0.890, 0.895, 0.965, 0.915. Both versions are
+    # deterministic, so the bounds keep a margin of 0.015 and 0.04 under the
+    # lowest reading. chip_smoke.py's F route readings locate F's
+    # divergence in the null vector, not in the rank-2 step.
+    share = float((nk == np_).float().mean())
+    assert share >= (0.95 if which == "H" else 0.85), share
+    rk = R.find_core(mod.MODEL, 98 + seed, p1, p2, v, 300, 1.0, 1)
+    rp = R.find_core_plain(mod.MODEL, 98 + seed, p1, p2, v, 300, 1.0, 1)
+    assert bool(rk.valid) and bool(rp.valid)
+    assert int(rk.num_inliers) == int(rp.num_inliers)
+    assert float((rk.is_inlier == rp.is_inlier).float().mean()) >= 0.99
+
+
+def _ba_problem(dev, K, L, D, stereo, keep=False):
+    """K cameras 0.4 m apart, L points 2.5-4.5 m away seen by D of them,
+    0.5 px noise, 5% gross outliers, camera 0 fixed; with `keep`, a third of
+    the landmarks marked lm_keep_inlier."""
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    rng = np.random.default_rng(K * 10 + D)
+    fx, cx, cy, fxb = 458.0, 376.0, 240.0, float(np.float32(458.0 * 0.12))
+    t = np.stack([[-0.4 * k, 0.04 * k, 0.0] for k in range(K)])
+    X = np.stack([rng.uniform(-1.5, 1.5, L), rng.uniform(-1, 1, L),
+                  rng.uniform(2.5, 4.5, L)], -1)
+    oc = np.stack([rng.permutation(K)[:D] for _ in range(L)]).astype(np.int32)
+    Xc = X[:, None, :] + t[oc]
+    uv = np.stack([fx * Xc[..., 0] / Xc[..., 2] + cx, fx * Xc[..., 1] / Xc[..., 2] + cy], -1)
+    xr = np.where(rng.random((L, D)) < (0.5 if stereo else 0.0),
+                  uv[..., 0] - fxb / Xc[..., 2], -1.0)
+    uv = uv + rng.normal(0, 0.5, uv.shape)
+    out = rng.random((L, D)) < 0.05
+    uv[out] += 25.0
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    b = lambda a: torch.as_tensor(np.asarray(a, bool), device=dev)
+    cam_t = t + np.concatenate([[[0, 0, 0]], rng.normal(0, 0.01, (K - 1, 3))])
+    prob = ba.BAProblem(
+        cam_R=f(np.tile(np.eye(3), (K, 1, 1))), cam_t=f(cam_t),
+        cam_fixed=b(np.arange(K) == 0), cam_valid=b(np.ones(K)),
+        lm_pos=f(X + rng.normal(0, 0.01, X.shape)), lm_valid=b(np.ones(L)),
+        obs_cam=torch.as_tensor(oc, device=dev), obs_uv=f(uv), obs_x_right=f(xr),
+        obs_inv_sigma_sq=f(np.ones((L, D))), obs_valid=b(rng.random((L, D)) < 0.95),
+        lm_keep_inlier=b(rng.random(L) < 1 / 3) if keep else None)
+    return prob, CamScalars(fx, fx, cx, cy, 752.0, 480.0, fxb)
+
+
+@pytest.mark.parametrize("K,L,D,stereo", [(2, 1000, 2, False), (4, 300, 3, True)])
+def test_ba_kernels_match_plain(dev, K, L, D, stereo):
+    """Kernels F, G, H, I against the plain BA: poses within 1e-4, points
+    seen twice within 1e-3 (chip_smoke.py measured 4.7e-5 at L=4096; the
+    atomics' summation order moves them), outlier flags identical, every
+    kernel launched."""
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    prob, cam = _ba_problem(dev, K, L, D, stereo)
+    before = ba.ba_reduced_solve.launches, ba.ba_classify.launches
+    rk = ba.bundle_adjust(prob, cam)
+    rp = ba.bundle_adjust_plain(prob, cam)
+    assert ba.ba_reduced_solve.launches > before[0]
+    assert ba.ba_classify.launches == before[1] + 2
+    assert float((rk.cam_R - rp.cam_R).abs().max()) < 1e-4
+    assert float((rk.cam_t - rp.cam_t).abs().max()) < 1e-4
+    good = (prob.obs_valid & ~rp.obs_is_outlier).sum(1) >= 2
+    assert float((rk.lm_pos - rp.lm_pos)[good].abs().max()) < 1e-3
+    assert torch.equal(rk.obs_is_outlier, rp.obs_is_outlier)
+
+
+@pytest.mark.parametrize("final", [False, True])
+def test_ba_classify_kernel_matches_plain(dev, final):
+    """Kernel I at the initial state of a stereo problem with lm_keep_inlier
+    rows: the same masks as its plain version (the same float32 expression
+    per observation, so equal up to a chi-square within an ulp of its
+    threshold: at most 0.1% of the observations)."""
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    prob, cam = _ba_problem(dev, 4, 777, 3, True, keep=True)
+    k = ba.ba_classify(ba._KernelState(prob, cam), final)
+    p = ba.classify_plain(prob, cam, prob.cam_R, prob.cam_t, prob.lm_pos, final)
+    assert k.dtype == torch.bool and k.shape == p.shape
+    assert float((k != p).float().mean()) <= 1e-3

@@ -1,6 +1,12 @@
 """The port imports neither jax, cv2 nor the JAX package, and yaml only
-inside Config.from_yaml_file — the card's machine has none of them."""
+inside Config.from_yaml_file — the card's machine has none of them. It reads
+no file of the JAX package either, and its constructors default to the
+card."""
+import ast
+import importlib
+import inspect
 import os
+import pkgutil
 import subprocess
 import sys
 import textwrap
@@ -38,3 +44,75 @@ def test_config_reads_yaml_lazily(tmp_path):
     cfg = Config.from_yaml_file(str(p))
     assert cfg.get("Feature", "num_levels") == 4
     assert Config(path=str(p)).get("Camera", "fx") == 320.0
+
+
+PKG_DIR = os.path.join(REPO, "stella_vslam_tpu_torch")
+
+
+def _port_modules():
+    import stella_vslam_tpu_torch as pkg
+
+    return [importlib.import_module(m.name) for m in
+            pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+
+
+def test_port_refers_to_no_path_of_the_jax_package():
+    """No string in the port's code (docstrings aside) names the JAX
+    package's directory, and loading the OpenCV pair table opens no file
+    under it."""
+    for root, _, files in os.walk(PKG_DIR):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(root, name)
+            tree = ast.parse(open(path).read())
+            docs = {id(n.body[0].value) for n in ast.walk(tree)
+                    if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef))
+                    and n.body and isinstance(n.body[0], ast.Expr)}
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                        and id(node) not in docs:
+                    v = node.value.replace("stella_vslam_tpu_torch", "")
+                    assert "stella_vslam_tpu" not in v, (path, node.value)
+    code = textwrap.dedent("""
+        import os, sys
+        jax_dir = os.path.join(os.getcwd(), "stella_vslam_tpu") + os.sep
+        opened = []
+        def hook(event, args):
+            if event == "open" and isinstance(args[0], str) \\
+                    and os.path.abspath(args[0]).startswith(jax_dir):
+                opened.append(args[0])
+        sys.addaudithook(hook)
+        from stella_vslam_tpu_torch.feature import orb_pattern
+        pairs = orb_pattern.opencv_brief_pattern()
+        assert pairs.shape == (256, 4), pairs.shape
+        assert not opened, opened
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_opencv_pairs_copy_is_byte_identical():
+    with open(os.path.join(REPO, "stella_vslam_tpu", "feature",
+                           "opencv_orb_pairs.npy"), "rb") as f:
+        ref = f.read()
+    with open(os.path.join(PKG_DIR, "feature", "opencv_orb_pairs.npy"), "rb") as f:
+        assert f.read() == ref
+
+
+def test_public_constructors_default_to_the_card():
+    """Every class of the port whose constructor takes a device defaults it
+    to "cuda" (read from the signature; nothing is constructed)."""
+    found = {}
+    for mod in _port_modules():
+        for name, cls in inspect.getmembers(mod, inspect.isclass):
+            if cls.__module__ != mod.__name__ or name.startswith("_"):
+                continue
+            params = inspect.signature(cls.__init__).parameters
+            if "device" in params:
+                found[name] = params["device"].default
+    expected = {"System", "TrackingModule", "TrackingKernels", "OrbExtractor",
+                "DeviceLandmarkTable", "MapDatabase"}
+    assert expected <= set(found), sorted(found)
+    assert all(v == "cuda" for v in found.values()), found

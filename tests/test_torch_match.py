@@ -114,3 +114,25 @@ def test_brute_force_match_exact(data):
     out_t = R.brute_force_match(*[_t(d[k]) for k in args], lowe_ratio=0.75)
     assert int(np.asarray(out_j[1]).sum()) > 20
     _eq(out_j, out_t)
+
+
+@pytest.mark.parametrize("margin", [100.0, 15.0])
+def test_match_in_consistent_area_exact(data, margin):
+    """The initializer's area matcher: kernel C with the window centred on
+    the previous matches and the angle gate (plain version here)."""
+    from stella_vslam_tpu.match import area as jA
+    from stella_vslam_tpu_torch.match import area as A
+
+    d = data
+    # most keypoints at level 0: the matcher only pairs level-0 keypoints
+    kp_level = np.where(np.arange(N) % 4 == 3, d["kp_level"], 0).astype(np.int32)
+    q_level = kp_level[np.arange(M) % N]
+    args = [q_level, d["q_desc"], d["q_angle"], d["q_valid"],
+            d["q_uv"], d["kp_uv"], kp_level, d["kp_desc"], d["kp_angle"],
+            d["kp_valid"]]
+    out_j = jA.match_in_consistent_area(*[jnp.asarray(a) for a in args],
+                                        margin=margin, lowe_ratio=0.9)
+    out_t = A.match_in_consistent_area(*[_t(a) for a in args], margin=margin,
+                                       lowe_ratio=0.9)
+    assert int(np.asarray(out_j[1]).sum()) > 20
+    _eq(out_j, out_t)

@@ -39,7 +39,7 @@ def make_setup():
     images = [world.render(T) for T in lateral_trajectory(3, step=0.03)]
     jex = JaxExtractor(JaxOrbParams(num_levels=4), 400, 300, min_area=400)
     tex = ox.OrbExtractor(OrbParams(num_levels=4), 400, 300, min_area=400,
-                          tables=convert.extractor_tables(jex))
+                          device="cpu", tables=convert.extractor_tables(jex))
     return images, jex, tex
 
 

@@ -63,8 +63,9 @@ def run_pair(use_motion):
             snap.tbl_f32, snap.tbl_u32, *tr._dev_pose, *tr._dev_pose_prev]
     out_j = tr.kernels.track_frame(*args, use_motion=use_motion, margin_local=5.0)
 
-    tk = TrackingKernels(camera_from_yaml(cfg["Camera"]), OrbParams(num_levels=4))
-    tbl_f32, tbl_u32 = convert.table_snap(snap)
+    tk = TrackingKernels(camera_from_yaml(cfg["Camera"]), OrbParams(num_levels=4),
+                         device="cpu")
+    tbl_f32, tbl_u32 = convert.table_snap(snap, device="cpu")
     targs = [_t(a) for a in args]
     targs[17], targs[18] = tbl_f32, tbl_u32
     out_t = tk.track_frame(*targs, use_motion=use_motion, margin_local=5.0)
