@@ -38,15 +38,41 @@ Phases, each fatal on failure (nothing is caught):
      of the same world (the bench's mono settings): initialized by frame 10,
      at most 2 frames lost after init, Sim3 ATE < 0.10 m, kernels A-I
      launched; frame time p50/p99 over the steady frames and the init
-     frame's time by phase.
+     frame's time by phase;
+  7. the map slice: System in monocular mode with mapping enabled and
+     inline, 500 frames of the same world (the bench's whole outbound leg,
+     x from 0 to 7.49 m): at most 2 frames lost after init, Sim3 ATE
+     < 0.10 m, at least 12 local BAs and 5 keyframes kept at the end, kernels
+     A-L launched; frame and keyframe-event times by phase
+     (util/map_slice.py);
+  8. the mapping kernels on the map slice's own inputs: J (epipolar top-2)
+     and K (DLT and checks) on its triangulation with the most neighbours,
+     L (fuse) on its fuse chunk with the most landmarks, against their plain
+     versions (rows or flags differing <= 1e-3, K's positions within 1e-4
+     relative where both are ok); F-I at the local-BA shape (K=16, L=4096,
+     D=12, 3 + 6 iterations, the local BA's layout of observers) against
+     the plain BA with phase 4's bounds, and on every local problem of the
+     slice kernel by kernel on the kernels' own state (_lockstep_ba): F's
+     camera blocks, reduced system and cost no farther from plain F in
+     float64 than 10x plain F's own float32 error plus 1e-4 (each entry
+     relative to the sum of its terms' absolute values), G's step with a
+     backward error below 1e-3 in float64 (n^2 eps for the 96 x 96 system)
+     and its trial poses within 1e-5, H's trial cost within 1e-4 relative
+     and each trial point within 1e-3 or, where larger, 1e-4 rad of its ray
+     sensitivity (depth^2 / baseline), the same accept / stop decisions
+     and outlier flags wherever the deciding quantity lies more than 1e-5
+     from its threshold; the whole BA of each, kernel against plain and
+     each against itself, is printed; times and bounds as in phase 4.
 Launch counts are set to 0 just before each slice and read just after it;
-the kernels line reports the mono slice's. The line before the last is
+the kernels line reports the map slice's (which runs every kernel), with
+the mono and RGBD slices' beside them. The line before the last is
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Long
 logs go to chiprun_out/.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -58,6 +84,9 @@ DESC_MISMATCH_BOUND = 5e-5  # tests/test_torch_orb.py DESC_BIT_MISMATCH_MAX
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
+# kernels J, K, L: the mapping module's, which the mono and RGBD slices
+# (mapping disabled) never launch
+MAPPING_KERNELS = ("epipolar_top2", "triangulate", "fuse")
 
 
 def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -275,19 +304,24 @@ def _two_view(dev, n, planar, seed):
     return f(uv1), f(uv2), torch.as_tensor(rng.random(n) < 0.9, device=dev)
 
 
-def _ba_problem(dev, K, L, D, stereo, seed):
-    """A BA problem: K cameras 0.4 m apart, L points 2.5-4.5 m away, D
-    observers each, 0.5 px noise, 5% gross outliers, camera 0 fixed."""
+def _ba_problem(dev, K, L, D, stereo, seed, spacing=0.4, ordered=False):
+    """A BA problem: K cameras `spacing` m apart, L points 2.5-4.5 m away, D
+    observers each, 0.5 px noise, 5% gross outliers, camera 0 fixed.
+    `ordered`: the local BA's layout (runs of 64 landmarks share their
+    observers in slot order, 10% of the slots padded and pointing at camera
+    0), where whole warps of kernel F add into one camera block."""
     import torch
 
     from stella_vslam_tpu_torch.ops.optim import ba
 
     rng = np.random.default_rng(seed)
     fx, cx, cy, fxb = 458.0, 376.0, 240.0, float(np.float32(458.0 * 0.12))
-    t = np.stack([[-0.4 * k, 0.04 * k, 0.0] for k in range(K)])
+    t = np.stack([[-spacing * k, 0.1 * spacing * k, 0.0] for k in range(K)])
     X = np.stack([rng.uniform(-1.5, 1.5, L), rng.uniform(-1, 1, L),
                   rng.uniform(2.5, 4.5, L)], -1)
     oc = np.stack([rng.permutation(K)[:D] for _ in range(L)]).astype(np.int32)
+    if ordered:
+        oc = np.stack([(np.arange(D) + l // 64) % K for l in range(L)]).astype(np.int32)
     Xc = X[:, None, :] + t[oc]
     uv = np.stack([fx * Xc[..., 0] / Xc[..., 2] + cx, fx * Xc[..., 1] / Xc[..., 2] + cy], -1)
     xr = np.where(rng.random((L, D)) < (0.5 if stereo else 0.0),
@@ -298,12 +332,16 @@ def _ba_problem(dev, K, L, D, stereo, seed):
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     b = lambda a: torch.as_tensor(np.asarray(a, bool), device=dev)
     cam_t = t + np.concatenate([[[0, 0, 0]], rng.normal(0, 0.01, (K - 1, 3))])
+    lm_pos = X + rng.normal(0, 0.01, X.shape)
+    valid = rng.random((L, D)) < (0.9 if ordered else 0.95)
+    if ordered:
+        oc[~valid] = 0
     prob = ba.BAProblem(
         cam_R=f(np.tile(np.eye(3), (K, 1, 1))), cam_t=f(cam_t),
         cam_fixed=b(np.arange(K) == 0), cam_valid=b(np.ones(K)),
-        lm_pos=f(X + rng.normal(0, 0.01, X.shape)), lm_valid=b(np.ones(L)),
+        lm_pos=f(lm_pos), lm_valid=b(np.ones(L)),
         obs_cam=torch.as_tensor(oc, device=dev), obs_uv=f(uv), obs_x_right=f(xr),
-        obs_inv_sigma_sq=f(np.ones((L, D))), obs_valid=b(rng.random((L, D)) < 0.95))
+        obs_inv_sigma_sq=f(np.ones((L, D))), obs_valid=b(valid))
     from stella_vslam_tpu_torch.ops.optim.residuals import CamScalars
 
     return prob, CamScalars(fx, fx, cx, cy, 752.0, 480.0, fxb)
@@ -440,35 +478,221 @@ def check_init_kernels(dev, world):
     errs = []
     for K, L, D, stereo in ((2, 4096, 2, False), (8, 4096, 4, True)):
         prob, cam = _ba_problem(dev, K, L, D, stereo, K)
-        rk = ba.bundle_adjust(prob, cam)
-        rp = ba.bundle_adjust_plain(prob, cam)
-        torch.cuda.synchronize()
-        e_pose = max(float((rk.cam_R - rp.cam_R).abs().max()),
-                     float((rk.cam_t - rp.cam_t).abs().max()))
-        same = bool(torch.equal(rk.obs_is_outlier, rp.obs_is_outlier))
-        good = (prob.obs_valid & ~rp.obs_is_outlier).sum(1) >= 2
-        e_pts = float((rk.lm_pos - rp.lm_pos)[good].abs().max())
-        print(f"kernels F-I bundle_adjust K={K} L={L} D={D}{' stereo' if stereo else ''}: "
-              f"max |pose diff| {e_pose:.3g}, points seen twice {e_pts:.3g}, "
-              f"outlier flags identical {same}, cost {float(rk.cost):.6g} "
-              f"(plain {float(rp.cost):.6g})")
-        assert e_pose < 1e-4 and e_pts < 1e-3 and same, \
-            "kernels F-I disagree with the plain BA"
-        errs.append(e_pose)
-    rows += _time_ba_kernels(dev, max(errs))
+        errs.append(_compare_ba(prob, cam, f"K={K} L={L} D={D}"
+                                f"{' stereo' if stereo else ''}"))
+    prob, cam = _ba_problem(dev, 2, 4096, 2, False, 2)
+    rows += _time_ba_kernels(dev, max(errs), prob, cam)
     return rows
 
 
-def _time_ba_kernels(dev, err):
-    """One LM iteration of the init-sized BA (K=2, L=4096, D=2), kernel by
-    kernel, against the plain version of each, and one classification;
-    rows F, G, H, I."""
+def _ray_sensitivity(prob, res, inlier):
+    """Per landmark, how far it moves along its rays per radian of pose
+    difference: depth^2 / baseline, with the baseline the farthest pair of
+    its inlier observers' camera centres and the depth to the nearest."""
+    import torch
+
+    C = -(res.cam_R.transpose(1, 2) @ res.cam_t[..., None])[..., 0]  # [K,3]
+    Co = C[prob.obs_cam.long().clamp(min=0)]  # [L,D,3]
+    pair = inlier[:, :, None] & inlier[:, None, :]
+    base = torch.where(pair, torch.linalg.norm(Co[:, :, None] - Co[:, None], dim=-1),
+                       torch.zeros((), device=Co.device)).amax((1, 2))
+    depth = torch.where(inlier, torch.linalg.norm(res.lm_pos[:, None] - Co, dim=-1),
+                        torch.full((), float("inf"), device=Co.device)).amin(1)
+    return depth * depth / base
+
+
+def _compare_ba(prob, cam, label, num_first=5, num_second=10):
+    """bundle_adjust (kernels F-I) against bundle_adjust_plain; fails unless
+    poses agree within 1e-4, points seen twice within 1e-3 and the outlier
+    flags are identical. Returns the max pose difference."""
     import torch
 
     from stella_vslam_tpu_torch.ops.optim import ba
 
-    K, L, D = 2, 4096, 2
-    prob, cam = _ba_problem(dev, K, L, D, False, 2)
+    kw = dict(num_first=num_first, num_second=num_second)
+    rk = ba.bundle_adjust(prob, cam, **kw)
+    rp = ba.bundle_adjust_plain(prob, cam, **kw)
+    torch.cuda.synchronize()
+    e_pose = max(float((rk.cam_R - rp.cam_R).abs().max()),
+                 float((rk.cam_t - rp.cam_t).abs().max()))
+    same = bool(torch.equal(rk.obs_is_outlier, rp.obs_is_outlier))
+    good = (prob.obs_valid & ~rp.obs_is_outlier).sum(1) >= 2
+    e_pts = float((rk.lm_pos - rp.lm_pos).abs().amax(-1)[good].max()) if bool(good.any()) else 0.0
+    n_flag = int((rk.obs_is_outlier != rp.obs_is_outlier).sum())
+    print(f"kernels F-I bundle_adjust {label}: max |pose diff| {e_pose:.3g}, points "
+          f"seen twice {e_pts:.3g}, outlier flags identical {same} ({n_flag} differ), cost "
+          f"{float(rk.cost):.6g} (plain {float(rp.cost):.6g})")
+    assert e_pose < 1e-4 and e_pts < 1e-3 and same, \
+        f"kernels F-I disagree with the plain BA at {label}"
+    return e_pose
+
+
+def _f_scale(prob, cam, R, t, p, inlier, lam, use_huber):
+    """Per entry of kernel F's outputs (Hcc, b_c, S_red, rhs_red), the sum of
+    the absolute values of the terms it adds up. Float32 rounding of a sum
+    is relative to that, not to the sum itself, which cancels near a
+    minimum: the gradient b_c and rhs_red of a converged problem are far
+    smaller than their terms."""
+    import torch
+
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    K = R.shape[0]
+    oc = prob.obs_cam.long()
+    r, Jc, Jp, depth_ok = ba._pose_rows(prob, R, t, p, cam)
+    wr = ba._row_weights(prob, r, depth_ok, inlier, use_huber)[0].abs()[..., None]
+    aJcw, aJpw, aJc, aJp, ar = (Jc.abs() * wr, Jp.abs() * wr, Jc.abs(), Jp.abs(), r.abs())
+    _, (Hpp, _, _, _, _, _) = ba._linearize(prob, R, t, p, inlier, cam, use_huber)
+    aW = torch.einsum("ldri,ldra->ldia", aJcw, aJp)
+    aA = aW @ ba._sym3_inv(Hpp, lam).abs()[:, None]
+    abp = torch.einsum("ldri,ldr->li", aJpw, ar)
+
+    def scatter(index, terms, shape):
+        out = torch.zeros(shape, dtype=R.dtype, device=R.device)
+        return out.index_add_(0, index, terms.reshape((-1,) + tuple(shape[1:])))
+
+    Hcc = scatter(oc.reshape(-1), torch.einsum("ldri,ldrj->ldij", aJcw, aJc), (K, 6, 6))
+    b_c = scatter(oc.reshape(-1), torch.einsum("ldri,ldr->ldi", aJcw, ar), (K, 6))
+    pair = (oc[:, :, None] * K + oc[:, None, :]).reshape(-1)
+    S = scatter(pair, torch.einsum("ldia,leja->ldeij", aA, aW), (K * K, 6, 6))
+    rhs = scatter(oc.reshape(-1), (aA @ abp[:, None, :, None])[..., 0], (K, 6))
+    return Hcc, b_c, S.reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(6 * K, 6 * K), \
+        rhs.reshape(-1)
+
+
+def _lockstep_ba(prob, cam, num_first, num_second):
+    """Kernels F-I against their plain versions on the same inputs, kernel
+    by kernel through bundle_adjust's schedule on the kernels' own state
+    (poses, points, lambda, inliers). F: its camera blocks, reduced system
+    and cost, and plain F's, each against plain F in float64, entry by entry
+    relative to the sum of the absolute values of the entry's terms
+    (_f_scale); "f_excess" is the kernel's error over 10x plain's plus 1e-4.
+    Plain F's own error there lies far above float32 rounding (the result
+    holds it): the float32 inverse of a point's 3x3 block is off by its
+    condition number times the rounding, which a point seen from a short
+    baseline raises to 1e7 at small damping. G on F's system: the backward error of its step against that
+    system in float64 (the step itself differs from plain G's by the
+    system's condition number times float32 rounding), and its trial poses
+    against Exp(step) composed by plain G. H on G's step against plain H on
+    the same step: trial points and cost. I against plain I. The accept /
+    stop decisions and the outlier flags count where they differ although
+    their deciding quantity lies more than 1e-5 (relative) from its
+    threshold. Returns the worst of each over the iterations."""
+    import torch
+
+    from stella_vslam_tpu_torch.ops import lie
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    K = prob.cam_R.shape[0]
+    st = ba._KernelState(prob, cam)
+    prob64 = ba.BAProblem(*[v.double() if v is not None and v.is_floating_point() else v
+                            for v in prob])
+    parts = ("Hcc", "b_c", "S_red", "rhs_red", "cost")
+    out = dict({f"f_{n}{w}": 0.0 for n in parts for w in ("", "_plain")}, f_excess=0.0,
+               g_backward=0.0, g_backward_plain=0.0, g_pose=0.0, g_step_diff=0.0,
+               point_share=0.0, cost_rel=0.0, decisions=0, flags=0, iterations=0)
+    state = lambda: (st.cam_R.reshape(K, 3, 3).clone(), st.cam_t.clone(), st.lm.clone())
+    iu = torch.triu_indices(6, 6, device=prob.cam_R.device)
+    worst = lambda key, v: out.__setitem__(key, max(out[key], float(v)))
+
+    def backward_error(S, rhs, dx):
+        x = dx.double().reshape(-1)
+        return float((S @ x + rhs).abs().max() / (S.abs().sum(1).max() * x.abs().max()
+                                                  + rhs.abs().max()))
+
+    def classify(final):
+        R, t, p = state()
+        fk = ba.ba_classify(st, final)
+        fp = ba.classify_plain(prob, cam, R, t, p, final)
+        _, chi2, _ = ba._total_cost(prob, R, t, p, torch.ones_like(prob.obs_valid), cam, False)
+        thr = torch.where(prob.obs_x_right > 0, torch.full_like(chi2, ba.CHI_SQ_3D),
+                          torch.full_like(chi2, ba.CHI_SQ_2D))
+        near = (chi2 / thr - 1.0).abs() <= 1e-5
+        out["flags"] += int(((fk != fp) & prob.obs_valid & ~near).sum())
+        return fk
+
+    def stage(inlier, use_huber, iters):
+        st.ctrl[ba._LAM] = 1e-4
+        st.ctrl[ba._DONE] = 0.0
+        st.ctrl[ba._LAST_COST] = math.inf
+        inl = inlier.to(torch.uint8).contiguous()
+        seen = inlier & prob.obs_valid
+        twice = (seen.sum(1) >= 2) & prob.lm_valid
+        for _ in range(iters):
+            if float(st.ctrl[ba._DONE]) != 0.0:
+                break
+            out["iterations"] += 1
+            R, t, p = state()
+            lam = st.ctrl[ba._LAM].clone()
+            # F
+            c0, Hcc, b_c, S_red, rhs_red, terms = ba.linearize_schur_plain(
+                prob, cam, R, t, p, inlier, lam, use_huber)
+            ba.ba_linearize_schur(st, inl, use_huber)
+            hc = st.hc.clone()
+            Hcc_k = torch.zeros_like(Hcc)
+            Hcc_k[:, iu[0], iu[1]] = hc[:, :21]
+            Hcc_k[:, iu[1], iu[0]] = hc[:, :21]
+            b_c_k, S_k, rhs_k = hc[:, 21:], st.S.clone(), st.rhs.clone()
+            c64, *f64 = ba.linearize_schur_plain(prob64, cam, R.double(), t.double(),
+                                                 p.double(), inlier, lam.double(), use_huber)[:5]
+            scale = _f_scale(prob, cam, R, t, p, inlier, lam, use_huber) + (c0,)
+            for name, u, v, e, m in zip(parts, (Hcc_k, b_c_k, S_k, rhs_k, st.ctrl[ba._COST0]),
+                                        (Hcc, b_c, S_red, rhs_red, c0), f64 + [c64], scale):
+                m = m.double().clamp(min=1e-30)
+                ek = float(((u.double() - e).abs() / m).max())
+                ep = float(((v.double() - e).abs() / m).max())
+                worst(f"f_{name}", ek)
+                worst(f"f_{name}_plain", ep)
+                worst("f_excess", ek / (10.0 * ep + 1e-4))
+            # G on F's system
+            ba.ba_reduced_solve(st)
+            dx_p, _, _ = ba.reduced_solve_plain(prob, R, t, Hcc_k, b_c_k, S_k, rhs_k, lam)
+            S64, rhs64 = ba.damped_reduced_system(prob, Hcc_k.double(), b_c_k.double(),
+                                                  S_k.double(), rhs_k.double(), lam.double())
+            worst("g_backward", backward_error(S64, rhs64, st.dx))
+            worst("g_backward_plain", backward_error(S64, rhs64, dx_p))
+            worst("g_step_diff", (st.dx - dx_p).abs().max())
+            Rn, tn = lie.se3_compose(*lie.se3_exp(st.dx.clone()), R, t)
+            Rn_k, tn_k = st.cam_Rn.reshape(K, 3, 3).clone(), st.cam_tn.clone()
+            worst("g_pose", max(float((Rn_k - Rn).abs().max()), float((tn_k - tn).abs().max())))
+            # H on G's step
+            pn, cost = ba.backsub_cost_plain(prob, cam, p, terms, st.dx.clone(), Rn_k, tn_k,
+                                             inlier, use_huber)
+            ba.ba_backsub_cost(st, inl, use_huber)
+            if bool(twice.any()):
+                trial = ba.BAResult(Rn_k, tn_k, pn, None, None)
+                allow = torch.clamp(1e-4 * _ray_sensitivity(prob, trial, seen), min=1e-3)
+                worst("point_share", ((st.lmn - pn).abs().amax(-1) / allow)[twice].max())
+            c0, cost = float(c0), float(cost)
+            worst("cost_rel", abs(float(st.ctrl[ba._LAST_COST]) - cost) / max(cost, 1e-12))
+            # kernel H halves lambda on an accepted step and multiplies it by 4
+            # on a rejected one (clamped to [1e-8, 1e4]; 6 rejections from 1e-4
+            # stay below 1e4)
+            imp_k = float(st.ctrl[ba._LAM]) <= float(lam)
+            imp_p, gain = cost < c0, (c0 - cost) / max(c0, 1e-12)
+            done_k, done_p = float(st.ctrl[ba._DONE]) != 0.0, imp_p and gain < 1e-3
+            if imp_k != imp_p and abs(gain) > 1e-5:
+                out["decisions"] += 1
+            elif imp_k == imp_p and done_k != done_p and abs(gain - 1e-3) > 1e-5:
+                out["decisions"] += 1
+
+    stage(torch.ones_like(prob.obs_valid), True, num_first)
+    inlier1 = classify(False)
+    if num_second > 0:
+        stage(inlier1, False, num_second)
+    classify(True)
+    return out
+
+
+def _time_ba_kernels(dev, err, prob, cam, suffix=""):
+    """One LM iteration of `prob`, kernel by kernel, against the plain
+    version of each, and one classification; rows F, G, H, I (names with
+    `suffix`)."""
+    import torch
+
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    K, L, D = prob.cam_R.shape[0], prob.obs_cam.shape[0], prob.obs_cam.shape[1]
     inl = torch.ones((L, D), dtype=torch.uint8, device=dev)
     st = ba._KernelState(prob, cam)
     ev = lambda: torch.cuda.Event(enable_timing=True)
@@ -501,13 +725,7 @@ def _time_ba_kernels(dev, err):
     back = lambda: ba.backsub_cost_plain(prob, cam, p0, terms, dx, Rn, tn, inlb, True)
     classify = lambda: ba.classify_plain(prob, cam, R0, t0, p0, True)
     # the damped reduced system, for the one-call library solve
-    tr = torch.diagonal(Hcc, dim1=-2, dim2=-1).sum(-1)
-    Hd = Hcc + (1e-4 * torch.clamp(tr / 6, min=1e-6) + 1e-7)[:, None, None] \
-        * torch.eye(6, device=dev)
-    free6 = ba._free(prob).repeat_interleave(6)
-    S = (-S_red + torch.block_diag(*Hd)) * free6[:, None] * free6[None, :] \
-        + torch.diag(1.0 - free6)
-    rhs = (b_c.reshape(-1) - rhs_red) * free6
+    S, rhs = ba.damped_reduced_system(prob, Hcc, b_c, S_red, rhs_red, lam)
     n = 6 * K
     # operations per observation: Jacobians ~60, Hcc + b_c 27x6, Hpp + b_p
     # 9x6, W 18x6; per landmark: its inverse ~40, D x (W G 108 + W G b 36),
@@ -530,10 +748,266 @@ def _time_ba_kernels(dev, err):
             ("ba_classify", "I", classify, None, obs_bytes + L * 12 + L * D,
              L * D * 30.0, "stella_vslam_tpu/ops/optim/ba.py:786")):
         rows.append(dict(
-            name=name, route="cuda", source="stella_vslam_tpu_torch/csrc/ba_schur.cu",
+            name=name + suffix, route="cuda",
+            source="stella_vslam_tpu_torch/csrc/ba_schur.cu", shape=f"K={K} L={L} D={D}",
             replaces=replaces, max_abs_err=err, ms=float(np.median(times[fn])),
             plain_ms=_median_ms(plain_fn, reps=10),
             library_ms=_median_ms(lib) if lib else None, **_bound(nbytes, ops)))
+    return rows
+
+
+def record_kernel_inputs(mapper):
+    """Keep the arguments of every call of the mapper's triangulation and
+    fusion entry points and of every bundle_adjust call, by reference only:
+    no device work and no host read during the run. Returns (calls, undo)."""
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    calls = {"triangulate": [], "fuse": [], "bundle_adjust": []}
+    kern = mapper.kernels
+    triangulate, fuse, solve = kern.triangulate, kern.fuse, ba.bundle_adjust
+
+    def tri_rec(*args):
+        calls["triangulate"].append(args)
+        return triangulate(*args)
+
+    def fuse_rec(*args):
+        calls["fuse"].append(args)
+        return fuse(*args)
+
+    def ba_rec(prob, *args, **kw):
+        calls["bundle_adjust"].append(prob)
+        return solve(prob, *args, **kw)
+
+    kern.triangulate, kern.fuse, ba.bundle_adjust = tri_rec, fuse_rec, ba_rec
+
+    def undo():
+        del kern.triangulate, kern.fuse
+        ba.bundle_adjust = solve
+
+    return calls, undo
+
+
+def largest_inputs(calls):
+    """After the run: the triangulation with the most valid neighbours (then
+    unassociated slots), the fuse chunk with the most valid keyframes (then
+    landmarks) and every local BA problem (K >= 16; the init BA has K = 2),
+    the one with the most landmarks first."""
+    tri = max(calls["triangulate"], key=lambda a: (int(a[3].sum()), int(a[0].unassoc.sum())))
+    fuse = max(calls["fuse"], key=lambda a: (int(a[2].sum()), int(a[5].sum())))
+    local = sorted((p for p in calls["bundle_adjust"] if p.cam_R.shape[0] >= 16),
+                   key=lambda p: -int(p.lm_valid.sum()))
+    return tri, fuse, local
+
+
+def run_map_slice(dev, world, wrappers, card):
+    """The map slice (mono, mapping enabled, inline) over the bench's whole
+    outbound leg, every launch count at 0 just before it and read just after
+    it; returns (statistics, launches, mapper, the largest kernel inputs)."""
+    from stella_vslam_tpu_torch.util import map_slice
+
+    slam = map_slice.make_system(world, dev)
+    calls, undo = record_kernel_inputs(slam.mapper)
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        stats = map_slice.run_slice(dev, world, n_frames=500, step=0.015, slam=slam)
+    finally:
+        undo()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    inputs = largest_inputs(calls)
+    with open(os.path.join(OUT_DIR, "map_slice.json"), "w") as f:
+        json.dump(dict(stats, card=card), f, indent=1)
+    print("map slice: " + json.dumps(dict(stats, card=card)))
+    print("map slice launches: " + json.dumps(launches))
+    assert stats["lost_after_init"] <= 2, f"{stats['lost_after_init']} frames lost"
+    assert stats["ate_m"] < 0.10, f"Sim3 ATE {stats['ate_m']:.4f} m"
+    assert stats["local_bas"] >= 12, f"{stats['local_bas']} local BAs"
+    assert stats["keyframes_kept"] >= 5, f"{stats['keyframes_kept']} keyframes kept"
+    for name, n in launches.items():
+        assert n > 0, f"{name} was not launched by the map slice"
+    return stats, launches, slam.mapper, inputs
+
+
+def check_mapping_kernels(dev, mapper, inputs):
+    """Kernels J, K and L against their plain versions on the map slice's
+    own inputs (the triangulation with the most neighbours, the fuse chunk
+    with the most landmarks), and F-I at the local-BA shape: a K=16, L=4096,
+    D=12 problem (checked and timed) and every local problem of the slice
+    (kernel by kernel, _lockstep_ba). Returns rows J, K, L and F-I local."""
+    import torch
+
+    from stella_vslam_tpu_torch.match import fuse as fuse_match
+    from stella_vslam_tpu_torch.match import hamming as H
+    from stella_vslam_tpu_torch.match import robust
+    from stella_vslam_tpu_torch.module import mapping_kernels as mk
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    rows = []
+    kern = mapper.kernels
+    (cur, nbrs, poses, pair_valid), fargs, local = inputs
+    B, N2 = nbrs.desc.shape[0], nbrs.desc.shape[1]
+    N1 = cur.desc.shape[0]
+
+    # ---- J: epipolar-gated top-2, B neighbours x N1 x N2 ----
+    E_12, epl2 = mk.epipolar_terms(poses)
+    gate = robust.epipolar_gate(cur.angle, cur.level, cur.bear, cur.stereo, nbrs.angle,
+                                nbrs.bear, nbrs.stereo, E_12, epl2,
+                                scale_factors=kern.scale_factors)
+    jargs = (cur.desc, nbrs.desc, cur.unassoc, nbrs.unassoc, gate)
+    outk, outp = H.epipolar_top2(*jargs), H.epipolar_top2_plain(*jargs)
+    differ = torch.zeros((B, N1), dtype=torch.bool, device=dev)
+    for u, v in zip(outk, outp):
+        differ |= u != v
+    share_j = float(differ.float().mean())
+    # this run's work: per (unassociated row, target) the target's flag;
+    # per valid pair the orientation and epipole tests; per pair past them
+    # the epipolar residual; per candidate XOR + popcount + add over 8 words
+    # and the top-2 update. A row that is not unassociated needs no per-pair
+    # work: its output is the constant (257, 0, 257, 0).
+    n_rowpairs = n_valid = n_orient = n_cand = 0
+    for b in range(B):
+        n_rowpairs += int(cur.unassoc.sum()) * N2
+        ok = cur.unassoc[:, None] & nbrs.unassoc[b][None, :]
+        cosd = gate.row_c[:, None] * gate.col_c[b][None, :] \
+            + gate.row_s[:, None] * gate.col_s[b][None, :]
+        orient = ok & (cosd >= gate.cos_thr) & ~(gate.col_near[b][None, :]
+                                                 & ~gate.row_stereo[:, None])
+        n_valid += int(ok.sum())
+        n_orient += int(orient.sum())
+        n_cand += int(H.epipolar_gate_matrix(b, cur.unassoc, nbrs.unassoc, gate).sum())
+    n_acc = int(robust.match_for_triangulation(
+        cur.angle, cur.level, cur.desc, cur.bear, cur.unassoc, cur.stereo, nbrs.angle,
+        nbrs.desc, nbrs.bear, nbrs.unassoc, nbrs.stereo, E_12, epl2,
+        scale_factors=kern.scale_factors)[1].sum())
+    torch.cuda.synchronize()
+    print(f"kernel J epipolar_top2: {B}x{N1}x{N2}, {int(pair_valid.sum())} valid "
+          f"neighbours, {int(cur.unassoc.sum())} unassociated rows, {n_valid} valid, "
+          f"{n_orient} past orientation and epipole, {n_cand} candidate pairs, {n_acc} "
+          f"accepted; rows differing from plain {share_j:.6f}")
+    assert share_j <= 1e-3, "kernel J disagrees with its plain version"
+    rows.append(dict(
+        name="epipolar_top2", route="cuda",
+        source="stella_vslam_tpu_torch/csrc/hamming_top2.cu",
+        replaces="stella_vslam_tpu/match/robust.py:22", max_abs_err=share_j,
+        ms=_median_ms(lambda: H.epipolar_top2(*jargs)),
+        plain_ms=_median_ms(lambda: H.epipolar_top2_plain(*jargs), reps=5, warmup=1),
+        library_ms=None,
+        **_bound(N1 * (32 + 24 + 1) + B * N2 * (32 + 24 + 1) + B * N1 * 16,
+                 1.0 * n_rowpairs + 5.0 * n_valid + 10.0 * n_orient + 30.0 * n_cand)))
+
+    # ---- K: DLT and checks on kernel J's matches ----
+    idx2, accepted, _ = robust.match_for_triangulation(
+        cur.angle, cur.level, cur.desc, cur.bear, cur.unassoc, cur.stereo, nbrs.angle,
+        nbrs.desc, nbrs.bear, nbrs.unassoc, nbrs.stereo, E_12, epl2,
+        scale_factors=kern.scale_factors)
+    kargs = (cur.uv, cur.level, cur.bear, nbrs.uv, nbrs.level, nbrs.bear, poses.contiguous(),
+             idx2.contiguous(), accepted, pair_valid, kern.cam, kern.level_sigma_sq,
+             kern.scale_factors)
+    rk, rp = mk.triangulate_checks(*kargs), mk.triangulate_checks_plain(*kargs)
+    torch.cuda.synchronize()
+    share_k = float((rk.ok != rp.ok).float().mean())
+    both = rk.ok & rp.ok
+    rel = (torch.linalg.norm(rk.pos_w - rp.pos_w, dim=-1)
+           / torch.clamp(torch.linalg.norm(rp.pos_w, dim=-1), min=1e-12))[both]
+    rel_max = float(rel.max()) if rel.numel() else 0.0
+    print(f"kernel K triangulate: {B}x{N1} slots, {int(accepted.sum())} matched, "
+          f"{int(rk.ok.sum())} ok (plain {int(rp.ok.sum())}), ok flags differing "
+          f"{share_k:.6f}, max relative position difference where both ok {rel_max:.3g}")
+    assert share_k <= 1e-3 and rel_max < 1e-4, "kernel K disagrees with its plain version"
+    # per slot: DLT rows and normalisation ~100, normal equations ~90, the
+    # adjugate solve ~60, depth / parallax / reprojection / scale checks ~150
+    rows.append(dict(
+        name="triangulate", route="cuda", source="stella_vslam_tpu_torch/csrc/triangulate.cu",
+        replaces="stella_vslam_tpu/module/mapping_kernels.py:58", max_abs_err=rel_max,
+        ok_flags_differing=share_k,
+        ms=_median_ms(lambda: mk.triangulate_checks(*kargs)),
+        plain_ms=_median_ms(lambda: mk.triangulate_checks_plain(*kargs), reps=10),
+        library_ms=None,
+        **_bound(N1 * 24.0 + B * N2 * 24.0 + B * N1 * 5.0 + (B + 1) * 48.0
+                 + B * N1 * 17.0, 400.0 * B * N1)))
+
+    # ---- L: fuse reprojection and duplicate scan, one chunk ----
+    kfs, kf_poses, batch_valid, lm_f, lm_desc, lm_valid = fargs
+    largs = (kfs, kf_poses, batch_valid, lm_f, lm_desc, lm_valid, kern.cam,
+             kern.scale_factors, kern.level_sigma_sq, kern.log_scale)
+    Bf, N, M = kfs.uv.shape[0], kfs.uv.shape[1], lm_f.shape[0]
+    lk, lp = mk.fuse_scan(*largs), mk.fuse_scan_plain(*largs)
+    acc_k = mk.accept_fused(*lk, N)
+    acc_p = mk.accept_fused(*lp, N)
+    share_l = float((acc_k != acc_p).float().mean())
+    scan_differ = float(((lk[0] != lp[0]) | (lk[1] != lp[1]) | (lk[2] != lp[2]))
+                        .float().mean())
+    # this run's work: the prologue per (keyframe, landmark); the window test
+    # per gated pair; level, validity and chi-square per pair in the window;
+    # the Hamming distance per candidate
+    n_gated = n_window = n_cand_l = 0
+    for b in range(Bf):
+        if not bool(batch_valid[b]):
+            continue
+        R, t = kf_poses[b, :9].reshape(3, 3), kf_poses[b, 9:12]
+        uv, xr, pred, g = mk.reproject_for_fuse(kern.cam, kern.log_scale,
+                                                kern.scale_factors.shape[0], R, t,
+                                                lm_f, lm_valid)
+        win, cand = fuse_match.candidate_mask(
+            kfs.uv[b], kfs.level[b], kfs.valid[b], kfs.x_right[b], uv[g], xr[g], pred[g],
+            g[g], scale_factors=kern.scale_factors, level_sigma_sq=kern.level_sigma_sq)
+        n_gated += int(g.sum())
+        n_window += int(win.sum())
+        n_cand_l += int(cand.sum())
+    torch.cuda.synchronize()
+    print(f"kernel L fuse: {int(batch_valid.sum())} keyframes x {int(lm_valid.sum())} "
+          f"landmarks (chunk {Bf}x{M}, N={N}), {n_gated} gated, {n_window} pairs in "
+          f"window, {n_cand_l} candidates, {int(acc_k.sum())} accepted (plain "
+          f"{int(acc_p.sum())}); accepted flags differing {share_l:.6f}, scan outputs "
+          f"differing {scan_differ:.6f}")
+    assert share_l <= 1e-3, "kernel L disagrees with its plain version"
+    rows.append(dict(
+        name="fuse", route="cuda", source="stella_vslam_tpu_torch/csrc/fuse.cu",
+        replaces="stella_vslam_tpu/module/mapping_kernels.py:228", max_abs_err=share_l,
+        ms=_median_ms(lambda: mk.fuse_scan(*largs)),
+        plain_ms=_median_ms(lambda: mk.fuse_scan_plain(*largs), reps=5, warmup=1),
+        library_ms=None,
+        **_bound(Bf * N * 49.0 + Bf * 49.0 + M * 65.0 + Bf * M * 12.0,
+                 90.0 * Bf * M + 10.0 * n_gated * N + 12.0 * n_window + 24.0 * n_cand_l)))
+
+    # ---- F-I at the local-BA shape ----
+    prob, cam = _ba_problem(dev, 16, 4096, 12, False, 16, spacing=0.1, ordered=True)
+    e_pose = _compare_ba(prob, cam, "K=16 L=4096 D=12", num_first=3, num_second=6)
+    # Every local problem of the slice, kernel by kernel on the same inputs.
+    # A whole BA of such a problem cannot be held to 1e-4: its reduced
+    # system is ill-conditioned enough that the order of the atomic sums
+    # alone (F's, and index_add_'s in the plain BA on the card) can move its
+    # poses by more than 1e-4 between two runs of the plain BA (printed
+    # below). So each kernel runs on the same inputs as its plain version:
+    # F's system is held against float64, G's step by its backward error,
+    # and H runs on G's step in both versions. A point seen from a short baseline is nearly free along its rays: it
+    # moves depth^2 / baseline per radian of pose difference (160 m/rad at
+    # 4 m over 0.1 m), so each trial point is held to 1e-3 or, where larger,
+    # to 1e-4 rad (the poses' own bound) of that.
+    worst = {}
+    for p in local:
+        for k, v in _lockstep_ba(p, mapper.cam_scalars, 3, 6).items():
+            worst[k] = worst.get(k, 0) + v if isinstance(v, int) else max(worst.get(k, 0.0), v)
+    print(f"kernels F-I kernel by kernel against plain on the map slice's {len(local)} local "
+          f"problems (K={local[0].cam_R.shape[0]}, D={local[0].obs_cam.shape[1]}): "
+          + json.dumps(worst))
+    assert worst["f_excess"] < 1.0 and worst["g_backward"] < 1e-3 and worst["g_pose"] < 1e-5 \
+        and worst["point_share"] < 1.0 and worst["cost_rel"] < 1e-4 \
+        and worst["decisions"] == 0 and worst["flags"] == 0, \
+        "kernels F-I disagree with the plain BA on the map slice's local problems"
+    # the whole BA of each, beside each version's spread against itself
+    spread = dict(kernel_vs_plain=0.0, plain_vs_plain=0.0, kernel_vs_kernel=0.0)
+    for p in local:
+        k1, k2, p1, p2 = (fn(p, mapper.cam_scalars, num_first=3, num_second=6)
+                          for fn in (ba.bundle_adjust,) * 2 + (ba.bundle_adjust_plain,) * 2)
+        for key, (u, v) in zip(spread, ((k1, p1), (p1, p2), (k1, k2))):
+            spread[key] = max(spread[key], float((u.cam_R - v.cam_R).abs().max()),
+                              float((u.cam_t - v.cam_t).abs().max()))
+    print(f"kernels F-I whole BA on the map slice's {len(local)} local problems, max |pose "
+          f"diff| (atomics sum in another order on every run): " + json.dumps(spread))
+    rows += _time_ba_kernels(dev, e_pose, prob, cam, suffix="_local")
+    rows[-4]["kernel_by_kernel_on_slice"] = worst
+    rows[-4]["whole_ba_pose_spread_on_slice"] = spread
     return rows
 
 
@@ -566,7 +1040,7 @@ def run_slices(dev, world, wrappers, card):
     assert mono["lost_after_init"] <= 2, f"{mono['lost_after_init']} frames lost"
     assert mono["ate_m"] < 0.10, f"Sim3 ATE {mono['ate_m']:.4f} m"
     for name, n in launches["mono"].items():
-        assert n > 0, f"{name} was not launched by the mono slice"
+        assert n > 0 or name in MAPPING_KERNELS, f"{name} was not launched by the mono slice"
     return stats, mono, launches
 
 
@@ -577,12 +1051,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "main path runs on the GPU only", file=sys.stderr)
         return 1
-    from stella_vslam_tpu_torch.feature import orb_extractor as ox
     from stella_vslam_tpu_torch.kernels import build as kbuild
-    from stella_vslam_tpu_torch.match import hamming as H
-    from stella_vslam_tpu_torch.ops.optim import ba
-    from stella_vslam_tpu_torch.ops.optim import pose as pose_mod
-    from stella_vslam_tpu_torch.ops.solve import ransac
+    from stella_vslam_tpu_torch.util import map_slice
     from stella_vslam_tpu_torch.util.rgbd_slice import bench_world
 
     card = subprocess.run(
@@ -612,17 +1082,23 @@ def main() -> int:
               f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}) "
               f"[{card}]")
 
-    wrappers = {"fast_nms": ox.fast_nms, "orb_describe": ox.orb_describe,
-                "hamming_top2": H.hamming_top2, "pose_lm": pose_mod.optimize_pose,
-                "ransac_two_view": ransac.minimal_hypotheses,
-                "ba_linearize_schur": ba.ba_linearize_schur,
-                "ba_reduced_solve": ba.ba_reduced_solve,
-                "ba_backsub_cost": ba.ba_backsub_cost,
-                "ba_classify": ba.ba_classify}
+    wrappers = map_slice.kernel_wrappers()
     _, _, launches = run_slices(dev, world, wrappers, card)
+    _, launches["map"], mapper, inputs = run_map_slice(dev, world, wrappers, card)
+    map_rows = check_mapping_kernels(dev, mapper, inputs)
+    for r in map_rows:
+        print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library "
+              f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}) "
+              f"[{card}]")
+    rows += map_rows
     for row in rows:
-        row["launches"] = launches["mono"][row["name"]]
-        row["launches_rgbd_slice"] = launches["rgbd"][row["name"]]
+        name = row["name"].removesuffix("_local")
+        row["launches"] = launches["map"][name]
+        row["launches_mono_slice"] = launches["mono"][name]
+        row["launches_rgbd_slice"] = launches["rgbd"][name]
+    with open(os.path.join(OUT_DIR, "kernels.json"), "w") as f:
+        json.dump({"card": card, "kernels": rows}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,8 +42,11 @@
 // camera-side sums on chip before touching device memory.
 //
 // Atomics sum in an order that changes from run to run, so the result is
-// deterministic only to float32 rounding: the chip check holds poses to
-// the plain version within 1e-4 and points seen twice within 1e-3.
+// deterministic only to float32 rounding: the chip check holds a whole BA
+// to the plain version on synthetic problems (poses within 1e-4, points
+// seen twice within 1e-3), and each kernel to its plain version on the same
+// inputs on the map slice's local problems, whose reduced systems are too
+// ill-conditioned for a whole-BA bound at float32 rounding.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -171,7 +174,8 @@ __device__ __forceinline__ float sym_get(const float* G, int i, int j) {
 
 // Adds N values at shared[base + i] for this lane's key (-1: nothing). When
 // every contributing lane of the warp shares one key, the values are summed
-// by shuffles first and lane 0 adds them once.
+// by shuffles first and lane 0 adds them once, at the base of a lane that
+// holds the key (lane 0's own may belong to no key: a padded observation).
 template <int NV>
 __device__ __forceinline__ void warp_accumulate(float* shared, int key, int base,
                                                 const float (&v)[NV]) {
@@ -180,11 +184,13 @@ __device__ __forceinline__ void warp_accumulate(float* shared, int key, int base
   if (lead < 0) return;
   const bool uniform = __all_sync(0xffffffffu, key < 0 || key == lead);
   if (uniform) {
+    const int src = __ffs(__ballot_sync(0xffffffffu, key == lead)) - 1;
+    const int lead_base = __shfl_sync(0xffffffffu, base, src);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       float s = key < 0 ? 0.f : v[i];
       for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
-      if (lane == 0 && s != 0.f) atomicAdd(&shared[base + i], s);
+      if (lane == 0 && s != 0.f) atomicAdd(&shared[lead_base + i], s);
     }
   } else if (key >= 0) {
 #pragma unroll

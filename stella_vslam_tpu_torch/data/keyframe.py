@@ -1,10 +1,10 @@
 """Keyframe: immutable observation + mutable pose + graph node.
 
 Reference: src/stella_vslam/data/keyframe.{h,cc} — landmark slots (one per
-keypoint), covisibility graph_node. Copy of the part of
-stella_vslam_tpu/data/keyframe.py the RGBD tracking slice calls; device
-tensors are the source frame's. Culling, serialization and the loaded-map
-stub come with the mapping module and map IO.
+keypoint), covisibility graph_node, erase protocol, median depth. Copy of
+the part of stella_vslam_tpu/data/keyframe.py the tracking, initialization
+and mapping slices call; device tensors are the source frame's.
+Serialization and the loaded-map stub come with map IO.
 """
 from __future__ import annotations
 
@@ -32,6 +32,12 @@ class Keyframe:
         self.pose_cw = frame.pose_cw.copy()
         self.graph_node = GraphNode(self, map_db.min_num_shared_lms)
         self.will_be_erased = False
+        self._not_to_be_erased = False
+        # the pose at creation, in the coordinates of the device table the
+        # keyframe was created against (set_pose_cw rebinds, so this stays
+        # a snapshot): the tracker's rel-pose anchor for a keyframe created
+        # after the table it tracked against was published
+        self._pose_at_creation = self.pose_cw
 
     # device tensors delegate to the source frame
     @property
@@ -112,3 +118,29 @@ class Keyframe:
     # ---- landmark slots ----
     def add_landmark(self, lm_id: int, idx: int):
         self.lm_ids[idx] = lm_id
+
+    def erase_landmark_with_index(self, idx: int):
+        self.lm_ids[idx] = -1
+
+    def num_tracked_landmarks(self, map_db, min_num_obs: int = 1) -> int:
+        """Associated landmarks with at least `min_num_obs` observations
+        (one native bulk count; erased landmarks count 0)."""
+        counts = map_db.assoc_store.num_obs_bulk(self.lm_ids)
+        return int((counts >= max(min_num_obs, 1)).sum())
+
+    def compute_median_depth(self, map_db) -> float:
+        """Median |camera-frame z| of the associated live landmarks
+        (reference keyframe.h:206-211, as the mapping module calls it)."""
+        ids = map_db.fields.live(self.lm_ids[self.lm_ids >= 0])
+        if len(ids) == 0:
+            return 0.0
+        z = map_db.fields.pos[ids] @ self.rot_cw[2] + self.trans_cw[2]
+        return float(np.median(np.abs(z)))
+
+    # ---- erase protocol (reference keyframe.h:232-250) ----
+    def set_not_to_be_erased(self, flag: bool = True):
+        self._not_to_be_erased = flag
+
+    def can_be_erased(self) -> bool:
+        # keyframes anchoring a loop edge are never culled
+        return not self._not_to_be_erased and not self.graph_node.loop_edges

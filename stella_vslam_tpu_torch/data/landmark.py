@@ -1,12 +1,12 @@
 """Landmark: 3D point with observation bookkeeping.
 
 Reference: src/stella_vslam/data/landmark.{h,cc}. Copy of the part of
-stella_vslam_tpu/data/landmark.py the RGBD tracking and monocular
-initialization slices call: the store-backed geometric fields, observation
-registration and erasure, and the per-landmark statistics
+stella_vslam_tpu/data/landmark.py the tracking, initialization and mapping
+slices call: the store-backed geometric fields, bulk creation
+(`create_registered`), observation registration and erasure, the observed
+ratio the landmark culler reads, and the per-landmark statistics
 `compute_descriptor` (:156) and `update_mean_normal_and_obs_scale_variance`
-(:177) that the two-keyframe map needs (MapDatabase.batch_refresh_landmark_
-stats refreshes them in bulk).
+(:177) (MapDatabase.batch_refresh_landmark_stats refreshes them in bulk).
 """
 from __future__ import annotations
 
@@ -115,6 +115,23 @@ class Landmark:
         else:
             fs.dmax[self.id] = v
 
+    @staticmethod
+    def create_registered(lm_id: int, ref_keyfrm_id: int, fs) -> "Landmark":
+        """Bulk-creation constructor: the caller
+        (MapDatabase.bulk_add_landmarks) already wrote the field-store row."""
+        lm = Landmark.__new__(Landmark)
+        lm._fs = fs
+        lm.id = int(lm_id)
+        lm.ref_keyfrm_id = int(ref_keyfrm_id)
+        lm.observations = {}
+        lm.num_observable = 1
+        lm.num_observed = 1
+        lm.will_be_erased = False
+        lm.replaced_id = None
+        lm.first_keyfrm_id = int(ref_keyfrm_id)
+        lm.num_observations_when_created = 0
+        return lm
+
     # ---- observations (mirrored into the native association store) ----
     def add_observation(self, keyfrm_id: int, idx: int):
         self.observations[keyfrm_id] = idx
@@ -129,6 +146,12 @@ class Landmark:
             store.erase(self.id, keyfrm_id)
         if self.ref_keyfrm_id == keyfrm_id and self.observations:
             self.ref_keyfrm_id = next(iter(self.observations))
+
+    def num_observations(self) -> int:
+        return len(self.observations)
+
+    def get_observed_ratio(self) -> float:
+        return self.num_observed / max(self.num_observable, 1)
 
     # ---- statistics (reference landmark.cc) ----
     def compute_descriptor(self, map_db):

@@ -9,14 +9,15 @@ temporal mapping.
 tracking kernels consume directly; it is refreshed after map mutations,
 never uploaded per frame.
 
-Copy of the part of stella_vslam_tpu/data/map_database.py the RGBD tracking
-and monocular initialization slices call: the host database and field
-store, landmark and keyframe erasure (a failed initialization undoes
-itself), and the device table, whose two packed buffers are torch tensors
-on the database's device (tbl_f32 [C,8] f32, tbl_u32 [C,10] int32 holding
-the uint32 bits), published for all landmarks or for the covisibility
-neighbourhood of a keyframe. Fusion, proximity queries and serialization
-come with the mapping, relocalization and map-IO items.
+Copy of the part of stella_vslam_tpu/data/map_database.py the tracking,
+initialization and mapping slices call: the host database and field store,
+bulk landmark creation, fusion (`replace_landmark`), landmark and keyframe
+erasure (with the trajectory forwarding of culled keyframes), the BA
+observation fill (`fill_observation_tables`), and the device table, whose
+two packed buffers are torch tensors on the database's device (tbl_f32
+[C,8] f32, tbl_u32 [C,10] int32 holding the uint32 bits), published for all
+landmarks or for the covisibility neighbourhood of a keyframe. Proximity
+queries and serialization come with the relocalization and map-IO items.
 """
 from __future__ import annotations
 
@@ -91,6 +92,44 @@ class LandmarkFieldStore:
 
     def clear(self):
         self.alive[:] = False
+
+
+def fill_observation_tables(map_db, kf_ids, obs_cam, obs_idx, obs_valid,
+                            inv_sigma):
+    """Per-observation measurements of an [L,D] BA table from the
+    keyframes' host keypoint mirrors, one stacked fancy index; returns
+    (obs_uv, obs_xr, obs_w). Slots of an erased keyframe, or keyframes with
+    different slot counts, take a per-keyframe loop."""
+    L, D = obs_cam.shape
+    kfs = [map_db.keyframes.get(k) for k in kf_ids]
+    slot_counts = {kf.num_slots for kf in kfs if kf is not None}
+    if not kfs or any(kf is None for kf in kfs) or len(slot_counts) != 1:
+        obs_uv = np.zeros((L, D, 2), np.float32)
+        obs_xr = np.full((L, D), -1.0, np.float32)
+        obs_w = np.ones((L, D), np.float32)
+        for s, kf in enumerate(kfs):
+            if kf is None:
+                obs_valid[obs_cam == s] = False
+                continue
+            rows, ds = np.nonzero((obs_cam == s) & obs_valid)
+            if len(rows) == 0:
+                continue
+            idxs = obs_idx[rows, ds]
+            obs_uv[rows, ds] = kf.h_undist_xy[idxs]
+            obs_xr[rows, ds] = kf.h_x_right[idxs]
+            obs_w[rows, ds] = inv_sigma[kf.h_level[idxs]]
+        return obs_uv, obs_xr, obs_w
+    und = np.stack([kf.h_undist_xy for kf in kfs])
+    xr = np.stack([kf.h_x_right for kf in kfs])
+    lev = np.stack([kf.h_level for kf in kfs])
+    cam = np.clip(obs_cam, 0, len(kfs) - 1)
+    idx = np.clip(obs_idx, 0, und.shape[1] - 1)
+    v = obs_valid
+    obs_uv = np.where(v[..., None], und[cam, idx], 0.0).astype(np.float32)
+    obs_xr = np.where(v, xr[cam, idx], -1.0).astype(np.float32)
+    lev_safe = np.clip(lev[cam, idx], 0, len(inv_sigma) - 1)
+    obs_w = np.where(v, inv_sigma[lev_safe], 1.0).astype(np.float32)
+    return obs_uv, obs_xr, obs_w
 
 
 def stable_unique(arr: np.ndarray) -> np.ndarray:
@@ -277,8 +316,18 @@ class MapDatabase:
         # newly-initialized submaps coexist; graph_node.cc:435
         # get_keyframes_from_root walks one component)
         self.spanning_roots: list = []
+        # temporal mapping: keyframes with id <= the threshold are frozen
+        # (-1: none; set when a loaded map is frozen, which comes with map IO)
+        self.fixed_keyframe_id_threshold = -1
+        # bumped on clear: a deferred BA writeback carries the epoch it was
+        # dispatched under and is dropped on mismatch
+        self.epoch = 0
         self.device_table = DeviceLandmarkTable(device_table_capacity, device)
         self.fields = LandmarkFieldStore()
+        # erased keyframe id -> (anchor keyframe id, T_erased_from_anchor),
+        # captured at erase time: System.frame_poses chains through it, so a
+        # frame whose reference keyframe was culled still reconstructs
+        self.erased_kf_forward: Dict[int, tuple] = {}
         # landmark replacement tombstones: old id -> surviving id (fusion)
         self.replaced_ids: Dict[int, int] = {}
         # native association store (C++ map core, native/mapcore.cpp)
@@ -319,6 +368,59 @@ class MapDatabase:
             self.fields.attach(lm)
             for kf_id, idx in lm.observations.items():
                 self.assoc_store.add(lm.id, kf_id, idx)
+
+    def bulk_add_landmarks(self, ids: np.ndarray, positions: np.ndarray,
+                           ref_keyfrm_id: int):
+        """Create and register a batch of landmarks with one vectorized
+        field-store write (triangulation creates hundreds per event)."""
+        with self.lock:
+            fs = self.fields
+            fs.ensure(int(ids[-1]))
+            fs.pos[ids] = positions
+            fs.desc[ids] = 0
+            fs.normal[ids] = 0.0
+            fs.dmin[ids] = 0.0
+            fs.dmax[ids] = 0.0
+            fs.alive[ids] = True
+            out = []
+            for i in ids:
+                lm = Landmark.create_registered(int(i), ref_keyfrm_id, fs)
+                lm._store = self.assoc_store
+                self.landmarks[lm.id] = lm
+                out.append(lm)
+            return out
+
+    def alloc_landmark_ids(self, n: int) -> np.ndarray:
+        with self.lock:
+            base = self._next_landmark_id
+            self._next_landmark_id += n
+            return np.arange(base, base + n, dtype=np.int64)
+
+    def replace_landmark(self, old: Landmark, new: Landmark):
+        """reference landmark::replace: move `old`'s observations to `new`
+        and leave a tombstone old -> new. `new`'s statistics are left to
+        the caller's batched refresh."""
+        with self.lock:
+            if old.id == new.id:
+                return
+            for kf_id, idx in list(old.observations.items()):
+                kf = self.keyframes.get(kf_id)
+                if kf is None:
+                    continue
+                if kf_id not in new.observations:
+                    new.add_observation(kf_id, idx)
+                    kf.lm_ids[idx] = new.id
+                else:
+                    kf.lm_ids[idx] = -1
+            new.num_observable += old.num_observable
+            new.num_observed += old.num_observed
+            old.observations = {}
+            old.will_be_erased = True
+            self.fields.kill(old.id)
+            old.replaced_id = new.id
+            self.replaced_ids[old.id] = new.id
+            self.landmarks.pop(old.id, None)
+            self.assoc_store.erase_landmark(old.id)
 
     def batch_refresh_landmark_stats(self, lms, scale_factors,
                                      compute_desc: bool = True):
@@ -374,7 +476,7 @@ class MapDatabase:
 
     def erase_keyframe(self, kf_id: int):
         """Drop a keyframe, its observations and graph edges (a component's
-        spanning root cannot be erased)."""
+        spanning root cannot be erased), recording its trajectory anchor."""
         with self.lock:
             kf = self.keyframes.get(kf_id)
             if kf is None:
@@ -383,6 +485,20 @@ class MapDatabase:
                 _log.warning("cannot erase spanning root %d", kf_id)
                 return
             kf.will_be_erased = True
+            # trajectory forwarding to the strongest live covisibility (the
+            # culler erases a keyframe because such neighbours cover its
+            # view), else the spanning parent
+            parent_id = None
+            for cand in kf.graph_node.get_covisibilities():
+                ckf = self.keyframes.get(cand)
+                if ckf is not None and not ckf.will_be_erased:
+                    parent_id = cand
+                    break
+            if parent_id is None:
+                parent_id = kf.graph_node.spanning_parent
+            if parent_id is not None and parent_id in self.keyframes:
+                self.erased_kf_forward[kf_id] = (
+                    parent_id, kf.pose_cw @ np.linalg.inv(self.keyframes[parent_id].pose_cw))
             for lm_id in kf.lm_ids[kf.lm_ids >= 0]:
                 lm = self.landmarks.get(int(lm_id))
                 if lm is not None:
@@ -416,6 +532,12 @@ class MapDatabase:
         for i in occ[dead]:
             out[i] = self.resolve_landmark_id(int(lm_ids[i]))
         return out
+
+    def last_inserted_keyframe(self):
+        with self.lock:
+            if not self.keyframes:
+                return None
+            return self.keyframes[max(self.keyframes.keys())]
 
     def num_keyframes(self) -> int:
         return len(self.keyframes)
@@ -453,11 +575,18 @@ class MapDatabase:
             self.device_table.refresh(self.landmarks, self, local_ids=local_ids)
 
     # ---- reset / serialization ----
+    def bump_epoch(self):
+        """Invalidate a deferred writeback dispatched before this call."""
+        with self.lock:
+            self.epoch += 1
+
     def clear(self):
         with self.lock:
+            self.epoch += 1
             self.keyframes.clear()
             self.landmarks.clear()
             self.spanning_roots = []
             self.replaced_ids.clear()
             self.assoc_store.clear()
             self.fields.clear()
+            self.erased_kf_forward.clear()

@@ -86,6 +86,19 @@ _SIGNATURES = {
     # fxb, cam_R, cam_t, lm, keep, mode, out, stream
     "svt_ba_classify": [_I, _I, _I] + [_P] * 5 + [_F] * 5 + [_P] * 4 + [_I]
                        + [_P] * 2,
+    # B, N1, N2, q_desc, row_f, row_flag, t_desc, col_f, col_flag, cos_thr,
+    # out, stream
+    "svt_epipolar_top2": [_I, _I, _I] + [_P] * 6 + [_F] + [_P] * 2,
+    # B, N1, N2, uv1, lvl1, bear1, uv2, lvl2, bear2, poses, match, accepted,
+    # pair_valid, fx, fy, cx, cy, width, height, sigma_sq, scale_factors,
+    # num_levels, pos_out, idx_out, ok_out, stream
+    "svt_triangulate": [_I, _I, _I] + [_P] * 10 + [_F] * 6 + [_P] * 2 + [_I]
+                       + [_P] * 4,
+    # B, N, M, kp_uv, kp_level, kp_desc, kp_valid, kp_xr, poses, kf_valid,
+    # lm_f, lm_desc, lm_valid, fx, fy, cx, cy, width, height, fxb,
+    # scale_factors, sigma_sq, num_levels, log_scale, margin, out, stream
+    "svt_fuse": [_I, _I, _I] + [_P] * 10 + [_F] * 7 + [_P] * 2 + [_I] + [_F] * 2
+                + [_P] * 2,
 }
 
 

@@ -1,4 +1,5 @@
-"""256-bit Hamming matching core: kernel C (`hamming_top2`) and helpers.
+"""256-bit Hamming matching core: kernels C (`hamming_top2`) and J
+(`epipolar_top2`) and helpers.
 
 Port of stella_vslam_tpu/match/hamming.py. The JAX version forms the whole
 [M,N] distance matrix as a +/-1 int8 matmul and reduces it after masking;
@@ -11,6 +12,11 @@ and second-best distance and their target indices over the gated targets:
   difference (the initializer's area matcher);
 * on CPU tensors, `hamming_top2_plain`: the JAX version's dense form (a
   +/-1 f32 matmul — exact, every sum is an integer of magnitude <= 256).
+
+Kernel J (the same source) is the mapping module's matcher: the gates of
+match_for_triangulation (orientation cosine, near-epipole rejection, the
+epipolar residual) for one query row against each of B neighbour
+keyframes, one launch for all B.
 
 Masked entries count as distance 257 and ties break to the lowest target
 index, as jnp.argmin breaks them. Ratio tests, orientation checks and
@@ -63,6 +69,26 @@ class AngleGate(NamedTuple):
     row_angle: torch.Tensor  # [M] f32 radians
     col_angle: torch.Tensor  # [N] f32
     thr: float  # radians
+
+
+class EpipolarGate(NamedTuple):
+    """The gates of match_for_triangulation (match/robust.py), per row and
+    per target of each neighbour b, computed once: row i passes target j of
+    neighbour b when row_c*col_c + row_s*col_s >= cos_thr, not
+    (col_near[b,j] and not row_stereo[i]), and
+    |clip(dot(col_epl[b,j], row_bear[i]) / col_norm[b,j], -1, 1)| < row_thr[i]."""
+
+    row_c: torch.Tensor  # [N1] f32 cos of the angle
+    row_s: torch.Tensor  # [N1] f32 sin
+    row_bear: torch.Tensor  # [N1,3] f32 bearing
+    row_thr: torch.Tensor  # [N1] f32 sin of the scaled residual threshold
+    row_stereo: torch.Tensor  # [N1] bool
+    col_c: torch.Tensor  # [B,N2] f32
+    col_s: torch.Tensor  # [B,N2] f32
+    col_epl: torch.Tensor  # [B,N2,3] f32 E_12 b2
+    col_norm: torch.Tensor  # [B,N2] f32 max(|E_12 b2|, 1e-12)
+    col_near: torch.Tensor  # [B,N2] bool near the epipole and not stereo
+    cos_thr: float
 
 
 def unpack_bits_pm1(desc: torch.Tensor) -> torch.Tensor:
@@ -177,6 +203,69 @@ def hamming_top2(q_desc, t_desc, row_ok, col_ok,
 
 
 hamming_top2.launches = 0
+
+
+def epipolar_gate_matrix(b: int, row_ok, col_ok, g: EpipolarGate) -> torch.Tensor:
+    """[N1,N2] bool candidate mask of neighbour b (plain version of kernel
+    J's gates, in the JAX expression order)."""
+    cand = row_ok[:, None] & col_ok[b][None, :]
+    cosd = g.row_c[:, None] * g.col_c[b][None, :] + g.row_s[:, None] * g.col_s[b][None, :]
+    cand = cand & (cosd >= g.cos_thr)
+    cand = cand & ~(g.col_near[b][None, :] & ~g.row_stereo[:, None])
+    e, r = g.col_epl[b], g.row_bear
+    dot = e[None, :, 0] * r[:, None, 0] + e[None, :, 1] * r[:, None, 1] \
+        + e[None, :, 2] * r[:, None, 2]
+    c = torch.clamp(dot / g.col_norm[b][None, :], -1.0, 1.0)
+    return cand & (torch.abs(c) < g.row_thr[:, None])
+
+
+def epipolar_top2_plain(q_desc, t_desc, row_ok, col_ok, gate: EpipolarGate):
+    """(best, best_idx, second, second_idx), each [B,N1] int32."""
+    outs = []
+    for b in range(t_desc.shape[0]):
+        dist = pairwise_hamming(q_desc, t_desc[b])
+        dist = torch.where(epipolar_gate_matrix(b, row_ok, col_ok, gate), dist,
+                           torch.full_like(dist, _MASKED))
+        best, best_idx = dist.min(dim=1)
+        second, second_idx = dist.scatter(1, best_idx[:, None], _MASKED).min(dim=1)
+        outs.append(torch.stack([best, best_idx, second, second_idx]).to(torch.int32))
+    o = torch.stack(outs, dim=1)  # [4,B,N1]
+    return o[0], o[1], o[2], o[3]
+
+
+def epipolar_top2(q_desc, t_desc, row_ok, col_ok, gate: EpipolarGate):
+    """Kernel J on CUDA tensors, the plain version on CPU tensors. q_desc
+    [N1,8] int32, t_desc [B,N2,8] int32, row_ok [N1] bool, col_ok [B,N2]
+    bool."""
+    if not q_desc.is_cuda:
+        return epipolar_top2_plain(q_desc, t_desc, row_ok, col_ok, gate)
+    B, N2 = t_desc.shape[0], t_desc.shape[1]
+    N1 = q_desc.shape[0]
+    if N2 >= 1 << 16:
+        raise ValueError("epipolar_top2: at most 65535 targets")
+    _check(q_desc, (N1, 8), torch.int32, "q_desc")
+    _check(t_desc, (B, N2, 8), torch.int32, "t_desc")
+    _check(row_ok, (N1,), torch.bool, "row_ok")
+    _check(col_ok, (B, N2), torch.bool, "col_ok")
+    row_f = torch.cat([gate.row_c[:, None], gate.row_s[:, None], gate.row_bear,
+                       gate.row_thr[:, None]], 1).to(torch.float32).contiguous()
+    row_flag = (row_ok.to(torch.uint8) | (gate.row_stereo.to(torch.uint8) << 1)).contiguous()
+    col_f = torch.cat([gate.col_c[..., None], gate.col_s[..., None], gate.col_epl,
+                       gate.col_norm[..., None]], -1).to(torch.float32).contiguous()
+    col_flag = (col_ok.to(torch.uint8) | (gate.col_near.to(torch.uint8) << 1)).contiguous()
+    _check(row_f, (N1, 6), torch.float32, "row terms")
+    _check(col_f, (B, N2, 6), torch.float32, "target terms")
+    out = torch.empty((B, N1, 4), dtype=torch.int32, device=q_desc.device)
+    lib = kbuild.load()
+    kbuild.check(lib.svt_epipolar_top2(
+        B, N1, N2, q_desc.data_ptr(), row_f.data_ptr(), row_flag.data_ptr(),
+        t_desc.data_ptr(), col_f.data_ptr(), col_flag.data_ptr(), float(gate.cos_thr),
+        out.data_ptr(), kbuild.stream_ptr(q_desc.device)), "epipolar_top2")
+    epipolar_top2.launches += 1
+    return out[..., 0], out[..., 1], out[..., 2], out[..., 3]
+
+
+epipolar_top2.launches = 0
 
 
 def resolve_duplicate_targets(target_idx, dist, accepted, num_targets: int):

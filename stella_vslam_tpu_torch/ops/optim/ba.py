@@ -105,8 +105,8 @@ def _pose_rows(prob: BAProblem, cam_R, cam_t, lm_pos, cam: CamScalars):
 def _row_weights(prob: BAProblem, r, depth_ok, inlier, use_huber: bool):
     """(row weights wr [L,D,3], w_base [L,D], cost, chi2 [L,D])."""
     w_base = (prob.obs_valid & inlier & depth_ok & prob.lm_valid[:, None]).to(
-        torch.float32) * prob.obs_inv_sigma_sq
-    hs = (prob.obs_x_right > 0).to(torch.float32)
+        r.dtype) * prob.obs_inv_sigma_sq
+    hs = (prob.obs_x_right > 0).to(r.dtype)
     sq = r[..., 0] * r[..., 0] + r[..., 1] * r[..., 1] + r[..., 2] * r[..., 2] * hs
     chi2 = sq * prob.obs_inv_sigma_sq
     chi_thr = torch.where(prob.obs_x_right > 0, torch.full_like(sq, CHI_SQ_3D),
@@ -136,9 +136,9 @@ def _linearize(prob, cam_R, cam_t, lm_pos, inlier, cam, use_huber):
     hcc_o = torch.einsum("ldri,ldrj->ldij", Jcw, Jc)  # [L,D,6,6]
     bc_o = torch.einsum("ldri,ldr->ldi", Jcw, r)
     oc = prob.obs_cam.reshape(-1).long()
-    Hcc = torch.zeros((K, 6, 6), dtype=torch.float32, device=cam_R.device)
+    Hcc = torch.zeros((K, 6, 6), dtype=cam_R.dtype, device=cam_R.device)
     Hcc.index_add_(0, oc, hcc_o.reshape(-1, 6, 6))
-    b_c = torch.zeros((K, 6), dtype=torch.float32, device=cam_R.device)
+    b_c = torch.zeros((K, 6), dtype=cam_R.dtype, device=cam_R.device)
     b_c.index_add_(0, oc, bc_o.reshape(-1, 6))
     Hpp = torch.einsum("ldri,ldrj->lij", Jpw, Jp)  # [L,3,3]
     b_p = torch.einsum("ldri,ldr->li", Jpw, r)  # [L,3]
@@ -179,34 +179,40 @@ def linearize_schur_plain(prob, cam, cam_R, cam_t, lm_pos, inlier, lam,
         prob, cam_R, cam_t, lm_pos, inlier, cam, use_huber)
     G = _sym3_inv(Hpp, lam)  # [L,3,3]
     if prob.lm_fixed is not None:
-        G = G * (~prob.lm_fixed).to(torch.float32)[:, None, None]
+        G = G * (~prob.lm_fixed).to(G.dtype)[:, None, None]
     A = W @ G[:, None]  # [L,D,6,3]
     oc = prob.obs_cam.long()
     # S_red[k_d, k_e] += A_d W_e^T over every observation pair of a landmark
     pair = (oc[:, :, None] * K + oc[:, None, :]).reshape(-1)  # [L*D*D]
     blk = torch.einsum("ldia,leja->ldeij", A, W).reshape(-1, 6, 6)
-    S_red = torch.zeros((K * K, 6, 6), dtype=torch.float32, device=cam_R.device)
+    S_red = torch.zeros((K * K, 6, 6), dtype=cam_R.dtype, device=cam_R.device)
     S_red.index_add_(0, pair, blk)
     S_red = S_red.reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(6 * K, 6 * K)
-    rhs_red = torch.zeros((K, 6), dtype=torch.float32, device=cam_R.device)
+    rhs_red = torch.zeros((K, 6), dtype=cam_R.dtype, device=cam_R.device)
     rhs_red.index_add_(0, oc.reshape(-1),
                        (A @ b_p[:, None, :, None])[..., 0].reshape(-1, 6))
     return cost, Hcc, b_c, S_red, rhs_red.reshape(-1), (G, b_p, W, has_obs)
+
+
+def damped_reduced_system(prob, Hcc, b_c, S_red, rhs_red, lam):
+    """Kernel G's system before its solve, in the dtype of Hcc: damp Hcc,
+    mask fixed and invalid cameras; returns (S [6K,6K], rhs [6K]), dx =
+    -S^-1 rhs on the free cameras."""
+    eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
+    tr = torch.diagonal(Hcc, dim1=-2, dim2=-1).sum(-1)
+    Hcc_d = Hcc + (lam * torch.clamp(tr / 6.0, min=1e-6) + 1e-7)[:, None, None] * eye6
+    S = -S_red + torch.block_diag(*Hcc_d)
+    free6 = _free(prob).to(Hcc.dtype).repeat_interleave(6)
+    S = S * free6[:, None] * free6[None, :] + torch.diag(1.0 - free6)
+    return S, (b_c.reshape(-1) - rhs_red) * free6
 
 
 def reduced_solve_plain(prob, cam_R, cam_t, Hcc, b_c, S_red, rhs_red, lam):
     """Plain version of kernel G: damp Hcc, mask fixed cameras, solve the
     reduced system; returns (dx [K,6], trial cam_R, trial cam_t)."""
     K = cam_R.shape[0]
-    eye6 = torch.eye(6, dtype=torch.float32, device=cam_R.device)
-    tr = torch.diagonal(Hcc, dim1=-2, dim2=-1).sum(-1)
-    Hcc_d = Hcc + (lam * torch.clamp(tr / 6.0, min=1e-6) + 1e-7)[:, None, None] * eye6
-    S = -S_red + torch.block_diag(*Hcc_d)
-    free = _free(prob)
-    free6 = free.repeat_interleave(6)
-    S = S * free6[:, None] * free6[None, :] + torch.diag(1.0 - free6)
-    rhs = (b_c.reshape(-1) - rhs_red) * free6
-    dx = (-linalg.solve_spd_blocked(S, rhs)).reshape(K, 6) * free[:, None]
+    S, rhs = damped_reduced_system(prob, Hcc, b_c, S_red, rhs_red, lam)
+    dx = (-linalg.solve_spd_blocked(S, rhs)).reshape(K, 6) * _free(prob)[:, None]
     dR, dt = lie.se3_exp(dx)
     return (dx,) + lie.se3_compose(dR, dt, cam_R, cam_t)
 

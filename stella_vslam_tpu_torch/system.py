@@ -1,13 +1,15 @@
 """Public system API of the port: construction, frame feeding, results.
 
-Port of stella_vslam_tpu/system.py for the RGBD tracking and monocular
-slices: `System(cfg, device, inline_mapping=True)` with startup / shutdown,
-`create_monocular_frame` / `feed_monocular_frame` and `create_RGBD_frame` /
-`feed_RGBD_frame` (ORB extraction on kernels A and B, undistortion,
-bearings, depth sampling for RGBD and the packed host mirror, all on the
-device) and `frame_poses`. The mapping module is not ported yet, so the
-system runs with mapping disabled; `feed_stereo_frame` raises
-NotImplementedError naming its ROADMAP item.
+Port of stella_vslam_tpu/system.py for the RGBD tracking, monocular and
+mapping slices: `System(cfg, device, inline_mapping=True)` with startup /
+shutdown, `create_monocular_frame` / `feed_monocular_frame` and
+`create_RGBD_frame` / `feed_RGBD_frame` (ORB extraction on kernels A and B,
+undistortion, bearings, depth sampling for RGBD and the packed host mirror,
+all on the device), `frame_poses`, and for a monocular camera the mapping
+module, run inline after each feed (`enable_mapping_module`; the
+`KeyframeInserter` and `Mapping` config sections). Mapping starts disabled;
+mapping of stereo and RGBD keyframes is not ported, nor the loop closer;
+`feed_stereo_frame` raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from stella_vslam_tpu_torch.data.frame import Frame, pack_host_cols
 from stella_vslam_tpu_torch.data.map_database import MapDatabase
 from stella_vslam_tpu_torch.feature.orb_extractor import OrbExtractor
 from stella_vslam_tpu_torch.feature.orb_params import OrbParams
+from stella_vslam_tpu_torch.mapping_module import MappingModule
+from stella_vslam_tpu_torch.module.keyframe_inserter import KeyframeInserter
 from stella_vslam_tpu_torch.tracking_module import TrackingModule
 
 
@@ -58,7 +62,31 @@ class System:
                 tr.get("margin_last_frame_projection", 20.0)),
             margin_local_map_projection=float(
                 tr.get("margin_local_map_projection", 5.0)),
+            max_num_local_keyfrms=int(tr.get("max_num_local_keyfrms", 60)),
         )
+        self.tracker.keyfrm_inserter = KeyframeInserter.from_yaml(
+            self.camera, cfg.section("KeyframeInserter"))
+        self.mapper = None
+        if self.camera.setup == Setup.MONOCULAR:
+            mp = cfg.section("Mapping")
+            self.mapper = MappingModule(
+                self.map_db, self.camera, self.orb_params, device=self.device,
+                num_covisibilities_for_triangulation=int(
+                    mp.get("num_covisibilities_for_landmark_generation", 10)),
+                num_covisibilities_for_landmark_fusion=int(
+                    mp.get("num_covisibilities_for_landmark_fusion", 10)),
+                baseline_dist_thr_ratio=float(mp.get("baseline_dist_thr_ratio", 0.01)),
+                baseline_dist_thr=(float(mp["baseline_dist_thr"])
+                                   if "baseline_dist_thr" in mp else None),
+                max_num_local_keyfrms=self.tracker.max_num_local_keyfrms)
+            # culling thresholds live in the Mapping section (reference
+            # local_map_cleaner.cc:9-14)
+            cl = self.mapper.cleaner
+            cl.redundant_obs_ratio_thr = float(mp.get("redundant_obs_ratio_thr", 0.9))
+            cl.observed_ratio_thr = float(mp.get("observed_ratio_thr", 0.3))
+            cl.num_reliable_keyfrms = int(mp.get("num_reliable_keyfrms", 2))
+            self.tracker.mapper = self.mapper
+            self.tracker.keyfrm_inserter.mapper = self.mapper
         self._running = False
         cfg.log_collapse_report()
 
@@ -67,6 +95,7 @@ class System:
         self._running = True
 
     def shutdown(self):
+        self._drain_mapper_inline()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._running = False
@@ -75,8 +104,26 @@ class System:
         self.tracker.mapping_is_enabled = False
 
     def enable_mapping_module(self):
-        raise NotImplementedError(
-            "the mapping module is not ported yet (ROADMAP Queue 1 item 9)")
+        if self.mapper is None:
+            raise NotImplementedError(
+                "mapping of stereo and RGBD keyframes is not ported yet "
+                "(ROADMAP Queue 1 item 14)")
+        self.tracker.mapping_is_enabled = True
+
+    def _drain_mapper_inline(self):
+        """Run the keyframe events the last feed queued (inline mapping)."""
+        if self.mapper is not None:
+            self.mapper.drain()
+
+    @property
+    def local_ba_ms(self):
+        """Wall ms of every local BA, assembly to writeback and publish."""
+        return self.mapper.local_ba_ms if self.mapper is not None else []
+
+    @property
+    def keyframe_event_ms(self):
+        """Per keyframe event, its phases in ms (MappingModule.event_ms)."""
+        return self.mapper.event_ms if self.mapper is not None else []
 
     # ------------------------------------------------------------------
     def create_monocular_frame(self, img, timestamp: float, mask=None) -> Frame:
@@ -92,10 +139,11 @@ class System:
         return frm
 
     def feed_monocular_frame(self, img, timestamp: float, mask=None):
-        """Initialize or track one frame; returns its pose_cw, or None while
-        initializing or lost."""
-        return self.tracker.feed_frame(
-            self.create_monocular_frame(img, timestamp, mask))
+        """Initialize or track one frame, then run the keyframe events it
+        queued; returns its pose_cw, or None while initializing or lost."""
+        pose = self.tracker.feed_frame(self.create_monocular_frame(img, timestamp, mask))
+        self._drain_mapper_inline()
+        return pose
 
     def feed_stereo_frame(self, img_left, img_right, timestamp: float, mask=None):
         raise NotImplementedError(
@@ -157,13 +205,21 @@ class System:
     def frame_poses(self):
         """Per-frame results (timestamp, pose_cw|None, ref_kf, frame id);
         poses are rebuilt from the relative-to-reference-keyframe transform
-        so keyframe refinements propagate into the trajectory."""
+        so keyframe refinements propagate into the trajectory; a culled
+        reference keyframe forwards to the anchor its erasure recorded
+        (reference trajectory_io.cc:40-57)."""
         md = self.map_db
         out = []
         for fid, ts, pose, ref, rel in self.tracker.finalized:
             if pose is not None and rel is not None and ref is not None:
-                kf = md.keyframes.get(ref)
+                T_acc, cur, seen = rel, ref, set()
+                while (cur is not None and cur not in md.keyframes
+                       and cur in md.erased_kf_forward and cur not in seen):
+                    seen.add(cur)
+                    cur, T_fwd = md.erased_kf_forward[cur]
+                    T_acc = T_acc @ T_fwd
+                kf = md.keyframes.get(cur)
                 if kf is not None and not kf.will_be_erased:
-                    pose = rel @ kf.pose_cw
+                    pose = T_acc @ kf.pose_cw
             out.append((ts, pose, ref, fid))
         return out

@@ -9,11 +9,18 @@ one frame (`_create_map_for_stereo`), monocular from two frames through the
 Initializer and the two-keyframe map's bundle adjustment
 (`_create_map_for_monocular`, `_init_map_ba`).
 
+With mapping enabled (monocular), a finalized frame may become a keyframe
+(KeyframeInserter decides and inserts, the mapper's queue takes it, and the
+two init keyframes are handed over at initialization); when the mapper has
+published a new landmark table since the chain was built, the next frame
+re-anchors its chained pose on its reference keyframe's corrected pose and
+rebuilds the chained positions from the map (`_resync_chain_with_map`);
+a monocular frame lost within 5 s of initialization resets the map.
+
 Not ported yet, and where they come in (ROADMAP Queue 1): the batched result
-fetcher and finalize thread of the pipelined mode (item 8), the chain rebase
-at a table publish and keyframe insertion (they follow map updates by the
-mapping module, item 9) and the relocalizer (item 13) — a lost frame stays
-lost.
+fetcher and finalize thread of the pipelined mode, with the on-device chain
+rebase that only frames in flight need (item 8), and the relocalizer
+(item 13) — a lost frame stays lost.
 
 The device-chained association state (positions, validity, landmark ids of
 the last frame's inliers) and the chained poses stay on the device between
@@ -49,7 +56,8 @@ class TrackingModule:
                  use_fixed_seed: bool = False,
                  num_matches_thr: int = 10, min_num_tracked_lms: int = 20,
                  margin_last_frame_projection: float = 20.0,
-                 margin_local_map_projection: float = 5.0):
+                 margin_local_map_projection: float = 5.0,
+                 max_num_local_keyfrms: int = 60):
         self.map_db = map_db
         self.camera = camera
         self.orb_params = orb_params
@@ -63,12 +71,25 @@ class TrackingModule:
         self.keyfrm_inserter = KeyframeInserter(camera)
         self.num_matches_thr = num_matches_thr
         self.min_num_tracked_lms = min_num_tracked_lms
+        # the covisibility neighbourhood of the tracking-visible table
+        # (reference Tracking.max_num_local_keyfrms)
+        self.max_num_local_keyfrms = max_num_local_keyfrms
+        self.mapper = None  # set by System
 
         self.state = STATE_INITIALIZING
         self.last_frm: Optional[Frame] = None
         self.ref_keyfrm_id: Optional[int] = None
         self.twist: Optional[np.ndarray] = None
         self.mapping_is_enabled = False
+        self.last_keyfrm_time = 0.0
+        self.init_time = 0.0
+        self.num_tracked_lms = 0
+        # map sync: the table version the chain was built against, the last
+        # frame's pose relative to its reference keyframe and the host pose
+        # of the frame before it (for _resync_chain_with_map)
+        self._chain_tbl_version = None
+        self._last_rel = None
+        self._prev_host_pose = None
         # device-chained association + pose state of the last tracked frame
         self._last_assoc_pos = None  # [N,3]
         self._last_assoc_valid = None  # [N]
@@ -92,6 +113,7 @@ class TrackingModule:
             ok = self._initialize(frm)
             if ok:
                 self.state = STATE_TRACKING
+                self.init_time = frm.timestamp
                 self._set_chain_from_frame(frm)
                 self._dev_pose = None
                 self._dev_pose_prev = None
@@ -115,11 +137,8 @@ class TrackingModule:
     def _dispatch(self, frm: Frame):
         last = self.last_frm
         k = self.kernels
-        dev = self.device
         if self._dev_pose is None and last is not None and last.pose_cw is not None:
-            self._dev_pose = (
-                torch.as_tensor(last.pose_cw[:3, :3], dtype=torch.float32, device=dev),
-                torch.as_tensor(last.pose_cw[:3, 3], dtype=torch.float32, device=dev))
+            self._dev_pose = self._pose_to_dev(last.pose_cw)
         if self._dev_pose_prev is None:
             self._dev_pose_prev = self._dev_pose
         use_motion = self.twist is not None and self._last_assoc_pos is not None
@@ -130,6 +149,16 @@ class TrackingModule:
         if self.map_db.device_table.snap is None:
             self.map_db.refresh_device_table()
         tbl = self.map_db.device_table.snap
+        if self._chain_tbl_version is not None and self._chain_tbl_version != tbl.version \
+                and last is not None and last.pose_cw is not None:
+            # the mapper changed the map since the chain was built
+            self._resync_chain_with_map(last)
+        self._chain_tbl_version = tbl.version
+        # the reference keyframe's pose in this table's coordinates: as
+        # published, or its creation pose if it is newer than the table
+        anchor_pose = tbl.kf_poses.get(self.ref_keyfrm_id)
+        if anchor_pose is None:
+            anchor_pose = ref_kf._pose_at_creation
         if self._kf_for_assoc is not ref_kf:
             self._refresh_kf_assoc(ref_kf)
         R_last, t_last = self._dev_pose
@@ -149,11 +178,11 @@ class TrackingModule:
         self._last_assoc_id = out.assoc_id
         self._dev_pose_prev = self._dev_pose
         self._dev_pose = (out.R_cw, out.t_cw)
-        return out, last, tbl.ids
+        return out, last, tbl, self.ref_keyfrm_id, anchor_pose
 
     # ------------------------------------------------------------------
     def _finalize_one(self, frm: Frame, dispatched):
-        out, last, tbl_ids = dispatched
+        out, last, snap, ref_at_dispatch, anchor_pose = dispatched
         n = frm.num_slots
         packed = out.packed.cpu().numpy()  # the packed result, one copy
         pose12 = packed[:12]
@@ -181,6 +210,11 @@ class TrackingModule:
         T[:3, 3] = pose12[9:12]
         frm.set_pose_cw(T)
         frm.lm_ids[:] = self.map_db.resolve_landmark_ids(lm_ids)
+        # associations forwarded through fusion since dispatch: when that is
+        # most of them, keep the frame's record on its dispatch anchor
+        valid_disp = lm_ids >= 0
+        n_forwarded = int(np.sum(valid_disp & (frm.lm_ids != lm_ids)))
+        gauge_hazard = n_forwarded > 0.2 * max(1, int(np.sum(valid_disp)))
         ids = frm.lm_ids
         occupied = np.nonzero(ids >= 0)[0]
         if len(occupied) > 1:
@@ -188,8 +222,9 @@ class TrackingModule:
             dup = np.setdiff1d(occupied, occupied[first], assume_unique=True)
             ids[dup] = -1
         tbl = self.map_db.device_table
-        tbl.bump_observable(flags[n:], tbl_ids)
+        tbl.bump_observable(flags[n:], snap.ids)
         tbl.bump_observed(frm.lm_ids)
+        self.num_tracked_lms = num_final
         prev_pose = last.pose_cw if last is not None else None
         self.twist = frm.pose_cw @ np.linalg.inv(prev_pose) \
             if prev_pose is not None else None
@@ -197,7 +232,7 @@ class TrackingModule:
         # reference keyframe: the one sharing the most landmarks with this
         # frame (reference local_map_updater nearest_covisibility)
         valid_lms = frm.lm_ids[frm.lm_ids >= 0]
-        if len(valid_lms):
+        if len(valid_lms) and not gauge_hazard:
             obs_kfs, obs_cnts = self.map_db.assoc_store.covis_counts(valid_lms, -1)
             if len(obs_kfs):
                 b = int(np.argmax(obs_cnts))
@@ -207,13 +242,51 @@ class TrackingModule:
                     kf_new = self.map_db.keyframes.get(int(obs_kfs[b]))
                     if kf_new is not None and not kf_new.will_be_erased:
                         self.ref_keyfrm_id = int(obs_kfs[b])
+        insert = False
+        if self.mapping_is_enabled:
+            ref_kf = self.map_db.keyframes.get(self.ref_keyfrm_id)
+            # reliable = tracked landmarks with >= min_num_obs_thr
+            # observations (tracking_module.cc:143-144)
+            min_obs = 3 if self.map_db.num_keyframes() >= 3 else 2
+            num_reliable = int((self.map_db.assoc_store.num_obs_bulk(frm.lm_ids)
+                                >= min_obs).sum())
+            insert = self.keyfrm_inserter.new_keyframe_is_needed(
+                self.map_db, frm, num_final, self.last_keyfrm_time, ref_kf,
+                num_reliable=num_reliable)
         frm.ref_keyfrm_id = self.ref_keyfrm_id
+        # relative pose to the reference keyframe, anchored to that
+        # keyframe's pose in the gauge the frame was tracked in (the
+        # dispatch table's snapshot, or the creation pose of a newer
+        # keyframe), so later refinements of it propagate exactly
+        rel = None
+        if gauge_hazard and ref_at_dispatch in self.map_db.keyframes:
+            frm.ref_keyfrm_id = ref_at_dispatch
+            rel = frm.pose_cw @ np.linalg.inv(anchor_pose)
+        else:
+            ref_pose = snap.kf_poses.get(self.ref_keyfrm_id)
+            ref = self.map_db.keyframes.get(self.ref_keyfrm_id)
+            if ref_pose is None and ref is not None:
+                ref_pose = ref._pose_at_creation \
+                    if ref.id > max(snap.kf_poses, default=-1) else ref.pose_cw
+            if ref_pose is not None:
+                rel = frm.pose_cw @ np.linalg.inv(ref_pose)
         self.finalized.append((frm.id, frm.timestamp, frm.pose_cw.copy(),
-                               frm.ref_keyfrm_id, self._rel_to_ref(frm)))
+                               frm.ref_keyfrm_id, rel))
         self.last_frm = frm
+        self._last_rel = rel
+        self._prev_host_pose = prev_pose
+        if insert:
+            self.last_keyfrm_time = frm.timestamp
+            kf = self.keyfrm_inserter.insert_new_keyframe(self.map_db, frm)
+            self.ref_keyfrm_id = kf.id
 
     def _on_lost(self, frm: Frame):
         self.finalized.append((frm.id, frm.timestamp, None, frm.ref_keyfrm_id, None))
+        if frm.timestamp - self.init_time < 5.0 and self.mapping_is_enabled \
+                and self.camera.setup == Setup.MONOCULAR:
+            # a monocular map lost this early is not worth keeping
+            self.reset()
+            return
         self.state = STATE_LOST
         self.last_frm = frm
         self.twist = None
@@ -222,14 +295,44 @@ class TrackingModule:
         self._last_assoc_id = None
         self._dev_pose = None
         self._dev_pose_prev = None
+        self._last_rel = None
+        self._prev_host_pose = None
 
     # ------------------------------------------------------------------
+    def _resync_chain_with_map(self, last: Frame):
+        """Before a dispatch, when the mapper changed the map since the
+        chain was built: re-anchor the last frame as its rel pose times its
+        reference keyframe's current pose, move the frame before it by the
+        same correction (the motion model keeps its twist), and rebuild the
+        chained positions from the map (reference update_last_frame,
+        tracking_module.cc:433)."""
+        ref = self.map_db.keyframes.get(last.ref_keyfrm_id)
+        if ref is not None and self._last_rel is not None and self._dev_pose is not None:
+            T_l_old = last.pose_cw
+            T_l_new = self._last_rel @ ref.pose_cw
+            if not np.allclose(T_l_new, T_l_old, atol=1e-12):
+                T_p_old = self._prev_host_pose
+                T_p_new = (T_p_old @ np.linalg.inv(T_l_old) @ T_l_new
+                           if T_p_old is not None else T_l_new)
+                last.set_pose_cw(T_l_new)
+                self._prev_host_pose = T_p_new
+                self._dev_pose = self._pose_to_dev(T_l_new)
+                self._dev_pose_prev = self._pose_to_dev(T_p_new)
+        self._set_chain_from_frame(last)
+        self._kf_for_assoc = None
+
+    def _pose_to_dev(self, T):
+        return (torch.as_tensor(T[:3, :3], dtype=torch.float32, device=self.device),
+                torch.as_tensor(T[:3, 3], dtype=torch.float32, device=self.device))
+
     def _set_chain_from_frame(self, frm: Frame):
-        """Device association state from a frame's host lm_ids (after init)."""
+        """Device association state from a frame's host lm_ids (after init,
+        and at a resync), stamped with the table version it reads."""
         n = frm.num_slots
         pos = np.zeros((n, 3), np.float32)
         has = np.zeros(n, bool)
         ids = np.full(n, -1, np.int32)
+        version = self.map_db.device_table.version
         frm.lm_ids[:] = self.map_db.resolve_landmark_ids(frm.lm_ids)
         for i in np.nonzero(frm.lm_ids >= 0)[0]:
             lm = self.map_db.landmarks.get(int(frm.lm_ids[i]))
@@ -242,6 +345,7 @@ class TrackingModule:
         self._last_assoc_pos = torch.from_numpy(pos).to(dev)
         self._last_assoc_valid = torch.from_numpy(has).to(dev)
         self._last_assoc_id = torch.from_numpy(ids).to(dev)
+        self._chain_tbl_version = version
 
     def _refresh_kf_assoc(self, kf: Keyframe):
         n = kf.num_slots
@@ -278,6 +382,11 @@ class TrackingModule:
         self._dev_pose = None
         self._dev_pose_prev = None
         self._kf_for_assoc = None
+        self._chain_tbl_version = None
+        self._last_rel = None
+        self._prev_host_pose = None
+        if self.mapper is not None:
+            self.mapper.cleaner.fresh_landmark_ids = []
 
     # ------------------------------------------------------------------
     def _initialize(self, frm: Frame) -> bool:
@@ -331,7 +440,13 @@ class TrackingModule:
         cur_frm.set_pose_cw(cur_kf.pose_cw)
         self.ref_keyfrm_id = cur_kf.id
         cur_frm.ref_keyfrm_id = cur_kf.id
+        self.last_keyfrm_time = cur_frm.timestamp
         map_db.refresh_device_table()
+        if self.mapper is not None and self.mapping_is_enabled:
+            # with mapping disabled the init pair stays unmapped (the
+            # reference's paused mapper never takes them)
+            self.mapper.async_add_keyframe(ref_kf)
+            self.mapper.async_add_keyframe(cur_kf)
         self.twist = None
         return True
 
@@ -410,6 +525,7 @@ class TrackingModule:
         kf.graph_node.update_connections(self.map_db)
         self.ref_keyfrm_id = kf.id
         cur_frm.ref_keyfrm_id = kf.id
+        self.last_keyfrm_time = cur_frm.timestamp
         self.map_db.refresh_device_table()
         self.twist = None
         return True

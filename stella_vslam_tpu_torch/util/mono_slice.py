@@ -4,9 +4,9 @@ The configuration is bench.py's mono leg (main, bench.py:261-444): the
 photo-hardened plane world at EuRoC size (752x480, fx 458, plane at 4 m,
 pixel noise sigma 2, +-6% exposure drift), 8 ORB levels, min_size 800
 (2872 slots), Initializer use_fixed_seed; the camera moves 0.015 m per frame
-along the outbound path; mapping disabled (the mapping module is not
-ported), so after the two-keyframe initialization every frame tracks
-against the initial map.
+along the outbound path; mapping disabled (util/map_slice.py runs the
+same leg with it), so after the two-keyframe initialization every frame
+tracks against the initial map.
 
     python -m stella_vslam_tpu_torch.util.mono_slice [--frames N] [--profile]
 

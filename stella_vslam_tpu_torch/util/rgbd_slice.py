@@ -143,7 +143,7 @@ def _summarize(prof, window_ms: float, n: int) -> dict:
             continue
         dev_us = e.self_device_time_total
         if dev_us > 0:
-            rows.append((e.key, dev_us / n / 1e3, e.count // n))
+            rows.append((e.key, dev_us / n / 1e3, e.count / n))
             total_us += dev_us
     rows.sort(key=lambda r: -r[1])
     return {"window_frames": n, "wall_ms_per_frame": window_ms / n,

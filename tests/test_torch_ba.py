@@ -130,6 +130,33 @@ def test_stereo_rows_fixed_points_match_jax():
     assert np.array_equal(rt.cam_R.numpy()[3], p["cam_R"][3].astype(np.float32))
 
 
+def test_plain_linearize_in_float64_matches_float32():
+    """Plain F runs in the dtype of its inputs (the card check holds kernel
+    F against it in float64), and plain G solves damped_reduced_system."""
+    p = make_problem(K=4, L=256, D=3, stereo=True, extras=True, seed=3)
+    prob = convert.ba_problem(_jax_problem(p), device="cpu")
+    prob64 = tba.BAProblem(*[v.double() if v is not None and v.is_floating_point() else v
+                             for v in prob])
+    cam = CamScalars(FX, FX, CX, CY, 400.0, 300.0, FXB)
+    inlier = torch.ones_like(prob.obs_valid)
+    lam = torch.tensor(1e-4)
+    o32 = tba.linearize_schur_plain(prob, cam, prob.cam_R, prob.cam_t, prob.lm_pos, inlier,
+                                    lam, True)
+    o64 = tba.linearize_schur_plain(prob64, cam, prob64.cam_R, prob64.cam_t, prob64.lm_pos,
+                                    inlier, lam.double(), True)
+    for a, b in zip(o32[:5], o64[:5]):
+        assert b.dtype == torch.float64
+        assert float((a.double() - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    _, Hcc, b_c, S_red, rhs_red, _ = o64
+    S, rhs = tba.damped_reduced_system(prob64, Hcc, b_c, S_red, rhs_red, lam.double())
+    dx, _, _ = tba.reduced_solve_plain(prob64, prob64.cam_R, prob64.cam_t, Hcc, b_c, S_red,
+                                       rhs_red, lam.double())
+    np.testing.assert_allclose(dx.reshape(-1).numpy(), -np.linalg.solve(S.numpy(), rhs.numpy()),
+                               rtol=1e-9, atol=1e-12)
+    # fixed (slot 0) and invalid (slot 3) cameras do not move
+    assert float(dx[0].abs().max()) == 0.0 and float(dx[3].abs().max()) == 0.0
+
+
 def test_solve_spd_blocked_matches_dense():
     from stella_vslam_tpu_torch.ops import linalg
 

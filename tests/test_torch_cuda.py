@@ -184,18 +184,23 @@ def test_ransac_kernel_matches_plain(dev, which, seed):
     assert float((rk.is_inlier == rp.is_inlier).float().mean()) >= 0.99
 
 
-def _ba_problem(dev, K, L, D, stereo, keep=False):
-    """K cameras 0.4 m apart, L points 2.5-4.5 m away seen by D of them,
-    0.5 px noise, 5% gross outliers, camera 0 fixed; with `keep`, a third of
-    the landmarks marked lm_keep_inlier."""
+def _ba_problem(dev, K, L, D, stereo, keep=False, spacing=0.4, ordered=False):
+    """K cameras `spacing` m apart, L points 2.5-4.5 m away seen by D of
+    them, 0.5 px noise, 5% gross outliers, camera 0 fixed; with `keep`, a
+    third of the landmarks marked lm_keep_inlier. `ordered`: the local BA's
+    layout (runs of 64 landmarks share their observers in slot order, 10% of
+    the slots padded and pointing at camera 0), where whole warps of kernel
+    F add into one camera block."""
     from stella_vslam_tpu_torch.ops.optim import ba
 
     rng = np.random.default_rng(K * 10 + D)
     fx, cx, cy, fxb = 458.0, 376.0, 240.0, float(np.float32(458.0 * 0.12))
-    t = np.stack([[-0.4 * k, 0.04 * k, 0.0] for k in range(K)])
+    t = np.stack([[-spacing * k, 0.1 * spacing * k, 0.0] for k in range(K)])
     X = np.stack([rng.uniform(-1.5, 1.5, L), rng.uniform(-1, 1, L),
                   rng.uniform(2.5, 4.5, L)], -1)
     oc = np.stack([rng.permutation(K)[:D] for _ in range(L)]).astype(np.int32)
+    if ordered:
+        oc = np.stack([(np.arange(D) + l // 64) % K for l in range(L)]).astype(np.int32)
     Xc = X[:, None, :] + t[oc]
     uv = np.stack([fx * Xc[..., 0] / Xc[..., 2] + cx, fx * Xc[..., 1] / Xc[..., 2] + cy], -1)
     xr = np.where(rng.random((L, D)) < (0.5 if stereo else 0.0),
@@ -206,12 +211,16 @@ def _ba_problem(dev, K, L, D, stereo, keep=False):
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     b = lambda a: torch.as_tensor(np.asarray(a, bool), device=dev)
     cam_t = t + np.concatenate([[[0, 0, 0]], rng.normal(0, 0.01, (K - 1, 3))])
+    lm_pos = X + rng.normal(0, 0.01, X.shape)
+    valid = rng.random((L, D)) < (0.9 if ordered else 0.95)
+    if ordered:
+        oc[~valid] = 0
     prob = ba.BAProblem(
         cam_R=f(np.tile(np.eye(3), (K, 1, 1))), cam_t=f(cam_t),
         cam_fixed=b(np.arange(K) == 0), cam_valid=b(np.ones(K)),
-        lm_pos=f(X + rng.normal(0, 0.01, X.shape)), lm_valid=b(np.ones(L)),
+        lm_pos=f(lm_pos), lm_valid=b(np.ones(L)),
         obs_cam=torch.as_tensor(oc, device=dev), obs_uv=f(uv), obs_x_right=f(xr),
-        obs_inv_sigma_sq=f(np.ones((L, D))), obs_valid=b(rng.random((L, D)) < 0.95),
+        obs_inv_sigma_sq=f(np.ones((L, D))), obs_valid=b(valid),
         lm_keep_inlier=b(rng.random(L) < 1 / 3) if keep else None)
     return prob, CamScalars(fx, fx, cx, cy, 752.0, 480.0, fxb)
 
@@ -250,3 +259,144 @@ def test_ba_classify_kernel_matches_plain(dev, final):
     p = ba.classify_plain(prob, cam, prob.cam_R, prob.cam_t, prob.lm_pos, final)
     assert k.dtype == torch.bool and k.shape == p.shape
     assert float((k != p).float().mean()) <= 1e-3
+
+
+def test_ba_kernels_match_plain_at_local_shape(dev):
+    """F-I at the mapping module's local-BA shape (K=16 cameras 0.1 m apart,
+    D=12 observers per landmark in the local BA's ordered layout, 3 + 6
+    iterations), against the plain BA with the bounds above."""
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    prob, cam = _ba_problem(dev, 16, 1500, 12, False, spacing=0.1, ordered=True)
+    rk = ba.bundle_adjust(prob, cam, num_first=3, num_second=6)
+    rp = ba.bundle_adjust_plain(prob, cam, num_first=3, num_second=6)
+    assert float((rk.cam_R - rp.cam_R).abs().max()) < 1e-4
+    assert float((rk.cam_t - rp.cam_t).abs().max()) < 1e-4
+    good = (prob.obs_valid & ~rp.obs_is_outlier).sum(1) >= 2
+    assert float((rk.lm_pos - rp.lm_pos)[good].abs().max()) < 1e-3
+    assert torch.equal(rk.obs_is_outlier, rp.obs_is_outlier)
+
+
+def _mapping_scene(dev, B=3, N1=300, N2=517, P=600, seed=0):
+    """A new keyframe (row 0) and B neighbours 0.1 m apart facing points
+    3.5-4.5 m away: N1 / N2 keypoints per view, each a view of one of P
+    points (bearing noise 1e-4, 0-2 flipped descriptor bits, angle within 5
+    degrees, the point's octave 0-3); 90% unassociated, 10% stereo. Returns
+    (MappingKernels, cur, nbrs, poses [B+1,12], the points, their
+    descriptors and octaves)."""
+    from stella_vslam_tpu_torch.camera.base import camera_from_yaml
+    from stella_vslam_tpu_torch.feature.orb_params import OrbParams
+    from stella_vslam_tpu_torch.module.mapping_kernels import MappingKernels, TriKeyframe
+
+    rng = np.random.default_rng(seed)
+    cam = camera_from_yaml({
+        "name": "test", "setup": "monocular", "model": "perspective", "fx": 458.0,
+        "fy": 458.0, "cx": 376.0, "cy": 240.0, "k1": 0.0, "k2": 0.0, "p1": 0.0,
+        "p2": 0.0, "k3": 0.0, "fps": 20.0, "cols": 752, "rows": 480,
+        "color_order": "Gray"})
+    X = np.stack([rng.uniform(-1.5, 1.5, P), rng.uniform(-1.0, 1.0, P),
+                  rng.uniform(3.5, 4.5, P)], -1)
+    desc = rng.integers(0, 2 ** 32, (P, 8), dtype=np.uint64).astype(np.uint32)
+    angle = rng.uniform(-np.pi, np.pi, P)
+    level = rng.integers(0, 4, P)
+    poses = np.zeros((B + 1, 12), np.float32)
+    views = []
+    for k in range(B + 1):
+        a = 0.01 * k
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+        t = np.array([-0.1 * k, 0.01 * k, 0.0])
+        poses[k, :9], poses[k, 9:] = R.reshape(9), t
+        n = N1 if k == 0 else N2
+        ids = rng.permutation(P)[:n]
+        xc = X[ids] @ R.T + t
+        bear = xc / np.linalg.norm(xc, axis=1, keepdims=True) + rng.normal(0, 1e-4, (n, 3))
+        bear /= np.linalg.norm(bear, axis=1, keepdims=True)
+        uv = np.stack([458.0 * xc[:, 0] / xc[:, 2] + 376.0, 458.0 * xc[:, 1] / xc[:, 2] + 240.0],
+                      -1) + rng.normal(0, 0.5, (n, 2))
+        d = desc[ids].copy()
+        for _ in range(2):
+            d[np.arange(n), rng.integers(0, 8, n)] ^= (
+                rng.random(n) < 0.5).astype(np.uint32) << rng.integers(0, 32, n).astype(np.uint32)
+        views.append((uv, level[ids], d.view(np.int32), bear,
+                      angle[ids] + rng.normal(0, 0.05, n), rng.random(n) < 0.9,
+                      rng.random(n) < 0.1))
+
+    def tk(vs):
+        f = lambda i, dt: torch.as_tensor(np.stack([v[i] for v in vs]).astype(dt), device=dev)
+        return TriKeyframe(f(0, np.float32), f(1, np.int32), f(2, np.int32),
+                           f(3, np.float32), f(4, np.float32), f(5, bool), f(6, bool))
+
+    cur = TriKeyframe(*[x[0] for x in tk(views[:1])])
+    mk = MappingKernels(cam, OrbParams(num_levels=4), device=dev)
+    return mk, cur, tk(views[1:]), torch.as_tensor(poses, device=dev), X, desc, level
+
+
+def test_epipolar_top2_and_triangulate_kernels_match_plain(dev):
+    """Kernel J against its plain version on the same gate terms (rows
+    differing <= 1e-3), then kernel K on J's matches (ok flags differing
+    <= 1e-3, positions within 1e-4 relative where both are ok), a padding
+    neighbour masked."""
+    from stella_vslam_tpu_torch.match import robust
+    from stella_vslam_tpu_torch.module import mapping_kernels as mkm
+
+    mk, cur, nbrs, poses, _, _, _ = _mapping_scene(dev)
+    E_12, epl2 = mkm.epipolar_terms(poses)
+    gate = robust.epipolar_gate(cur.angle, cur.level, cur.bear, cur.stereo, nbrs.angle,
+                                nbrs.bear, nbrs.stereo, E_12, epl2,
+                                scale_factors=mk.scale_factors)
+    args = (cur.desc, nbrs.desc, cur.unassoc, nbrs.unassoc, gate)
+    before = H.epipolar_top2.launches
+    k, p = H.epipolar_top2(*args), H.epipolar_top2_plain(*args)
+    assert H.epipolar_top2.launches == before + 1
+    differ = torch.zeros_like(k[0], dtype=torch.bool)
+    for a, b in zip(k, p):
+        differ |= a != b
+    assert float(differ.float().mean()) <= 1e-3
+    idx2, accepted, _ = robust.match_for_triangulation(
+        cur.angle, cur.level, cur.desc, cur.bear, cur.unassoc, cur.stereo, nbrs.angle,
+        nbrs.desc, nbrs.bear, nbrs.unassoc, nbrs.stereo, E_12, epl2,
+        scale_factors=mk.scale_factors)
+    assert int(accepted.sum()) > 100
+    pair_valid = torch.tensor([True, True, False], device=dev)
+    kargs = (cur.uv, cur.level, cur.bear, nbrs.uv, nbrs.level, nbrs.bear, poses,
+             idx2.contiguous(), accepted, pair_valid, mk.cam, mk.level_sigma_sq,
+             mk.scale_factors)
+    rk, rp = mkm.triangulate_checks(*kargs), mkm.triangulate_checks_plain(*kargs)
+    assert int(rp.ok.sum()) > 100 and not bool(rk.ok[2].any())
+    assert float((rk.ok != rp.ok).float().mean()) <= 1e-3
+    assert torch.equal(rk.idx2[rk.ok & rp.ok], rp.idx2[rk.ok & rp.ok])
+    both = rk.ok & rp.ok
+    rel = torch.linalg.norm(rk.pos_w - rp.pos_w, dim=-1) / torch.linalg.norm(rp.pos_w, dim=-1)
+    assert float(rel[both].max()) < 1e-4
+
+
+def test_fuse_kernel_matches_plain(dev):
+    """Kernel L against its plain version: B keyframes (one padding) x M
+    landmarks (the scene's points with their ranges and normals, a tail of
+    padding rows): accepted flags differing <= 1e-3."""
+    from stella_vslam_tpu_torch.module import mapping_kernels as mkm
+
+    mk, _, nbrs, poses, X, desc, level = _mapping_scene(dev, seed=1)
+    B, N = nbrs.uv.shape[0], nbrs.uv.shape[1]
+    rng = np.random.default_rng(2)
+    P, M = len(X), len(X) + 77
+    dist = np.linalg.norm(X, axis=1)  # from the new keyframe's centre, the origin
+    lm_f = np.zeros((M, 8), np.float32)
+    lm_f[:P, :3] = X + rng.normal(0, 1e-3, X.shape)
+    lm_f[:P, 4] = dist * 1.2 ** level
+    lm_f[:P, 3] = lm_f[:P, 4] / 1.2 ** 3
+    lm_f[:P, 5:] = X / dist[:, None]
+    lm_desc = np.zeros((M, 8), np.uint32)
+    lm_desc[:P] = desc
+    xr = torch.where(nbrs.stereo, nbrs.uv[..., 0] - 20.0, torch.full_like(nbrs.uv[..., 0], -1.0))
+    kfs = mkm.FuseKeyframes(nbrs.uv, nbrs.level, nbrs.desc, nbrs.unassoc, xr.contiguous())
+    t = lambda a: torch.as_tensor(a, device=dev)
+    args = (kfs, poses[1:].contiguous(), t(np.arange(B) < B - 1), t(lm_f),
+            t(lm_desc.view(np.int32)), t(np.arange(M) < P - 20), mk.cam, mk.scale_factors,
+            mk.level_sigma_sq, mk.log_scale)
+    before = mkm.fuse_scan.launches
+    k, p = mkm.fuse_scan(*args), mkm.fuse_scan_plain(*args)
+    assert mkm.fuse_scan.launches == before + 1
+    acc_k, acc_p = mkm.accept_fused(*k, N), mkm.accept_fused(*p, N)
+    assert int(acc_p.sum()) > 100 and not bool(acc_k[B - 1].any())
+    assert float((acc_k != acc_p).float().mean()) <= 1e-3

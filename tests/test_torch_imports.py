@@ -18,6 +18,12 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+MAPPING_MODULES = tuple("stella_vslam_tpu_torch." + m for m in (
+    "mapping_module", "module.mapping_kernels", "module.local_map_cleaner",
+    "module.keyframe_inserter", "match.fuse", "match.robust", "ops.triangulation",
+    "ops.solve.essential", "util.map_slice", "convert"))
+
+
 def test_port_imports_without_jax_cv2_yaml():
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
@@ -29,8 +35,11 @@ def test_port_imports_without_jax_cv2_yaml():
             importlib.import_module(m)
         assert "stella_vslam_tpu" not in sys.modules, "imported the JAX package"
         assert len(mods) >= 20, mods
+        # the mapping slice's modules are among those checked
+        missing = set(MAPPING_MODULES) - set(mods)
+        assert not missing, missing
         print(len(mods))
-    """)
+    """).replace("MAPPING_MODULES", repr(MAPPING_MODULES))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -113,6 +122,6 @@ def test_public_constructors_default_to_the_card():
             if "device" in params:
                 found[name] = params["device"].default
     expected = {"System", "TrackingModule", "TrackingKernels", "OrbExtractor",
-                "DeviceLandmarkTable", "MapDatabase"}
+                "DeviceLandmarkTable", "MapDatabase", "MappingModule", "MappingKernels"}
     assert expected <= set(found), sorted(found)
     assert all(v == "cuda" for v in found.values()), found
