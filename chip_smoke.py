@@ -41,7 +41,8 @@ Phases, each fatal on failure (nothing is caught):
      frame's time by phase;
   7. the map slice: System in monocular mode with mapping enabled and
      inline, 500 frames of the same world (the bench's whole outbound leg,
-     x from 0 to 7.49 m): at most 2 frames lost after init, Sim3 ATE
+     x from 0 to 7.49 m; the first 500 frames of phase 9's run, read before
+     the drift is injected): at most 2 frames lost after init, Sim3 ATE
      < 0.10 m, at least 12 local BAs and 5 keyframes kept at the end, kernels
      A-L launched; frame and keyframe-event times by phase
      (util/map_slice.py);
@@ -63,10 +64,36 @@ Phases, each fatal on failure (nothing is caught):
      and outlier flags wherever the deciding quantity lies more than 1e-5
      from its threshold; the whole BA of each, kernel against plain and
      each against itself, is printed; times and bounds as in phase 4.
+  9. the loop slice (phase 7 is its first 500 frames, read at frame 500):
+     the bench's whole 1290-frame circuit with mapping and the loop detector
+     enabled and the bench's drift injected after the outbound leg
+     (util/loop_slice.py): at least one loop closed, Sim3 ATE over all
+     frames < 0.10 m, at most 8 frames lost after init, at least 25 keyframes
+     created and 10 kept, a loop edge in the graph, the frame after each
+     correction tracked, kernels A-P launched; the loop event's time by phase;
+ 10. the loop kernels against their plain versions, on synthetic inputs at
+     the slice's shapes and on the inputs the loop slice recorded: M (BoW
+     descent, 2872 descriptors) equal leaf ids; N (PnP RANSAC, 256 sets x 8
+     starts x 2872) hypothesis by hypothesis (ok flags and inlier counts
+     equal and (R, t) within 1e-4 on at least 99% of the hypotheses, costs
+     within 1e-4 relative), the same winner with the same inlier set and a
+     pose within 1e-5; C's keyframe-match call (2872 x 2872, margins 10 and
+     3) exact; O (Sim3 refinement) s, R, t within 1e-4 and inlier flags
+     differing on at most 1e-3 of the pairs; P (pose graph) per iteration on
+     the kernel's own state: the system within 1e-4 and the right-hand side
+     within 1e-3 of the largest entry, the update within 1e-5, and the whole 20 iterations
+     within 1e-3; F-I at the global shape (K = 32 and K = 64, L = 4096,
+     D = 16, and K = 128, L = 1024, D = 16; one Huber stage of 16) and on
+     the slice's global BA problems kernel by kernel (_lockstep_ba, G's
+     backward error below 1e-3 as at the local shape, H's trial cost within
+     1e-3); times and bounds (K = 32 and 64) as in phase 4,
+     the library call of P's solve (torch.linalg.cholesky + cholesky_solve)
+     and of G's (torch.linalg.solve).
 Launch counts are set to 0 just before each slice and read just after it;
-the kernels line reports the map slice's (which runs every kernel), with
+the kernels line reports the loop slice's (which runs every kernel), with
 the mono and RGBD slices' beside them. The line before the last is
-{"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Long
+{"kernels": [...]}, the one before it "slices: {...}" with each slice's
+result in short; the last line is {"ok": true, "device": {...}}. Long
 logs go to chiprun_out/.
 """
 from __future__ import annotations
@@ -87,6 +114,8 @@ FP32_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 # kernels J, K, L: the mapping module's, which the mono and RGBD slices
 # (mapping disabled) never launch
 MAPPING_KERNELS = ("epipolar_top2", "triangulate", "fuse")
+# kernels M-P: the loop closer's (M runs with the mapper's keyframe events)
+LOOP_KERNELS = ("bow_transform", "pnp_ransac", "sim3_transform", "pose_graph")
 
 
 def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -762,7 +791,7 @@ def record_kernel_inputs(mapper):
     no device work and no host read during the run. Returns (calls, undo)."""
     from stella_vslam_tpu_torch.ops.optim import ba
 
-    calls = {"triangulate": [], "fuse": [], "bundle_adjust": []}
+    calls = {"triangulate": [], "fuse": [], "bundle_adjust": [], "global_ba": []}
     kern = mapper.kernels
     triangulate, fuse, solve = kern.triangulate, kern.fuse, ba.bundle_adjust
 
@@ -775,7 +804,8 @@ def record_kernel_inputs(mapper):
         return fuse(*args)
 
     def ba_rec(prob, *args, **kw):
-        calls["bundle_adjust"].append(prob)
+        # the global BA is one Huber stage (num_second = 0)
+        calls["global_ba" if kw.get("num_second", 1) == 0 else "bundle_adjust"].append(prob)
         return solve(prob, *args, **kw)
 
     kern.triangulate, kern.fuse, ba.bundle_adjust = tri_rec, fuse_rec, ba_rec
@@ -793,39 +823,11 @@ def largest_inputs(calls):
     landmarks) and every local BA problem (K >= 16; the init BA has K = 2),
     the one with the most landmarks first."""
     tri = max(calls["triangulate"], key=lambda a: (int(a[3].sum()), int(a[0].unassoc.sum())))
-    fuse = max(calls["fuse"], key=lambda a: (int(a[2].sum()), int(a[5].sum())))
+    fuse = max((a for a in calls["fuse"] if len(a) < 7 or a[6] == 3.0),
+               key=lambda a: (int(a[2].sum()), int(a[5].sum())))[:6]
     local = sorted((p for p in calls["bundle_adjust"] if p.cam_R.shape[0] >= 16),
                    key=lambda p: -int(p.lm_valid.sum()))
     return tri, fuse, local
-
-
-def run_map_slice(dev, world, wrappers, card):
-    """The map slice (mono, mapping enabled, inline) over the bench's whole
-    outbound leg, every launch count at 0 just before it and read just after
-    it; returns (statistics, launches, mapper, the largest kernel inputs)."""
-    from stella_vslam_tpu_torch.util import map_slice
-
-    slam = map_slice.make_system(world, dev)
-    calls, undo = record_kernel_inputs(slam.mapper)
-    for w in wrappers.values():
-        w.launches = 0
-    try:
-        stats = map_slice.run_slice(dev, world, n_frames=500, step=0.015, slam=slam)
-    finally:
-        undo()
-    launches = {k: w.launches for k, w in wrappers.items()}
-    inputs = largest_inputs(calls)
-    with open(os.path.join(OUT_DIR, "map_slice.json"), "w") as f:
-        json.dump(dict(stats, card=card), f, indent=1)
-    print("map slice: " + json.dumps(dict(stats, card=card)))
-    print("map slice launches: " + json.dumps(launches))
-    assert stats["lost_after_init"] <= 2, f"{stats['lost_after_init']} frames lost"
-    assert stats["ate_m"] < 0.10, f"Sim3 ATE {stats['ate_m']:.4f} m"
-    assert stats["local_bas"] >= 12, f"{stats['local_bas']} local BAs"
-    assert stats["keyframes_kept"] >= 5, f"{stats['keyframes_kept']} keyframes kept"
-    for name, n in launches.items():
-        assert n > 0, f"{name} was not launched by the map slice"
-    return stats, launches, slam.mapper, inputs
 
 
 def check_mapping_kernels(dev, mapper, inputs):
@@ -1011,6 +1013,472 @@ def check_mapping_kernels(dev, mapper, inputs):
     return rows
 
 
+def record_loop_inputs(slam):
+    """Keep, by reference, the arguments of the loop closer's device calls:
+    the BoW transform, PnP RANSAC, the keyframe rematch, the Sim3 refinement
+    and the pose graph. Returns (calls, undo)."""
+    from stella_vslam_tpu_torch.match import projection as proj
+    from stella_vslam_tpu_torch.ops.optim import sim3
+    from stella_vslam_tpu_torch.ops.solve import pnp
+
+    calls = {"bow": [], "pnp": [], "kf_match": [], "transform": [], "pose_graph": []}
+    vocab = slam.bow_vocab
+    saved = (vocab.transform, pnp.find_via_ransac, proj.match_frame_and_keyframe,
+             sim3.optimize_transform, sim3.optimize_pose_graph)
+
+    def rec(key, fn):
+        def wrapped(*args, **kw):
+            calls[key].append((args, kw))
+            return fn(*args, **kw)
+        return wrapped
+
+    vocab.transform = rec("bow", saved[0])
+    pnp.find_via_ransac = rec("pnp", saved[1])
+    proj.match_frame_and_keyframe = rec("kf_match", saved[2])
+    sim3.optimize_transform = rec("transform", saved[3])
+    sim3.optimize_pose_graph = rec("pose_graph", saved[4])
+
+    def undo():
+        del vocab.transform
+        (pnp.find_via_ransac, proj.match_frame_and_keyframe, sim3.optimize_transform,
+         sim3.optimize_pose_graph) = saved[1:]
+
+    return calls, undo
+
+
+def run_loop_slice(dev, world, wrappers, card):
+    """The loop slice (mono, mapping and loop detector enabled, inline) over
+    the bench's whole circuit, every launch count at 0 just before it and
+    read just after it; its first 500 frames are the map slice. Returns
+    (statistics, launches, mapper, the mapping kernels' largest inputs, the
+    loop closer's recorded inputs)."""
+    from stella_vslam_tpu_torch.util import loop_slice
+
+    slam = loop_slice.make_system(world, dev)
+    calls, undo = record_kernel_inputs(slam.mapper)
+    loop_calls, undo_loop = record_loop_inputs(slam)
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        stats = loop_slice.run_slice(dev, world, slam=slam)
+    finally:
+        undo_loop()
+        undo()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    inputs = largest_inputs(calls)
+    loop_calls["global_ba"] = calls["global_ba"]
+    with open(os.path.join(OUT_DIR, "loop_slice.json"), "w") as f:
+        json.dump(dict(stats, card=card), f, indent=1)
+    ms = stats.pop("map_slice")
+    print("map slice: " + json.dumps(dict(ms, card=card)))
+    assert ms["lost_after_init"] <= 2, f"{ms['lost_after_init']} frames lost"
+    assert ms["ate_m"] < 0.10, f"Sim3 ATE {ms['ate_m']:.4f} m"
+    assert ms["local_bas"] >= 12, f"{ms['local_bas']} local BAs"
+    assert ms["keyframes_kept"] >= 5, f"{ms['keyframes_kept']} keyframes kept"
+    stats["map_slice_ate_m"] = ms["ate_m"]
+    print("loop slice: " + json.dumps(dict(stats, card=card)))
+    print("loop slice launches: " + json.dumps(launches))
+    assert stats["loops_closed"] >= 1, "no loop was closed"
+    assert stats["ate_m"] < 0.10, f"Sim3 ATE over the circuit {stats['ate_m']:.4f} m"
+    assert stats["lost_after_init"] <= 8, f"{stats['lost_after_init']} frames lost"
+    assert stats["keyframes_created"] >= 25, f"{stats['keyframes_created']} keyframes created"
+    assert stats["keyframes_kept"] >= 10, f"{stats['keyframes_kept']} keyframes kept"
+    assert stats["loop_edges"], "no loop edge in the graph"
+    assert all(stats["frame_after_loop_tracked"]), "the frame after a correction was lost"
+    for name, n in launches.items():
+        assert n > 0, f"{name} was not launched by the loop slice"
+    return stats, launches, slam, inputs, loop_calls
+
+
+def _pnp_problem(dev, n, seed):
+    """n bearings of a 752x480 camera against points 2-8 m away under a
+    known pose, 0.7 px noise, 30% outliers, 10% invalid, levels 0-7."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    fx, cx, cy = 458.0, 376.0, 240.0
+    uv = np.stack([rng.uniform(10, 742, n), rng.uniform(10, 470, n)], -1)
+    z = rng.uniform(2.0, 8.0, n)
+    Xc = np.stack([(uv[:, 0] - cx) * z / fx, (uv[:, 1] - cy) * z / fx, z], -1)
+    a = 0.1
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+    t = np.array([0.3, -0.1, 0.2])
+    Xw = (Xc - t) @ R  # R^T (Xc - t)
+    uv = uv + rng.normal(0, 0.7, uv.shape)
+    out = rng.random(n) < 0.3
+    uv[out] = np.stack([rng.uniform(0, 752, out.sum()), rng.uniform(0, 480, out.sum())], -1)
+    b = np.stack([(uv[:, 0] - cx) / fx, (uv[:, 1] - cy) / fx, np.ones(n)], -1)
+    b /= np.linalg.norm(b, axis=1, keepdims=True)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev).contiguous()
+    sf = f([1.2 ** i for i in range(8)])
+    return (f(b), f(Xw), torch.as_tensor(rng.integers(0, 8, n).astype(np.int32), device=dev),
+            torch.as_tensor(rng.random(n) < 0.9, device=dev)), sf
+
+
+def _transform_problem(dev, n, seed):
+    """A Sim3 refinement problem: n pairs, 0.5 px noise, 10% gross outliers,
+    5% invalid, from a perturbed start."""
+    import torch
+
+    from stella_vslam_tpu_torch.ops import lie
+
+    rng = np.random.default_rng(seed)
+    fx, cx, cy = 458.0, 376.0, 240.0
+    pts2 = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n), rng.uniform(3, 8, n)], -1)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev).contiguous()
+    s, R, t = lie.sim3_exp(f([0.3, -0.1, 0.2, 0.05, -0.1, 0.08, 0.1]))
+    pts1 = lie.sim3_apply(s[None], R, t, f(pts2)).cpu().numpy()
+    proj = lambda p: np.stack([fx * p[:, 0] / p[:, 2] + cx, fx * p[:, 1] / p[:, 2] + cy], -1)
+    obs1 = proj(pts1) + rng.normal(0, 0.5, (n, 2))
+    obs2 = proj(pts2) + rng.normal(0, 0.5, (n, 2))
+    out = rng.random(n) < 0.1
+    obs1[out] += rng.uniform(15, 40, (int(out.sum()), 2))
+    s0, R0, t0 = lie.sim3_compose(*lie.sim3_exp(f([0.05, 0.02, -0.04, 0.01, 0.02, -0.02, -0.05])),
+                                  s, R, t)
+    isig = f(1.0 / 1.2 ** (2 * rng.integers(0, 4, n)))
+    return (s0, R0.contiguous(), t0.contiguous(), f(pts1), f(pts2), f(obs1), f(obs2), isig, isig,
+            torch.as_tensor(rng.random(n) < 0.95, device=dev), fx, fx, cx, cy)
+
+
+def _graph_problem(dev, K, Kp, Ep, seed):
+    """A pose graph: K keyframes on a line with odometric drift and scale
+    creep, odometry and skip edges measured at the estimates, one loop edge
+    (first to last) measured at the truth; padded to (Kp, Ep)."""
+    import torch
+
+    from stella_vslam_tpu_torch.ops import lie
+
+    rng = np.random.default_rng(seed)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev).contiguous()
+    xi_gt = np.zeros((K, 7))
+    xi_gt[:, 0] = -0.3 * np.arange(K)
+    xi_gt[:, 4] = 0.01 * np.arange(K)
+    xi_est = xi_gt + np.cumsum(rng.normal(0, 0.004, (K, 7)), 0)
+    xi_est[0] = xi_gt[0]
+    sg, Rg, tg = lie.sim3_exp(f(xi_gt))
+    se, Re, te = lie.sim3_exp(f(xi_est))
+    edges = [(k, k - 1) for k in range(1, K)] + [(k, k - 2) for k in range(2, K)]
+    meas = lambda s, R, t, i, j: lie.sim3_compose(s[i], R[i], t[i],
+                                                  *lie.sim3_inverse(s[j], R[j], t[j]))
+    i = torch.as_tensor([e[0] for e in edges], device=dev)
+    j = torch.as_tensor([e[1] for e in edges], device=dev)
+    ms, mR, mt = meas(se, Re, te, i, j)
+    ls, lR, lt = meas(sg, Rg, tg, torch.as_tensor([K - 1], device=dev),
+                      torch.as_tensor([0], device=dev))
+    ms, mR, mt = torch.cat([ms, ls]), torch.cat([mR, lR]), torch.cat([mt, lt])
+    ei = torch.cat([i, torch.as_tensor([K - 1], device=dev)]).to(torch.int32)
+    ej = torch.cat([j, torch.as_tensor([0], device=dev)]).to(torch.int32)
+    E = ei.shape[0]
+    eye = torch.eye(3, device=dev)
+
+    def pad(a, n, fill):
+        extra = fill.expand((n - a.shape[0],) + a.shape[1:]) if torch.is_tensor(fill) \
+            else torch.full((n - a.shape[0],) + a.shape[1:], fill, dtype=a.dtype, device=dev)
+        return torch.cat([a, extra]).contiguous()
+
+    ar = lambda n: torch.arange(n, device=dev)
+    return (pad(se, Kp, 1.0), pad(Re, Kp, eye), pad(te, Kp, 0.0), (ar(Kp) == 0) | (ar(Kp) >= K),
+            ar(Kp) < K, pad(ei, Ep, 0), pad(ej, Ep, 0), pad(ms, Ep, 1.0), pad(mR, Ep, eye),
+            pad(mt, Ep, 0.0), ar(Ep) < E)
+
+
+def _check_pnp(args, scale_factors, label, seed):
+    """Kernel N against its plain version on one problem; returns the worst
+    readings."""
+    import torch
+
+    from stella_vslam_tpu_torch.ops.solve import pnp
+
+    bearings, pos_w, octaves, valid = args
+    mc = pnp.max_cos_errors(scale_factors, octaves)
+    Rk, tk, okk, ck, nk = pnp.pnp_hypotheses(seed, bearings, pos_w, mc, valid, 256)
+    Rp, tp, okp, cp, npl = pnp.pnp_hypotheses_plain(seed, bearings, pos_w, mc, valid, 256)
+    torch.cuda.synchronize()
+    both = okk & okp
+    d = torch.maximum((Rk - Rp).abs().flatten(1).amax(1), (tk - tp).abs().amax(1))
+    close = float((d[both] <= 1e-4).float().mean()) if bool(both.any()) else 1.0
+    same = float(((okk == okp) & (nk == npl)).float().mean())
+    cost_rel = float(((ck - cp).abs() / cp.abs().clamp(min=1e-6)).max())
+    rk = pnp.find_via_ransac(seed, bearings, pos_w, octaves, valid, scale_factors=scale_factors,
+                             min_num_inliers=15)
+    rp = pnp.find_via_ransac(seed, bearings, pos_w, octaves, valid, scale_factors=scale_factors,
+                             min_num_inliers=15, hypotheses=pnp.pnp_hypotheses_plain)
+    e_pose = max(float((rk.R_cw - rp.R_cw).abs().max()), float((rk.t_cw - rp.t_cw).abs().max()))
+    inl_same = bool(torch.equal(rk.is_inlier, rp.is_inlier))
+    print(f"kernel N pnp_ransac {label}: N={bearings.shape[0]} ({int(valid.sum())} valid), "
+          f"{int(okk.sum())} of {okk.numel()} hypotheses ok (plain {int(okp.sum())}), ok flag and "
+          f"count equal {same:.4f}, (R, t) within 1e-4 where both ok {close:.4f} (max "
+          f"{float(d[both].max()) if bool(both.any()) else 0.0:.3g}), cost relative "
+          f"{cost_rel:.3g}; winner: valid {bool(rk.valid)} / {bool(rp.valid)}, "
+          f"{int(rk.num_inliers)} / {int(rp.num_inliers)} inliers, sets equal {inl_same}, "
+          f"pose diff {e_pose:.3g}")
+    assert same >= 0.99 and close >= 0.99 and cost_rel < 1e-4, \
+        f"kernel N's hypotheses disagree with plain ({label})"
+    assert bool(rk.valid) == bool(rp.valid) and inl_same and e_pose < 1e-5, \
+        f"kernel N's winner disagrees with plain ({label})"
+    return 1.0 - min(same, close)
+
+
+def _check_transform(args, kw, label, tol=1e-4):
+    import torch
+
+    from stella_vslam_tpu_torch.ops.optim import sim3
+
+    rk = sim3.optimize_transform(*args, **kw)
+    rp = sim3.optimize_transform_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = max(abs(float(rk.s_12) - float(rp.s_12)), float((rk.R_12 - rp.R_12).abs().max()),
+              float((rk.t_12 - rp.t_12).abs().max()))
+    differ = float((rk.is_inlier != rp.is_inlier).float().mean())
+    print(f"kernel O sim3_transform {label}: N={args[3].shape[0]}, s {float(rk.s_12):.6f} "
+          f"(plain {float(rp.s_12):.6f}), max |s, R, t diff| {err:.3g}, inliers "
+          f"{int(rk.num_inliers)} (plain {int(rp.num_inliers)}), flags differing {differ:.6f}")
+    assert err < tol and differ <= 1e-3, f"kernel O disagrees with plain ({label})"
+    return err
+
+
+def _check_pose_graph(args, label, num_iter=20):
+    """Kernel P against plain, iteration by iteration on the kernel's own
+    state, then the whole optimization."""
+    import torch
+
+    from stella_vslam_tpu_torch.ops.optim import sim3
+
+    s, R, t = args[:3]
+    g = sim3.PoseGraph(*args[3:])
+    worst = dict(H=0.0, b=0.0, cost=0.0, update=0.0)
+    for _ in range(num_iter):
+        Hk, bk, ck = sim3.pose_graph_linearize(g, s, R, t)
+        Hp, bp, cp = sim3.pose_graph_linearize_plain(g, s, R, t)
+        worst["H"] = max(worst["H"], float((Hk - Hp).abs().max() / Hp.abs().max()))
+        b_scale = bp.abs().max().clamp(min=1e-3 * float(Hp.abs().max()))
+        worst["b"] = max(worst["b"], float((bk - bp).abs().max() / b_scale))
+        worst["cost"] = max(worst["cost"], abs(float(ck) - float(cp)) / max(float(cp), 1e-12))
+        x = sim3.cholesky_solve(Hk, bk)
+        sk, Rk, tk = sim3.pose_graph_update(g, s, R, t, x)
+        sp, Rp, tp = sim3.pose_graph_update_plain(g, s, R, t, x)
+        worst["update"] = max(worst["update"], float((sk - sp).abs().max()),
+                              float((Rk - Rp).abs().max()), float((tk - tp).abs().max()))
+        s, R, t = sk, Rk, tk
+    rk = sim3.optimize_pose_graph(*args, num_iter=num_iter)
+    rp = sim3.optimize_pose_graph_plain(*args, num_iter=num_iter, solve=sim3.cholesky_solve)
+    torch.cuda.synchronize()
+    whole = max(float((a - b).abs().max()) for a, b in zip(rk, rp))
+    print(f"kernel P pose_graph {label}: K={args[0].shape[0]} ({int(args[4].sum())} valid), "
+          f"E={args[5].shape[0]} ({int(args[10].sum())} valid), per iteration against plain on "
+          f"the same state: {json.dumps(worst)}; whole optimization max |diff| {whole:.3g}, "
+          f"final squared residual {float(ck):.4g}")
+    # (b is a sum that cancels near the minimum: it is held to 1e-3 of the
+    # larger of its largest entry and 1e-3 of H's)
+    assert worst["H"] < 1e-4 and worst["b"] < 1e-3 and worst["cost"] < 1e-4 \
+        and worst["update"] < 1e-5 and whole < 1e-3, f"kernel P disagrees with plain ({label})"
+    return max(worst["H"], worst["b"], worst["update"])
+
+
+def check_loop_kernels(dev, slam, rec):
+    """Kernels M, N, C's keyframe-match call, O and P against their plain
+    versions on synthetic inputs at the slice's shapes and on the loop
+    slice's recorded inputs; F-I at the global shape. Returns their rows."""
+    import torch
+
+    from stella_vslam_tpu_torch.data import bow_vocabulary as bow
+    from stella_vslam_tpu_torch.match import hamming as H
+    from stella_vslam_tpu_torch.match import projection as proj
+    from stella_vslam_tpu_torch.ops.optim import ba, sim3
+    from stella_vslam_tpu_torch.ops.solve import pnp
+
+    rows = []
+    rng = np.random.default_rng(40)
+    N = 2872
+
+    # ---- M: BoW tree descent ----
+    packed = slam.bow_vocab.packed_centers()
+    rand = torch.from_numpy(rng.integers(0, 2 ** 32, (N, 8), dtype=np.uint64).astype(np.uint32)
+                            .view(np.int32)).to(dev)
+    descs = [("random", rand)] + [(f"keyframe {i}", a[0][0].contiguous())
+                                  for i, a in enumerate(rec["bow"][:3])]
+    differ_m = 0
+    for label, d in descs:
+        differ_m += int((bow.bow_transform(d, packed) != bow.bow_transform_plain(d, packed)).sum())
+    torch.cuda.synchronize()
+    print(f"kernel M bow_transform: {len(descs)} sets of {N} descriptors (random and the loop "
+          f"slice's keyframes), leaf ids differing from plain: {differ_m}")
+    assert differ_m == 0, "kernel M disagrees with its plain version"
+    d_m = descs[-1][1]
+    rows.append(dict(
+        name="bow_transform", route="cuda",
+        source="stella_vslam_tpu_torch/csrc/bow_transform.cu",
+        replaces="stella_vslam_tpu/data/bow_vocabulary.py:76", max_abs_err=float(differ_m),
+        ms=_median_ms(lambda: bow.bow_transform(d_m, packed)),
+        plain_ms=_median_ms(lambda: bow.bow_transform_plain(d_m, packed), reps=10),
+        library_ms=None,
+        # per descriptor 4 levels x 10 children x 8 words of XOR, popcount, add
+        **_bound(N * 36.0 + packed.numel() * 4.0, N * 40 * 24.0)))
+
+    # ---- N: PnP RANSAC ----
+    syn, sf = _pnp_problem(dev, N, 41)
+    err_n = _check_pnp(syn, sf, "synthetic", 41)
+    for i, (a, kw) in enumerate(rec["pnp"][:4]):
+        err_n = max(err_n, _check_pnp(tuple(x.contiguous() for x in a[1:5]), kw["scale_factors"],
+                                      f"loop slice call {i}", a[0]))
+    pa, psf = (tuple(x.contiguous() for x in rec["pnp"][0][0][1:5]),
+               rec["pnp"][0][1]["scale_factors"]) if rec["pnp"] else (syn, sf)
+    mc = pnp.max_cos_errors(psf, pa[2])
+    n_valid = int(pa[3].sum())
+    rows.append(dict(
+        name="pnp_ransac", route="cuda", source="stella_vslam_tpu_torch/csrc/pnp_ransac.cu",
+        replaces="stella_vslam_tpu/ops/solve/pnp.py:187", max_abs_err=err_n,
+        ms=_median_ms(lambda: pnp.pnp_hypotheses(7, pa[0], pa[1], mc, pa[3], 256)),
+        plain_ms=_median_ms(lambda: pnp.pnp_hypotheses_plain(7, pa[0], pa[1], mc, pa[3], 256),
+                            reps=5, warmup=1),
+        library_ms=None,
+        # the hash of 3 B N draws (~12 integer operations), 2048 Newton solves
+        # (~24 x 60), and ~25 operations per (hypothesis, valid correspondence)
+        **_bound(N * 29.0 + 2048 * 60.0,
+                 256 * 3 * N * 12.0 + 2048 * 24 * 60.0 + 2048 * n_valid * 25.0)))
+
+    # ---- C: the keyframe-match call (window mode, best only) ----
+    def kf_match_inputs(margin):
+        uv = torch.as_tensor(np.stack([rng.uniform(0, 752, N), rng.uniform(0, 480, N)], -1)
+                             .astype(np.float32), device=dev)
+        lvl = torch.as_tensor(rng.integers(0, 8, N).astype(np.int32), device=dev)
+        perm = torch.as_tensor(rng.permutation(N), device=dev)
+        flips = torch.as_tensor((rng.random((N, 8)) < 0.2) * (1 << rng.integers(0, 31, (N, 8))),
+                                device=dev).to(torch.int32)
+        ang = torch.as_tensor(rng.uniform(0, 6.28, N).astype(np.float32), device=dev)
+        reproj = (uv[perm] + torch.as_tensor(rng.normal(0, 2.0, (N, 2)).astype(np.float32),
+                                             device=dev)).contiguous()
+        mask = lambda p: torch.as_tensor(rng.random(N) < p, device=dev)
+        return ((uv, lvl, rand, mask(0.95), ang, mask(0.3), (rand[perm] ^ flips).contiguous(),
+                 reproj, lvl[perm].contiguous(), (ang[perm] + 0.1).contiguous(), mask(0.8)),
+                dict(scale_factors=sf, num_levels=8, margin=margin))
+
+    cases = [("synthetic margin 10", *kf_match_inputs(10.0)),
+             ("synthetic margin 3", *kf_match_inputs(3.0))]
+    cases += [(f"loop slice call {i} margin {kw['margin']}", a, kw)
+              for i, (a, kw) in enumerate(rec["kf_match"][:4])]
+    differ_c = 0
+    for label, a, kw in cases:
+        a = tuple(x.contiguous() for x in a)
+        ok, op = proj.match_frame_and_keyframe(*a, **kw), \
+            proj.match_frame_and_keyframe(*a, **kw, top2=H.hamming_top2_plain)
+        torch.cuda.synchronize()
+        bad = int(((ok[0] != op[0]) | (ok[1] != op[1]) | (ok[2] != op[2])).sum())
+        print(f"kernel C match_frame_and_keyframe {label}: {a[6].shape[0]} x {a[2].shape[0]}, "
+              f"{int(ok[1].sum())} accepted (plain {int(op[1].sum())}), rows differing {bad}")
+        differ_c += bad
+    assert differ_c == 0, "kernel C's keyframe-match call disagrees with its plain version"
+    label, ca, ckw = cases[-1]
+    ca = tuple(x.contiguous() for x in ca)
+    M_rows = ca[6].shape[0]
+    # this run's work, as phase 3 counts kernel C's: the gates per valid
+    # pair, XOR + popcount + add over 8 words per pair inside the window
+    pred = ca[8].long()
+    radc = ckw["margin"] * ckw["scale_factors"][pred]
+    n_pairs = int(ca[10].sum()) * int((ca[3] & ~ca[5]).sum())
+    win = ((ca[0][None, :, 0] - ca[7][:, None, 0]).abs() <= radc[:, None]) \
+        & ((ca[0][None, :, 1] - ca[7][:, None, 1]).abs() <= radc[:, None])
+    n_win = int((win & ca[10][:, None] & (ca[3] & ~ca[5])[None, :]).sum())
+    rows.append(dict(
+        name="hamming_top2_keyframe", counter="hamming_top2", route="cuda",
+        source="stella_vslam_tpu_torch/csrc/hamming_top2.cu",
+        replaces="stella_vslam_tpu/match/projection.py:160", max_abs_err=float(differ_c),
+        shape=f"{M_rows}x{ca[2].shape[0]} {label}",
+        ms=_median_ms(lambda: proj.match_frame_and_keyframe(*ca, **ckw)),
+        plain_ms=_median_ms(lambda: proj.match_frame_and_keyframe(
+            *ca, **ckw, top2=H.hamming_top2_plain), reps=5, warmup=1),
+        library_ms=None,
+        **_bound(M_rows * 57.0 + ca[2].shape[0] * 49.0 + M_rows * 16.0,
+                 4.0 * n_pairs + 30.0 * n_win)))
+
+    # ---- O: Sim3 refinement ----
+    ta = _transform_problem(dev, N, 42)
+    err_o = _check_transform(ta, {}, "synthetic")
+    for i, (a, kw) in enumerate(rec["transform"][:4]):
+        err_o = max(err_o, _check_transform(a, kw, f"loop slice call {i}"))
+    oa, okw = rec["transform"][0] if rec["transform"] else (ta, {})
+    n_o = oa[3].shape[0]
+    rows.append(dict(
+        name="sim3_transform", route="cuda",
+        source="stella_vslam_tpu_torch/csrc/sim3_transform.cu",
+        replaces="stella_vslam_tpu/ops/optim/sim3.py:56", max_abs_err=err_o, shape=f"N={n_o}",
+        ms=_median_ms(lambda: sim3.optimize_transform(*oa, **okw)),
+        plain_ms=_median_ms(lambda: sim3.optimize_transform_plain(*oa, **okw), reps=5, warmup=1),
+        library_ms=None,
+        # 10 steps x ~700 operations per pair (two projections, 4 Jacobian
+        # rows of 7, 4 x 36 products, the trial and the inlier pass)
+        **_bound(n_o * 57.0 + n_o + 52.0, 10 * 700.0 * n_o)))
+
+    # ---- P: pose graph ----
+    ga = _graph_problem(dev, 30, 32, 128, 43)
+    err_p = _check_pose_graph(ga, "synthetic")
+    for i, (a, kw) in enumerate(rec["pose_graph"][:2]):
+        err_p = max(err_p, _check_pose_graph(a, f"loop slice call {i}"))
+    pga = rec["pose_graph"][0][0] if rec["pose_graph"] else ga
+    g = sim3.PoseGraph(*pga[3:])
+    Kp, Ep, n_e = pga[0].shape[0], pga[5].shape[0], int(pga[10].sum())
+    Hd, b, _ = sim3.pose_graph_linearize(g, *pga[:3])
+    x = sim3.cholesky_solve(Hd, b)
+
+    def step_kernel():
+        sim3.pose_graph_linearize(g, *pga[:3])
+        sim3.pose_graph_update(g, *pga[:3], x)
+
+    def step_plain():
+        sim3.pose_graph_linearize_plain(g, *pga[:3])
+        sim3.pose_graph_update_plain(g, *pga[:3], x)
+
+    n7 = 7 * Kp
+    rows.append(dict(
+        name="pose_graph", route="cuda", source="stella_vslam_tpu_torch/csrc/pose_graph.cu",
+        replaces="stella_vslam_tpu/ops/optim/sim3.py:165", max_abs_err=err_p,
+        shape=f"K={Kp} E={Ep} ({n_e} valid), one iteration without its solve",
+        ms=_median_ms(step_kernel), plain_ms=_median_ms(step_plain, reps=5, warmup=1),
+        library_ms=_median_ms(lambda: sim3.cholesky_solve(Hd, b)),
+        library_call="torch.linalg.cholesky + cholesky_solve, the iteration's dense solve",
+        # bytes: vertices and edges read once, the [7K,7K] system and its
+        # right-hand side written once, the solve's x read and the vertices
+        # written once by the update (the kernel's zero fill and gauge pass
+        # over the system are its own traffic, not the function's). Operations:
+        # per valid edge 15 passes of ~600 and 14 x 15 x 7 x 2 for its blocks,
+        # one gauge select per entry of the system, the update per vertex
+        **_bound(Kp * 52.0 + Ep * 61.0 + n7 * n7 * 4.0 + n7 * 4.0 + n7 * 4.0 + Kp * 52.0,
+                 n_e * (15 * 600.0 + 2940.0) + 1.0 * n7 * n7 + Kp * 300.0)))
+
+    # ---- F-I at the global shape ----
+    cam = slam.mapper.cam_scalars
+    probs = [("K=32 L=4096 D=16", *_ba_problem(dev, 32, 4096, 16, False, 44, spacing=0.1,
+                                               ordered=True)),
+             ("K=64 L=4096 D=16", *_ba_problem(dev, 64, 4096, 16, False, 45, spacing=0.1,
+                                               ordered=True)),
+             # G's device-memory route at 768 rows and F's direct atomics at
+             # the largest K held here; fewer landmarks keep the plain side short
+             ("K=128 L=1024 D=16", *_ba_problem(dev, 128, 1024, 16, False, 46, spacing=0.1,
+                                                ordered=True))]
+    probs += [(f"loop slice global BA {i} K={p.cam_R.shape[0]} L={p.obs_cam.shape[0]} "
+               f"D={p.obs_cam.shape[1]}", p, cam) for i, p in enumerate(rec["global_ba"][:2])]
+    e_pose = {}
+    for label, p, c in probs:
+        w = _lockstep_ba(p, c, 16, 0)
+        rk = ba.bundle_adjust(p, c, num_first=16, num_second=0)
+        rp = ba.bundle_adjust_plain(p, c, num_first=16, num_second=0)
+        torch.cuda.synchronize()
+        e_pose[label] = max(float((rk.cam_R - rp.cam_R).abs().max()),
+                            float((rk.cam_t - rp.cam_t).abs().max()))
+        print(f"kernels F-I global BA {label}: kernel by kernel against plain "
+              f"{json.dumps(w)}; whole BA max |pose diff| {e_pose[label]:.3g}, cost "
+              f"{float(rk.cost):.6g} (plain {float(rp.cost):.6g})")
+        # H's trial cost is held to 1e-3 here: on the slice's problem, whose
+        # observations across the loop sit on Huber's linear part, the trial
+        # points' own differences (within their allowance) move it by 1.5e-4
+        assert w["f_excess"] < 1.0 and w["g_backward"] < 1e-3 and w["g_pose"] < 1e-5 \
+            and w["point_share"] < 1.0 and w["cost_rel"] < 1e-3 and w["decisions"] == 0 \
+            and w["flags"] == 0, f"kernels F-I disagree with the plain BA at {label}"
+    for (label, p, c), suffix in zip(probs[:2], ("_global32", "_global64")):
+        rows += _time_ba_kernels(dev, e_pose[label], p, c, suffix=suffix)
+    return rows
+
+
 def run_slices(dev, world, wrappers, card):
     """The RGBD slice and the mono slice, each with every launch count at 0
     just before it and read just after it."""
@@ -1040,7 +1508,8 @@ def run_slices(dev, world, wrappers, card):
     assert mono["lost_after_init"] <= 2, f"{mono['lost_after_init']} frames lost"
     assert mono["ate_m"] < 0.10, f"Sim3 ATE {mono['ate_m']:.4f} m"
     for name, n in launches["mono"].items():
-        assert n > 0 or name in MAPPING_KERNELS, f"{name} was not launched by the mono slice"
+        assert n > 0 or name in MAPPING_KERNELS + LOOP_KERNELS, \
+            f"{name} was not launched by the mono slice"
     return stats, mono, launches
 
 
@@ -1083,9 +1552,10 @@ def main() -> int:
               f"[{card}]")
 
     wrappers = map_slice.kernel_wrappers()
-    _, _, launches = run_slices(dev, world, wrappers, card)
-    _, launches["map"], mapper, inputs = run_map_slice(dev, world, wrappers, card)
-    map_rows = check_mapping_kernels(dev, mapper, inputs)
+    rgbd, mono, launches = run_slices(dev, world, wrappers, card)
+    loop, launches["loop"], slam, inputs, loop_rec = run_loop_slice(dev, world, wrappers, card)
+    map_rows = check_mapping_kernels(dev, slam.mapper, inputs)
+    map_rows += check_loop_kernels(dev, slam, loop_rec)
     for r in map_rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library "
@@ -1093,12 +1563,22 @@ def main() -> int:
               f"[{card}]")
     rows += map_rows
     for row in rows:
-        name = row["name"].removesuffix("_local")
-        row["launches"] = launches["map"][name]
+        name = row.pop("counter", row["name"])
+        for suffix in ("_local", "_global32", "_global64"):
+            name = name.removesuffix(suffix)
+        row["launches"] = launches["loop"][name]
         row["launches_mono_slice"] = launches["mono"][name]
         row["launches_rgbd_slice"] = launches["rgbd"][name]
     with open(os.path.join(OUT_DIR, "kernels.json"), "w") as f:
         json.dump({"card": card, "kernels": rows}, f, indent=1)
+    # the slices in short, near the end of the output
+    print("slices: " + json.dumps(dict(
+        card=card, rgbd_ate_m=rgbd["ate_m"], mono_ate_m=mono["ate_m"],
+        mono_init_frame=mono["init_frame"], map_ate_m=loop["map_slice_ate_m"],
+        **{"loop_" + k: loop[k] for k in (
+            "ate_m", "tracked", "lost_after_init", "loops_closed", "loop_frames",
+            "keyframes_created", "keyframes_kept", "loop_event_ms", "solver_shapes",
+            "frame_ms")})))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

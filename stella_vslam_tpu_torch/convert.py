@@ -16,7 +16,11 @@ and return the port's tensors.
   poses and covisibility graph, landmarks with their fields and counters,
   the native store's observations in the store's own order, the device
   table's pending counters), and `mapper_state`, a MappingModule's
-  carried state, so both packages can run a keyframe event from one state.
+  carried state, so both packages can run a keyframe event from one state;
+* `bow_vocabulary`: a BowVocabulary with the JAX vocabulary's centers, and
+  `bow_database`: a BowDatabase with its BoW vectors and inverted index, so
+  both can detect and close a loop from one state (`map_database` carries
+  the loop edges and spanning roots).
 """
 from __future__ import annotations
 
@@ -158,3 +162,23 @@ def mapper_state(jax_mapper, mapper):
     if jax_mapper._fresh_fuse is not None:
         kf, ids = jax_mapper._fresh_fuse
         mapper._fresh_fuse = (md.keyframes[kf.id], list(ids))
+
+
+def bow_vocabulary(jax_vocab, device="cuda"):
+    """The port's BowVocabulary with the JAX vocabulary's centers."""
+    from stella_vslam_tpu_torch.data.bow_vocabulary import BowVocabulary
+
+    v = BowVocabulary(device=device)
+    v.set_centers([np.array(c, np.float32) for c in jax_vocab.centers])
+    return v
+
+
+def bow_database(jax_bow_db, vocab):
+    """The port's BowDatabase with the JAX database's BoW vectors and
+    inverted index (word -> keyframe ids)."""
+    from stella_vslam_tpu_torch.data.bow_database import BowDatabase
+
+    db = BowDatabase(vocab)
+    db.bow_vecs = {int(k): dict(v) for k, v in jax_bow_db.bow_vecs.items()}
+    db.keyfrms_in_word = {int(w): set(ids) for w, ids in jax_bow_db.keyfrms_in_word.items()}
+    return db

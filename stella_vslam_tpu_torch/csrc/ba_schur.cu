@@ -18,13 +18,19 @@
 //    G = (Hpp + damp)^-1 (_sym3_inv), and the Schur terms
 //    S_red[k_d, k_e] += W_d G W_e^T, rhs_red[k_d] += W_d G b_p. Sums go into
 //    a block-local copy of the camera-side system in shared memory, then into
-//    device memory with one atomic per nonzero entry per block. Within a
+//    device memory with one atomic per nonzero entry per block; where that
+//    copy does not fit a block's shared memory (K > 39, the global BA's
+//    buckets), the Schur terms are added straight into device memory and only
+//    Hcc, b_c, the right-hand side and the cost keep a block-local copy. Within a
 //    warp whose landmarks all observe the same camera pair (every landmark of
 //    the two-keyframe init BA does), the terms are first summed by shuffles.
 //  G ba_solve_kernel (one block): damps Hcc, masks fixed and invalid
-//    cameras, solves the 6K x 6K reduced system by Cholesky in shared memory
-//    (6K <= 192), forms the trial camera poses Exp(dx) * T, and clears the
-//    accumulators for the next F.
+//    cameras, solves the 6K x 6K reduced system by Cholesky, forms the trial
+//    camera poses Exp(dx) * T, and clears the accumulators for the next F.
+//    Up to 6K = 192 the system sits in shared memory; above (the global BA)
+//    it is factored in a device-memory scratch by the same right-looking
+//    Cholesky with 1024 threads (the 590 KB of a K = 64 system stay in L2) and
+//    the two triangular solves run column by column across the block.
 //  H ba_backsub_kernel (grid over landmarks): back-substitutes each point
 //    update, evaluates the trial cost, and the last block to finish (a
 //    fence-and-counter handshake) compares it with F's cost: it accepts or
@@ -57,6 +63,9 @@ constexpr float kChi2D = 5.991f;
 constexpr float kChi3D = 7.815f;
 constexpr int kThreadsLm = 128;
 constexpr int kThreadsSolve = 512;
+constexpr int kThreadsSolveGlobal = 1024;
+constexpr int kSolveSharedDim = 192;        // largest 6K factored in shared memory
+constexpr size_t kMaxBlockSmem = 232448;     // 227 KB, the most a block can opt into
 
 // ctrl[] slots
 constexpr int kCost0 = 0;  // cost at the linearization point (F)
@@ -204,15 +213,16 @@ ba_linearize_kernel(Problem P, Cam cam, const float* __restrict__ cam_R,
                     const float* __restrict__ cam_t, const float* __restrict__ lm,
                     int use_huber, float* __restrict__ ctrl, float* __restrict__ Wg,
                     float* __restrict__ lmblk, float* __restrict__ hc_g,
-                    float* __restrict__ S_g, float* __restrict__ rhs_g) {
+                    float* __restrict__ S_g, float* __restrict__ rhs_g, int s_direct) {
   if (ctrl[kDone] != 0.f) return;
   extern __shared__ float sm[];
   const int K = P.K, n6 = 6 * P.K;
   float* hc_s = sm;               // [K,27]: 21 upper Hcc + 6 b_c
-  float* S_s = hc_s + 27 * K;     // [6K,6K]
-  float* rhs_s = S_s + n6 * n6;   // [6K]
+  float* rhs_s = hc_s + 27 * K;   // [6K]
   float* cost_s = rhs_s + n6;     // [1]
-  const int total = 27 * K + n6 * n6 + n6 + 1;
+  // [6K,6K]: the block's copy, or the device-memory system itself
+  float* S_s = s_direct ? S_g : cost_s + 1;
+  const int total = 27 * K + n6 + 1 + (s_direct ? 0 : n6 * n6);
   for (int i = threadIdx.x; i < total; i += blockDim.x) sm[i] = 0.f;
   __syncthreads();
   const float lam = ctrl[kLam];
@@ -347,8 +357,9 @@ ba_linearize_kernel(Problem P, Cam cam, const float* __restrict__ cam_R,
   __syncthreads();
   for (int i = threadIdx.x; i < 27 * K; i += blockDim.x)
     if (hc_s[i] != 0.f) atomicAdd(&hc_g[i], hc_s[i]);
-  for (int i = threadIdx.x; i < n6 * n6; i += blockDim.x)
-    if (S_s[i] != 0.f) atomicAdd(&S_g[i], S_s[i]);
+  if (!s_direct)
+    for (int i = threadIdx.x; i < n6 * n6; i += blockDim.x)
+      if (S_s[i] != 0.f) atomicAdd(&S_g[i], S_s[i]);
   for (int i = threadIdx.x; i < n6; i += blockDim.x)
     if (rhs_s[i] != 0.f) atomicAdd(&rhs_g[i], rhs_s[i]);
   if (threadIdx.x == 0) atomicAdd(&ctrl[kCost0], cost_s[0]);
@@ -383,16 +394,24 @@ __device__ void se3_left(const float* xi, const float* R, const float* t, float*
   }
 }
 
-__global__ void __launch_bounds__(kThreadsSolve)
+// kGlobal: the system is factored in the device-memory scratch A_g (n > 192)
+template <bool kGlobal>
+__global__ void __launch_bounds__(kGlobal ? kThreadsSolveGlobal : kThreadsSolve)
 ba_solve_kernel(int K, const float* __restrict__ cam_free, const float* __restrict__ cam_R,
                 const float* __restrict__ cam_t, float* __restrict__ ctrl,
                 float* __restrict__ hc_g, float* __restrict__ S_g, float* __restrict__ rhs_g,
-                float* __restrict__ dx_g, float* __restrict__ cam_Rn, float* __restrict__ cam_tn) {
+                float* __restrict__ dx_g, float* __restrict__ cam_Rn, float* __restrict__ cam_tn,
+                float* A_g) {
   if (ctrl[kDone] != 0.f) return;
   extern __shared__ float sm[];
   const int n = 6 * K, tid = threadIdx.x;
-  float* S = sm;         // [n,n]
-  float* x = S + n * n;  // [n]
+  float* S = kGlobal ? A_g : sm;         // [n,n]
+  float* x = kGlobal ? sm : sm + n * n;  // [n]
+  // the device-memory route reads what other threads wrote before a barrier
+  // through a volatile pointer: the compiler may otherwise keep an entry it
+  // loaded in an earlier column (measured: a wrong factor from the first
+  // free column on)
+  volatile float* Sv = S;
   const float lam = ctrl[kLam];
   // S = -S_red + blockdiag(Hcc + (lam * max(tr/6, 1e-6) + 1e-7) I), masked
   for (int q = tid; q < n * n; q += blockDim.x) {
@@ -418,20 +437,46 @@ ba_solve_kernel(int K, const float* __restrict__ cam_free, const float* __restri
   __syncthreads();
   // Cholesky, right-looking, lower triangle in place
   for (int j = 0; j < n; ++j) {
-    if (tid == 0) S[j * n + j] = sqrtf(fmaxf(S[j * n + j], 1e-20f));
+    if (tid == 0) S[j * n + j] = sqrtf(fmaxf(kGlobal ? Sv[j * n + j] : S[j * n + j], 1e-20f));
     __syncthreads();
-    const float djj = S[j * n + j];
-    for (int i = j + 1 + tid; i < n; i += blockDim.x) S[i * n + j] /= djj;
+    const float djj = kGlobal ? Sv[j * n + j] : S[j * n + j];
+    for (int i = j + 1 + tid; i < n; i += blockDim.x)
+      S[i * n + j] = (kGlobal ? Sv[i * n + j] : S[i * n + j]) / djj;
     __syncthreads();
-    const int m = n - j - 1;
-    for (int q = tid; q < m * m; q += blockDim.x) {
-      const int i = j + 1 + q / m, c = j + 1 + q % m;
-      if (c <= i) S[i * n + c] -= S[i * n + j] * S[c * n + j];
+    if (kGlobal) {
+      // one warp per row of the trailing lower triangle
+      const int lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
+      for (int i = j + 1 + warp; i < n; i += nw) {
+        const float lij = Sv[i * n + j];
+        for (int c = j + 1 + lane; c <= i; c += 32) Sv[i * n + c] -= lij * Sv[c * n + j];
+      }
+    } else {
+      const int m = n - j - 1;
+      for (int q = tid; q < m * m; q += blockDim.x) {
+        const int i = j + 1 + q / m, c = j + 1 + q % m;
+        if (c <= i) S[i * n + c] -= S[i * n + j] * S[c * n + j];
+      }
     }
     __syncthreads();
   }
-  // L y = rhs, then L^T x = y (one thread: n <= 192)
-  if (tid == 0) {
+  if (kGlobal) {
+    // L y = rhs, then L^T x = y, column by column across the block
+    for (int j = 0; j < n; ++j) {
+      if (tid == 0) x[j] /= Sv[j * n + j];
+      __syncthreads();
+      const float xj = x[j];
+      for (int i = j + 1 + tid; i < n; i += blockDim.x) x[i] -= Sv[i * n + j] * xj;
+      __syncthreads();
+    }
+    for (int j = n - 1; j >= 0; --j) {
+      if (tid == 0) x[j] /= Sv[j * n + j];
+      __syncthreads();
+      const float xj = x[j];
+      for (int i = tid; i < j; i += blockDim.x) x[i] -= Sv[j * n + i] * xj;
+      __syncthreads();
+    }
+  } else if (tid == 0) {
+    // L y = rhs, then L^T x = y (one thread: n <= 192)
     for (int i = 0; i < n; ++i) {
       float v = x[i];
       for (int k = 0; k < i; ++k) v -= S[i * n + k] * x[k];
@@ -558,14 +603,9 @@ ba_classify_kernel(Problem P, Cam cam, const float* __restrict__ cam_R,
     out[od] = (P.obs_valid[od] && (q.chi2 > q.thr || !q.depth_ok)) ? 1 : 0;
 }
 
-size_t linearize_smem(int K) {
-  const int n6 = 6 * K;
-  return sizeof(float) * (27 * K + n6 * n6 + n6 + 1);
-}
-
-size_t solve_smem(int K) {
-  const int n = 6 * K;
-  return sizeof(float) * (n * n + n);
+size_t linearize_smem(int K, bool s_direct) {
+  const size_t n6 = 6 * (size_t)K;
+  return sizeof(float) * (27 * K + n6 + 1 + (s_direct ? 0 : n6 * n6));
 }
 
 }  // namespace
@@ -578,7 +618,8 @@ extern "C" int svt_ba_linearize(int K, int L, int D, const int* obs_cam, const f
                                 float fxb, const float* cam_R, const float* cam_t,
                                 const float* lm, int use_huber, float* ctrl, float* Wg,
                                 float* lmblk, float* hc, float* S, float* rhs, void* stream) {
-  const size_t smem = linearize_smem(K);
+  const bool s_direct = linearize_smem(K, false) > kMaxBlockSmem;
+  const size_t smem = linearize_smem(K, s_direct);
   cudaFuncSetAttribute(ba_linearize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   Problem P{K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier, lm_valid,
@@ -587,17 +628,27 @@ extern "C" int svt_ba_linearize(int K, int L, int D, const int* obs_cam, const f
   const int blocks = (L + kThreadsLm - 1) / kThreadsLm;
   if (blocks > 0)
     ba_linearize_kernel<<<blocks, kThreadsLm, smem, (cudaStream_t)stream>>>(
-        P, c, cam_R, cam_t, lm, use_huber, ctrl, Wg, lmblk, hc, S, rhs);
+        P, c, cam_R, cam_t, lm, use_huber, ctrl, Wg, lmblk, hc, S, rhs, s_direct ? 1 : 0);
   return (int)cudaGetLastError();
 }
 
 extern "C" int svt_ba_solve(int K, const float* cam_free, const float* cam_R,
                             const float* cam_t, float* ctrl, float* hc, float* S, float* rhs,
-                            float* dx, float* cam_Rn, float* cam_tn, void* stream) {
-  const size_t smem = solve_smem(K);
-  cudaFuncSetAttribute(ba_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  ba_solve_kernel<<<1, kThreadsSolve, smem, (cudaStream_t)stream>>>(
-      K, cam_free, cam_R, cam_t, ctrl, hc, S, rhs, dx, cam_Rn, cam_tn);
+                            float* dx, float* cam_Rn, float* cam_tn, float* scratch,
+                            void* stream) {
+  // scratch: [6K,6K] floats of device memory, read when 6K > 192
+  const size_t n = 6 * (size_t)K;
+  if (n <= kSolveSharedDim) {
+    const size_t smem = sizeof(float) * (n * n + n);
+    cudaFuncSetAttribute(ba_solve_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    ba_solve_kernel<false><<<1, kThreadsSolve, smem, (cudaStream_t)stream>>>(
+        K, cam_free, cam_R, cam_t, ctrl, hc, S, rhs, dx, cam_Rn, cam_tn, nullptr);
+  } else {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    ba_solve_kernel<true><<<1, kThreadsSolveGlobal, sizeof(float) * n, (cudaStream_t)stream>>>(
+        K, cam_free, cam_R, cam_t, ctrl, hc, S, rhs, dx, cam_Rn, cam_tn, scratch);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -3,9 +3,9 @@
 Reference: src/stella_vslam/data/graph_node.{h,cc} — weighted connections
 (>= min shared landmarks, default 15), ordered covisibility lists, spanning
 tree parent/children. Copy of the part of stella_vslam_tpu/data/graph_node.py
-the tracking and initialization slices call: update_connections at map
-creation, the covisibility queries of the local device table, and the edge
-and spanning-tree repair of a keyframe erasure.
+the tracking, mapping and loop-closing slices call: update_connections, the
+covisibility queries, loop edges, and the edge and spanning-tree repair of a
+keyframe erasure.
 """
 from __future__ import annotations
 
@@ -75,6 +75,9 @@ class GraphNode:
                 other.graph_node.erase_connection(self.owner.id)
         self.connections = {}
         self._ordered_ids = []
+
+    def add_loop_edge(self, keyfrm_id: int):
+        self.loop_edges.add(keyfrm_id)
 
     def recompute_spanning_parent_on_erase(self, map_db):
         """Children of an erased node reattach to its parent."""

@@ -330,6 +330,8 @@ class MapDatabase:
         self.erased_kf_forward: Dict[int, tuple] = {}
         # landmark replacement tombstones: old id -> surviving id (fusion)
         self.replaced_ids: Dict[int, int] = {}
+        # callbacks(kf_id) run when a keyframe is erased (the BoW database)
+        self.on_erase_keyframe: list = []
         # native association store (C++ map core, native/mapcore.cpp)
         from stella_vslam_tpu_torch.native.assoc_store import AssocStore
 
@@ -507,6 +509,8 @@ class MapDatabase:
             kf.graph_node.recompute_spanning_parent_on_erase(self)
             del self.keyframes[kf_id]
             self.assoc_store.erase_keyframe_data(kf_id)
+            for cb in self.on_erase_keyframe:
+                cb(kf_id)
 
     def resolve_landmark_id(self, lm_id: int) -> int:
         """Follow the replacement chain to the surviving landmark id;

@@ -75,8 +75,9 @@ _SIGNATURES = {
     # use_huber, ctrl, Wg, lmblk, hc, S, rhs, stream
     "svt_ba_linearize": [_I, _I, _I] + [_P] * 9 + [_F] * 5 + [_P] * 3
                         + [_I] + [_P] * 7,
-    # K, cam_free, cam_R, cam_t, ctrl, hc, S, rhs, dx, cam_Rn, cam_tn, stream
-    "svt_ba_solve": [_I] + [_P] * 11,
+    # K, cam_free, cam_R, cam_t, ctrl, hc, S, rhs, dx, cam_Rn, cam_tn, scratch,
+    # stream
+    "svt_ba_solve": [_I] + [_P] * 12,
     # K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier,
     # lm_valid, lm_fixed, cam_free, fx, fy, cx, cy, fxb, cam_R, cam_t, lm,
     # use_huber, ctrl, counter, Wg, lmblk, dx, cam_Rn, cam_tn, lmn, stream
@@ -99,6 +100,19 @@ _SIGNATURES = {
     # scale_factors, sigma_sq, num_levels, log_scale, margin, out, stream
     "svt_fuse": [_I, _I, _I] + [_P] * 10 + [_F] * 7 + [_P] * 2 + [_I] + [_F] * 2
                 + [_P] * 2,
+    # N, desc, centers, out, stream
+    "svt_bow_transform": [_I] + [_P] * 4,
+    # N, bearings, pos_w, max_cos, valid, seed, B, out_R, out_t, out_ok,
+    # out_cost, out_count, stream
+    "svt_pnp_ransac": [_I] + [_P] * 4 + [_U, _I] + [_P] * 6,
+    # N, pts1, pts2, obs1, obs2, isig1, isig2, valid, R0, t0, s0, fx, fy, cx,
+    # cy, chi_sq, fix_scale, num_iter, out, inlier, stream
+    "svt_sim3_transform": [_I] + [_P] * 10 + [_F] * 5 + [_I] * 2 + [_P] * 3,
+    # K, E, s, R, t, fixed, valid, edge_i, edge_j, edge_s, edge_R, edge_t,
+    # edge_valid, Hd, b, cost, stream
+    "svt_pose_graph_linearize": [_I, _I] + [_P] * 15,
+    # K, s, R, t, fixed, valid, x, s2, R2, t2, stream
+    "svt_pose_graph_update": [_I] + [_P] * 10,
 }
 
 

@@ -5,8 +5,9 @@ Port of the synchronous (inline) subset of stella_vslam_tpu/mapping_module.py
 runs one keyframe event to its end on the caller's thread, with the JAX
 version's order of steps:
 
-1. settle the previous event's BA (nothing is pending in this mode), queue
-   the new keyframe's landmarks for the event's one stats refresh, cull
+1. settle the previous event's BA (nothing is pending in this mode), start
+   the keyframe's BoW transform (kernel M) when a BoW database is attached,
+   queue the new keyframe's landmarks for the event's one stats refresh, cull
    fresh landmarks whose observed ratio fell below 0.3 (local_map_cleaner);
 2. triangulate against up to 5 covisible neighbours that pass the baseline
    check, in one call of MappingKernels.triangulate (kernels J and K);
@@ -15,8 +16,9 @@ version's order of steps:
    keyframes x 2048 landmarks and run MappingKernels.fuse (kernel L) on
    each, all before the triangulation is applied, so fresh landmarks are
    fused one keyframe late, at the next event;
-4. apply the triangulation (new landmarks, two observations each) and the
-   fusions (add or replace), update the covisibility graph;
+4. apply the triangulation (new landmarks, two observations each), register
+   the keyframe's BoW vector in the database, apply the fusions (add or
+   replace), update the covisibility graph;
 5. local BA (more than 2 keyframes): the new keyframe and its strongest
    covisibilities (at most `ba_local_cap`) move, their other observers up
    to 16 cameras anchor the gauge; K = 16, L in {2048, 4096, 8192}, D = 12,
@@ -26,11 +28,13 @@ version's order of steps:
    finer octave by 3 others), refresh the stats of every touched landmark
    in one native call, and publish the covisibility-local device table
    around the new keyframe (the BA writeback publishes it when BA ran).
+After the event `drain` hands the keyframe to the global optimizer (loop
+detection and correction, inline). `_fuse_into` is the loop closer's entry
+to kernel L: dispatch, read and apply in one call, at its own margin.
 
 Left out (ROADMAP Queue 1): the mapping thread with its event and BA fetch
-pools and warm-up (item 10), the BoW transform and the global-optimizer
-hook (item 11), `remove_temporal_keyframes` (it acts only on a frozen
-loaded map, item 10's map IO) and marker rows. It reads no environment
+pools and warm-up (item 10), `remove_temporal_keyframes` (it acts only on a
+frozen loaded map, item 10's map IO) and marker rows. It reads no environment
 variable: the JAX version's SVT_BA_ITERS and SVT_BA_LOCAL_CAP defaults are
 constructor arguments, and its stride thinning does not apply inline.
 """
@@ -102,6 +106,10 @@ class MappingModule:
         self.ba_iters = tuple(ba_iters)
         self.ba_local_cap = ba_local_cap
         self.cam_scalars = make_cam_scalars(camera)
+        # place recognition and loop closing, wired by System
+        self.bow_db = None
+        self.global_optimizer = None
+        self.num_processed = 0
         self._queue = deque()
         self._pending_ba = None
         self._fresh_fuse = None
@@ -119,10 +127,14 @@ class MappingModule:
         return len(self._queue) >= self.QUEUE_THRESHOLD
 
     def drain(self):
-        """Run every queued keyframe's event (System calls this after each
-        feed)."""
+        """Run every queued keyframe's event, then its loop detection
+        (System calls this after each feed)."""
         while self._queue:
-            self.mapping_with_new_keyframe(self._queue.popleft())
+            kf = self._queue.popleft()
+            self.mapping_with_new_keyframe(kf)
+            self.num_processed += 1
+            if self.global_optimizer is not None:
+                self.global_optimizer.process_keyframe(kf)
 
     # ------------------------------------------------------------------
     def mapping_with_new_keyframe(self, cur: Keyframe):
@@ -136,6 +148,11 @@ class MappingModule:
         self.apply_pending_ba()
         self._fresh_fuse = None
         t0 = time.perf_counter()
+        # BoW words for place recognition (mapping_module.cc
+        # store_new_keyframe); read with the triangulation's results
+        bow_dev = None
+        if self.bow_db is not None and cur.id not in self.bow_db.bow_vecs:
+            bow_dev = self.bow_db.vocab.transform(cur.feats.desc)
         for i in cur.lm_ids[cur.lm_ids >= 0].tolist():
             lm = map_db.landmarks.get(i)
             if lm is not None:
@@ -147,11 +164,12 @@ class MappingModule:
             res, nbrs = tri
             tri = (nbrs, res.ok.cpu().numpy(), res.pos_w.cpu().numpy(),
                    res.idx2.cpu().numpy())
+        words = None if bow_dev is None else bow_dev.cpu().numpy()
         t2 = time.perf_counter()
         chunks = self._collect_fuse_chunks(cur)
         chunks = [c[:4] + (c[4].cpu().numpy(), c[5].cpu().numpy()) for c in chunks]
         t3 = time.perf_counter()
-        return {"kf": cur, "tri": tri, "fuse_chunks": chunks,
+        return {"kf": cur, "tri": tri, "words": words, "fuse_chunks": chunks,
                 "ms": {"cull": (t1 - t0) * 1e3, "triangulation": (t2 - t1) * 1e3,
                        "fusion": (t3 - t2) * 1e3}}
 
@@ -163,6 +181,9 @@ class MappingModule:
         t0 = time.perf_counter()
         if ev["tri"] is not None:
             self._apply_triangulation(cur, *ev["tri"])
+        if ev["words"] is not None:
+            _, bow_vec = self.bow_db.vocab.words_to_bow(ev["words"], cur.h_valid)
+            self.bow_db.add_keyframe(cur.id, bow_vec)
         touched = []
         with map_db.lock:
             for lms, kf_chunk, m0, msz, best, acc in ev["fuse_chunks"]:
@@ -333,7 +354,7 @@ class MappingModule:
         chunks2 = self._dispatch_fuse([cur], tgt_ids) if len(tgt_ids) else []
         return chunks1 + chunks2
 
-    def _dispatch_fuse(self, keyframes, lm_ids: np.ndarray):
+    def _dispatch_fuse(self, keyframes, lm_ids: np.ndarray, margin: float = 3.0):
         """Kernel L over (keyframes x lm_ids) in chunks of 16 x 2048; returns
         records (lm_ids, kf_chunk, m0, msz, best_idx, accepted) with device
         results."""
@@ -372,9 +393,22 @@ class MappingModule:
             for m0 in range(0, M, MC):
                 sl = slice(m0, m0 + MC)
                 best, acc = self.kernels.fuse(kfs, poses, batch_valid, lm_f[sl],
-                                              lm_desc[sl], lm_valid[sl])
+                                              lm_desc[sl], lm_valid[sl], margin)
                 chunks.append((lm_ids, kf_chunk, m0, min(MC, M - m0), best, acc))
         return chunks
+
+    def _fuse_into(self, map_db, keyframes, lm_ids, margin: float = 3.0):
+        """Dispatch, read and apply in one call (the loop closer's entry;
+        the keyframe event groups the reads of both fuse directions)."""
+        chunks = self._dispatch_fuse(keyframes, lm_ids, margin=margin)
+        if not chunks:
+            return
+        touched = []
+        with map_db.lock:
+            for ids, kf_chunk, m0, msz, best, acc in chunks:
+                self._apply_fuse_chunk(map_db, kf_chunk, ids, m0, msz, best.cpu().numpy(),
+                                       acc.cpu().numpy(), touched)
+            map_db.batch_refresh_landmark_stats(touched, self.orb_params.scale_factors)
 
     def _apply_fuse_chunk(self, map_db, keyframes, lm_ids, m0, msz, best_all, acc_all,
                           touched):

@@ -17,17 +17,18 @@ from stella_vslam_tpu_torch.match import hamming as H
 
 CHI_SQ_2D = 5.99146
 CHI_SQ_3D = 7.81473
-# the search window's half-width in pixels at octave 0: the margin the
-# mapping module, the only caller, fuses with
+# the search window's half-width in pixels at octave 0: the mapping module
+# fuses with 3, the loop closer with 4
 MARGIN = 3.0
 
 
 def candidate_mask(kp_uv, kp_level, kp_valid, kp_x_right, lm_reproj, lm_x_right,
-                   lm_pred_scale, lm_valid, *, scale_factors, level_sigma_sq):
+                   lm_pred_scale, lm_valid, *, scale_factors, level_sigma_sq,
+                   margin: float = MARGIN):
     """(in_window, candidate), each [M,N] bool: the landmark's margin window
     alone, and every gate of the scan."""
     pred = lm_pred_scale.long()
-    radius = MARGIN * scale_factors[pred]
+    radius = margin * scale_factors[pred]
     du = kp_uv[None, :, 0] - lm_reproj[:, None, 0]
     dv = kp_uv[None, :, 1] - lm_reproj[:, None, 1]
     in_window = (torch.abs(du) <= radius[:, None]) & (torch.abs(dv) <= radius[:, None])
@@ -46,12 +47,13 @@ def candidate_mask(kp_uv, kp_level, kp_valid, kp_x_right, lm_reproj, lm_x_right,
 
 def duplication_scan(kp_uv, kp_level, kp_desc, kp_valid, kp_x_right, lm_desc,
                      lm_reproj, lm_x_right, lm_pred_scale, lm_valid, *,
-                     scale_factors, level_sigma_sq):
+                     scale_factors, level_sigma_sq, margin: float = MARGIN):
     """Keypoints [N] of one keyframe against landmarks [M]: (best [M] i32,
     best_idx [M] i32), masked entries at 257, ties to the lowest index."""
     _, cand = candidate_mask(kp_uv, kp_level, kp_valid, kp_x_right, lm_reproj,
                              lm_x_right, lm_pred_scale, lm_valid,
-                             scale_factors=scale_factors, level_sigma_sq=level_sigma_sq)
+                             scale_factors=scale_factors, level_sigma_sq=level_sigma_sq,
+                             margin=margin)
     dist = H.pairwise_hamming(lm_desc, kp_desc)  # [M,N]
     dist = torch.where(cand, dist, torch.full_like(dist, H.MAX_HAMMING_DIST + 1))
     best, best_idx = dist.min(dim=1)

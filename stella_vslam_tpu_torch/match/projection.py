@@ -1,10 +1,11 @@
 """Projection-guided 2D-3D matching on kernel C.
 
-Port of `match_frame_and_landmarks` (stella_vslam_tpu/match/projection.py:25)
-and `match_current_and_last_frames` (:99). Each builds the per-row and
-per-column gate fields, calls `hamming.hamming_top2` once, and applies the
-ratio / orientation tests and the duplicate-target resolution to the [M]
-outputs. Both return (best_idx [M] i32, accepted [M] bool, best_dist [M]).
+Port of `match_frame_and_landmarks` (stella_vslam_tpu/match/projection.py:25),
+`match_current_and_last_frames` (:99) and `match_frame_and_keyframe` (:160).
+Each builds the per-row and per-column gate fields, calls
+`hamming.hamming_top2` once, and applies the ratio / orientation tests and
+the duplicate-target resolution to the [M] outputs. All return (best_idx [M]
+i32, accepted [M] bool, best_dist [M]).
 """
 from __future__ import annotations
 
@@ -63,5 +64,38 @@ def match_current_and_last_frames(
     accepted = (best <= H.HAMMING_DIST_THR_HIGH) & lm_valid
     if check_orientation:
         accepted = accepted & H.angle_diff_ok(last_angle, kp_angle[best_idx.long()])
+    accepted = H.resolve_duplicate_targets(best_idx, best, accepted, N)
+    return best_idx, accepted, best
+
+
+def match_frame_and_keyframe(
+    kp_uv, kp_level, kp_desc, kp_valid, kp_angle, kp_has_lm,
+    lm_desc, lm_reproj, lm_pred_scale, lm_angle, lm_valid,
+    *, scale_factors: torch.Tensor, num_levels: int, margin: float,
+    hamm_dist_thr: int = H.HAMMING_DIST_THR_LOW, check_orientation: bool = True,
+    top2=H.hamming_top2,
+):
+    """reference projection::match_frame_and_keyframe (projection.cc:202-300),
+    the loop detector's rematch: a keyframe's landmarks, reprojected into the
+    frame, against the frame's keypoints that hold no landmark yet: window
+    margin * scale_factor[pred level], levels [pred-1, pred+1], the best
+    distance only (no ratio test), orientation consistency on the winner.
+    `top2` is for checks only: kernel C's wrapper (the default, and what every
+    caller in the package uses), or its plain version to hold it against."""
+    N = kp_desc.shape[0]
+    pred = lm_pred_scale.to(torch.int32)
+    none = torch.full((lm_desc.shape[0],), -1.0, dtype=torch.float32, device=kp_uv.device)
+    window = H.WindowGate(
+        row_u=lm_reproj[:, 0].contiguous(), row_v=lm_reproj[:, 1].contiguous(),
+        row_xr=none, row_rad=margin * scale_factors[pred.long()],
+        row_lo=pred - 1, row_hi=pred + 1,
+        col_u=kp_uv[:, 0].contiguous(), col_v=kp_uv[:, 1].contiguous(),
+        col_xr=torch.full((N,), -1.0, dtype=torch.float32, device=kp_uv.device),
+        col_level=kp_level)
+    best, best_idx, _, _ = top2(
+        lm_desc, kp_desc, lm_valid, kp_valid & ~kp_has_lm, window=window)
+    accepted = (best <= hamm_dist_thr) & lm_valid
+    if check_orientation:
+        accepted = accepted & H.angle_diff_ok(lm_angle, kp_angle[best_idx.long()])
     accepted = H.resolve_duplicate_targets(best_idx, best, accepted, N)
     return best_idx, accepted, best

@@ -212,7 +212,8 @@ def reproject_for_fuse(cam, log_scale: float, num_levels: int, R, t, lm_f, lm_va
 
 
 def fuse_scan_plain(kfs: FuseKeyframes, poses, kf_valid, lm_f, lm_desc, lm_valid, cam,
-                    scale_factors, sigma_sq, log_scale: float):
+                    scale_factors, sigma_sq, log_scale: float,
+                    margin: float = fuse_match.MARGIN):
     """Plain version of kernel L: (best [B,M], best_idx [B,M], gate [B,M]);
     a landmark that fails its gate, or any landmark of a keyframe with
     kf_valid false, has distance 257 at index 0 and gate false. The
@@ -232,17 +233,17 @@ def fuse_scan_plain(kfs: FuseKeyframes, poses, kf_valid, lm_f, lm_desc, lm_valid
         best[b, rows], best_idx[b, rows] = fuse_match.duplication_scan(
             kfs.uv[b], kfs.level[b], kfs.desc[b], kfs.valid[b], kfs.x_right[b],
             lm_desc[rows], uv[rows], xr[rows], pred[rows], gate[rows],
-            scale_factors=scale_factors, level_sigma_sq=sigma_sq)
+            scale_factors=scale_factors, level_sigma_sq=sigma_sq, margin=margin)
         gates[b] = gate
     return best, best_idx, gates
 
 
 def fuse_scan(kfs: FuseKeyframes, poses, kf_valid, lm_f, lm_desc, lm_valid, cam,
-              scale_factors, sigma_sq, log_scale: float):
+              scale_factors, sigma_sq, log_scale: float, margin: float = fuse_match.MARGIN):
     """Kernel L on CUDA tensors, the plain version on CPU tensors."""
     if not kfs.uv.is_cuda:
         return fuse_scan_plain(kfs, poses, kf_valid, lm_f, lm_desc, lm_valid, cam,
-                               scale_factors, sigma_sq, log_scale)
+                               scale_factors, sigma_sq, log_scale, margin)
     B, N = kfs.uv.shape[0], kfs.uv.shape[1]
     M = lm_f.shape[0]
     L = scale_factors.shape[0]
@@ -268,7 +269,7 @@ def fuse_scan(kfs: FuseKeyframes, poses, kf_valid, lm_f, lm_desc, lm_valid, cam,
         kf_valid.data_ptr(), lm_f.data_ptr(),
         lm_desc.data_ptr(), lm_valid.data_ptr(), cam.fx, cam.fy, cam.cx, cam.cy,
         cam.width, cam.height, cam.focal_x_baseline, scale_factors.data_ptr(),
-        sigma_sq.data_ptr(), L, float(log_scale), fuse_match.MARGIN, out.data_ptr(),
+        sigma_sq.data_ptr(), L, float(log_scale), float(margin), out.data_ptr(),
         kbuild.stream_ptr(lm_f.device)), "fuse")
     fuse_scan.launches += 1
     return out[..., 0], out[..., 1], out[..., 2].bool()
@@ -317,7 +318,8 @@ class MappingKernels:
             self.level_sigma_sq, self.scale_factors)
 
     def fuse(self, kfs: FuseKeyframes, kf_poses: torch.Tensor, batch_valid: torch.Tensor,
-             lm_f: torch.Tensor, lm_desc: torch.Tensor, lm_valid: torch.Tensor):
+             lm_f: torch.Tensor, lm_desc: torch.Tensor, lm_valid: torch.Tensor,
+             margin: float = fuse_match.MARGIN):
         """Landmarks lm_f [M,8] (pos | dmin | dmax | normal), lm_desc [M,8]
         against the keyframes kfs ([B,...], poses [B,12], batch_valid [B],
         false for padding):
@@ -325,7 +327,7 @@ class MappingKernels:
         landmark and one landmark per keypoint of each keyframe."""
         best, best_idx, gate = fuse_scan(
             kfs, kf_poses, batch_valid, lm_f, lm_desc, lm_valid, self.cam,
-            self.scale_factors, self.level_sigma_sq, self.log_scale)
+            self.scale_factors, self.level_sigma_sq, self.log_scale, margin)
         return best_idx, accept_fused(best, best_idx, gate, kfs.uv.shape[1])
 
 

@@ -13,8 +13,9 @@ but do not move; `lm_keep_inlier` rows survive the reclassification.
 
 On CUDA tensors every iteration is three launches (csrc/ba_schur.cu):
 F `ba_linearize_schur` (linearize, Hpp^-1, Schur terms), G
-`ba_reduced_solve` (the 6K x 6K Cholesky solve and the trial poses, 6K <=
-192), H `ba_backsub_cost` (point updates, trial cost, and on the device the
+`ba_reduced_solve` (the 6K x 6K Cholesky solve and the trial poses: in shared
+memory up to 6K = 192, in a device-memory scratch above, as the global BA's
+K = 32 .. 512 need), H `ba_backsub_cost` (point updates, trial cost, and on the device the
 accept / reject, lambda update and stop flag). The stage launches all its
 iterations without reading the host; after the stop flag every launch
 returns at once. Kernel I `ba_classify` gives the chi-square
@@ -40,7 +41,8 @@ from stella_vslam_tpu_torch.ops.optim.residuals import CamScalars
 
 CHI_SQ_2D = 5.991
 CHI_SQ_3D = 7.815
-MAX_SOLVE_DIM = 192  # kernel G holds the 6K x 6K system in shared memory
+MAX_SOLVE_DIM = 192  # up to here kernel G holds the 6K x 6K system in shared memory
+MAX_CAMERAS = 512  # above it G factors in device memory with one block
 
 
 class BAProblem(NamedTuple):
@@ -311,6 +313,8 @@ class _KernelState:
         self.dx = f(K, 6)
         self.Wg, self.lmblk = f(L, D, 18), f(L, 10)
         self.hc, self.S, self.rhs = f(K, 27), f(6 * K, 6 * K), f(6 * K)
+        # kernel G's factorization scratch where 6K x 6K outgrows shared memory
+        self.factor = f(6 * K, 6 * K) if 6 * K > MAX_SOLVE_DIM else None
         self.ctrl = f(8)
         self.counter = torch.zeros(1, dtype=torch.int32, device=dev)
         u8 = lambda b: b.to(torch.uint8).contiguous()
@@ -353,7 +357,8 @@ def ba_reduced_solve(st: _KernelState):
         st.K, st.inputs["cam_free"].data_ptr(), st.cam_R.data_ptr(),
         st.cam_t.data_ptr(), st.ctrl.data_ptr(), st.hc.data_ptr(), st.S.data_ptr(),
         st.rhs.data_ptr(), st.dx.data_ptr(), st.cam_Rn.data_ptr(),
-        st.cam_tn.data_ptr(), kbuild.stream_ptr(st.lm.device)), "ba_solve")
+        st.cam_tn.data_ptr(), 0 if st.factor is None else st.factor.data_ptr(),
+        kbuild.stream_ptr(st.lm.device)), "ba_solve")
     ba_reduced_solve.launches += 1
 
 
@@ -404,9 +409,8 @@ def _check_problem(prob: BAProblem):
         t = getattr(prob, name)
         if t is not None and (tuple(t.shape) != shape or t.device != dev):
             raise ValueError(f"bundle_adjust: {name} must have shape {shape} on {dev}")
-    if 6 * K > MAX_SOLVE_DIM:
-        raise ValueError(f"bundle_adjust: the reduced solve holds 6K <= "
-                         f"{MAX_SOLVE_DIM} rows (K={K})")
+    if K > MAX_CAMERAS:
+        raise ValueError(f"bundle_adjust: at most {MAX_CAMERAS} camera slots (K={K})")
 
 
 def bundle_adjust(prob: BAProblem, cam: CamScalars, *, model: str = "perspective",

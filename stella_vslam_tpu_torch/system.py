@@ -1,14 +1,18 @@
 """Public system API of the port: construction, frame feeding, results.
 
-Port of stella_vslam_tpu/system.py for the RGBD tracking, monocular and
-mapping slices: `System(cfg, device, inline_mapping=True)` with startup /
-shutdown, `create_monocular_frame` / `feed_monocular_frame` and
-`create_RGBD_frame` / `feed_RGBD_frame` (ORB extraction on kernels A and B,
-undistortion, bearings, depth sampling for RGBD and the packed host mirror,
+Port of stella_vslam_tpu/system.py for the RGBD tracking, monocular,
+mapping and loop-closing slices: `System(cfg, device, inline_mapping=True,
+vocab_path=None)` with startup / shutdown, `create_monocular_frame` /
+`feed_monocular_frame` and `create_RGBD_frame` / `feed_RGBD_frame` (ORB
+extraction on kernels A and B, undistortion, bearings, depth sampling for RGBD and the packed host mirror,
 all on the device), `frame_poses`, and for a monocular camera the mapping
 module, run inline after each feed (`enable_mapping_module`; the
-`KeyframeInserter` and `Mapping` config sections). Mapping starts disabled;
-mapping of stereo and RGBD keyframes is not ported, nor the loop closer;
+`KeyframeInserter` and `Mapping` config sections), with the BoW vocabulary
+and database and the global optimization module behind it (the
+`LoopDetector` section; `enable_loop_detector`, `request_loop_closure`,
+`loop_BA_is_running`, `abort_loop_BA`): every mapped keyframe is checked for
+a loop, and a loop is corrected, inline. Mapping starts disabled; mapping of
+stereo and RGBD keyframes is not ported, nor the relocalizer;
 `feed_stereo_frame` raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -18,20 +22,25 @@ import torch
 
 from stella_vslam_tpu_torch.camera.base import Camera, Setup, camera_from_yaml
 from stella_vslam_tpu_torch.config import Config
+from stella_vslam_tpu_torch.data.bow_database import BowDatabase
+from stella_vslam_tpu_torch.data.bow_vocabulary import BowVocabulary
 from stella_vslam_tpu_torch.data.frame import Frame, pack_host_cols
 from stella_vslam_tpu_torch.data.map_database import MapDatabase
 from stella_vslam_tpu_torch.feature.orb_extractor import OrbExtractor
 from stella_vslam_tpu_torch.feature.orb_params import OrbParams
+from stella_vslam_tpu_torch.global_optimization_module import GlobalOptimizationModule
 from stella_vslam_tpu_torch.mapping_module import MappingModule
 from stella_vslam_tpu_torch.module.keyframe_inserter import KeyframeInserter
 from stella_vslam_tpu_torch.tracking_module import TrackingModule
 
 
 class System:
-    def __init__(self, cfg: Config, device="cuda", inline_mapping: bool = True):
+    def __init__(self, cfg: Config, device="cuda", inline_mapping: bool = True,
+                 vocab_path=None):
         """`device`: where every per-frame tensor lives ("cuda" runs the
         kernels; "cpu" runs their plain versions). Only the synchronous
-        (inline_mapping=True) mode is ported."""
+        (inline_mapping=True) mode is ported. `vocab_path`: a BoW vocabulary
+        in the .npz form (the packaged one by default)."""
         if not inline_mapping:
             raise NotImplementedError(
                 "threaded mapping is not ported yet (ROADMAP Queue 1 item 10)")
@@ -87,6 +96,28 @@ class System:
             cl.num_reliable_keyfrms = int(mp.get("num_reliable_keyfrms", 2))
             self.tracker.mapper = self.mapper
             self.tracker.keyfrm_inserter.mapper = self.mapper
+        # place recognition and loop closing (reference system.cc:44-50: the
+        # vocabulary is a mandatory artifact there; here the packaged one)
+        self.bow_vocab = (BowVocabulary.load(vocab_path, self.device) if vocab_path
+                          else BowVocabulary.default(self.device))
+        self.bow_db = BowDatabase(self.bow_vocab)
+        ld = cfg.section("LoopDetector")
+        self.global_optimizer = GlobalOptimizationModule(
+            self.map_db, self.camera, self.orb_params, self.bow_db, device=self.device,
+            fix_scale=self.camera.setup != Setup.MONOCULAR,
+            use_fixed_seed=bool(cfg.get("Initializer", "use_fixed_seed", False)),
+            loop_detector_kwargs=dict(
+                num_final_matches_thr=int(ld.get("num_final_matches_threshold", 40)),
+                min_continuity=int(ld.get("min_continuity", 3)),
+                reject_by_graph_distance=bool(ld.get("reject_by_graph_distance", False)),
+                min_distance_on_graph=int(ld.get("min_distance_on_graph", 50))))
+        if not bool(ld.get("enabled", True)):
+            self.global_optimizer.disable_loop_detector()
+        self.global_optimizer.mapper = self.mapper
+        if self.mapper is not None:
+            self.mapper.bow_db = self.bow_db
+            self.mapper.global_optimizer = self.global_optimizer
+        self.map_db.on_erase_keyframe.append(self.bow_db.erase_keyframe)
         self._running = False
         cfg.log_collapse_report()
 
@@ -110,8 +141,36 @@ class System:
                 "(ROADMAP Queue 1 item 14)")
         self.tracker.mapping_is_enabled = True
 
+    def enable_loop_detector(self):
+        self.global_optimizer.enable_loop_detector()
+
+    def disable_loop_detector(self):
+        self.global_optimizer.disable_loop_detector()
+
+    def loop_detector_is_enabled(self) -> bool:
+        return self.global_optimizer.loop_detector_is_enabled()
+
+    def request_loop_closure(self, keyfrm1_id: int, keyfrm2_id: int) -> bool:
+        """Manual loop closure between two keyframes (reference system.h:116)."""
+        return self.global_optimizer.request_loop_closure(keyfrm1_id, keyfrm2_id)
+
+    def loop_BA_is_running(self) -> bool:
+        return self.global_optimizer.loop_ba_running
+
+    def abort_loop_BA(self):
+        self.global_optimizer.abort_loop_BA()
+
+    def pause_other_threads(self):
+        """Settle what the last feed left pending (inline mode has no other
+        threads: the queued keyframe events run to their end)."""
+        self._drain_mapper_inline()
+
+    def resume_other_threads(self):
+        """Nothing to resume in inline mode."""
+
     def _drain_mapper_inline(self):
-        """Run the keyframe events the last feed queued (inline mapping)."""
+        """Run the keyframe events the last feed queued, and the loop
+        detection of each (inline mapping)."""
         if self.mapper is not None:
             self.mapper.drain()
 

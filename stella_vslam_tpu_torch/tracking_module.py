@@ -133,6 +133,10 @@ class TrackingModule:
         self._finalize_one(frm, out)
         return frm.pose_cw
 
+    def finalize_pending(self):
+        """Nothing is pending: feed_frame finalizes its frame before it
+        returns (the JAX tracker pipelines one frame)."""
+
     # ------------------------------------------------------------------
     def _dispatch(self, frm: Frame):
         last = self.last_frm

@@ -43,11 +43,14 @@ from stella_vslam_tpu_torch.util.synthetic import PlaneWorld
 EVENT_PHASES = ("triangulation", "fusion", "local_ba", "apply", "cull", "cull_publish")
 
 
-def make_system(world: PlaneWorld, device) -> System:
+def make_system(world: PlaneWorld, device, loop_detector: bool = False) -> System:
+    """The bench's mono System with mapping enabled; the loop detector off
+    unless asked for (util/loop_slice.py runs the same leg with it on)."""
     cfg = Config.from_dict({
         "Camera": world.camera_yaml(),
         "Feature": {"num_levels": 8},
         "Initializer": {"use_fixed_seed": True},
+        "LoopDetector": {"enabled": loop_detector},
     })
     slam = System(cfg, device=device, inline_mapping=True)
     slam.enable_mapping_module()
@@ -58,12 +61,14 @@ def make_system(world: PlaneWorld, device) -> System:
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the slice, by kernel name (each counts its
     launches)."""
+    from stella_vslam_tpu_torch.data import bow_vocabulary as bow
     from stella_vslam_tpu_torch.feature import orb_extractor as ox
     from stella_vslam_tpu_torch.match import hamming as H
     from stella_vslam_tpu_torch.module import mapping_kernels as mk
     from stella_vslam_tpu_torch.ops.optim import ba
     from stella_vslam_tpu_torch.ops.optim import pose as pose_mod
-    from stella_vslam_tpu_torch.ops.solve import ransac
+    from stella_vslam_tpu_torch.ops.optim import sim3
+    from stella_vslam_tpu_torch.ops.solve import pnp, ransac
 
     return {"fast_nms": ox.fast_nms, "orb_describe": ox.orb_describe,
             "hamming_top2": H.hamming_top2, "pose_lm": pose_mod.optimize_pose,
@@ -72,13 +77,34 @@ def kernel_wrappers() -> dict:
             "ba_reduced_solve": ba.ba_reduced_solve,
             "ba_backsub_cost": ba.ba_backsub_cost, "ba_classify": ba.ba_classify,
             "epipolar_top2": H.epipolar_top2, "triangulate": mk.triangulate_checks,
-            "fuse": mk.fuse_scan}
+            "fuse": mk.fuse_scan, "bow_transform": bow.bow_transform,
+            "pnp_ransac": pnp.pnp_hypotheses, "sim3_transform": sim3.sim3_transform,
+            "pose_graph": sim3.pose_graph_linearize}
 
 
 def _pcts(v):
     v = np.asarray(v, np.float64)
     return {"p50": float(np.percentile(v, 50)), "p99": float(np.percentile(v, 99)),
             "max": float(v.max())} if len(v) else None
+
+
+def slice_stats(slam: System, gt_xy, frame_ms, launches) -> dict:
+    """The statistics of the frames fed so far (ground truth and frame times
+    in feed order)."""
+    first, tracked, lost, ate, scale = trajectory_stats(slam.frame_poses, gt_xy)
+    md, mapper = slam.map_db, slam.mapper
+    # the init pair's events have no local BA; the rest are the tracker's
+    # keyframes
+    events = mapper.event_ms[2:]
+    return dict(frames=len(gt_xy), init_frame=first, tracked=tracked, lost_after_init=lost,
+                ate_m=ate, sim3_scale=scale, keyframes_inserted=md._next_keyfrm_id,
+                keyframes_kept=md.num_keyframes(), landmarks=md.num_landmarks(),
+                local_bas=len(slam.local_ba_ms),
+                frame_ms=_pcts(frame_ms[first + 1:]),
+                keyframe_event_ms=_pcts([e["total"] for e in events]),
+                keyframe_event_phase_ms={k: _pcts([e[k] for e in events])
+                                         for k in EVENT_PHASES},
+                local_ba_ms=_pcts(slam.local_ba_ms), launches=dict(launches))
 
 
 def run_slice(device, world: PlaneWorld, n_frames: int = 500, step: float = 0.015,
@@ -119,21 +145,7 @@ def run_slice(device, world: PlaneWorld, n_frames: int = 500, step: float = 0.01
             prof["host_event_ms"] = [mapper.event_ms[event_frames.index(f)]
                                      for f in prof["keyframe_event_frames"]]
     slam.shutdown()
-    launches = {k: w.launches for k, w in wrappers.items()}
-    first, tracked, lost, ate, scale = trajectory_stats(slam.frame_poses, gt_xy)
-    md = slam.map_db
-    # the init pair's events have no local BA; the rest are the tracker's
-    # keyframes
-    events = mapper.event_ms[2:]
-    stats = dict(frames=n_frames, init_frame=first, tracked=tracked, lost_after_init=lost,
-                 ate_m=ate, sim3_scale=scale, keyframes_inserted=md._next_keyfrm_id,
-                 keyframes_kept=md.num_keyframes(), landmarks=md.num_landmarks(),
-                 local_bas=len(slam.local_ba_ms),
-                 frame_ms=_pcts(frame_ms[first + 1:]),
-                 keyframe_event_ms=_pcts([e["total"] for e in events]),
-                 keyframe_event_phase_ms={k: _pcts([e[k] for e in events])
-                                          for k in EVENT_PHASES},
-                 local_ba_ms=_pcts(slam.local_ba_ms), launches=launches)
+    stats = slice_stats(slam, gt_xy, frame_ms, {k: w.launches for k, w in wrappers.items()})
     if profile_window:
         stats["profile"] = prof
     return stats

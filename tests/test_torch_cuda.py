@@ -400,3 +400,65 @@ def test_fuse_kernel_matches_plain(dev):
     acc_k, acc_p = mkm.accept_fused(*k, N), mkm.accept_fused(*p, N)
     assert int(acc_p.sum()) > 100 and not bool(acc_k[B - 1].any())
     assert float((acc_k != acc_p).float().mean()) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the loop closer's kernels M, N, O, P, and F-I at the global shape
+# (problem builders shared with chip_smoke.py, at small and ragged sizes)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("N", [1, 130, 2872])
+def test_bow_transform_kernel_matches_plain(dev, N):
+    from stella_vslam_tpu_torch.data import bow_vocabulary as bow
+
+    vocab = bow.BowVocabulary.default(dev)
+    rng = np.random.default_rng(N)
+    d = torch.from_numpy(rng.integers(0, 2 ** 32, (N, 8), dtype=np.uint64).astype(np.uint32)
+                         .view(np.int32)).to(dev)
+    before = bow.bow_transform.launches
+    k = vocab.transform(d)
+    assert bow.bow_transform.launches == before + 1
+    assert torch.equal(k, bow.bow_transform_plain(d, vocab.packed_centers()))
+    assert int(k.min()) >= 0 and int(k.max()) < vocab.num_words
+
+
+@pytest.mark.parametrize("N", [40, 700])
+def test_pnp_kernel_matches_plain(dev, N):
+    import chip_smoke
+
+    args, sf = chip_smoke._pnp_problem(dev, N, N)
+    chip_smoke._check_pnp(args, sf, f"N={N}", seed=N)
+
+
+@pytest.mark.parametrize("N,fix_scale", [(15, False), (500, False), (500, True)])
+def test_sim3_transform_kernel_matches_plain(dev, N, fix_scale):
+    import chip_smoke
+
+    args = chip_smoke._transform_problem(dev, N, N)
+    # 13 inliers leave the scale weakly observed: the order of the sums moves
+    # it by 2e-4, so the smallest problem is held to 1e-3
+    chip_smoke._check_transform(args, dict(fix_scale=fix_scale), f"N={N} fix_scale={fix_scale}",
+                                tol=1e-3 if N < 50 else 1e-4)
+
+
+@pytest.mark.parametrize("K,Kp,Ep", [(12, 16, 32), (30, 32, 128)])
+def test_pose_graph_kernel_matches_plain(dev, K, Kp, Ep):
+    import chip_smoke
+
+    args = chip_smoke._graph_problem(dev, K, Kp, Ep, K)
+    chip_smoke._check_pose_graph(args, f"K={K}")
+
+
+@pytest.mark.parametrize("K", [32, 40, 64, 128])
+def test_ba_kernels_match_plain_at_global_shape(dev, K):
+    """One Huber stage of 16 at D = 16: K = 32 factors in shared memory and
+    sums the Schur terms in a block's copy, K = 40 is the first size that
+    sums them in device memory, K = 64 and 128 factor there too."""
+    import chip_smoke
+
+    prob, cam = chip_smoke._ba_problem(dev, K, 1024, 16, False, K, spacing=0.1, ordered=True)
+    w = chip_smoke._lockstep_ba(prob, cam, 16, 0)
+    assert w["f_excess"] < 1.0 and w["g_backward"] < 1e-3 and w["g_pose"] < 1e-5
+    assert w["point_share"] < 1.0 and w["cost_rel"] < 1e-4
+    assert w["decisions"] == 0 and w["flags"] == 0

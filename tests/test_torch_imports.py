@@ -22,6 +22,10 @@ MAPPING_MODULES = tuple("stella_vslam_tpu_torch." + m for m in (
     "mapping_module", "module.mapping_kernels", "module.local_map_cleaner",
     "module.keyframe_inserter", "match.fuse", "match.robust", "ops.triangulation",
     "ops.solve.essential", "util.map_slice", "convert"))
+LOOP_MODULES = tuple("stella_vslam_tpu_torch." + m for m in (
+    "global_optimization_module", "module.loop_detector", "data.bow_vocabulary",
+    "data.bow_database", "ops.solve.pnp", "ops.optim.sim3", "match.projection",
+    "util.drift", "util.loop_slice"))
 
 
 def test_port_imports_without_jax_cv2_yaml():
@@ -35,11 +39,11 @@ def test_port_imports_without_jax_cv2_yaml():
             importlib.import_module(m)
         assert "stella_vslam_tpu" not in sys.modules, "imported the JAX package"
         assert len(mods) >= 20, mods
-        # the mapping slice's modules are among those checked
+        # the mapping and loop slices' modules are among those checked
         missing = set(MAPPING_MODULES) - set(mods)
         assert not missing, missing
         print(len(mods))
-    """).replace("MAPPING_MODULES", repr(MAPPING_MODULES))
+    """).replace("MAPPING_MODULES", repr(MAPPING_MODULES + LOOP_MODULES))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -110,6 +114,24 @@ def test_opencv_pairs_copy_is_byte_identical():
         assert f.read() == ref
 
 
+def test_default_vocabulary_copy_is_byte_identical():
+    with open(os.path.join(REPO, "stella_vslam_tpu", "data", "vocab_default.npz"), "rb") as f:
+        ref = f.read()
+    with open(os.path.join(PKG_DIR, "data", "vocab_default.npz"), "rb") as f:
+        assert f.read() == ref
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py names neither jax nor the JAX package in an import."""
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    for node in ast.walk(tree):
+        names = [a.name for a in node.names] if isinstance(node, ast.Import) else \
+            [node.module or ""] if isinstance(node, ast.ImportFrom) else []
+        for n in names:
+            root = n.split(".")[0]
+            assert root not in ("jax", "jaxlib", "stella_vslam_tpu"), n
+
+
 def test_public_constructors_default_to_the_card():
     """Every class of the port whose constructor takes a device defaults it
     to "cuda" (read from the signature; nothing is constructed)."""
@@ -122,6 +144,7 @@ def test_public_constructors_default_to_the_card():
             if "device" in params:
                 found[name] = params["device"].default
     expected = {"System", "TrackingModule", "TrackingKernels", "OrbExtractor",
-                "DeviceLandmarkTable", "MapDatabase", "MappingModule", "MappingKernels"}
+                "DeviceLandmarkTable", "MapDatabase", "MappingModule", "MappingKernels",
+                "GlobalOptimizationModule", "LoopDetector", "BowVocabulary"}
     assert expected <= set(found), sorted(found)
     assert all(v == "cuda" for v in found.values()), found

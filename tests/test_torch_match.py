@@ -136,3 +136,28 @@ def test_match_in_consistent_area_exact(data, margin):
                                        lowe_ratio=0.9)
     assert int(np.asarray(out_j[1]).sum()) > 20
     _eq(out_j, out_t)
+
+
+@pytest.mark.parametrize("margin", [10.0, 3.0])
+def test_match_frame_and_keyframe_exact(data, margin):
+    """The loop detector's rematch (kernel C's window mode through a new
+    wrapper): window by the predicted level, levels within +-1, keypoints
+    that hold a landmark excluded, best only, orientation on the winner."""
+    d = data
+    kw = dict(num_levels=L, margin=margin)
+    jo = jP.match_frame_and_keyframe(
+        *[jnp.asarray(d[k]) for k in ("kp_uv", "kp_level", "kp_desc", "kp_valid", "kp_angle",
+                                      "kp_has_lm", "q_desc", "q_uv", "q_pred", "q_angle",
+                                      "q_valid")], scale_factors=jnp.asarray(SF), **kw)
+    t = lambda k: torch.from_numpy(d[k].view(np.int32) if d[k].dtype == np.uint32 else d[k])
+    to = P.match_frame_and_keyframe(
+        *[t(k) for k in ("kp_uv", "kp_level", "kp_desc", "kp_valid", "kp_angle", "kp_has_lm",
+                         "q_desc", "q_uv", "q_pred", "q_angle", "q_valid")],
+        scale_factors=torch.from_numpy(SF), **kw)
+    assert np.array_equal(np.asarray(jo[1]), to[1].numpy())
+    acc = to[1].numpy()
+    assert acc.sum() > 20
+    assert np.array_equal(np.asarray(jo[0])[acc], to[0].numpy()[acc])
+    assert np.array_equal(np.asarray(jo[2]), to[2].numpy())
+    # no accepted match lands on a keypoint that already holds a landmark
+    assert not d["kp_has_lm"][to[0].numpy()[acc]].any()
