@@ -89,12 +89,37 @@ Phases, each fatal on failure (nothing is caught):
      1e-3); times and bounds (K = 32 and 64) as in phase 4,
      the library call of P's solve (torch.linalg.cholesky + cholesky_solve)
      and of G's (torch.linalg.solve).
+ 11. kernels Q (csrc/track_assoc.cu: the per-slot scatter, the landmark
+     dedup, the chain rebase) and R (csrc/reproject.cu: the reprojection
+     with the local-map gate, the undistortion) against their plain
+     versions at the slice's shapes (run with phase 3): Q exact (poses of
+     the rebase within 1e-6) on synthetic inputs with slot collisions, tied
+     scores, repeated and absent ids; R's uv and x_right within 1e-5
+     relative, its flags equal except within 1e-6 of a threshold (counted);
+ 12. the inline loop slice a second time in the same process on a fresh
+     System: whether the frame poses are bit-identical to the first run's,
+     both ATEs, and where each run's error sits (legs, frames whose
+     reference keyframe was culled, their forward hops);
+ 13. kernels F-I and P twice on the same inputs (init, local and global
+     shapes, the loop slice's global BA and pose graph): bit-identical;
+ 14. the threaded slice (util/threaded_slice.py): the default System —
+     pipelined tracker, mapping and loop-closing threads on their own CUDA
+     streams — over the bench's circuit fed as fast as the feed returns:
+     at most 8 frames lost after init, a loop closed, Sim3 ATE < 0.10 m,
+     local-BA skips at most 20% of the opportunities, at least 25 keyframes
+     created and 10 kept, nothing left queued or pending at shutdown, no
+     exception contained by a worker thread, every kernel A-R launched;
+     frame time, keyframe and loop events by phase, rebases and drain
+     fallbacks, the caller's waits, and the synchronising calls per steady
+     dispatch (torch's sync debug mode on frames 300-340, by file:line);
+     then kernel Q against plain on the slice's recorded inputs (a sample
+     of the scatters and dedups, every rebase).
 Launch counts are set to 0 just before each slice and read just after it;
-the kernels line reports the loop slice's (which runs every kernel), with
-the mono and RGBD slices' beside them. The line before the last is
-{"kernels": [...]}, the one before it "slices: {...}" with each slice's
-result in short; the last line is {"ok": true, "device": {...}}. Long
-logs go to chiprun_out/.
+the kernels line reports the threaded slice's (this slice's main path,
+which runs every kernel), with the loop, mono and RGBD slices' beside them.
+The line before the last is {"kernels": [...]}, the one before it
+"slices: {...}" with each slice's result in short; the last line is
+{"ok": true, "device": {...}}. Long logs go to chiprun_out/.
 """
 from __future__ import annotations
 
@@ -241,7 +266,7 @@ def check_kernels(dev, world):
     row_ok = torch.rand(C, generator=g).to(dev) < 0.9
     col_ok = valid & (torch.rand(N, generator=g).to(dev) < 0.8)
     ori = H.OrientGate(torch.cos(ang_k), torch.sin(ang_k), torch.cos(ang_k),
-                       torch.sin(ang_k), cos_30deg(dev))
+                       torch.sin(ang_k), cos_30deg())
     cases = [((q_desc, kp_desc, row_ok, col_ok), dict(window=win)),
              ((kp_desc, kp_desc, valid, valid), dict(orient=ori))]
     err_c = 0
@@ -1086,8 +1111,35 @@ def run_loop_slice(dev, world, wrappers, card):
     assert stats["loop_edges"], "no loop edge in the graph"
     assert all(stats["frame_after_loop_tracked"]), "the frame after a correction was lost"
     for name, n in launches.items():
-        assert n > 0, f"{name} was not launched by the loop slice"
+        assert n > 0 or name in THREADED_KERNELS, f"{name} was not launched by the loop slice"
     return stats, launches, slam, inputs, loop_calls
+
+
+def rerun_loop_slice(dev, world, first, card):
+    """The inline loop slice once more in the same process, on a fresh
+    System: with every device sum in a fixed order the frame poses are the
+    first run's, bit for bit. Prints both runs' ATEs and, for each, where
+    the error sits (legs, frames whose reference keyframe was culled)."""
+    from stella_vslam_tpu_torch.util import loop_slice, threaded_slice
+
+    slam2 = loop_slice.make_system(world, dev)
+    stats2 = loop_slice.run_slice(dev, world, slam=slam2)
+    p1, p2 = first.frame_poses, slam2.frame_poses
+    same = len(p1) == len(p2) and all(
+        (a[1] is None and b[1] is None) or (a[1] is not None and b[1] is not None
+                                            and np.array_equal(a[1], b[1]))
+        for a, b in zip(p1, p2))
+    first_diff = next((i for i, (a, b) in enumerate(zip(p1, p2))
+                       if (a[1] is None) != (b[1] is None)
+                       or (a[1] is not None and not np.array_equal(a[1], b[1]))), None)
+    gt = loop_slice.circuit()
+    diag = [threaded_slice.erased_forward_diagnostic(s, gt) for s in (first, slam2)]
+    out = dict(poses_bit_identical=same, first_differing_frame=first_diff,
+               ate_m=[None, stats2["ate_m"]], loops=[None, stats2["loops_closed"]],
+               keyframes_kept=[first.map_db.num_keyframes(), stats2["keyframes_kept"]],
+               ate_breakdown=diag, card=card)
+    return out, stats2
+
 
 
 def _pnp_problem(dev, n, seed):
@@ -1479,6 +1531,487 @@ def check_loop_kernels(dev, slam, rec):
     return rows
 
 
+# kernel Q's chain rebase runs only in the pipelined tracker, when a table is
+# published while frames are in flight: the inline slices never launch it
+THREADED_KERNELS = ("rebase_chain",)
+
+
+def _assoc_problem(dev, M, N, seed):
+    """Matcher-like outputs at the slice's shapes: M sources, their best
+    slots (a strided column, a third of them drawn from a third of the
+    slots so that slots collide), 70% accepted, and table rows (positions
+    in packed [M,8] rows, ids in column 8 of [M,10])."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    best = torch.randint(0, N, (M, 4), generator=g, dtype=torch.int32)
+    best[: M // 3, 1] = torch.randint(0, max(1, N // 3), (M // 3,), generator=g,
+                                      dtype=torch.int32)
+    acc = torch.rand(M, generator=g) < 0.7
+    tbl = torch.randn(M, 8, generator=g)
+    ids = torch.randint(-1, 20000, (M, 10), generator=g, dtype=torch.int32)
+    return best.to(dev), acc.to(dev), tbl.to(dev), ids.to(dev)
+
+
+def _same(a, b) -> bool:
+    """Equal outputs (tuples of tensors, None where absent)."""
+    import torch
+
+    return all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _check_assoc_call(kind, args, pose_tol=1e-6):
+    """One call of a kernel Q entry point against its plain version: ints
+    and copies exact, the re-anchored poses within pose_tol. Returns the
+    largest pose difference."""
+    from stella_vslam_tpu_torch.module import tracking_kernels as tk
+
+    fn, plain = {"scatter": (tk.scatter_to_current, tk.scatter_to_current_plain),
+                 "dedup": (tk.dedup_by_id, tk.dedup_by_id_plain),
+                 "rebase": (tk.rebase_chain, tk.rebase_chain_plain)}[kind]
+    k, p = fn(*args), plain(*args)
+    n_exact = 3 if kind == "rebase" else len(k)
+    assert _same(k[:n_exact], p[:n_exact]), f"kernel Q {kind} disagrees with its plain version"
+    err = 0.0
+    for x, y in zip(k[n_exact:], p[n_exact:]):
+        err = max(err, float((x - y).abs().max()))
+    assert err <= pose_tol, f"kernel Q {kind}: poses {err:.3g} apart"
+    return err
+
+
+def _gate_near(p, R, t, tbl, tbl_u32, log_scale, eps=1e-6):
+    """Rows of a table whose gate or level is decided by a quantity within
+    eps (relative) of its threshold, in the plain version's float64 terms:
+    there the kernel and the plain version may round to different sides."""
+    import torch
+
+    R, t, x = R.double(), t.double(), tbl.double()
+    pc = x[:, 0:3] @ R.T + t
+    z = pc[:, 2]
+    u = p.fx * pc[:, 0] / z + p.cx
+    v = p.fy * pc[:, 1] / z + p.cy
+    ray = x[:, 0:3] + R.T @ t
+    dist = torch.linalg.norm(ray, dim=-1)
+    cosang = (ray * x[:, 3:6]).sum(-1) / dist
+    lv = torch.log(x[:, 7] / dist) / log_scale
+    near = lambda q, thr: (q - thr).abs() <= eps * max(1.0, abs(thr))
+    return (near(u, 0.0) | near(u, p.width) | near(v, 0.0) | near(v, p.height) | near(z, 0.0)
+            | near(dist / x[:, 6], 0.8) | near(dist / x[:, 7], 1.3) | near(cosang, 0.5)
+            | ((lv - lv.round()).abs() <= eps))
+
+
+def check_track_kernels(dev, world):
+    """Kernels Q and R against their plain versions at the slice's shapes
+    (N = 2872 slots, M = C = 4096 sources and table rows) on synthetic
+    inputs with slot collisions, equal scores, repeated and absent ids;
+    rows of the kernels line."""
+    import torch
+
+    from stella_vslam_tpu_torch.camera import base as cb
+    from stella_vslam_tpu_torch.module import tracking_kernels as tk
+
+    rows = []
+    N, M, C = 2872, 4096, 4096
+    src = "stella_vslam_tpu_torch/csrc/track_assoc.cu"
+    # ---- Q: scatter (table sources) ----
+    best, acc, tbl, ids = _assoc_problem(dev, M, N, 11)
+    sargs = (best[:, 1], acc, tbl[:, 0:3], ids[:, 8], N)
+    _check_assoc_call("scatter", sargs)
+    held = int(tk.scatter_to_current(*sargs)[2].sum())
+    print(f"kernel Q scatter_to_current: {M} sources -> {N} slots, {held} held, exact")
+    rows.append(dict(
+        name="scatter_to_current", route="cuda", source=src,
+        replaces="stella_vslam_tpu/module/tracking_kernels.py:64", max_abs_err=0.0,
+        shape=f"M={M} N={N}", ms=_median_ms(lambda: tk.scatter_to_current(*sargs)),
+        plain_ms=_median_ms(lambda: tk.scatter_to_current_plain(*sargs)), library_ms=None,
+        # read: index, accept flag, 3 floats and an id per source; write: 3
+        # floats, an id and a flag per slot; one count and a compare each
+        **_bound(M * (4 + 1 + 12 + 4) + N * (12 + 4 + 1), 4.0 * (M + N))))
+    # ---- Q: dedup ----
+    g = torch.Generator().manual_seed(12)
+    has = (torch.rand(N, generator=g) < 0.8).to(dev)
+    dids = torch.randint(0, N // 3, (N,), generator=g, dtype=torch.int32).to(dev)
+    score = torch.randint(0, 8, (N,), generator=g).to(torch.float32).to(dev)
+    dargs = (has, dids, torch.where(has, score, torch.full_like(score, float("inf"))))
+    _check_assoc_call("dedup", dargs)
+    kept = int(tk.dedup_by_id(*dargs)[0].sum())
+    print(f"kernel Q dedup_by_id: {int(has.sum())} held slots over {N // 3} ids with tied "
+          f"scores, {kept} kept, exact")
+    rows.append(dict(
+        name="dedup_by_id", route="cuda", source=src,
+        replaces="stella_vslam_tpu/module/tracking_kernels.py:83", max_abs_err=0.0,
+        shape=f"N={N}", ms=_median_ms(lambda: tk.dedup_by_id(*dargs)),
+        plain_ms=_median_ms(lambda: tk.dedup_by_id_plain(*dargs)), library_ms=None,
+        **_bound(N * (1 + 4 + 4) + N * (1 + 4), 10.0 * N)))
+    # ---- Q: rebase ----
+    g = torch.Generator().manual_seed(13)
+    la_id = torch.randint(-1, 3 * C // 2, (N,), generator=g, dtype=torch.int32)
+    tbl_u32 = torch.randint(0, 1 << 30, (C, 10), generator=g, dtype=torch.int32)
+    tbl_u32[:, 8] = torch.randint(-1, C, (C,), generator=g, dtype=torch.int32)
+    rot = lambda: torch.linalg.qr(torch.randn(3, 3, generator=g))[0]
+    rargs = [torch.randn(N, 3, generator=g), torch.rand(N, generator=g) < 0.9, la_id,
+             torch.randn(C, 8, generator=g), tbl_u32, rot(), torch.randn(3, generator=g),
+             rot(), torch.randn(3, generator=g), rot(), torch.randn(3, generator=g)]
+    rargs = [a.to(dev).contiguous() for a in rargs]
+    err_r = _check_assoc_call("rebase", rargs)
+    found = int(tk.rebase_chain(*rargs)[1].sum())
+    print(f"kernel Q rebase_chain: {N} chained slots against {C} table ids (repeated, "
+          f"absent, -1), {found} kept valid, ints exact, poses {err_r:.3g} apart")
+    rows.append(dict(
+        name="rebase_chain", route="cuda", source=src,
+        replaces="stella_vslam_tpu/tracking_module.py:51", max_abs_err=err_r,
+        shape=f"N={N} C={C}", ms=_median_ms(lambda: tk.rebase_chain(*rargs)),
+        plain_ms=_median_ms(lambda: tk.rebase_chain_plain(*rargs)), library_ms=None,
+        # read: the chain (3 floats, flag, id per slot), ids and positions of
+        # the table, 5 small poses; write the chain and 2 poses
+        **_bound(N * 17 + C * 16 + 5 * 48 + N * 17 + 96, 12.0 * (N + C))))
+
+    # ---- R: the table's reprojection and gate, the points', undistortion ----
+    srcr = "stella_vslam_tpu_torch/csrc/reproject.cu"
+    p = cb.make_params(fx=world.fx, fy=world.fy, cx=world.W / 2.0, cy=world.H / 2.0,
+                       width=world.W, height=world.H, focal_x_baseline=world.fx * 0.12)
+    g = torch.Generator().manual_seed(14)
+    R = torch.linalg.qr(torch.eye(3) + 0.05 * torch.randn(3, 3, generator=g))[0]
+    R = (R * torch.sign(torch.det(R))).to(dev)
+    t = torch.tensor([0.1, -0.2, 0.3], device=dev)
+    # depths 1-6 m in front, a tenth of the points 1.5-6 m behind: the camera
+    # frame's depth stays clear of 0, where an ulp of z is pixels of u
+    z = torch.rand(C, 1, generator=g) * 5.0 + 1.0
+    z = torch.where(torch.rand(C, 1, generator=g) < 0.1, -(z + 0.5), z)
+    pos = torch.cat([torch.rand(C, 2, generator=g) * 8 - 4, z], 1)
+    normal = torch.nn.functional.normalize(torch.randn(C, 3, generator=g), dim=1)
+    d = torch.linalg.norm(pos, dim=1, keepdim=True)
+    f = torch.rand(C, 2, generator=g)
+    tbl = torch.cat([pos, normal, (0.9 + 0.6 * f[:, :1]) * d, (0.8 + 2.0 * f[:, 1:]) * d],
+                    1).to(dev).contiguous()
+    tu = torch.zeros(C, 10, dtype=torch.int32)
+    tu[:, 9] = (torch.rand(C, generator=g) < 0.9).to(torch.int32)
+    tu = tu.to(dev)
+    log_scale = float(np.log(np.float32(1.2)))
+    pts = tbl[:, 0:3].contiguous()
+    # relative to the pixel value, at least 100 px: near u = 0 the sum
+    # fx x / z + cx cancels, and one ulp of cx is already 3e-5 px
+    rel = lambda a, b: float(((a - b).abs() / b.abs().clamp(min=100.0)).max())
+    near = _gate_near(p, R, t, tbl, tu, log_scale)
+    err_uv, n_diff = 0.0, 0
+    for a, kw, mask in (((pts,), {}, near), ((tbl, tu), dict(log_scale=log_scale, num_levels=8),
+                                             near)):
+        k = cb.reproject_gate(p, R, t, *a, **kw)
+        q = cb.reproject_gate_plain(p, R, t, *a, **kw)
+        err_uv = max(err_uv, rel(k[0], q[0]), rel(k[3], q[3]))
+        diff = (k[2] != q[2]) | ((k[4] != q[4]) if k[4] is not None else False)
+        n_diff += int(diff.sum())
+        assert not bool((diff & ~mask).any()), "kernel R's gate disagrees away from a threshold"
+    torch.cuda.synchronize()
+    print(f"kernel R reproject_gate: {C} points and {C} table rows, uv and x_right within "
+          f"{err_uv:.3g} relative (of at least 100 px), {n_diff} flags apart, {int(near.sum())} rows within 1e-6 of "
+          f"a threshold")
+    assert err_uv < 1e-5, "kernel R's projection disagrees with its plain version"
+    rows.append(dict(
+        name="reproject_gate", route="cuda", source=srcr,
+        replaces="stella_vslam_tpu/camera/base.py:232", max_abs_err=err_uv,
+        shape=f"C={C} table rows with the local-map gate",
+        ms=_median_ms(lambda: cb.reproject_gate(p, R, t, tbl, tu, log_scale=log_scale,
+                                                num_levels=8)),
+        plain_ms=_median_ms(lambda: cb.reproject_gate_plain(p, R, t, tbl, tu, log_scale=log_scale,
+                                                            num_levels=8)),
+        library_ms=None,
+        # read a packed row (32 bytes) and its valid word, write uv, depth,
+        # flag, x_right and level; ~100 operations per row
+        **_bound(C * (32 + 4) + C * (8 + 4 + 1 + 4 + 4) + 48, 100.0 * C)))
+    pe = cb.make_params(fx=458.654, fy=457.296, cx=367.215, cy=248.375, k1=-0.28340811,
+                        k2=0.07395907, p1=0.00019359, p2=1.76187114e-05, width=752, height=480)
+    kp = (torch.rand(N, 2, generator=g) * torch.tensor([752.0, 480.0])).to(dev)
+    err_u = rel(cb.undistort_norm(pe, kp), cb.perspective_undistort(pe, kp))
+    print(f"kernel R undistort_norm: {N} keypoints (EuRoC's radtan), within {err_u:.3g} relative")
+    assert err_u < 1e-5, "kernel R's undistortion disagrees with its plain version"
+    rows.append(dict(
+        name="undistort_norm", route="cuda", source=srcr,
+        replaces="stella_vslam_tpu/camera/base.py:89", max_abs_err=err_u, shape=f"N={N}",
+        ms=_median_ms(lambda: cb.undistort_norm(pe, kp)),
+        plain_ms=_median_ms(lambda: cb.perspective_undistort(pe, kp)), library_ms=None,
+        # 10 iterations of ~25 operations per keypoint
+        **_bound(N * 8.0 + N * 8.0, 260.0 * N)))
+    return rows
+
+
+def check_repeatability(dev, loop_rec, cam):
+    """Kernels F-I and P twice on the same inputs: the same bits. F-I as
+    whole BAs at the init, local and global shapes and on the loop slice's
+    first global BA problem; P as 20-iteration pose graphs, synthetic and
+    the loop slice's first."""
+    import torch
+
+    from stella_vslam_tpu_torch.ops.optim import ba, sim3
+
+    cases = [("init K=2 L=4096 D=2", *_ba_problem(dev, 2, 4096, 2, False, 51), (5, 10)),
+             ("local K=16 L=4096 D=12",
+              *_ba_problem(dev, 16, 4096, 12, False, 52, spacing=0.1, ordered=True), (3, 6)),
+             ("global K=32 L=4096 D=16",
+              *_ba_problem(dev, 32, 4096, 16, False, 53, spacing=0.1, ordered=True), (16, 0)),
+             ("global K=64 L=4096 D=16",
+              *_ba_problem(dev, 64, 4096, 16, False, 54, spacing=0.1, ordered=True), (16, 0))]
+    for prob in loop_rec.get("global_ba", [])[:1]:
+        cases.append((f"loop slice global BA K={prob.cam_R.shape[0]} "
+                      f"L={prob.obs_cam.shape[0]} D={prob.obs_cam.shape[1]}", prob, cam,
+                      (16, 0)))
+    out = {}
+    for label, prob, c, (n1, n2) in cases:
+        a = ba.bundle_adjust(prob, c, num_first=n1, num_second=n2)
+        b = ba.bundle_adjust(prob, c, num_first=n1, num_second=n2)
+        torch.cuda.synchronize()
+        out[label] = _same(a, b)
+    graphs = [("synthetic K=30 E=128", _graph_problem(dev, 30, 32, 128, 61))]
+    graphs += [("loop slice pose graph", a) for a, _ in loop_rec.get("pose_graph", [])[:1]]
+    for label, args in graphs:
+        a = sim3.optimize_pose_graph(*args)
+        b = sim3.optimize_pose_graph(*args)
+        torch.cuda.synchronize()
+        out["P " + label] = _same(a, b)
+    print("kernels F-I and P twice on the same inputs, bit-identical: " + json.dumps(out))
+    assert all(out.values()), "a kernel F-I or P result changed between two launches"
+    return out
+
+
+def record_assoc_inputs(sample: int = 97):
+    """Keep, by reference, the arguments of every `sample`-th call of kernel
+    Q's scatter and dedup and of every chain rebase. The recorders replace
+    the module names the callers look up; each original counts its launches
+    by its own name, so its count lands on the recorder and `undo` moves it
+    back. Returns (calls, undo)."""
+    from stella_vslam_tpu_torch import tracking_module as tm
+    from stella_vslam_tpu_torch.module import tracking_kernels as tk
+
+    calls = {"scatter": [], "dedup": [], "rebase": []}
+    seen = {"scatter": 0, "dedup": 0}
+    orig = {"scatter": tk.scatter_to_current, "dedup": tk.dedup_by_id,
+            "rebase": tm.rebase_chain}
+
+    def recorder(kind):
+        def rec(*args):
+            n = seen.get(kind, 0)
+            if kind == "rebase" or n % sample == 0:
+                calls[kind].append(args)
+            seen[kind] = n + 1
+            return orig[kind](*args)
+        rec.launches = 0
+        return rec
+
+    recs = {k: recorder(k) for k in orig}
+    tk.scatter_to_current, tk.dedup_by_id = recs["scatter"], recs["dedup"]
+    tm.rebase_chain = recs["rebase"]
+
+    def undo():
+        tk.scatter_to_current, tk.dedup_by_id = orig["scatter"], orig["dedup"]
+        tm.rebase_chain = orig["rebase"]
+        orig["scatter"].launches += recs["scatter"].launches
+        orig["dedup"].launches += recs["dedup"].launches
+
+    return calls, undo
+
+
+class SyncProbe:
+    """The synchronising CUDA calls the tracker's dispatch makes on frames
+    [start, stop) of a run: torch's sync debug mode warns at each, and the
+    warnings raised on the feeding thread inside TrackingModule._dispatch or
+    _try_rebase_chain are counted by file:line."""
+
+    def __init__(self, tracker, start: int, stop: int):
+        import threading
+
+        self.start, self.stop = start, stop
+        self.local = threading.local()
+        self.dispatches = 0
+        self.sites = {}
+        self.active = False
+        self._cm = None
+        for name in ("_dispatch", "_try_rebase_chain"):
+            setattr(tracker, name, self._wrap(getattr(tracker, name), name == "_dispatch"))
+
+    def _wrap(self, fn, counts):
+        def probed(*args, **kw):
+            if not self.active:
+                return fn(*args, **kw)
+            self.local.inside = True
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.local.inside = False
+                self.dispatches += counts
+        return probed
+
+    def _show(self, message, category, filename, lineno, file=None, line=None):
+        if getattr(self.local, "inside", False) and "synchroniz" in str(message):
+            site = f"{os.path.relpath(filename, os.path.dirname(os.path.abspath(__file__)))}:{lineno}"
+            self.sites[site] = self.sites.get(site, 0) + 1
+
+    def on_frame(self, i: int):
+        import warnings
+
+        import torch
+
+        if i == self.start:
+            self._cm = warnings.catch_warnings()
+            self._cm.__enter__()
+            warnings.simplefilter("always")
+            warnings.showwarning = self._show
+            torch.cuda.set_sync_debug_mode("warn")
+            self.active = True
+        elif i == self.stop:
+            self.close()
+
+    def close(self):
+        import torch
+
+        if self._cm is not None:
+            self.active = False
+            torch.cuda.set_sync_debug_mode("default")
+            self._cm.__exit__(None, None, None)
+            self._cm = None
+
+    def result(self) -> dict:
+        total = sum(self.sites.values())
+        return dict(frames=[self.start, self.stop], dispatches=self.dispatches,
+                    syncs=total, per_dispatch=total / max(1, self.dispatches), sites=self.sites)
+
+
+class _HeldEvent:
+    """A frame's CUDA event whose `synchronize` also waits for `gate` (at
+    most `hold_s`): the finalize thread sees the frame as still in flight."""
+
+    def __init__(self, event, gate, hold_s: float):
+        self.event, self.gate, self.hold_s = event, gate, hold_s
+
+    def synchronize(self):
+        self.gate.wait(self.hold_s)
+        self.event.synchronize()
+
+
+class InFlightPublish:
+    """Frame `at` of a run stays in flight until the next feed has passed
+    its table check (at most `hold_s`), as on a device that runs behind the
+    host, and a table is published (the mapper's call) before that feed:
+    its dispatch must rebase the chain on the device. On the H100 the
+    finalize thread otherwise keeps up with the feed, so a publish of the
+    slice rarely lands with a frame in flight."""
+
+    def __init__(self, slam, at: int, hold_s: float = 1.0):
+        import threading
+
+        self.slam, self.at, self.hold_s = slam, at, hold_s
+        self.in_flight_at_publish = None
+        self._frame = -1
+        self._gate = threading.Event()
+        tr = slam.tracker
+        dispatch, try_rebase = tr._dispatch, tr._try_rebase_chain
+
+        def held(frm, snap=None):
+            p = dispatch(frm, snap)
+            if p is not None and p.event is not None and self._frame == self.at:
+                p.event = _HeldEvent(p.event, self._gate, hold_s)
+            return p
+
+        def rebase(snap):
+            try:
+                return try_rebase(snap)
+            finally:
+                if self._frame == self.at + 1:
+                    self._gate.set()
+
+        tr._dispatch, tr._try_rebase_chain = held, rebase
+
+    def on_frame(self, i: int):
+        self._frame = i
+        if i == self.at + 1:
+            tr = self.slam.tracker
+            self.in_flight_at_publish = len(tr._pending)
+            self.slam.map_db.refresh_device_table(
+                center_kf_id=tr.ref_keyfrm_id, max_local_keyframes=tr.max_num_local_keyfrms)
+        elif i == self.at + 2:
+            self._gate.set()
+
+
+def run_threaded_slice(dev, world, wrappers, card):
+    """The threaded slice (util/threaded_slice.py: the default System,
+    pipelined, mapping and loop-closing threads, the bench's circuit fed as
+    fast as the feed returns), every launch count at 0 just before it and
+    read just after; kernel Q's inputs recorded and the dispatch's
+    synchronising calls counted on frames 300-340; at frame 700 one frame is
+    held in flight across a publish (InFlightPublish). Returns (statistics,
+    launches, System, recorded Q inputs)."""
+    from stella_vslam_tpu_torch.util import threaded_slice
+
+    slam = threaded_slice.make_system(world, dev)
+    calls, undo = record_assoc_inputs()
+    probe = SyncProbe(slam.tracker, 300, 340)
+    held = InFlightPublish(slam, 700)
+
+    def on_frame(i):
+        probe.on_frame(i)
+        held.on_frame(i)
+
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        stats = threaded_slice.run_slice(dev, world, slam=slam, on_frame=on_frame)
+    finally:
+        probe.close()
+        undo()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    stats["launches"] = launches
+    stats["sync_per_dispatch"] = probe.result()
+    stats["forced_in_flight_publish"] = dict(frame=held.at,
+                                             frames_in_flight=held.in_flight_at_publish)
+    with open(os.path.join(OUT_DIR, "threaded_slice.json"), "w") as f:
+        json.dump(dict(stats, card=card), f, indent=1)
+    brief = {k: v for k, v in stats.items() if k not in ("loop_event_ms", "launches")}
+    print("threaded slice: " + json.dumps(dict(brief, card=card)))
+    print("threaded slice launches: " + json.dumps(launches))
+    print("threaded slice loop events (ms, by phase, on the loop-closing threads): "
+          + json.dumps(stats["loop_event_ms"]))
+    sp = stats["sync_per_dispatch"]
+    print(f"threaded slice dispatch: {sp['syncs']} synchronising calls in {sp['dispatches']} "
+          f"steady dispatches (frames {sp['frames'][0]}-{sp['frames'][1]}), "
+          f"{sp['per_dispatch']:.3f} per dispatch, sites {json.dumps(sp['sites'])}")
+    print(f"threaded slice: keyframes created {stats['keyframes_created']} (limit 25; bench.py "
+          f"asks 50 of the TPU threaded run), kept {stats['keyframes_kept']} (limit 10; bench.py "
+          f"20); local-BA skips {stats['local_ba_skips']} of {stats['ba_opportunities']}; "
+          f"rebases {stats['rebases']} (of {stats['publishes']} publishes; one forced at frame "
+          f"{held.at} with {held.in_flight_at_publish} frame(s) in flight), drain fallbacks "
+          f"{stats['drain_fallbacks']}; worker errors "
+          f"{stats['worker_errors']}")
+    for e in slam.worker_error_log:
+        print("worker error:\n" + e)
+    assert stats["worker_errors"] == 0, "a worker thread contained an exception"
+    assert stats["lost_after_init"] <= 8, f"{stats['lost_after_init']} frames lost"
+    assert stats["loops_closed"] >= 1, "no loop was closed"
+    assert stats["ate_m"] < 0.10, f"Sim3 ATE over the circuit {stats['ate_m']:.4f} m"
+    assert stats["ba_opportunities"] > 0 and \
+        stats["local_ba_skips"] <= 0.2 * stats["ba_opportunities"], "sustained local-BA skips"
+    assert stats["keyframes_created"] >= 25, f"{stats['keyframes_created']} keyframes created"
+    assert stats["keyframes_kept"] >= 10, f"{stats['keyframes_kept']} keyframes kept"
+    st = stats["stranded"]
+    assert not st["staged_event"] and st["queued"] == 0 and not st["pending_ba"] \
+        and st["loop_queue"] == 0, f"work left at shutdown: {st}"
+    for name, n in launches.items():
+        assert n > 0, f"{name} was not launched by the threaded slice"
+    return stats, launches, slam, calls
+
+
+def check_recorded_assoc(calls):
+    """Kernel Q against its plain version on the threaded slice's own
+    inputs: the sampled scatters and dedups and every rebase."""
+    err = 0.0
+    for kind in ("scatter", "dedup", "rebase"):
+        for args in calls[kind]:
+            err = max(err, _check_assoc_call(kind, args))
+    n = {k: len(v) for k, v in calls.items()}
+    print(f"kernel Q on the threaded slice's inputs: {json.dumps(n)} calls (every rebase that "
+          f"ran), ints exact, poses within {err:.3g}")
+    return err
+
+
+
 def run_slices(dev, world, wrappers, card):
     """The RGBD slice and the mono slice, each with every launch count at 0
     just before it and read just after it."""
@@ -1495,7 +2028,8 @@ def run_slices(dev, world, wrappers, card):
     assert stats["lost_after_init"] <= 2, f"{stats['lost_after_init']} frames lost"
     assert stats["ate_m"] < 0.10, f"rigid ATE {stats['ate_m']:.4f} m"
     assert stats["scale_err"] < 0.05, f"scale error {stats['scale_err']:.2%}"
-    for name in ("fast_nms", "orb_describe", "hamming_top2", "pose_lm"):
+    for name in ("fast_nms", "orb_describe", "hamming_top2", "pose_lm", "scatter_to_current",
+                 "dedup_by_id", "reproject_gate", "undistort_norm"):
         assert launches["rgbd"][name] > 0, f"{name} was not launched by the RGBD slice"
 
     for w in wrappers.values():
@@ -1508,7 +2042,7 @@ def run_slices(dev, world, wrappers, card):
     assert mono["lost_after_init"] <= 2, f"{mono['lost_after_init']} frames lost"
     assert mono["ate_m"] < 0.10, f"Sim3 ATE {mono['ate_m']:.4f} m"
     for name, n in launches["mono"].items():
-        assert n > 0 or name in MAPPING_KERNELS + LOOP_KERNELS, \
+        assert n > 0 or name in MAPPING_KERNELS + LOOP_KERNELS + THREADED_KERNELS, \
             f"{name} was not launched by the mono slice"
     return stats, mono, launches
 
@@ -1532,7 +2066,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    t0 = time.monotonic()
+    t_run = t0 = time.monotonic()
     kbuild.load()
     print(f"build: {time.monotonic() - t0:.2f} s (nvcc {kbuild.build_seconds:.2f} s, "
           f"one process per source) [{card}]")
@@ -1545,6 +2079,7 @@ def main() -> int:
 
     world = bench_world()
     rows = check_kernels(dev, world) + check_init_kernels(dev, world)
+    rows += check_track_kernels(dev, world)
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library "
@@ -1554,8 +2089,16 @@ def main() -> int:
     wrappers = map_slice.kernel_wrappers()
     rgbd, mono, launches = run_slices(dev, world, wrappers, card)
     loop, launches["loop"], slam, inputs, loop_rec = run_loop_slice(dev, world, wrappers, card)
+    twice, _ = rerun_loop_slice(dev, world, slam, card)
+    twice["ate_m"][0], twice["loops"][0] = loop["ate_m"], loop["loops_closed"]
+    print("loop slice twice in one process: " + json.dumps(twice))
+    assert twice["ate_m"][1] < 0.10, f"second loop slice: Sim3 ATE {twice['ate_m'][1]:.4f} m"
     map_rows = check_mapping_kernels(dev, slam.mapper, inputs)
     map_rows += check_loop_kernels(dev, slam, loop_rec)
+    repeat = check_repeatability(dev, loop_rec, slam.mapper.cam_scalars)
+    threaded, launches["threaded"], tslam, assoc_rec = run_threaded_slice(
+        dev, world, wrappers, card)
+    check_recorded_assoc(assoc_rec)
     for r in map_rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library "
@@ -1566,7 +2109,9 @@ def main() -> int:
         name = row.pop("counter", row["name"])
         for suffix in ("_local", "_global32", "_global64"):
             name = name.removesuffix(suffix)
-        row["launches"] = launches["loop"][name]
+        # `launches`: the threaded slice's, this slice's main path
+        row["launches"] = launches["threaded"][name]
+        row["launches_loop_slice"] = launches["loop"][name]
         row["launches_mono_slice"] = launches["mono"][name]
         row["launches_rgbd_slice"] = launches["rgbd"][name]
     with open(os.path.join(OUT_DIR, "kernels.json"), "w") as f:
@@ -1578,7 +2123,16 @@ def main() -> int:
         **{"loop_" + k: loop[k] for k in (
             "ate_m", "tracked", "lost_after_init", "loops_closed", "loop_frames",
             "keyframes_created", "keyframes_kept", "loop_event_ms", "solver_shapes",
-            "frame_ms")})))
+            "frame_ms")},
+        loop_twice_bit_identical=twice["poses_bit_identical"], loop_twice_ate_m=twice["ate_m"],
+        f_p_repeat_bit_identical=all(repeat.values()),
+        **{"threaded_" + k: threaded[k] for k in (
+            "ate_m", "tracked", "lost_after_init", "loops_closed", "keyframes_created",
+            "keyframes_kept", "local_bas", "local_ba_skips", "frame_ms", "keyframe_event_ms",
+            "loop_event_phase_ms", "rebases", "drain_fallbacks", "feed_wait_s",
+            "worker_errors", "fps")},
+        threaded_sync_per_dispatch=threaded["sync_per_dispatch"]["per_dispatch"])))
+    print(f"chip_smoke: {time.monotonic() - t_run:.1f} s from the build on [{card}]")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,13 @@ radial-tangential) model and the MONOCULAR / STEREO / RGBD setups are ported;
 fisheye, equirectangular and radial-division raise NotImplementedError until
 ROADMAP Queue 1 item 14. Undistortion is the same fixed-iteration inversion
 as the JAX version, written as elementwise ops in the same order.
+
+Kernel R (csrc/reproject.cu) computes the per-point functions of the hot
+path on CUDA tensors: `undistort_norm` (every keypoint of every frame) and
+`reproject_gate` (the tracking cascade's projections of the chained
+landmarks and, with the local-map gate and predicted scale, of the
+landmark table). On CPU tensors each runs its plain version, the torch
+expressions below.
 """
 from __future__ import annotations
 
@@ -13,6 +20,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from stella_vslam_tpu_torch.kernels import build as kbuild
 
 
 class CameraModel(enum.IntEnum):
@@ -88,10 +97,32 @@ def perspective_undistort(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
     return torch.stack([x * p.fx + p.cx, y * p.fy + p.cy], dim=-1)
 
 
+def undistort_norm(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
+    """Kernel R's undistortion on CUDA tensors (normalize, the 10
+    iterations of _perspective_undistort_norm, back to pixels), the plain
+    version `perspective_undistort` on CPU tensors."""
+    if not pts.is_cuda:
+        return perspective_undistort(p, pts)
+    N = pts.shape[0]
+    if tuple(pts.shape) != (N, 2) or pts.dtype != torch.float32:
+        raise ValueError("undistort_norm: expected float32 [N,2] pixel keypoints")
+    pts = pts.contiguous()
+    out = torch.empty_like(pts)
+    lib = kbuild.load()
+    kbuild.check(lib.svt_undistort(N, p.fx, p.fy, p.cx, p.cy, p.k1, p.k2, p.p1, p.p2, p.k3,
+                                   pts.data_ptr(), out.data_ptr(),
+                                   kbuild.stream_ptr(pts.device)), "undistort_norm")
+    undistort_norm.launches += 1
+    return out
+
+
+undistort_norm.launches = 0
+
+
 def undistort_keypoints(model: CameraModel, p: CameraParams,
                         pts: torch.Tensor) -> torch.Tensor:
     if model == CameraModel.PERSPECTIVE:
-        return perspective_undistort(p, pts)
+        return undistort_norm(p, pts)
     raise NotImplementedError(_NOT_PORTED.format(CameraModel(model).name))
 
 
@@ -118,6 +149,74 @@ def reproject_to_image(model: CameraModel, p: CameraParams, R_cw: torch.Tensor,
     v = p.fy * pc[..., 1] / zs + p.cy
     visible = (z > 0.0) & (u >= 0.0) & (u < p.width) & (v >= 0.0) & (v < p.height)
     return torch.stack([u, v], dim=-1), z, visible
+
+
+def reproject_gate_plain(p: CameraParams, R_cw, t_cw, pos, tbl_u32=None, *,
+                         log_scale: float = 0.0, num_levels: int = 1):
+    """Plain version of kernel R's projection. pos [M,3] world points, or
+    with `tbl_u32` the packed landmark table (pos = tbl_f32 [C,8]: position,
+    normal, min and max distance; tbl_u32 [C,10] with the valid flag in
+    column 9). Returns (uv [M,2], depth [M], flag [M] bool, x_right [M],
+    predicted scale [M] i32 or None): flag is the in-image test for points,
+    the local-map gate for the table (valid, in image, distance in
+    [0.8 min, 1.3 max], cos(ray, normal) > 0.5, depth > 0)."""
+    pts = pos[:, 0:3] if tbl_u32 is not None else pos
+    uv, depth, vis = reproject_to_image(CameraModel.PERSPECTIVE, p, R_cw, t_cw, pts)
+    xr = torch.where(depth > 1e-6, uv[:, 0] - p.focal_x_baseline / torch.clamp(depth, min=1e-6),
+                     torch.full_like(depth, -1.0))
+    if tbl_u32 is None:
+        return uv, depth, vis, xr, None
+    normal, dmin, dmax = pos[:, 3:6], pos[:, 6], pos[:, 7]
+    cam_center = -R_cw.T @ t_cw
+    ray = pts - cam_center
+    dist = torch.linalg.norm(ray, dim=-1)
+    dist_ok = (dist >= 0.8 * dmin) & (dist <= 1.3 * dmax)
+    cosang = torch.sum(ray * normal, dim=-1) / torch.clamp(dist, min=1e-9)
+    observable = (tbl_u32[:, 9] > 0) & vis & dist_ok & (cosang > 0.5) & (depth > 0)
+    ratio = torch.clamp(dmax, min=1e-9) / torch.clamp(dist, min=1e-9)
+    pred_scale = torch.clamp(
+        torch.ceil(torch.log(torch.clamp(ratio, min=1e-9)) / log_scale),
+        0, num_levels - 1).to(torch.int32)
+    return uv, depth, observable, xr, pred_scale
+
+
+def reproject_gate(p: CameraParams, R_cw, t_cw, pos, tbl_u32=None, *,
+                   log_scale: float = 0.0, num_levels: int = 1):
+    """Kernel R's projection on CUDA tensors, the plain version on CPU
+    tensors (same arguments and results as reproject_gate_plain)."""
+    if not pos.is_cuda:
+        return reproject_gate_plain(p, R_cw, t_cw, pos, tbl_u32, log_scale=log_scale,
+                                    num_levels=num_levels)
+    M = pos.shape[0]
+    table = tbl_u32 is not None
+    width = 8 if table else 3
+    dev = pos.device
+    if tuple(pos.shape) != (M, width) or pos.dtype != torch.float32 \
+            or not pos.is_contiguous():
+        raise ValueError(f"reproject_gate: pos must be a contiguous float32 [M,{width}]")
+    if table and (tuple(tbl_u32.shape) != (M, 10) or tbl_u32.dtype != torch.int32
+                  or not tbl_u32.is_contiguous() or tbl_u32.device != dev):
+        raise ValueError("reproject_gate: tbl_u32 must be a contiguous int32 [M,10]")
+    Rt = torch.cat([R_cw.reshape(9), t_cw.reshape(3)]).to(torch.float32)
+    if Rt.device != dev:
+        raise ValueError("reproject_gate: the pose must be on the points' device")
+    uv = torch.empty((M, 2), dtype=torch.float32, device=dev)
+    depth = torch.empty(M, dtype=torch.float32, device=dev)
+    flag = torch.empty(M, dtype=torch.bool, device=dev)
+    xr = torch.empty(M, dtype=torch.float32, device=dev)
+    scale = torch.empty(M, dtype=torch.int32, device=dev) if table else None
+    lib = kbuild.load()
+    kbuild.check(lib.svt_reproject(
+        M, int(table), p.fx, p.fy, p.cx, p.cy, p.width, p.height, p.focal_x_baseline,
+        Rt.data_ptr(), pos.data_ptr(), tbl_u32.data_ptr() if table else 0,
+        float(log_scale), int(num_levels), uv.data_ptr(), depth.data_ptr(), flag.data_ptr(),
+        xr.data_ptr(), scale.data_ptr() if table else 0, kbuild.stream_ptr(dev)),
+        "reproject_gate")
+    reproject_gate.launches += 1
+    return uv, depth, flag, xr, scale
+
+
+reproject_gate.launches = 0
 
 
 class Camera:

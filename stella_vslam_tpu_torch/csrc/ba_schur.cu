@@ -1,5 +1,5 @@
 // Kernels F, G, H, I: one Levenberg-Marquardt iteration of Schur-complement
-// bundle adjustment in three launches, with the accept / reject decision and
+// bundle adjustment in four launches, with the accept / reject decision and
 // the damping update kept on the device; kernel I: the chi-square
 // classification between the two stages and after the last.
 //
@@ -11,19 +11,21 @@
 // program over [L,D] arrays whose camera-side sums are one-hot [N,K] matmuls
 // and whose Schur product is one [6K,3L] @ [3L,6K] matmul.
 //
-//  F ba_linearize_kernel (grid over landmarks, one thread per landmark):
-//    residual rows and Jacobians of the landmark's D observations at the
-//    current state, Huber or plain weights, the cost, Hcc / b_c per camera,
-//    Hpp / b_p and W = Jc^T w Jp per observation, the damped inverse
+//  F ba_linearize_kernel + ba_reduce_kernel: a fixed set of blocks walks the
+//    landmarks (one thread per landmark, each block its own chunks in
+//    order): residual rows and Jacobians of the landmark's D observations at
+//    the current state, Huber or plain weights, the cost, Hcc / b_c per
+//    camera, Hpp / b_p and W = Jc^T w Jp per observation, the damped inverse
 //    G = (Hpp + damp)^-1 (_sym3_inv), and the Schur terms
-//    S_red[k_d, k_e] += W_d G W_e^T, rhs_red[k_d] += W_d G b_p. Sums go into
-//    a block-local copy of the camera-side system in shared memory, then into
-//    device memory with one atomic per nonzero entry per block; where that
-//    copy does not fit a block's shared memory (K > 39, the global BA's
-//    buckets), the Schur terms are added straight into device memory and only
-//    Hcc, b_c, the right-hand side and the cost keep a block-local copy. Within a
-//    warp whose landmarks all observe the same camera pair (every landmark of
-//    the two-keyframe init BA does), the terms are first summed by shuffles.
+//    S_red[k_d, k_e] += W_d G W_e^T, rhs_red[k_d] += W_d G b_p. Each block
+//    sums into its own copy of the camera-side system (shared memory; the
+//    6K x 6K part in its slice of a device-memory scratch where that does not
+//    fit, K > 38, the global BA's buckets) in an order fixed by the thread
+//    layout: lanes of a warp that share a camera key are summed first (a
+//    shuffle tree when the warp holds one key, else the lowest such lane adds
+//    its peers in lane order), then the warps add their sums one after
+//    another. The reduce kernel adds the blocks' copies in block order. No
+//    float atomics: the same inputs give the same bits on every launch.
 //  G ba_solve_kernel (one block): damps Hcc, masks fixed and invalid
 //    cameras, solves the 6K x 6K reduced system by Cholesky, forms the trial
 //    camera poses Exp(dx) * T, and clears the accumulators for the next F.
@@ -32,8 +34,10 @@
 //    Cholesky with 1024 threads (the 590 KB of a K = 64 system stay in L2) and
 //    the two triangular solves run column by column across the block.
 //  H ba_backsub_kernel (grid over landmarks): back-substitutes each point
-//    update, evaluates the trial cost, and the last block to finish (a
-//    fence-and-counter handshake) compares it with F's cost: it accepts or
+//    update, evaluates the trial cost (each block writes its sum to a
+//    scratch slot), and the last block to finish (a fence-and-counter
+//    handshake) adds the slots in block order and compares the trial cost
+//    with F's: it accepts or
 //    rejects the trial state, halves or quadruples lambda, sets the
 //    gain < 1e-3 stop flag, and every later F, G and H launch of the stage
 //    returns at once when the flag is set. The LM loop needs no host read.
@@ -42,17 +46,18 @@
 //    outlier flags. Bound by its bytes (~25 per observation).
 // Bound: at init size (K = 2, L = 4096, D = 2) an iteration moves ~0.7 MB
 // (the problem, the per-observation W blocks and the trial state) and does
-// ~5 MFLOP, so it is bound by latency: three dependent launches and G's
-// serial column loop. The design keeps every per-observation intermediate
+// ~5 MFLOP, so it is bound by latency: four dependent launches (F's two, G,
+// H) and G's serial column loop. The design keeps every per-observation intermediate
 // in registers, writes only W (6x3 per observation) for H, and reduces the
 // camera-side sums on chip before touching device memory.
 //
-// Atomics sum in an order that changes from run to run, so the result is
-// deterministic only to float32 rounding: the chip check holds a whole BA
-// to the plain version on synthetic problems (poses within 1e-4, points
-// seen twice within 1e-3), and each kernel to its plain version on the same
-// inputs on the map slice's local problems, whose reduced systems are too
-// ill-conditioned for a whole-BA bound at float32 rounding.
+// Every sum runs in an order fixed by the launch shape (F's blocks and
+// warps, H's blocks), so a launch is bit-for-bit repeatable. The chip check
+// holds a whole BA to the plain version on synthetic problems (poses within
+// 1e-4, points seen twice within 1e-3), each kernel to its plain version on
+// the same inputs on the map slice's local problems, whose reduced systems
+// are too ill-conditioned for a whole-BA bound at float32 rounding, and F
+// and H against themselves (two launches, equal bits).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -181,188 +186,260 @@ __device__ __forceinline__ float sym_get(const float* G, int i, int j) {
   return G[a == 0 ? b : (a == 1 ? 2 + b : 5)];
 }
 
-// Adds N values at shared[base + i] for this lane's key (-1: nothing). When
-// every contributing lane of the warp shares one key, the values are summed
-// by shuffles first and lane 0 adds them once, at the base of a lane that
-// holds the key (lane 0's own may belong to no key: a padded observation).
-template <int NV>
-__device__ __forceinline__ void warp_accumulate(float* shared, int key, int base,
-                                                const float (&v)[NV]) {
-  const int lane = threadIdx.x & 31;
-  const int lead = __reduce_max_sync(0xffffffffu, key);
-  if (lead < 0) return;
-  const bool uniform = __all_sync(0xffffffffu, key < 0 || key == lead);
-  if (uniform) {
-    const int src = __ffs(__ballot_sync(0xffffffffu, key == lead)) - 1;
-    const int lead_base = __shfl_sync(0xffffffffu, base, src);
+// Adds this lane's ROWS x COLS values, value (r, c) at acc[base + r * rs + c],
+// for camera key `key` (-1: nothing) into the block's accumulator, in an
+// order fixed by the thread layout. Lanes of a warp that share a key are
+// summed first: by a shuffle tree when every contributing lane of the warp
+// holds one key (every landmark of the two-keyframe init BA does), else by
+// the key's lowest lane, which adds its peers' values from `stage` in lane
+// order. Then the warps add their sums to `acc` one after another. Distinct
+// keys own distinct entries, so the lanes of one warp never write the same
+// entry. Every thread of the block calls it with the same arguments' shapes
+// (it holds barriers); `stage` holds 32 x ROWS x COLS floats per warp.
+constexpr unsigned kFull = 0xffffffffu;
+
+template <int ROWS, int COLS>
+__device__ __forceinline__ void block_accumulate(float* acc, int rs, int key, int base,
+                                                 const float (&v)[ROWS * COLS], float* stage) {
+  constexpr int NV = ROWS * COLS;
+  if (!__syncthreads_or(key >= 0)) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int lead = __reduce_max_sync(kFull, key);
+  float s[NV];
+  bool adds = false;
+  int at = base;
+  if (lead >= 0) {
+    if (__all_sync(kFull, key < 0 || key == lead)) {
+      const int src = __ffs(__ballot_sync(kFull, key == lead)) - 1;
+      at = __shfl_sync(kFull, base, src);
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      float s = key < 0 ? 0.f : v[i];
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
-      if (lane == 0 && s != 0.f) atomicAdd(&shared[lead_base + i], s);
+      for (int i = 0; i < NV; ++i) {
+        float x = key < 0 ? 0.f : v[i];
+        for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(kFull, x, o);
+        s[i] = x;
+      }
+      adds = lane == 0;
+    } else {
+      float* st = stage + warp * 32 * NV;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) st[lane * NV + i] = v[i];
+      __syncwarp();
+      const unsigned peers = __match_any_sync(kFull, key);
+      if (key >= 0 && lane == __ffs(peers) - 1) {
+        for (int i = 0; i < NV; ++i) {
+          float x = 0.f;
+          for (unsigned m = peers; m; m &= m - 1) x += st[(__ffs(m) - 1) * NV + i];
+          s[i] = x;
+        }
+        adds = true;
+      }
     }
-  } else if (key >= 0) {
+  }
+  for (int w = 0; w < nw; ++w) {
+    if (warp == w && adds) {
 #pragma unroll
-    for (int i = 0; i < NV; ++i)
-      if (v[i] != 0.f) atomicAdd(&shared[base + i], v[i]);
+      for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+        for (int c = 0; c < COLS; ++c)
+          if (s[r * COLS + c] != 0.f) acc[at + r * rs + c] += s[r * COLS + c];
+    }
+    __syncthreads();
   }
 }
 
+// the sum of one value per thread of the block, in a fixed order
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += red[w];
+  __syncthreads();
+  return s;
+}
+
+// per-block partial of F, in floats: Hcc / b_c [27K], rhs [6K], cost [1],
+// S [6K, 6K]
+__host__ __device__ __forceinline__ size_t f_partial_size(int K) {
+  return 33 * (size_t)K + 1 + 36 * (size_t)K * K;
+}
+
+// F, first launch. gridDim.x blocks; block b takes the landmark chunks b,
+// b + gridDim.x, ... of kThreadsLm landmarks and writes its partial to
+// part + b * f_partial_size(K). s_direct: the block's S lives in its slice of
+// `part` (device memory) instead of shared memory.
 __global__ void __launch_bounds__(kThreadsLm)
 ba_linearize_kernel(Problem P, Cam cam, const float* __restrict__ cam_R,
                     const float* __restrict__ cam_t, const float* __restrict__ lm,
-                    int use_huber, float* __restrict__ ctrl, float* __restrict__ Wg,
-                    float* __restrict__ lmblk, float* __restrict__ hc_g,
-                    float* __restrict__ S_g, float* __restrict__ rhs_g, int s_direct) {
+                    int use_huber, const float* __restrict__ ctrl, float* __restrict__ Wg,
+                    float* __restrict__ lmblk, float* part, int s_direct) {
   if (ctrl[kDone] != 0.f) return;
   extern __shared__ float sm[];
   const int K = P.K, n6 = 6 * P.K;
+  const size_t psize = f_partial_size(K);
+  float* mine_part = part + blockIdx.x * psize;
   float* hc_s = sm;               // [K,27]: 21 upper Hcc + 6 b_c
   float* rhs_s = hc_s + 27 * K;   // [6K]
-  float* cost_s = rhs_s + n6;     // [1]
-  // [6K,6K]: the block's copy, or the device-memory system itself
-  float* S_s = s_direct ? S_g : cost_s + 1;
-  const int total = 27 * K + n6 + 1 + (s_direct ? 0 : n6 * n6);
+  float* red = rhs_s + n6;        // [kThreadsLm / 32]
+  float* stage = red + kThreadsLm / 32;  // [kThreadsLm, 36]
+  // [6K,6K]: the block's copy in shared memory, or its slice of `part`
+  float* S_s = s_direct ? mine_part + 33 * K + 1 : stage + kThreadsLm * 36;
+  const int total = 33 * K;
   for (int i = threadIdx.x; i < total; i += blockDim.x) sm[i] = 0.f;
+  for (int i = threadIdx.x; i < n6 * n6; i += blockDim.x) S_s[i] = 0.f;
   __syncthreads();
   const float lam = ctrl[kLam];
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool mine = l < P.L;
-  float p[3] = {0.f, 0.f, 0.f};
-  if (mine)
-    for (int j = 0; j < 3; ++j) p[j] = lm[3 * l + j];
-  float Hpp[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, bp[3] = {0.f, 0.f, 0.f};
-  float cost = 0.f, wsum = 0.f;
-  // pass 1: per-observation terms; camera-side sums; W kept for H
-  for (int d = 0; d < P.D; ++d) {
-    ObsTerms o;
-    int k = 0;
-    if (mine) {
-      k = P.obs_cam[l * P.D + d];
-      obs_terms(P, cam, cam_R + 9 * k, cam_t + 3 * k, p, l, d, use_huber != 0, o);
-    } else {
-      o.active = false;
-      o.sq_w = 0.f;
-      o.w_base = 0.f;
-    }
-    cost += o.sq_w;
-    wsum += o.w_base;
-    float hc[27];
-    float W[18];
-    if (o.active) {
-      int q = 0;
-      for (int i = 0; i < 6; ++i)
-        for (int j = i; j < 6; ++j) {
-          float s = 0.f;
-          for (int r = 0; r < 3; ++r) s += o.wr[r] * o.Jc[r][i] * o.Jc[r][j];
-          hc[q++] = s;
-        }
-      for (int i = 0; i < 6; ++i) {
-        float s = 0.f;
-        for (int r = 0; r < 3; ++r) s += o.wr[r] * o.Jc[r][i] * o.r[r];
-        hc[21 + i] = s;
-      }
-      q = 0;
-      for (int i = 0; i < 3; ++i)
-        for (int j = i; j < 3; ++j) {
-          float s = 0.f;
-          for (int r = 0; r < 3; ++r) s += o.wr[r] * o.Jp[r][i] * o.Jp[r][j];
-          Hpp[q++] += s;
-        }
-      for (int i = 0; i < 3; ++i) {
-        float s = 0.f;
-        for (int r = 0; r < 3; ++r) s += o.wr[r] * o.Jp[r][i] * o.r[r];
-        bp[i] += s;
-      }
-      for (int i = 0; i < 6; ++i)
-        for (int a = 0; a < 3; ++a) {
-          float s = 0.f;
-          for (int r = 0; r < 3; ++r) s += o.wr[r] * o.Jc[r][i] * o.Jp[r][a];
-          W[i * 3 + a] = s;
-        }
-    } else {
-      for (int i = 0; i < 27; ++i) hc[i] = 0.f;
-      for (int i = 0; i < 18; ++i) W[i] = 0.f;
-    }
+  float cost_blk = 0.f;
+  const int chunks = (P.L + kThreadsLm - 1) / kThreadsLm;
+  for (int chunk = blockIdx.x; chunk < chunks; chunk += gridDim.x) {
+    const int l = chunk * kThreadsLm + threadIdx.x;
+    const bool mine = l < P.L;
+    float p[3] = {0.f, 0.f, 0.f};
     if (mine)
-      for (int i = 0; i < 18; ++i) Wg[(l * P.D + d) * 18 + i] = W[i];
-    warp_accumulate<27>(hc_s, o.active ? k : -1, 27 * k, hc);
-  }
-  if (mine) {
-    float* blk = lmblk + 10 * l;
-    for (int i = 0; i < 6; ++i) blk[i] = Hpp[i];
-    for (int i = 0; i < 3; ++i) blk[6 + i] = bp[i];
-    blk[9] = wsum > 0.f ? 1.f : 0.f;
-  }
-  {
-    const float c1[1] = {cost};
-    warp_accumulate<1>(cost_s, 0, 0, c1);
-  }
-  // pass 2: Schur terms with G = damped Hpp^-1 (0 for fixed points)
-  float G[6];
-  sym3_inv(Hpp, lam, G);
-  const bool keep = mine && !(P.lm_fixed && P.lm_fixed[l]);
-  if (!keep)
-    for (int i = 0; i < 6; ++i) G[i] = 0.f;
-  for (int d = 0; d < P.D; ++d) {
-    float A[18];  // W_d G
-    int kd = -1;
-    if (keep) {
-      const float* Wd = Wg + (l * P.D + d) * 18;
-      bool nz = false;
-      for (int i = 0; i < 6; ++i)
-        for (int a = 0; a < 3; ++a) {
+      for (int j = 0; j < 3; ++j) p[j] = lm[3 * l + j];
+    float Hpp[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, bp[3] = {0.f, 0.f, 0.f};
+    float cost = 0.f, wsum = 0.f;
+    // pass 1: per-observation terms; camera-side sums; W kept for H
+    for (int d = 0; d < P.D; ++d) {
+      ObsTerms o;
+      int k = 0;
+      if (mine) {
+        k = P.obs_cam[l * P.D + d];
+        obs_terms(P, cam, cam_R + 9 * k, cam_t + 3 * k, p, l, d, use_huber != 0, o);
+      } else {
+        o.active = false;
+        o.sq_w = 0.f;
+        o.w_base = 0.f;
+      }
+      cost += o.sq_w;
+      wsum += o.w_base;
+      float hc[27];
+      float W[18];
+      if (o.active) {
+        int q = 0;
+        for (int i = 0; i < 6; ++i)
+          for (int j = i; j < 6; ++j) {
+            float s = 0.f;
+            for (int r = 0; r < 3; ++r) s += o.wr[r] * o.Jc[r][i] * o.Jc[r][j];
+            hc[q++] = s;
+          }
+        for (int i = 0; i < 6; ++i) {
           float s = 0.f;
-          for (int b = 0; b < 3; ++b) s += Wd[i * 3 + b] * sym_get(G, b, a);
-          A[i * 3 + a] = s;
-          nz |= Wd[i * 3 + a] != 0.f;
+          for (int r = 0; r < 3; ++r) s += o.wr[r] * o.Jc[r][i] * o.r[r];
+          hc[21 + i] = s;
         }
-      if (nz) kd = P.obs_cam[l * P.D + d];
-    } else {
-      for (int i = 0; i < 18; ++i) A[i] = 0.f;
+        q = 0;
+        for (int i = 0; i < 3; ++i)
+          for (int j = i; j < 3; ++j) {
+            float s = 0.f;
+            for (int r = 0; r < 3; ++r) s += o.wr[r] * o.Jp[r][i] * o.Jp[r][j];
+            Hpp[q++] += s;
+          }
+        for (int i = 0; i < 3; ++i) {
+          float s = 0.f;
+          for (int r = 0; r < 3; ++r) s += o.wr[r] * o.Jp[r][i] * o.r[r];
+          bp[i] += s;
+        }
+        for (int i = 0; i < 6; ++i)
+          for (int a = 0; a < 3; ++a) {
+            float s = 0.f;
+            for (int r = 0; r < 3; ++r) s += o.wr[r] * o.Jc[r][i] * o.Jp[r][a];
+            W[i * 3 + a] = s;
+          }
+      } else {
+        for (int i = 0; i < 27; ++i) hc[i] = 0.f;
+        for (int i = 0; i < 18; ++i) W[i] = 0.f;
+      }
+      if (mine)
+        for (int i = 0; i < 18; ++i) Wg[(l * P.D + d) * 18 + i] = W[i];
+      block_accumulate<1, 27>(hc_s, 0, o.active ? k : -1, 27 * k, hc, stage);
     }
-    float rr[6];
-    for (int i = 0; i < 6; ++i)
-      rr[i] = A[i * 3 + 0] * bp[0] + A[i * 3 + 1] * bp[1] + A[i * 3 + 2] * bp[2];
-    warp_accumulate<6>(rhs_s, kd, 6 * max(kd, 0), rr);
-    for (int e = 0; e < P.D; ++e) {
-      int ke = -1;
-      float blk[36];
-      if (kd >= 0) {
-        const float* We = Wg + (l * P.D + e) * 18;
+    if (mine) {
+      float* blk = lmblk + 10 * l;
+      for (int i = 0; i < 6; ++i) blk[i] = Hpp[i];
+      for (int i = 0; i < 3; ++i) blk[6 + i] = bp[i];
+      blk[9] = wsum > 0.f ? 1.f : 0.f;
+    }
+    cost_blk += block_sum(cost, red);
+    // pass 2: Schur terms with G = damped Hpp^-1 (0 for fixed points)
+    float G[6];
+    sym3_inv(Hpp, lam, G);
+    const bool keep = mine && !(P.lm_fixed && P.lm_fixed[l]);
+    if (!keep)
+      for (int i = 0; i < 6; ++i) G[i] = 0.f;
+    for (int d = 0; d < P.D; ++d) {
+      float A[18];  // W_d G
+      int kd = -1;
+      if (keep) {
+        const float* Wd = Wg + (l * P.D + d) * 18;
         bool nz = false;
         for (int i = 0; i < 6; ++i)
-          for (int j = 0; j < 6; ++j) {
-            const float s = A[i * 3 + 0] * We[j * 3 + 0] + A[i * 3 + 1] * We[j * 3 + 1] +
-                            A[i * 3 + 2] * We[j * 3 + 2];
-            blk[i * 6 + j] = s;
-            nz |= s != 0.f;
+          for (int a = 0; a < 3; ++a) {
+            float s = 0.f;
+            for (int b = 0; b < 3; ++b) s += Wd[i * 3 + b] * sym_get(G, b, a);
+            A[i * 3 + a] = s;
+            nz |= Wd[i * 3 + a] != 0.f;
           }
-        if (nz) ke = P.obs_cam[l * P.D + e];
+        if (nz) kd = P.obs_cam[l * P.D + d];
       } else {
-        for (int i = 0; i < 36; ++i) blk[i] = 0.f;
+        for (int i = 0; i < 18; ++i) A[i] = 0.f;
       }
-      // S_red row (kd*6 + i), column (ke*6 + j): scatter as 6 rows of 6
-      const int key = ke >= 0 ? kd * K + ke : -1;
-      const int kd0 = max(kd, 0), ke0 = max(ke, 0);
-#pragma unroll
-      for (int i = 0; i < 6; ++i) {
-        float row[6];
-#pragma unroll
-        for (int j = 0; j < 6; ++j) row[j] = blk[i * 6 + j];
-        warp_accumulate<6>(S_s, key, (kd0 * 6 + i) * n6 + ke0 * 6, row);
+      float rr[6];
+      for (int i = 0; i < 6; ++i)
+        rr[i] = A[i * 3 + 0] * bp[0] + A[i * 3 + 1] * bp[1] + A[i * 3 + 2] * bp[2];
+      block_accumulate<1, 6>(rhs_s, 0, kd, 6 * max(kd, 0), rr, stage);
+      for (int e = 0; e < P.D; ++e) {
+        int ke = -1;
+        float blk[36];
+        if (kd >= 0) {
+          const float* We = Wg + (l * P.D + e) * 18;
+          bool nz = false;
+          for (int i = 0; i < 6; ++i)
+            for (int j = 0; j < 6; ++j) {
+              const float s = A[i * 3 + 0] * We[j * 3 + 0] + A[i * 3 + 1] * We[j * 3 + 1] +
+                              A[i * 3 + 2] * We[j * 3 + 2];
+              blk[i * 6 + j] = s;
+              nz |= s != 0.f;
+            }
+          if (nz) ke = P.obs_cam[l * P.D + e];
+        } else {
+          for (int i = 0; i < 36; ++i) blk[i] = 0.f;
+        }
+        // S_red rows kd*6 .. kd*6+5, columns ke*6 .. ke*6+5
+        const int key = ke >= 0 ? kd * K + ke : -1;
+        block_accumulate<6, 6>(S_s, n6, key, max(kd, 0) * 6 * n6 + max(ke, 0) * 6, blk, stage);
       }
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 27 * K; i += blockDim.x)
-    if (hc_s[i] != 0.f) atomicAdd(&hc_g[i], hc_s[i]);
+  // the block's partial: Hcc / b_c and rhs from shared memory, the cost, and
+  // S (already in place on the device-memory route)
+  for (int i = threadIdx.x; i < total; i += blockDim.x) mine_part[i] = sm[i];
+  if (threadIdx.x == 0) mine_part[total] = cost_blk;
   if (!s_direct)
-    for (int i = threadIdx.x; i < n6 * n6; i += blockDim.x)
-      if (S_s[i] != 0.f) atomicAdd(&S_g[i], S_s[i]);
-  for (int i = threadIdx.x; i < n6; i += blockDim.x)
-    if (rhs_s[i] != 0.f) atomicAdd(&rhs_g[i], rhs_s[i]);
-  if (threadIdx.x == 0) atomicAdd(&ctrl[kCost0], cost_s[0]);
+    for (int i = threadIdx.x; i < n6 * n6; i += blockDim.x) mine_part[total + 1 + i] = S_s[i];
+}
+
+// F, second launch: the blocks' partials added in block order, one thread
+// per entry, into Hcc / b_c, the reduced system, its right-hand side and
+// the cost at the linearization point.
+__global__ void ba_reduce_kernel(int K, int blocks, const float* __restrict__ part,
+                                 float* __restrict__ ctrl, float* __restrict__ hc_g,
+                                 float* __restrict__ S_g, float* __restrict__ rhs_g) {
+  if (ctrl[kDone] != 0.f) return;
+  const size_t psize = f_partial_size(K);
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < psize;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int b = 0; b < blocks; ++b) s += part[b * psize + i];
+    if (i < 27 * (size_t)K)
+      hc_g[i] = s;
+    else if (i < 33 * (size_t)K)
+      rhs_g[i - 27 * K] = s;
+    else if (i == 33 * (size_t)K)
+      ctrl[kCost0] = s;
+    else
+      S_g[i - 33 * K - 1] = s;
+  }
 }
 
 // (R, t) <- Exp(xi) * (R, t), xi = [rho, phi] (ops/lie.py se3_exp, se3_compose)
@@ -508,7 +585,7 @@ ba_backsub_kernel(Problem P, Cam cam, float* __restrict__ cam_R, float* __restri
                   unsigned int* __restrict__ counter, const float* __restrict__ Wg,
                   const float* __restrict__ lmblk, const float* __restrict__ dx_g,
                   const float* __restrict__ cam_Rn, const float* __restrict__ cam_tn,
-                  float* __restrict__ lmn) {
+                  float* __restrict__ lmn, float* cost_part) {
   if (ctrl[kDone] != 0.f) return;
   __shared__ float red[kThreadsLm / 32];
   __shared__ bool last;
@@ -554,7 +631,7 @@ ba_backsub_kernel(Problem P, Cam cam, float* __restrict__ cam_R, float* __restri
   if (threadIdx.x == 0) {
     float s = 0.f;
     for (int w = 0; w < kThreadsLm / 32; ++w) s += red[w];
-    atomicAdd(&ctrl[kCost1], s);
+    cost_part[blockIdx.x] = s;
     __threadfence();
     const unsigned int prev = atomicInc(counter, gridDim.x - 1);
     last = prev == gridDim.x - 1;
@@ -564,8 +641,10 @@ ba_backsub_kernel(Problem P, Cam cam, float* __restrict__ cam_R, float* __restri
   // the last block: every block's trial cost and lmn are in; decide
   __threadfence();
   if (threadIdx.x == 0) {
-    const float c0 = atomicAdd(&ctrl[kCost0], 0.f);
-    const float c1 = atomicAdd(&ctrl[kCost1], 0.f);
+    // every block's trial cost, added in block order
+    float c1 = 0.f;
+    for (unsigned int b = 0; b < gridDim.x; ++b) c1 += __ldcg(cost_part + b);
+    const float c0 = __ldcg(ctrl + kCost0);
     const bool imp = c1 < c0;
     const float gain = (c0 - c1) / fmaxf(c0, 1e-12f);
     float lm_ = imp ? lam * 0.5f : lam * 4.f;
@@ -605,7 +684,8 @@ ba_classify_kernel(Problem P, Cam cam, const float* __restrict__ cam_R,
 
 size_t linearize_smem(int K, bool s_direct) {
   const size_t n6 = 6 * (size_t)K;
-  return sizeof(float) * (27 * K + n6 + 1 + (s_direct ? 0 : n6 * n6));
+  return sizeof(float) * (33 * (size_t)K + kThreadsLm / 32 + kThreadsLm * 36 +
+                          (s_direct ? 0 : n6 * n6));
 }
 
 }  // namespace
@@ -617,7 +697,10 @@ extern "C" int svt_ba_linearize(int K, int L, int D, const int* obs_cam, const f
                                 const float* cam_free, float fx, float fy, float cx, float cy,
                                 float fxb, const float* cam_R, const float* cam_t,
                                 const float* lm, int use_huber, float* ctrl, float* Wg,
-                                float* lmblk, float* hc, float* S, float* rhs, void* stream) {
+                                float* lmblk, float* hc, float* S, float* rhs, int blocks,
+                                float* part, void* stream) {
+  // blocks: F's block count (at most one per landmark chunk); part:
+  // blocks x (33K + 1 + 36K^2) floats of device memory
   const bool s_direct = linearize_smem(K, false) > kMaxBlockSmem;
   const size_t smem = linearize_smem(K, s_direct);
   cudaFuncSetAttribute(ba_linearize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -625,10 +708,15 @@ extern "C" int svt_ba_linearize(int K, int L, int D, const int* obs_cam, const f
   Problem P{K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier, lm_valid,
             lm_fixed, cam_free};
   Cam c{fx, fy, cx, cy, fxb};
-  const int blocks = (L + kThreadsLm - 1) / kThreadsLm;
-  if (blocks > 0)
-    ba_linearize_kernel<<<blocks, kThreadsLm, smem, (cudaStream_t)stream>>>(
-        P, c, cam_R, cam_t, lm, use_huber, ctrl, Wg, lmblk, hc, S, rhs, s_direct ? 1 : 0);
+  const int chunks = (L + kThreadsLm - 1) / kThreadsLm;
+  if (chunks == 0) return (int)cudaGetLastError();
+  if (blocks < 1 || blocks > chunks) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  ba_linearize_kernel<<<blocks, kThreadsLm, smem, st>>>(P, c, cam_R, cam_t, lm, use_huber, ctrl,
+                                                        Wg, lmblk, part, s_direct ? 1 : 0);
+  const size_t n = f_partial_size(K);
+  const int rblocks = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
+  ba_reduce_kernel<<<rblocks, 256, 0, st>>>(K, blocks, part, ctrl, hc, S, rhs);
   return (int)cudaGetLastError();
 }
 
@@ -660,14 +748,17 @@ extern "C" int svt_ba_backsub(int K, int L, int D, const int* obs_cam, const flo
                               float fxb, float* cam_R, float* cam_t, float* lm, int use_huber,
                               float* ctrl, unsigned int* counter, const float* Wg,
                               const float* lmblk, const float* dx, const float* cam_Rn,
-                              const float* cam_tn, float* lmn, void* stream) {
+                              const float* cam_tn, float* lmn, float* cost_part,
+                              void* stream) {
+  // cost_part: one float of device memory per block of kThreadsLm landmarks
   Problem P{K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier, lm_valid,
             lm_fixed, cam_free};
   Cam c{fx, fy, cx, cy, fxb};
   const int blocks = (L + kThreadsLm - 1) / kThreadsLm;
   if (blocks > 0)
     ba_backsub_kernel<<<blocks, kThreadsLm, 0, (cudaStream_t)stream>>>(
-        P, c, cam_R, cam_t, lm, use_huber, ctrl, counter, Wg, lmblk, dx, cam_Rn, cam_tn, lmn);
+        P, c, cam_R, cam_t, lm, use_huber, ctrl, counter, Wg, lmblk, dx, cam_Rn, cam_tn, lmn,
+        cost_part);
   return (int)cudaGetLastError();
 }
 

@@ -12,21 +12,24 @@
 //  pg_linearize_kernel (one thread per edge): the residual in float, then
 //    its 14 Jacobian columns by forward-mode dual numbers through the same
 //    sim3_exp / compose / inverse / sim3_log program (sim3.cuh), one pass per
-//    column; the blocks J_i^T J_i, J_i^T J_j (and its transpose), J_j^T J_j
-//    and J^T r are added into the dense [7K,7K] system and [7K] vector by
-//    atomics, the squared residual into a scalar.
-//  pg_gauge_kernel (grid over the system's entries): rows and columns of
-//    fixed and invalid vertices are cleared and get a unit diagonal; every
-//    diagonal entry gets 1e-6.
+//    column; the edge's terms J^T J [14,14], J^T r [14] and |r|^2 go to its
+//    row of a scratch.
+//  pg_assemble_kernel (grid over the system's entries): each entry of the
+//    dense [7K,7K] system gathers the terms of the edges that touch it in
+//    edge order, each entry of the [7K] vector likewise, one thread the cost;
+//    then the gauge: rows and columns of fixed and invalid vertices are
+//    cleared and get a unit diagonal, every diagonal entry gets 1e-6. No
+//    atomics: the same inputs give the same bits on every launch.
 //  pg_update_kernel (one thread per vertex): dx = -x on the free vertices,
 //    Exp(dx) composed on the left.
 // The dense solve between them is the caller's.
 //
 // Bound: operations and latency. An edge costs ~15 passes of ~600
-// operations plus 3 x 49 x 7 for its blocks; at E = 256 that is ~3 M
+// operations plus 14 x 15 x 7 x 2 for its terms; at E = 256 that is ~3 M
 // operations against 4 (7K)^2 bytes of system (200 KB at K = 32): microseconds
 // either way, so the kernel is bound by one thread's serial residual passes.
-// The atomics sum in an order that changes from run to run, as kernel F's do.
+// The gather reads E edge indices per entry ((7K)^2 E = 6.4 M at K = 32,
+// E = 128), the price of a fixed summation order.
 #include <stdint.h>
 
 #include "sim3.cuh"
@@ -83,13 +86,15 @@ __device__ void edge_residual(const Sim3f& Si, const Sim3f& Sj, const Sim3f& Sm,
   sim3::sim3_log(se, Re, te, r);
 }
 
+// per edge in the scratch: J^T J [14,14], J^T r [14], |r|^2
+constexpr int kEdgeTerms = 14 * 14 + 14 + 1;
+
 __global__ void __launch_bounds__(64)
-pg_linearize_kernel(int K, int E, const float* __restrict__ s, const float* __restrict__ R,
+pg_linearize_kernel(int E, const float* __restrict__ s, const float* __restrict__ R,
                     const float* __restrict__ t, const int* __restrict__ edge_i,
                     const int* __restrict__ edge_j, const float* __restrict__ edge_s,
                     const float* __restrict__ edge_R, const float* __restrict__ edge_t,
-                    const uint8_t* __restrict__ edge_valid, float* __restrict__ Hd,
-                    float* __restrict__ b, float* __restrict__ cost) {
+                    const uint8_t* __restrict__ edge_valid, float* __restrict__ terms) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E || !edge_valid[e]) return;
   const int vi = edge_i[e], vj = edge_j[e];
@@ -103,39 +108,75 @@ pg_linearize_kernel(int K, int E, const float* __restrict__ s, const float* __re
     edge_residual<Dual>(Si, Sj, Sm, c, rd);
     for (int p = 0; p < 7; ++p) J[p][c] = rd[p].d;
   }
-  const int n = 7 * K;
-  float c2 = 0.f;
-  for (int p = 0; p < 7; ++p) c2 += r[p] * r[p];
-  atomicAdd(cost, c2);
+  float* out = terms + (size_t)e * kEdgeTerms;
   for (int a = 0; a < 14; ++a) {
-    const int ra = (a < 7 ? vi * 7 + a : vj * 7 + a - 7);
-    float g = 0.f;
-    for (int p = 0; p < 7; ++p) g += J[p][a] * r[p];
-    atomicAdd(&b[ra], g);
     for (int c = 0; c < 14; ++c) {
-      const int rc = (c < 7 ? vi * 7 + c : vj * 7 + c - 7);
       float h = 0.f;
       for (int p = 0; p < 7; ++p) h += J[p][a] * J[p][c];
-      atomicAdd(&Hd[ra * n + rc], h);
+      out[a * 14 + c] = h;
     }
+    float g = 0.f;
+    for (int p = 0; p < 7; ++p) g += J[p][a] * r[p];
+    out[196 + a] = g;
   }
+  float c2 = 0.f;
+  for (int p = 0; p < 7; ++p) c2 += r[p] * r[p];
+  out[210] = c2;
 }
 
-__global__ void pg_gauge_kernel(int K, const uint8_t* __restrict__ fixed,
-                                const uint8_t* __restrict__ valid, float* __restrict__ Hd,
-                                float* __restrict__ b) {
+// the end slots (0..13) of an edge (vi, vj) that map to system row `row`:
+// 0-6 vertex vi, 7-13 vertex vj; -1 where the edge does not touch it
+__device__ __forceinline__ void end_slots(int row, int vi, int vj, int* a) {
+  const int v = row / 7, c = row % 7;
+  a[0] = v == vi ? c : -1;
+  a[1] = v == vj ? 7 + c : -1;
+}
+
+__global__ void pg_assemble_kernel(int K, int E, const int* __restrict__ edge_i,
+                                   const int* __restrict__ edge_j,
+                                   const uint8_t* __restrict__ edge_valid,
+                                   const uint8_t* __restrict__ fixed,
+                                   const uint8_t* __restrict__ valid,
+                                   const float* __restrict__ terms, float* __restrict__ Hd,
+                                   float* __restrict__ b, float* __restrict__ cost) {
   const int n = 7 * K;
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= n * n) return;
   const int row = q / n, col = q % n;
+  float h = 0.f;
+  for (int e = 0; e < E; ++e) {
+    if (!edge_valid[e]) continue;
+    const int vi = edge_i[e], vj = edge_j[e];
+    int ra[2], ca[2];
+    end_slots(row, vi, vj, ra);
+    end_slots(col, vi, vj, ca);
+    const float* te = terms + (size_t)e * kEdgeTerms;
+    for (int x = 0; x < 2; ++x)
+      for (int y = 0; y < 2; ++y)
+        if (ra[x] >= 0 && ca[y] >= 0) h += te[ra[x] * 14 + ca[y]];
+  }
   const float fi = (valid[row / 7] && !fixed[row / 7]) ? 1.f : 0.f;
   const float fj = (valid[col / 7] && !fixed[col / 7]) ? 1.f : 0.f;
-  float v = Hd[q] * fi * fj;
+  float v = h * fi * fj;
   if (row == col) {
     v = v + (1.f - fi) + 1e-6f;
-    b[row] *= fi;
+    float g = 0.f;
+    for (int e = 0; e < E; ++e) {
+      if (!edge_valid[e]) continue;
+      int ra[2];
+      end_slots(row, edge_i[e], edge_j[e], ra);
+      for (int x = 0; x < 2; ++x)
+        if (ra[x] >= 0) g += terms[(size_t)e * kEdgeTerms + 196 + ra[x]];
+    }
+    b[row] = g * fi;
   }
   Hd[q] = v;
+  if (q == 0) {
+    float c = 0.f;
+    for (int e = 0; e < E; ++e)
+      if (edge_valid[e]) c += terms[(size_t)e * kEdgeTerms + 210];
+    *cost = c;
+  }
 }
 
 __global__ void pg_update_kernel(int K, const float* __restrict__ s, const float* __restrict__ R,
@@ -165,13 +206,16 @@ extern "C" int svt_pose_graph_linearize(int K, int E, const float* s, const floa
                                         const int* edge_j, const float* edge_s,
                                         const float* edge_R, const float* edge_t,
                                         const uint8_t* edge_valid, float* Hd, float* b,
-                                        float* cost, void* stream) {
+                                        float* cost, float* terms, void* stream) {
+  // terms: E x 211 floats of device memory
   cudaStream_t st = (cudaStream_t)stream;
   if (E > 0)
-    pg_linearize_kernel<<<(E + 63) / 64, 64, 0, st>>>(K, E, s, R, t, edge_i, edge_j, edge_s,
-                                                      edge_R, edge_t, edge_valid, Hd, b, cost);
+    pg_linearize_kernel<<<(E + 63) / 64, 64, 0, st>>>(E, s, R, t, edge_i, edge_j, edge_s, edge_R,
+                                                      edge_t, edge_valid, terms);
   const int n = 7 * K;
-  if (n > 0) pg_gauge_kernel<<<(n * n + 255) / 256, 256, 0, st>>>(K, fixed, valid, Hd, b);
+  if (n > 0)
+    pg_assemble_kernel<<<(n * n + 255) / 256, 256, 0, st>>>(K, E, edge_i, edge_j, edge_valid,
+                                                            fixed, valid, terms, Hd, b, cost);
   return (int)cudaGetLastError();
 }
 

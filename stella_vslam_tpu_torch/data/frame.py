@@ -9,6 +9,7 @@ the first `h_*` read waits for that copy's event.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
@@ -61,6 +62,9 @@ class Frame:
         self._host_cache: dict = {}
         self._packed_host = None
         self._packed_event = None
+        # the threads of the threaded System may read a keyframe's mirror
+        # for the first time at once
+        self._host_lock = threading.Lock()
 
     # ---- host mirrors (one packed copy, unpacked on first read) ----
     def attach_packed_host(self, packed: torch.Tensor):
@@ -101,9 +105,11 @@ class Frame:
 
     def _host(self, name):
         if name not in self._host_cache:
-            if self._packed_host is None:
-                self.prefetch_host()
-            self._unpack_host()
+            with self._host_lock:
+                if name not in self._host_cache:
+                    if self._packed_host is None:
+                        self.prefetch_host()
+                    self._unpack_host()
         return self._host_cache[name]
 
     @property

@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from stella_vslam_tpu_torch.data.frame import Frame
 from stella_vslam_tpu_torch.data.graph_node import GraphNode
@@ -114,6 +115,20 @@ class Keyframe:
     @property
     def cam_center(self):
         return -self.rot_cw.T @ self.trans_cw
+
+    @property
+    def pose_wc(self):
+        T = np.eye(4)
+        T[:3, :3] = self.rot_cw.T
+        T[:3, 3] = self.cam_center
+        return T
+
+    def device_tensors(self):
+        """The device tensors the keyframe shares with its source frame
+        (the threads that read them mark them with record_stream)."""
+        f = self._frame_ref
+        return [t for t in (*f.feats, f.undist_xy, f.bearings, f.x_right, f.depths)
+                if isinstance(t, torch.Tensor)]
 
     # ---- landmark slots ----
     def add_landmark(self, lm_id: int, idx: int):

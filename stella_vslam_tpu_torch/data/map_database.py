@@ -30,6 +30,7 @@ import torch
 
 from stella_vslam_tpu_torch.data.keyframe import Keyframe
 from stella_vslam_tpu_torch.data.landmark import Landmark
+from stella_vslam_tpu_torch.util import streams
 
 _log = logging.getLogger(__name__)
 
@@ -156,17 +157,36 @@ class TableSnap:
 
     `kf_poses`: keyframe poses AS OF this publish (id -> 4x4 pose_cw array
     reference; set_pose_cw rebinds rather than mutating, so these are true
-    snapshots), the anchors of the chain rebase that comes with mapping."""
+    snapshots), the anchors of the chain rebase that comes with mapping.
+    `epoch`: the map's epoch at this publish; a loop correction bumps it
+    before it moves the map, so a frame tracked against an older epoch's
+    table is in the gauge from before the correction."""
 
-    __slots__ = ("version", "count", "ids", "tbl_f32", "tbl_u32", "kf_poses")
+    __slots__ = ("version", "count", "ids", "tbl_f32", "tbl_u32", "kf_poses", "ready",
+                 "epoch", "_streams")
 
-    def __init__(self, version, count, ids, tbl_f32, tbl_u32, kf_poses):
+    def __init__(self, version, count, ids, tbl_f32, tbl_u32, kf_poses, ready=None,
+                 epoch=0):
         self.version = version
+        self.epoch = epoch
         self.count = count
         self.ids = ids  # [C] i64 host
         self.tbl_f32 = tbl_f32  # [C,8] f32 device
         self.tbl_u32 = tbl_u32  # [C,10] int32 device (uint32 bits)
         self.kf_poses = kf_poses
+        # CUDA event after the uploads, on the publishing thread's stream
+        self.ready = ready
+        self._streams = set()
+
+    def use_here(self):
+        """Before the current stream reads the table: wait for the uploads
+        and tell the allocator about the reader (once per stream)."""
+        if self.ready is None:
+            return
+        s = torch.cuda.current_stream(self.tbl_f32.device)
+        if s.cuda_stream not in self._streams:
+            streams.consume((self.tbl_f32, self.tbl_u32), self.ready, self.tbl_f32.device)
+            self._streams.add(s.cuda_stream)
 
 
 class DeviceLandmarkTable:
@@ -292,13 +312,17 @@ class DeviceLandmarkTable:
         u32pack[:n, :8] = desc[:n]
         u32pack[:, 8] = ids.astype(np.int32).view(np.uint32)
         u32pack[:n, 9] = 1
+        tbl_f32 = streams.upload(f32pack, self.device)
+        tbl_u32 = streams.upload(u32pack.view(np.int32), self.device)
         self.snap = TableSnap(
             version=self.version,
             count=n,
             ids=ids,
-            tbl_f32=torch.from_numpy(f32pack).to(self.device),
-            tbl_u32=torch.from_numpy(u32pack.view(np.int32)).to(self.device),
+            tbl_f32=tbl_f32,
+            tbl_u32=tbl_u32,
             kf_poses=kf_poses,
+            ready=streams.ready(self.device),
+            epoch=map_db.epoch,
         )
 
 

@@ -20,19 +20,32 @@ validates them (module/loop_detector.py), and `correct_loop`
    keyframes and landmarks outside the problem along the spanning tree, and
 6. merges duplicate landmark layers the revisit may have mapped
    (`_merge_duplicate_layers`), with one more global BA when it linked any.
-Everything runs inline on the caller's thread, and ends in a publish of the
-device landmark table around the corrected keyframe (after a `bump_epoch`
-that drops any deferred local-BA writeback), which the tracker's
-`_resync_chain_with_map` follows.
+Inline (the mapper's `synchronous_ba`) `process_keyframe` runs on the
+caller's thread after each keyframe event, and the global BA right after
+the correction. Threaded (the default), `run` is the loop-closing thread:
+it takes the keyframes the mapping thread queues, and `correct_loop` first
+pauses the mapper (which settles its staged event and pending BA before it
+acknowledges) and resumes it after the pose graph; the global BA and the
+merge then run detached on a thread of their own (`_loop_ba_then_merge`),
+with mapping live, and their writeback carries the keyframes created
+meanwhile along the spanning tree. A newer loop aborts the BA in flight.
+Every correction ends in a publish of the device landmark table around the
+corrected keyframe (after a `bump_epoch` that drops any deferred local-BA
+writeback), which the tracker follows by its rebase or resync. Failures on
+either thread are contained and counted in `errors`. `warmup` runs one pose
+graph iteration with its library Cholesky and one global-BA step at the
+circuit's shapes, so that the first loop pays no set-up.
 
-Left out (ROADMAP): the module's thread, queue and warm-up (Queue 1 item
-10), the detached loop-BA thread, marker rows, and the sharded global BA
-across devices (Queue 2, K22).
+Left out (ROADMAP): marker rows, and the sharded global BA across devices
+(Queue 2, K22).
 """
 from __future__ import annotations
 
 import logging
+import queue
+import threading
 import time
+import traceback
 from typing import Optional
 
 import numpy as np
@@ -43,11 +56,12 @@ from stella_vslam_tpu_torch.module.loop_detector import LoopDetector
 from stella_vslam_tpu_torch.module.tracking_kernels import make_cam_scalars
 from stella_vslam_tpu_torch.ops.optim import ba as ba_mod
 from stella_vslam_tpu_torch.ops.optim import sim3 as sim3_opt
+from stella_vslam_tpu_torch.util import streams
 
 _log = logging.getLogger(__name__)
 
 # the phases `loop_event_ms` splits a closed loop's time into
-LOOP_PHASES = ("detect", "validate", "correct", "pose_graph", "global_ba", "merge")
+LOOP_PHASES = ("detect", "validate", "pause", "correct", "pose_graph", "global_ba", "merge")
 
 
 def _pow2(n: int, least: int) -> int:
@@ -57,11 +71,13 @@ def _pow2(n: int, least: int) -> int:
 class GlobalOptimizationModule:
     def __init__(self, map_db, camera, orb_params, bow_db, *, device="cuda",
                  fix_scale: bool = False, use_fixed_seed: bool = False,
-                 loop_detector_kwargs: Optional[dict] = None):
+                 loop_detector_kwargs: Optional[dict] = None, stream=None):
+        """`stream`: the CUDA stream of the loop-closing threads' device work."""
         self.map_db = map_db
         self.camera = camera
         self.orb_params = orb_params
         self.device = torch.device(device)
+        self.stream = stream
         self.loop_detector = LoopDetector(
             camera, orb_params, bow_db, device=device,
             fix_scale_in_Sim3_estimation=fix_scale, use_fixed_seed=use_fixed_seed,
@@ -70,12 +86,91 @@ class GlobalOptimizationModule:
         self.num_loops_closed = 0
         self.loop_ba_running = False
         self._abort_loop_ba = False
+        self._loop_ba_thread: Optional[threading.Thread] = None
+        # the loop-closing thread: its queue, and whether a popped keyframe
+        # is still being processed (shutdown's drain needs both)
+        self._queue: "queue.Queue" = queue.Queue()
+        self._idle = True
+        self._thread: Optional[threading.Thread] = None
+        self._terminate = threading.Event()
         # per closed loop, its phases in ms (LOOP_PHASES and "total"), and
         # the keyframe pair; ms of the detection that found nothing are
-        # summed in detect_ms
+        # summed in detect_ms; the exceptions the threads contained
         self.loop_event_ms = []
         self.detect_ms = []
+        self.errors = []
         self._last_pose_graph_edges = None
+
+    # ------------------------------------------------------------------
+    def warmup(self):
+        """One pose-graph iteration with its library Cholesky and one
+        global-BA step at the circuit's shapes (K = 32, E = 128; K = 32,
+        L = 4096, D = 16), on the loop-closing stream: the factorization
+        library's set-up otherwise lands in the first loop event. Nothing
+        to do on the CPU."""
+        if self.device.type != "cuda":
+            return
+        dev = self.device
+        K, E, L, D = 32, 128, 4096, 16
+        eye = torch.eye(3, device=dev)
+        f32 = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+        first = lambda n: torch.arange(n, device=dev) == 0
+        with streams.on(self.stream):
+            sim3_opt.optimize_pose_graph(
+                f32(K) + 1.0, eye.expand(K, 3, 3).contiguous(), f32(K, 3), first(K),
+                torch.arange(K, device=dev) < 3, torch.zeros(E, dtype=torch.int32, device=dev),
+                torch.ones(E, dtype=torch.int32, device=dev), f32(E) + 1.0,
+                eye.expand(E, 3, 3).contiguous(), f32(E, 3), torch.arange(E, device=dev) < 2,
+                num_iter=1)
+            bl = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)
+            ba_mod.bundle_adjust(ba_mod.BAProblem(
+                cam_R=eye.expand(K, 3, 3).contiguous(), cam_t=f32(K, 3), cam_fixed=first(K),
+                cam_valid=~bl(K), lm_pos=f32(L, 3), lm_valid=bl(L),
+                obs_cam=torch.zeros((L, D), dtype=torch.int32, device=dev),
+                obs_uv=f32(L, D, 2), obs_x_right=f32(L, D) - 1.0,
+                obs_inv_sigma_sq=f32(L, D) + 1.0, obs_valid=bl(L, D)),
+                make_cam_scalars(self.camera), num_first=1, num_second=0)
+            torch.cuda.current_stream(dev).synchronize()
+
+    # ------------------------------------------------------------------ thread
+    def queue_keyframe(self, kf):
+        self._queue.put(kf)
+
+    def start(self):
+        self._terminate.clear()
+        self._thread = threading.Thread(target=self.run, daemon=True, name="loop-closing")
+        self._thread.start()
+
+    def request_terminate(self):
+        self._terminate.set()
+
+    def join(self):
+        if self._thread is not None:
+            self._thread.join(timeout=60)
+        if self._loop_ba_thread is not None:
+            self._loop_ba_thread.join(timeout=120)
+
+    def is_idle(self) -> bool:
+        return self._idle and self._queue.empty()
+
+    def run(self):
+        with streams.on(self.stream):
+            while not self._terminate.is_set():
+                try:
+                    kf = self._queue.get(timeout=0.005)
+                except queue.Empty:
+                    continue
+                self._idle = False
+                try:
+                    self.process_keyframe(kf)
+                except Exception:
+                    # a dead loop-closing thread would stop all later loop
+                    # detection: contained (as the reference's thread
+                    # survives a keyframe's failure) and counted
+                    self.errors.append(traceback.format_exc())
+                    _log.exception("loop processing failed for keyframe %d", kf.id)
+                finally:
+                    self._idle = True
 
     # ------------------------------------------------------------------
     def enable_loop_detector(self):
@@ -156,9 +251,30 @@ class GlobalOptimizationModule:
                 cand_kf.set_not_to_be_erased(False)
 
     # ------------------------------------------------------------------
+    def _mapper_is_threaded(self) -> bool:
+        m = self.mapper
+        return m is not None and m._thread is not None and m._thread.is_alive()
+
     def correct_loop(self, cur_kf, cand_id, sim3_cw, src_cand_slot, inl, ms=None):
         map_db = self.map_db
         ms = dict(ms or {"detect": 0.0, "validate": 0.0})
+        t0 = time.perf_counter()
+        # a newer loop supersedes the BA in flight (reference
+        # global_optimization_module.cc:228-235, abort and wait)
+        if self._loop_ba_thread is not None and self._loop_ba_thread.is_alive():
+            self.abort_loop_BA()
+            self._loop_ba_thread.join(timeout=60)
+        threaded = self._mapper_is_threaded()
+        if threaded:
+            # the mapper settles its staged event and pending BA before it
+            # acknowledges the pause; a writeback after the correction would
+            # undo it
+            self.mapper.request_pause()
+            t_wait = time.monotonic()
+            while not self.mapper.is_paused() and time.monotonic() - t_wait < 5.0 \
+                    and self._mapper_is_threaded():
+                time.sleep(0.002)
+        ms["pause"] = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
         try:
             with map_db.lock:
@@ -276,19 +392,45 @@ class GlobalOptimizationModule:
             ms["pose_graph"] = (time.perf_counter() - t1) * 1e3
             self.num_loops_closed += 1
         finally:
+            if threaded:
+                self.mapper.resume()
             # the local map around the corrected keyframe (its
             # covisibilities now include the loop side)
             self.map_db.refresh_device_table(center_kf_id=cur_kf.id)
-        t2 = time.perf_counter()
-        self.run_global_bundle_adjustment(center_kf_id=cur_kf.id)
-        t3 = time.perf_counter()
-        self._merge_duplicate_layers(center_kf_id=cur_kf.id)
-        t4 = time.perf_counter()
+        ms["keyframes"] = (cur_kf.id, cand_id)
+        if threaded:
+            # the global BA runs detached with mapping live (reference
+            # global_optimization_module.cc:302 -> loop_bundle_adjuster)
+            self.loop_ba_running = True
+            self._loop_ba_thread = threading.Thread(
+                target=self._loop_ba_then_merge, args=(cur_kf.id, ms), daemon=True,
+                name="loop-BA")
+            self._loop_ba_thread.start()
+        else:
+            self._loop_ba_then_merge(cur_kf.id, ms)
+
+    def _loop_ba_then_merge(self, center_kf_id, ms):
+        """The global BA and the duplicate-layer merge after a correction;
+        the loop event's record is complete when they are."""
+        try:
+            with streams.on(self.stream):
+                t2 = time.perf_counter()
+                self.run_global_bundle_adjustment(center_kf_id=center_kf_id)
+                t3 = time.perf_counter()
+                if not self._abort_loop_ba:
+                    self._merge_duplicate_layers(center_kf_id=center_kf_id)
+                t4 = time.perf_counter()
+        except Exception:
+            if threading.current_thread() is not self._loop_ba_thread:
+                raise
+            self.errors.append(traceback.format_exc())
+            _log.exception("loop BA failed")
+            self.loop_ba_running = False
+            return
         ms.update(global_ba=(t3 - t2) * 1e3, merge=(t4 - t3) * 1e3)
         ms["total"] = sum(ms[k] for k in LOOP_PHASES)
-        ms["keyframes"] = (cur_kf.id, cand_id)
         self.loop_event_ms.append(ms)
-        _log.info("loop closed kf %d ~ %d: %s", cur_kf.id, cand_id,
+        _log.info("loop closed kf %d ~ %d: %s", *ms["keyframes"],
                   " ".join(f"{k}={ms[k]:.1f}" for k in LOOP_PHASES))
 
     def _merge_duplicate_layers(self, center_kf_id=None, max_pairs: int = 64):

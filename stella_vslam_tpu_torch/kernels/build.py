@@ -72,17 +72,18 @@ _SIGNATURES = {
     "svt_ransac_refit": [_I, _I, _P, _P, _P, _P, _F, _P, _P, _P],
     # K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier,
     # lm_valid, lm_fixed, cam_free, fx, fy, cx, cy, fxb, cam_R, cam_t, lm,
-    # use_huber, ctrl, Wg, lmblk, hc, S, rhs, stream
+    # use_huber, ctrl, Wg, lmblk, hc, S, rhs, blocks, part, stream
     "svt_ba_linearize": [_I, _I, _I] + [_P] * 9 + [_F] * 5 + [_P] * 3
-                        + [_I] + [_P] * 7,
+                        + [_I] + [_P] * 6 + [_I] + [_P] * 2,
     # K, cam_free, cam_R, cam_t, ctrl, hc, S, rhs, dx, cam_Rn, cam_tn, scratch,
     # stream
     "svt_ba_solve": [_I] + [_P] * 12,
     # K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier,
     # lm_valid, lm_fixed, cam_free, fx, fy, cx, cy, fxb, cam_R, cam_t, lm,
-    # use_huber, ctrl, counter, Wg, lmblk, dx, cam_Rn, cam_tn, lmn, stream
+    # use_huber, ctrl, counter, Wg, lmblk, dx, cam_Rn, cam_tn, lmn, cost_part,
+    # stream
     "svt_ba_backsub": [_I, _I, _I] + [_P] * 9 + [_F] * 5 + [_P] * 3
-                      + [_I] + [_P] * 9,
+                      + [_I] + [_P] * 10,
     # K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, fx, fy, cx, cy,
     # fxb, cam_R, cam_t, lm, keep, mode, out, stream
     "svt_ba_classify": [_I, _I, _I] + [_P] * 5 + [_F] * 5 + [_P] * 4 + [_I]
@@ -109,10 +110,23 @@ _SIGNATURES = {
     # cy, chi_sq, fix_scale, num_iter, out, inlier, stream
     "svt_sim3_transform": [_I] + [_P] * 10 + [_F] * 5 + [_I] * 2 + [_P] * 3,
     # K, E, s, R, t, fixed, valid, edge_i, edge_j, edge_s, edge_R, edge_t,
-    # edge_valid, Hd, b, cost, stream
-    "svt_pose_graph_linearize": [_I, _I] + [_P] * 15,
+    # edge_valid, Hd, b, cost, terms, stream
+    "svt_pose_graph_linearize": [_I, _I] + [_P] * 16,
     # K, s, R, t, fixed, valid, x, s2, R2, t2, stream
     "svt_pose_graph_update": [_I] + [_P] * 10,
+    # M, N, best_idx, idx_stride, accepted, src_pos, pos_stride, src_id,
+    # id_stride, pos_out, id_out, has_out, stream
+    "svt_scatter_to_current": [_I, _I, _P, _I, _P, _P, _I, _P, _I] + [_P] * 4,
+    # N, has, ids, score, keep_out, ids_out, stream
+    "svt_dedup_by_id": [_I] + [_P] * 6,
+    # N, C, la_pos, la_valid, la_id, tbl_f32, tbl_u32, A_R, A_t, R_last,
+    # t_last, R_prev, t_prev, pos_out, valid_out, id_out, pose_out, stream
+    "svt_rebase_chain": [_I, _I] + [_P] * 16,
+    # M, mode, fx, fy, cx, cy, width, height, fxb, Rt, pos, tbl_u32,
+    # log_scale, num_levels, uv, depth, vis, xr, scale, stream
+    "svt_reproject": [_I, _I] + [_F] * 7 + [_P] * 3 + [_F, _I] + [_P] * 6,
+    # N, fx, fy, cx, cy, k1, k2, p1, p2, k3, pts, out, stream
+    "svt_undistort": [_I] + [_F] * 9 + [_P] * 3,
 }
 
 

@@ -108,7 +108,9 @@ def angle_diff_ok(angle1, angle2, thr_deg: float = 30.0) -> torch.Tensor:
     """|circular angle difference| <= thr_deg."""
     d = angle1 - angle2
     d = torch.atan2(torch.sin(d), torch.cos(d))
-    thr = torch.deg2rad(torch.tensor(thr_deg, dtype=torch.float32, device=d.device))
+    # the f32 threshold as a host scalar: a device tensor built from a host
+    # value costs a blocking copy per call
+    thr = float(torch.deg2rad(torch.tensor(thr_deg, dtype=torch.float32)))
     return torch.abs(d) <= thr
 
 
@@ -279,5 +281,8 @@ def resolve_duplicate_targets(target_idx, dist, accepted, num_targets: int):
     best = torch.full((num_targets,), big, dtype=torch.int64,
                       device=target_idx.device)
     tgt = target_idx.to(torch.int64)
-    best = best.scatter_reduce(0, tgt[accepted], key[accepted], reduce="amin")
+    # every source scatters (a rejected one its `big` key at target 0), so
+    # no boolean index makes the host wait for a count
+    best = best.scatter_reduce(0, torch.where(accepted, tgt, torch.zeros_like(tgt)), key,
+                               reduce="amin")
     return accepted & (best[tgt] == key)

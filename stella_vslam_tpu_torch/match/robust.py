@@ -22,10 +22,10 @@ _RESIDUAL_RAD_THR = 0.2 * math.pi / 180.0
 _TRI_LOWE_RATIO = 0.75
 
 
-def cos_30deg(device) -> float:
-    """cos(30 deg) in f32, the orientation gate's threshold."""
-    return float(torch.cos(torch.deg2rad(
-        torch.tensor(30.0, dtype=torch.float32, device=device))))
+def cos_30deg() -> float:
+    """cos(30 deg) in f32, the orientation gate's threshold (computed on
+    the host: a device scalar would cost every caller a read back)."""
+    return float(torch.cos(torch.deg2rad(torch.tensor(30.0, dtype=torch.float32))))
 
 
 def brute_force_match(kp1_angle, kp1_desc, kp1_valid,
@@ -38,7 +38,7 @@ def brute_force_match(kp1_angle, kp1_desc, kp1_valid,
         orient = H.OrientGate(
             row_c=torch.cos(kp2_angle), row_s=torch.sin(kp2_angle),
             col_c=torch.cos(kp1_angle), col_s=torch.sin(kp1_angle),
-            cos_thr=cos_30deg(kp1_angle.device))
+            cos_thr=cos_30deg())
     best, best_idx, second, _ = H.hamming_top2(
         kp2_desc, kp1_desc, kp2_valid, kp1_valid, orient=orient)
     accepted = (
@@ -74,7 +74,7 @@ def epipolar_gate(kp1_angle, kp1_level, kp1_bearing, kp1_is_stereo, kp2_angle,
         col_c=torch.cos(kp2_angle), col_s=torch.sin(kp2_angle), col_epl=epl,
         col_norm=torch.clamp(norm, min=1e-12),
         col_near=(cos_dist > _COS_EPIPOLE_THR) & ~kp2_is_stereo,
-        cos_thr=cos_30deg(kp1_angle.device))
+        cos_thr=cos_30deg())
 
 
 def match_for_triangulation(kp1_angle, kp1_level, kp1_desc, kp1_bearing, kp1_valid,

@@ -55,9 +55,13 @@ class KeyframeInserter:
         """(max_interval | max_distance | view_changed | not_enough_lms)
         & (!enough_keyfrms | (min_interval & min_distance))
         & !tracking_is_unstable & !almost_all_lms_are_tracked
-        & !mapper_is_skipping_localBA; `num_reliable` counts the tracked
+        & !mapper_is_skipping_localBA (two keyframes waiting in the mapping
+        queue), and never while the mapper pauses; `num_reliable` counts the tracked
         landmarks with >= min_num_obs_thr observations."""
         if self.mapper is None:
+            return False
+        # backpressure veto (keyframe_inserter.cc:59-62)
+        if self.mapper.is_paused() or self.mapper.pause_is_requested():
             return False
         num_keyfrms = map_db.num_keyframes()
         min_obs_thr = 3 if num_keyfrms >= 3 else 2

@@ -11,15 +11,18 @@ less than 1e-3 of the cost (optimize/terminate_action.cc). Fixed and
 invalid cameras get a zero update; `lm_fixed` points constrain the cameras
 but do not move; `lm_keep_inlier` rows survive the reclassification.
 
-On CUDA tensors every iteration is three launches (csrc/ba_schur.cu):
-F `ba_linearize_schur` (linearize, Hpp^-1, Schur terms), G
+On CUDA tensors every iteration is four launches (csrc/ba_schur.cu):
+F `ba_linearize_schur` (linearize, Hpp^-1, Schur terms, each block into its
+own partial; then the partials added in block order), G
 `ba_reduced_solve` (the 6K x 6K Cholesky solve and the trial poses: in shared
 memory up to 6K = 192, in a device-memory scratch above, as the global BA's
 K = 32 .. 512 need), H `ba_backsub_cost` (point updates, trial cost, and on the device the
 accept / reject, lambda update and stop flag). The stage launches all its
 iterations without reading the host; after the stop flag every launch
 returns at once. Kernel I `ba_classify` gives the chi-square
-reclassification between the stages and the final outlier flags. On CPU
+reclassification between the stages and the final outlier flags. No sum
+on the card depends on the order threads arrive in: the same problem gives
+the same bits on every run. On CPU
 tensors `bundle_adjust_plain` runs the same schedule as torch ops
 (index_add_ where the JAX version uses one-hot matmuls; the reduced system
 through linalg.solve_spd_blocked).
@@ -43,6 +46,17 @@ CHI_SQ_2D = 5.991
 CHI_SQ_3D = 7.815
 MAX_SOLVE_DIM = 192  # up to here kernel G holds the 6K x 6K system in shared memory
 MAX_CAMERAS = 512  # above it G factors in device memory with one block
+LM_CHUNK = 128  # landmarks per block of kernels F and H
+# device memory for kernel F's per-block partials (33K + 1 + 36K^2 floats
+# each): the block count is cut to fit where the system is large
+F_PARTIAL_FLOATS = 1 << 23
+
+
+def f_blocks(K: int, L: int) -> int:
+    """Kernel F's block count: one per landmark chunk, at most as many as
+    F_PARTIAL_FLOATS holds partials of a K-camera system."""
+    chunks = -(-L // LM_CHUNK)
+    return max(1, min(chunks, F_PARTIAL_FLOATS // (33 * K + 1 + 36 * K * K)))
 
 
 class BAProblem(NamedTuple):
@@ -317,6 +331,11 @@ class _KernelState:
         self.factor = f(6 * K, 6 * K) if 6 * K > MAX_SOLVE_DIM else None
         self.ctrl = f(8)
         self.counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        # F's per-block partials and H's per-block trial costs
+        self.f_blocks = f_blocks(K, L)
+        self.f_part = torch.empty(self.f_blocks * (33 * K + 1 + 36 * K * K),
+                                  dtype=torch.float32, device=dev)
+        self.h_part = torch.empty(max(1, -(-L // LM_CHUNK)), dtype=torch.float32, device=dev)
         u8 = lambda b: b.to(torch.uint8).contiguous()
         self.keep = None if prob.lm_keep_inlier is None else u8(prob.lm_keep_inlier)
         self.inputs = dict(
@@ -346,7 +365,7 @@ def ba_linearize_schur(st: _KernelState, inlier, use_huber: bool):
         *st.problem_args(inlier), st.cam_R.data_ptr(), st.cam_t.data_ptr(),
         st.lm.data_ptr(), int(use_huber), st.ctrl.data_ptr(), st.Wg.data_ptr(),
         st.lmblk.data_ptr(), st.hc.data_ptr(), st.S.data_ptr(), st.rhs.data_ptr(),
-        kbuild.stream_ptr(st.lm.device)), "ba_linearize")
+        st.f_blocks, st.f_part.data_ptr(), kbuild.stream_ptr(st.lm.device)), "ba_linearize")
     ba_linearize_schur.launches += 1
 
 
@@ -369,8 +388,8 @@ def ba_backsub_cost(st: _KernelState, inlier, use_huber: bool):
         *st.problem_args(inlier), st.cam_R.data_ptr(), st.cam_t.data_ptr(),
         st.lm.data_ptr(), int(use_huber), st.ctrl.data_ptr(), st.counter.data_ptr(),
         st.Wg.data_ptr(), st.lmblk.data_ptr(), st.dx.data_ptr(), st.cam_Rn.data_ptr(),
-        st.cam_tn.data_ptr(), st.lmn.data_ptr(), kbuild.stream_ptr(st.lm.device)),
-        "ba_backsub")
+        st.cam_tn.data_ptr(), st.lmn.data_ptr(), st.h_part.data_ptr(),
+        kbuild.stream_ptr(st.lm.device)), "ba_backsub")
     ba_backsub_cost.launches += 1
 
 

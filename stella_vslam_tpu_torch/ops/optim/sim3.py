@@ -25,8 +25,10 @@ residual programs. On CUDA tensors:
   -(1/s) R^T [I, -hat(y), y]; the sigma column is zero with `fix_scale`;
 * kernel P (csrc/pose_graph.cu): per iteration `pose_graph_linearize` (one
   thread per edge: the residual and its [7,14] Jacobian by forward-mode dual
-  numbers through the same sim3_exp / sim3_log program, the blocks added
-  into the dense system by atomics, then the gauge rows), the dense solve,
+  numbers through the same sim3_exp / sim3_log program, its terms to a
+  scratch row; then each entry of the dense system gathers the terms of
+  its edges in edge order, with the gauge rows: no atomics, the same bits on
+  every launch), the dense solve,
   and `pose_graph_update` (Exp(dx) composed on the left of every vertex).
   The dense solve is a library call on the card (`torch.linalg.cholesky` +
   `cholesky_solve`), as the JAX version leaves it to a chain of plain matmuls
@@ -321,15 +323,18 @@ def pose_graph_linearize(g: PoseGraph, s, R, t):
     if not s.is_cuda:
         return pose_graph_linearize_plain(g, s, R, t)
     K, E, dev = _check_graph(g, s, R, t)
-    Hd = torch.zeros((7 * K, 7 * K), dtype=torch.float32, device=dev)
-    b = torch.zeros(7 * K, dtype=torch.float32, device=dev)
-    cost = torch.zeros((), dtype=torch.float32, device=dev)
+    Hd = torch.empty((7 * K, 7 * K), dtype=torch.float32, device=dev)
+    b = torch.empty(7 * K, dtype=torch.float32, device=dev)
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    # per edge: J^T J [14,14], J^T r [14], |r|^2, gathered in edge order
+    terms = torch.empty((max(E, 1), 211), dtype=torch.float32, device=dev)
     lib = kbuild.load()
     kbuild.check(lib.svt_pose_graph_linearize(
         K, E, s.data_ptr(), R.data_ptr(), t.data_ptr(), g.fixed.data_ptr(),
         g.valid.data_ptr(), g.edge_i.data_ptr(), g.edge_j.data_ptr(), g.edge_s.data_ptr(),
         g.edge_R.data_ptr(), g.edge_t.data_ptr(), g.edge_valid.data_ptr(), Hd.data_ptr(),
-        b.data_ptr(), cost.data_ptr(), kbuild.stream_ptr(dev)), "pose_graph_linearize")
+        b.data_ptr(), cost.data_ptr(), terms.data_ptr(), kbuild.stream_ptr(dev)),
+        "pose_graph_linearize")
     pose_graph_linearize.launches += 1
     return Hd, b, cost
 

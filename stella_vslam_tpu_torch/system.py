@@ -1,21 +1,32 @@
 """Public system API of the port: construction, frame feeding, results.
 
 Port of stella_vslam_tpu/system.py for the RGBD tracking, monocular,
-mapping and loop-closing slices: `System(cfg, device, inline_mapping=True,
-vocab_path=None)` with startup / shutdown, `create_monocular_frame` /
-`feed_monocular_frame` and `create_RGBD_frame` / `feed_RGBD_frame` (ORB
-extraction on kernels A and B, undistortion, bearings, depth sampling for RGBD and the packed host mirror,
-all on the device), `frame_poses`, and for a monocular camera the mapping
-module, run inline after each feed (`enable_mapping_module`; the
-`KeyframeInserter` and `Mapping` config sections), with the BoW vocabulary
+mapping and loop-closing slices: `System(cfg, device="cuda",
+inline_mapping=False, vocab_path=None)` with `startup(need_initialize,
+warmup)` / `shutdown`, `create_monocular_frame` / `feed_monocular_frame` and
+`create_RGBD_frame` / `feed_RGBD_frame` (ORB extraction on kernels A and B,
+undistortion on kernel R, bearings, depth sampling for RGBD and the packed
+host mirror, all on the device), `frame_poses`, the publishers, and for a
+monocular camera the mapping module (`enable_mapping_module`; the
+`KeyframeInserter` and `Mapping` config sections) with the BoW vocabulary
 and database and the global optimization module behind it (the
 `LoopDetector` section; `enable_loop_detector`, `request_loop_closure`,
-`loop_BA_is_running`, `abort_loop_BA`): every mapped keyframe is checked for
-a loop, and a loop is corrected, inline. Mapping starts disabled; mapping of
-stereo and RGBD keyframes is not ported, nor the relocalizer;
+`loop_BA_is_running`, `abort_loop_BA`).
+
+By default the System is threaded, as the JAX package's is: the tracker
+pipelines its frames behind a finalize thread, the mapper runs keyframe
+events on its own thread and the loop closer on a third, each issuing its
+device work on a CUDA stream of its own, and every exception a worker
+thread contains is counted in `worker_errors`. `inline_mapping=True` is the
+deterministic mode the parity tests use: every frame is finalized, and the
+keyframe events and loop corrections it queued run to their end, before
+its feed returns. Mapping starts disabled; mapping of stereo and RGBD
+keyframes is not ported, nor the relocalizer and map IO;
 `feed_stereo_frame` raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -31,22 +42,29 @@ from stella_vslam_tpu_torch.feature.orb_params import OrbParams
 from stella_vslam_tpu_torch.global_optimization_module import GlobalOptimizationModule
 from stella_vslam_tpu_torch.mapping_module import MappingModule
 from stella_vslam_tpu_torch.module.keyframe_inserter import KeyframeInserter
+from stella_vslam_tpu_torch.publish.frame_publisher import FramePublisher
+from stella_vslam_tpu_torch.publish.map_publisher import MapPublisher
 from stella_vslam_tpu_torch.tracking_module import TrackingModule
+from stella_vslam_tpu_torch.util import streams
 
 
 class System:
-    def __init__(self, cfg: Config, device="cuda", inline_mapping: bool = True,
-                 vocab_path=None):
+    def __init__(self, cfg: Config, device="cuda", inline_mapping: bool = False,
+                 vocab_path=None, *, max_inflight: int = 16, inflight_mapper_busy: int = 10,
+                 max_lag_s: float = 0.15, ba_stride: int = 2):
         """`device`: where every per-frame tensor lives ("cuda" runs the
-        kernels; "cpu" runs their plain versions). Only the synchronous
-        (inline_mapping=True) mode is ported. `vocab_path`: a BoW vocabulary
-        in the .npz form (the packaged one by default)."""
-        if not inline_mapping:
-            raise NotImplementedError(
-                "threaded mapping is not ported yet (ROADMAP Queue 1 item 10)")
+        kernels; "cpu" runs their plain versions). `inline_mapping`: False
+        (the default) runs the tracker pipelined and the mapper and loop
+        closer on their own threads; True runs everything on the caller's
+        thread, deterministically. `vocab_path`: a BoW vocabulary in the .npz
+        form (the packaged one by default). The keyword arguments are the
+        JAX version's SVT_MAX_INFLIGHT, SVT_INFLIGHT_MAPPER_BUSY,
+        SVT_MAX_LAG_S and SVT_BA_STRIDE, with its defaults."""
         self.cfg = cfg
         self.device = torch.device(device)
         self.inline_mapping = inline_mapping
+        threaded_cuda = not inline_mapping and self.device.type == "cuda"
+        stream = lambda: streams.new_stream(self.device) if threaded_cuda else None
         self.camera: Camera = camera_from_yaml(cfg.section("Camera"))
         self.orb_params = OrbParams.from_yaml(cfg.section("Feature"))
         pre = cfg.section("Preprocessing")
@@ -72,7 +90,9 @@ class System:
             margin_local_map_projection=float(
                 tr.get("margin_local_map_projection", 5.0)),
             max_num_local_keyfrms=int(tr.get("max_num_local_keyfrms", 60)),
-        )
+            max_inflight=max_inflight, inflight_mapper_busy=inflight_mapper_busy,
+            max_lag_s=max_lag_s, stream=stream())
+        self.tracker.synchronous = inline_mapping
         self.tracker.keyfrm_inserter = KeyframeInserter.from_yaml(
             self.camera, cfg.section("KeyframeInserter"))
         self.mapper = None
@@ -87,7 +107,8 @@ class System:
                 baseline_dist_thr_ratio=float(mp.get("baseline_dist_thr_ratio", 0.01)),
                 baseline_dist_thr=(float(mp["baseline_dist_thr"])
                                    if "baseline_dist_thr" in mp else None),
-                max_num_local_keyfrms=self.tracker.max_num_local_keyfrms)
+                max_num_local_keyfrms=self.tracker.max_num_local_keyfrms,
+                ba_stride=ba_stride, synchronous_ba=inline_mapping, stream=stream())
             # culling thresholds live in the Mapping section (reference
             # local_map_cleaner.cc:9-14)
             cl = self.mapper.cleaner
@@ -110,7 +131,8 @@ class System:
                 num_final_matches_thr=int(ld.get("num_final_matches_threshold", 40)),
                 min_continuity=int(ld.get("min_continuity", 3)),
                 reject_by_graph_distance=bool(ld.get("reject_by_graph_distance", False)),
-                min_distance_on_graph=int(ld.get("min_distance_on_graph", 50))))
+                min_distance_on_graph=int(ld.get("min_distance_on_graph", 50))),
+            stream=stream())
         if not bool(ld.get("enabled", True)):
             self.global_optimizer.disable_loop_detector()
         self.global_optimizer.mapper = self.mapper
@@ -118,18 +140,109 @@ class System:
             self.mapper.bow_db = self.bow_db
             self.mapper.global_optimizer = self.global_optimizer
         self.map_db.on_erase_keyframe.append(self.bow_db.erase_keyframe)
+        self.frame_publisher = FramePublisher()
+        self.map_publisher = MapPublisher(self.map_db)
+        self.track_times = []
         self._running = False
+        self._terminate_is_requested = False
         cfg.log_collapse_report()
 
     # ------------------------------------------------------------------
-    def startup(self):
+    def startup(self, need_initialize: bool = True, warmup: bool = True):
+        """`warmup`: run every steady-state device program once before the
+        first frame (System.warmup). need_initialize=False starts Lost."""
+        if warmup:
+            self.warmup()
+        if not need_initialize:
+            self.tracker.state = "Lost"
+        if not self.inline_mapping:
+            if self.mapper is not None:
+                self.mapper.start()
+            self.global_optimizer.start()
         self._running = True
 
+    def warmup(self):
+        """The card's one-time costs before the first frame: the kernel
+        library's build and load, each stream's allocator pools, the
+        factorization library's set-up (the pose graph's Cholesky, 936 ms in
+        the first loop event without it). The CPU has none to pay."""
+        if self.device.type != "cuda":
+            return
+        n = self.extractor.num_slots
+        with streams.on(self.tracker.stream):
+            blank = np.zeros((self.camera.height, self.camera.width), np.uint8)
+            self._extract(blank, None)
+        self.tracker.warmup(n, self.map_db.device_table.capacity)
+        if self.mapper is not None:
+            self.mapper.warmup(n)
+        if self.global_optimizer.loop_detector_is_enabled():
+            self.global_optimizer.warmup()
+        torch.cuda.synchronize(self.device)
+
     def shutdown(self):
-        self._drain_mapper_inline()
+        """Finalize every frame, let the mapper and the loop closer finish
+        what is queued (a loop sitting in the queue is not dropped), stop the
+        threads."""
+        self.tracker.finalize_pending()
+        if self.inline_mapping:
+            self._drain_mapper_inline()
+        else:
+            deadline = time.monotonic() + 120.0
+            while time.monotonic() < deadline and not (
+                    (self.mapper is None or self.mapper.is_idle())
+                    and self.global_optimizer.is_idle()):
+                time.sleep(0.01)
+            if self.mapper is not None:
+                self.mapper.request_terminate()
+            self.global_optimizer.request_terminate()
+            if self.mapper is not None:
+                self.mapper.join()
+            self.global_optimizer.join()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._running = False
+
+    @property
+    def worker_errors(self) -> int:
+        """Exceptions the worker threads contained (finalize, mapping, loop
+        closing, loop BA); each is logged, and a healthy run has none."""
+        return len(self.worker_error_log)
+
+    @property
+    def worker_error_log(self) -> list:
+        mods = [self.tracker, self.mapper, self.global_optimizer]
+        return [e for m in mods if m is not None for e in m.errors]
+
+    def request_terminate(self):
+        """Asynchronous terminate request (reference system.h:180); honoured
+        at shutdown()."""
+        self._terminate_is_requested = True
+
+    def terminate_is_requested(self) -> bool:
+        return self._terminate_is_requested
+
+    def request_reset(self):
+        self.tracker.finalize_pending()
+        self.tracker.reset()
+        self.bow_db.clear()
+
+    def pause_tracker(self):
+        """Pause frame processing (reference system.h:159: the tracker
+        blocks; here later feeds are skipped until resume_tracker)."""
+        self.tracker.finalize_pending()
+        self.tracker.pause_is_requested = True
+
+    def tracker_is_paused(self) -> bool:
+        return self.tracker.pause_is_requested
+
+    def resume_tracker(self):
+        self.tracker.pause_is_requested = False
+
+    def get_frame_publisher(self):
+        return self.frame_publisher
+
+    def get_map_publisher(self):
+        return self.map_publisher
 
     def disable_mapping_module(self):
         self.tracker.mapping_is_enabled = False
@@ -140,6 +253,9 @@ class System:
                 "mapping of stereo and RGBD keyframes is not ported yet "
                 "(ROADMAP Queue 1 item 14)")
         self.tracker.mapping_is_enabled = True
+
+    def mapping_module_is_enabled(self) -> bool:
+        return self.tracker.mapping_is_enabled
 
     def enable_loop_detector(self):
         self.global_optimizer.enable_loop_detector()
@@ -161,18 +277,50 @@ class System:
         self.global_optimizer.abort_loop_BA()
 
     def pause_other_threads(self):
-        """Settle what the last feed left pending (inline mode has no other
-        threads: the queued keyframe events run to their end)."""
-        self._drain_mapper_inline()
+        """Threaded: ask the mapper to pause and wait until it has settled
+        its staged event and pending BA. Inline: run what the last feed
+        left queued."""
+        if self.inline_mapping or self.mapper is None:
+            self._drain_mapper_inline()
+            return
+        self.mapper.request_pause()
+        while not self.mapper.is_paused() and self.mapper._thread is not None \
+                and self.mapper._thread.is_alive():
+            time.sleep(0.002)
 
     def resume_other_threads(self):
-        """Nothing to resume in inline mode."""
+        if not self.inline_mapping and self.mapper is not None:
+            self.mapper.resume()
 
     def _drain_mapper_inline(self):
         """Run the keyframe events the last feed queued, and the loop
         detection of each (inline mapping)."""
         if self.mapper is not None:
             self.mapper.drain()
+
+    def _yield_to_mapper(self):
+        """When frames come faster than real time the caller's Python work
+        can starve the mapping thread of the interpreter lock and the local
+        map falls behind the motion: yield briefly while the mapper has
+        work (the analogue of the reference's backpressure veto,
+        keyframe_inserter.cc:59-62)."""
+        if self.mapper is not None and not self.mapper.is_idle():
+            time.sleep(0.002)
+
+    def _after_feed(self, img, frm, pose, t0: float, t_ext: float):
+        if self.inline_mapping:
+            self._drain_mapper_inline()
+        else:
+            self._yield_to_mapper()
+        self.track_times.append(time.perf_counter() - t0)
+        # references only: a viewer reads the frame's host mirror itself
+        # (reference system.cc:540-543 publishes the extraction and
+        # tracking wall times)
+        self.frame_publisher.update(img, frm, self.tracker.state,
+                                    extraction_time_ms=t_ext * 1e3,
+                                    tracking_time_ms=self.track_times[-1] * 1e3)
+        if pose is not None:
+            self.map_publisher.set_current_cam_pose(pose)
 
     @property
     def local_ba_ms(self):
@@ -198,10 +346,16 @@ class System:
         return frm
 
     def feed_monocular_frame(self, img, timestamp: float, mask=None):
-        """Initialize or track one frame, then run the keyframe events it
-        queued; returns its pose_cw, or None while initializing or lost."""
-        pose = self.tracker.feed_frame(self.create_monocular_frame(img, timestamp, mask))
-        self._drain_mapper_inline()
+        """Initialize or track one frame. Inline, the keyframe events it
+        queued run before it returns, and it returns the frame's pose_cw
+        (None while initializing or lost); threaded, see
+        TrackingModule.feed_frame."""
+        t0 = time.perf_counter()
+        with streams.on(self.tracker.stream):
+            frm = self.create_monocular_frame(img, timestamp, mask)
+            t_ext = time.perf_counter() - t0
+            pose = self.tracker.feed_frame(frm)
+        self._after_feed(img, frm, pose, t0, t_ext)
         return pose
 
     def feed_stereo_frame(self, img_left, img_right, timestamp: float, mask=None):
@@ -215,7 +369,7 @@ class System:
             raise ValueError("feed_RGBD_frame needs a camera with setup RGBD")
         feats, und, bear = self._extract(img, mask)
         cam = self.camera
-        depth_map = torch.from_numpy(np.asarray(depth, np.float32)).to(self.device)
+        depth_map = streams.upload(np.asarray(depth, np.float32), self.device)
         h, w = depth_map.shape
         xs = torch.clamp(feats.xy[:, 0].to(torch.int64), 0, w - 1)
         ys = torch.clamp(feats.xy[:, 1].to(torch.int64), 0, h - 1)
@@ -234,16 +388,23 @@ class System:
         return frm
 
     def feed_RGBD_frame(self, img, depth, timestamp: float, mask=None):
-        """Track one frame; returns its pose_cw, or None when lost."""
-        return self.tracker.feed_frame(
-            self.create_RGBD_frame(img, depth, timestamp, mask))
+        """Track one frame; inline, returns its pose_cw, or None when lost."""
+        t0 = time.perf_counter()
+        with streams.on(self.tracker.stream):
+            frm = self.create_RGBD_frame(img, depth, timestamp, mask)
+            t_ext = time.perf_counter() - t0
+            pose = self.tracker.feed_frame(frm)
+        self._after_feed(img, frm, pose, t0, t_ext)
+        return pose
 
     def _extract(self, img, mask):
         """(features, undistorted keypoints, bearings) of one image."""
         if mask is not None:
             raise NotImplementedError(
                 "extraction masks are not ported yet (ROADMAP Queue 1 item 14)")
-        image = torch.from_numpy(self._to_gray(img)).to(self.device, non_blocking=True)
+        # through pinned memory: a copy from pageable memory would make the
+        # host wait for the stream, i.e. for the frames still in flight
+        image = streams.upload(self._to_gray(img), self.device)
         feats = self.extractor.extract(image)
         und = self.camera.undistort(feats.xy)
         return feats, und, self.camera.bearings(und)

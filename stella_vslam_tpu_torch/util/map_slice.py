@@ -43,16 +43,18 @@ from stella_vslam_tpu_torch.util.synthetic import PlaneWorld
 EVENT_PHASES = ("triangulation", "fusion", "local_ba", "apply", "cull", "cull_publish")
 
 
-def make_system(world: PlaneWorld, device, loop_detector: bool = False) -> System:
-    """The bench's mono System with mapping enabled; the loop detector off
-    unless asked for (util/loop_slice.py runs the same leg with it on)."""
+def make_system(world: PlaneWorld, device, loop_detector: bool = False,
+                inline_mapping: bool = True) -> System:
+    """The bench's mono System with mapping enabled and warm; the loop
+    detector off unless asked for (util/loop_slice.py runs the same leg with
+    it on); inline unless asked otherwise (util/threaded_slice.py)."""
     cfg = Config.from_dict({
         "Camera": world.camera_yaml(),
         "Feature": {"num_levels": 8},
         "Initializer": {"use_fixed_seed": True},
         "LoopDetector": {"enabled": loop_detector},
     })
-    slam = System(cfg, device=device, inline_mapping=True)
+    slam = System(cfg, device=device, inline_mapping=inline_mapping)
     slam.enable_mapping_module()
     slam.startup()
     return slam
@@ -61,10 +63,12 @@ def make_system(world: PlaneWorld, device, loop_detector: bool = False) -> Syste
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the slice, by kernel name (each counts its
     launches)."""
+    from stella_vslam_tpu_torch.camera import base as cam_base
     from stella_vslam_tpu_torch.data import bow_vocabulary as bow
     from stella_vslam_tpu_torch.feature import orb_extractor as ox
     from stella_vslam_tpu_torch.match import hamming as H
     from stella_vslam_tpu_torch.module import mapping_kernels as mk
+    from stella_vslam_tpu_torch.module import tracking_kernels as tk
     from stella_vslam_tpu_torch.ops.optim import ba
     from stella_vslam_tpu_torch.ops.optim import pose as pose_mod
     from stella_vslam_tpu_torch.ops.optim import sim3
@@ -79,7 +83,10 @@ def kernel_wrappers() -> dict:
             "epipolar_top2": H.epipolar_top2, "triangulate": mk.triangulate_checks,
             "fuse": mk.fuse_scan, "bow_transform": bow.bow_transform,
             "pnp_ransac": pnp.pnp_hypotheses, "sim3_transform": sim3.sim3_transform,
-            "pose_graph": sim3.pose_graph_linearize}
+            "pose_graph": sim3.pose_graph_linearize,
+            "scatter_to_current": tk.scatter_to_current, "dedup_by_id": tk.dedup_by_id,
+            "rebase_chain": tk.rebase_chain, "reproject_gate": cam_base.reproject_gate,
+            "undistort_norm": cam_base.undistort_norm}
 
 
 def _pcts(v):

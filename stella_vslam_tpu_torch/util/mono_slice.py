@@ -46,16 +46,21 @@ def make_system(world: PlaneWorld, device) -> System:
     return slam
 
 
-def sim3_ate(est: np.ndarray, gt: np.ndarray):
-    """(RMS error after the Umeyama similarity alignment est -> gt, scale)."""
+def sim3_align(est: np.ndarray, gt: np.ndarray):
+    """(est after the Umeyama similarity alignment est -> gt, scale)."""
     mu_e, mu_g = est.mean(0), gt.mean(0)
     ec, gc = est - mu_e, gt - mu_g
     U, S, Vt = np.linalg.svd(gc.T @ ec / len(est))
     D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
     R = U @ D @ Vt
     s = np.trace(np.diag(S) @ D) / max((ec ** 2).sum() / len(est), 1e-12)
-    aligned = s * (R @ ec.T).T + mu_g
-    return float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, 1)))), float(s)
+    return s * (R @ ec.T).T + mu_g, float(s)
+
+
+def sim3_ate(est: np.ndarray, gt: np.ndarray):
+    """(RMS error after the Umeyama similarity alignment est -> gt, scale)."""
+    aligned, s = sim3_align(est, gt)
+    return float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, 1)))), s
 
 
 def trajectory_stats(frame_poses, gt_xy):

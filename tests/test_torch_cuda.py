@@ -453,8 +453,8 @@ def test_pose_graph_kernel_matches_plain(dev, K, Kp, Ep):
 @pytest.mark.parametrize("K", [32, 40, 64, 128])
 def test_ba_kernels_match_plain_at_global_shape(dev, K):
     """One Huber stage of 16 at D = 16: K = 32 factors in shared memory and
-    sums the Schur terms in a block's copy, K = 40 is the first size that
-    sums them in device memory, K = 64 and 128 factor there too."""
+    sums the Schur terms in a block's copy, K = 40 sums them in device
+    memory (every K from 39 on), K = 64 and 128 factor there too."""
     import chip_smoke
 
     prob, cam = chip_smoke._ba_problem(dev, K, 1024, 16, False, K, spacing=0.1, ordered=True)
@@ -462,3 +462,135 @@ def test_ba_kernels_match_plain_at_global_shape(dev, K):
     assert w["f_excess"] < 1.0 and w["g_backward"] < 1e-3 and w["g_pose"] < 1e-5
     assert w["point_share"] < 1.0 and w["cost_rel"] < 1e-4
     assert w["decisions"] == 0 and w["flags"] == 0
+
+
+@pytest.mark.parametrize("M,N", [(1, 1), (37, 20), (2872, 2872), (4096, 2872)])
+def test_scatter_to_current_kernel_matches_plain(dev, M, N):
+    """Kernel Q's scatter: strided slot indices and ids, table rows as they
+    are packed; every output equal to the plain version's."""
+    import chip_smoke
+    from stella_vslam_tpu_torch.module import tracking_kernels as tk
+
+    best, acc, tbl, ids = chip_smoke._assoc_problem(dev, M, N, M + N)
+    before = tk.scatter_to_current.launches
+    k = tk.scatter_to_current(best[:, 1], acc, tbl[:, 0:3], ids[:, 8], N)
+    p = tk.scatter_to_current_plain(best[:, 1], acc, tbl[:, 0:3], ids[:, 8], N)
+    assert tk.scatter_to_current.launches == before + 1
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("N", [1, 50, 2872, 4096])
+def test_dedup_by_id_kernel_matches_plain(dev, N):
+    """Kernel Q's dedup with repeated ids, equal scores (ties to the lowest
+    slot), id -1 among the held slots and all-invalid rows."""
+    from stella_vslam_tpu_torch.module import tracking_kernels as tk
+
+    g = torch.Generator().manual_seed(N)
+    has = (torch.rand(N, generator=g) < 0.8).to(dev)
+    ids = torch.randint(-1, max(2, N // 4), (N,), generator=g, dtype=torch.int32).to(dev)
+    score = torch.randint(0, 6, (N,), generator=g).to(torch.float32).to(dev)
+    score = torch.where(has, score, torch.full_like(score, float("inf")))
+    for h in (has, torch.zeros_like(has)):
+        k = tk.dedup_by_id(h, ids, score)
+        p = tk.dedup_by_id_plain(h, ids, score)
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+@pytest.mark.parametrize("N,C", [(8, 8), (2872, 4096)])
+def test_rebase_chain_kernel_matches_plain(dev, N, C):
+    """Kernel Q's rebase: ids absent from the table, ids repeated in it
+    (the lowest row wins), -1 ids on both sides; ints equal, poses within
+    1e-6."""
+    from stella_vslam_tpu_torch.module import tracking_kernels as tk
+
+    g = torch.Generator().manual_seed(C)
+    la_id = torch.randint(-1, 3 * C // 2, (N,), generator=g, dtype=torch.int32)
+    tbl_u32 = torch.randint(0, 1 << 30, (C, 10), generator=g, dtype=torch.int32)
+    tbl_u32[:, 8] = torch.randint(-1, C, (C,), generator=g, dtype=torch.int32)
+    args = [torch.randn(N, 3, generator=g), torch.rand(N, generator=g) < 0.9, la_id,
+            torch.randn(C, 8, generator=g), tbl_u32] + \
+        [torch.linalg.qr(torch.randn(3, 3, generator=g))[0] if i % 2 == 0
+         else torch.randn(3, generator=g) for i in range(6)]
+    args = [a.to(dev).contiguous() for a in args]
+    k = tk.rebase_chain(*args)
+    p = tk.rebase_chain_plain(*args)
+    for a, b in zip(k[:3], p[:3]):
+        assert torch.equal(a, b)
+    for a, b in zip(k[3:], p[3:]):
+        assert float((a - b).abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("M", [1, 300, 4096])
+def test_reproject_gate_kernel_matches_plain(dev, M):
+    """Kernel R's projection of points and of a packed table: uv and x_right
+    within 1e-5 relative (of at least 100 px); flags and predicted levels equal except where
+    the deciding quantity lies within 1e-6 of its threshold (none here)."""
+    from stella_vslam_tpu_torch.camera import base as cb
+
+    g = torch.Generator().manual_seed(M)
+    p = cb.make_params(fx=458.0, fy=457.0, cx=376.0, cy=240.0, width=752, height=480,
+                       focal_x_baseline=458.0 * 0.12)
+    R = torch.linalg.qr(torch.eye(3) + 0.05 * torch.randn(3, 3, generator=g))[0]
+    R = R * torch.sign(torch.det(R))
+    t = torch.tensor([0.1, -0.2, 0.3])
+    # depths 1-6 m in front, a tenth of the points 1.5-6 m behind the camera
+    # (a depth near 0 turns an ulp of z into pixels: no tracked point sits there)
+    z = torch.rand(M, 1, generator=g) * 5.0 + 1.0
+    z = torch.where(torch.rand(M, 1, generator=g) < 0.1, -(z + 0.5), z)
+    pos = torch.cat([torch.rand(M, 2, generator=g) * 8 - 4, z], 1)
+    normal = torch.nn.functional.normalize(torch.randn(M, 3, generator=g), dim=1)
+    dist = torch.linalg.norm(pos, dim=1, keepdim=True)
+    # min / max distances at random factors of the true distance, so that no
+    # gate or level sits on its threshold by construction
+    f = torch.rand(M, 2, generator=g)
+    tbl = torch.cat([pos, normal, (0.9 + 0.6 * f[:, :1]) * dist, (0.8 + 2.0 * f[:, 1:]) * dist], 1)
+    tbl_u32 = torch.zeros(M, 10, dtype=torch.int32)
+    tbl_u32[:, 9] = (torch.rand(M, generator=g) < 0.9).to(torch.int32)
+    R, t, pos, tbl, tbl_u32 = (a.to(dev).contiguous() for a in (R, t, pos, tbl, tbl_u32))
+    for a, kw in (((pos,), {}), ((tbl, tbl_u32), dict(log_scale=float(np.log(np.float32(1.2))),
+                                                     num_levels=8))):
+        k = cb.reproject_gate(p, R, t, *a, **kw)
+        q = cb.reproject_gate_plain(p, R, t, *a, **kw)
+        # relative to the value, at least 100 px (near u = 0, fx x / z + cx
+        # cancels and an ulp of cx is 3e-5 px)
+        assert float(((k[0] - q[0]).abs() / q[0].abs().clamp(min=100.0)).max()) < 1e-5
+        assert float(((k[3] - q[3]).abs() / q[3].abs().clamp(min=100.0)).max()) < 1e-5
+        assert torch.equal(k[2], q[2])
+        if k[4] is not None:
+            assert torch.equal(k[4], q[4])
+
+
+def test_undistort_norm_kernel_matches_plain(dev):
+    from stella_vslam_tpu_torch.camera import base as cb
+
+    p = cb.make_params(fx=458.654, fy=457.296, cx=367.215, cy=248.375, k1=-0.28340811,
+                       k2=0.07395907, p1=0.00019359, p2=1.76187114e-05, width=752, height=480)
+    g = torch.Generator().manual_seed(0)
+    pts = (torch.rand(2872, 2, generator=g) * torch.tensor([752.0, 480.0])).to(dev)
+    k, q = cb.undistort_norm(p, pts), cb.perspective_undistort(p, pts)
+    assert float(((k - q).abs() / q.abs().clamp(min=100.0)).max()) < 1e-5
+
+
+@pytest.mark.parametrize("K,L,D", [(2, 4096, 2), (16, 4096, 12), (32, 1024, 16), (64, 1024, 16)])
+def test_ba_kernels_repeat_bit_for_bit(dev, K, L, D):
+    """Kernels F-I twice on the same problem: the same bits (F's sums and H's
+    trial cost run in a fixed order)."""
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    prob, cam = _ba_problem(dev, K, L, D, False, spacing=0.1, ordered=K > 2)
+    a = ba.bundle_adjust(prob, cam, num_first=5, num_second=5)
+    b = ba.bundle_adjust(prob, cam, num_first=5, num_second=5)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_pose_graph_kernel_repeats_bit_for_bit(dev):
+    import chip_smoke
+    from stella_vslam_tpu_torch.ops.optim import sim3
+
+    args = chip_smoke._graph_problem(dev, 30, 32, 128, 5)
+    a = sim3.optimize_pose_graph(*args)
+    b = sim3.optimize_pose_graph(*args)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

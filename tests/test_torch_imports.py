@@ -26,6 +26,10 @@ LOOP_MODULES = tuple("stella_vslam_tpu_torch." + m for m in (
     "global_optimization_module", "module.loop_detector", "data.bow_vocabulary",
     "data.bow_database", "ops.solve.pnp", "ops.optim.sim3", "match.projection",
     "util.drift", "util.loop_slice"))
+THREADED_MODULES = tuple("stella_vslam_tpu_torch." + m for m in (
+    "tracking_module", "system", "module.tracking_kernels", "camera.base", "util.perf",
+    "util.streams", "util.threaded_slice", "publish.frame_publisher",
+    "publish.map_publisher"))
 
 
 def test_port_imports_without_jax_cv2_yaml():
@@ -43,7 +47,7 @@ def test_port_imports_without_jax_cv2_yaml():
         missing = set(MAPPING_MODULES) - set(mods)
         assert not missing, missing
         print(len(mods))
-    """).replace("MAPPING_MODULES", repr(MAPPING_MODULES + LOOP_MODULES))
+    """).replace("MAPPING_MODULES", repr(MAPPING_MODULES + LOOP_MODULES + THREADED_MODULES))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -148,3 +152,14 @@ def test_public_constructors_default_to_the_card():
                 "GlobalOptimizationModule", "LoopDetector", "BowVocabulary"}
     assert expected <= set(found), sorted(found)
     assert all(v == "cuda" for v in found.values()), found
+
+
+def test_system_is_threaded_by_default_as_in_jax():
+    """`System(cfg)` means the same in both packages: the threaded System
+    (inline_mapping defaults to False in each signature)."""
+    from stella_vslam_tpu.system import System as JSystem
+    from stella_vslam_tpu_torch.system import System
+
+    ours = inspect.signature(System.__init__).parameters["inline_mapping"].default
+    theirs = inspect.signature(JSystem.__init__).parameters["inline_mapping"].default
+    assert ours is theirs is False

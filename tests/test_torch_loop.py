@@ -170,7 +170,7 @@ def test_port_loop_closure_end_to_end():
     map aligns no better than 0.25 m; measured 0.021 m)."""
     world = PlaneWorld(width=400, height=300, fx=320.0, depth=4.0, tex_size=2048,
                        meters_per_px=0.01)
-    slam = System(Config.from_dict(cfg_dict(world)), device="cpu")
+    slam = System(Config.from_dict(cfg_dict(world)), device="cpu", inline_mapping=True)
     slam.enable_mapping_module()
     slam.startup()
     xs_out = [i * 0.1 for i in range(65)]

@@ -131,7 +131,7 @@ def runs():
     js.shutdown()
     out["jax_e2e"] = _by_feed_order(js, N_FRAMES)
     # ---- the port end to end ----
-    ts = System(Config.from_dict(cfg_dict(world)), device="cpu")
+    ts = System(Config.from_dict(cfg_dict(world)), device="cpu", inline_mapping=True)
     ts.tracker.initializer.seed_source = jax_seed_source()
     ts.enable_mapping_module()
     ts.startup()

@@ -56,7 +56,7 @@ def runs():
     jslam.disable_mapping_module()
     jslam.tracker.mapper = None  # the mapper's pass must not touch the map
     jslam.startup()
-    tslam = System(Config.from_dict(cfg_dict(world)), device="cpu")
+    tslam = System(Config.from_dict(cfg_dict(world)), device="cpu", inline_mapping=True)
     tslam.tracker.initializer.seed_source = jax_seed_source()
     tslam.disable_mapping_module()
     tslam.startup()

@@ -62,7 +62,7 @@ def run_both():
     jslam.disable_mapping_module()
     jslam.tracker.mapper = None  # the mapper's pass must not touch the map
     jslam.startup()
-    tslam = System(Config.from_dict(_cfg(world)), device="cpu")
+    tslam = System(Config.from_dict(_cfg(world)), device="cpu", inline_mapping=True)
     tslam.disable_mapping_module()
     tslam.startup()
     for i, img in enumerate(images):
