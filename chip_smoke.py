@@ -60,7 +60,8 @@ Phases, each fatal on failure (nothing is caught):
      backward error below 1e-3 in float64 (n^2 eps for the 96 x 96 system)
      and its trial poses within 1e-5, H's trial cost within 1e-4 relative
      and each trial point within 1e-3 or, where larger, 1e-4 rad of its ray
-     sensitivity (depth^2 / baseline), the same accept / stop decisions
+     sensitivity (depth^2 / baseline) of H in float64 on the same step
+     (plain H's own distance printed), the same accept / stop decisions
      and outlier flags wherever the deciding quantity lies more than 1e-5
      from its threshold; the whole BA of each, kernel against plain and
      each against itself, is printed; times and bounds as in phase 4.
@@ -114,9 +115,27 @@ Phases, each fatal on failure (nothing is caught):
      dispatch (torch's sync debug mode on frames 300-340, by file:line);
      then kernel Q against plain on the slice's recorded inputs (a sample
      of the scatters and dedups, every rebase).
+ 15. kernel S (csrc/resize.cu: the pyramid resize), B's strip mode and
+     kernel T (csrc/stereo_match.cu: the stereo matcher) against their plain
+     versions at the stereo leg's shapes (run with phase 3): S against the
+     two torch.matmul per level (cuBLAS) with max |diff| <= 1e-4, the pixels
+     that differ, the pixels that differ from the CPU's matmul, and kernel
+     A's cell keys that move (<= 0.5%); B's strips equal; T on synthetic
+     inputs at 2872 x 2872 and on a rendered pair: matched flags equal
+     except at a threshold (counted), x_right and depth within 1e-5
+     relative; kernel O in its fixed-scale mode against plain;
+ 16. bench.py's stereo leg and its RGBD leg with mapping (util/
+     stereo_slice.py): the default threaded System, 640 frames each (400
+     out, 240 back on fresh rows), with the bench's gates (at most 8 frames
+     lost after init, scale error < 5%, rigid ATE < 0.10 m), at least one
+     keyframe event, nothing left at shutdown, no worker exception, the
+     path's kernels launched; frame time, keyframe events by phase; then T
+     against plain on every 20th call of the stereo leg.
 Launch counts are set to 0 just before each slice and read just after it;
-the kernels line reports the threaded slice's (this slice's main path,
-which runs every kernel), with the loop, mono and RGBD slices' beside them.
+the kernels line's `launches` is the count on the path of the slice that
+ported the kernel (the stereo leg for S, B's strip mode and T; the threaded
+slice, which runs every earlier kernel, for the rest), with every slice's
+count beside it.
 The line before the last is {"kernels": [...]}, the one before it
 "slices: {...}" with each slice's result in short; the last line is
 {"ok": true, "device": {...}}. Long logs go to chiprun_out/.
@@ -141,6 +160,10 @@ FP32_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 MAPPING_KERNELS = ("epipolar_top2", "triangulate", "fuse")
 # kernels M-P: the loop closer's (M runs with the mapper's keyframe events)
 LOOP_KERNELS = ("bow_transform", "pnp_ransac", "sim3_transform", "pose_graph")
+# the stereo path's own: B's strip mode and T (S runs on every path)
+STEREO_KERNELS = ("orb_describe_strips", "stereo_match")
+# the kernels line's rows whose launches are the stereo leg's
+STEREO_PATH_ROWS = ("resize_level",) + STEREO_KERNELS
 
 
 def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -627,8 +650,12 @@ def _lockstep_ba(prob, cam, num_first, num_second):
     baseline raises to 1e7 at small damping. G on F's system: the backward error of its step against that
     system in float64 (the step itself differs from plain G's by the
     system's condition number times float32 rounding), and its trial poses
-    against Exp(step) composed by plain G. H on G's step against plain H on
-    the same step: trial points and cost. I against plain I. The accept /
+    against Exp(step) composed by plain G. H on G's step: its trial points
+    against H in float64 on the same step (a point's float32 3x3 inverse
+    carries the same condition-number error as F's, in plain H as in the
+    kernel, so plain H is no closer to the truth: "point_share_plain" is
+    its own distance), and its trial cost against plain H's. I against
+    plain I. The accept /
     stop decisions and the outlier flags count where they differ although
     their deciding quantity lies more than 1e-5 (relative) from its
     threshold. Returns the worst of each over the iterations."""
@@ -644,7 +671,8 @@ def _lockstep_ba(prob, cam, num_first, num_second):
     parts = ("Hcc", "b_c", "S_red", "rhs_red", "cost")
     out = dict({f"f_{n}{w}": 0.0 for n in parts for w in ("", "_plain")}, f_excess=0.0,
                g_backward=0.0, g_backward_plain=0.0, g_pose=0.0, g_step_diff=0.0,
-               point_share=0.0, cost_rel=0.0, decisions=0, flags=0, iterations=0)
+               point_share=0.0, point_share_plain=0.0, cost_rel=0.0, decisions=0, flags=0,
+               iterations=0)
     state = lambda: (st.cam_R.reshape(K, 3, 3).clone(), st.cam_t.clone(), st.lm.clone())
     iu = torch.triu_indices(6, 6, device=prob.cam_R.device)
     worst = lambda key, v: out.__setitem__(key, max(out[key], float(v)))
@@ -687,8 +715,8 @@ def _lockstep_ba(prob, cam, num_first, num_second):
             Hcc_k[:, iu[0], iu[1]] = hc[:, :21]
             Hcc_k[:, iu[1], iu[0]] = hc[:, :21]
             b_c_k, S_k, rhs_k = hc[:, 21:], st.S.clone(), st.rhs.clone()
-            c64, *f64 = ba.linearize_schur_plain(prob64, cam, R.double(), t.double(),
-                                                 p.double(), inlier, lam.double(), use_huber)[:5]
+            c64, *f64, terms64 = ba.linearize_schur_plain(
+                prob64, cam, R.double(), t.double(), p.double(), inlier, lam.double(), use_huber)
             scale = _f_scale(prob, cam, R, t, p, inlier, lam, use_huber) + (c0,)
             for name, u, v, e, m in zip(parts, (Hcc_k, b_c_k, S_k, rhs_k, st.ctrl[ba._COST0]),
                                         (Hcc, b_c, S_red, rhs_red, c0), f64 + [c64], scale):
@@ -714,9 +742,14 @@ def _lockstep_ba(prob, cam, num_first, num_second):
                                              inlier, use_huber)
             ba.ba_backsub_cost(st, inl, use_huber)
             if bool(twice.any()):
+                pn64, _ = ba.backsub_cost_plain(prob64, cam, p.double(), terms64,
+                                                st.dx.double(), Rn_k.double(), tn_k.double(),
+                                                inlier, use_huber)
                 trial = ba.BAResult(Rn_k, tn_k, pn, None, None)
                 allow = torch.clamp(1e-4 * _ray_sensitivity(prob, trial, seen), min=1e-3)
-                worst("point_share", ((st.lmn - pn).abs().amax(-1) / allow)[twice].max())
+                share = lambda q: ((q.double() - pn64).abs().amax(-1) / allow)[twice].max()
+                worst("point_share", share(st.lmn))
+                worst("point_share_plain", share(pn))
             c0, cost = float(c0), float(cost)
             worst("cost_rel", abs(float(st.ctrl[ba._LAST_COST]) - cost) / max(cost, 1e-12))
             # kernel H halves lambda on an accepted step and multiplies it by 4
@@ -1007,7 +1040,7 @@ def check_mapping_kernels(dev, mapper, inputs):
     # poses by more than 1e-4 between two runs of the plain BA (printed
     # below). So each kernel runs on the same inputs as its plain version:
     # F's system is held against float64, G's step by its backward error,
-    # and H runs on G's step in both versions. A point seen from a short baseline is nearly free along its rays: it
+    # and H's trial points against H in float64 on G's step. A point seen from a short baseline is nearly free along its rays: it
     # moves depth^2 / baseline per radian of pose difference (160 m/rad at
     # 4 m over 0.1 m), so each trial point is held to 1e-3 or, where larger,
     # to 1e-4 rad (the poses' own bound) of that.
@@ -1111,7 +1144,8 @@ def run_loop_slice(dev, world, wrappers, card):
     assert stats["loop_edges"], "no loop edge in the graph"
     assert all(stats["frame_after_loop_tracked"]), "the frame after a correction was lost"
     for name, n in launches.items():
-        assert n > 0 or name in THREADED_KERNELS, f"{name} was not launched by the loop slice"
+        assert n > 0 or name in THREADED_KERNELS + STEREO_KERNELS, \
+            f"{name} was not launched by the loop slice"
     return stats, launches, slam, inputs, loop_calls
 
 
@@ -1994,7 +2028,7 @@ def run_threaded_slice(dev, world, wrappers, card):
     assert not st["staged_event"] and st["queued"] == 0 and not st["pending_ba"] \
         and st["loop_queue"] == 0, f"work left at shutdown: {st}"
     for name, n in launches.items():
-        assert n > 0, f"{name} was not launched by the threaded slice"
+        assert n > 0 or name in STEREO_KERNELS, f"{name} was not launched by the threaded slice"
     return stats, launches, slam, calls
 
 
@@ -2010,6 +2044,300 @@ def check_recorded_assoc(calls):
           f"ran), ints exact, poses within {err:.3g}")
     return err
 
+
+
+def _stereo_inputs(dev, ex, world, x=0.6):
+    """A rendered stereo pair of the bench's world through the pair
+    extraction: (the matcher's positional arguments, its keywords)."""
+    import torch
+
+    from stella_vslam_tpu_torch.util.drift import pose_at_xy
+    from stella_vslam_tpu_torch.util.stereo_slice import BASELINE
+
+    T = pose_at_xy(x, 0.0)
+    Tb = np.eye(4)
+    Tb[0, 3] = -BASELINE
+    left = torch.from_numpy(world.render(T)).to(dev)
+    right = torch.from_numpy(world.render(Tb @ T)).to(dev)
+    (fl, sl), (fr, sr) = ex.extract_pair_with_patches(left, right)
+    fxb = float(np.float32(world.fx * BASELINE))
+    kw = dict(scale_factors=torch.tensor(ex.params.scale_factors, dtype=torch.float32,
+                                         device=dev),
+              focal_x_baseline=fxb, true_baseline=fxb / float(np.float32(world.fx)))
+    return (fl.xy, fl.level, fl.desc, fl.valid, sl, fr.xy, fr.level, fr.desc, fr.valid, sr), kw
+
+
+def _synthetic_stereo(dev, n=2872, seed=5):
+    """Matcher inputs at the slice's width: n keypoints per image at the
+    bench's size and levels, 80% of the right ones true matches of a left
+    one (disparity 0-60 px, a few flipped bits, the strip shifted by -5..5
+    px), the rest random; ties, empty rows and border shifts included."""
+    import torch
+
+    from stella_vslam_tpu_torch.feature.orb_params import OrbParams
+
+    rng = np.random.default_rng(seed)
+    L = 8
+    l_xy = np.stack([rng.uniform(20, 732, n), rng.uniform(20, 460, n)], -1)
+    l_xy[:50, 1] = 479.5  # a row band with no right keypoint
+    l_lvl = rng.integers(0, L, n)
+    l_desc = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32)
+    l_strip = rng.integers(0, 256, (n, 11, 21))
+    r_xy = np.stack([rng.uniform(0, 752, n), rng.uniform(20, 460, n)], -1)
+    r_lvl = rng.integers(0, L, n)
+    r_desc = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32)
+    r_strip = rng.integers(0, 256, (n, 11, 21))
+    src = rng.permutation(np.arange(50, n))[:int(0.8 * n)]
+    for j, i in enumerate(src):
+        r_xy[j] = (l_xy[i, 0] - rng.uniform(0, 60), l_xy[i, 1] + rng.uniform(-1.5, 1.5))
+        r_lvl[j] = np.clip(l_lvl[i] + rng.integers(-1, 2), 0, L - 1)
+        flips = np.bitwise_and.reduce(
+            rng.integers(0, 2 ** 32, (3, 8), dtype=np.uint64).astype(np.uint32), axis=0)
+        r_desc[j] = l_desc[i] ^ flips
+        r_strip[j] = np.clip(np.roll(l_strip[i], int(rng.integers(-5, 6)), axis=1)
+                             + rng.integers(-3, 4, (11, 21)), 0, 255)
+    dup = slice(int(0.8 * n), int(0.8 * n) + 100)
+    r_xy[dup], r_lvl[dup], r_desc[dup] = r_xy[:100], r_lvl[:100], r_desc[:100]
+    t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a).astype(dt), device=dev)
+    valid = lambda: t(rng.random(n) < 0.95, bool)
+    fxb = float(np.float32(458.0 * 0.12))
+    kw = dict(scale_factors=t(OrbParams(num_levels=L).scale_factors, np.float32),
+              focal_x_baseline=fxb, true_baseline=fxb / 458.0)
+    return (t(l_xy, np.float32), t(l_lvl, np.int32), t(l_desc.view(np.int32), np.int32),
+            valid(), t(l_strip, np.uint8), t(r_xy, np.float32), t(r_lvl, np.int32),
+            t(r_desc.view(np.int32), np.int32), valid(), t(r_strip, np.uint8)), kw
+
+
+def _check_stereo_call(args, kw, label, verbose=True):
+    """Kernel T against its plain version on one call: matched flags equal
+    except where the deciding quantity sits at its threshold (a disparity
+    within 1e-3 of 0 or of max_disp, a SAD within 1e-3 of twice the mean;
+    counted); x_right and depth within 1e-5 relative. Returns (rows
+    differing, the largest relative error, matched rows, candidate pairs)."""
+    import torch
+
+    from stella_vslam_tpu_torch.match import stereo as st
+
+    xk, dk = st.stereo_match(*args, **kw)
+    xp, dp = st.stereo_match_plain(*args, **kw)
+    pre, sad, disp = st.stereo_refine_plain(*args, **kw)
+    torch.cuda.synchronize()
+    mk, mp = dk > 0, dp > 0
+    differ = mk != mp
+    max_disp = st.max_disparity(kw["focal_x_baseline"], kw["true_baseline"])
+    two_mean = 2.0 * float(st.filter_mean(pre, sad))
+    at_thr = differ & (((disp - max_disp).abs() < 1e-3) | (disp.abs() < 1e-3)
+                       | ((sad.float() - two_mean).abs() < 1e-3))
+    both = mk & mp
+    rel = lambda a, b: float(((a - b).abs() / b.abs().clamp(min=1e-6))[both].max()) \
+        if bool(both.any()) else 0.0
+    err = max(rel(xk, xp), rel(dk, dp))
+    l_xy, l_lvl, l_valid, r_xy, r_lvl, r_valid = args[0], args[1], args[3], args[5], \
+        args[6], args[8]
+    d = l_xy[:, None, 0] - r_xy[None, :, 0]
+    cand = ((r_xy[None, :, 1] - l_xy[:, None, 1]).abs()
+            <= 2.0 * kw["scale_factors"][r_lvl.long()][None]) \
+        & (d >= 0) & (d < max_disp) & ((l_lvl[:, None] - r_lvl[None]).abs() <= 1) \
+        & l_valid[:, None] & r_valid[None]
+    n_diff, n_thr = int(differ.sum()), int(at_thr.sum())
+    if verbose:
+        print(f"kernel T stereo_match {label}: {int(mk.sum())} matched (plain {int(mp.sum())}), "
+              f"flags differing {n_diff} ({n_thr} at a threshold), x_right / depth max rel "
+              f"err {err:.3g}, candidate pairs {int(cand.sum())}")
+    assert n_diff == n_thr, f"kernel T disagrees with plain off a threshold ({label})"
+    assert err <= 1e-5, f"kernel T x_right / depth disagree ({label})"
+    return n_diff, err, int(mk.sum()), int(cand.sum())
+
+
+def check_stereo_kernels(dev, world):
+    """Kernel S (the pyramid resize), B's strip mode and kernel T (the
+    stereo matcher) against their plain versions at the stereo leg's
+    shapes, and kernel O in its fixed-scale mode (the stereo and RGBD loop
+    path). Returns rows of the kernels line."""
+    import torch
+
+    from stella_vslam_tpu_torch.feature import orb_extractor as ox
+    from stella_vslam_tpu_torch.feature.orb_params import OrbParams
+    from stella_vslam_tpu_torch.match import stereo as st
+    from stella_vslam_tpu_torch.util.drift import pose_at_xy
+
+    rows = []
+    params = OrbParams(num_levels=8)
+    ex = ox.OrbExtractor(params, 752, 480, min_area=800, device=dev)
+    ex_cpu = ox.OrbExtractor(params, 752, 480, min_area=800, device="cpu")
+    imgs = [torch.from_numpy(world.render(pose_at_xy(x, 0.0))).to(dev) for x in (0.6, 3.0)]
+    pair = torch.stack(imgs)
+
+    # ---- S: the pyramid, against the two torch.matmul per level ----
+    thr = (float(params.ini_fast_thr), float(params.min_fast_thr))
+    n_px = n_diff = n_cpu_diff = keys = keys_moved = 0
+    max_diff = 0.0
+    for img in imgs:
+        pk, pp = ex.pyramid(img), ex.pyramid_plain(img)
+        pc = ex_cpu.pyramid_plain(img.cpu())
+        for lvl, (a, b, c, g) in enumerate(zip(pk, pp, pc, ex.levels)):
+            if lvl:
+                n_px += a.numel()
+                n_diff += int((a != b).sum())
+                n_cpu_diff += int((a.cpu() != c).sum())
+                max_diff = max(max_diff, float((a - b).abs().max()))
+            ka = ox.fast_nms(a.contiguous(), g, ex.border, *thr)
+            kb = ox.fast_nms(b.contiguous(), g, ex.border, *thr)
+            keys += ka.numel()
+            keys_moved += int((ka != kb).sum())
+    torch.cuda.synchronize()
+    print(f"kernel S resize_level: levels 1-7 of 2 frames, {n_px} pixels: {n_diff} "
+          f"({n_diff / n_px:.4%}) differ from cuBLAS's matmul, max |diff| {max_diff:.3g}; "
+          f"{n_cpu_diff} differ from the CPU's matmul; kernel A's cell keys moved "
+          f"{keys_moved} of {keys} ({keys_moved / keys:.4%})")
+    assert max_diff <= 1e-4, "kernel S disagrees with the matmul pyramid"
+    assert keys_moved <= 0.005 * keys, "kernel S moves kernel A's keys"
+    lvl_px = [g.H * g.W for g in ex.levels]
+    s_bytes = 2 * 4.0 * sum(lvl_px[l - 1] + lvl_px[l] for l in range(1, len(lvl_px)))
+    plain_pair = lambda: [ex.pyramid_plain(i) for i in imgs]
+    plain_ms = _median_ms(plain_pair)
+    rows.append(dict(
+        name="resize_level", route="cuda", source="stella_vslam_tpu_torch/csrc/resize.cu",
+        replaces="stella_vslam_tpu/feature/orb_extractor.py:118",
+        max_abs_err=max_diff, pixels_differing_cublas=n_diff, pixels=n_px,
+        pixels_differing_cpu_matmul=n_cpu_diff, fast_keys_moved=keys_moved, fast_keys=keys,
+        shape="2 x 752x480, 8 levels (the stereo pair)",
+        ms=_median_ms(lambda: ex.pyramid_flat(pair)),
+        ms_one_image=_median_ms(lambda: ex.pyramid_flat(pair[:1])),
+        plain_ms=plain_ms, library_ms=plain_ms,
+        **_bound(s_bytes, 2 * 6.0 * sum(lvl_px[1:]))))
+
+    # ---- B's strip mode: both images of a pair ----
+    pyr = ex.pyramid_flat(pair)
+    pts = [ex.cell_keypoints(ox.fast_nms(v, g, ex.border, *thr), g)
+           for v, g in zip(ex.level_views(pyr), ex.levels)]
+    px, py, valid, _ = (torch.cat(c, dim=-1) for c in zip(*pts))
+    base, hh, ww = ex._slots(2)
+    bargs = (pyr.reshape(-1), base, hh, ww, px.reshape(-1).int().contiguous(),
+             py.reshape(-1).int().contiguous(), valid.reshape(-1).contiguous(), ex._tables)
+    ak, dk, sk = ox.orb_describe_strips(*bargs)
+    ap, dp, sp = ox.orb_describe_plain(*bargs, strips=True)
+    torch.cuda.synchronize()
+    v = bargs[6]
+    strips_equal = bool(torch.equal(sk[v], sp[v]))
+    x = (dk ^ dp)[v].cpu().numpy()
+    bit_rate = float(np.unpackbits(x.view(np.uint8)).sum()) / max(1, x.size * 32)
+    err_b = float((ak - ap).abs().max())
+    print(f"kernel B orb_describe_strips: {int(v.sum())} keypoints of a pair, strips equal "
+          f"{strips_equal}, descriptor bit mismatch {bit_rate:.6f}, max |angle diff| {err_b:.3g}")
+    assert strips_equal, "kernel B's strips disagree with plain"
+    assert bit_rate <= DESC_MISMATCH_BOUND and err_b < 1e-3, "kernel B disagrees"
+    n_valid = int(v.sum())
+    rows.append(dict(
+        name="orb_describe_strips", route="cuda",
+        source="stella_vslam_tpu_torch/csrc/orb_describe.cu",
+        replaces="stella_vslam_tpu/feature/orb_extractor.py:284-296 (extract_with_patches)",
+        max_abs_err=err_b, strips_equal=strips_equal, desc_bit_mismatch=bit_rate,
+        shape="2 x 2872 slots",
+        ms=_median_ms(lambda: ox.orb_describe_strips(*bargs)),
+        plain_ms=_median_ms(lambda: ox.orb_describe_plain(*bargs, strips=True), reps=5),
+        library_ms=None,
+        **_bound(4.0 * pyr.numel() + (36.0 + 231.0) * bargs[1].numel(),
+                 n_valid * (31 * 31 * 2 + 39 * 39 * 49 * 2 + 256 * 2))))
+
+    # ---- T: the stereo matcher, synthetic and on a rendered pair ----
+    ta, tkw = _synthetic_stereo(dev)
+    n_diff_t, err_t, n_match, n_cand = _check_stereo_call(ta, tkw, "synthetic 2872 x 2872")
+    ra, rkw = _stereo_inputs(dev, ex, world)
+    d2, e2, m2, c2 = _check_stereo_call(ra, rkw, "rendered pair")
+    n = ra[0].shape[0]
+    rows.append(dict(
+        name="stereo_match", route="cuda", source="stella_vslam_tpu_torch/csrc/stereo_match.cu",
+        replaces="stella_vslam_tpu/match/stereo.py:32", max_abs_err=max(err_t, e2),
+        flags_differing=n_diff_t + d2, shape=f"{n} x {n} (rendered pair)",
+        matched=m2, candidate_pairs=c2,
+        ms=_median_ms(lambda: st.stereo_match(*ra, **rkw)),
+        plain_ms=_median_ms(lambda: st.stereo_match_plain(*ra, **rkw), reps=5),
+        library_ms=None,
+        # every pair: ~6 gate operations; a candidate: 8 XOR + 8 popc; a
+        # matched row: 11 x 121 x 3 SAD operations
+        **_bound(2 * n * (8 + 4 + 32 + 1 + 231.0) + 8.0 * n,
+                 6.0 * n * n + 16.0 * c2 + m2 * 11 * 121 * 3.0)))
+
+    # ---- O in its fixed-scale mode (stereo and RGBD loop closure) ----
+    err_o = _check_transform(_transform_problem(dev, 74, 7), {"fix_scale": True}, "fixed scale")
+    print(f"kernel O fixed-scale mode against plain: max |s, R, t diff| {err_o:.3g}")
+    return rows
+
+
+def record_stereo_inputs(sample: int = 20):
+    """Keep, by reference, the arguments of every `sample`-th stereo match
+    of the System (the name `system.stereo_match` the stereo frame looks
+    up); the matcher counts its launches on its own name. Returns (calls,
+    undo)."""
+    from stella_vslam_tpu_torch import system as system_mod
+
+    calls, seen = [], [0]
+    orig = system_mod.stereo_match
+
+    def rec(*args, **kw):
+        if seen[0] % sample == 0:
+            calls.append((args, kw))
+        seen[0] += 1
+        return orig(*args, **kw)
+
+    system_mod.stereo_match = rec
+
+    def undo():
+        system_mod.stereo_match = orig
+
+    return calls, undo
+
+
+# what the stereo leg and the RGBD leg with mapping launch
+LEG_KERNELS = ("resize_level", "fast_nms", "hamming_top2", "pose_lm", "scatter_to_current",
+               "dedup_by_id", "reproject_gate", "undistort_norm", "epipolar_top2", "triangulate",
+               "fuse", "ba_linearize_schur", "ba_reduced_solve", "ba_backsub_cost", "ba_classify",
+               "bow_transform")
+
+
+def run_stereo_legs(dev, world, wrappers, card):
+    """bench.py's stereo leg and its RGBD leg with mapping (util/
+    stereo_slice.py: the default threaded System, 640 frames each), every
+    launch count at 0 just before each and read just after, with the bench's
+    gates; then kernel T against plain on a sample of the stereo leg's own
+    calls. Returns ({leg: stats}, {leg: launches})."""
+    import torch
+
+    from stella_vslam_tpu_torch.util import stereo_slice
+
+    stats, launches = {}, {}
+    for setup in ("stereo", "RGBD"):
+        calls, undo = record_stereo_inputs() if setup == "stereo" else ([], lambda: None)
+        slam = stereo_slice.make_system(world, dev, setup)
+        for w in wrappers.values():
+            w.launches = 0
+        try:
+            s = stereo_slice.run_leg(dev, world, setup, slam=slam)
+        finally:
+            undo()
+        launches[setup] = {k: w.launches for k, w in wrappers.items()}
+        stats[setup] = s
+        with open(os.path.join(OUT_DIR, f"{setup.lower()}_leg.json"), "w") as f:
+            json.dump(dict(s, card=card), f, indent=1)
+        print(f"{setup} leg: " + json.dumps(dict(
+            {k: v for k, v in s.items() if k != "launches"}, card=card)))
+        print(f"{setup} leg launches: " + json.dumps(launches[setup]))
+        for e in slam.worker_error_log:
+            print("worker error:\n" + e)
+        stereo_slice.check_gates(s)
+        own = STEREO_KERNELS if setup == "stereo" else ("orb_describe",)
+        for name in LEG_KERNELS + own:
+            assert launches[setup][name] > 0, f"{name} was not launched by the {setup} leg"
+        if setup == "stereo":
+            torch.cuda.synchronize()
+            res = [_check_stereo_call(args, kw, "stereo leg call", verbose=False)
+                   for args, kw in calls]
+            print(f"kernel T on the stereo leg's own inputs: {len(res)} calls, "
+                  f"{sum(r[2] for r in res)} rows matched, flags differing "
+                  f"{sum(r[0] for r in res)} (all at a threshold), x_right / depth within "
+                  f"{max(r[1] for r in res):.3g}")
+    return stats, launches
 
 
 def run_slices(dev, world, wrappers, card):
@@ -2042,7 +2370,8 @@ def run_slices(dev, world, wrappers, card):
     assert mono["lost_after_init"] <= 2, f"{mono['lost_after_init']} frames lost"
     assert mono["ate_m"] < 0.10, f"Sim3 ATE {mono['ate_m']:.4f} m"
     for name, n in launches["mono"].items():
-        assert n > 0 or name in MAPPING_KERNELS + LOOP_KERNELS + THREADED_KERNELS, \
+        assert n > 0 or name in MAPPING_KERNELS + LOOP_KERNELS + THREADED_KERNELS \
+            + STEREO_KERNELS, \
             f"{name} was not launched by the mono slice"
     return stats, mono, launches
 
@@ -2080,6 +2409,7 @@ def main() -> int:
     world = bench_world()
     rows = check_kernels(dev, world) + check_init_kernels(dev, world)
     rows += check_track_kernels(dev, world)
+    rows += check_stereo_kernels(dev, world)
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library "
@@ -2099,6 +2429,7 @@ def main() -> int:
     threaded, launches["threaded"], tslam, assoc_rec = run_threaded_slice(
         dev, world, wrappers, card)
     check_recorded_assoc(assoc_rec)
+    legs, leg_launches = run_stereo_legs(dev, world, wrappers, card)
     for r in map_rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library "
@@ -2109,8 +2440,14 @@ def main() -> int:
         name = row.pop("counter", row["name"])
         for suffix in ("_local", "_global32", "_global64"):
             name = name.removesuffix(suffix)
-        # `launches`: the threaded slice's, this slice's main path
-        row["launches"] = launches["threaded"][name]
+        # `launches`: on the path of the slice that ported the kernel (the
+        # stereo leg for S, B's strip mode and T; the threaded slice for the
+        # rest), every slice's beside it
+        row["launches"] = (leg_launches["stereo"] if name in STEREO_PATH_ROWS
+                           else launches["threaded"])[name]
+        row["launches_stereo_leg"] = leg_launches["stereo"][name]
+        row["launches_rgbd_mapping_leg"] = leg_launches["RGBD"][name]
+        row["launches_threaded_slice"] = launches["threaded"][name]
         row["launches_loop_slice"] = launches["loop"][name]
         row["launches_mono_slice"] = launches["mono"][name]
         row["launches_rgbd_slice"] = launches["rgbd"][name]
@@ -2130,8 +2467,12 @@ def main() -> int:
             "ate_m", "tracked", "lost_after_init", "loops_closed", "keyframes_created",
             "keyframes_kept", "local_bas", "local_ba_skips", "frame_ms", "keyframe_event_ms",
             "loop_event_phase_ms", "rebases", "drain_fallbacks", "feed_wait_s",
-            "worker_errors", "fps")},
-        threaded_sync_per_dispatch=threaded["sync_per_dispatch"]["per_dispatch"])))
+            "worker_errors", "fps", "frames_per_wall_s")},
+        threaded_sync_per_dispatch=threaded["sync_per_dispatch"]["per_dispatch"],
+        **{f"{leg.lower()}_leg_" + k: legs[leg][k] for leg in legs for k in (
+            "ate_m", "scale_err", "tracked", "lost_after_init", "keyframes_created",
+            "keyframes_kept", "local_bas", "loops_closed", "frame_ms", "keyframe_event_ms",
+            "worker_errors", "fps", "frames_per_wall_s")})))
     print(f"chip_smoke: {time.monotonic() - t_run:.1f} s from the build on [{card}]")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 Port of stella_vslam_tpu/camera/base.py. The perspective (pinhole +
 radial-tangential) model and the MONOCULAR / STEREO / RGBD setups are ported;
 fisheye, equirectangular and radial-division raise NotImplementedError until
-ROADMAP Queue 1 item 14. Undistortion is the same fixed-iteration inversion
+ROADMAP Queue 1 item 14b. Undistortion is the same fixed-iteration inversion
 as the JAX version, written as elementwise ops in the same order.
 
 Kernel R (csrc/reproject.cu) computes the per-point functions of the hot
@@ -37,7 +37,7 @@ class Setup(enum.IntEnum):
     RGBD = 2
 
 
-_NOT_PORTED = "camera model {} is not ported yet (ROADMAP Queue 1 item 14)"
+_NOT_PORTED = "camera model {} is not ported yet (ROADMAP Queue 1 item 14b)"
 
 
 class CameraParams(NamedTuple):
@@ -235,6 +235,12 @@ class Camera:
         self.color_order = color_order
         self.width = int(width)
         self.height = int(height)
+
+    @property
+    def true_baseline(self) -> float:
+        """The stereo baseline in metres, focal_x_baseline / fx."""
+        fx = float(self.params.fx)
+        return float(self.params.focal_x_baseline) / fx if fx != 0 else 0.0
 
     def undistort(self, pts):
         return undistort_keypoints(self.model, self.params, pts)

@@ -13,7 +13,8 @@
 // Bound: about 40 bytes read per pixel from L1/L2 (16 ring pixels plus the
 // centre, reused across neighbouring threads) and ~60 integer/float ops; a
 // 752x480 level is ~0.35 M pixels, so a level is launch-latency bound at the
-// slice's sizes, not bandwidth bound.
+// slice's sizes, not bandwidth bound. The images of a batch (a stereo
+// pair's level) go in one launch, one grid z index each.
 //
 // Bit-exactness: scores are differences and min/max of the same float32
 // pixels as the JAX version, thresholds compare the float score, and
@@ -49,9 +50,9 @@ __device__ __forceinline__ float fast_score(const float* img, int W, int y, int 
   return fmaxf(bright, dark);
 }
 
-__global__ void fast_nms_kernel(const float* __restrict__ img, int H, int W,
-                                int border, int cs, int Gx, float ini_thr,
-                                float min_thr, int* __restrict__ out_key) {
+__global__ void fast_nms_kernel(const float* __restrict__ img, long long img_stride,
+                                int H, int W, int border, int cs, int Gy, int Gx,
+                                float ini_thr, float min_thr, int* __restrict__ out_key) {
   __shared__ int best_hi, best_lo;
   if (threadIdx.x == 0) {
     best_hi = -1;
@@ -59,6 +60,8 @@ __global__ void fast_nms_kernel(const float* __restrict__ img, int H, int W,
   }
   __syncthreads();
   const int cx = blockIdx.x, cy = blockIdx.y;
+  img += blockIdx.z * img_stride;
+  out_key += blockIdx.z * Gy * Gx;
   const int y0 = border + cy * cs, x0 = border + cx * cs;
   int hi = -1, lo = -1;
   for (int p = threadIdx.x; p < cs * cs; p += blockDim.x) {
@@ -81,11 +84,12 @@ __global__ void fast_nms_kernel(const float* __restrict__ img, int H, int W,
 
 }  // namespace
 
-extern "C" int svt_fast_nms(const float* img, int H, int W, int border, int cs,
-                            int Gy, int Gx, float ini_thr, float min_thr,
-                            int* out_key, void* stream) {
-  dim3 grid(Gx, Gy);
+// img: B level images, img_stride floats apart; out_key: [B, Gy*Gx]
+extern "C" int svt_fast_nms(int B, const float* img, long long img_stride, int H, int W,
+                            int border, int cs, int Gy, int Gx, float ini_thr,
+                            float min_thr, int* out_key, void* stream) {
+  dim3 grid(Gx, Gy, B);
   fast_nms_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      img, H, W, border, cs, Gx, ini_thr, min_thr, out_key);
+      img, img_stride, H, W, border, cs, Gy, Gx, ini_thr, min_thr, out_key);
   return (int)cudaGetLastError();
 }

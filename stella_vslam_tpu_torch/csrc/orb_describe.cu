@@ -17,6 +17,13 @@
 // flops and 8 KB of gathers per keypoint, ~0.3 GFLOP per 2872-slot frame —
 // arithmetic in shared memory; the design keeps every intermediate (raw and
 // blurred patch, comparison bits) on chip.
+//
+// For the stereo matcher (K19's subpixel step, stella_vslam_tpu/match/
+// stereo.py:67-98, which reads the blurred patches that
+// extract_with_patches returns) the kernel optionally writes the 11x21
+// strip around the blurred patch's centre (rows 14..24, columns 9..29 of
+// the 39x39) as bytes: the blurred values are integer gray levels 0..255,
+// exact in a byte as in the JAX version's bf16.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -33,6 +40,9 @@ constexpr int kMomW = 31;
 constexpr int kMomOff = kRawR - 15;  // moment circle centred in the raw patch
 constexpr int kBins = 30;
 constexpr int kThreads = 256;
+constexpr int kStripH = 11, kStripW = 21;
+constexpr int kStripY = kDescW / 2 - kStripH / 2;  // 14
+constexpr int kStripX = kDescW / 2 - kStripW / 2;  // 9
 
 __device__ __forceinline__ float block_sum(float v, float* scratch) {
   for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, o));
@@ -53,7 +63,7 @@ orb_describe_kernel(const float* __restrict__ pyr, const int* __restrict__ kp_ba
                     const float* __restrict__ taps49, const float* __restrict__ m10,
                     const float* __restrict__ m01, const int8_t* __restrict__ offsets,
                     float tau, float* __restrict__ out_angle,
-                    uint32_t* __restrict__ out_desc) {
+                    uint32_t* __restrict__ out_desc, uint8_t* __restrict__ out_strip) {
   __shared__ float raw[kRawArea];
   __shared__ float blur[kDescArea];
   __shared__ float taps[49];
@@ -94,6 +104,12 @@ orb_describe_kernel(const float* __restrict__ pyr, const int* __restrict__ kp_ba
     blur[o] = rintf(acc);
   }
   __syncthreads();
+  if (out_strip != nullptr)
+    for (int i = tid; i < kStripH * kStripW; i += kThreads) {
+      const int r = i / kStripW, c = i - r * kStripW;
+      out_strip[k * kStripH * kStripW + i] =
+          (uint8_t)(int)blur[(kStripY + r) * kDescW + kStripX + c];
+    }
 
   int bin = (int)rintf(__fdiv_rn(angle, tau)) % kBins;
   if (bin < 0) bin += kBins;
@@ -112,10 +128,10 @@ extern "C" int svt_orb_describe(const float* pyr, const int* kp_base, const int*
                                 const uint8_t* kp_valid, int K, const float* taps49,
                                 const float* m10, const float* m01,
                                 const int8_t* offsets, float tau, float* out_angle,
-                                uint32_t* out_desc, void* stream) {
+                                uint32_t* out_desc, uint8_t* out_strip, void* stream) {
   if (K > 0)
     orb_describe_kernel<<<K, kThreads, 0, (cudaStream_t)stream>>>(
         pyr, kp_base, kp_H, kp_W, kp_x, kp_y, kp_valid, taps49, m10, m01, offsets,
-        tau, out_angle, out_desc);
+        tau, out_angle, out_desc, out_strip);
   return (int)cudaGetLastError();
 }

@@ -19,10 +19,14 @@
 //    x = xd - (distort(x) - x), back to pixels.
 // Bound: ~30 bytes and ~100 operations per point (the slice's 2872 slots or
 // 4096 table rows): ~0.04 us of bytes, so it is bound by its launch.
-// Floats follow the torch expressions' order; the card may contract a
-// product and a sum into one FMA, so uv agrees to ~1e-6 relative and a flag
-// differs from the plain version's only where its quantity sits at the
-// threshold.
+// Floats follow the torch expressions' order. In the reprojection the card
+// may contract a product and a sum into one FMA, so uv agrees to ~1e-6
+// relative and a flag differs from the plain version's only where its
+// quantity sits at the threshold. The undistortion rounds every operation
+// as its plain version does on the card and equals it bit for bit: a true
+// division and an FMA there moved the monocular initializer's input by an
+// ulp and, through the near-degenerate two-view geometry of a planar
+// scene, its init frame.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -84,19 +88,29 @@ undistort_kernel(int N, Intr k, float k1, float k2, float p1, float p2, float k3
                  const float* __restrict__ pts, float* __restrict__ out) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  const float xd = (pts[2 * n] - k.cx) / k.fx;
-  const float yd = (pts[2 * n + 1] - k.cy) / k.fy;
+  // every product and sum rounded on its own, in the torch expressions'
+  // order (no contraction into FMAs), and the division by fx as torch
+  // divides a CUDA tensor by a scalar (times the float32 reciprocal): the
+  // result equals the plain version on the card bit for bit
+  const float xd = __fmul_rn(__fsub_rn(pts[2 * n], k.cx), __fdiv_rn(1.f, k.fx));
+  const float yd = __fmul_rn(__fsub_rn(pts[2 * n + 1], k.cy), __fdiv_rn(1.f, k.fy));
+  const float two_p1 = 2.f * p1, two_p2 = 2.f * p2;  // exact doublings
   float x = xd, y = yd;
   for (int it = 0; it < 10; ++it) {
-    const float r2 = x * x + y * y;
-    const float radial = 1.f + r2 * (k1 + r2 * (k2 + r2 * k3));
-    const float dx = x * radial + 2.f * p1 * x * y + p2 * (r2 + 2.f * x * x);
-    const float dy = y * radial + p1 * (r2 + 2.f * y * y) + 2.f * p2 * x * y;
-    x = xd - (dx - x);
-    y = yd - (dy - y);
+    const float r2 = __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y));
+    const float radial = __fadd_rn(
+        1.f, __fmul_rn(r2, __fadd_rn(k1, __fmul_rn(r2, __fadd_rn(k2, __fmul_rn(r2, k3))))));
+    const float dx = __fadd_rn(
+        __fadd_rn(__fmul_rn(x, radial), __fmul_rn(__fmul_rn(two_p1, x), y)),
+        __fmul_rn(p2, __fadd_rn(r2, __fmul_rn(__fmul_rn(2.f, x), x))));
+    const float dy = __fadd_rn(
+        __fadd_rn(__fmul_rn(y, radial), __fmul_rn(p1, __fadd_rn(r2, __fmul_rn(__fmul_rn(2.f, y), y)))),
+        __fmul_rn(__fmul_rn(two_p2, x), y));
+    x = __fsub_rn(xd, __fsub_rn(dx, x));
+    y = __fsub_rn(yd, __fsub_rn(dy, y));
   }
-  out[2 * n] = x * k.fx + k.cx;
-  out[2 * n + 1] = y * k.fy + k.cy;
+  out[2 * n] = __fadd_rn(__fmul_rn(x, k.fx), k.cx);
+  out[2 * n + 1] = __fadd_rn(__fmul_rn(y, k.fy), k.cy);
 }
 
 }  // namespace

@@ -42,15 +42,24 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
+_L = ctypes.c_longlong
 
 # argument types of every C entry point (pointers and the stream as void*)
 _SIGNATURES = {
-    # img, H, W, border, cs, Gy, Gx, ini_thr, min_thr, out_key, stream
-    "svt_fast_nms": [_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
+    # B, src, batch_stride, w_in, dst, h_out, w_out, row_j, row_w, col_j,
+    # col_w, stream
+    "svt_resize_level": [_I, _P, _L, _I, _P, _I, _I, _P, _P, _P, _P, _P],
+    # B, img, img_stride, H, W, border, cs, Gy, Gx, ini_thr, min_thr,
+    # out_key, stream
+    "svt_fast_nms": [_I, _P, _L, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
     # pyr, base, H, W, x, y, valid, K, taps49, m10, m01, offsets, tau,
-    # out_angle, out_desc, stream
+    # out_angle, out_desc, out_strip (or NULL), stream
     "svt_orb_describe": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _F,
-                         _P, _P, _P],
+                         _P, _P, _P, _P],
+    # NL, NR, l_xy, l_level, l_desc, l_valid, l_strip, r_xy, r_level,
+    # r_desc, r_valid, r_strip, scale_factors, max_disp, focal_x_baseline,
+    # best_sad, disp, matched, x_right, depth, stream
+    "svt_stereo_match": [_I, _I] + [_P] * 11 + [_F, _F] + [_P] * 6,
     # M, N, q_desc, t_desc, row_ok, col_ok, use_window, row_u, row_v,
     # row_xr, row_rad, row_lo, row_hi, col_u, col_v, col_xr, col_level,
     # use_orient, row_c, row_s, col_c, col_s, cos_thr, out, stream

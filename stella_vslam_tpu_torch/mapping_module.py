@@ -102,10 +102,6 @@ class MappingModule:
         """`synchronous_ba`: run each event's BA writeback inside the event
         (inline); False defers it, as the mapping thread does. `stream`: the
         CUDA stream of the mapping thread's device work."""
-        if camera.setup != Setup.MONOCULAR:
-            raise NotImplementedError(
-                "mapping of stereo and RGBD keyframes is not ported yet "
-                "(ROADMAP Queue 1 item 14)")
         if not 0 < ba_local_cap < self.BA_K_BUCKETS[-1]:
             raise ValueError(f"ba_local_cap must be in [1, {self.BA_K_BUCKETS[-1] - 1}]")
         self.map_db = map_db
@@ -118,9 +114,10 @@ class MappingModule:
         self.num_covis_tri = num_covisibilities_for_triangulation
         self.num_covis_fuse = num_covisibilities_for_landmark_fusion
         self.max_num_local_keyfrms = max_num_local_keyfrms
-        # mono parallax gate for triangulation neighbours: skip one when
+        # monocular parallax gate for triangulation neighbours: skip one when
         # baseline / median depth < ratio, or baseline < the absolute
-        # threshold when one is configured (mapping_module.cc:36-46, 286-300)
+        # threshold when one is configured (mapping_module.cc:36-46, 286-300);
+        # stereo and RGBD skip a neighbour closer than the camera's baseline
         self.baseline_dist_thr_ratio = baseline_dist_thr_ratio
         self.baseline_dist_thr = baseline_dist_thr
         self.ba_iters = tuple(ba_iters)
@@ -450,7 +447,10 @@ class MappingModule:
             if other is None or other.will_be_erased:
                 continue
             baseline = np.linalg.norm(cur.cam_center - other.cam_center)
-            if self.baseline_dist_thr is not None:
+            if self.camera.setup != Setup.MONOCULAR:
+                if baseline < self.camera.true_baseline:
+                    continue
+            elif self.baseline_dist_thr is not None:
                 if baseline < self.baseline_dist_thr:
                     continue
             elif median_depth > 0 and baseline / median_depth < self.baseline_dist_thr_ratio:

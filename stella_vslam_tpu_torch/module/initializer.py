@@ -19,7 +19,7 @@ version derives its seeds from jax.random keys, which a test hands over
 through its own seed source.
 
 Other camera models (the bearing-vector initializer, E-RANSAC and the
-5-point solver) come with ROADMAP Queue 1 item 14; until then the port's
+5-point solver) come with ROADMAP Queue 1 item 14b; until then the port's
 Camera refuses them at construction.
 """
 from __future__ import annotations

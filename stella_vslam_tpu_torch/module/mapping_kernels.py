@@ -291,7 +291,7 @@ class MappingKernels:
         if camera.model != CameraModel.PERSPECTIVE:
             raise NotImplementedError(
                 "mapping for camera models other than perspective is not "
-                "ported yet (ROADMAP Queue 1 item 14)")
+                "ported yet (ROADMAP Queue 1 item 14b)")
         self.camera = camera
         self.cam = camera.params
         self.orb = orb_params

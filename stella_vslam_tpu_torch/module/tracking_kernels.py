@@ -11,9 +11,13 @@ Port of stella_vslam_tpu/module/tracking_kernels.py `track_frame` (:164):
      optimization (kernel D), one slot per landmark.
 
 The JAX version runs the fallback under lax.cond when stage 1 keeps fewer
-than `num_matches_thr` inliers; here both run and `torch.where` on that
-device predicate picks one, so a dispatch reads nothing back from the
-device. The per-slot re-indexing, the landmark dedup and the chain rebase
+than `num_matches_thr` inliers; here both run and `torch.where` on a device
+predicate picks one, so a dispatch reads nothing back from the device.
+Since both inlier counts are at hand, stage 1 is kept only when it also has
+at least a quarter of the fallback's: a motion model that misses a jump
+(bench.py's stereo and RGBD legs jump 0.8 m at their turnaround) can leave
+`num_matches_thr` chance matches that the pose optimization fits with a
+wrong pose, 8-18 degrees off, while the keyframe fallback finds hundreds. The per-slot re-indexing, the landmark dedup and the chain rebase
 of the pipelined tracker are kernel Q (csrc/track_assoc.cu) on CUDA
 tensors, their plain versions on CPU tensors.
 """
@@ -297,9 +301,10 @@ class TrackingKernels:
                                   cur_level, has1)
             inl1 = res1.is_inlier & has1
             n1 = inl1.sum()
-            # the stage-1 result when it kept enough inliers, else the
-            # fallback's, picked on the device
-            take1 = n1 >= self.num_matches_thr
+            # the stage-1 result when it kept enough inliers and at least a
+            # quarter of the fallback's, else the fallback's, picked on the
+            # device
+            take1 = (n1 >= self.num_matches_thr) & (4 * n1 >= inl2.sum())
             R_s1 = torch.where(take1, res1.R_cw, res2.R_cw)
             t_s1 = torch.where(take1, res1.t_cw, res2.t_cw)
             pos_s1 = torch.where(take1, pos1, pos2)

@@ -285,7 +285,7 @@ def _check_model(model: str):
     if model != "perspective":
         raise NotImplementedError(
             f"bundle adjustment for the {model} model is not ported yet "
-            "(ROADMAP Queue 1 item 14)")
+            "(ROADMAP Queue 1 item 14b)")
 
 
 def bundle_adjust_plain(prob: BAProblem, cam: CamScalars, *,

@@ -5,7 +5,7 @@ host in float64 numpy: one 3x3 SVD per initialization attempt; and of
 `create_E_21` (:198), batched torch on the device, for the mapping
 module's epipolar matcher. E-RANSAC and the 5-point solver (the
 bearing-vector initializer of the other camera models) come with ROADMAP
-Queue 1 item 14.
+Queue 1 item 14b.
 """
 from __future__ import annotations
 

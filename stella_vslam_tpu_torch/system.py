@@ -1,13 +1,15 @@
 """Public system API of the port: construction, frame feeding, results.
 
-Port of stella_vslam_tpu/system.py for the RGBD tracking, monocular,
-mapping and loop-closing slices: `System(cfg, device="cuda",
-inline_mapping=False, vocab_path=None)` with `startup(need_initialize,
-warmup)` / `shutdown`, `create_monocular_frame` / `feed_monocular_frame` and
-`create_RGBD_frame` / `feed_RGBD_frame` (ORB extraction on kernels A and B,
-undistortion on kernel R, bearings, depth sampling for RGBD and the packed
-host mirror, all on the device), `frame_poses`, the publishers, and for a
-monocular camera the mapping module (`enable_mapping_module`; the
+Port of stella_vslam_tpu/system.py for the monocular, stereo and RGBD
+setups: `System(cfg, device="cuda", inline_mapping=False, vocab_path=None)`
+with `startup(need_initialize, warmup)` / `shutdown`,
+`create_monocular_frame` / `feed_monocular_frame`, `create_stereo_frame` /
+`feed_stereo_frame` and `create_RGBD_frame` / `feed_RGBD_frame` (ORB
+extraction on kernels S, A and B, for a stereo pair both images in each
+launch, the row matching on kernel T, undistortion on kernel R, bearings,
+depth sampling for RGBD and the packed host mirror, all on the device; a
+`StereoRectifier` config section rectifies raw stereo pairs on the device
+first), `frame_poses`, the publishers, the mapping module (the
 `KeyframeInserter` and `Mapping` config sections) with the BoW vocabulary
 and database and the global optimization module behind it (the
 `LoopDetector` section; `enable_loop_detector`, `request_loop_closure`,
@@ -20,9 +22,9 @@ device work on a CUDA stream of its own, and every exception a worker
 thread contains is counted in `worker_errors`. `inline_mapping=True` is the
 deterministic mode the parity tests use: every frame is finalized, and the
 keyframe events and loop corrections it queued run to their end, before
-its feed returns. Mapping starts disabled; mapping of stereo and RGBD
-keyframes is not ported, nor the relocalizer and map IO;
-`feed_stereo_frame` raises NotImplementedError naming its ROADMAP item.
+its feed returns. Mapping starts enabled, as in the JAX package
+(`disable_mapping_module` makes a tracking-only System). Not ported: the
+relocalizer, map IO, extraction masks and color input.
 """
 from __future__ import annotations
 
@@ -41,11 +43,13 @@ from stella_vslam_tpu_torch.feature.orb_extractor import OrbExtractor
 from stella_vslam_tpu_torch.feature.orb_params import OrbParams
 from stella_vslam_tpu_torch.global_optimization_module import GlobalOptimizationModule
 from stella_vslam_tpu_torch.mapping_module import MappingModule
+from stella_vslam_tpu_torch.match.stereo import stereo_match
 from stella_vslam_tpu_torch.module.keyframe_inserter import KeyframeInserter
 from stella_vslam_tpu_torch.publish.frame_publisher import FramePublisher
 from stella_vslam_tpu_torch.publish.map_publisher import MapPublisher
 from stella_vslam_tpu_torch.tracking_module import TrackingModule
 from stella_vslam_tpu_torch.util import streams
+from stella_vslam_tpu_torch.util.stereo_rectifier import StereoRectifier
 
 
 class System:
@@ -71,7 +75,7 @@ class System:
         min_size = int(pre.get("min_size", 800))
         if pre.get("mask_rectangles", None):
             raise NotImplementedError(
-                "extraction masks are not ported yet (ROADMAP Queue 1 item 14)")
+                "extraction masks are not ported yet (ROADMAP Queue 1 item 14b)")
         self.depthmap_factor = float(pre.get("depthmap_factor", 1.0))
         if self.depthmap_factor <= 0.0:
             raise ValueError("depthmap_factor must be greater than 0")
@@ -95,28 +99,35 @@ class System:
         self.tracker.synchronous = inline_mapping
         self.tracker.keyfrm_inserter = KeyframeInserter.from_yaml(
             self.camera, cfg.section("KeyframeInserter"))
-        self.mapper = None
-        if self.camera.setup == Setup.MONOCULAR:
-            mp = cfg.section("Mapping")
-            self.mapper = MappingModule(
-                self.map_db, self.camera, self.orb_params, device=self.device,
-                num_covisibilities_for_triangulation=int(
-                    mp.get("num_covisibilities_for_landmark_generation", 10)),
-                num_covisibilities_for_landmark_fusion=int(
-                    mp.get("num_covisibilities_for_landmark_fusion", 10)),
-                baseline_dist_thr_ratio=float(mp.get("baseline_dist_thr_ratio", 0.01)),
-                baseline_dist_thr=(float(mp["baseline_dist_thr"])
-                                   if "baseline_dist_thr" in mp else None),
-                max_num_local_keyfrms=self.tracker.max_num_local_keyfrms,
-                ba_stride=ba_stride, synchronous_ba=inline_mapping, stream=stream())
-            # culling thresholds live in the Mapping section (reference
-            # local_map_cleaner.cc:9-14)
-            cl = self.mapper.cleaner
-            cl.redundant_obs_ratio_thr = float(mp.get("redundant_obs_ratio_thr", 0.9))
-            cl.observed_ratio_thr = float(mp.get("observed_ratio_thr", 0.3))
-            cl.num_reliable_keyfrms = int(mp.get("num_reliable_keyfrms", 2))
-            self.tracker.mapper = self.mapper
-            self.tracker.keyfrm_inserter.mapper = self.mapper
+        mp = cfg.section("Mapping")
+        self.mapper = MappingModule(
+            self.map_db, self.camera, self.orb_params, device=self.device,
+            num_covisibilities_for_triangulation=int(
+                mp.get("num_covisibilities_for_landmark_generation", 10)),
+            num_covisibilities_for_landmark_fusion=int(
+                mp.get("num_covisibilities_for_landmark_fusion", 10)),
+            baseline_dist_thr_ratio=float(mp.get("baseline_dist_thr_ratio", 0.01)),
+            baseline_dist_thr=(float(mp["baseline_dist_thr"])
+                               if "baseline_dist_thr" in mp else None),
+            max_num_local_keyfrms=self.tracker.max_num_local_keyfrms,
+            ba_stride=ba_stride, synchronous_ba=inline_mapping, stream=stream())
+        # culling thresholds live in the Mapping section (reference
+        # local_map_cleaner.cc:9-14)
+        cl = self.mapper.cleaner
+        cl.redundant_obs_ratio_thr = float(mp.get("redundant_obs_ratio_thr", 0.9))
+        cl.observed_ratio_thr = float(mp.get("observed_ratio_thr", 0.3))
+        cl.num_reliable_keyfrms = int(mp.get("num_reliable_keyfrms", 2))
+        self.tracker.mapper = self.mapper
+        self.tracker.keyfrm_inserter.mapper = self.mapper
+        # stereo: the rectifier of raw pairs (reference
+        # util/stereo_rectifier.cc:14-60) when the config has its section,
+        # and the level scales of the row matcher's band
+        self.stereo_rectifier = None
+        sr = cfg.section("StereoRectifier")
+        if sr and self.camera.setup == Setup.STEREO:
+            self.stereo_rectifier = StereoRectifier(self.camera, sr, device=self.device)
+        self._scale_factors = torch.tensor(self.orb_params.scale_factors,
+                                           dtype=torch.float32, device=self.device)
         # place recognition and loop closing (reference system.cc:44-50: the
         # vocabulary is a mandatory artifact there; here the packaged one)
         self.bow_vocab = (BowVocabulary.load(vocab_path, self.device) if vocab_path
@@ -136,9 +147,8 @@ class System:
         if not bool(ld.get("enabled", True)):
             self.global_optimizer.disable_loop_detector()
         self.global_optimizer.mapper = self.mapper
-        if self.mapper is not None:
-            self.mapper.bow_db = self.bow_db
-            self.mapper.global_optimizer = self.global_optimizer
+        self.mapper.bow_db = self.bow_db
+        self.mapper.global_optimizer = self.global_optimizer
         self.map_db.on_erase_keyframe.append(self.bow_db.erase_keyframe)
         self.frame_publisher = FramePublisher()
         self.map_publisher = MapPublisher(self.map_db)
@@ -156,8 +166,7 @@ class System:
         if not need_initialize:
             self.tracker.state = "Lost"
         if not self.inline_mapping:
-            if self.mapper is not None:
-                self.mapper.start()
+            self.mapper.start()
             self.global_optimizer.start()
         self._running = True
 
@@ -171,10 +180,12 @@ class System:
         n = self.extractor.num_slots
         with streams.on(self.tracker.stream):
             blank = np.zeros((self.camera.height, self.camera.width), np.uint8)
-            self._extract(blank, None)
+            if self.camera.setup == Setup.STEREO:
+                self.create_stereo_frame(blank, blank, 0.0)
+            else:
+                self._extract(blank, None)
         self.tracker.warmup(n, self.map_db.device_table.capacity)
-        if self.mapper is not None:
-            self.mapper.warmup(n)
+        self.mapper.warmup(n)
         if self.global_optimizer.loop_detector_is_enabled():
             self.global_optimizer.warmup()
         torch.cuda.synchronize(self.device)
@@ -189,14 +200,12 @@ class System:
         else:
             deadline = time.monotonic() + 120.0
             while time.monotonic() < deadline and not (
-                    (self.mapper is None or self.mapper.is_idle())
+                    self.mapper.is_idle()
                     and self.global_optimizer.is_idle()):
                 time.sleep(0.01)
-            if self.mapper is not None:
-                self.mapper.request_terminate()
+            self.mapper.request_terminate()
             self.global_optimizer.request_terminate()
-            if self.mapper is not None:
-                self.mapper.join()
+            self.mapper.join()
             self.global_optimizer.join()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -248,10 +257,6 @@ class System:
         self.tracker.mapping_is_enabled = False
 
     def enable_mapping_module(self):
-        if self.mapper is None:
-            raise NotImplementedError(
-                "mapping of stereo and RGBD keyframes is not ported yet "
-                "(ROADMAP Queue 1 item 14)")
         self.tracker.mapping_is_enabled = True
 
     def mapping_module_is_enabled(self) -> bool:
@@ -280,7 +285,7 @@ class System:
         """Threaded: ask the mapper to pause and wait until it has settled
         its staged event and pending BA. Inline: run what the last feed
         left queued."""
-        if self.inline_mapping or self.mapper is None:
+        if self.inline_mapping:
             self._drain_mapper_inline()
             return
         self.mapper.request_pause()
@@ -289,14 +294,13 @@ class System:
             time.sleep(0.002)
 
     def resume_other_threads(self):
-        if not self.inline_mapping and self.mapper is not None:
+        if not self.inline_mapping:
             self.mapper.resume()
 
     def _drain_mapper_inline(self):
         """Run the keyframe events the last feed queued, and the loop
         detection of each (inline mapping)."""
-        if self.mapper is not None:
-            self.mapper.drain()
+        self.mapper.drain()
 
     def _yield_to_mapper(self):
         """When frames come faster than real time the caller's Python work
@@ -304,7 +308,7 @@ class System:
         map falls behind the motion: yield briefly while the mapper has
         work (the analogue of the reference's backpressure veto,
         keyframe_inserter.cc:59-62)."""
-        if self.mapper is not None and not self.mapper.is_idle():
+        if not self.mapper.is_idle():
             time.sleep(0.002)
 
     def _after_feed(self, img, frm, pose, t0: float, t_ext: float):
@@ -325,12 +329,12 @@ class System:
     @property
     def local_ba_ms(self):
         """Wall ms of every local BA, assembly to writeback and publish."""
-        return self.mapper.local_ba_ms if self.mapper is not None else []
+        return self.mapper.local_ba_ms
 
     @property
     def keyframe_event_ms(self):
         """Per keyframe event, its phases in ms (MappingModule.event_ms)."""
-        return self.mapper.event_ms if self.mapper is not None else []
+        return self.mapper.event_ms
 
     # ------------------------------------------------------------------
     def create_monocular_frame(self, img, timestamp: float, mask=None) -> Frame:
@@ -358,9 +362,48 @@ class System:
         self._after_feed(img, frm, pose, t0, t_ext)
         return pose
 
+    def create_stereo_frame(self, img_left, img_right, timestamp: float, mask=None) -> Frame:
+        """A stereo pair -> the left image's frame with row-matched x_right
+        and depths (reference system.cc:426-470): both images up in one
+        pinned copy, rectified on the device when the config has a
+        StereoRectifier section, extracted together (kernels S, A, B), row
+        matched (kernel T), the left keypoints undistorted (kernel R), then
+        bearings and the packed host mirror."""
+        if self.camera.setup != Setup.STEREO:
+            raise ValueError("feed_stereo_frame needs a camera with setup stereo")
+        if mask is not None:
+            raise NotImplementedError(
+                "extraction masks are not ported yet (ROADMAP Queue 1 item 14b)")
+        pair = streams.upload(np.stack([self._to_gray(img_left), self._to_gray(img_right)]),
+                              self.device)
+        left, right = pair[0], pair[1]
+        if self.stereo_rectifier is not None:
+            left, right = self.stereo_rectifier.rectify(left, right)
+        (fl, sl), (fr, sr) = self.extractor.extract_pair_with_patches(left, right)
+        cam = self.camera
+        x_right, depths = stereo_match(
+            fl.xy, fl.level, fl.desc, fl.valid, sl, fr.xy, fr.level, fr.desc, fr.valid, sr,
+            scale_factors=self._scale_factors,
+            focal_x_baseline=cam.params.focal_x_baseline, true_baseline=cam.true_baseline)
+        und = cam.undistort(fl.xy)
+        bear = cam.bearings(und)
+        frm = Frame(timestamp, cam, self.orb_params, fl, und, bear, x_right=x_right,
+                    depths=depths)
+        frm.attach_packed_host(pack_host_cols(
+            fl.xy, und, bear, fl.level, fl.angle, fl.valid, fl.response, x_right, depths,
+            fl.desc))
+        return frm
+
     def feed_stereo_frame(self, img_left, img_right, timestamp: float, mask=None):
-        raise NotImplementedError(
-            "stereo matching is not ported yet (ROADMAP Queue 1 item 14)")
+        """Track one stereo pair; inline, returns its pose_cw, or None when
+        lost."""
+        t0 = time.perf_counter()
+        with streams.on(self.tracker.stream):
+            frm = self.create_stereo_frame(img_left, img_right, timestamp, mask)
+            t_ext = time.perf_counter() - t0
+            pose = self.tracker.feed_frame(frm)
+        self._after_feed(img_left, frm, pose, t0, t_ext)
+        return pose
 
     def create_RGBD_frame(self, img, depth, timestamp: float, mask=None) -> Frame:
         """Extraction, undistortion, bearings, depth sampling and the packed
@@ -401,7 +444,7 @@ class System:
         """(features, undistorted keypoints, bearings) of one image."""
         if mask is not None:
             raise NotImplementedError(
-                "extraction masks are not ported yet (ROADMAP Queue 1 item 14)")
+                "extraction masks are not ported yet (ROADMAP Queue 1 item 14b)")
         # through pinned memory: a copy from pageable memory would make the
         # host wait for the stream, i.e. for the frames still in flight
         image = streams.upload(self._to_gray(img), self.device)

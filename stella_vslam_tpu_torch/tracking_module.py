@@ -133,7 +133,7 @@ class TrackingModule:
         self.last_frm: Optional[Frame] = None
         self.ref_keyfrm_id: Optional[int] = None
         self.twist: Optional[np.ndarray] = None
-        self.mapping_is_enabled = False
+        self.mapping_is_enabled = True
         self.last_keyfrm_time = 0.0
         self.init_time = 0.0
         self.num_tracked_lms = 0
@@ -366,21 +366,27 @@ class TrackingModule:
         """Run the deferred keyframe insertion decided in _finalize_one. The
         slot is claimed under the lock, so the finalize thread and an inline
         drain never insert one frame twice; _insert_busy keeps
-        finalize_pending's barrier honest while it runs off the lock."""
+        finalize_pending's barrier honest while it runs off the tracker's
+        lock (under the map's)."""
         with self._cond:
             pending, self._insert_pending = self._insert_pending, None
-            # a loop correction since the decision: the frame's pose is in
-            # the gauge from before it
-            frm = pending[0] if pending and pending[1] == self.map_db.epoch else None
-            if frm is not None:
+            if pending is not None:
                 self._insert_busy = True
-        if frm is None:
+        if pending is None:
             return
         t0 = time.monotonic()
         try:
-            kf = self.keyfrm_inserter.insert_new_keyframe(self.map_db, frm)
-            with self._cond:
-                self.ref_keyfrm_id = kf.id
+            # a loop correction since the decision: the frame's pose is in
+            # the gauge from before it. Checked and inserted under the map
+            # lock, which a correction holds from its epoch bump: a
+            # correction that started after the check would leave the new
+            # keyframe and its depth-seeded landmarks in the old gauge
+            with self.map_db.lock:
+                kf = self.keyfrm_inserter.insert_new_keyframe(self.map_db, pending[0]) \
+                    if pending[1] == self.map_db.epoch else None
+            if kf is not None:
+                with self._cond:
+                    self.ref_keyfrm_id = kf.id
         finally:
             with self._cond:
                 self._insert_busy = False
@@ -881,6 +887,8 @@ class TrackingModule:
         cur_frm.ref_keyfrm_id = kf.id
         self.last_keyfrm_time = cur_frm.timestamp
         self.map_db.refresh_device_table()
+        if self.mapper is not None and self.mapping_is_enabled:
+            self.mapper.async_add_keyframe(kf)
         self.twist = None
         return True
 

@@ -45,7 +45,7 @@ EVENT_PHASES = ("triangulation", "fusion", "local_ba", "apply", "cull", "cull_pu
 
 def make_system(world: PlaneWorld, device, loop_detector: bool = False,
                 inline_mapping: bool = True) -> System:
-    """The bench's mono System with mapping enabled and warm; the loop
+    """The bench's mono System (mapping on, as by default) and warm; the loop
     detector off unless asked for (util/loop_slice.py runs the same leg with
     it on); inline unless asked otherwise (util/threaded_slice.py)."""
     cfg = Config.from_dict({
@@ -55,7 +55,6 @@ def make_system(world: PlaneWorld, device, loop_detector: bool = False,
         "LoopDetector": {"enabled": loop_detector},
     })
     slam = System(cfg, device=device, inline_mapping=inline_mapping)
-    slam.enable_mapping_module()
     slam.startup()
     return slam
 
@@ -67,6 +66,7 @@ def kernel_wrappers() -> dict:
     from stella_vslam_tpu_torch.data import bow_vocabulary as bow
     from stella_vslam_tpu_torch.feature import orb_extractor as ox
     from stella_vslam_tpu_torch.match import hamming as H
+    from stella_vslam_tpu_torch.match import stereo
     from stella_vslam_tpu_torch.module import mapping_kernels as mk
     from stella_vslam_tpu_torch.module import tracking_kernels as tk
     from stella_vslam_tpu_torch.ops.optim import ba
@@ -74,7 +74,9 @@ def kernel_wrappers() -> dict:
     from stella_vslam_tpu_torch.ops.optim import sim3
     from stella_vslam_tpu_torch.ops.solve import pnp, ransac
 
-    return {"fast_nms": ox.fast_nms, "orb_describe": ox.orb_describe,
+    return {"resize_level": ox.resize_level, "fast_nms": ox.fast_nms,
+            "orb_describe": ox.orb_describe, "orb_describe_strips": ox.orb_describe_strips,
+            "stereo_match": stereo.stereo_match,
             "hamming_top2": H.hamming_top2, "pose_lm": pose_mod.optimize_pose,
             "ransac_two_view": ransac.minimal_hypotheses,
             "ba_linearize_schur": ba.ba_linearize_schur,

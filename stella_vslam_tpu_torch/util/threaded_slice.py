@@ -140,8 +140,9 @@ def run_slice(device, world: PlaneWorld, gt_xy=None, n_out: int = N_OUT, drift=N
                                  for k in EVENT_PHASES},
         local_ba_landed_ms=map_slice._pcts(mapper.local_ba_landed_ms),
         frame_ms=map_slice._pcts(frame_ms[first + 1:]),
-        wall_s=wall_s, fps=len(gt_xy) / wall_s,
-        publishes=md.device_table.version, rebases=tr.num_rebases,
+        # bench.py's FPS (bench.py:352): 1 / mean feed time after 30 frames
+        wall_s=wall_s, fps=1e3 / float(np.mean(frame_ms[30:])),
+        frames_per_wall_s=len(gt_xy) / wall_s, publishes=md.device_table.version, rebases=tr.num_rebases,
         drain_fallbacks=tr.num_drain_fallbacks,
         feed_wait_s={k: dict(n=v[0], total=v[1], max=v[2])
                      for k, v in perf.items() if k.startswith("feed/wait")},

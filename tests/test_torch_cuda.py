@@ -572,6 +572,23 @@ def test_undistort_norm_kernel_matches_plain(dev):
     assert float(((k - q).abs() / q.abs().clamp(min=100.0)).max()) < 1e-5
 
 
+@pytest.mark.parametrize("distorted", [False, True])
+def test_undistort_norm_kernel_equals_plain_bit_for_bit(dev, distorted):
+    """Kernel R's undistortion rounds every operation as the torch
+    expressions do on the card (a scalar divisor through its float32
+    reciprocal, no FMA): with a true division and an FMA in `x * fx + cx`
+    the bench camera's keypoints moved by an ulp and the mono slice
+    initialized a frame earlier (ROADMAP Queue 3)."""
+    from stella_vslam_tpu_torch.camera import base as cb
+
+    k = dict(k1=-0.28340811, k2=0.07395907, p1=0.00019359, p2=1.76187114e-05) \
+        if distorted else {}
+    p = cb.make_params(fx=458.0, fy=458.0, cx=376.0, cy=240.0, width=752, height=480, **k)
+    g = torch.Generator().manual_seed(1)
+    pts = (torch.rand(2872, 2, generator=g) * torch.tensor([752.0, 480.0])).to(dev)
+    assert torch.equal(cb.undistort_norm(p, pts), cb.perspective_undistort(p, pts))
+
+
 @pytest.mark.parametrize("K,L,D", [(2, 4096, 2), (16, 4096, 12), (32, 1024, 16), (64, 1024, 16)])
 def test_ba_kernels_repeat_bit_for_bit(dev, K, L, D):
     """Kernels F-I twice on the same problem: the same bits (F's sums and H's
@@ -594,3 +611,92 @@ def test_pose_graph_kernel_repeats_bit_for_bit(dev):
     b = sim3.optimize_pose_graph(*args)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def test_resize_level_kernel_matches_matmul_pyramid(dev):
+    """Kernel S: a pair's pyramid (one launch per level) equals the two
+    images' single pyramids bit for bit, and the matmul pyramid to a few
+    ulps (cuBLAS splits its sums differently on some entries)."""
+    params = OrbParams(num_levels=5)
+    ex = ox.OrbExtractor(params, 401, 299, min_area=400, device=dev)
+    world = PlaneWorld(width=401, height=299, noise_sigma=2.0)
+    imgs = torch.stack([torch.from_numpy(world.render(T)) for T in lateral_trajectory(2)]).to(dev)
+    before = ox.resize_level.launches
+    pair = ex.level_views(ex.pyramid_flat(imgs))
+    assert ox.resize_level.launches == before + len(ex.levels) - 1
+    for b in range(2):
+        one = ex.pyramid(imgs[b])
+        plain = ex.pyramid_plain(imgs[b])
+        for lvl, (a, s, p) in enumerate(zip(pair, one, plain)):
+            assert torch.equal(a[b], s)
+            assert float((s - p).abs().max()) <= 1e-4, lvl
+
+
+def test_fast_nms_kernel_batch_matches_plain(dev, frame):
+    ex, levels = frame
+    for img, g in zip(levels, ex.levels):
+        batch = torch.stack([img, img.flip(1).contiguous()])
+        k = ox.fast_nms(batch, g, ex.border, 20.0, 7.0)
+        assert torch.equal(k, torch.stack([ox.fast_nms_plain(x, g, ex.border, 20.0, 7.0)
+                                           for x in batch]))
+
+
+def test_orb_describe_strips_kernel_matches_plain(dev, frame):
+    ex, levels = frame
+    pts = [ex.cell_keypoints(ox.fast_nms(l.contiguous(), g, ex.border, 20.0, 7.0), g)
+           for l, g in zip(levels, ex.levels)]
+    px, py, valid, _ = (torch.cat(c) for c in zip(*pts))
+    args = (torch.cat([l.reshape(-1) for l in levels]), ex._slot_base, ex._slot_H,
+            ex._slot_W, px.to(torch.int32), py.to(torch.int32), valid, ex._tables)
+    before = ox.orb_describe_strips.launches
+    ak, dk, sk = ox.orb_describe_strips(*args)
+    ap, dp, sp = ox.orb_describe_plain(*args, strips=True)
+    assert ox.orb_describe_strips.launches == before + 1
+    assert torch.equal(sk[valid], sp[valid])
+    assert float((ak - ap).abs().max()) < 1e-5
+
+
+def _stereo_inputs(dev, NL, NR, seed):
+    """Seeded matcher inputs: most right keypoints a shifted copy of a left
+    one (a few flipped bits, the strip shifted by -5..5 px), some ties."""
+    rng = np.random.default_rng(seed)
+    l_xy = np.stack([rng.uniform(20, 380, NL), rng.choice([40.0, 90.0, 91.0, 150.0], NL)], -1)
+    l_desc = rng.integers(0, 2 ** 32, (NL, 8), dtype=np.uint64).astype(np.uint32)
+    l_strip = rng.integers(0, 256, (NL, 11, 21))
+    l_lvl = rng.integers(0, 4, NL)
+    r_xy = np.stack([rng.uniform(0, 400, NR), rng.choice([40.0, 90.0, 150.0], NR)], -1)
+    r_desc = rng.integers(0, 2 ** 32, (NR, 8), dtype=np.uint64).astype(np.uint32)
+    r_strip = rng.integers(0, 256, (NR, 11, 21))
+    r_lvl = rng.integers(0, 4, NR)
+    for j in range(min(NL, NR) * 3 // 4):
+        i = j % NL
+        r_xy[j] = (l_xy[i, 0] - rng.uniform(0, 30), l_xy[i, 1] + rng.uniform(-1, 1))
+        r_lvl[j] = l_lvl[i]
+        r_desc[j] = l_desc[i] ^ np.bitwise_and.reduce(
+            rng.integers(0, 2 ** 32, (3, 8), dtype=np.uint64).astype(np.uint32), axis=0)
+        r_strip[j] = np.clip(np.roll(l_strip[i], int(rng.integers(-5, 6)), axis=1)
+                             + rng.integers(-2, 3, (11, 21)), 0, 255)
+    if NR > 4:
+        r_xy[-2:], r_desc[-2:], r_lvl[-2:] = r_xy[:2], r_desc[:2], r_lvl[:2]
+    t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a).astype(dt), device=dev)
+    sf = t(OrbParams(num_levels=4).scale_factors, np.float32)
+    args = (t(l_xy, np.float32), t(l_lvl, np.int32), t(l_desc.view(np.int32), np.int32),
+            t(rng.random(NL) < 0.95, bool), t(l_strip, np.uint8), t(r_xy, np.float32),
+            t(r_lvl, np.int32), t(r_desc.view(np.int32), np.int32),
+            t(rng.random(NR) < 0.95, bool), t(r_strip, np.uint8))
+    return args, dict(scale_factors=sf, focal_x_baseline=38.4, true_baseline=0.12)
+
+
+@pytest.mark.parametrize("NL,NR", [(1, 1), (37, 50), (300, 260), (2872, 2872)])
+def test_stereo_match_kernel_matches_plain(dev, NL, NR):
+    from stella_vslam_tpu_torch.match import stereo as st
+
+    args, kw = _stereo_inputs(dev, NL, NR, NL + NR)
+    before = st.stereo_match.launches
+    xk, dk = st.stereo_match(*args, **kw)
+    xp, dp = st.stereo_match_plain(*args, **kw)
+    assert st.stereo_match.launches == before + 1
+    m = dp > 0
+    assert torch.equal(dk > 0, m)
+    torch.testing.assert_close(xk[m], xp[m], rtol=1e-5, atol=0)
+    torch.testing.assert_close(dk[m], dp[m], rtol=1e-5, atol=0)

@@ -30,6 +30,9 @@ THREADED_MODULES = tuple("stella_vslam_tpu_torch." + m for m in (
     "tracking_module", "system", "module.tracking_kernels", "camera.base", "util.perf",
     "util.streams", "util.threaded_slice", "publish.frame_publisher",
     "publish.map_publisher"))
+STEREO_MODULES = tuple("stella_vslam_tpu_torch." + m for m in (
+    "match.stereo", "util.stereo_rectifier", "util.stereo_slice", "util.bench",
+    "feature.orb_extractor"))
 
 
 def test_port_imports_without_jax_cv2_yaml():
@@ -47,7 +50,8 @@ def test_port_imports_without_jax_cv2_yaml():
         missing = set(MAPPING_MODULES) - set(mods)
         assert not missing, missing
         print(len(mods))
-    """).replace("MAPPING_MODULES", repr(MAPPING_MODULES + LOOP_MODULES + THREADED_MODULES))
+    """).replace("MAPPING_MODULES", repr(MAPPING_MODULES + LOOP_MODULES + THREADED_MODULES
+                                        + STEREO_MODULES))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -214,3 +214,26 @@ def test_no_keyframe_from_a_frame_tracked_before_a_correction():
     tr._insert_pending = ("after", slam.map_db.epoch)
     tr._drain_insert()
     assert inserted == ["after"] and tr.ref_keyfrm_id == 7
+
+
+def test_keyframe_insertion_excludes_a_loop_correction():
+    """The epoch check and the insertion run under the map lock, which a
+    loop correction takes for its epoch bump: no correction can start
+    between the check and the end of the insertion (else the keyframe and,
+    stereo or RGBD, its depth-seeded landmarks stay in the old gauge)."""
+    world = PlaneWorld()
+    slam = System(Config.from_dict(cfg_dict(world)), device="cpu")
+    tr = slam.tracker
+    got = []
+
+    def insert(map_db, frm):
+        t = threading.Thread(target=lambda: got.append(map_db.lock.acquire(timeout=0.05)))
+        t.start()
+        t.join(timeout=5.0)
+        assert not t.is_alive()
+        return types.SimpleNamespace(id=9)
+
+    tr.keyfrm_inserter.insert_new_keyframe = insert
+    tr._insert_pending = ("frame", slam.map_db.epoch)
+    tr._drain_insert()
+    assert got == [False] and tr.ref_keyfrm_id == 9 and not tr._insert_busy
