@@ -131,11 +131,43 @@ Phases, each fatal on failure (nothing is caught):
      keyframe event, nothing left at shutdown, no worker exception, the
      path's kernels launched; frame time, keyframe events by phase; then T
      against plain on every 20th call of the stereo leg.
+ 17. bench.py's equirectangular leg (util/equirect_slice.py): the default
+     threaded System on the 640x320 box room, 6 levels, 250 frames on the
+     1.8 m circle, with bench.py's gates (at most 10 frames lost after
+     init, Sim3 ATE < 0.10 m), a keyframe event, a clean shutdown, the
+     path's kernels launched (E's MODEL 2 in the bearing-vector
+     initializer, the equirectangular modes of R, D, F-I, K, L); then the
+     escalation run: a fresh System on the leg's first 12 frames with the
+     initializer's escalation threshold above 1, so that its escalated E
+     sweep and kernel U's 5-point sweep run (the leg escalates only below
+     45% consensus), kernel U launched;
+ 18. the kernels the leg runs unchanged, at its own shapes and inputs
+     (640x320, 6 levels, 1199 slots): S, A and B on one of its frames
+     through its extractor with phase 3's and the stereo phase's bounds,
+     M on that frame's descriptors, C's angle gate on the init pair's area
+     match, J on its largest triangulation, Q on its sampled scatters and
+     dedups; then the equirectangular modes against their plain versions
+     on the leg's own inputs (R on points and table rows all around the
+     camera: uv within 1e-5 of the image size, flags equal except within
+     1e-6 of a threshold; D on every 25th of the leg's pose optimizations
+     within 1e-4; K and L on its largest triangulation and fuse chunk with
+     phase 8's bounds; F-I kernel by kernel, _lockstep_ba, on its init BA
+     and local problems, timed at the local shape), and on the leg's init
+     pair E's MODEL 2 (1024 hypotheses with one LO refit: the plain model
+     on >= 75% of the hypotheses, and on fewer with another seed's sets;
+     the winner's count and mask equal; the escalated 8 x 4096 with 3 LO
+     refits within 1%) and kernel U (1024
+     sets for each of U_SEEDS: indices bit-equal, valid flags equal on
+     >= 98% of the slots, candidates as sets within U_SHARE_LIMITS of
+     plain's and no more than U_FLOOR_ROOM below plain on the CPU, a
+     control with its bisection cut short caught by the limits; as many
+     candidates satisfying their own epipolar constraints as plain's).
 Launch counts are set to 0 just before each slice and read just after it;
 the kernels line's `launches` is the count on the path of the slice that
-ported the kernel (the stereo leg for S, B's strip mode and T; the threaded
-slice, which runs every earlier kernel, for the rest), with every slice's
-count beside it.
+ported the kernel (the stereo leg for S, B's strip mode and T; the
+equirectangular leg for the equirectangular modes and E's MODEL 2, its
+escalation run for U; the threaded slice, which runs every earlier kernel,
+for the rest), with every slice's count beside it.
 The line before the last is {"kernels": [...]}, the one before it
 "slices: {...}" with each slice's result in short; the last line is
 {"ok": true, "device": {...}}. Long logs go to chiprun_out/.
@@ -164,6 +196,9 @@ LOOP_KERNELS = ("bow_transform", "pnp_ransac", "sim3_transform", "pose_graph")
 STEREO_KERNELS = ("orb_describe_strips", "stereo_match")
 # the kernels line's rows whose launches are the stereo leg's
 STEREO_PATH_ROWS = ("resize_level",) + STEREO_KERNELS
+# kernel U: the five-point sweep, run when the bearing-vector initializer
+# escalates (the equirectangular leg's escalation run)
+EQUIRECT_KERNELS = ("essential_5pt",)
 
 
 def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -604,7 +639,7 @@ def _compare_ba(prob, cam, label, num_first=5, num_second=10):
     return e_pose
 
 
-def _f_scale(prob, cam, R, t, p, inlier, lam, use_huber):
+def _f_scale(prob, cam, R, t, p, inlier, lam, use_huber, model="perspective"):
     """Per entry of kernel F's outputs (Hcc, b_c, S_red, rhs_red), the sum of
     the absolute values of the terms it adds up. Float32 rounding of a sum
     is relative to that, not to the sum itself, which cancels near a
@@ -616,10 +651,10 @@ def _f_scale(prob, cam, R, t, p, inlier, lam, use_huber):
 
     K = R.shape[0]
     oc = prob.obs_cam.long()
-    r, Jc, Jp, depth_ok = ba._pose_rows(prob, R, t, p, cam)
-    wr = ba._row_weights(prob, r, depth_ok, inlier, use_huber)[0].abs()[..., None]
+    r, Jc, Jp, depth_ok = ba._pose_rows(prob, R, t, p, cam, model)
+    wr = ba._row_weights(prob, r, depth_ok, inlier, use_huber, model)[0].abs()[..., None]
     aJcw, aJpw, aJc, aJp, ar = (Jc.abs() * wr, Jp.abs() * wr, Jc.abs(), Jp.abs(), r.abs())
-    _, (Hpp, _, _, _, _, _) = ba._linearize(prob, R, t, p, inlier, cam, use_huber)
+    _, (Hpp, _, _, _, _, _) = ba._linearize(prob, R, t, p, inlier, cam, use_huber, model)
     aW = torch.einsum("ldri,ldra->ldia", aJcw, aJp)
     aA = aW @ ba._sym3_inv(Hpp, lam).abs()[:, None]
     abp = torch.einsum("ldri,ldr->li", aJpw, ar)
@@ -637,7 +672,7 @@ def _f_scale(prob, cam, R, t, p, inlier, lam, use_huber):
         rhs.reshape(-1)
 
 
-def _lockstep_ba(prob, cam, num_first, num_second):
+def _lockstep_ba(prob, cam, num_first, num_second, model="perspective"):
     """Kernels F-I against their plain versions on the same inputs, kernel
     by kernel through bundle_adjust's schedule on the kernels' own state
     (poses, points, lambda, inliers). F: its camera blocks, reduced system
@@ -665,7 +700,7 @@ def _lockstep_ba(prob, cam, num_first, num_second):
     from stella_vslam_tpu_torch.ops.optim import ba
 
     K = prob.cam_R.shape[0]
-    st = ba._KernelState(prob, cam)
+    st = ba._KernelState(prob, cam, model)
     prob64 = ba.BAProblem(*[v.double() if v is not None and v.is_floating_point() else v
                             for v in prob])
     parts = ("Hcc", "b_c", "S_red", "rhs_red", "cost")
@@ -685,8 +720,9 @@ def _lockstep_ba(prob, cam, num_first, num_second):
     def classify(final):
         R, t, p = state()
         fk = ba.ba_classify(st, final)
-        fp = ba.classify_plain(prob, cam, R, t, p, final)
-        _, chi2, _ = ba._total_cost(prob, R, t, p, torch.ones_like(prob.obs_valid), cam, False)
+        fp = ba.classify_plain(prob, cam, R, t, p, final, model)
+        _, chi2, _ = ba._total_cost(prob, R, t, p, torch.ones_like(prob.obs_valid), cam, False,
+                                    model)
         thr = torch.where(prob.obs_x_right > 0, torch.full_like(chi2, ba.CHI_SQ_3D),
                           torch.full_like(chi2, ba.CHI_SQ_2D))
         near = (chi2 / thr - 1.0).abs() <= 1e-5
@@ -708,7 +744,7 @@ def _lockstep_ba(prob, cam, num_first, num_second):
             lam = st.ctrl[ba._LAM].clone()
             # F
             c0, Hcc, b_c, S_red, rhs_red, terms = ba.linearize_schur_plain(
-                prob, cam, R, t, p, inlier, lam, use_huber)
+                prob, cam, R, t, p, inlier, lam, use_huber, model)
             ba.ba_linearize_schur(st, inl, use_huber)
             hc = st.hc.clone()
             Hcc_k = torch.zeros_like(Hcc)
@@ -716,8 +752,9 @@ def _lockstep_ba(prob, cam, num_first, num_second):
             Hcc_k[:, iu[1], iu[0]] = hc[:, :21]
             b_c_k, S_k, rhs_k = hc[:, 21:], st.S.clone(), st.rhs.clone()
             c64, *f64, terms64 = ba.linearize_schur_plain(
-                prob64, cam, R.double(), t.double(), p.double(), inlier, lam.double(), use_huber)
-            scale = _f_scale(prob, cam, R, t, p, inlier, lam, use_huber) + (c0,)
+                prob64, cam, R.double(), t.double(), p.double(), inlier, lam.double(), use_huber,
+                model)
+            scale = _f_scale(prob, cam, R, t, p, inlier, lam, use_huber, model) + (c0,)
             for name, u, v, e, m in zip(parts, (Hcc_k, b_c_k, S_k, rhs_k, st.ctrl[ba._COST0]),
                                         (Hcc, b_c, S_red, rhs_red, c0), f64 + [c64], scale):
                 m = m.double().clamp(min=1e-30)
@@ -739,12 +776,12 @@ def _lockstep_ba(prob, cam, num_first, num_second):
             worst("g_pose", max(float((Rn_k - Rn).abs().max()), float((tn_k - tn).abs().max())))
             # H on G's step
             pn, cost = ba.backsub_cost_plain(prob, cam, p, terms, st.dx.clone(), Rn_k, tn_k,
-                                             inlier, use_huber)
+                                             inlier, use_huber, model)
             ba.ba_backsub_cost(st, inl, use_huber)
             if bool(twice.any()):
                 pn64, _ = ba.backsub_cost_plain(prob64, cam, p.double(), terms64,
                                                 st.dx.double(), Rn_k.double(), tn_k.double(),
-                                                inlier, use_huber)
+                                                inlier, use_huber, model)
                 trial = ba.BAResult(Rn_k, tn_k, pn, None, None)
                 allow = torch.clamp(1e-4 * _ray_sensitivity(prob, trial, seen), min=1e-3)
                 share = lambda q: ((q.double() - pn64).abs().amax(-1) / allow)[twice].max()
@@ -771,7 +808,7 @@ def _lockstep_ba(prob, cam, num_first, num_second):
     return out
 
 
-def _time_ba_kernels(dev, err, prob, cam, suffix=""):
+def _time_ba_kernels(dev, err, prob, cam, suffix="", model="perspective"):
     """One LM iteration of `prob`, kernel by kernel, against the plain
     version of each, and one classification; rows F, G, H, I (names with
     `suffix`)."""
@@ -781,7 +818,7 @@ def _time_ba_kernels(dev, err, prob, cam, suffix=""):
 
     K, L, D = prob.cam_R.shape[0], prob.obs_cam.shape[0], prob.obs_cam.shape[1]
     inl = torch.ones((L, D), dtype=torch.uint8, device=dev)
-    st = ba._KernelState(prob, cam)
+    st = ba._KernelState(prob, cam, model)
     ev = lambda: torch.cuda.Event(enable_timing=True)
     times = {"F": [], "G": [], "H": [], "I": []}
     for rep in range(23):
@@ -805,12 +842,12 @@ def _time_ba_kernels(dev, err, prob, cam, suffix=""):
     lam = torch.tensor(1e-4, device=dev)
     inlb = torch.ones((L, D), dtype=torch.bool, device=dev)
     R0, t0, p0 = prob.cam_R, prob.cam_t, prob.lm_pos
-    lin = lambda: ba.linearize_schur_plain(prob, cam, R0, t0, p0, inlb, lam, True)
+    lin = lambda: ba.linearize_schur_plain(prob, cam, R0, t0, p0, inlb, lam, True, model)
     cost0, Hcc, b_c, S_red, rhs_red, terms = lin()
     solve = lambda: ba.reduced_solve_plain(prob, R0, t0, Hcc, b_c, S_red, rhs_red, lam)
     dx, Rn, tn = solve()
-    back = lambda: ba.backsub_cost_plain(prob, cam, p0, terms, dx, Rn, tn, inlb, True)
-    classify = lambda: ba.classify_plain(prob, cam, R0, t0, p0, True)
+    back = lambda: ba.backsub_cost_plain(prob, cam, p0, terms, dx, Rn, tn, inlb, True, model)
+    classify = lambda: ba.classify_plain(prob, cam, R0, t0, p0, True, model)
     # the damped reduced system, for the one-call library solve
     S, rhs = ba.damped_reduced_system(prob, Hcc, b_c, S_red, rhs_red, lam)
     n = 6 * K
@@ -888,27 +925,19 @@ def largest_inputs(calls):
     return tri, fuse, local
 
 
-def check_mapping_kernels(dev, mapper, inputs):
-    """Kernels J, K and L against their plain versions on the map slice's
-    own inputs (the triangulation with the most neighbours, the fuse chunk
-    with the most landmarks), and F-I at the local-BA shape: a K=16, L=4096,
-    D=12 problem (checked and timed) and every local problem of the slice
-    (kernel by kernel, _lockstep_ba). Returns rows J, K, L and F-I local."""
+def _check_epipolar(dev, kern, tri, name="epipolar_top2", label=""):
+    """Kernel J against its plain version on one triangulation's inputs
+    (`tri`: the current keyframe, its neighbours, their poses and valid
+    flags); returns its row of the kernels line."""
     import torch
 
-    from stella_vslam_tpu_torch.match import fuse as fuse_match
     from stella_vslam_tpu_torch.match import hamming as H
     from stella_vslam_tpu_torch.match import robust
     from stella_vslam_tpu_torch.module import mapping_kernels as mk
-    from stella_vslam_tpu_torch.ops.optim import ba
 
-    rows = []
-    kern = mapper.kernels
-    (cur, nbrs, poses, pair_valid), fargs, local = inputs
+    cur, nbrs, poses, pair_valid = tri
     B, N2 = nbrs.desc.shape[0], nbrs.desc.shape[1]
     N1 = cur.desc.shape[0]
-
-    # ---- J: epipolar-gated top-2, B neighbours x N1 x N2 ----
     E_12, epl2 = mk.epipolar_terms(poses)
     gate = robust.epipolar_gate(cur.angle, cur.level, cur.bear, cur.stereo, nbrs.angle,
                                 nbrs.bear, nbrs.stereo, E_12, epl2,
@@ -940,22 +969,46 @@ def check_mapping_kernels(dev, mapper, inputs):
         nbrs.desc, nbrs.bear, nbrs.unassoc, nbrs.stereo, E_12, epl2,
         scale_factors=kern.scale_factors)[1].sum())
     torch.cuda.synchronize()
-    print(f"kernel J epipolar_top2: {B}x{N1}x{N2}, {int(pair_valid.sum())} valid "
+    print(f"kernel J epipolar_top2{label}: {B}x{N1}x{N2}, {int(pair_valid.sum())} valid "
           f"neighbours, {int(cur.unassoc.sum())} unassociated rows, {n_valid} valid, "
           f"{n_orient} past orientation and epipole, {n_cand} candidate pairs, {n_acc} "
           f"accepted; rows differing from plain {share_j:.6f}")
-    assert share_j <= 1e-3, "kernel J disagrees with its plain version"
-    rows.append(dict(
-        name="epipolar_top2", route="cuda",
+    assert share_j <= 1e-3, f"kernel J disagrees with its plain version{label}"
+    return dict(
+        name=name, route="cuda",
         source="stella_vslam_tpu_torch/csrc/hamming_top2.cu",
         replaces="stella_vslam_tpu/match/robust.py:22", max_abs_err=share_j,
         ms=_median_ms(lambda: H.epipolar_top2(*jargs)),
         plain_ms=_median_ms(lambda: H.epipolar_top2_plain(*jargs), reps=5, warmup=1),
         library_ms=None,
         **_bound(N1 * (32 + 24 + 1) + B * N2 * (32 + 24 + 1) + B * N1 * 16,
-                 1.0 * n_rowpairs + 5.0 * n_valid + 10.0 * n_orient + 30.0 * n_cand)))
+                 1.0 * n_rowpairs + 5.0 * n_valid + 10.0 * n_orient + 30.0 * n_cand),
+        shape=f"{B}x{N1}x{N2}")
+
+
+def check_mapping_kernels(dev, mapper, inputs):
+    """Kernels J, K and L against their plain versions on the map slice's
+    own inputs (the triangulation with the most neighbours, the fuse chunk
+    with the most landmarks), and F-I at the local-BA shape: a K=16, L=4096,
+    D=12 problem (checked and timed) and every local problem of the slice
+    (kernel by kernel, _lockstep_ba). Returns rows J, K, L and F-I local."""
+    import torch
+
+    from stella_vslam_tpu_torch.match import fuse as fuse_match
+    from stella_vslam_tpu_torch.match import robust
+    from stella_vslam_tpu_torch.module import mapping_kernels as mk
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    rows = []
+    kern = mapper.kernels
+    (cur, nbrs, poses, pair_valid), fargs, local = inputs
+    B, N2 = nbrs.desc.shape[0], nbrs.desc.shape[1]
+    N1 = cur.desc.shape[0]
+
+    rows.append(_check_epipolar(dev, kern, (cur, nbrs, poses, pair_valid)))
 
     # ---- K: DLT and checks on kernel J's matches ----
+    E_12, epl2 = mk.epipolar_terms(poses)
     idx2, accepted, _ = robust.match_for_triangulation(
         cur.angle, cur.level, cur.desc, cur.bear, cur.unassoc, cur.stereo, nbrs.angle,
         nbrs.desc, nbrs.bear, nbrs.unassoc, nbrs.stereo, E_12, epl2,
@@ -1144,7 +1197,7 @@ def run_loop_slice(dev, world, wrappers, card):
     assert stats["loop_edges"], "no loop edge in the graph"
     assert all(stats["frame_after_loop_tracked"]), "the frame after a correction was lost"
     for name, n in launches.items():
-        assert n > 0 or name in THREADED_KERNELS + STEREO_KERNELS, \
+        assert n > 0 or name in THREADED_KERNELS + STEREO_KERNELS + EQUIRECT_KERNELS, \
             f"{name} was not launched by the loop slice"
     return stats, launches, slam, inputs, loop_calls
 
@@ -2028,7 +2081,8 @@ def run_threaded_slice(dev, world, wrappers, card):
     assert not st["staged_event"] and st["queued"] == 0 and not st["pending_ba"] \
         and st["loop_queue"] == 0, f"work left at shutdown: {st}"
     for name, n in launches.items():
-        assert n > 0 or name in STEREO_KERNELS, f"{name} was not launched by the threaded slice"
+        assert n > 0 or name in STEREO_KERNELS + EQUIRECT_KERNELS, \
+            f"{name} was not launched by the threaded slice"
     return stats, launches, slam, calls
 
 
@@ -2371,9 +2425,667 @@ def run_slices(dev, world, wrappers, card):
     assert mono["ate_m"] < 0.10, f"Sim3 ATE {mono['ate_m']:.4f} m"
     for name, n in launches["mono"].items():
         assert n > 0 or name in MAPPING_KERNELS + LOOP_KERNELS + THREADED_KERNELS \
-            + STEREO_KERNELS, \
+            + STEREO_KERNELS + EQUIRECT_KERNELS, \
             f"{name} was not launched by the mono slice"
     return stats, mono, launches
+
+
+EQUIRECT_LEG_KERNELS = ("resize_level", "fast_nms", "orb_describe", "hamming_top2", "pose_lm",
+                        "ransac_two_view", "scatter_to_current", "dedup_by_id",
+                        "reproject_gate", "epipolar_top2", "triangulate", "fuse",
+                        "ba_linearize_schur", "ba_reduced_solve", "ba_backsub_cost",
+                        "ba_classify", "bow_transform")
+# the rows of the equirectangular modes and of the kernels the leg runs
+# unchanged, held at its own shapes, by the counter they read
+EQUIRECT_ROWS = {"reproject_gate_equirect": "reproject_gate", "pose_lm_equirect": "pose_lm",
+                 "triangulate_equirect": "triangulate", "fuse_equirect": "fuse",
+                 "ransac_two_view_essential": "ransac_two_view",
+                 "ransac_two_view_essential_escalated": "ransac_two_view",
+                 "essential_5pt": "essential_5pt",
+                 **{f"ba_{k}_equirect": f"ba_{k}" for k in (
+                     "linearize_schur", "reduced_solve", "backsub_cost", "classify")},
+                 **{f"{k}_equirect_leg": k for k in (
+                     "resize_level", "fast_nms", "orb_describe", "hamming_top2",
+                     "epipolar_top2", "bow_transform", "scatter_to_current", "dedup_by_id")}}
+# kernel U's candidates against its plain version's, as sets, up to sign:
+# the share within 1e-4 / 1e-3 / 1e-2 each way (the lesser), at least this
+# on every seed, and at most U_FLOOR_ROOM below the share of the plain
+# version on the CPU. On the leg's init pair (H100, PERF.md) the kernel
+# read 0.347-0.351 / 0.724-0.740 / 0.922-0.936 over U_SEEDS, plain on the
+# CPU 0.345-0.361 / 0.739-0.749 / 0.928-0.938, and the control (plain with
+# its bisection cut to U_CONTROL_BISECT steps) 0.076-0.084 / 0.605-0.627 /
+# 0.920-0.930: the limits lie between kernel and control at 1e-4 and 1e-3;
+# at 1e-2 the control reads as the kernel does, and the limit is a floor
+U_SHARE_LIMITS = (0.30, 0.70, 0.90)
+U_FLOOR_ROOM = 0.04
+U_CONTROL_BISECT = 3
+U_SEEDS = (12, 13, 14, 15)
+
+
+def record_equirect_inputs(slam, sample: int = 25):
+    """Keep, by reference, what the equirectangular leg's kernels saw: the
+    initializer's area matches and its last two-view attempt (the init
+    pair's bearings and matches), every `sample`-th pose optimization of
+    the tracker, the mapper's triangulations, fusions and bundle
+    adjustments (record_kernel_inputs) and kernel Q's sampled scatters and
+    dedups (record_assoc_inputs). Returns (calls, undo)."""
+    from stella_vslam_tpu_torch.match import area
+
+    calls, undo_map = record_kernel_inputs(slam.mapper)
+    assoc, undo_assoc = record_assoc_inputs(sample=53)
+    calls.update(init=[], pose=[], area=[], **assoc)
+    area_match = area.match_in_consistent_area
+
+    def area_rec(*args, **kw):
+        calls["area"].append((args, kw))
+        return area_match(*args, **kw)
+    init, kern = slam.tracker.initializer, slam.tracker.kernels
+    attempt, pose_opt = init._initialize_from_aligned, kern._pose_opt
+    seen = [0]
+
+    def init_rec(ref, cur_uv, cur_bear, mvalid, n):
+        calls["init"].append((ref.bearings.contiguous(), cur_bear, mvalid))
+        return attempt(ref, cur_uv, cur_bear, mvalid, n)
+
+    def pose_rec(*args):
+        if seen[0] % sample == 0:
+            calls["pose"].append(args)
+        seen[0] += 1
+        return pose_opt(*args)
+
+    init._initialize_from_aligned, kern._pose_opt = init_rec, pose_rec
+    area.match_in_consistent_area = area_rec
+
+    def undo():
+        del init._initialize_from_aligned, kern._pose_opt
+        area.match_in_consistent_area = area_match
+        undo_assoc()
+        undo_map()
+
+    return calls, undo
+
+
+def run_equirect_leg(dev, wrappers, card):
+    """bench.py's equirectangular leg (util/equirect_slice.py: the default
+    threaded System, 250 frames at 640x320, 6 levels) with every launch
+    count at 0 just before it and read just after, bench.py's gates, the
+    path's kernels launched; then the escalation run: a fresh System on
+    the leg's first 12 frames with the initializer's escalation threshold
+    above 1, so that every attempt runs the escalated E sweep and the
+    5-point sweep of kernel U (the leg itself escalates only when the
+    standard batch's consensus is below 45% of the matches), its counts
+    read as its own path's. Returns (stats, launches, escalation launches,
+    recorded inputs)."""
+    from stella_vslam_tpu_torch.util import equirect_slice as es
+    from stella_vslam_tpu_torch.util.synthetic import equirect_circle
+
+    world = es.bench_world()
+    slam = es.make_system(world, dev)
+    calls, undo = record_equirect_inputs(slam)
+    try:
+        s = es.run_leg(dev, world, slam=slam)
+    finally:
+        undo()
+    launches = s.pop("launches")
+    with open(os.path.join(OUT_DIR, "equirect_leg.json"), "w") as f:
+        json.dump(dict(s, launches=launches, card=card), f, indent=1)
+    print("equirect leg: " + json.dumps(dict(s, card=card)))
+    print("equirect leg launches: " + json.dumps(launches))
+    for e in slam.worker_error_log:
+        print("worker error:\n" + e)
+    es.check_gates(s)
+    assert s["keyframes_created"] >= 1, "equirect: no keyframe event"
+    for name in EQUIRECT_LEG_KERNELS:
+        assert launches[name] > 0, f"{name} was not launched by the equirect leg"
+    assert s["init_escalations"] > 0 or launches["essential_5pt"] == 0
+    # the escalation run
+    esc = es.make_system(world, dev)
+    esc.tracker.initializer.escalation_ratio_thr = 1.01
+    poses, centres = equirect_circle(250)
+    for w in wrappers.values():
+        w.launches = 0
+    for i in range(12):
+        esc.feed_monocular_frame(world.render(poses[i]), i * 0.05)
+    esc.shutdown()
+    esc_launches = {k: w.launches for k, w in wrappers.items()}
+    tracked = sum(p is not None for (_, p, _, _) in esc.frame_poses)
+    print(f"equirect escalation run: {esc.tracker.initializer.num_escalations} escalated init "
+          f"attempts, {tracked} of 12 frames tracked, launches " + json.dumps(esc_launches))
+    assert esc_launches["essential_5pt"] > 0 and esc_launches["ransac_two_view"] > 0, \
+        "the escalation run launched no five-point sweep"
+    assert tracked > 0, "the escalation run did not initialize"
+    return s, launches, esc_launches, calls, slam
+
+
+def _candidate_shares(Ea, va, Eb, vb, thrs=(1e-4, 1e-3, 1e-2)):
+    """Per threshold, the share of a's valid candidates with one of b's (of
+    the same set) within it, up to sign (max |entry| difference)."""
+    import torch
+
+    Ea, Eb = Ea.flatten(2), Eb.flatten(2)  # [B,10,9]
+    d = torch.minimum((Ea[:, :, None] - Eb[:, None]).abs().amax(-1),
+                      (Ea[:, :, None] + Eb[:, None]).abs().amax(-1))  # [B,10,10]
+    d = torch.where(vb[:, None, :], d, torch.full_like(d, float("inf"))).amin(-1)[va]
+    return [float((d <= t).float().mean()) if d.numel() else 1.0 for t in thrs]
+
+
+def check_equirect_shapes(dev, slam_like, calls):
+    """The kernels the equirectangular leg runs unchanged, against their
+    plain versions at its own shapes: S, A and B on one of its frames
+    through its extractor (640x320, 6 levels, min_size 800: 1199 slots on
+    a grid unlike the 752x480 slices'), with phase 3's and the stereo
+    phase's bounds; M on that frame's descriptors (exact); C's angle-gate
+    mode on the init pair's last area match and J on the leg's largest
+    triangulation (rows differing <= 1e-3, as phases 4 and 8); Q on the
+    leg's sampled scatters and dedups (exact). Returns their rows."""
+    import torch
+
+    from stella_vslam_tpu_torch.data import bow_vocabulary as bow
+    from stella_vslam_tpu_torch.feature import orb_extractor as ox
+    from stella_vslam_tpu_torch.match import area
+    from stella_vslam_tpu_torch.match import hamming as H
+    from stella_vslam_tpu_torch.module import tracking_kernels as tk
+    from stella_vslam_tpu_torch.util import equirect_slice as es
+    from stella_vslam_tpu_torch.util.synthetic import equirect_circle
+
+    rows = []
+    ex, params = slam_like.extractor, slam_like.extractor.params
+    L = len(ex.levels)
+    img = torch.from_numpy(es.bench_world().render(equirect_circle(250)[0][0])).to(dev)
+    shape = f"{ex.width}x{ex.height}, {L} levels, {ex.num_slots} slots"
+    thr = (float(params.ini_fast_thr), float(params.min_fast_thr))
+
+    # ---- S: the pyramid, against the matmul pyramid ----
+    pk, pp = ex.pyramid(img), ex.pyramid_plain(img)
+    n_px = sum(a.numel() for a in pk[1:])
+    n_diff = sum(int((a != b).sum()) for a, b in zip(pk[1:], pp[1:]))
+    max_s = max(float((a - b).abs().max()) for a, b in zip(pk[1:], pp[1:]))
+    keys = moved = 0
+    for a, b, g in zip(pk, pp, ex.levels):
+        ka = ox.fast_nms(a.contiguous(), g, ex.border, *thr)
+        keys += ka.numel()
+        moved += int((ka != ox.fast_nms(b.contiguous(), g, ex.border, *thr)).sum())
+    torch.cuda.synchronize()
+    print(f"kernel S resize_level at the equirect leg's shape ({shape}): {n_px} pixels of "
+          f"levels 1-{L - 1}, {n_diff} differ from the matmul's, max |diff| {max_s:.3g}; kernel "
+          f"A's cell keys moved {moved} of {keys}")
+    assert max_s <= 1e-4 and moved <= 0.005 * keys, "kernel S disagrees at the leg's shape"
+    lvl_px = [g.H * g.W for g in ex.levels]
+    plain_s = _median_ms(lambda: ex.pyramid_plain(img))
+    rows.append(dict(
+        name="resize_level_equirect_leg", route="cuda",
+        source="stella_vslam_tpu_torch/csrc/resize.cu",
+        replaces="stella_vslam_tpu/feature/orb_extractor.py:118", max_abs_err=max_s,
+        pixels_differing_cublas=n_diff, pixels=n_px, fast_keys_moved=moved, fast_keys=keys,
+        shape=shape, ms=_median_ms(lambda: ex.pyramid(img)), plain_ms=plain_s,
+        library_ms=plain_s,
+        **_bound(4.0 * sum(lvl_px[l - 1] + lvl_px[l] for l in range(1, L)),
+                 6.0 * sum(lvl_px[1:]))))
+
+    # ---- A: FAST + NMS on every level ----
+    run_a = lambda fn: [fn(l.contiguous(), g, ex.border, *thr) for l, g in zip(pk, ex.levels)]
+    ka, pa = run_a(ox.fast_nms), run_a(ox.fast_nms_plain)
+    torch.cuda.synchronize()
+    err_a = max(int((k - p).abs().max()) for k, p in zip(ka, pa))
+    print(f"kernel A fast_nms at the equirect leg's shape: "
+          f"{sum(int((k >= 0).sum()) for k in ka)}/{ex.num_slots} cells with a corner, max "
+          f"|key diff| {err_a}")
+    assert err_a == 0, "kernel A disagrees with its plain version at the leg's shape"
+    pyr_bytes = 4.0 * sum(l.numel() for l in pk)
+    rows.append(dict(
+        name="fast_nms_equirect_leg", route="cuda",
+        source="stella_vslam_tpu_torch/csrc/fast_nms.cu",
+        replaces="stella_vslam_tpu/feature/orb_extractor.py:88", max_abs_err=float(err_a),
+        shape=shape, ms=_median_ms(lambda: run_a(ox.fast_nms)),
+        plain_ms=_median_ms(lambda: run_a(ox.fast_nms_plain)), library_ms=None,
+        **_bound(pyr_bytes + 4.0 * ex.num_slots, 300.0 * sum(l.numel() for l in pk))))
+
+    # ---- B: orientation, blur and steered BRIEF of the frame's slots ----
+    pts = [ex.cell_keypoints(k, g) for k, g in zip(ka, ex.levels)]
+    px, py, valid, _ = (torch.cat(c) for c in zip(*pts))
+    bargs = (torch.cat([l.reshape(-1) for l in pk]), ex._slot_base, ex._slot_H, ex._slot_W,
+             px.to(torch.int32), py.to(torch.int32), valid, ex._tables)
+    ang_k, desc_k = ox.orb_describe(*bargs)
+    ang_p, desc_p = ox.orb_describe_plain(*bargs)
+    torch.cuda.synchronize()
+    err_b = float((ang_k - ang_p).abs().max())
+    x = (desc_k ^ desc_p)[valid].cpu().numpy()
+    bit_rate = float(np.unpackbits(x.view(np.uint8)).sum()) / max(1, x.size * 32)
+    n_valid = int(valid.sum())
+    print(f"kernel B orb_describe at the equirect leg's shape: {n_valid} keypoints, "
+          f"descriptor bit mismatch {bit_rate:.6f}, max |angle diff| {err_b:.3g} rad")
+    assert bit_rate <= DESC_MISMATCH_BOUND and err_b < 1e-3, \
+        "kernel B disagrees with its plain version at the leg's shape"
+    rows.append(dict(
+        name="orb_describe_equirect_leg", route="cuda",
+        source="stella_vslam_tpu_torch/csrc/orb_describe.cu",
+        replaces="stella_vslam_tpu/feature/orb_extractor.py:392", max_abs_err=err_b,
+        desc_bit_mismatch=bit_rate, shape=shape,
+        ms=_median_ms(lambda: ox.orb_describe(*bargs)),
+        plain_ms=_median_ms(lambda: ox.orb_describe_plain(*bargs)), library_ms=None,
+        **_bound(pyr_bytes + 36.0 * ex.num_slots,
+                 n_valid * (31 * 31 * 2 + 39 * 39 * 49 * 2 + 256 * 2))))
+
+    # ---- M: the BoW descent of the frame's descriptors ----
+    packed = slam_like.bow_vocab.packed_centers()
+    d_m = desc_k.contiguous()
+    differ_m = int((bow.bow_transform(d_m, packed) != bow.bow_transform_plain(d_m, packed)).sum())
+    torch.cuda.synchronize()
+    print(f"kernel M bow_transform at the equirect leg's shape: {ex.num_slots} descriptors, "
+          f"leaf ids differing from plain: {differ_m}")
+    assert differ_m == 0, "kernel M disagrees with its plain version at the leg's shape"
+    rows.append(dict(
+        name="bow_transform_equirect_leg", route="cuda",
+        source="stella_vslam_tpu_torch/csrc/bow_transform.cu",
+        replaces="stella_vslam_tpu/data/bow_vocabulary.py:76", max_abs_err=float(differ_m),
+        shape=f"N={ex.num_slots}", ms=_median_ms(lambda: bow.bow_transform(d_m, packed)),
+        plain_ms=_median_ms(lambda: bow.bow_transform_plain(d_m, packed), reps=10),
+        library_ms=None,
+        **_bound(ex.num_slots * 36.0 + packed.numel() * 4.0, ex.num_slots * 40 * 24.0)))
+
+    # ---- C, angle-gate mode: the init pair's area match ----
+    a_args, a_kw = calls["area"][-1]
+    cargs, ckw = area.top2_args(*a_args, margin=a_kw.get("margin", 100.0))
+    k, p = H.hamming_top2(*cargs, **ckw), H.hamming_top2_plain(*cargs, **ckw)
+    differ = torch.zeros_like(k[0], dtype=torch.bool)
+    for u, v in zip(k, p):
+        differ |= u != v
+    share_c = float(differ.float().mean())
+    Mc, Nc = cargs[0].shape[0], cargs[1].shape[0]
+    n_cand = float(H.gate_matrix(cargs[2], cargs[3], ckw["window"], ckw["orient"]).sum())
+    torch.cuda.synchronize()
+    print(f"kernel C angle gate on the equirect leg's init pair: {Mc}x{Nc}, "
+          f"{int(cargs[2].sum())} level-0 rows, {int(n_cand)} candidate pairs, rows differing "
+          f"from plain {share_c:.6f}")
+    assert share_c <= 1e-3, "kernel C's angle gate disagrees with plain on the leg's init pair"
+    rows.append(dict(
+        name="hamming_top2_equirect_leg", route="cuda",
+        source="stella_vslam_tpu_torch/csrc/hamming_top2.cu",
+        replaces="stella_vslam_tpu/match/area.py:19", max_abs_err=share_c,
+        shape=f"{Mc}x{Nc}, window and angle gate",
+        ms=_median_ms(lambda: H.hamming_top2(*cargs, **ckw)),
+        plain_ms=_median_ms(lambda: H.hamming_top2_plain(*cargs, **ckw)), library_ms=None,
+        **_bound(Mc * (32 + 24 + 16) + Nc * (32 + 17), 8.0 * Mc * Nc + 24.0 * n_cand)))
+
+    # ---- J: the leg's largest triangulation ----
+    tri, _, _ = largest_inputs(calls)
+    rows.append(_check_epipolar(dev, slam_like.mapper.kernels, tri,
+                                name="epipolar_top2_equirect_leg",
+                                label=" on the equirect leg's largest triangulation"))
+
+    # ---- Q: the leg's sampled scatters and dedups ----
+    err_q = 0.0
+    for kind in ("scatter", "dedup", "rebase"):
+        for args in calls[kind]:
+            err_q = max(err_q, _check_assoc_call(kind, args))
+    n = {k_: len(calls[k_]) for k_ in ("scatter", "dedup", "rebase")}
+    print(f"kernel Q on the equirect leg's inputs: {json.dumps(n)} calls, ints exact, poses "
+          f"within {err_q:.3g}")
+    assert n["scatter"] > 0 and n["dedup"] > 0, "no kernel Q call recorded on the leg"
+    sargs, dargs = calls["scatter"][-1], calls["dedup"][-1]
+    Ms, Ns, Nd = sargs[0].shape[0], int(sargs[4]), dargs[0].shape[0]
+    src_q = "stella_vslam_tpu_torch/csrc/track_assoc.cu"
+    rows.append(dict(
+        name="scatter_to_current_equirect_leg", route="cuda", source=src_q,
+        replaces="stella_vslam_tpu/module/tracking_kernels.py:64", max_abs_err=0.0,
+        shape=f"M={Ms} N={Ns}", ms=_median_ms(lambda: tk.scatter_to_current(*sargs)),
+        plain_ms=_median_ms(lambda: tk.scatter_to_current_plain(*sargs)), library_ms=None,
+        **_bound(Ms * (4 + 1 + 12 + 4) + Ns * (12 + 4 + 1), 4.0 * (Ms + Ns))))
+    rows.append(dict(
+        name="dedup_by_id_equirect_leg", route="cuda", source=src_q,
+        replaces="stella_vslam_tpu/module/tracking_kernels.py:83", max_abs_err=0.0,
+        shape=f"N={Nd}", ms=_median_ms(lambda: tk.dedup_by_id(*dargs)),
+        plain_ms=_median_ms(lambda: tk.dedup_by_id_plain(*dargs)), library_ms=None,
+        **_bound(Nd * (1 + 4 + 4) + Nd * (1 + 4), 10.0 * Nd)))
+    return rows
+
+
+def check_equirect_kernels(dev, slam_like, calls):
+    """The equirectangular modes against their plain versions: R on
+    synthetic points and table rows all around the camera (C = 4096), D on
+    the leg's recorded pose optimizations, K and L on the leg's largest
+    triangulation and fuse chunk, F-I kernel by kernel (_lockstep_ba) on the
+    leg's init and local bundle adjustments and timed at the local shape;
+    E's MODEL 2 (the 1024-hypothesis batch with one LO refit, and the
+    escalated 8 x 4096 with 3 LO refits) and U (1024 five-point sets) on
+    the leg's init pair. Returns their rows of the kernels line."""
+    import torch
+
+    from stella_vslam_tpu_torch.camera import base as cb
+    from stella_vslam_tpu_torch.module import mapping_kernels as mk
+    from stella_vslam_tpu_torch.module.tracking_kernels import make_cam_scalars
+    from stella_vslam_tpu_torch.ops.optim import pose as pose_mod
+    from stella_vslam_tpu_torch.ops.solve import essential as Em
+    from stella_vslam_tpu_torch.ops.solve import essential_5pt as U
+    from stella_vslam_tpu_torch.ops.solve import ransac as R
+
+    rows = []
+    cam = slam_like.camera
+    p, model = cam.params, cam.model
+    kern = slam_like.mapper.kernels
+    cs = make_cam_scalars(cam)
+    EQ = cb.CameraModel.EQUIRECTANGULAR
+
+    # ---- R: points and table rows all around the camera ----
+    C = 4096
+    g = torch.Generator().manual_seed(15)
+    Rm = torch.linalg.qr(torch.eye(3) + 0.3 * torch.randn(3, 3, generator=g))[0]
+    Rm = (Rm * torch.sign(torch.det(Rm))).to(dev)
+    t = torch.tensor([0.3, -0.1, 0.2], device=dev)
+    pos = torch.nn.functional.normalize(torch.randn(C, 3, generator=g), dim=1) \
+        * (torch.rand(C, 1, generator=g) * 5.0 + 0.5)
+    normal = torch.nn.functional.normalize(torch.randn(C, 3, generator=g), dim=1)
+    d = torch.linalg.norm(pos, dim=1, keepdim=True)
+    f = torch.rand(C, 2, generator=g)
+    tbl = torch.cat([pos, normal, (0.9 + 0.6 * f[:, :1]) * d, (0.8 + 2.0 * f[:, 1:]) * d],
+                    1).to(dev).contiguous()
+    tu = torch.zeros(C, 10, dtype=torch.int32)
+    tu[:, 9] = (torch.rand(C, generator=g) < 0.9).to(torch.int32)
+    tu = tu.to(dev)
+    log_scale = float(np.log(np.float32(1.2)))
+    pts = tbl[:, 0:3].contiguous()
+    err_uv, n_diff, n_near = 0.0, 0, 0
+    for a, kw in (((pts,), {}), ((tbl, tu), dict(log_scale=log_scale, num_levels=6))):
+        k = cb.reproject_gate(p, Rm, t, *a, model=EQ, **kw)
+        q = cb.reproject_gate_plain(p, Rm, t, *a, model=EQ, **kw)
+        # u wraps at the seam: atan2 of +-0 may land on either edge
+        du = (k[0][:, 0] - q[0][:, 0]).abs()
+        du = torch.minimum(du, (du - p.width).abs())
+        err_uv = max(err_uv, float(du.max()) / p.width,
+                     float((k[0][:, 1] - q[0][:, 1]).abs().max()) / p.height,
+                     float(((k[1] - q[1]).abs() / q[1].abs()).max()))
+        if k[4] is not None:
+            # the gate's thresholds: distance ratios, the viewing cosine, the level
+            ray = tbl[:, 0:3] + Rm.T @ t
+            dist = torch.linalg.norm(ray, dim=-1)
+            lv = torch.log(tbl[:, 7] / dist) / log_scale
+            cosang = (ray * tbl[:, 3:6]).sum(-1) / dist
+            near = ((dist / tbl[:, 6] - 0.8).abs() <= 1e-6) | ((dist / tbl[:, 7] - 1.3).abs()
+                                                                <= 1e-6) \
+                | ((cosang - 0.5).abs() <= 1e-6) | ((lv - lv.round()).abs() <= 1e-6)
+            diff = (k[2] != q[2]) | (k[4] != q[4])
+            n_diff += int(diff.sum())
+            n_near += int(near.sum())
+            assert not bool((diff & ~near).any()), \
+                "kernel R's equirectangular gate disagrees away from a threshold"
+        else:
+            assert bool(torch.equal(k[2], q[2])), "kernel R's equirectangular visibility"
+    torch.cuda.synchronize()
+    print(f"kernel R reproject_gate (equirectangular): {C} points and {C} table rows all "
+          f"around the camera, uv within {err_uv:.3g} of the image size, depth within "
+          f"1e-6 relative; {n_diff} gate flags apart, {n_near} rows within 1e-6 of a threshold")
+    assert err_uv < 1e-5, "kernel R's equirectangular projection disagrees with plain"
+    rows.append(dict(
+        name="reproject_gate_equirect", route="cuda",
+        source="stella_vslam_tpu_torch/csrc/reproject.cu + camera.cuh",
+        replaces="stella_vslam_tpu/camera/base.py:232", max_abs_err=err_uv,
+        shape=f"C={C} table rows with the local-map gate, 640x320",
+        ms=_median_ms(lambda: cb.reproject_gate(p, Rm, t, tbl, tu, log_scale=log_scale,
+                                                num_levels=6, model=EQ)),
+        plain_ms=_median_ms(lambda: cb.reproject_gate_plain(
+            p, Rm, t, tbl, tu, log_scale=log_scale, num_levels=6, model=EQ)),
+        library_ms=None,
+        # read a packed row (32 bytes) and its valid word, write uv, depth,
+        # flag, x_right and level; ~150 operations per row (atan2, asin)
+        **_bound(C * (32 + 4) + C * (8 + 4 + 1 + 4 + 4) + 48, 150.0 * C)))
+
+    # ---- D: the leg's own pose optimizations ----
+    kern_t = slam_like.tracker.kernels
+    err_d, n_in = 0.0, 0
+    for args in calls["pose"]:
+        R0, t0, pos_, uv, xr, level, has = args
+        isig = kern_t.inv_sigma_sq[level.long()]
+        a = (R0.contiguous(), t0.contiguous(), pos_.contiguous(), uv.contiguous(),
+             xr.contiguous(), isig.contiguous(), has.contiguous())
+        k = pose_mod.optimize_pose(*a, cs, model="equirectangular")
+        q = pose_mod.optimize_pose_plain(*a, cs, model="equirectangular")
+        err_d = max(err_d, float((k.R_cw - q.R_cw).abs().max()),
+                    float((k.t_cw - q.t_cw).abs().max()))
+        n_in = max(n_in, int((k.is_inlier != q.is_inlier).sum()))
+    torch.cuda.synchronize()
+    N = calls["pose"][0][2].shape[0]
+    print(f"kernel D optimize_pose (equirectangular): {len(calls['pose'])} of the leg's calls "
+          f"(N={N}), poses within {err_d:.3g}, inlier flags apart at most {n_in}")
+    assert err_d < 1e-4, "kernel D's equirectangular mode disagrees with its plain version"
+    a = calls["pose"][-1]
+    a = (a[0].contiguous(), a[1].contiguous(), a[2].contiguous(), a[3].contiguous(),
+         a[4].contiguous(), kern_t.inv_sigma_sq[a[5].long()].contiguous(), a[6].contiguous())
+    rows.append(dict(
+        name="pose_lm_equirect", route="cuda", source="stella_vslam_tpu_torch/csrc/pose_lm.cu "
+        "+ camera.cuh", replaces="stella_vslam_tpu/ops/optim/pose.py:39 (residuals.py:92)",
+        max_abs_err=err_d, shape=f"N={N}",
+        ms=_median_ms(lambda: pose_mod.optimize_pose(*a, cs, model="equirectangular")),
+        plain_ms=_median_ms(lambda: pose_mod.optimize_pose_plain(*a, cs, model="equirectangular"),
+                            reps=3, warmup=1),
+        library_ms=None,
+        # 49 passes over the slots (44 evaluations, 5 classifications), ~250
+        # operations a slot each with the trigonometry; inputs read once
+        **_bound(N * (12 + 8 + 4 + 4 + 1) + 48, 49.0 * 250.0 * N)))
+
+    # ---- K, L: the leg's largest triangulation and fuse chunk ----
+    from stella_vslam_tpu_torch.match import fuse as fuse_match
+    from stella_vslam_tpu_torch.match import robust
+
+    tri, fargs, local = largest_inputs(calls)
+    cur, nbrs, poses, pair_valid = tri
+    B, N1 = nbrs.desc.shape[0], cur.desc.shape[0]
+    E_12, epl2 = mk.epipolar_terms(poses)
+    idx2, accepted, _ = robust.match_for_triangulation(
+        cur.angle, cur.level, cur.desc, cur.bear, cur.unassoc, cur.stereo, nbrs.angle,
+        nbrs.desc, nbrs.bear, nbrs.unassoc, nbrs.stereo, E_12, epl2,
+        scale_factors=kern.scale_factors)
+    kargs = (cur.uv, cur.level, cur.bear, nbrs.uv, nbrs.level, nbrs.bear, poses.contiguous(),
+             idx2.contiguous(), accepted, pair_valid, kern.cam, kern.level_sigma_sq,
+             kern.scale_factors, model)
+    rk, rp = mk.triangulate_checks(*kargs), mk.triangulate_checks_plain(*kargs)
+    torch.cuda.synchronize()
+    share_k = float((rk.ok != rp.ok).float().mean())
+    both = rk.ok & rp.ok
+    rel = (torch.linalg.norm(rk.pos_w - rp.pos_w, dim=-1)
+           / torch.clamp(torch.linalg.norm(rp.pos_w, dim=-1), min=1e-12))[both]
+    rel_max = float(rel.max()) if rel.numel() else 0.0
+    print(f"kernel K triangulate (equirectangular): {B}x{N1} slots, {int(accepted.sum())} "
+          f"matched, {int(rk.ok.sum())} ok (plain {int(rp.ok.sum())}), ok flags differing "
+          f"{share_k:.6f}, positions within {rel_max:.3g} relative where both ok")
+    assert share_k <= 1e-3 and rel_max < 1e-4, "kernel K's equirectangular mode disagrees"
+    rows.append(dict(
+        name="triangulate_equirect", route="cuda",
+        source="stella_vslam_tpu_torch/csrc/triangulate.cu + camera.cuh",
+        replaces="stella_vslam_tpu/module/mapping_kernels.py:58", max_abs_err=rel_max,
+        ok_flags_differing=share_k, shape=f"{B}x{N1}",
+        ms=_median_ms(lambda: mk.triangulate_checks(*kargs)),
+        plain_ms=_median_ms(lambda: mk.triangulate_checks_plain(*kargs), reps=10),
+        library_ms=None,
+        **_bound(N1 * 24.0 + B * nbrs.desc.shape[1] * 24.0 + B * N1 * 5.0 + (B + 1) * 48.0
+                 + B * N1 * 17.0, 450.0 * B * N1)))
+    kfs, kf_poses, batch_valid, lm_f, lm_desc, lm_valid = fargs
+    largs = (kfs, kf_poses, batch_valid, lm_f, lm_desc, lm_valid, kern.cam,
+             kern.scale_factors, kern.level_sigma_sq, kern.log_scale, 3.0, model)
+    Bf, Nk, M = kfs.uv.shape[0], kfs.uv.shape[1], lm_f.shape[0]
+    lk, lp = mk.fuse_scan(*largs), mk.fuse_scan_plain(*largs)
+    acc_k, acc_p = mk.accept_fused(*lk, Nk), mk.accept_fused(*lp, Nk)
+    share_l = float((acc_k != acc_p).float().mean())
+    # this run's work, as kernel L's row counts it
+    n_gated = n_window = n_cand_l = 0
+    for b in range(Bf):
+        if not bool(batch_valid[b]):
+            continue
+        uv, xr, pred, g = mk.reproject_for_fuse(kern.cam, kern.log_scale,
+                                                kern.scale_factors.shape[0],
+                                                kf_poses[b, :9].reshape(3, 3), kf_poses[b, 9:12],
+                                                lm_f, lm_valid, model)
+        win, cand = fuse_match.candidate_mask(
+            kfs.uv[b], kfs.level[b], kfs.valid[b], kfs.x_right[b], uv[g], xr[g], pred[g],
+            g[g], scale_factors=kern.scale_factors, level_sigma_sq=kern.level_sigma_sq)
+        n_gated += int(g.sum())
+        n_window += int(win.sum())
+        n_cand_l += int(cand.sum())
+    torch.cuda.synchronize()
+    print(f"kernel L fuse (equirectangular): {int(batch_valid.sum())} keyframes x "
+          f"{int(lm_valid.sum())} landmarks (chunk {Bf}x{M}, N={Nk}), {int(acc_k.sum())} "
+          f"accepted (plain {int(acc_p.sum())}); accepted flags differing {share_l:.6f}")
+    assert share_l <= 1e-3, "kernel L's equirectangular mode disagrees with its plain version"
+    rows.append(dict(
+        name="fuse_equirect", route="cuda", source="stella_vslam_tpu_torch/csrc/fuse.cu + "
+        "camera.cuh", replaces="stella_vslam_tpu/module/mapping_kernels.py:228",
+        max_abs_err=share_l, shape=f"{Bf}x{M}x{Nk}",
+        ms=_median_ms(lambda: mk.fuse_scan(*largs)),
+        plain_ms=_median_ms(lambda: mk.fuse_scan_plain(*largs), reps=5, warmup=1),
+        library_ms=None,
+        # as kernel L's row, with ~140 operations for the prologue's
+        # trigonometry per (keyframe, landmark)
+        **_bound(Bf * Nk * 49.0 + Bf * 49.0 + M * 65.0 + Bf * M * 12.0,
+                 140.0 * Bf * M + 10.0 * n_gated * Nk + 12.0 * n_window + 24.0 * n_cand_l)))
+
+    # ---- F-I: the leg's init and local bundle adjustments ----
+    probs = [q for q in calls["bundle_adjust"] if q.cam_R.shape[0] == 2][:1] + local[:4]
+    worst = {}
+    for q in probs:
+        for k_, v in _lockstep_ba(q, cs, 3 if q.cam_R.shape[0] > 2 else 5,
+                                  6 if q.cam_R.shape[0] > 2 else 10,
+                                  model="equirectangular").items():
+            worst[k_] = worst.get(k_, 0) + v if isinstance(v, int) else max(worst.get(k_, 0.0), v)
+    print(f"kernels F-I (equirectangular) kernel by kernel against plain on the leg's init BA "
+          f"and {len(probs) - 1} local problems: " + json.dumps(worst))
+    assert worst["f_excess"] < 1.0 and worst["g_backward"] < 1e-3 and worst["g_pose"] < 1e-5 \
+        and worst["point_share"] < 1.0 and worst["cost_rel"] < 1e-4 \
+        and worst["decisions"] == 0 and worst["flags"] == 0, \
+        "kernels F-I's equirectangular mode disagrees with the plain BA on the leg's problems"
+    ba_rows = _time_ba_kernels(dev, worst["g_pose"], local[0], cs, suffix="_equirect",
+                               model="equirectangular")
+    ba_rows[0]["kernel_by_kernel_on_leg"] = worst
+    rows += ba_rows
+
+    # ---- E's MODEL 2 and U on the leg's init pair ----
+    b1, b2, mv = calls["init"][-1]
+    Nm = b1.shape[0]
+    Bh = 1024
+    # hypothesis by hypothesis: a set drawn differently gives an unrelated
+    # model (the sampler, shared with kernel U, is held bit for bit below)
+    mk_, _, nk = R.minimal_hypotheses(Em.MODEL, 11, b1, b2, mv, Bh)
+    mp_, _, np_ = R.minimal_hypotheses_plain(Em.MODEL, 11, b1, b2, mv, Bh, 1.0)
+    same_count = float((nk == np_).float().mean())
+    model_share = lambda a_, b_: float((torch.minimum(
+        (a_ - b_).abs().amax((1, 2)), (a_ + b_).abs().amax((1, 2))) <= 1e-3).float().mean())
+    same_model = model_share(mk_, mp_)
+    # the control: plain's models of another seed's sets
+    other_seed = model_share(mk_, R.minimal_hypotheses_plain(Em.MODEL, 12, b1, b2, mv, Bh,
+                                                             1.0)[0])
+    rk = Em.find_via_ransac(11, b1, b2, mv, num_hypotheses=Bh)
+    rp = R.find_core_plain(Em.MODEL, 11, b1, b2, mv, Bh, 1.0, 1)
+    seeds = list(range(100, 108))
+    ek = Em.find_via_ransac_escalated(seeds, b1, b2, mv)
+    ep = R.escalate(lambda sd: R.find_core_plain(Em.MODEL, sd, b1, b2, mv, 4096, 1.0, 3), seeds)
+    torch.cuda.synchronize()
+    print(f"kernel E essential (MODEL 2): {Bh} x {Nm} ({int(mv.sum())} matches of the leg's "
+          f"init pair), {same_model:.4f} of the hypotheses with the plain model (within 1e-3, "
+          f"up to sign; of another seed's sets {other_seed:.4f}), {same_count:.4f} with the plain "
+          f"inlier count; winner {int(rk.num_inliers)} inliers (plain "
+          f"{int(rp.num_inliers)}), masks equal {bool(torch.equal(rk.is_inlier, rp.is_inlier))}; "
+          f"escalated 8x4096 + 3 LO {int(ek.num_inliers)} (plain {int(ep.num_inliers)})")
+    # the leg's init pair read 0.8799 on the H100 (70 matches: many sets
+    # nearly degenerate, whose null vectors part in rounding)
+    assert same_model >= 0.75 > other_seed, "kernel E's MODEL 2 hypotheses disagree with plain"
+    assert bool(rk.valid) and int(rk.num_inliers) == int(rp.num_inliers), \
+        "kernel E's MODEL 2 winner disagrees with its plain version"
+    assert bool(ek.valid) and abs(int(ek.num_inliers) - int(ep.num_inliers)) \
+        <= 0.01 * int(ep.num_inliers), "kernel E's escalated MODEL 2 disagrees"
+    # per hypothesis: the hash of 8 x N (~10 integer ops each), 8 rows of
+    # A^T A (8 x 45 x 2), 18 squarings of 9x9 (18 x 729 x 2), the angular
+    # score of N pairs (~60 flops); the LO refit: N rows of A^T A and a score
+    e_ops = Bh * (8 * Nm * 10.0 + 8 * 90 + 18 * 1458 + Nm * 60.0) + Nm * (90 + 60.0)
+    rows.append(dict(
+        name="ransac_two_view_essential", route="cuda",
+        source="stella_vslam_tpu_torch/csrc/ransac_two_view.cu",
+        replaces="stella_vslam_tpu/ops/solve/essential.py:113", max_abs_err=1.0 - same_count,
+        hypotheses_with_plain_model=same_model,
+        shape=f"{Bh} x {Nm}, 1 LO refit",
+        ms=_median_ms(lambda: Em.find_via_ransac(11, b1, b2, mv, num_hypotheses=Bh), reps=10),
+        plain_ms=_median_ms(lambda: R.find_core_plain(Em.MODEL, 11, b1, b2, mv, Bh, 1.0, 1),
+                            reps=5, warmup=1),
+        library_ms=None, **_bound(Nm * 25.0 + Bh * 44.0, e_ops)))
+    esc_ops = 8 * (4096 * (8 * Nm * 10.0 + 8 * 90 + 18 * 1458 + Nm * 60.0)
+                   + 3 * Nm * (90 + 60.0))
+    rows.append(dict(
+        name="ransac_two_view_essential_escalated", route="cuda",
+        source="stella_vslam_tpu_torch/csrc/ransac_two_view.cu",
+        replaces="stella_vslam_tpu/ops/solve/essential.py:129",
+        max_abs_err=abs(int(ek.num_inliers) - int(ep.num_inliers)),
+        shape=f"8 x 4096 x {Nm}, 3 LO refits",
+        ms=_median_ms(lambda: Em.find_via_ransac_escalated(seeds, b1, b2, mv), reps=5),
+        plain_ms=_median_ms(lambda: R.escalate(
+            lambda sd: R.find_core_plain(Em.MODEL, sd, b1, b2, mv, 4096, 1.0, 3), seeds),
+            reps=3, warmup=1),
+        library_ms=None, **_bound(8 * (Nm * 25.0 + 4096 * 44.0), esc_ops)))
+    # U: 1024 five-point sets for each seed, against plain on the card;
+    # beside it the plain version on the CPU (one algorithm under two
+    # float32 roundings) and a control that the limits must catch: plain on
+    # the card with its bisection cut to U_CONTROL_BISECT steps
+    both_ways = lambda Ea, va, Eb, vb: [min(x, y) for x, y in zip(
+        _candidate_shares(Ea, va, Eb, vb), _candidate_shares(Eb, vb, Ea, va))]
+    reads = dict(kernel=[], plain_cpu=[], control=[])
+    flags = []
+    for sd in U_SEEDS:
+        idx_u, E_k, v_k = U.solve_sampled_sets(sd, b1, b2, mv, Bh)
+        idx_q, E_p, v_p = U.solve_sampled_sets_plain(sd, b1, b2, mv, Bh)
+        assert bool(torch.equal(idx_u, idx_q)), "kernel U's sampled indices differ"
+        _, E_c, v_c = U.solve_sampled_sets_plain(sd, b1.cpu(), b2.cpu(), mv.cpu(), Bh)
+        full, U.BISECT_ITERS = U.BISECT_ITERS, U_CONTROL_BISECT
+        try:
+            _, E_x, v_x = U.solve_sampled_sets_plain(sd, b1, b2, mv, Bh)
+        finally:
+            U.BISECT_ITERS = full
+        reads["kernel"].append(both_ways(E_k, v_k, E_p, v_p))
+        reads["plain_cpu"].append(both_ways(E_c.to(dev), v_c.to(dev), E_p, v_p))
+        reads["control"].append(both_ways(E_x, v_x, E_p, v_p))
+        flags.append(float((v_k == v_p).float().mean()))
+    idx_u, E_k, v_k = U.solve_sampled_sets(U_SEEDS[0], b1, b2, mv, Bh)
+    _, E_p, v_p = U.solve_sampled_sets_plain(U_SEEDS[0], b1, b2, mv, Bh)
+    s1, s2 = b1[idx_u], b2[idx_u]
+    # each candidate on its own five pairs (a set whose pairs are nearly
+    # dependent, or that drew one match twice, yields loose candidates:
+    # the share that holds is compared with plain's)
+    res = lambda E: torch.einsum("bni,brij,bnj->brn", s2, E, s1).abs().amax(-1)
+    tight_k = float((res(E_k)[v_k] < 5e-4).float().mean()) if bool(v_k.any()) else 1.0
+    tight_p = float((res(E_p)[v_p] < 5e-4).float().mean()) if bool(v_p.any()) else 1.0
+    r5k = Em.find_via_ransac_5pt(12, b1, b2, mv, num_hypotheses=Bh)
+    cst, cnt = R.score_models_plain(Em.MODEL, E_p.reshape(-1, 3, 3), v_p.reshape(-1), b1, b2,
+                                    mv, 1.0 - Em.COS_ANGLE_THR)
+    n5p = int(cnt[R.select_best(cst, cnt, 5)[0]])
+    torch.cuda.synchronize()
+    worst = [min(r[i] for r in reads["kernel"]) for i in range(3)]
+    caught = [any(r[i] < U_SHARE_LIMITS[i] for i in range(3)) for r in reads["control"]]
+    print(f"kernel U essential_5pt: {Bh} sets of the leg's init pair for each of seeds "
+          f"{list(U_SEEDS)}, sampled indices equal, valid flags equal on {flags} of the slots; "
+          f"candidates within 1e-4 / 1e-3 / 1e-2 of plain's on the card (up to sign, the lesser "
+          f"of both ways), per seed: kernel {reads['kernel']}, plain on the CPU "
+          f"{reads['plain_cpu']}, control ({U_CONTROL_BISECT} bisection steps) "
+          f"{reads['control']}; limits {list(U_SHARE_LIMITS)}; candidates with their five "
+          f"epipolar residuals under 5e-4: {tight_k:.4f} (plain {tight_p:.4f}); the 5-point "
+          f"RANSAC's best candidate {int(r5k.num_inliers)} inliers after 2 LO refits, plain's "
+          f"best candidate {n5p} before them")
+    assert min(flags) >= 0.98 and all(w >= lim for w, lim in zip(worst, U_SHARE_LIMITS)), \
+        "kernel U's candidates disagree with its plain version past the float32 floor"
+    assert all(k_ >= c_ - U_FLOOR_ROOM for rk_, rc_ in zip(reads["kernel"], reads["plain_cpu"])
+               for k_, c_ in zip(rk_, rc_)), \
+        "kernel U agrees with plain on the card less than plain on the CPU does"
+    assert all(caught), "the control passes kernel U's limits: they would catch no fault"
+    assert tight_k >= tight_p - 0.02, \
+        "fewer kernel U candidates satisfy their own epipolar constraints than plain's"
+    n_roots = int(v_k.sum())
+    u_ops = Bh * (257 * 1400.0 + 25000.0) + n_roots * (28 * 1400.0 + 18 * 2000.0 + 300.0)
+    rows.append(dict(
+        name="essential_5pt", route="cuda", source="stella_vslam_tpu_torch/csrc/essential_5pt.cu",
+        replaces="stella_vslam_tpu/ops/solve/essential_5pt.py:218",
+        max_abs_err=1.0 - worst[1], candidates_within=dict(zip(("1e-4", "1e-3", "1e-2"), worst)),
+        readings=reads,
+        shape=f"{Bh} sets, N={Nm}",
+        ms=_median_ms(lambda: U.solve_sampled_sets(12, b1, b2, mv, Bh), reps=10),
+        plain_ms=_median_ms(lambda: U.solve_sampled_sets_plain(12, b1, b2, mv, Bh), reps=3,
+                            warmup=1),
+        library_ms=None,
+        **_bound(Nm * 25.0 + Bh * (20 + 10 * 37.0) + 257 * 4 + 144, u_ops)))
+    return rows
 
 
 def main() -> int:
@@ -2430,6 +3142,9 @@ def main() -> int:
         dev, world, wrappers, card)
     check_recorded_assoc(assoc_rec)
     legs, leg_launches = run_stereo_legs(dev, world, wrappers, card)
+    eq, eq_launches, esc_launches, eq_calls, eslam = run_equirect_leg(dev, wrappers, card)
+    map_rows += check_equirect_shapes(dev, eslam, eq_calls)
+    map_rows += check_equirect_kernels(dev, eslam, eq_calls)
     for r in map_rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library "
@@ -2438,13 +3153,20 @@ def main() -> int:
     rows += map_rows
     for row in rows:
         name = row.pop("counter", row["name"])
+        equirect = name in EQUIRECT_ROWS
+        name = EQUIRECT_ROWS.get(name, name)
         for suffix in ("_local", "_global32", "_global64"):
             name = name.removesuffix(suffix)
         # `launches`: on the path of the slice that ported the kernel (the
-        # stereo leg for S, B's strip mode and T; the threaded slice for the
-        # rest), every slice's beside it
-        row["launches"] = (leg_launches["stereo"] if name in STEREO_PATH_ROWS
+        # stereo leg for S, B's strip mode and T; the equirectangular leg
+        # for the equirectangular modes and E's MODEL 2, its escalation run
+        # for U; the threaded slice for the rest), every slice's beside it
+        row["launches"] = (esc_launches if name in EQUIRECT_KERNELS
+                           else eq_launches if equirect
+                           else leg_launches["stereo"] if name in STEREO_PATH_ROWS
                            else launches["threaded"])[name]
+        row["launches_equirect_leg"] = eq_launches[name]
+        row["launches_equirect_escalation_run"] = esc_launches[name]
         row["launches_stereo_leg"] = leg_launches["stereo"][name]
         row["launches_rgbd_mapping_leg"] = leg_launches["RGBD"][name]
         row["launches_threaded_slice"] = launches["threaded"][name]
@@ -2472,7 +3194,12 @@ def main() -> int:
         **{f"{leg.lower()}_leg_" + k: legs[leg][k] for leg in legs for k in (
             "ate_m", "scale_err", "tracked", "lost_after_init", "keyframes_created",
             "keyframes_kept", "local_bas", "loops_closed", "frame_ms", "keyframe_event_ms",
-            "worker_errors", "fps", "frames_per_wall_s")})))
+            "worker_errors", "fps", "frames_per_wall_s")},
+        **{"equirect_leg_" + k: eq[k] for k in (
+            "init_frame", "tracked", "lost_after_init", "ate_m", "keyframes_created",
+            "keyframes_kept", "local_bas", "loops_closed", "init_escalations", "frame_ms",
+            "fps", "frames_per_wall_s", "worker_errors")},
+        equirect_escalation_run_u_launches=esc_launches["essential_5pt"])))
     print(f"chip_smoke: {time.monotonic() - t_run:.1f} s from the build on [{card}]")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,26 @@
-"""Run bench.py's RGBD leg with mapping many times on one card, in parallel
+"""Run one of bench.py's threaded legs many times on one card, in parallel
 processes, and check the leg's gates on every run.
 
-    python scripts/torch_rgbd_leg_repeat.py
+    python scripts/torch_rgbd_leg_repeat.py [--leg rgbd|threaded] [--runs N]
 
-RUNS runs in WORKERS processes. Each run is util/stereo_slice.py's RGBD
-leg (640 frames, the default threaded System with mapping and the loop
-detector, a fresh System per run) with its gates (stereo_slice.check_gates).
-The run's nondeterminism comes from the threads, so one run proves little.
-The 640 images are rendered once and shared: each worker's world hands back
-the stored image after sleeping the measured mean render time, so the feed
-keeps the leg's pace while the workers share the host's cores. Prints one
-JSON line per run (rigid ATE, scale error, frames lost, keyframes, loops,
-the largest camera-centre error of any frame as it was finalized, and the
-frame where it sat) and a last line with the count of runs, of gate
-failures, the largest ATE and the card's name and power limit. Exits 1
-when any run failed a gate. Needs a CUDA GPU.
+RUNS runs (40 for the RGBD leg, 20 for the mono circuit) in WORKERS
+processes, a fresh System per run. `--leg rgbd`: util/stereo_slice.py's
+RGBD leg with mapping (640 frames, the default threaded System with mapping
+and the loop detector) with its gates (stereo_slice.check_gates).
+`--leg threaded`: util/threaded_slice.py's 1290-frame mono circuit (the
+default threaded System, the bench's injected drift) with bench.py's mono
+gates (util/bench.check_mono_gates). A run's nondeterminism comes from the
+threads, so one run proves little. The images are rendered once and
+shared: each worker's world hands back the stored image after sleeping the
+measured mean render time, so the feed keeps the leg's pace while the
+workers share the host's cores. Prints one JSON line per run (ATE, frames
+lost, keyframes, loops; RGBD: the scale error and the largest camera-centre
+error of any frame as it was finalized, with its frame; mono: the largest
+per-frame error after the Sim3 alignment, with its frame) and a last line
+with the count of runs, of gate failures, the largest and median ATE and
+the card's name and power limit. Per-frame errors of every mono run go to
+threaded_repeat_frames.json in chip_smoke.py's output directory (OUT_DIR).
+Exits 1 when any run failed a gate. Needs a CUDA GPU.
 """
 from __future__ import annotations
 
@@ -31,23 +37,29 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from stella_vslam_tpu_torch.util import stereo_slice
-from stella_vslam_tpu_torch.util.bench import card
+from chip_smoke import OUT_DIR
+from stella_vslam_tpu_torch.util import stereo_slice, threaded_slice
+from stella_vslam_tpu_torch.util.bench import card, check_mono_gates
 from stella_vslam_tpu_torch.util.drift import pose_at_xy
+from stella_vslam_tpu_torch.util.loop_slice import circuit
+from stella_vslam_tpu_torch.util.mono_slice import sim3_align
 from stella_vslam_tpu_torch.util.rgbd_slice import bench_world
 
-RUNS = 40
+RUNS = {"rgbd": 40, "threaded": 20}
 WORKERS = 8
+
+
+def leg_path(leg: str):
+    return stereo_slice.leg_path(640) if leg == "rgbd" else circuit()
 
 
 class StoredWorld:
     """The bench world with its images rendered once: render() waits the
     mean render time and returns the stored image of that pose."""
 
-    def __init__(self, world, frames, render_s: float):
+    def __init__(self, world, frames, render_s: float, path):
         self._world, self._render_s = world, render_s
-        self._frames = {pose_at_xy(x, y).tobytes(): frames[i]
-                        for i, (x, y) in enumerate(stereo_slice.leg_path(len(frames)))}
+        self._frames = {pose_at_xy(x, y).tobytes(): frames[i] for i, (x, y) in enumerate(path)}
 
     def __getattr__(self, name):
         return getattr(self._world, name)
@@ -74,31 +86,63 @@ def finalize_errors(slam, gt_xy):
     return worst, at
 
 
-def worker(runs: list, frames_path: str, render_s: float, out_path: str) -> None:
-    dev = torch.device("cuda", 0)
-    world = StoredWorld(bench_world(), np.load(frames_path, mmap_mode="r"), render_s)
-    gt_xy = stereo_slice.leg_path(640)
-    for run in runs:
+def aligned_errors(slam, gt_xy):
+    """Per frame in feed order, the camera-centre error (m) after the Sim3
+    alignment of the whole trajectory (None where not tracked)."""
+    poses = slam.frame_poses
+    fid0 = poses[0][3]
+    idx = [fid - fid0 for (_, p, _, fid) in poses if p is not None]
+    est = np.array([-p[:3, :3].T @ p[:3, 3] for (_, p, _, _) in poses if p is not None])
+    gt = np.array([[gt_xy[i][0], gt_xy[i][1], 0.0] for i in idx])
+    aligned, _ = sim3_align(est, gt)
+    err = [None] * len(gt_xy)
+    for i, e in zip(idx, np.linalg.norm(aligned - gt, axis=1)):
+        err[i] = float(e)
+    return err
+
+
+def run_once(leg: str, dev, world, gt_xy, run: int) -> dict:
+    if leg == "rgbd":
         slam = stereo_slice.make_system(world, dev, "RGBD")
         s = stereo_slice.run_leg(dev, world, "RGBD", slam=slam)
         worst, at = finalize_errors(slam, gt_xy)
-        try:
-            stereo_slice.check_gates(s)
-            failed = None
-        except AssertionError as e:
-            failed = str(e)
-        line = json.dumps(dict(
-            run=run, ate_m=s["ate_m"], scale_err=s["scale_err"],
-            lost_after_init=s["lost_after_init"], keyframes_created=s["keyframes_created"],
-            local_bas=s["local_bas"], loops_closed=s["loops_closed"],
-            max_finalize_err_m=worst, at_frame=at, fps=s["fps"], failed=failed))
-        print(line, flush=True)
+        gates = stereo_slice.check_gates
+        out = dict(scale_err=s["scale_err"], max_finalize_err_m=worst, at_frame=at)
+    else:
+        slam = threaded_slice.make_system(world, dev)
+        s = threaded_slice.run_slice(dev, world, slam=slam)
+        err = aligned_errors(slam, gt_xy)
+        at = int(np.nanargmax([np.nan if e is None else e for e in err]))
+        gates = check_mono_gates
+        out = dict(keyframes_kept=s["keyframes_kept"], rebases=s["rebases"],
+                   max_aligned_err_m=err[at], at_frame=at, frame_err_m=err)
+    try:
+        gates(s)
+        failed = None
+    except AssertionError as e:
+        failed = str(e)
+    return dict(run=run, ate_m=s["ate_m"], lost_after_init=s["lost_after_init"],
+                keyframes_created=s["keyframes_created"], local_bas=s["local_bas"],
+                loops_closed=s["loops_closed"], fps=s["fps"],
+                worker_errors=s["worker_errors"], failed=failed, **out)
+
+
+def worker(leg: str, runs: list, frames_path: str, render_s: float, out_path: str) -> None:
+    dev = torch.device("cuda", 0)
+    gt_xy = leg_path(leg)
+    world = StoredWorld(bench_world(), np.load(frames_path, mmap_mode="r"), render_s, gt_xy)
+    for run in runs:
+        rec = run_once(leg, dev, world, gt_xy, run)
+        line = json.dumps(rec)
+        print(json.dumps({k: v for k, v in rec.items() if k != "frame_err_m"}), flush=True)
         with open(out_path, "a") as f:
             f.write(line + "\n")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--leg", choices=("rgbd", "threaded"), default="rgbd")
+    ap.add_argument("--runs", type=int, default=None)
     ap.add_argument("--worker-runs", help=argparse.SUPPRESS)
     ap.add_argument("--frames", help=argparse.SUPPRESS)
     ap.add_argument("--render-s", type=float, help=argparse.SUPPRESS)
@@ -107,35 +151,41 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("torch_rgbd_leg_repeat: needs a CUDA GPU")
     if args.worker_runs is not None:
-        worker([int(r) for r in args.worker_runs.split(",")], args.frames, args.render_s,
-               args.out)
+        worker(args.leg, [int(r) for r in args.worker_runs.split(",")], args.frames,
+               args.render_s, args.out)
         return 0
+    runs = args.runs or RUNS[args.leg]
     world = bench_world()
     t = time.perf_counter()
-    frames = np.stack([world.render(pose_at_xy(x, y)) for (x, y) in stereo_slice.leg_path(640)])
+    frames = np.stack([world.render(pose_at_xy(x, y)) for (x, y) in leg_path(args.leg)])
     render_s = (time.perf_counter() - t) / len(frames)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "frames.npy")
         np.save(path, frames)
+        del frames
         # every kernel built once, before the workers look for the library
         stereo_slice.make_system(world, torch.device("cuda", 0), "RGBD").shutdown()
         out = os.path.join(tmp, "runs.jsonl")
         procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--frames", path,
+            [sys.executable, os.path.abspath(__file__), "--leg", args.leg, "--frames", path,
              "--render-s", str(render_s), "--out", out,
-             "--worker-runs", ",".join(str(r) for r in range(w, RUNS, WORKERS))])
-            for w in range(WORKERS)]
+             "--worker-runs", ",".join(str(r) for r in range(w, runs, WORKERS))])
+            for w in range(min(WORKERS, runs))]
         for p in procs:
             p.wait()
         with open(out) as f:
             lines = [json.loads(ln) for ln in f]
+    if args.leg == "threaded":
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "threaded_repeat_frames.json"), "w") as f:
+            json.dump(lines, f)
     failed = [r for r in lines if r["failed"]]
-    print(json.dumps(dict(runs=len(lines), of=RUNS, failed=len(failed),
+    print(json.dumps(dict(leg=args.leg, runs=len(lines), of=runs, failed=len(failed),
                           render_s=render_s, card=card(),
                           max_ate_m=max((r["ate_m"] for r in lines), default=None),
                           median_ate_m=float(np.median([r["ate_m"] for r in lines]))
                           if lines else None)))
-    return 1 if failed or len(lines) != RUNS else 0
+    return 1 if failed or len(lines) != runs else 0
 
 
 if __name__ == "__main__":

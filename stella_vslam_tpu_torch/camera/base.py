@@ -1,21 +1,26 @@
-"""Camera models as batched torch functions (perspective model only).
+"""Camera models as batched torch functions (perspective and
+equirectangular).
 
 Port of stella_vslam_tpu/camera/base.py. The perspective (pinhole +
-radial-tangential) model and the MONOCULAR / STEREO / RGBD setups are ported;
-fisheye, equirectangular and radial-division raise NotImplementedError until
-ROADMAP Queue 1 item 14b. Undistortion is the same fixed-iteration inversion
-as the JAX version, written as elementwise ops in the same order.
+radial-tangential) and equirectangular models and the MONOCULAR / STEREO /
+RGBD setups are ported; fisheye and radial-division raise
+NotImplementedError until ROADMAP Queue 1 item 14b. Undistortion is the
+same fixed-iteration inversion as the JAX version, written as elementwise
+ops in the same order; for the equirectangular model it is the identity,
+bearings are longitude / latitude on the unit sphere, and a reprojection
+sees every direction, its depth being the norm (camera/base.py :190-246).
 
 Kernel R (csrc/reproject.cu) computes the per-point functions of the hot
-path on CUDA tensors: `undistort_norm` (every keypoint of every frame) and
-`reproject_gate` (the tracking cascade's projections of the chained
-landmarks and, with the local-map gate and predicted scale, of the
-landmark table). On CPU tensors each runs its plain version, the torch
-expressions below.
+path on CUDA tensors: `undistort_norm` (every keypoint of every
+perspective frame) and `reproject_gate` (the tracking cascade's
+projections of the chained landmarks and, with the local-map gate and
+predicted scale, of the landmark table), the latter for either model. On
+CPU tensors each runs its plain version, the torch expressions below.
 """
 from __future__ import annotations
 
 import enum
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -119,30 +124,64 @@ def undistort_norm(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
 undistort_norm.launches = 0
 
 
+def ported_model(model) -> int:
+    """The kernels' index of a camera model (a CameraModel, or its
+    lower-case name as the optimizers take it: csrc/camera.cuh's 0 or 2);
+    raises NotImplementedError for a model not ported yet."""
+    m = CameraModel[model.upper()] if isinstance(model, str) else CameraModel(model)
+    if m not in (CameraModel.PERSPECTIVE, CameraModel.EQUIRECTANGULAR):
+        raise NotImplementedError(_NOT_PORTED.format(m.name))
+    return int(m)
+
+
 def undistort_keypoints(model: CameraModel, p: CameraParams,
                         pts: torch.Tensor) -> torch.Tensor:
-    if model == CameraModel.PERSPECTIVE:
-        return undistort_norm(p, pts)
-    raise NotImplementedError(_NOT_PORTED.format(CameraModel(model).name))
+    ported_model(model)
+    if model == CameraModel.EQUIRECTANGULAR:
+        return pts
+    return undistort_norm(p, pts)
 
 
 def bearings_from_undistorted(model: CameraModel, p: CameraParams,
                               pts: torch.Tensor) -> torch.Tensor:
     """Undistorted keypoints [N,2] -> unit bearing vectors [N,3]."""
-    if model != CameraModel.PERSPECTIVE:
-        raise NotImplementedError(_NOT_PORTED.format(CameraModel(model).name))
+    ported_model(model)
+    if model == CameraModel.EQUIRECTANGULAR:
+        lon = (pts[..., 0] - p.cx) * (2.0 * math.pi) / p.width
+        lat = -(pts[..., 1] - p.cy) * math.pi / p.height
+        return torch.stack([torch.cos(lat) * torch.sin(lon), -torch.sin(lat),
+                            torch.cos(lat) * torch.cos(lon)], dim=-1)
     xn = (pts[..., 0] - p.cx) / p.fx
     yn = (pts[..., 1] - p.cy) / p.fy
     v = torch.stack([xn, yn, torch.ones_like(xn)], dim=-1)
     return v / torch.linalg.norm(v, dim=-1, keepdim=True)
 
 
+def undistorted_from_bearings(model: CameraModel, p: CameraParams,
+                              bearings: torch.Tensor) -> torch.Tensor:
+    """Unit bearing vectors [N,3] -> undistorted keypoints [N,2]."""
+    ported_model(model)
+    x, y, z = bearings[..., 0], bearings[..., 1], bearings[..., 2]
+    if model == CameraModel.EQUIRECTANGULAR:
+        lat = -torch.asin(torch.clamp(y, -1.0, 1.0))
+        lon = torch.atan2(x, z)
+        return torch.stack([p.cx + lon * p.width / (2.0 * math.pi),
+                            p.cy - lat * p.height / math.pi], dim=-1)
+    zs = torch.where(torch.abs(z) < 1e-8, torch.full_like(z, 1e-8), z)
+    return torch.stack([p.fx * x / zs + p.cx, p.fy * y / zs + p.cy], dim=-1)
+
+
 def reproject_to_image(model: CameraModel, p: CameraParams, R_cw: torch.Tensor,
                        t_cw: torch.Tensor, pos_w: torch.Tensor):
-    """World points [N,3] -> (uv [N,2], depth [N], visible [N] bool)."""
-    if model != CameraModel.PERSPECTIVE:
-        raise NotImplementedError(_NOT_PORTED.format(CameraModel(model).name))
-    pc = pos_w @ R_cw.T + t_cw
+    """World points [...,N,3] under a camera-from-world pose ([...,3,3],
+    [...,3]) -> (uv [...,N,2], depth [...,N], visible [...,N] bool). The
+    equirectangular model sees every direction; its depth is the norm."""
+    ported_model(model)
+    pc = pos_w @ R_cw.transpose(-1, -2) + t_cw[..., None, :]
+    if model == CameraModel.EQUIRECTANGULAR:
+        norm = torch.linalg.norm(pc, dim=-1)
+        b = pc / torch.clamp(norm, min=1e-12)[..., None]
+        return undistorted_from_bearings(model, p, b), norm, norm > 1e-6
     z = pc[..., 2]
     zs = torch.where(torch.abs(z) < 1e-8, torch.full_like(z, 1e-8), z)
     u = p.fx * pc[..., 0] / zs + p.cx
@@ -152,8 +191,9 @@ def reproject_to_image(model: CameraModel, p: CameraParams, R_cw: torch.Tensor,
 
 
 def reproject_gate_plain(p: CameraParams, R_cw, t_cw, pos, tbl_u32=None, *,
-                         log_scale: float = 0.0, num_levels: int = 1):
-    """Plain version of kernel R's projection. pos [M,3] world points, or
+                         log_scale: float = 0.0, num_levels: int = 1,
+                         model: CameraModel = CameraModel.PERSPECTIVE):
+    """Plain version of kernel R's projection under `model`. pos [M,3] world points, or
     with `tbl_u32` the packed landmark table (pos = tbl_f32 [C,8]: position,
     normal, min and max distance; tbl_u32 [C,10] with the valid flag in
     column 9). Returns (uv [M,2], depth [M], flag [M] bool, x_right [M],
@@ -161,7 +201,7 @@ def reproject_gate_plain(p: CameraParams, R_cw, t_cw, pos, tbl_u32=None, *,
     the local-map gate for the table (valid, in image, distance in
     [0.8 min, 1.3 max], cos(ray, normal) > 0.5, depth > 0)."""
     pts = pos[:, 0:3] if tbl_u32 is not None else pos
-    uv, depth, vis = reproject_to_image(CameraModel.PERSPECTIVE, p, R_cw, t_cw, pts)
+    uv, depth, vis = reproject_to_image(model, p, R_cw, t_cw, pts)
     xr = torch.where(depth > 1e-6, uv[:, 0] - p.focal_x_baseline / torch.clamp(depth, min=1e-6),
                      torch.full_like(depth, -1.0))
     if tbl_u32 is None:
@@ -181,12 +221,14 @@ def reproject_gate_plain(p: CameraParams, R_cw, t_cw, pos, tbl_u32=None, *,
 
 
 def reproject_gate(p: CameraParams, R_cw, t_cw, pos, tbl_u32=None, *,
-                   log_scale: float = 0.0, num_levels: int = 1):
+                   log_scale: float = 0.0, num_levels: int = 1,
+                   model: CameraModel = CameraModel.PERSPECTIVE):
     """Kernel R's projection on CUDA tensors, the plain version on CPU
     tensors (same arguments and results as reproject_gate_plain)."""
     if not pos.is_cuda:
         return reproject_gate_plain(p, R_cw, t_cw, pos, tbl_u32, log_scale=log_scale,
-                                    num_levels=num_levels)
+                                    num_levels=num_levels, model=model)
+    ported_model(model)
     M = pos.shape[0]
     table = tbl_u32 is not None
     width = 8 if table else 3
@@ -207,7 +249,7 @@ def reproject_gate(p: CameraParams, R_cw, t_cw, pos, tbl_u32=None, *,
     scale = torch.empty(M, dtype=torch.int32, device=dev) if table else None
     lib = kbuild.load()
     kbuild.check(lib.svt_reproject(
-        M, int(table), p.fx, p.fy, p.cx, p.cy, p.width, p.height, p.focal_x_baseline,
+        int(model), M, int(table), p.fx, p.fy, p.cx, p.cy, p.width, p.height, p.focal_x_baseline,
         Rt.data_ptr(), pos.data_ptr(), tbl_u32.data_ptr() if table else 0,
         float(log_scale), int(num_levels), uv.data_ptr(), depth.data_ptr(), flag.data_ptr(),
         xr.data_ptr(), scale.data_ptr() if table else 0, kbuild.stream_ptr(dev)),
@@ -225,8 +267,7 @@ class Camera:
     def __init__(self, name: str, model: CameraModel, setup: Setup,
                  params: CameraParams, fps: float = 30.0,
                  color_order: str = "Gray", *, width: int, height: int):
-        if model != CameraModel.PERSPECTIVE:
-            raise NotImplementedError(_NOT_PORTED.format(CameraModel(model).name))
+        ported_model(model)
         self.name = name
         self.model = model
         self.setup = setup
@@ -270,9 +311,12 @@ def camera_from_yaml(node: dict) -> Camera:
     """Build a Camera from a reference-compatible YAML 'Camera' section."""
     model = _MODEL_ALIASES[str(node["model"]).strip().lower()]
     setup = _SETUP_ALIASES[str(node["setup"]).strip().lower()]
+    # the equirectangular projection is centred on the image
+    centred = model == CameraModel.EQUIRECTANGULAR
     params = make_params(
         fx=node.get("fx", 0.0), fy=node.get("fy", 0.0),
-        cx=node.get("cx", 0.0), cy=node.get("cy", 0.0),
+        cx=node.get("cx", node["cols"] / 2.0 if centred else 0.0),
+        cy=node.get("cy", node["rows"] / 2.0 if centred else 0.0),
         k1=node.get("k1", 0.0), k2=node.get("k2", 0.0),
         p1=node.get("p1", 0.0), p2=node.get("p2", 0.0),
         k3=node.get("k3", 0.0), k4=node.get("k4", 0.0),

@@ -51,6 +51,10 @@
 // in registers, writes only W (6x3 per observation) for H, and reduces the
 // camera-side sums on chip before touching device memory.
 //
+// F, H and I are templated on the camera model (perspective, or the
+// equirectangular rows of ba.py :322-335 with camera.cuh's 2x3 Jacobian and
+// no stereo row, :398-403); G does not depend on it.
+//
 // Every sum runs in an order fixed by the launch shape (F's blocks and
 // warps, H's blocks), so a launch is bit-for-bit repeatable. The chip check
 // holds a whole BA to the plain version on synthetic problems (poses within
@@ -61,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "camera.cuh"
 
 namespace {
 
@@ -80,7 +86,7 @@ constexpr int kDone = 3;
 constexpr int kLastCost = 4;
 
 struct Cam {
-  float fx, fy, cx, cy, fxb;
+  float fx, fy, cx, cy, fxb, width, height;
 };
 
 struct Problem {
@@ -96,31 +102,56 @@ struct Problem {
   const float* cam_free;    // [K] 1 = optimised
 };
 
-// One observation projected at a state: camera-frame point, residual rows
-// (row 2 the stereo row, counted when hs = 1), chi-square and its threshold.
+// One observation projected at a state: residual rows (row 2 the stereo
+// row, counted when hs = 1; none for the equirectangular model), d(pi)/d(Xc),
+// chi-square and its threshold.
 struct ObsResidual {
-  float x, y, z, iz, r[3], hs, sq, chi2, thr;
+  float x, y, z, r[3], dpi[3][3], hs, sq, chi2, thr;
   bool depth_ok;
 };
 
+template <int MODEL>
 __device__ __forceinline__ void obs_residual(const Problem& P, const Cam& c, const float* R,
                                              const float* t, const float* p, int od,
                                              ObsResidual& q) {
   q.x = R[0] * p[0] + R[1] * p[1] + R[2] * p[2] + t[0];
   q.y = R[3] * p[0] + R[4] * p[1] + R[5] * p[2] + t[1];
   q.z = R[6] * p[0] + R[7] * p[1] + R[8] * p[2] + t[2];
-  const float zs = fabsf(q.z) < 1e-6f ? 1e-6f : q.z;
-  q.iz = 1.f / zs;
-  const float u = c.fx * q.x * q.iz + c.cx;
-  const float v = c.fy * q.y * q.iz + c.cy;
-  const float ur = u - c.fxb * q.iz;
   const float xr = P.obs_xr[od];
-  q.hs = xr > 0.f ? 1.f : 0.f;
-  q.r[0] = u - P.obs_uv[2 * od];
-  q.r[1] = v - P.obs_uv[2 * od + 1];
-  q.r[2] = ur - xr;
-  q.depth_ok = q.z > 1e-4f;
-  q.sq = q.r[0] * q.r[0] + q.r[1] * q.r[1] + q.r[2] * q.r[2] * q.hs;
+  if constexpr (MODEL == svt_cam::kEquirect) {
+    float re[2], de[2][3];
+    q.depth_ok = svt_cam::equirect_residual(q.x, q.y, q.z, P.obs_uv[2 * od],
+                                            P.obs_uv[2 * od + 1], c.cx, c.cy, c.width,
+                                            c.height, re, de);
+    q.hs = 0.f;
+    q.r[0] = re[0];
+    q.r[1] = re[1];
+    q.r[2] = 0.f;
+    for (int j = 0; j < 3; ++j) {
+      q.dpi[0][j] = de[0][j];
+      q.dpi[1][j] = de[1][j];
+      q.dpi[2][j] = 0.f;
+    }
+    q.sq = q.r[0] * q.r[0] + q.r[1] * q.r[1];
+  } else {
+    const float zs = fabsf(q.z) < 1e-6f ? 1e-6f : q.z;
+    const float iz = 1.f / zs, iz2 = iz * iz;
+    const float u = c.fx * q.x * iz + c.cx;
+    const float v = c.fy * q.y * iz + c.cy;
+    const float ur = u - c.fxb * iz;
+    q.hs = xr > 0.f ? 1.f : 0.f;
+    q.r[0] = u - P.obs_uv[2 * od];
+    q.r[1] = v - P.obs_uv[2 * od + 1];
+    q.r[2] = ur - xr;
+    q.depth_ok = q.z > 1e-4f;
+    q.sq = q.r[0] * q.r[0] + q.r[1] * q.r[1] + q.r[2] * q.r[2] * q.hs;
+    const float x = q.x, y = q.y;
+    const float d[3][3] = {{c.fx * iz, 0.f, -c.fx * x * iz2},
+                           {0.f, c.fy * iz, -c.fy * y * iz2},
+                           {c.fx * iz, 0.f, -c.fx * x * iz2 + c.fxb * iz2}};
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) q.dpi[i][j] = d[i][j];
+  }
   q.chi2 = q.sq * P.obs_isig[od];
   q.thr = xr > 0.f ? kChi3D : kChi2D;
 }
@@ -131,13 +162,14 @@ struct ObsTerms {
   bool active;
 };
 
+template <int MODEL>
 __device__ __forceinline__ void obs_terms(const Problem& P, const Cam& c, const float* R,
                                           const float* t, const float* p, int l, int d,
                                           bool use_huber, ObsTerms& o) {
   const int od = l * P.D + d;
   ObsResidual res;
-  obs_residual(P, c, R, t, p, od, res);
-  const float x = res.x, y = res.y, z = res.z, iz = res.iz, iz2 = iz * iz, hs = res.hs;
+  obs_residual<MODEL>(P, c, R, t, p, od, res);
+  const float x = res.x, y = res.y, z = res.z, hs = res.hs;
   for (int i = 0; i < 3; ++i) o.r[i] = res.r[i];
   const bool on = P.obs_valid[od] && P.inlier[od] && res.depth_ok && P.lm_valid[l];
   o.w_base = on ? P.obs_isig[od] : 0.f;
@@ -151,9 +183,7 @@ __device__ __forceinline__ void obs_terms(const Problem& P, const Cam& c, const 
   o.wr[1] = w;
   o.wr[2] = w * hs;
   o.active = o.w_base != 0.f;
-  const float dpi[3][3] = {{c.fx * iz, 0.f, -c.fx * x * iz2},
-                           {0.f, c.fy * iz, -c.fy * y * iz2},
-                           {c.fx * iz, 0.f, -c.fx * x * iz2 + c.fxb * iz2}};
+  const float(&dpi)[3][3] = res.dpi;
   // hat(Xc) = [[0,-z,y],[z,0,-x],[-y,x,0]]; rotation block = -dpi @ hat
   const float h[3][3] = {{0.f, -z, y}, {z, 0.f, -x}, {-y, x, 0.f}};
 #pragma unroll
@@ -268,6 +298,7 @@ __host__ __device__ __forceinline__ size_t f_partial_size(int K) {
 // b + gridDim.x, ... of kThreadsLm landmarks and writes its partial to
 // part + b * f_partial_size(K). s_direct: the block's S lives in its slice of
 // `part` (device memory) instead of shared memory.
+template <int MODEL>
 __global__ void __launch_bounds__(kThreadsLm)
 ba_linearize_kernel(Problem P, Cam cam, const float* __restrict__ cam_R,
                     const float* __restrict__ cam_t, const float* __restrict__ lm,
@@ -305,7 +336,7 @@ ba_linearize_kernel(Problem P, Cam cam, const float* __restrict__ cam_R,
       int k = 0;
       if (mine) {
         k = P.obs_cam[l * P.D + d];
-        obs_terms(P, cam, cam_R + 9 * k, cam_t + 3 * k, p, l, d, use_huber != 0, o);
+        obs_terms<MODEL>(P, cam, cam_R + 9 * k, cam_t + 3 * k, p, l, d, use_huber != 0, o);
       } else {
         o.active = false;
         o.sq_w = 0.f;
@@ -579,6 +610,7 @@ ba_solve_kernel(int K, const float* __restrict__ cam_free, const float* __restri
   for (int q = tid; q < n; q += blockDim.x) rhs_g[q] = 0.f;
 }
 
+template <int MODEL>
 __global__ void __launch_bounds__(kThreadsLm)
 ba_backsub_kernel(Problem P, Cam cam, float* __restrict__ cam_R, float* __restrict__ cam_t,
                   float* __restrict__ lm, int use_huber, float* __restrict__ ctrl,
@@ -620,7 +652,7 @@ ba_backsub_kernel(Problem P, Cam cam, float* __restrict__ cam_R, float* __restri
     for (int d = 0; d < P.D; ++d) {
       const int k = P.obs_cam[l * P.D + d];
       ObsTerms o;
-      obs_terms(P, cam, cam_Rn + 9 * k, cam_tn + 3 * k, pn, l, d, use_huber != 0, o);
+      obs_terms<MODEL>(P, cam, cam_Rn + 9 * k, cam_tn + 3 * k, pn, l, d, use_huber != 0, o);
       cost += o.sq_w;
     }
   }
@@ -667,6 +699,7 @@ ba_backsub_kernel(Problem P, Cam cam, float* __restrict__ cam_R, float* __restri
 // second stage: chi2 <= thr and depth ok, or the landmark's keep flag;
 // mode 1, the final outlier flags: a valid observation with chi2 > thr or
 // bad depth.
+template <int MODEL>
 __global__ void __launch_bounds__(kThreadsLm)
 ba_classify_kernel(Problem P, Cam cam, const float* __restrict__ cam_R,
                    const float* __restrict__ cam_t, const float* __restrict__ lm,
@@ -675,7 +708,7 @@ ba_classify_kernel(Problem P, Cam cam, const float* __restrict__ cam_R,
   if (od >= P.L * P.D) return;
   const int l = od / P.D, k = P.obs_cam[od];
   ObsResidual q;
-  obs_residual(P, cam, cam_R + 9 * k, cam_t + 3 * k, lm + 3 * l, od, q);
+  obs_residual<MODEL>(P, cam, cam_R + 9 * k, cam_t + 3 * k, lm + 3 * l, od, q);
   if (mode == 0)
     out[od] = ((q.chi2 <= q.thr && q.depth_ok) || (keep && keep[l])) ? 1 : 0;
   else
@@ -690,30 +723,35 @@ size_t linearize_smem(int K, bool s_direct) {
 
 }  // namespace
 
-extern "C" int svt_ba_linearize(int K, int L, int D, const int* obs_cam, const float* obs_uv,
-                                const float* obs_xr, const float* obs_isig,
-                                const uint8_t* obs_valid, const uint8_t* inlier,
-                                const uint8_t* lm_valid, const uint8_t* lm_fixed,
-                                const float* cam_free, float fx, float fy, float cx, float cy,
-                                float fxb, const float* cam_R, const float* cam_t,
+// model: 0 perspective, 2 equirectangular (camera.cuh), for F, H and I
+extern "C" int svt_ba_linearize(int model, int K, int L, int D, const int* obs_cam,
+                                const float* obs_uv, const float* obs_xr,
+                                const float* obs_isig, const uint8_t* obs_valid,
+                                const uint8_t* inlier, const uint8_t* lm_valid,
+                                const uint8_t* lm_fixed, const float* cam_free, float fx,
+                                float fy, float cx, float cy, float fxb, float width,
+                                float height, const float* cam_R, const float* cam_t,
                                 const float* lm, int use_huber, float* ctrl, float* Wg,
                                 float* lmblk, float* hc, float* S, float* rhs, int blocks,
                                 float* part, void* stream) {
   // blocks: F's block count (at most one per landmark chunk); part:
   // blocks x (33K + 1 + 36K^2) floats of device memory
+  if (model != svt_cam::kPerspective && model != svt_cam::kEquirect)
+    return (int)cudaErrorInvalidValue;
   const bool s_direct = linearize_smem(K, false) > kMaxBlockSmem;
   const size_t smem = linearize_smem(K, s_direct);
-  cudaFuncSetAttribute(ba_linearize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  auto kernel = model == svt_cam::kEquirect ? ba_linearize_kernel<svt_cam::kEquirect>
+                                            : ba_linearize_kernel<svt_cam::kPerspective>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   Problem P{K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier, lm_valid,
             lm_fixed, cam_free};
-  Cam c{fx, fy, cx, cy, fxb};
+  Cam c{fx, fy, cx, cy, fxb, width, height};
   const int chunks = (L + kThreadsLm - 1) / kThreadsLm;
   if (chunks == 0) return (int)cudaGetLastError();
   if (blocks < 1 || blocks > chunks) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  ba_linearize_kernel<<<blocks, kThreadsLm, smem, st>>>(P, c, cam_R, cam_t, lm, use_huber, ctrl,
-                                                        Wg, lmblk, part, s_direct ? 1 : 0);
+  kernel<<<blocks, kThreadsLm, smem, st>>>(P, c, cam_R, cam_t, lm, use_huber, ctrl, Wg, lmblk,
+                                           part, s_direct ? 1 : 0);
   const size_t n = f_partial_size(K);
   const int rblocks = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
   ba_reduce_kernel<<<rblocks, 256, 0, st>>>(K, blocks, part, ctrl, hc, S, rhs);
@@ -740,40 +778,49 @@ extern "C" int svt_ba_solve(int K, const float* cam_free, const float* cam_R,
   return (int)cudaGetLastError();
 }
 
-extern "C" int svt_ba_backsub(int K, int L, int D, const int* obs_cam, const float* obs_uv,
-                              const float* obs_xr, const float* obs_isig,
+extern "C" int svt_ba_backsub(int model, int K, int L, int D, const int* obs_cam,
+                              const float* obs_uv, const float* obs_xr, const float* obs_isig,
                               const uint8_t* obs_valid, const uint8_t* inlier,
                               const uint8_t* lm_valid, const uint8_t* lm_fixed,
                               const float* cam_free, float fx, float fy, float cx, float cy,
-                              float fxb, float* cam_R, float* cam_t, float* lm, int use_huber,
-                              float* ctrl, unsigned int* counter, const float* Wg,
-                              const float* lmblk, const float* dx, const float* cam_Rn,
-                              const float* cam_tn, float* lmn, float* cost_part,
-                              void* stream) {
+                              float fxb, float width, float height, float* cam_R,
+                              float* cam_t, float* lm, int use_huber, float* ctrl,
+                              unsigned int* counter, const float* Wg, const float* lmblk,
+                              const float* dx, const float* cam_Rn, const float* cam_tn,
+                              float* lmn, float* cost_part, void* stream) {
   // cost_part: one float of device memory per block of kThreadsLm landmarks
+  if (model != svt_cam::kPerspective && model != svt_cam::kEquirect)
+    return (int)cudaErrorInvalidValue;
   Problem P{K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier, lm_valid,
             lm_fixed, cam_free};
-  Cam c{fx, fy, cx, cy, fxb};
+  Cam c{fx, fy, cx, cy, fxb, width, height};
   const int blocks = (L + kThreadsLm - 1) / kThreadsLm;
+  auto kernel = model == svt_cam::kEquirect ? ba_backsub_kernel<svt_cam::kEquirect>
+                                            : ba_backsub_kernel<svt_cam::kPerspective>;
   if (blocks > 0)
-    ba_backsub_kernel<<<blocks, kThreadsLm, 0, (cudaStream_t)stream>>>(
+    kernel<<<blocks, kThreadsLm, 0, (cudaStream_t)stream>>>(
         P, c, cam_R, cam_t, lm, use_huber, ctrl, counter, Wg, lmblk, dx, cam_Rn, cam_tn, lmn,
         cost_part);
   return (int)cudaGetLastError();
 }
 
-extern "C" int svt_ba_classify(int K, int L, int D, const int* obs_cam, const float* obs_uv,
-                               const float* obs_xr, const float* obs_isig,
-                               const uint8_t* obs_valid, float fx, float fy, float cx, float cy,
-                               float fxb, const float* cam_R, const float* cam_t,
+extern "C" int svt_ba_classify(int model, int K, int L, int D, const int* obs_cam,
+                               const float* obs_uv, const float* obs_xr,
+                               const float* obs_isig, const uint8_t* obs_valid, float fx,
+                               float fy, float cx, float cy, float fxb, float width,
+                               float height, const float* cam_R, const float* cam_t,
                                const float* lm, const uint8_t* keep, int mode, uint8_t* out,
                                void* stream) {
+  if (model != svt_cam::kPerspective && model != svt_cam::kEquirect)
+    return (int)cudaErrorInvalidValue;
   Problem P{K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, nullptr, nullptr, nullptr,
             nullptr};
-  Cam c{fx, fy, cx, cy, fxb};
+  Cam c{fx, fy, cx, cy, fxb, width, height};
   const int blocks = (L * D + kThreadsLm - 1) / kThreadsLm;
+  auto kernel = model == svt_cam::kEquirect ? ba_classify_kernel<svt_cam::kEquirect>
+                                            : ba_classify_kernel<svt_cam::kPerspective>;
   if (blocks > 0)
-    ba_classify_kernel<<<blocks, kThreadsLm, 0, (cudaStream_t)stream>>>(P, c, cam_R, cam_t, lm,
-                                                                        keep, mode, out);
+    kernel<<<blocks, kThreadsLm, 0, (cudaStream_t)stream>>>(P, c, cam_R, cam_t, lm, keep,
+                                                           mode, out);
   return (int)cudaGetLastError();
 }

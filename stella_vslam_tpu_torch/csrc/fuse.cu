@@ -7,6 +7,10 @@
 // The TPU form reprojects the [M] landmarks per keyframe, then builds
 // [M,N] window, level, chi-square and Hamming matrices and reduces them.
 //
+// Templated on the camera model: the prologue projects with the model's
+// own projection (camera.cuh for the equirectangular one, whose depth in
+// the gates and the predicted x_right is the norm).
+//
 // Here one warp per (keyframe b = blockIdx.y, landmark m); a padding
 // keyframe (kf_valid 0) gates every landmark out. Every lane
 // computes the landmark's prologue in registers (projection, the distance
@@ -28,6 +32,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "camera.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -43,6 +49,7 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
+template <int MODEL>
 __global__ void __launch_bounds__(kWarps * 32)
 fuse_kernel(int N, int M, const float* __restrict__ kp_uv, const int* __restrict__ kp_level,
             const uint32_t* __restrict__ kp_desc, const uint8_t* __restrict__ kp_valid,
@@ -77,11 +84,18 @@ fuse_kernel(int N, int M, const float* __restrict__ kp_uv, const int* __restrict
     cc[k] = -add(add(mul(R[k], t[0]), mul(R[3 + k], t[1])), mul(R[6 + k], t[2]));
     ray[k] = sub(p[k], cc[k]);
   }
-  const float z = pc[2];
-  const float zs = fabsf(z) < 1e-8f ? 1e-8f : z;
-  const float u = add(__fdiv_rn(mul(cam.fx, pc[0]), zs), cam.cx);
-  const float v = add(__fdiv_rn(mul(cam.fy, pc[1]), zs), cam.cy);
-  const bool in_img = z > 0.f && u >= 0.f && u < cam.width && v >= 0.f && v < cam.height;
+  float u, v, z;  // z: the depth (the norm for the equirectangular model)
+  bool in_img;
+  if constexpr (MODEL == svt_cam::kEquirect) {
+    in_img = svt_cam::equirect_project(pc[0], pc[1], pc[2], cam.cx, cam.cy, cam.width,
+                                       cam.height, u, v, z);
+  } else {
+    z = pc[2];
+    const float zs = fabsf(z) < 1e-8f ? 1e-8f : z;
+    u = add(__fdiv_rn(mul(cam.fx, pc[0]), zs), cam.cx);
+    v = add(__fdiv_rn(mul(cam.fy, pc[1]), zs), cam.cy);
+    in_img = z > 0.f && u >= 0.f && u < cam.width && v >= 0.f && v < cam.height;
+  }
   const float dist = sqrtf(add(add(mul(ray[0], ray[0]), mul(ray[1], ray[1])), mul(ray[2], ray[2])));
   const bool dist_ok = dist >= __fdiv_rn(dmin, 1.3f) && dist <= mul(dmax, 1.3f);
   const float cosang =
@@ -138,20 +152,26 @@ fuse_kernel(int N, int M, const float* __restrict__ kp_uv, const int* __restrict
 
 }  // namespace
 
-extern "C" int svt_fuse(int B, int N, int M, const float* kp_uv, const int* kp_level,
-                        const uint32_t* kp_desc, const uint8_t* kp_valid, const float* kp_xr,
-                        const float* poses, const uint8_t* kf_valid, const float* lm_f,
-                        const uint32_t* lm_desc, const uint8_t* lm_valid, float fx, float fy, float cx, float cy,
-                        float width, float height, float fxb, const float* scale_factors,
-                        const float* sigma_sq, int num_levels, float log_scale, float margin,
-                        int* out, void* stream) {
+// model: 0 perspective, 2 equirectangular (camera.cuh)
+extern "C" int svt_fuse(int model, int B, int N, int M, const float* kp_uv,
+                        const int* kp_level, const uint32_t* kp_desc, const uint8_t* kp_valid,
+                        const float* kp_xr, const float* poses, const uint8_t* kf_valid,
+                        const float* lm_f, const uint32_t* lm_desc, const uint8_t* lm_valid,
+                        float fx, float fy, float cx, float cy, float width, float height,
+                        float fxb, const float* scale_factors, const float* sigma_sq,
+                        int num_levels, float log_scale, float margin, int* out,
+                        void* stream) {
   if (num_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
+  if (model != svt_cam::kPerspective && model != svt_cam::kEquirect)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = model == svt_cam::kEquirect ? fuse_kernel<svt_cam::kEquirect>
+                                            : fuse_kernel<svt_cam::kPerspective>;
   if (M > 0 && B > 0) {
     const dim3 grid((M + kWarps - 1) / kWarps, B);
-    fuse_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
+    kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
         N, M, kp_uv, kp_level, kp_desc, kp_valid, kp_xr, poses, kf_valid, lm_f, lm_desc,
-        lm_valid, FuseCam{fx, fy, cx, cy, width, height, fxb}, scale_factors, sigma_sq, num_levels,
-        log_scale, margin, out);
+        lm_valid, FuseCam{fx, fy, cx, cy, width, height, fxb}, scale_factors, sigma_sq,
+        num_levels, log_scale, margin, out);
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,9 @@
 // Kernel D: motion-only pose optimization, the whole schedule in one launch.
 //
 // Replaces stella_vslam_tpu/ops/optim/pose.py optimize_pose (:39) with the
-// perspective residual of ops/optim/residuals.py (:46): num_rounds rounds of
+// perspective and equirectangular residuals of ops/optim/residuals.py (:46,
+// :92; the kernel is templated on the model, the equirectangular rows and
+// their 2x3 Jacobian coming from camera.cuh): num_rounds rounds of
 // (1 + num_each_iter) deferred-acceptance LM evaluations of a 6-DoF pose,
 // Huber weights in the first num_robust_rounds rounds, chi-square
 // reclassification (5.991 mono / 7.815 stereo) after each round. The TPU
@@ -28,6 +30,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "camera.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -35,10 +39,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTerms = 28;  // 21 (upper H) + 6 (b) + 1 (cost)
 
 struct Cam {
-  float fx, fy, cx, cy, fxb;
+  float fx, fy, cx, cy, fxb, width, height;
 };
 
 // residual r[3], Jacobian J[3][6], dof, depth_ok for one slot
+template <int MODEL>
 __device__ __forceinline__ void residual(const float* R, const float* t, const float* p,
                                          float ou, float ov, float oxr, const Cam& c,
                                          float r[3], float J[3][6], float dof[3],
@@ -46,24 +51,46 @@ __device__ __forceinline__ void residual(const float* R, const float* t, const f
   const float x = R[0] * p[0] + R[1] * p[1] + R[2] * p[2] + t[0];
   const float y = R[3] * p[0] + R[4] * p[1] + R[5] * p[2] + t[1];
   const float z = R[6] * p[0] + R[7] * p[1] + R[8] * p[2] + t[2];
-  const float zs = fabsf(z) < 1e-6f ? 1e-6f : z;
-  const float iz = 1.f / zs;
-  const float iz2 = iz * iz;
-  const float u = c.fx * x * iz + c.cx;
-  const float v = c.fy * y * iz + c.cy;
-  const float ur = u - c.fxb * iz;
-  const bool stereo = oxr > 0.f;
-  r[0] = u - ou;
-  r[1] = v - ov;
-  r[2] = stereo ? ur - oxr : 0.f;
-  dof[0] = 1.f;
-  dof[1] = 1.f;
-  dof[2] = stereo ? 1.f : 0.f;
-  depth_ok = z > 1e-4f;
-  // d(pi)/d(Xc)
-  const float d[3][3] = {{c.fx * iz, 0.f, -c.fx * x * iz2},
-                         {0.f, c.fy * iz, -c.fy * y * iz2},
-                         {c.fx * iz, 0.f, -c.fx * x * iz2 + c.fxb * iz2}};
+  float d[3][3];  // d(pi)/d(Xc)
+  if constexpr (MODEL == svt_cam::kEquirect) {
+    float re[2], de[2][3];
+    depth_ok = svt_cam::equirect_residual(x, y, z, ou, ov, c.cx, c.cy, c.width, c.height, re,
+                                          de);
+    r[0] = re[0];
+    r[1] = re[1];
+    r[2] = 0.f;
+    dof[0] = 1.f;
+    dof[1] = 1.f;
+    dof[2] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      d[0][j] = de[0][j];
+      d[1][j] = de[1][j];
+      d[2][j] = 0.f;
+    }
+  } else {
+    const float zs = fabsf(z) < 1e-6f ? 1e-6f : z;
+    const float iz = 1.f / zs;
+    const float iz2 = iz * iz;
+    const float u = c.fx * x * iz + c.cx;
+    const float v = c.fy * y * iz + c.cy;
+    const float ur = u - c.fxb * iz;
+    const bool stereo = oxr > 0.f;
+    r[0] = u - ou;
+    r[1] = v - ov;
+    r[2] = stereo ? ur - oxr : 0.f;
+    dof[0] = 1.f;
+    dof[1] = 1.f;
+    dof[2] = stereo ? 1.f : 0.f;
+    depth_ok = z > 1e-4f;
+    const float dp[3][3] = {{c.fx * iz, 0.f, -c.fx * x * iz2},
+                            {0.f, c.fy * iz, -c.fy * y * iz2},
+                            {c.fx * iz, 0.f, -c.fx * x * iz2 + c.fxb * iz2}};
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) d[i][j] = dp[i][j];
+  }
   // d(Xc)/d(xi) = [I | -hat(Xc)], -hat(X) = [[0, z, -y], [-z, 0, x], [y, -x, 0]]
   const float mh[3][3] = {{0.f, z, -y}, {-z, 0.f, x}, {y, -x, 0.f}};
 #pragma unroll
@@ -149,6 +176,7 @@ __device__ void lm_step(const float* H, const float* b, float lam, const float* 
   se3_update_left(R, t, dx, Rn, tn);
 }
 
+template <int MODEL>
 __global__ void __launch_bounds__(kThreads)
 pose_lm_kernel(int N, const float* __restrict__ pos, const float* __restrict__ uv,
                const float* __restrict__ xr, const float* __restrict__ inv_sig,
@@ -181,7 +209,8 @@ pose_lm_kernel(int N, const float* __restrict__ pos, const float* __restrict__ u
     for (int j = tid; j < N; j += kThreads) {
       float r[3], J[3][6], dof[3];
       bool depth_ok;
-      residual(R, t, pos + 3 * j, uv[2 * j], uv[2 * j + 1], xr[j], cam, r, J, dof, depth_ok);
+      residual<MODEL>(R, t, pos + 3 * j, uv[2 * j], uv[2 * j + 1], xr[j], cam, r, J, dof,
+                      depth_ok);
       const float isg = inv_sig[j];
       const bool stereo = xr[j] > 0.f;
       const float sqrt_chi = sqrtf(stereo ? 7.815f : 5.991f);
@@ -241,7 +270,8 @@ pose_lm_kernel(int N, const float* __restrict__ pos, const float* __restrict__ u
     for (int j = tid; j < N; j += kThreads) {
       float r[3], J[3][6], dof[3];
       bool depth_ok;
-      residual(Ps, Pt, pos + 3 * j, uv[2 * j], uv[2 * j + 1], xr[j], cam, r, J, dof, depth_ok);
+      residual<MODEL>(Ps, Pt, pos + 3 * j, uv[2 * j], uv[2 * j + 1], xr[j], cam, r, J, dof,
+                      depth_ok);
       const float chi2 =
           (r[0] * r[0] * dof[0] + r[1] * r[1] * dof[1] + r[2] * r[2] * dof[2]) * inv_sig[j];
       const float thr = xr[j] > 0.f ? 7.815f : 5.991f;
@@ -303,15 +333,24 @@ pose_lm_kernel(int N, const float* __restrict__ pos, const float* __restrict__ u
 
 }  // namespace
 
-extern "C" int svt_pose_lm(int N, const float* pos, const float* uv, const float* xr,
-                           const float* inv_sig, const uint8_t* valid, const float* R0,
-                           const float* t0, float fx, float fy, float cx, float cy,
-                           float fxb, int num_rounds, int num_robust, int num_iter,
-                           float* R_out, float* t_out, uint8_t* inlier, float* chi2_out,
-                           void* stream) {
-  Cam cam{fx, fy, cx, cy, fxb};
-  pose_lm_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      N, pos, uv, xr, inv_sig, valid, R0, t0, cam, num_rounds, num_robust, num_iter,
-      R_out, t_out, inlier, chi2_out);
+// model: 0 perspective, 2 equirectangular (camera.cuh)
+extern "C" int svt_pose_lm(int model, int N, const float* pos, const float* uv,
+                           const float* xr, const float* inv_sig, const uint8_t* valid,
+                           const float* R0, const float* t0, float fx, float fy, float cx,
+                           float cy, float fxb, float width, float height, int num_rounds,
+                           int num_robust, int num_iter, float* R_out, float* t_out,
+                           uint8_t* inlier, float* chi2_out, void* stream) {
+  Cam cam{fx, fy, cx, cy, fxb, width, height};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (model == svt_cam::kEquirect)
+    pose_lm_kernel<svt_cam::kEquirect><<<1, kThreads, 0, s>>>(
+        N, pos, uv, xr, inv_sig, valid, R0, t0, cam, num_rounds, num_robust, num_iter, R_out,
+        t_out, inlier, chi2_out);
+  else if (model == svt_cam::kPerspective)
+    pose_lm_kernel<svt_cam::kPerspective><<<1, kThreads, 0, s>>>(
+        N, pos, uv, xr, inv_sig, valid, R0, t0, cam, num_rounds, num_robust, num_iter, R_out,
+        t_out, inlier, chi2_out);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -10,8 +10,17 @@
 // matmuls for 18 squarings, a batched SVD for the rank-2 projection of F and
 // a [B,N] score matrix.
 //
-// On Hopper, three entry points, templated on the model (0: homography,
-// k = 4; 1: fundamental, k = 8):
+// And, as MODEL 2, the essential matrix on bearing vectors of
+// ops/solve/essential.py (_find_core :82 with compute_E_21 :46 and
+// _angular_cost :65; find_via_ransac :113, find_via_ransac_escalated :129
+// and the scoring and LO refits of find_via_ransac_5pt :144): the 8-point E
+// fit on bearings [N,3] with no normalisation and no rank step, the same
+// 18-squaring null vector, and the angular score (the sine of each
+// bearing's angle to its epipolar plane, both views, inlier above
+// cos(1 deg), cost 1 - worst, capped at 1 - cos(1 deg)).
+//
+// On Hopper, four entry points, templated on the model (0: homography,
+// k = 4; 1: fundamental, k = 8; 2: essential, k = 8):
 //  * svt_ransac_minimal: one block per hypothesis. The block draws its k
 //    indices (per slot the argmax over N of the hash, lowest index on ties,
 //    -1.0 where invalid), gathers and normalises the k points, builds A^T A
@@ -26,6 +35,9 @@
 //  * svt_ransac_refit: one block; the LO round's nonminimal DLT, whose
 //    normalisation and A^T A are block reductions over the N masked rows,
 //    then the new inlier mask.
+//  * svt_ransac_score: one block per given model (E only: the 5-point
+//    solver's candidates, kernel U), scored on all N matches; a candidate
+//    flagged invalid scores no inlier.
 // Bound: operations. At B = 1024, N = 2872 a batch hashes B*k*N values
 // (23.5 M for F, ~10 integer operations each) and scores B*N = 2.9 M pairs
 // (~40 flops each); its bytes are ~50 KB of points. The design keeps every
@@ -46,23 +58,21 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "ransac_sample.cuh"
+
 namespace {
 
 constexpr float kBig = 3.0e38f;
+constexpr int kEssential = 2;
+// essential.py COS_ANGLE_THR = cos(1 deg) and its cost cap 1 - cos(1 deg),
+// each rounded once to f32 as the JAX version's weak-typed constants are
+constexpr float kCosThr = 0.9998476951563913f;
+constexpr float kCosCap = 1.5230484360873042e-4f;
 
-__device__ __forceinline__ float hash_uniform(uint32_t seed, uint32_t i) {
-  uint32_t x = i + seed * 2654435761u;
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return (float)(x >> 8) * (1.0f / 16777216.0f);
-}
-
-// argmax order: larger value first, then the lower index
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
+// coordinates per correspondence: pixels, or bearing vectors for E
+template <int MODEL>
+__host__ __device__ constexpr int dim_of() {
+  return MODEL == kEssential ? 3 : 2;
 }
 
 // Sum of NV values over the block; every thread gets the totals. scratch
@@ -200,6 +210,28 @@ __device__ __forceinline__ void matmul3(const float* A, const float* B, float* C
                      A[i * 3 + 2] * B[2 * 3 + j];
 }
 
+// H = T2^-1 Hn T1, F = T2^T rank2(Fn) T1 from the normalised null vector h
+template <int MODEL>
+__device__ void fit_denormalise(float* h, const Norm& nm, float* model) {
+  if (MODEL == 1) rank2_project(h);
+  const float sx1 = 1.f / nm.d1x, sy1 = 1.f / nm.d1y;
+  const float sx2 = 1.f / nm.d2x, sy2 = 1.f / nm.d2y;
+  const float T1[9] = {sx1, 0.f, -nm.m1x * sx1, 0.f, sy1, -nm.m1y * sy1, 0.f, 0.f, 1.f};
+  const float tx2 = -nm.m2x * sx2, ty2 = -nm.m2y * sy2;
+  float L[9];
+  if (MODEL == 0) {
+    const float T2i[9] = {1.f / sx2, 0.f, -tx2 / sx2, 0.f, 1.f / sy2, -ty2 / sy2,
+                          0.f, 0.f, 1.f};
+    for (int q = 0; q < 9; ++q) L[q] = T2i[q];
+  } else {
+    const float T2t[9] = {sx2, 0.f, 0.f, 0.f, sy2, 0.f, tx2, ty2, 1.f};
+    for (int q = 0; q < 9; ++q) L[q] = T2t[q];
+  }
+  float tmp[9];
+  matmul3(L, h, tmp);
+  matmul3(tmp, T1, model);
+}
+
 // Shared state of one model fit.
 struct FitSmem {
   float ata[81];
@@ -215,17 +247,27 @@ template <int MODEL>
 __device__ void fit_model(const float* p1, const float* p2, const uint8_t* w, int n,
                           float* scratch, FitSmem* fs) {
   const int tid = threadIdx.x;
-  const Norm nm = normalization(p1, p2, w, n, scratch);
+  // E needs no normalisation (bearings)
+  const Norm nm = MODEL == kEssential ? Norm{} : normalization(p1, p2, w, n, scratch);
   // A^T A: 45 upper-triangle sums over the rows
   float acc[45];
 #pragma unroll
   for (int q = 0; q < 45; ++q) acc[q] = 0.f;
   for (int i = tid; i < n; i += blockDim.x) {
     if (w && !w[i]) continue;
-    const float x1 = (p1[2 * i] - nm.m1x) / nm.d1x, y1 = (p1[2 * i + 1] - nm.m1y) / nm.d1y;
-    const float x2 = (p2[2 * i] - nm.m2x) / nm.d2x, y2 = (p2[2 * i + 1] - nm.m2y) / nm.d2y;
     float a[2][9];
-    const int nr = dlt_rows<MODEL>(x1, y1, x2, y2, a);
+    int nr = 1;
+    if constexpr (MODEL == kEssential) {
+      // rows [b2.x b1, b2.y b1, b2.z b1] (compute_E_21)
+#pragma unroll
+      for (int u = 0; u < 3; ++u)
+#pragma unroll
+        for (int v = 0; v < 3; ++v) a[0][3 * u + v] = p2[3 * i + u] * p1[3 * i + v];
+    } else {
+      const float x1 = (p1[2 * i] - nm.m1x) / nm.d1x, y1 = (p1[2 * i + 1] - nm.m1y) / nm.d1y;
+      const float x2 = (p2[2 * i] - nm.m2x) / nm.d2x, y2 = (p2[2 * i + 1] - nm.m2y) / nm.d2y;
+      nr = dlt_rows<MODEL>(x1, y1, x2, y2, a);
+    }
     for (int r = 0; r < nr; ++r) {
       int q = 0;
 #pragma unroll
@@ -295,24 +337,11 @@ __device__ void fit_model(const float* p1, const float* p2, const uint8_t* w, in
     }
     nn = sqrtf(nn) + 1e-12f;
     for (int i = 0; i < 9; ++i) h[i] /= nn;
-    if (MODEL == 1) rank2_project(h);
-    // denormalise: H = T2^-1 Hn T1, F = T2^T Fn T1
-    const float sx1 = 1.f / nm.d1x, sy1 = 1.f / nm.d1y;
-    const float sx2 = 1.f / nm.d2x, sy2 = 1.f / nm.d2y;
-    const float T1[9] = {sx1, 0.f, -nm.m1x * sx1, 0.f, sy1, -nm.m1y * sy1, 0.f, 0.f, 1.f};
-    const float tx2 = -nm.m2x * sx2, ty2 = -nm.m2y * sy2;
-    float L[9];
-    if (MODEL == 0) {
-      const float T2i[9] = {1.f / sx2, 0.f, -tx2 / sx2, 0.f, 1.f / sy2, -ty2 / sy2,
-                            0.f, 0.f, 1.f};
-      for (int q = 0; q < 9; ++q) L[q] = T2i[q];
+    if (MODEL == kEssential) {
+      for (int q = 0; q < 9; ++q) fs->model[q] = h[q];
     } else {
-      const float T2t[9] = {sx2, 0.f, 0.f, 0.f, sy2, 0.f, tx2, ty2, 1.f};
-      for (int q = 0; q < 9; ++q) L[q] = T2t[q];
+      fit_denormalise<MODEL>(h, nm, fs->model);
     }
-    float tmp[9];
-    matmul3(L, h, tmp);
-    matmul3(tmp, T1, fs->model);
   }
   __syncthreads();
 }
@@ -358,23 +387,59 @@ __device__ __forceinline__ void pair_dist(const float* M, const float* Mi, float
   }
 }
 
-// Scores all N matches under fs->model; optionally writes the inlier mask.
-// Returns (cost, count) to every thread.
+// essential.py _angular_cost of one bearing pair under E (row-major):
+// whether it is an inlier, and its cost term
+__device__ __forceinline__ float angular_score(const float* E, const float* b1, const float* b2,
+                                               bool& inl) {
+  float ep2[3], ep1[3];  // E b1 (the epipolar plane's normal in 2), E^T b2
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    ep2[i] = E[3 * i] * b1[0] + E[3 * i + 1] * b1[1] + E[3 * i + 2] * b1[2];
+    ep1[i] = E[i] * b2[0] + E[3 + i] * b2[1] + E[6 + i] * b2[2];
+  }
+  auto sine = [](const float* ep, const float* b) {
+    const float c0 = ep[1] * b[2] - ep[2] * b[1];
+    const float c1 = ep[2] * b[0] - ep[0] * b[2];
+    const float c2 = ep[0] * b[1] - ep[1] * b[0];
+    return sqrtf(c0 * c0 + c1 * c1 + c2 * c2) /
+           (sqrtf(ep[0] * ep[0] + ep[1] * ep[1] + ep[2] * ep[2]) + 1e-12f);
+  };
+  const float cos2 = sine(ep2, b2), cos1 = sine(ep1, b1);
+  // jnp.minimum: a NaN propagates (and then counts as an outlier)
+  const float worst = (isnan(cos1) || isnan(cos2)) ? cos1 + cos2 : fminf(cos1, cos2);
+  inl = worst > kCosThr;
+  return inl ? 1.f - worst : kCosCap;
+}
+
+// Scores all N matches under model M; optionally writes the inlier mask.
+// `none`: the model is invalid, every valid match is an outlier. Returns
+// (cost, count) to every thread.
 template <int MODEL>
 __device__ void score_all(const float* M, const float* p1, const float* p2,
                           const uint8_t* valid, int N, float thr, uint8_t* mask,
-                          float* scratch, float& cost, int& count) {
+                          float* scratch, float& cost, int& count, bool none = false) {
+  constexpr int D = dim_of<MODEL>();
   float Mi[9];
   if (MODEL == 0) inverse3(M, Mi);
   float s[2] = {0.f, 0.f};
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
     bool inl = false;
     if (valid[n]) {
-      float d1, d2;
-      pair_dist<MODEL>(M, Mi, p1[2 * n], p1[2 * n + 1], p2[2 * n], p2[2 * n + 1], d1, d2);
-      // max(d1, d2) < thr, with a NaN counting as an outlier
-      inl = d1 < thr && d2 < thr;
-      s[0] += inl ? fmaxf(d1, d2) : thr;
+      float c;
+      if constexpr (MODEL == kEssential) {
+        c = angular_score(M, p1 + D * n, p2 + D * n, inl);
+      } else {
+        float d1, d2;
+        pair_dist<MODEL>(M, Mi, p1[2 * n], p1[2 * n + 1], p2[2 * n], p2[2 * n + 1], d1, d2);
+        // max(d1, d2) < thr, with a NaN counting as an outlier
+        inl = d1 < thr && d2 < thr;
+        c = inl ? fmaxf(d1, d2) : thr;
+      }
+      if (none) {
+        inl = false;
+        c = MODEL == kEssential ? kCosCap : thr;
+      }
+      s[0] += c;
       s[1] += inl ? 1.f : 0.f;
     }
     if (mask) mask[n] = inl ? 1 : 0;
@@ -391,60 +456,16 @@ ransac_minimal_kernel(int N, const float* __restrict__ pts1, const float* __rest
                       float* __restrict__ out_model, float* __restrict__ out_cost,
                       int* __restrict__ out_count) {
   constexpr int K = MODEL == 0 ? 4 : 8;
+  constexpr int D = dim_of<MODEL>();
   __shared__ float scratch[(128 / 32 + 1) * 45];
   __shared__ FitSmem fs;
-  __shared__ float bv_s[128 / 32][K];
-  __shared__ int bi_s[128 / 32][K];
-  __shared__ float set1[2 * K], set2[2 * K];
-  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // per slot: argmax of the masked hash over N
-  float bv[K];
-  int bi[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    bv[s] = -2.f;
-    bi[s] = 0x7fffffff;
-  }
-  for (int n = tid; n < N; n += blockDim.x) {
-    const bool ok = valid[n] != 0;
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      const uint32_t flat = ((uint32_t)b * K + s) * (uint32_t)N + (uint32_t)n;
-      const float u = ok ? hash_uniform(seed, flat) : -1.f;
-      if (better(u, n, bv[s], bi[s])) {
-        bv[s] = u;
-        bi[s] = n;
-      }
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv[s], o);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi[s], o);
-      if (better(ov, oi, bv[s], bi[s])) {
-        bv[s] = ov;
-        bi[s] = oi;
-      }
-    }
-    if (lane == 0) {
-      bv_s[warp][s] = bv[s];
-      bi_s[warp][s] = bi[s];
-    }
-  }
-  __syncthreads();
-  if (tid < K) {
-    float v = bv_s[0][tid];
-    int i = bi_s[0][tid];
-    for (int w = 1; w < 128 / 32; ++w)
-      if (better(bv_s[w][tid], bi_s[w][tid], v, i)) {
-        v = bv_s[w][tid];
-        i = bi_s[w][tid];
-      }
-    set1[2 * tid] = pts1[2 * i];
-    set1[2 * tid + 1] = pts1[2 * i + 1];
-    set2[2 * tid] = pts2[2 * i];
-    set2[2 * tid + 1] = pts2[2 * i + 1];
+  __shared__ int idx[K];
+  __shared__ float set1[D * K], set2[D * K];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  svt_ransac::sample_set<K>(seed, b, N, valid, idx);
+  if (tid < D * K) {
+    set1[tid] = pts1[D * idx[tid / D] + tid % D];
+    set2[tid] = pts2[D * idx[tid / D] + tid % D];
   }
   __syncthreads();
   fit_model<MODEL>(set1, set2, nullptr, K, scratch, &fs);
@@ -453,6 +474,28 @@ ransac_minimal_kernel(int N, const float* __restrict__ pts1, const float* __rest
   score_all<MODEL>(fs.model, pts1, pts2, valid, N, thr, nullptr, scratch, cost, count);
   if (tid < 9) out_model[b * 9 + tid] = fs.model[tid];
   if (tid == 0) {
+    out_cost[b] = cost;
+    out_count[b] = count;
+  }
+}
+
+// One block per given model: its cost and inlier count over all N matches
+// (a model with ok[b] == 0 scores every valid match as an outlier).
+template <int MODEL>
+__global__ void __launch_bounds__(128)
+ransac_score_kernel(int N, const float* __restrict__ pts1, const float* __restrict__ pts2,
+                    const uint8_t* __restrict__ valid, const float* __restrict__ models,
+                    const uint8_t* __restrict__ ok, float thr, float* __restrict__ out_cost,
+                    int* __restrict__ out_count) {
+  __shared__ float scratch[(128 / 32 + 1) * 2];
+  __shared__ float M[9];
+  const int b = blockIdx.x;
+  if (threadIdx.x < 9) M[threadIdx.x] = models[b * 9 + threadIdx.x];
+  __syncthreads();
+  float cost;
+  int count;
+  score_all<MODEL>(M, pts1, pts2, valid, N, thr, nullptr, scratch, cost, count, ok[b] == 0);
+  if (threadIdx.x == 0) {
     out_cost[b] = cost;
     out_count[b] = count;
   }
@@ -531,21 +574,46 @@ ransac_refit_kernel(int N, const float* __restrict__ pts1, const float* __restri
   if (threadIdx.x < 9) out_model[threadIdx.x] = fs.model[threadIdx.x];
 }
 
+template <int MODEL>
+void launch_minimal(int N, const float* pts1, const float* pts2, const uint8_t* valid,
+                    unsigned int seed, int B, float thr, float* out_model, float* out_cost,
+                    int* out_count, cudaStream_t s) {
+  ransac_minimal_kernel<MODEL><<<B, 128, 0, s>>>(N, pts1, pts2, valid, seed, thr, out_model,
+                                                 out_cost, out_count);
+}
+
+template <int MODEL>
+void launch_select(int N, const float* pts1, const float* pts2, const uint8_t* valid, int B,
+                   const float* models, const float* costs, const int* counts,
+                   int min_inliers, float thr, float* out_model, uint8_t* out_mask,
+                   float* out_cost, uint8_t* out_ok, cudaStream_t s) {
+  ransac_select_kernel<MODEL><<<1, 1024, 0, s>>>(N, pts1, pts2, valid, B, models, costs, counts,
+                                                 min_inliers, thr, out_model, out_mask,
+                                                 out_cost, out_ok);
+}
+
+template <int MODEL>
+void launch_refit(int N, const float* pts1, const float* pts2, const uint8_t* valid,
+                  const uint8_t* mask_in, float thr, float* out_model, uint8_t* out_mask,
+                  cudaStream_t s) {
+  ransac_refit_kernel<MODEL><<<1, 1024, 0, s>>>(N, pts1, pts2, valid, mask_in, thr, out_model,
+                                                out_mask);
+}
+
 }  // namespace
 
+// model: 0 homography (pts [N,2]), 1 fundamental (pts [N,2]), 2 essential
+// (bearings [N,3]); thr: the chi-square cap (H, F; E's angle is fixed)
 extern "C" int svt_ransac_minimal(int model, int N, const float* pts1, const float* pts2,
                                   const uint8_t* valid, unsigned int seed, int B, float thr,
                                   float* out_model, float* out_cost, int* out_count,
                                   void* stream) {
-  if (B > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (model == 0)
-      ransac_minimal_kernel<0><<<B, 128, 0, s>>>(N, pts1, pts2, valid, seed, thr, out_model,
-                                                 out_cost, out_count);
-    else
-      ransac_minimal_kernel<1><<<B, 128, 0, s>>>(N, pts1, pts2, valid, seed, thr, out_model,
-                                                 out_cost, out_count);
-  }
+  cudaStream_t s = (cudaStream_t)stream;
+  if (model < 0 || model > kEssential) return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaGetLastError();
+  auto launch = model == 0 ? launch_minimal<0> : model == 1 ? launch_minimal<1>
+                                                            : launch_minimal<kEssential>;
+  launch(N, pts1, pts2, valid, seed, B, thr, out_model, out_cost, out_count, s);
   return (int)cudaGetLastError();
 }
 
@@ -554,27 +622,32 @@ extern "C" int svt_ransac_select(int model, int N, const float* pts1, const floa
                                  const float* costs, const int* counts, int min_inliers,
                                  float thr, float* out_model, uint8_t* out_mask,
                                  float* out_cost, uint8_t* out_ok, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (model == 0)
-    ransac_select_kernel<0><<<1, 1024, 0, s>>>(N, pts1, pts2, valid, B, models, costs, counts,
-                                               min_inliers, thr, out_model, out_mask,
-                                               out_cost, out_ok);
-  else
-    ransac_select_kernel<1><<<1, 1024, 0, s>>>(N, pts1, pts2, valid, B, models, costs, counts,
-                                               min_inliers, thr, out_model, out_mask,
-                                               out_cost, out_ok);
+  if (model < 0 || model > kEssential) return (int)cudaErrorInvalidValue;
+  auto launch = model == 0 ? launch_select<0> : model == 1 ? launch_select<1>
+                                                           : launch_select<kEssential>;
+  launch(N, pts1, pts2, valid, B, models, costs, counts, min_inliers, thr, out_model, out_mask,
+         out_cost, out_ok, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
 extern "C" int svt_ransac_refit(int model, int N, const float* pts1, const float* pts2,
                                 const uint8_t* valid, const uint8_t* mask_in, float thr,
                                 float* out_model, uint8_t* out_mask, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (model == 0)
-    ransac_refit_kernel<0><<<1, 1024, 0, s>>>(N, pts1, pts2, valid, mask_in, thr, out_model,
-                                              out_mask);
-  else
-    ransac_refit_kernel<1><<<1, 1024, 0, s>>>(N, pts1, pts2, valid, mask_in, thr, out_model,
-                                              out_mask);
+  if (model < 0 || model > kEssential) return (int)cudaErrorInvalidValue;
+  auto launch = model == 0 ? launch_refit<0> : model == 1 ? launch_refit<1>
+                                                          : launch_refit<kEssential>;
+  launch(N, pts1, pts2, valid, mask_in, thr, out_model, out_mask, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// B given essential matrices [B,9] with their ok flags [B], each scored on
+// all N bearing pairs: cost [B], inlier count [B]
+extern "C" int svt_ransac_score(int N, const float* pts1, const float* pts2,
+                                const uint8_t* valid, int B, const float* models,
+                                const uint8_t* ok, float* out_cost, int* out_count,
+                                void* stream) {
+  if (B > 0)
+    ransac_score_kernel<kEssential><<<B, 128, 0, (cudaStream_t)stream>>>(
+        N, pts1, pts2, valid, models, ok, 0.f, out_cost, out_count);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-// Kernel R: the perspective camera's per-point projections, two entry points.
+// Kernel R: the camera's per-point projections, two entry points.
 //
 // Replaces stella_vslam_tpu/camera/base.py reproject_to_image (:232) with the
 // x_right of the tracking cascade's projections, and for the local-map
@@ -31,6 +31,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "camera.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -39,6 +41,7 @@ struct Intr {
   float fx, fy, cx, cy, width, height, fxb;
 };
 
+template <int MODEL>
 __global__ void __launch_bounds__(kThreads)
 reproject_kernel(int M, int mode, Intr k, const float* __restrict__ Rt,
                  const float* __restrict__ pos, const int* __restrict__ tbl_u32,
@@ -54,14 +57,21 @@ reproject_kernel(int M, int mode, Intr k, const float* __restrict__ Rt,
   const float x = p0 * R[0] + p1 * R[1] + p2 * R[2] + t[0];
   const float y = p0 * R[3] + p1 * R[4] + p2 * R[5] + t[1];
   const float z = p0 * R[6] + p1 * R[7] + p2 * R[8] + t[2];
-  const float zs = fabsf(z) < 1e-8f ? 1e-8f : z;
-  const float u = k.fx * x / zs + k.cx;
-  const float v = k.fy * y / zs + k.cy;
-  const bool in_img = z > 0.f && u >= 0.f && u < k.width && v >= 0.f && v < k.height;
+  float u, v, depth;
+  bool in_img;
+  if constexpr (MODEL == svt_cam::kEquirect) {
+    in_img = svt_cam::equirect_project(x, y, z, k.cx, k.cy, k.width, k.height, u, v, depth);
+  } else {
+    const float zs = fabsf(z) < 1e-8f ? 1e-8f : z;
+    u = k.fx * x / zs + k.cx;
+    v = k.fy * y / zs + k.cy;
+    depth = z;
+    in_img = z > 0.f && u >= 0.f && u < k.width && v >= 0.f && v < k.height;
+  }
   uv_out[2 * m] = u;
   uv_out[2 * m + 1] = v;
-  depth_out[m] = z;
-  xr_out[m] = z > 1e-6f ? u - k.fxb / fmaxf(z, 1e-6f) : -1.f;
+  depth_out[m] = depth;
+  xr_out[m] = depth > 1e-6f ? u - k.fxb / fmaxf(depth, 1e-6f) : -1.f;
   if (mode == 0) {
     vis_out[m] = in_img ? 1 : 0;
     return;
@@ -77,7 +87,7 @@ reproject_kernel(int M, int mode, Intr k, const float* __restrict__ Rt,
   const bool dist_ok = dist >= 0.8f * dmin && dist <= 1.3f * dmax;
   const float cosang = (r0 * row[3] + r1 * row[4] + r2 * row[5]) / fmaxf(dist, 1e-9f);
   const bool valid = tbl_u32[10 * m + 9] > 0;
-  vis_out[m] = (valid && in_img && dist_ok && cosang > 0.5f && z > 0.f) ? 1 : 0;
+  vis_out[m] = (valid && in_img && dist_ok && cosang > 0.5f && depth > 0.f) ? 1 : 0;
   const float ratio = fmaxf(dmax, 1e-9f) / fmaxf(dist, 1e-9f);
   const float lv = ceilf(logf(fmaxf(ratio, 1e-9f)) / log_scale);
   scale_out[m] = (int)fminf(fmaxf(lv, 0.f), (float)(num_levels - 1));
@@ -115,17 +125,26 @@ undistort_kernel(int N, Intr k, float k1, float k2, float p1, float p2, float k3
 
 }  // namespace
 
+// model: 0 perspective, 2 equirectangular.
 // mode 0: pos [M,3]; outputs uv [M,2], depth, in-image flag, x_right.
 // mode 1: pos is the packed f32 table [M,8] with tbl_u32 [M,10]; the flag is
 // the local-map gate and scale_out the predicted level. Rt: R [9] then t [3].
-extern "C" int svt_reproject(int M, int mode, float fx, float fy, float cx, float cy,
-                             float width, float height, float fxb, const float* Rt,
+extern "C" int svt_reproject(int model, int M, int mode, float fx, float fy, float cx,
+                             float cy, float width, float height, float fxb, const float* Rt,
                              const float* pos, const int* tbl_u32, float log_scale,
                              int num_levels, float* uv_out, float* depth_out, uint8_t* vis_out,
                              float* xr_out, int* scale_out, void* stream) {
+  if (model != svt_cam::kPerspective && model != svt_cam::kEquirect)
+    return (int)cudaErrorInvalidValue;
   Intr k{fx, fy, cx, cy, width, height, fxb};
-  if (M > 0)
-    reproject_kernel<<<(M + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+  const int grid = (M + kThreads - 1) / kThreads;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (M > 0 && model == svt_cam::kEquirect)
+    reproject_kernel<svt_cam::kEquirect><<<grid, kThreads, 0, s>>>(
+        M, mode, k, Rt, pos, tbl_u32, log_scale, num_levels, uv_out, depth_out, vis_out, xr_out,
+        scale_out);
+  else if (M > 0)
+    reproject_kernel<svt_cam::kPerspective><<<grid, kThreads, 0, s>>>(
         M, mode, k, Rt, pos, tbl_u32, log_scale, num_levels, uv_out, depth_out, vis_out, xr_out,
         scale_out);
   return (int)cudaGetLastError();

@@ -8,6 +8,11 @@
 // TPU form gathers the matched neighbour keypoints with one-hot [N1,N2]
 // reductions, then runs the DLT and the checks as [N1]-wide vector code.
 //
+// Templated on the camera model: the reprojection checks project with the
+// model's own projection (camera.cuh for the equirectangular one), while
+// the depth check stays the camera-frame z > 0 in both views, as in JAX
+// (mapping_kernels.py:102).
+//
 // Here one thread per (neighbour b = blockIdx.y, new-keyframe slot): it
 // gathers its matched neighbour keypoint (idx2 from kernel J), builds the
 // row-normalised 4x4 DLT system, solves the 3x3 normal equations by the
@@ -23,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "camera.cuh"
 
 namespace {
 
@@ -58,11 +65,15 @@ __device__ __forceinline__ float norm3(const float* v) {
   return sqrtf(add(add(mul(v[0], v[0]), mul(v[1], v[1])), mul(v[2], v[2])));
 }
 
-// reproject_to_image: (u, v, z, visible)
+// reproject_to_image: (u, v, depth, visible)
+template <int MODEL>
 __device__ __forceinline__ bool reproject(const TriCam& c, const float* R, const float* t,
                                           const float* x, float& u, float& v, float& z) {
   float pc[3];
   transform(R, t, x, pc);
+  if constexpr (MODEL == svt_cam::kEquirect)
+    return svt_cam::equirect_project(pc[0], pc[1], pc[2], c.cx, c.cy, c.width, c.height, u, v,
+                                     z);
   z = pc[2];
   const float zs = fabsf(z) < 1e-8f ? 1e-8f : z;
   u = add(__fdiv_rn(mul(c.fx, pc[0]), zs), c.cx);
@@ -83,6 +94,7 @@ __device__ __forceinline__ void dlt_rows(const float* b, const float* R, const f
   }
 }
 
+template <int MODEL>
 __global__ void __launch_bounds__(kThreads)
 triangulate_kernel(int N1, int N2, const float* __restrict__ uv1, const int* __restrict__ lvl1,
                    const float* __restrict__ bear1, const float* __restrict__ uv2,
@@ -178,8 +190,8 @@ triangulate_kernel(int N1, int N2, const float* __restrict__ uv1, const int* __r
                 fmaxf(mul(d1, d2), 1e-12f));
   const bool parallax_ok = cos_rays < 0.99998f;
   float u1, v1, z1, u2, v2, z2;
-  const bool vis1 = reproject(cam, R1, t1, X, u1, v1, z1);
-  const bool vis2 = reproject(cam, R2, t2, X, u2, v2, z2);
+  const bool vis1 = reproject<MODEL>(cam, R1, t1, X, u1, v1, z1);
+  const bool vis2 = reproject<MODEL>(cam, R2, t2, X, u2, v2, z2);
   const int l1 = lvl1[i], l2 = lvl2[jb];
   const float du1 = sub(u1, uv1[2 * i]), dv1 = sub(v1, uv1[2 * i + 1]);
   const float du2 = sub(u2, uv2[2 * jb]), dv2 = sub(v2, uv2[2 * jb + 1]);
@@ -201,18 +213,23 @@ triangulate_kernel(int N1, int N2, const float* __restrict__ uv1, const int* __r
 
 }  // namespace
 
-extern "C" int svt_triangulate(int B, int N1, int N2, const float* uv1, const int* lvl1,
-                               const float* bear1, const float* uv2, const int* lvl2,
-                               const float* bear2, const float* poses, const int* match,
-                               const uint8_t* accepted, const uint8_t* pair_valid, float fx,
-                               float fy, float cx, float cy, float width, float height,
-                               const float* sigma_sq, const float* scale_factors,
-                               int num_levels, float* pos_out, int* idx_out, uint8_t* ok_out,
-                               void* stream) {
+// model: 0 perspective, 2 equirectangular (camera.cuh)
+extern "C" int svt_triangulate(int model, int B, int N1, int N2, const float* uv1,
+                               const int* lvl1, const float* bear1, const float* uv2,
+                               const int* lvl2, const float* bear2, const float* poses,
+                               const int* match, const uint8_t* accepted,
+                               const uint8_t* pair_valid, float fx, float fy, float cx,
+                               float cy, float width, float height, const float* sigma_sq,
+                               const float* scale_factors, int num_levels, float* pos_out,
+                               int* idx_out, uint8_t* ok_out, void* stream) {
   if (num_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
+  if (model != svt_cam::kPerspective && model != svt_cam::kEquirect)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = model == svt_cam::kEquirect ? triangulate_kernel<svt_cam::kEquirect>
+                                            : triangulate_kernel<svt_cam::kPerspective>;
   if (N1 > 0 && B > 0) {
     const dim3 grid((N1 + kThreads - 1) / kThreads, B);
-    triangulate_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+    kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         N1, N2, uv1, lvl1, bear1, uv2, lvl2, bear2, poses, match, accepted, pair_valid,
         TriCam{fx, fy, cx, cy, width, height}, sigma_sq, scale_factors, num_levels, pos_out,
         idx_out, ok_out);

@@ -129,7 +129,8 @@ class GlobalOptimizationModule:
                 obs_cam=torch.zeros((L, D), dtype=torch.int32, device=dev),
                 obs_uv=f32(L, D, 2), obs_x_right=f32(L, D) - 1.0,
                 obs_inv_sigma_sq=f32(L, D) + 1.0, obs_valid=bl(L, D)),
-                make_cam_scalars(self.camera), num_first=1, num_second=0)
+                make_cam_scalars(self.camera), model=self.camera.model.name.lower(),
+                num_first=1, num_second=0)
             torch.cuda.current_stream(dev).synchronize()
 
     # ------------------------------------------------------------------ thread

@@ -1,9 +1,9 @@
 """Build the Hopper kernels of `csrc/` with nvcc and bind them with ctypes.
 
 Every `csrc/*.cu` file compiles in its own nvcc process, all started
-together (`-gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC -c`),
-and one more nvcc call links the objects into one shared library with a
-plain C interface. No source includes PyTorch's headers, so a build takes
+together (`-gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC -c`,
+with SOURCE_FLAGS added for single sources), and one more nvcc call links
+the objects into one shared library with a plain C interface. No source includes PyTorch's headers, so a build takes
 seconds instead of minutes. The library goes into `_build/kernels/` inside
 the package (listed in .gitignore), named by a hash of the sources, and is
 built at the first launch of any kernel — never at import, since machines
@@ -30,6 +30,9 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build", "kernels")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# flags of single sources: kernel U rounds every product and sum on its own,
+# as torch's elementwise operations do (no contraction into an FMA)
+SOURCE_FLAGS = {"essential_5pt.cu": ["-fmad=false"]}
 
 _lock = threading.Lock()
 _lib = None
@@ -65,11 +68,10 @@ _SIGNATURES = {
     # use_orient, row_c, row_s, col_c, col_s, cos_thr, out, stream
     "svt_hamming_top2": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P, _P, _I, _P, _P, _P, _P, _F, _P, _P],
-    # N, pos, uv, xr, inv_sigma_sq, valid, R0, t0, fx, fy, cx, cy, fxb,
-    # num_rounds, num_robust_rounds, num_each_iter, R_out, t_out,
-    # inlier_out, chi2_out, stream
-    "svt_pose_lm": [_I, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F,
-                    _I, _I, _I, _P, _P, _P, _P, _P],
+    # model, N, pos, uv, xr, inv_sigma_sq, valid, R0, t0, fx, fy, cx, cy,
+    # fxb, width, height, num_rounds, num_robust_rounds, num_each_iter,
+    # R_out, t_out, inlier_out, chi2_out, stream
+    "svt_pose_lm": [_I, _I] + [_P] * 7 + [_F] * 7 + [_I] * 3 + [_P] * 5,
     # model, N, pts1, pts2, valid, seed, B, thr, out_model, out_cost,
     # out_count, stream
     "svt_ransac_minimal": [_I, _I, _P, _P, _P, _U, _I, _F, _P, _P, _P, _P],
@@ -79,36 +81,41 @@ _SIGNATURES = {
                           _P, _P, _P],
     # model, N, pts1, pts2, valid, mask_in, thr, out_model, out_mask, stream
     "svt_ransac_refit": [_I, _I, _P, _P, _P, _P, _F, _P, _P, _P],
-    # K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier,
-    # lm_valid, lm_fixed, cam_free, fx, fy, cx, cy, fxb, cam_R, cam_t, lm,
-    # use_huber, ctrl, Wg, lmblk, hc, S, rhs, blocks, part, stream
-    "svt_ba_linearize": [_I, _I, _I] + [_P] * 9 + [_F] * 5 + [_P] * 3
+    # N, b1, b2, valid, B, models, ok, out_cost, out_count, stream
+    "svt_ransac_score": [_I, _P, _P, _P, _I] + [_P] * 5,
+    # N, b1, b2, valid, seed, B, theta, probe, out_idx, out_E, out_ok, stream
+    "svt_essential_5pt": [_I, _P, _P, _P, _U, _I] + [_P] * 6,
+    # model, K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier,
+    # lm_valid, lm_fixed, cam_free, fx, fy, cx, cy, fxb, width, height,
+    # cam_R, cam_t, lm, use_huber, ctrl, Wg, lmblk, hc, S, rhs, blocks, part,
+    # stream
+    "svt_ba_linearize": [_I, _I, _I, _I] + [_P] * 9 + [_F] * 7 + [_P] * 3
                         + [_I] + [_P] * 6 + [_I] + [_P] * 2,
     # K, cam_free, cam_R, cam_t, ctrl, hc, S, rhs, dx, cam_Rn, cam_tn, scratch,
     # stream
     "svt_ba_solve": [_I] + [_P] * 12,
-    # K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier,
-    # lm_valid, lm_fixed, cam_free, fx, fy, cx, cy, fxb, cam_R, cam_t, lm,
-    # use_huber, ctrl, counter, Wg, lmblk, dx, cam_Rn, cam_tn, lmn, cost_part,
-    # stream
-    "svt_ba_backsub": [_I, _I, _I] + [_P] * 9 + [_F] * 5 + [_P] * 3
+    # model, K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier,
+    # lm_valid, lm_fixed, cam_free, fx, fy, cx, cy, fxb, width, height,
+    # cam_R, cam_t, lm, use_huber, ctrl, counter, Wg, lmblk, dx, cam_Rn,
+    # cam_tn, lmn, cost_part, stream
+    "svt_ba_backsub": [_I, _I, _I, _I] + [_P] * 9 + [_F] * 7 + [_P] * 3
                       + [_I] + [_P] * 10,
-    # K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, fx, fy, cx, cy,
-    # fxb, cam_R, cam_t, lm, keep, mode, out, stream
-    "svt_ba_classify": [_I, _I, _I] + [_P] * 5 + [_F] * 5 + [_P] * 4 + [_I]
+    # model, K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, fx, fy,
+    # cx, cy, fxb, width, height, cam_R, cam_t, lm, keep, mode, out, stream
+    "svt_ba_classify": [_I, _I, _I, _I] + [_P] * 5 + [_F] * 7 + [_P] * 4 + [_I]
                        + [_P] * 2,
     # B, N1, N2, q_desc, row_f, row_flag, t_desc, col_f, col_flag, cos_thr,
     # out, stream
     "svt_epipolar_top2": [_I, _I, _I] + [_P] * 6 + [_F] + [_P] * 2,
-    # B, N1, N2, uv1, lvl1, bear1, uv2, lvl2, bear2, poses, match, accepted,
-    # pair_valid, fx, fy, cx, cy, width, height, sigma_sq, scale_factors,
-    # num_levels, pos_out, idx_out, ok_out, stream
-    "svt_triangulate": [_I, _I, _I] + [_P] * 10 + [_F] * 6 + [_P] * 2 + [_I]
+    # model, B, N1, N2, uv1, lvl1, bear1, uv2, lvl2, bear2, poses, match,
+    # accepted, pair_valid, fx, fy, cx, cy, width, height, sigma_sq,
+    # scale_factors, num_levels, pos_out, idx_out, ok_out, stream
+    "svt_triangulate": [_I, _I, _I, _I] + [_P] * 10 + [_F] * 6 + [_P] * 2 + [_I]
                        + [_P] * 4,
-    # B, N, M, kp_uv, kp_level, kp_desc, kp_valid, kp_xr, poses, kf_valid,
-    # lm_f, lm_desc, lm_valid, fx, fy, cx, cy, width, height, fxb,
+    # model, B, N, M, kp_uv, kp_level, kp_desc, kp_valid, kp_xr, poses,
+    # kf_valid, lm_f, lm_desc, lm_valid, fx, fy, cx, cy, width, height, fxb,
     # scale_factors, sigma_sq, num_levels, log_scale, margin, out, stream
-    "svt_fuse": [_I, _I, _I] + [_P] * 10 + [_F] * 7 + [_P] * 2 + [_I] + [_F] * 2
+    "svt_fuse": [_I, _I, _I, _I] + [_P] * 10 + [_F] * 7 + [_P] * 2 + [_I] + [_F] * 2
                 + [_P] * 2,
     # N, desc, centers, out, stream
     "svt_bow_transform": [_I] + [_P] * 4,
@@ -131,9 +138,9 @@ _SIGNATURES = {
     # N, C, la_pos, la_valid, la_id, tbl_f32, tbl_u32, A_R, A_t, R_last,
     # t_last, R_prev, t_prev, pos_out, valid_out, id_out, pose_out, stream
     "svt_rebase_chain": [_I, _I] + [_P] * 16,
-    # M, mode, fx, fy, cx, cy, width, height, fxb, Rt, pos, tbl_u32,
+    # model, M, mode, fx, fy, cx, cy, width, height, fxb, Rt, pos, tbl_u32,
     # log_scale, num_levels, uv, depth, vis, xr, scale, stream
-    "svt_reproject": [_I, _I] + [_F] * 7 + [_P] * 3 + [_F, _I] + [_P] * 6,
+    "svt_reproject": [_I, _I, _I] + [_F] * 7 + [_P] * 3 + [_F, _I] + [_P] * 6,
     # N, fx, fy, cx, cy, k1, k2, p1, p2, k3, pts, out, stream
     "svt_undistort": [_I] + [_F] * 9 + [_P] * 3,
 }
@@ -164,7 +171,7 @@ def load() -> ctypes.CDLL:
         for s in srcs:
             with open(s, "rb") as f:
                 h.update(os.path.basename(s).encode() + f.read())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join(NVCC_FLAGS).encode() + repr(sorted(SOURCE_FLAGS.items())).encode())
         so_path = os.path.join(BUILD_DIR, f"libsvt_kernels_{h.hexdigest()[:16]}.so")
         if not os.path.exists(so_path):
             os.makedirs(BUILD_DIR, exist_ok=True)
@@ -174,7 +181,8 @@ def load() -> ctypes.CDLL:
             nvcc = _nvcc()
             t0 = time.monotonic()
             procs = [subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o", o, s],
+                [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(os.path.basename(s), []), "-I", CSRC_DIR,
+                 "-c", "-o", o, s],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                 for s, o in zip(cu, objs)]
             build_log = "".join(p.communicate()[0] for p in procs)

@@ -186,7 +186,8 @@ class MappingModule:
                     lm_pos=f32(L, 3), lm_valid=bl(L), obs_cam=i32(L, D),
                     obs_uv=f32(L, D, 2), obs_x_right=f32(L, D) - 1.0,
                     obs_inv_sigma_sq=f32(L, D) + 1.0, obs_valid=bl(L, D)),
-                    self.cam_scalars, num_first=1, num_second=1)
+                    self.cam_scalars, model=self.camera.model.name.lower(),
+                    num_first=1, num_second=1)
             torch.cuda.current_stream(dev).synchronize()
 
     def async_add_keyframe(self, kf: Keyframe):

@@ -27,6 +27,21 @@ def match_in_consistent_area(kp1_level, kp1_desc, kp1_angle, kp1_valid,
                              lowe_ratio: float = 0.9,
                              check_orientation: bool = True):
     """Returns (best_idx2 [N1] i32, accepted [N1] bool, best_dist [N1] i32)."""
+    args, kw = top2_args(kp1_level, kp1_desc, kp1_angle, kp1_valid, prev_matched, kp2_uv,
+                         kp2_level, kp2_desc, kp2_angle, kp2_valid, margin=margin,
+                         check_orientation=check_orientation)
+    best, best_idx, second, _ = H.hamming_top2(*args, **kw)
+    accepted = ((best <= H.HAMMING_DIST_THR_LOW)
+                & (best.to(torch.float32) <= lowe_ratio * second.to(torch.float32))
+                & kp1_valid)
+    accepted = H.resolve_duplicate_targets(best_idx, best, accepted, kp2_desc.shape[0])
+    return best_idx, accepted, best
+
+
+def top2_args(kp1_level, kp1_desc, kp1_angle, kp1_valid, prev_matched, kp2_uv, kp2_level,
+              kp2_desc, kp2_angle, kp2_valid, *, margin: float = 100.0,
+              check_orientation: bool = True):
+    """The arguments (args, kw) of the matcher's one `hamming_top2` call."""
     N1, N2 = kp1_desc.shape[0], kp2_desc.shape[0]
     dev = kp1_desc.device
     f32 = lambda t: t.to(torch.float32).contiguous()
@@ -42,11 +57,5 @@ def match_in_consistent_area(kp1_level, kp1_desc, kp1_angle, kp1_valid,
     orient = (H.AngleGate(f32(kp1_angle), f32(kp2_angle), ANGLE_THR)
               if check_orientation else None)
     row_ok = (kp1_valid & (kp1_level == 0)).contiguous()
-    best, best_idx, second, _ = H.hamming_top2(
-        kp1_desc.contiguous(), kp2_desc.contiguous(), row_ok,
-        kp2_valid.contiguous(), window=window, orient=orient)
-    accepted = ((best <= H.HAMMING_DIST_THR_LOW)
-                & (best.to(torch.float32) <= lowe_ratio * second.to(torch.float32))
-                & kp1_valid)
-    accepted = H.resolve_duplicate_targets(best_idx, best, accepted, N2)
-    return best_idx, accepted, best
+    return ((kp1_desc.contiguous(), kp2_desc.contiguous(), row_ok, kp2_valid.contiguous()),
+            dict(window=window, orient=orient))

@@ -235,7 +235,8 @@ class LoopDetector:
                     return None
             opt = pose_opt.optimize_pose(
                 R_dev.contiguous(), t_dev.contiguous(), dv(pos), cur_kf.undist_xy,
-                cur_kf.x_right, isig, dv(matched), self.cam_scalars)
+                cur_kf.x_right, isig, dv(matched), self.cam_scalars,
+                model=self.camera.model.name.lower())
             inl_opt = opt.is_inlier.cpu().numpy()
             if int(inl_opt.sum()) < thr:
                 _log.debug("validate kf %d~%d: round %d pose-opt %d < %d", cur_kf.id,

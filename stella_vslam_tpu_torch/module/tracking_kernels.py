@@ -233,6 +233,7 @@ class TrackingKernels:
         self.orb = orb_params
         self.device = torch.device(device)
         self.cam_scalars = make_cam_scalars(camera)
+        self.model = camera.model.name.lower()
         self.scale_factors = torch.tensor(orb_params.scale_factors,
                                           dtype=torch.float32, device=self.device)
         self.inv_sigma_sq = torch.tensor(orb_params.inv_level_sigma_sq,
@@ -246,7 +247,7 @@ class TrackingKernels:
     def _pose_opt(self, R0, t0, pos, uv, xr, level, has):
         return pose_opt.optimize_pose(
             R0, t0, pos, uv, xr, self.inv_sigma_sq[level.long()], has,
-            self.cam_scalars)
+            self.cam_scalars, model=self.model)
 
     def track_frame(
         self,
@@ -288,7 +289,7 @@ class TrackingKernels:
         # ---------- stage 1: motion-model tracking ----------
         if use_motion:
             uv_l, _, vis_l, lm_xr, _ = cam_base.reproject_gate(
-                p, R_pred, t_pred, last_assoc_pos)
+                p, R_pred, t_pred, last_assoc_pos, model=self.camera.model)
             m_idx, m_acc, _ = proj_match.match_current_and_last_frames(
                 cur_undist, cur_level, cur_desc, cur_valid, cur_angle, cur_xr,
                 last_desc, last_level, last_angle, uv_l, lm_xr,
@@ -318,7 +319,8 @@ class TrackingKernels:
 
         # ---------- stage 3: local-map tracking over the table ----------
         uv_t, _, observable, lm_xr_t, pred_scale = cam_base.reproject_gate(
-            p, R_s1, t_s1, tbl_f32, tbl_u32, log_scale=self.log_scale, num_levels=L)
+            p, R_s1, t_s1, tbl_f32, tbl_u32, log_scale=self.log_scale, num_levels=L,
+            model=self.camera.model)
         t_idx, t_acc, _ = proj_match.match_frame_and_landmarks(
             cur_undist, cur_level, cur_desc, cur_valid, has_s1, cur_xr,
             tbl_desc, uv_t, lm_xr_t, pred_scale, observable,

@@ -27,8 +27,10 @@ tensors `bundle_adjust_plain` runs the same schedule as torch ops
 (index_add_ where the JAX version uses one-hot matmuls; the reduced system
 through linalg.solve_spd_blocked).
 
-The perspective model only; the JAX version's packed and stepped entry
-points and its chunked Schur product are not ported (ROADMAP item 9).
+`model` is "perspective" or "equirectangular" (ba.py:322-335, 398-403:
+longitude / latitude rows, no stereo row); the kernels take it as a
+template parameter. The JAX version's packed and stepped entry points and
+its chunked Schur product are not ported (ROADMAP item 9).
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ import torch
 from stella_vslam_tpu_torch.kernels import build as kbuild
 from stella_vslam_tpu_torch.ops import lie
 from stella_vslam_tpu_torch.ops import linalg
-from stella_vslam_tpu_torch.ops.optim.residuals import CamScalars
+from stella_vslam_tpu_torch.camera.base import ported_model
+from stella_vslam_tpu_torch.ops.optim.residuals import CamScalars, equirect_scales
 
 CHI_SQ_2D = 5.991
 CHI_SQ_3D = 7.815
@@ -90,15 +93,36 @@ class BAResult(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def _pose_rows(prob: BAProblem, cam_R, cam_t, lm_pos, cam: CamScalars):
+def _pose_rows(prob: BAProblem, cam_R, cam_t, lm_pos, cam: CamScalars,
+               model: str = "perspective"):
     """Residual rows r [L,D,3], pose Jacobian Jc [L,D,3,6], point Jacobian
-    Jp [L,D,3,3] and depth_ok [L,D]. Row 2 is the stereo row; its weight is
-    gated by has_stereo."""
+    Jp [L,D,3,3] and depth_ok [L,D]. Row 2 is the stereo row (zero for the
+    equirectangular model); its weight is gated by has_stereo."""
     oc = prob.obs_cam.long()
     R = cam_R[oc]  # [L,D,3,3]
     t = cam_t[oc]
     Xc = (R @ lm_pos[:, None, :, None])[..., 0] + t
     x, y, z = Xc[..., 0], Xc[..., 1], Xc[..., 2]
+    zero = torch.zeros_like(x)
+    if model == "equirectangular":
+        Ln2 = x * x + y * y + z * z
+        Ln = torch.sqrt(torch.clamp(Ln2, min=1e-16))
+        xz2 = torch.clamp(x * x + z * z, min=1e-12)
+        ku, kv = equirect_scales(cam)
+        u = cam.cx + ku * torch.atan2(x, z)
+        v = cam.cy + kv * torch.asin(torch.clamp(y / Ln, -1.0, 1.0))
+        du = torch.remainder(u - prob.obs_uv[..., 0] + cam.width / 2.0,
+                             cam.width) - cam.width / 2.0
+        r = torch.stack([du, v - prob.obs_uv[..., 1], zero], -1)
+        L2 = torch.clamp(Ln2, min=1e-16)
+        denom = L2 * torch.sqrt(xz2)
+        dpi = torch.stack([
+            torch.stack([ku * z / xz2, zero, -ku * x / xz2], -1),
+            torch.stack([-kv * x * y / denom, kv * torch.sqrt(xz2) / L2,
+                         -kv * z * y / denom], -1),
+            torch.stack([zero, zero, zero], -1)], -2)
+        Jc = torch.cat([dpi, -(dpi @ lie.hat(Xc))], -1)
+        return r, Jc, dpi @ R, Ln > 1e-6
     z_safe = torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
     iz = 1.0 / z_safe
     iz2 = iz * iz
@@ -107,7 +131,6 @@ def _pose_rows(prob: BAProblem, cam_R, cam_t, lm_pos, cam: CamScalars):
     u_r = u - cam.focal_x_baseline * iz
     r = torch.stack([u - prob.obs_uv[..., 0], v - prob.obs_uv[..., 1],
                      u_r - prob.obs_x_right], -1)
-    zero = torch.zeros_like(x)
     dpi = torch.stack([
         torch.stack([cam.fx * iz, zero, -cam.fx * x * iz2], -1),
         torch.stack([zero, cam.fy * iz, -cam.fy * y * iz2], -1),
@@ -118,12 +141,17 @@ def _pose_rows(prob: BAProblem, cam_R, cam_t, lm_pos, cam: CamScalars):
     return r, Jc, Jp, z > 1e-4
 
 
-def _row_weights(prob: BAProblem, r, depth_ok, inlier, use_huber: bool):
+def _row_weights(prob: BAProblem, r, depth_ok, inlier, use_huber: bool,
+                 model: str = "perspective"):
     """(row weights wr [L,D,3], w_base [L,D], cost, chi2 [L,D])."""
     w_base = (prob.obs_valid & inlier & depth_ok & prob.lm_valid[:, None]).to(
         r.dtype) * prob.obs_inv_sigma_sq
-    hs = (prob.obs_x_right > 0).to(r.dtype)
-    sq = r[..., 0] * r[..., 0] + r[..., 1] * r[..., 1] + r[..., 2] * r[..., 2] * hs
+    if model == "equirectangular":
+        hs = torch.zeros_like(r[..., 2])
+        sq = r[..., 0] * r[..., 0] + r[..., 1] * r[..., 1]
+    else:
+        hs = (prob.obs_x_right > 0).to(r.dtype)
+        sq = r[..., 0] * r[..., 0] + r[..., 1] * r[..., 1] + r[..., 2] * r[..., 2] * hs
     chi2 = sq * prob.obs_inv_sigma_sq
     chi_thr = torch.where(prob.obs_x_right > 0, torch.full_like(sq, CHI_SQ_3D),
                           torch.full_like(sq, CHI_SQ_2D))
@@ -136,17 +164,17 @@ def _row_weights(prob: BAProblem, r, depth_ok, inlier, use_huber: bool):
     return wr, w_base, torch.sum(w * sq), chi2
 
 
-def _total_cost(prob, cam_R, cam_t, lm_pos, inlier, cam, use_huber):
-    r, _, _, depth_ok = _pose_rows(prob, cam_R, cam_t, lm_pos, cam)
-    _, _, cost, chi2 = _row_weights(prob, r, depth_ok, inlier, use_huber)
+def _total_cost(prob, cam_R, cam_t, lm_pos, inlier, cam, use_huber, model="perspective"):
+    r, _, _, depth_ok = _pose_rows(prob, cam_R, cam_t, lm_pos, cam, model)
+    _, _, cost, chi2 = _row_weights(prob, r, depth_ok, inlier, use_huber, model)
     return cost, chi2, depth_ok
 
 
-def _linearize(prob, cam_R, cam_t, lm_pos, inlier, cam, use_huber):
+def _linearize(prob, cam_R, cam_t, lm_pos, inlier, cam, use_huber, model="perspective"):
     """One evaluation: cost and the lambda-independent blocks."""
     K = cam_R.shape[0]
-    r, Jc, Jp, depth_ok = _pose_rows(prob, cam_R, cam_t, lm_pos, cam)
-    wr, w_base, cost, _ = _row_weights(prob, r, depth_ok, inlier, use_huber)
+    r, Jc, Jp, depth_ok = _pose_rows(prob, cam_R, cam_t, lm_pos, cam, model)
+    wr, w_base, cost, _ = _row_weights(prob, r, depth_ok, inlier, use_huber, model)
     Jcw = Jc * wr[..., None]  # [L,D,3,6]
     Jpw = Jp * wr[..., None]
     hcc_o = torch.einsum("ldri,ldrj->ldij", Jcw, Jc)  # [L,D,6,6]
@@ -186,13 +214,13 @@ def _free(prob):
 
 
 def linearize_schur_plain(prob, cam, cam_R, cam_t, lm_pos, inlier, lam,
-                          use_huber: bool):
+                          use_huber: bool, model: str = "perspective"):
     """Plain version of kernel F: the cost at the state and the reduced
     camera system before damping. Returns (cost, Hcc [K,6,6], b_c [K,6],
     S_red [6K,6K], rhs_red [6K], per-landmark terms (G, b_p, W, has_obs))."""
     K = cam_R.shape[0]
     cost, (Hpp, b_p, Hcc, b_c, W, has_obs) = _linearize(
-        prob, cam_R, cam_t, lm_pos, inlier, cam, use_huber)
+        prob, cam_R, cam_t, lm_pos, inlier, cam, use_huber, model)
     G = _sym3_inv(Hpp, lam)  # [L,3,3]
     if prob.lm_fixed is not None:
         G = G * (~prob.lm_fixed).to(G.dtype)[:, None, None]
@@ -234,26 +262,26 @@ def reduced_solve_plain(prob, cam_R, cam_t, Hcc, b_c, S_red, rhs_red, lam):
 
 
 def backsub_cost_plain(prob, cam, lm_pos, lm_terms, dx, cam_Rn, cam_tn, inlier,
-                       use_huber: bool):
+                       use_huber: bool, model: str = "perspective"):
     """Plain version of kernel H (before its accept / reject): the point
     updates dp = -G (b_p + sum_d W_d^T dx_{k_d}) and the trial cost."""
     G, b_p, W, has_obs = lm_terms
     wtd = torch.einsum("ldia,ldi->la", W, dx[prob.obs_cam.long()])
     upd = (prob.lm_valid & has_obs).to(torch.float32)
     lm_new = lm_pos - (G @ (b_p + wtd)[..., None])[..., 0] * upd[:, None]
-    cost, _, _ = _total_cost(prob, cam_Rn, cam_tn, lm_new, inlier, cam, use_huber)
+    cost, _, _ = _total_cost(prob, cam_Rn, cam_tn, lm_new, inlier, cam, use_huber, model)
     return lm_new, cost
 
 
-def _stage_plain(prob, cam, R, t, p, inlier, use_huber: bool, iters: int):
+def _stage_plain(prob, cam, R, t, p, inlier, use_huber: bool, iters: int, model: str):
     lam = torch.tensor(1e-4, dtype=torch.float32, device=R.device)
     cost = torch.tensor(math.inf, dtype=torch.float32, device=R.device)
     for _ in range(iters):
         cost0, Hcc, b_c, S_red, rhs_red, lm_terms = linearize_schur_plain(
-            prob, cam, R, t, p, inlier, lam, use_huber)
+            prob, cam, R, t, p, inlier, lam, use_huber, model)
         dx, Rn, tn = reduced_solve_plain(prob, R, t, Hcc, b_c, S_red, rhs_red, lam)
         pn, cost = backsub_cost_plain(prob, cam, p, lm_terms, dx, Rn, tn, inlier,
-                                      use_huber)
+                                      use_huber, model)
         improved = cost < cost0
         gain = (cost0 - cost) / torch.clamp(cost0, min=1e-12)
         R = torch.where(improved, Rn, R)
@@ -265,12 +293,12 @@ def _stage_plain(prob, cam, R, t, p, inlier, use_huber: bool, iters: int):
     return R, t, p, cost
 
 
-def classify_plain(prob, cam, R, t, p, final: bool):
+def classify_plain(prob, cam, R, t, p, final: bool, model: str = "perspective"):
     """Plain version of kernel I: chi-square and depth of every observation
     at a state. final=False: the second stage's inliers (lm_keep_inlier rows
     stay in); final=True: the outlier flags of the valid observations."""
     ones = torch.ones_like(prob.obs_valid)
-    _, chi2, depth_ok = _total_cost(prob, R, t, p, ones, cam, False)
+    _, chi2, depth_ok = _total_cost(prob, R, t, p, ones, cam, False, model)
     chi_thr = torch.where(prob.obs_x_right > 0, torch.full_like(chi2, CHI_SQ_3D),
                           torch.full_like(chi2, CHI_SQ_2D))
     if final:
@@ -281,27 +309,20 @@ def classify_plain(prob, cam, R, t, p, final: bool):
     return inlier
 
 
-def _check_model(model: str):
-    if model != "perspective":
-        raise NotImplementedError(
-            f"bundle adjustment for the {model} model is not ported yet "
-            "(ROADMAP Queue 1 item 14b)")
-
-
 def bundle_adjust_plain(prob: BAProblem, cam: CamScalars, *,
                         model: str = "perspective", num_first: int = 5,
                         num_second: int = 10) -> BAResult:
-    _check_model(model)
+    ported_model(model)
     ones = torch.ones_like(prob.obs_valid)
     R1, t1, p1, cost1 = _stage_plain(prob, cam, prob.cam_R, prob.cam_t,
-                                     prob.lm_pos, ones, True, num_first)
-    inlier1 = classify_plain(prob, cam, R1, t1, p1, False)
+                                     prob.lm_pos, ones, True, num_first, model)
+    inlier1 = classify_plain(prob, cam, R1, t1, p1, False, model)
     if num_second > 0:
         R2, t2, p2, cost = _stage_plain(prob, cam, R1, t1, p1, inlier1, False,
-                                        num_second)
+                                        num_second, model)
     else:
         R2, t2, p2, cost = R1, t1, p1, cost1
-    return BAResult(R2, t2, p2, classify_plain(prob, cam, R2, t2, p2, True), cost)
+    return BAResult(R2, t2, p2, classify_plain(prob, cam, R2, t2, p2, True, model), cost)
 
 
 # ---------------------------------------------------------------------------
@@ -315,11 +336,12 @@ _COST0, _COST1, _LAM, _DONE, _LAST_COST = 0, 1, 2, 3, 4
 class _KernelState:
     """Device buffers of one bundle_adjust call."""
 
-    def __init__(self, prob: BAProblem, cam: CamScalars):
+    def __init__(self, prob: BAProblem, cam: CamScalars, model: str = "perspective"):
         K, L, D = prob.cam_R.shape[0], prob.obs_cam.shape[0], prob.obs_cam.shape[1]
         dev = prob.cam_R.device
         f = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
         self.K, self.L, self.D, self.cam = K, L, D, cam
+        self.kind = ported_model(model)
         self.cam_R = prob.cam_R.reshape(K, 9).to(torch.float32).clone()
         self.cam_t = prob.cam_t.to(torch.float32).contiguous().clone()
         self.lm = prob.lm_pos.to(torch.float32).contiguous().clone()
@@ -350,11 +372,12 @@ class _KernelState:
     def problem_args(self, inlier):
         i = self.inputs
         c = self.cam
-        return [self.K, self.L, self.D, i["obs_cam"].data_ptr(), i["obs_uv"].data_ptr(),
-                i["obs_xr"].data_ptr(), i["obs_isig"].data_ptr(),
+        return [self.kind, self.K, self.L, self.D, i["obs_cam"].data_ptr(),
+                i["obs_uv"].data_ptr(), i["obs_xr"].data_ptr(), i["obs_isig"].data_ptr(),
                 i["obs_valid"].data_ptr(), inlier.data_ptr(), i["lm_valid"].data_ptr(),
                 0 if i["lm_fixed"] is None else i["lm_fixed"].data_ptr(),
-                i["cam_free"].data_ptr(), c.fx, c.fy, c.cx, c.cy, c.focal_x_baseline]
+                i["cam_free"].data_ptr(), c.fx, c.fy, c.cx, c.cy, c.focal_x_baseline,
+                c.width, c.height]
 
 
 def ba_linearize_schur(st: _KernelState, inlier, use_huber: bool):
@@ -400,9 +423,9 @@ def ba_classify(st: _KernelState, final: bool) -> torch.Tensor:
     out = torch.empty((st.L, st.D), dtype=torch.bool, device=st.lm.device)
     lib = kbuild.load()
     kbuild.check(lib.svt_ba_classify(
-        st.K, st.L, st.D, i["obs_cam"].data_ptr(), i["obs_uv"].data_ptr(),
+        st.kind, st.K, st.L, st.D, i["obs_cam"].data_ptr(), i["obs_uv"].data_ptr(),
         i["obs_xr"].data_ptr(), i["obs_isig"].data_ptr(), i["obs_valid"].data_ptr(),
-        c.fx, c.fy, c.cx, c.cy, c.focal_x_baseline, st.cam_R.data_ptr(),
+        c.fx, c.fy, c.cx, c.cy, c.focal_x_baseline, c.width, c.height, st.cam_R.data_ptr(),
         st.cam_t.data_ptr(), st.lm.data_ptr(),
         0 if st.keep is None else st.keep.data_ptr(), int(final), out.data_ptr(),
         kbuild.stream_ptr(st.lm.device)), "ba_classify")
@@ -435,12 +458,11 @@ def _check_problem(prob: BAProblem):
 def bundle_adjust(prob: BAProblem, cam: CamScalars, *, model: str = "perspective",
                   num_first: int = 5, num_second: int = 10) -> BAResult:
     """Kernels F, G, H, I on CUDA tensors, the plain version on CPU tensors."""
-    _check_model(model)
     if not prob.cam_R.is_cuda:
         return bundle_adjust_plain(prob, cam, model=model, num_first=num_first,
                                    num_second=num_second)
     _check_problem(prob)
-    st = _KernelState(prob, cam)
+    st = _KernelState(prob, cam, model)
 
     def stage(inlier, use_huber: bool, iters: int):
         st.ctrl[_LAM] = 1e-4

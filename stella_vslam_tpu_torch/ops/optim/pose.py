@@ -8,8 +8,8 @@ evaluations of a 6-DoF pose, Huber weights (delta = sqrt(chi2)) in the first
 
 On CUDA tensors the whole schedule is ONE launch of kernel D
 (csrc/pose_lm.cu); on CPU tensors `optimize_pose_plain` runs the same
-schedule as batched torch ops. Perspective model only (the port's only
-camera model so far).
+schedule as batched torch ops. `model` names the residual
+(ops/optim/residuals.RESIDUAL_FNS): perspective or equirectangular.
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ import torch
 from stella_vslam_tpu_torch.kernels import build as kbuild
 from stella_vslam_tpu_torch.ops import lie
 from stella_vslam_tpu_torch.ops import linalg
-from stella_vslam_tpu_torch.ops.optim.residuals import CamScalars, perspective_residual
+from stella_vslam_tpu_torch.camera.base import ported_model
+from stella_vslam_tpu_torch.ops.optim.residuals import RESIDUAL_FNS, CamScalars
 
 CHI_SQ_2D = 5.991
 CHI_SQ_3D = 7.815
@@ -35,8 +36,11 @@ class PoseOptResult(NamedTuple):
 
 def optimize_pose_plain(R_init, t_init, pos_w, obs_uv, obs_x_right,
                         inv_sigma_sq, valid, cam: CamScalars, *,
-                        num_rounds: int = 4, num_robust_rounds: int = 2,
+                        model: str = "perspective", num_rounds: int = 4,
+                        num_robust_rounds: int = 2,
                         num_each_iter: int = 10) -> PoseOptResult:
+    ported_model(model)
+    res_fn = RESIDUAL_FNS[model]
     is_stereo = obs_x_right > 0
     chi_thr = torch.where(is_stereo, torch.full_like(obs_x_right, CHI_SQ_3D),
                           torch.full_like(obs_x_right, CHI_SQ_2D))
@@ -44,11 +48,11 @@ def optimize_pose_plain(R_init, t_init, pos_w, obs_uv, obs_x_right,
     eye6 = torch.eye(6, dtype=torch.float32, device=pos_w.device)
 
     def chi2_of(R, t):
-        r, _, dof, depth_ok = perspective_residual(R, t, pos_w, obs_uv, obs_x_right, cam)
+        r, _, dof, depth_ok = res_fn(R, t, pos_w, obs_uv, obs_x_right, cam)
         return torch.sum(r * r * dof, dim=-1) * inv_sigma_sq, depth_ok
 
     def eval_state(R, t, inlier, use_huber):
-        r, J, dof, depth_ok = perspective_residual(R, t, pos_w, obs_uv, obs_x_right, cam)
+        r, J, dof, depth_ok = res_fn(R, t, pos_w, obs_uv, obs_x_right, cam)
         w_obs = (valid & inlier & depth_ok).to(torch.float32) * inv_sigma_sq
         e2 = torch.sum(r * r * dof, dim=-1)
         chi = torch.sqrt(torch.clamp(e2 * inv_sigma_sq, min=1e-12))
@@ -89,15 +93,16 @@ def optimize_pose_plain(R_init, t_init, pos_w, obs_uv, obs_x_right,
 
 
 def optimize_pose(R_init, t_init, pos_w, obs_uv, obs_x_right, inv_sigma_sq,
-                  valid, cam: CamScalars, *, num_rounds: int = 4,
-                  num_robust_rounds: int = 2,
+                  valid, cam: CamScalars, *, model: str = "perspective",
+                  num_rounds: int = 4, num_robust_rounds: int = 2,
                   num_each_iter: int = 10) -> PoseOptResult:
     """Kernel D on CUDA tensors, the plain version on CPU tensors."""
     if not pos_w.is_cuda:
         return optimize_pose_plain(
             R_init, t_init, pos_w, obs_uv, obs_x_right, inv_sigma_sq, valid,
-            cam, num_rounds=num_rounds, num_robust_rounds=num_robust_rounds,
-            num_each_iter=num_each_iter)
+            cam, model=model, num_rounds=num_rounds,
+            num_robust_rounds=num_robust_rounds, num_each_iter=num_each_iter)
+    kind = ported_model(model)
     N = pos_w.shape[0]
     dev = pos_w.device
     args = [(pos_w, (N, 3), torch.float32), (obs_uv, (N, 2), torch.float32),
@@ -115,8 +120,8 @@ def optimize_pose(R_init, t_init, pos_w, obs_uv, obs_x_right, inv_sigma_sq,
     chi2 = torch.empty(N, dtype=torch.float32, device=dev)
     lib = kbuild.load()
     kbuild.check(lib.svt_pose_lm(
-        N, *[t.data_ptr() for t in ins], cam.fx, cam.fy, cam.cx, cam.cy,
-        cam.focal_x_baseline, num_rounds, num_robust_rounds, num_each_iter,
+        kind, N, *[t.data_ptr() for t in ins], cam.fx, cam.fy, cam.cx, cam.cy,
+        cam.focal_x_baseline, cam.width, cam.height, num_rounds, num_robust_rounds, num_each_iter,
         R_out.data_ptr(), t_out.data_ptr(), inlier.data_ptr(), chi2.data_ptr(),
         kbuild.stream_ptr(dev)), "pose_lm")
     optimize_pose.launches += 1

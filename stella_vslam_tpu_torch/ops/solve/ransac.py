@@ -2,9 +2,10 @@
 
 Port of stella_vslam_tpu/ops/solve/ransac.py (`hash_uniform` :30,
 `sample_minimal_sets` :50, `escalate_scan` :84,
-`select_best` :110) and of the `_find_core` shared by homography.py (:107)
-and fundamental.py (:73). Every hypothesis of a batch is evaluated at once:
-B minimal sets are drawn by a Gumbel-argmax over a counter-based hash of
+`select_best` :110) and of the `_find_core` shared by homography.py (:107),
+fundamental.py (:73) and essential.py (:82; on bearing vectors [N,3]).
+Every hypothesis of a batch is evaluated at once: B minimal sets are
+drawn by a Gumbel-argmax over a counter-based hash of
 (seed, flat index), each set is solved by the normalised DLT with the
 18-squaring null vector (ops/linalg.smallest_eigvec_spd), every model scores
 all N matches with a chi-square capped cost, and the lowest cost among
@@ -18,8 +19,9 @@ lowest index, invalid positions at -1.0.
 Kernel E (csrc/ransac_two_view.cu) runs the batch on CUDA tensors in three
 launches: `minimal_hypotheses` (one block per hypothesis: sample, fit, score,
 reduce), `select_best_model` (argmin and the winner's inlier mask) and
-`refit_model` (the nonminimal LO refit over a masked set). On CPU tensors
-the same three functions run their plain versions below.
+`refit_model` (the nonminimal LO refit over a masked set); `score_models`
+scores given essential matrices (the 5-point solver's candidates). On CPU
+tensors the same functions run their plain versions below.
 """
 from __future__ import annotations
 
@@ -37,13 +39,19 @@ _PLAIN_CHUNK = 256
 
 class TwoViewModel(NamedTuple):
     """A model family for kernel E: its template index (0 homography,
-    1 fundamental), minimal set size, DLT solver and cost function (the
-    plain versions the kernel reproduces)."""
+    1 fundamental, 2 essential), minimal set size (the winner needs more
+    inliers than it), DLT solver and cost function (the plain versions the
+    kernel reproduces)."""
 
     kind: int
     set_size: int
-    compute: Callable  # (pts1 [..., k, 2], pts2, valid=None) -> [..., 3, 3]
-    cost: Callable  # (M [..., 3, 3], pts1 [..., N, 2], pts2, sigma) -> (inlier, cost)
+    compute: Callable  # (pts1 [..., k, D], pts2, valid=None) -> [..., 3, 3]
+    cost: Callable  # (M [..., 3, 3], pts1 [..., N, D], pts2, sigma) -> (inlier, cost)
+
+    @property
+    def dim(self) -> int:
+        """Coordinates per correspondence: pixels, or bearings for E."""
+        return 3 if self.kind == 2 else 2
 
 
 class TwoViewResult(NamedTuple):
@@ -123,10 +131,12 @@ def _check(t, shape, dtype, dev, name):
                          f"{dtype} tensor of shape {tuple(shape)} on {dev}")
 
 
-def _check_points(pts1, pts2, match_valid):
+def check_points(dim: int, pts1, pts2, match_valid):
+    """The device and count of N correspondences [N, dim]; raises unless
+    they are contiguous float32 on one device with a bool validity mask."""
     dev, N = pts1.device, pts1.shape[0]
-    _check(pts1, (N, 2), torch.float32, dev, "pts1")
-    _check(pts2, (N, 2), torch.float32, dev, "pts2")
+    _check(pts1, (N, dim), torch.float32, dev, "pts1")
+    _check(pts2, (N, dim), torch.float32, dev, "pts2")
     _check(match_valid, (N,), torch.bool, dev, "match_valid")
     if N == 0:
         raise ValueError("ransac_two_view: no correspondences")
@@ -140,7 +150,7 @@ def minimal_hypotheses(model: TwoViewModel, seed: int, pts1, pts2, match_valid,
     if not pts1.is_cuda:
         return minimal_hypotheses_plain(model, seed, pts1, pts2, match_valid,
                                         num_hypotheses, sigma)
-    dev, N = _check_points(pts1, pts2, match_valid)
+    dev, N = check_points(model.dim, pts1, pts2, match_valid)
     B = int(num_hypotheses)
     if B * model.set_size * N >= 1 << 32:
         raise ValueError("ransac_two_view: B*k*N must stay below 2^32")
@@ -166,7 +176,7 @@ def select_best_model(model: TwoViewModel, models, cost, count, pts1, pts2,
         inlier, _ = model.cost(M, pts1, pts2, sigma)
         return (M, inlier & match_valid,
                 torch.where(ok, cost[best], torch.full_like(cost[best], _BIG)), ok)
-    dev, N = _check_points(pts1, pts2, match_valid)
+    dev, N = check_points(model.dim, pts1, pts2, match_valid)
     B = models.shape[0]
     _check(models, (B, 3, 3), torch.float32, dev, "models")
     _check(cost, (B,), torch.float32, dev, "cost")
@@ -193,7 +203,7 @@ def refit_model(model: TwoViewModel, pts1, pts2, match_valid, inlier,
         M = model.compute(pts1, pts2, valid=inlier)
         in_re, _ = model.cost(M, pts1, pts2, sigma)
         return M, in_re & match_valid
-    dev, N = _check_points(pts1, pts2, match_valid)
+    dev, N = check_points(model.dim, pts1, pts2, match_valid)
     _check(inlier, (N,), torch.bool, dev, "inlier")
     M = torch.empty((3, 3), dtype=torch.float32, device=dev)
     mask = torch.empty(N, dtype=torch.bool, device=dev)
@@ -206,7 +216,49 @@ def refit_model(model: TwoViewModel, pts1, pts2, match_valid, inlier,
     return M, mask
 
 
-# one count for kernel E, whichever of its three entry points launched
+def score_models_plain(model: TwoViewModel, models, model_ok, pts1, pts2, match_valid,
+                       outlier_cost: float, sigma: float = 1.0, chunk: int = 1024):
+    """Plain version of score_models (in chunks of models)."""
+    costs, counts = [], []
+    for b0 in range(0, models.shape[0], chunk):
+        M, ok = models[b0:b0 + chunk], model_ok[b0:b0 + chunk]
+        inlier, cost = model.cost(M, pts1[None], pts2[None], sigma)
+        inlier = inlier & match_valid[None, :] & ok[:, None]
+        cost = torch.where(inlier, cost, torch.where(
+            match_valid[None, :], torch.full_like(cost, outlier_cost), torch.zeros_like(cost)))
+        costs.append(cost.sum(-1))
+        counts.append(inlier.sum(-1).to(torch.int32))
+    return torch.cat(costs), torch.cat(counts)
+
+
+def score_models(model: TwoViewModel, models, model_ok, pts1, pts2, match_valid,
+                 outlier_cost: float, sigma: float = 1.0):
+    """Given models [B,3,3] with their ok flags [B], each scored on all N
+    matches: (total cost [B] f32, inlier count [B] i32); a model that is not
+    ok counts no inlier and `outlier_cost` for every valid match. Kernel E
+    (essential models only, whose outlier cost is fixed) on CUDA tensors,
+    the plain version on CPU tensors."""
+    if not pts1.is_cuda:
+        return score_models_plain(model, models, model_ok, pts1, pts2, match_valid,
+                                  outlier_cost, sigma)
+    if model.kind != 2:
+        raise ValueError("score_models: kernel E scores given essential matrices only")
+    dev, N = check_points(model.dim, pts1, pts2, match_valid)
+    B = models.shape[0]
+    _check(models, (B, 3, 3), torch.float32, dev, "models")
+    _check(model_ok, (B,), torch.bool, dev, "model_ok")
+    cost = torch.empty(B, dtype=torch.float32, device=dev)
+    count = torch.empty(B, dtype=torch.int32, device=dev)
+    lib = kbuild.load()
+    kbuild.check(lib.svt_ransac_score(
+        N, pts1.data_ptr(), pts2.data_ptr(), match_valid.data_ptr(), B, models.data_ptr(),
+        model_ok.data_ptr(), cost.data_ptr(), count.data_ptr(), kbuild.stream_ptr(dev)),
+        "ransac_score")
+    minimal_hypotheses.launches += 1
+    return cost, count
+
+
+# one count for kernel E, whichever of its four entry points launched
 minimal_hypotheses.launches = 0
 
 

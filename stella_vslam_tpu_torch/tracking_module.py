@@ -218,7 +218,7 @@ class TrackingModule:
                 lm_pos=f32(L, 3), lm_valid=bl(L), obs_cam=i32(L, D), obs_uv=f32(L, D, 2),
                 obs_x_right=f32(L, D) - 1.0, obs_inv_sigma_sq=f32(L, D) + 1.0,
                 obs_valid=bl(L, D)), make_cam_scalars(self.camera),
-                num_first=1, num_second=1)
+                model=self.camera.model.name.lower(), num_first=1, num_second=1)
             torch.cuda.current_stream(dev).synchronize()
 
     # ------------------------------------------------------------------

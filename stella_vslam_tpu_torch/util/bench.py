@@ -10,15 +10,18 @@ Runs, each through the default `System(cfg)` (threaded, mapping on):
 * stereo and RGBD: bench.py's 640-frame legs (util/stereo_slice.py), with
   bench.py's gates (at most 8 lost after init, scale error < 5%, rigid
   ATE < 0.10 m);
-* equirectangular: not ported (ROADMAP item 14b), reported as skipped.
+* equirectangular: bench.py's 250-frame circle in the box room at 640x320
+  (util/equirect_slice.py), with bench.py's gates (at most 10 lost after
+  init, Sim3 ATE < 0.10 m).
 
 As bench.py:446-470 does, the optional legs run inside a wall-clock budget
 (BUDGET_S): a leg starts only if the time spent so far plus the last leg's
 measured wall time (300 s before the first) fits; a leg that does not is
 reported as `<leg>_skipped` with the reason. Prints one JSON line: the mono
 FPS as the headline, then per leg `gpu_<leg>_...` keys (FPS as bench.py
-computes it, 1 / mean feed time after the first 30 frames; frames per wall
-second, which include the host's rendering; ATE, scale error, frame time
+computes it, 1 / mean feed time after the first 30 frames (20 for the
+equirectangular leg, as bench.py:162); frames per wall second, which
+include the host's rendering; ATE, scale error, frame time
 p50 / p99 / max over the steady frames), the card's name and power limit.
 It needs a CUDA GPU.
 """
@@ -76,6 +79,14 @@ def run_stereo_leg(dev, world, setup: str) -> dict:
     return s
 
 
+def run_equirect_leg(dev) -> dict:
+    from stella_vslam_tpu_torch.util import equirect_slice
+
+    s = equirect_slice.run_leg(dev)
+    equirect_slice.check_gates(s)
+    return s
+
+
 def _keys(leg: str, s: dict) -> dict:
     out = {f"gpu_{leg}_fps": s["fps"], f"gpu_{leg}_frames_per_wall_s": s["frames_per_wall_s"],
            f"gpu_{leg}_ate_mm": s["ate_m"] * 1e3,
@@ -111,17 +122,16 @@ def main() -> int:
            "gpu_card": name, **_keys("mono", mono)}
     est_s = 300.0
     for leg in ("stereo", "equirect", "rgbd"):
-        if leg == "equirect":
-            out["equirect_skipped"] = ("the equirectangular camera model is not ported "
-                                       "(ROADMAP item 14b)")
-            continue
         elapsed = time.time() - t_start
         if elapsed + est_s > BUDGET_S:
             out[f"{leg}_skipped"] = (f"{elapsed:.0f} s elapsed + ~{est_s:.0f} s leg > "
                                      f"{BUDGET_S:.0f} s budget")
             continue
         t_leg = time.time()
-        s = run_stereo_leg(dev, world, "stereo" if leg == "stereo" else "RGBD")
+        if leg == "equirect":
+            s = run_equirect_leg(dev)
+        else:
+            s = run_stereo_leg(dev, world, "stereo" if leg == "stereo" else "RGBD")
         out.update(_keys(leg, s))
         est_s = max(120.0, time.time() - t_leg)
     out["gpu_wall_s"] = time.time() - t_start

@@ -72,13 +72,14 @@ def kernel_wrappers() -> dict:
     from stella_vslam_tpu_torch.ops.optim import ba
     from stella_vslam_tpu_torch.ops.optim import pose as pose_mod
     from stella_vslam_tpu_torch.ops.optim import sim3
-    from stella_vslam_tpu_torch.ops.solve import pnp, ransac
+    from stella_vslam_tpu_torch.ops.solve import essential_5pt, pnp, ransac
 
     return {"resize_level": ox.resize_level, "fast_nms": ox.fast_nms,
             "orb_describe": ox.orb_describe, "orb_describe_strips": ox.orb_describe_strips,
             "stereo_match": stereo.stereo_match,
             "hamming_top2": H.hamming_top2, "pose_lm": pose_mod.optimize_pose,
             "ransac_two_view": ransac.minimal_hypotheses,
+            "essential_5pt": essential_5pt.solve_sampled_sets,
             "ba_linearize_schur": ba.ba_linearize_schur,
             "ba_reduced_solve": ba.ba_reduced_solve,
             "ba_backsub_cost": ba.ba_backsub_cost, "ba_classify": ba.ba_classify,

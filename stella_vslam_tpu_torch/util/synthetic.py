@@ -1,13 +1,17 @@
-"""Synthetic plane world rendered with numpy only (no cv2).
+"""Synthetic worlds rendered with numpy only (no cv2).
 
-Counterpart of stella_vslam_tpu/util/synthetic.py PlaneWorld, for machines
-without cv2: the same seeded rectangle texture, a 3x3 sigma=0.8 Gaussian
-blur (reflect-101 border, as cv2.GaussianBlur), and the exact plane
-homography applied by an inverse bilinear warp (zero outside the texture).
-cv2.warpPerspective interpolates with 1/32-pixel fixed-point weights, so the
-images are close to the JAX package's, not bit-identical. Exposure drift and
-pose-seeded pixel noise follow the JAX version. Floating panels are not
-ported.
+Counterparts of stella_vslam_tpu/util/synthetic.py, for machines without
+cv2. PlaneWorld: the same seeded rectangle texture, a 3x3 sigma=0.8
+Gaussian blur (reflect-101 border, as cv2.GaussianBlur), and the exact
+plane homography applied by an inverse bilinear warp (zero outside the
+texture). cv2.warpPerspective interpolates with 1/32-pixel fixed-point
+weights, so the images are close to the JAX package's, not bit-identical.
+Exposure drift and pose-seeded pixel noise follow the JAX version. Floating
+panels are not ported. BoxWorld (the equirectangular camera's textured box
+room, ray-cast per pixel): the same textures from the same rng calls in the
+same order, blurred as cv2 blurs a float32 image (bit for bit), and the JAX
+version's renderer, which is numpy already: the images equal the JAX
+package's byte for byte.
 """
 from __future__ import annotations
 
@@ -22,6 +26,22 @@ def _gauss3(img: np.ndarray, sigma: float = 0.8) -> np.ndarray:
     p = np.pad(img, 1, mode="reflect")  # reflect-101 == cv2's default
     rows = k[0] * p[:-2] + k[1] * p[1:-1] + k[2] * p[2:]
     return k[0] * rows[:, :-2] + k[1] * rows[:, 1:-1] + k[2] * rows[:, 2:]
+
+
+def _gauss3_f32(img: np.ndarray, sigma: float = 0.8) -> np.ndarray:
+    """cv2.GaussianBlur(img, (3, 3), sigma) of a float32 image, bit for bit:
+    the horizontal pass centre-first, fma(k_c, b, k_s * (a + c)), then the
+    vertical pass side-first, fma(k_s, a + c, k_c * b), each fma evaluated
+    exactly in float64 (a float32 product is exact there) and rounded once."""
+    k = np.exp(-0.5 * (np.arange(-1, 2) / sigma) ** 2)
+    k = (k / k.sum()).astype(np.float32)
+    ks, kc = np.float64(k[0]), np.float64(k[1])
+    f32 = np.float32
+    p = np.pad(img, 1, mode="reflect")
+    side = (p[:, :-2] + p[:, 2:]).astype(f32)
+    rows = (kc * p[:, 1:-1] + (f32(ks) * side).astype(f32)).astype(f32)
+    side = (rows[:-2] + rows[2:]).astype(f32)
+    return (ks * side + (f32(kc) * rows[1:-1]).astype(f32)).astype(f32)
 
 
 class PlaneWorld:
@@ -93,6 +113,97 @@ class PlaneWorld:
             nrng = np.random.default_rng(zlib.crc32(np.round(pose_cw, 6).tobytes()))
             img += nrng.normal(0.0, self.noise_sigma, img.shape).astype(np.float32)
         return np.clip(img, 0, 255).astype(np.uint8)
+
+
+class BoxWorld:
+    """Textured axis-aligned box room rendered for an equirectangular camera
+    by exact per-pixel ray casting (parallax-correct ground truth for 360
+    SLAM)."""
+
+    def __init__(self, width=640, height=320, half=4.0, tex_size=1024, seed=5):
+        self.W, self.H = width, height
+        self.half = half
+        rng = np.random.default_rng(seed)
+        self.textures = []
+        for _ in range(6):
+            tex = np.zeros((tex_size, tex_size), np.float32)
+            for _k in range(2500):
+                x, y = rng.integers(0, tex_size, 2)
+                w, h = rng.integers(4, 40, 2)
+                # filled rectangle with inclusive corners, clipped to the image
+                tex[y:y + h + 1, x:x + w + 1] = float(rng.uniform(20, 235))
+            self.textures.append(_gauss3_f32(tex))
+        self.tex_size = tex_size
+        # pixel-centre bearings in the camera frame (the equirectangular
+        # convention of camera.base.bearings_from_undistorted)
+        u = np.arange(width, dtype=np.float64)
+        v = np.arange(height, dtype=np.float64)
+        lon = (u - width / 2.0) * (2.0 * np.pi) / width
+        lat = -(v - height / 2.0) * np.pi / height
+        lon, lat = np.meshgrid(lon, lat)
+        self._bearings = np.stack(
+            [np.cos(lat) * np.sin(lon), -np.sin(lat), np.cos(lat) * np.cos(lon)], axis=-1)
+
+    def camera_yaml(self):
+        return {"name": "synthetic-360", "setup": "monocular", "model": "equirectangular",
+                "fps": 20.0, "cols": self.W, "rows": self.H, "color_order": "Gray"}
+
+    def render(self, pose_cw: np.ndarray) -> np.ndarray:
+        """Render the u8 image for camera-from-world pose (4x4); the camera
+        centre must stay inside the box."""
+        R, t = pose_cw[:3, :3], pose_cw[:3, 3]
+        c = -R.T @ t
+        d = self._bearings @ R  # world-frame ray directions [H,W,3]
+        h = self.half
+        # exit distance through the box from an interior point
+        with np.errstate(divide="ignore", invalid="ignore"):
+            d_safe = np.where(np.abs(d) < 1e-12, 1e-12, d)
+            t_axis = np.where(d > 0, (h - c) / d_safe, (-h - c) / d_safe)
+            t_axis = np.where(np.abs(d) < 1e-12, np.inf, t_axis)
+        face_axis = np.argmin(t_axis, axis=-1)
+        t_exit = np.take_along_axis(t_axis, face_axis[..., None], axis=-1)[..., 0]
+        p = c + d * t_exit[..., None]  # hit points
+        sign_pos = np.take_along_axis(d, face_axis[..., None], axis=-1)[..., 0] > 0
+        img = np.zeros((self.H, self.W), np.float32)
+        uv_axes = {0: (1, 2), 1: (0, 2), 2: (0, 1)}
+        for axis in range(3):
+            for pos in (False, True):
+                m = (face_axis == axis) & (sign_pos == pos)
+                if not m.any():
+                    continue
+                a, b = uv_axes[axis]
+                tu = (p[m, a] + h) / (2 * h) * (self.tex_size - 1)
+                tv = (p[m, b] + h) / (2 * h) * (self.tex_size - 1)
+                tex = self.textures[axis * 2 + int(pos)]
+                # bilinear sample
+                x0 = np.clip(tu.astype(np.int64), 0, self.tex_size - 2)
+                y0 = np.clip(tv.astype(np.int64), 0, self.tex_size - 2)
+                fx_ = tu - x0
+                fy_ = tv - y0
+                img[m] = (tex[y0, x0] * (1 - fx_) * (1 - fy_)
+                          + tex[y0, x0 + 1] * fx_ * (1 - fy_)
+                          + tex[y0 + 1, x0] * (1 - fx_) * fy_
+                          + tex[y0 + 1, x0 + 1] * fx_ * fy_)
+        return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def equirect_circle(n: int = 250, radius: float = 1.8, yaw_rate: float = 0.01):
+    """bench.py's equirectangular circuit (bench.py:141-150): n
+    camera-from-world poses on a circle of `radius` m in the horizontal
+    plane, yawing `yaw_rate` rad a frame; returns (poses [n,4,4], centres
+    [n,3])."""
+    poses, centres = [], []
+    for i in range(n):
+        ang = 2 * np.pi * i / n
+        center = np.array([radius * np.sin(ang), 0.0, radius * np.cos(ang)])
+        yaw = yaw_rate * i
+        c, s = np.cos(yaw), np.sin(yaw)
+        T = np.eye(4)
+        T[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        T[:3, 3] = T[:3, :3] @ -center
+        poses.append(T)
+        centres.append(center)
+    return np.stack(poses), np.stack(centres)
 
 
 def _se3_exp_f32(xi: np.ndarray):

@@ -188,10 +188,15 @@ def test_solve_spd_blocked_matches_dense():
         np.testing.assert_allclose(x, np.linalg.solve(S, b), rtol=1e-9, atol=1e-12)
 
 
-def test_equirectangular_raises():
+def test_bundle_adjust_model_dispatch():
+    """bundle_adjust runs the equirectangular model (its parity with JAX is
+    tests/test_torch_equirect_optim.py) and raises for a model still to
+    port, naming ROADMAP item 14."""
     p = make_problem(K=2, L=8, D=2)
     prob = tba.BAProblem(**{k: torch.from_numpy(np.ascontiguousarray(
         v.astype(np.float32) if v.dtype == np.float64 else v)) for k, v in p.items()})
+    cam = CamScalars(FX, FX, CX, CY, 400.0, 300.0, FXB)
+    res = tba.bundle_adjust(prob, cam, model="equirectangular", num_first=1, num_second=1)
+    assert torch.isfinite(res.cam_R).all() and torch.isfinite(res.lm_pos).all()
     with pytest.raises(NotImplementedError, match="item 14"):
-        tba.bundle_adjust(prob, CamScalars(FX, FX, CX, CY, 400.0, 300.0, FXB),
-                          model="equirectangular")
+        tba.bundle_adjust(prob, cam, model="fisheye")

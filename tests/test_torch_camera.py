@@ -3,7 +3,9 @@ package, on identical inputs from a numpy seed (EuRoC-like radial-
 tangential distortion). Measured (CPU): undistorted keypoints, bearings
 and reprojections bit-identical (max |diff| 0). Bounds: 1e-4 px for pixel
 outputs and 1e-5 otherwise (f32 rounding of another summation order is
-allowed). Models the port does not have raise.
+allowed). The equirectangular camera builds centred (its functions'
+parity is tests/test_torch_equirect_camera.py); models the port does not
+have raise.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -64,8 +66,21 @@ def test_se3_helpers_match_jax():
     np.testing.assert_allclose(dt.numpy(), np.asarray(jt), atol=1e-5)
 
 
-@pytest.mark.parametrize("model", ["fisheye", "equirectangular", "radial_division"])
+@pytest.mark.parametrize("model", ["fisheye", "radial_division"])
 def test_unported_models_raise(model):
     node = {"model": model, "setup": "monocular", "cols": 640, "rows": 480}
     with pytest.raises(NotImplementedError, match="item 14"):
         tcam.camera_from_yaml(node)
+
+
+def test_equirect_camera_builds():
+    """The equirectangular camera builds, centred on the image by default
+    as the JAX version's (camera/base.py:407-410), and matches JAX's."""
+    node = {"model": "equirectangular", "setup": "monocular", "cols": 640, "rows": 320}
+    cam = tcam.camera_from_yaml(node)
+    jc = jcam.camera_from_yaml(node)
+    assert cam.model == tcam.CameraModel.EQUIRECTANGULAR
+    assert (cam.params.cx, cam.params.cy) == (320.0, 160.0)
+    assert (cam.params.cx, cam.params.cy) == (float(jc.params.cx), float(jc.params.cy))
+    explicit = tcam.camera_from_yaml(dict(node, cx=300.0, cy=150.0))
+    assert (explicit.params.cx, explicit.params.cy) == (300.0, 150.0)

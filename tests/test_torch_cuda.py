@@ -277,11 +277,12 @@ def test_ba_kernels_match_plain_at_local_shape(dev):
     assert torch.equal(rk.obs_is_outlier, rp.obs_is_outlier)
 
 
-def _mapping_scene(dev, B=3, N1=300, N2=517, P=600, seed=0):
+def _mapping_scene(dev, B=3, N1=300, N2=517, P=600, seed=0, model="perspective"):
     """A new keyframe (row 0) and B neighbours 0.1 m apart facing points
     3.5-4.5 m away: N1 / N2 keypoints per view, each a view of one of P
     points (bearing noise 1e-4, 0-2 flipped descriptor bits, angle within 5
-    degrees, the point's octave 0-3); 90% unassociated, 10% stereo. Returns
+    degrees, the point's octave 0-3); 90% unassociated, 10% stereo; with
+    `model` "equirectangular", a 640x320 360 camera. Returns
     (MappingKernels, cur, nbrs, poses [B+1,12], the points, their
     descriptors and octaves)."""
     from stella_vslam_tpu_torch.camera.base import camera_from_yaml
@@ -289,11 +290,13 @@ def _mapping_scene(dev, B=3, N1=300, N2=517, P=600, seed=0):
     from stella_vslam_tpu_torch.module.mapping_kernels import MappingKernels, TriKeyframe
 
     rng = np.random.default_rng(seed)
+    equirect = model == "equirectangular"
     cam = camera_from_yaml({
         "name": "test", "setup": "monocular", "model": "perspective", "fx": 458.0,
         "fy": 458.0, "cx": 376.0, "cy": 240.0, "k1": 0.0, "k2": 0.0, "p1": 0.0,
         "p2": 0.0, "k3": 0.0, "fps": 20.0, "cols": 752, "rows": 480,
-        "color_order": "Gray"})
+        "color_order": "Gray"} if not equirect else {
+        "name": "test", "setup": "monocular", "model": model, "cols": EQ_W, "rows": EQ_H})
     X = np.stack([rng.uniform(-1.5, 1.5, P), rng.uniform(-1.0, 1.0, P),
                   rng.uniform(3.5, 4.5, P)], -1)
     desc = rng.integers(0, 2 ** 32, (P, 8), dtype=np.uint64).astype(np.uint32)
@@ -311,8 +314,13 @@ def _mapping_scene(dev, B=3, N1=300, N2=517, P=600, seed=0):
         xc = X[ids] @ R.T + t
         bear = xc / np.linalg.norm(xc, axis=1, keepdims=True) + rng.normal(0, 1e-4, (n, 3))
         bear /= np.linalg.norm(bear, axis=1, keepdims=True)
-        uv = np.stack([458.0 * xc[:, 0] / xc[:, 2] + 376.0, 458.0 * xc[:, 1] / xc[:, 2] + 240.0],
-                      -1) + rng.normal(0, 0.5, (n, 2))
+        if equirect:
+            uv = np.stack([EQ_W / 2 + np.arctan2(xc[:, 0], xc[:, 2]) * EQ_W / (2 * np.pi),
+                           EQ_H / 2 + np.arcsin(xc[:, 1] / np.linalg.norm(xc, axis=1))
+                           * EQ_H / np.pi], -1) + rng.normal(0, 0.5, (n, 2))
+        else:
+            uv = np.stack([458.0 * xc[:, 0] / xc[:, 2] + 376.0,
+                           458.0 * xc[:, 1] / xc[:, 2] + 240.0], -1) + rng.normal(0, 0.5, (n, 2))
         d = desc[ids].copy()
         for _ in range(2):
             d[np.arange(n), rng.integers(0, 8, n)] ^= (
@@ -370,6 +378,31 @@ def test_epipolar_top2_and_triangulate_kernels_match_plain(dev):
     assert float(rel[both].max()) < 1e-4
 
 
+def test_triangulate_kernel_equirect_matches_plain(dev):
+    """Kernel K's equirectangular mode on J's matches of a 360 scene: ok
+    flags differing <= 1e-3, positions within 1e-4 relative where both are
+    ok, a padding neighbour masked."""
+    from stella_vslam_tpu_torch.match import robust
+    from stella_vslam_tpu_torch.module import mapping_kernels as mkm
+
+    mk, cur, nbrs, poses, _, _, _ = _mapping_scene(dev, model="equirectangular")
+    E_12, epl2 = mkm.epipolar_terms(poses)
+    idx2, accepted, _ = robust.match_for_triangulation(
+        cur.angle, cur.level, cur.desc, cur.bear, cur.unassoc, cur.stereo, nbrs.angle,
+        nbrs.desc, nbrs.bear, nbrs.unassoc, nbrs.stereo, E_12, epl2,
+        scale_factors=mk.scale_factors)
+    pair_valid = torch.tensor([True, True, False], device=dev)
+    kargs = (cur.uv, cur.level, cur.bear, nbrs.uv, nbrs.level, nbrs.bear, poses,
+             idx2.contiguous(), accepted, pair_valid, mk.cam, mk.level_sigma_sq,
+             mk.scale_factors, mk.camera.model)
+    rk, rp = mkm.triangulate_checks(*kargs), mkm.triangulate_checks_plain(*kargs)
+    assert int(rp.ok.sum()) > 100 and not bool(rk.ok[2].any())
+    assert float((rk.ok != rp.ok).float().mean()) <= 1e-3
+    both = rk.ok & rp.ok
+    rel = torch.linalg.norm(rk.pos_w - rp.pos_w, dim=-1) / torch.linalg.norm(rp.pos_w, dim=-1)
+    assert float(rel[both].max()) < 1e-4
+
+
 def test_fuse_kernel_matches_plain(dev):
     """Kernel L against its plain version: B keyframes (one padding) x M
     landmarks (the scene's points with their ranges and normals, a tail of
@@ -397,6 +430,32 @@ def test_fuse_kernel_matches_plain(dev):
     before = mkm.fuse_scan.launches
     k, p = mkm.fuse_scan(*args), mkm.fuse_scan_plain(*args)
     assert mkm.fuse_scan.launches == before + 1
+    acc_k, acc_p = mkm.accept_fused(*k, N), mkm.accept_fused(*p, N)
+    assert int(acc_p.sum()) > 100 and not bool(acc_k[B - 1].any())
+    assert float((acc_k != acc_p).float().mean()) <= 1e-3
+
+
+def test_fuse_kernel_equirect_matches_plain(dev):
+    """Kernel L's equirectangular mode on a 360 scene (its depth in the
+    gates the norm): accepted flags differing <= 1e-3."""
+    from stella_vslam_tpu_torch.module import mapping_kernels as mkm
+
+    mk, _, nbrs, poses, X, desc, level = _mapping_scene(dev, seed=1, model="equirectangular")
+    B, N = nbrs.uv.shape[0], nbrs.uv.shape[1]
+    P = len(X)
+    dist = np.linalg.norm(X, axis=1)
+    lm_f = np.zeros((P, 8), np.float32)
+    lm_f[:, :3] = X
+    lm_f[:, 4] = dist * 1.2 ** level
+    lm_f[:, 3] = lm_f[:, 4] / 1.2 ** 3
+    lm_f[:, 5:] = X / dist[:, None]
+    kfs = mkm.FuseKeyframes(nbrs.uv, nbrs.level, nbrs.desc, nbrs.unassoc,
+                            torch.full_like(nbrs.uv[..., 0], -1.0))
+    t = lambda a: torch.as_tensor(a, device=dev)
+    args = (kfs, poses[1:].contiguous(), t(np.arange(B) < B - 1), t(lm_f),
+            t(desc.view(np.int32)), t(np.ones(P, bool)), mk.cam, mk.scale_factors,
+            mk.level_sigma_sq, mk.log_scale, 3.0, mk.camera.model)
+    k, p = mkm.fuse_scan(*args), mkm.fuse_scan_plain(*args)
     acc_k, acc_p = mkm.accept_fused(*k, N), mkm.accept_fused(*p, N)
     assert int(acc_p.sum()) > 100 and not bool(acc_k[B - 1].any())
     assert float((acc_k != acc_p).float().mean()) <= 1e-3
@@ -632,6 +691,35 @@ def test_resize_level_kernel_matches_matmul_pyramid(dev):
             assert float((s - p).abs().max()) <= 1e-4, lvl
 
 
+def test_extractor_kernels_at_equirect_shape(dev):
+    """Kernels S, A and B at the equirectangular leg's shape (640x320, 6
+    levels, min_size 800: 1199 slots on a grid unlike 752x480's), on a
+    frame of its box room, as the tests above hold them."""
+    from stella_vslam_tpu_torch.util.synthetic import BoxWorld, equirect_circle
+
+    params = OrbParams(num_levels=6)
+    ex = ox.OrbExtractor(params, 640, 320, min_area=800, device=dev)
+    assert ex.num_slots == 1199
+    world = BoxWorld(width=640, height=320, half=4.0)
+    img = torch.from_numpy(world.render(equirect_circle(3)[0][1])).to(dev)
+    levels, plain = ex.pyramid(img), ex.pyramid_plain(img)
+    for a, p in zip(levels, plain):
+        assert float((a - p).abs().max()) <= 1e-4
+    thr = (float(params.ini_fast_thr), float(params.min_fast_thr))
+    keys = [ox.fast_nms(l.contiguous(), g, ex.border, *thr) for l, g in zip(levels, ex.levels)]
+    for k, l, g in zip(keys, levels, ex.levels):
+        assert torch.equal(k, ox.fast_nms_plain(l, g, ex.border, *thr))
+    pts = [ex.cell_keypoints(k, g) for k, g in zip(keys, ex.levels)]
+    px, py, valid, _ = (torch.cat(c) for c in zip(*pts))
+    args = (torch.cat([l.reshape(-1) for l in levels]), ex._slot_base, ex._slot_H,
+            ex._slot_W, px.to(torch.int32), py.to(torch.int32), valid, ex._tables)
+    ak, dk = ox.orb_describe(*args)
+    ap, dp = ox.orb_describe_plain(*args)
+    assert float((ak - ap).abs().max()) < 1e-5
+    x = (dk ^ dp)[valid].cpu().numpy()
+    assert np.unpackbits(x.view(np.uint8)).sum() <= 5e-5 * x.size * 32
+
+
 def test_fast_nms_kernel_batch_matches_plain(dev, frame):
     ex, levels = frame
     for img, g in zip(levels, ex.levels):
@@ -700,3 +788,200 @@ def test_stereo_match_kernel_matches_plain(dev, NL, NR):
     assert torch.equal(dk > 0, m)
     torch.testing.assert_close(xk[m], xp[m], rtol=1e-5, atol=0)
     torch.testing.assert_close(dk[m], dp[m], rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the equirectangular modes (640x320), E's MODEL 2 and kernel U
+# ---------------------------------------------------------------------------
+
+EQ_W, EQ_H = 640, 320
+
+
+def _equirect_cam():
+    from stella_vslam_tpu_torch.camera import base as cb
+
+    return cb.make_params(cx=EQ_W / 2, cy=EQ_H / 2, width=EQ_W, height=EQ_H)
+
+
+def _equirect_points(dev, n, seed):
+    """n points all around a camera (0.5-5.5 m), and a pose."""
+    g = torch.Generator().manual_seed(seed)
+    R = torch.linalg.qr(torch.eye(3) + 0.3 * torch.randn(3, 3, generator=g))[0]
+    R = R * torch.sign(torch.det(R))
+    pos = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1) \
+        * (torch.rand(n, 1, generator=g) * 5.0 + 0.5)
+    return R.to(dev), torch.tensor([0.3, -0.1, 0.2], device=dev), pos.to(dev), g
+
+
+@pytest.mark.parametrize("M", [1, 333, 4096])
+def test_reproject_gate_equirect_kernel_matches_plain(dev, M):
+    """Kernel R's equirectangular mode: u within 1e-5 of the width (either
+    edge at the seam), v within 1e-5 of the height, depth (the norm) within
+    1e-6 relative, the flags equal."""
+    from stella_vslam_tpu_torch.camera import base as cb
+
+    p = _equirect_cam()
+    R, t, pos, g = _equirect_points(dev, M, M)
+    normal = torch.nn.functional.normalize(torch.randn(M, 3, generator=g), dim=1).to(dev)
+    d = torch.linalg.norm(pos, dim=1, keepdim=True)
+    tbl = torch.cat([pos, normal, 0.5 * d, 2.0 * d], 1).contiguous()
+    tu = torch.ones(M, 10, dtype=torch.int32, device=dev)
+    EQ = cb.CameraModel.EQUIRECTANGULAR
+    for a, kw in (((pos.contiguous(),), {}),
+                  ((tbl, tu), dict(log_scale=float(np.log(np.float32(1.2))), num_levels=6))):
+        k = cb.reproject_gate(p, R, t, *a, model=EQ, **kw)
+        q = cb.reproject_gate_plain(p, R, t, *a, model=EQ, **kw)
+        du = (k[0][:, 0] - q[0][:, 0]).abs()
+        assert float(torch.minimum(du, (du - EQ_W).abs()).max()) <= 1e-5 * EQ_W
+        assert float((k[0][:, 1] - q[0][:, 1]).abs().max()) <= 1e-5 * EQ_H
+        assert float(((k[1] - q[1]).abs() / q[1]).max()) <= 1e-6
+        assert torch.equal(k[2], q[2])
+
+
+@pytest.mark.parametrize("N", [37, 1199])
+def test_pose_lm_equirect_kernel_matches_plain(dev, N):
+    """Kernel D's equirectangular residual: pose within 1e-4, inlier flags
+    equal, observations across the longitude seam included."""
+    from stella_vslam_tpu_torch.ops.optim.residuals import CamScalars
+
+    R, t, pos, g = _equirect_points(dev, N, 7 + N)
+    Xc = pos @ R.T + t
+    lon, lat = torch.atan2(Xc[:, 0], Xc[:, 2]), torch.asin(Xc[:, 1] / Xc.norm(dim=1))
+    uv = torch.stack([EQ_W / 2 + lon * EQ_W / (2 * np.pi), EQ_H / 2 + lat * EQ_H / np.pi], -1)
+    uv = torch.remainder(uv + torch.randn(N, 2, generator=g).to(dev) * 0.5,
+                         torch.tensor([EQ_W, 1e9], device=dev)).contiguous()
+    R0 = (R @ torch.linalg.matrix_exp(torch.tensor(
+        [[0, -0.01, 0.005], [0.01, 0, -0.008], [-0.005, 0.008, 0]], device=dev))).contiguous()
+    args = (R0, t + 0.02, pos.contiguous(), uv, torch.full((N,), -1.0, device=dev),
+            torch.ones(N, device=dev), torch.rand(N, generator=g).to(dev) < 0.95)
+    cam = CamScalars(0.0, 0.0, EQ_W / 2, EQ_H / 2, float(EQ_W), float(EQ_H), 0.0)
+    k = pose_mod.optimize_pose(*args, cam, model="equirectangular")
+    q = pose_mod.optimize_pose_plain(*args, cam, model="equirectangular")
+    assert float((k.R_cw - q.R_cw).abs().max()) < 1e-4
+    assert float((k.t_cw - q.t_cw).abs().max()) < 1e-4
+    assert torch.equal(k.is_inlier, q.is_inlier)
+
+
+def test_ba_kernels_equirect_match_plain(dev):
+    """Kernels F, H, I in their equirectangular mode against the plain BA on
+    cameras in a box room: poses within 1e-4, outlier flags identical, and
+    each point seen twice within 1e-3 or, where larger, 1e-4 rad of its ray
+    sensitivity (depth^2 / baseline, chip_smoke.py's allowance: the walls
+    stand 4 m from cameras 0.4 m apart, so a point moves ~40 mm along its
+    rays per radian of pose; measured on the card 3.6e-3 m at worst)."""
+    from stella_vslam_tpu_torch.ops.optim import ba
+    from stella_vslam_tpu_torch.ops.optim.residuals import CamScalars
+
+    rng = np.random.default_rng(3)
+    K, L, D = 6, 700, 4
+    yaw = [0.3 * k for k in range(K)]
+    Rk = np.stack([[[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+                   for a in yaw])
+    Ck = np.stack([[0.4 * np.cos(k), 0.05 * k, 0.4 * np.sin(k)] for k in range(K)])
+    tk = -np.einsum("kij,kj->ki", Rk, Ck)
+    X = rng.uniform(-4, 4, (L, 3))
+    X[np.arange(L), rng.integers(0, 3, L)] = rng.choice([-4.0, 4.0], L)
+    oc = np.stack([rng.permutation(K)[:D] for _ in range(L)]).astype(np.int32)
+    Xc = np.einsum("ldij,lj->ldi", Rk[oc], X) + tk[oc]
+    lon = np.arctan2(Xc[..., 0], Xc[..., 2])
+    lat = np.arcsin(Xc[..., 1] / np.linalg.norm(Xc, axis=-1))
+    uv = np.stack([EQ_W / 2 + lon * EQ_W / (2 * np.pi), EQ_H / 2 + lat * EQ_H / np.pi], -1)
+    uv += rng.normal(0, 0.5, uv.shape)
+    uv[rng.random((L, D)) < 0.05] += 25.0
+    uv[..., 0] = np.mod(uv[..., 0], EQ_W)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    b = lambda a: torch.as_tensor(np.asarray(a, bool), device=dev)
+    prob = ba.BAProblem(
+        cam_R=f(Rk), cam_t=f(tk + np.concatenate([[[0, 0, 0]], rng.normal(0, 0.005, (K - 1, 3))])),
+        cam_fixed=b(np.arange(K) < 2), cam_valid=b(np.ones(K)),
+        lm_pos=f(X + rng.normal(0, 0.01, X.shape)), lm_valid=b(np.ones(L)),
+        obs_cam=torch.as_tensor(oc, device=dev), obs_uv=f(uv), obs_x_right=f(-np.ones((L, D))),
+        obs_inv_sigma_sq=f(np.ones((L, D))), obs_valid=b(rng.random((L, D)) < 0.95))
+    cam = CamScalars(0.0, 0.0, EQ_W / 2, EQ_H / 2, float(EQ_W), float(EQ_H), 0.0)
+    rk = ba.bundle_adjust(prob, cam, model="equirectangular")
+    rp = ba.bundle_adjust_plain(prob, cam, model="equirectangular")
+    torch.cuda.synchronize()
+    assert float((rk.cam_R - rp.cam_R).abs().max()) < 1e-4
+    assert float((rk.cam_t - rp.cam_t).abs().max()) < 1e-4
+    seen = prob.obs_valid & ~rp.obs_is_outlier
+    twice = seen.sum(1) >= 2
+    C = -(rp.cam_R.transpose(1, 2) @ rp.cam_t[..., None])[..., 0]
+    Co = C[prob.obs_cam.long()]
+    pair = seen[:, :, None] & seen[:, None, :]
+    base = torch.where(pair, torch.linalg.norm(Co[:, :, None] - Co[:, None], dim=-1),
+                       torch.zeros((), device=dev)).amax((1, 2))
+    depth = torch.where(seen, torch.linalg.norm(rp.lm_pos[:, None] - Co, dim=-1),
+                        torch.full((), float("inf"), device=dev)).amin(1)
+    allow = torch.clamp(1e-4 * depth * depth / base, min=1e-3)
+    assert bool(((rk.lm_pos - rp.lm_pos).abs().amax(-1) <= allow)[twice].all())
+    assert torch.equal(rk.obs_is_outlier, rp.obs_is_outlier)
+
+
+def _bearing_matches(dev, n, seed, outliers=0.3):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 3))
+    X *= rng.uniform(2, 6, (n, 1)) / np.linalg.norm(X, axis=1, keepdims=True)
+    b1 = X / np.linalg.norm(X, axis=1, keepdims=True)
+    X2 = X + np.array([0.3, 0.02, 0.1])
+    b2 = X2 / np.linalg.norm(X2, axis=1, keepdims=True) + rng.normal(0, 2e-3, (n, 3))
+    out = rng.random(n) < outliers
+    b2[out] = rng.normal(size=(int(out.sum()), 3))
+    b2 /= np.linalg.norm(b2, axis=1, keepdims=True)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev).contiguous()
+    return f(b1), f(b2), torch.as_tensor(rng.random(n) < 0.95, device=dev)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_ransac_essential_kernel_matches_plain(dev, seed):
+    """Kernel E's MODEL 2: hypothesis by hypothesis the plain model (the
+    sampler is the one kernel U shares, held bit for bit there; a set drawn
+    differently would give an unrelated model), most with the plain inlier
+    count, the same winner (count and mask) with one LO refit and through
+    the escalated 8-chunk sweep."""
+    from stella_vslam_tpu_torch.ops.solve import essential as Em
+    from stella_vslam_tpu_torch.ops.solve import ransac as R
+
+    b1, b2, v = _bearing_matches(dev, 733, seed)
+    mk, _, nk = R.minimal_hypotheses(Em.MODEL, 55 + seed, b1, b2, v, 300)
+    mp, _, np_ = R.minimal_hypotheses_plain(Em.MODEL, 55 + seed, b1, b2, v, 300, 1.0)
+    d = torch.minimum((mk - mp).abs().amax((1, 2)), (mk + mp).abs().amax((1, 2)))
+    assert float((d <= 1e-3).float().mean()) >= 0.85
+    assert float((nk == np_).float().mean()) >= 0.85
+    rk = Em.find_via_ransac(9 + seed, b1, b2, v, num_hypotheses=1024)
+    rp = R.find_core_plain(Em.MODEL, 9 + seed, b1, b2, v, 1024, 1.0, 1)
+    assert bool(rk.valid) and int(rk.num_inliers) == int(rp.num_inliers)
+    assert torch.equal(rk.is_inlier, rp.is_inlier)
+    seeds = [seed * 100 + i for i in range(8)]
+    ek = Em.find_via_ransac_escalated(seeds, b1, b2, v)
+    ep = R.escalate(lambda s: R.find_core_plain(Em.MODEL, s, b1, b2, v, 4096, 1.0, 3), seeds)
+    assert bool(ek.valid) and abs(int(ek.num_inliers) - int(ep.num_inliers)) \
+        <= 0.01 * int(ep.num_inliers)
+
+
+def test_essential_5pt_kernel_matches_plain(dev):
+    """Kernel U against its plain version on 1024 sets: indices equal, valid
+    flags equal on >= 98% of the slots, candidates as sets at the float32
+    floor tests/test_torch_essential.py states (>= 30% within 1e-4, 70%
+    within 1e-3, 88% within 1e-2, up to sign, each way), and as many
+    candidates satisfying their own five epipolar constraints (< 5e-4)."""
+    from stella_vslam_tpu_torch.ops.solve import essential_5pt as U
+
+    b1, b2, v = _bearing_matches(dev, 733, 5)
+    ik, Ek, vk = U.solve_sampled_sets(21, b1, b2, v, 1024)
+    ip, Ep, vp = U.solve_sampled_sets_plain(21, b1, b2, v, 1024)
+    assert torch.equal(ik, ip)
+    assert float((vk == vp).float().mean()) >= 0.98
+
+    def shares(Ea, va, Eb, vb):
+        Ea, Eb = Ea.flatten(2), Eb.flatten(2)
+        d = torch.minimum((Ea[:, :, None] - Eb[:, None]).abs().amax(-1),
+                          (Ea[:, :, None] + Eb[:, None]).abs().amax(-1))
+        d = torch.where(vb[:, None, :], d, torch.full_like(d, float("inf"))).amin(-1)[va]
+        return [float((d <= t).float().mean()) for t in (1e-4, 1e-3, 1e-2)]
+
+    for s in (shares(Ek, vk, Ep, vp), shares(Ep, vp, Ek, vk)):
+        assert s[0] >= 0.30 and s[1] >= 0.70 and s[2] >= 0.88, s
+    s1, s2 = b1[ik], b2[ik]
+    tight = lambda E, ok: float((torch.einsum("bni,brij,bnj->brn", s2, E, s1).abs().amax(-1)
+                                 < 5e-4)[ok].float().mean())
+    assert tight(Ek, vk) >= tight(Ep, vp) - 0.02

@@ -40,7 +40,7 @@ def jax_seed_source(seed: int = 42):
     def draw():
         key[0], k1, k2, k3, k4 = jax.random.split(key[0], 5)
         return InitSeeds(s(k1), s(k2), tuple(s(k) for k in jax.random.split(k3, 8)),
-                         tuple(s(k) for k in jax.random.split(k4, 8)))
+                         tuple(s(k) for k in jax.random.split(k4, 8)), s(k4))
     return draw
 
 
