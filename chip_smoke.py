@@ -162,12 +162,37 @@ Phases, each fatal on failure (nothing is caught):
      plain's and no more than U_FLOOR_ROOM below plain on the CPU, a
      control with its bisection cut short caught by the limits; as many
      candidates satisfying their own epipolar constraints as plain's).
+ 19. the fisheye, radial-division and masked fisheye legs
+     (util/distorted_slice.py): the mono slice's first 120 frames (752x480,
+     8 levels, 2872 slots) through the default threaded System with
+     mapping, rendered through each camera (the third with a 400 px
+     vignette mask): initialized by frame 10, at most 2 frames lost after
+     init, Sim3 ATE < 0.10 m, a clean shutdown, kernel R in the leg's own
+     mode once a frame and in no other, kernel A with the mask on every
+     launch of the masked leg (whose init frame and ATE are an open fault,
+     printed when they miss their gates: distorted_slice.OPEN_GATES); then
+     R's Kannala-Brandt and division modes against their plain versions
+     bit for bit on every keypoint of the legs and on 2872 random keypoints
+     over the image, and A with a mask against plain, exactly, on every
+     level of a leg frame (the half-image mask of
+     tests/test_orb_extractor.py, a seeded random mask, the vignette), each
+     mask keeping fewer cells' corners than no mask;
+ 20. the FBoW leg (util/fbow_slice.py): the threaded circuit with the
+     fixture vocabulary tests/data/reference_layout_vocab.fbow: no worker
+     exception, at most 8 frames lost after init, kernel V once per
+     keyframe event and kernel M never, the loops it closed reported (with
+     one, Sim3 ATE < 0.10 m); then V against plain, exactly, on the fixture
+     tree with 2872 random descriptors and with every keyframe event's
+     descriptors, and on the complete tree the port's write_fbow writes
+     from the packaged vocabulary (equal to kernel M's words there too).
 Launch counts are set to 0 just before each slice and read just after it;
 the kernels line's `launches` is the count on the path of the slice that
 ported the kernel (the stereo leg for S, B's strip mode and T; the
 equirectangular leg for the equirectangular modes and E's MODEL 2, its
-escalation run for U; the threaded slice, which runs every earlier kernel,
-for the rest), with every slice's count beside it.
+escalation run for U; the fisheye leg for R's Kannala-Brandt mode and A's
+masked launches, the radial-division leg for R's division mode, the FBoW
+leg for V; the threaded slice, which runs every earlier kernel, for the
+rest), with every slice's count beside it.
 The line before the last is {"kernels": [...]}, the one before it
 "slices: {...}" with each slice's result in short; the last line is
 {"ok": true, "device": {...}}. Long logs go to chiprun_out/.
@@ -259,8 +284,9 @@ def check_kernels(dev, world):
     print(f"kernel A fast_nms: {n_kp}/{ex.num_slots} cells with a corner, "
           f"max |key diff| {err_a}")
     assert err_a == 0, "kernel A disagrees with its plain version"
-    n_px = sum(l.numel() for l in levels)
-    # per pixel: 16 ring differences, then the 9-arc min / max over 16 arcs
+    # per pixel of the border region (the pixels A scores): 16 ring
+    # differences, then the 9-arc min / max over 16 arcs
+    n_px = sum(max(g.H - 2 * ex.border, 0) * max(g.W - 2 * ex.border, 0) for g in ex.levels)
     rows.append(dict(
         name="fast_nms", route="cuda",
         source="stella_vslam_tpu_torch/csrc/fast_nms.cu",
@@ -1197,8 +1223,8 @@ def run_loop_slice(dev, world, wrappers, card):
     assert stats["loop_edges"], "no loop edge in the graph"
     assert all(stats["frame_after_loop_tracked"]), "the frame after a correction was lost"
     for name, n in launches.items():
-        assert n > 0 or name in THREADED_KERNELS + STEREO_KERNELS + EQUIRECT_KERNELS, \
-            f"{name} was not launched by the loop slice"
+        assert n > 0 or name in THREADED_KERNELS + STEREO_KERNELS + EQUIRECT_KERNELS \
+            + DISTORTED_KERNELS + FBOW_KERNELS, f"{name} was not launched by the loop slice"
     return stats, launches, slam, inputs, loop_calls
 
 
@@ -2081,8 +2107,8 @@ def run_threaded_slice(dev, world, wrappers, card):
     assert not st["staged_event"] and st["queued"] == 0 and not st["pending_ba"] \
         and st["loop_queue"] == 0, f"work left at shutdown: {st}"
     for name, n in launches.items():
-        assert n > 0 or name in STEREO_KERNELS + EQUIRECT_KERNELS, \
-            f"{name} was not launched by the threaded slice"
+        assert n > 0 or name in STEREO_KERNELS + EQUIRECT_KERNELS + DISTORTED_KERNELS \
+            + FBOW_KERNELS, f"{name} was not launched by the threaded slice"
     return stats, launches, slam, calls
 
 
@@ -2425,7 +2451,7 @@ def run_slices(dev, world, wrappers, card):
     assert mono["ate_m"] < 0.10, f"Sim3 ATE {mono['ate_m']:.4f} m"
     for name, n in launches["mono"].items():
         assert n > 0 or name in MAPPING_KERNELS + LOOP_KERNELS + THREADED_KERNELS \
-            + STEREO_KERNELS + EQUIRECT_KERNELS, \
+            + STEREO_KERNELS + EQUIRECT_KERNELS + DISTORTED_KERNELS + FBOW_KERNELS, \
             f"{name} was not launched by the mono slice"
     return stats, mono, launches
 
@@ -3088,6 +3114,311 @@ def check_equirect_kernels(dev, slam_like, calls):
     return rows
 
 
+# kernel R's Kannala-Brandt and division modes: the distorted legs' own
+DISTORTED_KERNELS = ("undistort_fisheye", "undistort_radial")
+# kernel V: the FBoW leg's own
+FBOW_KERNELS = ("fbow_transform",)
+# what every distorted leg launches (R's mode of its model besides)
+DISTORTED_LEG_KERNELS = ("resize_level", "fast_nms", "orb_describe", "hamming_top2", "pose_lm",
+                         "ransac_two_view", "scatter_to_current", "dedup_by_id",
+                         "reproject_gate", "epipolar_top2", "triangulate", "fuse",
+                         "ba_linearize_schur", "ba_reduced_solve", "ba_backsub_cost",
+                         "ba_classify", "bow_transform")
+# the rows whose launches are a distorted leg's (and its counter there)
+DISTORTED_ROWS = {"undistort_fisheye": ("fisheye", "undistort_fisheye"),
+                  "undistort_radial": ("radial_division", "undistort_radial"),
+                  "fast_nms_masked": ("fisheye_masked", "fast_nms_masked")}
+
+
+def record_frame_keypoints(slam):
+    """Keep, by reference, every monocular frame's raw keypoints (kernel R's
+    undistortion input) and the first frame's image as fed. Returns
+    (calls, undo)."""
+    calls = dict(xy=[], image=[])
+    create = slam.create_monocular_frame
+
+    def rec(img, timestamp, mask=None):
+        frm = create(img, timestamp, mask)
+        calls["xy"].append(frm.feats.xy)
+        if not calls["image"]:
+            calls["image"].append(np.array(img))
+        return frm
+
+    slam.create_monocular_frame = rec
+
+    def undo():
+        del slam.create_monocular_frame
+
+    return calls, undo
+
+
+def run_distorted_legs(dev, world, wrappers, card):
+    """The fisheye and radial-division legs (util/distorted_slice.py): the
+    mono slice's first 120 frames through the default threaded System with
+    mapping, each through its camera (the fisheye with its vignette mask),
+    every launch count at 0 just before each and read just after it, with
+    the legs' gates. Returns ({leg: stats}, {leg: launches}, {leg:
+    recorded keypoints and image})."""
+    from stella_vslam_tpu_torch.util import distorted_slice as ds
+
+    stats, launches, recs = {}, {}, {}
+    for leg in ds.LEGS:
+        dworld = ds.leg_world(leg, world)
+        slam = ds.make_system(dworld, dev)
+        calls, undo = record_frame_keypoints(slam)
+        for w in wrappers.values():
+            w.launches = 0
+        try:
+            s = ds.run_leg(dev, leg, world=dworld, slam=slam)
+        finally:
+            undo()
+        la = s.pop("launches")
+        stats[leg], launches[leg], recs[leg] = s, la, calls
+        with open(os.path.join(OUT_DIR, f"{leg}_leg.json"), "w") as f:
+            json.dump(dict(s, launches=la, card=card), f, indent=1)
+        print(f"{leg} leg: " + json.dumps(dict(s, card=card)))
+        print(f"{leg} leg launches: " + json.dumps(la))
+        for e in slam.worker_error_log:
+            print("worker error:\n" + e)
+        for msg in ds.check_gates(dict(s, launches=la)):
+            print(f"{leg} leg: open fault (ROADMAP Queue 3), gate missed: {msg}")
+        assert s["keyframes_created"] >= 1, f"{leg}: no keyframe event"
+        for name in DISTORTED_LEG_KERNELS:
+            assert la[name] > 0, f"{name} was not launched by the {leg} leg"
+        own = ds.UNDISTORT[ds.MODEL[leg]]
+        assert la[own] == s["frames"], f"{leg}: {la[own]} launches of {own} for {s['frames']}"
+        masked = la["fast_nms_masked"]
+        assert masked == (la["fast_nms"] if s["masked"] else 0), \
+            f"{leg}: {masked} masked launches of kernel A of {la['fast_nms']}"
+    return stats, launches, recs
+
+
+def check_distorted_kernels(dev, world, recs):
+    """Kernel R's Kannala-Brandt and division modes against their plain
+    versions on the card, bit for bit, on every keypoint of the legs' frames
+    and on 2872 random keypoints over the whole image; kernel A with a mask
+    against its plain version, exactly, on every level of a fisheye leg
+    frame (752x480, 8 levels) with the half-image mask of
+    tests/test_orb_extractor.py, a seeded random mask and the leg's
+    vignette. Returns rows of the kernels line."""
+    import torch
+
+    from stella_vslam_tpu_torch.camera import base as cb
+    from stella_vslam_tpu_torch.feature import orb_extractor as ox
+    from stella_vslam_tpu_torch.feature.orb_params import OrbParams
+    from stella_vslam_tpu_torch.util import distorted_slice as ds
+
+    rows = []
+    N = 2872
+    rng = np.random.default_rng(17)
+    rand = torch.as_tensor(np.stack([rng.uniform(0, world.W, N), rng.uniform(0, world.H, N)],
+                                    -1).astype(np.float32), device=dev)
+    modes = {"fisheye": (cb.undistort_fisheye, cb.fisheye_undistort,
+                         "stella_vslam_tpu/camera/base.py:134", 10 * 40.0 + 30.0),
+             "radial_division": (cb.undistort_radial, cb.radial_division_undistort,
+                                 "stella_vslam_tpu/camera/base.py:160", 16.0)}
+    for model, (kern, plain, replaces, ops_per_point) in modes.items():
+        p = cb.camera_from_yaml(ds.leg_world(model, world).camera_yaml()).params
+        legs = [leg for leg in ds.LEGS if ds.MODEL[leg] == model]
+        leg_kp = torch.cat([xy for leg in legs for xy in recs[leg]["xy"]]).contiguous()
+        differ = {}
+        for label, pts in (("leg keypoints", leg_kp), ("random keypoints", rand)):
+            k, q = kern(p, pts), plain(p, pts)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(k).all()), f"{kern.__name__}: a non-finite keypoint"
+            differ[label] = int((k != q).any(-1).sum())
+        print(f"kernel R {kern.__name__}: {leg_kp.shape[0]} keypoints of the {legs} legs' "
+              f"{sum(len(recs[leg]['xy']) for leg in legs)} frames and {N} random ones over "
+              f"the image; keypoints "
+              f"not bit-equal to plain: {differ}")
+        assert not any(differ.values()), f"{kern.__name__} is not bit-equal to its plain version"
+        # per point: 8 bytes in, 8 out; the normalisation, the inversion's
+        # operations (10 Newton steps of ~40 with tanf for Kannala-Brandt)
+        rows.append(dict(
+            name=kern.__name__, route="cuda", source="stella_vslam_tpu_torch/csrc/reproject.cu",
+            replaces=replaces, max_abs_err=0.0, bit_equal=True, shape=f"N={N}",
+            ms=_median_ms(lambda: kern(p, rand)), plain_ms=_median_ms(lambda: plain(p, rand)),
+            library_ms=None, **_bound(16.0 * N, ops_per_point * N)))
+
+    # ---- kernel A with an extraction mask ----
+    params = OrbParams(num_levels=8)
+    ex = ox.OrbExtractor(params, world.W, world.H, min_area=800, device=dev)
+    img = torch.from_numpy(recs["fisheye"]["image"][0]).to(dev)
+    levels = ex.pyramid(img)
+    thr = (float(params.ini_fast_thr), float(params.min_fast_thr))
+    half = np.ones((world.H, world.W), np.uint8)
+    half[:, : world.W // 2] = 0
+    masks = {"half": half,
+             "random": (np.random.default_rng(19).random((world.H, world.W)) > 0.3)
+             .astype(np.uint8),
+             "vignette": ds.leg_mask("fisheye_masked", world)}
+
+    def run_a(fn, lm):
+        return [fn(l.contiguous(), g, ex.border, *thr, m)
+                for l, g, m in zip(levels, ex.levels, lm)]
+
+    unmasked = sum(int((k >= 0).sum()) for k in run_a(ox.fast_nms, [None] * len(levels)))
+    counts = {}
+    for label, m in masks.items():
+        lm = ex.level_masks(torch.from_numpy(m).to(dev))
+        ka, pa = run_a(ox.fast_nms, lm), run_a(ox.fast_nms_plain, lm)
+        torch.cuda.synchronize()
+        assert all(torch.equal(k, q) for k, q in zip(ka, pa)), \
+            f"kernel A with the {label} mask disagrees with its plain version"
+        counts[label] = sum(int((k >= 0).sum()) for k in ka)
+    print(f"kernel A fast_nms with a mask: cells with a corner over 8 levels {counts} "
+          f"(unmasked {unmasked}), each equal to plain")
+    assert all(0 < c < unmasked for c in counts.values()), (counts, unmasked)
+    lm = ex.level_masks(torch.from_numpy(half).to(dev))
+    # the work the function needs: the mask read over each level's border
+    # region, the image and a FAST score (300 operations) only where the
+    # level mask keeps a pixel of the region
+    n_region, n_kept = 0, 0
+    for g, m in zip(ex.levels, lm):
+        b = ex.border
+        keep = m.mask[m.rows.long()[b:g.H - b, None], m.cols.long()[None, b:g.W - b]] != 0
+        n_region += keep.numel()
+        n_kept += int(keep.sum())
+    rows.append(dict(
+        name="fast_nms_masked", counter="fast_nms", route="cuda",
+        source="stella_vslam_tpu_torch/csrc/fast_nms.cu",
+        replaces="stella_vslam_tpu/feature/orb_extractor.py:332", max_abs_err=0.0,
+        shape="752x480, 8 levels, the half-image mask",
+        ms=_median_ms(lambda: run_a(ox.fast_nms, lm)),
+        plain_ms=_median_ms(lambda: run_a(ox.fast_nms_plain, lm)), library_ms=None,
+        work=dict(region_px=n_region, kept_px=n_kept),
+        **_bound(4.0 * n_kept + n_region + 4.0 * sum(g.H + g.W for g in ex.levels)
+                 + 4.0 * ex.num_slots, 300.0 * n_kept)))
+    return rows
+
+
+def _fbow_work(desc, tab):
+    """(popcount words, blocks visited) of the fixture tree's descent of
+    `desc`: what kernel V's loop runs for these descriptors."""
+    import torch
+
+    from stella_vslam_tpu_torch.data.fbow_io import _POPCOUNT8
+
+    nblocks, m_k = tab.n_children.shape[0], tab.m_k
+    N = desc.shape[0]
+    pop = torch.from_numpy(_POPCOUNT8).to(desc.device)
+    d8 = desc.view(torch.uint8).reshape(N, 1, 32)
+    c8 = tab.centers.view(torch.uint8).reshape(nblocks, m_k, 32)
+    info = tab.node_info.reshape(nblocks, m_k)
+    kidx = torch.arange(m_k, device=desc.device)
+    blk = torch.zeros(N, dtype=torch.int64, device=desc.device)
+    done = torch.zeros(N, dtype=torch.bool, device=desc.device)
+    words, visits = 0, 0
+    for _ in range(tab.max_depth):
+        nc = tab.n_children[blk]
+        words += int((nc * ~done).sum()) * 8
+        visits += int((~done).sum())
+        dist = pop[torch.bitwise_xor(d8, c8[blk]).long()].sum(-1)
+        dist = torch.where(kidx[None] < nc[:, None], dist, torch.full_like(dist, 257))
+        node = info[blk, torch.argmin(dist, -1)]
+        leaf = node < 0
+        blk = torch.where(done | leaf, blk, torch.clamp((node & 0x7FFFFFFF).long(),
+                                                        max=nblocks - 1))
+        done = done | leaf
+    return words, visits
+
+
+def check_fbow_kernels(dev, recorded):
+    """Kernel V against its plain version on the card, exactly: on the
+    fixture tree (tests/data/reference_layout_vocab.fbow) with 2872 random
+    descriptors and with the descriptors of every keyframe event of the
+    FBoW leg; on a complete tree that the port's write_fbow writes from the
+    packaged vocabulary, where the word ids also equal kernel M's on the
+    .npz form. Returns the kernels line's row."""
+    import tempfile
+
+    import torch
+
+    from stella_vslam_tpu_torch.data import fbow_io
+    from stella_vslam_tpu_torch.data.bow_vocabulary import BowVocabulary
+    from stella_vslam_tpu_torch.util.fbow_slice import FIXTURE
+
+    vocab = fbow_io.read_fbow(FIXTURE, dev)
+    tab = vocab.tables()
+    N = 2872
+    rand = torch.as_tensor(np.random.default_rng(23).integers(
+        0, 2 ** 32, (N, 8), dtype=np.uint64).astype(np.uint32).view(np.int32), device=dev)
+    leg = torch.cat(recorded).contiguous()
+    checked = {}
+    for label, d in (("random", rand), ("FBoW leg keyframes", leg)):
+        k, q = fbow_io.fbow_transform(d, tab), fbow_io.fbow_transform_plain(d, tab)
+        torch.cuda.synchronize()
+        checked[label] = (d.shape[0], int((k != q).sum()), int(torch.unique(k).numel()))
+    npz = BowVocabulary.default(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "default.fbow")
+        npz.save_fbow(path)
+        full = fbow_io.read_fbow(path, dev)
+    ftab = full.tables()
+    k, q = fbow_io.fbow_transform(rand, ftab), fbow_io.fbow_transform_plain(rand, ftab)
+    m = npz.transform(rand)
+    torch.cuda.synchronize()
+    checked["complete tree"] = (N, int((k != q).sum()), int(torch.unique(k).numel()))
+    differ_m = int((k != m).sum())
+    print(f"kernel V fbow_transform (descriptors, word ids differing from plain, distinct "
+          f"words): {checked}; the complete tree ({full.node_info.shape[0]} blocks, "
+          f"{full.num_words} words) against kernel M on the .npz form: {differ_m} differ")
+    assert not any(v[1] for v in checked.values()), "kernel V disagrees with its plain version"
+    assert differ_m == 0, "kernel V on the complete tree disagrees with kernel M"
+    words, visits = _fbow_work(rand, tab)
+    nblocks, m_k = tab.n_children.shape[0], tab.m_k
+    # bytes: the descriptors in, the word ids out, the tables once; operations:
+    # XOR, popcount and add per word of every child of every visited block
+    return [dict(
+        name="fbow_transform", route="cuda", source="stella_vslam_tpu_torch/csrc/bow_fbow.cu",
+        replaces="stella_vslam_tpu/data/fbow_io.py:128", max_abs_err=0.0,
+        shape=f"N={N}, {nblocks} blocks x {m_k}, depth {tab.max_depth}",
+        blocks_visited=visits,
+        ms=_median_ms(lambda: fbow_io.fbow_transform(rand, tab)),
+        plain_ms=_median_ms(lambda: fbow_io.fbow_transform_plain(rand, tab)), library_ms=None,
+        **_bound(36.0 * N + nblocks * m_k * 36.0 + 4.0 * nblocks, 3.0 * words))]
+
+
+def run_fbow_leg(dev, world, wrappers, card):
+    """The FBoW leg (util/fbow_slice.py): the threaded circuit with the
+    fixture .fbow vocabulary, every launch count at 0 just before it and read
+    just after it, with the leg's gates: kernel V once per keyframe event,
+    kernel M never. Returns (stats, launches, the recorded descriptors of
+    every keyframe event)."""
+    from stella_vslam_tpu_torch.util import fbow_slice as fs
+
+    slam = fs.make_system(world, dev)
+    recorded = []
+    vocab = slam.bow_vocab
+    transform = vocab.transform
+
+    def rec(desc):
+        recorded.append(desc)
+        return transform(desc)
+
+    vocab.transform = rec
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        s = fs.run_leg(dev, world, slam=slam)
+    finally:
+        del vocab.transform
+    launches = {k: w.launches for k, w in wrappers.items()}
+    s.pop("launches")
+    with open(os.path.join(OUT_DIR, "fbow_leg.json"), "w") as f:
+        json.dump(dict(s, launches=launches, card=card), f, indent=1)
+    brief = {k: v for k, v in s.items() if k not in ("loop_event_ms",)}
+    print("fbow leg: " + json.dumps(dict(brief, card=card)))
+    print("fbow leg launches: " + json.dumps(launches))
+    for e in slam.worker_error_log:
+        print("worker error:\n" + e)
+    fs.check_gates(dict(s, launches=launches))
+    assert launches["fbow_transform"] == s["keyframes_created"] > 0, \
+        f"fbow: {launches['fbow_transform']} launches of V, {s['keyframes_created']} events"
+    assert len(recorded) == s["keyframes_created"]
+    return s, launches, recorded
+
+
 def main() -> int:
     import torch
 
@@ -3145,6 +3476,10 @@ def main() -> int:
     eq, eq_launches, esc_launches, eq_calls, eslam = run_equirect_leg(dev, wrappers, card)
     map_rows += check_equirect_shapes(dev, eslam, eq_calls)
     map_rows += check_equirect_kernels(dev, eslam, eq_calls)
+    dist, dist_launches, dist_recs = run_distorted_legs(dev, world, wrappers, card)
+    map_rows += check_distorted_kernels(dev, world, dist_recs)
+    fbow, fbow_launches, fbow_desc = run_fbow_leg(dev, world, wrappers, card)
+    map_rows += check_fbow_kernels(dev, fbow_desc)
     for r in map_rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library "
@@ -3152,7 +3487,8 @@ def main() -> int:
               f"[{card}]")
     rows += map_rows
     for row in rows:
-        name = row.pop("counter", row["name"])
+        row_name = row["name"]
+        name = row.pop("counter", row_name)
         equirect = name in EQUIRECT_ROWS
         name = EQUIRECT_ROWS.get(name, name)
         for suffix in ("_local", "_global32", "_global64"):
@@ -3165,6 +3501,17 @@ def main() -> int:
                            else eq_launches if equirect
                            else leg_launches["stereo"] if name in STEREO_PATH_ROWS
                            else launches["threaded"])[name]
+        # the distorted legs' rows (R's modes, A with a mask) and V: their
+        # own leg's count
+        if row_name in DISTORTED_ROWS:
+            leg, counter = DISTORTED_ROWS[row_name]
+            row["launches"] = dist_launches[leg][counter]
+        elif name in FBOW_KERNELS:
+            row["launches"] = fbow_launches[name]
+        row["launches_fisheye_leg"] = dist_launches["fisheye"][name]
+        row["launches_radial_division_leg"] = dist_launches["radial_division"][name]
+        row["launches_fisheye_masked_leg"] = dist_launches["fisheye_masked"][name]
+        row["launches_fbow_leg"] = fbow_launches[name]
         row["launches_equirect_leg"] = eq_launches[name]
         row["launches_equirect_escalation_run"] = esc_launches[name]
         row["launches_stereo_leg"] = leg_launches["stereo"][name]
@@ -3199,7 +3546,15 @@ def main() -> int:
             "init_frame", "tracked", "lost_after_init", "ate_m", "keyframes_created",
             "keyframes_kept", "local_bas", "loops_closed", "init_escalations", "frame_ms",
             "fps", "frames_per_wall_s", "worker_errors")},
-        equirect_escalation_run_u_launches=esc_launches["essential_5pt"])))
+        equirect_escalation_run_u_launches=esc_launches["essential_5pt"],
+        **{f"{leg}_leg_" + k: dist[leg][k] for leg in dist for k in (
+            "init_frame", "tracked", "lost_after_init", "ate_m", "keyframes_created",
+            "keyframes_kept", "local_bas", "frame_ms", "fps", "worker_errors")},
+        fisheye_masked_leg_masked_launches=dist_launches["fisheye_masked"]["fast_nms_masked"],
+        **{"fbow_leg_" + k: fbow[k] for k in (
+            "ate_m", "tracked", "lost_after_init", "loops_closed", "keyframes_created",
+            "keyframes_kept", "local_bas", "frame_ms", "fps", "worker_errors", "vocab_words")},
+        fbow_leg_v_launches=fbow_launches["fbow_transform"])))
     print(f"chip_smoke: {time.monotonic() - t_run:.1f} s from the build on [{card}]")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

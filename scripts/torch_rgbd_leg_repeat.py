@@ -16,7 +16,10 @@ measured mean render time, so the feed keeps the leg's pace while the
 workers share the host's cores. Prints one JSON line per run (ATE, frames
 lost, keyframes, loops; RGBD: the scale error and the largest camera-centre
 error of any frame as it was finalized, with its frame; mono: the largest
-per-frame error after the Sim3 alignment, with its frame) and a last line
+per-frame error after the Sim3 alignment, with its frame, a run failing
+when it exceeds OFF_M, and for every frame beyond it the trace of its
+relative pose: tracker.rel_trace and the keyframe frame_poses rebuilt it
+on) and a last line
 with the count of runs, of gate failures, the largest and median ATE and
 the card's name and power limit. Per-frame errors of every mono run go to
 threaded_repeat_frames.json in chip_smoke.py's output directory (OUT_DIR).
@@ -47,6 +50,8 @@ from stella_vslam_tpu_torch.util.rgbd_slice import bench_world
 
 RUNS = {"rgbd": 40, "threaded": 20}
 WORKERS = 8
+# a mono frame this far off after the alignment is reported with its trace
+OFF_M = 0.10
 
 
 def leg_path(leg: str):
@@ -101,6 +106,101 @@ def aligned_errors(slam, gt_xy):
     return err
 
 
+def rel_sources(slam) -> dict:
+    """How many frames anchored their relative pose on each source."""
+    counts = {}
+    for src, *_ in slam.tracker.rel_trace.values():
+        counts[str(src)] = counts.get(str(src), 0) + 1
+    return counts
+
+
+def watch_gauges(slam) -> list:
+    """Record, by the id of the last dispatched frame, the map epoch and the
+    table version: each loop correction, global-BA writeback and
+    duplicate-layer merge as it starts and ends, and each chain resync and
+    rebase (with whether it acted)."""
+    tr, go, md = slam.tracker, slam.global_optimizer, slam.map_db
+    log = []
+
+    def mark(label, **kw):
+        log.append(dict(label=label, frame=tr.last_frm.id if tr.last_frm is not None else -1,
+                        epoch=md.epoch, version=md.device_table.version, **kw))
+
+    def around(obj, name):
+        fn = getattr(obj, name)
+
+        def wrapped(*a, **k):
+            mark(name + ":start")
+            out = fn(*a, **k)
+            mark(name + ":end")
+            return out
+        setattr(obj, name, wrapped)
+
+    for name in ("correct_loop", "_apply_global_ba_result", "_merge_duplicate_layers"):
+        around(go, name)
+    resync, rebase = tr._resync_chain_with_map, tr._try_rebase_chain
+
+    def resync_rec(last, snap):
+        mark("resync", skipped=md.epoch != snap.epoch, snap_version=snap.version,
+             snap_epoch=snap.epoch)
+        return resync(last, snap)
+
+    def rebase_rec(snap):
+        ok = rebase(snap)
+        mark("rebase", ok=ok, snap_version=snap.version)
+        return ok
+
+    tr._resync_chain_with_map, tr._try_rebase_chain = resync_rec, rebase_rec
+    return log
+
+
+def centre(T):
+    return None if T is None else [float(v) for v in -T[:3, :3].T @ T[:3, 3]]
+
+
+def rebuilt_on(md, ref):
+    """The keyframe System.frame_poses rebuilds a frame with reference
+    keyframe `ref` on, following the erased keyframes' forwards (None: the
+    tracked pose is kept)."""
+    cur, seen = ref, set()
+    while (cur is not None and cur not in md.keyframes
+           and cur in md.erased_kf_forward and cur not in seen):
+        seen.add(cur)
+        cur = md.erased_kf_forward[cur][0]
+    kf = md.keyframes.get(cur)
+    return cur if kf is not None and not kf.will_be_erased else None
+
+
+def off_frames(slam, err, limit_m: float = OFF_M) -> list:
+    """For every frame more than `limit_m` off after the alignment: the
+    anchor of its relative pose, the map epoch of its dispatch table and at
+    its finalize, its reference keyframe at finalize and at dispatch, and
+    the keyframe frame_poses rebuilt it on (None: the tracked pose kept)."""
+    fid0 = slam.tracker.finalized[0][0]
+    resolved = {fid: (pose, rebuilt_on(slam.map_db, ref) if rel is not None else None)
+                for (_, pose, ref, fid), (*_, rel) in zip(slam.frame_poses,
+                                                          slam.tracker.finalized)}
+    tracked = {fid: pose for (fid, _, pose, _, _) in slam.tracker.finalized}
+    md = slam.map_db
+    out = []
+    for i, e in enumerate(err):
+        if e is None or e <= limit_m:
+            continue
+        near = []
+        for j in range(max(0, i - 3), min(len(err), i + 4)):
+            src, ep_disp, ep_fin, ref, ref_disp, anchor = slam.tracker.rel_trace.get(
+                fid0 + j, (None,) * 6)
+            pose, via = resolved.get(fid0 + j, (None, None))
+            kf = md.keyframes.get(via) if via is not None else None
+            near.append(dict(frame=j, err_m=err[j], source=src, epoch_dispatch=ep_disp,
+                             epoch_finalize=ep_fin, ref_kf=ref, ref_kf_dispatch=ref_disp,
+                             rebuilt_on=via, tracked_centre=centre(tracked.get(fid0 + j)),
+                             reported_centre=centre(pose), anchor_centre=centre(anchor),
+                             ref_final_centre=centre(kf.pose_cw) if kf is not None else None))
+        out.append(dict(frame=i, err_m=e, near=near))
+    return out
+
+
 def run_once(leg: str, dev, world, gt_xy, run: int) -> dict:
     if leg == "rgbd":
         slam = stereo_slice.make_system(world, dev, "RGBD")
@@ -110,17 +210,25 @@ def run_once(leg: str, dev, world, gt_xy, run: int) -> dict:
         out = dict(scale_err=s["scale_err"], max_finalize_err_m=worst, at_frame=at)
     else:
         slam = threaded_slice.make_system(world, dev)
+        slam.tracker.rel_trace = {}
+        gauges = watch_gauges(slam)
         s = threaded_slice.run_slice(dev, world, slam=slam)
         err = aligned_errors(slam, gt_xy)
         at = int(np.nanargmax([np.nan if e is None else e for e in err]))
         gates = check_mono_gates
         out = dict(keyframes_kept=s["keyframes_kept"], rebases=s["rebases"],
-                   max_aligned_err_m=err[at], at_frame=at, frame_err_m=err)
+                   max_aligned_err_m=err[at], at_frame=at, frame_err_m=err,
+                   rel_sources=rel_sources(slam), off_frames=off_frames(slam, err),
+                   drain_fallbacks=s["drain_fallbacks"],
+                   gauge_events=[g for g in gauges if g["label"] != "resync"
+                                 or g["skipped"] or g["epoch"] > 0])
     try:
         gates(s)
         failed = None
     except AssertionError as e:
         failed = str(e)
+    if failed is None and leg == "threaded" and out["max_aligned_err_m"] > OFF_M:
+        failed = f"frame {at} reads {out['max_aligned_err_m']:.3f} m off"
     return dict(run=run, ate_m=s["ate_m"], lost_after_init=s["lost_after_init"],
                 keyframes_created=s["keyframes_created"], local_bas=s["local_bas"],
                 loops_closed=s["loops_closed"], fps=s["fps"],
@@ -183,6 +291,8 @@ def main():
     print(json.dumps(dict(leg=args.leg, runs=len(lines), of=runs, failed=len(failed),
                           render_s=render_s, card=card(),
                           max_ate_m=max((r["ate_m"] for r in lines), default=None),
+                          max_frame_err_m=max((r.get("max_aligned_err_m", 0.0) for r in lines),
+                                              default=None),
                           median_ate_m=float(np.median([r["ate_m"] for r in lines]))
                           if lines else None)))
     return 1 if failed or len(lines) != runs else 0

@@ -1,21 +1,26 @@
-"""Camera models as batched torch functions (perspective and
-equirectangular).
+"""Camera models as batched torch functions (perspective, fisheye,
+equirectangular and radial division).
 
-Port of stella_vslam_tpu/camera/base.py. The perspective (pinhole +
-radial-tangential) and equirectangular models and the MONOCULAR / STEREO /
-RGBD setups are ported; fisheye and radial-division raise
-NotImplementedError until ROADMAP Queue 1 item 14b. Undistortion is the
-same fixed-iteration inversion as the JAX version, written as elementwise
-ops in the same order; for the equirectangular model it is the identity,
-bearings are longitude / latitude on the unit sphere, and a reprojection
-sees every direction, its depth being the norm (camera/base.py :190-246).
+Port of stella_vslam_tpu/camera/base.py, every model and the MONOCULAR /
+STEREO / RGBD setups. Undistortion is the JAX version's fixed-iteration
+inversion, written as elementwise ops in the same order: radial-tangential
+(perspective, 10 fixed-point steps), Kannala-Brandt (fisheye, 10 Newton
+steps on theta) and the division model's closed form; for the
+equirectangular model it is the identity. Fisheye and radial division then
+take the pinhole branch everywhere, as in the JAX version: bearings,
+reprojection and the residuals of the optimizers work on the undistorted
+keypoints. The equirectangular bearings are longitude / latitude on the
+unit sphere, and a reprojection sees every direction, its depth being the
+norm (camera/base.py :190-246).
 
 Kernel R (csrc/reproject.cu) computes the per-point functions of the hot
-path on CUDA tensors: `undistort_norm` (every keypoint of every
-perspective frame) and `reproject_gate` (the tracking cascade's
-projections of the chained landmarks and, with the local-map gate and
-predicted scale, of the landmark table), the latter for either model. On
-CPU tensors each runs its plain version, the torch expressions below.
+path on CUDA tensors: `undistort_norm`, `undistort_fisheye` and
+`undistort_radial` (every keypoint of every frame, in the camera model's
+mode) and `reproject_gate` (the
+tracking cascade's projections of the chained landmarks and, with the
+local-map gate and predicted scale, of the landmark table), the latter in
+the model's projection family. On CPU tensors each runs its plain version,
+the torch expressions below.
 """
 from __future__ import annotations
 
@@ -40,9 +45,6 @@ class Setup(enum.IntEnum):
     MONOCULAR = 0
     STEREO = 1
     RGBD = 2
-
-
-_NOT_PORTED = "camera model {} is not ported yet (ROADMAP Queue 1 item 14b)"
 
 
 class CameraParams(NamedTuple):
@@ -102,21 +104,105 @@ def perspective_undistort(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
     return torch.stack([x * p.fx + p.cx, y * p.fy + p.cy], dim=-1)
 
 
-def undistort_norm(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
-    """Kernel R's undistortion on CUDA tensors (normalize, the 10
-    iterations of _perspective_undistort_norm, back to pixels), the plain
-    version `perspective_undistort` on CPU tensors."""
-    if not pts.is_cuda:
-        return perspective_undistort(p, pts)
+def _kb_distort_theta(p: CameraParams, theta):
+    t2 = theta * theta
+    return theta * (1.0 + t2 * (p.k1 + t2 * (p.k2 + t2 * (p.k3 + t2 * p.k4))))
+
+
+def _kb_undistort_theta(p: CameraParams, theta_d, iters: int = 10):
+    """Invert the Kannala-Brandt polynomial by Newton on theta."""
+    theta = theta_d
+    for _ in range(iters):
+        t2 = theta * theta
+        f = theta * (1.0 + t2 * (p.k1 + t2 * (p.k2 + t2 * (p.k3 + t2 * p.k4)))) - theta_d
+        df = 1.0 + t2 * (3.0 * p.k1 + t2 * (5.0 * p.k2 + t2 * (7.0 * p.k3 + t2 * 9.0 * p.k4)))
+        theta = theta - f / torch.where(torch.abs(df) < 1e-6, 1.0, df)
+    return theta
+
+
+def fisheye_undistort(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
+    xn = (pts[..., 0] - p.cx) / p.fx
+    yn = (pts[..., 1] - p.cy) / p.fy
+    theta_d = torch.sqrt(xn * xn + yn * yn)
+    theta = _kb_undistort_theta(p, theta_d)
+    scale = torch.where(theta_d > 1e-8, torch.tan(theta) / torch.clamp(theta_d, min=1e-8), 1.0)
+    return torch.stack([xn * scale * p.fx + p.cx, yn * scale * p.fy + p.cy], dim=-1)
+
+
+def fisheye_distort(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
+    xn = (pts[..., 0] - p.cx) / p.fx
+    yn = (pts[..., 1] - p.cy) / p.fy
+    r = torch.sqrt(xn * xn + yn * yn)
+    theta_d = _kb_distort_theta(p, torch.atan(r))
+    scale = torch.where(r > 1e-8, theta_d / torch.clamp(r, min=1e-8), 1.0)
+    return torch.stack([xn * scale * p.fx + p.cx, yn * scale * p.fy + p.cy], dim=-1)
+
+
+def radial_division_undistort(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
+    xn = (pts[..., 0] - p.cx) / p.fx
+    yn = (pts[..., 1] - p.cy) / p.fy
+    r2 = xn * xn + yn * yn
+    denom = 1.0 + p.k1 * r2
+    scale = 1.0 / torch.where(torch.abs(denom) < 1e-8, 1e-8, denom)
+    return torch.stack([xn * scale * p.fx + p.cx, yn * scale * p.fy + p.cy], dim=-1)
+
+
+def radial_division_distort(p: CameraParams, pts: torch.Tensor, iters: int = 10) -> torch.Tensor:
+    """Invert the division model by Newton on the radius."""
+    xn = (pts[..., 0] - p.cx) / p.fx
+    yn = (pts[..., 1] - p.cy) / p.fy
+    ru = torch.sqrt(xn * xn + yn * yn)
+    rd = ru
+    for _ in range(iters):
+        # solve rd / (1 + k1 rd^2) = ru
+        denom = 1.0 + p.k1 * rd * rd
+        f = rd / denom - ru
+        df = (1.0 - p.k1 * rd * rd) / (denom * denom)
+        rd = rd - f / torch.where(torch.abs(df) < 1e-8, 1e-8, df)
+    scale = torch.where(ru > 1e-8, rd / torch.clamp(ru, min=1e-8), 1.0)
+    return torch.stack([xn * scale * p.fx + p.cx, yn * scale * p.fy + p.cy], dim=-1)
+
+
+def _as_model(model) -> CameraModel:
+    """A CameraModel, or its lower-case name as the optimizers take it."""
+    return CameraModel[model.upper()] if isinstance(model, str) else CameraModel(model)
+
+
+def projection_family(model) -> int:
+    """The kernels' projection of a camera model, csrc/camera.cuh's
+    kPerspective (0) or kEquirect (2): fisheye and radial division project
+    as the pinhole on undistorted keypoints."""
+    m = _as_model(model)
+    return int(m) if m == CameraModel.EQUIRECTANGULAR else int(CameraModel.PERSPECTIVE)
+
+
+def undistortion_mode(model) -> int:
+    """Kernel R's undistortion mode of a camera model: 0 radial-tangential,
+    1 Kannala-Brandt, 3 division; 2 (equirectangular) is the identity and
+    launches nothing."""
+    return int(_as_model(model))
+
+
+def _undistort_launch(mode: int, p: CameraParams, pts: torch.Tensor, name: str):
     N = pts.shape[0]
     if tuple(pts.shape) != (N, 2) or pts.dtype != torch.float32:
-        raise ValueError("undistort_norm: expected float32 [N,2] pixel keypoints")
+        raise ValueError(f"{name}: expected float32 [N,2] pixel keypoints")
     pts = pts.contiguous()
     out = torch.empty_like(pts)
     lib = kbuild.load()
-    kbuild.check(lib.svt_undistort(N, p.fx, p.fy, p.cx, p.cy, p.k1, p.k2, p.p1, p.p2, p.k3,
-                                   pts.data_ptr(), out.data_ptr(),
-                                   kbuild.stream_ptr(pts.device)), "undistort_norm")
+    kbuild.check(lib.svt_undistort(mode, N, p.fx, p.fy, p.cx, p.cy, p.k1, p.k2, p.p1, p.p2,
+                                   p.k3, p.k4, pts.data_ptr(), out.data_ptr(),
+                                   kbuild.stream_ptr(pts.device)), name)
+    return out
+
+
+def undistort_norm(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
+    """Kernel R's radial-tangential undistortion on CUDA tensors (normalize,
+    the 10 iterations of _perspective_undistort_norm, back to pixels), the
+    plain version `perspective_undistort` on CPU tensors."""
+    if not pts.is_cuda:
+        return perspective_undistort(p, pts)
+    out = _undistort_launch(0, p, pts, "undistort_norm")
     undistort_norm.launches += 1
     return out
 
@@ -124,28 +210,47 @@ def undistort_norm(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
 undistort_norm.launches = 0
 
 
-def ported_model(model) -> int:
-    """The kernels' index of a camera model (a CameraModel, or its
-    lower-case name as the optimizers take it: csrc/camera.cuh's 0 or 2);
-    raises NotImplementedError for a model not ported yet."""
-    m = CameraModel[model.upper()] if isinstance(model, str) else CameraModel(model)
-    if m not in (CameraModel.PERSPECTIVE, CameraModel.EQUIRECTANGULAR):
-        raise NotImplementedError(_NOT_PORTED.format(m.name))
-    return int(m)
+def undistort_fisheye(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
+    """Kernel R's Kannala-Brandt mode on CUDA tensors (10 Newton steps on
+    theta, the tan scale), the plain version `fisheye_undistort` on CPU
+    tensors."""
+    if not pts.is_cuda:
+        return fisheye_undistort(p, pts)
+    out = _undistort_launch(1, p, pts, "undistort_fisheye")
+    undistort_fisheye.launches += 1
+    return out
+
+
+undistort_fisheye.launches = 0
+
+
+def undistort_radial(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
+    """Kernel R's division-model mode on CUDA tensors (one division by
+    1 + k1 r^2), the plain version `radial_division_undistort` on CPU
+    tensors."""
+    if not pts.is_cuda:
+        return radial_division_undistort(p, pts)
+    out = _undistort_launch(3, p, pts, "undistort_radial")
+    undistort_radial.launches += 1
+    return out
+
+
+undistort_radial.launches = 0
+
+_UNDISTORT = {0: undistort_norm, 1: undistort_fisheye, 3: undistort_radial}
 
 
 def undistort_keypoints(model: CameraModel, p: CameraParams,
                         pts: torch.Tensor) -> torch.Tensor:
-    ported_model(model)
-    if model == CameraModel.EQUIRECTANGULAR:
+    mode = undistortion_mode(model)
+    if mode == CameraModel.EQUIRECTANGULAR:
         return pts
-    return undistort_norm(p, pts)
+    return _UNDISTORT[mode](p, pts)
 
 
 def bearings_from_undistorted(model: CameraModel, p: CameraParams,
                               pts: torch.Tensor) -> torch.Tensor:
     """Undistorted keypoints [N,2] -> unit bearing vectors [N,3]."""
-    ported_model(model)
     if model == CameraModel.EQUIRECTANGULAR:
         lon = (pts[..., 0] - p.cx) * (2.0 * math.pi) / p.width
         lat = -(pts[..., 1] - p.cy) * math.pi / p.height
@@ -160,7 +265,6 @@ def bearings_from_undistorted(model: CameraModel, p: CameraParams,
 def undistorted_from_bearings(model: CameraModel, p: CameraParams,
                               bearings: torch.Tensor) -> torch.Tensor:
     """Unit bearing vectors [N,3] -> undistorted keypoints [N,2]."""
-    ported_model(model)
     x, y, z = bearings[..., 0], bearings[..., 1], bearings[..., 2]
     if model == CameraModel.EQUIRECTANGULAR:
         lat = -torch.asin(torch.clamp(y, -1.0, 1.0))
@@ -176,7 +280,6 @@ def reproject_to_image(model: CameraModel, p: CameraParams, R_cw: torch.Tensor,
     """World points [...,N,3] under a camera-from-world pose ([...,3,3],
     [...,3]) -> (uv [...,N,2], depth [...,N], visible [...,N] bool). The
     equirectangular model sees every direction; its depth is the norm."""
-    ported_model(model)
     pc = pos_w @ R_cw.transpose(-1, -2) + t_cw[..., None, :]
     if model == CameraModel.EQUIRECTANGULAR:
         norm = torch.linalg.norm(pc, dim=-1)
@@ -228,7 +331,7 @@ def reproject_gate(p: CameraParams, R_cw, t_cw, pos, tbl_u32=None, *,
     if not pos.is_cuda:
         return reproject_gate_plain(p, R_cw, t_cw, pos, tbl_u32, log_scale=log_scale,
                                     num_levels=num_levels, model=model)
-    ported_model(model)
+    family = projection_family(model)
     M = pos.shape[0]
     table = tbl_u32 is not None
     width = 8 if table else 3
@@ -249,7 +352,7 @@ def reproject_gate(p: CameraParams, R_cw, t_cw, pos, tbl_u32=None, *,
     scale = torch.empty(M, dtype=torch.int32, device=dev) if table else None
     lib = kbuild.load()
     kbuild.check(lib.svt_reproject(
-        int(model), M, int(table), p.fx, p.fy, p.cx, p.cy, p.width, p.height, p.focal_x_baseline,
+        family, M, int(table), p.fx, p.fy, p.cx, p.cy, p.width, p.height, p.focal_x_baseline,
         Rt.data_ptr(), pos.data_ptr(), tbl_u32.data_ptr() if table else 0,
         float(log_scale), int(num_levels), uv.data_ptr(), depth.data_ptr(), flag.data_ptr(),
         xr.data_ptr(), scale.data_ptr() if table else 0, kbuild.stream_ptr(dev)),
@@ -267,7 +370,6 @@ class Camera:
     def __init__(self, name: str, model: CameraModel, setup: Setup,
                  params: CameraParams, fps: float = 30.0,
                  color_order: str = "Gray", *, width: int, height: int):
-        ported_model(model)
         self.name = name
         self.model = model
         self.setup = setup

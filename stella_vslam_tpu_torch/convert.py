@@ -17,8 +17,9 @@ and return the port's tensors.
   the native store's observations in the store's own order, the device
   table's pending counters), and `mapper_state`, a MappingModule's
   carried state, so both packages can run a keyframe event from one state;
-* `bow_vocabulary`: a BowVocabulary with the JAX vocabulary's centers, and
-  `bow_database`: a BowDatabase with its BoW vectors and inverted index, so
+* `bow_vocabulary`: a BowVocabulary with the JAX vocabulary's centers,
+  `fbow_vocabulary`: an FbowVocabulary with a JAX FBoW vocabulary's tables,
+  and `bow_database`: a BowDatabase with its BoW vectors and inverted index, so
   both can detect and close a loop from one state (`map_database` carries
   the loop edges and spanning roots).
 """
@@ -170,6 +171,20 @@ def bow_vocabulary(jax_vocab, device="cuda"):
 
     v = BowVocabulary(device=device)
     v.set_centers([np.array(c, np.float32) for c in jax_vocab.centers])
+    return v
+
+
+def fbow_vocabulary(jax_vocab, device="cuda"):
+    """The port's FbowVocabulary with a JAX FbowVocabulary's tables
+    (numpy arrays, carried across as they are)."""
+    from stella_vslam_tpu_torch.data.fbow_io import FbowVocabulary
+
+    v = FbowVocabulary(np.array(jax_vocab.centers_pm1, np.float32),
+                       np.array(jax_vocab.node_info, np.uint32),
+                       np.array(jax_vocab.n_children, np.int32), jax_vocab.max_depth,
+                       jax_vocab.desc_name, device=device)
+    v.weights = None if jax_vocab.weights is None else np.array(jax_vocab.weights)
+    v.num_words = int(jax_vocab.num_words)
     return v
 
 

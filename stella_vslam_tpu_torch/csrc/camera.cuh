@@ -20,8 +20,14 @@
 
 namespace svt_cam {
 
+// camera/base.py's CameraModel: the projections are kPerspective and
+// kEquirect (fisheye and radial division project as the pinhole on their
+// undistorted keypoints); kFisheye and kRadialDivision are kernel R's
+// undistortion modes
 constexpr int kPerspective = 0;
+constexpr int kFisheye = 1;
 constexpr int kEquirect = 2;
+constexpr int kRadialDivision = 3;
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kPi = 3.141592653589793f;
 

@@ -16,6 +16,14 @@
 // slice's sizes, not bandwidth bound. The images of a batch (a stereo
 // pair's level) go in one launch, one grid z index each.
 //
+// Extraction mask (the JAX version's `region & m_l`, :332-337): the
+// level-0 mask nearest-resized to the level (jax.image.resize, "nearest":
+// per axis the source index floor((i + 0.5) * m / n) as JAX computes it in
+// float32, a table per level built once on the host,
+// feature/orb_extractor.py nearest_index), read at the pixel's mapped
+// index; a masked-out pixel is no corner. Without a mask the launch is
+// unchanged.
+//
 // Bit-exactness: scores are differences and min/max of the same float32
 // pixels as the JAX version, thresholds compare the float score, and
 // iscore = clamp(rint(score), 0, 1023) (rintf rounds half to even, like
@@ -52,7 +60,9 @@ __device__ __forceinline__ float fast_score(const float* img, int W, int y, int 
 
 __global__ void fast_nms_kernel(const float* __restrict__ img, long long img_stride,
                                 int H, int W, int border, int cs, int Gy, int Gx,
-                                float ini_thr, float min_thr, int* __restrict__ out_key) {
+                                float ini_thr, float min_thr, const uint8_t* __restrict__ mask,
+                                int mask_w, const int* __restrict__ mask_row,
+                                const int* __restrict__ mask_col, int* __restrict__ out_key) {
   __shared__ int best_hi, best_lo;
   if (threadIdx.x == 0) {
     best_hi = -1;
@@ -68,6 +78,7 @@ __global__ void fast_nms_kernel(const float* __restrict__ img, long long img_str
     const int ry = p / cs, rx = p - ry * cs;
     const int y = y0 + ry, x = x0 + rx;
     if (y >= H - border || x >= W - border) continue;  // outside the region
+    if (mask != nullptr && mask[mask_row[y] * mask_w + mask_col[x]] == 0) continue;
     const float s = fast_score(img, W, y, x);
     if (!(s > min_thr)) continue;
     const int iscore = (int)fminf(fmaxf(rintf(s), 0.f), 1023.f);
@@ -84,12 +95,17 @@ __global__ void fast_nms_kernel(const float* __restrict__ img, long long img_str
 
 }  // namespace
 
-// img: B level images, img_stride floats apart; out_key: [B, Gy*Gx]
+// img: B level images, img_stride floats apart; out_key: [B, Gy*Gx].
+// mask: null, or the level-0 mask [*, mask_w] (0 = excluded) that every
+// image of the batch shares, read at (mask_row[y], mask_col[x]) for the
+// level's pixel (y, x)
 extern "C" int svt_fast_nms(int B, const float* img, long long img_stride, int H, int W,
                             int border, int cs, int Gy, int Gx, float ini_thr,
-                            float min_thr, int* out_key, void* stream) {
+                            float min_thr, const uint8_t* mask, int mask_w, const int* mask_row,
+                            const int* mask_col, int* out_key, void* stream) {
   dim3 grid(Gx, Gy, B);
   fast_nms_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      img, img_stride, H, W, border, cs, Gy, Gx, ini_thr, min_thr, out_key);
+      img, img_stride, H, W, border, cs, Gy, Gx, ini_thr, min_thr, mask, mask_w, mask_row,
+      mask_col, out_key);
   return (int)cudaGetLastError();
 }

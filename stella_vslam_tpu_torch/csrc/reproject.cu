@@ -4,8 +4,11 @@
 // x_right of the tracking cascade's projections, and for the local-map
 // stage the visibility gate and predicted scale of
 // stella_vslam_tpu/module/tracking_kernels.py track_frame (:266-285); and
-// _perspective_undistort_norm (:89, 10 fixed-point iterations) with the
-// normalization around it (perspective_undistort). The TPU forms are
+// the keypoint undistortion of camera/base.py undistort_keypoints
+// (:190-200): _perspective_undistort_norm (:89, 10 fixed-point
+// iterations), fisheye_undistort (:134, Kannala-Brandt, 10 Newton steps on
+// theta) and radial_division_undistort (:160), with the normalization
+// around them. The TPU forms are
 // lane-major elementwise programs; on the card each was ~15 eager torch ops
 // per call, every one a launch and a round trip through device memory.
 //
@@ -15,8 +18,10 @@
 //    camera centre, the gate distance in [0.8 min, 1.3 max], cos(ray,
 //    normal) > 0.5, depth > 0, the table's valid flag, and the predicted
 //    scale level clip(ceil(log(max / dist) / log(scale factor)), 0, L-1).
-//  undistort_kernel (one thread per keypoint): normalize, 10 iterations of
-//    x = xd - (distort(x) - x), back to pixels.
+//  undistort_kernel (one thread per keypoint), templated on the model:
+//    normalize; radial-tangential: 10 iterations of x = xd - (distort(x) -
+//    x); Kannala-Brandt: 10 Newton steps on theta, then tan(theta) /
+//    theta_d; division: 1 / (1 + k1 r^2); back to pixels.
 // Bound: ~30 bytes and ~100 operations per point (the slice's 2872 slots or
 // 4096 table rows): ~0.04 us of bytes, so it is bound by its launch.
 // Floats follow the torch expressions' order. In the reprojection the card
@@ -26,7 +31,8 @@
 // as its plain version does on the card and equals it bit for bit: a true
 // division and an FMA there moved the monocular initializer's input by an
 // ulp and, through the near-degenerate two-view geometry of a planar
-// scene, its init frame.
+// scene, its init frame. The fisheye and division modes follow the same
+// rule (tanf is the function torch calls on the card).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -39,6 +45,12 @@ constexpr int kThreads = 256;
 
 struct Intr {
   float fx, fy, cx, cy, width, height, fxb;
+};
+
+// distortion coefficients: radial-tangential k1 k2 p1 p2 k3, Kannala-Brandt
+// k1..k4, division k1
+struct Dist {
+  float k1, k2, p1, p2, k3, k4;
 };
 
 template <int MODEL>
@@ -93,31 +105,70 @@ reproject_kernel(int M, int mode, Intr k, const float* __restrict__ Rt,
   scale_out[m] = (int)fminf(fmaxf(lv, 0.f), (float)(num_levels - 1));
 }
 
+// kernel R's undistortion, one thread per keypoint, templated on the
+// distortion model: every product, sum and division rounded on its own, in
+// the plain torch expressions' order (no contraction into FMAs), and the
+// normalisation's division by fx as torch divides a CUDA tensor by a scalar
+// (times the float32 reciprocal): the result equals the plain version on
+// the card bit for bit
+template <int MODEL>
 __global__ void __launch_bounds__(kThreads)
-undistort_kernel(int N, Intr k, float k1, float k2, float p1, float p2, float k3,
-                 const float* __restrict__ pts, float* __restrict__ out) {
+undistort_kernel(int N, Intr k, Dist dc, const float* __restrict__ pts, float* __restrict__ out) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  // every product and sum rounded on its own, in the torch expressions'
-  // order (no contraction into FMAs), and the division by fx as torch
-  // divides a CUDA tensor by a scalar (times the float32 reciprocal): the
-  // result equals the plain version on the card bit for bit
   const float xd = __fmul_rn(__fsub_rn(pts[2 * n], k.cx), __fdiv_rn(1.f, k.fx));
   const float yd = __fmul_rn(__fsub_rn(pts[2 * n + 1], k.cy), __fdiv_rn(1.f, k.fy));
-  const float two_p1 = 2.f * p1, two_p2 = 2.f * p2;  // exact doublings
-  float x = xd, y = yd;
-  for (int it = 0; it < 10; ++it) {
-    const float r2 = __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y));
-    const float radial = __fadd_rn(
-        1.f, __fmul_rn(r2, __fadd_rn(k1, __fmul_rn(r2, __fadd_rn(k2, __fmul_rn(r2, k3))))));
-    const float dx = __fadd_rn(
-        __fadd_rn(__fmul_rn(x, radial), __fmul_rn(__fmul_rn(two_p1, x), y)),
-        __fmul_rn(p2, __fadd_rn(r2, __fmul_rn(__fmul_rn(2.f, x), x))));
-    const float dy = __fadd_rn(
-        __fadd_rn(__fmul_rn(y, radial), __fmul_rn(p1, __fadd_rn(r2, __fmul_rn(__fmul_rn(2.f, y), y)))),
-        __fmul_rn(__fmul_rn(two_p2, x), y));
-    x = __fsub_rn(xd, __fsub_rn(dx, x));
-    y = __fsub_rn(yd, __fsub_rn(dy, y));
+  float x, y;
+  if constexpr (MODEL == svt_cam::kPerspective) {
+    // perspective_undistort: 10 fixed-point steps x = xd - (distort(x) - x)
+    const float two_p1 = 2.f * dc.p1, two_p2 = 2.f * dc.p2;  // exact doublings
+    x = xd;
+    y = yd;
+    for (int it = 0; it < 10; ++it) {
+      const float r2 = __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y));
+      const float radial = __fadd_rn(
+          1.f, __fmul_rn(r2, __fadd_rn(dc.k1, __fmul_rn(r2, __fadd_rn(dc.k2, __fmul_rn(r2, dc.k3))))));
+      const float dx = __fadd_rn(
+          __fadd_rn(__fmul_rn(x, radial), __fmul_rn(__fmul_rn(two_p1, x), y)),
+          __fmul_rn(dc.p2, __fadd_rn(r2, __fmul_rn(__fmul_rn(2.f, x), x))));
+      const float dy = __fadd_rn(
+          __fadd_rn(__fmul_rn(y, radial),
+                    __fmul_rn(dc.p1, __fadd_rn(r2, __fmul_rn(__fmul_rn(2.f, y), y)))),
+          __fmul_rn(__fmul_rn(two_p2, x), y));
+      x = __fsub_rn(xd, __fsub_rn(dx, x));
+      y = __fsub_rn(yd, __fsub_rn(dy, y));
+    }
+  } else if constexpr (MODEL == svt_cam::kFisheye) {
+    // fisheye_undistort: theta_d = |(xd, yd)|, 10 Newton steps on the
+    // Kannala-Brandt theta (a derivative under 1e-6 counts as 1), then the
+    // scale tan(theta) / theta_d (1 at the centre). 3 k1, 5 k2 and 7 k3 are
+    // one rounding each, as torch takes them (a double product of a float
+    // and a small integer, rounded to float once).
+    const float theta_d = __fsqrt_rn(__fadd_rn(__fmul_rn(xd, xd), __fmul_rn(yd, yd)));
+    const float k1_3 = 3.f * dc.k1, k2_5 = 5.f * dc.k2, k3_7 = 7.f * dc.k3;
+    float theta = theta_d;
+    for (int it = 0; it < 10; ++it) {
+      const float t2 = __fmul_rn(theta, theta);
+      const float poly = __fadd_rn(
+          1.f, __fmul_rn(t2, __fadd_rn(dc.k1, __fmul_rn(t2, __fadd_rn(dc.k2, __fmul_rn(
+                   t2, __fadd_rn(dc.k3, __fmul_rn(t2, dc.k4))))))));
+      const float f = __fsub_rn(__fmul_rn(theta, poly), theta_d);
+      const float df = __fadd_rn(
+          1.f, __fmul_rn(t2, __fadd_rn(k1_3, __fmul_rn(t2, __fadd_rn(k2_5, __fmul_rn(
+                   t2, __fadd_rn(k3_7, __fmul_rn(__fmul_rn(t2, 9.f), dc.k4))))))));
+      theta = __fsub_rn(theta, __fdiv_rn(f, fabsf(df) < 1e-6f ? 1.f : df));
+    }
+    const float scale = theta_d > 1e-8f ? __fdiv_rn(tanf(theta), fmaxf(theta_d, 1e-8f)) : 1.f;
+    x = __fmul_rn(xd, scale);
+    y = __fmul_rn(yd, scale);
+  } else {
+    // radial_division_undistort: one division by 1 + k1 r^2 (|.| < 1e-8
+    // taken as 1e-8)
+    const float r2 = __fadd_rn(__fmul_rn(xd, xd), __fmul_rn(yd, yd));
+    const float denom = __fadd_rn(1.f, __fmul_rn(r2, dc.k1));
+    const float scale = __fdiv_rn(1.f, fabsf(denom) < 1e-8f ? 1e-8f : denom);
+    x = __fmul_rn(xd, scale);
+    y = __fmul_rn(yd, scale);
   }
   out[2 * n] = __fadd_rn(__fmul_rn(x, k.fx), k.cx);
   out[2 * n + 1] = __fadd_rn(__fmul_rn(y, k.fy), k.cy);
@@ -150,12 +201,23 @@ extern "C" int svt_reproject(int model, int M, int mode, float fx, float fy, flo
   return (int)cudaGetLastError();
 }
 
-extern "C" int svt_undistort(int N, float fx, float fy, float cx, float cy, float k1, float k2,
-                             float p1, float p2, float k3, const float* pts, float* out,
-                             void* stream) {
+// model: 0 radial-tangential, 1 Kannala-Brandt, 3 division
+extern "C" int svt_undistort(int model, int N, float fx, float fy, float cx, float cy, float k1,
+                             float k2, float p1, float p2, float k3, float k4, const float* pts,
+                             float* out, void* stream) {
   Intr k{fx, fy, cx, cy, 0.f, 0.f, 0.f};
-  if (N > 0)
-    undistort_kernel<<<(N + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-        N, k, k1, k2, p1, p2, k3, pts, out);
+  Dist dc{k1, k2, p1, p2, k3, k4};
+  const int grid = (N + kThreads - 1) / kThreads;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (model == svt_cam::kPerspective) {
+    if (N > 0) undistort_kernel<svt_cam::kPerspective><<<grid, kThreads, 0, s>>>(N, k, dc, pts, out);
+  } else if (model == svt_cam::kFisheye) {
+    if (N > 0) undistort_kernel<svt_cam::kFisheye><<<grid, kThreads, 0, s>>>(N, k, dc, pts, out);
+  } else if (model == svt_cam::kRadialDivision) {
+    if (N > 0)
+      undistort_kernel<svt_cam::kRadialDivision><<<grid, kThreads, 0, s>>>(N, k, dc, pts, out);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

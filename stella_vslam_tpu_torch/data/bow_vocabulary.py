@@ -19,8 +19,10 @@ centers packed to 8 words per node); on CPU tensors `bow_transform_plain`
 The word ids are equal to the JAX version's, not close.
 
 Host code builds tf (L1-normalised) BoW vectors and the inverted index
-(bow_database.py). `train`, `save`, `save_fbow` and the `.fbow` reader come
-with map IO (ROADMAP Queue 1 item 10).
+(bow_database.py). `load` reads the .npz form, or the reference's .fbow
+(detected by its signature) as an `FbowVocabulary` with the same surface
+(data/fbow_io.py, its descent on kernel V); `save_fbow` writes the tree in
+that form. `train` and `save` are not ported (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -29,12 +31,13 @@ import os
 import numpy as np
 import torch
 
+from stella_vslam_tpu_torch.data.fbow_io import FBOW_SIGNATURE, read_fbow, write_fbow
 from stella_vslam_tpu_torch.kernels import build as kbuild
 
 K_BRANCH = 10
 DEPTH = 4  # 10^4 = 10000 words
 _VOCAB_SEED = 0xB0A
-_FBOW_MAGIC = int(55824124).to_bytes(8, "little")
+_FBOW_MAGIC = FBOW_SIGNATURE.to_bytes(8, "little")
 
 
 def pack_centers(centers) -> np.ndarray:
@@ -149,16 +152,20 @@ class BowVocabulary:
         return s
 
     # ------------------------------------------------------------------
+    def save_fbow(self, path: str):
+        """Export in the reference's FBoW binary format (data/fbow_io.py)."""
+        write_fbow(path, self.centers)
+
     @staticmethod
-    def load(path: str, device="cuda") -> "BowVocabulary":
-        """Load a vocabulary in the .npz form (bit-packed or float centers,
-        `level_0` .. `level_3`)."""
+    def load(path: str, device="cuda"):
+        """Load a vocabulary: the .npz form (bit-packed or float centers,
+        `level_0` .. `level_3`), or a reference FBoW `.fbow` binary
+        (system.cc:44-50), detected by its signature and returned as an
+        FbowVocabulary."""
         with open(path, "rb") as f:
             magic = f.read(8)
         if magic == _FBOW_MAGIC:
-            raise NotImplementedError(
-                "reading a .fbow vocabulary is not ported yet (it comes with "
-                "map IO, ROADMAP Queue 1 item 10)")
+            return read_fbow(path, device)
         v = BowVocabulary(device=device)
         data = np.load(path)
         centers = []

@@ -160,15 +160,18 @@ class TableSnap:
     snapshots), the anchors of the chain rebase that comes with mapping.
     `epoch`: the map's epoch at this publish; a loop correction bumps it
     before it moves the map, so a frame tracked against an older epoch's
-    table is in the gauge from before the correction."""
+    table is in the gauge from before the correction. `next_kf_id`: the id
+    the map's next keyframe gets, as of this publish (a keyframe missing
+    from `kf_poses` with a smaller id was culled, not created after it)."""
 
     __slots__ = ("version", "count", "ids", "tbl_f32", "tbl_u32", "kf_poses", "ready",
-                 "epoch", "_streams")
+                 "epoch", "next_kf_id", "_streams")
 
     def __init__(self, version, count, ids, tbl_f32, tbl_u32, kf_poses, ready=None,
-                 epoch=0):
+                 epoch=0, next_kf_id=0):
         self.version = version
         self.epoch = epoch
+        self.next_kf_id = next_kf_id
         self.count = count
         self.ids = ids  # [C] i64 host
         self.tbl_f32 = tbl_f32  # [C,8] f32 device
@@ -323,6 +326,7 @@ class DeviceLandmarkTable:
             kf_poses=kf_poses,
             ready=streams.ready(self.device),
             epoch=map_db.epoch,
+            next_kf_id=map_db._next_keyfrm_id,
         )
 
 

@@ -16,7 +16,9 @@ a frame means the same cell of the same level on both sides:
   and B read;
 * kernel A, `fast_nms`: per NMS cell, the exact FAST-9/16 score of every
   pixel and the cell's best packed key (iscore<<12 | row<<6 | col), with the
-  two-threshold retry (`ini_fast_thr`, then `min_fast_thr`);
+  two-threshold retry (`ini_fast_thr`, then `min_fast_thr`); with an
+  extraction mask, only the pixels whose level-0 mask pixel (the JAX
+  version's nearest resize) is set;
 * kernel B, `orb_describe`: per keypoint, the clamped 45x45 patch (bf16
   rounded, like the JAX version's one-hot bf16 gathers), the IC-angle, the
   7x7 sigma=2 blur rounded to integer gray levels, and the steered 256-pair
@@ -253,15 +255,46 @@ def fast_score_map(img: torch.Tensor) -> torch.Tensor:
     return torch.maximum(window_min(d), window_min(-d))
 
 
+def nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """jax.image.resize's "nearest" source index of each of n_out outputs
+    from n_in inputs, the identity where the sizes are equal. JAX writes
+    floor((i + 0.5) * n_in / n_out) in float32; its compiler folds the
+    constants into one factor, f32(n_in * f32(1 / n_out)), which decides
+    the ties ((i + 0.5) * n_in / n_out an integer), so this is computed so
+    too."""
+    if n_in == n_out:
+        return np.arange(n_out, dtype=np.int32)
+    f32 = np.float32
+    i = np.arange(n_out, dtype=f32)
+    k = f32(f32(n_in) * (f32(1.0) / f32(n_out)))
+    return np.floor((i + f32(0.5)) * k).astype(np.int32)
+
+
+class LevelMask(NamedTuple):
+    """An extraction mask as kernel A reads it at one level: the level-0
+    mask (uint8, 0 = excluded) and the level's nearest source row of each
+    of its rows and column of each of its columns, tables built by
+    nearest_index for a level-0 mask of src_hw (H0, W0)."""
+
+    mask: torch.Tensor  # [H0, W0] uint8
+    rows: torch.Tensor  # [H] int32
+    cols: torch.Tensor  # [W] int32
+    src_hw: tuple
+
+
 def fast_nms_plain(img: torch.Tensor, g: _LevelGeom, border: int,
-                   ini_thr: float, min_thr: float) -> torch.Tensor:
-    """[Gy*Gx] int32 best packed key per NMS cell, -1 where none."""
+                   ini_thr: float, min_thr: float,
+                   mask: Optional[LevelMask] = None) -> torch.Tensor:
+    """[Gy*Gx] int32 best packed key per NMS cell, -1 where none; with a
+    mask, only the pixels whose nearest level-0 mask pixel is set."""
     b = border
     score = fast_score_map(img)
     dev = img.device
     ys = torch.arange(g.H, device=dev, dtype=torch.int32)[:, None]
     xs = torch.arange(g.W, device=dev, dtype=torch.int32)[None, :]
     region = (xs >= b) & (xs < g.W - b) & (ys >= b) & (ys < g.H - b)
+    if mask is not None:
+        region = region & (mask.mask[mask.rows.long()[:, None], mask.cols.long()[None, :]] != 0)
     iscore = torch.clamp(torch.round(score), 0, 1023).to(torch.int32)
     corner_lo = region & (score > min_thr)
     corner_hi = score > ini_thr
@@ -284,30 +317,49 @@ def fast_nms_plain(img: torch.Tensor, g: _LevelGeom, border: int,
 
 
 def fast_nms(img: torch.Tensor, g: _LevelGeom, border: int,
-             ini_thr: float, min_thr: float) -> torch.Tensor:
+             ini_thr: float, min_thr: float,
+             mask: Optional[LevelMask] = None) -> torch.Tensor:
     """Kernel A on a CUDA image, the plain version on a CPU image. `img`:
     one level [H,W] -> [Gy*Gx], or a batch [B,H,W] whose images are each
-    contiguous (any batch stride) -> [B, Gy*Gx]."""
+    contiguous (any batch stride) -> [B, Gy*Gx]. `mask`: an extraction
+    mask that every image of the batch shares."""
     if not img.is_cuda:
         if img.dim() == 2:
-            return fast_nms_plain(img, g, border, ini_thr, min_thr)
-        return torch.stack([fast_nms_plain(x, g, border, ini_thr, min_thr) for x in img])
+            return fast_nms_plain(img, g, border, ini_thr, min_thr, mask)
+        return torch.stack([fast_nms_plain(x, g, border, ini_thr, min_thr, mask)
+                            for x in img])
     batch = img if img.dim() == 3 else img[None]
     if img.dtype != torch.float32 or tuple(batch.shape[1:]) != (g.H, g.W) \
             or batch.stride(1) != g.W or batch.stride(2) != 1:
         raise ValueError("fast_nms: expects f32 [H,W] level images, each contiguous")
+    if mask is not None and (
+            mask.mask.dtype != torch.uint8 or mask.mask.dim() != 2
+            or not mask.mask.is_contiguous() or mask.mask.device != img.device
+            or tuple(mask.rows.shape) != (g.H,) or tuple(mask.cols.shape) != (g.W,)
+            or mask.rows.dtype != torch.int32 or mask.cols.dtype != torch.int32
+            or mask.rows.device != img.device or mask.cols.device != img.device
+            or tuple(mask.mask.shape) != tuple(mask.src_hw)):
+        raise ValueError("fast_nms: the mask must be a contiguous uint8 [H0,W0] with int32 "
+                         "[H] and [W] index tables into it, on the image's device")
     lib = kbuild.load()
     B = batch.shape[0]
     out = torch.empty((B, g.Gy * g.Gx), dtype=torch.int32, device=img.device)
     kbuild.check(lib.svt_fast_nms(
         B, batch.data_ptr(), batch.stride(0), g.H, g.W, border, g.cs, g.Gy, g.Gx,
-        float(ini_thr), float(min_thr), out.data_ptr(), kbuild.stream_ptr(img.device)),
-        "fast_nms")
+        float(ini_thr), float(min_thr), mask.mask.data_ptr() if mask is not None else None,
+        mask.mask.shape[1] if mask is not None else 0,
+        mask.rows.data_ptr() if mask is not None else None,
+        mask.cols.data_ptr() if mask is not None else None,
+        out.data_ptr(), kbuild.stream_ptr(img.device)), "fast_nms")
     fast_nms.launches += 1
+    if mask is not None:
+        fast_nms.masked_launches += 1
     return out if img.dim() == 3 else out[0]
 
 
 fast_nms.launches = 0
+# the launches with an extraction mask (counted in `launches` too)
+fast_nms.masked_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -478,6 +530,9 @@ class OrbExtractor:
         self._slot_level = i32(lv)
         self._slot_base, self._slot_H, self._slot_W = i32(base), i32(hh), i32(ww)
         self._batch_slots = {}
+        # an extraction mask's nearest source row and column per level
+        self._mask_idx = [(i32([nearest_index(self.height, g.H)]),
+                           i32([nearest_index(self.width, g.W)])) for g in self.levels]
         # level scale per slot, rounded to f32 as `px * g.scale` rounds it
         self._slot_scale = torch.cat(
             [torch.full((g.Gy * g.Gx,), g.scale, dtype=torch.float32)
@@ -537,16 +592,26 @@ class OrbExtractor:
                                     self._slot_H.repeat(B), self._slot_W.repeat(B))
         return self._batch_slots[B]
 
-    def _extract_batch(self, images: torch.Tensor, strips: bool):
+    def level_masks(self, mask: torch.Tensor) -> list:
+        """A level-0 extraction mask [H,W] (uint8, 0 = excluded) -> kernel
+        A's LevelMask of every level."""
+        if mask.dtype != torch.uint8 or tuple(mask.shape) != (self.height, self.width):
+            raise ValueError(f"extraction mask: expected uint8 [{self.height}, {self.width}]")
+        return [LevelMask(mask.contiguous(), rows, cols, (self.height, self.width))
+                for rows, cols in self._mask_idx]
+
+    def _extract_batch(self, images: torch.Tensor, strips: bool, mask=None):
         """[B,H,W] -> a list of B FrameFeatures and, with `strips`, the
         [B, N, 11, 21] uint8 blurred strips; one launch of S per level, of
-        A per level and one of B for the whole batch."""
+        A per level and one of B for the whole batch. `mask`: a level-0
+        extraction mask the batch shares."""
         p = self.params
         B = images.shape[0]
         pyr = self.pyramid_flat(images)
+        masks = self.level_masks(mask) if mask is not None else [None] * len(self.levels)
         pts = [self.cell_keypoints(
-            fast_nms(lv, g, self.border, float(p.ini_fast_thr), float(p.min_fast_thr)), g)
-            for lv, g in zip(self.level_views(pyr), self.levels)]
+            fast_nms(lv, g, self.border, float(p.ini_fast_thr), float(p.min_fast_thr), m), g)
+            for lv, g, m in zip(self.level_views(pyr), self.levels, masks)]
         px, py, valid, resp = (torch.cat(c, dim=-1) for c in zip(*pts))  # [B, N]
         base, hh, ww = self._slots(B)
         out = (orb_describe_strips if strips else orb_describe)(
@@ -563,11 +628,9 @@ class OrbExtractor:
 
     def extract(self, image: torch.Tensor, mask=None) -> FrameFeatures:
         """image: [H,W] grayscale tensor (u8 or f32, 0..255) on the
-        extractor's device."""
-        if mask is not None:
-            raise NotImplementedError(
-                "extraction masks are not ported yet (ROADMAP Queue 1 item 14b)")
-        return self._extract_batch(image[None], False)[0][0]
+        extractor's device. mask: None, or [H,W] uint8 on that device,
+        0 = excluded (the JAX version's `mask != 0`)."""
+        return self._extract_batch(image[None], False, mask)[0][0]
 
     def extract_pair_with_patches(self, image_left: torch.Tensor, image_right: torch.Tensor):
         """Both images of a stereo pair through one launch of each kernel;

@@ -52,9 +52,9 @@ _SIGNATURES = {
     # B, src, batch_stride, w_in, dst, h_out, w_out, row_j, row_w, col_j,
     # col_w, stream
     "svt_resize_level": [_I, _P, _L, _I, _P, _I, _I, _P, _P, _P, _P, _P],
-    # B, img, img_stride, H, W, border, cs, Gy, Gx, ini_thr, min_thr,
-    # out_key, stream
-    "svt_fast_nms": [_I, _P, _L, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
+    # B, img, img_stride, H, W, border, cs, Gy, Gx, ini_thr, min_thr, mask,
+    # mask_w, mask_row, mask_col, out_key, stream
+    "svt_fast_nms": [_I, _P, _L, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P, _P, _P, _P],
     # pyr, base, H, W, x, y, valid, K, taps49, m10, m01, offsets, tau,
     # out_angle, out_desc, out_strip (or NULL), stream
     "svt_orb_describe": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _F,
@@ -119,6 +119,9 @@ _SIGNATURES = {
                 + [_P] * 2,
     # N, desc, centers, out, stream
     "svt_bow_transform": [_I] + [_P] * 4,
+    # N, nblocks, m_k, max_depth, desc, centers, node_info, n_children, out,
+    # stream
+    "svt_fbow_transform": [_I] * 4 + [_P] * 6,
     # N, bearings, pos_w, max_cos, valid, seed, B, out_R, out_t, out_ok,
     # out_cost, out_count, stream
     "svt_pnp_ransac": [_I] + [_P] * 4 + [_U, _I] + [_P] * 6,
@@ -141,8 +144,8 @@ _SIGNATURES = {
     # model, M, mode, fx, fy, cx, cy, width, height, fxb, Rt, pos, tbl_u32,
     # log_scale, num_levels, uv, depth, vis, xr, scale, stream
     "svt_reproject": [_I, _I, _I] + [_F] * 7 + [_P] * 3 + [_F, _I] + [_P] * 6,
-    # N, fx, fy, cx, cy, k1, k2, p1, p2, k3, pts, out, stream
-    "svt_undistort": [_I] + [_F] * 9 + [_P] * 3,
+    # model, N, fx, fy, cx, cy, k1, k2, p1, p2, k3, k4, pts, out, stream
+    "svt_undistort": [_I, _I] + [_F] * 10 + [_P] * 3,
 }
 
 

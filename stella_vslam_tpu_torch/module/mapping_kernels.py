@@ -29,7 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from stella_vslam_tpu_torch.camera.base import CameraModel, ported_model, reproject_to_image
+from stella_vslam_tpu_torch.camera.base import CameraModel, projection_family, reproject_to_image
 from stella_vslam_tpu_torch.kernels import build as kbuild
 from stella_vslam_tpu_torch.match import fuse as fuse_match
 from stella_vslam_tpu_torch.match import hamming as H
@@ -154,7 +154,7 @@ def triangulate_checks(kp1_uv, kp1_level, kp1_bear, kp2_uv, kp2_level, kp2_bear,
         return triangulate_checks_plain(kp1_uv, kp1_level, kp1_bear, kp2_uv, kp2_level,
                                         kp2_bear, poses, idx2, accepted, pair_valid, cam,
                                         sigma_sq, scale_factors, model)
-    kind = ported_model(model)
+    kind = projection_family(model)
     B, N2 = kp2_uv.shape[0], kp2_uv.shape[1]
     N1 = kp1_uv.shape[0]
     L = sigma_sq.shape[0]
@@ -247,7 +247,7 @@ def fuse_scan(kfs: FuseKeyframes, poses, kf_valid, lm_f, lm_desc, lm_valid, cam,
     if not kfs.uv.is_cuda:
         return fuse_scan_plain(kfs, poses, kf_valid, lm_f, lm_desc, lm_valid, cam,
                                scale_factors, sigma_sq, log_scale, margin, model)
-    kind = ported_model(model)
+    kind = projection_family(model)
     B, N = kfs.uv.shape[0], kfs.uv.shape[1]
     M = lm_f.shape[0]
     L = scale_factors.shape[0]
@@ -292,7 +292,6 @@ class MappingKernels:
     device."""
 
     def __init__(self, camera, orb_params, device="cuda"):
-        ported_model(camera.model)
         self.camera = camera
         self.cam = camera.params
         self.orb = orb_params

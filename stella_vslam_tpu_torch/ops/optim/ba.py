@@ -27,10 +27,12 @@ tensors `bundle_adjust_plain` runs the same schedule as torch ops
 (index_add_ where the JAX version uses one-hot matmuls; the reduced system
 through linalg.solve_spd_blocked).
 
-`model` is "perspective" or "equirectangular" (ba.py:322-335, 398-403:
-longitude / latitude rows, no stereo row); the kernels take it as a
-template parameter. The JAX version's packed and stepped entry points and
-its chunked Schur product are not ported (ROADMAP item 9).
+`model` is a camera model's name: "equirectangular" (ba.py:322-335, 398-403:
+longitude / latitude rows, no stereo row) or one of the pinhole family
+("perspective", and "fisheye" and "radial_division" on undistorted
+keypoints); the kernels take the projection as a template parameter. The JAX
+version's packed and stepped entry points and its chunked Schur product are
+not ported (ROADMAP item 9).
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ import torch
 from stella_vslam_tpu_torch.kernels import build as kbuild
 from stella_vslam_tpu_torch.ops import lie
 from stella_vslam_tpu_torch.ops import linalg
-from stella_vslam_tpu_torch.camera.base import ported_model
+from stella_vslam_tpu_torch.camera.base import projection_family
 from stella_vslam_tpu_torch.ops.optim.residuals import CamScalars, equirect_scales
 
 CHI_SQ_2D = 5.991
@@ -312,7 +314,6 @@ def classify_plain(prob, cam, R, t, p, final: bool, model: str = "perspective"):
 def bundle_adjust_plain(prob: BAProblem, cam: CamScalars, *,
                         model: str = "perspective", num_first: int = 5,
                         num_second: int = 10) -> BAResult:
-    ported_model(model)
     ones = torch.ones_like(prob.obs_valid)
     R1, t1, p1, cost1 = _stage_plain(prob, cam, prob.cam_R, prob.cam_t,
                                      prob.lm_pos, ones, True, num_first, model)
@@ -341,7 +342,7 @@ class _KernelState:
         dev = prob.cam_R.device
         f = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
         self.K, self.L, self.D, self.cam = K, L, D, cam
-        self.kind = ported_model(model)
+        self.kind = projection_family(model)
         self.cam_R = prob.cam_R.reshape(K, 9).to(torch.float32).clone()
         self.cam_t = prob.cam_t.to(torch.float32).contiguous().clone()
         self.lm = prob.lm_pos.to(torch.float32).contiguous().clone()

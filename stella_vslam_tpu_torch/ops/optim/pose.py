@@ -20,7 +20,7 @@ import torch
 from stella_vslam_tpu_torch.kernels import build as kbuild
 from stella_vslam_tpu_torch.ops import lie
 from stella_vslam_tpu_torch.ops import linalg
-from stella_vslam_tpu_torch.camera.base import ported_model
+from stella_vslam_tpu_torch.camera.base import projection_family
 from stella_vslam_tpu_torch.ops.optim.residuals import RESIDUAL_FNS, CamScalars
 
 CHI_SQ_2D = 5.991
@@ -39,7 +39,6 @@ def optimize_pose_plain(R_init, t_init, pos_w, obs_uv, obs_x_right,
                         model: str = "perspective", num_rounds: int = 4,
                         num_robust_rounds: int = 2,
                         num_each_iter: int = 10) -> PoseOptResult:
-    ported_model(model)
     res_fn = RESIDUAL_FNS[model]
     is_stereo = obs_x_right > 0
     chi_thr = torch.where(is_stereo, torch.full_like(obs_x_right, CHI_SQ_3D),
@@ -102,7 +101,7 @@ def optimize_pose(R_init, t_init, pos_w, obs_uv, obs_x_right, inv_sigma_sq,
             R_init, t_init, pos_w, obs_uv, obs_x_right, inv_sigma_sq, valid,
             cam, model=model, num_rounds=num_rounds,
             num_robust_rounds=num_robust_rounds, num_each_iter=num_each_iter)
-    kind = ported_model(model)
+    kind = projection_family(model)
     N = pos_w.shape[0]
     dev = pos_w.device
     args = [(pos_w, (N, 3), torch.float32), (obs_uv, (N, 2), torch.float32),

@@ -3,7 +3,8 @@
 Port of `perspective_residual` (stella_vslam_tpu/ops/optim/residuals.py:46),
 `equirectangular_residual` (:92), `RESIDUAL_FNS` (:136) and `CamScalars`:
 perspective mono r = [u, v] (2 dof), stereo/RGBD adds
-u_right = u - fx*baseline/z (3 dof); equirectangular r = [du, dv] in its
+u_right = u - fx*baseline/z (3 dof), also for fisheye and radial division
+on their undistorted keypoints; equirectangular r = [du, dv] in its
 pixels, du wrapped into [-w/2, w/2) by a floor modulo (torch.remainder, as
 jnp.mod), the third row with dof 0. The pose tangent is xi = [rho, phi]
 with left-multiplicative updates (ops/lie.se3_update_left).
@@ -95,5 +96,9 @@ def equirectangular_residual(R_cw, t_cw, pos_w, obs_uv, obs_x_right, cam: CamSca
 
 RESIDUAL_FNS = {
     "perspective": perspective_residual,
+    # fisheye and radial division on undistorted keypoints, as in the
+    # reference (se3/reproj_edge_wrapper.h)
+    "fisheye": perspective_residual,
+    "radial_division": perspective_residual,
     "equirectangular": equirectangular_residual,
 }

@@ -69,10 +69,10 @@ class _Pending:
     copy and the event after it, and the dispatch-time gauge anchors."""
 
     __slots__ = ("frm", "out", "last_frm", "tbl_ids", "host", "event", "t_dispatch",
-                 "ref_kf_at_dispatch", "ref_pose_at_dispatch", "snap_kf_poses", "snap_epoch")
+                 "ref_kf_at_dispatch", "ref_pose_at_dispatch", "snap")
 
     def __init__(self, frm, out, last_frm, tbl_ids, host, event, ref_kf_at_dispatch,
-                 ref_pose_at_dispatch, snap_kf_poses, snap_epoch):
+                 ref_pose_at_dispatch, snap):
         self.frm = frm
         self.out = out
         self.last_frm = last_frm
@@ -84,15 +84,14 @@ class _Pending:
         self.event = event  # CUDA event after that copy (None on the CPU)
         # the gauge the frame was tracked in: its reference keyframe and
         # that keyframe's pose as the tracker saw it (snap pose or creation
-        # pose), and the snap's keyframe poses. The finalized rel-pose
-        # record is computed against these, so a correction landing
-        # between dispatch and finalize is propagated, not double-counted.
+        # pose), and the table it read (its keyframe poses, and its map
+        # epoch: a loop correction since then leaves the frame's pose in
+        # the gauge from before it). The finalized rel-pose record is
+        # computed against these, so a correction landing between dispatch
+        # and finalize is propagated, not double-counted.
         self.ref_kf_at_dispatch = ref_kf_at_dispatch
         self.ref_pose_at_dispatch = ref_pose_at_dispatch
-        self.snap_kf_poses = snap_kf_poses
-        # the map epoch of that table: a loop correction since then leaves
-        # the frame's pose in the gauge from before it
-        self.snap_epoch = snap_epoch
+        self.snap = snap
         self.t_dispatch = time.monotonic()
 
 
@@ -168,7 +167,11 @@ class TrackingModule:
         # last frame's pose relative to its reference keyframe and the host
         # pose of the frame before it (for _resync_chain_with_map)
         self._chain_tbl_version = None
+        # the map epoch of the gauge the chain is in (its table's, or the
+        # map's when it was built from the host map)
+        self._chain_epoch = None
         self._chain_anchor = None
+        self._chain_kf_poses = None  # the kf_poses of the chain's table
         self._last_rel = None
         self._prev_host_pose = None
         # device-chained association + pose state of the last dispatched frame
@@ -185,6 +188,12 @@ class TrackingModule:
         # finalized per-frame results: (frame_id, ts, pose_cw|None,
         # ref_kf_id, rel pose to the ref keyframe|None)
         self.finalized = []
+        # a dict to trace into (None: no trace): per tracked frame id,
+        # where its rel's anchor pose came from ("dispatch", "snapshot",
+        # "creation", "live" or None), the map epoch of its dispatch table
+        # and at its finalize, its reference keyframe at finalize and at
+        # dispatch, and the anchor pose
+        self.rel_trace = None
 
     # ------------------------------------------------------------------
     def warmup(self, num_slots: int, table_capacity: int = 4096):
@@ -403,8 +412,6 @@ class TrackingModule:
             self._dev_pose = self._pose_to_dev(last.pose_cw)
         if self._dev_pose_prev is None:
             self._dev_pose_prev = self._dev_pose
-        use_motion = (self.twist is not None or len(self._pending) > 0) \
-            and self._last_assoc_pos is not None
         ref_kf = self.map_db.keyframes.get(self.ref_keyfrm_id)
         if ref_kf is None:
             self.state = STATE_LOST
@@ -418,8 +425,20 @@ class TrackingModule:
                 and self._chain_tbl_version != tbl.version \
                 and last is not None and last.pose_cw is not None:
             # the mapper changed the map since the chain was built
-            self._resync_chain_with_map(last, tbl)
+            if not self._resync_chain_with_map(last, tbl) and self._chain_epoch != tbl.epoch:
+                # the table is in a newer gauge than the chain, and the map
+                # has moved past the table (a global-BA writeback after the
+                # correction's publish): the host map cannot resync the
+                # chain into the table's gauge, the table itself can
+                if not self._try_rebase_chain(tbl) and not self._drop_chain(tbl):
+                    # no keyframe of the chain's table is in this one: the
+                    # frame needs relocalization
+                    self.state = STATE_LOST
+                    return None
         self._chain_tbl_version = tbl.version
+        self._chain_epoch = tbl.epoch
+        use_motion = (self.twist is not None or len(self._pending) > 0) \
+            and self._last_assoc_pos is not None
         # the reference keyframe's pose in this table's coordinates: as
         # published, or its creation pose if it is newer than the table
         # (never the live pose, which may already carry the next writeback)
@@ -427,6 +446,7 @@ class TrackingModule:
         if anchor_pose is None:
             anchor_pose = ref_kf._pose_at_creation
         self._chain_anchor = (self.ref_keyfrm_id, anchor_pose)
+        self._chain_kf_poses = tbl.kf_poses
         if self._kf_for_assoc is not ref_kf:
             self._refresh_kf_assoc(ref_kf)
         tbl.use_here()
@@ -449,8 +469,7 @@ class TrackingModule:
             event.record(torch.cuda.current_stream(out.packed.device))
         else:
             host, event = out.packed, None
-        p = _Pending(frm, out, last, tbl.ids, host, event, self.ref_keyfrm_id, anchor_pose,
-                     tbl.kf_poses, tbl.epoch)
+        p = _Pending(frm, out, last, tbl.ids, host, event, self.ref_keyfrm_id, anchor_pose, tbl)
         self._pending.append(p)
         # chain device state for the next dispatch
         self._last_assoc_pos = out.assoc_pos
@@ -541,7 +560,7 @@ class TrackingModule:
         # correction: its pose would seed the corrected map in the old one
         # (the mapper resumes before the correction's table is published,
         # and frames in flight finalize after it)
-        if self.mapping_is_enabled and p.snap_epoch == self.map_db.epoch:
+        if self.mapping_is_enabled and p.snap.epoch == self.map_db.epoch:
             ref_kf = self.map_db.keyframes.get(self.ref_keyfrm_id)
             # reliable = tracked landmarks with >= min_num_obs_thr
             # observations (tracking_module.cc:143-144)
@@ -555,7 +574,7 @@ class TrackingModule:
                 # the insertion runs in _drain_insert, off the tracker lock;
                 # last_keyfrm_time moves now, so the next decision does not
                 # insert twice
-                self._insert_pending = (frm, p.snap_epoch)
+                self._insert_pending = (frm, p.snap.epoch)
                 self.last_keyfrm_time = frm.timestamp
         frm.ref_keyfrm_id = self.ref_keyfrm_id
         # relative pose to the reference keyframe, anchored to that
@@ -563,17 +582,26 @@ class TrackingModule:
         # dispatch table's snapshot, or the creation pose of a newer
         # keyframe), so later refinements of it propagate exactly
         rel = None
+        source = None
         if gauge_hazard and p.ref_kf_at_dispatch in self.map_db.keyframes:
             frm.ref_keyfrm_id = p.ref_kf_at_dispatch
             rel = frm.pose_cw @ np.linalg.inv(p.ref_pose_at_dispatch)
+            source = "dispatch"
         else:
-            ref_pose = p.snap_kf_poses.get(self.ref_keyfrm_id)
+            ref_pose = p.snap.kf_poses.get(self.ref_keyfrm_id)
+            source = "snapshot" if ref_pose is not None else None
             ref = self.map_db.keyframes.get(self.ref_keyfrm_id)
             if ref_pose is None and ref is not None:
-                ref_pose = ref._pose_at_creation \
-                    if ref.id > max(p.snap_kf_poses, default=-1) else ref.pose_cw
+                if ref.id >= p.snap.next_kf_id:
+                    ref_pose, source = ref._pose_at_creation, "creation"
+                else:
+                    ref_pose, source = ref.pose_cw, "live"
             if ref_pose is not None:
                 rel = frm.pose_cw @ np.linalg.inv(ref_pose)
+        if self.rel_trace is not None:
+            self.rel_trace[frm.id] = (source, p.snap.epoch, self.map_db.epoch,
+                                      frm.ref_keyfrm_id, p.ref_kf_at_dispatch,
+                                      None if rel is None else frm.pose_cw @ np.linalg.inv(rel))
         self.finalized.append((frm.id, frm.timestamp, frm.pose_cw.copy(),
                                frm.ref_keyfrm_id, rel))
         self._last_rel = rel
@@ -599,6 +627,7 @@ class TrackingModule:
         self._last_rel = None
         self._prev_host_pose = None
         self._chain_anchor = None
+        self._chain_kf_poses = None
 
     # ------------------------------------------------------------------
     def _try_rebase_chain(self, snap) -> bool:
@@ -634,6 +663,7 @@ class TrackingModule:
         self._dev_pose_prev = out[5:7]
         # the reference keyframe's association positions moved too
         self._kf_for_assoc = None
+        self._chain_epoch = snap.epoch
         self.num_rebases += 1
         return True
 
@@ -646,18 +676,20 @@ class TrackingModule:
         from the map (reference update_last_frame, tracking_module.cc:433).
         The reads hold the map lock. While a loop correction or its global
         BA moves the map (its epoch is past the snap's) the map is in another
-        gauge than the table: the chain stays as it is, and the resync runs
-        at the dispatch that reads the correction's own table."""
+        gauge than the table: the chain stays as it is (the caller moves it
+        into the table's gauge on the device when the table's epoch is past
+        the chain's), and the resync runs at the dispatch that reads the
+        correction's own table. Returns whether it resynced."""
         md = self.map_db
         with md.lock:
             if md.epoch != snap.epoch:
-                return
+                return False
             ref = md.keyframes.get(last.ref_keyfrm_id)
             if ref is not None and self._last_rel is not None and self._dev_pose is not None:
                 ref_pose = snap.kf_poses.get(ref.id)
                 if ref_pose is None:
                     ref_pose = ref._pose_at_creation \
-                        if ref.id > max(snap.kf_poses, default=-1) else ref.pose_cw
+                        if ref.id >= snap.next_kf_id else ref.pose_cw
                 T_l_old = last.pose_cw
                 T_l_new = self._last_rel @ ref_pose
                 if not np.allclose(T_l_new, T_l_old, atol=1e-12):
@@ -670,6 +702,30 @@ class TrackingModule:
                     self._dev_pose_prev = self._pose_to_dev(T_p_new)
             self._set_chain_from_frame(last)
             self._kf_for_assoc = None
+        return True
+
+    def _drop_chain(self, snap) -> bool:
+        """When the chain cannot be rebased (its anchor keyframe is not in
+        `snap`): track the next frame without the chain's associations (no
+        motion-model stage), from its poses moved into `snap`'s gauge by
+        the correction of a keyframe both tables hold (the last frame's
+        reference keyframe, else the newest shared one). False when the
+        tables share no keyframe."""
+        self._last_assoc_pos = None
+        self._last_assoc_valid = None
+        self._last_assoc_id = None
+        self._kf_for_assoc = None
+        old = self._chain_kf_poses or {}
+        shared = [i for i in old if i in snap.kf_poses]
+        if not shared or self._dev_pose is None or self._dev_pose_prev is None:
+            return False
+        ref = self.last_frm.ref_keyfrm_id if self.last_frm is not None else None
+        kf_id = ref if ref in shared else max(shared)
+        A = np.linalg.inv(old[kf_id]) @ snap.kf_poses[kf_id]
+        A_R, A_t = self._pose_to_dev(A)
+        self._dev_pose, self._dev_pose_prev = (
+            (R @ A_R, R @ A_t + t) for R, t in (self._dev_pose, self._dev_pose_prev))
+        return True
 
     def _pose_to_dev(self, T):
         return (streams.upload(T[:3, :3].astype(np.float32), self.device),
@@ -698,6 +754,7 @@ class TrackingModule:
         self._last_assoc_valid = streams.upload(has, dev)
         self._last_assoc_id = streams.upload(ids, dev)
         self._chain_tbl_version = version
+        self._chain_epoch = self.map_db.epoch
 
     def _refresh_kf_assoc(self, kf: Keyframe):
         n = kf.num_slots
@@ -742,6 +799,7 @@ class TrackingModule:
             self._kf_for_assoc = None
             self._chain_tbl_version = None
             self._chain_anchor = None
+            self._chain_kf_poses = None
             self._last_rel = None
             self._prev_host_pose = None
             if self.mapper is not None:

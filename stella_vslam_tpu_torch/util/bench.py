@@ -12,7 +12,14 @@ Runs, each through the default `System(cfg)` (threaded, mapping on):
   ATE < 0.10 m);
 * equirectangular: bench.py's 250-frame circle in the box room at 640x320
   (util/equirect_slice.py), with bench.py's gates (at most 10 lost after
-  init, Sim3 ATE < 0.10 m).
+  init, Sim3 ATE < 0.10 m);
+* fisheye and radial division: the mono slice's first 120 frames through
+  each camera (util/distorted_slice.py), with its gates (init by frame 10,
+  at most 2 lost after init, Sim3 ATE < 0.10 m);
+* FBoW: the mono circuit with the reference-format vocabulary
+  tests/data/reference_layout_vocab.fbow (util/fbow_slice.py), with its
+  gates (at most 8 lost after init, kernel V once per keyframe event, with
+  a loop closed Sim3 ATE < 0.10 m).
 
 As bench.py:446-470 does, the optional legs run inside a wall-clock budget
 (BUDGET_S): a leg starts only if the time spent so far plus the last leg's
@@ -87,6 +94,22 @@ def run_equirect_leg(dev) -> dict:
     return s
 
 
+def run_distorted_leg(dev, world, model: str) -> dict:
+    from stella_vslam_tpu_torch.util import distorted_slice
+
+    s = distorted_slice.run_leg(dev, model, world=distorted_slice.leg_world(model, world))
+    distorted_slice.check_gates(s)
+    return s
+
+
+def run_fbow_leg(dev, world) -> dict:
+    from stella_vslam_tpu_torch.util import fbow_slice
+
+    s = fbow_slice.run_leg(dev, world)
+    fbow_slice.check_gates(s)
+    return s
+
+
 def _keys(leg: str, s: dict) -> dict:
     out = {f"gpu_{leg}_fps": s["fps"], f"gpu_{leg}_frames_per_wall_s": s["frames_per_wall_s"],
            f"gpu_{leg}_ate_mm": s["ate_m"] * 1e3,
@@ -97,6 +120,8 @@ def _keys(leg: str, s: dict) -> dict:
         out[f"gpu_{leg}_scale_err_pct"] = s["scale_err"] * 100.0
     if "loops_closed" in s:
         out[f"gpu_{leg}_loops_closed"] = s["loops_closed"]
+    if "init_frame" in s:
+        out[f"gpu_{leg}_init_frame"] = s["init_frame"]
     for q in ("p50", "p99", "max"):
         out[f"gpu_{leg}_frame_ms_{q}"] = s["frame_ms"][q]
     return out
@@ -121,7 +146,7 @@ def main() -> int:
            "value": mono["fps"], "unit": "FPS", "gpu_device": torch.cuda.get_device_name(0),
            "gpu_card": name, **_keys("mono", mono)}
     est_s = 300.0
-    for leg in ("stereo", "equirect", "rgbd"):
+    for leg in ("stereo", "equirect", "rgbd", "fisheye", "radial", "fbow"):
         elapsed = time.time() - t_start
         if elapsed + est_s > BUDGET_S:
             out[f"{leg}_skipped"] = (f"{elapsed:.0f} s elapsed + ~{est_s:.0f} s leg > "
@@ -130,6 +155,10 @@ def main() -> int:
         t_leg = time.time()
         if leg == "equirect":
             s = run_equirect_leg(dev)
+        elif leg in ("fisheye", "radial"):
+            s = run_distorted_leg(dev, world, "fisheye" if leg == "fisheye" else "radial_division")
+        elif leg == "fbow":
+            s = run_fbow_leg(dev, world)
         else:
             s = run_stereo_leg(dev, world, "stereo" if leg == "stereo" else "RGBD")
         out.update(_keys(leg, s))

@@ -44,17 +44,18 @@ EVENT_PHASES = ("triangulation", "fusion", "local_ba", "apply", "cull", "cull_pu
 
 
 def make_system(world: PlaneWorld, device, loop_detector: bool = False,
-                inline_mapping: bool = True) -> System:
+                inline_mapping: bool = True, vocab_path=None) -> System:
     """The bench's mono System (mapping on, as by default) and warm; the loop
     detector off unless asked for (util/loop_slice.py runs the same leg with
-    it on); inline unless asked otherwise (util/threaded_slice.py)."""
+    it on); inline unless asked otherwise (util/threaded_slice.py); the
+    packaged vocabulary unless `vocab_path` names another (util/fbow_slice.py)."""
     cfg = Config.from_dict({
         "Camera": world.camera_yaml(),
         "Feature": {"num_levels": 8},
         "Initializer": {"use_fixed_seed": True},
         "LoopDetector": {"enabled": loop_detector},
     })
-    slam = System(cfg, device=device, inline_mapping=inline_mapping)
+    slam = System(cfg, device=device, inline_mapping=inline_mapping, vocab_path=vocab_path)
     slam.startup()
     return slam
 
@@ -64,6 +65,7 @@ def kernel_wrappers() -> dict:
     launches)."""
     from stella_vslam_tpu_torch.camera import base as cam_base
     from stella_vslam_tpu_torch.data import bow_vocabulary as bow
+    from stella_vslam_tpu_torch.data import fbow_io
     from stella_vslam_tpu_torch.feature import orb_extractor as ox
     from stella_vslam_tpu_torch.match import hamming as H
     from stella_vslam_tpu_torch.match import stereo
@@ -89,7 +91,10 @@ def kernel_wrappers() -> dict:
             "pose_graph": sim3.pose_graph_linearize,
             "scatter_to_current": tk.scatter_to_current, "dedup_by_id": tk.dedup_by_id,
             "rebase_chain": tk.rebase_chain, "reproject_gate": cam_base.reproject_gate,
-            "undistort_norm": cam_base.undistort_norm}
+            "undistort_norm": cam_base.undistort_norm,
+            "undistort_fisheye": cam_base.undistort_fisheye,
+            "undistort_radial": cam_base.undistort_radial,
+            "fbow_transform": fbow_io.fbow_transform}
 
 
 def _pcts(v):

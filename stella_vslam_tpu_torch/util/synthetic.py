@@ -7,11 +7,14 @@ plane homography applied by an inverse bilinear warp (zero outside the
 texture). cv2.warpPerspective interpolates with 1/32-pixel fixed-point
 weights, so the images are close to the JAX package's, not bit-identical.
 Exposure drift and pose-seeded pixel noise follow the JAX version. Floating
-panels are not ported. BoxWorld (the equirectangular camera's textured box
-room, ray-cast per pixel): the same textures from the same rng calls in the
-same order, blurred as cv2 blurs a float32 image (bit for bit), and the JAX
-version's renderer, which is numpy already: the images equal the JAX
-package's byte for byte.
+panels are not ported. DistortedPlaneWorld: PlaneWorld through a fisheye or
+a radial-division camera, each distorted pixel sampling the plane along its
+undistorted ray (float64, no cv2; the JAX package's end-to-end test
+resamples a pinhole image with cv2.remap instead). BoxWorld (the
+equirectangular camera's textured box room, ray-cast per pixel): the same
+textures from the same rng calls in the same order, blurred as cv2 blurs a
+float32 image (bit for bit), and the JAX version's renderer, which is numpy
+already: the images equal the JAX package's byte for byte.
 """
 from __future__ import annotations
 
@@ -76,15 +79,21 @@ class PlaneWorld:
             "fps": 20.0, "cols": self.W, "rows": self.H, "color_order": "Gray",
         }
 
-    def render(self, pose_cw: np.ndarray) -> np.ndarray:
-        """Render the u8 image for camera-from-world pose (4x4)."""
+    def render(self, pose_cw: np.ndarray, uv=None) -> np.ndarray:
+        """Render the u8 image for camera-from-world pose (4x4). `uv`: per
+        output pixel, the float64 pixel (u [H,W], v [H,W]) of the ideal
+        pinhole camera whose ray it sees (a distorted camera's map); the
+        pixel grid itself by default."""
         R, t = pose_cw[:3, :3], pose_cw[:3, 3]
         K = np.array([[self.fx, 0, self.cx], [0, self.fy, self.cy], [0, 0, 1]])
         A = np.stack([R[:, 0], R[:, 1], self.depth * R[:, 2] + t], axis=1)
         half = self.tex_size / 2 * self.mpp
         Tm = np.array([[self.mpp, 0, -half], [0, self.mpp, -half], [0, 0, 1.0]])
         Hinv = np.linalg.inv(K @ A @ Tm)  # image px -> texture px
-        v, u = np.mgrid[0:self.H, 0:self.W].astype(np.float64)
+        if uv is None:
+            v, u = np.mgrid[0:self.H, 0:self.W].astype(np.float64)
+        else:
+            u, v = uv
         den = Hinv[2, 0] * u + Hinv[2, 1] * v + Hinv[2, 2]
         tu = (Hinv[0, 0] * u + Hinv[0, 1] * v + Hinv[0, 2]) / den
         tv = (Hinv[1, 0] * u + Hinv[1, 1] * v + Hinv[1, 2]) / den
@@ -113,6 +122,72 @@ class PlaneWorld:
             nrng = np.random.default_rng(zlib.crc32(np.round(pose_cw, 6).tobytes()))
             img += nrng.normal(0.0, self.noise_sigma, img.shape).astype(np.float32)
         return np.clip(img, 0, 255).astype(np.uint8)
+
+
+# the fisheye and division coefficients of the JAX package's distorted
+# end-to-end test (tests/test_fisheye_radial_e2e.py)
+FISH_D = (0.08, -0.02, 0.015, -0.005)  # Kannala-Brandt k1..k4
+RADIAL_K1 = -0.12  # division model
+
+
+def kb_undistort_norm(xd: np.ndarray, yd: np.ndarray, d=FISH_D, iters: int = 30):
+    """Normalised distorted coordinates -> the undistorted ray's normalised
+    coordinates under Kannala-Brandt, in float64: Newton on theta for
+    theta (1 + k1 t^2 + k2 t^4 + k3 t^6 + k4 t^8) = r_d, then tan(theta)
+    along the same direction (cv2.fisheye.undistortPoints' model)."""
+    k1, k2, k3, k4 = d
+    rd = np.sqrt(xd * xd + yd * yd)
+    th = rd.copy()
+    for _ in range(iters):
+        t2 = th * th
+        f = th * (1 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4)))) - rd
+        df = 1 + t2 * (3 * k1 + t2 * (5 * k2 + t2 * (7 * k3 + t2 * 9 * k4)))
+        th = th - f / df
+    scale = np.where(rd > 1e-12, np.tan(th) / np.maximum(rd, 1e-12), 1.0)
+    return xd * scale, yd * scale
+
+
+def radial_division_undistort_norm(xd: np.ndarray, yd: np.ndarray, k1: float = RADIAL_K1):
+    """The division model's closed form, x_u = x_d / (1 + k1 r_d^2), in
+    float64."""
+    scale = 1.0 / (1.0 + k1 * (xd * xd + yd * yd))
+    return xd * scale, yd * scale
+
+
+class DistortedPlaneWorld:
+    """PlaneWorld seen through a fisheye (Kannala-Brandt, FISH_D) or a
+    radial-division (RADIAL_K1) camera with the world's intrinsics: every
+    distorted pixel takes the undistorted ray of its normalised coordinates
+    (float64, no cv2), which PlaneWorld.render casts onto the plane and
+    samples as it samples its own pixels, with the same texture, noise and
+    exposure drift."""
+
+    def __init__(self, world: PlaneWorld, model: str):
+        if model not in ("fisheye", "radial_division"):
+            raise ValueError(f"DistortedPlaneWorld: no model {model!r}")
+        self.world, self.model = world, model
+        v, u = np.mgrid[0:world.H, 0:world.W].astype(np.float64)
+        xd, yd = (u - world.cx) / world.fx, (v - world.cy) / world.fy
+        und = kb_undistort_norm if model == "fisheye" else radial_division_undistort_norm
+        xu, yu = und(xd, yd)
+        self._uv = (world.fx * xu + world.cx, world.fy * yu + world.cy)
+
+    def __getattr__(self, name):
+        return getattr(self.world, name)
+
+    def camera_yaml(self):
+        cam = dict(self.world.camera_yaml(), model=self.model,
+                   name=f"synthetic {self.model}", k1=0.0, k2=0.0, k3=0.0, k4=0.0)
+        for key in ("p1", "p2"):
+            cam.pop(key)
+        if self.model == "fisheye":
+            cam.update(zip(("k1", "k2", "k3", "k4"), FISH_D))
+        else:
+            cam["k1"] = RADIAL_K1
+        return cam
+
+    def render(self, pose_cw: np.ndarray) -> np.ndarray:
+        return self.world.render(pose_cw, uv=self._uv)
 
 
 class BoxWorld:

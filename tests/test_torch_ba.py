@@ -190,13 +190,17 @@ def test_solve_spd_blocked_matches_dense():
 
 def test_bundle_adjust_model_dispatch():
     """bundle_adjust runs the equirectangular model (its parity with JAX is
-    tests/test_torch_equirect_optim.py) and raises for a model still to
-    port, naming ROADMAP item 14."""
+    tests/test_torch_equirect_optim.py), and the fisheye and radial-division
+    models as the perspective one on the same undistorted rows, as the JAX
+    package does (its RESIDUAL_FNS): the same result, bit for bit."""
     p = make_problem(K=2, L=8, D=2)
     prob = tba.BAProblem(**{k: torch.from_numpy(np.ascontiguousarray(
         v.astype(np.float32) if v.dtype == np.float64 else v)) for k, v in p.items()})
     cam = CamScalars(FX, FX, CX, CY, 400.0, 300.0, FXB)
     res = tba.bundle_adjust(prob, cam, model="equirectangular", num_first=1, num_second=1)
     assert torch.isfinite(res.cam_R).all() and torch.isfinite(res.lm_pos).all()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tba.bundle_adjust(prob, cam, model="fisheye")
+    ref = tba.bundle_adjust(prob, cam, model="perspective")
+    for model in ("fisheye", "radial_division"):
+        out = tba.bundle_adjust(prob, cam, model=model)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b), model

@@ -128,7 +128,22 @@ def test_database_acquire_keyframes_equal(vocabs):
 
 
 def test_load_refuses_fbow(tmp_path):
-    p = tmp_path / "v.fbow"
-    p.write_bytes(int(55824124).to_bytes(8, "little") + b"\0" * 64)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tbow.BowVocabulary.load(str(p), "cpu")
+    """A truncated .fbow is refused as the JAX package refuses it (the name
+    is from when the port refused every .fbow): a complete header with its
+    blocks cut raises ValueError, a cut header struct.error, in both."""
+    import os
+    import struct
+
+    from stella_vslam_tpu.data.bow_vocabulary import BowVocabulary as JBowVocabulary
+
+    fixture = os.path.join(os.path.dirname(__file__), "data", "reference_layout_vocab.fbow")
+    blob = open(fixture, "rb").read()
+    for data, exc in ((blob[:8 + 120 + 10], ValueError),
+                      (int(55824124).to_bytes(8, "little") + b"\0" * 64, struct.error)):
+        p = tmp_path / "v.fbow"
+        p.write_bytes(data)
+        with pytest.raises(exc) as got:
+            tbow.BowVocabulary.load(str(p), "cpu")
+        with pytest.raises(exc) as ref:
+            JBowVocabulary.load(str(p))
+        assert type(got.value) is type(ref.value) and str(got.value) == str(ref.value)

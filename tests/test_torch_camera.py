@@ -4,8 +4,9 @@ tangential distortion). Measured (CPU): undistorted keypoints, bearings
 and reprojections bit-identical (max |diff| 0). Bounds: 1e-4 px for pixel
 outputs and 1e-5 otherwise (f32 rounding of another summation order is
 allowed). The equirectangular camera builds centred (its functions'
-parity is tests/test_torch_equirect_camera.py); models the port does not
-have raise.
+parity is tests/test_torch_equirect_camera.py); fisheye and radial
+division build as the JAX version's (their functions' parity is
+tests/test_torch_distorted_camera.py).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -68,9 +69,17 @@ def test_se3_helpers_match_jax():
 
 @pytest.mark.parametrize("model", ["fisheye", "radial_division"])
 def test_unported_models_raise(model):
-    node = {"model": model, "setup": "monocular", "cols": 640, "rows": 480}
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tcam.camera_from_yaml(node)
+    """The models that raised before they were ported now build from YAML
+    with the JAX version's parameters (its name kept from then)."""
+    node = {"model": model, "setup": "monocular", "cols": 640, "rows": 480, "fx": 300.0,
+            "fy": 301.0, "cx": 320.5, "cy": 240.5, "k1": -0.12, "k2": 0.01, "k3": 0.002,
+            "k4": -0.0005}
+    cam = tcam.camera_from_yaml(node)
+    ref = jcam.camera_from_yaml(node)
+    assert cam.model == ref.model == jcam.CameraModel[model.upper()]
+    assert cam.setup == ref.setup and (cam.width, cam.height) == (ref.width, ref.height)
+    for name in tcam.CameraParams._fields:
+        assert getattr(cam.params, name) == float(getattr(ref.params, name)), name
 
 
 def test_equirect_camera_builds():

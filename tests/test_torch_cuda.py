@@ -985,3 +985,76 @@ def test_essential_5pt_kernel_matches_plain(dev):
     tight = lambda E, ok: float((torch.einsum("bni,brij,bnj->brn", s2, E, s1).abs().amax(-1)
                                  < 5e-4)[ok].float().mean())
     assert tight(Ek, vk) >= tight(Ep, vp) - 0.02
+
+
+@pytest.mark.parametrize("model", ["fisheye", "radial_division"])
+@pytest.mark.parametrize("n", [1, 333, 2872])
+def test_undistort_modes_equal_plain_bit_for_bit(dev, model, n):
+    """Kernel R's Kannala-Brandt and division modes round as the torch
+    expressions do on the card, bit for bit, over the whole image (the
+    JAX package's end-to-end coefficients) and at the principal point."""
+    from stella_vslam_tpu_torch.camera import base as cb
+    from stella_vslam_tpu_torch.util import synthetic
+
+    k = dict(zip(("k1", "k2", "k3", "k4"), synthetic.FISH_D)) if model == "fisheye" \
+        else dict(k1=synthetic.RADIAL_K1)
+    p = cb.make_params(fx=458.0, fy=458.0, cx=376.0, cy=240.0, width=752, height=480, **k)
+    g = torch.Generator().manual_seed(n)
+    pts = torch.rand(n, 2, generator=g) * torch.tensor([752.0, 480.0])
+    pts[0] = torch.tensor([376.0, 240.0])
+    pts = pts.to(dev)
+    kern, plain = ((cb.undistort_fisheye, cb.fisheye_undistort) if model == "fisheye"
+                   else (cb.undistort_radial, cb.radial_division_undistort))
+    before = kern.launches
+    out = cb.undistort_keypoints(cb.CameraModel[model.upper()], p, pts)
+    assert kern.launches == before + 1
+    assert torch.equal(out, plain(p, pts))
+
+
+@pytest.mark.parametrize("size,levels", [((400, 300), 4), ((752, 480), 8)])
+def test_fast_nms_mask_kernel_equals_plain(dev, size, levels):
+    """Kernel A with an extraction mask against its plain version on every
+    level: the half-image mask and a seeded random one."""
+    w, h = size
+    params = OrbParams(num_levels=levels)
+    ex = ox.OrbExtractor(params, w, h, min_area=800, device=dev)
+    img = PlaneWorld(width=w, height=h, noise_sigma=2.0).render(lateral_trajectory(2)[1])
+    pyr = ex.pyramid(torch.from_numpy(img).to(dev))
+    half = np.ones((h, w), np.uint8)
+    half[:, : w // 2] = 0
+    rnd = (np.random.default_rng(3).random((h, w)) > 0.3).astype(np.uint8)
+    thr = (float(params.ini_fast_thr), float(params.min_fast_thr))
+    for m in (half, rnd):
+        lm = ex.level_masks(torch.from_numpy(m).to(dev))
+        before = ox.fast_nms.masked_launches
+        for lvl, g, mask in zip(pyr, ex.levels, lm):
+            k = ox.fast_nms(lvl.contiguous(), g, ex.border, *thr, mask)
+            assert torch.equal(k, ox.fast_nms_plain(lvl.contiguous(), g, ex.border, *thr, mask))
+        assert ox.fast_nms.masked_launches == before + levels
+
+
+@pytest.mark.parametrize("n", [1, 129, 2872])
+def test_fbow_transform_kernel_equals_plain(dev, n):
+    """Kernel V's word ids equal its plain version's on the irregular
+    fixture tree and on a small complete one."""
+    import os
+    import tempfile
+
+    from stella_vslam_tpu_torch.data import fbow_io
+
+    fixture = os.path.join(os.path.dirname(__file__), "data", "reference_layout_vocab.fbow")
+    rng = np.random.default_rng(n)
+    desc = torch.as_tensor(rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32)
+                           .view(np.int32), device=dev)
+    levels = [rng.integers(0, 2, (3 ** (l + 1), 256)).astype(np.float32) * 2 - 1
+              for l in range(4)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "small.fbow")
+        fbow_io.write_fbow(path, levels)
+        vocabs = [fbow_io.read_fbow(fixture, dev), fbow_io.read_fbow(path, dev)]
+    for vocab in vocabs:
+        tab = vocab.tables()
+        before = fbow_io.fbow_transform.launches
+        k = vocab.transform(desc)
+        assert fbow_io.fbow_transform.launches == before + 1
+        assert torch.equal(k, fbow_io.fbow_transform_plain(desc, tab))
