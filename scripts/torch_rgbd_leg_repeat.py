@@ -1,15 +1,18 @@
 """Run one of bench.py's threaded legs many times on one card, in parallel
 processes, and check the leg's gates on every run.
 
-    python scripts/torch_rgbd_leg_repeat.py [--leg rgbd|threaded] [--runs N]
+    python scripts/torch_rgbd_leg_repeat.py [--leg rgbd|threaded|equirect] [--runs N]
 
-RUNS runs (40 for the RGBD leg, 20 for the mono circuit) in WORKERS
-processes, a fresh System per run. `--leg rgbd`: util/stereo_slice.py's
+RUNS runs (40 for the RGBD leg, 20 for the mono circuit, 48 for the
+equirectangular leg) in WORKERS processes, a fresh System per run.
+`--leg rgbd`: util/stereo_slice.py's
 RGBD leg with mapping (640 frames, the default threaded System with mapping
 and the loop detector) with its gates (stereo_slice.check_gates).
 `--leg threaded`: util/threaded_slice.py's 1290-frame mono circuit (the
 default threaded System, the bench's injected drift) with bench.py's mono
-gates (util/bench.check_mono_gates). A run's nondeterminism comes from the
+gates (util/bench.check_mono_gates). `--leg equirect`:
+util/equirect_slice.py's 250-frame leg (the default threaded System) with
+its gates (equirect_slice.check_gates). A run's nondeterminism comes from the
 threads, so one run proves little. The images are rendered once and
 shared: each worker's world hands back the stored image after sleeping the
 measured mean render time, so the feed keeps the leg's pace while the
@@ -41,14 +44,14 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 from chip_smoke import OUT_DIR
-from stella_vslam_tpu_torch.util import stereo_slice, threaded_slice
+from stella_vslam_tpu_torch.util import equirect_slice, stereo_slice, threaded_slice
 from stella_vslam_tpu_torch.util.bench import card, check_mono_gates
 from stella_vslam_tpu_torch.util.drift import pose_at_xy
 from stella_vslam_tpu_torch.util.loop_slice import circuit
 from stella_vslam_tpu_torch.util.mono_slice import sim3_align
 from stella_vslam_tpu_torch.util.rgbd_slice import bench_world
 
-RUNS = {"rgbd": 40, "threaded": 20}
+RUNS = {"rgbd": 40, "threaded": 20, "equirect": 48}
 WORKERS = 8
 # a mono frame this far off after the alignment is reported with its trace
 OFF_M = 0.10
@@ -58,13 +61,25 @@ def leg_path(leg: str):
     return stereo_slice.leg_path(640) if leg == "rgbd" else circuit()
 
 
+def leg_world(leg: str):
+    return equirect_slice.bench_world() if leg == "equirect" else bench_world()
+
+
+def leg_poses(leg: str) -> list:
+    """The camera-from-world poses the leg renders, in feed order."""
+    if leg == "equirect":
+        return list(equirect_slice.equirect_circle(250)[0])
+    return [pose_at_xy(x, y) for (x, y) in leg_path(leg)]
+
+
 class StoredWorld:
-    """The bench world with its images rendered once: render() waits the
+    """The leg's world with its images rendered once: render() waits the
     mean render time and returns the stored image of that pose."""
 
-    def __init__(self, world, frames, render_s: float, path):
+    def __init__(self, world, frames, render_s: float, poses):
         self._world, self._render_s = world, render_s
-        self._frames = {pose_at_xy(x, y).tobytes(): frames[i] for i, (x, y) in enumerate(path)}
+        self._frames = {np.asarray(T, np.float64).tobytes(): frames[i]
+                        for i, T in enumerate(poses)}
 
     def __getattr__(self, name):
         return getattr(self._world, name)
@@ -208,6 +223,11 @@ def run_once(leg: str, dev, world, gt_xy, run: int) -> dict:
         worst, at = finalize_errors(slam, gt_xy)
         gates = stereo_slice.check_gates
         out = dict(scale_err=s["scale_err"], max_finalize_err_m=worst, at_frame=at)
+    elif leg == "equirect":
+        s = equirect_slice.run_leg(dev, world)
+        gates = equirect_slice.check_gates
+        out = dict(init_frame=s["init_frame"], tracked=s["tracked"],
+                   keyframes_kept=s["keyframes_kept"], landmarks=s["landmarks"])
     else:
         slam = threaded_slice.make_system(world, dev)
         slam.tracker.rel_trace = {}
@@ -238,7 +258,8 @@ def run_once(leg: str, dev, world, gt_xy, run: int) -> dict:
 def worker(leg: str, runs: list, frames_path: str, render_s: float, out_path: str) -> None:
     dev = torch.device("cuda", 0)
     gt_xy = leg_path(leg)
-    world = StoredWorld(bench_world(), np.load(frames_path, mmap_mode="r"), render_s, gt_xy)
+    world = StoredWorld(leg_world(leg), np.load(frames_path, mmap_mode="r"), render_s,
+                        leg_poses(leg))
     for run in runs:
         rec = run_once(leg, dev, world, gt_xy, run)
         line = json.dumps(rec)
@@ -249,7 +270,7 @@ def worker(leg: str, runs: list, frames_path: str, render_s: float, out_path: st
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--leg", choices=("rgbd", "threaded"), default="rgbd")
+    ap.add_argument("--leg", choices=("rgbd", "threaded", "equirect"), default="rgbd")
     ap.add_argument("--runs", type=int, default=None)
     ap.add_argument("--worker-runs", help=argparse.SUPPRESS)
     ap.add_argument("--frames", help=argparse.SUPPRESS)
@@ -263,16 +284,16 @@ def main():
                args.render_s, args.out)
         return 0
     runs = args.runs or RUNS[args.leg]
-    world = bench_world()
+    world = leg_world(args.leg)
     t = time.perf_counter()
-    frames = np.stack([world.render(pose_at_xy(x, y)) for (x, y) in leg_path(args.leg)])
+    frames = np.stack([world.render(T) for T in leg_poses(args.leg)])
     render_s = (time.perf_counter() - t) / len(frames)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "frames.npy")
         np.save(path, frames)
         del frames
         # every kernel built once, before the workers look for the library
-        stereo_slice.make_system(world, torch.device("cuda", 0), "RGBD").shutdown()
+        stereo_slice.make_system(bench_world(), torch.device("cuda", 0), "RGBD").shutdown()
         out = os.path.join(tmp, "runs.jsonl")
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--leg", args.leg, "--frames", path,

@@ -51,6 +51,27 @@
 // in registers, writes only W (6x3 per observation) for H, and reduces the
 // camera-side sums on chip before touching device memory.
 //
+//  W ba_reduce_kernel and ba_decide_kernel (K22, the landmark-sharded global
+//    BA; replaces the psums of stella_vslam_tpu/parallel/sharded_ba.py
+//    :158-162 and the all-reduces GSPMD inserts into bundle_adjust): the
+//    landmark rows are cut into shards on whole 128-landmark chunks, each
+//    with its own replica of the cameras and ctrl, on its own device or
+//    several on one. F's first launch and H's first launch run per shard;
+//    W's reduce mode, on every shard's device, adds every shard's F
+//    partials in (shard, block) order into its replica of Hcc / b_c, the
+//    reduced system and the cost (F's own second launch is the one-shard
+//    case of the same kernel); G runs on each replica on identical inputs;
+//    W's decide mode adds every shard's H trial costs in (shard, block)
+//    order, takes H's accept / reject on its replica's ctrl, and commits its
+//    camera replica and its own shard's points. Shards on chunk boundaries
+//    reduced in that order perform the unsharded BA's float additions in the
+//    same order, so the result equals the unsharded one bit for bit wherever
+//    F's block count is not cut. A device reads the other shards' partials
+//    through peer access (over NVLink between cards, plain loads on one
+//    card): no staging copy and no collective library, since one process
+//    drives every shard and the fixed order is what makes the sum equal.
+//    Bound by the bytes it reads: every shard's partials, once per device.
+//
 // F, H and I are templated on the camera model (perspective, or the
 // equirectangular rows of ba.py :322-335 with camera.cuh's 2x3 Jacobian and
 // no stereo row, :398-403); G does not depend on it.
@@ -100,6 +121,16 @@ struct Problem {
   const uint8_t* lm_valid;  // [L]
   const uint8_t* lm_fixed;  // [L] or null
   const float* cam_free;    // [K] 1 = optimised
+};
+
+// The partials of every shard of a sharded BA, in shard order: for F's,
+// each shard's block count; for H's, each shard's trial-cost slots (kernel
+// parameters, so that no device table needs copying per launch).
+constexpr int kMaxShards = 64;
+struct ShardParts {
+  const float* ptr[kMaxShards];
+  int blocks[kMaxShards];
+  int count;
 };
 
 // One observation projected at a state: residual rows (row 2 the stereo
@@ -450,18 +481,22 @@ ba_linearize_kernel(Problem P, Cam cam, const float* __restrict__ cam_R,
     for (int i = threadIdx.x; i < n6 * n6; i += blockDim.x) mine_part[total + 1 + i] = S_s[i];
 }
 
-// F, second launch: the blocks' partials added in block order, one thread
-// per entry, into Hcc / b_c, the reduced system, its right-hand side and
-// the cost at the linearization point.
-__global__ void ba_reduce_kernel(int K, int blocks, const float* __restrict__ part,
-                                 float* __restrict__ ctrl, float* __restrict__ hc_g,
-                                 float* __restrict__ S_g, float* __restrict__ rhs_g) {
+// F's second launch and W's reduce mode: the shards' block partials added
+// in (shard, block) order, one thread per entry, into Hcc / b_c, the reduced
+// system, its right-hand side and the cost at the linearization point. F
+// passes one shard, its own blocks.
+__global__ void ba_reduce_kernel(int K, ShardParts T, float* __restrict__ ctrl,
+                                 float* __restrict__ hc_g, float* __restrict__ S_g,
+                                 float* __restrict__ rhs_g) {
   if (ctrl[kDone] != 0.f) return;
   const size_t psize = f_partial_size(K);
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < psize;
        i += (size_t)gridDim.x * blockDim.x) {
     float s = 0.f;
-    for (int b = 0; b < blocks; ++b) s += part[b * psize + i];
+    for (int sh = 0; sh < T.count; ++sh) {
+      const float* part = T.ptr[sh];
+      for (int b = 0; b < T.blocks[sh]; ++b) s += part[b * psize + i];
+    }
     if (i < 27 * (size_t)K)
       hc_g[i] = s;
     else if (i < 33 * (size_t)K)
@@ -610,7 +645,24 @@ ba_solve_kernel(int K, const float* __restrict__ cam_free, const float* __restri
   for (int q = tid; q < n; q += blockDim.x) rhs_g[q] = 0.f;
 }
 
-template <int MODEL>
+// H's accept / reject of the trial state on its cost c1 against F's c0:
+// lambda halved or quadrupled, the gain < 1e-3 stop flag, the stage's last
+// cost; F's and H's cost slots cleared. Returns whether the trial is taken.
+__device__ __forceinline__ bool lm_decide(float* ctrl, float c0, float c1, float lam) {
+  const bool imp = c1 < c0;
+  const float gain = (c0 - c1) / fmaxf(c0, 1e-12f);
+  float lm_ = imp ? lam * 0.5f : lam * 4.f;
+  ctrl[kLam] = fminf(fmaxf(lm_, 1e-8f), 1e4f);
+  ctrl[kDone] = (imp && gain < 1e-3f) ? 1.f : 0.f;
+  ctrl[kLastCost] = c1;
+  ctrl[kCost0] = 0.f;
+  ctrl[kCost1] = 0.f;
+  return imp;
+}
+
+// DECIDE: the last block takes the decision (one device); without it each
+// block only writes its trial cost, for W's decide mode (shards).
+template <int MODEL, bool DECIDE>
 __global__ void __launch_bounds__(kThreadsLm)
 ba_backsub_kernel(Problem P, Cam cam, float* __restrict__ cam_R, float* __restrict__ cam_t,
                   float* __restrict__ lm, int use_huber, float* __restrict__ ctrl,
@@ -664,10 +716,13 @@ ba_backsub_kernel(Problem P, Cam cam, float* __restrict__ cam_R, float* __restri
     float s = 0.f;
     for (int w = 0; w < kThreadsLm / 32; ++w) s += red[w];
     cost_part[blockIdx.x] = s;
-    __threadfence();
-    const unsigned int prev = atomicInc(counter, gridDim.x - 1);
-    last = prev == gridDim.x - 1;
+    if (DECIDE) {
+      __threadfence();
+      const unsigned int prev = atomicInc(counter, gridDim.x - 1);
+      last = prev == gridDim.x - 1;
+    }
   }
+  if (!DECIDE) return;
   __syncthreads();
   if (!last) return;
   // the last block: every block's trial cost and lmn are in; decide
@@ -676,22 +731,41 @@ ba_backsub_kernel(Problem P, Cam cam, float* __restrict__ cam_R, float* __restri
     // every block's trial cost, added in block order
     float c1 = 0.f;
     for (unsigned int b = 0; b < gridDim.x; ++b) c1 += __ldcg(cost_part + b);
-    const float c0 = __ldcg(ctrl + kCost0);
-    const bool imp = c1 < c0;
-    const float gain = (c0 - c1) / fmaxf(c0, 1e-12f);
-    float lm_ = imp ? lam * 0.5f : lam * 4.f;
-    ctrl[kLam] = fminf(fmaxf(lm_, 1e-8f), 1e4f);
-    ctrl[kDone] = (imp && gain < 1e-3f) ? 1.f : 0.f;
-    ctrl[kLastCost] = c1;
-    ctrl[kCost0] = 0.f;
-    ctrl[kCost1] = 0.f;
-    improved = imp;
+    improved = lm_decide(ctrl, __ldcg(ctrl + kCost0), c1, lam);
   }
   __syncthreads();
   if (!improved) return;
   for (int i = threadIdx.x; i < 9 * P.K; i += blockDim.x) cam_R[i] = __ldcg(cam_Rn + i);
   for (int i = threadIdx.x; i < 3 * P.K; i += blockDim.x) cam_t[i] = __ldcg(cam_tn + i);
   for (int i = threadIdx.x; i < 3 * P.L; i += blockDim.x) lm[i] = __ldcg(lmn + i);
+}
+
+// W's decide mode (one block): every shard's H trial costs added in
+// (shard, block) order, H's decision on this replica's ctrl, and on accept
+// this replica's cameras and its own shard's L points committed.
+constexpr int kThreadsDecide = 1024;
+
+__global__ void __launch_bounds__(kThreadsDecide)
+ba_decide_kernel(int K, int L, ShardParts T, float* __restrict__ ctrl, float* __restrict__ cam_R,
+                 float* __restrict__ cam_t, float* __restrict__ lm,
+                 const float* __restrict__ cam_Rn, const float* __restrict__ cam_tn,
+                 const float* __restrict__ lmn) {
+  __shared__ bool improved;
+  if (threadIdx.x == 0) {
+    bool imp = false;
+    if (ctrl[kDone] == 0.f) {
+      float c1 = 0.f;
+      for (int sh = 0; sh < T.count; ++sh)
+        for (int b = 0; b < T.blocks[sh]; ++b) c1 += T.ptr[sh][b];
+      imp = lm_decide(ctrl, ctrl[kCost0], c1, ctrl[kLam]);
+    }
+    improved = imp;
+  }
+  __syncthreads();
+  if (!improved) return;
+  for (int i = threadIdx.x; i < 9 * K; i += blockDim.x) cam_R[i] = cam_Rn[i];
+  for (int i = threadIdx.x; i < 3 * K; i += blockDim.x) cam_t[i] = cam_tn[i];
+  for (int i = threadIdx.x; i < 3 * L; i += blockDim.x) lm[i] = lmn[i];
 }
 
 // I ba_classify_kernel (grid over observations): chi-square and depth of
@@ -721,6 +795,35 @@ size_t linearize_smem(int K, bool s_direct) {
                           (s_direct ? 0 : n6 * n6));
 }
 
+
+// F's first launch; returns the block count it launched (0: no landmark)
+// or a negative CUDA error
+int launch_linearize(int model, const Problem& P, const Cam& c, const float* cam_R,
+                     const float* cam_t, const float* lm, int use_huber, float* ctrl, float* Wg,
+                     float* lmblk, int blocks, float* part, cudaStream_t st) {
+  if (model != svt_cam::kPerspective && model != svt_cam::kEquirect)
+    return -(int)cudaErrorInvalidValue;
+  const int K = P.K;
+  const bool s_direct = linearize_smem(K, false) > kMaxBlockSmem;
+  const size_t smem = linearize_smem(K, s_direct);
+  auto kernel = model == svt_cam::kEquirect ? ba_linearize_kernel<svt_cam::kEquirect>
+                                            : ba_linearize_kernel<svt_cam::kPerspective>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int chunks = (P.L + kThreadsLm - 1) / kThreadsLm;
+  if (chunks == 0) return 0;
+  if (blocks < 1 || blocks > chunks) return -(int)cudaErrorInvalidValue;
+  kernel<<<blocks, kThreadsLm, smem, st>>>(P, c, cam_R, cam_t, lm, use_huber, ctrl, Wg, lmblk,
+                                           part, s_direct ? 1 : 0);
+  return blocks;
+}
+
+void launch_reduce(int K, const ShardParts& T, float* ctrl, float* hc, float* S, float* rhs,
+                   cudaStream_t st) {
+  const size_t n = f_partial_size(K);
+  const int rblocks = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
+  ba_reduce_kernel<<<rblocks, 256, 0, st>>>(K, T, ctrl, hc, S, rhs);
+}
+
 }  // namespace
 
 // model: 0 perspective, 2 equirectangular (camera.cuh), for F, H and I
@@ -736,25 +839,40 @@ extern "C" int svt_ba_linearize(int model, int K, int L, int D, const int* obs_c
                                 float* part, void* stream) {
   // blocks: F's block count (at most one per landmark chunk); part:
   // blocks x (33K + 1 + 36K^2) floats of device memory
-  if (model != svt_cam::kPerspective && model != svt_cam::kEquirect)
-    return (int)cudaErrorInvalidValue;
-  const bool s_direct = linearize_smem(K, false) > kMaxBlockSmem;
-  const size_t smem = linearize_smem(K, s_direct);
-  auto kernel = model == svt_cam::kEquirect ? ba_linearize_kernel<svt_cam::kEquirect>
-                                            : ba_linearize_kernel<svt_cam::kPerspective>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   Problem P{K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier, lm_valid,
             lm_fixed, cam_free};
   Cam c{fx, fy, cx, cy, fxb, width, height};
-  const int chunks = (L + kThreadsLm - 1) / kThreadsLm;
-  if (chunks == 0) return (int)cudaGetLastError();
-  if (blocks < 1 || blocks > chunks) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  kernel<<<blocks, kThreadsLm, smem, st>>>(P, c, cam_R, cam_t, lm, use_huber, ctrl, Wg, lmblk,
-                                           part, s_direct ? 1 : 0);
-  const size_t n = f_partial_size(K);
-  const int rblocks = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
-  ba_reduce_kernel<<<rblocks, 256, 0, st>>>(K, blocks, part, ctrl, hc, S, rhs);
+  const int launched = launch_linearize(model, P, c, cam_R, cam_t, lm, use_huber, ctrl, Wg,
+                                        lmblk, blocks, part, st);
+  if (launched < 0) return -launched;
+  if (launched > 0) {
+    ShardParts T{};
+    T.ptr[0] = part;
+    T.blocks[0] = launched;
+    T.count = 1;
+    launch_reduce(K, T, ctrl, hc, S, rhs, st);
+  }
+  return (int)cudaGetLastError();
+}
+
+// F's first launch alone, on one shard of a sharded BA: its block partials,
+// which W's reduce mode adds
+extern "C" int svt_ba_linearize_part(int model, int K, int L, int D, const int* obs_cam,
+                                     const float* obs_uv, const float* obs_xr,
+                                     const float* obs_isig, const uint8_t* obs_valid,
+                                     const uint8_t* inlier, const uint8_t* lm_valid,
+                                     const uint8_t* lm_fixed, const float* cam_free, float fx,
+                                     float fy, float cx, float cy, float fxb, float width,
+                                     float height, const float* cam_R, const float* cam_t,
+                                     const float* lm, int use_huber, float* ctrl, float* Wg,
+                                     float* lmblk, int blocks, float* part, void* stream) {
+  Problem P{K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier, lm_valid,
+            lm_fixed, cam_free};
+  Cam c{fx, fy, cx, cy, fxb, width, height};
+  const int launched = launch_linearize(model, P, c, cam_R, cam_t, lm, use_huber, ctrl, Wg,
+                                        lmblk, blocks, part, (cudaStream_t)stream);
+  if (launched < 0) return -launched;
   return (int)cudaGetLastError();
 }
 
@@ -778,6 +896,8 @@ extern "C" int svt_ba_solve(int K, const float* cam_free, const float* cam_R,
   return (int)cudaGetLastError();
 }
 
+// decide: 1 for one device (the last block decides), 0 on one shard of a
+// sharded BA (each block writes its trial cost; W's decide mode decides)
 extern "C" int svt_ba_backsub(int model, int K, int L, int D, const int* obs_cam,
                               const float* obs_uv, const float* obs_xr, const float* obs_isig,
                               const uint8_t* obs_valid, const uint8_t* inlier,
@@ -787,7 +907,7 @@ extern "C" int svt_ba_backsub(int model, int K, int L, int D, const int* obs_cam
                               float* cam_t, float* lm, int use_huber, float* ctrl,
                               unsigned int* counter, const float* Wg, const float* lmblk,
                               const float* dx, const float* cam_Rn, const float* cam_tn,
-                              float* lmn, float* cost_part, void* stream) {
+                              float* lmn, float* cost_part, int decide, void* stream) {
   // cost_part: one float of device memory per block of kThreadsLm landmarks
   if (model != svt_cam::kPerspective && model != svt_cam::kEquirect)
     return (int)cudaErrorInvalidValue;
@@ -795,13 +915,64 @@ extern "C" int svt_ba_backsub(int model, int K, int L, int D, const int* obs_cam
             lm_fixed, cam_free};
   Cam c{fx, fy, cx, cy, fxb, width, height};
   const int blocks = (L + kThreadsLm - 1) / kThreadsLm;
-  auto kernel = model == svt_cam::kEquirect ? ba_backsub_kernel<svt_cam::kEquirect>
-                                            : ba_backsub_kernel<svt_cam::kPerspective>;
+  const bool eq = model == svt_cam::kEquirect;
+  auto kernel = decide ? (eq ? ba_backsub_kernel<svt_cam::kEquirect, true>
+                             : ba_backsub_kernel<svt_cam::kPerspective, true>)
+                       : (eq ? ba_backsub_kernel<svt_cam::kEquirect, false>
+                             : ba_backsub_kernel<svt_cam::kPerspective, false>);
   if (blocks > 0)
     kernel<<<blocks, kThreadsLm, 0, (cudaStream_t)stream>>>(
         P, c, cam_R, cam_t, lm, use_huber, ctrl, counter, Wg, lmblk, dx, cam_Rn, cam_tn, lmn,
         cost_part);
   return (int)cudaGetLastError();
+}
+
+// W on one device of a sharded BA, for its replica (ctrl, hc, S, rhs,
+// cam_R, cam_t) and its own shard's L points (lm, lmn): mode 0 adds the
+// shards' F partials (parts[s]: blocks[s] partials of 33K + 1 + 36K^2
+// floats), mode 1 the shards' H trial costs (parts[s]: blocks[s] floats) and
+// decides. parts and blocks are host arrays of nshards entries; a part may
+// lie on another device that this one has peer access to.
+extern "C" int svt_ba_shard_assemble(int mode, int K, int L, int nshards, const float* const* parts,
+                                     const int* blocks, float* ctrl, float* hc, float* S,
+                                     float* rhs, float* cam_R, float* cam_t, float* lm,
+                                     const float* cam_Rn, const float* cam_tn, const float* lmn,
+                                     void* stream) {
+  if (nshards < 1 || nshards > kMaxShards || (mode != 0 && mode != 1))
+    return (int)cudaErrorInvalidValue;
+  ShardParts T{};
+  for (int i = 0; i < nshards; ++i) {
+    T.ptr[i] = parts[i];
+    T.blocks[i] = blocks[i];
+  }
+  T.count = nshards;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mode == 0)
+    launch_reduce(K, T, ctrl, hc, S, rhs, st);
+  else
+    ba_decide_kernel<<<1, kThreadsDecide, 0, st>>>(K, L, T, ctrl, cam_R, cam_t, lm, cam_Rn,
+                                                   cam_tn, lmn);
+  return (int)cudaGetLastError();
+}
+
+// Lets `device` read `peer`'s memory (W's reads of other cards' partials);
+// an error when the two cannot reach each other. The caller's current
+// device is kept.
+extern "C" int svt_enable_peer_access(int device, int peer) {
+  int can = 0;
+  cudaError_t e = cudaDeviceCanAccessPeer(&can, device, peer);
+  if (e != cudaSuccess) return (int)e;
+  if (!can) return (int)cudaErrorPeerAccessUnsupported;
+  int prev = 0;
+  cudaGetDevice(&prev);
+  cudaSetDevice(device);
+  e = cudaDeviceEnablePeerAccess(peer, 0);
+  if (e == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    e = cudaSuccess;
+  }
+  cudaSetDevice(prev);
+  return (int)e;
 }
 
 extern "C" int svt_ba_classify(int model, int K, int L, int D, const int* obs_cam,

@@ -36,11 +36,19 @@ either thread are contained and counted in `errors`. `warmup` runs one pose
 graph iteration with its library Cholesky and one global-BA step at the
 circuit's shapes, so that the first loop pays no set-up.
 
-Left out (ROADMAP): marker rows, and the sharded global BA across devices
-(Queue 2, K22).
+The global and loop BAs run through parallel/sharded_ba.py
+(`sharded_bundle_adjust` over `ba_devices`, as the JAX package routes them
+through its mesh): with a device list the landmark rows are sharded and
+the cameras replicated (kernels F, H per shard, W across them, G on every
+card), and the detached loop BA issues its work on one stream per device.
+By default `ba_devices` is None, the one-device BA on the module's device,
+also on a host with several cards: no measurement yet shows the cross-card
+route gaining at the maps this System builds (PERF.md). Left out (ROADMAP):
+marker rows.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import queue
 import threading
@@ -56,6 +64,7 @@ from stella_vslam_tpu_torch.module.loop_detector import LoopDetector
 from stella_vslam_tpu_torch.module.tracking_kernels import make_cam_scalars
 from stella_vslam_tpu_torch.ops.optim import ba as ba_mod
 from stella_vslam_tpu_torch.ops.optim import sim3 as sim3_opt
+from stella_vslam_tpu_torch.parallel import sharded_ba
 from stella_vslam_tpu_torch.util import streams
 
 _log = logging.getLogger(__name__)
@@ -78,6 +87,10 @@ class GlobalOptimizationModule:
         self.orb_params = orb_params
         self.device = torch.device(device)
         self.stream = stream
+        # the devices the global and loop BAs shard their landmark rows over
+        # (None: the one-device BA); a list may repeat a card
+        self.ba_devices = None
+        self._ba_streams = {}
         self.loop_detector = LoopDetector(
             camera, orb_params, bow_db, device=device,
             fix_scale_in_Sim3_estimation=fix_scale, use_fixed_seed=use_fixed_seed,
@@ -123,14 +136,14 @@ class GlobalOptimizationModule:
                 eye.expand(E, 3, 3).contiguous(), f32(E, 3), torch.arange(E, device=dev) < 2,
                 num_iter=1)
             bl = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)
-            ba_mod.bundle_adjust(ba_mod.BAProblem(
+            sharded_ba.sharded_bundle_adjust(ba_mod.BAProblem(
                 cam_R=eye.expand(K, 3, 3).contiguous(), cam_t=f32(K, 3), cam_fixed=first(K),
                 cam_valid=~bl(K), lm_pos=f32(L, 3), lm_valid=bl(L),
                 obs_cam=torch.zeros((L, D), dtype=torch.int32, device=dev),
                 obs_uv=f32(L, D, 2), obs_x_right=f32(L, D) - 1.0,
                 obs_inv_sigma_sq=f32(L, D) + 1.0, obs_valid=bl(L, D)),
                 make_cam_scalars(self.camera), model=self.camera.model.name.lower(),
-                num_first=1, num_second=0)
+                num_first=1, num_second=0, devices=self.ba_devices or [self.device])
             torch.cuda.current_stream(dev).synchronize()
 
     # ------------------------------------------------------------------ thread
@@ -410,11 +423,26 @@ class GlobalOptimizationModule:
         else:
             self._loop_ba_then_merge(cur_kf.id, ms)
 
+    def _ba_device_streams(self):
+        """Context: the loop-closing stream on the module's device and a
+        stream of the loop BA's own on every other device of ba_devices."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(streams.on(self.stream))
+        if self.device.type != "cuda":
+            return stack
+        own = sharded_ba.card(self.device)
+        for d in dict.fromkeys(sharded_ba.card(d) for d in self.ba_devices or ()):
+            if d.type == "cuda" and d != own:
+                if d not in self._ba_streams:
+                    self._ba_streams[d] = streams.new_stream(d)
+                stack.enter_context(streams.on(self._ba_streams[d]))
+        return stack
+
     def _loop_ba_then_merge(self, center_kf_id, ms):
         """The global BA and the duplicate-layer merge after a correction;
         the loop event's record is complete when they are."""
         try:
-            with streams.on(self.stream):
+            with self._ba_device_streams():
                 t2 = time.perf_counter()
                 self.run_global_bundle_adjustment(center_kf_id=center_kf_id)
                 t3 = time.perf_counter()
@@ -657,9 +685,9 @@ class GlobalOptimizationModule:
             prob, lm_ids, kf_slots = self._assemble_global_ba()
             if prob is None:
                 return
-            res = ba_mod.bundle_adjust(prob, make_cam_scalars(self.camera),
-                                       model=self.camera.model.name.lower(),
-                                       num_first=num_iter, num_second=0)
+            res = sharded_ba.sharded_bundle_adjust(
+                prob, make_cam_scalars(self.camera), model=self.camera.model.name.lower(),
+                num_first=num_iter, num_second=0, devices=self.ba_devices or [self.device])
             camR, camt, lm_new = (x.cpu().numpy() for x in (res.cam_R, res.cam_t, res.lm_pos))
             if self._abort_loop_ba:
                 return

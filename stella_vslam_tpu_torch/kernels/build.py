@@ -91,15 +91,23 @@ _SIGNATURES = {
     # stream
     "svt_ba_linearize": [_I, _I, _I, _I] + [_P] * 9 + [_F] * 7 + [_P] * 3
                         + [_I] + [_P] * 6 + [_I] + [_P] * 2,
+    # the same without hc, S, rhs: F's first launch alone (one shard)
+    "svt_ba_linearize_part": [_I, _I, _I, _I] + [_P] * 9 + [_F] * 7 + [_P] * 3
+                             + [_I] + [_P] * 3 + [_I] + [_P] * 2,
     # K, cam_free, cam_R, cam_t, ctrl, hc, S, rhs, dx, cam_Rn, cam_tn, scratch,
     # stream
     "svt_ba_solve": [_I] + [_P] * 12,
     # model, K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier,
     # lm_valid, lm_fixed, cam_free, fx, fy, cx, cy, fxb, width, height,
     # cam_R, cam_t, lm, use_huber, ctrl, counter, Wg, lmblk, dx, cam_Rn,
-    # cam_tn, lmn, cost_part, stream
+    # cam_tn, lmn, cost_part, decide, stream
     "svt_ba_backsub": [_I, _I, _I, _I] + [_P] * 9 + [_F] * 7 + [_P] * 3
-                      + [_I] + [_P] * 10,
+                      + [_I] + [_P] * 9 + [_I, _P],
+    # mode, K, L, nshards, parts (host array), blocks (host array), ctrl, hc,
+    # S, rhs, cam_R, cam_t, lm, cam_Rn, cam_tn, lmn, stream
+    "svt_ba_shard_assemble": [_I] * 4 + [_P] * 13,
+    # device, peer
+    "svt_enable_peer_access": [_I, _I],
     # model, K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, fx, fy,
     # cx, cy, fxb, width, height, cam_R, cam_t, lm, keep, mode, out, stream
     "svt_ba_classify": [_I, _I, _I, _I] + [_P] * 5 + [_F] * 7 + [_P] * 4 + [_I]

@@ -18,12 +18,13 @@ with more inliers is tried first. The decompositions run on the host in
 float64 (one 3x3 SVD each).
 
 Randomness is explicit: every attempt takes its RANSAC seeds, plain uint32
-integers, from `seed_source()` (an `InitSeeds`). The default source draws
-them from a torch.Generator seeded 42 under `use_fixed_seed`; the JAX
-version derives its seeds from jax.random keys, which a test hands over
-through its own seed source. The E path takes the H seeds (`h`, `h_esc`),
-as the JAX version hands E the keys it hands H, and the 5-point sweep its
-own (`e5`).
+integers, from `seed_source()` (an `InitSeeds`). The default source,
+`key_seed_source`, derives them as the JAX version does (initializer.py
+:118,179): from the key PRNGKey(42) under `use_fixed_seed`, else from a
+random one, split five ways per attempt (util/threefry.py, the same
+Threefry-2x32 stream without JAX). The E path takes the H seeds (`h`,
+`h_esc`), as the JAX version hands E the keys it hands H, and the 5-point
+sweep its own (`e5`).
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ from stella_vslam_tpu_torch.ops import triangulation as tri
 from stella_vslam_tpu_torch.ops.solve import essential as esolve
 from stella_vslam_tpu_torch.ops.solve import fundamental as fsolve
 from stella_vslam_tpu_torch.ops.solve import homography as hsolve
+from stella_vslam_tpu_torch.util import threefry
 
 ESCALATION_CHUNKS = 8
 
@@ -53,18 +55,19 @@ class InitSeeds(NamedTuple):
     e5: int  # the 5-point sweep of the escalation on bearings
 
 
-def generator_seed_source(gen: torch.Generator) -> Callable[[], InitSeeds]:
-    # the 5-point seeds come from a generator of their own, so that `gen`
-    # draws what it drew before the bearing path existed
-    gen5 = torch.Generator()
-    gen5.manual_seed(gen.initial_seed() + 1)
+def key_seed_source(seed: int) -> Callable[[], InitSeeds]:
+    """The JAX Initializer's seeds from PRNGKey(seed), attempt by attempt:
+    key, k1, k2, k3, k4 = split(key, 5); H from k1, F from k2, the escalated
+    chunks from split(k3, 8) and split(k4, 8) (ransac.py:96), the 5-point
+    sweep from k4."""
+    key = [threefry.prng_key(seed)]
+    s = threefry.key_seed
 
     def draw() -> InitSeeds:
-        s = torch.randint(0, 1 << 32, (2 + 2 * ESCALATION_CHUNKS,), generator=gen,
-                          dtype=torch.int64).tolist()
-        e5 = int(torch.randint(0, 1 << 32, (1,), generator=gen5, dtype=torch.int64))
-        n = ESCALATION_CHUNKS
-        return InitSeeds(s[0], s[1], tuple(s[2:2 + n]), tuple(s[2 + n:]), e5)
+        key[0], k1, k2, k3, k4 = threefry.split(key[0], 5)
+        return InitSeeds(s(k1), s(k2),
+                         tuple(s(k) for k in threefry.split(k3, ESCALATION_CHUNKS)),
+                         tuple(s(k) for k in threefry.split(k4, ESCALATION_CHUNKS)), s(k4))
     return draw
 
 
@@ -118,12 +121,8 @@ class Initializer:
         fx = max(float(camera.params.fx), 100.0)
         self.reproj_cos_thr = float(np.cos(reproj_err_thr / fx))
         if seed_source is None:
-            gen = torch.Generator()
-            if use_fixed_seed:
-                gen.manual_seed(42)
-            else:
-                gen.seed()
-            seed_source = generator_seed_source(gen)
+            seed_source = key_seed_source(
+                42 if use_fixed_seed else np.random.randint(1 << 30))
         self.seed_source = seed_source
         self.state = Initializer.NOT_READY
         # attempts that ran the escalated sweep

@@ -27,6 +27,15 @@ tensors `bundle_adjust_plain` runs the same schedule as torch ops
 (index_add_ where the JAX version uses one-hot matmuls; the reduced system
 through linalg.solve_spd_blocked).
 
+Across landmark shards (the global BA over several devices,
+parallel/sharded_ba.py, K22) each shard keeps its own rows, partials and
+replica of the cameras: `shard_iteration` launches F and H per shard
+without their reduce and decision, and kernel W (`ba_shard_assemble`)
+adds every shard's partials, then trial costs, in (shard, block) order on
+every device, so that shards on 128-landmark chunk boundaries give the
+unsharded BA's bits; G runs on every replica. The plain version shards the
+same way (`iteration_plain`, the sums in shard order).
+
 `model` is a camera model's name: "equirectangular" (ba.py:322-335, 398-403:
 longitude / latitude rows, no stereo row) or one of the pinhole family
 ("perspective", and "fisheye" and "radial_division" on undistorted
@@ -36,8 +45,9 @@ not ported (ROADMAP item 9).
 """
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -52,6 +62,7 @@ CHI_SQ_3D = 7.815
 MAX_SOLVE_DIM = 192  # up to here kernel G holds the 6K x 6K system in shared memory
 MAX_CAMERAS = 512  # above it G factors in device memory with one block
 LM_CHUNK = 128  # landmarks per block of kernels F and H
+MAX_SHARDS = 64  # kernel W's shard table (csrc/ba_schur.cu kMaxShards)
 # device memory for kernel F's per-block partials (33K + 1 + 36K^2 floats
 # each): the block count is cut to fit where the system is large
 F_PARTIAL_FLOATS = 1 << 23
@@ -275,24 +286,46 @@ def backsub_cost_plain(prob, cam, lm_pos, lm_terms, dx, cam_Rn, cam_tn, inlier,
     return lm_new, cost
 
 
-def _stage_plain(prob, cam, R, t, p, inlier, use_huber: bool, iters: int, model: str):
+def _sum_shards(terms):
+    """The shards' terms added in shard order (one shard: its own term)."""
+    out = terms[0]
+    for x in terms[1:]:
+        out = out + x
+    return out
+
+
+def iteration_plain(shards, cam, R, t, ps, inliers, lam, use_huber: bool,
+                    model: str = "perspective"):
+    """One LM iteration over landmark shards (each a BAProblem with the
+    cameras and its own rows; one shard is the unsharded BA): F on each
+    shard, the camera-side terms and costs added in shard order (kernel W's
+    reduce mode), G once, H on each shard, the trial costs in shard order.
+    Returns (cost0, trial cam_R, trial cam_t, trial points per shard, trial
+    cost)."""
+    lin = [linearize_schur_plain(p, cam, R, t, pi, inl, lam, use_huber, model)
+           for p, pi, inl in zip(shards, ps, inliers)]
+    cost0, Hcc, b_c, S_red, rhs_red = (_sum_shards([x[i] for x in lin]) for i in range(5))
+    dx, Rn, tn = reduced_solve_plain(shards[0], R, t, Hcc, b_c, S_red, rhs_red, lam)
+    back = [backsub_cost_plain(p, cam, pi, x[5], dx, Rn, tn, inl, use_huber, model)
+            for p, pi, x, inl in zip(shards, ps, lin, inliers)]
+    return cost0, Rn, tn, [b[0] for b in back], _sum_shards([b[1] for b in back])
+
+
+def _stage_plain(shards, cam, R, t, ps, inliers, use_huber: bool, iters: int, model: str):
     lam = torch.tensor(1e-4, dtype=torch.float32, device=R.device)
     cost = torch.tensor(math.inf, dtype=torch.float32, device=R.device)
     for _ in range(iters):
-        cost0, Hcc, b_c, S_red, rhs_red, lm_terms = linearize_schur_plain(
-            prob, cam, R, t, p, inlier, lam, use_huber, model)
-        dx, Rn, tn = reduced_solve_plain(prob, R, t, Hcc, b_c, S_red, rhs_red, lam)
-        pn, cost = backsub_cost_plain(prob, cam, p, lm_terms, dx, Rn, tn, inlier,
-                                      use_huber, model)
+        cost0, Rn, tn, pn, cost = iteration_plain(shards, cam, R, t, ps, inliers, lam,
+                                                  use_huber, model)
         improved = cost < cost0
         gain = (cost0 - cost) / torch.clamp(cost0, min=1e-12)
         R = torch.where(improved, Rn, R)
         t = torch.where(improved, tn, t)
-        p = torch.where(improved, pn, p)
+        ps = [torch.where(improved, a, b) for a, b in zip(pn, ps)]
         lam = torch.clamp(torch.where(improved, lam * 0.5, lam * 4.0), 1e-8, 1e4)
         if bool(improved & (gain < 1e-3)):
             break
-    return R, t, p, cost
+    return R, t, ps, cost
 
 
 def classify_plain(prob, cam, R, t, p, final: bool, model: str = "perspective"):
@@ -311,19 +344,29 @@ def classify_plain(prob, cam, R, t, p, final: bool, model: str = "perspective"):
     return inlier
 
 
-def bundle_adjust_plain(prob: BAProblem, cam: CamScalars, *,
-                        model: str = "perspective", num_first: int = 5,
-                        num_second: int = 10) -> BAResult:
-    ones = torch.ones_like(prob.obs_valid)
-    R1, t1, p1, cost1 = _stage_plain(prob, cam, prob.cam_R, prob.cam_t,
-                                     prob.lm_pos, ones, True, num_first, model)
-    inlier1 = classify_plain(prob, cam, R1, t1, p1, False, model)
+def bundle_adjust_shards_plain(shards, cam: CamScalars, *, model: str = "perspective",
+                               num_first: int = 5, num_second: int = 10) -> BAResult:
+    """The plain BA over landmark shards (iteration_plain); the points and
+    outlier flags of the shards concatenated in shard order."""
+    ones = [torch.ones_like(p.obs_valid) for p in shards]
+    R0, t0 = shards[0].cam_R, shards[0].cam_t
+    R1, t1, p1, cost1 = _stage_plain(shards, cam, R0, t0, [p.lm_pos for p in shards], ones,
+                                     True, num_first, model)
+    inlier1 = [classify_plain(p, cam, R1, t1, pi, False, model) for p, pi in zip(shards, p1)]
     if num_second > 0:
-        R2, t2, p2, cost = _stage_plain(prob, cam, R1, t1, p1, inlier1, False,
+        R2, t2, p2, cost = _stage_plain(shards, cam, R1, t1, p1, inlier1, False,
                                         num_second, model)
     else:
         R2, t2, p2, cost = R1, t1, p1, cost1
-    return BAResult(R2, t2, p2, classify_plain(prob, cam, R2, t2, p2, True, model), cost)
+    flags = [classify_plain(p, cam, R2, t2, pi, True, model) for p, pi in zip(shards, p2)]
+    return BAResult(R2, t2, torch.cat(p2), torch.cat(flags), cost)
+
+
+def bundle_adjust_plain(prob: BAProblem, cam: CamScalars, *,
+                        model: str = "perspective", num_first: int = 5,
+                        num_second: int = 10) -> BAResult:
+    return bundle_adjust_shards_plain([prob], cam, model=model, num_first=num_first,
+                                      num_second=num_second)
 
 
 # ---------------------------------------------------------------------------
@@ -335,7 +378,10 @@ _COST0, _COST1, _LAM, _DONE, _LAST_COST = 0, 1, 2, 3, 4
 
 
 class _KernelState:
-    """Device buffers of one bundle_adjust call."""
+    """Device buffers of one bundle_adjust call, or of one landmark shard of
+    a sharded one: the shard's rows and observation tables, its own F
+    partials and H trial costs, its replica of the cameras, of the reduced
+    system and of ctrl, all on the shard's device."""
 
     def __init__(self, prob: BAProblem, cam: CamScalars, model: str = "perspective"):
         K, L, D = prob.cam_R.shape[0], prob.obs_cam.shape[0], prob.obs_cam.shape[1]
@@ -355,10 +401,11 @@ class _KernelState:
         self.ctrl = f(8)
         self.counter = torch.zeros(1, dtype=torch.int32, device=dev)
         # F's per-block partials and H's per-block trial costs
-        self.f_blocks = f_blocks(K, L)
+        self.f_blocks = f_blocks(K, L) if L else 0
         self.f_part = torch.empty(self.f_blocks * (33 * K + 1 + 36 * K * K),
                                   dtype=torch.float32, device=dev)
-        self.h_part = torch.empty(max(1, -(-L // LM_CHUNK)), dtype=torch.float32, device=dev)
+        self.h_blocks = -(-L // LM_CHUNK)
+        self.h_part = torch.empty(max(1, self.h_blocks), dtype=torch.float32, device=dev)
         u8 = lambda b: b.to(torch.uint8).contiguous()
         self.keep = None if prob.lm_keep_inlier is None else u8(prob.lm_keep_inlier)
         self.inputs = dict(
@@ -381,15 +428,21 @@ class _KernelState:
                 c.width, c.height]
 
 
-def ba_linearize_schur(st: _KernelState, inlier, use_huber: bool):
+def ba_linearize_schur(st: _KernelState, inlier, use_huber: bool, reduce: bool = True):
     """Kernel F: linearize at the current state and accumulate the reduced
-    camera system (no-op once the stage's stop flag is set)."""
+    camera system (no-op once the stage's stop flag is set). reduce=False,
+    on a shard of a sharded BA: the block partials only, for kernel W."""
     lib = kbuild.load()
-    kbuild.check(lib.svt_ba_linearize(
-        *st.problem_args(inlier), st.cam_R.data_ptr(), st.cam_t.data_ptr(),
-        st.lm.data_ptr(), int(use_huber), st.ctrl.data_ptr(), st.Wg.data_ptr(),
-        st.lmblk.data_ptr(), st.hc.data_ptr(), st.S.data_ptr(), st.rhs.data_ptr(),
-        st.f_blocks, st.f_part.data_ptr(), kbuild.stream_ptr(st.lm.device)), "ba_linearize")
+    head = (*st.problem_args(inlier), st.cam_R.data_ptr(), st.cam_t.data_ptr(),
+            st.lm.data_ptr(), int(use_huber), st.ctrl.data_ptr(), st.Wg.data_ptr(),
+            st.lmblk.data_ptr())
+    tail = (st.f_blocks, st.f_part.data_ptr(), kbuild.stream_ptr(st.lm.device))
+    if reduce:
+        err = lib.svt_ba_linearize(*head, st.hc.data_ptr(), st.S.data_ptr(),
+                                   st.rhs.data_ptr(), *tail)
+    else:
+        err = lib.svt_ba_linearize_part(*head, *tail)
+    kbuild.check(err, "ba_linearize")
     ba_linearize_schur.launches += 1
 
 
@@ -405,14 +458,16 @@ def ba_reduced_solve(st: _KernelState):
     ba_reduced_solve.launches += 1
 
 
-def ba_backsub_cost(st: _KernelState, inlier, use_huber: bool):
-    """Kernel H: point updates, trial cost, accept / reject on the device."""
+def ba_backsub_cost(st: _KernelState, inlier, use_huber: bool, decide: bool = True):
+    """Kernel H: point updates, trial cost, accept / reject on the device.
+    decide=False, on a shard of a sharded BA: the trial points and the
+    blocks' trial costs only, for kernel W's decide mode."""
     lib = kbuild.load()
     kbuild.check(lib.svt_ba_backsub(
         *st.problem_args(inlier), st.cam_R.data_ptr(), st.cam_t.data_ptr(),
         st.lm.data_ptr(), int(use_huber), st.ctrl.data_ptr(), st.counter.data_ptr(),
         st.Wg.data_ptr(), st.lmblk.data_ptr(), st.dx.data_ptr(), st.cam_Rn.data_ptr(),
-        st.cam_tn.data_ptr(), st.lmn.data_ptr(), st.h_part.data_ptr(),
+        st.cam_tn.data_ptr(), st.lmn.data_ptr(), st.h_part.data_ptr(), int(decide),
         kbuild.stream_ptr(st.lm.device)), "ba_backsub")
     ba_backsub_cost.launches += 1
 
@@ -434,10 +489,48 @@ def ba_classify(st: _KernelState, final: bool) -> torch.Tensor:
     return out
 
 
+def ba_shard_assemble(dst: _KernelState, shards, decide: bool):
+    """Kernel W on dst's device, for dst's replica. Reduce mode: every
+    shard's F partials added in (shard, block) order into dst's Hcc / b_c,
+    reduced system, right-hand side and cost. Decide mode: every shard's H
+    trial costs added in the same order, H's accept / reject on dst's ctrl,
+    and on accept dst's cameras and points committed. The shards' partials
+    may lie on other devices that dst's device reads by peer access."""
+    n = len(shards)
+    if n > MAX_SHARDS:
+        raise ValueError(f"ba_shard_assemble: at most {MAX_SHARDS} shards ({n})")
+    parts = (ctypes.c_void_p * n)(*[(sh.h_part if decide else sh.f_part).data_ptr()
+                                    for sh in shards])
+    blocks = (ctypes.c_int * n)(*[sh.h_blocks if decide else sh.f_blocks for sh in shards])
+    lib = kbuild.load()
+    kbuild.check(lib.svt_ba_shard_assemble(
+        int(decide), dst.K, dst.L, n, ctypes.addressof(parts), ctypes.addressof(blocks),
+        dst.ctrl.data_ptr(), dst.hc.data_ptr(), dst.S.data_ptr(), dst.rhs.data_ptr(),
+        dst.cam_R.data_ptr(), dst.cam_t.data_ptr(), dst.lm.data_ptr(), dst.cam_Rn.data_ptr(),
+        dst.cam_tn.data_ptr(), dst.lmn.data_ptr(), kbuild.stream_ptr(dst.lm.device)),
+        "ba_shard_assemble")
+    ba_shard_assemble.launches += 1
+
+
 ba_linearize_schur.launches = 0
 ba_reduced_solve.launches = 0
 ba_backsub_cost.launches = 0
 ba_classify.launches = 0
+ba_shard_assemble.launches = 0
+
+
+def shard_reduce_plain(parts, K: int):
+    """Plain version of kernel W's reduce mode: the shards' F partials (each
+    a flat tensor of whole 33K + 1 + 36K^2 float partials) added one after
+    another in (shard, block) order, from zero, as the kernel adds them.
+    Returns (hc [K,27], rhs [6K], cost, S [6K,6K])."""
+    n = 33 * K + 1 + 36 * K * K
+    acc = torch.zeros(n, dtype=torch.float32, device=parts[0].device)
+    for part in parts:
+        for b in range(part.numel() // n):
+            acc = acc + part[b * n:(b + 1) * n]
+    return acc[:27 * K].reshape(K, 27), acc[27 * K:33 * K], acc[33 * K], \
+        acc[33 * K + 1:].reshape(6 * K, 6 * K)
 
 
 def _check_problem(prob: BAProblem):
@@ -458,26 +551,134 @@ def _check_problem(prob: BAProblem):
 
 def bundle_adjust(prob: BAProblem, cam: CamScalars, *, model: str = "perspective",
                   num_first: int = 5, num_second: int = 10) -> BAResult:
-    """Kernels F, G, H, I on CUDA tensors, the plain version on CPU tensors."""
-    if not prob.cam_R.is_cuda:
-        return bundle_adjust_plain(prob, cam, model=model, num_first=num_first,
-                                   num_second=num_second)
-    _check_problem(prob)
-    st = _KernelState(prob, cam, model)
+    """Kernels F, G, H, I on CUDA tensors, the plain version on CPU tensors:
+    bundle_adjust_shards over the one shard that is the whole problem."""
+    return bundle_adjust_shards([prob], cam, model=model, num_first=num_first,
+                                num_second=num_second)
 
-    def stage(inlier, use_huber: bool, iters: int):
-        st.ctrl[_LAM] = 1e-4
-        st.ctrl[_DONE] = 0.0
-        st.ctrl[_LAST_COST] = math.inf
-        inl = inlier.to(torch.uint8).contiguous()
-        for _ in range(iters):
+
+# ---------------------------------------------------------------------------
+# landmark shards (K22): F and H per shard, W across them, G replicated
+# ---------------------------------------------------------------------------
+
+
+def _shard_barrier(states):
+    """Order the shards' devices: each device's current stream waits for
+    every other device's work so far (CUDA events, no host wait). Shards on
+    one device share its stream and need nothing."""
+    devs = list(dict.fromkeys(st.lm.device for st in states))
+    if len(devs) < 2:
+        return
+    evs = {}
+    for d in devs:
+        evs[d] = torch.cuda.Event()
+        evs[d].record(torch.cuda.current_stream(d))
+    for d in devs:
+        s = torch.cuda.current_stream(d)
+        for e, ev in evs.items():
+            if e != d:
+                s.wait_event(ev)
+
+
+def shard_iteration(states, inliers, use_huber: bool, decide: bool = True):
+    """One LM iteration over shard states: F's first launch on each shard,
+    W's reduce mode and G on every shard's device, H without its decision on
+    each shard, then (decide) W's decide mode on every shard's device. One
+    shard is the one-device BA: F reduces its own partials and H decides
+    (three launches, the same bits as W's one-shard case)."""
+    if len(states) == 1:
+        st, inl = states[0], inliers[0]
+        with torch.cuda.device(st.lm.device):
             ba_linearize_schur(st, inl, use_huber)
             ba_reduced_solve(st)
-            ba_backsub_cost(st, inl, use_huber)
-        return st.ctrl[_LAST_COST].clone()
+            ba_backsub_cost(st, inl, use_huber, decide=decide)
+        return
+    for st, inl in zip(states, inliers):
+        with torch.cuda.device(st.lm.device):
+            ba_linearize_schur(st, inl, use_huber, reduce=False)
+    _shard_barrier(states)
+    for st in states:
+        with torch.cuda.device(st.lm.device):
+            ba_shard_assemble(st, states, decide=False)
+            ba_reduced_solve(st)
+    for st, inl in zip(states, inliers):
+        with torch.cuda.device(st.lm.device):
+            ba_backsub_cost(st, inl, use_huber, decide=False)
+    _shard_barrier(states)
+    if decide:
+        for st in states:
+            with torch.cuda.device(st.lm.device):
+                ba_shard_assemble(st, states, decide=True)
 
-    cost1 = stage(torch.ones_like(prob.obs_valid), True, num_first)
-    inlier1 = ba_classify(st, False)
-    cost = stage(inlier1, False, num_second) if num_second > 0 else cost1
-    return BAResult(st.cam_R.reshape(-1, 3, 3).clone(), st.cam_t.clone(),
-                    st.lm.clone(), ba_classify(st, True), cost)
+
+def bundle_adjust_shards(shards: List[BAProblem], cam: CamScalars, *,
+                         model: str = "perspective", num_first: int = 5,
+                         num_second: int = 10) -> BAResult:
+    """bundle_adjust over landmark shards: each BAProblem holds the cameras
+    and its own rows, on its device (a device may hold several shards).
+    Kernels F, H and I per shard, W across them, G on each replica; the
+    plain version (bundle_adjust_shards_plain) on CPU tensors. The kernels
+    launch on each shard's card, which need not be the current one (a launch
+    goes to the current card's context). The result lies on the first
+    shard's device, points and flags in shard order."""
+    if not shards[0].cam_R.is_cuda:
+        return bundle_adjust_shards_plain(shards, cam, model=model, num_first=num_first,
+                                          num_second=num_second)
+    for p in shards:
+        _check_problem(p)
+    states = [_KernelState(p, cam, model) for p in shards]
+    dev0 = states[0].lm.device
+
+    def stage(inliers, use_huber: bool, iters: int):
+        for st in states:
+            st.ctrl[_LAM] = 1e-4
+            st.ctrl[_DONE] = 0.0
+            st.ctrl[_LAST_COST] = math.inf
+        inls = [i.to(torch.uint8).contiguous() for i in inliers]
+        for _ in range(iters):
+            shard_iteration(states, inls, use_huber)
+        return states[0].ctrl[_LAST_COST].clone()
+
+    def classify(final: bool):
+        out = []
+        for st in states:
+            with torch.cuda.device(st.lm.device):
+                out.append(ba_classify(st, final))
+        return out
+
+    cost1 = stage([torch.ones_like(p.obs_valid) for p in shards], True, num_first)
+    cost = stage(classify(False), False, num_second) if num_second > 0 else cost1
+    flags = classify(True)
+    # no device's buffers are reused before every device's reads of them end
+    _shard_barrier(states)
+    return BAResult(states[0].cam_R.reshape(-1, 3, 3).clone(), states[0].cam_t.clone(),
+                    torch.cat([st.lm.to(dev0) for st in states]),
+                    torch.cat([f.to(dev0) for f in flags]), cost)
+
+
+def gn_step_shards(shards: List[BAProblem], cam: CamScalars, model: str = "perspective"):
+    """One plain Gauss-Newton step over landmark shards (the JAX package's
+    make_sharded_ba_step): lambda 1e-4, no robust weights, every
+    observation an inlier, the step always taken; lm_fixed and
+    lm_keep_inlier are not read. Kernels F, W, G and H (without its
+    decision) on CUDA tensors, iteration_plain on CPU tensors. Returns the
+    stepped (cam_R, cam_t) on the first shard's device and each shard's
+    stepped points on its own."""
+    shards = [p._replace(lm_fixed=None, lm_keep_inlier=None) for p in shards]
+    ones = [torch.ones_like(p.obs_valid) for p in shards]
+    if not shards[0].cam_R.is_cuda:
+        lam = torch.tensor(1e-4, dtype=torch.float32, device=shards[0].cam_R.device)
+        _, R, t, ps, _ = iteration_plain(shards, cam, shards[0].cam_R, shards[0].cam_t,
+                                         [p.lm_pos for p in shards], ones, lam, False, model)
+        return R, t, ps
+    for p in shards:
+        _check_problem(p)
+    states = [_KernelState(p, cam, model) for p in shards]
+    for st in states:
+        st.ctrl[_LAM] = 1e-4
+    shard_iteration(states, [i.to(torch.uint8).contiguous() for i in ones], False,
+                    decide=False)
+    _shard_barrier(states)
+    s0 = states[0]
+    return s0.cam_Rn.reshape(-1, 3, 3).clone(), s0.cam_tn.clone(), \
+        [st.lmn.clone() for st in states]

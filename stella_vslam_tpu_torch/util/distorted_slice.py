@@ -56,13 +56,12 @@ GATES = dict(init_frame=10, lost_after_init=2, ate_m=0.10)
 # 0 (inside the 19 px border) lies 418.5 px from the principal point, so
 # the mask removes pixels A would score.
 MASK_RADIUS = 400.0
-# the gates a leg misses as an open fault (ROADMAP Queue 3): at 400 px the
-# masked leg's bearing-vector initializer, with its fixed RANSAC seeds,
-# accepts a near-degenerate two-view solution at frame 13 in both the
-# inline CPU run and on the card; the JAX package reads init 9-12 and a
-# degenerate scale too on some seeds. check_gates reports these, and
-# holds every other gate.
-OPEN_GATES = {"fisheye_masked": ("init_frame", "ate_m")}
+# the gates a leg misses as an open fault (ROADMAP Queue 3); check_gates
+# reports these and holds every other gate. None since the Initializer
+# draws the JAX package's seed stream: the masked leg then initializes at
+# frame 10 with a sound scale, as the JAX package does (with other seeds
+# both packages accept a degenerate two-view solution alike).
+OPEN_GATES = {}
 # kernel R's undistortion wrapper of each camera model
 UNDISTORT = {"fisheye": "undistort_fisheye", "radial_division": "undistort_radial"}
 

@@ -39,8 +39,8 @@ import time
 import torch
 
 from stella_vslam_tpu_torch.global_optimization_module import LOOP_PHASES
-from stella_vslam_tpu_torch.ops.optim import ba as ba_mod
 from stella_vslam_tpu_torch.ops.optim import sim3 as sim3_opt
+from stella_vslam_tpu_torch.parallel import sharded_ba
 from stella_vslam_tpu_torch.system import System
 from stella_vslam_tpu_torch.util import map_slice
 from stella_vslam_tpu_torch.util.drift import inject_segment_drift, pose_at_xy
@@ -62,8 +62,14 @@ def circuit():
     return out_xy + turn_xy + back_xy + slow_xy
 
 
-def make_system(world: PlaneWorld, device) -> System:
-    return map_slice.make_system(world, device, loop_detector=True)
+def make_system(world: PlaneWorld, device, ba_devices=None) -> System:
+    """The slice's System; `ba_devices` (a device list, which may repeat a
+    card) shards its global and loop BAs (parallel/sharded_ba.py) instead
+    of the default one-device BA."""
+    slam = map_slice.make_system(world, device, loop_detector=True)
+    if ba_devices is not None:
+        slam.global_optimizer.ba_devices = list(ba_devices)
+    return slam
 
 
 def _loop_is_near(go) -> bool:
@@ -92,20 +98,20 @@ def run_slice(device, world: PlaneWorld, gt_xy=None, n_out: int = N_OUT, drift=N
     frame_ms, loop_frames, shapes, prof = [], [], {}, None
 
     # the shapes of the pose graph and the global BA, kept by reference
-    solve_graph, solve_ba = sim3_opt.optimize_pose_graph, ba_mod.bundle_adjust
+    solve_graph, solve_ba = sim3_opt.optimize_pose_graph, sharded_ba.sharded_bundle_adjust
 
     def graph_rec(s, *a, **kw):
         shapes["pose_graph"] = dict(K=int(s.shape[0]), E=int(a[4].shape[0]))
         return solve_graph(s, *a, **kw)
 
     def ba_rec(prob, *a, **kw):
-        if kw.get("num_second", 1) == 0:
-            shapes.setdefault("global_ba", []).append(dict(
-                K=int(prob.cam_R.shape[0]), L=int(prob.obs_cam.shape[0]),
-                D=int(prob.obs_cam.shape[1])))
+        shapes.setdefault("global_ba", []).append(dict(
+            K=int(prob.cam_R.shape[0]), L=int(prob.obs_cam.shape[0]),
+            D=int(prob.obs_cam.shape[1]),
+            shards=len(kw["devices"]) if kw.get("devices") else 1))
         return solve_ba(prob, *a, **kw)
 
-    sim3_opt.optimize_pose_graph, ba_mod.bundle_adjust = graph_rec, ba_rec
+    sim3_opt.optimize_pose_graph, sharded_ba.sharded_bundle_adjust = graph_rec, ba_rec
     map_stats = None
     try:
         for i, (x, y) in enumerate(gt_xy):
@@ -136,7 +142,7 @@ def run_slice(device, world: PlaneWorld, gt_xy=None, n_out: int = N_OUT, drift=N
                 loop_frames.append(i)
         slam.shutdown()
     finally:
-        sim3_opt.optimize_pose_graph, ba_mod.bundle_adjust = solve_graph, solve_ba
+        sim3_opt.optimize_pose_graph, sharded_ba.sharded_bundle_adjust = solve_graph, solve_ba
     launches = {k: w.launches for k, w in wrappers.items()}
     poses = slam.frame_poses
     first, tracked, lost, ate, scale = trajectory_stats(poses, gt_xy)

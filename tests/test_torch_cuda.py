@@ -1058,3 +1058,39 @@ def test_fbow_transform_kernel_equals_plain(dev, n):
         k = vocab.transform(desc)
         assert fbow_io.fbow_transform.launches == before + 1
         assert torch.equal(k, fbow_io.fbow_transform_plain(desc, tab))
+
+
+def test_shard_reduce_kernel_matches_plain_exactly(dev):
+    """Kernel W's reduce mode on 4 shards of one card (K = 32, L = 4096,
+    D = 16: 4 x 8 block partials) equals its plain version bit for bit."""
+    import chip_smoke
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    prob, cam = chip_smoke._ba_problem(dev, 32, 4096, 16, False, 71, spacing=0.1, ordered=True)
+    states = chip_smoke._shard_states(dev, prob, cam, 4)
+    psize = 33 * 32 + 1 + 36 * 32 * 32
+    before = ba.ba_shard_assemble.launches
+    ba.ba_shard_assemble(states[1], states, decide=False)
+    assert ba.ba_shard_assemble.launches == before + 1
+    hc, rhs, cost, S = ba.shard_reduce_plain([st.f_part[:st.f_blocks * psize] for st in states],
+                                             32)
+    st = states[1]
+    assert torch.equal(st.hc, hc) and torch.equal(st.rhs, rhs) and torch.equal(st.S, S)
+    assert torch.equal(st.ctrl[0], cost)
+
+
+@pytest.mark.parametrize("K,L,D", [(32, 4096, 16), (8, 1000, 4)])
+def test_sharded_ba_on_one_card_equals_unsharded(dev, K, L, D):
+    """The sharded BA on [cuda:0] * 4 (shards on 128-landmark chunks, W in
+    (shard, block) order) gives the unsharded BA's bits; L = 1000 leaves the
+    last shard a ragged chunk."""
+    import chip_smoke
+    from stella_vslam_tpu_torch.ops.optim import ba
+    from stella_vslam_tpu_torch.parallel import sharded_ba
+
+    prob, cam = chip_smoke._ba_problem(dev, K, L, D, False, 72, spacing=0.1, ordered=K >= D)
+    a = ba.bundle_adjust(prob, cam, num_first=8, num_second=4)
+    b = sharded_ba.sharded_bundle_adjust(prob, cam, num_first=8, num_second=4,
+                                         devices=[dev] * 4)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

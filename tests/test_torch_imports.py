@@ -33,6 +33,8 @@ THREADED_MODULES = tuple("stella_vslam_tpu_torch." + m for m in (
 STEREO_MODULES = tuple("stella_vslam_tpu_torch." + m for m in (
     "match.stereo", "util.stereo_rectifier", "util.stereo_slice", "util.bench",
     "feature.orb_extractor"))
+SHARDED_MODULES = tuple("stella_vslam_tpu_torch." + m for m in (
+    "parallel.sharded_ba", "util.threefry"))
 
 
 def test_port_imports_without_jax_cv2_yaml():
@@ -51,7 +53,7 @@ def test_port_imports_without_jax_cv2_yaml():
         assert not missing, missing
         print(len(mods))
     """).replace("MAPPING_MODULES", repr(MAPPING_MODULES + LOOP_MODULES + THREADED_MODULES
-                                        + STEREO_MODULES))
+                                        + STEREO_MODULES + SHARDED_MODULES))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
