@@ -29,7 +29,12 @@ Phases, each fatal on failure (nothing is caught):
      each beside its bound (the least time the card could take for the
      work: bytes over 3.35 TB/s or operations over 67 T/s, FP32 outside the
      tensor cores, integer operations counted at the same rate) and, where
-     one PyTorch call computes the same function, that call's time;
+     one PyTorch call computes the same function, that call's time; kernel
+     G (here and wherever it is timed: K = 2, 16, 32, 64 and the
+     equirectangular local shape) and its library call also as device
+     time, CUDA events around 50 back-to-back launches / 50 after the
+     stream is held long enough for the host to enqueue them all
+     (_device_ms), beside the one-call time with the host around it;
   5. the RGBD slice: System in RGBD mode, mapping disabled, 120 frames of
      the numpy plane world at 0.015 m/frame (the bench's RGBD settings):
      at most 2 frames lost after init, rigid ATE < 0.10 m, scale error
@@ -89,7 +94,10 @@ Phases, each fatal on failure (nothing is caught):
      backward error below 1e-3 as at the local shape, H's trial cost within
      1e-3); times and bounds (K = 32 and 64) as in phase 4,
      the library call of P's solve (torch.linalg.cholesky + cholesky_solve)
-     and of G's (torch.linalg.solve). Then K22 on 4 landmark shards of this
+     and of G's (torch.linalg.solve); P's dense solve through kernel G's
+     spd_solve (its backward error below 1e-3 on every iteration's system)
+     and spd_solve timed at the loop slice's pose graph against the
+     library's Cholesky, both as device time. Then K22 on 4 landmark shards of this
      card (parallel/sharded_ba.py): kernel W's reduce mode against its
      plain version (the same adds in a Python loop, in the same order),
      exactly; whole sharded global BAs (one Huber stage of 16) against the
@@ -99,9 +107,11 @@ Phases, each fatal on failure (nothing is caught):
      is cut (64 chunks, 56 partials), poses within 1e-4 and points seen
      twice within 1e-3; make_sharded_ba_step against its plain version
      (poses within 1e-4, points within 1e-3) and equal to the one-shard
-     step; dryrun_multidevice(4); W's time against its bound, its plain
-     version and torch.sum over the stacked partials, and the whole
-     sharded BA's time against the unsharded one's.
+     step; dryrun_multidevice(4); W's device time (as G's) against its
+     bound, its plain version and torch.sum over the stacked partials, and
+     the whole sharded BA's time against the unsharded one's, its bound (F
+     and H on every shard, W and G on every replica, summed over the
+     iterations it ran) and its plain version's time on the card.
  11. kernels Q (csrc/track_assoc.cu: the per-slot scatter, the landmark
      dedup, the chain rebase) and R (csrc/reproject.cu: the reprojection
      with the local-map gate, the undistortion) against their plain
@@ -234,7 +244,7 @@ FP32_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 # (mapping disabled) never launch
 MAPPING_KERNELS = ("epipolar_top2", "triangulate", "fuse")
 # kernels M-P: the loop closer's (M runs with the mapper's keyframe events)
-LOOP_KERNELS = ("bow_transform", "pnp_ransac", "sim3_transform", "pose_graph")
+LOOP_KERNELS = ("bow_transform", "pnp_ransac", "sim3_transform", "pose_graph", "spd_solve")
 # the stereo path's own: B's strip mode and T (S runs on every path)
 STEREO_KERNELS = ("orb_describe_strips", "stereo_match")
 # the kernels line's rows whose launches are the stereo leg's
@@ -259,6 +269,50 @@ def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+DEVICE_TIMED_CALLS = 50
+# how a row with device times reads them
+DEVICE_TIMING = (f"ms and library_ms: device time, CUDA events around {DEVICE_TIMED_CALLS} "
+                 f"back-to-back calls / {DEVICE_TIMED_CALLS} (a library call that waits on the "
+                 "card pays for it); one_call_ms and library_one_call_ms: events around one "
+                 "call, the host's part in it")
+
+
+def _device_ms(fn, n: int = DEVICE_TIMED_CALLS, warmup: int = 3, before_run=None) -> float:
+    """Device time per call: CUDA events around n back-to-back calls,
+    divided by n, after a warm-up. The stream first sleeps for longer than
+    the host takes to enqueue the n calls, so the card runs them one after
+    another without waiting for the host (a call that waits on the card
+    itself, as torch.linalg.cholesky does, still pays for that).
+    before_run(), when given, runs before the warm-up and before each run of
+    n calls (outside the timed window): fresh inputs for a call that
+    consumes its own."""
+    import torch
+
+    prep = before_run or (lambda: None)
+    prep()
+    for _ in range(warmup):
+        fn()
+    prep()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    prep()
+    # ~2e6 cycles per ms at the card's top clock: a sleep of at least 1.5x the
+    # host's enqueue time plus 1 ms
+    torch.cuda._sleep(int(2e6 * (1.5 * enqueue_ms + 1.0)))
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def _bound(nbytes: float, ops: float) -> dict:
@@ -852,10 +906,59 @@ def _lockstep_ba(prob, cam, num_first, num_second, model="perspective"):
     return out
 
 
+def _g_device_ms(st, n: int = DEVICE_TIMED_CALLS) -> float:
+    """Kernel G's device time per launch (_device_ms) on st's reduced
+    system, as kernel F left it: G clears its inputs, so each of the n
+    launches solves its own copy, refilled before each run."""
+    import copy
+
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    saved = (st.hc.clone(), st.S.clone(), st.rhs.clone())
+    copies = []
+    for _ in range(n):
+        c = copy.copy(st)
+        c.hc, c.S, c.rhs = (x.clone() for x in saved)
+        copies.append(c)
+    at = [0]
+
+    def refill():
+        for c in copies:
+            for dst, src in zip((c.hc, c.S, c.rhs), saved):
+                dst.copy_(src)
+        at[0] = 0
+
+    def launch():
+        ba.ba_reduced_solve(copies[at[0] % n])
+        at[0] += 1
+
+    return _device_ms(launch, n=n, warmup=0, before_run=refill)
+
+
+def _ba_work(K: int, L: int, D: int) -> dict:
+    """Bytes and operations of kernels F, G, H and I on a K, L, D problem
+    (one LM iteration; F and H of one landmark shard where L is a shard's).
+    Operations per observation: Jacobians ~60, Hcc + b_c 27x6, Hpp + b_p
+    9x6, W 18x6; per landmark: its inverse ~40, D x (W G 108 + W G b 36),
+    D^2 Schur blocks x 216. H: D x 108 back-substitution + D x ~60 for the
+    trial residuals. G: n^3/3 + 2 n^2. I: the projection and chi-square,
+    ~30 per observation."""
+    n = 6 * K
+    obs_bytes = L * D * 22.0
+    return {"F": (obs_bytes + L * 12 + L * D * 72 + L * 40 + n * n * 4,
+                  L * D * (60 + 162 + 54 + 108 + 144) + L * (40 + D * D * 216)),
+            "G": (n * n * 4.0 + K * 27 * 4 + n * 4 + K * 48, n ** 3 / 3.0 + 2 * n * n),
+            "H": (obs_bytes + L * D * 72 + L * 40 + L * 24, L * D * (108 + 60) + L * 30),
+            "I": (obs_bytes + L * 12 + L * D, L * D * 30.0)}
+
+
 def _time_ba_kernels(dev, err, prob, cam, suffix="", model="perspective"):
     """One LM iteration of `prob`, kernel by kernel, against the plain
     version of each, and one classification; rows F, G, H, I (names with
-    `suffix`)."""
+    `suffix`). F, H, I: events around each launch of the iteration (the
+    card's time when the host enqueues ahead of it). G and its library
+    call: device time, n back-to-back launches / n (_device_ms), with the
+    one-call time beside it."""
     import torch
 
     from stella_vslam_tpu_torch.ops.optim import ba
@@ -892,35 +995,31 @@ def _time_ba_kernels(dev, err, prob, cam, suffix="", model="perspective"):
     dx, Rn, tn = solve()
     back = lambda: ba.backsub_cost_plain(prob, cam, p0, terms, dx, Rn, tn, inlb, True, model)
     classify = lambda: ba.classify_plain(prob, cam, R0, t0, p0, True, model)
-    # the damped reduced system, for the one-call library solve
+    # the damped reduced system, for the library solve
     S, rhs = ba.damped_reduced_system(prob, Hcc, b_c, S_red, rhs_red, lam)
-    n = 6 * K
-    # operations per observation: Jacobians ~60, Hcc + b_c 27x6, Hpp + b_p
-    # 9x6, W 18x6; per landmark: its inverse ~40, D x (W G 108 + W G b 36),
-    # D^2 Schur blocks x 216. H: D x 108 back-substitution + D x ~60 for the
-    # trial residuals. G: n^3/3 + 2 n^2.
-    obs_bytes = L * D * 22.0
+    # F's system once more, for G's back-to-back launches
+    st.ctrl.zero_()
+    st.ctrl[ba._LAM] = 1e-4
+    st.hc.zero_(); st.S.zero_(); st.rhs.zero_()
+    ba.ba_linearize_schur(st, inl, True)
+    g_dev = dict(ms=_g_device_ms(st), one_call_ms=float(np.median(times["G"])),
+                 library_ms=_device_ms(lambda: torch.linalg.solve(S, rhs)),
+                 library_one_call_ms=_median_ms(lambda: torch.linalg.solve(S, rhs)),
+                 library_call="torch.linalg.solve on the damped system", timing=DEVICE_TIMING)
+    work = _ba_work(K, L, D)
     rows = []
-    for name, fn, plain_fn, lib, nbytes, ops, replaces in (
-            ("ba_linearize_schur", "F", lin, None,
-             obs_bytes + L * 12 + L * D * 72 + L * 40 + n * n * 4,
-             L * D * (60 + 162 + 54 + 108 + 144) + L * (40 + D * D * 216),
-             "stella_vslam_tpu/ops/optim/ba.py:416"),
-            ("ba_reduced_solve", "G", solve, lambda: torch.linalg.solve(S, rhs),
-             n * n * 4.0 + K * 27 * 4 + n * 4 + K * 48, n ** 3 / 3.0 + 2 * n * n,
-             "stella_vslam_tpu/ops/optim/ba.py:610"),
-            ("ba_backsub_cost", "H", back, None,
-             obs_bytes + L * D * 72 + L * 40 + L * 24,
-             L * D * (108 + 60) + L * 30, "stella_vslam_tpu/ops/optim/ba.py:731"),
-            # I: per observation the projection and chi-square, ~30 flops
-            ("ba_classify", "I", classify, None, obs_bytes + L * 12 + L * D,
-             L * D * 30.0, "stella_vslam_tpu/ops/optim/ba.py:786")):
-        rows.append(dict(
+    for name, fn, plain_fn, replaces in (
+            ("ba_linearize_schur", "F", lin, "stella_vslam_tpu/ops/optim/ba.py:416"),
+            ("ba_reduced_solve", "G", solve, "stella_vslam_tpu/ops/optim/ba.py:610"),
+            ("ba_backsub_cost", "H", back, "stella_vslam_tpu/ops/optim/ba.py:731"),
+            ("ba_classify", "I", classify, "stella_vslam_tpu/ops/optim/ba.py:786")):
+        nbytes, ops = work[fn]
+        row = dict(
             name=name + suffix, route="cuda",
             source="stella_vslam_tpu_torch/csrc/ba_schur.cu", shape=f"K={K} L={L} D={D}",
             replaces=replaces, max_abs_err=err, ms=float(np.median(times[fn])),
-            plain_ms=_median_ms(plain_fn, reps=10),
-            library_ms=_median_ms(lib) if lib else None, **_bound(nbytes, ops)))
+            plain_ms=_median_ms(plain_fn, reps=10), library_ms=None, **_bound(nbytes, ops))
+        rows.append(dict(row, **g_dev) if fn == "G" else row)
     return rows
 
 
@@ -1201,6 +1300,33 @@ def record_loop_inputs(slam):
     return calls, undo
 
 
+def cache_renders(world):
+    """Serve world.render's images from memory, each pose rendered once: a
+    PlaneWorld's image depends on its pose alone (the noise is seeded from
+    it), so the inline loop slice and its sharded rerun see the same
+    images either way, and the rerun renders nothing. The threaded slices
+    render live: their frames are paced by it. Returns undo(), which drops
+    the images."""
+    images = {}
+    render = world.render
+
+    def cached(pose_cw, uv=None):
+        if uv is not None:
+            return render(pose_cw, uv)
+        key = np.ascontiguousarray(pose_cw, np.float64).tobytes()
+        if key not in images:
+            images[key] = render(pose_cw)
+        return images[key].copy()
+
+    world.render = cached
+
+    def undo():
+        del world.render
+        images.clear()
+
+    return undo
+
+
 def run_loop_slice(dev, world, wrappers, card):
     """The loop slice (mono, mapping and loop detector enabled, inline) over
     the bench's whole circuit, every launch count at 0 just before it and
@@ -1444,16 +1570,36 @@ def _check_transform(args, kw, label, tol=1e-4):
     return err
 
 
-def _check_pose_graph(args, label, num_iter=20):
-    """Kernel P against plain, iteration by iteration on the kernel's own
-    state, then the whole optimization."""
+def cholesky_solve(Hd, b):
+    """The library's dense SPD solve (torch.linalg.cholesky, which waits for
+    the card to check its flag, and cholesky_solve): the yardstick of kernel
+    G's spd_solve, which the port calls instead."""
     import torch
 
+    return torch.cholesky_solve(b[:, None], torch.linalg.cholesky(Hd))[:, 0]
+
+
+def _check_pose_graph(args, label, num_iter=20):
+    """Kernel P against plain, iteration by iteration on the kernel's own
+    state (each step solved by kernel G's spd_solve, whose backward error on
+    the system in float64 stays below 1e-3 as G's does; its distance to the
+    library's solve printed), then the whole optimization (P and spd_solve
+    against the plain linearization, update and solve)."""
+    import torch
+
+    from stella_vslam_tpu_torch.ops import linalg
     from stella_vslam_tpu_torch.ops.optim import sim3
 
     s, R, t = args[:3]
     g = sim3.PoseGraph(*args[3:])
-    worst = dict(H=0.0, b=0.0, cost=0.0, update=0.0)
+    worst = dict(H=0.0, b=0.0, cost=0.0, update=0.0, solve_backward=0.0,
+                 solve_backward_library=0.0, solve_vs_library=0.0)
+
+    def backward_error(Hm, bv, xv):
+        Hm, bv, xv = Hm.double(), bv.double(), xv.double()
+        return float((Hm @ xv - bv).abs().max()
+                     / (Hm.abs().sum(1).max() * xv.abs().max() + bv.abs().max()))
+
     for _ in range(num_iter):
         Hk, bk, ck = sim3.pose_graph_linearize(g, s, R, t)
         Hp, bp, cp = sim3.pose_graph_linearize_plain(g, s, R, t)
@@ -1461,14 +1607,20 @@ def _check_pose_graph(args, label, num_iter=20):
         b_scale = bp.abs().max().clamp(min=1e-3 * float(Hp.abs().max()))
         worst["b"] = max(worst["b"], float((bk - bp).abs().max() / b_scale))
         worst["cost"] = max(worst["cost"], abs(float(ck) - float(cp)) / max(float(cp), 1e-12))
-        x = sim3.cholesky_solve(Hk, bk)
+        x = linalg.spd_solve(Hk, bk)
+        x_lib = cholesky_solve(Hk, bk)
+        worst["solve_backward"] = max(worst["solve_backward"], backward_error(Hk, bk, x))
+        worst["solve_backward_library"] = max(worst["solve_backward_library"],
+                                              backward_error(Hk, bk, x_lib))
+        worst["solve_vs_library"] = max(worst["solve_vs_library"], float(
+            (x - x_lib).abs().max() / x_lib.abs().max().clamp(min=1e-30)))
         sk, Rk, tk = sim3.pose_graph_update(g, s, R, t, x)
         sp, Rp, tp = sim3.pose_graph_update_plain(g, s, R, t, x)
         worst["update"] = max(worst["update"], float((sk - sp).abs().max()),
                               float((Rk - Rp).abs().max()), float((tk - tp).abs().max()))
         s, R, t = sk, Rk, tk
     rk = sim3.optimize_pose_graph(*args, num_iter=num_iter)
-    rp = sim3.optimize_pose_graph_plain(*args, num_iter=num_iter, solve=sim3.cholesky_solve)
+    rp = sim3.optimize_pose_graph_plain(*args, num_iter=num_iter)
     torch.cuda.synchronize()
     whole = max(float((a - b).abs().max()) for a, b in zip(rk, rp))
     print(f"kernel P pose_graph {label}: K={args[0].shape[0]} ({int(args[4].sum())} valid), "
@@ -1478,7 +1630,8 @@ def _check_pose_graph(args, label, num_iter=20):
     # (b is a sum that cancels near the minimum: it is held to 1e-3 of the
     # larger of its largest entry and 1e-3 of H's)
     assert worst["H"] < 1e-4 and worst["b"] < 1e-3 and worst["cost"] < 1e-4 \
-        and worst["update"] < 1e-5 and whole < 1e-3, f"kernel P disagrees with plain ({label})"
+        and worst["update"] < 1e-5 and worst["solve_backward"] < 1e-3 and whole < 1e-3, \
+        f"kernel P disagrees with plain ({label})"
     return max(worst["H"], worst["b"], worst["update"])
 
 
@@ -1491,6 +1644,7 @@ def check_loop_kernels(dev, slam, rec):
     from stella_vslam_tpu_torch.data import bow_vocabulary as bow
     from stella_vslam_tpu_torch.match import hamming as H
     from stella_vslam_tpu_torch.match import projection as proj
+    from stella_vslam_tpu_torch.ops import linalg
     from stella_vslam_tpu_torch.ops.optim import ba, sim3
     from stella_vslam_tpu_torch.ops.solve import pnp
 
@@ -1625,7 +1779,7 @@ def check_loop_kernels(dev, slam, rec):
     g = sim3.PoseGraph(*pga[3:])
     Kp, Ep, n_e = pga[0].shape[0], pga[5].shape[0], int(pga[10].sum())
     Hd, b, _ = sim3.pose_graph_linearize(g, *pga[:3])
-    x = sim3.cholesky_solve(Hd, b)
+    x = linalg.spd_solve(Hd, b)
 
     def step_kernel():
         sim3.pose_graph_linearize(g, *pga[:3])
@@ -1641,8 +1795,9 @@ def check_loop_kernels(dev, slam, rec):
         replaces="stella_vslam_tpu/ops/optim/sim3.py:165", max_abs_err=err_p,
         shape=f"K={Kp} E={Ep} ({n_e} valid), one iteration without its solve",
         ms=_median_ms(step_kernel), plain_ms=_median_ms(step_plain, reps=5, warmup=1),
-        library_ms=_median_ms(lambda: sim3.cholesky_solve(Hd, b)),
-        library_call="torch.linalg.cholesky + cholesky_solve, the iteration's dense solve",
+        library_ms=_median_ms(lambda: cholesky_solve(Hd, b)),
+        library_call="torch.linalg.cholesky + cholesky_solve, the iteration's dense solve "
+                     "(spd_solve's row: kernel G's solve on the card)",
         # bytes: vertices and edges read once, the [7K,7K] system and its
         # right-hand side written once, the solve's x read and the vertices
         # written once by the update (the kernel's zero fill and gauge pass
@@ -1651,6 +1806,27 @@ def check_loop_kernels(dev, slam, rec):
         # one gauge select per entry of the system, the update per vertex
         **_bound(Kp * 52.0 + Ep * 61.0 + n7 * n7 * 4.0 + n7 * 4.0 + n7 * 4.0 + Kp * 52.0,
                  n_e * (15 * 600.0 + 2940.0) + 1.0 * n7 * n7 + Kp * 300.0)))
+
+    # ---- P's dense solve: kernel G's factorization (spd_solve) ----
+    x_plain = linalg.solve_spd_blocked(Hd, b)
+    x_lib = cholesky_solve(Hd, b)
+    torch.cuda.synchronize()
+    err_s = float((x - x_plain).abs().max() / x_plain.abs().max().clamp(min=1e-30))
+    print(f"kernel G spd_solve at the pose graph's system ({n7} x {n7}): max |x - plain| "
+          f"{err_s:.3g} of max |x|, against the library's "
+          f"{float((x - x_lib).abs().max() / x_lib.abs().max().clamp(min=1e-30)):.3g}")
+    rows.append(dict(
+        name="spd_solve", route="cuda", source="stella_vslam_tpu_torch/csrc/ba_schur.cu",
+        replaces="stella_vslam_tpu/ops/optim/sim3.py:255", max_abs_err=err_s,
+        shape=f"n={n7} (the loop slice's pose graph, K={Kp})",
+        ms=_device_ms(lambda: linalg.spd_solve(Hd, b)),
+        one_call_ms=_median_ms(lambda: linalg.spd_solve(Hd, b)),
+        plain_ms=_median_ms(lambda: linalg.solve_spd_blocked(Hd, b), reps=5, warmup=1),
+        library_ms=_device_ms(lambda: cholesky_solve(Hd, b)),
+        library_one_call_ms=_median_ms(lambda: cholesky_solve(Hd, b)),
+        library_call="torch.linalg.cholesky + cholesky_solve", timing=DEVICE_TIMING,
+        # the matrix and right-hand side read once, x written; n^3/3 + 2 n^2
+        **_bound(n7 * n7 * 4.0 + 2 * n7 * 4.0, n7 ** 3 / 3.0 + 2.0 * n7 * n7)))
 
     # ---- F-I at the global shape ----
     cam = slam.mapper.cam_scalars
@@ -1973,7 +2149,8 @@ def check_sharded_ba(dev, loop_rec, cam):
     K = 32
     psize = 33 * K + 1 + 36 * K * K
     parts = [st.f_part[:st.f_blocks * psize] for st in states]
-    ba.ba_shard_assemble(states[0], states, decide=False)
+    table = ba.shard_table(states)
+    ba.ba_shard_assemble(states[0], table, decide=False)
     hc, rhs, cost, S = ba.shard_reduce_plain(parts, K)
     torch.cuda.synchronize()
     w_same = torch.equal(states[0].hc, hc) and torch.equal(states[0].rhs, rhs) \
@@ -1985,15 +2162,18 @@ def check_sharded_ba(dev, loop_rec, cam):
           f"of {psize} floats (K={K}), equal to plain: {w_same} (max |diff| {w_err:.3g})")
     assert w_same, "kernel W's reduce mode disagrees with its plain version"
     stacked = torch.stack([p.reshape(-1, psize) for p in parts]).reshape(-1, psize)
+    w_launch = lambda: ba.ba_shard_assemble(states[0], table, decide=False)
     row = dict(
         name="ba_shard_assemble", route="cuda", source="stella_vslam_tpu_torch/csrc/ba_schur.cu",
         replaces="stella_vslam_tpu/parallel/sharded_ba.py:158", max_abs_err=w_err,
         shape=f"reduce mode, one device's replica: {n} shards x {states[0].f_blocks} blocks, "
               f"K={K}",
-        ms=_median_ms(lambda: ba.ba_shard_assemble(states[0], states, decide=False)),
+        ms=_device_ms(w_launch), one_call_ms=_median_ms(w_launch),
         plain_ms=_median_ms(lambda: ba.shard_reduce_plain(parts, K), reps=10),
-        library_ms=_median_ms(lambda: torch.sum(stacked, 0)),
+        library_ms=_device_ms(lambda: torch.sum(stacked, 0)),
+        library_one_call_ms=_median_ms(lambda: torch.sum(stacked, 0)),
         library_call="torch.sum over the stacked partials (another order)",
+        timing=DEVICE_TIMING,
         # every partial read once, one replica of the system written once;
         # one add per partial entry
         **_bound((n_blocks + 1) * psize * 4.0, n_blocks * float(psize)))
@@ -2052,10 +2232,51 @@ def check_sharded_ba(dev, loop_rec, cam):
                        reps=5, warmup=1)
     t_sh = _median_ms(lambda: shba.sharded_bundle_adjust(p32, c32, num_first=16, num_second=0,
                                                          devices=devs), reps=5, warmup=1)
-    row["whole_ba_ms"] = dict(shape=cases[0][0], unsharded=t_one, sharded=t_sh, shards=n)
+    row["whole_ba_ms"] = dict(shape=cases[0][0], unsharded=t_one, sharded=t_sh, shards=n,
+                              **_sharded_ba_bound_and_plain(p32, c32, devs))
     print(f"whole global BA {cases[0][0]}, one Huber stage of 16: unsharded {t_one:.3f} ms, "
-          f"sharded on {n} shards of one card {t_sh:.3f} ms")
+          f"sharded on {n} shards of one card {t_sh:.3f} ms; "
+          + json.dumps({k: v for k, v in row["whole_ba_ms"].items() if k != "shape"}))
     return [row]
+
+
+def _sharded_ba_bound_and_plain(prob, cam, devs) -> dict:
+    """K22's bound and plain time for one sharded BA (one Huber stage of
+    16): the bound sums, over the iterations the kernels ran (counted on a
+    run that reads the stop flag before each iteration), the bounds of F and
+    H on every shard and of W's reduce mode and G on every replica; the
+    plain time is bundle_adjust_shards_plain (iteration_plain) over the
+    same shards on the card, one call."""
+    import torch
+
+    from stella_vslam_tpu_torch.ops.optim import ba
+    from stella_vslam_tpu_torch.parallel import sharded_ba as shba
+
+    shards = shba.shard_problem(prob, devs)
+    K, D = prob.cam_R.shape[0], prob.obs_cam.shape[1]
+    run, iters = ba.shard_iteration, [0]
+
+    def counting(states, *args, **kw):
+        iters[0] += float(states[0].ctrl[ba._DONE]) == 0.0
+        return run(states, *args, **kw)
+
+    ba.shard_iteration = counting
+    try:
+        ba.bundle_adjust_shards(shards, cam, num_first=16, num_second=0)
+    finally:
+        ba.shard_iteration = run
+    bound = lambda kernel, L: _bound(*_ba_work(K, L, D)[kernel])["bound_ms"]
+    psize = 33 * K + 1 + 36 * K * K
+    w_blocks = sum(ba.f_blocks(K, p.obs_cam.shape[0]) for p in shards)
+    per_iter = sum(bound("F", p.obs_cam.shape[0]) + bound("H", p.obs_cam.shape[0])
+                   for p in shards) + len(shards) * (
+        bound("G", 0) + _bound((w_blocks + 1) * psize * 4.0, w_blocks * float(psize))["bound_ms"])
+    plain_ms = _median_ms(lambda: ba.bundle_adjust_shards_plain(shards, cam, num_first=16,
+                                                                num_second=0), reps=1, warmup=0)
+    torch.cuda.synchronize()
+    return dict(iterations=iters[0], bound_ms=iters[0] * per_iter, plain_ms=plain_ms,
+                bound_terms="per iteration: F and H on every shard, W's reduce mode and G on "
+                            "every replica (W's decide mode reads a few floats)")
 
 
 def record_assoc_inputs(sample: int = 97):
@@ -3621,10 +3842,21 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
+    # wall-clock seconds of each phase (host clock, the card synchronised by
+    # the phases' own reads), printed before the slices line
+    phase_s, t_lap = {}, [t_run]
+
+    def lap(name):
+        now = time.monotonic()
+        phase_s[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
+    lap("build")
     world = bench_world()
     rows = check_kernels(dev, world) + check_init_kernels(dev, world)
     rows += check_track_kernels(dev, world)
     rows += check_stereo_kernels(dev, world)
+    lap("kernel_checks")
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library "
@@ -3633,25 +3865,36 @@ def main() -> int:
 
     wrappers = map_slice.kernel_wrappers()
     rgbd, mono, launches = run_slices(dev, world, wrappers, card)
+    lap("rgbd_mono_slices")
+    undo_cache = cache_renders(world)
     loop, launches["loop"], slam, inputs, loop_rec = run_loop_slice(dev, world, wrappers, card)
+    lap("loop_slice")
     twice, _, launches["sharded"] = rerun_loop_slice(dev, world, slam, wrappers, card)
+    undo_cache()
+    lap("sharded_loop_slice")
     twice["ate_m"][0], twice["loops"][0] = loop["ate_m"], loop["loops_closed"]
     print("loop slice twice in one process (the second sharded): " + json.dumps(twice))
     map_rows = check_mapping_kernels(dev, slam.mapper, inputs)
     map_rows += check_loop_kernels(dev, slam, loop_rec)
     map_rows += check_sharded_ba(dev, loop_rec, slam.mapper.cam_scalars)
     repeat = check_repeatability(dev, loop_rec, slam.mapper.cam_scalars)
+    lap("mapping_loop_sharded_checks")
     threaded, launches["threaded"], tslam, assoc_rec = run_threaded_slice(
         dev, world, wrappers, card)
     check_recorded_assoc(assoc_rec)
+    lap("threaded_slice")
     legs, leg_launches = run_stereo_legs(dev, world, wrappers, card)
+    lap("stereo_rgbd_legs")
     eq, eq_launches, esc_launches, eq_calls, eslam = run_equirect_leg(dev, wrappers, card)
     map_rows += check_equirect_shapes(dev, eslam, eq_calls)
     map_rows += check_equirect_kernels(dev, eslam, eq_calls)
+    lap("equirect_leg_and_checks")
     dist, dist_launches, dist_recs = run_distorted_legs(dev, world, wrappers, card)
     map_rows += check_distorted_kernels(dev, world, dist_recs)
+    lap("distorted_legs_and_checks")
     fbow, fbow_launches, fbow_desc = run_fbow_leg(dev, world, wrappers, card)
     map_rows += check_fbow_kernels(dev, fbow_desc)
+    lap("fbow_leg_and_checks")
     for r in map_rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library "
@@ -3732,6 +3975,7 @@ def main() -> int:
             "ate_m", "tracked", "lost_after_init", "loops_closed", "keyframes_created",
             "keyframes_kept", "local_bas", "frame_ms", "fps", "worker_errors", "vocab_words")},
         fbow_leg_v_launches=fbow_launches["fbow_transform"])))
+    print("phase seconds: " + json.dumps(phase_s))
     print(f"chip_smoke: {time.monotonic() - t_run:.1f} s from the build on [{card}]")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

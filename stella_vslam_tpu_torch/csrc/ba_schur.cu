@@ -26,13 +26,15 @@
 //    its peers in lane order), then the warps add their sums one after
 //    another. The reduce kernel adds the blocks' copies in block order. No
 //    float atomics: the same inputs give the same bits on every launch.
-//  G ba_solve_kernel (one block): damps Hcc, masks fixed and invalid
-//    cameras, solves the 6K x 6K reduced system by Cholesky, forms the trial
-//    camera poses Exp(dx) * T, and clears the accumulators for the next F.
-//    Up to 6K = 192 the system sits in shared memory; above (the global BA)
-//    it is factored in a device-memory scratch by the same right-looking
-//    Cholesky with 1024 threads (the 590 KB of a K = 64 system stay in L2) and
-//    the two triangular solves run column by column across the block.
+//  G spd_tiled_kernel (svt_ba_solve): damps Hcc, masks fixed and invalid
+//    cameras, solves the 6K x 6K reduced system by a panel-blocked Cholesky
+//    on 32 x 32 tiles, forms the trial camera poses Exp(dx) * T, and clears
+//    the accumulators for the next F. Up to 6K = 192 one block holds the
+//    system in shared memory, up to 768 a cluster of 4 or 8 blocks shares
+//    it through distributed shared memory, above (K 129 - 512) the tiles
+//    sit in a device-memory scratch with one launch per panel phase (the
+//    note above spd_tiled_kernel). svt_spd_solve runs the same
+//    factorization on a plain SPD system (kernel P's dense solve).
 //  H ba_backsub_kernel (grid over landmarks): back-substitutes each point
 //    update, evaluates the trial cost (each block writes its sum to a
 //    scratch slot), and the last block to finish (a fence-and-counter
@@ -47,7 +49,7 @@
 // Bound: at init size (K = 2, L = 4096, D = 2) an iteration moves ~0.7 MB
 // (the problem, the per-observation W blocks and the trial state) and does
 // ~5 MFLOP, so it is bound by latency: four dependent launches (F's two, G,
-// H) and G's serial column loop. The design keeps every per-observation intermediate
+// H) and G's chain of dependent panels. The design keeps every per-observation intermediate
 // in registers, writes only W (6x3 per observation) for H, and reduces the
 // camera-side sums on chip before touching device memory.
 //
@@ -83,6 +85,7 @@
 // the same inputs on the map slice's local problems, whose reduced systems
 // are too ill-conditioned for a whole-BA bound at float32 rounding, and F
 // and H against themselves (two launches, equal bits).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -95,8 +98,7 @@ constexpr float kChi2D = 5.991f;
 constexpr float kChi3D = 7.815f;
 constexpr int kThreadsLm = 128;
 constexpr int kThreadsSolve = 512;
-constexpr int kThreadsSolveGlobal = 1024;
-constexpr int kSolveSharedDim = 192;        // largest 6K factored in shared memory
+constexpr int kSolveSharedDim = 192;        // largest n factored by one block
 constexpr size_t kMaxBlockSmem = 232448;     // 227 KB, the most a block can opt into
 
 // ctrl[] slots
@@ -484,28 +486,75 @@ ba_linearize_kernel(Problem P, Cam cam, const float* __restrict__ cam_R,
 // F's second launch and W's reduce mode: the shards' block partials added
 // in (shard, block) order, one thread per entry, into Hcc / b_c, the reduced
 // system, its right-hand side and the cost at the linearization point. F
-// passes one shard, its own blocks.
-__global__ void ba_reduce_kernel(int K, ShardParts T, float* __restrict__ ctrl,
-                                 float* __restrict__ hc_g, float* __restrict__ S_g,
-                                 float* __restrict__ rhs_g) {
+// passes one shard, its own blocks. Bound by the bytes it reads (every
+// partial once: 4.9 MB at K = 32 over 4 x 8 partials, 1.5 us at 3.35 TB/s).
+// Each block first lays the partials' base pointers out in shared memory in
+// (shard, block) order (kReduceTable at a time), so that a thread's
+// addresses need no walk over the shards; a thread then issues
+// kReduceInFlight loads before it adds them from registers in that order,
+// waiting out the memory latency once per kReduceInFlight partials, and
+// the sum keeps its bits. Loads stay scalar: F's partial stride 33K + 1 +
+// 36K^2 is odd for every even K, so a partial does not start 16-byte
+// aligned, and padding it would move F's writer, f_blocks and the plain
+// version for no fewer bytes; neighbouring threads read neighbouring
+// floats, and kReduceThreads-thread blocks give several blocks per SM (297
+// at K = 32).
+constexpr int kReduceThreads = 128;
+constexpr int kReduceInFlight = 32;
+constexpr int kReduceTable = 256;
+
+__global__ void __launch_bounds__(kReduceThreads)
+ba_reduce_kernel(int K, ShardParts T, float* __restrict__ ctrl, float* __restrict__ hc_g,
+                 float* __restrict__ S_g, float* __restrict__ rhs_g) {
   if (ctrl[kDone] != 0.f) return;
+  __shared__ const float* s_ptr[kMaxShards];
+  __shared__ int s_start[kMaxShards + 1];
+  __shared__ const float* s_part[kReduceTable];
   const size_t psize = f_partial_size(K);
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < psize;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
+  if (threadIdx.x == 0) {
+    int t = 0;
     for (int sh = 0; sh < T.count; ++sh) {
-      const float* part = T.ptr[sh];
-      for (int b = 0; b < T.blocks[sh]; ++b) s += part[b * psize + i];
+      s_ptr[sh] = T.ptr[sh];
+      s_start[sh] = t;
+      t += T.blocks[sh];
     }
-    if (i < 27 * (size_t)K)
-      hc_g[i] = s;
-    else if (i < 33 * (size_t)K)
-      rhs_g[i - 27 * K] = s;
-    else if (i == 33 * (size_t)K)
-      ctrl[kCost0] = s;
-    else
-      S_g[i - 33 * K - 1] = s;
+    s_start[T.count] = t;
   }
+  __syncthreads();
+  const int total = s_start[T.count];
+  const size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+  const bool live = i < psize;
+  float s = 0.f;
+  for (int base = 0; base < total; base += kReduceTable) {
+    const int m = min(kReduceTable, total - base);
+    __syncthreads();  // the previous table's reads are done
+    for (int t = threadIdx.x; t < m; t += blockDim.x) {
+      const int f = base + t;
+      int sh = 0;
+      while (s_start[sh + 1] <= f) ++sh;
+      s_part[t] = s_ptr[sh] + (size_t)(f - s_start[sh]) * psize;
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int u0 = 0; u0 < m; u0 += kReduceInFlight) {
+      float v[kReduceInFlight];
+#pragma unroll
+      for (int u = 0; u < kReduceInFlight; ++u)
+        v[u] = u0 + u < m ? __ldcg(s_part[u0 + u] + i) : 0.f;
+#pragma unroll
+      for (int u = 0; u < kReduceInFlight; ++u)
+        if (u0 + u < m) s += v[u];
+    }
+  }
+  if (!live) return;
+  if (i < 27 * (size_t)K)
+    hc_g[i] = s;
+  else if (i < 33 * (size_t)K)
+    rhs_g[i - 27 * K] = s;
+  else if (i == 33 * (size_t)K)
+    ctrl[kCost0] = s;
+  else
+    S_g[i - 33 * K - 1] = s;
 }
 
 // (R, t) <- Exp(xi) * (R, t), xi = [rho, phi] (ops/lie.py se3_exp, se3_compose)
@@ -537,112 +586,652 @@ __device__ void se3_left(const float* xi, const float* R, const float* t, float*
   }
 }
 
-// kGlobal: the system is factored in the device-memory scratch A_g (n > 192)
-template <bool kGlobal>
-__global__ void __launch_bounds__(kGlobal ? kThreadsSolveGlobal : kThreadsSolve)
-ba_solve_kernel(int K, const float* __restrict__ cam_free, const float* __restrict__ cam_R,
-                const float* __restrict__ cam_t, float* __restrict__ ctrl,
-                float* __restrict__ hc_g, float* __restrict__ S_g, float* __restrict__ rhs_g,
-                float* __restrict__ dx_g, float* __restrict__ cam_Rn, float* __restrict__ cam_tn,
-                float* A_g) {
-  if (ctrl[kDone] != 0.f) return;
-  extern __shared__ float sm[];
-  const int n = 6 * K, tid = threadIdx.x;
-  float* S = kGlobal ? A_g : sm;         // [n,n]
-  float* x = kGlobal ? sm : sm + n * n;  // [n]
-  // the device-memory route reads what other threads wrote before a barrier
-  // through a volatile pointer: the compiler may otherwise keep an entry it
-  // loaded in an earlier column (measured: a wrong factor from the first
-  // free column on)
-  volatile float* Sv = S;
-  const float lam = ctrl[kLam];
-  // S = -S_red + blockdiag(Hcc + (lam * max(tr/6, 1e-6) + 1e-7) I), masked
-  for (int q = tid; q < n * n; q += blockDim.x) {
-    const int i = q / n, j = q % n;
+// ---------------------------------------------------------------------------
+// G: the tiled Cholesky solve (ba_solve_kernel's successor; see the note at
+// the top of the file and below)
+// ---------------------------------------------------------------------------
+//
+// The system is cut into 32 x 32 tiles (one warp's width) and only the
+// lower triangle's tiles are kept, each with a row stride of 33 floats, so
+// that a warp reading a tile's row or column hits 32 banks. Sizes are padded
+// with an identity diagonal (as linalg.solve_spd_blocked pads), and the
+// right-hand side rides in the factor as row n: the Cholesky factor of
+// [[S, .], [b^T, 1]] holds L^-1 b in its last row, so the forward solve
+// costs no step of its own. Per panel p (tile column p):
+//   A. one warp factors the diagonal tile in registers (lane i holds row i,
+//      the column values travel by shuffles; each pivot is guarded by
+//      max(a, 1e-20), the plain version's eps, and one rsqrt gives it and
+//      its reciprocal);
+//   B. the warps solve the panel's tiles below it (TRSM, one warp per tile,
+//      lane r on row r, the diagonal factor broadcast from shared memory);
+//   C. the trailing lower triangle takes the panel's rank-32 update (SYRK):
+//      the panel's owners write it, transposed, into every block's [kc][N]
+//      buffer and each thread updates 4 x 4 micro-tiles of its block's
+//      trailing tiles (tile, micro row and column from a precomputed slot
+//      map and shifts); the next diagonal tile's owner then writes it into
+//      every block, which factors it in place in phase A.
+// About 3 barriers per panel instead of 3 per column. Then the backward
+// solve L^T x = y panel by panel: one warp on the diagonal triangle, every
+// thread on the rest of x, which lives in shared memory.
+//
+// Storage by size:
+//   n <= 192 (kSolveSharedDim, K <= 32): one block of kThreadsSolve, every
+//     tile in its shared memory (28 tiles and the panel, 152 KB at n = 192);
+//   192 < n <= 768 (kSolveClusterDim, K <= 128): a thread block cluster of
+//     4 or 8 blocks (cudaLaunchKernelEx with a cluster-dimension attribute).
+//     Tile q of the column-major lower triangle lives in block q % C's
+//     shared memory; each block updates only its own tiles. The owners
+//     push the panel and the next diagonal tile into every peer through
+//     distributed shared memory (map_shared_rank): remote stores need no
+//     round trip, and pulling them with remote loads instead made G twice
+//     as slow at K = 64 on an H100 (scripts/torch_solve_probe.py: 0.27
+//     against 0.14 ms). Above K = 111 the panel buffer holds
+//     16 columns and the update runs in two passes. The cluster meets at
+//     cluster.sync() twice per panel (once more per extra pass) and once
+//     before any block exits (no block may leave while a peer can still
+//     read its shared memory). Block 0 solves backward;
+//   n > 768 (K 129 - 512): the same tiles in a device-memory scratch, one
+//     launch per panel phase (A + B: one block per panel tile; C: one block
+//     per trailing tile), the order between phases kept by the launch
+//     boundaries and plain loads (no volatile reads: nothing is read that
+//     another block of the same launch writes).
+// fp32 on the CUDA cores: at these sizes the factor is bound by its chain
+// of n/32 dependent panels and by barrier latency, not by operations
+// (n^3/3 = 2.4 MFLOP at n = 192, ~5 us at one SM's fp32 peak), and TF32 on
+// the tensor cores would give up digits that the float32 parity bounds
+// hold. Every sum runs in an order fixed by the tiling (no atomics), so a
+// launch repeats bit for bit and every replica of a sharded BA solves alike.
+constexpr int kTileLd = 33;                   // row stride of a tile
+constexpr int kTileFloats = 32 * kTileLd;     // one tile
+constexpr int kSolveClusterDim = 768;         // largest n factored by a cluster
+constexpr int kThreadsFinal = 1024;           // the device-memory route's last launch
+constexpr int kSysBA = 0;                     // G: the damped, masked reduced system
+constexpr int kSysSPD = 1;                    // svt_spd_solve: A x = b as given
+
+// What G solves and where its result goes. kSysBA: the damped, masked
+// reduced system of ctrl / hc / S / rhs, the trial poses and the cleared
+// accumulators; kSysSPD: the lower triangle of A (n x n) and b, x.
+struct SolveArgs {
+  int n, K;
+  const float* cam_free;
+  const float* cam_R;
+  const float* cam_t;
+  const float* ctrl;
+  float* hc;
+  float* S;
+  float* rhs;
+  float* dx;
+  float* cam_Rn;
+  float* cam_tn;
+  const float* A;
+  const float* b;
+  float* x;
+};
+
+// Tiles per side (rows 0..n-1 the system, row n the right-hand side) and the
+// column-major numbering of the lower triangle's tiles.
+struct TileGeom {
+  int n, nt;
+  __host__ __device__ explicit TileGeom(int n_) : n(n_), nt((n_ + 32) / 32) {}
+  __host__ __device__ int colstart(int J) const { return J * nt - J * (J - 1) / 2; }
+  __host__ __device__ int index(int I, int J) const { return colstart(J) + I - J; }
+  __host__ __device__ int count() const { return nt * (nt + 1) / 2; }
+  __device__ void coords(int q, int& I, int& J) const {
+    J = 0;
+    while (J + 1 < nt && colstart(J + 1) <= q) ++J;
+    I = J + q - colstart(J);
+  }
+};
+
+// right-hand side entry j < n, from hc (27 floats a camera) and cam_free
+// wherever they are kept (device or shared memory)
+template <int SYS>
+__device__ __forceinline__ float rhs_entry(const SolveArgs& a, const float* hc,
+                                           const float* cam_free, int j) {
+  if constexpr (SYS == kSysSPD) {
+    return a.b[j];
+  } else {
+    return (hc[27 * (j / 6) + 21 + j % 6] - a.rhs[j]) * cam_free[j / 6];
+  }
+}
+
+// The device-memory value entry (i, j) starts from (S or A, lower
+// triangle), 0 where there is none: loaded apart from the rest, so that a
+// thread can have several of these loads in flight.
+template <int SYS>
+__device__ __forceinline__ float raw_entry(const SolveArgs& a, int i, int j) {
+  const float* src = SYS == kSysSPD ? a.A : a.S;
+  // an unconditional load from a clamped address: no branch stands between
+  // a thread's loads, so a batch of them is in flight at once
+  const int ic = min(i, a.n - 1), jc = min(j, ic);
+  const float v = src[(size_t)ic * a.n + jc];
+  return (i < a.n && j <= i) ? v : 0.f;
+}
+
+// Entry (i, j), j <= i < 32 nt, of the padded system with its right-hand
+// side row, from its raw value; bvec: the right-hand side (computed from
+// hc when null). kSysBA: S = -S_red + blockdiag(Hcc + (lam * max(tr/6,
+// 1e-6) + 1e-7) I), fixed and invalid cameras masked to the identity.
+template <int SYS>
+__device__ __forceinline__ float system_entry(const SolveArgs& a, float lam, int i, int j,
+                                              float raw, const float* hc,
+                                              const float* cam_free, const float* bvec) {
+  const int n = a.n;
+  if (i > n) return i == j ? 1.f : 0.f;
+  if (i == n) return j < n ? (bvec ? bvec[j] : rhs_entry<SYS>(a, hc, cam_free, j)) : 1.f;
+  if constexpr (SYS == kSysSPD) {
+    return raw;
+  } else {
     const int ki = i / 6, kj = j / 6;
-    float v = -S_g[q];
+    float v = -raw;
     if (ki == kj) {
-      const float* hc = hc_g + 27 * ki;
-      const int a = min(i % 6, j % 6), b = max(i % 6, j % 6);
-      // packed upper index of (a, b)
-      const int pu = a * 6 - a * (a - 1) / 2 + (b - a);
-      v += hc[pu];
+      const float* h = hc + 27 * ki;
+      const int lo = min(i % 6, j % 6), hi = max(i % 6, j % 6);
+      v += h[lo * 6 - lo * (lo - 1) / 2 + (hi - lo)];  // packed upper index
       if (i == j) {
-        const float tr = hc[0] + hc[6] + hc[11] + hc[15] + hc[18] + hc[20];
+        const float tr = h[0] + h[6] + h[11] + h[15] + h[18] + h[20];
         v += lam * fmaxf(tr / 6.f, 1e-6f) + 1e-7f;
       }
     }
     const float fi = cam_free[ki], fj = cam_free[kj];
-    S[q] = v * fi * fj + (i == j ? 1.f - fi : 0.f);
+    return v * fi * fj + (i == j ? 1.f - fi : 0.f);
   }
-  for (int i = tid; i < n; i += blockDim.x)
-    x[i] = (hc_g[27 * (i / 6) + 21 + i % 6] - rhs_g[i]) * cam_free[i / 6];
+}
+
+constexpr int kLoadBatch = 8;  // loads a thread keeps in flight in a copy loop
+
+// One warp: the lower Cholesky factor of tile T into Lo (zeros above the
+// diagonal) and the reciprocals of its diagonal into dinv. Lane i holds row
+// i; entries above the diagonal are never read into the factor. The pivot
+// chain (32 dependent steps) takes rsqrt once a step: the pivot and its
+// reciprocal within 2 ulp, well inside the plain version's bounds.
+__device__ __forceinline__ void potrf_warp(const float* T, float* Lo, float* dinv, int lane) {
+  float a[32];
+#pragma unroll
+  for (int c = 0; c < 32; ++c) a[c] = T[lane * kTileLd + c];
+  float my_inv = 0.f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const float p = fmaxf(__shfl_sync(kFull, a[j], j), 1e-20f);
+    const float inv = rsqrtf(p), d = p * inv;  // one MUFU op on the chain
+    a[j] = lane == j ? d : a[j] * inv;
+    if (lane == j) my_inv = inv;
+#pragma unroll
+    for (int c = j + 1; c < 32; ++c) a[c] -= a[j] * __shfl_sync(kFull, a[j], c);
+  }
+#pragma unroll
+  for (int c = 0; c < 32; ++c) Lo[lane * kTileLd + c] = c <= lane ? a[c] : 0.f;
+  dinv[lane] = my_inv;
+}
+
+// One warp: T <- T L^-T for the tile T below a diagonal tile with factor Lo
+// (lane r solves row r by forward substitution).
+__device__ __forceinline__ void trsm_warp(float* T, const float* Lo, const float* dinv,
+                                          int lane) {
+  float a[32];
+#pragma unroll
+  for (int c = 0; c < 32; ++c) a[c] = T[lane * kTileLd + c];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    a[k] *= dinv[k];
+#pragma unroll
+    for (int c = k + 1; c < 32; ++c) a[c] -= a[k] * Lo[c * kTileLd + k];
+  }
+#pragma unroll
+  for (int c = 0; c < 32; ++c) T[lane * kTileLd + c] = a[c];
+}
+
+// T -= Pr Pc^T on the 4 x 4 micro-tile (mr, mc) of a trailing tile: Pr and
+// Pc point at the tile's rows and columns in the transposed panel buffer
+// (row stride ldp floats), kc panel columns.
+__device__ __forceinline__ void syrk_micro(float* T, const float* Pr, const float* Pc, int ldp,
+                                           int kc, int mr, int mc) {
+  float acc[4][4] = {};
+  const float4* pr = reinterpret_cast<const float4*>(Pr + 4 * mr);
+  const float4* pc = reinterpret_cast<const float4*>(Pc + 4 * mc);
+  const int ld4 = ldp / 4;
+#pragma unroll 8
+  for (int k = 0; k < kc; ++k) {
+    const float4 u = pr[k * ld4], v = pc[k * ld4];
+    const float uu[4] = {u.x, u.y, u.z, u.w}, vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(uu[i], vv[j], acc[i][j]);
+  }
+  float* t = T + 4 * mr * kTileLd + 4 * mc;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) t[i * kTileLd + j] -= acc[i][j];
+}
+
+// One warp: the backward solve of the diagonal tile Td on x_p (x holds the
+// panel's right-hand side; rows at or past n are zero and stay zero).
+__device__ __forceinline__ void backward_warp(const float* Td, float* xp, int row0, int n,
+                                              int lane) {
+  float lcol[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+    lcol[j] = (j > lane && row0 + j < n) ? Td[j * kTileLd + lane] : 0.f;
+  const bool live = row0 + lane < n;
+  float yi = live ? xp[lane] : 0.f;
+  const float rdi = live ? 1.f / Td[lane * kTileLd + lane] : 0.f;
+  float xi = 0.f;
+#pragma unroll
+  for (int j = 31; j >= 0; --j) {
+    const float xj = __shfl_sync(kFull, yi * rdi, j);
+    if (lane == j) xi = xj;
+    yi -= lcol[j] * xj;
+  }
+  xp[lane] = xi;
+}
+
+// The result of the solve in x (shared memory, one block): kSysBA the step
+// dx = -x on the free cameras, the trial poses and the cleared accumulators
+// (S is cleared by the caller); kSysSPD x itself.
+template <int SYS>
+__device__ void solve_finish(const SolveArgs& a, float* x) {
+  const int n = a.n, tid = threadIdx.x;
+  if constexpr (SYS == kSysSPD) {
+    for (int i = tid; i < n; i += blockDim.x) a.x[i] = x[i];
+  } else {
+    for (int i = tid; i < n; i += blockDim.x) {
+      x[i] = -x[i] * a.cam_free[i / 6];
+      a.dx[i] = x[i];
+    }
+    __syncthreads();
+    for (int k = tid; k < a.K; k += blockDim.x)
+      se3_left(x + 6 * k, a.cam_R + 9 * k, a.cam_t + 3 * k, a.cam_Rn + 9 * k, a.cam_tn + 3 * k);
+    for (int q = tid; q < 27 * a.K; q += blockDim.x) a.hc[q] = 0.f;
+    for (int q = tid; q < n; q += blockDim.x) a.rhs[q] = 0.f;
+  }
+}
+
+template <int SYS>
+__device__ __forceinline__ bool solve_stopped(const SolveArgs& a) {
+  if constexpr (SYS == kSysBA) return a.ctrl[kDone] != 0.f;
+  return false;
+}
+
+// Shared memory of the one-block and cluster routes, in floats: the block's
+// tile slots, the panel buffer [kc][32 nt], the diagonal factor and its
+// reciprocals, x [32 nt], and the slot map (one 16-bit (I, J) per slot).
+size_t solve_smem_bytes(int n, int C, int kc) {
+  const TileGeom g(n);
+  const size_t slots = (g.count() + C - 1) / C, N = 32 * (size_t)g.nt;
+  return sizeof(float) * (slots * kTileFloats + kc * N + kTileFloats + 32 + N) +
+         sizeof(unsigned short) * slots;
+}
+
+// Where tile (I, J) lives: this block's slot q / C, or its owner's through
+// distributed shared memory (C > 1).
+template <int C>
+__device__ __forceinline__ float* tile_at(float* slots, const TileGeom& g, int rank, int I,
+                                          int J) {
+  const int q = g.index(I, J);
+  float* p = slots + (size_t)(q / C) * kTileFloats;
+  if constexpr (C == 1) {
+    return p;
+  } else {
+    const int owner = q % C;
+    return owner == rank ? p : cooperative_groups::this_cluster().map_shared_rank(p, owner);
+  }
+}
+
+// The block's threads copy n floats from src (this block's shared memory)
+// to dst in every block of the cluster (dst: an address in this block's
+// shared memory layout, mapped to each peer's).
+template <int C>
+__device__ __forceinline__ void push_to_all(const float* src, float* dst, int n) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const float v = src[e];
+    for (int b = 0; b < C; ++b) {
+      float* d = dst;
+      if constexpr (C > 1)
+        if (b != (int)cooperative_groups::this_cluster().block_rank())
+          d = cooperative_groups::this_cluster().map_shared_rank(dst, b);
+      d[e] = v;
+    }
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void cluster_barrier() {
+  if constexpr (C == 1)
+    __syncthreads();
+  else
+    cooperative_groups::this_cluster().sync();
+}
+
+// The one-block (C = 1) and cluster (C = 4, 8) routes. kc: panel columns per
+// SYRK pass (32, or 16 where the panel buffer must be smaller).
+template <int SYS, int C>
+__global__ void __launch_bounds__(kThreadsSolve, 1) spd_tiled_kernel(SolveArgs a, int kc) {
+  if (solve_stopped<SYS>(a)) return;  // every block of the cluster returns
+  extern __shared__ __align__(16) float tiled_sm[];
+  const TileGeom g(a.n);
+  const int n = a.n, nt = g.nt, N = 32 * nt, ntl = g.count();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  int rank = 0;
+  if constexpr (C > 1) rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int nslots = (ntl + C - 1) / C, nown = (ntl - rank + C - 1) / C;
+  float* slots = tiled_sm;
+  float* P = slots + (size_t)nslots * kTileFloats;
+  float* Lo = P + (size_t)kc * N;
+  float* dinv = Lo + kTileFloats;
+  float* x = dinv + 32;
+  unsigned short* map = reinterpret_cast<unsigned short*>(x + N);
+  float lam = 0.f;
+  if constexpr (SYS == kSysBA) lam = a.ctrl[kLam];
+  for (int s = tid; s < nown; s += blockDim.x) {
+    int I, J;
+    g.coords(s * C + rank, I, J);
+    map[s] = (unsigned short)((I << 8) | J);
+  }
+  // kSysBA: hc and cam_free staged in the panel buffer (27K + K floats,
+  // free until the first panel's pushes), then the right-hand side in x
+  float* hcs = P;
+  float* frees = P + 27 * a.K;
+  if constexpr (SYS == kSysBA) {
+    for (int q = tid; q < 27 * a.K; q += blockDim.x) hcs[q] = a.hc[q];
+    for (int k = tid; k < a.K; k += blockDim.x) frees[k] = a.cam_free[k];
+    __syncthreads();
+  }
+  for (int j = tid; j < n; j += blockDim.x) x[j] = rhs_entry<SYS>(a, hcs, frees, j);
   __syncthreads();
-  // Cholesky, right-looking, lower triangle in place
-  for (int j = 0; j < n; ++j) {
-    if (tid == 0) S[j * n + j] = sqrtf(fmaxf(kGlobal ? Sv[j * n + j] : S[j * n + j], 1e-20f));
+  // this block's tiles of the padded system (zeros above the diagonal),
+  // kLoadBatch device-memory loads in flight a thread
+  const int total = nown * 1024;
+  for (int e0 = tid; e0 < total; e0 += kLoadBatch * blockDim.x) {
+    float raw[kLoadBatch];
+#pragma unroll
+    for (int u = 0; u < kLoadBatch; ++u) {
+      const int e = min(e0 + u * (int)blockDim.x, total - 1), s = e >> 10;
+      raw[u] = raw_entry<SYS>(a, 32 * (map[s] >> 8) + ((e >> 5) & 31),
+                              32 * (map[s] & 255) + (e & 31));
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadBatch; ++u) {
+      const int e = e0 + u * blockDim.x;
+      if (e >= total) break;
+      const int s = e >> 10, r = (e >> 5) & 31, c = e & 31;
+      const int i = 32 * (map[s] >> 8) + r, j = 32 * (map[s] & 255) + c;
+      slots[(size_t)s * kTileFloats + r * kTileLd + c] =
+          j <= i ? system_entry<SYS>(a, lam, i, j, raw[u], hcs, frees, x) : 0.f;
+    }
+  }
+  __syncthreads();
+  // the first diagonal tile (tile 0, block 0's slot 0) into every block's Lo
+  if (rank == 0) push_to_all<C>(slots, Lo, kTileFloats);
+  cluster_barrier<C>();
+  int lgk = 0;
+  while ((1 << lgk) < kc) ++lgk;
+  for (int p = 0; p < nt; ++p) {
+    // A: the diagonal tile's factor in place in Lo (every block holds its
+    // copy); the tile's owner keeps the factor in its slot
+    if (warp == 0) potrf_warp(Lo, Lo, dinv, lane);
     __syncthreads();
-    const float djj = kGlobal ? Sv[j * n + j] : S[j * n + j];
-    for (int i = j + 1 + tid; i < n; i += blockDim.x)
-      S[i * n + j] = (kGlobal ? Sv[i * n + j] : S[i * n + j]) / djj;
+    const int cs = g.colstart(p), ce = g.colstart(p + 1);
+    if (cs % C == rank)
+      for (int e = tid; e < kTileFloats; e += blockDim.x)
+        slots[(size_t)(cs / C) * kTileFloats + e] = Lo[e];
+    // B: this block's tiles below it, one warp each
+    const int q0 = cs + 1 + ((rank - (cs + 1)) % C + C) % C;
+    const int npan = q0 < ce ? (ce - q0 + C - 1) / C : 0;  // this block's panel tiles
+    for (int t = warp; t < npan; t += nwarps)
+      trsm_warp(slots + (size_t)((q0 + t * C) / C) * kTileFloats, Lo, dinv, lane);
     __syncthreads();
-    if (kGlobal) {
-      // one warp per row of the trailing lower triangle
-      const int lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
-      for (int i = j + 1 + warp; i < n; i += nw) {
-        const float lij = Sv[i * n + j];
-        for (int c = j + 1 + lane; c <= i; c += 32) Sv[i * n + c] -= lij * Sv[c * n + j];
+    // C: the trailing update of this block's tiles, kc panel columns a pass;
+    // each pass's columns are pushed, transposed, by their tiles' owners
+    // into every block's panel buffer (remote stores: no round trips)
+    const int first = (ce - rank + C - 1) / C;  // own slots from here lie right of p
+    const int nsy = max(nown - first, 0);
+    for (int k0 = 0; k0 < 32; k0 += kc) {
+      if (k0 > 0) cluster_barrier<C>();  // every block has read the last pass
+      for (int e = tid; e < npan * kc * 32; e += blockDim.x) {
+        const int t = e >> (lgk + 5), kk = (e >> 5) & (kc - 1), r = e & 31;
+        const int q = q0 + t * C, I = p + q - cs;
+        const float v = slots[(size_t)(q / C) * kTileFloats + r * kTileLd + k0 + kk];
+        for (int b = 0; b < C; ++b) {
+          float* Pb = P;
+          if constexpr (C > 1)
+            if (b != rank) Pb = cooperative_groups::this_cluster().map_shared_rank(P, b);
+          Pb[(size_t)kk * N + 32 * I + r] = v;
+        }
       }
-    } else {
-      const int m = n - j - 1;
-      for (int q = tid; q < m * m; q += blockDim.x) {
-        const int i = j + 1 + q / m, c = j + 1 + q % m;
-        if (c <= i) S[i * n + c] -= S[i * n + j] * S[c * n + j];
+      cluster_barrier<C>();
+      for (int w = tid; w < nsy * 64; w += blockDim.x) {
+        const int s = first + (w >> 6), m = w & 63, mr = m >> 3, mc = m & 7;
+        const int I = map[s] >> 8, J = map[s] & 255;
+        if (I == J && mc > mr) continue;
+        syrk_micro(slots + (size_t)s * kTileFloats, P + 32 * I, P + 32 * J, N, kc, mr, mc);
       }
+      __syncthreads();
+    }
+    // the next diagonal tile, final now, into every block's Lo
+    if (p + 1 < nt && ce % C == rank)
+      push_to_all<C>(slots + (size_t)(ce / C) * kTileFloats, Lo, kTileFloats);
+    cluster_barrier<C>();
+  }
+  // every block clears its share of the accumulated S (read by the builds,
+  // which all ended before the first barrier)
+  if constexpr (SYS == kSysBA) {
+    const size_t nn = (size_t)n * n;
+    for (size_t q = (size_t)rank * blockDim.x + tid; q < nn; q += (size_t)C * blockDim.x)
+      a.S[q] = 0.f;
+  }
+  if (rank == 0) {
+    // y = L^-1 b from the right-hand-side row, then L^T x = y
+    const int nb = n >> 5, rb = n & 31;
+    for (int j = tid; j < N; j += blockDim.x)
+      x[j] = j < n ? tile_at<C>(slots, g, rank, nb, j >> 5)[rb * kTileLd + (j & 31)] : 0.f;
+    __syncthreads();
+    for (int p = (n - 1) >> 5; p >= 0; --p) {
+      if (warp == 0) backward_warp(tile_at<C>(slots, g, rank, p, p), x + 32 * p, 32 * p, n, lane);
+      __syncthreads();
+      for (int r = tid; r < 32 * p; r += blockDim.x) {
+        const float* T = tile_at<C>(slots, g, rank, p, r >> 5) + (r & 31);
+        float s = 0.f;
+#pragma unroll
+        for (int k = 0; k < 32; ++k) s = fmaf(T[k * kTileLd], x[32 * p + k], s);
+        x[r] -= s;
+      }
+      __syncthreads();
+    }
+    solve_finish<SYS>(a, x);
+  }
+  if constexpr (C > 1) cooperative_groups::this_cluster().sync();
+}
+
+// ---- the device-memory route (n > kSolveClusterDim): one launch per phase ----
+// scratch: the lower triangle's tiles (column-major numbering), then the nt
+// factored diagonal tiles (phase A + B reads a diagonal tile that it must
+// not overwrite while other blocks of the launch read it)
+size_t solve_scratch_floats(int n) {
+  const TileGeom g(n);
+  return ((size_t)g.count() + g.nt) * kTileFloats;
+}
+
+// the tiles, and the S accumulator cleared (each block its tile's region
+// and the mirror of it)
+template <int SYS>
+__global__ void __launch_bounds__(256) spd_build_kernel(SolveArgs a, float* tiles) {
+  if (solve_stopped<SYS>(a)) return;
+  const TileGeom g(a.n);
+  int I, J;
+  g.coords(blockIdx.x, I, J);
+  float lam = 0.f;
+  if constexpr (SYS == kSysBA) lam = a.ctrl[kLam];
+  float* T = tiles + (size_t)blockIdx.x * kTileFloats;
+  for (int e = threadIdx.x; e < 1024; e += blockDim.x) {
+    const int r = e >> 5, c = e & 31, i = 32 * I + r, j = 32 * J + c;
+    T[r * kTileLd + c] = j <= i ? system_entry<SYS>(a, lam, i, j, raw_entry<SYS>(a, i, j), a.hc,
+                                                    a.cam_free, nullptr)
+                                : 0.f;
+  }
+  if constexpr (SYS == kSysBA) {
+    __syncthreads();
+    const int n = a.n;
+    for (int e = threadIdx.x; e < 1024; e += blockDim.x) {
+      const int r = e >> 5, c = e & 31;
+      if (32 * I + r < n && 32 * J + c < n) a.S[(size_t)(32 * I + r) * n + 32 * J + c] = 0.f;
+      if (I != J && 32 * J + r < n && 32 * I + c < n)
+        a.S[(size_t)(32 * J + r) * n + 32 * I + c] = 0.f;
+    }
+  }
+}
+
+// A + B of panel p: block b factors the diagonal tile (every block alike)
+// and solves tile (p + 1 + b, p); block 0 keeps the factor in diag.
+template <int SYS>
+__global__ void __launch_bounds__(32) spd_panel_kernel(SolveArgs a, float* tiles, float* diag,
+                                                       int p) {
+  if (solve_stopped<SYS>(a)) return;
+  __shared__ float Td[kTileFloats], Lo[kTileFloats], dinv[32];
+  const TileGeom g(a.n);
+  const int lane = threadIdx.x;
+  const float* A = tiles + (size_t)g.index(p, p) * kTileFloats;
+  for (int e = lane; e < kTileFloats; e += 32) Td[e] = A[e];
+  __syncwarp();
+  potrf_warp(Td, Lo, dinv, lane);
+  __syncwarp();
+  if (blockIdx.x == 0)
+    for (int e = lane; e < kTileFloats; e += 32) diag[(size_t)p * kTileFloats + e] = Lo[e];
+  const int I = p + 1 + blockIdx.x;
+  if (I >= g.nt) return;
+  float* T = tiles + (size_t)g.index(I, p) * kTileFloats;
+  for (int e = lane; e < kTileFloats; e += 32) Td[e] = T[e];
+  __syncwarp();
+  trsm_warp(Td, Lo, dinv, lane);
+  __syncwarp();
+  for (int e = lane; e < kTileFloats; e += 32) T[e] = Td[e];
+}
+
+// C of panel p: block t updates trailing tile t (row-major numbering of the
+// trailing triangle), one 4 x 4 micro-tile per thread
+template <int SYS>
+__global__ void __launch_bounds__(64) spd_update_kernel(SolveArgs a, float* tiles, int p) {
+  if (solve_stopped<SYS>(a)) return;
+  __shared__ __align__(16) float Pr[32 * 32], Pc[32 * 32];
+  const TileGeom g(a.n);
+  const int t = blockIdx.x;
+  int u = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+  while (u * (u + 1) / 2 > t) --u;
+  while ((u + 1) * (u + 2) / 2 <= t) ++u;
+  const int I = p + 1 + u, J = p + 1 + t - u * (u + 1) / 2;
+  const float* Ti = tiles + (size_t)g.index(I, p) * kTileFloats;
+  const float* Tj = tiles + (size_t)g.index(J, p) * kTileFloats;
+  for (int e = threadIdx.x; e < 1024; e += blockDim.x) {
+    const int r = e & 31, k = e >> 5;
+    Pr[k * 32 + r] = Ti[r * kTileLd + k];
+    Pc[k * 32 + r] = Tj[r * kTileLd + k];
+  }
+  __syncthreads();
+  const int mr = threadIdx.x >> 3, mc = threadIdx.x & 7;
+  if (I == J && mc > mr) return;
+  syrk_micro(tiles + (size_t)g.index(I, J) * kTileFloats, Pr, Pc, 32, 32, mr, mc);
+}
+
+// the backward solve (diagonal tiles from diag) and the result
+template <int SYS>
+__global__ void __launch_bounds__(kThreadsFinal) spd_final_kernel(SolveArgs a,
+                                                                  const float* tiles,
+                                                                  const float* diag) {
+  if (solve_stopped<SYS>(a)) return;
+  extern __shared__ __align__(16) float final_sm[];
+  float* x = final_sm;
+  const TileGeom g(a.n);
+  const int n = a.n, N = 32 * g.nt, tid = threadIdx.x, lane = tid & 31;
+  auto tile = [&](int I, int J) {
+    return I == J ? diag + (size_t)I * kTileFloats : tiles + (size_t)g.index(I, J) * kTileFloats;
+  };
+  const int nb = n >> 5, rb = n & 31;
+  for (int j = tid; j < N; j += blockDim.x)
+    x[j] = j < n ? tile(nb, j >> 5)[rb * kTileLd + (j & 31)] : 0.f;
+  __syncthreads();
+  for (int p = (n - 1) >> 5; p >= 0; --p) {
+    if (tid < 32) backward_warp(tile(p, p), x + 32 * p, 32 * p, n, lane);
+    __syncthreads();
+    for (int r = tid; r < 32 * p; r += blockDim.x) {
+      const float* T = tile(p, r >> 5) + (r & 31);
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < 32; ++k) s = fmaf(T[k * kTileLd], x[32 * p + k], s);
+      x[r] -= s;
     }
     __syncthreads();
   }
-  if (kGlobal) {
-    // L y = rhs, then L^T x = y, column by column across the block
-    for (int j = 0; j < n; ++j) {
-      if (tid == 0) x[j] /= Sv[j * n + j];
-      __syncthreads();
-      const float xj = x[j];
-      for (int i = j + 1 + tid; i < n; i += blockDim.x) x[i] -= Sv[i * n + j] * xj;
-      __syncthreads();
-    }
-    for (int j = n - 1; j >= 0; --j) {
-      if (tid == 0) x[j] /= Sv[j * n + j];
-      __syncthreads();
-      const float xj = x[j];
-      for (int i = tid; i < j; i += blockDim.x) x[i] -= Sv[j * n + i] * xj;
-      __syncthreads();
-    }
-  } else if (tid == 0) {
-    // L y = rhs, then L^T x = y (one thread: n <= 192)
-    for (int i = 0; i < n; ++i) {
-      float v = x[i];
-      for (int k = 0; k < i; ++k) v -= S[i * n + k] * x[k];
-      x[i] = v / S[i * n + i];
-    }
-    for (int i = n - 1; i >= 0; --i) {
-      float v = x[i];
-      for (int k = i + 1; k < n; ++k) v -= S[k * n + i] * x[k];
-      x[i] = v / S[i * n + i];
+  solve_finish<SYS>(a, x);
+}
+
+// The route for an n x n system: C = 1 (one block), 4 or 8 (a cluster) with
+// its panel width kc, or C = 0 (the device-memory route).
+struct SolvePlan {
+  int C, kc;
+  size_t smem;
+};
+
+SolvePlan plan_solve(int n) {
+  if (n <= kSolveSharedDim) return {1, 32, solve_smem_bytes(n, 1, 32)};
+  if (n <= kSolveClusterDim) {
+    // 4 blocks to K = 85, 8 to 111, then 8 with half-width panel passes
+    const int cand[3][2] = {{4, 32}, {8, 32}, {8, 16}};
+    for (const auto& c : cand) {
+      const size_t s = solve_smem_bytes(n, c[0], c[1]);
+      if (s <= kMaxBlockSmem) return {c[0], c[1], s};
     }
   }
-  __syncthreads();
-  for (int i = tid; i < n; i += blockDim.x) {
-    x[i] = -x[i] * cam_free[i / 6];
-    dx_g[i] = x[i];
+  return {0, 32, 0};
+}
+
+template <int SYS, int C>
+cudaError_t launch_tiled(const SolveArgs& a, const SolvePlan& pl, cudaStream_t st) {
+  auto kernel = spd_tiled_kernel<SYS, C>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(kThreadsSolve);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, a, pl.kc);
+}
+
+// Every launch of one solve; scratch (scratch_floats floats of device
+// memory) is read on the device-memory route only.
+template <int SYS>
+cudaError_t launch_solve(const SolveArgs& a, float* scratch, size_t scratch_floats,
+                         cudaStream_t st) {
+  if (a.n < 1) return cudaErrorInvalidValue;
+  const SolvePlan pl = plan_solve(a.n);
+  if (pl.C == 1) return launch_tiled<SYS, 1>(a, pl, st);
+  if (pl.C == 4) return launch_tiled<SYS, 4>(a, pl, st);
+  if (pl.C == 8) return launch_tiled<SYS, 8>(a, pl, st);
+  const TileGeom g(a.n);
+  if (scratch == nullptr || scratch_floats < solve_scratch_floats(a.n))
+    return cudaErrorInvalidValue;
+  float* diag = scratch + (size_t)g.count() * kTileFloats;
+  spd_build_kernel<SYS><<<g.count(), 256, 0, st>>>(a, scratch);
+  for (int p = 0; p < g.nt; ++p) {
+    const int below = g.nt - 1 - p;
+    spd_panel_kernel<SYS><<<max(below, 1), 32, 0, st>>>(a, scratch, diag, p);
+    if (below > 0) spd_update_kernel<SYS><<<below * (below + 1) / 2, 64, 0, st>>>(a, scratch, p);
   }
-  __syncthreads();
-  for (int k = tid; k < K; k += blockDim.x)
-    se3_left(x + 6 * k, cam_R + 9 * k, cam_t + 3 * k, cam_Rn + 9 * k, cam_tn + 3 * k);
-  // clear the accumulators for the next F
-  for (int q = tid; q < n * n; q += blockDim.x) S_g[q] = 0.f;
-  for (int q = tid; q < 27 * K; q += blockDim.x) hc_g[q] = 0.f;
-  for (int q = tid; q < n; q += blockDim.x) rhs_g[q] = 0.f;
+  const size_t xs = sizeof(float) * 32 * (size_t)g.nt;
+  cudaError_t e = cudaFuncSetAttribute(spd_final_kernel<SYS>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)xs);
+  if (e != cudaSuccess) return e;
+  spd_final_kernel<SYS><<<1, kThreadsFinal, xs, st>>>(a, scratch, diag);
+  return cudaGetLastError();
 }
 
 // H's accept / reject of the trial state on its cost c1 against F's c0:
@@ -820,8 +1409,8 @@ int launch_linearize(int model, const Problem& P, const Cam& c, const float* cam
 void launch_reduce(int K, const ShardParts& T, float* ctrl, float* hc, float* S, float* rhs,
                    cudaStream_t st) {
   const size_t n = f_partial_size(K);
-  const int rblocks = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
-  ba_reduce_kernel<<<rblocks, 256, 0, st>>>(K, T, ctrl, hc, S, rhs);
+  ba_reduce_kernel<<<(unsigned)((n + kReduceThreads - 1) / kReduceThreads), kReduceThreads, 0,
+                     st>>>(K, T, ctrl, hc, S, rhs);
 }
 
 }  // namespace
@@ -876,24 +1465,41 @@ extern "C" int svt_ba_linearize_part(int model, int K, int L, int D, const int* 
   return (int)cudaGetLastError();
 }
 
+// G: scratch (scratch_floats floats of device memory) is read when 6K > 768
 extern "C" int svt_ba_solve(int K, const float* cam_free, const float* cam_R,
                             const float* cam_t, float* ctrl, float* hc, float* S, float* rhs,
                             float* dx, float* cam_Rn, float* cam_tn, float* scratch,
-                            void* stream) {
-  // scratch: [6K,6K] floats of device memory, read when 6K > 192
-  const size_t n = 6 * (size_t)K;
-  if (n <= kSolveSharedDim) {
-    const size_t smem = sizeof(float) * (n * n + n);
-    cudaFuncSetAttribute(ba_solve_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    ba_solve_kernel<false><<<1, kThreadsSolve, smem, (cudaStream_t)stream>>>(
-        K, cam_free, cam_R, cam_t, ctrl, hc, S, rhs, dx, cam_Rn, cam_tn, nullptr);
-  } else {
-    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-    ba_solve_kernel<true><<<1, kThreadsSolveGlobal, sizeof(float) * n, (cudaStream_t)stream>>>(
-        K, cam_free, cam_R, cam_t, ctrl, hc, S, rhs, dx, cam_Rn, cam_tn, scratch);
-  }
-  return (int)cudaGetLastError();
+                            long long scratch_floats, void* stream) {
+  SolveArgs a{};
+  a.n = 6 * K;
+  a.K = K;
+  a.cam_free = cam_free;
+  a.cam_R = cam_R;
+  a.cam_t = cam_t;
+  a.ctrl = ctrl;
+  a.hc = hc;
+  a.S = S;
+  a.rhs = rhs;
+  a.dx = dx;
+  a.cam_Rn = cam_Rn;
+  a.cam_tn = cam_tn;
+  const cudaError_t e =
+      launch_solve<kSysBA>(a, scratch, (size_t)scratch_floats, (cudaStream_t)stream);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// G's factorization on a plain SPD system: x = A^-1 b from A's lower
+// triangle (n x n, row-major) by the same routes
+extern "C" int svt_spd_solve(int n, const float* A, const float* b, float* x, float* scratch,
+                             long long scratch_floats, void* stream) {
+  SolveArgs a{};
+  a.n = n;
+  a.A = A;
+  a.b = b;
+  a.x = x;
+  const cudaError_t e =
+      launch_solve<kSysSPD>(a, scratch, (size_t)scratch_floats, (cudaStream_t)stream);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 // decide: 1 for one device (the last block decides), 0 on one shard of a

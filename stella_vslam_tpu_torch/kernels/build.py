@@ -95,8 +95,10 @@ _SIGNATURES = {
     "svt_ba_linearize_part": [_I, _I, _I, _I] + [_P] * 9 + [_F] * 7 + [_P] * 3
                              + [_I] + [_P] * 3 + [_I] + [_P] * 2,
     # K, cam_free, cam_R, cam_t, ctrl, hc, S, rhs, dx, cam_Rn, cam_tn, scratch,
-    # stream
-    "svt_ba_solve": [_I] + [_P] * 12,
+    # scratch_floats, stream
+    "svt_ba_solve": [_I] + [_P] * 11 + [_L, _P],
+    # n, A, b, x, scratch, scratch_floats, stream
+    "svt_spd_solve": [_I] + [_P] * 4 + [_L, _P],
     # model, K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier,
     # lm_valid, lm_fixed, cam_free, fx, fy, cx, cy, fxb, width, height,
     # cam_R, cam_t, lm, use_huber, ctrl, counter, Wg, lmblk, dx, cam_Rn,

@@ -4,12 +4,32 @@ Port of stella_vslam_tpu/ops/linalg.py: `solve_spd_unrolled` (:66) with its
 unrolled Cholesky and triangular solves, batched over leading dimensions
 (the pose optimizer's 6x6 normal equations; csrc/pose_lm.cu runs the same
 factorization on one thread), `solve_spd_blocked` (:72, the plain version
-of bundle adjustment's reduced-camera solve), `smallest_eigvec_spd` (:143,
-the RANSAC null vector) and `inv3x3` (:174).
+of bundle adjustment's reduced-camera solve and of `spd_solve`),
+`smallest_eigvec_spd` (:143, the RANSAC null vector) and `inv3x3` (:174).
+`spd_solve` is the dense SPD solve on the card: kernel G's tiled Cholesky
+(csrc/ba_schur.cu svt_spd_solve), the pose graph's 7K x 7K solve.
 """
 from __future__ import annotations
 
 import torch
+
+from stella_vslam_tpu_torch.kernels import build as kbuild
+
+# kernel G's routes (csrc/ba_schur.cu): up to this n one block or a cluster
+# holds the tiles in shared memory; above, a device-memory scratch does
+SOLVE_CLUSTER_DIM = 768
+_TILE_FLOATS = 32 * 33  # one 32 x 32 tile with its row stride of 33
+
+
+def solve_scratch_floats(n: int) -> int:
+    """Floats of device scratch kernel G needs for an n x n system: the
+    lower triangle's tiles of the padded system (the right-hand side as row
+    n, so ceil((n + 1) / 32) tiles a side) and the factored diagonal tiles;
+    0 where the system stays in shared memory (n <= SOLVE_CLUSTER_DIM)."""
+    if n <= SOLVE_CLUSTER_DIM:
+        return 0
+    nt = (n + 32) // 32
+    return (nt * (nt + 1) // 2 + nt) * _TILE_FLOATS
 
 
 def cholesky_unrolled(A: torch.Tensor, eps: float = 1e-20):
@@ -119,6 +139,41 @@ def solve_spd_blocked(S: torch.Tensor, rhs: torch.Tensor, block: int = 8) -> tor
         x[r:r + B] = solve_upper_from_lower_unrolled(L[r:r + B, r:r + B],
                                                      y[r:r + B] - s)
     return x[:n0]
+
+
+def _check_spd_args(A: torch.Tensor, b: torch.Tensor) -> int:
+    n = A.shape[-1] if A.dim() else 0
+    if A.dim() != 2 or A.shape[0] != n or n < 1 or tuple(b.shape) != (n,) \
+            or A.dtype != torch.float32 or b.dtype != torch.float32 \
+            or b.device != A.device or not A.is_contiguous() or not b.is_contiguous():
+        raise ValueError(f"spd_solve: A must be a contiguous float32 [n, n] tensor and b a "
+                         f"contiguous float32 [n] tensor on A's device (A {tuple(A.shape)} "
+                         f"{A.dtype} on {A.device}, b {tuple(b.shape)} {b.dtype} on {b.device})")
+    return n
+
+
+def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x = A^-1 b for a symmetric positive definite A [n, n] (its lower
+    triangle is read): kernel G's tiled Cholesky on CUDA tensors, with the
+    system padded to its 32-wide panels by an identity diagonal on the card;
+    solve_spd_blocked, the plain version, on CPU tensors."""
+    n = _check_spd_args(A, b)
+    if not A.is_cuda:
+        return solve_spd_blocked(A, b)
+    x = torch.empty(n, dtype=torch.float32, device=A.device)
+    floats = solve_scratch_floats(n)
+    scratch = torch.empty(floats, dtype=torch.float32, device=A.device) if floats else None
+    lib = kbuild.load()
+    with torch.cuda.device(A.device):
+        kbuild.check(lib.svt_spd_solve(
+            n, A.data_ptr(), b.data_ptr(), x.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), floats,
+            kbuild.stream_ptr(A.device)), "spd_solve")
+    spd_solve.launches += 1
+    return x
+
+
+spd_solve.launches = 0
 
 
 def smallest_eigvec_spd(A: torch.Tensor, num_squarings: int = 18) -> torch.Tensor:

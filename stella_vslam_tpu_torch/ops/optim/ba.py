@@ -14,9 +14,10 @@ but do not move; `lm_keep_inlier` rows survive the reclassification.
 On CUDA tensors every iteration is four launches (csrc/ba_schur.cu):
 F `ba_linearize_schur` (linearize, Hpp^-1, Schur terms, each block into its
 own partial; then the partials added in block order), G
-`ba_reduced_solve` (the 6K x 6K Cholesky solve and the trial poses: in shared
-memory up to 6K = 192, in a device-memory scratch above, as the global BA's
-K = 32 .. 512 need), H `ba_backsub_cost` (point updates, trial cost, and on the device the
+`ba_reduced_solve` (the 6K x 6K solve by a Cholesky on 32 x 32 tiles and the
+trial poses: in one block's shared memory up to 6K = 192, across a cluster
+of blocks up to 768, in a device-memory scratch above, as the global BA's
+K = 129 .. 512 need), H `ba_backsub_cost` (point updates, trial cost, and on the device the
 accept / reject, lambda update and stop flag). The stage launches all its
 iterations without reading the host; after the stop flag every launch
 returns at once. Kernel I `ba_classify` gives the chi-square
@@ -30,8 +31,9 @@ through linalg.solve_spd_blocked).
 Across landmark shards (the global BA over several devices,
 parallel/sharded_ba.py, K22) each shard keeps its own rows, partials and
 replica of the cameras: `shard_iteration` launches F and H per shard
-without their reduce and decision, and kernel W (`ba_shard_assemble`)
-adds every shard's partials, then trial costs, in (shard, block) order on
+without their reduce and decision, and kernel W (`ba_shard_assemble`, over
+a `shard_table` built once per BA) adds every shard's partials, then trial
+costs, in (shard, block) order on
 every device, so that shards on 128-landmark chunk boundaries give the
 unsharded BA's bits; G runs on every replica. The plain version shards the
 same way (`iteration_plain`, the sums in shard order).
@@ -59,8 +61,7 @@ from stella_vslam_tpu_torch.ops.optim.residuals import CamScalars, equirect_scal
 
 CHI_SQ_2D = 5.991
 CHI_SQ_3D = 7.815
-MAX_SOLVE_DIM = 192  # up to here kernel G holds the 6K x 6K system in shared memory
-MAX_CAMERAS = 512  # above it G factors in device memory with one block
+MAX_CAMERAS = 512  # kernel G's largest system is 6 x 512 rows
 LM_CHUNK = 128  # landmarks per block of kernels F and H
 MAX_SHARDS = 64  # kernel W's shard table (csrc/ba_schur.cu kMaxShards)
 # device memory for kernel F's per-block partials (33K + 1 + 36K^2 floats
@@ -396,8 +397,9 @@ class _KernelState:
         self.dx = f(K, 6)
         self.Wg, self.lmblk = f(L, D, 18), f(L, 10)
         self.hc, self.S, self.rhs = f(K, 27), f(6 * K, 6 * K), f(6 * K)
-        # kernel G's factorization scratch where 6K x 6K outgrows shared memory
-        self.factor = f(6 * K, 6 * K) if 6 * K > MAX_SOLVE_DIM else None
+        # kernel G's tiles where 6K x 6K outgrows a cluster's shared memory
+        floats = linalg.solve_scratch_floats(6 * K)
+        self.factor = f(floats) if floats else None
         self.ctrl = f(8)
         self.counter = torch.zeros(1, dtype=torch.int32, device=dev)
         # F's per-block partials and H's per-block trial costs
@@ -454,7 +456,8 @@ def ba_reduced_solve(st: _KernelState):
         st.cam_t.data_ptr(), st.ctrl.data_ptr(), st.hc.data_ptr(), st.S.data_ptr(),
         st.rhs.data_ptr(), st.dx.data_ptr(), st.cam_Rn.data_ptr(),
         st.cam_tn.data_ptr(), 0 if st.factor is None else st.factor.data_ptr(),
-        kbuild.stream_ptr(st.lm.device)), "ba_solve")
+        0 if st.factor is None else st.factor.numel(), kbuild.stream_ptr(st.lm.device)),
+        "ba_solve")
     ba_reduced_solve.launches += 1
 
 
@@ -489,26 +492,48 @@ def ba_classify(st: _KernelState, final: bool) -> torch.Tensor:
     return out
 
 
-def ba_shard_assemble(dst: _KernelState, shards, decide: bool):
+class ShardTable(NamedTuple):
+    """Kernel W's view of a sharded BA's states, built once per BA: the
+    device pointers of every shard's F partials and H trial costs and their
+    counts, as host arrays in shard order (the buffers live as long as the
+    states and never move)."""
+
+    count: int
+    f_parts: ctypes.Array
+    f_blocks: ctypes.Array
+    h_parts: ctypes.Array
+    h_blocks: ctypes.Array
+
+
+def shard_table(states) -> ShardTable:
+    """The ShardTable of a sharded BA's states (at most MAX_SHARDS)."""
+    n = len(states)
+    if not 1 <= n <= MAX_SHARDS:
+        raise ValueError(f"shard_table: 1 to {MAX_SHARDS} shards ({n})")
+    ptrs = lambda xs: (ctypes.c_void_p * n)(*xs)
+    ints = lambda xs: (ctypes.c_int * n)(*xs)
+    return ShardTable(n, ptrs([st.f_part.data_ptr() for st in states]),
+                      ints([st.f_blocks for st in states]),
+                      ptrs([st.h_part.data_ptr() for st in states]),
+                      ints([st.h_blocks for st in states]))
+
+
+def ba_shard_assemble(dst: _KernelState, table: ShardTable, decide: bool):
     """Kernel W on dst's device, for dst's replica. Reduce mode: every
     shard's F partials added in (shard, block) order into dst's Hcc / b_c,
     reduced system, right-hand side and cost. Decide mode: every shard's H
     trial costs added in the same order, H's accept / reject on dst's ctrl,
     and on accept dst's cameras and points committed. The shards' partials
     may lie on other devices that dst's device reads by peer access."""
-    n = len(shards)
-    if n > MAX_SHARDS:
-        raise ValueError(f"ba_shard_assemble: at most {MAX_SHARDS} shards ({n})")
-    parts = (ctypes.c_void_p * n)(*[(sh.h_part if decide else sh.f_part).data_ptr()
-                                    for sh in shards])
-    blocks = (ctypes.c_int * n)(*[sh.h_blocks if decide else sh.f_blocks for sh in shards])
+    parts, blocks = (table.h_parts, table.h_blocks) if decide else (table.f_parts,
+                                                                   table.f_blocks)
     lib = kbuild.load()
     kbuild.check(lib.svt_ba_shard_assemble(
-        int(decide), dst.K, dst.L, n, ctypes.addressof(parts), ctypes.addressof(blocks),
-        dst.ctrl.data_ptr(), dst.hc.data_ptr(), dst.S.data_ptr(), dst.rhs.data_ptr(),
-        dst.cam_R.data_ptr(), dst.cam_t.data_ptr(), dst.lm.data_ptr(), dst.cam_Rn.data_ptr(),
-        dst.cam_tn.data_ptr(), dst.lmn.data_ptr(), kbuild.stream_ptr(dst.lm.device)),
-        "ba_shard_assemble")
+        int(decide), dst.K, dst.L, table.count, ctypes.addressof(parts),
+        ctypes.addressof(blocks), dst.ctrl.data_ptr(), dst.hc.data_ptr(), dst.S.data_ptr(),
+        dst.rhs.data_ptr(), dst.cam_R.data_ptr(), dst.cam_t.data_ptr(), dst.lm.data_ptr(),
+        dst.cam_Rn.data_ptr(), dst.cam_tn.data_ptr(), dst.lmn.data_ptr(),
+        kbuild.stream_ptr(dst.lm.device)), "ba_shard_assemble")
     ba_shard_assemble.launches += 1
 
 
@@ -580,12 +605,14 @@ def _shard_barrier(states):
                 s.wait_event(ev)
 
 
-def shard_iteration(states, inliers, use_huber: bool, decide: bool = True):
+def shard_iteration(states, inliers, use_huber: bool, decide: bool = True,
+                    table: Optional[ShardTable] = None):
     """One LM iteration over shard states: F's first launch on each shard,
     W's reduce mode and G on every shard's device, H without its decision on
-    each shard, then (decide) W's decide mode on every shard's device. One
-    shard is the one-device BA: F reduces its own partials and H decides
-    (three launches, the same bits as W's one-shard case)."""
+    each shard, then (decide) W's decide mode on every shard's device, W
+    over `table` (the states' shard_table; None for one shard). One shard
+    is the one-device BA: F reduces its own partials and H decides (three
+    launches, the same bits as W's one-shard case)."""
     if len(states) == 1:
         st, inl = states[0], inliers[0]
         with torch.cuda.device(st.lm.device):
@@ -599,7 +626,7 @@ def shard_iteration(states, inliers, use_huber: bool, decide: bool = True):
     _shard_barrier(states)
     for st in states:
         with torch.cuda.device(st.lm.device):
-            ba_shard_assemble(st, states, decide=False)
+            ba_shard_assemble(st, table, decide=False)
             ba_reduced_solve(st)
     for st, inl in zip(states, inliers):
         with torch.cuda.device(st.lm.device):
@@ -608,7 +635,7 @@ def shard_iteration(states, inliers, use_huber: bool, decide: bool = True):
     if decide:
         for st in states:
             with torch.cuda.device(st.lm.device):
-                ba_shard_assemble(st, states, decide=True)
+                ba_shard_assemble(st, table, decide=True)
 
 
 def bundle_adjust_shards(shards: List[BAProblem], cam: CamScalars, *,
@@ -627,6 +654,7 @@ def bundle_adjust_shards(shards: List[BAProblem], cam: CamScalars, *,
     for p in shards:
         _check_problem(p)
     states = [_KernelState(p, cam, model) for p in shards]
+    table = shard_table(states) if len(states) > 1 else None
     dev0 = states[0].lm.device
 
     def stage(inliers, use_huber: bool, iters: int):
@@ -636,7 +664,7 @@ def bundle_adjust_shards(shards: List[BAProblem], cam: CamScalars, *,
             st.ctrl[_LAST_COST] = math.inf
         inls = [i.to(torch.uint8).contiguous() for i in inliers]
         for _ in range(iters):
-            shard_iteration(states, inls, use_huber)
+            shard_iteration(states, inls, use_huber, table=table)
         return states[0].ctrl[_LAST_COST].clone()
 
     def classify(final: bool):
@@ -677,7 +705,7 @@ def gn_step_shards(shards: List[BAProblem], cam: CamScalars, model: str = "persp
     for st in states:
         st.ctrl[_LAM] = 1e-4
     shard_iteration(states, [i.to(torch.uint8).contiguous() for i in ones], False,
-                    decide=False)
+                    decide=False, table=shard_table(states) if len(states) > 1 else None)
     _shard_barrier(states)
     s0 = states[0]
     return s0.cam_Rn.reshape(-1, 3, 3).clone(), s0.cam_tn.clone(), \

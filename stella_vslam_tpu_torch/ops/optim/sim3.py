@@ -30,9 +30,10 @@ residual programs. On CUDA tensors:
   its edges in edge order, with the gauge rows: no atomics, the same bits on
   every launch), the dense solve,
   and `pose_graph_update` (Exp(dx) composed on the left of every vertex).
-  The dense solve is a library call on the card (`torch.linalg.cholesky` +
-  `cholesky_solve`), as the JAX version leaves it to a chain of plain matmuls
-  and small Choleskys (linalg.solve_spd_blocked, the plain version's solver).
+  The dense solve is kernel G's tiled Cholesky on the card
+  (`linalg.spd_solve`), the function the JAX version computes with
+  solve_spd_blocked (stella_vslam_tpu/ops/optim/sim3.py:255), which is the
+  plain version's solver here.
 """
 from __future__ import annotations
 
@@ -295,12 +296,6 @@ def pose_graph_update_plain(g: PoseGraph, s, R, t, x):
     return lie.sim3_compose(*lie.sim3_exp(dx), s, R, t)
 
 
-def cholesky_solve(Hd, b):
-    """The dense SPD solve on the device, one library factorization."""
-    L = torch.linalg.cholesky(Hd)
-    return torch.cholesky_solve(b[:, None], L)[:, 0]
-
-
 def _check_graph(g: PoseGraph, s, R, t):
     K, E, dev = s.shape[0], g.edge_i.shape[0], s.device
     f32, i32, bl = torch.float32, torch.int32, torch.bool
@@ -376,9 +371,9 @@ def optimize_pose_graph(s_cw, R_cw, t_cw, fixed, valid, edge_i, edge_j, edge_s, 
                         edge_t, edge_valid, *, num_iter: int = 20) -> PoseGraphResult:
     """Gauss-Newton over the essential graph. Measurement convention: S_ij =
     S_i_cw o S_j_cw^-1 at the input estimates the edge was measured at, so
-    that r = log(S_ij^-1 o S_i o S_j^-1) -> 0. Kernel P and one library
-    Cholesky per iteration on CUDA tensors, the plain version on CPU
-    tensors."""
+    that r = log(S_ij^-1 o S_i o S_j^-1) -> 0. Kernel P and kernel G's
+    dense solve (linalg.spd_solve) per iteration on CUDA tensors, the plain
+    version on CPU tensors."""
     if not s_cw.is_cuda:
         return optimize_pose_graph_plain(s_cw, R_cw, t_cw, fixed, valid, edge_i, edge_j,
                                          edge_s, edge_R, edge_t, edge_valid,
@@ -387,5 +382,5 @@ def optimize_pose_graph(s_cw, R_cw, t_cw, fixed, valid, edge_i, edge_j, edge_s, 
     s, R, t = s_cw, R_cw, t_cw
     for _ in range(num_iter):
         Hd, b, _ = pose_graph_linearize(g, s, R, t)
-        s, R, t = pose_graph_update(g, s, R, t, cholesky_solve(Hd, b))
+        s, R, t = pose_graph_update(g, s, R, t, linalg.spd_solve(Hd, b))
     return PoseGraphResult(s, R, t)

@@ -71,6 +71,7 @@ def kernel_wrappers() -> dict:
     from stella_vslam_tpu_torch.match import stereo
     from stella_vslam_tpu_torch.module import mapping_kernels as mk
     from stella_vslam_tpu_torch.module import tracking_kernels as tk
+    from stella_vslam_tpu_torch.ops import linalg
     from stella_vslam_tpu_torch.ops.optim import ba
     from stella_vslam_tpu_torch.ops.optim import pose as pose_mod
     from stella_vslam_tpu_torch.ops.optim import sim3
@@ -89,7 +90,7 @@ def kernel_wrappers() -> dict:
             "epipolar_top2": H.epipolar_top2, "triangulate": mk.triangulate_checks,
             "fuse": mk.fuse_scan, "bow_transform": bow.bow_transform,
             "pnp_ransac": pnp.pnp_hypotheses, "sim3_transform": sim3.sim3_transform,
-            "pose_graph": sim3.pose_graph_linearize,
+            "pose_graph": sim3.pose_graph_linearize, "spd_solve": linalg.spd_solve,
             "scatter_to_current": tk.scatter_to_current, "dedup_by_id": tk.dedup_by_id,
             "rebase_chain": tk.rebase_chain, "reproject_gate": cam_base.reproject_gate,
             "undistort_norm": cam_base.undistort_norm,

@@ -70,6 +70,7 @@ class PlaneWorld:
             tex[y:y + h + 1, x:x + w + 1] = float(rng.uniform(20, 235))
         self.texture = np.clip(_gauss3(tex), 0, 255).astype(np.uint8)
         self.tex_size = tex_size
+        self._grid = None  # the pixel grid (v, u), float64, built at the first render
 
     def camera_yaml(self):
         return {
@@ -91,7 +92,9 @@ class PlaneWorld:
         Tm = np.array([[self.mpp, 0, -half], [0, self.mpp, -half], [0, 0, 1.0]])
         Hinv = np.linalg.inv(K @ A @ Tm)  # image px -> texture px
         if uv is None:
-            v, u = np.mgrid[0:self.H, 0:self.W].astype(np.float64)
+            if self._grid is None:
+                self._grid = np.mgrid[0:self.H, 0:self.W].astype(np.float64)
+            v, u = self._grid
         else:
             u, v = uv
         den = Hinv[2, 0] * u + Hinv[2, 1] * v + Hinv[2, 2]
@@ -101,15 +104,20 @@ class PlaneWorld:
         y0 = np.floor(tv).astype(np.int64)
         fx_ = (tu - x0).astype(np.float32)
         fy_ = (tv - y0).astype(np.float32)
-        tex = self.texture.astype(np.float32)
         n = self.tex_size
+        flat = self.texture.reshape(-1)
+        # the four neighbours' rows and columns, clipped, and which lie inside
+        rows = [(np.clip(y, 0, n - 1) * n, (y >= 0) & (y < n)) for y in (y0, y0 + 1)]
+        cols = [(np.clip(x, 0, n - 1), (x >= 0) & (x < n)) for x in (x0, x0 + 1)]
 
-        def sample(yy, xx):
-            ok = (yy >= 0) & (yy < n) & (xx >= 0) & (xx < n)
-            return np.where(ok, tex[np.clip(yy, 0, n - 1), np.clip(xx, 0, n - 1)], 0.0)
+        def sample(r, c):
+            # the u8 texel as float32, exactly the float32 texture's value
+            return np.where(r[1] & c[1], np.take(flat, r[0] + c[0]).astype(np.float32),
+                            np.float32(0.0))
 
-        out = ((sample(y0, x0) * (1 - fx_) + sample(y0, x0 + 1) * fx_) * (1 - fy_)
-               + (sample(y0 + 1, x0) * (1 - fx_) + sample(y0 + 1, x0 + 1) * fx_) * fy_)
+        out = ((sample(rows[0], cols[0]) * (1 - fx_) + sample(rows[0], cols[1]) * fx_)
+               * (1 - fy_)
+               + (sample(rows[1], cols[0]) * (1 - fx_) + sample(rows[1], cols[1]) * fx_) * fy_)
         out = out.astype(np.float32)
         if not (self.exposure_amp or self.noise_sigma):
             return np.clip(np.rint(out), 0, 255).astype(np.uint8)

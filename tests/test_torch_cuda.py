@@ -1070,7 +1070,7 @@ def test_shard_reduce_kernel_matches_plain_exactly(dev):
     states = chip_smoke._shard_states(dev, prob, cam, 4)
     psize = 33 * 32 + 1 + 36 * 32 * 32
     before = ba.ba_shard_assemble.launches
-    ba.ba_shard_assemble(states[1], states, decide=False)
+    ba.ba_shard_assemble(states[1], ba.shard_table(states), decide=False)
     assert ba.ba_shard_assemble.launches == before + 1
     hc, rhs, cost, S = ba.shard_reduce_plain([st.f_part[:st.f_blocks * psize] for st in states],
                                              32)
@@ -1094,3 +1094,113 @@ def test_sharded_ba_on_one_card_equals_unsharded(dev, K, L, D):
                                          devices=[dev] * 4)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def _g_on_f_system(dev, K, L, D, seed):
+    """A problem's first reduced system from kernel F (its accumulators
+    kept in copies) and a kernel state ready for G."""
+    import chip_smoke
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    prob, cam = chip_smoke._ba_problem(dev, K, L, D, False, seed, spacing=0.1, ordered=K <= 32)
+    st = ba._KernelState(prob, cam)
+    st.ctrl[ba._LAM] = 1e-4
+    ba.ba_linearize_schur(st, torch.ones((L, D), dtype=torch.uint8, device=dev), True)
+    return prob, st, (st.hc.clone(), st.S.clone(), st.rhs.clone())
+
+
+@pytest.mark.parametrize("K", [2, 16, 32, 40, 64, 128, 256])
+def test_reduced_solve_kernel_matches_plain(dev, K):
+    """Kernel G on F's reduced system, on every route (one block to K = 32,
+    a cluster of 4 blocks at K = 40 and 64, of 8 at 128, the device-memory
+    route at 256), against reduced_solve_plain on the same system: the
+    backward error of each step on that system in float64 below 1e-3 and
+    the trial poses within 1e-5 of Exp(step) composed as plain G composes
+    (chip_smoke._lockstep_ba's bounds); the accumulators cleared."""
+    from stella_vslam_tpu_torch.ops import lie
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    L = 2048 if K > 32 else 1024
+    prob, st, (hc, S_red, rhs_red) = _g_on_f_system(dev, K, L, 16 if K > 2 else 2, K + 100)
+    iu = torch.triu_indices(6, 6, device=dev)
+    Hcc = torch.zeros((K, 6, 6), device=dev)
+    Hcc[:, iu[0], iu[1]] = hc[:, :21]
+    Hcc[:, iu[1], iu[0]] = hc[:, :21]
+    b_c, lam = hc[:, 21:], st.ctrl[ba._LAM].clone()
+    before = ba.ba_reduced_solve.launches
+    ba.ba_reduced_solve(st)
+    assert ba.ba_reduced_solve.launches == before + 1
+    dx_p, _, _ = ba.reduced_solve_plain(prob, prob.cam_R, prob.cam_t, Hcc, b_c, S_red, rhs_red,
+                                        lam)
+    S64, rhs64 = ba.damped_reduced_system(prob, Hcc.double(), b_c.double(), S_red.double(),
+                                          rhs_red.double(), lam.double())
+
+    def backward_error(dx):
+        x = dx.double().reshape(-1)
+        return float((S64 @ x + rhs64).abs().max() / (S64.abs().sum(1).max() * x.abs().max()
+                                                      + rhs64.abs().max()))
+
+    assert backward_error(st.dx) < 1e-3, f"plain's own: {backward_error(dx_p):.3g}"
+    Rn, tn = lie.se3_compose(*lie.se3_exp(st.dx.clone()), prob.cam_R, prob.cam_t)
+    assert float((st.cam_Rn.reshape(K, 3, 3) - Rn).abs().max()) < 1e-5
+    assert float((st.cam_tn - tn).abs().max()) < 1e-5
+    assert not bool(st.S.any()) and not bool(st.hc.any()) and not bool(st.rhs.any())
+
+
+@pytest.mark.parametrize("K", [16, 32, 64, 128, 256])
+def test_reduced_solve_kernel_repeats_bit_for_bit(dev, K):
+    """Kernel G twice on the same system: the same bits (every sum in an
+    order fixed by the tiling)."""
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    _, st, (hc, S, rhs) = _g_on_f_system(dev, K, 1024, 16, K + 200)
+    out = []
+    for _ in range(2):
+        st.hc.copy_(hc)
+        st.S.copy_(S)
+        st.rhs.copy_(rhs)
+        ba.ba_reduced_solve(st)
+        out.append((st.dx.clone(), st.cam_Rn.clone(), st.cam_tn.clone()))
+    for x, y in zip(*out):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("K,L,D", [(32, 4096, 16), (8, 1000, 4), (7, 777, 3)])
+def test_shard_reduce_kernel_equals_plain_at_shapes(dev, K, L, D):
+    """Kernel W's reduce mode over 4 shards of one card, through a shard
+    table built once and used twice, equals shard_reduce_plain bit for bit
+    (an odd K, a ragged last chunk)."""
+    import chip_smoke
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    prob, cam = chip_smoke._ba_problem(dev, K, L, D, False, 77, spacing=0.1, ordered=K >= D)
+    states = chip_smoke._shard_states(dev, prob, cam, 4)
+    psize = 33 * K + 1 + 36 * K * K
+    hc, rhs, cost, S = ba.shard_reduce_plain([st.f_part[:st.f_blocks * psize] for st in states],
+                                             K)
+    table = ba.shard_table(states)
+    for st in (states[0], states[3]):
+        ba.ba_shard_assemble(st, table, decide=False)
+        assert torch.equal(st.hc, hc) and torch.equal(st.rhs, rhs) and torch.equal(st.S, S)
+        assert torch.equal(st.ctrl[0], cost)
+
+
+@pytest.mark.parametrize("n", [1, 100, 210, 224, 448, 896])
+def test_spd_solve_kernel_matches_cholesky(dev, n):
+    """Kernel G's plain SPD entry (linalg.spd_solve) against
+    torch.linalg.cholesky + cholesky_solve at the pose graph's 7K shapes
+    (K = 30, 32, 64 and 128: one block, clusters, the device-memory route)
+    and at sizes that are not multiples of 32: within 1e-4 of the solution's
+    largest entry on a well-conditioned system, and the same bits twice."""
+    from stella_vslam_tpu_torch.ops import linalg
+
+    rng = np.random.default_rng(n)
+    M = rng.normal(size=(n, n)).astype(np.float32)
+    A = torch.as_tensor(M @ M.T / n + np.eye(n, dtype=np.float32), device=dev).contiguous()
+    b = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=dev)
+    before = linalg.spd_solve.launches
+    x = linalg.spd_solve(A, b)
+    assert linalg.spd_solve.launches == before + 1
+    ref = torch.cholesky_solve(b[:, None], torch.linalg.cholesky(A))[:, 0]
+    assert float((x - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert torch.equal(x, linalg.spd_solve(A, b))
