@@ -2104,6 +2104,97 @@ def check_repeatability(dev, loop_rec, cam):
     return out
 
 
+def check_solves_under_load(dev, seconds: float = 6.0) -> dict:
+    """Kernel G and spd_solve launched from five host threads, each on its
+    own stream, while a sixth keeps the card busy with kernel F: the
+    threaded System's mapper (local BA), loop closer (pose graph) and
+    detached global BA share the card so. Cases: G at K = 16 (one block)
+    and K = 64 (a cluster of 4 blocks); spd_solve at n = 224 and 448 (the
+    pose graph at 32 and 64 keyframes, one cluster kernel of 4 blocks at
+    two shared-memory sizes) and n = 672 (a cluster of 8). Every launch
+    must give the bits its case gave on the idle card; the mismatches are
+    counted on the card, so that the launches run back to back. Returns
+    {case: [launches, launches whose bits differ]}."""
+    import threading
+
+    import torch
+
+    from stella_vslam_tpu_torch.ops import linalg
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    def g_case(K, seed):
+        prob, cam = _ba_problem(dev, K, 1024, 16, False, seed, spacing=0.1, ordered=K <= 32)
+        st = ba._KernelState(prob, cam)
+        st.ctrl[ba._LAM] = 1e-4
+        ba.ba_linearize_schur(st, torch.ones((1024, 16), dtype=torch.uint8, device=dev), True)
+        saved = (st.hc.clone(), st.S.clone(), st.rhs.clone())
+
+        def solve():
+            for dst, src in zip((st.hc, st.S, st.rhs), saved):
+                dst.copy_(src)
+            ba.ba_reduced_solve(st)
+            return st.dx
+        return solve
+
+    def spd_case(n, seed):
+        rng = np.random.default_rng(seed)
+        M = rng.normal(size=(n, n)).astype(np.float32)
+        A = torch.as_tensor(M @ M.T / n + np.eye(n, dtype=np.float32), device=dev).contiguous()
+        b = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=dev)
+        return lambda: linalg.spd_solve(A, b)
+
+    cases = {"G K=16 (one block)": g_case(16, 91), "G K=64 (cluster of 4)": g_case(64, 92),
+             "spd_solve n=224 (cluster of 4)": spd_case(224, 93),
+             "spd_solve n=448 (cluster of 4)": spd_case(448, 94),
+             "spd_solve n=672 (cluster of 8)": spd_case(672, 96)}
+    refs = {name: fn().clone() for name, fn in cases.items()}
+    torch.cuda.synchronize()
+    lprob, lcam = _ba_problem(dev, 32, 4096, 16, False, 95, spacing=0.1, ordered=True)
+    load_st = ba._KernelState(lprob, lcam)
+    load_in = torch.ones((4096, 16), dtype=torch.uint8, device=dev)
+    stop = threading.Event()
+    counts, errors = {}, []
+
+    def load():
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            while not stop.is_set():
+                for _ in range(4):
+                    ba.ba_linearize_schur(load_st, load_in, True)
+                torch.cuda.current_stream(dev).synchronize()
+
+    def run(name, fn):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                bad = torch.zeros((), dtype=torch.int64, device=dev)
+                n = 0
+                while not stop.is_set():
+                    bad += (fn() != refs[name]).any()
+                    n += 1
+                    if n % 64 == 0:  # the host stays within 64 launches of the card
+                        torch.cuda.current_stream(dev).synchronize()
+                torch.cuda.current_stream(dev).synchronize()
+                counts[name] = [n, int(bad)]
+        except Exception as e:  # noqa: BLE001 - reported after the join
+            errors.append(f"{name}: {e!r}")
+
+    threads = [threading.Thread(target=load)]
+    threads += [threading.Thread(target=run, args=item) for item in cases.items()]
+    for t in threads:
+        t.start()
+    time.sleep(seconds)
+    stop.set()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    print(f"kernel G and spd_solve from {len(cases)} threads on their own streams beside "
+          "kernel F, "
+          "[launches, launches whose bits differ from the idle card's]: " + json.dumps(counts))
+    assert not errors, errors
+    assert all(n > 0 and bad == 0 for n, bad in counts.values()), \
+        "kernel G or spd_solve gave other bits under concurrent launches"
+    return counts
+
+
 # kernel W: the sharded global BA's (phase 12's sharded loop slice; the
 # slices' global BAs run unsharded on one card)
 SHARDED_KERNELS = ("ba_shard_assemble",)
@@ -3805,7 +3896,17 @@ def run_fbow_leg(dev, world, wrappers, card):
     print("fbow leg launches: " + json.dumps(launches))
     for e in slam.worker_error_log:
         print("worker error:\n" + e)
-    fs.check_gates(dict(s, launches=launches))
+    try:
+        fs.check_gates(dict(s, launches=launches))
+    except AssertionError:
+        # the leg's statistics beside the failure, on the error stream too
+        print("fbow leg failed its gates: " + json.dumps(dict(
+            {k: s[k] for k in ("ate_m", "ate_breakdown", "sim3_scale", "lost_after_init",
+                               "loops_closed", "keyframes_created", "keyframes_kept",
+                               "worker_errors")},
+            loop_pairs=[e.get("keyframes") for e in s["loop_event_ms"]],
+            pose_graph=slam.global_optimizer._last_pose_graph_edges)), file=sys.stderr)
+        raise
     assert launches["fbow_transform"] == s["keyframes_created"] > 0, \
         f"fbow: {launches['fbow_transform']} launches of V, {s['keyframes_created']} events"
     assert len(recorded) == s["keyframes_created"]
@@ -3878,6 +3979,7 @@ def main() -> int:
     map_rows += check_loop_kernels(dev, slam, loop_rec)
     map_rows += check_sharded_ba(dev, loop_rec, slam.mapper.cam_scalars)
     repeat = check_repeatability(dev, loop_rec, slam.mapper.cam_scalars)
+    check_solves_under_load(dev)
     lap("mapping_loop_sharded_checks")
     threaded, launches["threaded"], tslam, assoc_rec = run_threaded_slice(
         dev, world, wrappers, card)

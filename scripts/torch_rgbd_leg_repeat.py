@@ -1,16 +1,22 @@
 """Run one of bench.py's threaded legs many times on one card, in parallel
 processes, and check the leg's gates on every run.
 
-    python scripts/torch_rgbd_leg_repeat.py [--leg rgbd|threaded|equirect] [--runs N]
+    python scripts/torch_rgbd_leg_repeat.py [--leg rgbd|threaded|equirect|fbow] [--runs N]
+        [--workers W]
 
 RUNS runs (40 for the RGBD leg, 20 for the mono circuit, 48 for the
-equirectangular leg) in WORKERS processes, a fresh System per run.
+equirectangular leg, 16 for the FBoW leg) in WORKERS processes (or W:
+fewer leave the host's cores to each run, as chip_smoke.py's one leg at a
+time has them), a fresh System per run.
 `--leg rgbd`: util/stereo_slice.py's
 RGBD leg with mapping (640 frames, the default threaded System with mapping
 and the loop detector) with its gates (stereo_slice.check_gates).
 `--leg threaded`: util/threaded_slice.py's 1290-frame mono circuit (the
 default threaded System, the bench's injected drift) with bench.py's mono
-gates (util/bench.check_mono_gates). `--leg equirect`:
+gates (util/bench.check_mono_gates). `--leg fbow`: util/fbow_slice.py's
+leg, the same circuit on the fixture .fbow vocabulary, with its gates
+(fbow_slice.check_gates); a run also reports its loops' keyframe pairs.
+`--leg equirect`:
 util/equirect_slice.py's 250-frame leg (the default threaded System) with
 its gates (equirect_slice.check_gates). A run's nondeterminism comes from the
 threads, so one run proves little. The images are rendered once and
@@ -20,12 +26,12 @@ workers share the host's cores. Prints one JSON line per run (ATE, frames
 lost, keyframes, loops; RGBD: the scale error and the largest camera-centre
 error of any frame as it was finalized, with its frame; mono: the largest
 per-frame error after the Sim3 alignment, with its frame, a run failing
-when it exceeds OFF_M, and for every frame beyond it the trace of its
+when it exceeds OFF_M (the threaded leg), and for every frame beyond it the trace of its
 relative pose: tracker.rel_trace and the keyframe frame_poses rebuilt it
 on) and a last line
 with the count of runs, of gate failures, the largest and median ATE and
 the card's name and power limit. Per-frame errors of every mono run go to
-threaded_repeat_frames.json in chip_smoke.py's output directory (OUT_DIR).
+{leg}_repeat_frames.json in chip_smoke.py's output directory (OUT_DIR).
 Exits 1 when any run failed a gate. Needs a CUDA GPU.
 """
 from __future__ import annotations
@@ -44,14 +50,14 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 from chip_smoke import OUT_DIR
-from stella_vslam_tpu_torch.util import equirect_slice, stereo_slice, threaded_slice
+from stella_vslam_tpu_torch.util import equirect_slice, fbow_slice, stereo_slice, threaded_slice
 from stella_vslam_tpu_torch.util.bench import card, check_mono_gates
 from stella_vslam_tpu_torch.util.drift import pose_at_xy
 from stella_vslam_tpu_torch.util.loop_slice import circuit
 from stella_vslam_tpu_torch.util.mono_slice import sim3_align
 from stella_vslam_tpu_torch.util.rgbd_slice import bench_world
 
-RUNS = {"rgbd": 40, "threaded": 20, "equirect": 48}
+RUNS = {"rgbd": 40, "threaded": 20, "equirect": 48, "fbow": 16}
 WORKERS = 8
 # a mono frame this far off after the alignment is reported with its trace
 OFF_M = 0.10
@@ -229,14 +235,18 @@ def run_once(leg: str, dev, world, gt_xy, run: int) -> dict:
         out = dict(init_frame=s["init_frame"], tracked=s["tracked"],
                    keyframes_kept=s["keyframes_kept"], landmarks=s["landmarks"])
     else:
-        slam = threaded_slice.make_system(world, dev)
+        fbow = leg == "fbow"
+        slam = (fbow_slice if fbow else threaded_slice).make_system(world, dev)
         slam.tracker.rel_trace = {}
         gauges = watch_gauges(slam)
-        s = threaded_slice.run_slice(dev, world, slam=slam)
+        s = (fbow_slice.run_leg if fbow else threaded_slice.run_slice)(dev, world, slam=slam)
         err = aligned_errors(slam, gt_xy)
         at = int(np.nanargmax([np.nan if e is None else e for e in err]))
-        gates = check_mono_gates
+        gates = fbow_slice.check_gates if fbow else check_mono_gates
         out = dict(keyframes_kept=s["keyframes_kept"], rebases=s["rebases"],
+                   loop_pairs=[e.get("keyframes") for e in s["loop_event_ms"]],
+                   sim3_scale=s["sim3_scale"], ate_breakdown=s["ate_breakdown"],
+                   pose_graph=slam.global_optimizer._last_pose_graph_edges,
                    max_aligned_err_m=err[at], at_frame=at, frame_err_m=err,
                    rel_sources=rel_sources(slam), off_frames=off_frames(slam, err),
                    drain_fallbacks=s["drain_fallbacks"],
@@ -270,8 +280,9 @@ def worker(leg: str, runs: list, frames_path: str, render_s: float, out_path: st
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--leg", choices=("rgbd", "threaded", "equirect"), default="rgbd")
+    ap.add_argument("--leg", choices=tuple(RUNS), default="rgbd")
     ap.add_argument("--runs", type=int, default=None)
+    ap.add_argument("--workers", type=int, default=WORKERS)
     ap.add_argument("--worker-runs", help=argparse.SUPPRESS)
     ap.add_argument("--frames", help=argparse.SUPPRESS)
     ap.add_argument("--render-s", type=float, help=argparse.SUPPRESS)
@@ -298,18 +309,19 @@ def main():
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--leg", args.leg, "--frames", path,
              "--render-s", str(render_s), "--out", out,
-             "--worker-runs", ",".join(str(r) for r in range(w, runs, WORKERS))])
-            for w in range(min(WORKERS, runs))]
+             "--worker-runs", ",".join(str(r) for r in range(w, runs, args.workers))])
+            for w in range(min(args.workers, runs))]
         for p in procs:
             p.wait()
         with open(out) as f:
             lines = [json.loads(ln) for ln in f]
-    if args.leg == "threaded":
+    if args.leg in ("threaded", "fbow"):
         os.makedirs(OUT_DIR, exist_ok=True)
-        with open(os.path.join(OUT_DIR, "threaded_repeat_frames.json"), "w") as f:
+        with open(os.path.join(OUT_DIR, f"{args.leg}_repeat_frames.json"), "w") as f:
             json.dump(lines, f)
     failed = [r for r in lines if r["failed"]]
     print(json.dumps(dict(leg=args.leg, runs=len(lines), of=runs, failed=len(failed),
+                          workers=args.workers,
                           render_s=render_s, card=card(),
                           max_ate_m=max((r["ate_m"] for r in lines), default=None),
                           max_frame_err_m=max((r.get("max_aligned_err_m", 0.0) for r in lines),

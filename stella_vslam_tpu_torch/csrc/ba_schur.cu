@@ -90,6 +90,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 #include "camera.cuh"
 
 namespace {
@@ -100,6 +104,25 @@ constexpr int kThreadsLm = 128;
 constexpr int kThreadsSolve = 512;
 constexpr int kSolveSharedDim = 192;        // largest n factored by one block
 constexpr size_t kMaxBlockSmem = 232448;     // 227 KB, the most a block can opt into
+
+// Raises `kernel`'s dynamic shared memory limit on the current device to at
+// least `bytes` and never lowers it. Host threads launch one kernel at
+// different sizes (the mapper's local BA and the loop closer's global BA):
+// a thread that set a smaller limit between another's setting and its
+// launch would make that launch fail.
+cudaError_t reserve_smem(const void* kernel, size_t bytes) {
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> limit;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& cur = limit[{dev, kernel}];
+  if (bytes <= cur) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) cur = bytes;
+  return e;
+}
 
 // ctrl[] slots
 constexpr int kCost0 = 0;  // cost at the linearization point (F)
@@ -627,9 +650,11 @@ __device__ void se3_left(const float* xi, const float* R, const float* t, float*
 //     as slow at K = 64 on an H100 (scripts/torch_solve_probe.py: 0.27
 //     against 0.14 ms). Above K = 111 the panel buffer holds
 //     16 columns and the update runs in two passes. The cluster meets at
-//     cluster.sync() twice per panel (once more per extra pass) and once
-//     before any block exits (no block may leave while a peer can still
-//     read its shared memory). Block 0 solves backward;
+//     cluster.sync() once after the load (no block may write a peer's
+//     shared memory before every block of the cluster has started), twice
+//     per panel (once more per extra pass) and once before any block exits
+//     (no block may leave while a peer can still read its shared memory).
+//     Block 0 solves backward;
 //   n > 768 (K 129 - 512): the same tiles in a device-memory scratch, one
 //     launch per panel phase (A + B: one block per panel tile; C: one block
 //     per trailing tile), the order between phases kept by the launch
@@ -961,7 +986,9 @@ __global__ void __launch_bounds__(kThreadsSolve, 1) spd_tiled_kernel(SolveArgs a
           j <= i ? system_entry<SYS>(a, lam, i, j, raw[u], hcs, frees, x) : 0.f;
     }
   }
-  __syncthreads();
+  // every block has loaded its tiles, and every block of the cluster has
+  // started: a peer's shared memory may be written only from here on
+  cluster_barrier<C>();
   // the first diagonal tile (tile 0, block 0's slot 0) into every block's Lo
   if (rank == 0) push_to_all<C>(slots, Lo, kTileFloats);
   cluster_barrier<C>();
@@ -1188,8 +1215,7 @@ SolvePlan plan_solve(int n) {
 template <int SYS, int C>
 cudaError_t launch_tiled(const SolveArgs& a, const SolvePlan& pl, cudaStream_t st) {
   auto kernel = spd_tiled_kernel<SYS, C>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+  const cudaError_t e = reserve_smem((const void*)kernel, pl.smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C);
@@ -1227,8 +1253,7 @@ cudaError_t launch_solve(const SolveArgs& a, float* scratch, size_t scratch_floa
     if (below > 0) spd_update_kernel<SYS><<<below * (below + 1) / 2, 64, 0, st>>>(a, scratch, p);
   }
   const size_t xs = sizeof(float) * 32 * (size_t)g.nt;
-  cudaError_t e = cudaFuncSetAttribute(spd_final_kernel<SYS>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)xs);
+  const cudaError_t e = reserve_smem((const void*)spd_final_kernel<SYS>, xs);
   if (e != cudaSuccess) return e;
   spd_final_kernel<SYS><<<1, kThreadsFinal, xs, st>>>(a, scratch, diag);
   return cudaGetLastError();
@@ -1397,10 +1422,11 @@ int launch_linearize(int model, const Problem& P, const Cam& c, const float* cam
   const size_t smem = linearize_smem(K, s_direct);
   auto kernel = model == svt_cam::kEquirect ? ba_linearize_kernel<svt_cam::kEquirect>
                                             : ba_linearize_kernel<svt_cam::kPerspective>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const int chunks = (P.L + kThreadsLm - 1) / kThreadsLm;
   if (chunks == 0) return 0;
   if (blocks < 1 || blocks > chunks) return -(int)cudaErrorInvalidValue;
+  const cudaError_t e = reserve_smem((const void*)kernel, smem);
+  if (e != cudaSuccess) return -(int)e;
   kernel<<<blocks, kThreadsLm, smem, st>>>(P, c, cam_R, cam_t, lm, use_huber, ctrl, Wg, lmblk,
                                            part, s_direct ? 1 : 0);
   return blocks;

@@ -1204,3 +1204,16 @@ def test_spd_solve_kernel_matches_cholesky(dev, n):
     ref = torch.cholesky_solve(b[:, None], torch.linalg.cholesky(A))[:, 0]
     assert float((x - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
     assert torch.equal(x, linalg.spd_solve(A, b))
+
+
+def test_solve_kernels_repeat_under_concurrent_streams(dev):
+    """Kernel G (one block; a cluster of 4) and spd_solve (clusters of 4 and
+    8) launched from five host threads on their own streams while a sixth
+    runs kernel F, as the threaded System's mapper, loop closer and global
+    BA share the card: every launch gives the bits of its case on the idle
+    card (chip_smoke.check_solves_under_load)."""
+    import chip_smoke
+
+    counts = chip_smoke.check_solves_under_load(dev, seconds=3.0)
+    assert len(counts) == 5
+    assert all(n > 0 and bad == 0 for n, bad in counts.values())
