@@ -10,8 +10,17 @@ Phases, each fatal on failure (nothing is caught):
      per source, all at once (timed);
   3. kernels A-D of the RGBD tracking slice against their plain PyTorch
      versions at its shapes (752x480, 8 levels, N=2872 slots, C=4096 table
-     rows): A and C exact, B's descriptor bit-mismatch rate <= 5e-5 (the CPU
-     test's bound against JAX), D's pose within 1e-4;
+     rows): A exact, B's descriptor bit-mismatch rate <= 5e-5 (the CPU
+     test's bound against JAX); C exactly (0 rows differing from the dense
+     plain walk) in its window mode on its cell index (whose counting sort
+     must equal the plain argsort), in brute force at 2872 x 2872 with and
+     without the orientation gate, and on edge cases at those widths
+     (fisheye and division keypoints far outside the image, NaN
+     coordinates, empty windows, all rows failing row_ok, one target, ties
+     at equal distance), each window case's visited pairs printed beside
+     the dense M x N; D on a batch of two problems in one launch, each pose
+     within 1e-4 of its plain version with 99% of the inlier flags equal,
+     and the batch of one equal to the batch's first problem bit for bit;
   4. the monocular initialization kernels at the mono slice's shapes: C's
      angle-gate mode (the area matcher, 2872x2872) against its plain
      version, with the share of rows that differ (CUDA's and torch's
@@ -25,16 +34,18 @@ Phases, each fatal on failure (nothing is caught):
      init-sized problem (K=2, L=4096, D=2) and a K=8, D=4 problem with
      stereo rows: poses within 1e-4, points seen twice within 1e-3,
      identical outlier flags;
-     median times of every kernel and its plain version (CUDA events),
-     each beside its bound (the least time the card could take for the
-     work: bytes over 3.35 TB/s or operations over 67 T/s, FP32 outside the
-     tensor cores, integer operations counted at the same rate) and, where
-     one PyTorch call computes the same function, that call's time; kernel
-     G (here and wherever it is timed: K = 2, 16, 32, 64 and the
-     equirectangular local shape) and its library call also as device
+     the times of every kernel, here and wherever a row is timed: device
      time, CUDA events around 50 back-to-back launches / 50 after the
      stream is held long enough for the host to enqueue them all
-     (_device_ms), beside the one-call time with the host around it;
+     (_device_ms; inputs a launch consumes restored outside the timed
+     window), beside the one-call time (events around one synchronised
+     call, the host's launch in it), the plain version's median time, the
+     bound (the least time the card could take for the work: bytes over
+     3.35 TB/s or operations over 67 T/s, FP32 outside the tensor cores,
+     integer operations counted at the same rate) and, where one PyTorch
+     call computes the same function, that call's device time; a row whose
+     call launches its kernel once a pyramid level (A, S) is divided by
+     those launches, like its launch count;
   5. the RGBD slice: System in RGBD mode, mapping disabled, 120 frames of
      the numpy plane world at 0.015 m/frame (the bench's RGBD settings):
      at most 2 frames lost after init, rigid ATE < 0.10 m, scale error
@@ -130,6 +141,10 @@ Phases, each fatal on failure (nothing is caught):
      their forward hops);
  13. kernels F-I and P twice on the same inputs (init, local and global
      shapes, the loop slice's global BA and pose graph): bit-identical;
+     G and spd_solve, then C and D, launched from several host threads on
+     their own streams beside kernel F: every launch gives its case's bits
+     on the idle card, and none fails (check_solves_under_load,
+     check_cascade_under_load);
  14. the threaded slice (util/threaded_slice.py): the default System —
      pipelined tracker, mapping and loop-closing threads on their own CUDA
      streams — over the bench's circuit fed as fast as the feed returns:
@@ -140,8 +155,11 @@ Phases, each fatal on failure (nothing is caught):
      frame time, keyframe and loop events by phase, rebases and drain
      fallbacks, the caller's waits, and the synchronising calls per steady
      dispatch (torch's sync debug mode on frames 300-340, by file:line);
-     then kernel Q against plain on the slice's recorded inputs (a sample
-     of the scatters and dedups, every rebase).
+     kernel D's launches per frame (at most 2.2: two a frame, stages 2 and
+     1 batched, plus the loop detector's); then kernel Q against plain on
+     the slice's recorded inputs (a sample of the scatters and dedups,
+     every rebase) and kernel C exactly on a sample of its stage 1, 2 and 3
+     calls, with the pairs each window call visited.
  15. kernel S (csrc/resize.cu: the pyramid resize), B's strip mode and
      kernel T (csrc/stereo_match.cu: the stereo matcher) against their plain
      versions at the stereo leg's shapes (run with phase 3): S against the
@@ -244,7 +262,8 @@ FP32_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 # (mapping disabled) never launch
 MAPPING_KERNELS = ("epipolar_top2", "triangulate", "fuse")
 # kernels M-P: the loop closer's (M runs with the mapper's keyframe events)
-LOOP_KERNELS = ("bow_transform", "pnp_ransac", "sim3_transform", "pose_graph", "spd_solve")
+LOOP_KERNELS = ("bow_transform", "pnp_ransac", "sim3_transform", "pose_graph", "spd_solve",
+                "match_frame_and_keyframe")
 # the stereo path's own: B's strip mode and T (S runs on every path)
 STEREO_KERNELS = ("orb_describe_strips", "stereo_match")
 # the kernels line's rows whose launches are the stereo leg's
@@ -315,6 +334,33 @@ def _device_ms(fn, n: int = DEVICE_TIMED_CALLS, warmup: int = 3, before_run=None
     return a.elapsed_time(b) / n
 
 
+def _times(fn, before_run=None, **median_kw) -> dict:
+    """A row's kernel times: ms, device time per call (_device_ms), and
+    one_call_ms, events around one synchronised call with the host's launch
+    in it (_median_ms, with median_kw)."""
+    return dict(ms=_device_ms(fn, before_run=before_run),
+                one_call_ms=_median_ms(fn, **median_kw), timing=DEVICE_TIMING)
+
+
+def _per_launch(row: dict, counter, fn) -> dict:
+    """A row timed on a call that launches its kernel several times (one
+    launch per pyramid level): its times and bound divided by the launches
+    one call of `fn` makes (read on the wrapper's counter), so that the row,
+    like its `launches`, counts single launches."""
+    import torch
+
+    before = counter.launches
+    fn()
+    torch.cuda.synchronize()
+    per = counter.launches - before
+    for k in ("ms", "one_call_ms", "plain_ms", "library_ms", "library_one_call_ms",
+              "bound_ms"):
+        if row.get(k) is not None:
+            row[k] /= per
+    row["launches_per_timed_call"] = per
+    return row
+
+
 def _bound(nbytes: float, ops: float) -> dict:
     """The least time for `nbytes` of traffic and `ops` operations."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -333,7 +379,6 @@ def check_kernels(dev, world):
     from stella_vslam_tpu_torch.match import hamming as H
     from stella_vslam_tpu_torch.match.robust import cos_30deg
     from stella_vslam_tpu_torch.ops.optim import pose as pose_mod
-    from stella_vslam_tpu_torch.ops.optim.residuals import CamScalars
     from stella_vslam_tpu_torch.util.drift import pose_at_xy
 
     rows = []
@@ -359,14 +404,15 @@ def check_kernels(dev, world):
     # per pixel of the border region (the pixels A scores): 16 ring
     # differences, then the 9-arc min / max over 16 arcs
     n_px = sum(max(g.H - 2 * ex.border, 0) * max(g.W - 2 * ex.border, 0) for g in ex.levels)
-    rows.append(dict(
+    rows.append(_per_launch(dict(
         name="fast_nms", route="cuda",
         source="stella_vslam_tpu_torch/csrc/fast_nms.cu",
         replaces="stella_vslam_tpu/feature/orb_extractor.py:88",
-        max_abs_err=float(err_a),
-        ms=_median_ms(lambda: run_a(ox.fast_nms)),
+        max_abs_err=float(err_a), shape="752x480, one launch a level of 8",
+        **_times(lambda: run_a(ox.fast_nms)),
         plain_ms=_median_ms(lambda: run_a(ox.fast_nms_plain)),
-        library_ms=None, **_bound(pyr_bytes + 4.0 * ex.num_slots, 300.0 * n_px)))
+        library_ms=None, **_bound(pyr_bytes + 4.0 * ex.num_slots, 300.0 * n_px)),
+        ox.fast_nms, lambda: run_a(ox.fast_nms)))
 
     # ---- B: orientation + blur + steered BRIEF, one frame's slots ----
     pts = [ex.cell_keypoints(k, g) for k, g in zip(ka, ex.levels)]
@@ -392,7 +438,7 @@ def check_kernels(dev, world):
         source="stella_vslam_tpu_torch/csrc/orb_describe.cu",
         replaces="stella_vslam_tpu/feature/orb_extractor.py:392",
         max_abs_err=err_b, desc_bit_mismatch=bit_rate,
-        ms=_median_ms(lambda: ox.orb_describe(*args)),
+        **_times(lambda: ox.orb_describe(*args)),
         plain_ms=_median_ms(lambda: ox.orb_describe_plain(*args)),
         library_ms=None,
         **_bound(pyr_bytes + 36.0 * ex.num_slots,
@@ -423,33 +469,116 @@ def check_kernels(dev, world):
     col_ok = valid & (torch.rand(N, generator=g).to(dev) < 0.8)
     ori = H.OrientGate(torch.cos(ang_k), torch.sin(ang_k), torch.cos(ang_k),
                        torch.sin(ang_k), cos_30deg())
-    cases = [((q_desc, kp_desc, row_ok, col_ok), dict(window=win)),
-             ((kp_desc, kp_desc, valid, valid), dict(orient=ori))]
-    err_c = 0
-    for a, kw in cases:
-        outk = H.hamming_top2(*a, **kw)
-        outp = H.hamming_top2_plain(*a, **kw)
-        err_c = max(err_c, max(int((u - v).abs().max()) for u, v in zip(outk, outp)))
+    cells = H.build_cell_index(win.col_u, win.col_v, 752.0, 480.0)
+    ci_plain = H.build_cell_index_plain(win.col_u, win.col_v, 752.0, 480.0)
     torch.cuda.synchronize()
-    print(f"kernel C hamming_top2: window {C}x{N} and orientation {N}x{N}, "
-          f"max |diff| {err_c}")
-    assert err_c == 0, "kernel C disagrees with its plain version"
-    a, kw = cases[0]
+    assert torch.equal(cells.start, ci_plain.start) and torch.equal(cells.order, ci_plain.order), \
+        "kernel C's cell index disagrees with its plain version"
+    cases = [("phase 3 window 4096 x 2872", (q_desc, kp_desc, row_ok, col_ok),
+              dict(window=win, cells=cells)),
+             ("brute force 2872 x 2872 with the orientation gate",
+              (kp_desc, kp_desc, valid, valid), dict(orient=ori)),
+             ("brute force 2872 x 2872 without a gate", (kp_desc, kp_desc, valid, valid), {})]
+    cases += _cell_cases(dev)
+    differ_c = check_top2_cases(cases)
+    print(f"kernel C hamming_top2: {len(cases)} cases, rows differing from plain {differ_c}; "
+          f"kernel C's cell index equal to plain at {N} slots")
+    assert differ_c == 0, "kernel C disagrees with its plain version"
+    a, kw = cases[0][1], cases[0][2]
+    visited = int(H.pairs_visited(*a, **kw))
     n_cand = float(H.gate_matrix(row_ok, col_ok, win, None).sum())
-    # 8 gate operations per pair, XOR + popcount + add over 8 words per
-    # candidate pair
+    # this run's work: the gates on every visited pair (~8 operations), XOR
+    # + popcount + add over 8 words and the top-2 on each candidate (~24);
+    # bytes: the rows' descriptors, gate fields and outputs, the targets'
+    # descriptors and fields, the index
     rows.append(dict(
-        name="hamming_top2", route="cuda",
+        name="hamming_top2", counter="hamming_top2_window", route="cuda",
         source="stella_vslam_tpu_torch/csrc/hamming_top2.cu",
-        replaces="stella_vslam_tpu/match/hamming.py:31",
-        max_abs_err=float(err_c),
-        ms=_median_ms(lambda: H.hamming_top2(*a, **kw)),
+        replaces="stella_vslam_tpu/match/hamming.py:31", max_abs_err=float(differ_c),
+        shape=f"{C}x{N} window (the local-map stage), cell walk", rows_differing=differ_c,
+        pairs_visited=visited, dense_pairs=C * N,
+        **_times(lambda: H.hamming_top2(*a, **kw)),
         plain_ms=_median_ms(lambda: H.hamming_top2_plain(*a, **kw)),
         library_ms=None,
-        **_bound(C * (32 + 24 + 16) + N * (32 + 17), 8.0 * C * N + 24.0 * n_cand)))
+        **_bound(C * (32 + 25 + 16) + N * (32 + 17) + 4.0 * (cells.start.numel() + N),
+                 8.0 * visited + 24.0 * n_cand)))
+    a, kw = cases[1][1], cases[1][2]
+    n_ok = int(valid.sum())
+    rows.append(dict(
+        name="hamming_top2_brute", route="cuda",
+        source="stella_vslam_tpu_torch/csrc/hamming_top2.cu",
+        replaces="stella_vslam_tpu/match/robust.py:92", max_abs_err=float(differ_c),
+        shape=f"{N}x{N} brute force with the orientation gate (the keyframe fallback)",
+        **_times(lambda: H.hamming_top2(*a, **kw)),
+        plain_ms=_median_ms(lambda: H.hamming_top2_plain(*a, **kw)),
+        library_ms=None,
+        # per pair of valid rows and targets: the cosine gate (3) and, on
+        # every pair, XOR + popcount + add over 8 words and the top-2 (~28)
+        **_bound(N * (32 + 1 + 8) * 2 + N * 16, n_ok * N * 31.0)))
+    cu, cv = win.col_u, win.col_v
+    rows.append(dict(
+        name="cell_index", route="cuda", source="stella_vslam_tpu_torch/csrc/hamming_top2.cu",
+        replaces="stella_vslam_tpu/match/hamming.py:31 (the windows of the [M,N] matrix)",
+        max_abs_err=0.0, shape=f"N={N} slots, 752x480 in {cells.gx}x{cells.gy} cells",
+        **_times(lambda: H.build_cell_index(cu, cv, 752.0, 480.0)),
+        plain_ms=_median_ms(lambda: H.build_cell_index_plain(cu, cv, 752.0, 480.0)),
+        library_ms=_device_ms(lambda: torch.argsort(cu, stable=True)),
+        library_one_call_ms=_median_ms(lambda: torch.argsort(cu, stable=True)),
+        library_call="torch.argsort(stable=True) of N keys",
+        # (u, v) read, order and the cell starts written; ~20 operations a
+        # target (cell, match, rank) twice
+        **_bound(N * 8.0 + N * 4.0 + 4.0 * cells.start.numel(), 40.0 * N)))
 
     # ---- D: motion-only pose optimization, N slots, 20% outliers ----
     rng = np.random.default_rng(3)
+    dprobs = [_pose_problem(dev, rng, N, params) for _ in range(2)]
+    cam = dprobs[0][-1]
+    t_true = dprobs[0][-2]
+    batch = [torch.stack([p[i] for p in dprobs]) for i in range(7)]
+    rk = pose_mod.optimize_pose_batch(*batch, cam)
+    err_d, agree = 0.0, 1.0
+    for b, p in enumerate(dprobs):
+        rp = pose_mod.optimize_pose_plain(*p[:7], cam)
+        err_d = max(err_d, float((rk.R_cw[b] - rp.R_cw).abs().max()),
+                    float((rk.t_cw[b] - rp.t_cw).abs().max()))
+        agree = min(agree, float((rk.is_inlier[b] == rp.is_inlier).float().mean()))
+    r1 = pose_mod.optimize_pose(*dprobs[0][:7], cam)
+    same = _same(tuple(r1), tuple(f[0] for f in pose_mod.optimize_pose_batch(*batch, cam)))
+    torch.cuda.synchronize()
+    print(f"kernel D pose_lm: a batch of 2 problems of N={N} in one launch ({pose_mod.CLUSTER} "
+          f"blocks a problem), max |pose diff| against the plain version of each {err_d:.3g}, "
+          f"inlier agreement {agree:.5f}, pose error vs truth "
+          f"{float(np.abs(rk.t_cw[0].cpu().numpy() - t_true).max()):.3g} m; the batch of one "
+          f"equal to the batch's first problem: {same}")
+    assert err_d < 1e-4 and agree >= 0.99, "kernel D disagrees with its plain version"
+    assert same, "kernel D's problem changed with the batch around it"
+    one = lambda: pose_mod.optimize_pose(*dprobs[0][:7], cam)
+    # 2 problems x (4 rounds x 11 evaluations + 1 final pass), ~150 flops a
+    # slot; 34 bytes a slot in
+    rows.append(dict(
+        name="pose_lm", route="cuda",
+        source="stella_vslam_tpu_torch/csrc/pose_lm.cu",
+        replaces="stella_vslam_tpu/ops/optim/pose.py:39",
+        max_abs_err=err_d, inlier_agreement=agree,
+        shape=f"a batch of 2 problems of N={N} (the cascade's stages 2 and 1), "
+              f"{pose_mod.CLUSTER} blocks a problem",
+        **_times(lambda: pose_mod.optimize_pose_batch(*batch, cam), reps=10),
+        ms_batch_of_one=_device_ms(one), one_call_ms_batch_of_one=_median_ms(one),
+        plain_ms=_median_ms(lambda: pose_mod.optimize_pose_batch_plain(*batch, cam), reps=3,
+                            warmup=1),
+        library_ms=None, **_bound(2 * N * 34.0, 2 * 45.0 * 150.0 * N)))
+    return rows
+
+
+def _pose_problem(dev, rng, N, params):
+    """Phase 3's pose problem: N slots over a 752x480 stereo camera, 20% of
+    the observations moved 10-40 px, half the rows stereo, 5% invalid.
+    Returns optimize_pose's seven tensors, the true translation and the
+    camera."""
+    import torch
+
+    from stella_vslam_tpu_torch.ops.optim.residuals import CamScalars
+
     cam = CamScalars(fx=458.0, fy=458.0, cx=376.0, cy=240.0, width=752.0,
                      height=480.0, focal_x_baseline=float(np.float32(458.0 * 0.12)))
     uv_true = np.stack([rng.uniform(10, 742, N), rng.uniform(10, 470, N)], -1)
@@ -469,31 +598,93 @@ def check_kernels(dev, world):
     lvl = rng.integers(0, 8, N)
     inv_sig = np.asarray(params.inv_level_sigma_sq)[lvl]
     f32 = lambda a_: torch.as_tensor(np.asarray(a_, np.float32), device=dev)
-    dargs = (f32(R_true @ np.array([[1, 0, 0], [0, np.cos(0.02), -np.sin(0.02)],
-                                      [0, np.sin(0.02), np.cos(0.02)]])),
-             f32(t_true + 0.03), f32(pos_w), f32(obs), f32(xr), f32(inv_sig),
-             torch.as_tensor(rng.random(N) < 0.95, device=dev), cam)
-    rk = pose_mod.optimize_pose(*dargs)
-    rp = pose_mod.optimize_pose_plain(*dargs)
-    torch.cuda.synchronize()
-    err_d = max(float((rk.R_cw - rp.R_cw).abs().max()),
-                float((rk.t_cw - rp.t_cw).abs().max()))
-    agree = float((rk.is_inlier == rp.is_inlier).float().mean())
-    print(f"kernel D pose_lm: N={N}, max |pose diff| {err_d:.3g}, inlier "
-          f"agreement {agree:.5f}, pose error vs truth "
-          f"{float(np.abs(rk.t_cw.cpu().numpy() - t_true).max()):.3g} m")
-    assert err_d < 1e-4, "kernel D disagrees with its plain version"
-    # 4 rounds x 11 evaluations + 5 classifications, ~150 flops per slot
-    rows.append(dict(
-        name="pose_lm", route="cuda",
-        source="stella_vslam_tpu_torch/csrc/pose_lm.cu",
-        replaces="stella_vslam_tpu/ops/optim/pose.py:39",
-        max_abs_err=err_d,
-        ms=_median_ms(lambda: pose_mod.optimize_pose(*dargs), reps=10),
-        plain_ms=_median_ms(lambda: pose_mod.optimize_pose_plain(*dargs), reps=5,
-                            warmup=1),
-        library_ms=None, **_bound(N * 34.0, 49.0 * 150.0 * N)))
-    return rows
+    tilt = np.array([[1, 0, 0], [0, np.cos(0.02), -np.sin(0.02)], [0, np.sin(0.02), np.cos(0.02)]])
+    return (f32(R_true @ tilt), f32(t_true + 0.03), f32(pos_w), f32(obs), f32(xr), f32(inv_sig),
+            torch.as_tensor(rng.random(N) < 0.95, device=dev), t_true, cam)
+
+
+def _cell_cases(dev, seed: int = 21):
+    """Kernel C's edge cases at the slice's widths (752x480, 2872 targets):
+    undistorted fisheye and division keypoints far outside the image, NaN
+    coordinates, rows with empty windows (negative, zero, out of the
+    targets' reach), calls whose rows all fail row_ok, one target, and ties
+    at equal distance. Returns [(label, args, kwargs)], each window case
+    with its cell index over 752x480."""
+    import torch
+
+    from stella_vslam_tpu_torch.match import hamming as H
+
+    rng = np.random.default_rng(seed)
+    out = []
+
+    def case(label, M, N, spread=1.0, rad=(5.0, 80.0), ok_rate=0.9, nan_rate=0.0,
+             ties=False, empty=False):
+        q = rng.integers(-2 ** 31, 2 ** 31, (M, 8), dtype=np.int64)
+        t = rng.integers(-2 ** 31, 2 ** 31, (N, 8), dtype=np.int64)
+        k = min(M, N)
+        t[:k] = q[:k] ^ (rng.integers(0, 2, (k, 8)) << rng.integers(0, 32, (k, 8)))
+        if ties:
+            t = t[rng.integers(0, max(1, N // 8), N)]
+        cu = 376.0 + (rng.uniform(0, 752, N) - 376.0) * spread
+        cv = 240.0 + (rng.uniform(0, 480, N) - 240.0) * spread
+        cu[rng.random(N) < nan_rate] = np.nan
+        src = rng.integers(0, N, M)
+        ru = np.nan_to_num(cu[src], nan=100.0) + rng.normal(0, 4, M)
+        rv = cv[src] + rng.normal(0, 4, M)
+        rad_r = rng.uniform(*rad, M)
+        if empty:
+            rad_r[::3], rad_r[1::3], ru[2::3] = -1.0, 0.0, 9000.0
+        f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        i32 = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=dev)
+        lo = rng.integers(0, 6, M)
+        win = H.WindowGate(
+            row_u=f32(ru), row_v=f32(rv), row_xr=f32(np.where(rng.random(M) < 0.5, ru - 30, -1)),
+            row_rad=f32(rad_r), row_lo=i32(lo), row_hi=i32(lo + 2), col_u=f32(cu),
+            col_v=f32(cv), col_xr=f32(np.where(rng.random(N) < 0.5, cu - 30, -1)),
+            col_level=i32(rng.integers(0, 8, N)))
+        args = (torch.as_tensor(q.astype(np.int32), device=dev),
+                torch.as_tensor(t.astype(np.int32), device=dev),
+                torch.as_tensor(rng.random(M) < ok_rate, device=dev),
+                torch.as_tensor(rng.random(N) < 0.9, device=dev))
+        out.append((label, args, dict(window=win, cells=H.build_cell_index(
+            win.col_u, win.col_v, 752.0, 480.0))))
+
+    case("fisheye keypoints to 5x the image", 2872, 2872, spread=5.0)
+    case("division keypoints to 40x the image", 1000, 2872, spread=40.0, rad=(5.0, 400.0))
+    case("NaN coordinates", 2872, 2872, nan_rate=0.05)
+    case("empty windows", 1500, 2872, empty=True)
+    case("all rows fail row_ok", 4096, 2872, ok_rate=0.0)
+    case("one target", 300, 1, rad=(50.0, 800.0))
+    case("ties at equal distance", 2872, 2872, ties=True)
+    label, args, kw = out[-1]
+    out.append(("ties, brute force", args, {}))
+    out.append(("all rows fail row_ok, brute force", out[4][1], {}))
+    return out
+
+
+def check_top2_cases(cases, verbose=True) -> int:
+    """Kernel C against its plain version (the dense walk) on each case:
+    rows differing, summed; each window case's visited pairs printed beside
+    the dense count."""
+    import torch
+
+    from stella_vslam_tpu_torch.match import hamming as H
+
+    total = 0
+    for label, a, kw in cases:
+        k = H.hamming_top2(*a, **kw)
+        p = H.hamming_top2_plain(*a, **{k_: v for k_, v in kw.items() if k_ != "cells"})
+        differ = torch.zeros(a[0].shape[0], dtype=torch.bool, device=a[0].device)
+        for u, v in zip(k, p):
+            differ |= u != v
+        n = int(differ.sum())
+        total += n
+        if verbose:
+            M, N = a[0].shape[0], a[1].shape[0]
+            walk = (f", pairs visited {int(H.pairs_visited(*a, **kw))} of the dense walk's "
+                    f"M x N = {M * N}" if kw.get("window") is not None else "")
+            print(f"  kernel C {label}: {M} x {N}, rows differing {n}{walk}")
+    return total
 
 
 def _two_view(dev, n, planar, seed):
@@ -680,7 +871,7 @@ def check_init_kernels(dev, world):
         source="stella_vslam_tpu_torch/csrc/ransac_two_view.cu",
         replaces="stella_vslam_tpu/ops/solve/homography.py:107",
         max_abs_err=max(v[2] for v in res.values()),
-        ms=_median_ms(lambda: run_e(kern), reps=10),
+        **_times(lambda: run_e(kern), reps=10),
         plain_ms=_median_ms(lambda: run_e(plain), reps=5, warmup=1),
         library_ms=None, **_bound(2 * (N * 17.0 + B * 44.0), e_ops)))
 
@@ -955,10 +1146,12 @@ def _ba_work(K: int, L: int, D: int) -> dict:
 def _time_ba_kernels(dev, err, prob, cam, suffix="", model="perspective"):
     """One LM iteration of `prob`, kernel by kernel, against the plain
     version of each, and one classification; rows F, G, H, I (names with
-    `suffix`). F, H, I: events around each launch of the iteration (the
-    card's time when the host enqueues ahead of it). G and its library
-    call: device time, n back-to-back launches / n (_device_ms), with the
-    one-call time beside it."""
+    `suffix`). Device time, n back-to-back launches / n: F with the
+    accumulators cleared before each run of n (each launch adds the same
+    work), G on its own copy of the system each launch (_g_device_ms), H
+    after one F and G with its decision word restored before each launch
+    (the restore's own time taken off), I as it is; G's library call the
+    same way. one_call_ms: events around each launch of an iteration."""
     import torch
 
     from stella_vslam_tpu_torch.ops.optim import ba
@@ -997,10 +1190,22 @@ def _time_ba_kernels(dev, err, prob, cam, suffix="", model="perspective"):
     classify = lambda: ba.classify_plain(prob, cam, R0, t0, p0, True, model)
     # the damped reduced system, for the library solve
     S, rhs = ba.damped_reduced_system(prob, Hcc, b_c, S_red, rhs_red, lam)
+
+    def reset():
+        st.ctrl.zero_()
+        st.ctrl[ba._LAM] = 1e-4
+        st.hc.zero_(); st.S.zero_(); st.rhs.zero_()
+    dev_ms = {"F": _device_ms(lambda: ba.ba_linearize_schur(st, inl, True), before_run=reset)}
+    reset()
+    ba.ba_linearize_schur(st, inl, True)
+    ba.ba_reduced_solve(st)
+    ctrl0 = st.ctrl.clone()
+    restore = lambda: st.ctrl.copy_(ctrl0)
+    dev_ms["H"] = (_device_ms(lambda: (restore(), ba.ba_backsub_cost(st, inl, True)))
+                   - _device_ms(restore))
+    dev_ms["I"] = _device_ms(lambda: ba.ba_classify(st, True))
     # F's system once more, for G's back-to-back launches
-    st.ctrl.zero_()
-    st.ctrl[ba._LAM] = 1e-4
-    st.hc.zero_(); st.S.zero_(); st.rhs.zero_()
+    reset()
     ba.ba_linearize_schur(st, inl, True)
     g_dev = dict(ms=_g_device_ms(st), one_call_ms=float(np.median(times["G"])),
                  library_ms=_device_ms(lambda: torch.linalg.solve(S, rhs)),
@@ -1017,7 +1222,8 @@ def _time_ba_kernels(dev, err, prob, cam, suffix="", model="perspective"):
         row = dict(
             name=name + suffix, route="cuda",
             source="stella_vslam_tpu_torch/csrc/ba_schur.cu", shape=f"K={K} L={L} D={D}",
-            replaces=replaces, max_abs_err=err, ms=float(np.median(times[fn])),
+            replaces=replaces, max_abs_err=err, ms=dev_ms.get(fn),
+            one_call_ms=float(np.median(times[fn])), timing=DEVICE_TIMING,
             plain_ms=_median_ms(plain_fn, reps=10), library_ms=None, **_bound(nbytes, ops))
         rows.append(dict(row, **g_dev) if fn == "G" else row)
     return rows
@@ -1121,7 +1327,7 @@ def _check_epipolar(dev, kern, tri, name="epipolar_top2", label=""):
         name=name, route="cuda",
         source="stella_vslam_tpu_torch/csrc/hamming_top2.cu",
         replaces="stella_vslam_tpu/match/robust.py:22", max_abs_err=share_j,
-        ms=_median_ms(lambda: H.epipolar_top2(*jargs)),
+        **_times(lambda: H.epipolar_top2(*jargs)),
         plain_ms=_median_ms(lambda: H.epipolar_top2_plain(*jargs), reps=5, warmup=1),
         library_ms=None,
         **_bound(N1 * (32 + 24 + 1) + B * N2 * (32 + 24 + 1) + B * N1 * 16,
@@ -1176,7 +1382,7 @@ def check_mapping_kernels(dev, mapper, inputs):
         name="triangulate", route="cuda", source="stella_vslam_tpu_torch/csrc/triangulate.cu",
         replaces="stella_vslam_tpu/module/mapping_kernels.py:58", max_abs_err=rel_max,
         ok_flags_differing=share_k,
-        ms=_median_ms(lambda: mk.triangulate_checks(*kargs)),
+        **_times(lambda: mk.triangulate_checks(*kargs)),
         plain_ms=_median_ms(lambda: mk.triangulate_checks_plain(*kargs), reps=10),
         library_ms=None,
         **_bound(N1 * 24.0 + B * N2 * 24.0 + B * N1 * 5.0 + (B + 1) * 48.0
@@ -1220,7 +1426,7 @@ def check_mapping_kernels(dev, mapper, inputs):
     rows.append(dict(
         name="fuse", route="cuda", source="stella_vslam_tpu_torch/csrc/fuse.cu",
         replaces="stella_vslam_tpu/module/mapping_kernels.py:228", max_abs_err=share_l,
-        ms=_median_ms(lambda: mk.fuse_scan(*largs)),
+        **_times(lambda: mk.fuse_scan(*largs)),
         plain_ms=_median_ms(lambda: mk.fuse_scan_plain(*largs), reps=5, warmup=1),
         library_ms=None,
         **_bound(Bf * N * 49.0 + Bf * 49.0 + M * 65.0 + Bf * M * 12.0,
@@ -1270,7 +1476,9 @@ def check_mapping_kernels(dev, mapper, inputs):
 def record_loop_inputs(slam):
     """Keep, by reference, the arguments of the loop closer's device calls:
     the BoW transform, PnP RANSAC, the keyframe rematch, the Sim3 refinement
-    and the pose graph. Returns (calls, undo)."""
+    and the pose graph. The keyframe rematch counts its launches by its own
+    name, so its count lands on its recorder and `undo` moves it back.
+    Returns (calls, undo)."""
     from stella_vslam_tpu_torch.match import projection as proj
     from stella_vslam_tpu_torch.ops.optim import sim3
     from stella_vslam_tpu_torch.ops.solve import pnp
@@ -1284,6 +1492,7 @@ def record_loop_inputs(slam):
         def wrapped(*args, **kw):
             calls[key].append((args, kw))
             return fn(*args, **kw)
+        wrapped.launches = 0
         return wrapped
 
     vocab.transform = rec("bow", saved[0])
@@ -1294,6 +1503,7 @@ def record_loop_inputs(slam):
 
     def undo():
         del vocab.transform
+        saved[2].launches += proj.match_frame_and_keyframe.launches
         (pnp.find_via_ransac, proj.match_frame_and_keyframe, sim3.optimize_transform,
          sim3.optimize_pose_graph) = saved[1:]
 
@@ -1670,7 +1880,7 @@ def check_loop_kernels(dev, slam, rec):
         name="bow_transform", route="cuda",
         source="stella_vslam_tpu_torch/csrc/bow_transform.cu",
         replaces="stella_vslam_tpu/data/bow_vocabulary.py:76", max_abs_err=float(differ_m),
-        ms=_median_ms(lambda: bow.bow_transform(d_m, packed)),
+        **_times(lambda: bow.bow_transform(d_m, packed)),
         plain_ms=_median_ms(lambda: bow.bow_transform_plain(d_m, packed), reps=10),
         library_ms=None,
         # per descriptor 4 levels x 10 children x 8 words of XOR, popcount, add
@@ -1689,7 +1899,7 @@ def check_loop_kernels(dev, slam, rec):
     rows.append(dict(
         name="pnp_ransac", route="cuda", source="stella_vslam_tpu_torch/csrc/pnp_ransac.cu",
         replaces="stella_vslam_tpu/ops/solve/pnp.py:187", max_abs_err=err_n,
-        ms=_median_ms(lambda: pnp.pnp_hypotheses(7, pa[0], pa[1], mc, pa[3], 256)),
+        **_times(lambda: pnp.pnp_hypotheses(7, pa[0], pa[1], mc, pa[3], 256)),
         plain_ms=_median_ms(lambda: pnp.pnp_hypotheses_plain(7, pa[0], pa[1], mc, pa[3], 256),
                             reps=5, warmup=1),
         library_ms=None,
@@ -1741,11 +1951,11 @@ def check_loop_kernels(dev, slam, rec):
         & ((ca[0][None, :, 1] - ca[7][:, None, 1]).abs() <= radc[:, None])
     n_win = int((win & ca[10][:, None] & (ca[3] & ~ca[5])[None, :]).sum())
     rows.append(dict(
-        name="hamming_top2_keyframe", counter="hamming_top2", route="cuda",
+        name="hamming_top2_keyframe", counter="match_frame_and_keyframe", route="cuda",
         source="stella_vslam_tpu_torch/csrc/hamming_top2.cu",
         replaces="stella_vslam_tpu/match/projection.py:160", max_abs_err=float(differ_c),
         shape=f"{M_rows}x{ca[2].shape[0]} {label}",
-        ms=_median_ms(lambda: proj.match_frame_and_keyframe(*ca, **ckw)),
+        **_times(lambda: proj.match_frame_and_keyframe(*ca, **ckw)),
         plain_ms=_median_ms(lambda: proj.match_frame_and_keyframe(
             *ca, **ckw, top2=H.hamming_top2_plain), reps=5, warmup=1),
         library_ms=None,
@@ -1763,7 +1973,7 @@ def check_loop_kernels(dev, slam, rec):
         name="sim3_transform", route="cuda",
         source="stella_vslam_tpu_torch/csrc/sim3_transform.cu",
         replaces="stella_vslam_tpu/ops/optim/sim3.py:56", max_abs_err=err_o, shape=f"N={n_o}",
-        ms=_median_ms(lambda: sim3.optimize_transform(*oa, **okw)),
+        **_times(lambda: sim3.optimize_transform(*oa, **okw)),
         plain_ms=_median_ms(lambda: sim3.optimize_transform_plain(*oa, **okw), reps=5, warmup=1),
         library_ms=None,
         # 10 steps x ~700 operations per pair (two projections, 4 Jacobian
@@ -1794,8 +2004,9 @@ def check_loop_kernels(dev, slam, rec):
         name="pose_graph", route="cuda", source="stella_vslam_tpu_torch/csrc/pose_graph.cu",
         replaces="stella_vslam_tpu/ops/optim/sim3.py:165", max_abs_err=err_p,
         shape=f"K={Kp} E={Ep} ({n_e} valid), one iteration without its solve",
-        ms=_median_ms(step_kernel), plain_ms=_median_ms(step_plain, reps=5, warmup=1),
-        library_ms=_median_ms(lambda: cholesky_solve(Hd, b)),
+        **_times(step_kernel), plain_ms=_median_ms(step_plain, reps=5, warmup=1),
+        library_ms=_device_ms(lambda: cholesky_solve(Hd, b)),
+        library_one_call_ms=_median_ms(lambda: cholesky_solve(Hd, b)),
         library_call="torch.linalg.cholesky + cholesky_solve, the iteration's dense solve "
                      "(spd_solve's row: kernel G's solve on the card)",
         # bytes: vertices and edges read once, the [7K,7K] system and its
@@ -1953,7 +2164,7 @@ def check_track_kernels(dev, world):
     rows.append(dict(
         name="scatter_to_current", route="cuda", source=src,
         replaces="stella_vslam_tpu/module/tracking_kernels.py:64", max_abs_err=0.0,
-        shape=f"M={M} N={N}", ms=_median_ms(lambda: tk.scatter_to_current(*sargs)),
+        shape=f"M={M} N={N}", **_times(lambda: tk.scatter_to_current(*sargs)),
         plain_ms=_median_ms(lambda: tk.scatter_to_current_plain(*sargs)), library_ms=None,
         # read: index, accept flag, 3 floats and an id per source; write: 3
         # floats, an id and a flag per slot; one count and a compare each
@@ -1971,7 +2182,7 @@ def check_track_kernels(dev, world):
     rows.append(dict(
         name="dedup_by_id", route="cuda", source=src,
         replaces="stella_vslam_tpu/module/tracking_kernels.py:83", max_abs_err=0.0,
-        shape=f"N={N}", ms=_median_ms(lambda: tk.dedup_by_id(*dargs)),
+        shape=f"N={N}", **_times(lambda: tk.dedup_by_id(*dargs)),
         plain_ms=_median_ms(lambda: tk.dedup_by_id_plain(*dargs)), library_ms=None,
         **_bound(N * (1 + 4 + 4) + N * (1 + 4), 10.0 * N)))
     # ---- Q: rebase ----
@@ -1991,7 +2202,7 @@ def check_track_kernels(dev, world):
     rows.append(dict(
         name="rebase_chain", route="cuda", source=src,
         replaces="stella_vslam_tpu/tracking_module.py:51", max_abs_err=err_r,
-        shape=f"N={N} C={C}", ms=_median_ms(lambda: tk.rebase_chain(*rargs)),
+        shape=f"N={N} C={C}", **_times(lambda: tk.rebase_chain(*rargs)),
         plain_ms=_median_ms(lambda: tk.rebase_chain_plain(*rargs)), library_ms=None,
         # read: the chain (3 floats, flag, id per slot), ids and positions of
         # the table, 5 small poses; write the chain and 2 poses
@@ -2042,7 +2253,7 @@ def check_track_kernels(dev, world):
         name="reproject_gate", route="cuda", source=srcr,
         replaces="stella_vslam_tpu/camera/base.py:232", max_abs_err=err_uv,
         shape=f"C={C} table rows with the local-map gate",
-        ms=_median_ms(lambda: cb.reproject_gate(p, R, t, tbl, tu, log_scale=log_scale,
+        **_times(lambda: cb.reproject_gate(p, R, t, tbl, tu, log_scale=log_scale,
                                                 num_levels=8)),
         plain_ms=_median_ms(lambda: cb.reproject_gate_plain(p, R, t, tbl, tu, log_scale=log_scale,
                                                             num_levels=8)),
@@ -2059,7 +2270,7 @@ def check_track_kernels(dev, world):
     rows.append(dict(
         name="undistort_norm", route="cuda", source=srcr,
         replaces="stella_vslam_tpu/camera/base.py:89", max_abs_err=err_u, shape=f"N={N}",
-        ms=_median_ms(lambda: cb.undistort_norm(pe, kp)),
+        **_times(lambda: cb.undistort_norm(pe, kp)),
         plain_ms=_median_ms(lambda: cb.perspective_undistort(pe, kp)), library_ms=None,
         # 10 iterations of ~25 operations per keypoint
         **_bound(N * 8.0 + N * 8.0, 260.0 * N)))
@@ -2115,8 +2326,6 @@ def check_solves_under_load(dev, seconds: float = 6.0) -> dict:
     must give the bits its case gave on the idle card; the mismatches are
     counted on the card, so that the launches run back to back. Returns
     {case: [launches, launches whose bits differ]}."""
-    import threading
-
     import torch
 
     from stella_vslam_tpu_torch.ops import linalg
@@ -2147,6 +2356,68 @@ def check_solves_under_load(dev, seconds: float = 6.0) -> dict:
              "spd_solve n=224 (cluster of 4)": spd_case(224, 93),
              "spd_solve n=448 (cluster of 4)": spd_case(448, 94),
              "spd_solve n=672 (cluster of 8)": spd_case(672, 96)}
+    counts = _under_load(dev, cases, seconds)
+    print(f"kernel G and spd_solve from {len(cases)} threads on their own streams beside "
+          "kernel F, "
+          "[launches, launches whose bits differ from the idle card's]: " + json.dumps(counts))
+    assert all(n > 0 and bad == 0 for n, bad in counts.values()), \
+        "kernel G or spd_solve gave other bits under concurrent launches"
+    return counts
+
+
+def check_cascade_under_load(dev, seconds: float = 6.0) -> dict:
+    """Kernels C and D launched from four host threads, each on its own
+    stream, while a fifth keeps the card busy with kernel F: the threaded
+    System's tracking thread and its loop detector share both (and D's
+    shared-memory limit). Cases: C's window walk at the local-map shape
+    with its cell index, C's brute force at 2872 x 2872, D on a batch of two
+    2872-slot problems (the cascade's first launch) and on one 1199-slot
+    equirectangular problem. Every launch must give the bits its case gave
+    on the idle card. Returns {case: [launches, launches whose bits
+    differ]}."""
+    import torch
+
+    from stella_vslam_tpu_torch.feature.orb_params import OrbParams
+    from stella_vslam_tpu_torch.match import hamming as H
+    from stella_vslam_tpu_torch.ops.optim import pose as pose_mod
+    from stella_vslam_tpu_torch.ops.optim.residuals import CamScalars
+
+    cases = {}
+    cc = _cell_cases(dev, seed=23)
+    for label, a, kw in (cc[0], cc[-2]):
+        cases[f"C {label}"] = (lambda a=a, kw=kw: torch.stack(H.hamming_top2(*a, **kw)))
+    rng = np.random.default_rng(24)
+    params = OrbParams(num_levels=8)
+    probs = [_pose_problem(dev, rng, 2872, params) for _ in range(2)]
+    batch = [torch.stack([p[i] for p in probs]) for i in range(7)]
+    flat = lambda r: torch.cat([r.R_cw.flatten(), r.t_cw.flatten(), r.chi_sq.flatten(),
+                                r.is_inlier.float().flatten()])
+    cases["D batch of 2, N=2872"] = lambda: flat(pose_mod.optimize_pose_batch(*batch, probs[0][-1]))
+    eq = _pose_problem(dev, rng, 1199, params)
+    ecam = CamScalars(1.0, 1.0, 376.0, 240.0, 752.0, 480.0, 0.0)
+    cases["D equirect, N=1199"] = lambda: flat(pose_mod.optimize_pose(
+        *eq[:4], torch.full_like(eq[4], -1.0), *eq[5:7], ecam, model="equirectangular"))
+    counts = _under_load(dev, cases, seconds)
+    print(f"kernels C and D from {len(cases)} threads on their own streams beside kernel F, "
+          "[launches, launches whose bits differ from the idle card's]: " + json.dumps(counts))
+    assert all(n > 0 and bad == 0 for n, bad in counts.values()), \
+        "kernel C or D gave other bits under concurrent launches"
+    return counts
+
+
+def _under_load(dev, cases, seconds):
+    """Each case's function run in a loop by its own host thread on its own
+    stream for `seconds`, beside a thread that keeps launching kernel F at
+    the global shape; every result compared on the card with the case's
+    result on the idle card (the host stays within 64 launches of the card).
+    A launch that fails fails the check. Returns {case: [launches, launches
+    whose bits differ]}."""
+    import threading
+
+    import torch
+
+    from stella_vslam_tpu_torch.ops.optim import ba
+
     refs = {name: fn().clone() for name, fn in cases.items()}
     torch.cuda.synchronize()
     lprob, lcam = _ba_problem(dev, 32, 4096, 16, False, 95, spacing=0.1, ordered=True)
@@ -2186,12 +2457,7 @@ def check_solves_under_load(dev, seconds: float = 6.0) -> dict:
     for t in threads:
         t.join()
     torch.cuda.synchronize()
-    print(f"kernel G and spd_solve from {len(cases)} threads on their own streams beside "
-          "kernel F, "
-          "[launches, launches whose bits differ from the idle card's]: " + json.dumps(counts))
     assert not errors, errors
-    assert all(n > 0 and bad == 0 for n, bad in counts.values()), \
-        "kernel G or spd_solve gave other bits under concurrent launches"
     return counts
 
 
@@ -2407,6 +2673,51 @@ def record_assoc_inputs(sample: int = 97):
     return calls, undo
 
 
+def record_match_inputs(sample: int = 97):
+    """Keep, by reference, the arguments of every `sample`-th window call
+    of kernel C per stage (stage 1: the motion model's window, stage 3: the
+    local map's, told apart by the table's 4096 rows) and of every
+    `sample`-th brute-force call (stage 2). The recorder replaces
+    `hamming.hamming_top2`, which the matchers look up by module; the
+    original counts its launches by its own name, so the count lands on the
+    recorder and `undo` moves it back. Returns (calls, undo)."""
+    from stella_vslam_tpu_torch.match import hamming as H
+
+    calls = {"stage1": [], "stage2": [], "stage3": []}
+    seen = dict.fromkeys(calls, 0)
+    orig = H.hamming_top2
+
+    def rec(*args, **kw):
+        stage = ("stage2" if kw.get("window") is None
+                 else "stage3" if args[0].shape[0] == 4096 else "stage1")
+        if seen[stage] % sample == sample // 2 and not isinstance(kw.get("orient"), H.AngleGate):
+            calls[stage].append((args, kw))
+        seen[stage] += 1
+        return orig(*args, **kw)
+
+    rec.launches = 0
+    H.hamming_top2 = rec
+
+    def undo():
+        H.hamming_top2 = orig
+        orig.launches += rec.launches
+
+    return calls, undo
+
+
+def check_recorded_matches(calls):
+    """Kernel C against its plain version on the threaded slice's own
+    calls: rows differing (0 required), and each window call's visited
+    pairs beside the dense count."""
+    cases = [(f"threaded slice {stage} call {i}", a, kw)
+             for stage, recs in calls.items() for i, (a, kw) in enumerate(recs)]
+    differ = check_top2_cases(cases)
+    print(f"kernel C on the threaded slice's recorded calls: "
+          f"{json.dumps({k: len(v) for k, v in calls.items()})}, rows differing {differ}")
+    assert differ == 0, "kernel C disagrees with its plain version on the slice's calls"
+    return differ
+
+
 class SyncProbe:
     """The synchronising CUDA calls the tracker's dispatch makes on frames
     [start, stop) of a run: torch's sync debug mode warns at each, and the
@@ -2539,7 +2850,8 @@ def run_threaded_slice(dev, world, wrappers, card):
     from stella_vslam_tpu_torch.util import threaded_slice
 
     slam = threaded_slice.make_system(world, dev)
-    calls, undo = record_assoc_inputs()
+    calls, undo_assoc = record_assoc_inputs()
+    match_calls, undo_match = record_match_inputs()
     probe = SyncProbe(slam.tracker, 300, 340)
     held = InFlightPublish(slam, 700)
 
@@ -2553,8 +2865,10 @@ def run_threaded_slice(dev, world, wrappers, card):
         stats = threaded_slice.run_slice(dev, world, slam=slam, on_frame=on_frame)
     finally:
         probe.close()
-        undo()
+        undo_assoc()
+        undo_match()
     launches = {k: w.launches for k, w in wrappers.items()}
+    calls["match"] = match_calls
     stats["launches"] = launches
     stats["sync_per_dispatch"] = probe.result()
     stats["forced_in_flight_publish"] = dict(frame=held.at,
@@ -2566,6 +2880,13 @@ def run_threaded_slice(dev, world, wrappers, card):
     print("threaded slice launches: " + json.dumps(launches))
     print("threaded slice loop events (ms, by phase, on the loop-closing threads): "
           + json.dumps(stats["loop_event_ms"]))
+    # the cascade solves stages 2 and 1 in one launch of D and stage 3 in a
+    # second; the loop detector's validations add their own
+    d_per_frame = launches["pose_lm"] / stats["frames"]
+    print(f"threaded slice: kernel D {launches['pose_lm']} launches over {stats['frames']} "
+          f"frames ({d_per_frame:.3f} a frame, the loop detector's included); kernel C "
+          f"{launches['hamming_top2']} launches, its cell index {launches['cell_index']}")
+    assert d_per_frame <= 2.2, "the cascade launches kernel D more than twice a frame"
     sp = stats["sync_per_dispatch"]
     print(f"threaded slice dispatch: {sp['syncs']} synchronising calls in {sp['dispatches']} "
           f"steady dispatches (frames {sp['frames'][0]}-{sp['frames'][1]}), "
@@ -2603,7 +2924,7 @@ def check_recorded_assoc(calls):
     for kind in ("scatter", "dedup", "rebase"):
         for args in calls[kind]:
             err = max(err, _check_assoc_call(kind, args))
-    n = {k: len(v) for k, v in calls.items()}
+    n = {k: len(calls[k]) for k in ("scatter", "dedup", "rebase")}
     print(f"kernel Q on the threaded slice's inputs: {json.dumps(n)} calls (every rebase that "
           f"ran), ints exact, poses within {err:.3g}")
     return err
@@ -2760,16 +3081,18 @@ def check_stereo_kernels(dev, world):
     s_bytes = 2 * 4.0 * sum(lvl_px[l - 1] + lvl_px[l] for l in range(1, len(lvl_px)))
     plain_pair = lambda: [ex.pyramid_plain(i) for i in imgs]
     plain_ms = _median_ms(plain_pair)
-    rows.append(dict(
+    rows.append(_per_launch(dict(
         name="resize_level", route="cuda", source="stella_vslam_tpu_torch/csrc/resize.cu",
         replaces="stella_vslam_tpu/feature/orb_extractor.py:118",
         max_abs_err=max_diff, pixels_differing_cublas=n_diff, pixels=n_px,
         pixels_differing_cpu_matmul=n_cpu_diff, fast_keys_moved=keys_moved, fast_keys=keys,
-        shape="2 x 752x480, 8 levels (the stereo pair)",
-        ms=_median_ms(lambda: ex.pyramid_flat(pair)),
+        shape="2 x 752x480, 8 levels (the stereo pair), one launch a level for both",
+        **_times(lambda: ex.pyramid_flat(pair)),
         ms_one_image=_median_ms(lambda: ex.pyramid_flat(pair[:1])),
-        plain_ms=plain_ms, library_ms=plain_ms,
-        **_bound(s_bytes, 2 * 6.0 * sum(lvl_px[1:]))))
+        plain_ms=plain_ms, library_ms=_device_ms(plain_pair), library_one_call_ms=plain_ms,
+        library_call="two torch.matmul a level (the plain pyramid)",
+        **_bound(s_bytes, 2 * 6.0 * sum(lvl_px[1:]))),
+        ox.resize_level, lambda: ex.pyramid_flat(pair)))
 
     # ---- B's strip mode: both images of a pair ----
     pyr = ex.pyramid_flat(pair)
@@ -2798,7 +3121,7 @@ def check_stereo_kernels(dev, world):
         replaces="stella_vslam_tpu/feature/orb_extractor.py:284-296 (extract_with_patches)",
         max_abs_err=err_b, strips_equal=strips_equal, desc_bit_mismatch=bit_rate,
         shape="2 x 2872 slots",
-        ms=_median_ms(lambda: ox.orb_describe_strips(*bargs)),
+        **_times(lambda: ox.orb_describe_strips(*bargs)),
         plain_ms=_median_ms(lambda: ox.orb_describe_plain(*bargs, strips=True), reps=5),
         library_ms=None,
         **_bound(4.0 * pyr.numel() + (36.0 + 231.0) * bargs[1].numel(),
@@ -2815,7 +3138,7 @@ def check_stereo_kernels(dev, world):
         replaces="stella_vslam_tpu/match/stereo.py:32", max_abs_err=max(err_t, e2),
         flags_differing=n_diff_t + d2, shape=f"{n} x {n} (rendered pair)",
         matched=m2, candidate_pairs=c2,
-        ms=_median_ms(lambda: st.stereo_match(*ra, **rkw)),
+        **_times(lambda: st.stereo_match(*ra, **rkw)),
         plain_ms=_median_ms(lambda: st.stereo_match_plain(*ra, **rkw), reps=5),
         library_ms=None,
         # every pair: ~6 gate operations; a candidate: 8 XOR + 8 popc; a
@@ -2854,10 +3177,10 @@ def record_stereo_inputs(sample: int = 20):
 
 
 # what the stereo leg and the RGBD leg with mapping launch
-LEG_KERNELS = ("resize_level", "fast_nms", "hamming_top2", "pose_lm", "scatter_to_current",
-               "dedup_by_id", "reproject_gate", "undistort_norm", "epipolar_top2", "triangulate",
-               "fuse", "ba_linearize_schur", "ba_reduced_solve", "ba_backsub_cost", "ba_classify",
-               "bow_transform")
+LEG_KERNELS = ("resize_level", "fast_nms", "hamming_top2", "cell_index", "pose_lm",
+               "scatter_to_current", "dedup_by_id", "reproject_gate", "undistort_norm",
+               "epipolar_top2", "triangulate", "fuse", "ba_linearize_schur",
+               "ba_reduced_solve", "ba_backsub_cost", "ba_classify", "bow_transform")
 
 
 def run_stereo_legs(dev, world, wrappers, card):
@@ -2920,8 +3243,8 @@ def run_slices(dev, world, wrappers, card):
     assert stats["lost_after_init"] <= 2, f"{stats['lost_after_init']} frames lost"
     assert stats["ate_m"] < 0.10, f"rigid ATE {stats['ate_m']:.4f} m"
     assert stats["scale_err"] < 0.05, f"scale error {stats['scale_err']:.2%}"
-    for name in ("fast_nms", "orb_describe", "hamming_top2", "pose_lm", "scatter_to_current",
-                 "dedup_by_id", "reproject_gate", "undistort_norm"):
+    for name in ("fast_nms", "orb_describe", "hamming_top2", "cell_index", "pose_lm",
+                 "scatter_to_current", "dedup_by_id", "reproject_gate", "undistort_norm"):
         assert launches["rgbd"][name] > 0, f"{name} was not launched by the RGBD slice"
 
     for w in wrappers.values():
@@ -2940,9 +3263,9 @@ def run_slices(dev, world, wrappers, card):
     return stats, mono, launches
 
 
-EQUIRECT_LEG_KERNELS = ("resize_level", "fast_nms", "orb_describe", "hamming_top2", "pose_lm",
-                        "ransac_two_view", "scatter_to_current", "dedup_by_id",
-                        "reproject_gate", "epipolar_top2", "triangulate", "fuse",
+EQUIRECT_LEG_KERNELS = ("resize_level", "fast_nms", "orb_describe", "hamming_top2",
+                        "cell_index", "pose_lm", "ransac_two_view", "scatter_to_current",
+                        "dedup_by_id", "reproject_gate", "epipolar_top2", "triangulate", "fuse",
                         "ba_linearize_schur", "ba_reduced_solve", "ba_backsub_cost",
                         "ba_classify", "bow_transform")
 # the rows of the equirectangular modes and of the kernels the leg runs
@@ -2955,8 +3278,9 @@ EQUIRECT_ROWS = {"reproject_gate_equirect": "reproject_gate", "pose_lm_equirect"
                  **{f"ba_{k}_equirect": f"ba_{k}" for k in (
                      "linearize_schur", "reduced_solve", "backsub_cost", "classify")},
                  **{f"{k}_equirect_leg": k for k in (
-                     "resize_level", "fast_nms", "orb_describe", "hamming_top2",
-                     "epipolar_top2", "bow_transform", "scatter_to_current", "dedup_by_id")}}
+                     "resize_level", "fast_nms", "orb_describe", "epipolar_top2",
+                     "bow_transform", "scatter_to_current", "dedup_by_id")},
+                 "hamming_top2_equirect_leg": "hamming_top2_window"}
 # kernel U's candidates against its plain version's, as sets, up to sign:
 # the share within 1e-4 / 1e-3 / 1e-2 each way (the lesser), at least this
 # on every seed, and at most U_FLOOR_ROOM below the share of the plain
@@ -3122,15 +3446,16 @@ def check_equirect_shapes(dev, slam_like, calls):
     assert max_s <= 1e-4 and moved <= 0.005 * keys, "kernel S disagrees at the leg's shape"
     lvl_px = [g.H * g.W for g in ex.levels]
     plain_s = _median_ms(lambda: ex.pyramid_plain(img))
-    rows.append(dict(
+    rows.append(_per_launch(dict(
         name="resize_level_equirect_leg", route="cuda",
         source="stella_vslam_tpu_torch/csrc/resize.cu",
         replaces="stella_vslam_tpu/feature/orb_extractor.py:118", max_abs_err=max_s,
         pixels_differing_cublas=n_diff, pixels=n_px, fast_keys_moved=moved, fast_keys=keys,
-        shape=shape, ms=_median_ms(lambda: ex.pyramid(img)), plain_ms=plain_s,
-        library_ms=plain_s,
+        shape=shape + ", one launch a level", **_times(lambda: ex.pyramid(img)),
+        plain_ms=plain_s, library_ms=_device_ms(lambda: ex.pyramid_plain(img)),
+        library_one_call_ms=plain_s, library_call="two torch.matmul a level (the plain pyramid)",
         **_bound(4.0 * sum(lvl_px[l - 1] + lvl_px[l] for l in range(1, L)),
-                 6.0 * sum(lvl_px[1:]))))
+                 6.0 * sum(lvl_px[1:]))), ox.resize_level, lambda: ex.pyramid(img)))
 
     # ---- A: FAST + NMS on every level ----
     run_a = lambda fn: [fn(l.contiguous(), g, ex.border, *thr) for l, g in zip(pk, ex.levels)]
@@ -3142,13 +3467,14 @@ def check_equirect_shapes(dev, slam_like, calls):
           f"|key diff| {err_a}")
     assert err_a == 0, "kernel A disagrees with its plain version at the leg's shape"
     pyr_bytes = 4.0 * sum(l.numel() for l in pk)
-    rows.append(dict(
+    rows.append(_per_launch(dict(
         name="fast_nms_equirect_leg", route="cuda",
         source="stella_vslam_tpu_torch/csrc/fast_nms.cu",
         replaces="stella_vslam_tpu/feature/orb_extractor.py:88", max_abs_err=float(err_a),
-        shape=shape, ms=_median_ms(lambda: run_a(ox.fast_nms)),
+        shape=shape + ", one launch a level", **_times(lambda: run_a(ox.fast_nms)),
         plain_ms=_median_ms(lambda: run_a(ox.fast_nms_plain)), library_ms=None,
-        **_bound(pyr_bytes + 4.0 * ex.num_slots, 300.0 * sum(l.numel() for l in pk))))
+        **_bound(pyr_bytes + 4.0 * ex.num_slots, 300.0 * sum(l.numel() for l in pk))),
+        ox.fast_nms, lambda: run_a(ox.fast_nms)))
 
     # ---- B: orientation, blur and steered BRIEF of the frame's slots ----
     pts = [ex.cell_keypoints(k, g) for k, g in zip(ka, ex.levels)]
@@ -3171,7 +3497,7 @@ def check_equirect_shapes(dev, slam_like, calls):
         source="stella_vslam_tpu_torch/csrc/orb_describe.cu",
         replaces="stella_vslam_tpu/feature/orb_extractor.py:392", max_abs_err=err_b,
         desc_bit_mismatch=bit_rate, shape=shape,
-        ms=_median_ms(lambda: ox.orb_describe(*bargs)),
+        **_times(lambda: ox.orb_describe(*bargs)),
         plain_ms=_median_ms(lambda: ox.orb_describe_plain(*bargs)), library_ms=None,
         **_bound(pyr_bytes + 36.0 * ex.num_slots,
                  n_valid * (31 * 31 * 2 + 39 * 39 * 49 * 2 + 256 * 2))))
@@ -3188,7 +3514,7 @@ def check_equirect_shapes(dev, slam_like, calls):
         name="bow_transform_equirect_leg", route="cuda",
         source="stella_vslam_tpu_torch/csrc/bow_transform.cu",
         replaces="stella_vslam_tpu/data/bow_vocabulary.py:76", max_abs_err=float(differ_m),
-        shape=f"N={ex.num_slots}", ms=_median_ms(lambda: bow.bow_transform(d_m, packed)),
+        shape=f"N={ex.num_slots}", **_times(lambda: bow.bow_transform(d_m, packed)),
         plain_ms=_median_ms(lambda: bow.bow_transform_plain(d_m, packed), reps=10),
         library_ms=None,
         **_bound(ex.num_slots * 36.0 + packed.numel() * 4.0, ex.num_slots * 40 * 24.0)))
@@ -3213,7 +3539,7 @@ def check_equirect_shapes(dev, slam_like, calls):
         source="stella_vslam_tpu_torch/csrc/hamming_top2.cu",
         replaces="stella_vslam_tpu/match/area.py:19", max_abs_err=share_c,
         shape=f"{Mc}x{Nc}, window and angle gate",
-        ms=_median_ms(lambda: H.hamming_top2(*cargs, **ckw)),
+        **_times(lambda: H.hamming_top2(*cargs, **ckw)),
         plain_ms=_median_ms(lambda: H.hamming_top2_plain(*cargs, **ckw)), library_ms=None,
         **_bound(Mc * (32 + 24 + 16) + Nc * (32 + 17), 8.0 * Mc * Nc + 24.0 * n_cand)))
 
@@ -3238,13 +3564,13 @@ def check_equirect_shapes(dev, slam_like, calls):
     rows.append(dict(
         name="scatter_to_current_equirect_leg", route="cuda", source=src_q,
         replaces="stella_vslam_tpu/module/tracking_kernels.py:64", max_abs_err=0.0,
-        shape=f"M={Ms} N={Ns}", ms=_median_ms(lambda: tk.scatter_to_current(*sargs)),
+        shape=f"M={Ms} N={Ns}", **_times(lambda: tk.scatter_to_current(*sargs)),
         plain_ms=_median_ms(lambda: tk.scatter_to_current_plain(*sargs)), library_ms=None,
         **_bound(Ms * (4 + 1 + 12 + 4) + Ns * (12 + 4 + 1), 4.0 * (Ms + Ns))))
     rows.append(dict(
         name="dedup_by_id_equirect_leg", route="cuda", source=src_q,
         replaces="stella_vslam_tpu/module/tracking_kernels.py:83", max_abs_err=0.0,
-        shape=f"N={Nd}", ms=_median_ms(lambda: tk.dedup_by_id(*dargs)),
+        shape=f"N={Nd}", **_times(lambda: tk.dedup_by_id(*dargs)),
         plain_ms=_median_ms(lambda: tk.dedup_by_id_plain(*dargs)), library_ms=None,
         **_bound(Nd * (1 + 4 + 4) + Nd * (1 + 4), 10.0 * Nd)))
     return rows
@@ -3330,7 +3656,7 @@ def check_equirect_kernels(dev, slam_like, calls):
         source="stella_vslam_tpu_torch/csrc/reproject.cu + camera.cuh",
         replaces="stella_vslam_tpu/camera/base.py:232", max_abs_err=err_uv,
         shape=f"C={C} table rows with the local-map gate, 640x320",
-        ms=_median_ms(lambda: cb.reproject_gate(p, Rm, t, tbl, tu, log_scale=log_scale,
+        **_times(lambda: cb.reproject_gate(p, Rm, t, tbl, tu, log_scale=log_scale,
                                                 num_levels=6, model=EQ)),
         plain_ms=_median_ms(lambda: cb.reproject_gate_plain(
             p, Rm, t, tbl, tu, log_scale=log_scale, num_levels=6, model=EQ)),
@@ -3342,35 +3668,41 @@ def check_equirect_kernels(dev, slam_like, calls):
     # ---- D: the leg's own pose optimizations ----
     kern_t = slam_like.tracker.kernels
     err_d, n_in = 0.0, 0
-    for args in calls["pose"]:
-        R0, t0, pos_, uv, xr, level, has = args
+    n_probs = 0
+    for problems, uv, xr, level in calls["pose"]:
+        # the cascade's batch (stages 2 and 1, or stage 3) as it launched it
+        R0, t0, pos_, has = (torch.stack(f) for f in zip(*problems))
         isig = kern_t.inv_sigma_sq[level.long()]
-        a = (R0.contiguous(), t0.contiguous(), pos_.contiguous(), uv.contiguous(),
-             xr.contiguous(), isig.contiguous(), has.contiguous())
-        k = pose_mod.optimize_pose(*a, cs, model="equirectangular")
-        q = pose_mod.optimize_pose_plain(*a, cs, model="equirectangular")
-        err_d = max(err_d, float((k.R_cw - q.R_cw).abs().max()),
-                    float((k.t_cw - q.t_cw).abs().max()))
-        n_in = max(n_in, int((k.is_inlier != q.is_inlier).sum()))
+        k = pose_mod.optimize_pose_batch(R0, t0, pos_, uv, xr, isig, has, cs,
+                                         model="equirectangular")
+        for b in range(R0.shape[0]):
+            q = pose_mod.optimize_pose_plain(R0[b], t0[b], pos_[b], uv, xr, isig, has[b], cs,
+                                             model="equirectangular")
+            err_d = max(err_d, float((k.R_cw[b] - q.R_cw).abs().max()),
+                        float((k.t_cw[b] - q.t_cw).abs().max()))
+            n_in = max(n_in, int((k.is_inlier[b] != q.is_inlier).sum()))
+            n_probs += 1
     torch.cuda.synchronize()
-    N = calls["pose"][0][2].shape[0]
-    print(f"kernel D optimize_pose (equirectangular): {len(calls['pose'])} of the leg's calls "
-          f"(N={N}), poses within {err_d:.3g}, inlier flags apart at most {n_in}")
+    N = calls["pose"][0][1].shape[0]
+    print(f"kernel D optimize_pose_batch (equirectangular): {len(calls['pose'])} of the leg's "
+          f"launches ({n_probs} problems, N={N}), poses within {err_d:.3g}, inlier flags apart "
+          f"at most {n_in}")
     assert err_d < 1e-4, "kernel D's equirectangular mode disagrees with its plain version"
-    a = calls["pose"][-1]
-    a = (a[0].contiguous(), a[1].contiguous(), a[2].contiguous(), a[3].contiguous(),
-         a[4].contiguous(), kern_t.inv_sigma_sq[a[5].long()].contiguous(), a[6].contiguous())
+    problems, uv, xr, level = calls["pose"][-1]
+    R0, t0, pos_, has = problems[0]
+    a = (R0.contiguous(), t0.contiguous(), pos_.contiguous(), uv.contiguous(), xr.contiguous(),
+         kern_t.inv_sigma_sq[level.long()].contiguous(), has.contiguous())
     rows.append(dict(
         name="pose_lm_equirect", route="cuda", source="stella_vslam_tpu_torch/csrc/pose_lm.cu "
         "+ camera.cuh", replaces="stella_vslam_tpu/ops/optim/pose.py:39 (residuals.py:92)",
         max_abs_err=err_d, shape=f"N={N}",
-        ms=_median_ms(lambda: pose_mod.optimize_pose(*a, cs, model="equirectangular")),
+        **_times(lambda: pose_mod.optimize_pose(*a, cs, model="equirectangular")),
         plain_ms=_median_ms(lambda: pose_mod.optimize_pose_plain(*a, cs, model="equirectangular"),
                             reps=3, warmup=1),
         library_ms=None,
-        # 49 passes over the slots (44 evaluations, 5 classifications), ~250
-        # operations a slot each with the trigonometry; inputs read once
-        **_bound(N * (12 + 8 + 4 + 4 + 1) + 48, 49.0 * 250.0 * N)))
+        # 45 passes over the slots (44 evaluations, the final classification),
+        # ~250 operations a slot each with the trigonometry; inputs read once
+        **_bound(N * (12 + 8 + 4 + 4 + 1) + 48, 45.0 * 250.0 * N)))
 
     # ---- K, L: the leg's largest triangulation and fuse chunk ----
     from stella_vslam_tpu_torch.match import fuse as fuse_match
@@ -3403,7 +3735,7 @@ def check_equirect_kernels(dev, slam_like, calls):
         source="stella_vslam_tpu_torch/csrc/triangulate.cu + camera.cuh",
         replaces="stella_vslam_tpu/module/mapping_kernels.py:58", max_abs_err=rel_max,
         ok_flags_differing=share_k, shape=f"{B}x{N1}",
-        ms=_median_ms(lambda: mk.triangulate_checks(*kargs)),
+        **_times(lambda: mk.triangulate_checks(*kargs)),
         plain_ms=_median_ms(lambda: mk.triangulate_checks_plain(*kargs), reps=10),
         library_ms=None,
         **_bound(N1 * 24.0 + B * nbrs.desc.shape[1] * 24.0 + B * N1 * 5.0 + (B + 1) * 48.0
@@ -3439,7 +3771,7 @@ def check_equirect_kernels(dev, slam_like, calls):
         name="fuse_equirect", route="cuda", source="stella_vslam_tpu_torch/csrc/fuse.cu + "
         "camera.cuh", replaces="stella_vslam_tpu/module/mapping_kernels.py:228",
         max_abs_err=share_l, shape=f"{Bf}x{M}x{Nk}",
-        ms=_median_ms(lambda: mk.fuse_scan(*largs)),
+        **_times(lambda: mk.fuse_scan(*largs)),
         plain_ms=_median_ms(lambda: mk.fuse_scan_plain(*largs), reps=5, warmup=1),
         library_ms=None,
         # as kernel L's row, with ~140 operations for the prologue's
@@ -3510,7 +3842,7 @@ def check_equirect_kernels(dev, slam_like, calls):
         replaces="stella_vslam_tpu/ops/solve/essential.py:113", max_abs_err=1.0 - same_count,
         hypotheses_with_plain_model=same_model,
         shape=f"{Bh} x {Nm}, 1 LO refit",
-        ms=_median_ms(lambda: Em.find_via_ransac(11, b1, b2, mv, num_hypotheses=Bh), reps=10),
+        **_times(lambda: Em.find_via_ransac(11, b1, b2, mv, num_hypotheses=Bh), reps=10),
         plain_ms=_median_ms(lambda: R.find_core_plain(Em.MODEL, 11, b1, b2, mv, Bh, 1.0, 1),
                             reps=5, warmup=1),
         library_ms=None, **_bound(Nm * 25.0 + Bh * 44.0, e_ops)))
@@ -3522,7 +3854,7 @@ def check_equirect_kernels(dev, slam_like, calls):
         replaces="stella_vslam_tpu/ops/solve/essential.py:129",
         max_abs_err=abs(int(ek.num_inliers) - int(ep.num_inliers)),
         shape=f"8 x 4096 x {Nm}, 3 LO refits",
-        ms=_median_ms(lambda: Em.find_via_ransac_escalated(seeds, b1, b2, mv), reps=5),
+        **_times(lambda: Em.find_via_ransac_escalated(seeds, b1, b2, mv), reps=5),
         plain_ms=_median_ms(lambda: R.escalate(
             lambda sd: R.find_core_plain(Em.MODEL, sd, b1, b2, mv, 4096, 1.0, 3), seeds),
             reps=3, warmup=1),
@@ -3590,7 +3922,7 @@ def check_equirect_kernels(dev, slam_like, calls):
         max_abs_err=1.0 - worst[1], candidates_within=dict(zip(("1e-4", "1e-3", "1e-2"), worst)),
         readings=reads,
         shape=f"{Bh} sets, N={Nm}",
-        ms=_median_ms(lambda: U.solve_sampled_sets(12, b1, b2, mv, Bh), reps=10),
+        **_times(lambda: U.solve_sampled_sets(12, b1, b2, mv, Bh), reps=10),
         plain_ms=_median_ms(lambda: U.solve_sampled_sets_plain(12, b1, b2, mv, Bh), reps=3,
                             warmup=1),
         library_ms=None,
@@ -3603,9 +3935,9 @@ DISTORTED_KERNELS = ("undistort_fisheye", "undistort_radial")
 # kernel V: the FBoW leg's own
 FBOW_KERNELS = ("fbow_transform",)
 # what every distorted leg launches (R's mode of its model besides)
-DISTORTED_LEG_KERNELS = ("resize_level", "fast_nms", "orb_describe", "hamming_top2", "pose_lm",
-                         "ransac_two_view", "scatter_to_current", "dedup_by_id",
-                         "reproject_gate", "epipolar_top2", "triangulate", "fuse",
+DISTORTED_LEG_KERNELS = ("resize_level", "fast_nms", "orb_describe", "hamming_top2",
+                         "cell_index", "pose_lm", "ransac_two_view", "scatter_to_current",
+                         "dedup_by_id", "reproject_gate", "epipolar_top2", "triangulate", "fuse",
                          "ba_linearize_schur", "ba_reduced_solve", "ba_backsub_cost",
                          "ba_classify", "bow_transform")
 # the rows whose launches are a distorted leg's (and its counter there)
@@ -3721,7 +4053,7 @@ def check_distorted_kernels(dev, world, recs):
         rows.append(dict(
             name=kern.__name__, route="cuda", source="stella_vslam_tpu_torch/csrc/reproject.cu",
             replaces=replaces, max_abs_err=0.0, bit_equal=True, shape=f"N={N}",
-            ms=_median_ms(lambda: kern(p, rand)), plain_ms=_median_ms(lambda: plain(p, rand)),
+            **_times(lambda: kern(p, rand)), plain_ms=_median_ms(lambda: plain(p, rand)),
             library_ms=None, **_bound(16.0 * N, ops_per_point * N)))
 
     # ---- kernel A with an extraction mask ----
@@ -3763,16 +4095,17 @@ def check_distorted_kernels(dev, world, recs):
         keep = m.mask[m.rows.long()[b:g.H - b, None], m.cols.long()[None, b:g.W - b]] != 0
         n_region += keep.numel()
         n_kept += int(keep.sum())
-    rows.append(dict(
+    rows.append(_per_launch(dict(
         name="fast_nms_masked", counter="fast_nms", route="cuda",
         source="stella_vslam_tpu_torch/csrc/fast_nms.cu",
         replaces="stella_vslam_tpu/feature/orb_extractor.py:332", max_abs_err=0.0,
-        shape="752x480, 8 levels, the half-image mask",
-        ms=_median_ms(lambda: run_a(ox.fast_nms, lm)),
+        shape="752x480, 8 levels, the half-image mask, one launch a level",
+        **_times(lambda: run_a(ox.fast_nms, lm)),
         plain_ms=_median_ms(lambda: run_a(ox.fast_nms_plain, lm)), library_ms=None,
         work=dict(region_px=n_region, kept_px=n_kept),
         **_bound(4.0 * n_kept + n_region + 4.0 * sum(g.H + g.W for g in ex.levels)
-                 + 4.0 * ex.num_slots, 300.0 * n_kept)))
+                 + 4.0 * ex.num_slots, 300.0 * n_kept)),
+        ox.fast_nms, lambda: run_a(ox.fast_nms, lm)))
     return rows
 
 
@@ -3858,7 +4191,7 @@ def check_fbow_kernels(dev, recorded):
         replaces="stella_vslam_tpu/data/fbow_io.py:128", max_abs_err=0.0,
         shape=f"N={N}, {nblocks} blocks x {m_k}, depth {tab.max_depth}",
         blocks_visited=visits,
-        ms=_median_ms(lambda: fbow_io.fbow_transform(rand, tab)),
+        **_times(lambda: fbow_io.fbow_transform(rand, tab)),
         plain_ms=_median_ms(lambda: fbow_io.fbow_transform_plain(rand, tab)), library_ms=None,
         **_bound(36.0 * N + nblocks * m_k * 36.0 + 4.0 * nblocks, 3.0 * words))]
 
@@ -3980,10 +4313,12 @@ def main() -> int:
     map_rows += check_sharded_ba(dev, loop_rec, slam.mapper.cam_scalars)
     repeat = check_repeatability(dev, loop_rec, slam.mapper.cam_scalars)
     check_solves_under_load(dev)
+    check_cascade_under_load(dev)
     lap("mapping_loop_sharded_checks")
     threaded, launches["threaded"], tslam, assoc_rec = run_threaded_slice(
         dev, world, wrappers, card)
     check_recorded_assoc(assoc_rec)
+    check_recorded_matches(assoc_rec["match"])
     lap("threaded_slice")
     legs, leg_launches = run_stereo_legs(dev, world, wrappers, card)
     lap("stereo_rgbd_legs")

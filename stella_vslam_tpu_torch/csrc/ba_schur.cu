@@ -90,11 +90,10 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <map>
-#include <mutex>
 #include <utility>
 
 #include "camera.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -105,24 +104,7 @@ constexpr int kThreadsSolve = 512;
 constexpr int kSolveSharedDim = 192;        // largest n factored by one block
 constexpr size_t kMaxBlockSmem = 232448;     // 227 KB, the most a block can opt into
 
-// Raises `kernel`'s dynamic shared memory limit on the current device to at
-// least `bytes` and never lowers it. Host threads launch one kernel at
-// different sizes (the mapper's local BA and the loop closer's global BA):
-// a thread that set a smaller limit between another's setting and its
-// launch would make that launch fail.
-cudaError_t reserve_smem(const void* kernel, size_t bytes) {
-  static std::mutex mu;
-  static std::map<std::pair<int, const void*>, size_t> limit;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  std::lock_guard<std::mutex> lock(mu);
-  size_t& cur = limit[{dev, kernel}];
-  if (bytes <= cur) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess) cur = bytes;
-  return e;
-}
+using svt::reserve_smem;  // smem_limit.cuh
 
 // ctrl[] slots
 constexpr int kCost0 = 0;  // cost at the linearization point (F)

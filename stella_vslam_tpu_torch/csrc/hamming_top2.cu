@@ -2,41 +2,81 @@
 //
 // Replaces the [M,N] distance matrix of stella_vslam_tpu/match/hamming.py
 // (pairwise_hamming :31, best_and_second :96) as the matchers use it:
-// match/projection.py match_frame_and_landmarks (:25) and
-// match_current_and_last_frames (:99), match/robust.py brute_force_match
-// (:92), and the initializer's match/area.py match_in_consistent_area (:19).
-// The TPU form is a +/-1 int8 matmul into an [M,N] matrix, masked by [M,N]
-// gate tensors, then argmin passes over the rows.
+// match/projection.py match_frame_and_landmarks (:25),
+// match_current_and_last_frames (:99) and match_frame_and_keyframe (:160),
+// match/robust.py brute_force_match (:92), and the initializer's
+// match/area.py match_in_consistent_area (:19). The TPU form is a +/-1 int8
+// matmul into an [M,N] matrix, masked by [M,N] gate tensors, then argmin
+// passes over the rows.
 //
-// On Hopper: one warp per query row. Each lane walks a strided share of the
-// targets, evaluates the gates in registers (search window, level range,
-// stereo x_right, target availability, orientation cosine), takes XOR and
-// __popc over 8 words, and keeps a lane-local top-2 of the packed key
-// (dist << 16 | target); a butterfly shuffle merges the warp's top-2. The
-// [M,N] matrix never exists. Bound: 32 bytes of target descriptor plus ~24
-// bytes of target gate fields per (row, target) pair, served from L2 (a
-// 2872-target frame is ~160 KB); at M=4096 x N=2872 that is ~11.8 M pairs,
-// ~0.6 GB of L2 traffic — the next step is staging target tiles in shared
-// memory, shared by the block's warps.
+// On Hopper, three kernels:
+//  - cell_index_kernel (svt_cell_index): one block sorts the N targets by a
+//    grid cell of their (u, v) (a stable counting sort: each warp counts
+//    its contiguous share of the targets per cell, one scan orders the
+//    (cell, warp) counts, each warp places its targets by rank within its
+//    share). Targets outside the grid go to its border cells (the clamp of
+//    the cell coordinate), so fisheye and division coordinates far outside
+//    the image are still found; targets with a NaN coordinate go to a
+//    bucket after every cell, which no window reaches (no window test
+//    passes for them in the dense walk either). One index serves every
+//    window call against the same targets (the tracking cascade's stages 1
+//    and 3).
+//  - window_top2_kernel (the window modes: stages 1 and 3, the loop
+//    rematch, the area matcher): one warp per query row. A row whose row_ok
+//    is false writes what the dense walk writes at once. Otherwise the row
+//    visits only the cells that meet its window, widened by a margin that
+//    covers float rounding (0.01 px + 1e-5 of the coordinate's magnitude;
+//    a NaN bound widens to the whole grid): in each cell row the cells
+//    between its ends are one contiguous range of the sorted targets. Each
+//    visited target goes through the gates with the float expressions of
+//    the dense test, and the lanes keep a top-2 of the packed key
+//    (dist << 16 | target), merged by shuffles. The key order does not
+//    depend on the order of the visit, and the cover is conservative, so
+//    the result is the dense walk's.
+//  - brute_top2_kernel (no window: the keyframe fallback): 8 query rows a
+//    block, one warp each (several blocks an SM, so that a 2872-row call
+//    spreads evenly over the SMs); the block stages tiles of 256 targets
+//    (descriptors as two uint4 planes, col_ok, the orientation fields) in
+//    shared memory with cp.async, double-buffered, so the targets are read
+//    from L2 once per block rather than once per row. A block whose rows
+//    all fail row_ok stages nothing. (A form with the single-bit
+//    m16n8k256 mma, AND and popcount, for the distances took 0.088 ms on
+//    an H100 against this form's 0.047 at 2872 x 2872.)
+// Bound: the window modes are bound by the pairs they visit (at 752x480 a
+// 32-px cell holds ~8 of 2872 targets, a stage-3 window meets 1-4 cells)
+// and the chain of dependent loads of each visit; the brute-force mode by
+// the operations of its pairs (8 XOR and 8 popcounts, the gates and the
+// top-2 each: 8.2 M pairs at 2872 x 2872).
 //
 // Exactness: masked entries take the value 257, and the key order breaks
 // ties to the lowest target index, so best, best_idx, second and second_idx
 // are those of jnp.min/argmin over the JAX version's masked matrix (with
 // second_idx 0 when no second candidate exists, as argmin over an all-257
-// row gives). Two orientation gates: mode 1, the tracking matchers' cosine,
-// rounded as the JAX expression is (two products, one sum, no FMA); mode 2,
-// the area matcher's angle test |atan2(sin d, cos d)| <= thr with
-// d = row angle - col angle, evaluated literally with CUDA's accurate
-// sinf / cosf / atan2f (no fast-math), which may differ from the host's in
-// the last ulp, so a pair within an ulp of the threshold can gate the other
-// way.
+// row gives). A walk that visits fewer than all targets seeds its top-2
+// with the keys the dense walk's targets 0 and 1 would give without a
+// candidate ((257 << 16) | 0 and | 1; one key when N = 1): a row with no
+// candidate then reports best 257 at index 0, second 257 at 0. Two
+// orientation gates: mode 1, the tracking matchers' cosine, rounded as the
+// JAX expression is (two products, one sum, no FMA); mode 2, the area
+// matcher's angle test |atan2(sin d, cos d)| <= thr with d = row angle -
+// col angle, evaluated literally with CUDA's accurate sinf / cosf / atan2f
+// (no fast-math), which may differ from the host's in the last ulp, so a
+// pair within an ulp of the threshold can gate the other way.
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
 constexpr uint32_t kNone = 0xffffffffu;
+constexpr uint32_t kMasked = 257u << 16;
+constexpr int kIndexThreads = 512;
+constexpr int kIndexWarps = kIndexThreads / 32;
+constexpr int kMaxCells = 1024;
+constexpr int kWindowRows = 4;  // one warp each: a row's visit is a chain of loads
+constexpr int kBruteRows = 8;   // one warp each
+constexpr int kTile = 256;           // targets a stage
 
 __device__ __forceinline__ void push(uint32_t key, uint32_t& k1, uint32_t& k2) {
   if (key < k1) {
@@ -47,83 +87,298 @@ __device__ __forceinline__ void push(uint32_t key, uint32_t& k1, uint32_t& k2) {
   }
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-hamming_top2_kernel(int M, int N, const uint32_t* __restrict__ q,
-                    const uint32_t* __restrict__ t, const uint8_t* __restrict__ row_ok,
-                    const uint8_t* __restrict__ col_ok, int use_window,
-                    const float* __restrict__ row_u, const float* __restrict__ row_v,
-                    const float* __restrict__ row_xr, const float* __restrict__ row_rad,
-                    const int* __restrict__ row_lo, const int* __restrict__ row_hi,
-                    const float* __restrict__ col_u, const float* __restrict__ col_v,
-                    const float* __restrict__ col_xr, const int* __restrict__ col_level,
-                    int use_orient, const float* __restrict__ row_c,
-                    const float* __restrict__ row_s, const float* __restrict__ col_c,
-                    const float* __restrict__ col_s, float cos_thr,
-                    int* __restrict__ out) {
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= M) return;
-  uint32_t qd[8];
-#pragma unroll
-  for (int w = 0; w < 8; ++w) qd[w] = q[row * 8 + w];
-  const bool rok = row_ok[row] != 0;
-  float ru = 0.f, rv = 0.f, rxr = 0.f, rad = 0.f, rc = 0.f, rs = 0.f;
-  int lo = 0, hi = 0;
-  if (use_window) {
-    ru = row_u[row];
-    rv = row_v[row];
-    rxr = row_xr[row];
-    rad = row_rad[row];
-    lo = row_lo[row];
-    hi = row_hi[row];
-  }
-  if (use_orient) rc = row_c[row];
-  if (use_orient == 1) rs = row_s[row];
-  uint32_t k1 = kNone, k2 = kNone;
-  for (int j = lane; j < N; j += 32) {
-    bool cand = rok && col_ok[j] != 0;
-    if (cand && use_window) {
-      const float cxr = col_xr[j];
-      const int lvl = col_level[j];
-      cand = fabsf(col_u[j] - ru) <= rad && fabsf(col_v[j] - rv) <= rad &&
-             lvl >= lo && lvl <= hi &&
-             (!(cxr > 0.f && rxr > 0.f) || fabsf(rxr - cxr) <= rad);
-    }
-    if (cand && use_orient == 1)
-      cand = __fadd_rn(__fmul_rn(rc, col_c[j]), __fmul_rn(rs, col_s[j])) >= cos_thr;
-    if (cand && use_orient == 2) {
-      const float d = __fsub_rn(rc, col_c[j]);
-      cand = fabsf(atan2f(sinf(d), cosf(d))) <= cos_thr;
-    }
-    uint32_t dist = 257;
-    if (cand) {
-      dist = 0;
-#pragma unroll
-      for (int w = 0; w < 8; ++w) dist += __popc(qd[w] ^ t[j * 8 + w]);
-    }
-    push((dist << 16) | (uint32_t)j, k1, k2);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const uint32_t o1 = __shfl_xor_sync(0xffffffffu, k1, o);
-    const uint32_t o2 = __shfl_xor_sync(0xffffffffu, k2, o);
+// merge the top-2 of `width` lanes (a power of two) by a butterfly
+__device__ __forceinline__ void merge(uint32_t& k1, uint32_t& k2, unsigned mask, int width) {
+  for (int o = width / 2; o > 0; o >>= 1) {
+    const uint32_t o1 = __shfl_xor_sync(mask, k1, o, width);
+    const uint32_t o2 = __shfl_xor_sync(mask, k2, o, width);
     const uint32_t n1 = min(k1, o1);
     const uint32_t n2 = min(max(k1, o1), min(k2, o2));
     k1 = n1;
     k2 = n2;
   }
-  if (lane == 0) {
-    const int best = (int)(k1 >> 16), best_idx = (int)(k1 & 0xffffu);
-    int second = 257, second_idx = 0;
-    if (k2 != kNone && (k2 >> 16) < 257) {
-      second = (int)(k2 >> 16);
-      second_idx = (int)(k2 & 0xffffu);
-    }
-    out[row * 4 + 0] = best;
-    out[row * 4 + 1] = best_idx;
-    out[row * 4 + 2] = second;
-    out[row * 4 + 3] = second_idx;
+}
+
+__device__ __forceinline__ void write_top2(int* out, uint32_t k1, uint32_t k2) {
+  out[0] = (int)(k1 >> 16);
+  out[1] = (int)(k1 & 0xffffu);
+  int second = 257, second_idx = 0;
+  if (k2 != kNone && (k2 >> 16) < 257) {
+    second = (int)(k2 >> 16);
+    second_idx = (int)(k2 & 0xffffu);
   }
+  out[2] = second;
+  out[3] = second_idx;
+}
+
+// the dense walk's keys of targets 0 and 1 when neither is a candidate
+__device__ __forceinline__ void seeds(int N, uint32_t& k1, uint32_t& k2) {
+  k1 = N > 0 ? kMasked : kNone;
+  k2 = N > 1 ? (kMasked | 1u) : kNone;
+}
+
+// the cell of a target coordinate on one axis: floor(x * inv), clamped to
+// the grid (the border cells take what lies outside it)
+__device__ __forceinline__ int cell_of(float x, float inv, int g) {
+  return (int)fminf(fmaxf(floorf(__fmul_rn(x, inv)), 0.f), (float)(g - 1));
+}
+
+// the cells a window [c - rad, c + rad] meets on one axis, widened by a
+// rounding margin; a NaN bound takes the grid's end
+__device__ __forceinline__ void cell_span(float c, float rad, float inv, int g, int& a, int& b) {
+  const float m = __fadd_rn(__fadd_rn(rad, 0.01f),
+                            __fmul_rn(1e-5f, __fadd_rn(fabsf(c), fabsf(rad))));
+  const float lo = floorf(__fmul_rn(__fsub_rn(c, m), inv));
+  const float hi = floorf(__fmul_rn(__fadd_rn(c, m), inv));
+  a = isnan(lo) ? 0 : (int)fminf(fmaxf(lo, 0.f), (float)(g - 1));
+  b = isnan(hi) ? g - 1 : (int)fminf(fmaxf(hi, 0.f), (float)(g - 1));
+}
+
+// One block: order[] = the targets sorted by cell (ascending target index
+// within a cell), start[c] = the first position of cell c, for c = 0..G
+// (G = gx * gy; cell G holds the NaN targets), start[G + 1] = N.
+__global__ void __launch_bounds__(kIndexThreads)
+cell_index_kernel(int N, const float* __restrict__ col_u, const float* __restrict__ col_v,
+                  float inv, int gx, int gy, int* __restrict__ start, int* __restrict__ order) {
+  __shared__ uint16_t cnt[kIndexWarps][kMaxCells + 1];
+  __shared__ int total[kMaxCells + 1];
+  const int G = gx * gy;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int share = (N + kIndexWarps - 1) / kIndexWarps;
+  const int j_lo = warp * share, j_hi = min(N, j_lo + share);
+  auto cell = [&](int j) {
+    const float u = col_u[j], v = col_v[j];
+    if (isnan(u) || isnan(v)) return G;
+    return cell_of(v, inv, gy) * gx + cell_of(u, inv, gx);
+  };
+  for (int i = tid; i < kIndexWarps * (G + 1); i += kIndexThreads)
+    cnt[i / (G + 1)][i % (G + 1)] = 0;
+  __syncthreads();
+  // each warp counts its share, 32 targets a step
+  for (int j0 = j_lo; j0 < j_hi; j0 += 32) {
+    const int j = j0 + lane;
+    const int c = j < j_hi ? cell(j) : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, c);
+    if (c >= 0 && lane == __ffs(peers) - 1) cnt[warp][c] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  // per cell: the warps' exclusive prefix within the cell, and its total
+  for (int c = tid; c <= G; c += kIndexThreads) {
+    int run = 0;
+    for (int w = 0; w < kIndexWarps; ++w) {
+      const int n = cnt[w][c];
+      cnt[w][c] = (uint16_t)run;
+      run += n;
+    }
+    total[c] = run;
+  }
+  __syncthreads();
+  // exclusive scan of the cell totals by warp 0: each lane a run of cells
+  if (warp == 0) {
+    const int per = (G + 1 + 31) / 32;
+    const int c_lo = min(G + 1, lane * per), c_hi = min(G + 1, c_lo + per);
+    int sum = 0;
+    for (int c = c_lo; c < c_hi; ++c) sum += total[c];
+    int incl = sum;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    int run = incl - sum;
+    for (int c = c_lo; c < c_hi; ++c) {
+      const int n = total[c];
+      total[c] = run;
+      start[c] = run;
+      run += n;
+    }
+    if (lane == 0) start[G + 1] = N;
+  }
+  __syncthreads();
+  for (int i = tid; i < kIndexWarps * (G + 1); i += kIndexThreads) {
+    const int w = i / (G + 1), c = i % (G + 1);
+    cnt[w][c] = (uint16_t)(cnt[w][c] + total[c]);
+  }
+  __syncthreads();
+  // each warp places its share: position = its base in the cell + rank
+  for (int j0 = j_lo; j0 < j_hi; j0 += 32) {
+    const int j = j0 + lane;
+    const int c = j < j_hi ? cell(j) : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, c);
+    int pos = 0;
+    if (c >= 0) pos = cnt[warp][c] + __popc(peers & ((1u << lane) - 1u));
+    __syncwarp();
+    if (c >= 0) {
+      order[pos] = j;
+      if (lane == __ffs(peers) - 1) cnt[warp][c] = (uint16_t)(cnt[warp][c] + __popc(peers));
+    }
+    __syncwarp();
+  }
+}
+
+// The gate arrays of a call (the window's target fields are read only in
+// window mode, the orientation fields per use_orient).
+struct Gates {
+  const uint8_t* row_ok;
+  const uint8_t* col_ok;
+  const float *row_u, *row_v, *row_xr, *row_rad;
+  const int *row_lo, *row_hi;
+  const float *col_u, *col_v, *col_xr;
+  const int* col_level;
+  int use_orient;
+  const float *row_c, *row_s, *col_c, *col_s;
+  float cos_thr;
+};
+
+// the orientation gate of a pair (modes 1 and 2), with the target's fields
+__device__ __forceinline__ bool orient_ok(const Gates& g, float rc, float rs, float cc,
+                                          float cs) {
+  if (g.use_orient == 1)
+    return __fadd_rn(__fmul_rn(rc, cc), __fmul_rn(rs, cs)) >= g.cos_thr;
+  if (g.use_orient == 2) {
+    const float d = __fsub_rn(rc, cc);
+    return fabsf(atan2f(sinf(d), cosf(d))) <= g.cos_thr;
+  }
+  return true;
+}
+
+__global__ void __launch_bounds__(kWindowRows * 32)
+window_top2_kernel(int M, int N, const uint32_t* __restrict__ q, const uint32_t* __restrict__ t,
+                   Gates g, const int* __restrict__ start, const int* __restrict__ order,
+                   float inv, int gx, int gy, int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWindowRows + (threadIdx.x >> 5);
+  if (row >= M) return;
+  uint32_t k1, k2;
+  seeds(N, k1, k2);
+  if (lane != 0) k1 = k2 = kNone;  // one copy of the seeds in the row's lanes
+  if (g.row_ok[row] != 0) {
+    uint32_t qd[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) qd[w] = q[row * 8 + w];
+    const float ru = g.row_u[row], rv = g.row_v[row], rxr = g.row_xr[row];
+    const float rad = g.row_rad[row];
+    const int lo = g.row_lo[row], hi = g.row_hi[row];
+    const float rc = g.use_orient ? g.row_c[row] : 0.f;
+    const float rs = g.use_orient == 1 ? g.row_s[row] : 0.f;
+    int x0, x1, y0, y1;
+    cell_span(ru, rad, inv, gx, x0, x1);
+    cell_span(rv, rad, inv, gy, y0, y1);
+    for (int cy = y0; cy <= y1 && x0 <= x1; ++cy) {
+      const int e = start[cy * gx + x1 + 1];
+      for (int k = start[cy * gx + x0] + lane; k < e; k += 32) {
+        const int j = order[k];
+        bool cand = g.col_ok[j] != 0;
+        if (cand) {
+          const float cxr = g.col_xr[j];
+          const int lvl = g.col_level[j];
+          cand = fabsf(g.col_u[j] - ru) <= rad && fabsf(g.col_v[j] - rv) <= rad &&
+                 lvl >= lo && lvl <= hi &&
+                 (!(cxr > 0.f && rxr > 0.f) || fabsf(rxr - cxr) <= rad);
+        }
+        if (cand && g.use_orient)
+          cand = orient_ok(g, rc, rs, g.col_c[j], g.use_orient == 1 ? g.col_s[j] : 0.f);
+        if (cand) {
+          uint32_t dist = 0;
+#pragma unroll
+          for (int w = 0; w < 8; ++w) dist += __popc(qd[w] ^ t[j * 8 + w]);
+          push((dist << 16) | (uint32_t)j, k1, k2);
+        }
+      }
+    }
+  }
+  merge(k1, k2, 0xffffffffu, 32);
+  if (lane == 0) write_top2(out + row * 4, k1, k2);
+}
+
+// 16-byte asynchronous copy global -> shared; bytes < 16 zero-fills the rest
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+struct Tile {
+  uint4 lo[kTile], hi[kTile];  // descriptor words 0-3 and 4-7
+  float c[kTile], s[kTile];    // orientation fields
+  uint8_t ok[kTile];
+};
+
+__global__ void __launch_bounds__(kBruteRows * 32)
+brute_top2_kernel(int M, int N, const uint32_t* __restrict__ q, const uint32_t* __restrict__ t,
+                  Gates g, int* __restrict__ out) {
+  __shared__ Tile tiles[2];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int row = blockIdx.x * kBruteRows + (tid >> 5);
+  const bool live = row < M && g.row_ok[row] != 0;
+  uint32_t k1, k2;
+  seeds(N, k1, k2);
+  if (lane != 0) k1 = k2 = kNone;
+  if (__syncthreads_or(live)) {
+    uint32_t qd[8];
+    float rc = 0.f, rs = 0.f;
+    if (live) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w) qd[w] = q[row * 8 + w];
+      if (g.use_orient) rc = g.row_c[row];
+      if (g.use_orient == 1) rs = g.row_s[row];
+    }
+    const int n_tiles = (N + kTile - 1) / kTile;
+    // one stage: 2 x 256 descriptor halves, 16 col_ok chunks, 64 + 64
+    // orientation chunks of 16 bytes
+    auto stage = [&](int i, Tile& d) {
+      const int j0 = i * kTile, n = min(kTile, N - j0);
+      for (int x = tid; x < 2 * kTile; x += kBruteRows * 32) {
+        const int jj = x >> 1, h = x & 1;
+        void* dst = h ? (void*)&d.hi[jj] : (void*)&d.lo[jj];
+        cp_async16(dst, t + (size_t)(j0 + min(jj, n - 1)) * 8 + h * 4, jj < n ? 16 : 0);
+      }
+      for (int x = tid; x < kTile / 16; x += kBruteRows * 32) {
+        const int b = min(16, n - x * 16);
+        cp_async16(&d.ok[x * 16], g.col_ok + j0 + (b > 0 ? x * 16 : 0), max(b, 0));
+      }
+      for (int y = tid; g.use_orient && y < kTile / 4; y += kBruteRows * 32) {
+        const int b = min(16, 4 * (n - y * 4));
+        cp_async16(&d.c[y * 4], g.col_c + j0 + (b > 0 ? y * 4 : 0), max(b, 0));
+        if (g.use_orient == 1)
+          cp_async16(&d.s[y * 4], g.col_s + j0 + (b > 0 ? y * 4 : 0), max(b, 0));
+      }
+      cp_async_commit();
+    };
+    if (n_tiles > 0) stage(0, tiles[0]);
+    for (int i = 0; i < n_tiles; ++i) {
+      if (i + 1 < n_tiles) {
+        stage(i + 1, tiles[(i + 1) & 1]);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const Tile& d = tiles[i & 1];
+      const int j0 = i * kTile, n = min(kTile, N - j0);
+      if (live) {
+        for (int jj = lane; jj < n; jj += 32) {
+          bool cand = d.ok[jj] != 0;
+          if (cand && g.use_orient) cand = orient_ok(g, rc, rs, d.c[jj], d.s[jj]);
+          if (cand) {
+            const uint4 a = d.lo[jj], b = d.hi[jj];
+            const uint32_t dist = __popc(qd[0] ^ a.x) + __popc(qd[1] ^ a.y) +
+                                  __popc(qd[2] ^ a.z) + __popc(qd[3] ^ a.w) +
+                                  __popc(qd[4] ^ b.x) + __popc(qd[5] ^ b.y) +
+                                  __popc(qd[6] ^ b.z) + __popc(qd[7] ^ b.w);
+            push((dist << 16) | (uint32_t)(j0 + jj), k1, k2);
+          }
+        }
+      }
+      __syncthreads();  // the next stage overwrites this buffer
+    }
+  }
+  merge(k1, k2, 0xffffffffu, 32);
+  if (row < M && lane == 0) write_top2(out + row * 4, k1, k2);
 }
 
 // Kernel J: the epipolar-gated top-2 of match_for_triangulation.
@@ -228,22 +483,39 @@ extern "C" int svt_epipolar_top2(int B, int N1, int N2, const uint32_t* q, const
   return (int)cudaGetLastError();
 }
 
+// The cell index of N targets (svt_cell_index): start [gx * gy + 2], order [N].
+extern "C" int svt_cell_index(int N, const float* col_u, const float* col_v, float inv_cell,
+                              int gx, int gy, int* start, int* order, void* stream) {
+  if (gx < 1 || gy < 1 || gx * gy > kMaxCells || N < 0 || N > 65535)
+    return (int)cudaErrorInvalidValue;
+  cell_index_kernel<<<1, kIndexThreads, 0, (cudaStream_t)stream>>>(N, col_u, col_v, inv_cell,
+                                                                   gx, gy, start, order);
+  return (int)cudaGetLastError();
+}
+
+// use_window: the window modes on the cell index (start, order, inv_cell,
+// gx, gy); otherwise brute force (the target arrays 16-byte aligned)
 extern "C" int svt_hamming_top2(int M, int N, const uint32_t* q, const uint32_t* t,
                                 const uint8_t* row_ok, const uint8_t* col_ok,
                                 int use_window, const float* row_u, const float* row_v,
                                 const float* row_xr, const float* row_rad,
                                 const int* row_lo, const int* row_hi, const float* col_u,
                                 const float* col_v, const float* col_xr,
-                                const int* col_level, int use_orient, const float* row_c,
-                                const float* row_s, const float* col_c,
-                                const float* col_s, float cos_thr, int* out,
-                                void* stream) {
+                                const int* col_level, const int* start, const int* order,
+                                float inv_cell, int gx, int gy, int use_orient,
+                                const float* row_c, const float* row_s, const float* col_c,
+                                const float* col_s, float cos_thr, int* out, void* stream) {
   if (M > 0) {
-    const int blocks = (M + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    hamming_top2_kernel<<<blocks, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
-        M, N, q, t, row_ok, col_ok, use_window, row_u, row_v, row_xr, row_rad, row_lo,
-        row_hi, col_u, col_v, col_xr, col_level, use_orient, row_c, row_s, col_c,
-        col_s, cos_thr, out);
+    const Gates g{row_ok, col_ok, row_u,     row_v, row_xr, row_rad, row_lo, row_hi, col_u,
+                  col_v,  col_xr, col_level, use_orient, row_c, row_s, col_c, col_s, cos_thr};
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (use_window) {
+      window_top2_kernel<<<(M + kWindowRows - 1) / kWindowRows, kWindowRows * 32, 0, st>>>(
+          M, N, q, t, g, start, order, inv_cell, gx, gy, out);
+    } else {
+      brute_top2_kernel<<<(M + kBruteRows - 1) / kBruteRows, kBruteRows * 32, 0, st>>>(
+          M, N, q, t, g, out);
+    }
   }
   return (int)cudaGetLastError();
 }

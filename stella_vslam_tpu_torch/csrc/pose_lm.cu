@@ -1,4 +1,4 @@
-// Kernel D: motion-only pose optimization, the whole schedule in one launch.
+// Kernel D: motion-only pose optimization, a batch of problems in one launch.
 //
 // Replaces stella_vslam_tpu/ops/optim/pose.py optimize_pose (:39) with the
 // perspective and equirectangular residuals of ops/optim/residuals.py (:46,
@@ -10,36 +10,90 @@
 // form is a lax.scan of batched [N,3,6] Jacobian einsums and an unrolled
 // 6x6 Cholesky.
 //
-// On Hopper: ONE thread block owns the problem. Each thread keeps a strided
-// share of the N observation slots (and their inlier flags) for the whole
-// run; every evaluation is one pass in which each thread forms residuals and
-// Jacobians in registers and accumulates the 21 upper normal-equation terms,
-// the 6 gradient terms and the cost, followed by a warp-shuffle + shared
-// memory block reduction. Thread 0 then runs the damped 6x6 Cholesky solve,
-// the accept/reject test and the SE(3) retraction (pose.py:83-101) and
-// publishes the next trial pose through shared memory. Bound: ~49 dependent
-// passes over N slots (4 x 11 evaluations + 5 chi-square passes), each
-// ~150 flops per slot, plus the serial thread-0 solve between passes —
-// latency bound (barriers and the serial solve), not throughput bound; one
-// launch replaces the ~1000 small kernels an eager version of the schedule
-// would issue.
+// On Hopper: one cluster of CL blocks (CL = 1, 2, 4 or 8) owns a problem, and
+// a launch solves B problems (the tracking cascade's keyframe fallback and
+// motion model together). Each block stages its share of the N slots in
+// shared memory once (pos and 1/sigma^2 as one float4, uv and x_right as
+// another, the valid and inlier bits as a byte: 33 bytes a slot) and every
+// pass reads them from there. A pass is one residual per slot: the 21 upper
+// normal-equation terms, the 6 gradient terms and the cost, summed in
+// registers, then over the warp by recursive halving (31 shuffles, lane l
+// ending with term l), then stored as the warp's 28 partials into every
+// block of the cluster (distributed shared memory: the stores do not wait,
+// where loads of the peers' partials would). One barrier (the cluster's
+// when CL > 1) follows; lane i of every warp then sums term i over the
+// cluster's blocks and warps in one fixed order from its own block's
+// copy, and a shuffle hands the 28 totals to every lane. Every thread
+// then carries the LM state (best pose, H, b, cost, lambda) in registers
+// and runs the damped 6x6 Cholesky, the accept test and the SE(3)
+// retraction itself: the same inputs and instructions give the same bits
+// in every thread, so no thread waits for a serial section and no second
+// barrier broadcasts its result. The partials are double-buffered: a warp
+// writes pass k + 1's while a slower one may still read pass k's.
+//
+// A round's chi-square classification happens inside the next round's
+// first evaluation (the same pose, the same residual: the new inlier flag
+// is set before the slot is weighted), and the final classification writes
+// the chi-square values: 4 x 11 evaluations + 1 final pass = 45 passes
+// over the slots, one barrier each, where the previous design made 49
+// passes with three barriers and a thread-0 solve each.
+//
+// Bound: latency. Each pass is ~250 dependent FP32 operations a slot (0.7 M
+// at N = 2872) followed by the reduction, the barrier and the redundant
+// 6x6 solve (~500 dependent operations). Measured with clock64 per phase
+// (not kept) on an H100, the previous one-block design spent 63% of its
+// time in its threads' chains of ~6 slots read from L2, 18% in thread 0's
+// solve and 13% in the shuffle tree: the slot work set the pace. So a
+// problem is spread over a cluster (8 blocks by default, ops/optim/pose.py
+// CLUSTER: 1.4 slots a thread at N = 2872); at that size the slot work,
+// the cluster barrier and the solve take comparable shares (PERF.md). At
+// most kMaxSlotsPerBlock slots a block fit in shared memory (227 KB): the
+// wrapper refuses more than kMaxSlotsPerBlock x CL.
 //
 // Float32 throughout; sums are taken in another order than the JAX version,
-// so results agree to a tolerance, not bit for bit.
+// so results agree to a tolerance, not bit for bit. The order is fixed by
+// the launch shape, so a launch repeats bit for bit.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "camera.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTerms = 28;  // 21 (upper H) + 6 (b) + 1 (cost)
+constexpr int kSlotBytes = 33;           // 2 float4 + 1 flag byte
+constexpr int kMaxSlotsPerBlock = 6400;  // (232448 - 8 blocks' partials) / 33, rounded down
+constexpr uint8_t kValid = 1, kInlier = 2;
 
 struct Cam {
   float fx, fy, cx, cy, fxb, width, height;
+};
+
+// The problems of one launch: per-slot inputs with a batch stride in
+// elements (0 when every problem shares the tensor), poses and outputs per
+// problem.
+struct Batch {
+  const float* pos;
+  long long pos_bs;
+  const float* uv;
+  long long uv_bs;
+  const float* xr;
+  long long xr_bs;
+  const float* isg;
+  long long isg_bs;
+  const uint8_t* valid;
+  long long valid_bs;
+  const float* R0;  // [B,9]
+  const float* t0;  // [B,3]
+  float* R_out;
+  float* t_out;
+  uint8_t* inlier;  // [B,N]
+  float* chi2;      // [B,N]
 };
 
 // residual r[3], Jacobian J[3][6], dof, depth_ok for one slot
@@ -103,254 +157,386 @@ __device__ __forceinline__ void residual(const float* R, const float* t, const f
   }
 }
 
-__device__ void cholesky_solve6(const float A[36], const float b[6], float x[6]) {
-  float L[6][6] = {};
+__device__ __forceinline__ void cholesky_solve6(const float A[36], const float b[6],
+                                                float x[6]) {
+  float L[6][6] = {}, inv_d[6];
+#pragma unroll
   for (int j = 0; j < 6; ++j) {
     float s = A[j * 6 + j];
+#pragma unroll
     for (int k = 0; k < j; ++k) s -= L[j][k] * L[j][k];
-    s = sqrtf(fmaxf(s, 1e-20f));
-    L[j][j] = s;
-    const float inv = 1.f / s;
+    const float inv = rsqrtf(fmaxf(s, 1e-20f));  // 1 / L[j][j]
+    inv_d[j] = inv;
+#pragma unroll
     for (int i = j + 1; i < 6; ++i) {
       float v = A[i * 6 + j];
+#pragma unroll
       for (int k = 0; k < j; ++k) v -= L[i][k] * L[j][k];
       L[i][j] = v * inv;
     }
   }
   float y[6];
+#pragma unroll
   for (int i = 0; i < 6; ++i) {
     float v = b[i];
+#pragma unroll
     for (int k = 0; k < i; ++k) v -= L[i][k] * y[k];
-    y[i] = v / L[i][i];
+    y[i] = v * inv_d[i];
   }
+#pragma unroll
   for (int i = 5; i >= 0; --i) {
     float v = y[i];
+#pragma unroll
     for (int k = i + 1; k < 6; ++k) v -= L[k][i] * x[k];
-    x[i] = v / L[i][i];
+    x[i] = v * inv_d[i];
   }
 }
 
 // (R, t) <- Exp(xi) * (R, t), xi = [rho, phi] (ops/lie.py se3_update_left)
-__device__ void se3_update_left(const float* R, const float* t, const float xi[6],
-                                float* Rn, float* tn) {
+__device__ __forceinline__ void se3_update_left(const float* R, const float* t,
+                                                const float xi[6], float* Rn, float* tn) {
   const float* rho = xi;
   const float* phi = xi + 3;
   const float th2 = phi[0] * phi[0] + phi[1] * phi[1] + phi[2] * phi[2];
   const float th = sqrtf(fmaxf(th2, 1e-16f));
   const bool small = th2 < 1e-8f;
-  const float sn = sinf(th), cs = cosf(th);
-  const float a = small ? 1.f - th2 / 6.f : sn / th;
-  const float bb = small ? 0.5f - th2 / 24.f : (1.f - cs) / th2;
-  const float cc = small ? 1.f / 6.f - th2 / 120.f : (th - sn) / (th2 * th);
+  float sn, cs;
+  sincosf(th, &sn, &cs);
+  const float ith = 1.f / th, ith2 = ith * ith;
+  const float a = small ? 1.f - th2 / 6.f : sn * ith;
+  const float bb = small ? 0.5f - th2 / 24.f : (1.f - cs) * ith2;
+  const float cc = small ? 1.f / 6.f - th2 / 120.f : (th - sn) * (ith2 * ith);
   const float K[3][3] = {{0.f, -phi[2], phi[1]}, {phi[2], 0.f, -phi[0]}, {-phi[1], phi[0], 0.f}};
   float K2[3][3], dR[3][3], Jl[3][3];
+#pragma unroll
   for (int i = 0; i < 3; ++i)
+#pragma unroll
     for (int j = 0; j < 3; ++j)
       K2[i][j] = K[i][0] * K[0][j] + K[i][1] * K[1][j] + K[i][2] * K[2][j];
+#pragma unroll
   for (int i = 0; i < 3; ++i)
+#pragma unroll
     for (int j = 0; j < 3; ++j) {
       const float e = i == j ? 1.f : 0.f;
       dR[i][j] = e + a * K[i][j] + bb * K2[i][j];
       Jl[i][j] = e + bb * K[i][j] + cc * K2[i][j];
     }
   float dt[3];
-  for (int i = 0; i < 3; ++i) dt[i] = Jl[i][0] * rho[0] + Jl[i][1] * rho[1] + Jl[i][2] * rho[2];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    dt[i] = Jl[i][0] * rho[0] + Jl[i][1] * rho[1] + Jl[i][2] * rho[2];
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
+#pragma unroll
     for (int j = 0; j < 3; ++j)
       Rn[i * 3 + j] = dR[i][0] * R[0 * 3 + j] + dR[i][1] * R[1 * 3 + j] + dR[i][2] * R[2 * 3 + j];
     tn[i] = dR[i][0] * t[0] + dR[i][1] * t[1] + dR[i][2] * t[2] + dt[i];
   }
 }
 
-// damped step from (H, b) and lambda, applied to (R, t)
-__device__ void lm_step(const float* H, const float* b, float lam, const float* R,
-                        const float* t, float* Rn, float* tn) {
-  float Hd[36], nb[6], dx[6];
-  for (int i = 0; i < 36; ++i) Hd[i] = H[i];
-  for (int i = 0; i < 6; ++i) {
-    Hd[i * 6 + i] = (H[i * 6 + i] + lam * H[i * 6 + i]) + 1e-9f;
-    nb[i] = b[i];
-  }
-  cholesky_solve6(Hd, nb, dx);
+// damped step from the packed upper H (21), b and lambda, applied to (R, t)
+__device__ __forceinline__ void lm_step(const float* Hu, const float* b, float lam,
+                                        const float* R, const float* t, float* Rn, float* tn) {
+  float Hd[36], dx[6];
+  int n = 0;
+#pragma unroll
+  for (int a = 0; a < 6; ++a)
+#pragma unroll
+    for (int c = a; c < 6; ++c) {
+      Hd[a * 6 + c] = Hu[n];
+      Hd[c * 6 + a] = Hu[n];
+      ++n;
+    }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) Hd[i * 6 + i] = (Hd[i * 6 + i] + lam * Hd[i * 6 + i]) + 1e-9f;
+  cholesky_solve6(Hd, b, dx);
+#pragma unroll
   for (int i = 0; i < 6; ++i) dx[i] = -dx[i];
   se3_update_left(R, t, dx, Rn, tn);
 }
 
-template <int MODEL>
+// One step of the warp's recursive halving: a lane keeps terms [0, H) or
+// [H, 2H) of v (by its bit H) in v[0, H) and adds its partner's copy of them.
+template <int H>
+__device__ __forceinline__ void halve(float (&v)[32], int lane) {
+  const bool up = (lane & H) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = up ? v[i] : v[i + H];
+    const float keep = up ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+}
+
+// The cluster's barrier (the block's when CL = 1).
+template <int CL>
+__device__ __forceinline__ void sync_all() {
+  if constexpr (CL > 1)
+    cooperative_groups::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// the partials of a pass: [2 buffers][CL blocks][kWarps][kTerms]
+template <int CL>
+__host__ __device__ constexpr int part_floats() {
+  return 2 * CL * kWarps * kTerms;
+}
+
+template <int MODEL, int CL>
 __global__ void __launch_bounds__(kThreads)
-pose_lm_kernel(int N, const float* __restrict__ pos, const float* __restrict__ uv,
-               const float* __restrict__ xr, const float* __restrict__ inv_sig,
-               const uint8_t* __restrict__ valid, const float* __restrict__ R0,
-               const float* __restrict__ t0, Cam cam, int num_rounds, int num_robust,
-               int num_iter, float* __restrict__ R_out, float* __restrict__ t_out,
-               uint8_t* __restrict__ inlier, float* __restrict__ chi2_out) {
-  __shared__ float red[kWarps][kTerms];
-  __shared__ float tot[kTerms];
-  __shared__ float Ps[9], Pt[3];  // pose the next pass evaluates
+pose_lm_kernel(int N, int chunk, Batch bt, Cam cam, int num_rounds, int num_robust,
+               int num_iter) {
+  extern __shared__ float4 smem[];
+  float* part = reinterpret_cast<float*>(smem);
+  float4* sA = smem + part_floats<CL>() / 4;      // pos, 1/sigma^2
+  float4* sB = sA + chunk;                        // u, v, x_right
+  uint8_t* sF = reinterpret_cast<uint8_t*>(sB + chunk);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid < 9) Ps[tid] = R0[tid];
-  if (tid < 3) Pt[tid] = t0[tid];
-  for (int j = tid; j < N; j += kThreads) inlier[j] = valid[j];
-  __syncthreads();
+  const int prob = blockIdx.x / CL;
+  int rank = 0;
+  if constexpr (CL > 1) rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int base = rank * chunk;
+  const int n_loc = max(0, min(N - base, chunk));
 
-  // thread-0 LM state (registers of thread 0 only)
-  float Rb[9], tb[3], Hb[36], bvec[6], cost_b = 0.f, lam = 1e-4f;
+  // stage this block's slots
+  {
+    const float* pos = bt.pos + prob * bt.pos_bs;
+    const float* uv = bt.uv + prob * bt.uv_bs;
+    const float* xr = bt.xr + prob * bt.xr_bs;
+    const float* isg = bt.isg + prob * bt.isg_bs;
+    const uint8_t* valid = bt.valid + prob * bt.valid_bs;
+    for (int j = tid; j < n_loc; j += kThreads) {
+      const int g = base + j;
+      sA[j] = make_float4(pos[3 * g], pos[3 * g + 1], pos[3 * g + 2], isg[g]);
+      sB[j] = make_float4(uv[2 * g], uv[2 * g + 1], xr[g], 0.f);
+      sF[j] = valid[g] ? (kValid | kInlier) : 0;
+    }
+  }
+  float Rc[9], tc[3];  // the pose the next pass evaluates
+#pragma unroll
+  for (int i = 0; i < 9; ++i) Rc[i] = bt.R0[prob * 9 + i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) tc[i] = bt.t0[prob * 3 + i];
+  sync_all<CL>();  // every block of the cluster has started: peers' stores may land
 
-  // One evaluation pass at the pose in (Ps, Pt); totals land in `tot`.
-  auto eval_pass = [&](bool use_huber) {
+  int buf = 0;
+  // One evaluation pass at (Rc, tc): every thread gets the 28 totals.
+  // `reclassify` sets each slot's inlier flag at this pose first.
+  auto eval_pass = [&](bool use_huber, bool reclassify, float tot[kTerms]) {
     float acc[kTerms];
 #pragma unroll
     for (int i = 0; i < kTerms; ++i) acc[i] = 0.f;
-    float R[9], t[3];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) R[i] = Ps[i];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) t[i] = Pt[i];
-    for (int j = tid; j < N; j += kThreads) {
+    for (int j = tid; j < n_loc; j += kThreads) {
+      const float4 a = sA[j], b4 = sB[j];
+      const float p[3] = {a.x, a.y, a.z};
       float r[3], J[3][6], dof[3];
       bool depth_ok;
-      residual<MODEL>(R, t, pos + 3 * j, uv[2 * j], uv[2 * j + 1], xr[j], cam, r, J, dof,
-                      depth_ok);
-      const float isg = inv_sig[j];
-      const bool stereo = xr[j] > 0.f;
-      const float sqrt_chi = sqrtf(stereo ? 7.815f : 5.991f);
-      const float w_obs = (valid[j] && inlier[j] && depth_ok) ? isg : 0.f;
+      residual<MODEL>(Rc, tc, p, b4.x, b4.y, b4.z, cam, r, J, dof, depth_ok);
+      const float isg = a.w;
+      const bool stereo = b4.z > 0.f;
       const float e2 = r[0] * r[0] * dof[0] + r[1] * r[1] * dof[1] + r[2] * r[2] * dof[2];
-      const float chi = sqrtf(fmaxf(e2 * isg, 1e-12f));
+      const float chi2 = e2 * isg;
+      uint8_t f = sF[j];
+      if (reclassify) {
+        const bool in = (f & kValid) && depth_ok && chi2 <= (stereo ? 7.815f : 5.991f);
+        f = (f & kValid) | (in ? kInlier : 0);
+        sF[j] = f;
+      }
+      const float sqrt_chi = sqrtf(stereo ? 7.815f : 5.991f);
+      const float w_obs = ((f & kValid) && (f & kInlier) && depth_ok) ? isg : 0.f;
+      const float chi = sqrtf(fmaxf(chi2, 1e-12f));
       const float hw = (use_huber && chi > sqrt_chi) ? sqrt_chi / chi : 1.f;
       const float w = w_obs * hw;
       if (w == 0.f) continue;
       int n = 0;
 #pragma unroll
-      for (int a = 0; a < 6; ++a) {
+      for (int c = 0; c < 6; ++c) {
 #pragma unroll
-        for (int bcol = a; bcol < 6; ++bcol) {
+        for (int d = c; d < 6; ++d) {
           float s = 0.f;
 #pragma unroll
-          for (int k = 0; k < 3; ++k) s += J[k][a] * (dof[k] * w) * J[k][bcol];
+          for (int k = 0; k < 3; ++k) s += J[k][c] * (dof[k] * w) * J[k][d];
           acc[n++] += s;
         }
       }
 #pragma unroll
-      for (int a = 0; a < 6; ++a) {
+      for (int c = 0; c < 6; ++c) {
         float s = 0.f;
 #pragma unroll
-        for (int k = 0; k < 3; ++k) s += J[k][a] * (dof[k] * w) * r[k];
-        acc[21 + a] += s;
+        for (int k = 0; k < 3; ++k) s += J[k][c] * (dof[k] * w) * r[k];
+        acc[21 + c] += s;
       }
       acc[27] += w * e2;
     }
+    // the warp's sums by recursive halving: at each step a lane keeps half
+    // of its terms and adds its partner's copy of them, so that lane l ends
+    // with the warp's sum of term l (31 shuffles for 32 terms, 4 of them 0)
+    float v[32];
 #pragma unroll
-    for (int i = 0; i < kTerms; ++i) {
-      float v = acc[i];
-      for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-      if (lane == 0) red[warp][i] = v;
-    }
-    __syncthreads();
-    if (tid < kTerms) {
-      float s = 0.f;
-      for (int w = 0; w < kWarps; ++w) s += red[w][tid];
-      tot[tid] = s;
-    }
-    __syncthreads();
-  };
-  auto unpack = [&](float* H, float* b, float& cost) {
-    int n = 0;
-    for (int a = 0; a < 6; ++a)
-      for (int bcol = a; bcol < 6; ++bcol) {
-        H[a * 6 + bcol] = tot[n];
-        H[bcol * 6 + a] = tot[n];
-        ++n;
+    for (int i = 0; i < 32; ++i) v[i] = i < kTerms ? acc[i] : 0.f;
+    halve<16>(v, lane);
+    halve<8>(v, lane);
+    halve<4>(v, lane);
+    halve<2>(v, lane);
+    halve<1>(v, lane);
+    float* const pb = part + buf * CL * kWarps * kTerms;
+    if (lane < kTerms) {
+      const int off = (rank * kWarps + warp) * kTerms + lane;
+      if constexpr (CL > 1) {
+#pragma unroll
+        for (int rb = 0; rb < CL; ++rb)
+          cooperative_groups::this_cluster().map_shared_rank(pb, rb)[off] = v[0];
+      } else {
+        pb[off] = v[0];
       }
-    for (int a = 0; a < 6; ++a) b[a] = tot[21 + a];
-    cost = tot[27];
-  };
-  // chi-square classification at (Ps, Pt); optionally writes chi2
-  auto classify = [&](bool write_chi2) {
-    for (int j = tid; j < N; j += kThreads) {
-      float r[3], J[3][6], dof[3];
-      bool depth_ok;
-      residual<MODEL>(Ps, Pt, pos + 3 * j, uv[2 * j], uv[2 * j + 1], xr[j], cam, r, J, dof,
-                      depth_ok);
-      const float chi2 =
-          (r[0] * r[0] * dof[0] + r[1] * r[1] * dof[1] + r[2] * r[2] * dof[2]) * inv_sig[j];
-      const float thr = xr[j] > 0.f ? 7.815f : 5.991f;
-      if (write_chi2)
-        chi2_out[j] = chi2;
-      else
-        inlier[j] = (valid[j] && depth_ok && chi2 <= thr) ? 1 : 0;
     }
-    __syncthreads();
+    sync_all<CL>();
+    // lane i sums term i over (block, warp) in one order, in every warp:
+    // four running sums over the partials in turn, then their sum
+    float s = 0.f;
+    if (lane < kTerms) {
+      float q[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int w = 0; w < CL * kWarps; ++w) q[w & 3] += pb[w * kTerms + lane];
+      s = (q[0] + q[1]) + (q[2] + q[3]);
+    }
+#pragma unroll
+    for (int i = 0; i < kTerms; ++i) tot[i] = __shfl_sync(0xffffffffu, s, i);
+    buf ^= 1;
   };
 
+  float Rb[9], tb[3], Hb[21], bv[6], cost_b = 0.f, lam = 1e-4f;
+  float tot[kTerms];
   for (int round = 0; round < num_rounds; ++round) {
     const bool use_huber = round < num_robust;
-    eval_pass(use_huber);  // at the round's start pose
-    if (tid == 0) {
-      for (int i = 0; i < 9; ++i) Rb[i] = Ps[i];
-      for (int i = 0; i < 3; ++i) tb[i] = Pt[i];
-      unpack(Hb, bvec, cost_b);
-      lam = 1e-4f;
-      float Rn[9], tn[3];
-      lm_step(Hb, bvec, 1e-4f, Rb, tb, Rn, tn);
-      for (int i = 0; i < 9; ++i) Ps[i] = Rn[i];
-      for (int i = 0; i < 3; ++i) Pt[i] = tn[i];
-    }
-    __syncthreads();
+    // at the round's start pose (the previous round's best), which the
+    // previous round's classification is fused into
+    eval_pass(use_huber, round > 0, tot);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) Rb[i] = Rc[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) tb[i] = tc[i];
+#pragma unroll
+    for (int i = 0; i < 21; ++i) Hb[i] = tot[i];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) bv[i] = tot[21 + i];
+    cost_b = tot[27];
+    lam = 1e-4f;
+    lm_step(Hb, bv, 1e-4f, Rb, tb, Rc, tc);
     for (int it = 0; it < num_iter; ++it) {
-      eval_pass(use_huber);  // at the trial pose
-      if (tid == 0) {
-        float Ht[36], bt[6], cost_t;
-        unpack(Ht, bt, cost_t);
-        const bool accept = cost_t < cost_b;
-        if (accept) {
-          for (int i = 0; i < 9; ++i) Rb[i] = Ps[i];
-          for (int i = 0; i < 3; ++i) tb[i] = Pt[i];
-          for (int i = 0; i < 36; ++i) Hb[i] = Ht[i];
-          for (int i = 0; i < 6; ++i) bvec[i] = bt[i];
-          cost_b = cost_t;
-        }
-        lam = fminf(fmaxf(accept ? lam * 0.5f : lam * 4.f, 1e-9f), 1e6f);
-        float Rn[9], tn[3];
-        lm_step(Hb, bvec, lam, Rb, tb, Rn, tn);
-        for (int i = 0; i < 9; ++i) Ps[i] = Rn[i];
-        for (int i = 0; i < 3; ++i) Pt[i] = tn[i];
+      eval_pass(use_huber, false, tot);  // at the trial pose
+      const bool accept = tot[27] < cost_b;
+      if (accept) {
+#pragma unroll
+        for (int i = 0; i < 9; ++i) Rb[i] = Rc[i];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) tb[i] = tc[i];
+#pragma unroll
+        for (int i = 0; i < 21; ++i) Hb[i] = tot[i];
+#pragma unroll
+        for (int i = 0; i < 6; ++i) bv[i] = tot[21 + i];
+        cost_b = tot[27];
       }
-      __syncthreads();
+      lam = fminf(fmaxf(accept ? lam * 0.5f : lam * 4.f, 1e-9f), 1e6f);
+      lm_step(Hb, bv, lam, Rb, tb, Rc, tc);
     }
-    // the round ends at its best pose; reclassify there
-    if (tid == 0) {
-      for (int i = 0; i < 9; ++i) Ps[i] = Rb[i];
-      for (int i = 0; i < 3; ++i) Pt[i] = tb[i];
-    }
-    __syncthreads();
-    classify(false);
+    // the round ends at its best pose
+#pragma unroll
+    for (int i = 0; i < 9; ++i) Rc[i] = Rb[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) tc[i] = tb[i];
   }
-  classify(true);
-  if (tid < 9) R_out[tid] = Ps[tid];
-  if (tid < 3) t_out[tid] = Pt[tid];
+  // the last classification at the final pose, with the chi-square values
+  {
+    uint8_t* inlier = bt.inlier + (long long)prob * N;
+    float* chi2_out = bt.chi2 + (long long)prob * N;
+    for (int j = tid; j < n_loc; j += kThreads) {
+      const float4 a = sA[j], b4 = sB[j];
+      const float p[3] = {a.x, a.y, a.z};
+      float r[3], J[3][6], dof[3];
+      bool depth_ok;
+      residual<MODEL>(Rc, tc, p, b4.x, b4.y, b4.z, cam, r, J, dof, depth_ok);
+      const float chi2 = (r[0] * r[0] * dof[0] + r[1] * r[1] * dof[1] + r[2] * r[2] * dof[2]) * a.w;
+      const uint8_t f = sF[j];
+      const bool in = num_rounds > 0
+                          ? (f & kValid) && depth_ok && chi2 <= (b4.z > 0.f ? 7.815f : 5.991f)
+                          : (f & kValid) != 0;
+      inlier[base + j] = in ? 1 : 0;
+      chi2_out[base + j] = chi2;
+    }
+  }
+  if (rank == 0 && tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) bt.R_out[prob * 9 + i] = Rc[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) bt.t_out[prob * 3 + i] = tc[i];
+  }
+  // no block leaves while a peer may still read its partials
+  if constexpr (CL > 1) cooperative_groups::this_cluster().sync();
+}
+
+template <int MODEL, int CL>
+cudaError_t launch(int B, int N, const Batch& bt, const Cam& cam, int rounds, int robust,
+                   int iters, cudaStream_t st) {
+  const int chunk = (N + CL - 1) / CL;
+  if (chunk > kMaxSlotsPerBlock) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * part_floats<CL>() + (size_t)chunk * kSlotBytes;
+  auto kernel = pose_lm_kernel<MODEL, CL>;
+  const cudaError_t e = svt::reserve_smem((const void*)kernel, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * CL);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, N, chunk, bt, cam, rounds, robust, iters);
+}
+
+template <int MODEL>
+cudaError_t launch_model(int CL, int B, int N, const Batch& bt, const Cam& cam, int rounds,
+                         int robust, int iters, cudaStream_t st) {
+  if (CL == 1) return launch<MODEL, 1>(B, N, bt, cam, rounds, robust, iters, st);
+  if (CL == 2) return launch<MODEL, 2>(B, N, bt, cam, rounds, robust, iters, st);
+  if (CL == 4) return launch<MODEL, 4>(B, N, bt, cam, rounds, robust, iters, st);
+  if (CL == 8) return launch<MODEL, 8>(B, N, bt, cam, rounds, robust, iters, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// model: 0 perspective, 2 equirectangular (camera.cuh)
-extern "C" int svt_pose_lm(int model, int N, const float* pos, const float* uv,
-                           const float* xr, const float* inv_sig, const uint8_t* valid,
-                           const float* R0, const float* t0, float fx, float fy, float cx,
-                           float cy, float fxb, float width, float height, int num_rounds,
-                           int num_robust, int num_iter, float* R_out, float* t_out,
-                           uint8_t* inlier, float* chi2_out, void* stream) {
+// model: 0 perspective, 2 equirectangular (camera.cuh); cluster: 1, 2, 4 or 8
+// blocks a problem; the *_bs arguments are batch strides in elements (0: the
+// tensor is shared by every problem)
+extern "C" int svt_pose_lm(int model, int cluster, int B, int N, const float* pos,
+                           long long pos_bs, const float* uv, long long uv_bs, const float* xr,
+                           long long xr_bs, const float* inv_sig, long long isg_bs,
+                           const uint8_t* valid, long long valid_bs, const float* R0,
+                           const float* t0, float fx, float fy, float cx, float cy, float fxb,
+                           float width, float height, int num_rounds, int num_robust,
+                           int num_iter, float* R_out, float* t_out, uint8_t* inlier,
+                           float* chi2_out, void* stream) {
+  if (B < 1 || N < 0) return (int)cudaErrorInvalidValue;
   Cam cam{fx, fy, cx, cy, fxb, width, height};
+  Batch bt{pos, pos_bs, uv, uv_bs, xr, xr_bs, inv_sig, isg_bs, valid, valid_bs,
+           R0, t0, R_out, t_out, inlier, chi2_out};
   cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e;
   if (model == svt_cam::kEquirect)
-    pose_lm_kernel<svt_cam::kEquirect><<<1, kThreads, 0, s>>>(
-        N, pos, uv, xr, inv_sig, valid, R0, t0, cam, num_rounds, num_robust, num_iter, R_out,
-        t_out, inlier, chi2_out);
+    e = launch_model<svt_cam::kEquirect>(cluster, B, N, bt, cam, num_rounds, num_robust,
+                                          num_iter, s);
   else if (model == svt_cam::kPerspective)
-    pose_lm_kernel<svt_cam::kPerspective><<<1, kThreads, 0, s>>>(
-        N, pos, uv, xr, inv_sig, valid, R0, t0, cam, num_rounds, num_robust, num_iter, R_out,
-        t_out, inlier, chi2_out);
+    e = launch_model<svt_cam::kPerspective>(cluster, B, N, bt, cam, num_rounds, num_robust,
+                                             num_iter, s);
   else
-    return (int)cudaErrorInvalidValue;
+    e = cudaErrorInvalidValue;
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -65,13 +65,17 @@ _SIGNATURES = {
     "svt_stereo_match": [_I, _I] + [_P] * 11 + [_F, _F] + [_P] * 6,
     # M, N, q_desc, t_desc, row_ok, col_ok, use_window, row_u, row_v,
     # row_xr, row_rad, row_lo, row_hi, col_u, col_v, col_xr, col_level,
-    # use_orient, row_c, row_s, col_c, col_s, cos_thr, out, stream
-    "svt_hamming_top2": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                         _P, _P, _P, _P, _I, _P, _P, _P, _P, _F, _P, _P],
-    # model, N, pos, uv, xr, inv_sigma_sq, valid, R0, t0, fx, fy, cx, cy,
-    # fxb, width, height, num_rounds, num_robust_rounds, num_each_iter,
-    # R_out, t_out, inlier_out, chi2_out, stream
-    "svt_pose_lm": [_I, _I] + [_P] * 7 + [_F] * 7 + [_I] * 3 + [_P] * 5,
+    # cell_start, cell_order, inv_cell, gx, gy, use_orient, row_c, row_s,
+    # col_c, col_s, cos_thr, out, stream
+    "svt_hamming_top2": [_I, _I, _P, _P, _P, _P, _I] + [_P] * 12 + [_F, _I, _I, _I]
+                        + [_P] * 4 + [_F, _P, _P],
+    # N, col_u, col_v, inv_cell, gx, gy, cell_start, cell_order, stream
+    "svt_cell_index": [_I, _P, _P, _F, _I, _I, _P, _P, _P],
+    # model, cluster, B, N, then pos, uv, xr, inv_sigma_sq, valid each with
+    # its batch stride, R0, t0, fx, fy, cx, cy, fxb, width, height,
+    # num_rounds, num_robust_rounds, num_each_iter, R_out, t_out, inlier_out,
+    # chi2_out, stream
+    "svt_pose_lm": [_I] * 4 + [_P, _L] * 5 + [_P] * 2 + [_F] * 7 + [_I] * 3 + [_P] * 5,
     # model, N, pts1, pts2, valid, seed, B, thr, out_model, out_cost,
     # out_count, stream
     "svt_ransac_minimal": [_I, _I, _P, _P, _P, _U, _I, _F, _P, _P, _P, _P],

@@ -25,11 +25,12 @@ def match_in_consistent_area(kp1_level, kp1_desc, kp1_angle, kp1_valid,
                              prev_matched, kp2_uv, kp2_level, kp2_desc,
                              kp2_angle, kp2_valid, *, margin: float = 100.0,
                              lowe_ratio: float = 0.9,
-                             check_orientation: bool = True):
-    """Returns (best_idx2 [N1] i32, accepted [N1] bool, best_dist [N1] i32)."""
+                             check_orientation: bool = True, image_size=None):
+    """Returns (best_idx2 [N1] i32, accepted [N1] bool, best_dist [N1] i32).
+    image_size (width, height) sizes the grid of kernel C's cell index."""
     args, kw = top2_args(kp1_level, kp1_desc, kp1_angle, kp1_valid, prev_matched, kp2_uv,
                          kp2_level, kp2_desc, kp2_angle, kp2_valid, margin=margin,
-                         check_orientation=check_orientation)
+                         check_orientation=check_orientation, image_size=image_size)
     best, best_idx, second, _ = H.hamming_top2(*args, **kw)
     accepted = ((best <= H.HAMMING_DIST_THR_LOW)
                 & (best.to(torch.float32) <= lowe_ratio * second.to(torch.float32))
@@ -40,8 +41,9 @@ def match_in_consistent_area(kp1_level, kp1_desc, kp1_angle, kp1_valid,
 
 def top2_args(kp1_level, kp1_desc, kp1_angle, kp1_valid, prev_matched, kp2_uv, kp2_level,
               kp2_desc, kp2_angle, kp2_valid, *, margin: float = 100.0,
-              check_orientation: bool = True):
-    """The arguments (args, kw) of the matcher's one `hamming_top2` call."""
+              check_orientation: bool = True, image_size=None):
+    """The arguments (args, kw) of the matcher's one `hamming_top2` call
+    (with the targets' cell index over image_size, when it is given)."""
     N1, N2 = kp1_desc.shape[0], kp2_desc.shape[0]
     dev = kp1_desc.device
     f32 = lambda t: t.to(torch.float32).contiguous()
@@ -57,5 +59,7 @@ def top2_args(kp1_level, kp1_desc, kp1_angle, kp1_valid, prev_matched, kp2_uv, k
     orient = (H.AngleGate(f32(kp1_angle), f32(kp2_angle), ANGLE_THR)
               if check_orientation else None)
     row_ok = (kp1_valid & (kp1_level == 0)).contiguous()
+    cells = (None if image_size is None
+             else H.build_cell_index(window.col_u, window.col_v, *image_size))
     return ((kp1_desc.contiguous(), kp2_desc.contiguous(), row_ok, kp2_valid.contiguous()),
-            dict(window=window, orient=orient))
+            dict(window=window, orient=orient, cells=cells))

@@ -9,9 +9,15 @@ and second-best distance and their target indices over the gated targets:
 * on CUDA tensors, kernel C (csrc/hamming_top2.cu): XOR + popcount with the
   gates evaluated in registers, the [M,N] matrix never stored; the gates
   are a projection window, an orientation cosine (tracking) or an angle
-  difference (the initializer's area matcher);
+  difference (the initializer's area matcher). With a window, a row visits
+  only the targets of the grid cells its window meets, from a `CellIndex`
+  of the targets (`build_cell_index`, the same source's counting sort; one
+  index serves every window call against the same targets); without one,
+  blocks of rows share tiles of targets;
 * on CPU tensors, `hamming_top2_plain`: the JAX version's dense form (a
-  +/-1 f32 matmul — exact, every sum is an integer of magnitude <= 256).
+  +/-1 f32 matmul — exact, every sum is an integer of magnitude <= 256),
+  restricted to the cells a row visits when a `CellIndex` is given (the
+  cover is conservative, so the result is the dense one).
 
 Kernel J (the same source) is the mapping module's matcher: the gates of
 match_for_triangulation (orientation cosine, near-epipole rejection, the
@@ -24,6 +30,7 @@ duplicate resolution stay plain torch on the [M] outputs.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Union
 
 import torch
@@ -91,6 +98,127 @@ class EpipolarGate(NamedTuple):
     cos_thr: float
 
 
+class CellIndex(NamedTuple):
+    """Targets sorted by the grid cell of their (u, v): cell (cx, cy) of a
+    finite point is (floor(u * inv_cell), floor(v * inv_cell)) clamped to
+    the gx x gy grid (the border cells take what lies outside it), cell id
+    cy * gx + cx; a NaN coordinate goes to cell gx * gy, after every cell.
+    order lists the targets by cell id (ascending index within a cell);
+    start[c] is cell c's first position in it, start[gx * gy + 1] = N."""
+
+    start: torch.Tensor  # [gx * gy + 2] i32
+    order: torch.Tensor  # [N] i32
+    inv_cell: float  # 1 / cell size, a power of two
+    gx: int
+    gy: int
+
+
+class LaunchCount:
+    """The launches of one mode of kernel C, read and reset like a wrapper's
+    count (`hamming_top2.launches` counts both modes)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+window_walk = LaunchCount()  # window mode: the cell walk
+brute_force = LaunchCount()  # no window: shared target tiles
+
+MAX_CELLS = 1024  # kernel C's index holds a count per (warp, cell) in shared memory
+# the grid of an index built without the image's size
+DEFAULT_EXTENT = (1024.0, 1024.0)
+
+
+def cell_grid(width: float, height: float):
+    """(inv_cell, gx, gy): power-of-two cells, at most 32 a side, over
+    [0, width) x [0, height)."""
+    size = 1.0
+    while max(width, height) > 32 * size:
+        size *= 2.0
+    return 1.0 / size, max(1, math.ceil(width / size)), max(1, math.ceil(height / size))
+
+
+def _cells_of(col_u, col_v, inv_cell, gx, gy):
+    """Each target's cell id (gx * gy for a NaN coordinate)."""
+    def axis(x, g):
+        f = torch.floor(x * inv_cell)
+        return torch.where(torch.isnan(f), 0.0, f).clamp(0, g - 1).to(torch.int64)
+
+    nan = torch.isnan(col_u) | torch.isnan(col_v)
+    return torch.where(nan, gx * gy, axis(col_v, gy) * gx + axis(col_u, gx))
+
+
+def build_cell_index_plain(col_u, col_v, width: float, height: float) -> CellIndex:
+    inv, gx, gy = cell_grid(width, height)
+    cell = _cells_of(col_u, col_v, inv, gx, gy)
+    counts = torch.bincount(cell, minlength=gx * gy + 1)
+    start = torch.cat([torch.zeros(1, dtype=torch.int64, device=cell.device),
+                       torch.cumsum(counts, 0)])
+    order = torch.argsort(cell, stable=True)
+    return CellIndex(start.to(torch.int32), order.to(torch.int32), inv, gx, gy)
+
+
+def build_cell_index(col_u, col_v, width: float, height: float) -> CellIndex:
+    """Kernel C's cell index (one launch of its counting sort) on CUDA
+    tensors, the plain version on CPU tensors. col_u, col_v [N] f32."""
+    if not col_u.is_cuda:
+        return build_cell_index_plain(col_u, col_v, width, height)
+    N = col_u.shape[0]
+    if N >= 1 << 16:
+        raise ValueError("build_cell_index: at most 65535 targets")
+    _check(col_u, (N,), torch.float32, "col_u")
+    _check(col_v, (N,), torch.float32, "col_v")
+    inv, gx, gy = cell_grid(width, height)
+    start = torch.empty(gx * gy + 2, dtype=torch.int32, device=col_u.device)
+    order = torch.empty(N, dtype=torch.int32, device=col_u.device)
+    lib = kbuild.load()
+    kbuild.check(lib.svt_cell_index(N, col_u.data_ptr(), col_v.data_ptr(), inv, gx, gy,
+                                    start.data_ptr(), order.data_ptr(),
+                                    kbuild.stream_ptr(col_u.device)), "cell_index")
+    build_cell_index.launches += 1
+    return CellIndex(start, order, inv, gx, gy)
+
+
+build_cell_index.launches = 0
+
+
+def _cell_span(c, rad, inv_cell, g):
+    """The cells [a, b] a window [c - rad, c + rad] meets on one axis,
+    widened by kernel C's rounding margin (0.01 + 1e-5 (|c| + |rad|), each
+    operation rounded in f32); a NaN bound takes the grid's end."""
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=c.device)
+    m = (rad + f32(0.01)) + f32(1e-5) * (c.abs() + rad.abs())
+    lo, hi = torch.floor((c - m) * inv_cell), torch.floor((c + m) * inv_cell)
+    a = torch.where(torch.isnan(lo), 0.0, lo.clamp(0, g - 1))
+    b = torch.where(torch.isnan(hi), float(g - 1), hi.clamp(0, g - 1))
+    return a.to(torch.int64), b.to(torch.int64)
+
+
+def cell_walk_mask(window: WindowGate, cells: CellIndex) -> torch.Tensor:
+    """[M,N] bool: the targets a row of kernel C's window walk visits (those
+    in the cells its window meets; never the NaN cell)."""
+    x0, x1 = _cell_span(window.row_u, window.row_rad, cells.inv_cell, cells.gx)
+    y0, y1 = _cell_span(window.row_v, window.row_rad, cells.inv_cell, cells.gy)
+    N = cells.order.shape[0]
+    G = cells.gx * cells.gy
+    cell = torch.empty(N, dtype=torch.int64, device=cells.order.device)
+    cell[cells.order.long()] = torch.repeat_interleave(
+        torch.arange(G + 1, device=cell.device), (cells.start[1:] - cells.start[:-1]).long())
+    cx, cy = cell % cells.gx, cell // cells.gx
+    return (cell[None, :] < G) & (cx[None, :] >= x0[:, None]) & (cx[None, :] <= x1[:, None]) \
+        & (cy[None, :] >= y0[:, None]) & (cy[None, :] <= y1[:, None])
+
+
+def pairs_visited(q_desc, t_desc, row_ok, col_ok, window: Optional[WindowGate] = None,
+                  orient=None, cells: Optional[CellIndex] = None) -> torch.Tensor:
+    """The (row, target) pairs a launch of kernel C visits, as a device
+    scalar: in window mode the cell walk of every row that passes row_ok;
+    in brute-force mode every target for such a row."""
+    if window is None or cells is None:
+        return row_ok.sum() * t_desc.shape[0]
+    return (cell_walk_mask(window, cells) & row_ok[:, None]).sum()
+
+
 def unpack_bits_pm1(desc: torch.Tensor) -> torch.Tensor:
     """[N,8] int32 descriptor words -> [N,256] f32 in {-1, +1}."""
     shifts = torch.arange(32, device=desc.device, dtype=torch.int32)
@@ -139,11 +267,15 @@ def gate_matrix(row_ok, col_ok, window: Optional[WindowGate],
 
 def hamming_top2_plain(q_desc, t_desc, row_ok, col_ok,
                        window: Optional[WindowGate] = None,
-                       orient: Union[OrientGate, AngleGate, None] = None):
-    """(best, best_idx, second, second_idx), each [M] int32."""
+                       orient: Union[OrientGate, AngleGate, None] = None,
+                       cells: Optional[CellIndex] = None):
+    """(best, best_idx, second, second_idx), each [M] int32. With a window
+    and `cells`, only the pairs of kernel C's cell walk are candidates."""
     dist = pairwise_hamming(q_desc, t_desc)
-    dist = torch.where(gate_matrix(row_ok, col_ok, window, orient), dist,
-                       torch.full_like(dist, _MASKED))
+    cand = gate_matrix(row_ok, col_ok, window, orient)
+    if window is not None and cells is not None:
+        cand = cand & cell_walk_mask(window, cells)
+    dist = torch.where(cand, dist, torch.full_like(dist, _MASKED))
     best, best_idx = dist.min(dim=1)
     masked = dist.scatter(1, best_idx[:, None], _MASKED)
     second, second_idx = masked.min(dim=1)
@@ -158,12 +290,21 @@ def _check(t, shape, dtype, name):
                          f"{dtype} tensor of shape {tuple(shape)}")
 
 
+def _aligned(t):
+    """t, or a copy of it where its data does not start on 16 bytes (kernel
+    C's brute-force mode copies target tiles 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def hamming_top2(q_desc, t_desc, row_ok, col_ok,
                  window: Optional[WindowGate] = None,
-                 orient: Union[OrientGate, AngleGate, None] = None):
-    """Kernel C on CUDA tensors, the plain version on CPU tensors."""
+                 orient: Union[OrientGate, AngleGate, None] = None,
+                 cells: Optional[CellIndex] = None):
+    """Kernel C on CUDA tensors, the plain version on CPU tensors. With a
+    window, `cells` is the CellIndex of the targets' (col_u, col_v) (one is
+    built over DEFAULT_EXTENT when it is None)."""
     if not q_desc.is_cuda:
-        return hamming_top2_plain(q_desc, t_desc, row_ok, col_ok, window, orient)
+        return hamming_top2_plain(q_desc, t_desc, row_ok, col_ok, window, orient, cells)
     M, N = q_desc.shape[0], t_desc.shape[0]
     if N >= 1 << 16:
         raise ValueError("hamming_top2: at most 65535 targets")
@@ -171,7 +312,7 @@ def hamming_top2(q_desc, t_desc, row_ok, col_ok,
     _check(t_desc, (N, 8), torch.int32, "t_desc")
     _check(row_ok, (M,), torch.bool, "row_ok")
     _check(col_ok, (N,), torch.bool, "col_ok")
-    w_ptrs = [0] * 10
+    w_ptrs, c_args = [0] * 10, [0, 0, 0.0, 0, 0]
     if window is not None:
         for i, (name, t) in enumerate(zip(WindowGate._fields, window)):
             n = M if name.startswith("row") else N
@@ -179,6 +320,20 @@ def hamming_top2(q_desc, t_desc, row_ok, col_ok,
                 else torch.float32
             _check(t, (n,), dt, name)
             w_ptrs[i] = t.data_ptr()
+        if cells is None:
+            cells = build_cell_index(window.col_u, window.col_v, *DEFAULT_EXTENT)
+        G = cells.gx * cells.gy
+        if G > MAX_CELLS:
+            raise ValueError(f"hamming_top2: at most {MAX_CELLS} cells")
+        _check(cells.start, (G + 2,), torch.int32, "cells.start")
+        _check(cells.order, (N,), torch.int32, "cells.order")
+        c_args = [cells.start.data_ptr(), cells.order.data_ptr(), float(cells.inv_cell),
+                  cells.gx, cells.gy]
+    else:
+        t_desc, col_ok = _aligned(t_desc), _aligned(col_ok)
+        if orient is not None:
+            orient = type(orient)(*[_aligned(f) if isinstance(f, torch.Tensor) else f
+                                    for f in orient])
     # orientation mode 1 (cosine) reads row_c, row_s, col_c, col_s; mode 2
     # (angle) reads the angles through the row_c and col_c slots
     o_ptrs, o_thr, o_mode = [0] * 4, 0.0, 0
@@ -197,10 +352,11 @@ def hamming_top2(q_desc, t_desc, row_ok, col_ok,
     lib = kbuild.load()
     kbuild.check(lib.svt_hamming_top2(
         M, N, q_desc.data_ptr(), t_desc.data_ptr(), row_ok.data_ptr(),
-        col_ok.data_ptr(), int(window is not None), *w_ptrs,
+        col_ok.data_ptr(), int(window is not None), *w_ptrs, *c_args,
         o_mode, *o_ptrs, o_thr, out.data_ptr(),
         kbuild.stream_ptr(q_desc.device)), "hamming_top2")
     hamming_top2.launches += 1
+    (window_walk if window is not None else brute_force).launches += 1
     return out[:, 0], out[:, 1], out[:, 2], out[:, 3]
 
 

@@ -18,11 +18,11 @@ def match_frame_and_landmarks(
     kp_uv, kp_level, kp_desc, kp_valid, kp_has_lm, kp_x_right,
     lm_desc, lm_reproj, lm_x_right, lm_pred_scale, lm_valid,
     *, scale_factors: torch.Tensor, num_levels: int, margin: float = 5.0,
-    lowe_ratio: float = 0.6,
+    lowe_ratio: float = 0.6, cells: H.CellIndex | None = None,
 ):
     """Search radius margin * scale_factor[pred_scale]; candidate levels
     [pred-1, pred+1]; ratio test only when best and second share a level;
-    accept at HAMMING_DIST_THR_HIGH."""
+    accept at HAMMING_DIST_THR_HIGH. `cells`: the keypoints' CellIndex."""
     N = kp_desc.shape[0]
     pred = lm_pred_scale.to(torch.int32)
     window = H.WindowGate(
@@ -33,7 +33,7 @@ def match_frame_and_landmarks(
         col_u=kp_uv[:, 0].contiguous(), col_v=kp_uv[:, 1].contiguous(),
         col_xr=kp_x_right, col_level=kp_level)
     best, best_idx, second, second_idx = H.hamming_top2(
-        lm_desc, kp_desc, lm_valid, kp_valid & ~kp_has_lm, window=window)
+        lm_desc, kp_desc, lm_valid, kp_valid & ~kp_has_lm, window=window, cells=cells)
     best_level = kp_level[best_idx.long()]
     second_level = kp_level[second_idx.long()]
     ratio_reject = (best_level == second_level) & (
@@ -47,10 +47,11 @@ def match_current_and_last_frames(
     kp_uv, kp_level, kp_desc, kp_valid, kp_angle, kp_x_right,
     last_desc, last_level, last_angle, lm_reproj, lm_x_right, lm_valid,
     *, scale_factors: torch.Tensor, num_levels: int, margin: float,
-    check_orientation: bool = True,
+    check_orientation: bool = True, cells: H.CellIndex | None = None,
 ):
     """Motion-model matcher: window margin * scale_factor[last level],
-    levels [last-1, last+1], orientation consistency."""
+    levels [last-1, last+1], orientation consistency. `cells`: the
+    keypoints' CellIndex."""
     N = kp_desc.shape[0]
     lvl = last_level.to(torch.int32)
     window = H.WindowGate(
@@ -60,7 +61,7 @@ def match_current_and_last_frames(
         col_u=kp_uv[:, 0].contiguous(), col_v=kp_uv[:, 1].contiguous(),
         col_xr=kp_x_right, col_level=kp_level)
     best, best_idx, _, _ = H.hamming_top2(
-        last_desc, kp_desc, lm_valid, kp_valid, window=window)
+        last_desc, kp_desc, lm_valid, kp_valid, window=window, cells=cells)
     accepted = (best <= H.HAMMING_DIST_THR_HIGH) & lm_valid
     if check_orientation:
         accepted = accepted & H.angle_diff_ok(last_angle, kp_angle[best_idx.long()])
@@ -73,15 +74,17 @@ def match_frame_and_keyframe(
     lm_desc, lm_reproj, lm_pred_scale, lm_angle, lm_valid,
     *, scale_factors: torch.Tensor, num_levels: int, margin: float,
     hamm_dist_thr: int = H.HAMMING_DIST_THR_LOW, check_orientation: bool = True,
-    top2=H.hamming_top2,
+    cells: H.CellIndex | None = None, top2=H.hamming_top2,
 ):
     """reference projection::match_frame_and_keyframe (projection.cc:202-300),
     the loop detector's rematch: a keyframe's landmarks, reprojected into the
     frame, against the frame's keypoints that hold no landmark yet: window
     margin * scale_factor[pred level], levels [pred-1, pred+1], the best
     distance only (no ratio test), orientation consistency on the winner.
-    `top2` is for checks only: kernel C's wrapper (the default, and what every
-    caller in the package uses), or its plain version to hold it against."""
+    `cells`: the keypoints' CellIndex. `top2` is for checks only: kernel C's
+    wrapper (the default, and what every caller in the package uses), or its
+    plain version to hold it against. `match_frame_and_keyframe.launches`
+    counts the launches of kernel C it makes."""
     N = kp_desc.shape[0]
     pred = lm_pred_scale.to(torch.int32)
     none = torch.full((lm_desc.shape[0],), -1.0, dtype=torch.float32, device=kp_uv.device)
@@ -93,9 +96,14 @@ def match_frame_and_keyframe(
         col_xr=torch.full((N,), -1.0, dtype=torch.float32, device=kp_uv.device),
         col_level=kp_level)
     best, best_idx, _, _ = top2(
-        lm_desc, kp_desc, lm_valid, kp_valid & ~kp_has_lm, window=window)
+        lm_desc, kp_desc, lm_valid, kp_valid & ~kp_has_lm, window=window, cells=cells)
+    if kp_desc.is_cuda and top2 is not H.hamming_top2_plain:
+        match_frame_and_keyframe.launches += 1
     accepted = (best <= hamm_dist_thr) & lm_valid
     if check_orientation:
         accepted = accepted & H.angle_diff_ok(lm_angle, kp_angle[best_idx.long()])
     accepted = H.resolve_duplicate_targets(best_idx, best, accepted, N)
     return best_idx, accepted, best
+
+
+match_frame_and_keyframe.launches = 0

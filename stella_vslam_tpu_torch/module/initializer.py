@@ -158,7 +158,8 @@ class Initializer:
             ref.feats.level, ref.feats.desc, ref.feats.angle, ref.feats.valid,
             torch.from_numpy(self.prev_matched).to(dev),
             cur_frm.undist_xy, cur_frm.feats.level, cur_frm.feats.desc,
-            cur_frm.feats.angle, cur_frm.feats.valid, margin=100.0, lowe_ratio=0.9)
+            cur_frm.feats.angle, cur_frm.feats.valid, margin=100.0, lowe_ratio=0.9,
+            image_size=(self.camera.params.width, self.camera.params.height))
         idx2_h = idx2.cpu().numpy().astype(np.int64)
         acc_h = accepted.cpu().numpy()
         num_matches = int(acc_h.sum())

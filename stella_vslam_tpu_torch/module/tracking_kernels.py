@@ -10,6 +10,12 @@ Port of stella_vslam_tpu/module/tracking_kernels.py `track_frame` (:164):
      match it against the still-unassociated slots (kernel C), final pose
      optimization (kernel D), one slot per landmark.
 
+Stages 2 and 1 do not depend on each other: both matchers and scatters run
+first, then one launch of D solves both poses (a batch of two), so a frame
+with the motion model launches D twice (stages 2 + 1, then 3). The window
+matchers of stages 1 and 3 share one cell index of the frame's keypoints
+(kernel C's counting sort, one launch a frame).
+
 The JAX version runs the fallback under lax.cond when stage 1 keeps fewer
 than `num_matches_thr` inliers; here both run and `torch.where` on a device
 predicate picks one, so a dispatch reads nothing back from the device.
@@ -31,6 +37,7 @@ import torch
 
 from stella_vslam_tpu_torch.camera import base as cam_base
 from stella_vslam_tpu_torch.kernels import build as kbuild
+from stella_vslam_tpu_torch.match import hamming as H
 from stella_vslam_tpu_torch.match import projection as proj_match
 from stella_vslam_tpu_torch.match import robust as robust_match
 from stella_vslam_tpu_torch.ops import lie
@@ -244,10 +251,15 @@ class TrackingKernels:
         self.margin_local = margin_local
         self.num_matches_thr = num_matches_thr
 
-    def _pose_opt(self, R0, t0, pos, uv, xr, level, has):
-        return pose_opt.optimize_pose(
+    def _pose_opt(self, problems, uv, xr, level):
+        """Kernel D on `problems`, [(R0, t0, pos, has)] over the frame's
+        slots (uv, xr and level shared), in one launch: a PoseOptResult
+        each."""
+        R0, t0, pos, has = (torch.stack(f) for f in zip(*problems))
+        res = pose_opt.optimize_pose_batch(
             R0, t0, pos, uv, xr, self.inv_sigma_sq[level.long()], has,
             self.cam_scalars, model=self.model)
+        return [pose_opt.PoseOptResult(*[f[b] for f in res]) for b in range(len(problems))]
 
     def track_frame(
         self,
@@ -277,14 +289,16 @@ class TrackingKernels:
         R_pred = R_tw @ R_last
         t_pred = R_tw @ t_last + t_tw
 
+        # the frame's keypoints by cell, shared by the window matchers of
+        # stages 1 and 3
+        cells = H.build_cell_index(cur_undist[:, 0].contiguous(), cur_undist[:, 1].contiguous(),
+                                   p.width, p.height)
+
         # ---------- stage 2: keyframe fallback (the lax.cond's other arm) ----
         b_idx, b_acc, _ = robust_match.brute_force_match(
             cur_angle, cur_desc, cur_valid, kf_angle, kf_desc, kf_assoc_valid,
             lowe_ratio=0.75)
         pos2, id2, has2 = scatter_to_current(b_idx, b_acc, kf_assoc_pos, kf_assoc_id, N)
-        res2 = self._pose_opt(R_last, t_last, pos2, cur_undist, cur_xr, cur_level, has2)
-        inl2 = res2.is_inlier & has2
-        id2 = torch.where(inl2, id2, torch.full_like(id2, -1))
 
         # ---------- stage 1: motion-model tracking ----------
         if use_motion:
@@ -295,11 +309,18 @@ class TrackingKernels:
                 last_desc, last_level, last_angle, uv_l, lm_xr,
                 last_assoc_valid & vis_l,
                 scale_factors=self.scale_factors, num_levels=L,
-                margin=self.margin_last)
+                margin=self.margin_last, cells=cells)
             pos1, id1, has1 = scatter_to_current(
                 m_idx, m_acc, last_assoc_pos, last_assoc_id, N)
-            res1 = self._pose_opt(R_pred, t_pred, pos1, cur_undist, cur_xr,
-                                  cur_level, has1)
+            # stages 2 and 1 do not depend on each other: one launch of D
+            res2, res1 = self._pose_opt(
+                [(R_last, t_last, pos2, has2), (R_pred, t_pred, pos1, has1)],
+                cur_undist, cur_xr, cur_level)
+        else:
+            (res2,) = self._pose_opt([(R_last, t_last, pos2, has2)], cur_undist, cur_xr, cur_level)
+        inl2 = res2.is_inlier & has2
+        id2 = torch.where(inl2, id2, torch.full_like(id2, -1))
+        if use_motion:
             inl1 = res1.is_inlier & has1
             n1 = inl1.sum()
             # the stage-1 result when it kept enough inliers and at least a
@@ -325,7 +346,7 @@ class TrackingKernels:
             cur_undist, cur_level, cur_desc, cur_valid, has_s1, cur_xr,
             tbl_desc, uv_t, lm_xr_t, pred_scale, observable,
             scale_factors=self.scale_factors, num_levels=L,
-            margin=margin_local, lowe_ratio=0.6)
+            margin=margin_local, lowe_ratio=0.6, cells=cells)
         pos_new, id_new, has_new = scatter_to_current(t_idx, t_acc, tbl_pos, tbl_ids, N)
         # a chained association keeps its slot; a fresh table match fills any
         # other slot (a duplicate landmark is resolved after the optimization)
@@ -333,8 +354,8 @@ class TrackingKernels:
         ids_all = torch.where(has_s1, id_s1, id_new)
         has_all = has_s1 | has_new
 
-        res3 = self._pose_opt(R_s1, t_s1, pos_all, cur_undist, cur_xr,
-                              cur_level, has_all)
+        (res3,) = self._pose_opt([(R_s1, t_s1, pos_all, has_all)], cur_undist, cur_xr,
+                                 cur_level)
         inlier = res3.is_inlier & has_all
         inlier, ids_all = dedup_by_id(
             inlier, ids_all,

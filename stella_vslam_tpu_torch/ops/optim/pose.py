@@ -6,9 +6,12 @@ evaluations of a 6-DoF pose, Huber weights (delta = sqrt(chi2)) in the first
 `num_robust_rounds` rounds, chi-square reclassification at 5.991 (2 dof) /
 7.815 (3 dof) after each round (reference pose_optimizer_g2o.cc:23-178).
 
-On CUDA tensors the whole schedule is ONE launch of kernel D
-(csrc/pose_lm.cu); on CPU tensors `optimize_pose_plain` runs the same
-schedule as batched torch ops. `model` names the residual
+`optimize_pose_batch` solves B problems on the same N slots in ONE launch
+of kernel D (csrc/pose_lm.cu) on CUDA tensors, one cluster of blocks a
+problem (the tracking cascade's keyframe fallback and motion model
+together); `optimize_pose` is its batch of one. On CPU tensors
+`optimize_pose_plain` runs the same schedule as batched torch ops, one
+problem after another. `model` names the residual
 (ops/optim/residuals.RESIDUAL_FNS): perspective or equirectangular.
 """
 from __future__ import annotations
@@ -91,40 +94,93 @@ def optimize_pose_plain(R_init, t_init, pos_w, obs_uv, obs_x_right,
     return PoseOptResult(R_cw=R, t_cw=t, is_inlier=inlier, chi_sq=chi2)
 
 
+# blocks of a cluster that solve one problem (1, 2, 4 or 8; 8 was the
+# fastest at N = 1199 and 2872 on an H100, PERF.md), and the slots a block
+# holds in shared memory: the kernel takes N <= MAX_SLOTS_PER_BLOCK * CLUSTER
+CLUSTER = 8
+MAX_SLOTS_PER_BLOCK = 6400
+_SLOT_INPUTS = (("pos_w", 3, torch.float32), ("obs_uv", 2, torch.float32),
+                ("obs_x_right", 0, torch.float32), ("inv_sigma_sq", 0, torch.float32),
+                ("valid", 0, torch.bool))
+
+
+def optimize_pose_batch_plain(R_init, t_init, pos_w, obs_uv, obs_x_right,
+                              inv_sigma_sq, valid, cam: CamScalars, **kw) -> PoseOptResult:
+    """`optimize_pose_plain` on each of the B problems in turn (the
+    arguments as `optimize_pose_batch` takes them)."""
+    slot = (pos_w, obs_uv, obs_x_right, inv_sigma_sq, valid)
+    batched = [a.dim() == (3 if w else 2) for a, (_, w, _) in zip(slot, _SLOT_INPUTS)]
+    res = [optimize_pose_plain(R_init[b], t_init[b],
+                               *[a[b] if bt else a for a, bt in zip(slot, batched)], cam, **kw)
+           for b in range(R_init.shape[0])]
+    return PoseOptResult(*[torch.stack(f) for f in zip(*res)])
+
+
+def optimize_pose_batch(R_init, t_init, pos_w, obs_uv, obs_x_right, inv_sigma_sq,
+                        valid, cam: CamScalars, *, model: str = "perspective",
+                        num_rounds: int = 4, num_robust_rounds: int = 2,
+                        num_each_iter: int = 10, cluster: int | None = None) -> PoseOptResult:
+    """B problems on the same N slots: R_init [B,3,3], t_init [B,3],
+    pos_w [B,N,3] and valid [B,N]; obs_uv [N,2] or [B,N,2], obs_x_right and
+    inv_sigma_sq [N] or [B,N] (a tensor without the leading B is shared).
+    Kernel D on CUDA tensors (one launch, `cluster` blocks a problem,
+    CLUSTER by default), the plain version on CPU tensors. Returns a
+    PoseOptResult with a leading B."""
+    kw = dict(model=model, num_rounds=num_rounds, num_robust_rounds=num_robust_rounds,
+              num_each_iter=num_each_iter)
+    if not pos_w.is_cuda:
+        return optimize_pose_batch_plain(R_init, t_init, pos_w, obs_uv, obs_x_right,
+                                         inv_sigma_sq, valid, cam, **kw)
+    kind = projection_family(model)
+    cl = CLUSTER if cluster is None else cluster
+    B, N = pos_w.shape[0], pos_w.shape[1]
+    dev = pos_w.device
+    if N > MAX_SLOTS_PER_BLOCK * cl:
+        raise ValueError(f"optimize_pose_batch: at most {MAX_SLOTS_PER_BLOCK * cl} slots "
+                         f"with {cl} blocks a problem (N={N})")
+    for t, shape in ((R_init, (B, 3, 3)), (t_init, (B, 3))):
+        if t.shape != shape or t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"optimize_pose_batch: expected float32 {shape} on {dev}")
+    ptrs = []
+    keep = []  # the contiguous copies, referenced until the launch is enqueued
+    for (name, w, dt), t in zip(_SLOT_INPUTS, (pos_w, obs_uv, obs_x_right, inv_sigma_sq,
+                                               valid)):
+        tail = (N, w) if w else (N,)
+        if t.dtype != dt or t.device != dev or tuple(t.shape) not in (tail, (B,) + tail):
+            raise ValueError(f"optimize_pose_batch: {name} must be {dt} {tail} or "
+                             f"{(B,) + tail} on {dev}")
+        t = t.contiguous()
+        keep.append(t)
+        ptrs += [t.data_ptr(), t[0].numel() if t.dim() > len(tail) else 0]
+    R0, t0 = R_init.contiguous(), t_init.contiguous()
+    R_out = torch.empty((B, 3, 3), dtype=torch.float32, device=dev)
+    t_out = torch.empty((B, 3), dtype=torch.float32, device=dev)
+    inlier = torch.empty((B, N), dtype=torch.bool, device=dev)
+    chi2 = torch.empty((B, N), dtype=torch.float32, device=dev)
+    lib = kbuild.load()
+    kbuild.check(lib.svt_pose_lm(
+        kind, cl, B, N, *ptrs, R0.data_ptr(), t0.data_ptr(), cam.fx, cam.fy, cam.cx, cam.cy,
+        cam.focal_x_baseline, cam.width, cam.height, num_rounds, num_robust_rounds,
+        num_each_iter, R_out.data_ptr(), t_out.data_ptr(), inlier.data_ptr(), chi2.data_ptr(),
+        kbuild.stream_ptr(dev)), "pose_lm")
+    optimize_pose_batch.launches += 1
+    return PoseOptResult(R_cw=R_out, t_cw=t_out, is_inlier=inlier, chi_sq=chi2)
+
+
+optimize_pose_batch.launches = 0
+
+
 def optimize_pose(R_init, t_init, pos_w, obs_uv, obs_x_right, inv_sigma_sq,
                   valid, cam: CamScalars, *, model: str = "perspective",
                   num_rounds: int = 4, num_robust_rounds: int = 2,
                   num_each_iter: int = 10) -> PoseOptResult:
-    """Kernel D on CUDA tensors, the plain version on CPU tensors."""
+    """One problem: `optimize_pose_batch`'s batch of one (kernel D on CUDA
+    tensors, the plain version on CPU tensors)."""
+    kw = dict(model=model, num_rounds=num_rounds, num_robust_rounds=num_robust_rounds,
+              num_each_iter=num_each_iter)
     if not pos_w.is_cuda:
-        return optimize_pose_plain(
-            R_init, t_init, pos_w, obs_uv, obs_x_right, inv_sigma_sq, valid,
-            cam, model=model, num_rounds=num_rounds,
-            num_robust_rounds=num_robust_rounds, num_each_iter=num_each_iter)
-    kind = projection_family(model)
-    N = pos_w.shape[0]
-    dev = pos_w.device
-    args = [(pos_w, (N, 3), torch.float32), (obs_uv, (N, 2), torch.float32),
-            (obs_x_right, (N,), torch.float32), (inv_sigma_sq, (N,), torch.float32),
-            (valid, (N,), torch.bool), (R_init, (3, 3), torch.float32),
-            (t_init, (3,), torch.float32)]
-    ins = []
-    for t, shape, dt in args:
-        if t.shape != shape or t.dtype != dt or t.device != dev:
-            raise ValueError(f"optimize_pose: expected {dt} {shape} on {dev}")
-        ins.append(t.contiguous())
-    R_out = torch.empty((3, 3), dtype=torch.float32, device=dev)
-    t_out = torch.empty(3, dtype=torch.float32, device=dev)
-    inlier = torch.empty(N, dtype=torch.bool, device=dev)
-    chi2 = torch.empty(N, dtype=torch.float32, device=dev)
-    lib = kbuild.load()
-    kbuild.check(lib.svt_pose_lm(
-        kind, N, *[t.data_ptr() for t in ins], cam.fx, cam.fy, cam.cx, cam.cy,
-        cam.focal_x_baseline, cam.width, cam.height, num_rounds, num_robust_rounds, num_each_iter,
-        R_out.data_ptr(), t_out.data_ptr(), inlier.data_ptr(), chi2.data_ptr(),
-        kbuild.stream_ptr(dev)), "pose_lm")
-    optimize_pose.launches += 1
-    return PoseOptResult(R_cw=R_out, t_cw=t_out, is_inlier=inlier, chi_sq=chi2)
-
-
-optimize_pose.launches = 0
+        return optimize_pose_plain(R_init, t_init, pos_w, obs_uv, obs_x_right, inv_sigma_sq,
+                                   valid, cam, **kw)
+    r = optimize_pose_batch(R_init[None], t_init[None], pos_w[None], obs_uv, obs_x_right,
+                            inv_sigma_sq, valid[None], cam, **kw)
+    return PoseOptResult(*[f[0] for f in r])

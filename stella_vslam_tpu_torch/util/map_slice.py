@@ -68,6 +68,7 @@ def kernel_wrappers() -> dict:
     from stella_vslam_tpu_torch.data import fbow_io
     from stella_vslam_tpu_torch.feature import orb_extractor as ox
     from stella_vslam_tpu_torch.match import hamming as H
+    from stella_vslam_tpu_torch.match import projection as proj
     from stella_vslam_tpu_torch.match import stereo
     from stella_vslam_tpu_torch.module import mapping_kernels as mk
     from stella_vslam_tpu_torch.module import tracking_kernels as tk
@@ -80,7 +81,10 @@ def kernel_wrappers() -> dict:
     return {"resize_level": ox.resize_level, "fast_nms": ox.fast_nms,
             "orb_describe": ox.orb_describe, "orb_describe_strips": ox.orb_describe_strips,
             "stereo_match": stereo.stereo_match,
-            "hamming_top2": H.hamming_top2, "pose_lm": pose_mod.optimize_pose,
+            "hamming_top2": H.hamming_top2, "hamming_top2_window": H.window_walk,
+            "hamming_top2_brute": H.brute_force, "cell_index": H.build_cell_index,
+            "match_frame_and_keyframe": proj.match_frame_and_keyframe,
+            "pose_lm": pose_mod.optimize_pose_batch,
             "ransac_two_view": ransac.minimal_hypotheses,
             "essential_5pt": essential_5pt.solve_sampled_sets,
             "ba_linearize_schur": ba.ba_linearize_schur,

@@ -1217,3 +1217,144 @@ def test_solve_kernels_repeat_under_concurrent_streams(dev):
     counts = chip_smoke.check_solves_under_load(dev, seconds=3.0)
     assert len(counts) == 5
     assert all(n > 0 and bad == 0 for n, bad in counts.values())
+
+
+@pytest.mark.parametrize("N", [0, 1, 37, 2872, 65535])
+def test_cell_index_kernel_equals_plain(dev, N):
+    """Kernel C's counting sort against its plain version (argsort, stable):
+    the same order and cell starts, with NaN coordinates and points far
+    outside the grid."""
+    g = torch.Generator().manual_seed(N)
+    u = (torch.rand(N, generator=g) * 4000 - 1500).to(dev)
+    v = (torch.rand(N, generator=g) * 3000 - 1000).to(dev)
+    u[torch.rand(N, generator=g).to(dev) < 0.02] = float("nan")
+    before = H.build_cell_index.launches
+    k = H.build_cell_index(u.contiguous(), v.contiguous(), 752.0, 480.0)
+    p = H.build_cell_index_plain(u, v, 752.0, 480.0)
+    assert H.build_cell_index.launches == before + 1
+    assert torch.equal(k.start, p.start) and torch.equal(k.order, p.order)
+
+
+@pytest.mark.parametrize("name", ["image", "fisheye_outside", "division_far_outside",
+                                  "nan_coordinates", "ties", "small_windows",
+                                  "equirect_640x320", "tiny_image"])
+def test_hamming_top2_cell_walk_equals_dense(dev, name):
+    """Kernel C's window walk on the cell index against the dense plain
+    version, exactly, on the CPU tests' cases (tests/test_torch_match_cells)
+    with and without the cosine gate."""
+    from test_torch_match_cells import CASES, _case, _orients
+
+    kw = dict(CASES[name])
+    args, win, size = _case(sorted(CASES).index(name) + 11, kw.pop("M"), kw.pop("N"), **kw)
+    d = lambda x: x.to(dev).contiguous()
+    args, win = tuple(d(a) for a in args), H.WindowGate(*[d(x) for x in win])
+    cells = H.build_cell_index(win.col_u, win.col_v, *size)
+    for orient in _orients(args, win, 5)[:2]:
+        if orient is not None:
+            orient = H.OrientGate(*[d(x) for x in orient[:4]], orient.cos_thr)
+        k = H.hamming_top2(*args, window=win, orient=orient, cells=cells)
+        p = H.hamming_top2_plain(*args, window=win, orient=orient)
+        for a, b in zip(k, p):
+            assert torch.equal(a, b), (name, orient is not None)
+
+
+def test_hamming_top2_edge_cases_equal_plain(dev):
+    """chip_smoke.py's edge cases at the slice's widths (keypoints far
+    outside the image, NaN coordinates, empty windows, all rows failing
+    row_ok, one target, ties; window walk and brute force): 0 rows
+    differing."""
+    import chip_smoke
+
+    assert chip_smoke.check_top2_cases(chip_smoke._cell_cases(dev), verbose=False) == 0
+
+
+@pytest.mark.parametrize("orient", [False, True])
+@pytest.mark.parametrize("M,N", [(1, 1), (17, 255), (2872, 2872), (100, 1000)])
+def test_hamming_top2_brute_force_equals_plain(dev, orient, M, N):
+    """Kernel C's brute-force mode (target tiles staged with cp.async)
+    against plain, on ragged tiles, with col_ok and the orientation fields
+    as views that do not start on 16 bytes (the wrapper copies them)."""
+    g = torch.Generator().manual_seed(M + N)
+    q = torch.randint(-2 ** 31, 2 ** 31, (M, 8), generator=g, dtype=torch.int64)
+    t = torch.randint(-2 ** 31, 2 ** 31, (N + 1, 8), generator=g, dtype=torch.int64)
+    t[1:1 + min(M, N)] = q[:min(M, N)] ^ (torch.randint(0, 2, (min(M, N), 8), generator=g) << 7)
+    q, t = q.to(torch.int32).to(dev), t.to(torch.int32).to(dev)[1:]
+    ok_all = (torch.rand(N + 1, generator=g) < 0.9).to(dev)
+    col_ok = ok_all[1:]  # starts 1 byte in
+    row_ok = (torch.rand(M, generator=g) < 0.8).to(dev)
+    kw = {}
+    if orient:
+        a_r = (torch.rand(M, generator=g) * 6.28).to(dev)
+        a_c = (torch.rand(N + 1, generator=g) * 6.28).to(dev)[1:]
+        kw["orient"] = H.OrientGate(torch.cos(a_r), torch.sin(a_r), torch.cos(a_c),
+                                    torch.sin(a_c), 0.8660254)
+    k = H.hamming_top2(q, t, row_ok, col_ok, **kw)
+    p = H.hamming_top2_plain(q, t, row_ok, col_ok, **kw)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("model", ["perspective", "equirectangular"])
+def test_pose_lm_batch_kernel_matches_plain(dev, cluster, model, shared):
+    """Kernel D on a batch of three problems in one launch against the
+    per-problem plain version: one set of points and observations from
+    three initial poses (the per-slot inputs shared, as the cascade shares
+    the frame's), or three problems with all inputs per problem; poses
+    within 1e-4, inlier flags on 99% of the slots; each problem's result
+    independent of the batch around it, bit for bit, and repeatable."""
+    from test_torch_pose_batch import _problem
+
+    rng = np.random.default_rng(cluster)
+    N = 1199 if model == "equirectangular" else 2872
+    probs = [_problem(rng, N, model) for _ in range(1 if shared else 3)]
+    cam = probs[0][0]
+    d = lambda x: x.to(dev).contiguous()
+    R0 = torch.stack([torch.eye(3)] * 3).to(dev)
+    t0 = torch.tensor([[0.02, -0.01, 0.03], [0.0, 0.01, -0.02], [0.01, 0.0, 0.0]], device=dev)
+    stack = lambda i: d(torch.stack([probs[b % len(probs)][i] for b in range(3)]))
+    pos, valid = stack(1), stack(5)
+    uv, xr, isg = (d(probs[0][i]) if shared else stack(i) for i in (2, 3, 4))
+    kw = dict(model=model, cluster=cluster)
+    before = pose_mod.optimize_pose_batch.launches
+    r = pose_mod.optimize_pose_batch(R0, t0, pos, uv, xr, isg, valid, cam, **kw)
+    assert pose_mod.optimize_pose_batch.launches == before + 1
+    for b in range(3):
+        slot = (uv, xr, isg) if shared else (uv[b], xr[b], isg[b])
+        q = pose_mod.optimize_pose_plain(R0[b], t0[b], pos[b], *slot, valid[b], cam,
+                                         model=model)
+        assert float((r.R_cw[b] - q.R_cw).abs().max()) < 1e-4
+        assert float((r.t_cw[b] - q.t_cw).abs().max()) < 1e-4
+        assert float((r.is_inlier[b] != q.is_inlier).float().mean()) <= 0.01
+        one = pose_mod.optimize_pose_batch(R0[b:b + 1], t0[b:b + 1], pos[b:b + 1], *slot,
+                                           valid[b:b + 1], cam, **kw)
+        for f, g in zip(one, r):
+            assert torch.equal(f[0], g[b])
+    again = pose_mod.optimize_pose_batch(R0, t0, pos, uv, xr, isg, valid, cam, **kw)
+    for f, g in zip(again, r):
+        assert torch.equal(f, g)
+
+
+def test_pose_lm_refuses_more_slots_than_a_cluster_holds(dev):
+    N = pose_mod.MAX_SLOTS_PER_BLOCK + 1
+    z = torch.zeros(1, N, 3, device=dev)
+    with pytest.raises(ValueError):
+        pose_mod.optimize_pose_batch(torch.eye(3, device=dev)[None], torch.zeros(1, 3, device=dev),
+                                     z, torch.zeros(N, 2, device=dev), torch.zeros(N, device=dev),
+                                     torch.ones(N, device=dev),
+                                     torch.ones(1, N, dtype=torch.bool, device=dev),
+                                     CamScalars(1, 1, 0, 0, 1, 1, 0), cluster=1)
+
+
+def test_cascade_kernels_repeat_under_concurrent_streams(dev):
+    """Kernels C (window walk, brute force) and D (a batch of two, one
+    equirectangular problem) launched from four host threads on their own
+    streams beside kernel F, as the tracking thread and the loop detector
+    share them: every launch gives the bits of its case on the idle card
+    (chip_smoke.check_cascade_under_load)."""
+    import chip_smoke
+
+    counts = chip_smoke.check_cascade_under_load(dev, seconds=3.0)
+    assert len(counts) == 4
+    assert all(n > 0 and bad == 0 for n, bad in counts.values())
