@@ -445,28 +445,9 @@ def check_kernels(dev, world):
                  n_valid * (31 * 31 * 2 + 39 * 39 * 49 * 2 + 256 * 2))))
 
     # ---- C: gated Hamming top-2 at the local-map shape (C=4096 x N) ----
-    g = torch.Generator(device="cpu").manual_seed(7)
     N, C = ex.num_slots, 4096
-    kp_desc = desc_k
-    kp_uv = torch.stack([px.float(), py.float()], -1) * ex._slot_scale[:, None]
-    src = torch.randint(0, N, (C,), generator=g).to(dev)
-    flips = torch.randint(0, 2, (C, 8), generator=g, dtype=torch.int32).to(dev) \
-        << torch.randint(0, 32, (C, 8), generator=g, dtype=torch.int32).to(dev)
-    q_desc = (kp_desc[src] ^ flips).contiguous()
-    level = ex._slot_level
-    kp_xr = torch.where(torch.rand(N, generator=g).to(dev) < 0.5,
-                        kp_uv[:, 0] - 30.0, torch.full((N,), -1.0, device=dev))
-    pred = level[src]
-    win = H.WindowGate(
-        row_u=(kp_uv[src, 0] + torch.randn(C, generator=g).to(dev) * 3).contiguous(),
-        row_v=(kp_uv[src, 1] + torch.randn(C, generator=g).to(dev) * 3).contiguous(),
-        row_xr=kp_xr[src].contiguous(),
-        row_rad=5.0 * torch.tensor(params.scale_factors, device=dev)[pred.long()],
-        row_lo=torch.clamp(pred - 1, min=0), row_hi=torch.clamp(pred + 1, max=7),
-        col_u=kp_uv[:, 0].contiguous(), col_v=kp_uv[:, 1].contiguous(),
-        col_xr=kp_xr.contiguous(), col_level=level)
-    row_ok = torch.rand(C, generator=g).to(dev) < 0.9
-    col_ok = valid & (torch.rand(N, generator=g).to(dev) < 0.8)
+    (q_desc, kp_desc, row_ok, col_ok), wkw = window_case(dev, ex, desc_k, px, py, valid, C)
+    win = wkw["window"]
     ori = H.OrientGate(torch.cos(ang_k), torch.sin(ang_k), torch.cos(ang_k),
                        torch.sin(ang_k), cos_30deg())
     cells = H.build_cell_index(win.col_u, win.col_v, 752.0, 480.0)
@@ -474,8 +455,7 @@ def check_kernels(dev, world):
     torch.cuda.synchronize()
     assert torch.equal(cells.start, ci_plain.start) and torch.equal(cells.order, ci_plain.order), \
         "kernel C's cell index disagrees with its plain version"
-    cases = [("phase 3 window 4096 x 2872", (q_desc, kp_desc, row_ok, col_ok),
-              dict(window=win, cells=cells)),
+    cases = [("phase 3 window 4096 x 2872", (q_desc, kp_desc, row_ok, col_ok), wkw),
              ("brute force 2872 x 2872 with the orientation gate",
               (kp_desc, kp_desc, valid, valid), dict(orient=ori)),
              ("brute force 2872 x 2872 without a gate", (kp_desc, kp_desc, valid, valid), {})]
@@ -495,7 +475,8 @@ def check_kernels(dev, world):
         name="hamming_top2", counter="hamming_top2_window", route="cuda",
         source="stella_vslam_tpu_torch/csrc/hamming_top2.cu",
         replaces="stella_vslam_tpu/match/hamming.py:31", max_abs_err=float(differ_c),
-        shape=f"{C}x{N} window (the local-map stage), cell walk", rows_differing=differ_c,
+        shape=f"{C}x{N} window (the local-map stage): the cell index's launch and the cell walk",
+        rows_differing=differ_c,
         pairs_visited=visited, dense_pairs=C * N,
         **_times(lambda: H.hamming_top2(*a, **kw)),
         plain_ms=_median_ms(lambda: H.hamming_top2_plain(*a, **kw)),
@@ -504,6 +485,7 @@ def check_kernels(dev, world):
                  8.0 * visited + 24.0 * n_cand)))
     a, kw = cases[1][1], cases[1][2]
     n_ok = int(valid.sum())
+    n_cand = float(H.gate_matrix(valid, valid, None, ori).sum())
     rows.append(dict(
         name="hamming_top2_brute", route="cuda",
         source="stella_vslam_tpu_torch/csrc/hamming_top2.cu",
@@ -512,9 +494,11 @@ def check_kernels(dev, world):
         **_times(lambda: H.hamming_top2(*a, **kw)),
         plain_ms=_median_ms(lambda: H.hamming_top2_plain(*a, **kw)),
         library_ms=None,
-        # per pair of valid rows and targets: the cosine gate (3) and, on
-        # every pair, XOR + popcount + add over 8 words and the top-2 (~28)
-        **_bound(N * (32 + 1 + 8) * 2 + N * 16, n_ok * N * 31.0)))
+        # this run's work: col_ok and the cosine gate (~4 operations) on
+        # each pair of a valid row and a target; XOR + popcount + add over 8
+        # words and the top-2 (~28) on each candidate
+        brute_candidates=int(n_cand),
+        **_bound(N * (32 + 1 + 8) * 2 + N * 16, 4.0 * n_ok * N + 28.0 * n_cand)))
     cu, cv = win.col_u, win.col_v
     rows.append(dict(
         name="cell_index", route="cuda", source="stella_vslam_tpu_torch/csrc/hamming_top2.cu",
@@ -570,21 +554,66 @@ def check_kernels(dev, world):
     return rows
 
 
-def _pose_problem(dev, rng, N, params):
-    """Phase 3's pose problem: N slots over a 752x480 stereo camera, 20% of
-    the observations moved 10-40 px, half the rows stereo, 5% invalid.
-    Returns optimize_pose's seven tensors, the true translation and the
-    camera."""
+def window_case(dev, ex, desc, px, py, valid, C: int = 4096, seed: int = 7):
+    """Phase 3's window call of kernel C (the local-map stage's shape): C
+    table rows, near-copies of the frame's descriptors reprojected within
+    ~3 px of their keypoint, against the frame's slots (`ex`'s, with the
+    descriptors and level-0 positions of kernels A and B). Returns
+    hamming_top2's (args, kw)."""
+    import torch
+
+    from stella_vslam_tpu_torch.match import hamming as H
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    N = ex.num_slots
+    kp_uv = torch.stack([px.float(), py.float()], -1) * ex._slot_scale[:, None]
+    src = torch.randint(0, N, (C,), generator=g).to(dev)
+    flips = torch.randint(0, 2, (C, 8), generator=g, dtype=torch.int32).to(dev) \
+        << torch.randint(0, 32, (C, 8), generator=g, dtype=torch.int32).to(dev)
+    q_desc = (desc[src] ^ flips).contiguous()
+    level = ex._slot_level
+    kp_xr = torch.where(torch.rand(N, generator=g).to(dev) < 0.5,
+                        kp_uv[:, 0] - 30.0, torch.full((N,), -1.0, device=dev))
+    pred = level[src]
+    win = H.WindowGate(
+        row_u=(kp_uv[src, 0] + torch.randn(C, generator=g).to(dev) * 3).contiguous(),
+        row_v=(kp_uv[src, 1] + torch.randn(C, generator=g).to(dev) * 3).contiguous(),
+        row_xr=kp_xr[src].contiguous(),
+        row_rad=5.0 * torch.tensor(ex.params.scale_factors, device=dev)[pred.long()],
+        row_lo=torch.clamp(pred - 1, min=0), row_hi=torch.clamp(pred + 1, max=7),
+        col_u=kp_uv[:, 0].contiguous(), col_v=kp_uv[:, 1].contiguous(),
+        col_xr=kp_xr.contiguous(), col_level=level, extent=(752.0, 480.0))
+    row_ok = torch.rand(C, generator=g).to(dev) < 0.9
+    col_ok = valid & (torch.rand(N, generator=g).to(dev) < 0.8)
+    return (q_desc, desc, row_ok, col_ok), dict(window=win)
+
+
+def _pose_problem(dev, rng, N, params, model: str = "perspective"):
+    """Phase 3's pose problem: N slots over a 752x480 stereo camera (half
+    the rows stereo), or with model "equirectangular" over a 640x320
+    sphere (no stereo rows); 20% of the observations moved 10-40 px, 5%
+    invalid. Returns optimize_pose's seven tensors, the true translation
+    and the camera."""
     import torch
 
     from stella_vslam_tpu_torch.ops.optim.residuals import CamScalars
 
-    cam = CamScalars(fx=458.0, fy=458.0, cx=376.0, cy=240.0, width=752.0,
-                     height=480.0, focal_x_baseline=float(np.float32(458.0 * 0.12)))
-    uv_true = np.stack([rng.uniform(10, 742, N), rng.uniform(10, 470, N)], -1)
-    z = rng.uniform(2.0, 6.0, N)
-    pc = np.stack([(uv_true[:, 0] - cam.cx) * z / cam.fx,
-                   (uv_true[:, 1] - cam.cy) * z / cam.fy, z], -1)
+    if model == "perspective":
+        cam = CamScalars(fx=458.0, fy=458.0, cx=376.0, cy=240.0, width=752.0,
+                         height=480.0, focal_x_baseline=float(np.float32(458.0 * 0.12)))
+        uv_true = np.stack([rng.uniform(10, 742, N), rng.uniform(10, 470, N)], -1)
+        z = rng.uniform(2.0, 6.0, N)
+        pc = np.stack([(uv_true[:, 0] - cam.cx) * z / cam.fx,
+                       (uv_true[:, 1] - cam.cy) * z / cam.fy, z], -1)
+    else:
+        cam = CamScalars(fx=1.0, fy=1.0, cx=320.0, cy=160.0, width=640.0, height=320.0,
+                         focal_x_baseline=0.0)
+        d = rng.normal(size=(N, 3))
+        pc = d / np.linalg.norm(d, axis=1, keepdims=True) * rng.uniform(2.0, 6.0, (N, 1))
+        lon = np.arctan2(pc[:, 0], pc[:, 2])
+        lat = np.arcsin(pc[:, 1] / np.linalg.norm(pc, axis=1))
+        uv_true = np.stack([cam.cx + lon * cam.width / (2 * np.pi),
+                            cam.cy + lat * cam.height / np.pi], -1)
     ang = 0.05
     R_true = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
                        [-np.sin(ang), 0, np.cos(ang)]])
@@ -593,8 +622,8 @@ def _pose_problem(dev, rng, N, params):
     obs = uv_true + rng.normal(0, 1.0, (N, 2))
     out = rng.random(N) < 0.2
     obs[out] += rng.uniform(-40, 40, (int(out.sum()), 2))
-    stereo = rng.random(N) < 0.5
-    xr = np.where(stereo, obs[:, 0] - cam.focal_x_baseline / z, -1.0)
+    xr = (np.where(rng.random(N) < 0.5, obs[:, 0] - cam.focal_x_baseline / z, -1.0)
+          if model == "perspective" else np.full(N, -1.0))
     lvl = rng.integers(0, 8, N)
     inv_sig = np.asarray(params.inv_level_sigma_sq)[lvl]
     f32 = lambda a_: torch.as_tensor(np.asarray(a_, np.float32), device=dev)
@@ -641,13 +670,12 @@ def _cell_cases(dev, seed: int = 21):
             row_u=f32(ru), row_v=f32(rv), row_xr=f32(np.where(rng.random(M) < 0.5, ru - 30, -1)),
             row_rad=f32(rad_r), row_lo=i32(lo), row_hi=i32(lo + 2), col_u=f32(cu),
             col_v=f32(cv), col_xr=f32(np.where(rng.random(N) < 0.5, cu - 30, -1)),
-            col_level=i32(rng.integers(0, 8, N)))
+            col_level=i32(rng.integers(0, 8, N)), extent=(752.0, 480.0))
         args = (torch.as_tensor(q.astype(np.int32), device=dev),
                 torch.as_tensor(t.astype(np.int32), device=dev),
                 torch.as_tensor(rng.random(M) < ok_rate, device=dev),
                 torch.as_tensor(rng.random(N) < 0.9, device=dev))
-        out.append((label, args, dict(window=win, cells=H.build_cell_index(
-            win.col_u, win.col_v, 752.0, 480.0))))
+        out.append((label, args, dict(window=win)))
 
     case("fisheye keypoints to 5x the image", 2872, 2872, spread=5.0)
     case("division keypoints to 40x the image", 1000, 2872, spread=40.0, rad=(5.0, 400.0))
@@ -673,7 +701,7 @@ def check_top2_cases(cases, verbose=True) -> int:
     total = 0
     for label, a, kw in cases:
         k = H.hamming_top2(*a, **kw)
-        p = H.hamming_top2_plain(*a, **{k_: v for k_, v in kw.items() if k_ != "cells"})
+        p = H.hamming_top2_plain(*a, **kw)
         differ = torch.zeros(a[0].shape[0], dtype=torch.bool, device=a[0].device)
         for u, v in zip(k, p):
             differ |= u != v
@@ -825,7 +853,7 @@ def check_init_kernels(dev, world):
     share = float(differ.float().mean())
     idx_k, acc_k, _ = area.match_in_consistent_area(
         f1.level, f1.desc, f1.angle, f1.valid, f1.xy, f2.xy, f2.level, f2.desc,
-        f2.angle, f2.valid)
+        f2.angle, f2.valid, image_size=(752.0, 480.0))
     torch.cuda.synchronize()
     print(f"kernel C angle gate: {N}x{N}, rows differing from plain {share:.6f}; "
           f"area matcher accepted {int(acc_k.sum())} matches")
@@ -1922,7 +1950,7 @@ def check_loop_kernels(dev, slam, rec):
         mask = lambda p: torch.as_tensor(rng.random(N) < p, device=dev)
         return ((uv, lvl, rand, mask(0.95), ang, mask(0.3), (rand[perm] ^ flips).contiguous(),
                  reproj, lvl[perm].contiguous(), (ang[perm] + 0.1).contiguous(), mask(0.8)),
-                dict(scale_factors=sf, num_levels=8, margin=margin))
+                dict(scale_factors=sf, num_levels=8, image_size=(752.0, 480.0), margin=margin))
 
     cases = [("synthetic margin 10", *kf_match_inputs(10.0)),
              ("synthetic margin 3", *kf_match_inputs(3.0))]
@@ -1942,25 +1970,32 @@ def check_loop_kernels(dev, slam, rec):
     label, ca, ckw = cases[-1]
     ca = tuple(x.contiguous() for x in ca)
     M_rows = ca[6].shape[0]
-    # this run's work, as phase 3 counts kernel C's: the gates per valid
-    # pair, XOR + popcount + add over 8 words per pair inside the window
-    pred = ca[8].long()
-    radc = ckw["margin"] * ckw["scale_factors"][pred]
-    n_pairs = int(ca[10].sum()) * int((ca[3] & ~ca[5]).sum())
-    win = ((ca[0][None, :, 0] - ca[7][:, None, 0]).abs() <= radc[:, None]) \
-        & ((ca[0][None, :, 1] - ca[7][:, None, 1]).abs() <= radc[:, None])
-    n_win = int((win & ca[10][:, None] & (ca[3] & ~ca[5])[None, :]).sum())
+    # this run's work, as phase 3 counts kernel C's: the gates on every pair
+    # the cell walk visits (~8 operations), XOR + popcount + add over 8
+    # words and the top-2 on each candidate (~24), read off the matcher's
+    # own kernel C call
+    seen = []
+
+    def top2_seen(*a_, **kw_):
+        seen.append((a_, kw_))
+        return H.hamming_top2(*a_, **kw_)
+
+    proj.match_frame_and_keyframe(*ca, **ckw, top2=top2_seen)
+    (ta, tkw), = seen
+    visited = int(H.pairs_visited(*ta, window=tkw["window"]))
+    n_cand = int(H.gate_matrix(ta[2], ta[3], tkw["window"], None).sum())
     rows.append(dict(
         name="hamming_top2_keyframe", counter="match_frame_and_keyframe", route="cuda",
         source="stella_vslam_tpu_torch/csrc/hamming_top2.cu",
         replaces="stella_vslam_tpu/match/projection.py:160", max_abs_err=float(differ_c),
-        shape=f"{M_rows}x{ca[2].shape[0]} {label}",
+        shape=f"{M_rows}x{ca[2].shape[0]} {label}", pairs_visited=visited,
+        dense_pairs=M_rows * ca[2].shape[0],
         **_times(lambda: proj.match_frame_and_keyframe(*ca, **ckw)),
         plain_ms=_median_ms(lambda: proj.match_frame_and_keyframe(
             *ca, **ckw, top2=H.hamming_top2_plain), reps=5, warmup=1),
         library_ms=None,
         **_bound(M_rows * 57.0 + ca[2].shape[0] * 49.0 + M_rows * 16.0,
-                 4.0 * n_pairs + 30.0 * n_win)))
+                 8.0 * visited + 24.0 * n_cand)))
 
     # ---- O: Sim3 refinement ----
     ta = _transform_problem(dev, N, 42)
@@ -2369,10 +2404,10 @@ def check_cascade_under_load(dev, seconds: float = 6.0) -> dict:
     """Kernels C and D launched from four host threads, each on its own
     stream, while a fifth keeps the card busy with kernel F: the threaded
     System's tracking thread and its loop detector share both (and D's
-    shared-memory limit). Cases: C's window walk at the local-map shape
-    with its cell index, C's brute force at 2872 x 2872, D on a batch of two
-    2872-slot problems (the cascade's first launch) and on one 1199-slot
-    equirectangular problem. Every launch must give the bits its case gave
+    shared-memory limit). Cases: C's window call at 2872 x 2872 (keypoints to
+    5x the image; the call builds its cell index and walks it), C's brute
+    force at 2872 x 2872, D on a batch of two 2872-slot problems (the
+    cascade's first launch) and on one 1199-slot equirectangular problem. Every launch must give the bits its case gave
     on the idle card. Returns {case: [launches, launches whose bits
     differ]}."""
     import torch
@@ -2380,7 +2415,6 @@ def check_cascade_under_load(dev, seconds: float = 6.0) -> dict:
     from stella_vslam_tpu_torch.feature.orb_params import OrbParams
     from stella_vslam_tpu_torch.match import hamming as H
     from stella_vslam_tpu_torch.ops.optim import pose as pose_mod
-    from stella_vslam_tpu_torch.ops.optim.residuals import CamScalars
 
     cases = {}
     cc = _cell_cases(dev, seed=23)
@@ -2393,10 +2427,9 @@ def check_cascade_under_load(dev, seconds: float = 6.0) -> dict:
     flat = lambda r: torch.cat([r.R_cw.flatten(), r.t_cw.flatten(), r.chi_sq.flatten(),
                                 r.is_inlier.float().flatten()])
     cases["D batch of 2, N=2872"] = lambda: flat(pose_mod.optimize_pose_batch(*batch, probs[0][-1]))
-    eq = _pose_problem(dev, rng, 1199, params)
-    ecam = CamScalars(1.0, 1.0, 376.0, 240.0, 752.0, 480.0, 0.0)
+    eq = _pose_problem(dev, rng, 1199, params, "equirectangular")
     cases["D equirect, N=1199"] = lambda: flat(pose_mod.optimize_pose(
-        *eq[:4], torch.full_like(eq[4], -1.0), *eq[5:7], ecam, model="equirectangular"))
+        *eq[:7], eq[-1], model="equirectangular"))
     counts = _under_load(dev, cases, seconds)
     print(f"kernels C and D from {len(cases)} threads on their own streams beside kernel F, "
           "[launches, launches whose bits differ from the idle card's]: " + json.dumps(counts))
@@ -3521,7 +3554,8 @@ def check_equirect_shapes(dev, slam_like, calls):
 
     # ---- C, angle-gate mode: the init pair's area match ----
     a_args, a_kw = calls["area"][-1]
-    cargs, ckw = area.top2_args(*a_args, margin=a_kw.get("margin", 100.0))
+    cargs, ckw = area.top2_args(*a_args, margin=a_kw.get("margin", 100.0),
+                                image_size=a_kw["image_size"])
     k, p = H.hamming_top2(*cargs, **ckw), H.hamming_top2_plain(*cargs, **ckw)
     differ = torch.zeros_like(k[0], dtype=torch.bool)
     for u, v in zip(k, p):
@@ -3529,6 +3563,7 @@ def check_equirect_shapes(dev, slam_like, calls):
     share_c = float(differ.float().mean())
     Mc, Nc = cargs[0].shape[0], cargs[1].shape[0]
     n_cand = float(H.gate_matrix(cargs[2], cargs[3], ckw["window"], ckw["orient"]).sum())
+    visited = int(H.pairs_visited(*cargs, **ckw))
     torch.cuda.synchronize()
     print(f"kernel C angle gate on the equirect leg's init pair: {Mc}x{Nc}, "
           f"{int(cargs[2].sum())} level-0 rows, {int(n_cand)} candidate pairs, rows differing "
@@ -3538,10 +3573,12 @@ def check_equirect_shapes(dev, slam_like, calls):
         name="hamming_top2_equirect_leg", route="cuda",
         source="stella_vslam_tpu_torch/csrc/hamming_top2.cu",
         replaces="stella_vslam_tpu/match/area.py:19", max_abs_err=share_c,
-        shape=f"{Mc}x{Nc}, window and angle gate",
-        **_times(lambda: H.hamming_top2(*cargs, **ckw)),
+        shape=f"{Mc}x{Nc}, window and angle gate", pairs_visited=visited,
+        dense_pairs=Mc * Nc, **_times(lambda: H.hamming_top2(*cargs, **ckw)),
         plain_ms=_median_ms(lambda: H.hamming_top2_plain(*cargs, **ckw)), library_ms=None,
-        **_bound(Mc * (32 + 24 + 16) + Nc * (32 + 17), 8.0 * Mc * Nc + 24.0 * n_cand)))
+        # this run's work, as phase 3 counts it: the gates on every pair the
+        # cell walk visits, XOR + popcount and the top-2 on each candidate
+        **_bound(Mc * (32 + 24 + 16) + Nc * (32 + 17), 8.0 * visited + 24.0 * n_cand)))
 
     # ---- J: the leg's largest triangulation ----
     tri, _, _ = largest_inputs(calls)

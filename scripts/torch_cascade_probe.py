@@ -5,23 +5,23 @@ Hamming top-2) on the card, at the shapes the cascade gives them.
     python scripts/torch_cascade_probe.py [--tree DIR] [--frames 200]
 
 `--tree` names the checkout whose `stella_vslam_tpu_torch` is measured (by
-default this script's own), so that two trees can be compared in one call:
-run it on each, in turns. Prints, on one GPU, device time per launch (CUDA
-events around 50 back-to-back launches, chip_smoke._device_ms) beside the
-one-call time (events around one synchronised call, the host's launch
-included, chip_smoke._median_ms):
-  - D at N = 2872 (perspective, the stereo rows of chip_smoke.py's phase 3
-    problem) and at N = 1199 (equirectangular, the 640x320 leg's slots),
-    one problem a launch; where the tree has `optimize_pose_batch`, also
-    the cascade's batch of two problems in one launch;
-  - C at phase 3's window shape (4096 table rows x 2872 slots), in
-    brute-force mode with the orientation gate (2872 x 2872, the keyframe
-    fallback), and on calls of the threaded slice's first `--frames`
-    frames, recorded with their real gates (stage 1: the motion model's
-    window; stage 2: brute force; stage 3: the local map's window over the
+default this script's own); the problems come from this checkout's
+chip_smoke.py, so the tree must take the same arguments. Run it on two
+trees in turns in one call to compare them. Prints, on one GPU, device time
+per launch (CUDA events around 50 back-to-back launches,
+chip_smoke._device_ms) beside the one-call time (events around one
+synchronised call, the host's launch included, chip_smoke._median_ms):
+  - D on chip_smoke._pose_problem at N = 2872 (perspective) and N = 1199
+    (equirectangular), one problem a launch and the cascade's batch of two;
+  - C's cell index of a frame's 2872 slots; C at phase 3's window shape
+    (chip_smoke.window_case: 4096 table rows x 2872 slots, the index's
+    launch and the walk), in brute-force mode with the orientation gate
+    (2872 x 2872, the keyframe fallback), and on calls of the threaded
+    slice's first `--frames` frames, recorded with their real gates by
+    chip_smoke.record_match_inputs (stage 1: the motion model's window;
+    stage 2: brute force; stage 3: the local map's window over the
     4096-row table), with the rows that pass row_ok, the dense pair count
-    M x N and the pairs a window-mode launch visits (M x N for a dense
-    walk).
+    M x N and the pairs the launch visits.
 Each line carries the card's name and power limit. Exits 1 without a GPU.
 """
 import argparse
@@ -35,53 +35,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def pose_problem(dev, N, seed, model="perspective"):
-    """chip_smoke.py's phase 3 pose problem (perspective: half the rows
-    stereo) or its equirectangular twin on a 640x320 sphere: 20% of the
-    observations moved 10-40 px, 5% invalid. Returns optimize_pose's
-    positional arguments."""
-    import torch
-
-    from stella_vslam_tpu_torch.feature.orb_params import OrbParams
-    from stella_vslam_tpu_torch.ops.optim.residuals import CamScalars
-
-    rng = np.random.default_rng(seed)
-    ang = 0.05
-    R_true = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
-                       [-np.sin(ang), 0, np.cos(ang)]])
-    t_true = np.array([0.1, -0.05, 0.2])
-    if model == "perspective":
-        cam = CamScalars(fx=458.0, fy=458.0, cx=376.0, cy=240.0, width=752.0, height=480.0,
-                         focal_x_baseline=float(np.float32(458.0 * 0.12)))
-        uv = np.stack([rng.uniform(10, 742, N), rng.uniform(10, 470, N)], -1)
-        z = rng.uniform(2.0, 6.0, N)
-        pc = np.stack([(uv[:, 0] - cam.cx) * z / cam.fx, (uv[:, 1] - cam.cy) * z / cam.fy, z], -1)
-        stereo = rng.random(N) < 0.5
-        xr_of = lambda obs: np.where(stereo, obs[:, 0] - cam.focal_x_baseline / z, -1.0)
-    else:
-        cam = CamScalars(fx=1.0, fy=1.0, cx=320.0, cy=160.0, width=640.0, height=320.0,
-                         focal_x_baseline=0.0)
-        d = rng.normal(size=(N, 3))
-        pc = d / np.linalg.norm(d, axis=1, keepdims=True) * rng.uniform(2.0, 6.0, (N, 1))
-        lon = np.arctan2(pc[:, 0], pc[:, 2])
-        lat = np.arcsin(pc[:, 1] / np.linalg.norm(pc, axis=1))
-        uv = np.stack([cam.cx + lon * 640.0 / (2 * np.pi), cam.cy + lat * 320.0 / np.pi], -1)
-        xr_of = lambda obs: np.full(N, -1.0)
-    pos_w = (pc - t_true) @ R_true
-    obs = uv + rng.normal(0, 1.0, (N, 2))
-    out = rng.random(N) < 0.2
-    obs[out] += rng.uniform(-40, 40, (int(out.sum()), 2))
-    inv_sig = np.asarray(OrbParams(num_levels=8).inv_level_sigma_sq)[rng.integers(0, 8, N)]
-    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    tilt = np.array([[1, 0, 0], [0, np.cos(0.02), -np.sin(0.02)], [0, np.sin(0.02), np.cos(0.02)]])
-    return (f32(R_true @ tilt), f32(t_true + 0.03), f32(pos_w), f32(obs), f32(xr_of(obs)),
-            f32(inv_sig), torch.as_tensor(rng.random(N) < 0.95, device=dev), cam)
-
-
 def frame_features(dev):
     """One 752x480 frame of the bench's world through kernels A and B:
-    (descriptors [N,8] i32, level-0 positions [N,2], levels [N] i32,
-    angles [N], valid [N], scale factors)."""
+    (extractor, slot x, slot y, valid, angles, descriptors)."""
     import torch
 
     from stella_vslam_tpu_torch.feature import orb_extractor as ox
@@ -99,69 +55,7 @@ def frame_features(dev):
     pyr = torch.cat([l.reshape(-1) for l in levels])
     ang, desc = ox.orb_describe(pyr, ex._slot_base, ex._slot_H, ex._slot_W, px.to(torch.int32),
                                 py.to(torch.int32), valid, ex._tables)
-    uv = torch.stack([px.float(), py.float()], -1) * ex._slot_scale[:, None]
-    sf = torch.tensor(params.scale_factors, device=dev)
-    return desc, uv, ex._slot_level, ang, valid, sf
-
-
-def window_case(dev, feats, C=4096, seed=7):
-    """chip_smoke.py's phase 3 window case: C table rows, near-copies of
-    the frame's descriptors, reprojected within ~3 px of their keypoint."""
-    import torch
-
-    from stella_vslam_tpu_torch.match import hamming as H
-
-    desc, uv, level, _, valid, sf = feats
-    N = desc.shape[0]
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    src = torch.randint(0, N, (C,), generator=g).to(dev)
-    flips = torch.randint(0, 2, (C, 8), generator=g, dtype=torch.int32).to(dev) \
-        << torch.randint(0, 32, (C, 8), generator=g, dtype=torch.int32).to(dev)
-    xr = torch.where(torch.rand(N, generator=g).to(dev) < 0.5, uv[:, 0] - 30.0,
-                     torch.full((N,), -1.0, device=dev))
-    pred = level[src]
-    win = H.WindowGate(
-        row_u=(uv[src, 0] + torch.randn(C, generator=g).to(dev) * 3).contiguous(),
-        row_v=(uv[src, 1] + torch.randn(C, generator=g).to(dev) * 3).contiguous(),
-        row_xr=xr[src].contiguous(), row_rad=5.0 * sf[pred.long()],
-        row_lo=torch.clamp(pred - 1, min=0), row_hi=torch.clamp(pred + 1, max=7),
-        col_u=uv[:, 0].contiguous(), col_v=uv[:, 1].contiguous(), col_xr=xr.contiguous(),
-        col_level=level)
-    row_ok = torch.rand(C, generator=g).to(dev) < 0.9
-    col_ok = valid & (torch.rand(N, generator=g).to(dev) < 0.8)
-    q = (desc[src] ^ flips).contiguous()
-    return (q, desc, row_ok, col_ok), dict(window=win)
-
-
-def record_track_calls(dev, frames, every=7):
-    """Kernel C's calls on the threaded slice's first `frames` frames, every
-    `every`-th of each stage, kept by reference: {stage: [(args, kw)]}."""
-    from stella_vslam_tpu_torch.match import hamming as H
-    from stella_vslam_tpu_torch.util import threaded_slice
-    from stella_vslam_tpu_torch.util.loop_slice import circuit
-    from stella_vslam_tpu_torch.util.rgbd_slice import bench_world
-
-    calls = {"stage1": [], "stage2": [], "stage3": [], "area": []}
-    seen = dict.fromkeys(calls, 0)
-    orig = H.hamming_top2
-
-    def rec(*args, **kw):
-        stage = ("stage2" if kw.get("window") is None
-                 else "area" if isinstance(kw.get("orient"), H.AngleGate)
-                 else "stage3" if args[0].shape[0] == 4096 else "stage1")
-        if seen[stage] % every == every - 1:
-            calls[stage].append((args, kw))
-        seen[stage] += 1
-        return orig(*args, **kw)
-
-    rec.launches = 0
-    world = bench_world()
-    H.hamming_top2 = rec
-    try:
-        threaded_slice.run_slice(dev, world, gt_xy=circuit()[:frames])
-    finally:
-        H.hamming_top2 = orig
-    return calls
+    return ex, px, py, valid, ang, desc
 
 
 def main() -> int:
@@ -177,9 +71,13 @@ def main() -> int:
         print("torch_cascade_probe: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke as cs
+    from stella_vslam_tpu_torch.feature.orb_params import OrbParams
     from stella_vslam_tpu_torch.kernels import build as kb
     from stella_vslam_tpu_torch.match import hamming as H
     from stella_vslam_tpu_torch.ops.optim import pose as pose_mod
+    from stella_vslam_tpu_torch.util import threaded_slice
+    from stella_vslam_tpu_torch.util.loop_slice import circuit
+    from stella_vslam_tpu_torch.util.rgbd_slice import bench_world
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
@@ -191,74 +89,39 @@ def main() -> int:
     def times(fn):
         return dict(device_ms=cs._device_ms(fn), one_call_ms=cs._median_ms(fn))
 
-    for label, N, model in (("perspective", 2872, "perspective"),
-                            ("equirect", 1199, "equirectangular")):
-        args = pose_problem(dev, N, 3, model)
-        one = lambda: pose_mod.optimize_pose(*args, model=model)
-        out = dict(one_problem=times(one))
-        if hasattr(pose_mod, "optimize_pose_batch"):
-            args2 = pose_problem(dev, N, 4, model)
-            batch = [torch.stack([x, y]) for x, y in zip(args[:7], args2[:7])]
-            two = lambda: pose_mod.optimize_pose_batch(*batch, args[7], model=model)
-            out["batch_of_two"] = times(two)
-            plain = pose_mod.optimize_pose_plain(*args, model=model)
-            for cl in (1, 2, 4, 8):
-                one_cl = lambda: pose_mod.optimize_pose_batch(
-                    *[a[None] if i in (0, 1, 2, 6) else a for i, a in enumerate(args[:7])],
-                    args[7], model=model, cluster=cl)
-                r = one_cl()
-                err = max(float((r.R_cw[0] - plain.R_cw).abs().max()),
-                          float((r.t_cw[0] - plain.t_cw).abs().max()))
-                agree = float((r.is_inlier[0] == plain.is_inlier).float().mean())
-                out[f"cluster_{cl}"] = dict(times(one_cl), pose_diff_vs_plain=err,
-                                            inlier_agreement=agree)
-        print(f"tree {tree}: D {label} N={N}: {json.dumps(out)} [{card}]", flush=True)
+    params = OrbParams(num_levels=8)
+    for N, model in ((2872, "perspective"), (1199, "equirectangular")):
+        rng = np.random.default_rng(3)
+        probs = [cs._pose_problem(dev, rng, N, params, model) for _ in range(2)]
+        one, cam = probs[0][:7], probs[0][-1]
+        batch = [torch.stack([p[i] for p in probs]) for i in range(7)]
+        out = dict(one_problem=times(lambda: pose_mod.optimize_pose(*one, cam, model=model)),
+                   batch_of_two=times(lambda: pose_mod.optimize_pose_batch(*batch, cam,
+                                                                           model=model)))
+        print(f"tree {tree}: D {model} N={N}: {json.dumps(out)} [{card}]", flush=True)
 
-    feats = frame_features(dev)
-    cases = [("phase 3 window 4096 x 2872", *window_case(dev, feats))]
-    desc, uv, _, ang, valid, _ = feats
-    if hasattr(H, "build_cell_index"):
-        u, v = uv[:, 0].contiguous(), uv[:, 1].contiguous()
-        out = times(lambda: H.build_cell_index(u, v, 752, 480))
-        print(f"tree {tree}: C's cell index of 2872 slots: {json.dumps(out)} [{card}]",
-              flush=True)
-        cases[0][2]["cells"] = H.build_cell_index(u, v, 752, 480)
+    ex, px, py, valid, ang, desc = frame_features(dev)
+    args, kw = cs.window_case(dev, ex, desc, px, py, valid)
+    u, v = kw["window"].col_u, kw["window"].col_v
+    out = times(lambda: H.build_cell_index(u, v, 752, 480))
+    print(f"tree {tree}: C's cell index of {u.shape[0]} slots: {json.dumps(out)} [{card}]",
+          flush=True)
     ori = H.OrientGate(torch.cos(ang), torch.sin(ang), torch.cos(ang), torch.sin(ang),
                        float(np.cos(np.float32(np.deg2rad(30.0)))))
-    cases.append(("brute force 2872 x 2872", (desc, desc, valid, valid), dict(orient=ori)))
-    calls = record_track_calls(dev, a.frames)
+    cases = [("phase 3 window 4096 x 2872", args, kw),
+             ("brute force 2872 x 2872", (desc, desc, valid, valid), dict(orient=ori))]
+    calls, undo = cs.record_match_inputs(sample=7)
+    try:
+        threaded_slice.run_slice(dev, bench_world(), gt_xy=circuit()[:a.frames])
+    finally:
+        undo()
     for stage, recs in calls.items():
         cases += [(f"threaded slice {stage} call {i}", r[0], r[1]) for i, r in enumerate(recs[:3])]
-    # the loop detector's rematch (K7's match_frame_and_keyframe): a
-    # keyframe's 2872 landmarks reprojected within ~2 px of the frame's
-    # keypoints, margin 10, with the tree's cell index where it has one
-    from stella_vslam_tpu_torch.match import projection as proj
-
-    rng = np.random.default_rng(40)
-    N = desc.shape[0]
-    perm = torch.as_tensor(rng.permutation(N), device=dev)
-    kf = dict(scale_factors=feats[5], num_levels=8, margin=10.0)
-    if hasattr(H, "build_cell_index"):
-        kf["cells"] = H.build_cell_index(uv[:, 0].contiguous(), uv[:, 1].contiguous(), 752, 480)
-    mask = lambda p: torch.as_tensor(rng.random(N) < p, device=dev)
-    flips = torch.as_tensor((rng.random((N, 8)) < 0.2) * (1 << rng.integers(0, 31, (N, 8))),
-                            device=dev).to(torch.int32)
-    level = feats[2]
-    reproj = (uv[perm] + torch.as_tensor(rng.normal(0, 2.0, (N, 2)).astype(np.float32),
-                                         device=dev)).contiguous()
-    kf_args = (uv.contiguous(), level, desc, valid, ang, mask(0.3),
-               (desc[perm] ^ flips).contiguous(), reproj, level[perm].contiguous(),
-               (ang[perm] + 0.1).contiguous(), mask(0.8))
-    out = times(lambda: proj.match_frame_and_keyframe(*kf_args, **kf))
-    print(f"tree {tree}: C's keyframe rematch (match_frame_and_keyframe) {N} x {N}: "
-          f"{json.dumps(out)} [{card}]", flush=True)
-    visited = getattr(H, "pairs_visited", None)
     for label, args, kw in cases:
         M, N = args[0].shape[0], args[1].shape[0]
         out = times(lambda: H.hamming_top2(*args, **kw))
         out.update(rows_ok=int(args[2].sum()), dense_pairs=M * N,
-                   pairs_visited=(M * N if visited is None or kw.get("window") is None
-                                  else int(visited(*args, **kw))))
+                   pairs_visited=int(H.pairs_visited(*args, **kw)))
         print(f"tree {tree}: C {label}: {json.dumps(out)} [{card}]", flush=True)
     return 0
 

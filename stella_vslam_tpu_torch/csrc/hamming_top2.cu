@@ -18,9 +18,9 @@
 //    the cell coordinate), so fisheye and division coordinates far outside
 //    the image are still found; targets with a NaN coordinate go to a
 //    bucket after every cell, which no window reaches (no window test
-//    passes for them in the dense walk either). One index serves every
-//    window call against the same targets (the tracking cascade's stages 1
-//    and 3).
+//    passes for them in the dense walk either). The wrapper builds the
+//    index of a window call's targets over the window's image extent, then
+//    launches the walk.
 //  - window_top2_kernel (the window modes: stages 1 and 3, the loop
 //    rematch, the area matcher): one warp per query row. A row whose row_ok
 //    is false writes what the dense walk writes at once. Otherwise the row

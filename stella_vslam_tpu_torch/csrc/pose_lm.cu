@@ -10,7 +10,7 @@
 // form is a lax.scan of batched [N,3,6] Jacobian einsums and an unrolled
 // 6x6 Cholesky.
 //
-// On Hopper: one cluster of CL blocks (CL = 1, 2, 4 or 8) owns a problem, and
+// On Hopper: one cluster of kCluster = 8 blocks owns a problem, and
 // a launch solves B problems (the tracking cascade's keyframe fallback and
 // motion model together). Each block stages its share of the N slots in
 // shared memory once (pos and 1/sigma^2 as one float4, uv and x_right as
@@ -20,8 +20,8 @@
 // registers, then over the warp by recursive halving (31 shuffles, lane l
 // ending with term l), then stored as the warp's 28 partials into every
 // block of the cluster (distributed shared memory: the stores do not wait,
-// where loads of the peers' partials would). One barrier (the cluster's
-// when CL > 1) follows; lane i of every warp then sums term i over the
+// where loads of the peers' partials would). One cluster barrier
+// follows; lane i of every warp then sums term i over the
 // cluster's blocks and warps in one fixed order from its own block's
 // copy, and a shuffle hands the 28 totals to every lane. Every thread
 // then carries the LM state (best pose, H, b, cost, lambda) in registers
@@ -44,11 +44,12 @@
 // (not kept) on an H100, the previous one-block design spent 63% of its
 // time in its threads' chains of ~6 slots read from L2, 18% in thread 0's
 // solve and 13% in the shuffle tree: the slot work set the pace. So a
-// problem is spread over a cluster (8 blocks by default, ops/optim/pose.py
-// CLUSTER: 1.4 slots a thread at N = 2872); at that size the slot work,
-// the cluster barrier and the solve take comparable shares (PERF.md). At
-// most kMaxSlotsPerBlock slots a block fit in shared memory (227 KB): the
-// wrapper refuses more than kMaxSlotsPerBlock x CL.
+// problem is spread over a cluster of 8 blocks (1.4 slots a thread at
+// N = 2872; clusters of 1, 2 and 4 blocks were slower at N = 1199 and 2872,
+// PERF.md); at that size the slot work, the cluster barrier and the solve
+// take comparable shares. At most kMaxSlotsPerBlock slots a block fit in
+// shared memory (227 KB): the wrapper (ops/optim/pose.py, CLUSTER and
+// MAX_SLOTS_PER_BLOCK) refuses more than kMaxSlotsPerBlock x kCluster.
 //
 // Float32 throughout; sums are taken in another order than the JAX version,
 // so results agree to a tolerance, not bit for bit. The order is fixed by
@@ -63,6 +64,7 @@
 
 namespace {
 
+constexpr int kCluster = 8;  // blocks a problem (ops/optim/pose.py CLUSTER)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTerms = 28;  // 21 (upper H) + 6 (b) + 1 (cost)
@@ -268,34 +270,22 @@ __device__ __forceinline__ void halve(float (&v)[32], int lane) {
   }
 }
 
-// The cluster's barrier (the block's when CL = 1).
-template <int CL>
-__device__ __forceinline__ void sync_all() {
-  if constexpr (CL > 1)
-    cooperative_groups::this_cluster().sync();
-  else
-    __syncthreads();
-}
+// the partials of a pass: [2 buffers][kCluster blocks][kWarps][kTerms]
+constexpr int kPartFloats = 2 * kCluster * kWarps * kTerms;
 
-// the partials of a pass: [2 buffers][CL blocks][kWarps][kTerms]
-template <int CL>
-__host__ __device__ constexpr int part_floats() {
-  return 2 * CL * kWarps * kTerms;
-}
-
-template <int MODEL, int CL>
+template <int MODEL>
 __global__ void __launch_bounds__(kThreads)
 pose_lm_kernel(int N, int chunk, Batch bt, Cam cam, int num_rounds, int num_robust,
                int num_iter) {
   extern __shared__ float4 smem[];
   float* part = reinterpret_cast<float*>(smem);
-  float4* sA = smem + part_floats<CL>() / 4;      // pos, 1/sigma^2
-  float4* sB = sA + chunk;                        // u, v, x_right
+  float4* sA = smem + kPartFloats / 4;  // pos, 1/sigma^2
+  float4* sB = sA + chunk;              // u, v, x_right
   uint8_t* sF = reinterpret_cast<uint8_t*>(sB + chunk);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int prob = blockIdx.x / CL;
-  int rank = 0;
-  if constexpr (CL > 1) rank = (int)cooperative_groups::this_cluster().block_rank();
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int prob = blockIdx.x / kCluster;
+  const int rank = (int)cluster.block_rank();
   const int base = rank * chunk;
   const int n_loc = max(0, min(N - base, chunk));
 
@@ -318,7 +308,7 @@ pose_lm_kernel(int N, int chunk, Batch bt, Cam cam, int num_rounds, int num_robu
   for (int i = 0; i < 9; ++i) Rc[i] = bt.R0[prob * 9 + i];
 #pragma unroll
   for (int i = 0; i < 3; ++i) tc[i] = bt.t0[prob * 3 + i];
-  sync_all<CL>();  // every block of the cluster has started: peers' stores may land
+  cluster.sync();  // every block of the cluster has started: peers' stores may land
 
   int buf = 0;
   // One evaluation pass at (Rc, tc): every thread gets the 28 totals.
@@ -380,25 +370,20 @@ pose_lm_kernel(int N, int chunk, Batch bt, Cam cam, int num_rounds, int num_robu
     halve<4>(v, lane);
     halve<2>(v, lane);
     halve<1>(v, lane);
-    float* const pb = part + buf * CL * kWarps * kTerms;
+    float* const pb = part + buf * kCluster * kWarps * kTerms;
     if (lane < kTerms) {
       const int off = (rank * kWarps + warp) * kTerms + lane;
-      if constexpr (CL > 1) {
 #pragma unroll
-        for (int rb = 0; rb < CL; ++rb)
-          cooperative_groups::this_cluster().map_shared_rank(pb, rb)[off] = v[0];
-      } else {
-        pb[off] = v[0];
-      }
+      for (int rb = 0; rb < kCluster; ++rb) cluster.map_shared_rank(pb, rb)[off] = v[0];
     }
-    sync_all<CL>();
+    cluster.sync();
     // lane i sums term i over (block, warp) in one order, in every warp:
     // four running sums over the partials in turn, then their sum
     float s = 0.f;
     if (lane < kTerms) {
       float q[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int w = 0; w < CL * kWarps; ++w) q[w & 3] += pb[w * kTerms + lane];
+      for (int w = 0; w < kCluster * kWarps; ++w) q[w & 3] += pb[w * kTerms + lane];
       s = (q[0] + q[1]) + (q[2] + q[3]);
     }
 #pragma unroll
@@ -473,49 +458,38 @@ pose_lm_kernel(int N, int chunk, Batch bt, Cam cam, int num_rounds, int num_robu
     for (int i = 0; i < 3; ++i) bt.t_out[prob * 3 + i] = tc[i];
   }
   // no block leaves while a peer may still read its partials
-  if constexpr (CL > 1) cooperative_groups::this_cluster().sync();
+  cluster.sync();
 }
 
-template <int MODEL, int CL>
+template <int MODEL>
 cudaError_t launch(int B, int N, const Batch& bt, const Cam& cam, int rounds, int robust,
                    int iters, cudaStream_t st) {
-  const int chunk = (N + CL - 1) / CL;
+  const int chunk = (N + kCluster - 1) / kCluster;
   if (chunk > kMaxSlotsPerBlock) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * part_floats<CL>() + (size_t)chunk * kSlotBytes;
-  auto kernel = pose_lm_kernel<MODEL, CL>;
+  const size_t smem = sizeof(float) * kPartFloats + (size_t)chunk * kSlotBytes;
+  auto kernel = pose_lm_kernel<MODEL>;
   const cudaError_t e = svt::reserve_smem((const void*)kernel, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * CL);
+  cfg.gridDim = dim3(B * kCluster);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.x = kCluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = CL > 1 ? 1 : 0;
+  cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, N, chunk, bt, cam, rounds, robust, iters);
-}
-
-template <int MODEL>
-cudaError_t launch_model(int CL, int B, int N, const Batch& bt, const Cam& cam, int rounds,
-                         int robust, int iters, cudaStream_t st) {
-  if (CL == 1) return launch<MODEL, 1>(B, N, bt, cam, rounds, robust, iters, st);
-  if (CL == 2) return launch<MODEL, 2>(B, N, bt, cam, rounds, robust, iters, st);
-  if (CL == 4) return launch<MODEL, 4>(B, N, bt, cam, rounds, robust, iters, st);
-  if (CL == 8) return launch<MODEL, 8>(B, N, bt, cam, rounds, robust, iters, st);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// model: 0 perspective, 2 equirectangular (camera.cuh); cluster: 1, 2, 4 or 8
-// blocks a problem; the *_bs arguments are batch strides in elements (0: the
-// tensor is shared by every problem)
-extern "C" int svt_pose_lm(int model, int cluster, int B, int N, const float* pos,
+// model: 0 perspective, 2 equirectangular (camera.cuh); the *_bs arguments
+// are batch strides in elements (0: the tensor is shared by every problem)
+extern "C" int svt_pose_lm(int model, int B, int N, const float* pos,
                            long long pos_bs, const float* uv, long long uv_bs, const float* xr,
                            long long xr_bs, const float* inv_sig, long long isg_bs,
                            const uint8_t* valid, long long valid_bs, const float* R0,
@@ -530,11 +504,9 @@ extern "C" int svt_pose_lm(int model, int cluster, int B, int N, const float* po
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
   if (model == svt_cam::kEquirect)
-    e = launch_model<svt_cam::kEquirect>(cluster, B, N, bt, cam, num_rounds, num_robust,
-                                          num_iter, s);
+    e = launch<svt_cam::kEquirect>(B, N, bt, cam, num_rounds, num_robust, num_iter, s);
   else if (model == svt_cam::kPerspective)
-    e = launch_model<svt_cam::kPerspective>(cluster, B, N, bt, cam, num_rounds, num_robust,
-                                             num_iter, s);
+    e = launch<svt_cam::kPerspective>(B, N, bt, cam, num_rounds, num_robust, num_iter, s);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;

@@ -71,11 +71,11 @@ _SIGNATURES = {
                         + [_P] * 4 + [_F, _P, _P],
     # N, col_u, col_v, inv_cell, gx, gy, cell_start, cell_order, stream
     "svt_cell_index": [_I, _P, _P, _F, _I, _I, _P, _P, _P],
-    # model, cluster, B, N, then pos, uv, xr, inv_sigma_sq, valid each with
-    # its batch stride, R0, t0, fx, fy, cx, cy, fxb, width, height,
-    # num_rounds, num_robust_rounds, num_each_iter, R_out, t_out, inlier_out,
-    # chi2_out, stream
-    "svt_pose_lm": [_I] * 4 + [_P, _L] * 5 + [_P] * 2 + [_F] * 7 + [_I] * 3 + [_P] * 5,
+    # model, B, N, then pos, uv, xr, inv_sigma_sq, valid each with its batch
+    # stride, R0, t0, fx, fy, cx, cy, fxb, width, height, num_rounds,
+    # num_robust_rounds, num_each_iter, R_out, t_out, inlier_out, chi2_out,
+    # stream
+    "svt_pose_lm": [_I] * 3 + [_P, _L] * 5 + [_P] * 2 + [_F] * 7 + [_I] * 3 + [_P] * 5,
     # model, N, pts1, pts2, valid, seed, B, thr, out_model, out_cost,
     # out_count, stream
     "svt_ransac_minimal": [_I, _I, _P, _P, _P, _U, _I, _F, _P, _P, _P, _P],

@@ -25,9 +25,10 @@ def match_in_consistent_area(kp1_level, kp1_desc, kp1_angle, kp1_valid,
                              prev_matched, kp2_uv, kp2_level, kp2_desc,
                              kp2_angle, kp2_valid, *, margin: float = 100.0,
                              lowe_ratio: float = 0.9,
-                             check_orientation: bool = True, image_size=None):
+                             check_orientation: bool = True, image_size):
     """Returns (best_idx2 [N1] i32, accepted [N1] bool, best_dist [N1] i32).
-    image_size (width, height) sizes the grid of kernel C's cell index."""
+    image_size: the (width, height) of the current frame's image (the
+    window's extent)."""
     args, kw = top2_args(kp1_level, kp1_desc, kp1_angle, kp1_valid, prev_matched, kp2_uv,
                          kp2_level, kp2_desc, kp2_angle, kp2_valid, margin=margin,
                          check_orientation=check_orientation, image_size=image_size)
@@ -41,9 +42,8 @@ def match_in_consistent_area(kp1_level, kp1_desc, kp1_angle, kp1_valid,
 
 def top2_args(kp1_level, kp1_desc, kp1_angle, kp1_valid, prev_matched, kp2_uv, kp2_level,
               kp2_desc, kp2_angle, kp2_valid, *, margin: float = 100.0,
-              check_orientation: bool = True, image_size=None):
-    """The arguments (args, kw) of the matcher's one `hamming_top2` call
-    (with the targets' cell index over image_size, when it is given)."""
+              check_orientation: bool = True, image_size):
+    """The arguments (args, kw) of the matcher's one `hamming_top2` call."""
     N1, N2 = kp1_desc.shape[0], kp2_desc.shape[0]
     dev = kp1_desc.device
     f32 = lambda t: t.to(torch.float32).contiguous()
@@ -55,11 +55,9 @@ def top2_args(kp1_level, kp1_desc, kp1_angle, kp1_valid, prev_matched, kp2_uv, k
         row_hi=torch.zeros(N1, dtype=torch.int32, device=dev),
         col_u=f32(kp2_uv[:, 0]), col_v=f32(kp2_uv[:, 1]),
         col_xr=torch.full((N2,), -1.0, device=dev),
-        col_level=kp2_level.to(torch.int32).contiguous())
+        col_level=kp2_level.to(torch.int32).contiguous(), extent=image_size)
     orient = (H.AngleGate(f32(kp1_angle), f32(kp2_angle), ANGLE_THR)
               if check_orientation else None)
     row_ok = (kp1_valid & (kp1_level == 0)).contiguous()
-    cells = (None if image_size is None
-             else H.build_cell_index(window.col_u, window.col_v, *image_size))
     return ((kp1_desc.contiguous(), kp2_desc.contiguous(), row_ok, kp2_valid.contiguous()),
-            dict(window=window, orient=orient, cells=cells))
+            dict(window=window, orient=orient))

@@ -9,14 +9,14 @@ and second-best distance and their target indices over the gated targets:
 * on CUDA tensors, kernel C (csrc/hamming_top2.cu): XOR + popcount with the
   gates evaluated in registers, the [M,N] matrix never stored; the gates
   are a projection window, an orientation cosine (tracking) or an angle
-  difference (the initializer's area matcher). With a window, a row visits
-  only the targets of the grid cells its window meets, from a `CellIndex`
-  of the targets (`build_cell_index`, the same source's counting sort; one
-  index serves every window call against the same targets); without one,
-  blocks of rows share tiles of targets;
+  difference (the initializer's area matcher). With a window, the call
+  first sorts the targets into grid cells over the window's image extent
+  (`build_cell_index`, the same source's counting sort) and a row visits
+  only the targets of the cells its window meets; without one, blocks of
+  rows share tiles of targets;
 * on CPU tensors, `hamming_top2_plain`: the JAX version's dense form (a
-  +/-1 f32 matmul — exact, every sum is an integer of magnitude <= 256),
-  restricted to the cells a row visits when a `CellIndex` is given (the
+  +/-1 f32 matmul — exact, every sum is an integer of magnitude <= 256);
+  with `walk=True`, restricted to the pairs of kernel C's cell walk (the
   cover is conservative, so the result is the dense one).
 
 Kernel J (the same source) is the mapping module's matcher: the gates of
@@ -31,7 +31,7 @@ duplicate resolution stay plain torch on the [M] outputs.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -45,7 +45,10 @@ _MASKED = MAX_HAMMING_DIST + 1
 
 class WindowGate(NamedTuple):
     """Projection gates: |du|,|dv| <= rad, lo <= level <= hi, and
-    |xr_row - xr_col| <= rad when both x_right are > 0."""
+    |xr_row - xr_col| <= rad when both x_right are > 0. `extent` is the
+    (width, height) of the image the coordinates lie in: it sizes the grid
+    of kernel C's cell index (targets outside it go to the border cells), not
+    the result."""
 
     row_u: torch.Tensor  # [M] f32
     row_v: torch.Tensor  # [M] f32
@@ -57,6 +60,10 @@ class WindowGate(NamedTuple):
     col_v: torch.Tensor  # [N] f32
     col_xr: torch.Tensor  # [N] f32
     col_level: torch.Tensor  # [N] i32
+    extent: Tuple[float, float]
+
+
+_WINDOW_TENSORS = WindowGate._fields[:10]
 
 
 class OrientGate(NamedTuple):
@@ -115,7 +122,8 @@ class CellIndex(NamedTuple):
 
 class LaunchCount:
     """The launches of one mode of kernel C, read and reset like a wrapper's
-    count (`hamming_top2.launches` counts both modes)."""
+    count (`hamming_top2.launches` counts both modes). A caller that counts
+    its own launches passes its count to `hamming_top2` as `counter`."""
 
     def __init__(self):
         self.launches = 0
@@ -125,8 +133,6 @@ window_walk = LaunchCount()  # window mode: the cell walk
 brute_force = LaunchCount()  # no window: shared target tiles
 
 MAX_CELLS = 1024  # kernel C's index holds a count per (warp, cell) in shared memory
-# the grid of an index built without the image's size
-DEFAULT_EXTENT = (1024.0, 1024.0)
 
 
 def cell_grid(width: float, height: float):
@@ -194,9 +200,11 @@ def _cell_span(c, rad, inv_cell, g):
     return a.to(torch.int64), b.to(torch.int64)
 
 
-def cell_walk_mask(window: WindowGate, cells: CellIndex) -> torch.Tensor:
+def cell_walk_mask(window: WindowGate) -> torch.Tensor:
     """[M,N] bool: the targets a row of kernel C's window walk visits (those
-    in the cells its window meets; never the NaN cell)."""
+    in the cells its window meets, on the index of the window's targets over
+    its extent; never the NaN cell)."""
+    cells = build_cell_index_plain(window.col_u, window.col_v, *window.extent)
     x0, x1 = _cell_span(window.row_u, window.row_rad, cells.inv_cell, cells.gx)
     y0, y1 = _cell_span(window.row_v, window.row_rad, cells.inv_cell, cells.gy)
     N = cells.order.shape[0]
@@ -210,13 +218,14 @@ def cell_walk_mask(window: WindowGate, cells: CellIndex) -> torch.Tensor:
 
 
 def pairs_visited(q_desc, t_desc, row_ok, col_ok, window: Optional[WindowGate] = None,
-                  orient=None, cells: Optional[CellIndex] = None) -> torch.Tensor:
-    """The (row, target) pairs a launch of kernel C visits, as a device
-    scalar: in window mode the cell walk of every row that passes row_ok;
-    in brute-force mode every target for such a row."""
-    if window is None or cells is None:
+                  orient=None, counter=None) -> torch.Tensor:
+    """The (row, target) pairs a launch of kernel C visits (the arguments as
+    `hamming_top2` takes them), as a device scalar: in window mode the cell
+    walk of every row that passes row_ok; in brute-force mode every target
+    for such a row."""
+    if window is None:
         return row_ok.sum() * t_desc.shape[0]
-    return (cell_walk_mask(window, cells) & row_ok[:, None]).sum()
+    return (cell_walk_mask(window) & row_ok[:, None]).sum()
 
 
 def unpack_bits_pm1(desc: torch.Tensor) -> torch.Tensor:
@@ -268,13 +277,15 @@ def gate_matrix(row_ok, col_ok, window: Optional[WindowGate],
 def hamming_top2_plain(q_desc, t_desc, row_ok, col_ok,
                        window: Optional[WindowGate] = None,
                        orient: Union[OrientGate, AngleGate, None] = None,
-                       cells: Optional[CellIndex] = None):
+                       counter=None, walk: bool = False):
     """(best, best_idx, second, second_idx), each [M] int32. With a window
-    and `cells`, only the pairs of kernel C's cell walk are candidates."""
+    and `walk`, only the pairs of kernel C's cell walk are candidates (a
+    model of the kernel). `counter` is `hamming_top2`'s; no kernel launches
+    here, so it is not raised."""
     dist = pairwise_hamming(q_desc, t_desc)
     cand = gate_matrix(row_ok, col_ok, window, orient)
-    if window is not None and cells is not None:
-        cand = cand & cell_walk_mask(window, cells)
+    if window is not None and walk:
+        cand = cand & cell_walk_mask(window)
     dist = torch.where(cand, dist, torch.full_like(dist, _MASKED))
     best, best_idx = dist.min(dim=1)
     masked = dist.scatter(1, best_idx[:, None], _MASKED)
@@ -299,12 +310,14 @@ def _aligned(t):
 def hamming_top2(q_desc, t_desc, row_ok, col_ok,
                  window: Optional[WindowGate] = None,
                  orient: Union[OrientGate, AngleGate, None] = None,
-                 cells: Optional[CellIndex] = None):
+                 counter=None):
     """Kernel C on CUDA tensors, the plain version on CPU tensors. With a
-    window, `cells` is the CellIndex of the targets' (col_u, col_v) (one is
-    built over DEFAULT_EXTENT when it is None)."""
+    window, the call first sorts the window's targets into cells
+    (`build_cell_index` over `window.extent`), then walks them. `counter`:
+    an object whose `launches` the launch also raises (a caller's own
+    count)."""
     if not q_desc.is_cuda:
-        return hamming_top2_plain(q_desc, t_desc, row_ok, col_ok, window, orient, cells)
+        return hamming_top2_plain(q_desc, t_desc, row_ok, col_ok, window, orient)
     M, N = q_desc.shape[0], t_desc.shape[0]
     if N >= 1 << 16:
         raise ValueError("hamming_top2: at most 65535 targets")
@@ -314,19 +327,13 @@ def hamming_top2(q_desc, t_desc, row_ok, col_ok,
     _check(col_ok, (N,), torch.bool, "col_ok")
     w_ptrs, c_args = [0] * 10, [0, 0, 0.0, 0, 0]
     if window is not None:
-        for i, (name, t) in enumerate(zip(WindowGate._fields, window)):
+        for i, (name, t) in enumerate(zip(_WINDOW_TENSORS, window)):
             n = M if name.startswith("row") else N
             dt = torch.int32 if name in ("row_lo", "row_hi", "col_level") \
                 else torch.float32
             _check(t, (n,), dt, name)
             w_ptrs[i] = t.data_ptr()
-        if cells is None:
-            cells = build_cell_index(window.col_u, window.col_v, *DEFAULT_EXTENT)
-        G = cells.gx * cells.gy
-        if G > MAX_CELLS:
-            raise ValueError(f"hamming_top2: at most {MAX_CELLS} cells")
-        _check(cells.start, (G + 2,), torch.int32, "cells.start")
-        _check(cells.order, (N,), torch.int32, "cells.order")
+        cells = build_cell_index(window.col_u, window.col_v, *window.extent)
         c_args = [cells.start.data_ptr(), cells.order.data_ptr(), float(cells.inv_cell),
                   cells.gx, cells.gy]
     else:
@@ -357,6 +364,8 @@ def hamming_top2(q_desc, t_desc, row_ok, col_ok,
         kbuild.stream_ptr(q_desc.device)), "hamming_top2")
     hamming_top2.launches += 1
     (window_walk if window is not None else brute_force).launches += 1
+    if counter is not None:
+        counter.launches += 1
     return out[:, 0], out[:, 1], out[:, 2], out[:, 3]
 
 

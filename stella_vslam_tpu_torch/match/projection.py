@@ -5,7 +5,8 @@ Port of `match_frame_and_landmarks` (stella_vslam_tpu/match/projection.py:25),
 Each builds the per-row and per-column gate fields, calls
 `hamming.hamming_top2` once, and applies the ratio / orientation tests and
 the duplicate-target resolution to the [M] outputs. All return (best_idx [M]
-i32, accepted [M] bool, best_dist [M]).
+i32, accepted [M] bool, best_dist [M]). `image_size` is the (width, height)
+of the image the keypoints lie in (the window's extent).
 """
 from __future__ import annotations
 
@@ -17,12 +18,12 @@ from stella_vslam_tpu_torch.match import hamming as H
 def match_frame_and_landmarks(
     kp_uv, kp_level, kp_desc, kp_valid, kp_has_lm, kp_x_right,
     lm_desc, lm_reproj, lm_x_right, lm_pred_scale, lm_valid,
-    *, scale_factors: torch.Tensor, num_levels: int, margin: float = 5.0,
-    lowe_ratio: float = 0.6, cells: H.CellIndex | None = None,
+    *, scale_factors: torch.Tensor, num_levels: int, image_size, margin: float = 5.0,
+    lowe_ratio: float = 0.6,
 ):
     """Search radius margin * scale_factor[pred_scale]; candidate levels
     [pred-1, pred+1]; ratio test only when best and second share a level;
-    accept at HAMMING_DIST_THR_HIGH. `cells`: the keypoints' CellIndex."""
+    accept at HAMMING_DIST_THR_HIGH."""
     N = kp_desc.shape[0]
     pred = lm_pred_scale.to(torch.int32)
     window = H.WindowGate(
@@ -31,9 +32,9 @@ def match_frame_and_landmarks(
         row_lo=torch.clamp(pred - 1, min=0),
         row_hi=torch.clamp(pred + 1, max=num_levels - 1),
         col_u=kp_uv[:, 0].contiguous(), col_v=kp_uv[:, 1].contiguous(),
-        col_xr=kp_x_right, col_level=kp_level)
+        col_xr=kp_x_right, col_level=kp_level, extent=image_size)
     best, best_idx, second, second_idx = H.hamming_top2(
-        lm_desc, kp_desc, lm_valid, kp_valid & ~kp_has_lm, window=window, cells=cells)
+        lm_desc, kp_desc, lm_valid, kp_valid & ~kp_has_lm, window=window)
     best_level = kp_level[best_idx.long()]
     second_level = kp_level[second_idx.long()]
     ratio_reject = (best_level == second_level) & (
@@ -46,12 +47,11 @@ def match_frame_and_landmarks(
 def match_current_and_last_frames(
     kp_uv, kp_level, kp_desc, kp_valid, kp_angle, kp_x_right,
     last_desc, last_level, last_angle, lm_reproj, lm_x_right, lm_valid,
-    *, scale_factors: torch.Tensor, num_levels: int, margin: float,
-    check_orientation: bool = True, cells: H.CellIndex | None = None,
+    *, scale_factors: torch.Tensor, num_levels: int, image_size, margin: float,
+    check_orientation: bool = True,
 ):
     """Motion-model matcher: window margin * scale_factor[last level],
-    levels [last-1, last+1], orientation consistency. `cells`: the
-    keypoints' CellIndex."""
+    levels [last-1, last+1], orientation consistency."""
     N = kp_desc.shape[0]
     lvl = last_level.to(torch.int32)
     window = H.WindowGate(
@@ -59,9 +59,9 @@ def match_current_and_last_frames(
         row_xr=lm_x_right, row_rad=margin * scale_factors[lvl.long()],
         row_lo=lvl - 1, row_hi=lvl + 1,
         col_u=kp_uv[:, 0].contiguous(), col_v=kp_uv[:, 1].contiguous(),
-        col_xr=kp_x_right, col_level=kp_level)
+        col_xr=kp_x_right, col_level=kp_level, extent=image_size)
     best, best_idx, _, _ = H.hamming_top2(
-        last_desc, kp_desc, lm_valid, kp_valid, window=window, cells=cells)
+        last_desc, kp_desc, lm_valid, kp_valid, window=window)
     accepted = (best <= H.HAMMING_DIST_THR_HIGH) & lm_valid
     if check_orientation:
         accepted = accepted & H.angle_diff_ok(last_angle, kp_angle[best_idx.long()])
@@ -72,19 +72,19 @@ def match_current_and_last_frames(
 def match_frame_and_keyframe(
     kp_uv, kp_level, kp_desc, kp_valid, kp_angle, kp_has_lm,
     lm_desc, lm_reproj, lm_pred_scale, lm_angle, lm_valid,
-    *, scale_factors: torch.Tensor, num_levels: int, margin: float,
+    *, scale_factors: torch.Tensor, num_levels: int, image_size, margin: float,
     hamm_dist_thr: int = H.HAMMING_DIST_THR_LOW, check_orientation: bool = True,
-    cells: H.CellIndex | None = None, top2=H.hamming_top2,
+    top2=H.hamming_top2,
 ):
     """reference projection::match_frame_and_keyframe (projection.cc:202-300),
     the loop detector's rematch: a keyframe's landmarks, reprojected into the
     frame, against the frame's keypoints that hold no landmark yet: window
     margin * scale_factor[pred level], levels [pred-1, pred+1], the best
     distance only (no ratio test), orientation consistency on the winner.
-    `cells`: the keypoints' CellIndex. `top2` is for checks only: kernel C's
-    wrapper (the default, and what every caller in the package uses), or its
-    plain version to hold it against. `match_frame_and_keyframe.launches`
-    counts the launches of kernel C it makes."""
+    `top2` is for checks only: kernel C's wrapper (the default, and what
+    every caller in the package uses), or its plain version to hold it
+    against. Kernel C's wrapper raises `match_frame_and_keyframe.launches`
+    at each launch it makes for this matcher."""
     N = kp_desc.shape[0]
     pred = lm_pred_scale.to(torch.int32)
     none = torch.full((lm_desc.shape[0],), -1.0, dtype=torch.float32, device=kp_uv.device)
@@ -94,11 +94,10 @@ def match_frame_and_keyframe(
         row_lo=pred - 1, row_hi=pred + 1,
         col_u=kp_uv[:, 0].contiguous(), col_v=kp_uv[:, 1].contiguous(),
         col_xr=torch.full((N,), -1.0, dtype=torch.float32, device=kp_uv.device),
-        col_level=kp_level)
+        col_level=kp_level, extent=image_size)
     best, best_idx, _, _ = top2(
-        lm_desc, kp_desc, lm_valid, kp_valid & ~kp_has_lm, window=window, cells=cells)
-    if kp_desc.is_cuda and top2 is not H.hamming_top2_plain:
-        match_frame_and_keyframe.launches += 1
+        lm_desc, kp_desc, lm_valid, kp_valid & ~kp_has_lm, window=window,
+        counter=match_frame_and_keyframe)
     accepted = (best <= hamm_dist_thr) & lm_valid
     if check_orientation:
         accepted = accepted & H.angle_diff_ok(lm_angle, kp_angle[best_idx.long()])

@@ -30,7 +30,6 @@ import numpy as np
 import torch
 
 from stella_vslam_tpu_torch.camera import base as cam_base
-from stella_vslam_tpu_torch.match import hamming as H
 from stella_vslam_tpu_torch.match import projection as proj_match
 from stella_vslam_tpu_torch.match import robust as robust_match
 from stella_vslam_tpu_torch.module.tracking_kernels import make_cam_scalars
@@ -213,13 +212,8 @@ class LoopDetector:
         margins = (None, 10.0, 3.0)
         cand_pos_dev, cand_has_dev = dv(cand_pos), dv(cand_has)
         isig = self.inv_sigma_sq[cur_kf.feats.level.long()]
-        cells = None  # the keyframe's keypoints by cell, for both rematches
         for rnd, (thr, margin) in enumerate(zip(thresholds, margins)):
             if margin is not None:
-                if cells is None:
-                    cells = H.build_cell_index(
-                        cur_kf.undist_xy[:, 0].contiguous(), cur_kf.undist_xy[:, 1].contiguous(),
-                        self.camera.params.width, self.camera.params.height)
                 uv, _, vis = cam_base.reproject_to_image(
                     self.camera.model, self.camera.params, R_dev, t_dev, cand_pos_dev)
                 p_idx, p_acc, _ = proj_match.match_frame_and_keyframe(
@@ -227,7 +221,9 @@ class LoopDetector:
                     cur_kf.feats.valid, cur_kf.feats.angle, dv(matched),
                     cand.feats.desc, uv, cand.feats.level, cand.feats.angle,
                     cand_has_dev & vis, scale_factors=self.scale_factors,
-                    num_levels=self.orb.num_levels, margin=margin, cells=cells)
+                    num_levels=self.orb.num_levels,
+                    image_size=(self.camera.params.width, self.camera.params.height),
+                    margin=margin)
                 pa, pi = p_acc.cpu().numpy(), p_idx.cpu().numpy()
                 for cand_slot in np.nonzero(pa)[0]:
                     f = pi[cand_slot]

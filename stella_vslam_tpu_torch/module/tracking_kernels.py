@@ -12,9 +12,7 @@ Port of stella_vslam_tpu/module/tracking_kernels.py `track_frame` (:164):
 
 Stages 2 and 1 do not depend on each other: both matchers and scatters run
 first, then one launch of D solves both poses (a batch of two), so a frame
-with the motion model launches D twice (stages 2 + 1, then 3). The window
-matchers of stages 1 and 3 share one cell index of the frame's keypoints
-(kernel C's counting sort, one launch a frame).
+with the motion model launches D twice (stages 2 + 1, then 3).
 
 The JAX version runs the fallback under lax.cond when stage 1 keeps fewer
 than `num_matches_thr` inliers; here both run and `torch.where` on a device
@@ -37,7 +35,6 @@ import torch
 
 from stella_vslam_tpu_torch.camera import base as cam_base
 from stella_vslam_tpu_torch.kernels import build as kbuild
-from stella_vslam_tpu_torch.match import hamming as H
 from stella_vslam_tpu_torch.match import projection as proj_match
 from stella_vslam_tpu_torch.match import robust as robust_match
 from stella_vslam_tpu_torch.ops import lie
@@ -289,11 +286,6 @@ class TrackingKernels:
         R_pred = R_tw @ R_last
         t_pred = R_tw @ t_last + t_tw
 
-        # the frame's keypoints by cell, shared by the window matchers of
-        # stages 1 and 3
-        cells = H.build_cell_index(cur_undist[:, 0].contiguous(), cur_undist[:, 1].contiguous(),
-                                   p.width, p.height)
-
         # ---------- stage 2: keyframe fallback (the lax.cond's other arm) ----
         b_idx, b_acc, _ = robust_match.brute_force_match(
             cur_angle, cur_desc, cur_valid, kf_angle, kf_desc, kf_assoc_valid,
@@ -309,7 +301,7 @@ class TrackingKernels:
                 last_desc, last_level, last_angle, uv_l, lm_xr,
                 last_assoc_valid & vis_l,
                 scale_factors=self.scale_factors, num_levels=L,
-                margin=self.margin_last, cells=cells)
+                image_size=(p.width, p.height), margin=self.margin_last)
             pos1, id1, has1 = scatter_to_current(
                 m_idx, m_acc, last_assoc_pos, last_assoc_id, N)
             # stages 2 and 1 do not depend on each other: one launch of D
@@ -346,7 +338,7 @@ class TrackingKernels:
             cur_undist, cur_level, cur_desc, cur_valid, has_s1, cur_xr,
             tbl_desc, uv_t, lm_xr_t, pred_scale, observable,
             scale_factors=self.scale_factors, num_levels=L,
-            margin=margin_local, lowe_ratio=0.6, cells=cells)
+            image_size=(p.width, p.height), margin=margin_local, lowe_ratio=0.6)
         pos_new, id_new, has_new = scatter_to_current(t_idx, t_acc, tbl_pos, tbl_ids, N)
         # a chained association keeps its slot; a fresh table match fills any
         # other slot (a duplicate landmark is resolved after the optimization)

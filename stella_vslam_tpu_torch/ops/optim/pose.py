@@ -94,9 +94,9 @@ def optimize_pose_plain(R_init, t_init, pos_w, obs_uv, obs_x_right,
     return PoseOptResult(R_cw=R, t_cw=t, is_inlier=inlier, chi_sq=chi2)
 
 
-# blocks of a cluster that solve one problem (1, 2, 4 or 8; 8 was the
-# fastest at N = 1199 and 2872 on an H100, PERF.md), and the slots a block
-# holds in shared memory: the kernel takes N <= MAX_SLOTS_PER_BLOCK * CLUSTER
+# the blocks of the cluster that solves one problem and the slots a block
+# holds in shared memory (kCluster and kMaxSlotsPerBlock in csrc/pose_lm.cu):
+# the kernel takes N <= MAX_SLOTS_PER_BLOCK * CLUSTER
 CLUSTER = 8
 MAX_SLOTS_PER_BLOCK = 6400
 _SLOT_INPUTS = (("pos_w", 3, torch.float32), ("obs_uv", 2, torch.float32),
@@ -119,25 +119,24 @@ def optimize_pose_batch_plain(R_init, t_init, pos_w, obs_uv, obs_x_right,
 def optimize_pose_batch(R_init, t_init, pos_w, obs_uv, obs_x_right, inv_sigma_sq,
                         valid, cam: CamScalars, *, model: str = "perspective",
                         num_rounds: int = 4, num_robust_rounds: int = 2,
-                        num_each_iter: int = 10, cluster: int | None = None) -> PoseOptResult:
+                        num_each_iter: int = 10) -> PoseOptResult:
     """B problems on the same N slots: R_init [B,3,3], t_init [B,3],
     pos_w [B,N,3] and valid [B,N]; obs_uv [N,2] or [B,N,2], obs_x_right and
     inv_sigma_sq [N] or [B,N] (a tensor without the leading B is shared).
-    Kernel D on CUDA tensors (one launch, `cluster` blocks a problem,
-    CLUSTER by default), the plain version on CPU tensors. Returns a
-    PoseOptResult with a leading B."""
+    Kernel D on CUDA tensors (one launch, a cluster of CLUSTER blocks a
+    problem), the plain version on CPU tensors. Returns a PoseOptResult
+    with a leading B."""
     kw = dict(model=model, num_rounds=num_rounds, num_robust_rounds=num_robust_rounds,
               num_each_iter=num_each_iter)
     if not pos_w.is_cuda:
         return optimize_pose_batch_plain(R_init, t_init, pos_w, obs_uv, obs_x_right,
                                          inv_sigma_sq, valid, cam, **kw)
     kind = projection_family(model)
-    cl = CLUSTER if cluster is None else cluster
     B, N = pos_w.shape[0], pos_w.shape[1]
     dev = pos_w.device
-    if N > MAX_SLOTS_PER_BLOCK * cl:
-        raise ValueError(f"optimize_pose_batch: at most {MAX_SLOTS_PER_BLOCK * cl} slots "
-                         f"with {cl} blocks a problem (N={N})")
+    if N > MAX_SLOTS_PER_BLOCK * CLUSTER:
+        raise ValueError(f"optimize_pose_batch: at most {MAX_SLOTS_PER_BLOCK * CLUSTER} slots "
+                         f"(N={N})")
     for t, shape in ((R_init, (B, 3, 3)), (t_init, (B, 3))):
         if t.shape != shape or t.dtype != torch.float32 or t.device != dev:
             raise ValueError(f"optimize_pose_batch: expected float32 {shape} on {dev}")
@@ -159,7 +158,7 @@ def optimize_pose_batch(R_init, t_init, pos_w, obs_uv, obs_x_right, inv_sigma_sq
     chi2 = torch.empty((B, N), dtype=torch.float32, device=dev)
     lib = kbuild.load()
     kbuild.check(lib.svt_pose_lm(
-        kind, cl, B, N, *ptrs, R0.data_ptr(), t0.data_ptr(), cam.fx, cam.fy, cam.cx, cam.cy,
+        kind, B, N, *ptrs, R0.data_ptr(), t0.data_ptr(), cam.fx, cam.fy, cam.cx, cam.cy,
         cam.focal_x_baseline, cam.width, cam.height, num_rounds, num_robust_rounds,
         num_each_iter, R_out.data_ptr(), t_out.data_ptr(), inlier.data_ptr(), chi2.data_ptr(),
         kbuild.stream_ptr(dev)), "pose_lm")

@@ -81,7 +81,7 @@ def test_hamming_top2_kernel_matches_plain(dev, M, N):
         row_hi=f(torch.randint(1, 4, (M,), generator=g).int()),
         col_u=f(r(N) * 50), col_v=f(r(N) * 50),
         col_xr=f(torch.where(r(N) < 0.5, r(N) * 50, -torch.ones(N))),
-        col_level=f(torch.randint(0, 4, (N,), generator=g).int()))
+        col_level=f(torch.randint(0, 4, (N,), generator=g).int()), extent=(50.0, 50.0))
     ang_q, ang_t = f(r(M) * 6.28 - 3.14), f(r(N) * 6.28 - 3.14)
     ori = H.OrientGate(torch.cos(ang_q), torch.sin(ang_q), torch.cos(ang_t),
                        torch.sin(ang_t), 0.8660254)
@@ -1245,14 +1245,14 @@ def test_hamming_top2_cell_walk_equals_dense(dev, name):
     from test_torch_match_cells import CASES, _case, _orients
 
     kw = dict(CASES[name])
-    args, win, size = _case(sorted(CASES).index(name) + 11, kw.pop("M"), kw.pop("N"), **kw)
+    args, win = _case(sorted(CASES).index(name) + 11, kw.pop("M"), kw.pop("N"), **kw)
     d = lambda x: x.to(dev).contiguous()
-    args, win = tuple(d(a) for a in args), H.WindowGate(*[d(x) for x in win])
-    cells = H.build_cell_index(win.col_u, win.col_v, *size)
+    args = tuple(d(a) for a in args)
+    win = H.WindowGate(*[d(x) for x in win[:-1]], win.extent)
     for orient in _orients(args, win, 5)[:2]:
         if orient is not None:
             orient = H.OrientGate(*[d(x) for x in orient[:4]], orient.cos_thr)
-        k = H.hamming_top2(*args, window=win, orient=orient, cells=cells)
+        k = H.hamming_top2(*args, window=win, orient=orient)
         p = H.hamming_top2_plain(*args, window=win, orient=orient)
         for a, b in zip(k, p):
             assert torch.equal(a, b), (name, orient is not None)
@@ -1295,9 +1295,8 @@ def test_hamming_top2_brute_force_equals_plain(dev, orient, M, N):
 
 
 @pytest.mark.parametrize("shared", [True, False])
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
 @pytest.mark.parametrize("model", ["perspective", "equirectangular"])
-def test_pose_lm_batch_kernel_matches_plain(dev, cluster, model, shared):
+def test_pose_lm_batch_kernel_matches_plain(dev, model, shared):
     """Kernel D on a batch of three problems in one launch against the
     per-problem plain version: one set of points and observations from
     three initial poses (the per-slot inputs shared, as the cascade shares
@@ -1306,7 +1305,7 @@ def test_pose_lm_batch_kernel_matches_plain(dev, cluster, model, shared):
     independent of the batch around it, bit for bit, and repeatable."""
     from test_torch_pose_batch import _problem
 
-    rng = np.random.default_rng(cluster)
+    rng = np.random.default_rng(8)
     N = 1199 if model == "equirectangular" else 2872
     probs = [_problem(rng, N, model) for _ in range(1 if shared else 3)]
     cam = probs[0][0]
@@ -1316,7 +1315,7 @@ def test_pose_lm_batch_kernel_matches_plain(dev, cluster, model, shared):
     stack = lambda i: d(torch.stack([probs[b % len(probs)][i] for b in range(3)]))
     pos, valid = stack(1), stack(5)
     uv, xr, isg = (d(probs[0][i]) if shared else stack(i) for i in (2, 3, 4))
-    kw = dict(model=model, cluster=cluster)
+    kw = dict(model=model)
     before = pose_mod.optimize_pose_batch.launches
     r = pose_mod.optimize_pose_batch(R0, t0, pos, uv, xr, isg, valid, cam, **kw)
     assert pose_mod.optimize_pose_batch.launches == before + 1
@@ -1337,14 +1336,14 @@ def test_pose_lm_batch_kernel_matches_plain(dev, cluster, model, shared):
 
 
 def test_pose_lm_refuses_more_slots_than_a_cluster_holds(dev):
-    N = pose_mod.MAX_SLOTS_PER_BLOCK + 1
+    N = pose_mod.MAX_SLOTS_PER_BLOCK * pose_mod.CLUSTER + 1
     z = torch.zeros(1, N, 3, device=dev)
     with pytest.raises(ValueError):
         pose_mod.optimize_pose_batch(torch.eye(3, device=dev)[None], torch.zeros(1, 3, device=dev),
                                      z, torch.zeros(N, 2, device=dev), torch.zeros(N, device=dev),
                                      torch.ones(N, device=dev),
                                      torch.ones(1, N, dtype=torch.bool, device=dev),
-                                     CamScalars(1, 1, 0, 0, 1, 1, 0), cluster=1)
+                                     CamScalars(1, 1, 0, 0, 1, 1, 0))
 
 
 def test_cascade_kernels_repeat_under_concurrent_streams(dev):

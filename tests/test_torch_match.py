@@ -23,6 +23,7 @@ torch.set_num_threads(1)
 
 N, M, L = 600, 500, 4
 SF = np.asarray([1.2 ** l for l in range(L)], np.float32)
+IMAGE = (400.0, 400.0)  # the keypoints' image (the windows' extent)
 
 
 @pytest.fixture(scope="module")
@@ -88,7 +89,7 @@ def test_match_frame_and_landmarks_exact(data):
         *[_t(d[k]) for k in ("kp_uv", "kp_level", "kp_desc", "kp_valid",
                              "kp_has_lm", "kp_xr", "q_desc", "q_uv", "q_xr",
                              "q_pred", "q_valid")],
-        scale_factors=torch.from_numpy(SF), **kw)
+        scale_factors=torch.from_numpy(SF), image_size=IMAGE, **kw)
     assert int(np.asarray(out_j[1]).sum()) > 20  # matches really happen
     _eq(out_j, out_t)
 
@@ -102,7 +103,7 @@ def test_match_current_and_last_frames_exact(data):
         margin=20.0)
     out_t = P.match_current_and_last_frames(
         *[_t(d[k]) for k in args], scale_factors=torch.from_numpy(SF),
-        num_levels=L, margin=20.0)
+        num_levels=L, image_size=IMAGE, margin=20.0)
     assert int(np.asarray(out_j[1]).sum()) > 20
     _eq(out_j, out_t)
 
@@ -133,7 +134,7 @@ def test_match_in_consistent_area_exact(data, margin):
     out_j = jA.match_in_consistent_area(*[jnp.asarray(a) for a in args],
                                         margin=margin, lowe_ratio=0.9)
     out_t = A.match_in_consistent_area(*[_t(a) for a in args], margin=margin,
-                                       lowe_ratio=0.9)
+                                       lowe_ratio=0.9, image_size=IMAGE)
     assert int(np.asarray(out_j[1]).sum()) > 20
     _eq(out_j, out_t)
 
@@ -153,7 +154,7 @@ def test_match_frame_and_keyframe_exact(data, margin):
     to = P.match_frame_and_keyframe(
         *[t(k) for k in ("kp_uv", "kp_level", "kp_desc", "kp_valid", "kp_angle", "kp_has_lm",
                          "q_desc", "q_uv", "q_pred", "q_angle", "q_valid")],
-        scale_factors=torch.from_numpy(SF), **kw)
+        scale_factors=torch.from_numpy(SF), image_size=IMAGE, **kw)
     assert np.array_equal(np.asarray(jo[1]), to[1].numpy())
     acc = to[1].numpy()
     assert acc.sum() > 20

@@ -4,8 +4,8 @@ top-2 (`hamming_top2_plain` without an index) on seeded random cases.
 The window modes of kernel C visit only the targets in the grid cells a
 row's window meets; the result must be the dense walk's exactly. The plain
 cell index (`build_cell_index_plain`) and the plain cell walk
-(`hamming_top2_plain` with `cells`, built on `cell_walk_mask`) are what the
-kernel computes, so these cases hold the cover to be conservative: targets
+(`hamming_top2_plain` with `walk=True`, built on `cell_walk_mask`) are what
+the kernel computes, so these cases hold the cover to be conservative: targets
 far outside the image (undistorted fisheye and division keypoints), NaN
 coordinates, empty windows, rows that all fail row_ok, one or two targets,
 ties at equal distance, and windows whose edge falls exactly on a target
@@ -47,11 +47,12 @@ def _case(seed, M, N, *, width=752.0, height=480.0, spread=1.0, rad=(5.0, 80.0),
     win = H.WindowGate(
         row_u=f32(ru), row_v=f32(rv), row_xr=f32(xr_r),
         row_rad=f32(rng.uniform(*rad, M)), row_lo=i32(lo), row_hi=i32(lo + 1),
-        col_u=f32(cu), col_v=f32(cv), col_xr=f32(xr_c), col_level=i32(lvl))
+        col_u=f32(cu), col_v=f32(cv), col_xr=f32(xr_c), col_level=i32(lvl),
+        extent=(width, height))
     row_ok = torch.as_tensor(rng.random(M) < ok_rate)
     col_ok = torch.as_tensor(rng.random(N) < 0.9)
     return (torch.as_tensor(q.astype(np.int32)), torch.as_tensor(t.astype(np.int32)), row_ok,
-            col_ok), win, (width, height)
+            col_ok), win
 
 
 def _orients(args, win, seed):
@@ -64,16 +65,15 @@ def _orients(args, win, seed):
             H.AngleGate(a_r, a_c, 0.5235988)]
 
 
-def _equal_to_dense(args, win, size, orient=None):
-    cells = H.build_cell_index_plain(win.col_u, win.col_v, *size)
+def _equal_to_dense(args, win, orient=None):
     dense = H.hamming_top2_plain(*args, window=win, orient=orient)
-    walked = H.hamming_top2_plain(*args, window=win, orient=orient, cells=cells)
-    wrapper = H.hamming_top2(*args, window=win, orient=orient, cells=cells)
+    walked = H.hamming_top2_plain(*args, window=win, orient=orient, walk=True)
+    wrapper = H.hamming_top2(*args, window=win, orient=orient)
     for d, w, x in zip(dense, walked, wrapper):
         assert torch.equal(d, w) and torch.equal(d, x)
     cand = H.gate_matrix(args[2], args[3], win, orient)
-    assert not bool((cand & ~H.cell_walk_mask(win, cells)).any()), "the cover missed a pair"
-    return dense, cells
+    assert not bool((cand & ~H.cell_walk_mask(win)).any()), "the cover missed a pair"
+    return dense
 
 
 CASES = {
@@ -91,37 +91,37 @@ CASES = {
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_cell_walk_equals_dense(name):
     kw = dict(CASES[name])
-    args, win, size = _case(sorted(CASES).index(name) + 11, kw.pop("M"), kw.pop("N"), **kw)
+    args, win = _case(sorted(CASES).index(name) + 11, kw.pop("M"), kw.pop("N"), **kw)
     for orient in _orients(args, win, 5):
-        _equal_to_dense(args, win, size, orient)
+        _equal_to_dense(args, win, orient)
 
 
 def test_rows_with_empty_windows_report_the_dense_walks_default():
     """Rows whose window holds no target (negative or zero radius, a window
     in an empty part of the image) and rows that fail row_ok: best 257 at
     index 0, second 257 at 0, as the dense walk's masked row gives."""
-    args, win, size = _case(3, 200, 300)
+    args, win = _case(3, 200, 300)
     rad = win.row_rad.clone()
     rad[::3] = -1.0
     rad[1::3] = 0.0
     win = win._replace(row_rad=rad, row_u=torch.where(torch.arange(200) % 3 == 2,
                                                       torch.tensor(5000.0), win.row_u))
-    dense, _ = _equal_to_dense(args, win, size)
+    dense = _equal_to_dense(args, win)
     assert bool((dense[0] == 257).all()) and bool((dense[1] == 0).all())
     assert bool((dense[2] == 257).all()) and bool((dense[3] == 0).all())
 
 
 def test_all_rows_fail_row_ok():
-    args, win, size = _case(4, 150, 400, ok_rate=0.0)
-    dense, cells = _equal_to_dense(args, win, size)
+    args, win = _case(4, 150, 400, ok_rate=0.0)
+    dense = _equal_to_dense(args, win)
     assert bool((dense[0] == 257).all())
-    assert int(H.pairs_visited(*args, window=win, cells=cells)) == 0
+    assert int(H.pairs_visited(*args, window=win)) == 0
 
 
 @pytest.mark.parametrize("N", [1, 2])
 def test_one_or_two_targets(N):
-    args, win, size = _case(5 + N, 40, N, rad=(50.0, 400.0))
-    _equal_to_dense(args, win, size)
+    args, win = _case(5 + N, 40, N, rad=(50.0, 400.0))
+    _equal_to_dense(args, win)
 
 
 def test_window_edge_on_a_cell_boundary():
@@ -140,7 +140,7 @@ def test_window_edge_on_a_cell_boundary():
     ru = (cu[j] + sign * rad).astype(np.float32)
     rv = cv[j] + np.float32(0.25)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
-    args, win, size = _case(9, M, N)
+    args, win = _case(9, M, N)
     win = win._replace(row_u=f32(ru), row_v=f32(rv), row_rad=f32(rad), col_u=f32(cu),
                        col_v=f32(cv), row_xr=f32(-np.ones(M)), col_xr=f32(-np.ones(N)),
                        row_lo=torch.zeros(M, dtype=torch.int32),
@@ -148,13 +148,13 @@ def test_window_edge_on_a_cell_boundary():
     args = (args[0], args[1], torch.ones(M, dtype=torch.bool), torch.ones(N, dtype=torch.bool))
     exact = (np.abs(cu[j] - ru) == rad)
     assert exact.mean() > 0.5  # most windows end exactly on their target's boundary
-    _equal_to_dense(args, win, size)
+    _equal_to_dense(args, win)
 
 
 @pytest.mark.parametrize("size", [(752.0, 480.0), (640.0, 320.0), (400.0, 300.0), (5.0, 3.0),
                                   (4000.0, 3000.0)])
 def test_cell_index_sorts_targets_stably(size):
-    args, win, _ = _case(10, 10, 3000, spread=3.0, nan_rate=0.05)
+    args, win = _case(10, 10, 3000, spread=3.0, nan_rate=0.05)
     cells = H.build_cell_index_plain(win.col_u, win.col_v, *size)
     inv, gx, gy = H.cell_grid(*size)
     assert gx * gy <= H.MAX_CELLS and (cells.inv_cell, cells.gx, cells.gy) == (inv, gx, gy)
@@ -173,9 +173,8 @@ def test_stage3_windows_visit_a_small_share_of_the_pairs():
     """Windows of the local-map stage (radius 5 x scale factor, 1-2 cells a
     side) at 752x480 visit far fewer pairs than the dense walk: the
     prediction for kernel C is 30x or more."""
-    args, win, size = _case(12, 4096, 2872, rad=(5.0, 18.0))
-    cells = H.build_cell_index_plain(win.col_u, win.col_v, *size)
-    visited = int(H.pairs_visited(*args, window=win, cells=cells))
+    args, win = _case(12, 4096, 2872, rad=(5.0, 18.0))
+    visited = int(H.pairs_visited(*args, window=win))
     dense = int(args[2].sum()) * 2872
     assert visited * 30 <= dense
     assert int(H.pairs_visited(*args)) == dense
