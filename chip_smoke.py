@@ -11,7 +11,9 @@ Phases, each fatal on failure (nothing is caught):
   3. kernels A-D of the RGBD tracking slice against their plain PyTorch
      versions at its shapes (752x480, 8 levels, N=2872 slots, C=4096 table
      rows): A exact, B's descriptor bit-mismatch rate <= 5e-5 (the CPU
-     test's bound against JAX); C exactly (0 rows differing from the dense
+     test's bound against JAX), also on keypoints aimed near both edges of
+     every steering bin and clamped at every image border
+     (bin_edge_keypoints; angles within 1e-3, strips equal); C exactly (0 rows differing from the dense
      plain walk) in its window mode on its cell index (whose counting sort
      must equal the plain argsort), in brute force at 2872 x 2872 with and
      without the orientation gate, and on edge cases at those widths
@@ -80,7 +82,13 @@ Phases, each fatal on failure (nothing is caught):
      (plain H's own distance printed), the same accept / stop decisions
      and outlier flags wherever the deciding quantity lies more than 1e-5
      from its threshold; the whole BA of each, kernel against plain and
-     each against itself, is printed; times and bounds as in phase 4.
+     each against itself, is printed; times and bounds as in phase 4, F
+     also timed on the slice's largest local problem; F's pair index
+     equal to its plain version and timed beside torch.argsort, and F on
+     its edge cases (check_f_cases: random observers at the local shape,
+     L = 4133, K = 1, K = 130, fixed rows and a chunk with no valid
+     observation, the equirectangular model) with the index equal to
+     plain, F's system within the bound above and two launches equal.
   9. the loop slice (phase 7 is its first 500 frames, read at frame 500):
      the bench's whole 1290-frame circuit with mapping and the loop detector
      enabled and the bench's drift injected after the outbound leg
@@ -141,10 +149,10 @@ Phases, each fatal on failure (nothing is caught):
      their forward hops);
  13. kernels F-I and P twice on the same inputs (init, local and global
      shapes, the loop slice's global BA and pose graph): bit-identical;
-     G and spd_solve, then C and D, launched from several host threads on
-     their own streams beside kernel F: every launch gives its case's bits
-     on the idle card, and none fails (check_solves_under_load,
-     check_cascade_under_load);
+     G, spd_solve and F, then C, D and B (both modes), launched from
+     several host threads on their own streams beside kernel F: every
+     launch gives its case's bits on the idle card, and none fails
+     (check_solves_under_load, check_cascade_under_load);
  14. the threaded slice (util/threaded_slice.py): the default System —
      pipelined tracker, mapping and loop-closing threads on their own CUDA
      streams — over the bench's circuit fed as fast as the feed returns:
@@ -369,6 +377,53 @@ def _bound(nbytes: float, ops: float) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def _describe_ops(angle, valid, tab, strips: bool = False) -> float:
+    """Kernel B's operations on this run's keypoints: per valid keypoint
+    the IC moments (31x31, a product and a sum for each of two), 256
+    comparisons, and 49 products and sums for each distinct pixel of its
+    steering bin (tab.npix; and the strip's 231 in strip mode)."""
+    import torch
+
+    from stella_vslam_tpu_torch.feature import orb_extractor as ox
+
+    bins = torch.remainder(torch.round(angle / ox._TAU).long(), ox.ANGLE_BINS)
+    n = int(valid.sum())
+    blurred = float(tab.npix.long()[bins][valid].sum()) + (231.0 * n if strips else 0.0)
+    return n * (31 * 31 * 2 + 256 * 2) + 98.0 * blurred
+
+
+def check_describe_edges(dev, tab) -> dict:
+    """Kernel B on bin_edge_keypoints (every steering bin, angles near both
+    its edges, patches clamped at every border and on images smaller than
+    a patch) against orb_describe_plain, in both modes: angles within 1e-3,
+    descriptor bits within DESC_MISMATCH_BOUND, strips equal, all 30 bins
+    reached. Returns the readings."""
+    import torch
+
+    from stella_vslam_tpu_torch.feature import orb_extractor as ox
+
+    args = bin_edge_keypoints(0, dev) + (tab,)
+    valid = args[6]
+    ap, dp, sp = ox.orb_describe_plain(*args, strips=True)
+    out = dict(keypoints=int(valid.numel()))
+    for mode, res in (("describe", ox.orb_describe(*args)),
+                      ("strips", ox.orb_describe_strips(*args))):
+        x = (res[1] ^ dp)[valid].cpu().numpy()
+        out[mode] = dict(max_abs_angle_diff=float((res[0] - ap).abs().max()),
+                         desc_bit_mismatch=float(np.unpackbits(x.view(np.uint8)).sum())
+                         / max(1, x.size * 32))
+        if mode == "strips":
+            out[mode]["strips_equal"] = bool(torch.equal(res[2], sp))
+    bins = torch.remainder(torch.round(ap / ox._TAU).long(), ox.ANGLE_BINS)
+    out["bins_reached"] = len(set(bins[valid].tolist()))
+    print("kernel B at every bin's edges and the image borders: " + json.dumps(out))
+    assert out["bins_reached"] == ox.ANGLE_BINS and out["strips"]["strips_equal"]
+    assert all(out[m]["max_abs_angle_diff"] < 1e-3
+               and out[m]["desc_bit_mismatch"] <= DESC_MISMATCH_BOUND
+               for m in ("describe", "strips")), "kernel B disagrees at bin edges or borders"
+    return out
+
+
 def check_kernels(dev, world):
     """Kernels A-D against their plain versions on the card; returns rows
     of the kernels line (launch counts filled in after the slices)."""
@@ -431,8 +486,9 @@ def check_kernels(dev, world):
           f"bit mismatch {bit_rate:.6f}, max |angle diff| {err_b:.3g} rad")
     assert bit_rate <= DESC_MISMATCH_BOUND, "kernel B descriptors disagree"
     assert err_b < 1e-3, "kernel B angles disagree"
-    # per keypoint: IC moments over the 31x31 disc, the 39x39 x 49-tap
-    # blur, 256 comparisons
+    edge = check_describe_edges(dev, ex._tables)
+    # this run's work: per valid keypoint the IC moments over the 31x31
+    # disc, the 49-tap blur of its bin's distinct pixels, 256 comparisons
     rows.append(dict(
         name="orb_describe", route="cuda",
         source="stella_vslam_tpu_torch/csrc/orb_describe.cu",
@@ -441,8 +497,8 @@ def check_kernels(dev, world):
         **_times(lambda: ox.orb_describe(*args)),
         plain_ms=_median_ms(lambda: ox.orb_describe_plain(*args)),
         library_ms=None,
-        **_bound(pyr_bytes + 36.0 * ex.num_slots,
-                 n_valid * (31 * 31 * 2 + 39 * 39 * 49 * 2 + 256 * 2))))
+        bin_edge_cases=edge, **_bound(pyr_bytes + 36.0 * ex.num_slots,
+                                      _describe_ops(ang_k, valid, ex._tables))))
 
     # ---- C: gated Hamming top-2 at the local-map shape (C=4096 x N) ----
     N, C = ex.num_slots, 4096
@@ -776,6 +832,95 @@ def _ba_problem(dev, K, L, D, stereo, seed, spacing=0.4, ordered=False):
     return prob, CamScalars(fx, fx, cx, cy, 752.0, 480.0, fxb)
 
 
+def schur_problem(K, L, D, seed, device="cpu", fixed_share=0.1, invalid_share=0.05,
+                  empty_chunk=True, model="perspective"):
+    """A seeded BA problem for kernel F's edge cases: K cameras 0.1 m apart,
+    L points 2.5-4.5 m away, D observer slots each drawn with repetition (a
+    landmark may list a camera twice), 15% of the slots padded (invalid,
+    camera 0), half the rest stereo; `fixed_share` of the landmarks fixed,
+    `invalid_share` invalid; with `empty_chunk` (and L > 256), landmarks
+    128-255 have no valid observation. Returns (BAProblem, CamScalars)."""
+    import torch
+
+    from stella_vslam_tpu_torch.ops.optim import ba
+    from stella_vslam_tpu_torch.ops.optim.residuals import CamScalars
+
+    fx, cx, cy, fxb = 458.0, 376.0, 240.0, float(np.float32(458.0 * 0.12))
+    rng = np.random.default_rng(seed)
+    t = np.stack([[-0.1 * k, 0.01 * k, 0.0] for k in range(K)])
+    X = np.stack([rng.uniform(-1.5, 1.5, L), rng.uniform(-1, 1, L),
+                  rng.uniform(2.5, 4.5, L)], -1)
+    oc = rng.integers(0, K, (L, D)).astype(np.int32)
+    valid = rng.random((L, D)) < 0.85
+    if empty_chunk and L > 256:
+        valid[128:256] = False
+    oc[~valid] = 0
+    Xc = X[:, None, :] + t[oc]
+    if model == "equirectangular":
+        n = np.linalg.norm(Xc, axis=-1)
+        uv = np.stack([320.0 + np.arctan2(Xc[..., 0], Xc[..., 2]) * 640.0 / (2 * np.pi),
+                       160.0 + np.arcsin(Xc[..., 1] / n) * 320.0 / np.pi], -1)
+        xr = -np.ones((L, D))
+    else:
+        uv = np.stack([fx * Xc[..., 0] / Xc[..., 2] + cx, fx * Xc[..., 1] / Xc[..., 2] + cy],
+                      -1)
+        xr = np.where(rng.random((L, D)) < 0.5, uv[..., 0] - fxb / Xc[..., 2], -1.0)
+    uv = uv + rng.normal(0, 0.5, uv.shape)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    b = lambda a: torch.as_tensor(np.asarray(a, bool), device=device)
+    prob = ba.BAProblem(
+        cam_R=f(np.tile(np.eye(3), (K, 1, 1))),
+        cam_t=f(t + np.concatenate([[[0, 0, 0]], rng.normal(0, 0.01, (K - 1, 3))])),
+        cam_fixed=b(np.arange(K) == 0), cam_valid=b(np.ones(K)),
+        lm_pos=f(X + rng.normal(0, 0.01, X.shape)), lm_valid=b(rng.random(L) >= invalid_share),
+        obs_cam=torch.as_tensor(oc, device=device), obs_uv=f(uv), obs_x_right=f(xr),
+        obs_inv_sigma_sq=f(np.ones((L, D))), obs_valid=b(valid),
+        lm_fixed=b(rng.random(L) < fixed_share))
+    cam = CamScalars(fx, fx, cx, cy, 752.0, 480.0, fxb) if model != "equirectangular" \
+        else CamScalars(0.0, 0.0, 320.0, 160.0, 640.0, 320.0, 0.0)
+    return prob, cam
+
+
+def bin_edge_keypoints(seed: int = 0, device="cpu"):
+    """Kernel B's inputs (pyr, base, H, W, x, y, valid) for keypoints on
+    their own images: for each of the 30 steering bins, intensity ramps
+    aimed 0.03 rad inside both of its edges and at its centre on 64x64
+    images (the keypoint at the centre), a ramp with the keypoint on each
+    border and corner (the patch clamped), and a keypoint on an image
+    smaller than a patch (9x7 or 31x23, like the top pyramid levels). The
+    last keypoint is invalid (angle 0)."""
+    import torch
+
+    tau = 2.0 * np.pi / 30
+    rng = np.random.default_rng(seed)
+    imgs, kps = [], []
+
+    def ramp(h, w, th, x, y):
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+        img = 128.0 + 3.0 * (np.cos(th) * (xx - x) + np.sin(th) * (yy - y))
+        return np.clip(img + rng.normal(0.0, 2.0, (h, w)), 0.0, 255.0).astype(np.float32)
+
+    for b in range(30):
+        for th in ((b - 0.5) * tau + 0.03, b * tau, (b + 0.5) * tau - 0.03):
+            imgs.append(ramp(64, 64, th, 32, 32))
+            kps.append((32, 32))
+        th = b * tau + 0.2
+        for x, y in ((0, 0), (63, 0), (0, 63), (63, 63), (32, 0), (0, 32), (63, 32), (32, 63)):
+            imgs.append(ramp(64, 64, th, x, y))
+            kps.append((x, y))
+        h, w = (7, 9) if b % 2 else (23, 31)
+        imgs.append(ramp(h, w, th, w // 2, h // 2))
+        kps.append((w // 2, h // 2))
+    base = np.cumsum([0] + [im.size for im in imgs[:-1]])
+    t = lambda a, dt: torch.as_tensor(np.asarray(a, dt), device=device)
+    valid = np.ones(len(imgs), bool)
+    valid[-1] = False
+    return (t(np.concatenate([im.reshape(-1) for im in imgs]), np.float32),
+            t(base, np.int32), t([im.shape[0] for im in imgs], np.int32),
+            t([im.shape[1] for im in imgs], np.int32), t([k[0] for k in kps], np.int32),
+            t([k[1] for k in kps], np.int32), t(valid, bool))
+
+
 def _f_route_readings(dev, seeds, B: int = 1024):
     """Where kernel E's F hypotheses part from the plain version. Plain
     projects each null vector to rank 2 by a float32 SVD, the kernel by a
@@ -989,6 +1134,94 @@ def _f_scale(prob, cam, R, t, p, inlier, lam, use_huber, model="perspective"):
         rhs.reshape(-1)
 
 
+F_PARTS = ("Hcc", "b_c", "S_red", "rhs_red", "cost")
+
+
+def _f_against_plain(st, prob, prob64, cam, R, t, p, inlier, lam, use_huber, model):
+    """Kernel F's system on st (after its launch at the state R, t, p) and
+    plain F's, each against plain F in float64, entry by entry relative to
+    _f_scale: {f_<part>: kernel's error, f_<part>_plain: plain's, f_excess:
+    the kernel's over 10x plain's plus 1e-4}; the kernel's (Hcc, b_c, S_red,
+    rhs_red); (plain F's cost, landmark terms, and those in float64)."""
+    import torch
+
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    c0, Hcc, b_c, S_red, rhs_red, terms = ba.linearize_schur_plain(
+        prob, cam, R, t, p, inlier, lam, use_huber, model)
+    iu = torch.triu_indices(6, 6, device=prob.cam_R.device)
+    hc = st.hc.clone()
+    Hcc_k = torch.zeros_like(Hcc)
+    Hcc_k[:, iu[0], iu[1]] = hc[:, :21]
+    Hcc_k[:, iu[1], iu[0]] = hc[:, :21]
+    b_c_k, S_k, rhs_k = hc[:, 21:], st.S.clone(), st.rhs.clone()
+    c64, *f64, terms64 = ba.linearize_schur_plain(
+        prob64, cam, R.double(), t.double(), p.double(), inlier, lam.double(), use_huber, model)
+    scale = _f_scale(prob, cam, R, t, p, inlier, lam, use_huber, model) + (c0,)
+    errs = {"f_excess": 0.0}
+    for name, u, v, e, m in zip(F_PARTS, (Hcc_k, b_c_k, S_k, rhs_k, st.ctrl[ba._COST0]),
+                                (Hcc, b_c, S_red, rhs_red, c0), f64 + [c64], scale):
+        m = m.double().clamp(min=1e-30)
+        ek = float(((u.double() - e).abs() / m).max())
+        ep = float(((v.double() - e).abs() / m).max())
+        errs[f"f_{name}"], errs[f"f_{name}_plain"] = ek, ep
+        errs["f_excess"] = max(errs["f_excess"], ek / (10.0 * ep + 1e-4))
+    return errs, (Hcc_k, b_c_k, S_k, rhs_k), (c0, terms, terms64)
+
+
+def check_f_cases(dev) -> dict:
+    """Kernel F on its edge cases: its pair index equal to the plain index
+    (ba.schur_index_equal), one launch's system within _lockstep_ba's F
+    bound of plain F (f_excess < 1) and a second launch bit-identical.
+    Cases: the local shape with random observers (ordered=False), L = 4096
+    + 37, one camera (K = 1, cameras repeated within a landmark), K = 130
+    (S in 780 x 780), fixed rows and a chunk with no valid observation, the
+    equirectangular model. Returns {case: readings}."""
+    import torch
+
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    cases = [("local K=16 L=4096 D=12 ordered=False",
+              *_ba_problem(dev, 16, 4096, 12, False, 16, spacing=0.1), "perspective"),
+             ("local K=16 L=4133 D=12",
+              *_ba_problem(dev, 16, 4133, 12, False, 16, spacing=0.1, ordered=True),
+              "perspective"),
+             ("K=1 L=300 D=3", *schur_problem(1, 300, 3, 81, dev), "perspective"),
+             ("K=130 L=1024 D=8", *schur_problem(130, 1024, 8, 82, dev), "perspective"),
+             ("K=16 L=1000 D=12 fixed rows and an empty chunk",
+              *schur_problem(16, 1000, 12, 83, dev, fixed_share=0.2), "perspective"),
+             ("equirect K=6 L=700 D=4",
+              *schur_problem(6, 700, 4, 84, dev, model="equirectangular"), "equirectangular")]
+    out = {}
+    for label, prob, cam, model in cases:
+        st = ba._KernelState(prob, cam, model)
+        same_index = ba.schur_index_equal(st.index, ba.schur_index_plain(
+            prob.obs_cam, prob.obs_valid, prob.lm_valid, prob.lm_fixed, st.K))
+        lam = torch.tensor(1e-4, device=dev)
+        st.ctrl[ba._LAM] = lam
+        inlier = torch.ones_like(prob.obs_valid)
+        inl = inlier.to(torch.uint8)
+        system = lambda: torch.cat([st.hc.flatten(), st.S.flatten(), st.rhs,
+                                    st.ctrl[ba._COST0:ba._COST0 + 1], st.Wg.flatten(),
+                                    st.lmblk.flatten()]).clone()
+        ba.ba_linearize_schur(st, inl, True)
+        first = system()
+        prob64 = ba.BAProblem(*[v.double() if v is not None and v.is_floating_point() else v
+                                for v in prob])
+        errs, _, _ = _f_against_plain(st, prob, prob64, cam, prob.cam_R, prob.cam_t,
+                                      prob.lm_pos, inlier, lam, True, model)
+        ba.ba_linearize_schur(st, inl, True)
+        out[label] = dict(index_equal=same_index, f_excess=errs["f_excess"],
+                          f_S_red=errs["f_S_red"], f_S_red_plain=errs["f_S_red_plain"],
+                          repeat_bit_identical=bool(torch.equal(first, system())),
+                          pair_terms=st.index.n_terms)
+    print("kernel F edge cases (index equal to plain, F against plain F in float64, two "
+          "launches): " + json.dumps(out))
+    assert all(r["index_equal"] and r["f_excess"] < 1.0 and r["repeat_bit_identical"]
+               for r in out.values()), "kernel F disagrees with plain F on an edge case"
+    return out
+
+
 def _lockstep_ba(prob, cam, num_first, num_second, model="perspective"):
     """Kernels F-I against their plain versions on the same inputs, kernel
     by kernel through bundle_adjust's schedule on the kernels' own state
@@ -1020,13 +1253,11 @@ def _lockstep_ba(prob, cam, num_first, num_second, model="perspective"):
     st = ba._KernelState(prob, cam, model)
     prob64 = ba.BAProblem(*[v.double() if v is not None and v.is_floating_point() else v
                             for v in prob])
-    parts = ("Hcc", "b_c", "S_red", "rhs_red", "cost")
-    out = dict({f"f_{n}{w}": 0.0 for n in parts for w in ("", "_plain")}, f_excess=0.0,
+    out = dict({f"f_{n}{w}": 0.0 for n in F_PARTS for w in ("", "_plain")}, f_excess=0.0,
                g_backward=0.0, g_backward_plain=0.0, g_pose=0.0, g_step_diff=0.0,
                point_share=0.0, point_share_plain=0.0, cost_rel=0.0, decisions=0, flags=0,
                iterations=0)
     state = lambda: (st.cam_R.reshape(K, 3, 3).clone(), st.cam_t.clone(), st.lm.clone())
-    iu = torch.triu_indices(6, 6, device=prob.cam_R.device)
     worst = lambda key, v: out.__setitem__(key, max(out[key], float(v)))
 
     def backward_error(S, rhs, dx):
@@ -1060,26 +1291,11 @@ def _lockstep_ba(prob, cam, num_first, num_second, model="perspective"):
             R, t, p = state()
             lam = st.ctrl[ba._LAM].clone()
             # F
-            c0, Hcc, b_c, S_red, rhs_red, terms = ba.linearize_schur_plain(
-                prob, cam, R, t, p, inlier, lam, use_huber, model)
             ba.ba_linearize_schur(st, inl, use_huber)
-            hc = st.hc.clone()
-            Hcc_k = torch.zeros_like(Hcc)
-            Hcc_k[:, iu[0], iu[1]] = hc[:, :21]
-            Hcc_k[:, iu[1], iu[0]] = hc[:, :21]
-            b_c_k, S_k, rhs_k = hc[:, 21:], st.S.clone(), st.rhs.clone()
-            c64, *f64, terms64 = ba.linearize_schur_plain(
-                prob64, cam, R.double(), t.double(), p.double(), inlier, lam.double(), use_huber,
-                model)
-            scale = _f_scale(prob, cam, R, t, p, inlier, lam, use_huber, model) + (c0,)
-            for name, u, v, e, m in zip(parts, (Hcc_k, b_c_k, S_k, rhs_k, st.ctrl[ba._COST0]),
-                                        (Hcc, b_c, S_red, rhs_red, c0), f64 + [c64], scale):
-                m = m.double().clamp(min=1e-30)
-                ek = float(((u.double() - e).abs() / m).max())
-                ep = float(((v.double() - e).abs() / m).max())
-                worst(f"f_{name}", ek)
-                worst(f"f_{name}_plain", ep)
-                worst("f_excess", ek / (10.0 * ep + 1e-4))
+            errs, (Hcc_k, b_c_k, S_k, rhs_k), (c0, terms, terms64) = _f_against_plain(
+                st, prob, prob64, cam, R, t, p, inlier, lam, use_huber, model)
+            for key, v in errs.items():
+                worst(key, v)
             # G on F's system
             ba.ba_reduced_solve(st)
             dx_p, _, _ = ba.reduced_solve_plain(prob, R, t, Hcc_k, b_c_k, S_k, rhs_k, lam)
@@ -1154,18 +1370,27 @@ def _g_device_ms(st, n: int = DEVICE_TIMED_CALLS) -> float:
     return _device_ms(launch, n=n, warmup=0, before_run=refill)
 
 
-def _ba_work(K: int, L: int, D: int) -> dict:
+def _valid_obs(prob) -> int:
+    """The observations a BA problem holds: valid slots of valid landmarks."""
+    return int((prob.obs_valid & prob.lm_valid[:, None]).sum())
+
+
+def _ba_work(K: int, L: int, D: int, n_obs=None, n_terms=None) -> dict:
     """Bytes and operations of kernels F, G, H and I on a K, L, D problem
     (one LM iteration; F and H of one landmark shard where L is a shard's).
-    Operations per observation: Jacobians ~60, Hcc + b_c 27x6, Hpp + b_p
-    9x6, W 18x6; per landmark: its inverse ~40, D x (W G 108 + W G b 36),
-    D^2 Schur blocks x 216. H: D x 108 back-substitution + D x ~60 for the
-    trial residuals. G: n^3/3 + 2 n^2. I: the projection and chi-square,
-    ~30 per observation."""
+    F's operations per valid observation (n_obs, all L x D slots if not
+    given): Jacobians ~60, Hcc + b_c 27x6, Hpp + b_p 9x6, W 18x6, W G 108 +
+    W G b 36; per landmark its inverse ~40; per Schur term of one triangle
+    of S (n_terms: the pair index's terms, every landmark's D(D+1)/2 if not
+    given) 216. H: D x 108 back-substitution + D x ~60 for the trial
+    residuals. G: n^3/3 + 2 n^2. I: the projection and chi-square, ~30 per
+    observation."""
     n = 6 * K
     obs_bytes = L * D * 22.0
+    n_obs = L * D if n_obs is None else n_obs
+    n_terms = L * D * (D + 1) / 2.0 if n_terms is None else n_terms
     return {"F": (obs_bytes + L * 12 + L * D * 72 + L * 40 + n * n * 4,
-                  L * D * (60 + 162 + 54 + 108 + 144) + L * (40 + D * D * 216)),
+                  n_obs * (60 + 162 + 54 + 108 + 144) + L * 40 + n_terms * 216.0),
             "G": (n * n * 4.0 + K * 27 * 4 + n * 4 + K * 48, n ** 3 / 3.0 + 2 * n * n),
             "H": (obs_bytes + L * D * 72 + L * 40 + L * 24, L * D * (108 + 60) + L * 30),
             "I": (obs_bytes + L * 12 + L * D, L * D * 30.0)}
@@ -1239,7 +1464,7 @@ def _time_ba_kernels(dev, err, prob, cam, suffix="", model="perspective"):
                  library_ms=_device_ms(lambda: torch.linalg.solve(S, rhs)),
                  library_one_call_ms=_median_ms(lambda: torch.linalg.solve(S, rhs)),
                  library_call="torch.linalg.solve on the damped system", timing=DEVICE_TIMING)
-    work = _ba_work(K, L, D)
+    work = _ba_work(K, L, D, n_obs=_valid_obs(prob), n_terms=st.index.n_terms)
     rows = []
     for name, fn, plain_fn, replaces in (
             ("ba_linearize_schur", "F", lin, "stella_vslam_tpu/ops/optim/ba.py:416"),
@@ -1498,7 +1723,51 @@ def check_mapping_kernels(dev, mapper, inputs):
     rows += _time_ba_kernels(dev, e_pose, prob, cam, suffix="_local")
     rows[-4]["kernel_by_kernel_on_slice"] = worst
     rows[-4]["whole_ba_pose_spread_on_slice"] = spread
+    # F on the slice's largest local problem: the real observer layout
+    rows += [r for r in _time_ba_kernels(dev, worst["g_pose"], local[0], mapper.cam_scalars,
+                                         suffix="_map_local")
+             if r["name"].startswith("ba_linearize_schur")]
+    rows.append(_schur_index_row(dev, prob, cam))
+    rows[-1]["f_edge_cases"] = check_f_cases(dev)
     return rows
+
+
+def _schur_index_row(dev, prob, cam) -> dict:
+    """Kernel F's pair index on prob against its plain version (equal
+    entry by entry), timed beside torch.argsort of the terms' keys."""
+    import torch
+
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    st = ba._KernelState(prob, cam)
+    K, (L, D) = st.K, prob.obs_cam.shape
+    plain = lambda: ba.schur_index_plain(prob.obs_cam, prob.obs_valid, prob.lm_valid,
+                                         prob.lm_fixed, K)
+    ix = plain()
+    same = ba.schur_index_equal(st.index, ix)
+    torch.cuda.synchronize()
+    print(f"kernel F's pair index K={K} L={L} D={D}: {ix.n_terms} pair terms in "
+          f"{int(ix.nseg.sum())} groups, equal to plain {same}")
+    assert same, "kernel F's pair index disagrees with its plain version"
+    # the terms' (chunk, kd, ke) keys in enumeration order, for the library sort
+    tod = ix.terms[torch.arange(ix.cap_t, device=dev)[None] < ix.nterm[:, None]].long()
+    oc = prob.obs_cam.reshape(-1).long()
+    keys = ((tod[:, 0] // (ba.LM_CHUNK * D)) * K + oc[tod[:, 0]]) * K + oc[tod[:, 1]]
+    keys = keys[torch.argsort(tod[:, 0] * (L * D) + tod[:, 1])].contiguous()
+    lib = lambda: torch.argsort(keys, stable=True)
+    n_terms, n_obs, nseg, C = ix.n_terms, _valid_obs(prob), int(ix.nseg.sum()), ix.nterm.numel()
+    return dict(
+        name="schur_index", route="cuda", source="stella_vslam_tpu_torch/csrc/ba_schur.cu",
+        replaces="stella_vslam_tpu/ops/optim/ba.py:416 (the camera keys of its one-hot sums)",
+        max_abs_err=0.0, index_equal_plain=same,
+        shape=f"K={K} L={L} D={D}: {n_terms} pair terms in {nseg} groups, once per BA",
+        **_times(lambda: ba.build_schur_index(st)), plain_ms=_median_ms(plain, reps=5),
+        library_ms=_device_ms(lib), library_one_call_ms=_median_ms(lib),
+        library_call="torch.argsort(stable=True) of the pair terms' (chunk, kd, ke) keys",
+        # obs_cam, the flags read; terms, groups, camera runs written; ~10
+        # operations a slot pair, ~20 a term and a valid observation (sorts)
+        **_bound(5.0 * L * D + 2.0 * L + 8.0 * n_terms + 16.0 * nseg + 4.0 * n_obs
+                 + 8.0 * C * K, 10.0 * L * D * D + 20.0 * (n_terms + n_obs)))
 
 
 def record_loop_inputs(slam):
@@ -1654,7 +1923,7 @@ def rerun_loop_slice(dev, world, first, wrappers, card):
         "second loop slice: too few keyframes"
     assert stats2["loop_edges"] and all(stats2["frame_after_loop_tracked"]), \
         "second loop slice: no loop edge, or a frame after a correction lost"
-    for name in SHARDED_KERNELS + ("ba_linearize_schur", "ba_reduced_solve",
+    for name in SHARDED_KERNELS + ("ba_linearize_schur", "schur_index", "ba_reduced_solve",
                                    "ba_backsub_cost", "ba_classify"):
         assert launches[name] > 0, f"{name} was not launched by the sharded loop slice"
     return out, stats2, launches
@@ -2351,13 +2620,15 @@ def check_repeatability(dev, loop_rec, cam):
 
 
 def check_solves_under_load(dev, seconds: float = 6.0) -> dict:
-    """Kernel G and spd_solve launched from five host threads, each on its
-    own stream, while a sixth keeps the card busy with kernel F: the
-    threaded System's mapper (local BA), loop closer (pose graph) and
-    detached global BA share the card so. Cases: G at K = 16 (one block)
-    and K = 64 (a cluster of 4 blocks); spd_solve at n = 224 and 448 (the
-    pose graph at 32 and 64 keyframes, one cluster kernel of 4 blocks at
-    two shared-memory sizes) and n = 672 (a cluster of 8). Every launch
+    """Kernel G, spd_solve and kernel F launched from seven host threads,
+    each on its own stream, while an eighth keeps the card busy with kernel
+    F: the threaded System's mapper (local BA), loop closer (pose graph)
+    and detached global BA share the card so. Cases: G at K = 16 (one
+    block) and K = 64 (a cluster of 4 blocks); spd_solve at n = 224 and 448
+    (the pose graph at 32 and 64 keyframes, one cluster kernel of 4 blocks
+    at two shared-memory sizes) and n = 672 (a cluster of 8); F (its
+    system, cost and partials) at the local shape (K = 16, L = 4096, D =
+    12) and a global one (K = 64, L = 4096, D = 16). Every launch
     must give the bits its case gave on the idle card; the mismatches are
     counted on the card, so that the launches run back to back. Returns
     {case: [launches, launches whose bits differ]}."""
@@ -2387,31 +2658,73 @@ def check_solves_under_load(dev, seconds: float = 6.0) -> dict:
         b = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=dev)
         return lambda: linalg.spd_solve(A, b)
 
+    def f_case(K, L, D, seed):
+        prob, cam = _ba_problem(dev, K, L, D, False, seed, spacing=0.1, ordered=True)
+        st = ba._KernelState(prob, cam)
+        st.ctrl[ba._LAM] = 1e-4
+        inl = torch.ones((L, D), dtype=torch.uint8, device=dev)
+
+        def linearize():
+            ba.ba_linearize_schur(st, inl, True)
+            return torch.cat([st.hc.flatten(), st.S.flatten(), st.rhs, st.ctrl[:1]])
+        return linearize
+
     cases = {"G K=16 (one block)": g_case(16, 91), "G K=64 (cluster of 4)": g_case(64, 92),
              "spd_solve n=224 (cluster of 4)": spd_case(224, 93),
              "spd_solve n=448 (cluster of 4)": spd_case(448, 94),
-             "spd_solve n=672 (cluster of 8)": spd_case(672, 96)}
+             "spd_solve n=672 (cluster of 8)": spd_case(672, 96),
+             "F K=16 L=4096 D=12 (local)": f_case(16, 4096, 12, 97),
+             "F K=64 L=4096 D=16 (global)": f_case(64, 4096, 16, 98)}
     counts = _under_load(dev, cases, seconds)
-    print(f"kernel G and spd_solve from {len(cases)} threads on their own streams beside "
+    print(f"kernels G, spd_solve and F from {len(cases)} threads on their own streams beside "
           "kernel F, "
           "[launches, launches whose bits differ from the idle card's]: " + json.dumps(counts))
     assert all(n > 0 and bad == 0 for n, bad in counts.values()), \
-        "kernel G or spd_solve gave other bits under concurrent launches"
+        "kernel G, spd_solve or F gave other bits under concurrent launches"
     return counts
 
 
-def check_cascade_under_load(dev, seconds: float = 6.0) -> dict:
-    """Kernels C and D launched from four host threads, each on its own
-    stream, while a fifth keeps the card busy with kernel F: the threaded
-    System's tracking thread and its loop detector share both (and D's
-    shared-memory limit). Cases: C's window call at 2872 x 2872 (keypoints to
-    5x the image; the call builds its cell index and walks it), C's brute
-    force at 2872 x 2872, D on a batch of two 2872-slot problems (the
-    cascade's first launch) and on one 1199-slot equirectangular problem. Every launch must give the bits its case gave
-    on the idle card. Returns {case: [launches, launches whose bits
-    differ]}."""
+def _pair_describe_args(dev):
+    """Kernel B's arguments for both images of a bench stereo-like pair
+    (752x480, 8 levels, 2 x 2872 slots; the frames at x = 0.6 and 3.0 m),
+    keypoints from kernel A."""
     import torch
 
+    from stella_vslam_tpu_torch.feature import orb_extractor as ox
+    from stella_vslam_tpu_torch.feature.orb_params import OrbParams
+    from stella_vslam_tpu_torch.util.drift import pose_at_xy
+    from stella_vslam_tpu_torch.util.rgbd_slice import bench_world
+
+    params = OrbParams(num_levels=8)
+    ex = ox.OrbExtractor(params, 752, 480, min_area=800, device=dev)
+    world = bench_world()
+    pair = torch.stack([torch.from_numpy(world.render(pose_at_xy(x, 0.0))).to(dev)
+                        for x in (0.6, 3.0)])
+    thr = (float(params.ini_fast_thr), float(params.min_fast_thr))
+    pyr = ex.pyramid_flat(pair)
+    pts = [ex.cell_keypoints(ox.fast_nms(v, g, ex.border, *thr), g)
+           for v, g in zip(ex.level_views(pyr), ex.levels)]
+    px, py, valid, _ = (torch.cat(c, dim=-1) for c in zip(*pts))
+    base, hh, ww = ex._slots(2)
+    return (pyr.reshape(-1), base, hh, ww, px.reshape(-1).int().contiguous(),
+            py.reshape(-1).int().contiguous(), valid.reshape(-1).contiguous(), ex._tables)
+
+
+def check_cascade_under_load(dev, seconds: float = 6.0) -> dict:
+    """Kernels C, D and B launched from six host threads, each on its own
+    stream, while a seventh keeps the card busy with kernel F: the threaded
+    System's tracking thread and its loop detector share C and D (and D's
+    shared-memory limit), the tracking thread and the stereo front end B.
+    Cases: C's window call at 2872 x 2872 (keypoints to 5x the image; the
+    call builds its cell index and walks it), C's brute force at 2872 x
+    2872, D on a batch of two 2872-slot problems (the cascade's first
+    launch) and on one 1199-slot equirectangular problem, B on a bench
+    frame's 2872 slots and in strip mode on a pair. Every launch must give
+    the bits its case gave on the idle card. Returns {case: [launches,
+    launches whose bits differ]}."""
+    import torch
+
+    from stella_vslam_tpu_torch.feature import orb_extractor as ox
     from stella_vslam_tpu_torch.feature.orb_params import OrbParams
     from stella_vslam_tpu_torch.match import hamming as H
     from stella_vslam_tpu_torch.ops.optim import pose as pose_mod
@@ -2430,11 +2743,18 @@ def check_cascade_under_load(dev, seconds: float = 6.0) -> dict:
     eq = _pose_problem(dev, rng, 1199, params, "equirectangular")
     cases["D equirect, N=1199"] = lambda: flat(pose_mod.optimize_pose(
         *eq[:7], eq[-1], model="equirectangular"))
+    sargs = _pair_describe_args(dev)
+    n = sargs[1].numel() // 2
+    fargs = tuple(a[:n].contiguous() for a in sargs[1:7])
+    bits = lambda out: torch.cat([out[0].view(torch.int32), out[1].flatten()]
+                                 + [x.flatten().int() for x in out[2:]])
+    cases[f"B {n} slots"] = lambda: bits(ox.orb_describe(sargs[0], *fargs, sargs[7]))
+    cases[f"B strips 2 x {n} slots"] = lambda: bits(ox.orb_describe_strips(*sargs))
     counts = _under_load(dev, cases, seconds)
-    print(f"kernels C and D from {len(cases)} threads on their own streams beside kernel F, "
+    print(f"kernels C, D and B from {len(cases)} threads on their own streams beside kernel F, "
           "[launches, launches whose bits differ from the idle card's]: " + json.dumps(counts))
     assert all(n > 0 and bad == 0 for n, bad in counts.values()), \
-        "kernel C or D gave other bits under concurrent launches"
+        "kernel C, D or B gave other bits under concurrent launches"
     return counts
 
 
@@ -2655,12 +2975,16 @@ def _sharded_ba_bound_and_plain(prob, cam, devs) -> dict:
         ba.bundle_adjust_shards(shards, cam, num_first=16, num_second=0)
     finally:
         ba.shard_iteration = run
-    bound = lambda kernel, L: _bound(*_ba_work(K, L, D)[kernel])["bound_ms"]
+    def bound(kernel, p):
+        n_terms = ba.schur_index_plain(p.obs_cam, p.obs_valid, p.lm_valid, p.lm_fixed,
+                                       K).n_terms
+        return _bound(*_ba_work(K, p.obs_cam.shape[0], D, n_obs=_valid_obs(p),
+                                n_terms=n_terms)[kernel])["bound_ms"]
     psize = 33 * K + 1 + 36 * K * K
     w_blocks = sum(ba.f_blocks(K, p.obs_cam.shape[0]) for p in shards)
-    per_iter = sum(bound("F", p.obs_cam.shape[0]) + bound("H", p.obs_cam.shape[0])
-                   for p in shards) + len(shards) * (
-        bound("G", 0) + _bound((w_blocks + 1) * psize * 4.0, w_blocks * float(psize))["bound_ms"])
+    per_iter = sum(bound("F", p) + bound("H", p) for p in shards) + len(shards) * (
+        bound("G", shards[0]) + _bound((w_blocks + 1) * psize * 4.0,
+                                       w_blocks * float(psize))["bound_ms"])
     plain_ms = _median_ms(lambda: ba.bundle_adjust_shards_plain(shards, cam, num_first=16,
                                                                 num_second=0), reps=1, warmup=0)
     torch.cuda.synchronize()
@@ -3147,7 +3471,6 @@ def check_stereo_kernels(dev, world):
           f"{strips_equal}, descriptor bit mismatch {bit_rate:.6f}, max |angle diff| {err_b:.3g}")
     assert strips_equal, "kernel B's strips disagree with plain"
     assert bit_rate <= DESC_MISMATCH_BOUND and err_b < 1e-3, "kernel B disagrees"
-    n_valid = int(v.sum())
     rows.append(dict(
         name="orb_describe_strips", route="cuda",
         source="stella_vslam_tpu_torch/csrc/orb_describe.cu",
@@ -3158,7 +3481,7 @@ def check_stereo_kernels(dev, world):
         plain_ms=_median_ms(lambda: ox.orb_describe_plain(*bargs, strips=True), reps=5),
         library_ms=None,
         **_bound(4.0 * pyr.numel() + (36.0 + 231.0) * bargs[1].numel(),
-                 n_valid * (31 * 31 * 2 + 39 * 39 * 49 * 2 + 256 * 2))))
+                 _describe_ops(ak, v, ex._tables, strips=True))))
 
     # ---- T: the stereo matcher, synthetic and on a rendered pair ----
     ta, tkw = _synthetic_stereo(dev)
@@ -3212,7 +3535,7 @@ def record_stereo_inputs(sample: int = 20):
 # what the stereo leg and the RGBD leg with mapping launch
 LEG_KERNELS = ("resize_level", "fast_nms", "hamming_top2", "cell_index", "pose_lm",
                "scatter_to_current", "dedup_by_id", "reproject_gate", "undistort_norm",
-               "epipolar_top2", "triangulate", "fuse", "ba_linearize_schur",
+               "epipolar_top2", "triangulate", "fuse", "ba_linearize_schur", "schur_index",
                "ba_reduced_solve", "ba_backsub_cost", "ba_classify", "bow_transform")
 
 
@@ -3299,8 +3622,8 @@ def run_slices(dev, world, wrappers, card):
 EQUIRECT_LEG_KERNELS = ("resize_level", "fast_nms", "orb_describe", "hamming_top2",
                         "cell_index", "pose_lm", "ransac_two_view", "scatter_to_current",
                         "dedup_by_id", "reproject_gate", "epipolar_top2", "triangulate", "fuse",
-                        "ba_linearize_schur", "ba_reduced_solve", "ba_backsub_cost",
-                        "ba_classify", "bow_transform")
+                        "ba_linearize_schur", "schur_index", "ba_reduced_solve",
+                        "ba_backsub_cost", "ba_classify", "bow_transform")
 # the rows of the equirectangular modes and of the kernels the leg runs
 # unchanged, held at its own shapes, by the counter they read
 EQUIRECT_ROWS = {"reproject_gate_equirect": "reproject_gate", "pose_lm_equirect": "pose_lm",
@@ -3532,8 +3855,7 @@ def check_equirect_shapes(dev, slam_like, calls):
         desc_bit_mismatch=bit_rate, shape=shape,
         **_times(lambda: ox.orb_describe(*bargs)),
         plain_ms=_median_ms(lambda: ox.orb_describe_plain(*bargs)), library_ms=None,
-        **_bound(pyr_bytes + 36.0 * ex.num_slots,
-                 n_valid * (31 * 31 * 2 + 39 * 39 * 49 * 2 + 256 * 2))))
+        **_bound(pyr_bytes + 36.0 * ex.num_slots, _describe_ops(ang_k, valid, ex._tables))))
 
     # ---- M: the BoW descent of the frame's descriptors ----
     packed = slam_like.bow_vocab.packed_centers()
@@ -3975,8 +4297,8 @@ FBOW_KERNELS = ("fbow_transform",)
 DISTORTED_LEG_KERNELS = ("resize_level", "fast_nms", "orb_describe", "hamming_top2",
                          "cell_index", "pose_lm", "ransac_two_view", "scatter_to_current",
                          "dedup_by_id", "reproject_gate", "epipolar_top2", "triangulate", "fuse",
-                         "ba_linearize_schur", "ba_reduced_solve", "ba_backsub_cost",
-                         "ba_classify", "bow_transform")
+                         "ba_linearize_schur", "schur_index", "ba_reduced_solve",
+                         "ba_backsub_cost", "ba_classify", "bow_transform")
 # the rows whose launches are a distorted leg's (and its counter there)
 DISTORTED_ROWS = {"undistort_fisheye": ("fisheye", "undistort_fisheye"),
                   "undistort_radial": ("radial_division", "undistort_radial"),
@@ -4380,7 +4702,7 @@ def main() -> int:
         name = row.pop("counter", row_name)
         equirect = name in EQUIRECT_ROWS
         name = EQUIRECT_ROWS.get(name, name)
-        for suffix in ("_local", "_global32", "_global64"):
+        for suffix in ("_map_local", "_local", "_global32", "_global64"):
             name = name.removesuffix(suffix)
         # `launches`: on the path of the slice that ported the kernel (the
         # stereo leg for S, B's strip mode and T; the equirectangular leg

@@ -11,21 +11,27 @@
 // program over [L,D] arrays whose camera-side sums are one-hot [N,K] matmuls
 // and whose Schur product is one [6K,3L] @ [3L,6K] matmul.
 //
-//  F ba_linearize_kernel + ba_reduce_kernel: a fixed set of blocks walks the
-//    landmarks (one thread per landmark, each block its own chunks in
-//    order): residual rows and Jacobians of the landmark's D observations at
-//    the current state, Huber or plain weights, the cost, Hcc / b_c per
-//    camera, Hpp / b_p and W = Jc^T w Jp per observation, the damped inverse
-//    G = (Hpp + damp)^-1 (_sym3_inv), and the Schur terms
-//    S_red[k_d, k_e] += W_d G W_e^T, rhs_red[k_d] += W_d G b_p. Each block
-//    sums into its own copy of the camera-side system (shared memory; the
-//    6K x 6K part in its slice of a device-memory scratch where that does not
-//    fit, K > 38, the global BA's buckets) in an order fixed by the thread
-//    layout: lanes of a warp that share a camera key are summed first (a
-//    shuffle tree when the warp holds one key, else the lowest such lane adds
-//    its peers in lane order), then the warps add their sums one after
-//    another. The reduce kernel adds the blocks' copies in block order. No
-//    float atomics: the same inputs give the same bits on every launch.
+//  F ba_terms_kernel + ba_schur_sum_kernel + ba_reduce_kernel, over a pair
+//    index built once per BA (ba_schur_index_kernel). The terms launch runs
+//    a thread per observation: residual rows and Jacobians at the current
+//    state, Huber or plain weights, the observation's Hcc / b_c terms and
+//    W = Jc^T w Jp (kept for H); one thread per landmark then adds its
+//    observations' Hpp / b_p and cost in slot order and forms the damped
+//    inverse G = (Hpp + damp)^-1 (_sym3_inv), and each observation's
+//    A = W G and W G b_p go to an L2-resident scratch. The sum launch owns
+//    every entry of the camera-side system of a 128-landmark chunk with one
+//    writer: a thread per (chunk, kd <= ke) pair group of the index adds
+//    the group's Schur terms A_d W_e^T in (landmark, d, e) order in
+//    registers and writes the 6x6 block and its mirror (S is computed on
+//    one triangle), a warp per (chunk, camera) adds Hcc / b_c and
+//    rhs_red[k] += W G b_p over the camera's observations in (landmark, d)
+//    order, a thread per chunk adds the chunk's cost. Each chunk writes its
+//    own partial (or, where the partials would outgrow F_PARTIAL_FLOATS,
+//    the chunks c, c + P, ... one sum launch after another into partial
+//    c % P), and the reduce kernel adds the partials in order. No barrier
+//    and no atomic orders a sum: the same inputs give the same bits on
+//    every launch, and landmark shards cut on chunk boundaries give the
+//    unsharded partials.
 //  G spd_tiled_kernel (svt_ba_solve): damps Hcc, masks fixed and invalid
 //    cameras, solves the 6K x 6K reduced system by a panel-blocked Cholesky
 //    on 32 x 32 tiles, forms the trial camera poses Exp(dx) * T, and clears
@@ -48,10 +54,11 @@
 //    outlier flags. Bound by its bytes (~25 per observation).
 // Bound: at init size (K = 2, L = 4096, D = 2) an iteration moves ~0.7 MB
 // (the problem, the per-observation W blocks and the trial state) and does
-// ~5 MFLOP, so it is bound by latency: four dependent launches (F's two, G,
-// H) and G's chain of dependent panels. The design keeps every per-observation intermediate
-// in registers, writes only W (6x3 per observation) for H, and reduces the
-// camera-side sums on chip before touching device memory.
+// ~5 MFLOP, so it is bound by latency: F's three dependent launches and
+// its reduce, G's chain of dependent panels, H. F spreads its work over the
+// card (a thread per observation, then per pair group) where its parent ran
+// one thread per landmark on 32 SMs with a block barrier per Schur block;
+// its per-observation terms (~10 MB at the local shape) stay in L2.
 //
 //  W ba_reduce_kernel and ba_decide_kernel (K22, the landmark-sharded global
 //    BA; replaces the psums of stella_vslam_tpu/parallel/sharded_ba.py
@@ -78,8 +85,8 @@
 // equirectangular rows of ba.py :322-335 with camera.cuh's 2x3 Jacobian and
 // no stereo row, :398-403); G does not depend on it.
 //
-// Every sum runs in an order fixed by the launch shape (F's blocks and
-// warps, H's blocks), so a launch is bit-for-bit repeatable. The chip check
+// Every sum runs in an order fixed by the index and the launch shape (F's
+// groups and chunks, H's blocks), so a launch is bit-for-bit repeatable. The chip check
 // holds a whole BA to the plain version on synthetic problems (poses within
 // 1e-4, points seen twice within 1e-3), each kernel to its plain version on
 // the same inputs on the map slice's local problems, whose reduced systems
@@ -254,238 +261,489 @@ __device__ __forceinline__ float sym_get(const float* G, int i, int j) {
   return G[a == 0 ? b : (a == 1 ? 2 + b : 5)];
 }
 
-// Adds this lane's ROWS x COLS values, value (r, c) at acc[base + r * rs + c],
-// for camera key `key` (-1: nothing) into the block's accumulator, in an
-// order fixed by the thread layout. Lanes of a warp that share a key are
-// summed first: by a shuffle tree when every contributing lane of the warp
-// holds one key (every landmark of the two-keyframe init BA does), else by
-// the key's lowest lane, which adds its peers' values from `stage` in lane
-// order. Then the warps add their sums to `acc` one after another. Distinct
-// keys own distinct entries, so the lanes of one warp never write the same
-// entry. Every thread of the block calls it with the same arguments' shapes
-// (it holds barriers); `stage` holds 32 x ROWS x COLS floats per warp.
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int ROWS, int COLS>
-__device__ __forceinline__ void block_accumulate(float* acc, int rs, int key, int base,
-                                                 const float (&v)[ROWS * COLS], float* stage) {
-  constexpr int NV = ROWS * COLS;
-  if (!__syncthreads_or(key >= 0)) return;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  const int lead = __reduce_max_sync(kFull, key);
-  float s[NV];
-  bool adds = false;
-  int at = base;
-  if (lead >= 0) {
-    if (__all_sync(kFull, key < 0 || key == lead)) {
-      const int src = __ffs(__ballot_sync(kFull, key == lead)) - 1;
-      at = __shfl_sync(kFull, base, src);
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        float x = key < 0 ? 0.f : v[i];
-        for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(kFull, x, o);
-        s[i] = x;
-      }
-      adds = lane == 0;
-    } else {
-      float* st = stage + warp * 32 * NV;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) st[lane * NV + i] = v[i];
-      __syncwarp();
-      const unsigned peers = __match_any_sync(kFull, key);
-      if (key >= 0 && lane == __ffs(peers) - 1) {
-        for (int i = 0; i < NV; ++i) {
-          float x = 0.f;
-          for (unsigned m = peers; m; m &= m - 1) x += st[(__ffs(m) - 1) * NV + i];
-          s[i] = x;
-        }
-        adds = true;
-      }
-    }
-  }
-  for (int w = 0; w < nw; ++w) {
-    if (warp == w && adds) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-        for (int c = 0; c < COLS; ++c)
-          if (s[r * COLS + c] != 0.f) acc[at + r * rs + c] += s[r * COLS + c];
-    }
-    __syncthreads();
-  }
-}
-
-// the sum of one value per thread of the block, in a fixed order
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += red[w];
-  __syncthreads();
-  return s;
-}
-
-// per-block partial of F, in floats: Hcc / b_c [27K], rhs [6K], cost [1],
+// per-chunk partial of F, in floats: Hcc / b_c [27K], rhs [6K], cost [1],
 // S [6K, 6K]
 __host__ __device__ __forceinline__ size_t f_partial_size(int K) {
   return 33 * (size_t)K + 1 + 36 * (size_t)K * K;
 }
 
-// F, first launch. gridDim.x blocks; block b takes the landmark chunks b,
-// b + gridDim.x, ... of kThreadsLm landmarks and writes its partial to
-// part + b * f_partial_size(K). s_direct: the block's S lives in its slice of
-// `part` (device memory) instead of shared memory.
+// ---------------------------------------------------------------------------
+// F: the terms launch, the Schur-sum launch and the pair index (the note at
+// the top of the file)
+// ---------------------------------------------------------------------------
+constexpr int kLmF1 = 8;             // landmarks per block of F's terms launch
+constexpr int kThreadsF1 = 128;
+constexpr int kThreadsF2 = 128;
+constexpr int kThreadsIdx = 1024;    // the index build: one block per chunk
+constexpr int kIdxWarps = kThreadsIdx / 32;
+constexpr int kHcr = 33;             // per observation: 21 upper Hcc, 6 b_c, 6 W G b_p
+constexpr int kObsStage = 11;        // per observation in F1's shared memory: Hpp, b_p, cost, w
+
+// F's pair index, built once per BA (ba_schur_index_kernel). Per 128-landmark
+// chunk c: the pair terms (l*D + d, l*D + e) of every landmark that is not
+// fixed and every two valid observations with cam_d <= cam_e, grouped by
+// (cam_d, cam_e) and in (l, d, e) order within a group, at c * cap_t; the
+// groups (start, end, kd, ke; absolute term indices) at c * cap_s, nseg[c]
+// of them; the valid observations l*D + d grouped by camera in (l, d)
+// order at c * 128 * D, camera k's run at cam_seg[c * K + k].
+struct SchurIndex {
+  int2* terms;
+  int4* seg;
+  int* nseg;
+  int* nterm;
+  int* cam_obs;
+  int2* cam_seg;
+  long long cap_t;
+  int cap_s;
+};
+
+// F's per-observation scratch: A = W G [L*D, 18], the camera-side terms
+// [L*D, kHcr], and each landmark's cost [L].
+struct SchurScratch {
+  float* A;
+  float* hcr;
+  float* cost;
+};
+
+// F's first launch (kLmF1 landmarks a block, a thread per observation):
+// residual rows, Jacobians and weights, each observation's Hcc / b_c terms
+// and W (kept for H), Hpp / b_p and the cost summed over the landmark's
+// observations in slot order by one thread a landmark, G = (Hpp + damp)^-1
+// (0 for fixed points), then each observation's A = W G and W G b_p. The
+// block's rows of W, of the camera-side terms and of A are contiguous in
+// device memory: they are built in shared memory and written out by the
+// whole block, neighbouring threads on neighbouring floats. Also clears
+// the part_floats floats of partials that the sum launches add into.
 template <int MODEL>
-__global__ void __launch_bounds__(kThreadsLm)
-ba_linearize_kernel(Problem P, Cam cam, const float* __restrict__ cam_R,
-                    const float* __restrict__ cam_t, const float* __restrict__ lm,
-                    int use_huber, const float* __restrict__ ctrl, float* __restrict__ Wg,
-                    float* __restrict__ lmblk, float* part, int s_direct) {
+__global__ void __launch_bounds__(kThreadsF1)
+ba_terms_kernel(Problem P, Cam cam, const float* __restrict__ cam_R,
+                const float* __restrict__ cam_t, const float* __restrict__ lm, int use_huber,
+                const float* __restrict__ ctrl, float* __restrict__ Wg,
+                float* __restrict__ lmblk, SchurScratch X, float* __restrict__ part,
+                long long part_floats) {
   if (ctrl[kDone] != 0.f) return;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < part_floats;
+       i += (long long)gridDim.x * blockDim.x)
+    part[i] = 0.f;
   extern __shared__ float sm[];
-  const int K = P.K, n6 = 6 * P.K;
-  const size_t psize = f_partial_size(K);
-  float* mine_part = part + blockIdx.x * psize;
-  float* hc_s = sm;               // [K,27]: 21 upper Hcc + 6 b_c
-  float* rhs_s = hc_s + 27 * K;   // [6K]
-  float* red = rhs_s + n6;        // [kThreadsLm / 32]
-  float* stage = red + kThreadsLm / 32;  // [kThreadsLm, 36]
-  // [6K,6K]: the block's copy in shared memory, or its slice of `part`
-  float* S_s = s_direct ? mine_part + 33 * K + 1 : stage + kThreadsLm * 36;
-  const int total = 33 * K;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) sm[i] = 0.f;
-  for (int i = threadIdx.x; i < n6 * n6; i += blockDim.x) S_s[i] = 0.f;
+  const int D = P.D, l0 = blockIdx.x * kLmF1, n = kLmF1 * D;
+  float* st = sm;                    // [n][kObsStage]: Hpp, b_p, cost, w
+  float* sW = st + n * kObsStage;    // [n][18]
+  float* sH = sW + n * 18;           // [n][kHcr]
+  float* sA = sH + n * kHcr;         // [n][18]
+  float* lmt = sA + n * 18;          // [kLmF1][9]: G, b_p
+  for (int o = threadIdx.x; o < n; o += blockDim.x) {
+    const int l = l0 + o / D, d = o - (o / D) * D;
+    float* s = st + o * kObsStage;
+    float* hc = sH + o * kHcr;
+    float* W = sW + o * 18;
+    for (int i = 0; i < kObsStage; ++i) s[i] = 0.f;
+    for (int i = 0; i < kHcr; ++i) hc[i] = 0.f;
+    for (int i = 0; i < 18; ++i) W[i] = 0.f;
+    if (l >= P.L) continue;
+    const int od = l * D + d, k = P.obs_cam[od];
+    // a padded slot (or a slot of an invalid landmark) weighs 0: its terms
+    // are zeros, as obs_terms would give them, without its projection
+    if (!P.obs_valid[od] || !P.lm_valid[l]) continue;
+    const float p[3] = {lm[3 * l], lm[3 * l + 1], lm[3 * l + 2]};
+    ObsTerms ob;
+    obs_terms<MODEL>(P, cam, cam_R + 9 * k, cam_t + 3 * k, p, l, d, use_huber != 0, ob);
+    s[9] = ob.sq_w;
+    s[10] = ob.w_base;
+    if (!ob.active) continue;
+    int q = 0;
+    for (int i = 0; i < 6; ++i)
+      for (int j = i; j < 6; ++j) {
+        float v = 0.f;
+        for (int r = 0; r < 3; ++r) v += ob.wr[r] * ob.Jc[r][i] * ob.Jc[r][j];
+        hc[q++] = v;
+      }
+    for (int i = 0; i < 6; ++i) {
+      float v = 0.f;
+      for (int r = 0; r < 3; ++r) v += ob.wr[r] * ob.Jc[r][i] * ob.r[r];
+      hc[21 + i] = v;
+    }
+    q = 0;
+    for (int i = 0; i < 3; ++i)
+      for (int j = i; j < 3; ++j) {
+        float v = 0.f;
+        for (int r = 0; r < 3; ++r) v += ob.wr[r] * ob.Jp[r][i] * ob.Jp[r][j];
+        s[q++] = v;
+      }
+    for (int i = 0; i < 3; ++i) {
+      float v = 0.f;
+      for (int r = 0; r < 3; ++r) v += ob.wr[r] * ob.Jp[r][i] * ob.r[r];
+      s[6 + i] = v;
+    }
+    for (int i = 0; i < 6; ++i)
+      for (int a = 0; a < 3; ++a) {
+        float v = 0.f;
+        for (int r = 0; r < 3; ++r) v += ob.wr[r] * ob.Jc[r][i] * ob.Jp[r][a];
+        W[i * 3 + a] = v;
+      }
+  }
   __syncthreads();
-  const float lam = ctrl[kLam];
-  float cost_blk = 0.f;
-  const int chunks = (P.L + kThreadsLm - 1) / kThreadsLm;
-  for (int chunk = blockIdx.x; chunk < chunks; chunk += gridDim.x) {
-    const int l = chunk * kThreadsLm + threadIdx.x;
-    const bool mine = l < P.L;
-    float p[3] = {0.f, 0.f, 0.f};
-    if (mine)
-      for (int j = 0; j < 3; ++j) p[j] = lm[3 * l + j];
+  if (threadIdx.x < kLmF1) {
+    const int t = threadIdx.x, l = l0 + t;
     float Hpp[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, bp[3] = {0.f, 0.f, 0.f};
     float cost = 0.f, wsum = 0.f;
-    // pass 1: per-observation terms; camera-side sums; W kept for H
-    for (int d = 0; d < P.D; ++d) {
-      ObsTerms o;
-      int k = 0;
-      if (mine) {
-        k = P.obs_cam[l * P.D + d];
-        obs_terms<MODEL>(P, cam, cam_R + 9 * k, cam_t + 3 * k, p, l, d, use_huber != 0, o);
-      } else {
-        o.active = false;
-        o.sq_w = 0.f;
-        o.w_base = 0.f;
-      }
-      cost += o.sq_w;
-      wsum += o.w_base;
-      float hc[27];
-      float W[18];
-      if (o.active) {
-        int q = 0;
-        for (int i = 0; i < 6; ++i)
-          for (int j = i; j < 6; ++j) {
-            float s = 0.f;
-            for (int r = 0; r < 3; ++r) s += o.wr[r] * o.Jc[r][i] * o.Jc[r][j];
-            hc[q++] = s;
-          }
-        for (int i = 0; i < 6; ++i) {
-          float s = 0.f;
-          for (int r = 0; r < 3; ++r) s += o.wr[r] * o.Jc[r][i] * o.r[r];
-          hc[21 + i] = s;
-        }
-        q = 0;
-        for (int i = 0; i < 3; ++i)
-          for (int j = i; j < 3; ++j) {
-            float s = 0.f;
-            for (int r = 0; r < 3; ++r) s += o.wr[r] * o.Jp[r][i] * o.Jp[r][j];
-            Hpp[q++] += s;
-          }
-        for (int i = 0; i < 3; ++i) {
-          float s = 0.f;
-          for (int r = 0; r < 3; ++r) s += o.wr[r] * o.Jp[r][i] * o.r[r];
-          bp[i] += s;
-        }
-        for (int i = 0; i < 6; ++i)
-          for (int a = 0; a < 3; ++a) {
-            float s = 0.f;
-            for (int r = 0; r < 3; ++r) s += o.wr[r] * o.Jc[r][i] * o.Jp[r][a];
-            W[i * 3 + a] = s;
-          }
-      } else {
-        for (int i = 0; i < 27; ++i) hc[i] = 0.f;
-        for (int i = 0; i < 18; ++i) W[i] = 0.f;
-      }
-      if (mine)
-        for (int i = 0; i < 18; ++i) Wg[(l * P.D + d) * 18 + i] = W[i];
-      block_accumulate<1, 27>(hc_s, 0, o.active ? k : -1, 27 * k, hc, stage);
+    for (int d = 0; d < D; ++d) {
+      const float* s = st + (t * D + d) * kObsStage;
+      for (int q = 0; q < 6; ++q) Hpp[q] += s[q];
+      for (int q = 0; q < 3; ++q) bp[q] += s[6 + q];
+      cost += s[9];
+      wsum += s[10];
     }
-    if (mine) {
+    float G[6];
+    sym3_inv(Hpp, ctrl[kLam], G);
+    const bool keep = l < P.L && !(P.lm_fixed && P.lm_fixed[l]);
+    for (int q = 0; q < 6; ++q) lmt[t * 9 + q] = keep ? G[q] : 0.f;
+    for (int q = 0; q < 3; ++q) lmt[t * 9 + 6 + q] = bp[q];
+    if (l < P.L) {
       float* blk = lmblk + 10 * l;
       for (int i = 0; i < 6; ++i) blk[i] = Hpp[i];
       for (int i = 0; i < 3; ++i) blk[6 + i] = bp[i];
       blk[9] = wsum > 0.f ? 1.f : 0.f;
+      X.cost[l] = cost;
     }
-    cost_blk += block_sum(cost, red);
-    // pass 2: Schur terms with G = damped Hpp^-1 (0 for fixed points)
-    float G[6];
-    sym3_inv(Hpp, lam, G);
-    const bool keep = mine && !(P.lm_fixed && P.lm_fixed[l]);
-    if (!keep)
-      for (int i = 0; i < 6; ++i) G[i] = 0.f;
-    for (int d = 0; d < P.D; ++d) {
-      float A[18];  // W_d G
-      int kd = -1;
-      if (keep) {
-        const float* Wd = Wg + (l * P.D + d) * 18;
-        bool nz = false;
-        for (int i = 0; i < 6; ++i)
-          for (int a = 0; a < 3; ++a) {
-            float s = 0.f;
-            for (int b = 0; b < 3; ++b) s += Wd[i * 3 + b] * sym_get(G, b, a);
-            A[i * 3 + a] = s;
-            nz |= Wd[i * 3 + a] != 0.f;
-          }
-        if (nz) kd = P.obs_cam[l * P.D + d];
-      } else {
-        for (int i = 0; i < 18; ++i) A[i] = 0.f;
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < n; o += blockDim.x) {
+    const float* g = lmt + (o / D) * 9;
+    const float* W = sW + o * 18;
+    float* A = sA + o * 18;
+    for (int i = 0; i < 6; ++i)
+      for (int a = 0; a < 3; ++a) {
+        float v = 0.f;
+        for (int b = 0; b < 3; ++b) v += W[i * 3 + b] * sym_get(g, b, a);
+        A[i * 3 + a] = v;
       }
-      float rr[6];
+    for (int i = 0; i < 6; ++i)
+      sH[o * kHcr + 27 + i] = A[i * 3 + 0] * g[6] + A[i * 3 + 1] * g[7] + A[i * 3 + 2] * g[8];
+  }
+  __syncthreads();
+  // the block's rows, [l0 * D, (l0 + rows) * D), written out contiguously
+  const int rows = min(kLmF1, P.L - l0) * D;
+  const size_t o0 = (size_t)l0 * D;
+  for (int i = threadIdx.x; i < rows * 18; i += blockDim.x) {
+    Wg[o0 * 18 + i] = sW[i];
+    X.A[o0 * 18 + i] = sA[i];
+  }
+  for (int i = threadIdx.x; i < rows * kHcr; i += blockDim.x) X.hcr[o0 * kHcr + i] = sH[i];
+}
+
+// Recursive halving across the warp: lane L ends with the sum over the
+// lanes of v[L] (v[32] in, the lane's share in v[0] out; 31 shuffles, each
+// pair of lanes adding in one fixed order).
+// (one halving step per template instance, so that every index is a
+// constant and v stays in registers)
+template <int O>
+__device__ __forceinline__ void halve(float (&v)[32], bool up) {
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    const float send = up ? v[i] : v[i + O];
+    const float keep = up ? v[i + O] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFull, send, O);
+  }
+}
+
+__device__ __forceinline__ float warp_reduce_scatter32(float (&v)[32]) {
+  const int lane = threadIdx.x & 31;
+  halve<16>(v, (lane & 16) != 0);
+  halve<8>(v, (lane & 8) != 0);
+  halve<4>(v, (lane & 4) != 0);
+  halve<2>(v, (lane & 2) != 0);
+  halve<1>(v, (lane & 1) != 0);
+  return v[0];
+}
+
+// the sum over the warp of one value, in every lane
+__device__ __forceinline__ float warp_allsum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// F's sum launch over the chunks c0 .. c0 + nc - 1, each into its partial
+// c % nparts (cleared by the terms launch; chunks of one partial come in
+// later launches, so every entry has one writer at a time). Warps
+// [0, nc * cap_s): a warp per (chunk, pair group), lane j adding the
+// group's Schur terms A_d W_e^T j, j + 32, ... in order in registers, the
+// lanes' sums then added across the warp in a fixed pattern
+// (warp_reduce_scatter32 for the block's first 32 entries, warp_allsum for
+// the last 4); the 6x6 block goes to (kd, ke) and, for kd < ke, its
+// transpose to (ke, kd). Warps [nc * cap_s, + nc * K): a warp per (chunk,
+// camera), the same over its observations' 33 values (Hcc / b_c, then
+// W G b_p). The rest: a thread per chunk adds its landmarks' costs in
+// order. nb_pair and nb_cam count the blocks of the first two parts.
+__global__ void __launch_bounds__(kThreadsF2)
+ba_schur_sum_kernel(int K, int L, SchurIndex I, int c0, int nc, int nparts, int nb_pair,
+                    int nb_cam, const float* __restrict__ A, const float* __restrict__ Wg,
+                    const float* __restrict__ hcr, const float* __restrict__ cost_l,
+                    const float* __restrict__ ctrl, float* __restrict__ part) {
+  if (ctrl[kDone] != 0.f) return;
+  const size_t psize = f_partial_size(K);
+  const size_t n6 = 6 * (size_t)K;
+  const int lane = threadIdx.x & 31;
+  int b = blockIdx.x;
+  if (b < nb_pair) {
+    const long long item = (long long)b * (kThreadsF2 / 32) + (threadIdx.x >> 5);
+    const int cr = (int)(item / I.cap_s), s = (int)(item - (long long)cr * I.cap_s);
+    if (cr >= nc) return;
+    const int c = c0 + cr;
+    if (s >= I.nseg[c]) return;
+    const int4 sg = I.seg[(size_t)c * I.cap_s + s];
+    float acc[36];
+#pragma unroll
+    for (int i = 0; i < 36; ++i) acc[i] = 0.f;
+    for (int t = sg.x + lane; t < sg.y; t += 32) {
+      const int2 tm = I.terms[t];
+      const float2* ap = reinterpret_cast<const float2*>(A + (size_t)tm.x * 18);
+      const float2* wp = reinterpret_cast<const float2*>(Wg + (size_t)tm.y * 18);
+      float a[18], w[18];
+#pragma unroll
+      for (int q = 0; q < 9; ++q) {
+        const float2 u = ap[q], v = wp[q];
+        a[2 * q] = u.x;
+        a[2 * q + 1] = u.y;
+        w[2 * q] = v.x;
+        w[2 * q + 1] = v.y;
+      }
+#pragma unroll
       for (int i = 0; i < 6; ++i)
-        rr[i] = A[i * 3 + 0] * bp[0] + A[i * 3 + 1] * bp[1] + A[i * 3 + 2] * bp[2];
-      block_accumulate<1, 6>(rhs_s, 0, kd, 6 * max(kd, 0), rr, stage);
-      for (int e = 0; e < P.D; ++e) {
-        int ke = -1;
-        float blk[36];
-        if (kd >= 0) {
-          const float* We = Wg + (l * P.D + e) * 18;
-          bool nz = false;
-          for (int i = 0; i < 6; ++i)
-            for (int j = 0; j < 6; ++j) {
-              const float s = A[i * 3 + 0] * We[j * 3 + 0] + A[i * 3 + 1] * We[j * 3 + 1] +
-                              A[i * 3 + 2] * We[j * 3 + 2];
-              blk[i * 6 + j] = s;
-              nz |= s != 0.f;
-            }
-          if (nz) ke = P.obs_cam[l * P.D + e];
-        } else {
-          for (int i = 0; i < 36; ++i) blk[i] = 0.f;
-        }
-        // S_red rows kd*6 .. kd*6+5, columns ke*6 .. ke*6+5
-        const int key = ke >= 0 ? kd * K + ke : -1;
-        block_accumulate<6, 6>(S_s, n6, key, max(kd, 0) * 6 * n6 + max(ke, 0) * 6, blk, stage);
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+          acc[i * 6 + j] += a[i * 3 + 0] * w[j * 3 + 0] + a[i * 3 + 1] * w[j * 3 + 1] +
+                            a[i * 3 + 2] * w[j * 3 + 2];
+    }
+    float head[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) head[i] = acc[i];
+    float tail[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tail[i] = warp_allsum(acc[32 + i]);
+    const float mine = warp_reduce_scatter32(head);
+    float* S = part + (size_t)(c % nparts) * psize + 33 * (size_t)K + 1;
+    const size_t kd = sg.z, ke = sg.w;
+    // lane j holds entry j (row j / 6, column j % 6); lane 0 entries 32-35
+    const int i0 = lane / 6, j0 = lane - 6 * (lane / 6);
+    S[(kd * 6 + i0) * n6 + ke * 6 + j0] += mine;
+    if (kd != ke) S[(ke * 6 + j0) * n6 + kd * 6 + i0] += mine;
+    if (lane == 0)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = (32 + q) / 6, j = (32 + q) % 6;
+        S[(kd * 6 + i) * n6 + ke * 6 + j] += tail[q];
+        if (kd != ke) S[(ke * 6 + j) * n6 + kd * 6 + i] += tail[q];
+      }
+    return;
+  }
+  b -= nb_pair;
+  if (b < nb_cam) {
+    const int item = b * (kThreadsF2 / 32) + (threadIdx.x >> 5);
+    const int cr = item / K, k = item - cr * K;
+    if (cr >= nc) return;
+    const int c = c0 + cr;
+    const int2 cs = I.cam_seg[(size_t)c * K + k];
+    if (cs.x == cs.y) return;
+    float v[32], v2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) v[i] = 0.f;
+    for (int t = cs.x + lane; t < cs.y; t += 32) {
+      const float* h = hcr + (size_t)I.cam_obs[t] * kHcr;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) v[i] += h[i];
+      v2 += h[32];
+    }
+    v2 = warp_allsum(v2);
+    const float mine = warp_reduce_scatter32(v);
+    float* pp = part + (size_t)(c % nparts) * psize;
+    if (lane < 27)
+      pp[27 * k + lane] += mine;
+    else
+      pp[27 * K + 6 * k + lane - 27] += mine;
+    if (lane == 0) pp[27 * K + 6 * k + 5] += v2;
+    return;
+  }
+  b -= nb_cam;
+  const int cr = b * kThreadsF2 + threadIdx.x;
+  if (cr >= nc) return;
+  const int c = c0 + cr;
+  float s = 0.f;
+  for (int l = c * kThreadsLm; l < min(L, (c + 1) * kThreadsLm); ++l) s += cost_l[l];
+  part[(size_t)(c % nparts) * psize + 33 * (size_t)K] += s;
+}
+
+// In-place exclusive scan of the block's ints a[0, n) in shared memory;
+// returns the total. Every thread of the block calls it (it holds barriers).
+__device__ int block_exclusive_scan(int* a, int n, int* red) {
+  const int T = blockDim.x, t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int per = (n + T - 1) / T, lo = min(n, t * per), hi = min(n, lo + per);
+  int s = 0;
+  for (int i = lo; i < hi; ++i) s += a[i];
+  int x = s;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) red[w] = x;
+  __syncthreads();
+  int before = 0, total = 0;
+  for (int j = 0; j < T / 32; ++j) {
+    if (j < w) before += red[j];
+    total += red[j];
+  }
+  int run = before + x - s;
+  for (int i = lo; i < hi; ++i) {
+    const int v = a[i];
+    a[i] = run;
+    run += v;
+  }
+  __syncthreads();
+  return total;
+}
+
+// A stable counting sort of n elements into nb buckets, by the block:
+// bucket(i) in [0, nb), or -1 to drop element i; move(i, pos) puts element
+// i at its place pos among the kept ones; on_bucket(b, start, end) hears
+// each bucket's run. Warp w counts and then places a contiguous range of
+// the elements, 32 at a time in order: a lane's rank among the earlier
+// lanes of its bucket (__match_any_sync) after the earlier elements of its
+// warp, after the earlier warps' (the scan over (bucket, warp)). hist
+// holds nb * kIdxWarps ints of shared memory. Returns the kept count.
+template <class Bucket, class Move, class OnBucket>
+__device__ int stable_bucket_sort(int n, int nb, int* hist, int* red, Bucket bucket, Move move,
+                                  OnBucket on_bucket) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < nb * kIdxWarps; i += blockDim.x) hist[i] = 0;
+  __syncthreads();
+  const int per = (n + kIdxWarps - 1) / kIdxWarps;
+  const int lo = min(n, w * per), hi = min(n, lo + per);
+  for (int i = lo + lane; i < hi; i += 32) {
+    const int b = bucket(i);
+    if (b >= 0) atomicAdd(&hist[b * kIdxWarps + w], 1);
+  }
+  __syncthreads();
+  const int total = block_exclusive_scan(hist, nb * kIdxWarps, red);
+  for (int b = threadIdx.x; b < nb; b += blockDim.x)
+    on_bucket(b, hist[b * kIdxWarps], b + 1 < nb ? hist[(b + 1) * kIdxWarps] : total);
+  __syncthreads();
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    const int b = i < hi ? bucket(i) : -1;
+    const unsigned peers = __match_any_sync(kFull, b);
+    const int pos = b >= 0 ? hist[b * kIdxWarps + w] + __popc(peers & ((1u << lane) - 1u)) : 0;
+    __syncwarp();
+    if (b >= 0) {
+      move(i, pos);
+      if (lane == 31 - __clz(peers)) hist[b * kIdxWarps + w] += __popc(peers);
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  return total;
+}
+
+// F's pair index (SchurIndex), one block per chunk: the chunk's pair terms
+// enumerated in (l, d, e) order (a thread per observation, its place from
+// a scan of the counts), sorted stably by ke and then by kd (two
+// counting sorts over the K cameras, through key0 / key1 / val1), cut into
+// groups where (kd, ke) changes; the chunk's valid observations sorted
+// stably by camera.
+__global__ void __launch_bounds__(kThreadsIdx)
+ba_schur_index_kernel(int K, int L, int D, const int* __restrict__ obs_cam,
+                      const uint8_t* __restrict__ obs_valid, const uint8_t* __restrict__ lm_valid,
+                      const uint8_t* __restrict__ lm_fixed, SchurIndex I, int* key0, int* key1,
+                      int2* val1) {
+  extern __shared__ int smi[];
+  const int nD = kThreadsLm * D;
+  int* cam = smi;                         // [nD]: camera of each valid observation, else -1
+  int* cnt_o = cam + nD;                  // [nD]: pair terms of each observation
+  int* hist = cnt_o + nD;                 // [kIdxWarps * K]
+  int* cnt = hist + kIdxWarps * K;        // [kThreadsIdx]
+  int* red = cnt + kThreadsIdx;           // [kIdxWarps]
+  const int c = blockIdx.x, t = threadIdx.x, l0 = c * kThreadsLm;
+  const long long tb = (long long)c * I.cap_t;
+  int2* terms = I.terms + tb;
+  for (int i = t; i < nD; i += blockDim.x) {
+    const int l = l0 + i / D;
+    const size_t od = (size_t)l0 * D + i;
+    cam[i] = (l < L && lm_valid[l] && obs_valid[od]) ? obs_cam[od] : -1;
+  }
+  __syncthreads();
+  // a thread per observation (l, d): its terms (l, d, e) over e; a valid
+  // observation has l < L, and a fixed landmark has no term
+  for (int i = t; i < nD; i += blockDim.x) {
+    const int tl = i / D, cd = cam[i];
+    int np = 0;
+    if (cd >= 0 && !(lm_fixed && lm_fixed[l0 + tl]))
+      for (int e = 0; e < D; ++e) {
+        const int ce = cam[tl * D + e];
+        np += (ce >= 0 && cd <= ce) ? 1 : 0;
+      }
+    cnt_o[i] = np;
+  }
+  __syncthreads();
+  const int nt = block_exclusive_scan(cnt_o, nD, red);
+  for (int i = t; i < nD; i += blockDim.x) {
+    const int tl = i / D, cd = cam[i];
+    if (cd < 0 || (lm_fixed && lm_fixed[l0 + tl])) continue;
+    const int od = (l0 + tl) * D + i - tl * D;
+    int at = cnt_o[i];
+    for (int e = 0; e < D; ++e) {
+      const int ce = cam[tl * D + e];
+      if (ce >= 0 && cd <= ce) {
+        key0[tb + at] = cd * K + ce;
+        terms[at] = make_int2(od, (l0 + tl) * D + e);
+        ++at;
       }
     }
   }
-  // the block's partial: Hcc / b_c and rhs from shared memory, the cost, and
-  // S (already in place on the device-memory route)
-  for (int i = threadIdx.x; i < total; i += blockDim.x) mine_part[i] = sm[i];
-  if (threadIdx.x == 0) mine_part[total] = cost_blk;
-  if (!s_direct)
-    for (int i = threadIdx.x; i < n6 * n6; i += blockDim.x) mine_part[total + 1 + i] = S_s[i];
+  __syncthreads();
+  auto none = [](int, int, int) {};
+  stable_bucket_sort(nt, K, hist, red, [&](int i) { return key0[tb + i] % K; },
+                     [&](int i, int pos) {
+                       key1[tb + pos] = key0[tb + i];
+                       val1[tb + pos] = terms[i];
+                     },
+                     none);
+  stable_bucket_sort(nt, K, hist, red, [&](int i) { return key1[tb + i] / K; },
+                     [&](int i, int pos) {
+                       key0[tb + pos] = key1[tb + i];
+                       terms[pos] = val1[tb + i];
+                     },
+                     none);
+  // the groups: runs of one key, found by each thread in its own range
+  const int per = (nt + kThreadsIdx - 1) / kThreadsIdx;
+  const int lo = min(nt, t * per), hi = min(nt, lo + per);
+  int ns = 0;
+  for (int i = lo; i < hi; ++i) ns += (i == 0 || key0[tb + i] != key0[tb + i - 1]) ? 1 : 0;
+  cnt[t] = ns;
+  __syncthreads();
+  const int nseg = block_exclusive_scan(cnt, kThreadsIdx, red);
+  int4* seg = I.seg + (size_t)c * I.cap_s;
+  int at = cnt[t];
+  for (int i = lo; i < hi; ++i)
+    if (i == 0 || key0[tb + i] != key0[tb + i - 1]) {
+      const int key = key0[tb + i];
+      seg[at++] = make_int4((int)(tb + i), 0, key / K, key % K);
+    }
+  __syncthreads();
+  for (int s = t; s < nseg; s += blockDim.x)
+    seg[s].y = s + 1 < nseg ? seg[s + 1].x : (int)(tb + nt);
+  if (t == 0) {
+    I.nseg[c] = nseg;
+    I.nterm[c] = nt;
+  }
+  // the cameras' runs of valid observations
+  const long long ob = (long long)c * nD;
+  stable_bucket_sort(nD, K, hist, red, [&](int i) { return cam[i]; },
+                     [&](int i, int pos) { I.cam_obs[ob + pos] = l0 * D + i; },
+                     [&](int k, int start, int end) {
+                       I.cam_seg[(size_t)c * K + k] = make_int2((int)(ob + start), (int)(ob + end));
+                     });
 }
 
 // F's second launch and W's reduce mode: the shards' block partials added
@@ -1385,32 +1643,54 @@ ba_classify_kernel(Problem P, Cam cam, const float* __restrict__ cam_R,
     out[od] = (P.obs_valid[od] && (q.chi2 > q.thr || !q.depth_ok)) ? 1 : 0;
 }
 
-size_t linearize_smem(int K, bool s_direct) {
-  const size_t n6 = 6 * (size_t)K;
-  return sizeof(float) * (33 * (size_t)K + kThreadsLm / 32 + kThreadsLm * 36 +
-                          (s_direct ? 0 : n6 * n6));
+// F's index and scratch pointers from the host array `f` (the order of
+// ba.py _KernelState.f_ptrs)
+void unpack_f(const void* const* f, long long cap_t, int cap_s, SchurIndex& I,
+              SchurScratch& X) {
+  I.terms = (int2*)f[0];
+  I.seg = (int4*)f[1];
+  I.nseg = (int*)f[2];
+  I.nterm = (int*)f[3];
+  I.cam_obs = (int*)f[4];
+  I.cam_seg = (int2*)f[5];
+  I.cap_t = cap_t;
+  I.cap_s = cap_s;
+  X.A = (float*)f[6];
+  X.hcr = (float*)f[7];
+  X.cost = (float*)f[8];
 }
 
-
-// F's first launch; returns the block count it launched (0: no landmark)
-// or a negative CUDA error
+// F's launches without the reduce: the terms launch, then one sum launch
+// per `blocks` chunks (one when every chunk has its partial); returns the
+// partial count (0: no landmark) or a negative CUDA error
 int launch_linearize(int model, const Problem& P, const Cam& c, const float* cam_R,
                      const float* cam_t, const float* lm, int use_huber, float* ctrl, float* Wg,
-                     float* lmblk, int blocks, float* part, cudaStream_t st) {
+                     float* lmblk, int blocks, float* part, const SchurIndex& I,
+                     const SchurScratch& X, cudaStream_t st) {
   if (model != svt_cam::kPerspective && model != svt_cam::kEquirect)
     return -(int)cudaErrorInvalidValue;
   const int K = P.K;
-  const bool s_direct = linearize_smem(K, false) > kMaxBlockSmem;
-  const size_t smem = linearize_smem(K, s_direct);
-  auto kernel = model == svt_cam::kEquirect ? ba_linearize_kernel<svt_cam::kEquirect>
-                                            : ba_linearize_kernel<svt_cam::kPerspective>;
+  auto terms = model == svt_cam::kEquirect ? ba_terms_kernel<svt_cam::kEquirect>
+                                           : ba_terms_kernel<svt_cam::kPerspective>;
   const int chunks = (P.L + kThreadsLm - 1) / kThreadsLm;
   if (chunks == 0) return 0;
   if (blocks < 1 || blocks > chunks) return -(int)cudaErrorInvalidValue;
-  const cudaError_t e = reserve_smem((const void*)kernel, smem);
+  const size_t smem =
+      sizeof(float) * ((size_t)kLmF1 * P.D * (kObsStage + 18 + kHcr + 18) + kLmF1 * 9);
+  const cudaError_t e = reserve_smem((const void*)terms, smem);
   if (e != cudaSuccess) return -(int)e;
-  kernel<<<blocks, kThreadsLm, smem, st>>>(P, c, cam_R, cam_t, lm, use_huber, ctrl, Wg, lmblk,
-                                           part, s_direct ? 1 : 0);
+  terms<<<(P.L + kLmF1 - 1) / kLmF1, kThreadsF1, smem, st>>>(
+      P, c, cam_R, cam_t, lm, use_huber, ctrl, Wg, lmblk, X, part,
+      (long long)blocks * (long long)f_partial_size(K));
+  for (int c0 = 0; c0 < chunks; c0 += blocks) {
+    const int nc = min(blocks, chunks - c0);
+    const int per_block = kThreadsF2 / 32;  // a warp an item
+    const int nb_pair = (int)(((long long)nc * I.cap_s + per_block - 1) / per_block);
+    const int nb_cam = (nc * K + per_block - 1) / per_block;
+    const int nb_cost = (nc + kThreadsF2 - 1) / kThreadsF2;
+    ba_schur_sum_kernel<<<nb_pair + nb_cam + nb_cost, kThreadsF2, 0, st>>>(
+        K, P.L, I, c0, nc, blocks, nb_pair, nb_cam, X.A, Wg, X.hcr, X.cost, ctrl, part);
+  }
   return blocks;
 }
 
@@ -1433,15 +1713,20 @@ extern "C" int svt_ba_linearize(int model, int K, int L, int D, const int* obs_c
                                 float height, const float* cam_R, const float* cam_t,
                                 const float* lm, int use_huber, float* ctrl, float* Wg,
                                 float* lmblk, float* hc, float* S, float* rhs, int blocks,
-                                float* part, void* stream) {
-  // blocks: F's block count (at most one per landmark chunk); part:
-  // blocks x (33K + 1 + 36K^2) floats of device memory
+                                float* part, const void* const* f, long long cap_t, int cap_s,
+                                void* stream) {
+  // blocks: F's partial count (at most one per landmark chunk); part:
+  // blocks x (33K + 1 + 36K^2) floats of device memory; f, cap_t, cap_s:
+  // the pair index and the scratch (unpack_f)
   Problem P{K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier, lm_valid,
             lm_fixed, cam_free};
   Cam c{fx, fy, cx, cy, fxb, width, height};
+  SchurIndex I;
+  SchurScratch X;
+  unpack_f(f, cap_t, cap_s, I, X);
   cudaStream_t st = (cudaStream_t)stream;
   const int launched = launch_linearize(model, P, c, cam_R, cam_t, lm, use_huber, ctrl, Wg,
-                                        lmblk, blocks, part, st);
+                                        lmblk, blocks, part, I, X, st);
   if (launched < 0) return -launched;
   if (launched > 0) {
     ShardParts T{};
@@ -1453,8 +1738,8 @@ extern "C" int svt_ba_linearize(int model, int K, int L, int D, const int* obs_c
   return (int)cudaGetLastError();
 }
 
-// F's first launch alone, on one shard of a sharded BA: its block partials,
-// which W's reduce mode adds
+// F's launches without the reduce, on one shard of a sharded BA: its
+// partials, which W's reduce mode adds
 extern "C" int svt_ba_linearize_part(int model, int K, int L, int D, const int* obs_cam,
                                      const float* obs_uv, const float* obs_xr,
                                      const float* obs_isig, const uint8_t* obs_valid,
@@ -1463,13 +1748,39 @@ extern "C" int svt_ba_linearize_part(int model, int K, int L, int D, const int* 
                                      float fy, float cx, float cy, float fxb, float width,
                                      float height, const float* cam_R, const float* cam_t,
                                      const float* lm, int use_huber, float* ctrl, float* Wg,
-                                     float* lmblk, int blocks, float* part, void* stream) {
+                                     float* lmblk, int blocks, float* part, const void* const* f,
+                                     long long cap_t, int cap_s, void* stream) {
   Problem P{K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier, lm_valid,
             lm_fixed, cam_free};
   Cam c{fx, fy, cx, cy, fxb, width, height};
+  SchurIndex I;
+  SchurScratch X;
+  unpack_f(f, cap_t, cap_s, I, X);
   const int launched = launch_linearize(model, P, c, cam_R, cam_t, lm, use_huber, ctrl, Wg,
-                                        lmblk, blocks, part, (cudaStream_t)stream);
+                                        lmblk, blocks, part, I, X, (cudaStream_t)stream);
   if (launched < 0) return -launched;
+  return (int)cudaGetLastError();
+}
+
+// F's pair index, once per BA: one block per 128-landmark chunk. f holds
+// the index's pointers (unpack_f's first six); key0, key1 (ints) and val1
+// (int pairs) are scratch of chunks x cap_t entries.
+extern "C" int svt_ba_schur_index(int K, int L, int D, const int* obs_cam,
+                                  const uint8_t* obs_valid, const uint8_t* lm_valid,
+                                  const uint8_t* lm_fixed, const void* const* f, long long cap_t,
+                                  int cap_s, int* key0, int* key1, int* val1, void* stream) {
+  const int chunks = (L + kThreadsLm - 1) / kThreadsLm;
+  if (chunks == 0) return 0;
+  if (K < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  SchurIndex I;
+  SchurScratch X;
+  unpack_f(f, cap_t, cap_s, I, X);
+  const size_t smem =
+      sizeof(int) * (2 * (size_t)kThreadsLm * D + (size_t)kIdxWarps * K + kThreadsIdx + kIdxWarps);
+  const cudaError_t e = reserve_smem((const void*)ba_schur_index_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  ba_schur_index_kernel<<<chunks, kThreadsIdx, smem, (cudaStream_t)stream>>>(
+      K, L, D, obs_cam, obs_valid, lm_valid, lm_fixed, I, key0, key1, (int2*)val1);
   return (int)cudaGetLastError();
 }
 

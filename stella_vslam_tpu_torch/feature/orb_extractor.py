@@ -34,6 +34,8 @@ uint32 words (torch has no uint32 arithmetic).
 """
 from __future__ import annotations
 
+import ctypes
+
 import math
 from typing import NamedTuple, Optional
 
@@ -367,11 +369,52 @@ fast_nms.masked_launches = 0
 # ---------------------------------------------------------------------------
 
 
+MAX_BIN_PIXELS = 512  # distinct pixels of a bin's 256 pairs, at most
+
+
 class DescribeTables(NamedTuple):
     taps: torch.Tensor  # [7,7] f32
     k10: torch.Tensor  # [31,31] f32
     k01: torch.Tensor  # [31,31] f32
     offsets: torch.Tensor  # [30,256,4] int8
+    # each bin's distinct pixels (linear positions in the 39x39, ascending,
+    # padded with 0), their count, and each pair's two places in that list:
+    # kernel B blurs only those (bin_pixel_tables)
+    pix: torch.Tensor  # [30,512] int16
+    npix: torch.Tensor  # [30] int32
+    pidx: torch.Tensor  # [30,256,2] int16
+    taps_host: tuple = ()  # the 49 taps as Python floats (kernel B's launch parameter)
+
+
+def bin_pixel_tables(offsets):
+    """[30,256,4] (rx0, ry0, rx1, ry1) pair offsets -> (pix [30,512] int16,
+    npix [30] int32, pidx [30,256,2] int16): per steering bin the distinct
+    blurred-patch pixels its pairs read, ascending, and each pair's point 0
+    and point 1 as places in that list."""
+    off = np.asarray(offsets, np.int64)
+    pix = np.zeros((ANGLE_BINS, MAX_BIN_PIXELS), np.int16)
+    npix = np.zeros(ANGLE_BINS, np.int32)
+    pidx = np.zeros((ANGLE_BINS, 256, 2), np.int16)
+    for b in range(ANGLE_BINS):
+        pts = np.concatenate([off[b, :, 1] * _DESC_W + off[b, :, 0],
+                              off[b, :, 3] * _DESC_W + off[b, :, 2]])
+        u, inv = np.unique(pts, return_inverse=True)
+        pix[b, :u.size], npix[b] = u, u.size
+        pidx[b, :, 0], pidx[b, :, 1] = inv[:256], inv[256:]
+    return pix, npix, pidx
+
+
+def describe_tables(taps, k10, k01, offsets, device) -> DescribeTables:
+    """DescribeTables on `device` from numpy-convertible taps [7,7], moment
+    masks [31,31] and pair offsets [30,256,4], with the bins' pixel tables."""
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    pix, npix, pidx = bin_pixel_tables(offsets)
+    return DescribeTables(
+        taps=f32(taps), k10=f32(k10), k01=f32(k01),
+        offsets=torch.as_tensor(np.asarray(offsets, np.int8), device=device),
+        pix=torch.as_tensor(pix, device=device), npix=torch.as_tensor(npix, device=device),
+        pidx=torch.as_tensor(pidx, device=device),
+        taps_host=tuple(float(x) for x in np.asarray(taps, np.float32).reshape(-1)))
 
 
 def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -421,6 +464,48 @@ def orb_describe_plain(pyr, kp_base, kp_H, kp_W, kp_x, kp_y, kp_valid,
     return angle, _pack_bits(i1 > i0), strip.contiguous()
 
 
+def orb_describe_pixels_plain(pyr, kp_base, kp_H, kp_W, kp_x, kp_y, kp_valid,
+                              tab: DescribeTables, strips: bool = False):
+    """orb_describe_plain with kernel B's structure: per keypoint, only its
+    bin's distinct pixels (tab.pix) are blurred (and the strip's, with
+    `strips`), each with the same 49 rounded products and sums; the pairs
+    read them through tab.pidx. Returns what orb_describe_plain returns."""
+    K = kp_x.shape[0]
+    dev = pyr.device
+    d = torch.arange(-_RAW_R, _RAW_R + 1, device=dev, dtype=torch.int64)
+    H = kp_H.long()[:, None]
+    W = kp_W.long()[:, None]
+    rows = torch.minimum(torch.clamp(kp_y.long()[:, None] + d, min=0), H - 1)
+    cols = torch.minimum(torch.clamp(kp_x.long()[:, None] + d, min=0), W - 1)
+    idx = kp_base.long()[:, None, None] + rows[:, :, None] * W[:, :, None] \
+        + cols[:, None, :]
+    raw = pyr[idx].to(torch.bfloat16).to(torch.float32).reshape(K, -1)  # [K,45*45]
+    circ = raw.reshape(K, _RAW_W, _RAW_W)[:, _MOM_OFF:_MOM_OFF + 31, _MOM_OFF:_MOM_OFF + 31]
+    m10 = (circ * tab.k10).sum(dim=(1, 2))
+    m01 = (circ * tab.k01).sum(dim=(1, 2))
+    angle = torch.where(kp_valid, torch.atan2(m01, m10), torch.zeros_like(m10))
+    bins = torch.remainder(torch.round(angle / _TAU).to(torch.int64), ANGLE_BINS)
+
+    def blur(pos):  # [K,P] linear 39x39 positions -> [K,P] blurred values
+        at = (pos // _DESC_W) * _RAW_W + pos % _DESC_W
+        acc = torch.zeros(pos.shape, device=dev, dtype=torch.float32)
+        for ty in range(7):
+            for tx in range(7):
+                acc = acc + tab.taps[ty, tx] * raw.gather(1, at + ty * _RAW_W + tx)
+        return torch.round(acc)
+
+    vals = blur(tab.pix.long()[bins])  # [K,512]
+    pidx = tab.pidx.long()[bins]  # [K,256,2]
+    i0, i1 = vals.gather(1, pidx[..., 0]), vals.gather(1, pidx[..., 1])
+    if not strips:
+        return angle, _pack_bits(i1 > i0)
+    sy = torch.arange(_STRIP_Y, _STRIP_Y + STRIP_H, device=dev)
+    sx = torch.arange(_STRIP_X, _STRIP_X + STRIP_W, device=dev)
+    spos = (sy[:, None] * _DESC_W + sx[None]).reshape(1, -1).expand(K, -1)
+    strip = blur(spos).reshape(K, STRIP_H, STRIP_W).to(torch.uint8)
+    return angle, _pack_bits(i1 > i0), strip.contiguous()
+
+
 def _describe_launch(pyr, kp_base, kp_H, kp_W, kp_x, kp_y, kp_valid,
                      tab: DescribeTables, strips: bool):
     K = kp_x.shape[0]
@@ -432,7 +517,10 @@ def _describe_launch(pyr, kp_base, kp_H, kp_W, kp_x, kp_y, kp_valid,
             raise ValueError("orb_describe: bad keypoint array")
     if pyr.dtype != torch.float32 or not pyr.is_contiguous():
         raise ValueError("orb_describe: expects a contiguous f32 pyramid")
+    if len(tab.taps_host) != 49 or tab.pix.device != pyr.device:
+        raise ValueError("orb_describe: tables from describe_tables on the pyramid's device")
     lib = kbuild.load()
+    taps = (ctypes.c_float * 49)(*tab.taps_host)
     angle = torch.empty(K, dtype=torch.float32, device=pyr.device)
     desc = torch.empty((K, 8), dtype=torch.int32, device=pyr.device)
     strip = torch.empty((K, STRIP_H, STRIP_W), dtype=torch.uint8, device=pyr.device) \
@@ -440,8 +528,9 @@ def _describe_launch(pyr, kp_base, kp_H, kp_W, kp_x, kp_y, kp_valid,
     kbuild.check(lib.svt_orb_describe(
         pyr.data_ptr(), kp_base.data_ptr(), kp_H.data_ptr(), kp_W.data_ptr(),
         kp_x.data_ptr(), kp_y.data_ptr(), kp_valid.data_ptr(), K,
-        tab.taps.data_ptr(), tab.k10.data_ptr(), tab.k01.data_ptr(),
-        tab.offsets.data_ptr(), _TAU, angle.data_ptr(), desc.data_ptr(),
+        ctypes.addressof(taps), tab.k10.data_ptr(), tab.k01.data_ptr(),
+        tab.pix.data_ptr(), tab.npix.data_ptr(), tab.pidx.data_ptr(), _TAU, angle.data_ptr(),
+        desc.data_ptr(),
         strip.data_ptr() if strips else None, kbuild.stream_ptr(pyr.device)), "orb_describe")
     return (angle, desc, strip) if strips else (angle, desc)
 
@@ -508,11 +597,8 @@ class OrbExtractor:
             self._resize.append(ResizeLevel(
                 R=f32(R), Ct=f32(C).T.contiguous(), row_j=i32np(rj), row_w=f32(rw),
                 col_j=i32np(cj), col_w=f32(cw)))
-        self._tables = DescribeTables(
-            taps=f32(tables["taps"]), k10=f32(tables["k10"]),
-            k01=f32(tables["k01"]),
-            offsets=torch.as_tensor(np.asarray(tables["offsets"], np.int8),
-                                    device=dev))
+        self._tables = describe_tables(tables["taps"], tables["k10"], tables["k01"],
+                                       tables["offsets"], dev)
         # per-slot constants of the fixed layout
         lv, base, hh, ww = [], [], [], []
         off = 0

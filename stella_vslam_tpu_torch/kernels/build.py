@@ -55,9 +55,9 @@ _SIGNATURES = {
     # B, img, img_stride, H, W, border, cs, Gy, Gx, ini_thr, min_thr, mask,
     # mask_w, mask_row, mask_col, out_key, stream
     "svt_fast_nms": [_I, _P, _L, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P, _P, _P, _P],
-    # pyr, base, H, W, x, y, valid, K, taps49, m10, m01, offsets, tau,
-    # out_angle, out_desc, out_strip (or NULL), stream
-    "svt_orb_describe": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _F,
+    # pyr, base, H, W, x, y, valid, K, taps49 (host memory), m10, m01, pix,
+    # npix, pidx, tau, out_angle, out_desc, out_strip (or NULL), stream
+    "svt_orb_describe": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _F,
                          _P, _P, _P, _P],
     # NL, NR, l_xy, l_level, l_desc, l_valid, l_strip, r_xy, r_level,
     # r_desc, r_valid, r_strip, scale_factors, max_disp, focal_x_baseline,
@@ -93,11 +93,15 @@ _SIGNATURES = {
     # lm_valid, lm_fixed, cam_free, fx, fy, cx, cy, fxb, width, height,
     # cam_R, cam_t, lm, use_huber, ctrl, Wg, lmblk, hc, S, rhs, blocks, part,
     # stream
+    # (then F's index and scratch pointers as a host array, cap_t, cap_s)
     "svt_ba_linearize": [_I, _I, _I, _I] + [_P] * 9 + [_F] * 7 + [_P] * 3
-                        + [_I] + [_P] * 6 + [_I] + [_P] * 2,
-    # the same without hc, S, rhs: F's first launch alone (one shard)
+                        + [_I] + [_P] * 6 + [_I] + [_P] * 2 + [_L, _I, _P],
+    # the same without hc, S, rhs: F's launches without the reduce (one shard)
     "svt_ba_linearize_part": [_I, _I, _I, _I] + [_P] * 9 + [_F] * 7 + [_P] * 3
-                             + [_I] + [_P] * 3 + [_I] + [_P] * 2,
+                             + [_I] + [_P] * 3 + [_I] + [_P] * 2 + [_L, _I, _P],
+    # K, L, D, obs_cam, obs_valid, lm_valid, lm_fixed, F's pointers (host
+    # array), cap_t, cap_s, key0, key1, val1, stream
+    "svt_ba_schur_index": [_I] * 3 + [_P] * 5 + [_L, _I] + [_P] * 4,
     # K, cam_free, cam_R, cam_t, ctrl, hc, S, rhs, dx, cam_Rn, cam_tn, scratch,
     # scratch_floats, stream
     "svt_ba_solve": [_I] + [_P] * 11 + [_L, _P],

@@ -11,9 +11,12 @@ less than 1e-3 of the cost (optimize/terminate_action.cc). Fixed and
 invalid cameras get a zero update; `lm_fixed` points constrain the cameras
 but do not move; `lm_keep_inlier` rows survive the reclassification.
 
-On CUDA tensors every iteration is four launches (csrc/ba_schur.cu):
-F `ba_linearize_schur` (linearize, Hpp^-1, Schur terms, each block into its
-own partial; then the partials added in block order), G
+On CUDA tensors every iteration is four kernels (csrc/ba_schur.cu):
+F `ba_linearize_schur` (a thread per observation linearizes, a thread per
+landmark forms Hpp^-1, then the Schur terms, the camera blocks and the cost
+summed per 128-landmark chunk over F's pair index, `build_schur_index`,
+built once per BA: one writer per entry, each chunk into its own partial;
+then the partials added in chunk order), G
 `ba_reduced_solve` (the 6K x 6K solve by a Cholesky on 32 x 32 tiles and the
 trial poses: in one block's shared memory up to 6K = 192, across a cluster
 of blocks up to 768, in a device-memory scratch above, as the global BA's
@@ -74,6 +77,106 @@ def f_blocks(K: int, L: int) -> int:
     F_PARTIAL_FLOATS holds partials of a K-camera system."""
     chunks = -(-L // LM_CHUNK)
     return max(1, min(chunks, F_PARTIAL_FLOATS // (33 * K + 1 + 36 * K * K)))
+
+
+def schur_index_caps(K: int, D: int):
+    """(cap_t, cap_s): the pair terms and pair groups F's index holds per
+    chunk at most (every landmark's D^2 ordered pairs; K(K+1)/2 camera
+    pairs)."""
+    cap_t = LM_CHUNK * D * D
+    return cap_t, max(1, min(cap_t, K * (K + 1) // 2))
+
+
+class SchurIndex(NamedTuple):
+    """Kernel F's pair index (csrc/ba_schur.cu SchurIndex), per 128-landmark
+    chunk c: the pair terms (l*D + d, l*D + e) of every landmark that is not
+    fixed and every two valid observations (obs_valid and lm_valid) with
+    cam_d <= cam_e, grouped by (cam_d, cam_e) and in (l, d, e) order within
+    a group, at terms[c, :nterm[c]]; the groups (start, end, kd, ke; start
+    and end absolute indices into terms.reshape(-1, 2)) at seg[c, :nseg[c]];
+    the valid observations l*D + d grouped by camera in (l, d) order at
+    cam_obs[c], camera k's run cam_seg[c, k] (absolute indices into
+    cam_obs.reshape(-1)). Entries past those counts are not defined."""
+
+    terms: torch.Tensor  # [C, cap_t, 2] int32
+    seg: torch.Tensor  # [C, cap_s, 4] int32
+    nseg: torch.Tensor  # [C] int32
+    nterm: torch.Tensor  # [C] int32
+    cam_obs: torch.Tensor  # [C, 128 * D] int32
+    cam_seg: torch.Tensor  # [C, K, 2] int32
+    cap_t: int
+    cap_s: int
+
+    @property
+    def n_terms(self) -> int:
+        return int(self.nterm.sum())
+
+
+def schur_index_plain(obs_cam, obs_valid, lm_valid, lm_fixed, K: int) -> SchurIndex:
+    """Plain version of F's index kernel: the same index by stable argsorts
+    (unused entries -1)."""
+    L, D = obs_cam.shape
+    dev = obs_cam.device
+    C = -(-L // LM_CHUNK)
+    nD = LM_CHUNK * D
+    cap_t, cap_s = schur_index_caps(K, D)
+    i32 = lambda x: x.to(torch.int32)
+    valid = obs_valid.bool() & lm_valid.bool()[:, None]
+    oc = obs_cam.long()
+    # the cameras' runs of valid observations
+    od = torch.arange(L * D, device=dev)
+    vflat = valid.reshape(-1)
+    keys = (od // nD) * K + oc.reshape(-1)
+    sel, ks = od[vflat], keys[vflat]
+    order = torch.argsort(ks, stable=True)
+    s_od = sel[order]
+    counts = torch.bincount(ks, minlength=C * K).reshape(C, K)
+    in_chunk = counts.sum(1)
+    first = torch.cumsum(in_chunk, 0) - in_chunk
+    cs = s_od // nD
+    cam_obs = torch.full((C, nD), -1, dtype=torch.int32, device=dev)
+    cam_obs[cs, torch.arange(s_od.numel(), device=dev) - first[cs]] = i32(s_od)
+    start = torch.cumsum(counts, 1) - counts + (torch.arange(C, device=dev) * nD)[:, None]
+    cam_seg = i32(torch.stack([start, start + counts], -1))
+    # the pair terms, grouped by (kd, ke)
+    keep = lm_valid.bool() if lm_fixed is None else lm_valid.bool() & ~lm_fixed.bool()
+    m = valid[:, :, None] & valid[:, None, :] & (oc[:, :, None] <= oc[:, None, :]) \
+        & keep[:, None, None]
+    li, di, ei = m.nonzero(as_tuple=True)
+    key = ((li // LM_CHUNK) * K + oc[li, di]) * K + oc[li, ei]
+    order = torch.argsort(key, stable=True)
+    li, di, ei, key = li[order], di[order], ei[order], key[order]
+    tc = li // LM_CHUNK
+    nterm = torch.bincount(tc, minlength=C)
+    tfirst = torch.cumsum(nterm, 0) - nterm
+    terms = torch.full((C, cap_t, 2), -1, dtype=torch.int32, device=dev)
+    tpos = torch.arange(key.numel(), device=dev) - tfirst[tc]
+    terms[tc, tpos] = i32(torch.stack([li * D + di, li * D + ei], -1))
+    ukey, ucnt = torch.unique_consecutive(key, return_counts=True)
+    ustart = torch.cumsum(ucnt, 0) - ucnt
+    uc = ukey // (K * K)
+    nseg = torch.bincount(uc, minlength=C)
+    sfirst = torch.cumsum(nseg, 0) - nseg
+    seg = torch.full((C, cap_s, 4), -1, dtype=torch.int32, device=dev)
+    a = uc * cap_t + ustart - tfirst[uc]
+    seg[uc, torch.arange(ukey.numel(), device=dev) - sfirst[uc]] = i32(torch.stack(
+        [a, a + ucnt, (ukey // K) % K, ukey % K], -1))
+    return SchurIndex(terms, seg, i32(nseg), i32(nterm), cam_obs, cam_seg, cap_t, cap_s)
+
+
+def schur_index_equal(a: SchurIndex, b: SchurIndex) -> bool:
+    """Whether two indexes agree on every defined entry."""
+    if (a.cap_t, a.cap_s) != (b.cap_t, b.cap_s) or a.cam_obs.shape != b.cam_obs.shape \
+            or a.cam_seg.shape != b.cam_seg.shape:
+        return False
+    if not (torch.equal(a.nseg, b.nseg) and torch.equal(a.nterm, b.nterm)
+            and torch.equal(a.cam_seg, b.cam_seg)):
+        return False
+    n_obs = (a.cam_seg[..., 1] - a.cam_seg[..., 0]).sum(1)
+    rows = lambda x, n: x[torch.arange(x.shape[1], device=x.device)[None] < n[:, None]]
+    return all(torch.equal(rows(u, n), rows(v, n))
+               for u, v, n in ((a.terms, b.terms, a.nterm), (a.seg, b.seg, a.nseg),
+                               (a.cam_obs, b.cam_obs, n_obs)))
 
 
 class BAProblem(NamedTuple):
@@ -252,6 +355,69 @@ def linearize_schur_plain(prob, cam, cam_R, cam_t, lm_pos, inlier, lam,
     return cost, Hcc, b_c, S_red, rhs_red.reshape(-1), (G, b_p, W, has_obs)
 
 
+def linearize_schur_indexed_plain(prob, cam, cam_R, cam_t, lm_pos, inlier, lam,
+                                  use_huber: bool, model: str = "perspective"):
+    """Kernel F's structure as torch ops: the camera-side sums of every
+    128-landmark chunk over F's pair index (one triangle of S, mirrored),
+    the chunks' partials then added in chunk order. Returns what
+    linearize_schur_plain returns."""
+    K = cam_R.shape[0]
+    L, D = prob.obs_cam.shape
+    index = schur_index_plain(prob.obs_cam, prob.obs_valid, prob.lm_valid, prob.lm_fixed, K)
+    C = index.nterm.shape[0]
+    dev, dt = cam_R.device, cam_R.dtype
+    r, Jc, Jp, depth_ok = _pose_rows(prob, cam_R, cam_t, lm_pos, cam, model)
+    wr, w_base, _, _ = _row_weights(prob, r, depth_ok, inlier, use_huber, model)
+    Jcw = Jc * wr[..., None]
+    Jpw = Jp * wr[..., None]
+    hcc_o = torch.einsum("ldri,ldrj->ldij", Jcw, Jc).reshape(L * D, 6, 6)
+    bc_o = torch.einsum("ldri,ldr->ldi", Jcw, r).reshape(L * D, 6)
+    Hpp = torch.einsum("ldri,ldrj->lij", Jpw, Jp)
+    b_p = torch.einsum("ldri,ldr->li", Jpw, r)
+    W = torch.einsum("ldri,ldra->ldia", Jcw, Jp)
+    has_obs = torch.sum(w_base, dim=1) > 0
+    G = _sym3_inv(Hpp, lam)
+    if prob.lm_fixed is not None:
+        G = G * (~prob.lm_fixed).to(G.dtype)[:, None, None]
+    A = (W @ G[:, None]).reshape(L * D, 6, 3)
+    rr = (W @ G[:, None] @ b_p[:, None, :, None])[..., 0].reshape(L * D, 6)
+    Wf = W.reshape(L * D, 6, 3)
+    sq = r[..., 0] ** 2 + r[..., 1] ** 2
+    sq = sq if model == "equirectangular" else sq + r[..., 2] ** 2 * (prob.obs_x_right > 0).to(dt)
+    w = wr[..., 0]
+    cost_l = torch.zeros(C * LM_CHUNK, dtype=dt, device=dev)
+    cost_l[:L] = (w * sq).sum(1)
+    # per chunk: the camera runs, the pair groups (and their mirrors), the cost
+    part_hc = torch.zeros((C, K, 6, 6), dtype=dt, device=dev)
+    part_bc = torch.zeros((C, K, 6), dtype=dt, device=dev)
+    part_rhs = torch.zeros((C, K, 6), dtype=dt, device=dev)
+    part_S = torch.zeros((C, K * K, 6, 6), dtype=dt, device=dev)
+    cs = index.cam_seg.long()
+    n_run = cs[..., 1] - cs[..., 0]
+    run_key = torch.arange(C * K, device=dev).repeat_interleave(n_run.reshape(-1))
+    run_od = index.cam_obs.reshape(-1).long()[
+        torch.cat([torch.arange(a, b, device=dev) for a, b in cs.reshape(-1, 2).tolist()])
+        if run_key.numel() else torch.zeros(0, dtype=torch.long, device=dev)]
+    part_hc.view(C * K, 6, 6).index_add_(0, run_key, hcc_o[run_od])
+    part_bc.view(C * K, 6).index_add_(0, run_key, bc_o[run_od])
+    part_rhs.view(C * K, 6).index_add_(0, run_key, rr[run_od])
+    valid_t = torch.arange(index.cap_t, device=dev)[None] < index.nterm[:, None].long()
+    tod = index.terms[valid_t].long()
+    tchunk = torch.arange(C, device=dev)[:, None].expand(C, index.cap_t)[valid_t]
+    kd = prob.obs_cam.reshape(-1)[tod[:, 0]].long()
+    ke = prob.obs_cam.reshape(-1)[tod[:, 1]].long()
+    blk = A[tod[:, 0]] @ Wf[tod[:, 1]].transpose(1, 2)
+    part_S.view(C * K * K, 6, 6).index_add_(0, (tchunk * K + kd) * K + ke, blk)
+    off = kd != ke
+    part_S.view(C * K * K, 6, 6).index_add_(0, ((tchunk * K + ke) * K + kd)[off],
+                                            blk[off].transpose(1, 2))
+    cost_c = cost_l.reshape(C, LM_CHUNK).sum(1)
+    Hcc, b_c, rhs, S, cost = (_sum_shards([x[c] for c in range(C)]) for x in (
+        part_hc, part_bc, part_rhs, part_S, cost_c))
+    S_red = S.reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(6 * K, 6 * K)
+    return cost, Hcc, b_c, S_red, rhs.reshape(-1), (G, b_p, W, has_obs)
+
+
 def damped_reduced_system(prob, Hcc, b_c, S_red, rhs_red, lam):
     """Kernel G's system before its solve, in the dtype of Hcc: damp Hcc,
     mask fixed and invalid cameras; returns (S [6K,6K], rhs [6K]), dx =
@@ -408,6 +574,10 @@ class _KernelState:
                                   dtype=torch.float32, device=dev)
         self.h_blocks = -(-L // LM_CHUNK)
         self.h_part = torch.empty(max(1, self.h_blocks), dtype=torch.float32, device=dev)
+        # F's per-observation scratch: A = W G, the camera-side terms, the
+        # landmarks' costs
+        e = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+        self.f_A, self.f_hcr, self.f_cost = e(L * D * 18), e(L * D * 33), e(max(1, L))
         u8 = lambda b: b.to(torch.uint8).contiguous()
         self.keep = None if prob.lm_keep_inlier is None else u8(prob.lm_keep_inlier)
         self.inputs = dict(
@@ -418,6 +588,17 @@ class _KernelState:
             obs_valid=u8(prob.obs_valid), lm_valid=u8(prob.lm_valid),
             lm_fixed=None if prob.lm_fixed is None else u8(prob.lm_fixed),
             cam_free=_free(prob).contiguous())
+        self.index, self.f_ptrs = None, None
+        if dev.type == "cuda":
+            build_schur_index(self)
+
+    def set_index(self, index: SchurIndex):
+        """F's pair index and the host array of F's index and scratch
+        pointers (csrc/ba_schur.cu unpack_f's order)."""
+        self.index = index
+        ptrs = [index.terms, index.seg, index.nseg, index.nterm, index.cam_obs, index.cam_seg,
+                self.f_A, self.f_hcr, self.f_cost]
+        self.f_ptrs = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
 
     def problem_args(self, inlier):
         i = self.inputs
@@ -438,7 +619,8 @@ def ba_linearize_schur(st: _KernelState, inlier, use_huber: bool, reduce: bool =
     head = (*st.problem_args(inlier), st.cam_R.data_ptr(), st.cam_t.data_ptr(),
             st.lm.data_ptr(), int(use_huber), st.ctrl.data_ptr(), st.Wg.data_ptr(),
             st.lmblk.data_ptr())
-    tail = (st.f_blocks, st.f_part.data_ptr(), kbuild.stream_ptr(st.lm.device))
+    tail = (st.f_blocks, st.f_part.data_ptr(), ctypes.addressof(st.f_ptrs), st.index.cap_t,
+            st.index.cap_s, kbuild.stream_ptr(st.lm.device))
     if reduce:
         err = lib.svt_ba_linearize(*head, st.hc.data_ptr(), st.S.data_ptr(),
                                    st.rhs.data_ptr(), *tail)
@@ -446,6 +628,39 @@ def ba_linearize_schur(st: _KernelState, inlier, use_huber: bool, reduce: bool =
         err = lib.svt_ba_linearize_part(*head, *tail)
     kbuild.check(err, "ba_linearize")
     ba_linearize_schur.launches += 1
+
+
+def build_schur_index(st: _KernelState) -> SchurIndex:
+    """Kernel F's pair index of st's problem (SchurIndex), built once per BA
+    on st's device: one block per 128-landmark chunk, with stable counting
+    sorts over the cameras (csrc/ba_schur.cu ba_schur_index_kernel); the
+    plain version (schur_index_plain) for CPU tensors. Sets it on st."""
+    i = st.inputs
+    if not st.lm.is_cuda:
+        index = schur_index_plain(i["obs_cam"], i["obs_valid"], i["lm_valid"], i["lm_fixed"],
+                                  st.K)
+        st.set_index(index)
+        return index
+    K, L, D = st.K, st.L, st.D
+    C = -(-L // LM_CHUNK)
+    cap_t, cap_s = schur_index_caps(K, D)
+    if C * cap_t >= 2 ** 31:
+        raise ValueError(f"build_schur_index: L * D^2 too large ({L} x {D}^2)")
+    dev = st.lm.device
+    e = lambda *s: torch.empty(s, dtype=torch.int32, device=dev)
+    index = SchurIndex(e(C, cap_t, 2), e(C, cap_s, 4), e(C), e(C), e(C, LM_CHUNK * D),
+                       e(C, K, 2), cap_t, cap_s)
+    st.set_index(index)
+    key0, key1, val1 = e(C * cap_t), e(C * cap_t), e(C * cap_t, 2)
+    lib = kbuild.load()
+    with torch.cuda.device(dev):
+        kbuild.check(lib.svt_ba_schur_index(
+            K, L, D, i["obs_cam"].data_ptr(), i["obs_valid"].data_ptr(),
+            i["lm_valid"].data_ptr(), 0 if i["lm_fixed"] is None else i["lm_fixed"].data_ptr(),
+            ctypes.addressof(st.f_ptrs), cap_t, cap_s, key0.data_ptr(), key1.data_ptr(),
+            val1.data_ptr(), kbuild.stream_ptr(dev)), "ba_schur_index")
+    build_schur_index.launches += 1
+    return index
 
 
 def ba_reduced_solve(st: _KernelState):
@@ -538,6 +753,7 @@ def ba_shard_assemble(dst: _KernelState, table: ShardTable, decide: bool):
 
 
 ba_linearize_schur.launches = 0
+build_schur_index.launches = 0
 ba_reduced_solve.launches = 0
 ba_backsub_cost.launches = 0
 ba_classify.launches = 0

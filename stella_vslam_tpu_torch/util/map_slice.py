@@ -87,7 +87,7 @@ def kernel_wrappers() -> dict:
             "pose_lm": pose_mod.optimize_pose_batch,
             "ransac_two_view": ransac.minimal_hypotheses,
             "essential_5pt": essential_5pt.solve_sampled_sets,
-            "ba_linearize_schur": ba.ba_linearize_schur,
+            "ba_linearize_schur": ba.ba_linearize_schur, "schur_index": ba.build_schur_index,
             "ba_reduced_solve": ba.ba_reduced_solve,
             "ba_backsub_cost": ba.ba_backsub_cost, "ba_classify": ba.ba_classify,
             "ba_shard_assemble": ba.ba_shard_assemble,

@@ -511,9 +511,9 @@ def test_pose_graph_kernel_matches_plain(dev, K, Kp, Ep):
 
 @pytest.mark.parametrize("K", [32, 40, 64, 128])
 def test_ba_kernels_match_plain_at_global_shape(dev, K):
-    """One Huber stage of 16 at D = 16: K = 32 factors in shared memory and
-    sums the Schur terms in a block's copy, K = 40 sums them in device
-    memory (every K from 39 on), K = 64 and 128 factor there too."""
+    """One Huber stage of 16 at D = 16: K = 32 factors in one block's
+    shared memory, K = 40, 64 and 128 in a cluster's; F's pair groups grow
+    with K (up to K(K+1)/2 camera pairs a chunk)."""
     import chip_smoke
 
     prob, cam = chip_smoke._ba_problem(dev, K, 1024, 16, False, K, spacing=0.1, ordered=True)
@@ -1207,15 +1207,16 @@ def test_spd_solve_kernel_matches_cholesky(dev, n):
 
 
 def test_solve_kernels_repeat_under_concurrent_streams(dev):
-    """Kernel G (one block; a cluster of 4) and spd_solve (clusters of 4 and
-    8) launched from five host threads on their own streams while a sixth
-    runs kernel F, as the threaded System's mapper, loop closer and global
-    BA share the card: every launch gives the bits of its case on the idle
-    card (chip_smoke.check_solves_under_load)."""
+    """Kernel G (one block; a cluster of 4), spd_solve (clusters of 4 and
+    8) and kernel F (the local and a global shape) launched from seven host
+    threads on their own streams while an eighth runs kernel F, as the
+    threaded System's mapper, loop closer and global BA share the card:
+    every launch gives the bits of its case on the idle card
+    (chip_smoke.check_solves_under_load)."""
     import chip_smoke
 
     counts = chip_smoke.check_solves_under_load(dev, seconds=3.0)
-    assert len(counts) == 5
+    assert len(counts) == 7
     assert all(n > 0 and bad == 0 for n, bad in counts.values())
 
 
@@ -1347,13 +1348,65 @@ def test_pose_lm_refuses_more_slots_than_a_cluster_holds(dev):
 
 
 def test_cascade_kernels_repeat_under_concurrent_streams(dev):
-    """Kernels C (window walk, brute force) and D (a batch of two, one
-    equirectangular problem) launched from four host threads on their own
-    streams beside kernel F, as the tracking thread and the loop detector
-    share them: every launch gives the bits of its case on the idle card
-    (chip_smoke.check_cascade_under_load)."""
+    """Kernels C (window walk, brute force), D (a batch of two, one
+    equirectangular problem) and B (a frame's slots, the strip mode of a
+    pair's) launched from six host threads on their own streams beside
+    kernel F, as the tracking thread, the stereo front end and the loop
+    detector share them: every launch gives the bits of its case on the
+    idle card (chip_smoke.check_cascade_under_load)."""
     import chip_smoke
 
     counts = chip_smoke.check_cascade_under_load(dev, seconds=3.0)
-    assert len(counts) == 4
+    assert len(counts) == 6
     assert all(n > 0 and bad == 0 for n, bad in counts.values())
+
+
+@pytest.mark.parametrize("K,L,D,seed", [(1, 300, 3, 1), (2, 4096, 2, 2), (16, 4133, 12, 3),
+                                        (32, 1000, 16, 4), (130, 1024, 8, 5)])
+def test_schur_index_kernel_equals_plain(dev, K, L, D, seed):
+    """Kernel F's pair index (one block per chunk, stable counting sorts)
+    equals its plain version entry by entry: padded slots, cameras repeated
+    within a landmark, fixed and invalid rows, a chunk with no valid
+    observation, a ragged last chunk, K = 1 and K = 130."""
+    import chip_smoke
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    prob, cam = chip_smoke.schur_problem(K, L, D, seed, dev)
+    before = ba.build_schur_index.launches
+    st = ba._KernelState(prob, cam)
+    assert ba.build_schur_index.launches == before + 1
+    plain = ba.schur_index_plain(prob.obs_cam, prob.obs_valid, prob.lm_valid, prob.lm_fixed, K)
+    assert ba.schur_index_equal(st.index, plain)
+    assert st.index.n_terms == plain.n_terms > 0
+
+
+def test_ba_linearize_kernel_edge_cases_match_plain(dev):
+    """Kernel F on chip_smoke.check_f_cases's cases (random observers at the
+    local shape, L = 4133, K = 1, K = 130, fixed rows and an empty chunk,
+    equirectangular): index equal to plain, the system within the float64
+    bound of _lockstep_ba, two launches bit-identical."""
+    import chip_smoke
+
+    out = chip_smoke.check_f_cases(dev)
+    assert len(out) == 6
+
+
+def test_orb_describe_kernel_at_bin_edges_and_borders(dev):
+    """Kernel B on chip_smoke.bin_edge_keypoints (every steering bin, angles
+    near both edges, patches clamped at every border and on images smaller
+    than a patch): angles within 1e-3 of plain, descriptor bits within
+    5e-5, strips equal, in both modes."""
+    import chip_smoke
+
+    tab = ox.OrbExtractor(OrbParams(num_levels=4), 400, 300, min_area=400, device=dev)._tables
+    args = chip_smoke.bin_edge_keypoints(0, dev) + (tab,)
+    valid = args[6]
+    ap, dp, sp = ox.orb_describe_plain(*args, strips=True)
+    for ak, dk, *sk in (ox.orb_describe(*args), ox.orb_describe_strips(*args)):
+        assert float((ak - ap).abs().max()) < 1e-3
+        x = (dk ^ dp)[valid].cpu().numpy()
+        assert np.unpackbits(x.view(np.uint8)).sum() <= 5e-5 * x.size * 32
+        if sk:
+            assert torch.equal(sk[0], sp)
+    bins = torch.remainder(torch.round(ap / ox._TAU).long(), ox.ANGLE_BINS)
+    assert set(bins[valid].tolist()) == set(range(ox.ANGLE_BINS))
