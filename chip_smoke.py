@@ -10,7 +10,10 @@ Phases, each fatal on failure (nothing is caught):
      per source, all at once (timed);
   3. kernels A-D of the RGBD tracking slice against their plain PyTorch
      versions at its shapes (752x480, 8 levels, N=2872 slots, C=4096 table
-     rows): A exact, B's descriptor bit-mismatch rate <= 5e-5 (the CPU
+     rows): A (one launch a pyramid) bit for bit, keys and slot outputs, on
+     five frames (fast_frames: a bench frame, a stereo pair, the
+     equirectangular leg's 640x320 frame, a masked fisheye frame, a
+     1280x720 frame of 7984 slots), B's descriptor bit-mismatch rate <= 5e-5 (the CPU
      test's bound against JAX), also on keypoints aimed near both edges of
      every steering bin and clamped at every image border
      (bin_edge_keypoints; angles within 1e-3, strips equal); C exactly (0 rows differing from the dense
@@ -46,12 +49,14 @@ Phases, each fatal on failure (nothing is caught):
      3.35 TB/s or operations over 67 T/s, FP32 outside the tensor cores,
      integer operations counted at the same rate) and, where one PyTorch
      call computes the same function, that call's device time; a row whose
-     call launches its kernel once a pyramid level (A, S) is divided by
-     those launches, like its launch count;
+     call launches its kernel once a pyramid level (S) is divided by those
+     launches, like its launch count (A's rows count a frame: one launch);
   5. the RGBD slice: System in RGBD mode, mapping disabled, 120 frames of
      the numpy plane world at 0.015 m/frame (the bench's RGBD settings):
      at most 2 frames lost after init, rigid ATE < 0.10 m, scale error
-     < 5%, kernels A-D launched;
+     < 5%, kernels A-D launched; then its first 30 frames at 1280x720
+     (hd_world, 7984 slots): at most 2 frames lost, kernel Q's dedup
+     launched for every tracked frame;
   6. the mono slice: System in monocular mode, mapping disabled, 120 frames
      of the same world (the bench's mono settings): initialized by frame 10,
      at most 2 frames lost after init, Sim3 ATE < 0.10 m, kernels A-I
@@ -136,7 +141,9 @@ Phases, each fatal on failure (nothing is caught):
      with the local-map gate, the undistortion) against their plain
      versions at the slice's shapes (run with phase 3): Q exact (poses of
      the rebase within 1e-6) on synthetic inputs with slot collisions, tied
-     scores, repeated and absent ids; R's uv and x_right within 1e-5
+     scores, repeated and absent ids, also the scatter at 7984 slots and
+     the dedup at 7984 and 12839 (1280x720; a 1920x960 equirectangular
+     camera at 6 levels); R's uv and x_right within 1e-5
      relative, its flags equal except within 1e-6 of a threshold (counted);
  12. the inline loop slice a second time in the same process on a fresh
      System whose global and loop BAs run sharded over 4 landmark shards of
@@ -149,8 +156,9 @@ Phases, each fatal on failure (nothing is caught):
      their forward hops);
  13. kernels F-I and P twice on the same inputs (init, local and global
      shapes, the loop slice's global BA and pose graph): bit-identical;
-     G, spd_solve and F, then C, D and B (both modes), launched from
-     several host threads on their own streams beside kernel F: every
+     G, spd_solve and F, then C, D, B (both modes), A (a frame, a pair)
+     and Q (the scatter; the dedup at 2872, 1199 and 12839 slots), launched
+     from several host threads on their own streams beside kernel F: every
      launch gives its case's bits on the idle card, and none fails
      (check_solves_under_load, check_cascade_under_load);
  14. the threaded slice (util/threaded_slice.py): the default System —
@@ -424,6 +432,121 @@ def check_describe_edges(dev, tab) -> dict:
     return out
 
 
+def hd_world():
+    """bench_world's plane at 1280x720 (fx = fy = 780, 458 scaled by
+    1280/752): 7984 slots at 8 levels and min_size 800."""
+    from stella_vslam_tpu_torch.util.synthetic import PlaneWorld
+
+    return PlaneWorld(width=1280, height=720, fx=780.0, fy=780.0, depth=4.0, tex_size=4096,
+                      meters_per_px=0.008, noise_sigma=2.0, exposure_amp=0.06)
+
+
+def fast_frames(dev):
+    """Kernel A's frames: (label, extractor, flat pyramid [B, P], level-0
+    mask or None) for a bench frame (752x480, 8 levels, 2872 slots), a
+    rendered stereo pair (B = 2), the equirectangular leg's frame (640x320,
+    6 levels, 1199 slots), a masked fisheye leg frame with its vignette and
+    a 1280x720 frame (7984 slots)."""
+    import torch
+
+    from stella_vslam_tpu_torch.feature import orb_extractor as ox
+    from stella_vslam_tpu_torch.feature.orb_params import OrbParams
+    from stella_vslam_tpu_torch.util import distorted_slice as ds
+    from stella_vslam_tpu_torch.util import equirect_slice as es
+    from stella_vslam_tpu_torch.util.drift import pose_at_xy
+    from stella_vslam_tpu_torch.util.rgbd_slice import bench_world
+    from stella_vslam_tpu_torch.util.synthetic import equirect_circle
+
+    up = lambda imgs: torch.from_numpy(np.stack(imgs)).to(dev)
+    world = bench_world()
+    ex = ox.OrbExtractor(OrbParams(num_levels=8), 752, 480, min_area=800, device=dev)
+    out = [("bench frame 752x480", ex, ex.pyramid_flat(up([world.render(pose_at_xy(0.6, 0.0))])),
+            None),
+           ("stereo pair 2 x 752x480", ex, ex.pyramid_flat(
+               up([world.render(pose_at_xy(x, 0.0)) for x in (0.6, 3.0)])), None)]
+    ee = ox.OrbExtractor(OrbParams(num_levels=6), 640, 320, min_area=800, device=dev)
+    out.append(("equirect frame 640x320", ee, ee.pyramid_flat(
+        up([es.bench_world().render(equirect_circle(250)[0][0])])), None))
+    fw = ds.leg_world("fisheye_masked", world)
+    out.append(("masked fisheye frame 752x480", ex, ex.pyramid_flat(
+        up([fw.render(pose_at_xy(0.6, 0.0))])),
+        torch.from_numpy(ds.leg_mask("fisheye_masked", fw)).to(dev)))
+    hw = hd_world()
+    eh = ox.OrbExtractor(OrbParams(num_levels=8), hw.W, hw.H, min_area=800, device=dev)
+    out.append(("1280x720 frame", eh, eh.pyramid_flat(up([hw.render(pose_at_xy(0.6, 0.0))])),
+                None))
+    return out
+
+
+def fast_work(ex, pyr, mask=None) -> dict:
+    """Kernel A's bound on one launch, counted on this launch's pixels: on
+    every pixel of each level's border region that the mask keeps, the
+    compass test (4 differences and 8 comparisons at min_fast_thr: ring
+    points 0, 4, 8, 12, two neighbours both brighter or both darker, true
+    of every corner), and on each such pixel that passes it (a plain torch
+    compass test on the inputs) 300 more (the full ring's 16 differences
+    and the doubling tree's 16 x 2 arcs); bytes: the pyramid read once
+    (with a mask, only the kept region pixels, the mask and its index
+    tables) and 17 bytes a slot written (key, px, py, response, valid)."""
+    import torch
+
+    from stella_vslam_tpu_torch.feature import orb_extractor as ox
+
+    B, b = pyr.shape[0], ex.border
+    t = float(ex.params.min_fast_thr)
+    n_px = n_pass = 0
+    for g, off in zip(ex.levels, ex._level_off):
+        if g.H <= 2 * b or g.W <= 2 * b:
+            continue
+        img = pyr[:, off:off + g.H * g.W].view(B, g.H, g.W)
+        c = img[:, b:g.H - b, b:g.W - b]
+        ring = [img[:, b + dy:g.H - b + dy, b + dx:g.W - b + dx] - c
+                for dy, dx in ((-3, 0), (0, 3), (3, 0), (0, -3))]  # ring 0, 4, 8, 12
+        hit = torch.zeros_like(c, dtype=torch.bool)
+        for q in ([d > t for d in ring], [d < -t for d in ring]):
+            for k in range(4):
+                hit |= q[k] & q[(k + 1) % 4]
+        if mask is not None:
+            idx = lambda n_in, n_out: torch.from_numpy(
+                ox.nearest_index(n_in, n_out)[b:n_out - b].astype(np.int64)).to(mask.device)
+            keep = mask[idx(mask.shape[0], g.H)[:, None], idx(mask.shape[1], g.W)[None, :]] != 0
+            hit &= keep
+            n_px += B * int(keep.sum())
+        else:
+            n_px += c.numel()
+        n_pass += int(hit.sum())
+    if mask is None:
+        read = 4.0 * B * ex.pyramid_size
+    else:
+        read = 4.0 * n_px + mask.numel() + 4.0 * sum(g.H + g.W for g in ex.levels)
+    return _bound(read + 17.0 * B * ex.num_slots, 12.0 * n_px + 300.0 * n_pass)
+
+
+def check_fast_frames(dev, frames) -> dict:
+    """Kernel A (one launch a pyramid) against fast_nms_pyramid_plain on
+    each of fast_frames, bit for bit: keys and slot outputs. Returns
+    {label: cells with a corner}."""
+    import torch
+
+    from stella_vslam_tpu_torch.feature import orb_extractor as ox
+
+    out = {}
+    for label, ex, pyr, mask in frames:
+        p = ex.params
+        thr = (float(p.ini_fast_thr), float(p.min_fast_thr))
+        before = ox.fast_nms_pyramid.launches
+        k = ox.fast_nms_pyramid(pyr, ex._fast, *thr, mask)
+        q = ox.fast_nms_pyramid_plain(pyr, ex._fast, *thr, mask)
+        torch.cuda.synchronize()
+        assert ox.fast_nms_pyramid.launches == before + 1
+        assert all(torch.equal(a, c) for a, c in zip(k, q)), \
+            f"kernel A disagrees with its plain version on the {label}"
+        out[label] = int(k[3].sum())
+    print(f"kernel A fast_nms_pyramid, one launch a pyramid, bit-equal to plain (keys, px, "
+          f"py, valid, response); cells with a corner: {json.dumps(out)}")
+    return out
+
+
 def check_kernels(dev, world):
     """Kernels A-D against their plain versions on the card; returns rows
     of the kernels line (launch counts filled in after the slices)."""
@@ -434,47 +557,36 @@ def check_kernels(dev, world):
     from stella_vslam_tpu_torch.match import hamming as H
     from stella_vslam_tpu_torch.match.robust import cos_30deg
     from stella_vslam_tpu_torch.ops.optim import pose as pose_mod
-    from stella_vslam_tpu_torch.util.drift import pose_at_xy
 
     rows = []
     params = OrbParams(num_levels=8)
-    ex = ox.OrbExtractor(params, 752, 480, min_area=800, device=dev)
-    img = torch.from_numpy(world.render(pose_at_xy(0.6, 0.0))).to(dev)
-    levels = ex.pyramid(img)
+    frames = fast_frames(dev)
+    _, ex, pyr1, _ = frames[0]  # world's frame at x = 0.6 m
     thr = (float(params.ini_fast_thr), float(params.min_fast_thr))
-    pyr_bytes = 4.0 * sum(l.numel() for l in levels)
+    pyr_bytes = 4.0 * ex.pyramid_size
 
-    # ---- A: FAST + NMS, all levels of a frame ----
-    def run_a(fn):
-        return [fn(l.contiguous(), g, ex.border, *thr)
-                for l, g in zip(levels, ex.levels)]
-
-    ka, pa = run_a(ox.fast_nms), run_a(ox.fast_nms_plain)
-    torch.cuda.synchronize()
-    err_a = max(int((k - p).abs().max()) for k, p in zip(ka, pa))
-    n_kp = int(sum(int((k >= 0).sum()) for k in ka))
-    print(f"kernel A fast_nms: {n_kp}/{ex.num_slots} cells with a corner, "
-          f"max |key diff| {err_a}")
-    assert err_a == 0, "kernel A disagrees with its plain version"
-    # per pixel of the border region (the pixels A scores): 16 ring
-    # differences, then the 9-arc min / max over 16 arcs
-    n_px = sum(max(g.H - 2 * ex.border, 0) * max(g.W - 2 * ex.border, 0) for g in ex.levels)
-    rows.append(_per_launch(dict(
-        name="fast_nms", route="cuda",
+    # ---- A: FAST + NMS, one launch for every level of a frame ----
+    corners = check_fast_frames(dev, frames)
+    run_a = lambda fn: fn(pyr1, ex._fast, *thr)
+    ka = run_a(ox.fast_nms_pyramid)
+    rows.append(dict(
+        name="fast_nms_pyramid", route="cuda",
         source="stella_vslam_tpu_torch/csrc/fast_nms.cu",
         replaces="stella_vslam_tpu/feature/orb_extractor.py:88",
-        max_abs_err=float(err_a), shape="752x480, one launch a level of 8",
-        **_times(lambda: run_a(ox.fast_nms)),
-        plain_ms=_median_ms(lambda: run_a(ox.fast_nms_plain)),
-        library_ms=None, **_bound(pyr_bytes + 4.0 * ex.num_slots, 300.0 * n_px)),
-        ox.fast_nms, lambda: run_a(ox.fast_nms)))
+        max_abs_err=0.0, shape="752x480, 8 levels, 2872 slots: one launch a frame",
+        cells_with_a_corner=corners,
+        **_times(lambda: run_a(ox.fast_nms_pyramid)),
+        plain_ms=_median_ms(lambda: run_a(ox.fast_nms_pyramid_plain)),
+        library_ms=None, **fast_work(ex, pyr1)))
+    for label, exf, pyr, mask in frames[1:]:
+        if mask is None:
+            fn = lambda exf=exf, pyr=pyr: ox.fast_nms_pyramid(pyr, exf._fast, *thr)
+            rows[-1][f"ms_{label.replace(' ', '_')}"] = _device_ms(fn)
 
     # ---- B: orientation + blur + steered BRIEF, one frame's slots ----
-    pts = [ex.cell_keypoints(k, g) for k, g in zip(ka, ex.levels)]
-    px, py, valid, _ = (torch.cat(c) for c in zip(*pts))
-    pyr = torch.cat([l.reshape(-1) for l in levels])
-    args = (pyr, ex._slot_base, ex._slot_H, ex._slot_W, px.to(torch.int32),
-            py.to(torch.int32), valid, ex._tables)
+    px, py, valid = ka[1][0], ka[2][0], ka[3][0]
+    args = (pyr1.reshape(-1), ex._slot_base, ex._slot_H, ex._slot_W, px, py, valid,
+            ex._tables)
     ang_k, desc_k = ox.orb_describe(*args)
     ang_p, desc_p = ox.orb_describe_plain(*args)
     torch.cuda.synchronize()
@@ -2399,6 +2511,25 @@ def _assoc_problem(dev, M, N, seed):
     return best.to(dev), acc.to(dev), tbl.to(dev), ids.to(dev)
 
 
+HD_SLOTS = 7984  # a 1280x720 camera's slots (8 levels, min_size 800)
+EQ_HD_SLOTS = 12839  # a 1920x960 equirectangular camera's (6 levels)
+# the rows at those slot counts: their launches are the 1280x720 slice's
+HD_ROWS = ("scatter_to_current_hd", f"dedup_by_id_n{HD_SLOTS}", f"dedup_by_id_n{EQ_HD_SLOTS}")
+
+
+def dedup_case(dev, N, seed):
+    """Kernel Q's dedup inputs: 80% of N slots held, ids drawn from N // 3
+    (repeated), scores from 8 values (ties), +inf where not held, as the
+    cascade passes them."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    has = (torch.rand(N, generator=g) < 0.8).to(dev)
+    ids = torch.randint(0, max(1, N // 3), (N,), generator=g, dtype=torch.int32).to(dev)
+    score = torch.randint(0, 8, (N,), generator=g).to(torch.float32).to(dev)
+    return has, ids, torch.where(has, score, torch.full_like(score, float("inf")))
+
+
 def _same(a, b) -> bool:
     """Equal outputs (tuples of tensors, None where absent)."""
     import torch
@@ -2473,22 +2604,33 @@ def check_track_kernels(dev, world):
         # read: index, accept flag, 3 floats and an id per source; write: 3
         # floats, an id and a flag per slot; one count and a compare each
         **_bound(M * (4 + 1 + 12 + 4) + N * (12 + 4 + 1), 4.0 * (M + N))))
-    # ---- Q: dedup ----
-    g = torch.Generator().manual_seed(12)
-    has = (torch.rand(N, generator=g) < 0.8).to(dev)
-    dids = torch.randint(0, N // 3, (N,), generator=g, dtype=torch.int32).to(dev)
-    score = torch.randint(0, 8, (N,), generator=g).to(torch.float32).to(dev)
-    dargs = (has, dids, torch.where(has, score, torch.full_like(score, float("inf"))))
-    _check_assoc_call("dedup", dargs)
-    kept = int(tk.dedup_by_id(*dargs)[0].sum())
-    print(f"kernel Q dedup_by_id: {int(has.sum())} held slots over {N // 3} ids with tied "
-          f"scores, {kept} kept, exact")
+    # at the 1280x720 camera's slots (7984): kernel Q's cap was 4096 slots
+    hb, ha, ht, hi = _assoc_problem(dev, M, HD_SLOTS, 15)
+    hd_sargs = (hb[:, 1], ha, ht[:, 0:3], hi[:, 8], HD_SLOTS)
+    _check_assoc_call("scatter", hd_sargs)
+    print(f"kernel Q scatter_to_current: {M} sources -> {HD_SLOTS} slots, "
+          f"{int(tk.scatter_to_current(*hd_sargs)[2].sum())} held, exact")
     rows.append(dict(
-        name="dedup_by_id", route="cuda", source=src,
-        replaces="stella_vslam_tpu/module/tracking_kernels.py:83", max_abs_err=0.0,
-        shape=f"N={N}", **_times(lambda: tk.dedup_by_id(*dargs)),
-        plain_ms=_median_ms(lambda: tk.dedup_by_id_plain(*dargs)), library_ms=None,
-        **_bound(N * (1 + 4 + 4) + N * (1 + 4), 10.0 * N)))
+        name="scatter_to_current_hd", counter="scatter_to_current", route="cuda", source=src,
+        replaces="stella_vslam_tpu/module/tracking_kernels.py:64", max_abs_err=0.0,
+        shape=f"M={M} N={HD_SLOTS} (1280x720)", **_times(lambda: tk.scatter_to_current(*hd_sargs)),
+        plain_ms=_median_ms(lambda: tk.scatter_to_current_plain(*hd_sargs)), library_ms=None,
+        **_bound(M * (4 + 1 + 12 + 4) + HD_SLOTS * (12 + 4 + 1), 4.0 * (M + HD_SLOTS))))
+    # ---- Q: dedup, at the bench's 2872 slots, 1280x720's 7984 and a
+    # 1920x960 equirectangular camera's 12839 (6 levels) ----
+    for n in (N, HD_SLOTS, EQ_HD_SLOTS):
+        dargs = dedup_case(dev, n, 12)
+        _check_assoc_call("dedup", dargs)
+        kept = int(tk.dedup_by_id(*dargs)[0].sum())
+        print(f"kernel Q dedup_by_id: {int(dargs[0].sum())} held slots of {n} over {n // 3} ids "
+              f"with tied scores, {kept} kept, exact")
+        rows.append(dict(
+            name="dedup_by_id" + ("" if n == N else f"_n{n}"), counter="dedup_by_id",
+            route="cuda", source=src,
+            replaces="stella_vslam_tpu/module/tracking_kernels.py:83", max_abs_err=0.0,
+            shape=f"N={n}", **_times(lambda: tk.dedup_by_id(*dargs)),
+            plain_ms=_median_ms(lambda: tk.dedup_by_id_plain(*dargs)), library_ms=None,
+            **_bound(n * (1 + 4 + 4) + n * (1 + 4), 10.0 * n)))
     # ---- Q: rebase ----
     g = torch.Generator().manual_seed(13)
     la_id = torch.randint(-1, 3 * C // 2, (N,), generator=g, dtype=torch.int32)
@@ -2702,31 +2844,34 @@ def _pair_describe_args(dev):
                         for x in (0.6, 3.0)])
     thr = (float(params.ini_fast_thr), float(params.min_fast_thr))
     pyr = ex.pyramid_flat(pair)
-    pts = [ex.cell_keypoints(ox.fast_nms(v, g, ex.border, *thr), g)
-           for v, g in zip(ex.level_views(pyr), ex.levels)]
-    px, py, valid, _ = (torch.cat(c, dim=-1) for c in zip(*pts))
+    _, px, py, valid, _ = ox.fast_nms_pyramid(pyr, ex._fast, *thr)
     base, hh, ww = ex._slots(2)
-    return (pyr.reshape(-1), base, hh, ww, px.reshape(-1).int().contiguous(),
-            py.reshape(-1).int().contiguous(), valid.reshape(-1).contiguous(), ex._tables)
+    return (pyr.reshape(-1), base, hh, ww, px.reshape(-1), py.reshape(-1), valid.reshape(-1),
+            ex._tables)
 
 
 def check_cascade_under_load(dev, seconds: float = 6.0) -> dict:
-    """Kernels C, D and B launched from six host threads, each on its own
-    stream, while a seventh keeps the card busy with kernel F: the threaded
-    System's tracking thread and its loop detector share C and D (and D's
-    shared-memory limit), the tracking thread and the stereo front end B.
-    Cases: C's window call at 2872 x 2872 (keypoints to 5x the image; the
-    call builds its cell index and walks it), C's brute force at 2872 x
-    2872, D on a batch of two 2872-slot problems (the cascade's first
-    launch) and on one 1199-slot equirectangular problem, B on a bench
-    frame's 2872 slots and in strip mode on a pair. Every launch must give
-    the bits its case gave on the idle card. Returns {case: [launches,
-    launches whose bits differ]}."""
+    """Kernels C, D, B, A and Q launched from thirteen host threads, each on
+    its own stream, while another keeps the card busy with kernel F: the
+    threaded System's tracking thread and its loop detector share C and D
+    (and D's shared-memory limit), the tracking thread and the stereo front
+    end B and A, the tracking threads of two Systems Q (and its
+    shared-memory limits, raised once under a lock). Cases: C's window call
+    at 2872 x 2872 (keypoints to 5x the image; the call builds its cell
+    index and walks it), C's brute force at 2872 x 2872, D on a batch of
+    two 2872-slot problems (the cascade's first launch) and on one
+    1199-slot equirectangular problem, B on a bench frame's 2872 slots and
+    in strip mode on a pair, A on a bench frame and on a pair, Q's scatter
+    at 4096 x 2872 and its dedup at 2872, 1199 and 12839 slots (the dedup's
+    shared memory differs with N). Every launch must give the bits its case
+    gave on the idle card. Returns {case: [launches, launches whose bits
+    differ]}."""
     import torch
 
     from stella_vslam_tpu_torch.feature import orb_extractor as ox
     from stella_vslam_tpu_torch.feature.orb_params import OrbParams
     from stella_vslam_tpu_torch.match import hamming as H
+    from stella_vslam_tpu_torch.module import tracking_kernels as tk
     from stella_vslam_tpu_torch.ops.optim import pose as pose_mod
 
     cases = {}
@@ -2750,11 +2895,26 @@ def check_cascade_under_load(dev, seconds: float = 6.0) -> dict:
                                  + [x.flatten().int() for x in out[2:]])
     cases[f"B {n} slots"] = lambda: bits(ox.orb_describe(sargs[0], *fargs, sargs[7]))
     cases[f"B strips 2 x {n} slots"] = lambda: bits(ox.orb_describe_strips(*sargs))
+    frames = fast_frames(dev)
+    for label, ex, pyr, mask in frames[:2]:
+        thr = (float(ex.params.ini_fast_thr), float(ex.params.min_fast_thr))
+        cases[f"A {label}"] = (lambda ex=ex, pyr=pyr, thr=thr: torch.cat([
+            x.view(torch.int32).flatten() if x.dtype == torch.float32 else x.flatten().int()
+            for x in ox.fast_nms_pyramid(pyr, ex._fast, *thr)]))
+    best, acc, tbl, ids = _assoc_problem(dev, 4096, 2872, 11)
+    cases["Q scatter 4096 x 2872"] = lambda: torch.cat([
+        t.flatten().view(torch.int32) if t.dtype == torch.float32 else t.flatten().int()
+        for t in tk.scatter_to_current(best[:, 1], acc, tbl[:, 0:3], ids[:, 8], 2872)])
+    for m in (2872, 1199, EQ_HD_SLOTS):
+        dargs = dedup_case(dev, m, 12)
+        cases[f"Q dedup N={m}"] = lambda dargs=dargs: torch.cat(
+            [t.int() for t in tk.dedup_by_id(*dargs)])
     counts = _under_load(dev, cases, seconds)
-    print(f"kernels C, D and B from {len(cases)} threads on their own streams beside kernel F, "
-          "[launches, launches whose bits differ from the idle card's]: " + json.dumps(counts))
+    print(f"kernels C, D, B, A and Q from {len(cases)} threads on their own streams beside "
+          "kernel F, [launches, launches whose bits differ from the idle card's]: "
+          + json.dumps(counts))
     assert all(n > 0 and bad == 0 for n, bad in counts.values()), \
-        "kernel C, D or B gave other bits under concurrent launches"
+        "kernel C, D, B, A or Q gave other bits under concurrent launches"
     return counts
 
 
@@ -3453,12 +3613,10 @@ def check_stereo_kernels(dev, world):
 
     # ---- B's strip mode: both images of a pair ----
     pyr = ex.pyramid_flat(pair)
-    pts = [ex.cell_keypoints(ox.fast_nms(v, g, ex.border, *thr), g)
-           for v, g in zip(ex.level_views(pyr), ex.levels)]
-    px, py, valid, _ = (torch.cat(c, dim=-1) for c in zip(*pts))
+    _, px, py, valid, _ = ox.fast_nms_pyramid(pyr, ex._fast, *thr)
     base, hh, ww = ex._slots(2)
-    bargs = (pyr.reshape(-1), base, hh, ww, px.reshape(-1).int().contiguous(),
-             py.reshape(-1).int().contiguous(), valid.reshape(-1).contiguous(), ex._tables)
+    bargs = (pyr.reshape(-1), base, hh, ww, px.reshape(-1), py.reshape(-1), valid.reshape(-1),
+             ex._tables)
     ak, dk, sk = ox.orb_describe_strips(*bargs)
     ap, dp, sp = ox.orb_describe_plain(*bargs, strips=True)
     torch.cuda.synchronize()
@@ -3533,7 +3691,7 @@ def record_stereo_inputs(sample: int = 20):
 
 
 # what the stereo leg and the RGBD leg with mapping launch
-LEG_KERNELS = ("resize_level", "fast_nms", "hamming_top2", "cell_index", "pose_lm",
+LEG_KERNELS = ("resize_level", "fast_nms_pyramid", "hamming_top2", "cell_index", "pose_lm",
                "scatter_to_current", "dedup_by_id", "reproject_gate", "undistort_norm",
                "epipolar_top2", "triangulate", "fuse", "ba_linearize_schur", "schur_index",
                "ba_reduced_solve", "ba_backsub_cost", "ba_classify", "bow_transform")
@@ -3599,7 +3757,7 @@ def run_slices(dev, world, wrappers, card):
     assert stats["lost_after_init"] <= 2, f"{stats['lost_after_init']} frames lost"
     assert stats["ate_m"] < 0.10, f"rigid ATE {stats['ate_m']:.4f} m"
     assert stats["scale_err"] < 0.05, f"scale error {stats['scale_err']:.2%}"
-    for name in ("fast_nms", "orb_describe", "hamming_top2", "cell_index", "pose_lm",
+    for name in ("fast_nms_pyramid", "orb_describe", "hamming_top2", "cell_index", "pose_lm",
                  "scatter_to_current", "dedup_by_id", "reproject_gate", "undistort_norm"):
         assert launches["rgbd"][name] > 0, f"{name} was not launched by the RGBD slice"
 
@@ -3619,7 +3777,35 @@ def run_slices(dev, world, wrappers, card):
     return stats, mono, launches
 
 
-EQUIRECT_LEG_KERNELS = ("resize_level", "fast_nms", "orb_describe", "hamming_top2",
+def run_hd_slice(dev, wrappers, card, n_frames: int = 30):
+    """The RGBD slice's first n_frames at 1280x720 (hd_world, 7984 slots;
+    mapping off, inline) with every launch count at 0 just before it and
+    read just after it: at most 2 frames lost, kernel Q's dedup launched
+    for every tracked frame after the first (the cascade's stage 3).
+    Returns (stats, launches)."""
+    from stella_vslam_tpu_torch.feature import orb_extractor as ox
+    from stella_vslam_tpu_torch.feature import orb_pattern
+    from stella_vslam_tpu_torch.feature.orb_params import OrbParams
+    from stella_vslam_tpu_torch.util import rgbd_slice
+
+    for w in wrappers.values():
+        w.launches = 0
+    world = hd_world()
+    stats = rgbd_slice.run_slice(dev, world, n_frames=n_frames, step=0.015)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    stats["slots"] = sum(g.Gy * g.Gx for g in ox.level_geometry(
+        OrbParams(num_levels=8), world.W, world.H, 800, orb_pattern.EDGE_BORDER))
+    assert stats["slots"] == HD_SLOTS, stats["slots"]
+    print("1280x720 rgbd slice: " + json.dumps(dict(stats, card=card)))
+    print("1280x720 rgbd slice launches: " + json.dumps(launches))
+    assert stats["lost_after_init"] <= 2, f"1280x720: {stats['lost_after_init']} frames lost"
+    assert launches["dedup_by_id"] >= stats["tracked"] - 1, \
+        f"1280x720: {launches['dedup_by_id']} dedups for {stats['tracked']} tracked frames"
+    assert launches["fast_nms_pyramid"] >= n_frames  # and the System's warm-up
+    return stats, launches
+
+
+EQUIRECT_LEG_KERNELS = ("resize_level", "fast_nms_pyramid", "orb_describe", "hamming_top2",
                         "cell_index", "pose_lm", "ransac_two_view", "scatter_to_current",
                         "dedup_by_id", "reproject_gate", "epipolar_top2", "triangulate", "fuse",
                         "ba_linearize_schur", "schur_index", "ba_reduced_solve",
@@ -3634,7 +3820,7 @@ EQUIRECT_ROWS = {"reproject_gate_equirect": "reproject_gate", "pose_lm_equirect"
                  **{f"ba_{k}_equirect": f"ba_{k}" for k in (
                      "linearize_schur", "reduced_solve", "backsub_cost", "classify")},
                  **{f"{k}_equirect_leg": k for k in (
-                     "resize_level", "fast_nms", "orb_describe", "epipolar_top2",
+                     "resize_level", "fast_nms_pyramid", "orb_describe", "epipolar_top2",
                      "bow_transform", "scatter_to_current", "dedup_by_id")},
                  "hamming_top2_equirect_leg": "hamming_top2_window"}
 # kernel U's candidates against its plain version's, as sets, up to sign:
@@ -3813,30 +3999,28 @@ def check_equirect_shapes(dev, slam_like, calls):
         **_bound(4.0 * sum(lvl_px[l - 1] + lvl_px[l] for l in range(1, L)),
                  6.0 * sum(lvl_px[1:]))), ox.resize_level, lambda: ex.pyramid(img)))
 
-    # ---- A: FAST + NMS on every level ----
-    run_a = lambda fn: [fn(l.contiguous(), g, ex.border, *thr) for l, g in zip(pk, ex.levels)]
-    ka, pa = run_a(ox.fast_nms), run_a(ox.fast_nms_plain)
+    # ---- A: FAST + NMS on every level, one launch ----
+    pyr = torch.cat([l.reshape(-1) for l in pk])[None]
+    run_a = lambda fn: fn(pyr, ex._fast, *thr)
+    ka, pa = run_a(ox.fast_nms_pyramid), run_a(ox.fast_nms_pyramid_plain)
     torch.cuda.synchronize()
-    err_a = max(int((k - p).abs().max()) for k, p in zip(ka, pa))
-    print(f"kernel A fast_nms at the equirect leg's shape: "
-          f"{sum(int((k >= 0).sum()) for k in ka)}/{ex.num_slots} cells with a corner, max "
-          f"|key diff| {err_a}")
-    assert err_a == 0, "kernel A disagrees with its plain version at the leg's shape"
-    pyr_bytes = 4.0 * sum(l.numel() for l in pk)
-    rows.append(_per_launch(dict(
-        name="fast_nms_equirect_leg", route="cuda",
+    assert all(torch.equal(k, p) for k, p in zip(ka, pa)), \
+        "kernel A disagrees with its plain version at the leg's shape"
+    print(f"kernel A fast_nms_pyramid at the equirect leg's shape: "
+          f"{int(ka[3].sum())}/{ex.num_slots} cells with a corner, bit-equal to plain")
+    rows.append(dict(
+        name="fast_nms_pyramid_equirect_leg", route="cuda",
         source="stella_vslam_tpu_torch/csrc/fast_nms.cu",
-        replaces="stella_vslam_tpu/feature/orb_extractor.py:88", max_abs_err=float(err_a),
-        shape=shape + ", one launch a level", **_times(lambda: run_a(ox.fast_nms)),
-        plain_ms=_median_ms(lambda: run_a(ox.fast_nms_plain)), library_ms=None,
-        **_bound(pyr_bytes + 4.0 * ex.num_slots, 300.0 * sum(l.numel() for l in pk))),
-        ox.fast_nms, lambda: run_a(ox.fast_nms)))
+        replaces="stella_vslam_tpu/feature/orb_extractor.py:88", max_abs_err=0.0,
+        shape=shape + ", one launch a frame", **_times(lambda: run_a(ox.fast_nms_pyramid)),
+        plain_ms=_median_ms(lambda: run_a(ox.fast_nms_pyramid_plain)), library_ms=None,
+        **fast_work(ex, pyr)))
 
     # ---- B: orientation, blur and steered BRIEF of the frame's slots ----
-    pts = [ex.cell_keypoints(k, g) for k, g in zip(ka, ex.levels)]
-    px, py, valid, _ = (torch.cat(c) for c in zip(*pts))
-    bargs = (torch.cat([l.reshape(-1) for l in pk]), ex._slot_base, ex._slot_H, ex._slot_W,
-             px.to(torch.int32), py.to(torch.int32), valid, ex._tables)
+    px, py, valid = ka[1][0], ka[2][0], ka[3][0]
+    bargs = (pyr.reshape(-1), ex._slot_base, ex._slot_H, ex._slot_W, px, py, valid,
+             ex._tables)
+    pyr_bytes = 4.0 * pyr.numel()
     ang_k, desc_k = ox.orb_describe(*bargs)
     ang_p, desc_p = ox.orb_describe_plain(*bargs)
     torch.cuda.synchronize()
@@ -4294,7 +4478,7 @@ DISTORTED_KERNELS = ("undistort_fisheye", "undistort_radial")
 # kernel V: the FBoW leg's own
 FBOW_KERNELS = ("fbow_transform",)
 # what every distorted leg launches (R's mode of its model besides)
-DISTORTED_LEG_KERNELS = ("resize_level", "fast_nms", "orb_describe", "hamming_top2",
+DISTORTED_LEG_KERNELS = ("resize_level", "fast_nms_pyramid", "orb_describe", "hamming_top2",
                          "cell_index", "pose_lm", "ransac_two_view", "scatter_to_current",
                          "dedup_by_id", "reproject_gate", "epipolar_top2", "triangulate", "fuse",
                          "ba_linearize_schur", "schur_index", "ba_reduced_solve",
@@ -4302,7 +4486,7 @@ DISTORTED_LEG_KERNELS = ("resize_level", "fast_nms", "orb_describe", "hamming_to
 # the rows whose launches are a distorted leg's (and its counter there)
 DISTORTED_ROWS = {"undistort_fisheye": ("fisheye", "undistort_fisheye"),
                   "undistort_radial": ("radial_division", "undistort_radial"),
-                  "fast_nms_masked": ("fisheye_masked", "fast_nms_masked")}
+                  "fast_nms_pyramid_masked": ("fisheye_masked", "fast_nms_pyramid_masked")}
 
 
 def record_frame_keypoints(slam):
@@ -4362,9 +4546,9 @@ def run_distorted_legs(dev, world, wrappers, card):
             assert la[name] > 0, f"{name} was not launched by the {leg} leg"
         own = ds.UNDISTORT[ds.MODEL[leg]]
         assert la[own] == s["frames"], f"{leg}: {la[own]} launches of {own} for {s['frames']}"
-        masked = la["fast_nms_masked"]
-        assert masked == (la["fast_nms"] if s["masked"] else 0), \
-            f"{leg}: {masked} masked launches of kernel A of {la['fast_nms']}"
+        masked = la["fast_nms_pyramid_masked"]
+        assert masked == (la["fast_nms_pyramid"] if s["masked"] else 0), \
+            f"{leg}: {masked} masked launches of kernel A of {la['fast_nms_pyramid']}"
     return stats, launches, recs
 
 
@@ -4428,43 +4612,32 @@ def check_distorted_kernels(dev, world, recs):
              .astype(np.uint8),
              "vignette": ds.leg_mask("fisheye_masked", world)}
 
-    def run_a(fn, lm):
-        return [fn(l.contiguous(), g, ex.border, *thr, m)
-                for l, g, m in zip(levels, ex.levels, lm)]
+    pyr = torch.cat([l.reshape(-1) for l in levels])[None]
 
-    unmasked = sum(int((k >= 0).sum()) for k in run_a(ox.fast_nms, [None] * len(levels)))
+    def run_a(fn, m):
+        return fn(pyr, ex._fast, *thr, m)
+
+    unmasked = int(run_a(ox.fast_nms_pyramid, None)[3].sum())
     counts = {}
     for label, m in masks.items():
-        lm = ex.level_masks(torch.from_numpy(m).to(dev))
-        ka, pa = run_a(ox.fast_nms, lm), run_a(ox.fast_nms_plain, lm)
+        mt = torch.from_numpy(m).to(dev)
+        ka, pa = run_a(ox.fast_nms_pyramid, mt), run_a(ox.fast_nms_pyramid_plain, mt)
         torch.cuda.synchronize()
         assert all(torch.equal(k, q) for k, q in zip(ka, pa)), \
             f"kernel A with the {label} mask disagrees with its plain version"
-        counts[label] = sum(int((k >= 0).sum()) for k in ka)
-    print(f"kernel A fast_nms with a mask: cells with a corner over 8 levels {counts} "
-          f"(unmasked {unmasked}), each equal to plain")
+        counts[label] = int(ka[3].sum())
+    print(f"kernel A fast_nms_pyramid with a mask: cells with a corner over 8 levels {counts} "
+          f"(unmasked {unmasked}), each bit-equal to plain")
     assert all(0 < c < unmasked for c in counts.values()), (counts, unmasked)
-    lm = ex.level_masks(torch.from_numpy(half).to(dev))
-    # the work the function needs: the mask read over each level's border
-    # region, the image and a FAST score (300 operations) only where the
-    # level mask keeps a pixel of the region
-    n_region, n_kept = 0, 0
-    for g, m in zip(ex.levels, lm):
-        b = ex.border
-        keep = m.mask[m.rows.long()[b:g.H - b, None], m.cols.long()[None, b:g.W - b]] != 0
-        n_region += keep.numel()
-        n_kept += int(keep.sum())
-    rows.append(_per_launch(dict(
-        name="fast_nms_masked", counter="fast_nms", route="cuda",
+    mt = torch.from_numpy(half).to(dev)
+    rows.append(dict(
+        name="fast_nms_pyramid_masked", counter="fast_nms_pyramid", route="cuda",
         source="stella_vslam_tpu_torch/csrc/fast_nms.cu",
         replaces="stella_vslam_tpu/feature/orb_extractor.py:332", max_abs_err=0.0,
-        shape="752x480, 8 levels, the half-image mask, one launch a level",
-        **_times(lambda: run_a(ox.fast_nms, lm)),
-        plain_ms=_median_ms(lambda: run_a(ox.fast_nms_plain, lm)), library_ms=None,
-        work=dict(region_px=n_region, kept_px=n_kept),
-        **_bound(4.0 * n_kept + n_region + 4.0 * sum(g.H + g.W for g in ex.levels)
-                 + 4.0 * ex.num_slots, 300.0 * n_kept)),
-        ox.fast_nms, lambda: run_a(ox.fast_nms, lm)))
+        shape="752x480, 8 levels, the half-image mask, one launch a frame",
+        **_times(lambda: run_a(ox.fast_nms_pyramid, mt)),
+        plain_ms=_median_ms(lambda: run_a(ox.fast_nms_pyramid_plain, mt)), library_ms=None,
+        **fast_work(ex, pyr, mt)))
     return rows
 
 
@@ -4658,7 +4831,8 @@ def main() -> int:
 
     wrappers = map_slice.kernel_wrappers()
     rgbd, mono, launches = run_slices(dev, world, wrappers, card)
-    lap("rgbd_mono_slices")
+    hd, launches["hd"] = run_hd_slice(dev, wrappers, card)
+    lap("rgbd_mono_hd_slices")
     undo_cache = cache_renders(world)
     loop, launches["loop"], slam, inputs, loop_rec = run_loop_slice(dev, world, wrappers, card)
     lap("loop_slice")
@@ -4721,6 +4895,9 @@ def main() -> int:
             row["launches"] = fbow_launches[name]
         elif name in SHARDED_KERNELS:
             row["launches"] = launches["sharded"][name]
+        elif row_name in HD_ROWS:
+            row["launches"] = launches["hd"][name]
+        row["launches_hd_rgbd_slice"] = launches["hd"][name]
         row["launches_sharded_loop_slice"] = launches["sharded"][name]
         row["launches_fisheye_leg"] = dist_launches["fisheye"][name]
         row["launches_radial_division_leg"] = dist_launches["radial_division"][name]
@@ -4747,6 +4924,9 @@ def main() -> int:
         loop_twice_bit_identical=twice["poses_bit_identical"], loop_twice_ate_m=twice["ate_m"],
         loop_twice_first_differing_frame=twice["first_differing_frame"],
         sharded_loop_w_launches=launches["sharded"]["ba_shard_assemble"],
+        **{"hd_rgbd_" + k: hd[k] for k in (
+            "slots", "tracked", "lost_after_init", "ate_m", "frame_ms_p50", "frame_ms_p99")},
+        hd_rgbd_dedup_launches=launches["hd"]["dedup_by_id"],
         f_p_repeat_bit_identical=all(repeat.values()),
         **{"threaded_" + k: threaded[k] for k in (
             "ate_m", "tracked", "lost_after_init", "loops_closed", "keyframes_created",
@@ -4766,7 +4946,8 @@ def main() -> int:
         **{f"{leg}_leg_" + k: dist[leg][k] for leg in dist for k in (
             "init_frame", "tracked", "lost_after_init", "ate_m", "keyframes_created",
             "keyframes_kept", "local_bas", "frame_ms", "fps", "worker_errors")},
-        fisheye_masked_leg_masked_launches=dist_launches["fisheye_masked"]["fast_nms_masked"],
+        fisheye_masked_leg_masked_launches=dist_launches["fisheye_masked"][
+            "fast_nms_pyramid_masked"],
         **{"fbow_leg_" + k: fbow[k] for k in (
             "ate_m", "tracked", "lost_after_init", "loops_closed", "keyframes_created",
             "keyframes_kept", "local_bas", "frame_ms", "fps", "worker_errors", "vocab_words")},

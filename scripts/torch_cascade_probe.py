@@ -50,7 +50,7 @@ def frame_features(dev):
     levels = ex.pyramid(torch.from_numpy(bench_world().render(pose_at_xy(0.6, 0.0))).to(dev))
     thr = (float(params.ini_fast_thr), float(params.min_fast_thr))
     keys = [ox.fast_nms(l.contiguous(), g, ex.border, *thr) for l, g in zip(levels, ex.levels)]
-    pts = [ex.cell_keypoints(k, g) for k, g in zip(keys, ex.levels)]
+    pts = [ox.cell_keypoints(k, g, ex.border) for k, g in zip(keys, ex.levels)]
     px, py, valid, _ = (torch.cat(c) for c in zip(*pts))
     pyr = torch.cat([l.reshape(-1) for l in levels])
     ang, desc = ox.orb_describe(pyr, ex._slot_base, ex._slot_H, ex._slot_W, px.to(torch.int32),

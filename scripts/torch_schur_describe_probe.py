@@ -113,7 +113,7 @@ def b_rows(cs, ox, dev):
 
     def frame_args(ex, levels, thr):
         keys = [ox.fast_nms(l.contiguous(), g, ex.border, *thr) for l, g in zip(levels, ex.levels)]
-        pts = [ex.cell_keypoints(k, g) for k, g in zip(keys, ex.levels)]
+        pts = [ox.cell_keypoints(k, g, ex.border) for k, g in zip(keys, ex.levels)]
         px, py, valid, _ = (torch.cat(c) for c in zip(*pts))
         return (torch.cat([l.reshape(-1) for l in levels]), ex._slot_base, ex._slot_H,
                 ex._slot_W, px.to(torch.int32), py.to(torch.int32), valid, ex._tables)
@@ -124,7 +124,7 @@ def b_rows(cs, ox, dev):
     pair = torch.stack([torch.from_numpy(world.render(pose_at_xy(x, 0.0))).to(dev)
                         for x in (0.6, 3.0)])
     pyr = ex.pyramid_flat(pair)
-    pts = [ex.cell_keypoints(ox.fast_nms(v, g, ex.border, *thr), g)
+    pts = [ox.cell_keypoints(ox.fast_nms(v, g, ex.border, *thr), g, ex.border)
            for v, g in zip(ex.level_views(pyr), ex.levels)]
     px, py, valid, _ = (torch.cat(c, dim=-1) for c in zip(*pts))
     base, hh, ww = ex._slots(2)

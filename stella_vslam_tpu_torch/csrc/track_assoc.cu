@@ -1,6 +1,5 @@
 // Kernel Q: the tracking cascade's association bookkeeping, three entry
-// points, each one block that keeps its per-slot or per-id state in shared
-// memory.
+// points.
 //
 // Replaces stella_vslam_tpu/module/tracking_kernels.py
 // _scatter_matches_to_current (:64) and _dedup_by_landmark_id (:83), and
@@ -14,45 +13,171 @@
 //    landmark id there; every other slot reads (0, -1, not held).
 //  dedup_kernel: among the held slots that share a landmark id, the one
 //    with the least score (ties to the lowest slot, `beats` at :101-103)
-//    stays: a 64-bit atomicMin of (order-preserving score bits, slot) per id
-//    in an open-addressing table of the ids, then each slot compares.
+//    stays: a 64-bit minimum of (order-preserving score bits, slot) per id
+//    (a CAS loop) in an open-addressing table of the ids, then each slot
+//    compares.
 //  rebase_kernel: a table of the published landmark ids (lowest row per
 //    id, as argmax takes the first), then each chained slot looks its id up:
 //    found -> the table row's position, not found -> invalidated; thread 0
 //    re-anchors the two chained poses, T_new = T_old @ A.
 //
 // Bound: each call moves ~0.1-0.2 MB (the slice's N = 2872 slots, M = 4096
-// sources, C = 4096 table rows), ~0.05 us at 3.35 TB/s, so it is bound by
-// its launch and its few dependent barriers; one block suffices and keeps
-// the tables on chip. Everything is integer or a copy, so the results are
-// exact and the same on every launch.
+// sources, C = 4096 table rows), ~0.05 us at 3.35 TB/s; what it takes is
+// latency: dependent rounds of global loads, barriers, and the clearing of
+// its tables. So the scatter and the dedup issue every load a thread needs
+// in one round before their first barrier (kPer sources or slots a thread,
+// held in registers), and run on a cluster of kCluster blocks (thread-block
+// clusters, distributed shared memory, as kernel D): each block owns a
+// range of the slots' counts (scatter) or of the id table's entries
+// (dedup) in its shared memory, the blocks clear their ranges in parallel,
+// and the other blocks' atomics reach it remotely. The dedup runs as one
+// block while its table fits one SM (N <= 8192: 192 KB), as the cluster
+// above that. A call is one round of loads, the atomics, a cluster
+// barrier, one round of reads of the counts or the table, and the stores.
+// Two more barriers are split in halves that work runs between: every
+// block has cleared its range before the first remote atomic (the loads
+// run meanwhile), and no block exits while a peer may still read it (the
+// owners' stores run meanwhile). The dedup's table has T >= 2N entries
+// (12 bytes: a 32-bit id, a 64-bit best) spread over the cluster, so N
+// reaches kPer x kCluster x threads = 32768 slots (MAX_DEDUP_SLOTS). The
+// rebase runs twice in a run and keeps its one-block design. Everything is
+// integer or a copy, so the results are exact and the same on every launch.
+// Every dynamic shared-memory limit is raised through svt::reserve_smem.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 1024;   // the rebase's block
+constexpr int kCluster = 8;      // blocks of the scatter's and dedup's cluster
+constexpr int kAssocThreads = 512;
+constexpr int kScatterPer = 4;   // sources a scatter thread holds in registers
+constexpr int kDedupPer = 8;     // slots a dedup thread holds (its cap)
+// the dedup's one-block route up to here: a table of 2 x 8192 entries of 12
+// bytes (192 KB) fits one SM
+constexpr int kOneBlockSlots = 8192;
 
 __device__ __forceinline__ uint32_t hash_slot(uint32_t key, int log_t) {
   return (key * 2654435761u) >> (32 - log_t);
 }
 
-__global__ void __launch_bounds__(kThreads)
-scatter_kernel(int M, int N, const int* __restrict__ best_idx, int idx_stride,
+// the cluster of CL blocks (CL = 1: one block, no cluster)
+template <int CL>
+struct Cluster {
+  __device__ static void sync() {
+    if constexpr (CL == 1) {
+      __syncthreads();
+    } else {
+      cooperative_groups::this_cluster().sync();
+    }
+  }
+  // sync() split in two, so that work runs between this block's arrival
+  // (its earlier stores released) and its wait for every block's
+  __device__ static void arrive() {
+    if constexpr (CL != 1) asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  }
+  __device__ static void wait() {
+    if constexpr (CL == 1) {
+      __syncthreads();
+    } else {
+      asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    }
+  }
+  __device__ static int rank() {
+    if constexpr (CL == 1) {
+      return 0;
+    } else {
+      return (int)cooperative_groups::this_cluster().block_rank();
+    }
+  }
+  // block r's copy of this block's shared variable p
+  template <class T>
+  __device__ static T* at(T* p, int r) {
+    if constexpr (CL == 1) {
+      return p;
+    } else {
+      return cooperative_groups::this_cluster().map_shared_rank(p, r);
+    }
+  }
+};
+
+struct Src {
+  int n, id;
+  bool sel;
+  float p0, p1, p2;
+};
+
+// source m's slot, flag, position and id, loaded in one round (the
+// position and id whether or not it is accepted, so no load waits on another)
+__device__ __forceinline__ Src load_src(int m, int M, int N, const int* best_idx,
+                                        int idx_stride, const uint8_t* accepted,
+                                        const float* src_pos, int pos_stride,
+                                        const int* src_id, int id_stride) {
+  Src s{-1, -1, false, 0.f, 0.f, 0.f};
+  if (m < M) {
+    const float* p = src_pos + (size_t)m * pos_stride;
+    s.n = best_idx[(size_t)m * idx_stride];
+    const bool acc = accepted[m] != 0;
+    s.p0 = p[0];
+    s.p1 = p[1];
+    s.p2 = p[2];
+    s.id = src_id[(size_t)m * id_stride];
+    s.sel = acc && s.n >= 0 && s.n < N;
+  }
+  return s;
+}
+
+__global__ void __launch_bounds__(kAssocThreads)
+scatter_kernel(int M, int N, int chunk, const int* __restrict__ best_idx, int idx_stride,
                const uint8_t* __restrict__ accepted, const float* __restrict__ src_pos,
                int pos_stride, const int* __restrict__ src_id, int id_stride,
-               float* __restrict__ pos_out,
-               int* __restrict__ id_out, uint8_t* __restrict__ has_out) {
-  extern __shared__ int count[];  // [N]
-  for (int n = threadIdx.x; n < N; n += blockDim.x) count[n] = 0;
-  __syncthreads();
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    const int n = best_idx[m * idx_stride];
-    if (accepted[m] && n >= 0 && n < N) atomicAdd(&count[n], 1);
+               float* __restrict__ pos_out, int* __restrict__ id_out,
+               uint8_t* __restrict__ has_out) {
+  extern __shared__ int count[];  // [chunk]: slots [rank * chunk, (rank + 1) * chunk)
+  using C = Cluster<kCluster>;
+  constexpr int NT = kAssocThreads;
+  const int rank = C::rank();
+  for (int i = threadIdx.x; i < chunk; i += NT) count[i] = 0;
+  constexpr int G = kCluster * NT;
+  const int g = rank * NT + threadIdx.x;
+  auto load = [&](int m) {
+    return load_src(m, M, N, best_idx, idx_stride, accepted, src_pos, pos_stride, src_id,
+                    id_stride);
+  };
+  auto counter = [&](int n) { return C::at(count, n / chunk) + n % chunk; };
+  C::arrive();
+  Src s[kScatterPer];
+#pragma unroll
+  for (int j = 0; j < kScatterPer; ++j) s[j] = load(g + j * G);
+  C::wait();  // every block's counts are 0 before any peer adds to them
+#pragma unroll
+  for (int j = 0; j < kScatterPer; ++j)
+    if (s[j].sel) atomicAdd(counter(s[j].n), 1);
+  for (int m = g + kScatterPer * G; m < M; m += G) {
+    const Src t = load(m);
+    if (t.sel) atomicAdd(counter(t.n), 1);
   }
-  __syncthreads();
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const bool one = count[n] == 1;
+  C::sync();
+  auto write = [&](const Src& t) {
+    if (t.sel && *counter(t.n) == 1) {
+      pos_out[3 * t.n] = t.p0;
+      pos_out[3 * t.n + 1] = t.p1;
+      pos_out[3 * t.n + 2] = t.p2;
+      id_out[t.n] = t.id;
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < kScatterPer; ++j) write(s[j]);
+  for (int m = g + kScatterPer * G; m < M; m += G) write(load(m));
+  C::arrive();  // this block reads no peer's counts from here on
+  // this block's slots: held when picked once, else cleared
+  for (int i = threadIdx.x; i < chunk; i += NT) {
+    const int n = rank * chunk + i;
+    if (n >= N) break;
+    const bool one = count[i] == 1;
     has_out[n] = one ? 1 : 0;
     if (!one) {
       pos_out[3 * n] = 0.f;
@@ -61,16 +186,7 @@ scatter_kernel(int M, int N, const int* __restrict__ best_idx, int idx_stride,
       id_out[n] = -1;
     }
   }
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    const int n = best_idx[m * idx_stride];
-    if (accepted[m] && n >= 0 && n < N && count[n] == 1) {
-      const float* p = src_pos + (size_t)m * pos_stride;
-      pos_out[3 * n] = p[0];
-      pos_out[3 * n + 1] = p[1];
-      pos_out[3 * n + 2] = p[2];
-      id_out[n] = src_id[(size_t)m * id_stride];
-    }
-  }
+  C::wait();  // no block exits while a peer may still read it
 }
 
 // float -> uint32 whose unsigned order is the float order (-0 as +0)
@@ -80,44 +196,96 @@ __device__ __forceinline__ uint32_t ordered_bits(float f) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-constexpr unsigned long long kEmpty = ~0ull;
+// an empty entry of the id table (id -1, its bits, keeps its group apart)
+constexpr uint32_t kEmpty = 0xffffffffu;
+constexpr unsigned long long kNoBest = ~0ull;
 
-__global__ void __launch_bounds__(kThreads)
-dedup_kernel(int N, int log_t, const uint8_t* __restrict__ has, const int* __restrict__ ids,
-             const float* __restrict__ score, uint8_t* __restrict__ keep_out,
-             int* __restrict__ ids_out) {
-  extern __shared__ unsigned long long tab[];  // keys [T], best [T]
-  const int T = 1 << log_t;
-  unsigned long long* keys = tab;
-  unsigned long long* best = tab + T;
-  for (int i = threadIdx.x; i < T; i += blockDim.x) {
-    keys[i] = kEmpty;
-    best[i] = kEmpty;
+// *p = min(*p, v) by a CAS loop: a 64-bit atomicMin into another block's
+// shared memory leaves wrong minima on the H100 (scripts/dsmem_atomics_check.cu),
+// where a 64-bit atomicCAS is right
+__device__ __forceinline__ void min_u64(unsigned long long* p, unsigned long long v) {
+  unsigned long long old = *reinterpret_cast<volatile unsigned long long*>(p);
+  while (v < old) {
+    const unsigned long long got = atomicCAS(p, old, v);
+    if (got == old) break;
+    old = got;
   }
-  __syncthreads();
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    if (!has[n]) continue;
-    const unsigned long long key = (uint32_t)ids[n];
-    uint32_t h = hash_slot((uint32_t)ids[n], log_t);
-    while (true) {
-      const unsigned long long prev = atomicCAS(&keys[h], kEmpty, key);
-      if (prev == kEmpty || prev == key) break;
-      h = (h + 1) & (T - 1);
+}
+
+template <int CL, int NT>
+__global__ void __launch_bounds__(NT)
+dedup_kernel(int N, int log_t, int log_tb, const uint8_t* __restrict__ has,
+             const int* __restrict__ ids, const float* __restrict__ score,
+             uint8_t* __restrict__ keep_out, int* __restrict__ ids_out) {
+  // this block's entries [rank * Tb, (rank + 1) * Tb) of the cluster's table
+  // of T = CL * Tb: the least (score bits, slot) of each, then the ids; all
+  // ones when clear
+  extern __shared__ uint4 tab4[];
+  __shared__ unsigned long long best_neg;  // the slots of id -1 (block 0's)
+  using C = Cluster<CL>;
+  const int Tb = 1 << log_tb, T = 1 << log_t;
+  unsigned long long* best = reinterpret_cast<unsigned long long*>(tab4);
+  uint32_t* keys = reinterpret_cast<uint32_t*>(best + Tb);
+  const int rank = C::rank();
+  for (int i = threadIdx.x; i < 3 * Tb / 4; i += NT)
+    tab4[i] = make_uint4(kEmpty, kEmpty, kEmpty, kEmpty);
+  if (threadIdx.x == 0) best_neg = kNoBest;
+  C::arrive();
+  constexpr int G = CL * NT;
+  const int g = rank * NT + threadIdx.x;
+  bool held[kDedupPer];
+  int id[kDedupPer];
+  unsigned long long packed[kDedupPer];
+#pragma unroll
+  for (int j = 0; j < kDedupPer; ++j) {
+    const int n = g + j * G;
+    held[j] = false;
+    if (n < N) {
+      held[j] = has[n] != 0;
+      id[j] = ids[n];
+      packed[j] = ((unsigned long long)ordered_bits(score[n]) << 32) | (uint32_t)n;
     }
-    atomicMin(&best[h], ((unsigned long long)ordered_bits(score[n]) << 32) | (uint32_t)n);
   }
-  __syncthreads();
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    bool k = false;
-    if (has[n]) {
-      const unsigned long long key = (uint32_t)ids[n];
-      uint32_t h = hash_slot((uint32_t)ids[n], log_t);
-      while (keys[h] != key) h = (h + 1) & (T - 1);
-      k = (uint32_t)(best[h] & 0xffffffffull) == (uint32_t)n;
+  C::wait();  // every block's entries are clear before any peer inserts
+  // each held slot's entry (-1: best_neg, for id -1), on its owner block
+  int at[kDedupPer];
+  auto entry = [&](int e) {
+    return e < 0 ? C::at(&best_neg, 0) : C::at(best, e >> log_tb) + (e & (Tb - 1));
+  };
+#pragma unroll
+  for (int j = 0; j < kDedupPer; ++j) {
+    at[j] = -1;
+    if (!held[j]) continue;
+    if (id[j] != -1) {
+      uint32_t h = hash_slot((uint32_t)id[j], log_t);
+      while (true) {
+        uint32_t* k = C::at(keys, (int)(h >> log_tb)) + (h & (Tb - 1));
+        const uint32_t prev = atomicCAS(k, kEmpty, (uint32_t)id[j]);
+        if (prev == kEmpty || prev == (uint32_t)id[j]) break;
+        h = (h + 1) & (T - 1);
+      }
+      at[j] = (int)h;
     }
-    keep_out[n] = k ? 1 : 0;
-    ids_out[n] = k ? ids[n] : -1;
+    if constexpr (CL == 1) {
+      atomicMin(entry(at[j]), packed[j]);  // in this block's shared memory, where it is right
+    } else {
+      min_u64(entry(at[j]), packed[j]);
+    }
   }
+  C::sync();
+  bool keep[kDedupPer];
+#pragma unroll
+  for (int j = 0; j < kDedupPer; ++j)
+    keep[j] = held[j] && (uint32_t)(*entry(at[j]) & 0xffffffffull) == (uint32_t)(g + j * G);
+  if constexpr (CL != 1) C::arrive();  // this block reads no peer's entries from here on
+#pragma unroll
+  for (int j = 0; j < kDedupPer; ++j) {
+    const int n = g + j * G;
+    if (n >= N) continue;
+    keep_out[n] = keep[j] ? 1 : 0;
+    ids_out[n] = keep[j] ? id[j] : -1;
+  }
+  if constexpr (CL != 1) C::wait();  // no block exits while a peer may still read it
 }
 
 // out = a @ b for 3x3 row-major, and a @ v + w
@@ -197,6 +365,24 @@ int log2_table(int n) {
   return l;
 }
 
+template <class Kernel, class... Args>
+cudaError_t launch_cluster(Kernel kernel, int cluster, int threads, size_t smem,
+                           cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 }  // namespace
 
 // strides in elements: best_idx[m * idx_stride], src_pos rows of
@@ -206,24 +392,41 @@ extern "C" int svt_scatter_to_current(int M, int N, const int* best_idx, int idx
                                       int pos_stride, const int* src_id, int id_stride,
                                       float* pos_out, int* id_out, uint8_t* has_out,
                                       void* stream) {
-  const size_t smem = sizeof(int) * (size_t)N;
-  cudaFuncSetAttribute(scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (N > 0)
-    scatter_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
-        M, N, best_idx, idx_stride, accepted, src_pos, pos_stride, src_id, id_stride, pos_out,
-        id_out, has_out);
-  return (int)cudaGetLastError();
+  if (N <= 0) return (int)cudaGetLastError();
+  const int chunk = (N + kCluster - 1) / kCluster;
+  const size_t smem = sizeof(int) * (size_t)chunk;
+  const cudaError_t e = svt::reserve_smem((const void*)scatter_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_cluster(scatter_kernel, kCluster, kAssocThreads, smem,
+                             (cudaStream_t)stream, M, N, chunk, best_idx, idx_stride, accepted,
+                             src_pos, pos_stride, src_id, id_stride, pos_out, id_out, has_out);
 }
 
+// one block of kThreads up to kOneBlockSlots (its 2N-entry table fits one
+// SM), a cluster of 8 blocks of kAssocThreads above that, up to kDedupPer x
+// kCluster x kAssocThreads = MAX_DEDUP_SLOTS
 extern "C" int svt_dedup_by_id(int N, const uint8_t* has, const int* ids, const float* score,
                                uint8_t* keep_out, int* ids_out, void* stream) {
-  const int log_t = log2_table(N);
-  const size_t smem = 2 * sizeof(unsigned long long) * ((size_t)1 << log_t);
-  cudaFuncSetAttribute(dedup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (N > 0)
-    dedup_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(N, log_t, has, ids, score, keep_out,
-                                                              ids_out);
-  return (int)cudaGetLastError();
+  if (N <= 0) return (int)cudaGetLastError();
+  if (N > kDedupPer * kCluster * kAssocThreads) return (int)cudaErrorInvalidValue;
+  const bool one_block = N <= kOneBlockSlots;
+  // T >= 2N entries, at least 64 a block
+  const int log_t = log2_table(N) > 9 ? log2_table(N) : 9;
+  const int log_tb = one_block ? log_t : log_t - 3;
+  const size_t smem = 3 * sizeof(uint32_t) * ((size_t)1 << log_tb);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (one_block) {
+    auto kernel = dedup_kernel<1, kThreads>;
+    const cudaError_t e = svt::reserve_smem((const void*)kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<1, kThreads, smem, st>>>(N, log_t, log_tb, has, ids, score, keep_out, ids_out);
+    return (int)cudaGetLastError();
+  }
+  auto kernel = dedup_kernel<kCluster, kAssocThreads>;
+  const cudaError_t e = svt::reserve_smem((const void*)kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_cluster(kernel, kCluster, kAssocThreads, smem, st, N, log_t, log_tb, has,
+                             ids, score, keep_out, ids_out);
 }
 
 extern "C" int svt_rebase_chain(int N, int C, const float* la_pos, const uint8_t* la_valid,
@@ -234,7 +437,8 @@ extern "C" int svt_rebase_chain(int N, int C, const float* la_pos, const uint8_t
                                 float* pose_out, void* stream) {
   const int log_t = log2_table(C);
   const size_t smem = 2 * sizeof(int) * ((size_t)1 << log_t);
-  cudaFuncSetAttribute(rebase_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t e = svt::reserve_smem((const void*)rebase_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   rebase_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
       N, C, log_t, la_pos, la_valid, la_id, tbl_f32, tbl_u32, A_R, A_t, R_last, t_last, R_prev,
       t_prev, pos_out, valid_out, id_out, pose_out);

@@ -14,11 +14,14 @@ a frame means the same cell of the same level on both sides:
   version: the two `torch.matmul`, f32 with TF32 off. The levels of all
   images of a batch live in one flat buffer [B, sum of H*W] that kernels A
   and B read;
-* kernel A, `fast_nms`: per NMS cell, the exact FAST-9/16 score of every
-  pixel and the cell's best packed key (iscore<<12 | row<<6 | col), with the
-  two-threshold retry (`ini_fast_thr`, then `min_fast_thr`); with an
-  extraction mask, only the pixels whose level-0 mask pixel (the JAX
-  version's nearest resize) is set;
+* kernel A, `fast_nms_pyramid`: one launch for every level of a batch of
+  pyramids; per NMS cell, the exact FAST-9/16 score of every pixel above
+  `min_fast_thr` and the cell's best packed key (iscore<<12 | row<<6 |
+  col), with the two-threshold retry (`ini_fast_thr`, then
+  `min_fast_thr`), written with its slot's (px, py, valid, response); with
+  an extraction mask, only the pixels whose level-0 mask pixel (the JAX
+  version's nearest resize) is set (`fast_nms` runs one level through the
+  same kernel);
 * kernel B, `orb_describe`: per keypoint, the clamped 45x45 patch (bf16
   rounded, like the JAX version's one-hot bf16 gathers), the IC-angle, the
   7x7 sigma=2 blur rounded to integer gray levels, and the steered 256-pair
@@ -318,11 +321,204 @@ def fast_nms_plain(img: torch.Tensor, g: _LevelGeom, border: int,
     return torch.where(best_hi >= 0, best_hi, best_lo).reshape(-1)
 
 
+def cell_keypoints(best: torch.Tensor, g: _LevelGeom, border: int):
+    """A level's per-cell keys [..., Gy*Gx] -> (px, py, valid, response) of
+    its slots; px/py are clamped into the level, as in JAX."""
+    cell = torch.arange(g.Gy * g.Gx, device=best.device, dtype=torch.int32)
+    py = torch.clamp(border + (cell // g.Gx) * g.cs + ((best >> 6) & 63), 0, g.H - 1)
+    px = torch.clamp(border + (cell % g.Gx) * g.cs + (best & 63), 0, g.W - 1)
+    ok = best >= 0
+    resp = torch.where(ok, (best >> 12).to(torch.float32), torch.zeros((), device=best.device))
+    return px, py, ok, resp
+
+
+def fast_arc_corner(img: torch.Tensor, t: float) -> torch.Tensor:
+    """Kernel A's early reject in plain form, [H,W] -> [H,W] bool: two
+    neighbouring compass points (ring 0, 4, 8, 12) brighter than centre + t
+    (or darker than centre - t), then a circular run of 9 set bits in the
+    16-bit mask of ring pixels brighter than centre + t (or of those darker
+    than centre - t), folded from shifted ANDs. It holds exactly where
+    fast_score_map(img) > t (zero padding outside, as there)."""
+    H, W = img.shape
+    pad = 3
+    padded = torch.nn.functional.pad(img, (pad, pad, pad, pad))
+    d = torch.stack([padded[pad + dy:pad + dy + H, pad + dx:pad + dx + W] - img
+                     for dx, dy in _FAST_OFFSETS.tolist()])  # [16,H,W]
+    bit = (1 << torch.arange(16, device=img.device))[:, None, None]
+
+    def run9(m):
+        m2 = m | (m << 16)
+        r = m2 & (m2 >> 1)
+        r = r & (r >> 2)
+        r = r & (r >> 4)
+        return (r & (m2 >> 8) & 0xFFFF) != 0
+
+    def compass(m):
+        q = (m & 1) | ((m >> 3) & 2) | ((m >> 6) & 4) | ((m >> 9) & 8)
+        return (q & ((q >> 1) | (q << 3)) & 15) != 0
+
+    out = torch.zeros((H, W), dtype=torch.bool, device=img.device)
+    for m in (((d > t) * bit).sum(0), ((d < -t) * bit).sum(0)):
+        out |= compass(m) & run9(m)
+    return out
+
+
+MAX_CELLS = 32  # NMS cells of a work item of kernel A (kMaxCells in csrc/fast_nms.cu)
+LEVEL_INTS = 8  # a row of kernel A's level table (kLevelInts)
+WORK_CELLS0 = 2  # level-0 cells' pixels a work item of kernel A holds, about
+MAX_SMEM_WORDS = 12 * 1024  # a work item's tile and pixel list: 48 KB
+
+
+def _work_words(cs: int, n: int) -> int:
+    """Kernel A's shared-memory words for n cells of size cs: the tile with
+    its 3-px halo and the list of candidate pixels."""
+    return (cs + 6) * (n * cs + 6) + n * cs * cs
+
+
+def fast_work_list(levels, border: int) -> np.ndarray:
+    """Kernel A's work items over a pyramid's levels, [n, 4] int32 (level,
+    cell row, first cell column, cells): runs of cells of one cell row,
+    each holding about as many pixels as WORK_CELLS0 level-0 cells (the
+    nearest whole number of cells, at least one, at most MAX_CELLS, and
+    fewer where the item would pass MAX_SMEM_WORDS), level 0 first."""
+    target = WORK_CELLS0 * levels[0].cs * levels[0].cs
+    items = []
+    for lvl, g in enumerate(levels):
+        cc = g.cs * g.cs
+        per = max(1, min(MAX_CELLS, (2 * target + cc) // (2 * cc)))
+        while per > 1 and _work_words(g.cs, per) > MAX_SMEM_WORDS:
+            per -= 1
+        for cy in range(g.Gy):
+            for cx in range(0, g.Gx, per):
+                items.append((lvl, cy, cx, min(per, g.Gx - cx)))
+    return np.asarray(items, np.int32)
+
+
+class FastPyramid(NamedTuple):
+    """Kernel A's tables of one pyramid layout, built once per extractor:
+    each level's geometry and place in the flat pyramid and in the slots,
+    the work list, and the per-level nearest-index tables of a level-0
+    extraction mask of src_hw (H0, W0), concatenated over the levels."""
+
+    levels: tuple  # _LevelGeom per level
+    border: int
+    level_off: tuple  # each level's offset in a flat pyramid row
+    slot_off: tuple  # each level's first slot
+    num_slots: int
+    src_hw: tuple
+    level_tab: torch.Tensor  # [L, 8] int32 (H, W, cs, Gx, level_off, slot_off, row, col)
+    work: torch.Tensor  # [n, 4] int32 (fast_work_list)
+    mask_rows: torch.Tensor  # [sum H] int32
+    mask_cols: torch.Tensor  # [sum W] int32
+    smem_words: int  # the largest work item's tile and pixel list in shared memory
+
+
+def fast_pyramid_tables(levels, border: int, level_off, src_hw, device) -> FastPyramid:
+    """FastPyramid of `levels` laid out at level_off in a flat pyramid row,
+    for a level-0 mask of src_hw (H0, W0)."""
+    H0, W0 = src_hw
+    slot_off, tab = [], []
+    ns = nr = nc = 0
+    for g, off in zip(levels, level_off):
+        tab.append((g.H, g.W, g.cs, g.Gx, off, ns, nr, nc))
+        slot_off.append(ns)
+        ns, nr, nc = ns + g.Gy * g.Gx, nr + g.H, nc + g.W
+    work = fast_work_list(levels, border)
+    smem = max(_work_words(levels[l].cs, n) for l, n in {(int(l), int(n))
+                                                          for l, _, _, n in work})
+    i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
+    return FastPyramid(
+        levels=tuple(levels), border=border, level_off=tuple(level_off),
+        slot_off=tuple(slot_off), num_slots=ns, src_hw=(H0, W0),
+        level_tab=i32(np.asarray(tab).reshape(len(levels), LEVEL_INTS)), work=i32(work),
+        mask_rows=i32(np.concatenate([nearest_index(H0, g.H) for g in levels])),
+        mask_cols=i32(np.concatenate([nearest_index(W0, g.W) for g in levels])),
+        smem_words=smem)
+
+
+def _level_mask(fp: FastPyramid, mask: torch.Tensor, lvl: int) -> LevelMask:
+    g, r0, c0 = fp.levels[lvl], sum(h.H for h in fp.levels[:lvl]), \
+        sum(h.W for h in fp.levels[:lvl])
+    return LevelMask(mask, fp.mask_rows[r0:r0 + g.H], fp.mask_cols[c0:c0 + g.W], fp.src_hw)
+
+
+def fast_nms_pyramid_plain(pyr: torch.Tensor, fp: FastPyramid, ini_thr: float, min_thr: float,
+                           mask: Optional[torch.Tensor] = None):
+    """The plain version of fast_nms_pyramid: per image and level
+    fast_nms_plain, then cell_keypoints, the levels concatenated."""
+    keys = []
+    for lvl, (g, off) in enumerate(zip(fp.levels, fp.level_off)):
+        m = _level_mask(fp, mask, lvl) if mask is not None else None
+        keys.append(torch.stack([
+            fast_nms_plain(row[off:off + g.H * g.W].view(g.H, g.W), g, fp.border, ini_thr,
+                           min_thr, m) for row in pyr]))
+    pts = [cell_keypoints(k, g, fp.border) for k, g in zip(keys, fp.levels)]
+    px, py, valid, resp = (torch.cat(c, dim=-1) for c in zip(*pts))
+    return torch.cat(keys, dim=-1), px, py, valid, resp
+
+
+def _check_mask(mask, H0, W0, dev):
+    if mask.dtype != torch.uint8 or tuple(mask.shape) != (H0, W0) \
+            or not mask.is_contiguous() or mask.device != dev:
+        raise ValueError(f"kernel A: the mask must be a contiguous uint8 [{H0}, {W0}] "
+                         "on the pyramid's device")
+
+
+def _fast_launch(pyr, stride, B, fp: FastPyramid, ini_thr, min_thr, mask):
+    """One launch of kernel A over B pyramids `stride` floats apart from
+    pyr's first element -> (key, px, py, valid, response), each [B, N]."""
+    dev = pyr.device
+    N = fp.num_slots
+    key = torch.empty((B, N), dtype=torch.int32, device=dev)
+    px, py = torch.empty_like(key), torch.empty_like(key)
+    valid = torch.empty((B, N), dtype=torch.bool, device=dev)
+    resp = torch.empty((B, N), dtype=torch.float32, device=dev)
+    if fp.level_tab.device != dev:
+        raise ValueError("kernel A: tables from fast_pyramid_tables on the pyramid's device")
+    if mask is not None:
+        _check_mask(mask, *fp.src_hw, dev)
+    lib = kbuild.load()
+    kbuild.check(lib.svt_fast_pyramid(
+        B, pyr.data_ptr(), stride, fp.level_tab.data_ptr(), fp.work.data_ptr(),
+        fp.work.shape[0], fp.smem_words, fp.border, N, float(ini_thr), float(min_thr),
+        mask.data_ptr() if mask is not None else None,
+        mask.shape[1] if mask is not None else 0, fp.mask_rows.data_ptr(),
+        fp.mask_cols.data_ptr(), key.data_ptr(), px.data_ptr(), py.data_ptr(),
+        valid.data_ptr(), resp.data_ptr(), kbuild.stream_ptr(dev)), "fast_nms")
+    return key, px, py, valid, resp
+
+
+def fast_nms_pyramid(pyr: torch.Tensor, fp: FastPyramid, ini_thr: float, min_thr: float,
+                     mask: Optional[torch.Tensor] = None):
+    """Kernel A on a CUDA pyramid, one launch for every level of every image;
+    the plain version on a CPU one. pyr: flat pyramids [B, P] (fp's
+    layout); mask: None or a level-0 extraction mask [H0, W0] uint8 (0 =
+    excluded) that every image shares. Returns (key, px, py, valid,
+    response), each [B, N] in the extractor's slot layout (int32, int32,
+    int32, bool, f32)."""
+    if not pyr.is_cuda:
+        return fast_nms_pyramid_plain(pyr, fp, ini_thr, min_thr, mask)
+    if pyr.dtype != torch.float32 or pyr.dim() != 2 or not pyr.is_contiguous() \
+            or pyr.shape[1] < fp.level_off[-1] + fp.levels[-1].H * fp.levels[-1].W:
+        raise ValueError("fast_nms_pyramid: expects a contiguous f32 [B, P] pyramid")
+    out = _fast_launch(pyr, pyr.shape[1], pyr.shape[0], fp, ini_thr, min_thr, mask)
+    fast_nms_pyramid.launches += 1
+    if mask is not None:
+        fast_nms_pyramid.masked_launches += 1
+    return out
+
+
+fast_nms_pyramid.launches = 0
+# the launches with an extraction mask (counted in `launches` too)
+fast_nms_pyramid.masked_launches = 0
+
+
 def fast_nms(img: torch.Tensor, g: _LevelGeom, border: int,
              ini_thr: float, min_thr: float,
              mask: Optional[LevelMask] = None) -> torch.Tensor:
-    """Kernel A on a CUDA image, the plain version on a CPU image. `img`:
-    one level [H,W] -> [Gy*Gx], or a batch [B,H,W] whose images are each
+    """One level through kernel A (a one-level launch of the pyramid
+    kernel) on a CUDA image, the plain version on a CPU image. `img`: one
+    level [H,W] -> [Gy*Gx], or a batch [B,H,W] whose images are each
     contiguous (any batch stride) -> [B, Gy*Gx]. `mask`: an extraction
     mask that every image of the batch shares."""
     if not img.is_cuda:
@@ -334,34 +530,24 @@ def fast_nms(img: torch.Tensor, g: _LevelGeom, border: int,
     if img.dtype != torch.float32 or tuple(batch.shape[1:]) != (g.H, g.W) \
             or batch.stride(1) != g.W or batch.stride(2) != 1:
         raise ValueError("fast_nms: expects f32 [H,W] level images, each contiguous")
-    if mask is not None and (
-            mask.mask.dtype != torch.uint8 or mask.mask.dim() != 2
-            or not mask.mask.is_contiguous() or mask.mask.device != img.device
-            or tuple(mask.rows.shape) != (g.H,) or tuple(mask.cols.shape) != (g.W,)
-            or mask.rows.dtype != torch.int32 or mask.cols.dtype != torch.int32
-            or mask.rows.device != img.device or mask.cols.device != img.device
-            or tuple(mask.mask.shape) != tuple(mask.src_hw)):
-        raise ValueError("fast_nms: the mask must be a contiguous uint8 [H0,W0] with int32 "
-                         "[H] and [W] index tables into it, on the image's device")
-    lib = kbuild.load()
-    B = batch.shape[0]
-    out = torch.empty((B, g.Gy * g.Gx), dtype=torch.int32, device=img.device)
-    kbuild.check(lib.svt_fast_nms(
-        B, batch.data_ptr(), batch.stride(0), g.H, g.W, border, g.cs, g.Gy, g.Gx,
-        float(ini_thr), float(min_thr), mask.mask.data_ptr() if mask is not None else None,
-        mask.mask.shape[1] if mask is not None else 0,
-        mask.rows.data_ptr() if mask is not None else None,
-        mask.cols.data_ptr() if mask is not None else None,
-        out.data_ptr(), kbuild.stream_ptr(img.device)), "fast_nms")
-    fast_nms.launches += 1
+    src_hw = (g.H, g.W)
     if mask is not None:
-        fast_nms.masked_launches += 1
+        if tuple(mask.rows.shape) != (g.H,) or tuple(mask.cols.shape) != (g.W,) \
+                or tuple(mask.mask.shape) != tuple(mask.src_hw):
+            raise ValueError("fast_nms: the mask must be a uint8 [H0,W0] with [H] and [W] "
+                             "index tables into it")
+        src_hw = tuple(mask.src_hw)
+    fp = fast_pyramid_tables([g], border, [0], src_hw, img.device)
+    if mask is not None:
+        fp = fp._replace(mask_rows=mask.rows.to(torch.int32).contiguous(),
+                         mask_cols=mask.cols.to(torch.int32).contiguous())
+    out = _fast_launch(batch, batch.stride(0), batch.shape[0], fp, ini_thr, min_thr,
+                       mask.mask if mask is not None else None)[0]
+    fast_nms.launches += 1
     return out if img.dim() == 3 else out[0]
 
 
 fast_nms.launches = 0
-# the launches with an extraction mask (counted in `launches` too)
-fast_nms.masked_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -616,9 +802,8 @@ class OrbExtractor:
         self._slot_level = i32(lv)
         self._slot_base, self._slot_H, self._slot_W = i32(base), i32(hh), i32(ww)
         self._batch_slots = {}
-        # an extraction mask's nearest source row and column per level
-        self._mask_idx = [(i32([nearest_index(self.height, g.H)]),
-                           i32([nearest_index(self.width, g.W)])) for g in self.levels]
+        self._fast = fast_pyramid_tables(self.levels, self.border, self._level_off,
+                                         (self.height, self.width), dev)
         # level scale per slot, rounded to f32 as `px * g.scale` rounds it
         self._slot_scale = torch.cat(
             [torch.full((g.Gy * g.Gx,), g.scale, dtype=torch.float32)
@@ -657,18 +842,6 @@ class OrbExtractor:
             out.append(img)
         return out
 
-    def cell_keypoints(self, best: torch.Tensor, g: _LevelGeom):
-        """Kernel A's per-cell keys -> (px, py, valid, response) of the
-        level's slots; px/py are clamped into the level, as in JAX."""
-        b = self.border
-        cell = torch.arange(g.Gy * g.Gx, device=best.device, dtype=torch.int32)
-        py = torch.clamp(b + (cell // g.Gx) * g.cs + ((best >> 6) & 63), 0, g.H - 1)
-        px = torch.clamp(b + (cell % g.Gx) * g.cs + (best & 63), 0, g.W - 1)
-        ok = best >= 0
-        resp = torch.where(ok, (best >> 12).to(torch.float32),
-                           torch.zeros((), device=best.device))
-        return px, py, ok, resp
-
     def _slots(self, B: int):
         """Per-slot (base offset, H, W) of a batch of B pyramids."""
         if B not in self._batch_slots:
@@ -678,31 +851,23 @@ class OrbExtractor:
                                     self._slot_H.repeat(B), self._slot_W.repeat(B))
         return self._batch_slots[B]
 
-    def level_masks(self, mask: torch.Tensor) -> list:
-        """A level-0 extraction mask [H,W] (uint8, 0 = excluded) -> kernel
-        A's LevelMask of every level."""
-        if mask.dtype != torch.uint8 or tuple(mask.shape) != (self.height, self.width):
-            raise ValueError(f"extraction mask: expected uint8 [{self.height}, {self.width}]")
-        return [LevelMask(mask.contiguous(), rows, cols, (self.height, self.width))
-                for rows, cols in self._mask_idx]
-
     def _extract_batch(self, images: torch.Tensor, strips: bool, mask=None):
         """[B,H,W] -> a list of B FrameFeatures and, with `strips`, the
-        [B, N, 11, 21] uint8 blurred strips; one launch of S per level, of
-        A per level and one of B for the whole batch. `mask`: a level-0
-        extraction mask the batch shares."""
+        [B, N, 11, 21] uint8 blurred strips; one launch of S per level, one
+        of A and one of B for the whole batch. `mask`: a level-0 extraction
+        mask [H,W] uint8 the batch shares."""
         p = self.params
         B = images.shape[0]
         pyr = self.pyramid_flat(images)
-        masks = self.level_masks(mask) if mask is not None else [None] * len(self.levels)
-        pts = [self.cell_keypoints(
-            fast_nms(lv, g, self.border, float(p.ini_fast_thr), float(p.min_fast_thr), m), g)
-            for lv, g, m in zip(self.level_views(pyr), self.levels, masks)]
-        px, py, valid, resp = (torch.cat(c, dim=-1) for c in zip(*pts))  # [B, N]
+        if mask is not None:
+            mask = mask.contiguous()
+            _check_mask(mask, self.height, self.width, pyr.device)
+        _, px, py, valid, resp = fast_nms_pyramid(
+            pyr, self._fast, float(p.ini_fast_thr), float(p.min_fast_thr), mask)  # [B, N]
         base, hh, ww = self._slots(B)
         out = (orb_describe_strips if strips else orb_describe)(
-            pyr.reshape(-1), base, hh, ww, px.reshape(-1).to(torch.int32),
-            py.reshape(-1).to(torch.int32), valid.reshape(-1).contiguous(), self._tables)
+            pyr.reshape(-1), base, hh, ww, px.reshape(-1), py.reshape(-1), valid.reshape(-1),
+            self._tables)
         N = self.num_slots
         angle, desc = out[0].view(B, N), out[1].view(B, N, 8)
         xy = torch.stack([px.to(torch.float32) * self._slot_scale,

@@ -52,9 +52,10 @@ _SIGNATURES = {
     # B, src, batch_stride, w_in, dst, h_out, w_out, row_j, row_w, col_j,
     # col_w, stream
     "svt_resize_level": [_I, _P, _L, _I, _P, _I, _I, _P, _P, _P, _P, _P],
-    # B, img, img_stride, H, W, border, cs, Gy, Gx, ini_thr, min_thr, mask,
-    # mask_w, mask_row, mask_col, out_key, stream
-    "svt_fast_nms": [_I, _P, _L, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P, _P, _P, _P],
+    # B, pyr, pyr_stride, level_tab, work, nwork, smem_words, border,
+    # num_slots, ini_thr, min_thr, mask, mask_w, mask_rows, mask_cols,
+    # out_key, out_px, out_py, out_valid, out_resp, stream
+    "svt_fast_pyramid": [_I, _P, _L, _P, _P, _I, _I, _I, _I, _F, _F, _P, _I] + [_P] * 8,
     # pyr, base, H, W, x, y, valid, K, taps49 (host memory), m10, m01, pix,
     # npix, pidx, tau, out_angle, out_desc, out_strip (or NULL), stream
     "svt_orb_describe": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _F,

@@ -158,7 +158,11 @@ def scatter_to_current(best_idx, accepted, src_pos, src_id, N):
     return pos, ids, has
 
 
-MAX_DEDUP_SLOTS = 4096  # the id table of 2 x 8192 x 8 bytes fits one block
+# kernel Q's dedup: one block up to 8192 slots (its id table of T >= 2N
+# entries of 12 bytes in one SM), above that a cluster of 8 blocks of 512
+# threads, 8 slots a thread, the table spread over the cluster (96 KB a
+# block at the cap)
+MAX_DEDUP_SLOTS = 32768
 
 
 def dedup_by_id(has, ids, score):

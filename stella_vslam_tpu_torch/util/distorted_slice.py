@@ -113,7 +113,7 @@ def run_leg(device, leg: str, world: DistortedPlaneWorld | None = None, path=Non
     wrappers = map_slice.kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
-    ox.fast_nms.masked_launches = 0
+    ox.fast_nms_pyramid.masked_launches = 0
     frame_ms = []
     t_run = time.perf_counter()
     for i, (x, y) in enumerate(path):
@@ -124,7 +124,7 @@ def run_leg(device, leg: str, world: DistortedPlaneWorld | None = None, path=Non
     slam.shutdown()
     wall_s = time.perf_counter() - t_run
     launches = {k: w.launches for k, w in wrappers.items()}
-    launches["fast_nms_masked"] = ox.fast_nms.masked_launches
+    launches["fast_nms_pyramid_masked"] = ox.fast_nms_pyramid.masked_launches
     md, mapper, go = slam.map_db, slam.mapper, slam.global_optimizer
     centres = [(x, y, 0.0) for x, y in path]
     stats = trajectory_stats(slam.frame_poses, centres)

@@ -78,7 +78,7 @@ def kernel_wrappers() -> dict:
     from stella_vslam_tpu_torch.ops.optim import sim3
     from stella_vslam_tpu_torch.ops.solve import essential_5pt, pnp, ransac
 
-    return {"resize_level": ox.resize_level, "fast_nms": ox.fast_nms,
+    return {"resize_level": ox.resize_level, "fast_nms_pyramid": ox.fast_nms_pyramid,
             "orb_describe": ox.orb_describe, "orb_describe_strips": ox.orb_describe_strips,
             "stereo_match": stereo.stereo_match,
             "hamming_top2": H.hamming_top2, "hamming_top2_window": H.window_walk,

@@ -7,10 +7,16 @@ the table, ids the table holds twice (the lowest row wins, as argmax takes
 the first) and -1 ids on both sides; the per-slot scatter and the landmark
 dedup against `_scatter_matches_to_current` and `_dedup_by_landmark_id`
 (stella_vslam_tpu/module/tracking_kernels.py:64,83) on seeded inputs with
-slots several sources pick, equal scores and all-invalid rows. Ints,
+slots several sources pick, equal scores and all-invalid rows, also past
+the 4096 slots kernel Q's dedup once took (N = 5000 for the scatter, 4999
+for the dedup: the JAX [N,N] contraction under 25 M elements). Ints,
 flags and gathered positions exact; the re-anchored poses within 1e-6
-(two float32 products of another summation order).
+(two float32 products of another summation order). And a static check of
+the kernels' sources: only csrc/smem_limit.cuh sets a shared-memory limit.
 """
+import glob
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -121,7 +127,7 @@ def _matcher_output(seed, M, N):
 
 
 @pytest.mark.parametrize("seed,M,N,all_invalid", [(4, 60, 40, False), (5, 4096, 2872, False),
-                                                  (6, 300, 200, True)])
+                                                  (6, 300, 200, True), (10, 4096, 5000, False)])
 def test_scatter_to_current_matches_jax(seed, M, N, all_invalid):
     best, acc, pos, ids = _matcher_output(seed, M, N)
     if all_invalid:
@@ -136,7 +142,8 @@ def test_scatter_to_current_matches_jax(seed, M, N, all_invalid):
     assert 0 < int(th.sum()) < N or all_invalid
 
 
-@pytest.mark.parametrize("seed,N,all_invalid", [(7, 50, False), (8, 2872, False), (9, 100, True)])
+@pytest.mark.parametrize("seed,N,all_invalid", [(7, 50, False), (8, 2872, False), (9, 100, True),
+                                               (11, 4999, False)])
 def test_dedup_by_id_matches_jax(seed, N, all_invalid):
     """Repeated ids, scores drawn from 5 values (ties go to the lowest
     slot), not-held slots at +inf as the cascade passes them."""
@@ -149,3 +156,22 @@ def test_dedup_by_id_matches_jax(seed, N, all_invalid):
                             torch.from_numpy(score))
     assert np.array_equal(th.numpy(), np.asarray(jh))
     assert np.array_equal(ti.numpy(), np.asarray(ji))
+
+
+def test_only_smem_limit_sets_a_kernel_attribute():
+    """A wrapper that sets its kernel's shared-memory limit on every launch
+    races with a thread that launches it at another size (kernel Q's dedup
+    from two Systems' tracking threads): every kernel raises its limit
+    through svt::reserve_smem, under a lock and never lowering it."""
+    csrc = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "stella_vslam_tpu_torch", "csrc")
+    sources = glob.glob(os.path.join(csrc, "*.cu")) + glob.glob(os.path.join(csrc, "*.cuh"))
+    assert len(sources) > 10
+    callers = [os.path.basename(p) for p in sources
+               if "cudaFuncSetAttribute(" in open(p).read()]
+    assert callers == ["smem_limit.cuh"], callers
+    with open(os.path.join(csrc, "track_assoc.cu")) as f:
+        text = f.read()
+    # one reservation before each launch of kernel Q's
+    launches = text.count("<<<") + text.count("return (int)launch_cluster(")
+    assert text.count("svt::reserve_smem(") == launches == 4

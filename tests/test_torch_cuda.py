@@ -41,6 +41,8 @@ def frame(dev):
 
 
 def test_fast_nms_kernel_matches_plain(dev, frame):
+    """Each level alone through kernel A (a one-level launch of the pyramid
+    kernel), then the whole pyramid in one launch."""
     ex, levels = frame
     before = ox.fast_nms.launches
     for img, g in zip(levels, ex.levels):
@@ -48,11 +50,30 @@ def test_fast_nms_kernel_matches_plain(dev, frame):
         p = ox.fast_nms_plain(img, g, ex.border, 20.0, 7.0)
         assert torch.equal(k, p)
     assert ox.fast_nms.launches == before + len(levels)
+    pyr = torch.cat([l.reshape(-1) for l in levels])[None]
+    before = ox.fast_nms_pyramid.launches
+    k = ox.fast_nms_pyramid(pyr, ex._fast, 20.0, 7.0)
+    assert ox.fast_nms_pyramid.launches == before + 1
+    for a, b in zip(k, ox.fast_nms_pyramid_plain(pyr, ex._fast, 20.0, 7.0)):
+        assert torch.equal(a, b)
+
+
+def test_fast_pyramid_kernel_matches_plain_on_the_five_frames(dev):
+    """Kernel A, one launch a pyramid, bit-equal to fast_nms_pyramid_plain
+    (keys, px, py, valid, response) on chip_smoke.fast_frames: a bench
+    frame, a stereo pair, the equirectangular leg's frame, a masked fisheye
+    frame and a 1280x720 frame."""
+    import chip_smoke
+
+    frames = chip_smoke.fast_frames(dev)
+    counts = chip_smoke.check_fast_frames(dev, frames)
+    assert len(counts) == 5 and all(c > 0 for c in counts.values())
+    assert frames[-1][1].num_slots == chip_smoke.HD_SLOTS
 
 
 def test_orb_describe_kernel_matches_plain(dev, frame):
     ex, levels = frame
-    pts = [ex.cell_keypoints(ox.fast_nms(l.contiguous(), g, ex.border, 20.0, 7.0), g)
+    pts = [ox.cell_keypoints(ox.fast_nms(l.contiguous(), g, ex.border, 20.0, 7.0), g, ex.border)
            for l, g in zip(levels, ex.levels)]
     px, py, valid, _ = (torch.cat(c) for c in zip(*pts))
     args = (torch.cat([l.reshape(-1) for l in levels]), ex._slot_base, ex._slot_H,
@@ -523,10 +544,12 @@ def test_ba_kernels_match_plain_at_global_shape(dev, K):
     assert w["decisions"] == 0 and w["flags"] == 0
 
 
-@pytest.mark.parametrize("M,N", [(1, 1), (37, 20), (2872, 2872), (4096, 2872)])
+@pytest.mark.parametrize("M,N", [(1, 1), (37, 20), (2872, 2872), (4096, 2872), (4096, 7984),
+                                 (20000, 7984), (5000, 13)])
 def test_scatter_to_current_kernel_matches_plain(dev, M, N):
     """Kernel Q's scatter: strided slot indices and ids, table rows as they
-    are packed; every output equal to the plain version's."""
+    are packed, more sources than the cluster holds in registers (M =
+    20000); every output equal to the plain version's."""
     import chip_smoke
     from stella_vslam_tpu_torch.module import tracking_kernels as tk
 
@@ -539,10 +562,11 @@ def test_scatter_to_current_kernel_matches_plain(dev, M, N):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("N", [1, 50, 2872, 4096])
+@pytest.mark.parametrize("N", [1, 50, 1199, 2872, 4096, 7984, 8192, 8193, 12839, 32768])
 def test_dedup_by_id_kernel_matches_plain(dev, N):
-    """Kernel Q's dedup with repeated ids, equal scores (ties to the lowest
-    slot), id -1 among the held slots and all-invalid rows."""
+    """Kernel Q's dedup, one block up to 8192 slots and a cluster of 8
+    above (to MAX_DEDUP_SLOTS), with repeated ids, equal scores (ties to
+    the lowest slot), id -1 among the held slots and all-invalid rows."""
     from stella_vslam_tpu_torch.module import tracking_kernels as tk
 
     g = torch.Generator().manual_seed(N)
@@ -554,6 +578,16 @@ def test_dedup_by_id_kernel_matches_plain(dev, N):
         k = tk.dedup_by_id(h, ids, score)
         p = tk.dedup_by_id_plain(h, ids, score)
         assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+def test_dedup_by_id_refuses_past_its_cap(dev):
+    from stella_vslam_tpu_torch.module import tracking_kernels as tk
+
+    N = tk.MAX_DEDUP_SLOTS + 1
+    has = torch.ones(N, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        tk.dedup_by_id(has, torch.zeros(N, dtype=torch.int32, device=dev),
+                       torch.zeros(N, device=dev))
 
 
 @pytest.mark.parametrize("N,C", [(8, 8), (2872, 4096)])
@@ -709,7 +743,7 @@ def test_extractor_kernels_at_equirect_shape(dev):
     keys = [ox.fast_nms(l.contiguous(), g, ex.border, *thr) for l, g in zip(levels, ex.levels)]
     for k, l, g in zip(keys, levels, ex.levels):
         assert torch.equal(k, ox.fast_nms_plain(l, g, ex.border, *thr))
-    pts = [ex.cell_keypoints(k, g) for k, g in zip(keys, ex.levels)]
+    pts = [ox.cell_keypoints(k, g, ex.border) for k, g in zip(keys, ex.levels)]
     px, py, valid, _ = (torch.cat(c) for c in zip(*pts))
     args = (torch.cat([l.reshape(-1) for l in levels]), ex._slot_base, ex._slot_H,
             ex._slot_W, px.to(torch.int32), py.to(torch.int32), valid, ex._tables)
@@ -721,17 +755,24 @@ def test_extractor_kernels_at_equirect_shape(dev):
 
 
 def test_fast_nms_kernel_batch_matches_plain(dev, frame):
+    """A batch of two images, level by level and as two pyramids in one
+    launch."""
     ex, levels = frame
     for img, g in zip(levels, ex.levels):
         batch = torch.stack([img, img.flip(1).contiguous()])
         k = ox.fast_nms(batch, g, ex.border, 20.0, 7.0)
         assert torch.equal(k, torch.stack([ox.fast_nms_plain(x, g, ex.border, 20.0, 7.0)
                                            for x in batch]))
+    pyr = torch.stack([torch.cat([l.reshape(-1) for l in levels]),
+                       torch.cat([l.flip(1).reshape(-1) for l in levels])])
+    for a, b in zip(ox.fast_nms_pyramid(pyr, ex._fast, 20.0, 7.0),
+                    ox.fast_nms_pyramid_plain(pyr, ex._fast, 20.0, 7.0)):
+        assert torch.equal(a, b)
 
 
 def test_orb_describe_strips_kernel_matches_plain(dev, frame):
     ex, levels = frame
-    pts = [ex.cell_keypoints(ox.fast_nms(l.contiguous(), g, ex.border, 20.0, 7.0), g)
+    pts = [ox.cell_keypoints(ox.fast_nms(l.contiguous(), g, ex.border, 20.0, 7.0), g, ex.border)
            for l, g in zip(levels, ex.levels)]
     px, py, valid, _ = (torch.cat(c) for c in zip(*pts))
     args = (torch.cat([l.reshape(-1) for l in levels]), ex._slot_base, ex._slot_H,
@@ -1024,13 +1065,18 @@ def test_fast_nms_mask_kernel_equals_plain(dev, size, levels):
     half[:, : w // 2] = 0
     rnd = (np.random.default_rng(3).random((h, w)) > 0.3).astype(np.uint8)
     thr = (float(params.ini_fast_thr), float(params.min_fast_thr))
+    flat = torch.cat([l.reshape(-1) for l in pyr])[None]
     for m in (half, rnd):
-        lm = ex.level_masks(torch.from_numpy(m).to(dev))
-        before = ox.fast_nms.masked_launches
+        mt = torch.from_numpy(m).to(dev)
+        lm = [ox._level_mask(ex._fast, mt, lvl) for lvl in range(len(ex.levels))]
         for lvl, g, mask in zip(pyr, ex.levels, lm):
             k = ox.fast_nms(lvl.contiguous(), g, ex.border, *thr, mask)
             assert torch.equal(k, ox.fast_nms_plain(lvl.contiguous(), g, ex.border, *thr, mask))
-        assert ox.fast_nms.masked_launches == before + levels
+        before = ox.fast_nms_pyramid.masked_launches
+        k = ox.fast_nms_pyramid(flat, ex._fast, *thr, mt)
+        assert ox.fast_nms_pyramid.masked_launches == before + 1
+        for a, b in zip(k, ox.fast_nms_pyramid_plain(flat, ex._fast, *thr, mt)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("n", [1, 129, 2872])
@@ -1349,15 +1395,16 @@ def test_pose_lm_refuses_more_slots_than_a_cluster_holds(dev):
 
 def test_cascade_kernels_repeat_under_concurrent_streams(dev):
     """Kernels C (window walk, brute force), D (a batch of two, one
-    equirectangular problem) and B (a frame's slots, the strip mode of a
-    pair's) launched from six host threads on their own streams beside
-    kernel F, as the tracking thread, the stereo front end and the loop
-    detector share them: every launch gives the bits of its case on the
-    idle card (chip_smoke.check_cascade_under_load)."""
+    equirectangular problem), B (a frame's slots, the strip mode of a
+    pair's), A (a frame, a pair) and Q (the scatter; the dedup at 2872,
+    1199 and 12839 slots) launched from twelve host threads on their own
+    streams beside kernel F, as the tracking threads, the stereo front end
+    and the loop detector share them: every launch gives the bits of its
+    case on the idle card (chip_smoke.check_cascade_under_load)."""
     import chip_smoke
 
     counts = chip_smoke.check_cascade_under_load(dev, seconds=3.0)
-    assert len(counts) == 6
+    assert len(counts) == 12
     assert all(n > 0 and bad == 0 for n, bad in counts.values())
 
 

@@ -67,7 +67,7 @@ def _frame_args(seed):
     ex, tab = _tables()
     img = PlaneWorld(noise_sigma=2.0, seed=seed).render(lateral_trajectory(3)[seed % 3])
     levels = ex.pyramid(torch.from_numpy(img))
-    pts = [ex.cell_keypoints(ox.fast_nms_plain(l, g, ex.border, 20.0, 7.0), g)
+    pts = [ox.cell_keypoints(ox.fast_nms_plain(l, g, ex.border, 20.0, 7.0), g, ex.border)
            for l, g in zip(levels, ex.levels)]
     px, py, valid, _ = (torch.cat(c) for c in zip(*pts))
     return (torch.cat([l.reshape(-1) for l in levels]), ex._slot_base, ex._slot_H, ex._slot_W,
