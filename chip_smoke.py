@@ -137,14 +137,15 @@ Phases, each fatal on failure (nothing is caught):
      and H on every shard, W and G on every replica, summed over the
      iterations it ran) and its plain version's time on the card.
  11. kernels Q (csrc/track_assoc.cu: the per-slot scatter, the landmark
-     dedup, the chain rebase) and R (csrc/reproject.cu: the reprojection
-     with the local-map gate, the undistortion) against their plain
+     dedup, the chain rebase) and R (csrc/reproject.cu: the window rows of
+     the cascade's projections, the undistortion) against their plain
      versions at the slice's shapes (run with phase 3): Q exact (poses of
      the rebase within 1e-6) on synthetic inputs with slot collisions, tied
      scores, repeated and absent ids, also the scatter at 7984 slots and
      the dedup at 7984 and 12839 (1280x720; a 1920x960 equirectangular
-     camera at 6 levels); R's uv and x_right within 1e-5
-     relative, its flags equal except within 1e-6 of a threshold (counted);
+     camera at 6 levels); R's rows of 2872 points and 4096 table rows:
+     u, v, x_right and radius within 1e-5 relative (of at least 100 px),
+     levels and flags equal except within 1e-6 of a threshold (counted);
  12. the inline loop slice a second time in the same process on a fresh
      System whose global and loop BAs run sharded over 4 landmark shards of
      this card (ba_devices, kernel W; launch counts set to 0 before it and
@@ -174,24 +175,28 @@ Phases, each fatal on failure (nothing is caught):
      kernel D's launches per frame (at most 2.2: two a frame, stages 2 and
      1 batched, plus the loop detector's); then kernel Q against plain on
      the slice's recorded inputs (a sample of the scatters and dedups,
-     every rebase) and kernel C exactly on a sample of its stage 1, 2 and 3
-     calls, with the pairs each window call visited.
+     every rebase), kernel C exactly on a sample of its stage 1, 2 and 3
+     calls, with the pairs each window call visited, and kernel R's rows on
+     a sample of its calls of both stages.
  15. kernel S (csrc/resize.cu: the pyramid resize), B's strip mode and
      kernel T (csrc/stereo_match.cu: the stereo matcher) against their plain
      versions at the stereo leg's shapes (run with phase 3): S against the
      two torch.matmul per level (cuBLAS) with max |diff| <= 1e-4, the pixels
      that differ, the pixels that differ from the CPU's matmul, and kernel
      A's cell keys that move (<= 0.5%); B's strips equal; T on synthetic
-     inputs at 2872 x 2872 and on a rendered pair: matched flags equal
-     except at a threshold (counted), x_right and depth within 1e-5
-     relative; kernel O in its fixed-scale mode against plain;
+     inputs at 2872 x 2872 drawn in the bench extractor's slot layout and
+     on a rendered pair: matched flags equal except at a threshold
+     (counted), x_right and depth within 1e-5 relative, one launch a call,
+     the pairs its band walk visits counted (band_cells_plain); kernel O in
+     its fixed-scale mode against plain;
  16. bench.py's stereo leg and its RGBD leg with mapping (util/
      stereo_slice.py): the default threaded System, 640 frames each (400
      out, 240 back on fresh rows), with the bench's gates (at most 8 frames
      lost after init, scale error < 5%, rigid ATE < 0.10 m), at least one
      keyframe event, nothing left at shutdown, no worker exception, the
      path's kernels launched; frame time, keyframe events by phase; then T
-     against plain on every 20th call of the stereo leg.
+     against plain on every 20th call of the stereo leg, and R's rows on a
+     sample of the stereo leg's calls of both stages.
  17. bench.py's equirectangular leg (util/equirect_slice.py): the default
      threaded System on the 640x320 box room, 6 levels, 250 frames on the
      1.8 m circle, with bench.py's gates (at most 10 frames lost after
@@ -208,9 +213,10 @@ Phases, each fatal on failure (nothing is caught):
      M on that frame's descriptors, C's angle gate on the init pair's area
      match, J on its largest triangulation, Q on its sampled scatters and
      dedups; then the equirectangular modes against their plain versions
-     on the leg's own inputs (R on points and table rows all around the
-     camera: uv within 1e-5 of the image size, flags equal except within
-     1e-6 of a threshold; D on every 25th of the leg's pose optimizations
+     on the leg's own inputs (R's rows of 1199 points and 4096 table rows
+     all around the camera: u and x_right within 1e-5 relative of at least
+     100 px, either edge at the seam, v too, levels and flags equal except
+     within 1e-6 of a threshold; D on every 25th of the leg's pose optimizations
      within 1e-4; K and L on its largest triangulation and fuse chunk with
      phase 8's bounds; F-I kernel by kernel, _lockstep_ba, on its init BA
      and local problems, timed at the local shape), and on the leg's init
@@ -2556,25 +2562,129 @@ def _check_assoc_call(kind, args, pose_tol=1e-6):
     return err
 
 
-def _gate_near(p, R, t, tbl, tbl_u32, log_scale, eps=1e-6):
-    """Rows of a table whose gate or level is decided by a quantity within
-    eps (relative) of its threshold, in the plain version's float64 terms:
-    there the kernel and the plain version may round to different sides."""
+def _gate_near(p, R, t, pos, table: bool, log_scale, equirect: bool = False, eps=1e-6):
+    """Rows whose flag or level is decided by a quantity within eps
+    (relative) of its threshold, in the plain version's float64 terms:
+    there the kernel and the plain version may round to different sides.
+    pos: points [M,3], or with `table` the packed table [C,8] (the gate's
+    distance ratios, viewing cosine and level too). The equirectangular
+    model's in-image test (norm > 1e-6) has no threshold a row sits near."""
     import torch
 
-    R, t, x = R.double(), t.double(), tbl.double()
+    R, t, x = R.double(), t.double(), pos.double()
     pc = x[:, 0:3] @ R.T + t
-    z = pc[:, 2]
-    u = p.fx * pc[:, 0] / z + p.cx
-    v = p.fy * pc[:, 1] / z + p.cy
-    ray = x[:, 0:3] + R.T @ t
-    dist = torch.linalg.norm(ray, dim=-1)
-    cosang = (ray * x[:, 3:6]).sum(-1) / dist
-    lv = torch.log(x[:, 7] / dist) / log_scale
     near = lambda q, thr: (q - thr).abs() <= eps * max(1.0, abs(thr))
-    return (near(u, 0.0) | near(u, p.width) | near(v, 0.0) | near(v, p.height) | near(z, 0.0)
-            | near(dist / x[:, 6], 0.8) | near(dist / x[:, 7], 1.3) | near(cosang, 0.5)
-            | ((lv - lv.round()).abs() <= eps))
+    out = torch.zeros(pos.shape[0], dtype=torch.bool, device=pos.device)
+    if not equirect:
+        z = pc[:, 2]
+        u = p.fx * pc[:, 0] / z + p.cx
+        v = p.fy * pc[:, 1] / z + p.cy
+        out |= near(u, 0.0) | near(u, p.width) | near(v, 0.0) | near(v, p.height) \
+            | near(z, 0.0)
+    if table:
+        ray = x[:, 0:3] + R.T @ t
+        dist = torch.linalg.norm(ray, dim=-1)
+        cosang = (ray * x[:, 3:6]).sum(-1) / dist
+        lv = torch.log(x[:, 7] / dist) / log_scale
+        out |= near(dist / x[:, 6], 0.8) | near(dist / x[:, 7], 1.3) | near(cosang, 0.5) \
+            | ((lv - lv.round()).abs() <= eps)
+    return out
+
+
+def rows_case(dev, world, C: int, N: int, seed: int = 14, scale_factors=None):
+    """Kernel R's inputs: a pose, a packed table of C landmarks with normals
+    and distance bounds at random factors of the true distance (no gate or
+    level on its threshold by construction), 90% valid, and N of its points
+    as the last frame's chained landmarks (levels at random, 80%
+    associated). With a world, its perspective camera with a 0.12 m
+    baseline: depths 1-6 m in front, a tenth of the points 1.5-6 m behind
+    (the camera frame's depth stays clear of 0, where an ulp of z is pixels
+    of u), a pose near the identity; without one, the equirectangular leg's
+    640x320 camera, points all around it at 0.5-5.5 m and any pose.
+    Returns (params, R, t, tbl, table keywords, points, point keywords) for
+    project_window_rows."""
+    import torch
+
+    from stella_vslam_tpu_torch.camera import base as cb
+
+    g = torch.Generator().manual_seed(seed)
+    if world is not None:
+        p = cb.make_params(fx=world.fx, fy=world.fy, cx=world.W / 2.0, cy=world.H / 2.0,
+                           width=world.W, height=world.H, focal_x_baseline=world.fx * 0.12)
+        R = torch.linalg.qr(torch.eye(3) + 0.05 * torch.randn(3, 3, generator=g))[0]
+        t = torch.tensor([0.1, -0.2, 0.3])
+        z = torch.rand(C, 1, generator=g) * 5.0 + 1.0
+        z = torch.where(torch.rand(C, 1, generator=g) < 0.1, -(z + 0.5), z)
+        pos = torch.cat([torch.rand(C, 2, generator=g) * 8 - 4, z], 1)
+        model = cb.CameraModel.PERSPECTIVE
+    else:
+        p = cb.make_params(cx=320.0, cy=160.0, width=640, height=320)
+        R = torch.linalg.qr(torch.eye(3) + 0.3 * torch.randn(3, 3, generator=g))[0]
+        t = torch.tensor([0.3, -0.1, 0.2])
+        pos = torch.nn.functional.normalize(torch.randn(C, 3, generator=g), dim=1) \
+            * (torch.rand(C, 1, generator=g) * 5.0 + 0.5)
+        model = cb.CameraModel.EQUIRECTANGULAR
+    R = (R * torch.sign(torch.det(R))).to(dev).contiguous()
+    normal = torch.nn.functional.normalize(torch.randn(C, 3, generator=g), dim=1)
+    d = torch.linalg.norm(pos, dim=1, keepdim=True)
+    f = torch.rand(C, 2, generator=g)
+    tbl = torch.cat([pos, normal, (0.9 + 0.6 * f[:, :1]) * d, (0.8 + 2.0 * f[:, 1:]) * d],
+                    1).to(dev).contiguous()
+    tu = torch.zeros(C, 10, dtype=torch.int32)
+    tu[:, 9] = (torch.rand(C, generator=g) < 0.9).to(torch.int32)
+    sf = [1.2 ** l for l in range(8)] if scale_factors is None else list(scale_factors)
+    sf = torch.tensor(sf, dtype=torch.float32, device=dev)
+    L = sf.shape[0]
+    tkw = dict(tbl_u32=tu.to(dev), scale_factors=sf, margin=5.0,
+               log_scale=float(np.log(np.float32(1.2))), num_levels=L, model=model)
+    pkw = dict(scale_factors=sf, margin=20.0, model=model,
+               last_level=torch.randint(0, L, (N,), generator=g, dtype=torch.int32).to(dev),
+               last_valid=(torch.rand(N, generator=g) < 0.8).to(dev))
+    return p, R, t.to(dev), tbl, tkw, tbl[:N, 0:3].contiguous(), pkw
+
+
+def _check_rows_call(p, R, t, pos, kw):
+    """Kernel R's window rows against their plain version on one call: u,
+    v, x_right and the radius within 1e-5 relative of at least 100 px (near
+    u = 0 the sum fx x / z + cx cancels, and one ulp of cx is already 3e-5
+    px; an equirectangular u and x_right at the seam may land on either
+    edge: the lesser way round), levels and flags equal except on rows
+    whose deciding quantity lies within 1e-6 of its threshold (_gate_near;
+    counted). Returns (the largest relative error, rows differing, rows
+    near a threshold)."""
+    import torch
+
+    from stella_vslam_tpu_torch.camera import base as cb
+
+    k = cb.project_window_rows(p, R, t, pos, **kw)
+    q = cb.project_window_rows_plain(p, R, t, pos, **kw)
+    eq = kw.get("model") == cb.CameraModel.EQUIRECTANGULAR
+    table = kw.get("tbl_u32") is not None
+    near = _gate_near(p, R, t, pos, table, kw.get("log_scale", 0.0), eq)
+    ints = (k.valid != q.valid) | (k.lo != q.lo) | (k.hi != q.hi)
+    if table:
+        ints |= k.pred_scale != q.pred_scale
+    same = ~ints
+
+    def rel(a, b, seam=False):
+        d = (a - b).abs()
+        if seam:
+            d = torch.minimum(d, (d - p.width).abs())
+        return float((d / b.abs().clamp(min=100.0))[same].max()) if bool(same.any()) else 0.0
+
+    err = max(rel(k.u, q.u, eq), rel(k.v, q.v), rel(k.xr, q.xr, eq), rel(k.rad, q.rad))
+    assert not bool((ints & ~near).any()), "kernel R's rows disagree away from a threshold"
+    assert err < 1e-5, f"kernel R's rows disagree with plain: {err:.3g}"
+    return err, int(ints.sum()), int(near.sum())
+
+
+def _rows_bound(M: int, table: bool, L: int, ops_per_row: float) -> dict:
+    """Kernel R's window rows: read the pose and the scale factors once and
+    per row its point, level and flag (a table row and its valid word);
+    write u, v, x_right, radius, the two level bounds, the flag (and the
+    predicted level)."""
+    per_row = (32 + 4 + 29) if table else (12 + 4 + 1 + 25)
+    return _bound(48 + 4.0 * L + M * per_row, ops_per_row * M)
 
 
 def check_track_kernels(dev, world):
@@ -2654,62 +2764,33 @@ def check_track_kernels(dev, world):
         # the table, 5 small poses; write the chain and 2 poses
         **_bound(N * 17 + C * 16 + 5 * 48 + N * 17 + 96, 12.0 * (N + C))))
 
-    # ---- R: the table's reprojection and gate, the points', undistortion ----
+    # ---- R: the cascade's window rows (table and points), undistortion ----
     srcr = "stella_vslam_tpu_torch/csrc/reproject.cu"
-    p = cb.make_params(fx=world.fx, fy=world.fy, cx=world.W / 2.0, cy=world.H / 2.0,
-                       width=world.W, height=world.H, focal_x_baseline=world.fx * 0.12)
-    g = torch.Generator().manual_seed(14)
-    R = torch.linalg.qr(torch.eye(3) + 0.05 * torch.randn(3, 3, generator=g))[0]
-    R = (R * torch.sign(torch.det(R))).to(dev)
-    t = torch.tensor([0.1, -0.2, 0.3], device=dev)
-    # depths 1-6 m in front, a tenth of the points 1.5-6 m behind: the camera
-    # frame's depth stays clear of 0, where an ulp of z is pixels of u
-    z = torch.rand(C, 1, generator=g) * 5.0 + 1.0
-    z = torch.where(torch.rand(C, 1, generator=g) < 0.1, -(z + 0.5), z)
-    pos = torch.cat([torch.rand(C, 2, generator=g) * 8 - 4, z], 1)
-    normal = torch.nn.functional.normalize(torch.randn(C, 3, generator=g), dim=1)
-    d = torch.linalg.norm(pos, dim=1, keepdim=True)
-    f = torch.rand(C, 2, generator=g)
-    tbl = torch.cat([pos, normal, (0.9 + 0.6 * f[:, :1]) * d, (0.8 + 2.0 * f[:, 1:]) * d],
-                    1).to(dev).contiguous()
-    tu = torch.zeros(C, 10, dtype=torch.int32)
-    tu[:, 9] = (torch.rand(C, generator=g) < 0.9).to(torch.int32)
-    tu = tu.to(dev)
-    log_scale = float(np.log(np.float32(1.2)))
-    pts = tbl[:, 0:3].contiguous()
-    # relative to the pixel value, at least 100 px: near u = 0 the sum
-    # fx x / z + cx cancels, and one ulp of cx is already 3e-5 px
-    rel = lambda a, b: float(((a - b).abs() / b.abs().clamp(min=100.0)).max())
-    near = _gate_near(p, R, t, tbl, tu, log_scale)
-    err_uv, n_diff = 0.0, 0
-    for a, kw, mask in (((pts,), {}, near), ((tbl, tu), dict(log_scale=log_scale, num_levels=8),
-                                             near)):
-        k = cb.reproject_gate(p, R, t, *a, **kw)
-        q = cb.reproject_gate_plain(p, R, t, *a, **kw)
-        err_uv = max(err_uv, rel(k[0], q[0]), rel(k[3], q[3]))
-        diff = (k[2] != q[2]) | ((k[4] != q[4]) if k[4] is not None else False)
-        n_diff += int(diff.sum())
-        assert not bool((diff & ~mask).any()), "kernel R's gate disagrees away from a threshold"
-    torch.cuda.synchronize()
-    print(f"kernel R reproject_gate: {C} points and {C} table rows, uv and x_right within "
-          f"{err_uv:.3g} relative (of at least 100 px), {n_diff} flags apart, {int(near.sum())} rows within 1e-6 of "
-          f"a threshold")
-    assert err_uv < 1e-5, "kernel R's projection disagrees with its plain version"
-    rows.append(dict(
-        name="reproject_gate", route="cuda", source=srcr,
-        replaces="stella_vslam_tpu/camera/base.py:232", max_abs_err=err_uv,
-        shape=f"C={C} table rows with the local-map gate",
-        **_times(lambda: cb.reproject_gate(p, R, t, tbl, tu, log_scale=log_scale,
-                                                num_levels=8)),
-        plain_ms=_median_ms(lambda: cb.reproject_gate_plain(p, R, t, tbl, tu, log_scale=log_scale,
-                                                            num_levels=8)),
-        library_ms=None,
-        # read a packed row (32 bytes) and its valid word, write uv, depth,
-        # flag, x_right and level; ~100 operations per row
-        **_bound(C * (32 + 4) + C * (8 + 4 + 1 + 4 + 4) + 48, 100.0 * C)))
+    p, R, t, tbl, tkw, pts, pkw = rows_case(dev, world, C, N)
+    for label, args, kw, M, table in (("table", tbl, tkw, C, True),
+                                      ("points", pts, pkw, N, False)):
+        before = cb.project_window_rows.launches
+        err, n_diff, n_near = _check_rows_call(p, R, t, args, kw)
+        assert cb.project_window_rows.launches == before + 1
+        print(f"kernel R project_window_rows ({label}): {M} rows, u, v, x_right and radius "
+              f"within {err:.3g} relative (of at least 100 px), {n_diff} rows apart, "
+              f"{n_near} within 1e-6 of a threshold; one launch")
+        rows.append(dict(
+            name="project_window_rows" + ("" if table else "_points"),
+            counter="project_window_rows", route="cuda", source=srcr,
+            replaces="stella_vslam_tpu/camera/base.py:232, module/tracking_kernels.py:266-285, "
+                     "match/projection.py:53,127",
+            max_abs_err=err, rows_differing=n_diff,
+            shape=(f"C={M} table rows with the local-map gate" if table
+                   else f"M={M} last-frame points"),
+            **_times(lambda: cb.project_window_rows(p, R, t, args, **kw)),
+            plain_ms=_median_ms(lambda: cb.project_window_rows_plain(p, R, t, args, **kw)),
+            library_ms=None, **_rows_bound(M, table, 8, 100.0 if table else 60.0)))
     pe = cb.make_params(fx=458.654, fy=457.296, cx=367.215, cy=248.375, k1=-0.28340811,
                         k2=0.07395907, p1=0.00019359, p2=1.76187114e-05, width=752, height=480)
+    g = torch.Generator().manual_seed(16)
     kp = (torch.rand(N, 2, generator=g) * torch.tensor([752.0, 480.0])).to(dev)
+    rel = lambda a, b: float(((a - b).abs() / b.abs().clamp(min=100.0)).max())
     err_u = rel(cb.undistort_norm(pe, kp), cb.perspective_undistort(pe, kp))
     print(f"kernel R undistort_norm: {N} keypoints (EuRoC's radtan), within {err_u:.3g} relative")
     assert err_u < 1e-5, "kernel R's undistortion disagrees with its plain version"
@@ -3222,6 +3303,51 @@ def record_match_inputs(sample: int = 97):
     return calls, undo
 
 
+def record_window_rows_inputs(sample: int = 97):
+    """Keep, by reference, the arguments of every `sample`-th call of kernel
+    R's window rows per stage (the last frame's points; the table). The
+    recorder replaces `camera.base.project_window_rows`, which the cascade
+    looks up by module; the original counts its launches by its own name, so
+    the count lands on the recorder and `undo` moves it back. Returns
+    (calls, undo)."""
+    from stella_vslam_tpu_torch.camera import base as cb
+
+    calls = {"points": [], "table": []}
+    seen = dict.fromkeys(calls, 0)
+    orig = cb.project_window_rows
+
+    def rec(p, R, t, pos, **kw):
+        stage = "table" if kw.get("tbl_u32") is not None else "points"
+        if seen[stage] % sample == sample // 2:
+            calls[stage].append((p, R, t, pos, kw))
+        seen[stage] += 1
+        return orig(p, R, t, pos, **kw)
+
+    rec.launches = 0
+    cb.project_window_rows = rec
+
+    def undo():
+        cb.project_window_rows = orig
+        orig.launches += rec.launches
+
+    return calls, undo
+
+
+def check_recorded_rows(calls, label):
+    """Kernel R's window rows against plain on a slice's recorded calls
+    (_check_rows_call's bounds). Returns the largest relative error."""
+    err, n_diff, n_near = 0.0, 0, 0
+    for recs in calls.values():
+        for p, R, t, pos, kw in recs:
+            e, d, n = _check_rows_call(p, R, t, pos, kw)
+            err, n_diff, n_near = max(err, e), n_diff + d, n_near + n
+    print(f"kernel R on the {label}'s recorded calls: "
+          f"{json.dumps({k: len(v) for k, v in calls.items()})}, floats within {err:.3g} "
+          f"relative, {n_diff} rows apart, {n_near} within 1e-6 of a threshold")
+    assert all(calls.values()), f"kernel R: no recorded call of a stage on the {label}"
+    return err
+
+
 def check_recorded_matches(calls):
     """Kernel C against its plain version on the threaded slice's own
     calls: rows differing (0 required), and each window call's visited
@@ -3369,6 +3495,7 @@ def run_threaded_slice(dev, world, wrappers, card):
     slam = threaded_slice.make_system(world, dev)
     calls, undo_assoc = record_assoc_inputs()
     match_calls, undo_match = record_match_inputs()
+    row_calls, undo_rows = record_window_rows_inputs()
     probe = SyncProbe(slam.tracker, 300, 340)
     held = InFlightPublish(slam, 700)
 
@@ -3384,8 +3511,10 @@ def run_threaded_slice(dev, world, wrappers, card):
         probe.close()
         undo_assoc()
         undo_match()
+        undo_rows()
     launches = {k: w.launches for k, w in wrappers.items()}
     calls["match"] = match_calls
+    calls["rows"] = row_calls
     stats["launches"] = launches
     stats["sync_per_dispatch"] = probe.result()
     stats["forced_in_flight_publish"] = dict(frame=held.at,
@@ -3465,64 +3594,255 @@ def _stereo_inputs(dev, ex, world, x=0.6):
     fxb = float(np.float32(world.fx * BASELINE))
     kw = dict(scale_factors=torch.tensor(ex.params.scale_factors, dtype=torch.float32,
                                          device=dev),
-              focal_x_baseline=fxb, true_baseline=fxb / float(np.float32(world.fx)))
+              focal_x_baseline=fxb, true_baseline=fxb / float(np.float32(world.fx)),
+              layout=ex.slot_layout)
     return (fl.xy, fl.level, fl.desc, fl.valid, sl, fr.xy, fr.level, fr.desc, fr.valid, sr), kw
 
 
-def _synthetic_stereo(dev, n=2872, seed=5):
-    """Matcher inputs at the slice's width: n keypoints per image at the
-    bench's size and levels, 80% of the right ones true matches of a left
-    one (disparity 0-60 px, a few flipped bits, the strip shifted by -5..5
-    px), the rest random; ties, empty rows and border shifts included."""
+def grid_layout(dev, n: int, width: int = 400, height: int = 300, num_levels: int = 3):
+    """(levels, SlotLayout) of n slots over a width x height image: up to
+    num_levels levels (scale 1.2 each) of about half, a third and a sixth
+    of the slots, each level's grid the factor pair of its count nearest to
+    the image's aspect, its cell size as level_geometry sizes one (so the
+    last cell row or column may reach past the level and clamp)."""
+    from stella_vslam_tpu_torch.feature import orb_extractor as ox
+    from stella_vslam_tpu_torch.feature.orb_pattern import EDGE_BORDER as b
+
+    shares = [0.5, 1 / 3, 1 / 6][:num_levels]
+    counts = [max(1, int(round(n * f))) for f in shares[1:]]
+    counts = [n - sum(counts)] + counts if n > sum(counts) else [n]
+    levels = []
+    for l, c in enumerate(counts):
+        s = 1.2 ** l
+        W, H = int(round(width / s)), int(round(height / s))
+        gx = min((d for d in range(1, c + 1) if c % d == 0),
+                 key=lambda d: abs(d / (c // d) - W / H))
+        gy = c // gx
+        cs = int(math.ceil(max((W - 2 * b) / gx, (H - 2 * b) / gy)))
+        levels.append(ox._LevelGeom(H, W, cs, gy, gx, s))
+    return levels, ox.slot_layout(levels, b, dev)
+
+
+def bench_layout(dev):
+    """(levels, SlotLayout) of the bench's extractor: 752x480, 8 levels,
+    min_size 800 (2872 slots)."""
+    from stella_vslam_tpu_torch.feature import orb_extractor as ox
+    from stella_vslam_tpu_torch.feature.orb_params import OrbParams
+    from stella_vslam_tpu_torch.feature.orb_pattern import EDGE_BORDER
+
+    levels = ox.level_geometry(OrbParams(num_levels=8), 752, 480, 800, EDGE_BORDER)
+    return levels, ox.slot_layout(levels, EDGE_BORDER, dev)
+
+
+def cell_pixel(border: int, cs: int, size: int, c, off):
+    """The level pixel at offset `off` (0 <= off < cs) in cell c of a cell
+    row or column (numpy arrays or ints), clamped into a level `size` pixels
+    tall or wide: where an extractor places a slot's keypoint
+    (cell_keypoints), and where a cell's interval ends (off 0 and cs - 1)."""
+    return np.minimum(border + np.asarray(c) * cs + off, size - 1)
+
+
+def layout_slots(rng, levels, border: int):
+    """Per slot of `levels` (_LevelGeom each, in slot order): level pixel
+    (px, py) at a random offset in its cell (cell_pixel), and the slot's
+    level. Returns (px, py, level, scale) as numpy arrays."""
+    px, py, lv, sc = [], [], [], []
+    for l, g in enumerate(levels):
+        k = np.arange(g.Gy * g.Gx)
+        px.append(cell_pixel(border, g.cs, g.W, k % g.Gx, rng.integers(0, g.cs, k.size)))
+        py.append(cell_pixel(border, g.cs, g.H, k // g.Gx, rng.integers(0, g.cs, k.size)))
+        lv.append(np.full(k.size, l))
+        sc.append(np.full(k.size, np.float32(g.scale)))
+    return tuple(np.concatenate(a) for a in (px, py, lv, sc))
+
+
+def _cell_ends(layout, l: int, dev):
+    """Level l's cell rows' and cell columns' level-0 intervals, ((ylo,
+    yhi) [Gy], (xlo, xhi) [Gx]) f32: a cell's first and last pixel row
+    (column), clamped into the level, times the level's f32 scale, as kernel
+    T computes them."""
+    import torch
+
+    g, s = layout.levels[l], layout.level_scale[l].to(dev)
+    ends = lambda n, size: tuple(
+        torch.as_tensor(cell_pixel(layout.border, g.cs, size, np.arange(n), off),
+                        dtype=torch.float32, device=dev) * s for off in (0, g.cs - 1))
+    return ends(g.Gy, g.H), ends(g.Gx, g.W)
+
+
+def slot_cells(layout, dev):
+    """Each slot's cell, [num_slots, 4] f32 (ylo, yhi, xlo, xhi) in level-0
+    pixels: where the layout places the slot's keypoint."""
+    import torch
+
+    out = []
+    for l, g in enumerate(layout.levels):
+        (ylo, yhi), (xlo, xhi) = _cell_ends(layout, l, dev)
+        k = torch.arange(g.Gy * g.Gx, device=dev)
+        out.append(torch.stack([ylo[k // g.Gx], yhi[k // g.Gx], xlo[k % g.Gx], xhi[k % g.Gx]],
+                               dim=1))
+    return torch.cat(out)
+
+
+def _span(ok):
+    """[NL, n] bool -> the first and last set position of each row (first
+    > last where none is)."""
+    import torch
+
+    idx = torch.arange(ok.shape[1], device=ok.device)
+    return torch.where(ok, idx, ok.shape[1]).amin(dim=1), torch.where(ok, idx, -1).amax(dim=1)
+
+
+def band_cells_plain(l_xy, l_level, l_valid, layout, scale_factors, max_disp: float):
+    """Kernel T's band walk in torch: for each left keypoint and each level
+    of `layout` (a SlotLayout), the cell rows [r0, r1] and columns [c0, c1]
+    it visits, as int64 [NL, L, 4] (r0, r1, c0, c1); (0, -1, 0, -1) where it
+    visits none. A left keypoint visits the levels within one of its own
+    when it is valid; there, the cell rows whose y interval (_cell_ends)
+    passes the row-band gate at its ends, and the cell columns whose x
+    interval passes the disparity gate at its ends. The gates are monotone
+    in the right keypoint's coordinate, so every pair the dense gate admits
+    lies in a visited cell."""
+    import torch
+
+    dev = l_xy.device
+    lx, ly = l_xy[:, 0, None], l_xy[:, 1, None]
+    out = []
+    for l in range(len(layout.levels)):
+        band = 2.0 * scale_factors[l].to(dev)
+        (ylo, yhi), (xlo, xhi) = _cell_ends(layout, l, dev)
+        reach = l_valid & ((l_level - l).abs() <= 1)
+        r0, r1 = _span(((ylo[None] - ly) <= band) & ((yhi[None] - ly) >= -band))
+        c0, c1 = _span(((lx - xlo[None]) >= 0.0) & ((lx - xhi[None]) < max_disp))
+        rng = torch.stack([r0, r1, c0, c1], dim=1)
+        visit = reach & (r0 <= r1) & (c0 <= c1)
+        out.append(torch.where(visit[:, None], rng, torch.tensor([0, -1, 0, -1], device=dev)))
+    return torch.stack(out, dim=1)
+
+
+def band_visited(cells, layout):
+    """band_cells_plain's rectangles -> [NL, num_slots] bool, the slots each
+    left keypoint visits."""
+    import torch
+
+    parts = []
+    for l, g in enumerate(layout.levels):
+        k = torch.arange(g.Gy * g.Gx, device=cells.device)
+        cy, cx = (k // g.Gx)[None], (k % g.Gx)[None]
+        r0, r1, c0, c1 = (cells[:, l, q, None] for q in range(4))
+        parts.append((cy >= r0) & (cy <= r1) & (cx >= c0) & (cx <= c1))
+    return torch.cat(parts, dim=1)
+
+
+def band_pairs(cells) -> int:
+    """The pairs band_cells_plain's rectangles hold: what kernel T visits."""
+    r0, r1, c0, c1 = cells.unbind(-1)
+    return int(((r1 - r0 + 1).clamp(min=0) * (c1 - c0 + 1).clamp(min=0)).sum())
+
+
+def stereo_layout_case(dev, l_levels, r_levels, border: int, seed: int, max_shift=60.0,
+                       scale_factors=None):
+    """Matcher inputs whose keypoints lie in the slots of two layouts (the
+    left image's l_levels, the right's r_levels): every slot at a random
+    place in its cell, as an extractor places it. Most left keypoints get a
+    true match on the right: the right slot whose cell holds the point
+    0-max_shift px to the left, within 1.5 px of the row, at a level within
+    one (a few flipped bits, the strip shifted by -5..5 px). Up to 100
+    matched right slots get an equal descriptor in the next cell of their
+    row (tied distances: the lowest index wins); right slots below 85% of
+    the image are invalid (the left rows there have empty bands); 5% of
+    both sides invalid. Returns (the matcher's positional arguments, its
+    keywords)."""
     import torch
 
     from stella_vslam_tpu_torch.feature.orb_params import OrbParams
 
     rng = np.random.default_rng(seed)
-    L = 8
-    l_xy = np.stack([rng.uniform(20, 732, n), rng.uniform(20, 460, n)], -1)
-    l_xy[:50, 1] = 479.5  # a row band with no right keypoint
-    l_lvl = rng.integers(0, L, n)
-    l_desc = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32)
-    l_strip = rng.integers(0, 256, (n, 11, 21))
-    r_xy = np.stack([rng.uniform(0, 752, n), rng.uniform(20, 460, n)], -1)
-    r_lvl = rng.integers(0, L, n)
-    r_desc = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32)
-    r_strip = rng.integers(0, 256, (n, 11, 21))
-    src = rng.permutation(np.arange(50, n))[:int(0.8 * n)]
-    for j, i in enumerate(src):
-        r_xy[j] = (l_xy[i, 0] - rng.uniform(0, 60), l_xy[i, 1] + rng.uniform(-1.5, 1.5))
-        r_lvl[j] = np.clip(l_lvl[i] + rng.integers(-1, 2), 0, L - 1)
+    lpx, lpy, l_lvl, l_sc = layout_slots(rng, l_levels, border)
+    rpx, rpy, r_lvl, r_sc = layout_slots(rng, r_levels, border)
+    NL, NR = lpx.size, rpx.size
+    l_xy = np.stack([lpx.astype(np.float32) * l_sc, lpy.astype(np.float32) * l_sc], -1)
+    l_desc = rng.integers(0, 2 ** 32, (NL, 8), dtype=np.uint64).astype(np.uint32)
+    l_strip = rng.integers(0, 256, (NL, 11, 21))
+    r_desc = rng.integers(0, 2 ** 32, (NR, 8), dtype=np.uint64).astype(np.uint32)
+    r_strip = rng.integers(0, 256, (NR, 11, 21))
+    first = np.cumsum([0] + [g.Gy * g.Gx for g in r_levels])
+    L = len(r_levels)
+    taken = np.zeros(NR, bool)
+    matched = []
+    for i in rng.permutation(NL):
+        rl = int(np.clip(l_lvl[i] + rng.integers(-1, 2), 0, L - 1))
+        g = r_levels[rl]
+        x = l_xy[i, 0] - rng.uniform(0, max_shift)
+        y = l_xy[i, 1] + rng.uniform(-1.5, 1.5)
+        qx, qy = int(round(x / g.scale)), int(round(y / g.scale))
+        cx, cy = (qx - border) // g.cs, (qy - border) // g.cs
+        if not (0 <= cx < g.Gx and 0 <= cy < g.Gy and qx < g.W and qy < g.H):
+            continue
+        j = first[rl] + cy * g.Gx + cx
+        if taken[j]:
+            continue
+        taken[j] = True
+        rpx[j], rpy[j] = qx, qy
         flips = np.bitwise_and.reduce(
             rng.integers(0, 2 ** 32, (3, 8), dtype=np.uint64).astype(np.uint32), axis=0)
         r_desc[j] = l_desc[i] ^ flips
         r_strip[j] = np.clip(np.roll(l_strip[i], int(rng.integers(-5, 6)), axis=1)
                              + rng.integers(-3, 4, (11, 21)), 0, 255)
-    dup = slice(int(0.8 * n), int(0.8 * n) + 100)
-    r_xy[dup], r_lvl[dup], r_desc[dup] = r_xy[:100], r_lvl[:100], r_desc[:100]
+        matched.append(j)
+    ties = 0
+    for j in matched:
+        l = int(np.searchsorted(first, j, side="right") - 1)
+        k = j - first[l]
+        if ties < 100 and k % r_levels[l].Gx + 1 < r_levels[l].Gx and not taken[j + 1]:
+            taken[j + 1] = True
+            r_desc[j + 1] = r_desc[j]
+            rpy[j + 1] = rpy[j]  # the same pixel row, the next cell
+            ties += 1
+    r_xy = np.stack([rpx.astype(np.float32) * r_sc, rpy.astype(np.float32) * r_sc], -1)
+    height = max(g.H * g.scale for g in r_levels)
+    r_valid = (rng.random(NR) < 0.95) & (r_xy[:, 1] < 0.85 * height)
     t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a).astype(dt), device=dev)
-    valid = lambda: t(rng.random(n) < 0.95, bool)
     fxb = float(np.float32(458.0 * 0.12))
-    kw = dict(scale_factors=t(OrbParams(num_levels=L).scale_factors, np.float32),
-              focal_x_baseline=fxb, true_baseline=fxb / 458.0)
-    return (t(l_xy, np.float32), t(l_lvl, np.int32), t(l_desc.view(np.int32), np.int32),
-            valid(), t(l_strip, np.uint8), t(r_xy, np.float32), t(r_lvl, np.int32),
-            t(r_desc.view(np.int32), np.int32), valid(), t(r_strip, np.uint8)), kw
+    sf = scale_factors if scale_factors is not None else OrbParams(num_levels=L).scale_factors
+    kw = dict(scale_factors=t(sf, np.float32), focal_x_baseline=fxb, true_baseline=fxb / 458.0)
+    args = (t(l_xy, np.float32), t(l_lvl, np.int32), t(l_desc.view(np.int32), np.int32),
+            t(rng.random(NL) < 0.95, bool), t(l_strip, np.uint8), t(r_xy, np.float32),
+            t(r_lvl, np.int32), t(r_desc.view(np.int32), np.int32), t(r_valid, bool),
+            t(r_strip, np.uint8))
+    return args, kw
+
+
+def _synthetic_stereo(dev, seed=5):
+    """Matcher inputs at the slice's width: both images' 2872 slots in the
+    bench extractor's layout (stereo_layout_case: true matches 0-60 px
+    apart, ties, empty rows). Returns (args, keywords with the layout)."""
+    from stella_vslam_tpu_torch.feature.orb_pattern import EDGE_BORDER
+
+    levels, layout = bench_layout(dev)
+    args, kw = stereo_layout_case(dev, levels, levels, EDGE_BORDER, seed)
+    return args, dict(kw, layout=layout)
 
 
 def _check_stereo_call(args, kw, label, verbose=True):
-    """Kernel T against its plain version on one call: matched flags equal
-    except where the deciding quantity sits at its threshold (a disparity
-    within 1e-3 of 0 or of max_disp, a SAD within 1e-3 of twice the mean;
-    counted); x_right and depth within 1e-5 relative. Returns (rows
-    differing, the largest relative error, matched rows, candidate pairs)."""
+    """Kernel T against its plain version on one call: one launch; matched
+    flags equal except where the deciding quantity sits at its threshold (a
+    disparity within 1e-3 of 0 or of max_disp, a SAD within 1e-3 of twice
+    the mean; counted); x_right and depth within 1e-5 relative; every pair
+    the dense gate admits inside the band walk's cells (band_cells_plain).
+    Returns (rows differing, the largest relative error, matched rows,
+    candidate pairs, pairs the walk visits, rows that reach the SAD step:
+    valid, with a candidate under the Hamming threshold)."""
     import torch
 
     from stella_vslam_tpu_torch.match import stereo as st
 
+    before = st.stereo_match.launches
     xk, dk = st.stereo_match(*args, **kw)
-    xp, dp = st.stereo_match_plain(*args, **kw)
-    pre, sad, disp = st.stereo_refine_plain(*args, **kw)
+    assert st.stereo_match.launches == before + 1, "kernel T: one launch a call"
+    plain_kw = {k: v for k, v in kw.items() if k != "layout"}
+    xp, dp = st.stereo_match_plain(*args, **plain_kw)
+    pre, sad, disp = st.stereo_refine_plain(*args, **plain_kw)
     torch.cuda.synchronize()
     mk, mp = dk > 0, dp > 0
     differ = mk != mp
@@ -3541,14 +3861,23 @@ def _check_stereo_call(args, kw, label, verbose=True):
             <= 2.0 * kw["scale_factors"][r_lvl.long()][None]) \
         & (d >= 0) & (d < max_disp) & ((l_lvl[:, None] - r_lvl[None]).abs() <= 1) \
         & l_valid[:, None] & r_valid[None]
+    cells = band_cells_plain(l_xy, l_lvl, l_valid, kw["layout"], kw["scale_factors"],
+                             max_disp)
+    dist = torch.where(cand, st.pairwise_hamming(args[2], args[7]), st.MAX_HAMMING_DIST + 1)
+    thr = (st.HAMMING_DIST_THR_LOW + st.HAMMING_DIST_THR_HIGH) / 2
+    sad_rows = int(((dist.amin(dim=1) < thr) & l_valid).sum())
+    outside = int((cand & ~band_visited(cells, kw["layout"])).sum())
     n_diff, n_thr = int(differ.sum()), int(at_thr.sum())
     if verbose:
         print(f"kernel T stereo_match {label}: {int(mk.sum())} matched (plain {int(mp.sum())}), "
               f"flags differing {n_diff} ({n_thr} at a threshold), x_right / depth max rel "
-              f"err {err:.3g}, candidate pairs {int(cand.sum())}")
+              f"err {err:.3g}, candidate pairs {int(cand.sum())}, pairs visited "
+              f"{band_pairs(cells)} (of {l_xy.shape[0] * r_xy.shape[0]}), "
+              f"candidates outside the walk {outside}, rows at the SAD step {sad_rows}")
+    assert outside == 0, f"kernel T's band walk misses admitted pairs ({label})"
     assert n_diff == n_thr, f"kernel T disagrees with plain off a threshold ({label})"
     assert err <= 1e-5, f"kernel T x_right / depth disagree ({label})"
-    return n_diff, err, int(mk.sum()), int(cand.sum())
+    return n_diff, err, int(mk.sum()), int(cand.sum()), band_pairs(cells), sad_rows
 
 
 def check_stereo_kernels(dev, world):
@@ -3643,22 +3972,29 @@ def check_stereo_kernels(dev, world):
 
     # ---- T: the stereo matcher, synthetic and on a rendered pair ----
     ta, tkw = _synthetic_stereo(dev)
-    n_diff_t, err_t, n_match, n_cand = _check_stereo_call(ta, tkw, "synthetic 2872 x 2872")
+    n_diff_t, err_t, n_match, n_cand, _, _ = _check_stereo_call(ta, tkw,
+                                                                "synthetic 2872 x 2872")
     ra, rkw = _stereo_inputs(dev, ex, world)
-    d2, e2, m2, c2 = _check_stereo_call(ra, rkw, "rendered pair")
+    d2, e2, m2, c2, v2, r2 = _check_stereo_call(ra, rkw, "rendered pair")
     n = ra[0].shape[0]
+    plain_kw = {k: v for k, v in rkw.items() if k != "layout"}
+    # each input byte the function needs read once: per keypoint xy, level,
+    # descriptor and flag on both sides, the left strip and the best match's
+    # strip of each row that reaches the SAD step (no other strip is read),
+    # x_right and depth out; operations: ~6 gate operations a visited pair
+    # (all pairs before the band walk), 8 XOR + 8 popc a candidate, 11 x 121
+    # x 3 SAD operations a row that reaches the SAD step
+    t_bytes = 2 * n * (8 + 4 + 32 + 1.0) + 2 * 231.0 * r2 + 8.0 * n
+    t_ops = 16.0 * c2 + r2 * 11 * 121 * 3.0
     rows.append(dict(
         name="stereo_match", route="cuda", source="stella_vslam_tpu_torch/csrc/stereo_match.cu",
         replaces="stella_vslam_tpu/match/stereo.py:32", max_abs_err=max(err_t, e2),
         flags_differing=n_diff_t + d2, shape=f"{n} x {n} (rendered pair)",
-        matched=m2, candidate_pairs=c2,
+        matched=m2, sad_rows=r2, candidate_pairs=c2, pairs_visited=v2,
+        bound_ms_all_pairs=_bound(t_bytes, 6.0 * n * n + t_ops)["bound_ms"],
         **_times(lambda: st.stereo_match(*ra, **rkw)),
-        plain_ms=_median_ms(lambda: st.stereo_match_plain(*ra, **rkw), reps=5),
-        library_ms=None,
-        # every pair: ~6 gate operations; a candidate: 8 XOR + 8 popc; a
-        # matched row: 11 x 121 x 3 SAD operations
-        **_bound(2 * n * (8 + 4 + 32 + 1 + 231.0) + 8.0 * n,
-                 6.0 * n * n + 16.0 * c2 + m2 * 11 * 121 * 3.0)))
+        plain_ms=_median_ms(lambda: st.stereo_match_plain(*ra, **plain_kw), reps=5),
+        library_ms=None, **_bound(t_bytes, 6.0 * v2 + t_ops)))
 
     # ---- O in its fixed-scale mode (stereo and RGBD loop closure) ----
     err_o = _check_transform(_transform_problem(dev, 74, 7), {"fix_scale": True}, "fixed scale")
@@ -3692,7 +4028,7 @@ def record_stereo_inputs(sample: int = 20):
 
 # what the stereo leg and the RGBD leg with mapping launch
 LEG_KERNELS = ("resize_level", "fast_nms_pyramid", "hamming_top2", "cell_index", "pose_lm",
-               "scatter_to_current", "dedup_by_id", "reproject_gate", "undistort_norm",
+               "scatter_to_current", "dedup_by_id", "project_window_rows", "undistort_norm",
                "epipolar_top2", "triangulate", "fuse", "ba_linearize_schur", "schur_index",
                "ba_reduced_solve", "ba_backsub_cost", "ba_classify", "bow_transform")
 
@@ -3710,6 +4046,8 @@ def run_stereo_legs(dev, world, wrappers, card):
     stats, launches = {}, {}
     for setup in ("stereo", "RGBD"):
         calls, undo = record_stereo_inputs() if setup == "stereo" else ([], lambda: None)
+        row_calls, undo_rows = record_window_rows_inputs(sample=61) if setup == "stereo" \
+            else ({}, lambda: None)
         slam = stereo_slice.make_system(world, dev, setup)
         for w in wrappers.values():
             w.launches = 0
@@ -3717,6 +4055,7 @@ def run_stereo_legs(dev, world, wrappers, card):
             s = stereo_slice.run_leg(dev, world, setup, slam=slam)
         finally:
             undo()
+            undo_rows()
         launches[setup] = {k: w.launches for k, w in wrappers.items()}
         stats[setup] = s
         with open(os.path.join(OUT_DIR, f"{setup.lower()}_leg.json"), "w") as f:
@@ -3734,6 +4073,7 @@ def run_stereo_legs(dev, world, wrappers, card):
             torch.cuda.synchronize()
             res = [_check_stereo_call(args, kw, "stereo leg call", verbose=False)
                    for args, kw in calls]
+            check_recorded_rows(row_calls, "stereo leg")
             print(f"kernel T on the stereo leg's own inputs: {len(res)} calls, "
                   f"{sum(r[2] for r in res)} rows matched, flags differing "
                   f"{sum(r[0] for r in res)} (all at a threshold), x_right / depth within "
@@ -3758,7 +4098,7 @@ def run_slices(dev, world, wrappers, card):
     assert stats["ate_m"] < 0.10, f"rigid ATE {stats['ate_m']:.4f} m"
     assert stats["scale_err"] < 0.05, f"scale error {stats['scale_err']:.2%}"
     for name in ("fast_nms_pyramid", "orb_describe", "hamming_top2", "cell_index", "pose_lm",
-                 "scatter_to_current", "dedup_by_id", "reproject_gate", "undistort_norm"):
+                 "scatter_to_current", "dedup_by_id", "project_window_rows", "undistort_norm"):
         assert launches["rgbd"][name] > 0, f"{name} was not launched by the RGBD slice"
 
     for w in wrappers.values():
@@ -3807,12 +4147,14 @@ def run_hd_slice(dev, wrappers, card, n_frames: int = 30):
 
 EQUIRECT_LEG_KERNELS = ("resize_level", "fast_nms_pyramid", "orb_describe", "hamming_top2",
                         "cell_index", "pose_lm", "ransac_two_view", "scatter_to_current",
-                        "dedup_by_id", "reproject_gate", "epipolar_top2", "triangulate", "fuse",
-                        "ba_linearize_schur", "schur_index", "ba_reduced_solve",
+                        "dedup_by_id", "project_window_rows", "epipolar_top2", "triangulate",
+                        "fuse", "ba_linearize_schur", "schur_index", "ba_reduced_solve",
                         "ba_backsub_cost", "ba_classify", "bow_transform")
 # the rows of the equirectangular modes and of the kernels the leg runs
 # unchanged, held at its own shapes, by the counter they read
-EQUIRECT_ROWS = {"reproject_gate_equirect": "reproject_gate", "pose_lm_equirect": "pose_lm",
+EQUIRECT_ROWS = {"project_window_rows_equirect": "project_window_rows",
+                 "project_window_rows_equirect_points": "project_window_rows",
+                 "pose_lm_equirect": "pose_lm",
                  "triangulate_equirect": "triangulate", "fuse_equirect": "fuse",
                  "ransac_two_view_essential": "ransac_two_view",
                  "ransac_two_view_essential_escalated": "ransac_two_view",
@@ -4145,68 +4487,30 @@ def check_equirect_kernels(dev, slam_like, calls):
     cs = make_cam_scalars(cam)
     EQ = cb.CameraModel.EQUIRECTANGULAR
 
-    # ---- R: points and table rows all around the camera ----
-    C = 4096
-    g = torch.Generator().manual_seed(15)
-    Rm = torch.linalg.qr(torch.eye(3) + 0.3 * torch.randn(3, 3, generator=g))[0]
-    Rm = (Rm * torch.sign(torch.det(Rm))).to(dev)
-    t = torch.tensor([0.3, -0.1, 0.2], device=dev)
-    pos = torch.nn.functional.normalize(torch.randn(C, 3, generator=g), dim=1) \
-        * (torch.rand(C, 1, generator=g) * 5.0 + 0.5)
-    normal = torch.nn.functional.normalize(torch.randn(C, 3, generator=g), dim=1)
-    d = torch.linalg.norm(pos, dim=1, keepdim=True)
-    f = torch.rand(C, 2, generator=g)
-    tbl = torch.cat([pos, normal, (0.9 + 0.6 * f[:, :1]) * d, (0.8 + 2.0 * f[:, 1:]) * d],
-                    1).to(dev).contiguous()
-    tu = torch.zeros(C, 10, dtype=torch.int32)
-    tu[:, 9] = (torch.rand(C, generator=g) < 0.9).to(torch.int32)
-    tu = tu.to(dev)
-    log_scale = float(np.log(np.float32(1.2)))
-    pts = tbl[:, 0:3].contiguous()
-    err_uv, n_diff, n_near = 0.0, 0, 0
-    for a, kw in (((pts,), {}), ((tbl, tu), dict(log_scale=log_scale, num_levels=6))):
-        k = cb.reproject_gate(p, Rm, t, *a, model=EQ, **kw)
-        q = cb.reproject_gate_plain(p, Rm, t, *a, model=EQ, **kw)
-        # u wraps at the seam: atan2 of +-0 may land on either edge
-        du = (k[0][:, 0] - q[0][:, 0]).abs()
-        du = torch.minimum(du, (du - p.width).abs())
-        err_uv = max(err_uv, float(du.max()) / p.width,
-                     float((k[0][:, 1] - q[0][:, 1]).abs().max()) / p.height,
-                     float(((k[1] - q[1]).abs() / q[1].abs()).max()))
-        if k[4] is not None:
-            # the gate's thresholds: distance ratios, the viewing cosine, the level
-            ray = tbl[:, 0:3] + Rm.T @ t
-            dist = torch.linalg.norm(ray, dim=-1)
-            lv = torch.log(tbl[:, 7] / dist) / log_scale
-            cosang = (ray * tbl[:, 3:6]).sum(-1) / dist
-            near = ((dist / tbl[:, 6] - 0.8).abs() <= 1e-6) | ((dist / tbl[:, 7] - 1.3).abs()
-                                                                <= 1e-6) \
-                | ((cosang - 0.5).abs() <= 1e-6) | ((lv - lv.round()).abs() <= 1e-6)
-            diff = (k[2] != q[2]) | (k[4] != q[4])
-            n_diff += int(diff.sum())
-            n_near += int(near.sum())
-            assert not bool((diff & ~near).any()), \
-                "kernel R's equirectangular gate disagrees away from a threshold"
-        else:
-            assert bool(torch.equal(k[2], q[2])), "kernel R's equirectangular visibility"
-    torch.cuda.synchronize()
-    print(f"kernel R reproject_gate (equirectangular): {C} points and {C} table rows all "
-          f"around the camera, uv within {err_uv:.3g} of the image size, depth within "
-          f"1e-6 relative; {n_diff} gate flags apart, {n_near} rows within 1e-6 of a threshold")
-    assert err_uv < 1e-5, "kernel R's equirectangular projection disagrees with plain"
-    rows.append(dict(
-        name="reproject_gate_equirect", route="cuda",
-        source="stella_vslam_tpu_torch/csrc/reproject.cu + camera.cuh",
-        replaces="stella_vslam_tpu/camera/base.py:232", max_abs_err=err_uv,
-        shape=f"C={C} table rows with the local-map gate, 640x320",
-        **_times(lambda: cb.reproject_gate(p, Rm, t, tbl, tu, log_scale=log_scale,
-                                                num_levels=6, model=EQ)),
-        plain_ms=_median_ms(lambda: cb.reproject_gate_plain(
-            p, Rm, t, tbl, tu, log_scale=log_scale, num_levels=6, model=EQ)),
-        library_ms=None,
-        # read a packed row (32 bytes) and its valid word, write uv, depth,
-        # flag, x_right and level; ~150 operations per row (atan2, asin)
-        **_bound(C * (32 + 4) + C * (8 + 4 + 1 + 4 + 4) + 48, 150.0 * C)))
+    # ---- R: window rows of points and table rows all around the camera ----
+    C, N_eq, L = 4096, slam_like.extractor.num_slots, slam_like.orb_params.num_levels
+    _, Rm, t, tbl, tkw, pts, pkw = rows_case(dev, None, C, N_eq, seed=15,
+                                             scale_factors=slam_like.orb_params.scale_factors)
+    for label, args, kw, M, table in (("table", tbl, tkw, C, True),
+                                      ("points", pts, pkw, N_eq, False)):
+        err, n_diff, n_near = _check_rows_call(p, Rm, t, args, kw)
+        print(f"kernel R project_window_rows (equirectangular, {label}): {M} rows all around "
+              f"the camera, u, v, x_right and radius within {err:.3g} relative (of at least "
+              f"100 px; u either edge at the seam), {n_diff} rows apart, {n_near} within 1e-6 "
+              f"of a threshold")
+        rows.append(dict(
+            name="project_window_rows_equirect" + ("" if table else "_points"), route="cuda",
+            source="stella_vslam_tpu_torch/csrc/reproject.cu + camera.cuh",
+            replaces="stella_vslam_tpu/camera/base.py:232, module/tracking_kernels.py:266-285, "
+                     "match/projection.py:53,127",
+            max_abs_err=err, rows_differing=n_diff,
+            shape=(f"C={M} table rows with the local-map gate, 640x320" if table
+                   else f"M={M} last-frame points, 640x320"),
+            **_times(lambda: cb.project_window_rows(p, Rm, t, args, **kw)),
+            plain_ms=_median_ms(lambda: cb.project_window_rows_plain(p, Rm, t, args, **kw)),
+            library_ms=None,
+            # ~150 operations a row with atan2 and asin
+            **_rows_bound(M, table, L, 150.0 if table else 110.0)))
 
     # ---- D: the leg's own pose optimizations ----
     kern_t = slam_like.tracker.kernels
@@ -4480,8 +4784,8 @@ FBOW_KERNELS = ("fbow_transform",)
 # what every distorted leg launches (R's mode of its model besides)
 DISTORTED_LEG_KERNELS = ("resize_level", "fast_nms_pyramid", "orb_describe", "hamming_top2",
                          "cell_index", "pose_lm", "ransac_two_view", "scatter_to_current",
-                         "dedup_by_id", "reproject_gate", "epipolar_top2", "triangulate", "fuse",
-                         "ba_linearize_schur", "schur_index", "ba_reduced_solve",
+                         "dedup_by_id", "project_window_rows", "epipolar_top2", "triangulate",
+                         "fuse", "ba_linearize_schur", "schur_index", "ba_reduced_solve",
                          "ba_backsub_cost", "ba_classify", "bow_transform")
 # the rows whose launches are a distorted leg's (and its counter there)
 DISTORTED_ROWS = {"undistort_fisheye": ("fisheye", "undistort_fisheye"),
@@ -4852,6 +5156,7 @@ def main() -> int:
         dev, world, wrappers, card)
     check_recorded_assoc(assoc_rec)
     check_recorded_matches(assoc_rec["match"])
+    check_recorded_rows(assoc_rec["rows"], "threaded slice")
     lap("threaded_slice")
     legs, leg_launches = run_stereo_legs(dev, world, wrappers, card)
     lap("stereo_rgbd_legs")

@@ -16,17 +16,17 @@ norm (camera/base.py :190-246).
 Kernel R (csrc/reproject.cu) computes the per-point functions of the hot
 path on CUDA tensors: `undistort_norm`, `undistort_fisheye` and
 `undistort_radial` (every keypoint of every frame, in the camera model's
-mode) and `reproject_gate` (the
-tracking cascade's projections of the chained landmarks and, with the
-local-map gate and predicted scale, of the landmark table), the latter in
-the model's projection family. On CPU tensors each runs its plain version,
+mode) and `project_window_rows` (the tracking cascade's projections of the
+last frame's chained landmarks and, with the local-map gate and predicted
+scale, of the landmark table, written as the window rows kernel C reads),
+the latter in the model's projection family. On CPU tensors each runs its plain version,
 the torch expressions below.
 """
 from __future__ import annotations
 
 import enum
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -280,7 +280,12 @@ def reproject_to_image(model: CameraModel, p: CameraParams, R_cw: torch.Tensor,
     """World points [...,N,3] under a camera-from-world pose ([...,3,3],
     [...,3]) -> (uv [...,N,2], depth [...,N], visible [...,N] bool). The
     equirectangular model sees every direction; its depth is the norm."""
-    pc = pos_w @ R_cw.transpose(-1, -2) + t_cw[..., None, :]
+    return project_camera_points(model, p, pos_w @ R_cw.transpose(-1, -2) + t_cw[..., None, :])
+
+
+def project_camera_points(model: CameraModel, p: CameraParams, pc: torch.Tensor):
+    """Camera-frame points [...,N,3] -> (uv [...,N,2], depth [...,N],
+    visible [...,N] bool), reproject_to_image's projection."""
     if model == CameraModel.EQUIRECTANGULAR:
         norm = torch.linalg.norm(pc, dim=-1)
         b = pc / torch.clamp(norm, min=1e-12)[..., None]
@@ -293,22 +298,79 @@ def reproject_to_image(model: CameraModel, p: CameraParams, R_cw: torch.Tensor,
     return torch.stack([u, v], dim=-1), z, visible
 
 
-def reproject_gate_plain(p: CameraParams, R_cw, t_cw, pos, tbl_u32=None, *,
-                         log_scale: float = 0.0, num_levels: int = 1,
-                         model: CameraModel = CameraModel.PERSPECTIVE):
-    """Plain version of kernel R's projection under `model`. pos [M,3] world points, or
-    with `tbl_u32` the packed landmark table (pos = tbl_f32 [C,8]: position,
-    normal, min and max distance; tbl_u32 [C,10] with the valid flag in
-    column 9). Returns (uv [M,2], depth [M], flag [M] bool, x_right [M],
-    predicted scale [M] i32 or None): flag is the in-image test for points,
-    the local-map gate for the table (valid, in image, distance in
-    [0.8 min, 1.3 max], cos(ray, normal) > 0.5, depth > 0)."""
+class WindowRows(NamedTuple):
+    """Kernel R's window rows: per query row what kernel C's window call
+    reads (match/hamming.WindowGate's row fields) and the row's valid
+    flag, as the matchers of match/projection.py take them."""
+
+    u: torch.Tensor  # [M] f32 projected pixel
+    v: torch.Tensor  # [M] f32
+    xr: torch.Tensor  # [M] f32 x_right, -1 where the depth is not above 1e-6
+    rad: torch.Tensor  # [M] f32 margin * scale_factors[level]
+    lo: torch.Tensor  # [M] i32 lowest keypoint level
+    hi: torch.Tensor  # [M] i32 highest keypoint level
+    valid: torch.Tensor  # [M] bool
+    pred_scale: Optional[torch.Tensor]  # [M] i32 predicted level (the table), else None
+
+
+def _fma_f32(a, b, c):
+    """a b + c for float32 tensors with one rounding, as `__fmaf_rn` gives
+    it: the float64 product a b is exact, and its sum with c is rounded to
+    odd (a float64 TwoSum gives the sum's error; an inexact sum with an even
+    last bit moves one ulp towards it), which a rounding to float32 then
+    rounds correctly (53 >= 2 x 24 + 2 bits)."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    e = s - p
+    err = (p - (s - e)) + (c - e)
+    fix = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    away = torch.where(err > 0, torch.full_like(s, math.inf), torch.full_like(s, -math.inf))
+    return torch.where(fix, torch.nextafter(s, away), s).float()
+
+
+def _camera_points(R_cw, t_cw, pts):
+    """R p + t [M,3] as a float32 matmul rounds it on the CPU (and the JAX
+    version's einsum): per row an FMA chain over k = 0, 1, 2, then + t, each
+    FMA rounded once (_fma_f32), so the card gives the same bits as kernel
+    R's `__fmaf_rn` chain (a cuBLAS matmul sums in another order, an ulp of
+    x apart: fx / z times that in u, hundredths of a pixel for a landmark
+    0.1 m away)."""
+    rows = []
+    for i in range(3):
+        acc = pts[:, 0] * R_cw[i, 0]
+        for k in (1, 2):
+            acc = _fma_f32(pts[:, k], R_cw[i, k], acc)
+        rows.append(acc + t_cw[i])
+    return torch.stack(rows, dim=-1)
+
+
+def project_window_rows_plain(p: CameraParams, R_cw, t_cw, pos, *, scale_factors,
+                              margin: float, last_level=None, last_valid=None, tbl_u32=None,
+                              log_scale: float = 0.0, num_levels: int = 1,
+                              model: CameraModel = CameraModel.PERSPECTIVE) -> WindowRows:
+    """Plain version of kernel R's window rows under `model`, the torch
+    expressions of the tracking cascade and its matchers. Two modes:
+    * the last frame's chained landmarks: pos [M,3] world points with
+      last_level [M] (the last frame's keypoint levels) and last_valid [M]
+      bool; radius margin * scale_factors[level], levels level -+ 1
+      (unclamped), valid = last_valid and the in-image test
+      (match_current_and_last_frames);
+    * the landmark table: pos = tbl_f32 [C,8] (position, normal, min and
+      max distance) with tbl_u32 [C,10] (the valid flag in column 9); valid
+      is the local-map gate (valid, in image, distance in [0.8 min, 1.3
+      max], cos(ray, normal) > 0.5, depth > 0), pred_scale the predicted
+      level, radius margin * scale_factors[pred], levels pred -+ 1 clamped
+      to [0, num_levels - 1] (match_frame_and_landmarks)."""
     pts = pos[:, 0:3] if tbl_u32 is not None else pos
-    uv, depth, vis = reproject_to_image(model, p, R_cw, t_cw, pts)
+    uv, depth, vis = project_camera_points(model, p, _camera_points(R_cw, t_cw, pts))
+    # `float / tensor` is the reciprocal times the float, as the kernel takes it
     xr = torch.where(depth > 1e-6, uv[:, 0] - p.focal_x_baseline / torch.clamp(depth, min=1e-6),
                      torch.full_like(depth, -1.0))
+    u, v = uv[:, 0].contiguous(), uv[:, 1].contiguous()
     if tbl_u32 is None:
-        return uv, depth, vis, xr, None
+        lvl = last_level.to(torch.int32)
+        return WindowRows(u, v, xr, margin * scale_factors[lvl.long()], lvl - 1, lvl + 1,
+                          last_valid & vis, None)
     normal, dmin, dmax = pos[:, 3:6], pos[:, 6], pos[:, 7]
     cam_center = -R_cw.T @ t_cw
     ray = pts - cam_center
@@ -317,51 +379,62 @@ def reproject_gate_plain(p: CameraParams, R_cw, t_cw, pos, tbl_u32=None, *,
     cosang = torch.sum(ray * normal, dim=-1) / torch.clamp(dist, min=1e-9)
     observable = (tbl_u32[:, 9] > 0) & vis & dist_ok & (cosang > 0.5) & (depth > 0)
     ratio = torch.clamp(dmax, min=1e-9) / torch.clamp(dist, min=1e-9)
-    pred_scale = torch.clamp(
+    pred = torch.clamp(
         torch.ceil(torch.log(torch.clamp(ratio, min=1e-9)) / log_scale),
         0, num_levels - 1).to(torch.int32)
-    return uv, depth, observable, xr, pred_scale
+    return WindowRows(u, v, xr, margin * scale_factors[pred.long()],
+                      torch.clamp(pred - 1, min=0), torch.clamp(pred + 1, max=num_levels - 1),
+                      observable, pred)
 
 
-def reproject_gate(p: CameraParams, R_cw, t_cw, pos, tbl_u32=None, *,
-                   log_scale: float = 0.0, num_levels: int = 1,
-                   model: CameraModel = CameraModel.PERSPECTIVE):
-    """Kernel R's projection on CUDA tensors, the plain version on CPU
-    tensors (same arguments and results as reproject_gate_plain)."""
+def project_window_rows(p: CameraParams, R_cw, t_cw, pos, *, scale_factors, margin: float,
+                        last_level=None, last_valid=None, tbl_u32=None, log_scale: float = 0.0,
+                        num_levels: int = 1,
+                        model: CameraModel = CameraModel.PERSPECTIVE) -> WindowRows:
+    """Kernel R's window rows on CUDA tensors, one launch and one output
+    allocation; the plain version on CPU tensors (same arguments and
+    results as project_window_rows_plain)."""
     if not pos.is_cuda:
-        return reproject_gate_plain(p, R_cw, t_cw, pos, tbl_u32, log_scale=log_scale,
-                                    num_levels=num_levels, model=model)
-    family = projection_family(model)
+        return project_window_rows_plain(
+            p, R_cw, t_cw, pos, scale_factors=scale_factors, margin=margin,
+            last_level=last_level, last_valid=last_valid, tbl_u32=tbl_u32, log_scale=log_scale,
+            num_levels=num_levels, model=model)
     M = pos.shape[0]
     table = tbl_u32 is not None
-    width = 8 if table else 3
     dev = pos.device
-    if tuple(pos.shape) != (M, width) or pos.dtype != torch.float32 \
-            or not pos.is_contiguous():
-        raise ValueError(f"reproject_gate: pos must be a contiguous float32 [M,{width}]")
-    if table and (tuple(tbl_u32.shape) != (M, 10) or tbl_u32.dtype != torch.int32
-                  or not tbl_u32.is_contiguous() or tbl_u32.device != dev):
-        raise ValueError("reproject_gate: tbl_u32 must be a contiguous int32 [M,10]")
-    Rt = torch.cat([R_cw.reshape(9), t_cw.reshape(3)]).to(torch.float32)
-    if Rt.device != dev:
-        raise ValueError("reproject_gate: the pose must be on the points' device")
-    uv = torch.empty((M, 2), dtype=torch.float32, device=dev)
-    depth = torch.empty(M, dtype=torch.float32, device=dev)
-    flag = torch.empty(M, dtype=torch.bool, device=dev)
-    xr = torch.empty(M, dtype=torch.float32, device=dev)
-    scale = torch.empty(M, dtype=torch.int32, device=dev) if table else None
+    f32, i32 = torch.float32, torch.int32
+    ins = ((pos, (M, 8 if table else 3), f32), (R_cw, (3, 3), f32), (t_cw, (3,), f32),
+           (scale_factors, scale_factors.shape[:1], f32))
+    ins += ((tbl_u32, (M, 10), i32),) if table else \
+        ((last_level, (M,), i32), (last_valid, (M,), torch.bool))
+    for x, shape, dt in ins:
+        if x is None or x.dtype != dt or x.shape != shape or x.device != dev \
+                or not x.is_contiguous():
+            raise ValueError(f"project_window_rows: expects contiguous {dt} {tuple(shape)} "
+                             "tensors on the points' device")
+    if table and (pos.data_ptr() % 16 or not 1 <= num_levels <= scale_factors.shape[0]):
+        raise ValueError("project_window_rows: a 16-byte aligned table, at most "
+                         "len(scale_factors) levels")
+    # one allocation, a row each: u, v, xr, rad (f32), lo, hi, pred (i32),
+    # then the valid bytes
+    buf = torch.empty((8, M), dtype=i32, device=dev)
+    base = buf.data_ptr()
     lib = kbuild.load()
-    kbuild.check(lib.svt_reproject(
-        family, M, int(table), p.fx, p.fy, p.cx, p.cy, p.width, p.height, p.focal_x_baseline,
-        Rt.data_ptr(), pos.data_ptr(), tbl_u32.data_ptr() if table else 0,
-        float(log_scale), int(num_levels), uv.data_ptr(), depth.data_ptr(), flag.data_ptr(),
-        xr.data_ptr(), scale.data_ptr() if table else 0, kbuild.stream_ptr(dev)),
-        "reproject_gate")
-    reproject_gate.launches += 1
-    return uv, depth, flag, xr, scale
+    kbuild.check(lib.svt_window_rows(
+        projection_family(model), M, int(table), p.fx, p.fy, p.cx, p.cy, p.width, p.height,
+        p.focal_x_baseline, R_cw.data_ptr(), t_cw.data_ptr(), pos.data_ptr(),
+        tbl_u32.data_ptr() if table else 0, 0 if table else last_level.data_ptr(),
+        0 if table else last_valid.data_ptr(), scale_factors.data_ptr(), float(margin),
+        float(log_scale), int(num_levels), *(base + 4 * M * q for q in range(8)),
+        kbuild.stream_ptr(dev)), "project_window_rows")
+    project_window_rows.launches += 1
+    u, v, xr, rad = buf[:4].view(f32).unbind(0)
+    lo, hi, pred = buf[4:7].unbind(0)
+    return WindowRows(u, v, xr, rad, lo, hi, buf[7].view(torch.bool)[:M],
+                      pred if table else None)
 
 
-reproject_gate.launches = 0
+project_window_rows.launches = 0
 
 
 class Camera:

@@ -1,33 +1,50 @@
 // Kernel R: the camera's per-point projections, two entry points.
 //
-// Replaces stella_vslam_tpu/camera/base.py reproject_to_image (:232) with the
-// x_right of the tracking cascade's projections, and for the local-map
-// stage the visibility gate and predicted scale of
-// stella_vslam_tpu/module/tracking_kernels.py track_frame (:266-285); and
-// the keypoint undistortion of camera/base.py undistort_keypoints
+// Replaces stella_vslam_tpu/camera/base.py reproject_to_image (:232) with
+// what the tracking cascade builds around it: the x_right of the
+// projections, the local-map gate and predicted scale of
+// stella_vslam_tpu/module/tracking_kernels.py track_frame (:266-285), and
+// the window radius and level bounds of stella_vslam_tpu/match/
+// projection.py (:53 and :127, margin * scale_factors[level], level -+ 1);
+// and the keypoint undistortion of camera/base.py undistort_keypoints
 // (:190-200): _perspective_undistort_norm (:89, 10 fixed-point
 // iterations), fisheye_undistort (:134, Kannala-Brandt, 10 Newton steps on
 // theta) and radial_division_undistort (:160), with the normalization
-// around them. The TPU forms are
-// lane-major elementwise programs; on the card each was ~15 eager torch ops
-// per call, every one a launch and a round trip through device memory.
+// around them. The TPU forms are lane-major elementwise programs; on the
+// card each was ~15 eager torch ops per call, every one a launch and a
+// round trip through device memory.
 //
-//  reproject_kernel (one thread per point): camera-frame point, pixel,
-//    depth, in-image flag and x_right; mode 1 (the landmark table, rows of
-//    the packed [C,8] f32 / [C,10] u32 table) also the distance to the
+//  window_rows_kernel (one thread per row, 32 threads a block so that
+//    4096 rows spread over 128 SMs): the camera-frame point under R and t
+//    (read as they are, 12 floats every thread shares), pixel, depth,
+//    in-image flag and x_right, and the window row kernel C's window call
+//    reads (match/hamming.py WindowGate): u, v, x_right, radius margin *
+//    scale_factors[level] (one f32 product), level bounds and the row's
+//    valid flag. Mode 0 (the last frame's chained landmarks, [M,3]
+//    points): the level is the last frame's keypoint's, the bounds level -+
+//    1 unclamped, the flag its association flag and the in-image test.
+//    Mode 1 (the landmark table, rows of the packed [C,8] f32 / [C,10] u32
+//    table; the f32 row read as two 16-byte vectors): the distance to the
 //    camera centre, the gate distance in [0.8 min, 1.3 max], cos(ray,
-//    normal) > 0.5, depth > 0, the table's valid flag, and the predicted
-//    scale level clip(ceil(log(max / dist) / log(scale factor)), 0, L-1).
+//    normal) > 0.5, depth > 0, the table's valid flag make the flag; the
+//    predicted level clip(ceil(log(max / dist) / log(scale factor)), 0,
+//    L-1) is written too and sets the radius and the bounds, clamped to
+//    [0, L-1].
 //  undistort_kernel (one thread per keypoint), templated on the model:
 //    normalize; radial-tangential: 10 iterations of x = xd - (distort(x) -
 //    x); Kannala-Brandt: 10 Newton steps on theta, then tan(theta) /
 //    theta_d; division: 1 / (1 + k1 r^2); back to pixels.
-// Bound: ~30 bytes and ~100 operations per point (the slice's 2872 slots or
-// 4096 table rows): ~0.04 us of bytes, so it is bound by its launch.
-// Floats follow the torch expressions' order. In the reprojection the card
-// may contract a product and a sum into one FMA, so uv agrees to ~1e-6
-// relative and a flag differs from the plain version's only where its
-// quantity sits at the threshold. The undistortion rounds every operation
+// Bound: ~40-70 bytes and ~100 operations per row (the slice's 2872 slots
+// or 4096 table rows): ~0.1 us of bytes, so it is bound by its launch.
+// Floats follow the torch expressions' order. In the window rows the
+// camera-frame point (an FMA chain in k order, then + t, as a CPU matmul
+// and the plain version round it: near the camera an ulp of x is
+// hundredths of a pixel of u), the pinhole projection and x_right round
+// every operation as the plain version does, so u, v and x_right of the
+// perspective model equal it; the gate's
+// distance, cosine and log are the card's own and a flag or level differs
+// from the plain version's only where its quantity sits at the threshold;
+// the equirectangular projection (camera.cuh) agrees to a few ulps. The undistortion rounds every operation
 // as its plain version does on the card and equals it bit for bit: a true
 // division and an FMA there moved the monocular initializer's input by an
 // ulp and, through the near-degenerate two-view geometry of a planar
@@ -42,6 +59,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRowThreads = 32;
 
 struct Intr {
   float fx, fy, cx, cy, width, height, fxb;
@@ -53,56 +71,92 @@ struct Dist {
   float k1, k2, p1, p2, k3, k4;
 };
 
-template <int MODEL>
-__global__ void __launch_bounds__(kThreads)
-reproject_kernel(int M, int mode, Intr k, const float* __restrict__ Rt,
-                 const float* __restrict__ pos, const int* __restrict__ tbl_u32,
-                 float log_scale, int num_levels, float* __restrict__ uv_out,
-                 float* __restrict__ depth_out, uint8_t* __restrict__ vis_out,
-                 float* __restrict__ xr_out, int* __restrict__ scale_out) {
+// the window rows, structure of arrays (one allocation, carved by the wrapper)
+struct Rows {
+  float *u, *v, *xr, *rad;
+  int *lo, *hi, *pred;
+  uint8_t* valid;
+};
+
+template <int MODEL, int MODE>
+__global__ void __launch_bounds__(kRowThreads)
+window_rows_kernel(int M, Intr k, const float* __restrict__ Rg, const float* __restrict__ tg,
+                   const float* __restrict__ pos, const int* __restrict__ tbl_u32,
+                   const int* __restrict__ last_level, const uint8_t* __restrict__ last_valid,
+                   const float* __restrict__ scale_factors, float margin, float log_scale,
+                   int num_levels, Rows out) {
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= M) return;
-  const float* R = Rt;
-  const float* t = Rt + 9;
-  const int stride = mode == 1 ? 8 : 3;
-  const float p0 = pos[stride * m], p1 = pos[stride * m + 1], p2 = pos[stride * m + 2];
-  const float x = p0 * R[0] + p1 * R[1] + p2 * R[2] + t[0];
-  const float y = p0 * R[3] + p1 * R[4] + p2 * R[5] + t[1];
-  const float z = p0 * R[6] + p1 * R[7] + p2 * R[8] + t[2];
+  float R[9], t[3];
+#pragma unroll
+  for (int q = 0; q < 9; ++q) R[q] = __ldg(Rg + q);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) t[q] = __ldg(tg + q);
+  float p0, p1, p2;
+  float4 row_a, row_b;  // mode 1: position, normal, min and max distance
+  if constexpr (MODE == 1) {
+    const float4* row = reinterpret_cast<const float4*>(pos) + 2 * m;
+    row_a = __ldg(row);
+    row_b = __ldg(row + 1);
+    p0 = row_a.x;
+    p1 = row_a.y;
+    p2 = row_a.z;
+  } else {
+    p0 = pos[3 * m];
+    p1 = pos[3 * m + 1];
+    p2 = pos[3 * m + 2];
+  }
+  // R p + t as the plain version (and a CPU matmul) rounds it: an FMA chain
+  // over k = 0, 1, 2, then + t; another order moves x by an ulp, and u by
+  // fx / z times that
+  const auto row = [&](int r) {
+    const float acc = __fmaf_rn(p2, R[3 * r + 2],
+                                __fmaf_rn(p1, R[3 * r + 1], __fmul_rn(p0, R[3 * r])));
+    return __fadd_rn(acc, t[r]);
+  };
+  const float x = row(0), y = row(1), z = row(2);
   float u, v, depth;
   bool in_img;
   if constexpr (MODEL == svt_cam::kEquirect) {
     in_img = svt_cam::equirect_project(x, y, z, k.cx, k.cy, k.width, k.height, u, v, depth);
   } else {
     const float zs = fabsf(z) < 1e-8f ? 1e-8f : z;
-    u = k.fx * x / zs + k.cx;
-    v = k.fy * y / zs + k.cy;
+    u = __fadd_rn(__fdiv_rn(__fmul_rn(k.fx, x), zs), k.cx);
+    v = __fadd_rn(__fdiv_rn(__fmul_rn(k.fy, y), zs), k.cy);
     depth = z;
     in_img = z > 0.f && u >= 0.f && u < k.width && v >= 0.f && v < k.height;
   }
-  uv_out[2 * m] = u;
-  uv_out[2 * m + 1] = v;
-  depth_out[m] = depth;
-  xr_out[m] = depth > 1e-6f ? u - k.fxb / fmaxf(depth, 1e-6f) : -1.f;
-  if (mode == 0) {
-    vis_out[m] = in_img ? 1 : 0;
-    return;
+  out.u[m] = u;
+  out.v[m] = v;
+  // fxb / depth as torch's `float / tensor` takes it: the reciprocal, times fxb
+  out.xr[m] = depth > 1e-6f ? __fsub_rn(u, __fmul_rn(__frcp_rn(fmaxf(depth, 1e-6f)), k.fxb))
+                            : -1.f;
+  if constexpr (MODE == 0) {
+    const int lvl = last_level[m];
+    out.rad[m] = __fmul_rn(margin, scale_factors[lvl]);
+    out.lo[m] = lvl - 1;
+    out.hi[m] = lvl + 1;
+    out.valid[m] = (last_valid[m] != 0 && in_img) ? 1 : 0;
+  } else {
+    // camera centre -R^T t
+    const float c0 = -(R[0] * t[0] + R[3] * t[1] + R[6] * t[2]);
+    const float c1 = -(R[1] * t[0] + R[4] * t[1] + R[7] * t[2]);
+    const float c2 = -(R[2] * t[0] + R[5] * t[1] + R[8] * t[2]);
+    const float r0 = p0 - c0, r1 = p1 - c1, r2 = p2 - c2;
+    const float dist = sqrtf(r0 * r0 + r1 * r1 + r2 * r2);
+    const float dmin = row_b.z, dmax = row_b.w;
+    const bool dist_ok = dist >= 0.8f * dmin && dist <= 1.3f * dmax;
+    const float cosang = (r0 * row_a.w + r1 * row_b.x + r2 * row_b.y) / fmaxf(dist, 1e-9f);
+    const bool valid = tbl_u32[10 * m + 9] > 0;
+    out.valid[m] = (valid && in_img && dist_ok && cosang > 0.5f && depth > 0.f) ? 1 : 0;
+    const float ratio = fmaxf(dmax, 1e-9f) / fmaxf(dist, 1e-9f);
+    const float lv = ceilf(logf(fmaxf(ratio, 1e-9f)) / log_scale);
+    const int pred = (int)fminf(fmaxf(lv, 0.f), (float)(num_levels - 1));
+    out.pred[m] = pred;
+    out.rad[m] = __fmul_rn(margin, scale_factors[pred]);
+    out.lo[m] = max(pred - 1, 0);
+    out.hi[m] = min(pred + 1, num_levels - 1);
   }
-  // camera centre -R^T t
-  const float c0 = -(R[0] * t[0] + R[3] * t[1] + R[6] * t[2]);
-  const float c1 = -(R[1] * t[0] + R[4] * t[1] + R[7] * t[2]);
-  const float c2 = -(R[2] * t[0] + R[5] * t[1] + R[8] * t[2]);
-  const float r0 = p0 - c0, r1 = p1 - c1, r2 = p2 - c2;
-  const float dist = sqrtf(r0 * r0 + r1 * r1 + r2 * r2);
-  const float* row = pos + 8 * m;
-  const float dmin = row[6], dmax = row[7];
-  const bool dist_ok = dist >= 0.8f * dmin && dist <= 1.3f * dmax;
-  const float cosang = (r0 * row[3] + r1 * row[4] + r2 * row[5]) / fmaxf(dist, 1e-9f);
-  const bool valid = tbl_u32[10 * m + 9] > 0;
-  vis_out[m] = (valid && in_img && dist_ok && cosang > 0.5f && depth > 0.f) ? 1 : 0;
-  const float ratio = fmaxf(dmax, 1e-9f) / fmaxf(dist, 1e-9f);
-  const float lv = ceilf(logf(fmaxf(ratio, 1e-9f)) / log_scale);
-  scale_out[m] = (int)fminf(fmaxf(lv, 0.f), (float)(num_levels - 1));
 }
 
 // kernel R's undistortion, one thread per keypoint, templated on the
@@ -176,28 +230,37 @@ undistort_kernel(int N, Intr k, Dist dc, const float* __restrict__ pts, float* _
 
 }  // namespace
 
-// model: 0 perspective, 2 equirectangular.
-// mode 0: pos [M,3]; outputs uv [M,2], depth, in-image flag, x_right.
-// mode 1: pos is the packed f32 table [M,8] with tbl_u32 [M,10]; the flag is
-// the local-map gate and scale_out the predicted level. Rt: R [9] then t [3].
-extern "C" int svt_reproject(int model, int M, int mode, float fx, float fy, float cx,
-                             float cy, float width, float height, float fxb, const float* Rt,
-                             const float* pos, const int* tbl_u32, float log_scale,
-                             int num_levels, float* uv_out, float* depth_out, uint8_t* vis_out,
-                             float* xr_out, int* scale_out, void* stream) {
-  if (model != svt_cam::kPerspective && model != svt_cam::kEquirect)
+// model: 0 perspective, 2 equirectangular. R [9] and t [3] f32.
+// mode 0: pos [M,3] with last_level [M] int32 and last_valid [M] bytes.
+// mode 1: pos is the packed f32 table [M,8] (16-byte aligned) with tbl_u32
+// [M,10]; pred (the predicted level) is written too.
+// out: u, v, xr, rad [M] f32, lo, hi, pred [M] int32, valid [M] bytes.
+extern "C" int svt_window_rows(int model, int M, int mode, float fx, float fy, float cx,
+                               float cy, float width, float height, float fxb, const float* R,
+                               const float* t, const float* pos, const int* tbl_u32,
+                               const int* last_level, const uint8_t* last_valid,
+                               const float* scale_factors, float margin, float log_scale,
+                               int num_levels, float* u, float* v, float* xr, float* rad,
+                               int* lo, int* hi, int* pred, uint8_t* valid, void* stream) {
+  if ((model != svt_cam::kPerspective && model != svt_cam::kEquirect) || mode < 0 || mode > 1)
     return (int)cudaErrorInvalidValue;
+  if (M <= 0) return (int)cudaGetLastError();
   Intr k{fx, fy, cx, cy, width, height, fxb};
-  const int grid = (M + kThreads - 1) / kThreads;
+  Rows out{u, v, xr, rad, lo, hi, pred, valid};
+  const int grid = (M + kRowThreads - 1) / kRowThreads;
   cudaStream_t s = (cudaStream_t)stream;
-  if (M > 0 && model == svt_cam::kEquirect)
-    reproject_kernel<svt_cam::kEquirect><<<grid, kThreads, 0, s>>>(
-        M, mode, k, Rt, pos, tbl_u32, log_scale, num_levels, uv_out, depth_out, vis_out, xr_out,
-        scale_out);
-  else if (M > 0)
-    reproject_kernel<svt_cam::kPerspective><<<grid, kThreads, 0, s>>>(
-        M, mode, k, Rt, pos, tbl_u32, log_scale, num_levels, uv_out, depth_out, vis_out, xr_out,
-        scale_out);
+#define SVT_ROWS(MODEL, MODE)                                                            \
+  window_rows_kernel<MODEL, MODE><<<grid, kRowThreads, 0, s>>>(                          \
+      M, k, R, t, pos, tbl_u32, last_level, last_valid, scale_factors, margin, log_scale, \
+      num_levels, out)
+  if (model == svt_cam::kEquirect) {
+    if (mode == 1) SVT_ROWS(svt_cam::kEquirect, 1);
+    else SVT_ROWS(svt_cam::kEquirect, 0);
+  } else {
+    if (mode == 1) SVT_ROWS(svt_cam::kPerspective, 1);
+    else SVT_ROWS(svt_cam::kPerspective, 0);
+  }
+#undef SVT_ROWS
   return (int)cudaGetLastError();
 }
 

@@ -413,16 +413,23 @@ class FastPyramid(NamedTuple):
     smem_words: int  # the largest work item's tile and pixel list in shared memory
 
 
-def fast_pyramid_tables(levels, border: int, level_off, src_hw, device) -> FastPyramid:
-    """FastPyramid of `levels` laid out at level_off in a flat pyramid row,
-    for a level-0 mask of src_hw (H0, W0)."""
-    H0, W0 = src_hw
+def _level_tab(levels, level_off):
+    """Each level's row of FastPyramid.level_tab, its first slot, and the
+    slot count."""
     slot_off, tab = [], []
     ns = nr = nc = 0
     for g, off in zip(levels, level_off):
         tab.append((g.H, g.W, g.cs, g.Gx, off, ns, nr, nc))
         slot_off.append(ns)
         ns, nr, nc = ns + g.Gy * g.Gx, nr + g.H, nc + g.W
+    return np.asarray(tab, np.int32).reshape(len(levels), LEVEL_INTS), slot_off, ns
+
+
+def fast_pyramid_tables(levels, border: int, level_off, src_hw, device) -> FastPyramid:
+    """FastPyramid of `levels` laid out at level_off in a flat pyramid row,
+    for a level-0 mask of src_hw (H0, W0)."""
+    H0, W0 = src_hw
+    tab, slot_off, ns = _level_tab(levels, level_off)
     work = fast_work_list(levels, border)
     smem = max(_work_words(levels[l].cs, n) for l, n in {(int(l), int(n))
                                                           for l, _, _, n in work})
@@ -430,10 +437,31 @@ def fast_pyramid_tables(levels, border: int, level_off, src_hw, device) -> FastP
     return FastPyramid(
         levels=tuple(levels), border=border, level_off=tuple(level_off),
         slot_off=tuple(slot_off), num_slots=ns, src_hw=(H0, W0),
-        level_tab=i32(np.asarray(tab).reshape(len(levels), LEVEL_INTS)), work=i32(work),
+        level_tab=i32(tab), work=i32(work),
         mask_rows=i32(np.concatenate([nearest_index(H0, g.H) for g in levels])),
         mask_cols=i32(np.concatenate([nearest_index(W0, g.W) for g in levels])),
         smem_words=smem)
+
+
+class SlotLayout(NamedTuple):
+    """Where an extractor's slots lie (kernel T's band walk reads it): slot
+    k of level l, cell (cy, cx) = divmod(k - slot_off[l], Gx[l]), holds a
+    keypoint at the level pixel (border + cx cs + dx, border + cy cs + dy),
+    0 <= dx, dy < cs, clamped into the level, times level_scale[l] in
+    float32 (`cell_keypoints`, `OrbExtractor._extract_batch`)."""
+
+    levels: tuple  # _LevelGeom each, in slot order
+    border: int
+    level_tab: torch.Tensor  # [L, 8] int32, FastPyramid.level_tab's columns
+    level_scale: torch.Tensor  # [L] f32
+    num_slots: int
+
+
+def slot_layout(levels, border: int, device) -> SlotLayout:
+    """The SlotLayout of `levels` (_LevelGeom each)."""
+    tab, _, ns = _level_tab(levels, [0] * len(levels))
+    scale = torch.tensor([g.scale for g in levels], dtype=torch.float32, device=device)
+    return SlotLayout(tuple(levels), border, torch.as_tensor(tab, device=device), scale, ns)
 
 
 def _level_mask(fp: FastPyramid, mask: torch.Tensor, lvl: int) -> LevelMask:
@@ -804,6 +832,7 @@ class OrbExtractor:
         self._batch_slots = {}
         self._fast = fast_pyramid_tables(self.levels, self.border, self._level_off,
                                          (self.height, self.width), dev)
+        self.slot_layout = slot_layout(self.levels, self.border, dev)
         # level scale per slot, rounded to f32 as `px * g.scale` rounds it
         self._slot_scale = torch.cat(
             [torch.full((g.Gy * g.Gx,), g.scale, dtype=torch.float32)

@@ -60,10 +60,11 @@ _SIGNATURES = {
     # npix, pidx, tau, out_angle, out_desc, out_strip (or NULL), stream
     "svt_orb_describe": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _F,
                          _P, _P, _P, _P],
-    # NL, NR, l_xy, l_level, l_desc, l_valid, l_strip, r_xy, r_level,
-    # r_desc, r_valid, r_strip, scale_factors, max_disp, focal_x_baseline,
-    # best_sad, disp, matched, x_right, depth, stream
-    "svt_stereo_match": [_I, _I] + [_P] * 11 + [_F, _F] + [_P] * 6,
+    # NL, NR, L, border, level_tab, level_scale, l_xy, l_level, l_desc,
+    # l_valid, l_strip, r_xy, r_level, r_desc, r_valid, r_strip,
+    # scale_factors, max_disp, focal_x_baseline, best_sad, disp, counters,
+    # x_right, depth, stream
+    "svt_stereo_match": [_I] * 4 + [_P] * 13 + [_F, _F] + [_P] * 6,
     # M, N, q_desc, t_desc, row_ok, col_ok, use_window, row_u, row_v,
     # row_xr, row_rad, row_lo, row_hi, col_u, col_v, col_xr, col_level,
     # cell_start, cell_order, inv_cell, gx, gy, use_orient, row_c, row_s,
@@ -160,9 +161,10 @@ _SIGNATURES = {
     # N, C, la_pos, la_valid, la_id, tbl_f32, tbl_u32, A_R, A_t, R_last,
     # t_last, R_prev, t_prev, pos_out, valid_out, id_out, pose_out, stream
     "svt_rebase_chain": [_I, _I] + [_P] * 16,
-    # model, M, mode, fx, fy, cx, cy, width, height, fxb, Rt, pos, tbl_u32,
-    # log_scale, num_levels, uv, depth, vis, xr, scale, stream
-    "svt_reproject": [_I, _I, _I] + [_F] * 7 + [_P] * 3 + [_F, _I] + [_P] * 6,
+    # model, M, mode, fx, fy, cx, cy, width, height, fxb, R, t, pos, tbl_u32,
+    # last_level, last_valid, scale_factors, margin, log_scale, num_levels,
+    # u, v, xr, rad, lo, hi, pred, valid, stream
+    "svt_window_rows": [_I, _I, _I] + [_F] * 7 + [_P] * 7 + [_F, _F, _I] + [_P] * 9,
     # model, N, fx, fy, cx, cy, k1, k2, p1, p2, k3, k4, pts, out, stream
     "svt_undistort": [_I, _I] + [_F] * 10 + [_P] * 3,
 }

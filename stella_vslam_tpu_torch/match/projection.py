@@ -2,11 +2,13 @@
 
 Port of `match_frame_and_landmarks` (stella_vslam_tpu/match/projection.py:25),
 `match_current_and_last_frames` (:99) and `match_frame_and_keyframe` (:160).
-Each builds the per-row and per-column gate fields, calls
-`hamming.hamming_top2` once, and applies the ratio / orientation tests and
-the duplicate-target resolution to the [M] outputs. All return (best_idx [M]
-i32, accepted [M] bool, best_dist [M]). `image_size` is the (width, height)
-of the image the keypoints lie in (the window's extent).
+The tracking cascade's two take their query rows' window fields as kernel R
+writes them (`camera.base.project_window_rows`, a `WindowRows`); the loop
+detector's rematch builds its own. Each calls `hamming.hamming_top2` once
+and applies the ratio / orientation tests and the duplicate-target
+resolution to the [M] outputs. All return (best_idx [M] i32, accepted [M]
+bool, best_dist [M]). `image_size` is the (width, height) of the image the
+keypoints lie in (the window's extent).
 """
 from __future__ import annotations
 
@@ -15,54 +17,49 @@ import torch
 from stella_vslam_tpu_torch.match import hamming as H
 
 
-def match_frame_and_landmarks(
-    kp_uv, kp_level, kp_desc, kp_valid, kp_has_lm, kp_x_right,
-    lm_desc, lm_reproj, lm_x_right, lm_pred_scale, lm_valid,
-    *, scale_factors: torch.Tensor, num_levels: int, image_size, margin: float = 5.0,
-    lowe_ratio: float = 0.6,
-):
-    """Search radius margin * scale_factor[pred_scale]; candidate levels
-    [pred-1, pred+1]; ratio test only when best and second share a level;
-    accept at HAMMING_DIST_THR_HIGH."""
-    N = kp_desc.shape[0]
-    pred = lm_pred_scale.to(torch.int32)
-    window = H.WindowGate(
-        row_u=lm_reproj[:, 0].contiguous(), row_v=lm_reproj[:, 1].contiguous(),
-        row_xr=lm_x_right, row_rad=margin * scale_factors[pred.long()],
-        row_lo=torch.clamp(pred - 1, min=0),
-        row_hi=torch.clamp(pred + 1, max=num_levels - 1),
-        col_u=kp_uv[:, 0].contiguous(), col_v=kp_uv[:, 1].contiguous(),
+def _rows_window(rows, kp_uv, kp_level, kp_x_right, image_size) -> H.WindowGate:
+    """Kernel R's window rows against the frame's keypoints."""
+    return H.WindowGate(
+        row_u=rows.u, row_v=rows.v, row_xr=rows.xr, row_rad=rows.rad, row_lo=rows.lo,
+        row_hi=rows.hi, col_u=kp_uv[:, 0].contiguous(), col_v=kp_uv[:, 1].contiguous(),
         col_xr=kp_x_right, col_level=kp_level, extent=image_size)
+
+
+def match_frame_and_landmarks(
+    kp_uv, kp_level, kp_desc, kp_valid, kp_has_lm, kp_x_right, lm_desc, rows,
+    *, image_size, lowe_ratio: float = 0.6,
+):
+    """The local map's landmarks (their window rows from kernel R's table
+    mode: radius margin * scale_factor[pred_scale], candidate levels
+    [pred-1, pred+1] clamped, the local-map gate as the valid flag) against
+    the keypoints that hold no landmark yet; ratio test only when best and
+    second share a level; accept at HAMMING_DIST_THR_HIGH."""
+    N = kp_desc.shape[0]
+    window = _rows_window(rows, kp_uv, kp_level, kp_x_right, image_size)
     best, best_idx, second, second_idx = H.hamming_top2(
-        lm_desc, kp_desc, lm_valid, kp_valid & ~kp_has_lm, window=window)
+        lm_desc, kp_desc, rows.valid, kp_valid & ~kp_has_lm, window=window)
     best_level = kp_level[best_idx.long()]
     second_level = kp_level[second_idx.long()]
     ratio_reject = (best_level == second_level) & (
         best.to(torch.float32) > lowe_ratio * second.to(torch.float32))
-    accepted = (best <= H.HAMMING_DIST_THR_HIGH) & ~ratio_reject & lm_valid
+    accepted = (best <= H.HAMMING_DIST_THR_HIGH) & ~ratio_reject & rows.valid
     accepted = H.resolve_duplicate_targets(best_idx, best, accepted, N)
     return best_idx, accepted, best
 
 
 def match_current_and_last_frames(
     kp_uv, kp_level, kp_desc, kp_valid, kp_angle, kp_x_right,
-    last_desc, last_level, last_angle, lm_reproj, lm_x_right, lm_valid,
-    *, scale_factors: torch.Tensor, num_levels: int, image_size, margin: float,
-    check_orientation: bool = True,
+    last_desc, last_angle, rows, *, image_size, check_orientation: bool = True,
 ):
-    """Motion-model matcher: window margin * scale_factor[last level],
-    levels [last-1, last+1], orientation consistency."""
+    """Motion-model matcher: the last frame's chained landmarks (their
+    window rows from kernel R's point mode: margin * scale_factor[last
+    level], levels [last-1, last+1], valid where associated and in the
+    image), orientation consistency."""
     N = kp_desc.shape[0]
-    lvl = last_level.to(torch.int32)
-    window = H.WindowGate(
-        row_u=lm_reproj[:, 0].contiguous(), row_v=lm_reproj[:, 1].contiguous(),
-        row_xr=lm_x_right, row_rad=margin * scale_factors[lvl.long()],
-        row_lo=lvl - 1, row_hi=lvl + 1,
-        col_u=kp_uv[:, 0].contiguous(), col_v=kp_uv[:, 1].contiguous(),
-        col_xr=kp_x_right, col_level=kp_level, extent=image_size)
+    window = _rows_window(rows, kp_uv, kp_level, kp_x_right, image_size)
     best, best_idx, _, _ = H.hamming_top2(
-        last_desc, kp_desc, lm_valid, kp_valid, window=window)
-    accepted = (best <= H.HAMMING_DIST_THR_HIGH) & lm_valid
+        last_desc, kp_desc, rows.valid, kp_valid, window=window)
+    accepted = (best <= H.HAMMING_DIST_THR_HIGH) & rows.valid
     if check_orientation:
         accepted = accepted & H.angle_diff_ok(last_angle, kp_angle[best_idx.long()])
     accepted = H.resolve_duplicate_targets(best_idx, best, accepted, N)

@@ -17,9 +17,14 @@ descriptor patches, uint8, as kernel B writes them
 (`feature.orb_extractor.orb_describe_strips`): the left patch's
 centre 11x11 window and the right patch's 11 shifted windows lie in them.
 
-* on CUDA tensors, kernel T (csrc/stereo_match.cu): one warp per left
-  keypoint with the gates in registers (the [NL, NR] matrix is never
-  stored), integer SADs, then one block for the filter;
+* on CUDA tensors, kernel T (csrc/stereo_match.cu), one launch: one warp
+  per left keypoint walks only the right slots whose cells the row band
+  and the disparity range can reach (chip_smoke.py's `band_cells_plain`
+  is that walk in torch), with the gates in registers (the [NL, NR] matrix
+  is never stored), integer SADs over strips staged in shared memory, and
+  the filter in the last block to finish. The right keypoints must be an
+  extractor's slots, placed as `layout` (the extractor's `slot_layout`)
+  says;
 * on CPU tensors, `stereo_match_plain`: the JAX version's dense form, with
   the SADs and the filter's sum in integers (the JAX version's float32 sums
   of integers are exact while they stay under 2^24).
@@ -28,8 +33,13 @@ Both return (x_right [NL], depth [NL]) float32, -1 where unmatched.
 """
 from __future__ import annotations
 
+import threading
+from typing import Optional
+
+import numpy as np
 import torch
 
+from stella_vslam_tpu_torch.feature.orb_extractor import SlotLayout
 from stella_vslam_tpu_torch.kernels import build as kbuild
 from stella_vslam_tpu_torch.match.hamming import (
     HAMMING_DIST_THR_HIGH, HAMMING_DIST_THR_LOW, MAX_HAMMING_DIST, pairwise_hamming)
@@ -42,8 +52,8 @@ _SLIDE = 5  # +-5 px subpixel search
 def max_disparity(focal_x_baseline: float, true_baseline: float) -> float:
     """focal_x_baseline / max(true_baseline, 1e-9), rounded as the JAX
     version's float32 division rounds it."""
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
-    return float(f32(focal_x_baseline) / torch.clamp(f32(true_baseline), min=1e-9))
+    f32 = np.float32
+    return float(f32(focal_x_baseline) / max(f32(true_baseline), f32(1e-9)))
 
 
 def stereo_refine_plain(l_xy, l_level, l_desc, l_valid, l_strip,
@@ -119,10 +129,27 @@ def filter_mean(matched, best_sad):
     return total.to(torch.float32) / torch.clamp(matched.sum(), min=1).to(torch.float32)
 
 
+# the band walk's filter counters, one 16-byte block per (device, stream):
+# the kernel's last block leaves them zero for the next launch on its stream
+_counters = {}
+_counters_lock = threading.Lock()
+
+
+def _stream_counters(dev, stream: int):
+    key = (dev.index, stream)
+    with _counters_lock:
+        if key not in _counters:
+            _counters[key] = torch.zeros(2, dtype=torch.int64, device=dev)
+        return _counters[key]
+
+
 def stereo_match(l_xy, l_level, l_desc, l_valid, l_strip,
                  r_xy, r_level, r_desc, r_valid, r_strip, *,
-                 scale_factors, focal_x_baseline: float, true_baseline: float):
-    """Kernel T on CUDA tensors, the plain version on CPU tensors."""
+                 scale_factors, focal_x_baseline: float, true_baseline: float,
+                 layout: Optional[SlotLayout] = None):
+    """Kernel T on CUDA tensors, the plain version on CPU tensors. On the
+    card the right keypoints must be the slots of `layout` (r_level their
+    levels), which the plain version does not read."""
     kw = dict(scale_factors=scale_factors, focal_x_baseline=focal_x_baseline,
               true_baseline=true_baseline)
     if not l_xy.is_cuda:
@@ -131,6 +158,16 @@ def stereo_match(l_xy, l_level, l_desc, l_valid, l_strip,
     NL, NR = l_xy.shape[0], r_xy.shape[0]
     if NR >= 1 << 16:
         raise ValueError("stereo_match: at most 65535 right keypoints")
+    if layout is None or layout.num_slots != NR:
+        raise ValueError("stereo_match: the right keypoints must be the slots of `layout`")
+    L = layout.level_tab.shape[0]
+    if not 1 <= L <= 32 or scale_factors.shape[0] < L:
+        raise ValueError("stereo_match: 1-32 levels, a scale factor for each")
+    for t, shape, dt in ((layout.level_tab, (L, 8), torch.int32),
+                         (layout.level_scale, (L,), torch.float32)):
+        if t.dtype != dt or tuple(t.shape) != shape or t.device != l_xy.device \
+                or not t.is_contiguous():
+            raise ValueError(f"stereo_match: the layout's {dt} {shape} tables on the card")
     for t, shape, dt in ((l_xy, (NL, 2), torch.float32), (l_level, (NL,), torch.int32),
                          (l_desc, (NL, 8), torch.int32), (l_valid, (NL,), torch.bool),
                          (l_strip, (NL, STRIP_H, STRIP_W), torch.uint8),
@@ -138,23 +175,27 @@ def stereo_match(l_xy, l_level, l_desc, l_valid, l_strip,
                          (r_desc, (NR, 8), torch.int32), (r_valid, (NR,), torch.bool),
                          (r_strip, (NR, STRIP_H, STRIP_W), torch.uint8),
                          (scale_factors, (scale_factors.shape[0],), torch.float32)):
-        if t.dtype != dt or tuple(t.shape) != shape or not t.is_cuda \
-                or not t.is_contiguous():
+        if t.dtype != dt or t.shape != shape or not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"stereo_match: expects a contiguous {dt} {shape} CUDA tensor")
+    if l_desc.data_ptr() % 16 or r_desc.data_ptr() % 16 or r_xy.data_ptr() % 8:
+        raise ValueError("stereo_match: descriptors 16-byte and r_xy 8-byte aligned")
     dev = l_xy.device
+    # one allocation: x_right, depth, then the kernel's scratch (best SAD,
+    # disparity)
+    buf = torch.empty((4, NL), dtype=torch.float32, device=dev)
+    x_right, depth = buf[0], buf[1]
+    if NL == 0:
+        return x_right, depth
     lib = kbuild.load()
-    best_sad = torch.empty(NL, dtype=torch.int32, device=dev)
-    disp = torch.empty(NL, dtype=torch.float32, device=dev)
-    matched = torch.empty(NL, dtype=torch.uint8, device=dev)
-    x_right = torch.empty(NL, dtype=torch.float32, device=dev)
-    depth = torch.empty(NL, dtype=torch.float32, device=dev)
+    base, stream = buf.data_ptr(), kbuild.stream_ptr(dev)
     kbuild.check(lib.svt_stereo_match(
-        NL, NR, l_xy.data_ptr(), l_level.data_ptr(), l_desc.data_ptr(), l_valid.data_ptr(),
+        NL, NR, L, layout.border, layout.level_tab.data_ptr(), layout.level_scale.data_ptr(),
+        l_xy.data_ptr(), l_level.data_ptr(), l_desc.data_ptr(), l_valid.data_ptr(),
         l_strip.data_ptr(), r_xy.data_ptr(), r_level.data_ptr(), r_desc.data_ptr(),
         r_valid.data_ptr(), r_strip.data_ptr(), scale_factors.data_ptr(),
         max_disparity(focal_x_baseline, true_baseline), float(focal_x_baseline),
-        best_sad.data_ptr(), disp.data_ptr(), matched.data_ptr(), x_right.data_ptr(),
-        depth.data_ptr(), kbuild.stream_ptr(dev)), "stereo_match")
+        base + 8 * NL, base + 12 * NL, _stream_counters(dev, stream).data_ptr(),
+        base, base + 4 * NL, stream), "stereo_match")
     stereo_match.launches += 1
     return x_right, depth
 

@@ -3,11 +3,13 @@
 Port of stella_vslam_tpu/module/tracking_kernels.py `track_frame` (:164):
 
   1. motion-model stage: project last-frame associations with the predicted
-     pose (kernel R), match (kernel C), optimize the pose (kernel D);
+     pose into the window rows kernel C reads (kernel R,
+     `project_window_rows`), match (kernel C), optimize the pose (kernel D);
   2. keyframe fallback: brute-force match against the reference keyframe's
      associated slots (kernel C) + pose optimization from the last pose;
-  3. local-map stage: visibility-gate the device landmark table (kernel R),
-     match it against the still-unassociated slots (kernel C), final pose
+  3. local-map stage: visibility-gate the device landmark table and write
+     its window rows (kernel R), match it against the still-unassociated
+     slots (kernel C), final pose
      optimization (kernel D), one slot per landmark.
 
 Stages 2 and 1 do not depend on each other: both matchers and scatters run
@@ -298,14 +300,13 @@ class TrackingKernels:
 
         # ---------- stage 1: motion-model tracking ----------
         if use_motion:
-            uv_l, _, vis_l, lm_xr, _ = cam_base.reproject_gate(
-                p, R_pred, t_pred, last_assoc_pos, model=self.camera.model)
+            rows1 = cam_base.project_window_rows(
+                p, R_pred, t_pred, last_assoc_pos, last_level=last_level,
+                last_valid=last_assoc_valid, scale_factors=self.scale_factors,
+                margin=self.margin_last, model=self.camera.model)
             m_idx, m_acc, _ = proj_match.match_current_and_last_frames(
                 cur_undist, cur_level, cur_desc, cur_valid, cur_angle, cur_xr,
-                last_desc, last_level, last_angle, uv_l, lm_xr,
-                last_assoc_valid & vis_l,
-                scale_factors=self.scale_factors, num_levels=L,
-                image_size=(p.width, p.height), margin=self.margin_last)
+                last_desc, last_angle, rows1, image_size=(p.width, p.height))
             pos1, id1, has1 = scatter_to_current(
                 m_idx, m_acc, last_assoc_pos, last_assoc_id, N)
             # stages 2 and 1 do not depend on each other: one launch of D
@@ -335,14 +336,14 @@ class TrackingKernels:
             used_fb = torch.ones((), dtype=torch.bool, device=cur_desc.device)
 
         # ---------- stage 3: local-map tracking over the table ----------
-        uv_t, _, observable, lm_xr_t, pred_scale = cam_base.reproject_gate(
-            p, R_s1, t_s1, tbl_f32, tbl_u32, log_scale=self.log_scale, num_levels=L,
+        rows3 = cam_base.project_window_rows(
+            p, R_s1, t_s1, tbl_f32, tbl_u32=tbl_u32, scale_factors=self.scale_factors,
+            margin=margin_local, log_scale=self.log_scale, num_levels=L,
             model=self.camera.model)
+        observable = rows3.valid
         t_idx, t_acc, _ = proj_match.match_frame_and_landmarks(
-            cur_undist, cur_level, cur_desc, cur_valid, has_s1, cur_xr,
-            tbl_desc, uv_t, lm_xr_t, pred_scale, observable,
-            scale_factors=self.scale_factors, num_levels=L,
-            image_size=(p.width, p.height), margin=margin_local, lowe_ratio=0.6)
+            cur_undist, cur_level, cur_desc, cur_valid, has_s1, cur_xr, tbl_desc, rows3,
+            image_size=(p.width, p.height), lowe_ratio=0.6)
         pos_new, id_new, has_new = scatter_to_current(t_idx, t_acc, tbl_pos, tbl_ids, N)
         # a chained association keeps its slot; a fresh table match fills any
         # other slot (a duplicate landmark is resolved after the optimization)

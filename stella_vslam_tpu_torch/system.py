@@ -389,7 +389,8 @@ class System:
         x_right, depths = stereo_match(
             fl.xy, fl.level, fl.desc, fl.valid, sl, fr.xy, fr.level, fr.desc, fr.valid, sr,
             scale_factors=self._scale_factors,
-            focal_x_baseline=cam.params.focal_x_baseline, true_baseline=cam.true_baseline)
+            focal_x_baseline=cam.params.focal_x_baseline, true_baseline=cam.true_baseline,
+            layout=self.extractor.slot_layout)
         und = cam.undistort(fl.xy)
         bear = cam.bearings(und)
         frm = Frame(timestamp, cam, self.orb_params, fl, und, bear, x_right=x_right,

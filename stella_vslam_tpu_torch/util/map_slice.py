@@ -96,7 +96,7 @@ def kernel_wrappers() -> dict:
             "pnp_ransac": pnp.pnp_hypotheses, "sim3_transform": sim3.sim3_transform,
             "pose_graph": sim3.pose_graph_linearize, "spd_solve": linalg.spd_solve,
             "scatter_to_current": tk.scatter_to_current, "dedup_by_id": tk.dedup_by_id,
-            "rebase_chain": tk.rebase_chain, "reproject_gate": cam_base.reproject_gate,
+            "rebase_chain": tk.rebase_chain, "project_window_rows": cam_base.project_window_rows,
             "undistort_norm": cam_base.undistort_norm,
             "undistort_fisheye": cam_base.undistort_fisheye,
             "undistort_radial": cam_base.undistort_radial,

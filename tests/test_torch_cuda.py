@@ -616,9 +616,12 @@ def test_rebase_chain_kernel_matches_plain(dev, N, C):
 
 @pytest.mark.parametrize("M", [1, 300, 4096])
 def test_reproject_gate_kernel_matches_plain(dev, M):
-    """Kernel R's projection of points and of a packed table: uv and x_right
-    within 1e-5 relative (of at least 100 px); flags and predicted levels equal except where
-    the deciding quantity lies within 1e-6 of its threshold (none here)."""
+    """Kernel R's window rows (project_window_rows) of points and of a packed
+    table, one launch each: u, v, x_right and radius within 1e-5 relative
+    (of at least 100 px); levels and flags equal except where the deciding
+    quantity lies within 1e-6 of its threshold (chip_smoke._check_rows_call;
+    none here)."""
+    import chip_smoke
     from stella_vslam_tpu_torch.camera import base as cb
 
     g = torch.Generator().manual_seed(M)
@@ -640,18 +643,18 @@ def test_reproject_gate_kernel_matches_plain(dev, M):
     tbl = torch.cat([pos, normal, (0.9 + 0.6 * f[:, :1]) * dist, (0.8 + 2.0 * f[:, 1:]) * dist], 1)
     tbl_u32 = torch.zeros(M, 10, dtype=torch.int32)
     tbl_u32[:, 9] = (torch.rand(M, generator=g) < 0.9).to(torch.int32)
-    R, t, pos, tbl, tbl_u32 = (a.to(dev).contiguous() for a in (R, t, pos, tbl, tbl_u32))
-    for a, kw in (((pos,), {}), ((tbl, tbl_u32), dict(log_scale=float(np.log(np.float32(1.2))),
-                                                     num_levels=8))):
-        k = cb.reproject_gate(p, R, t, *a, **kw)
-        q = cb.reproject_gate_plain(p, R, t, *a, **kw)
-        # relative to the value, at least 100 px (near u = 0, fx x / z + cx
-        # cancels and an ulp of cx is 3e-5 px)
-        assert float(((k[0] - q[0]).abs() / q[0].abs().clamp(min=100.0)).max()) < 1e-5
-        assert float(((k[3] - q[3]).abs() / q[3].abs().clamp(min=100.0)).max()) < 1e-5
-        assert torch.equal(k[2], q[2])
-        if k[4] is not None:
-            assert torch.equal(k[4], q[4])
+    level = torch.randint(0, 8, (M,), generator=g, dtype=torch.int32)
+    assoc = torch.rand(M, generator=g) < 0.8
+    R, t, pos, tbl, tbl_u32, level, assoc = (a.to(dev).contiguous() for a in (
+        R, t, pos, tbl, tbl_u32, level, assoc))
+    sf = torch.tensor([1.2 ** l for l in range(8)], dtype=torch.float32, device=dev)
+    for a, kw in ((pos, dict(last_level=level, last_valid=assoc, margin=20.0)),
+                  (tbl, dict(tbl_u32=tbl_u32, log_scale=float(np.log(np.float32(1.2))),
+                             num_levels=8, margin=5.0))):
+        before = cb.project_window_rows.launches
+        err, n_diff, n_near = chip_smoke._check_rows_call(p, R, t, a, dict(kw, scale_factors=sf))
+        assert cb.project_window_rows.launches == before + 1
+        assert err < 1e-5 and n_diff == 0 and n_near == 0
 
 
 def test_undistort_norm_kernel_matches_plain(dev):
@@ -786,34 +789,21 @@ def test_orb_describe_strips_kernel_matches_plain(dev, frame):
 
 
 def _stereo_inputs(dev, NL, NR, seed):
-    """Seeded matcher inputs: most right keypoints a shifted copy of a left
-    one (a few flipped bits, the strip shifted by -5..5 px), some ties."""
-    rng = np.random.default_rng(seed)
-    l_xy = np.stack([rng.uniform(20, 380, NL), rng.choice([40.0, 90.0, 91.0, 150.0], NL)], -1)
-    l_desc = rng.integers(0, 2 ** 32, (NL, 8), dtype=np.uint64).astype(np.uint32)
-    l_strip = rng.integers(0, 256, (NL, 11, 21))
-    l_lvl = rng.integers(0, 4, NL)
-    r_xy = np.stack([rng.uniform(0, 400, NR), rng.choice([40.0, 90.0, 150.0], NR)], -1)
-    r_desc = rng.integers(0, 2 ** 32, (NR, 8), dtype=np.uint64).astype(np.uint32)
-    r_strip = rng.integers(0, 256, (NR, 11, 21))
-    r_lvl = rng.integers(0, 4, NR)
-    for j in range(min(NL, NR) * 3 // 4):
-        i = j % NL
-        r_xy[j] = (l_xy[i, 0] - rng.uniform(0, 30), l_xy[i, 1] + rng.uniform(-1, 1))
-        r_lvl[j] = l_lvl[i]
-        r_desc[j] = l_desc[i] ^ np.bitwise_and.reduce(
-            rng.integers(0, 2 ** 32, (3, 8), dtype=np.uint64).astype(np.uint32), axis=0)
-        r_strip[j] = np.clip(np.roll(l_strip[i], int(rng.integers(-5, 6)), axis=1)
-                             + rng.integers(-2, 3, (11, 21)), 0, 255)
-    if NR > 4:
-        r_xy[-2:], r_desc[-2:], r_lvl[-2:] = r_xy[:2], r_desc[:2], r_lvl[:2]
-    t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a).astype(dt), device=dev)
-    sf = t(OrbParams(num_levels=4).scale_factors, np.float32)
-    args = (t(l_xy, np.float32), t(l_lvl, np.int32), t(l_desc.view(np.int32), np.int32),
-            t(rng.random(NL) < 0.95, bool), t(l_strip, np.uint8), t(r_xy, np.float32),
-            t(r_lvl, np.int32), t(r_desc.view(np.int32), np.int32),
-            t(rng.random(NR) < 0.95, bool), t(r_strip, np.uint8))
-    return args, dict(scale_factors=sf, focal_x_baseline=38.4, true_baseline=0.12)
+    """Seeded matcher inputs in slot layouts: NL and NR slots of 400x300
+    grid layouts (chip_smoke.grid_layout), the bench extractor's at 2872;
+    most left keypoints with a true match (a few flipped bits, the strip
+    shifted by -5..5 px), ties, empty rows (chip_smoke.stereo_layout_case)."""
+    import chip_smoke
+    from stella_vslam_tpu_torch.feature.orb_pattern import EDGE_BORDER
+
+    if NL == NR == 2872:
+        (ll, _), (rl, layout) = chip_smoke.bench_layout(dev), chip_smoke.bench_layout(dev)
+        shift = 60.0
+    else:
+        (ll, _), (rl, layout) = chip_smoke.grid_layout(dev, NL), chip_smoke.grid_layout(dev, NR)
+        shift = 30.0
+    args, kw = chip_smoke.stereo_layout_case(dev, ll, rl, EDGE_BORDER, seed, max_shift=shift)
+    return args, dict(kw, layout=layout)
 
 
 @pytest.mark.parametrize("NL,NR", [(1, 1), (37, 50), (300, 260), (2872, 2872)])
@@ -823,12 +813,57 @@ def test_stereo_match_kernel_matches_plain(dev, NL, NR):
     args, kw = _stereo_inputs(dev, NL, NR, NL + NR)
     before = st.stereo_match.launches
     xk, dk = st.stereo_match(*args, **kw)
+    kw.pop("layout")
     xp, dp = st.stereo_match_plain(*args, **kw)
     assert st.stereo_match.launches == before + 1
     m = dp > 0
     assert torch.equal(dk > 0, m)
     torch.testing.assert_close(xk[m], xp[m], rtol=1e-5, atol=0)
     torch.testing.assert_close(dk[m], dp[m], rtol=1e-5, atol=0)
+
+
+def test_stereo_match_kernel_repeats_and_leaves_its_counters_zero(dev):
+    """Three launches in a row on one stream and one on another give the
+    same bits: the last block of each launch sets the filter's counters back
+    to 0."""
+    from stella_vslam_tpu_torch.match import stereo as st
+
+    args, kw = _stereo_inputs(dev, 300, 260, 7)
+    first = st.stereo_match(*args, **kw)
+    for _ in range(2):
+        again = st.stereo_match(*args, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        other = st.stereo_match(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, other))
+    for c in st._counters.values():
+        assert int(c.abs().sum()) == 0
+
+
+def test_extracted_pair_slots_lie_in_their_cells(dev):
+    """The layout invariant kernel T's band walk rests on, on a pair the card
+    extracts (752x480, 8 levels): every valid slot's keypoint inside its
+    cell's y and x intervals, as the layout places it."""
+    import chip_smoke
+    from stella_vslam_tpu_torch.util.rgbd_slice import bench_world
+
+    world = bench_world()
+    ex = ox.OrbExtractor(OrbParams(num_levels=8), 752, 480, min_area=800, device=dev)
+    T = np.eye(4)
+    T[0, 3] = -0.6
+    Tb = np.eye(4)
+    Tb[0, 3] = -0.12
+    (fl, _), (fr, _) = ex.extract_pair_with_patches(
+        torch.from_numpy(world.render(T)).to(dev), torch.from_numpy(world.render(Tb @ T)).to(dev))
+    iv = chip_smoke.slot_cells(ex.slot_layout, dev)
+    for f in (fl, fr):
+        inside = (f.xy[:, 1] >= iv[:, 0]) & (f.xy[:, 1] <= iv[:, 1]) \
+            & (f.xy[:, 0] >= iv[:, 2]) & (f.xy[:, 0] <= iv[:, 3])
+        assert bool(inside[f.valid].all())
+        assert int(f.valid.sum()) > 1500
 
 
 # ---------------------------------------------------------------------------
@@ -854,11 +889,13 @@ def _equirect_points(dev, n, seed):
     return R.to(dev), torch.tensor([0.3, -0.1, 0.2], device=dev), pos.to(dev), g
 
 
-@pytest.mark.parametrize("M", [1, 333, 4096])
+@pytest.mark.parametrize("M", [1, 333, 1199, 4096])
 def test_reproject_gate_equirect_kernel_matches_plain(dev, M):
-    """Kernel R's equirectangular mode: u within 1e-5 of the width (either
-    edge at the seam), v within 1e-5 of the height, depth (the norm) within
-    1e-6 relative, the flags equal."""
+    """Kernel R's equirectangular window rows, points and table rows all
+    around the camera: u and x_right within 1e-5 relative of at least 100
+    px (either edge at the seam), v and the radius too, levels and flags
+    equal except within 1e-6 of a threshold (none here)."""
+    import chip_smoke
     from stella_vslam_tpu_torch.camera import base as cb
 
     p = _equirect_cam()
@@ -867,16 +904,17 @@ def test_reproject_gate_equirect_kernel_matches_plain(dev, M):
     d = torch.linalg.norm(pos, dim=1, keepdim=True)
     tbl = torch.cat([pos, normal, 0.5 * d, 2.0 * d], 1).contiguous()
     tu = torch.ones(M, 10, dtype=torch.int32, device=dev)
+    level = torch.randint(0, 6, (M,), generator=g, dtype=torch.int32).to(dev)
+    sf = torch.tensor([1.2 ** l for l in range(6)], dtype=torch.float32, device=dev)
     EQ = cb.CameraModel.EQUIRECTANGULAR
-    for a, kw in (((pos.contiguous(),), {}),
-                  ((tbl, tu), dict(log_scale=float(np.log(np.float32(1.2))), num_levels=6))):
-        k = cb.reproject_gate(p, R, t, *a, model=EQ, **kw)
-        q = cb.reproject_gate_plain(p, R, t, *a, model=EQ, **kw)
-        du = (k[0][:, 0] - q[0][:, 0]).abs()
-        assert float(torch.minimum(du, (du - EQ_W).abs()).max()) <= 1e-5 * EQ_W
-        assert float((k[0][:, 1] - q[0][:, 1]).abs().max()) <= 1e-5 * EQ_H
-        assert float(((k[1] - q[1]).abs() / q[1]).max()) <= 1e-6
-        assert torch.equal(k[2], q[2])
+    for a, kw in ((pos.contiguous(), dict(last_level=level, margin=20.0,
+                                          last_valid=torch.ones(M, dtype=torch.bool,
+                                                                device=dev))),
+                  (tbl, dict(tbl_u32=tu, log_scale=float(np.log(np.float32(1.2))),
+                             num_levels=6, margin=5.0))):
+        err, n_diff, n_near = chip_smoke._check_rows_call(
+            p, R.contiguous(), t, a, dict(kw, scale_factors=sf, model=EQ))
+        assert err < 1e-5 and n_diff == 0
 
 
 @pytest.mark.parametrize("N", [37, 1199])

@@ -15,6 +15,7 @@ import torch
 from stella_vslam_tpu.match import hamming as jH
 from stella_vslam_tpu.match import projection as jP
 from stella_vslam_tpu.match import robust as jR
+from stella_vslam_tpu_torch.camera.base import WindowRows
 from stella_vslam_tpu_torch.match import hamming as H
 from stella_vslam_tpu_torch.match import projection as P
 from stella_vslam_tpu_torch.match import robust as R
@@ -78,18 +79,30 @@ def test_pairwise_hamming_exact(data):
     np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
+def _window_rows(d, level, margin, clamp):
+    """The query rows as kernel R writes them (camera.base.WindowRows):
+    radius margin * SF[level], levels level -+ 1 (clamped to [0, L-1] for
+    the table's rows)."""
+    lvl = torch.from_numpy(d[level])
+    lo, hi = lvl - 1, lvl + 1
+    if clamp:
+        lo, hi = torch.clamp(lo, min=0), torch.clamp(hi, max=L - 1)
+    uv = _t(d["q_uv"])
+    return WindowRows(u=uv[:, 0].contiguous(), v=uv[:, 1].contiguous(), xr=_t(d["q_xr"]),
+                      rad=margin * torch.from_numpy(SF)[lvl.long()], lo=lo, hi=hi,
+                      valid=_t(d["q_valid"]), pred_scale=lvl if clamp else None)
+
+
 def test_match_frame_and_landmarks_exact(data):
     d = data
-    kw = dict(num_levels=L, margin=5.0, lowe_ratio=0.6)
     out_j = jP.match_frame_and_landmarks(
         d["kp_uv"], d["kp_level"], d["kp_desc"], d["kp_valid"], d["kp_has_lm"],
         d["kp_xr"], d["q_desc"], d["q_uv"], d["q_xr"], d["q_pred"], d["q_valid"],
-        scale_factors=jnp.asarray(SF), **kw)
+        scale_factors=jnp.asarray(SF), num_levels=L, margin=5.0, lowe_ratio=0.6)
     out_t = P.match_frame_and_landmarks(
         *[_t(d[k]) for k in ("kp_uv", "kp_level", "kp_desc", "kp_valid",
-                             "kp_has_lm", "kp_xr", "q_desc", "q_uv", "q_xr",
-                             "q_pred", "q_valid")],
-        scale_factors=torch.from_numpy(SF), image_size=IMAGE, **kw)
+                             "kp_has_lm", "kp_xr", "q_desc")],
+        _window_rows(d, "q_pred", 5.0, clamp=True), image_size=IMAGE, lowe_ratio=0.6)
     assert int(np.asarray(out_j[1]).sum()) > 20  # matches really happen
     _eq(out_j, out_t)
 
@@ -102,8 +115,9 @@ def test_match_current_and_last_frames_exact(data):
         *[d[k] for k in args], scale_factors=jnp.asarray(SF), num_levels=L,
         margin=20.0)
     out_t = P.match_current_and_last_frames(
-        *[_t(d[k]) for k in args], scale_factors=torch.from_numpy(SF),
-        num_levels=L, image_size=IMAGE, margin=20.0)
+        *[_t(d[k]) for k in ("kp_uv", "kp_level", "kp_desc", "kp_valid", "kp_angle",
+                             "kp_xr", "q_desc", "q_angle")],
+        _window_rows(d, "q_level", 20.0, clamp=False), image_size=IMAGE)
     assert int(np.asarray(out_j[1]).sum()) > 20
     _eq(out_j, out_t)
 
