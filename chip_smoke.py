@@ -17,8 +17,8 @@ Phases, each fatal on failure (nothing is caught):
      test's bound against JAX), also on keypoints aimed near both edges of
      every steering bin and clamped at every image border
      (bin_edge_keypoints; angles within 1e-3, strips equal); C exactly (0 rows differing from the dense
-     plain walk) in its window mode on its cell index (whose counting sort
-     must equal the plain argsort), in brute force at 2872 x 2872 with and
+     plain walk) in its window mode on its cell index (whose cells must
+     hold the plain argsort's targets), in brute force at 2872 x 2872 with and
      without the orientation gate, and on edge cases at those widths
      (fisheye and division keypoints far outside the image, NaN
      coordinates, empty windows, all rows failing row_ok, one target, ties
@@ -48,9 +48,8 @@ Phases, each fatal on failure (nothing is caught):
      bound (the least time the card could take for the work: bytes over
      3.35 TB/s or operations over 67 T/s, FP32 outside the tensor cores,
      integer operations counted at the same rate) and, where one PyTorch
-     call computes the same function, that call's device time; a row whose
-     call launches its kernel once a pyramid level (S) is divided by those
-     launches, like its launch count (A's rows count a frame: one launch);
+     call computes the same function, that call's device time (S's and A's
+     rows count a frame, or a pair: one launch);
   5. the RGBD slice: System in RGBD mode, mapping disabled, 120 frames of
      the numpy plane world at 0.015 m/frame (the bench's RGBD settings):
      at most 2 frames lost after init, rigid ATE < 0.10 m, scale error
@@ -71,9 +70,17 @@ Phases, each fatal on failure (nothing is caught):
      (util/map_slice.py);
   8. the mapping kernels on the map slice's own inputs: J (epipolar top-2)
      and K (DLT and checks) on its triangulation with the most neighbours,
-     L (fuse) on its fuse chunk with the most landmarks, against their plain
-     versions (rows or flags differing <= 1e-3, K's positions within 1e-4
-     relative where both are ok); F-I at the local-BA shape (K=16, L=4096,
+     L (the fuse chunk's cell indexes, then the cell walk) on its fuse chunk
+     with the most landmarks and on fuse_edge_chunk (landmarks at the
+     image's edges, keypoints outside it, NaN coordinates), each at margins
+     3 and 4: its plain cell walk equal to the full-scan plain version (0
+     outputs differing), the kernel's outputs equal to the full scan's but
+     for rows whose plain prologue puts a gate within rounding of its
+     threshold (each such row printed with its gate, the chunk saved; the
+     largest share of rows differing is L's max_abs_err), the pairs
+     visited beside gated x N; J and K
+     against their plain versions (rows or flags differing <= 1e-3, K's
+     positions within 1e-4 relative where both are ok); F-I at the local-BA shape (K=16, L=4096,
      D=12, 3 + 6 iterations, the local BA's layout of observers) against
      the plain BA with phase 4's bounds, and on every local problem of the
      slice kernel by kernel on the kernels' own state (_lockstep_ba): F's
@@ -178,12 +185,16 @@ Phases, each fatal on failure (nothing is caught):
      every rebase), kernel C exactly on a sample of its stage 1, 2 and 3
      calls, with the pairs each window call visited, and kernel R's rows on
      a sample of its calls of both stages.
- 15. kernel S (csrc/resize.cu: the pyramid resize), B's strip mode and
-     kernel T (csrc/stereo_match.cu: the stereo matcher) against their plain
-     versions at the stereo leg's shapes (run with phase 3): S against the
-     two torch.matmul per level (cuBLAS) with max |diff| <= 1e-4, the pixels
-     that differ, the pixels that differ from the CPU's matmul, and kernel
-     A's cell keys that move (<= 0.5%); B's strips equal; T on synthetic
+ 15. kernel S (csrc/resize.cu: the whole pyramid in one launch), B's
+     strip mode and kernel T (csrc/stereo_match.cu: the stereo matcher)
+     against their plain versions at the stereo leg's shapes (run with
+     phase 3): S one launch a call, against its two-tap plain version
+     (resize_level_taps_plain) with 0 pixels differing at 752x480 (one image,
+     the pair, the pair as f32), 640x320, 1280x720 and 1920x960, the pixels
+     its halos compute twice; on the pair against the two torch.matmul per
+     level (cuBLAS) with max |diff| <= 1e-4, the pixels that differ, the
+     pixels that differ from the CPU's matmul, and kernel A's cell keys that
+     move (<= 0.5%); B's strips equal; T on synthetic
      inputs at 2872 x 2872 drawn in the bench extractor's slot layout and
      on a rendered pair: matched flags equal except at a threshold
      (counted), x_right and depth within 1e-5 relative, one launch a call,
@@ -282,14 +293,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 # kernels J, K, L: the mapping module's, which the mono and RGBD slices
 # (mapping disabled) never launch
-MAPPING_KERNELS = ("epipolar_top2", "triangulate", "fuse")
+MAPPING_KERNELS = ("epipolar_top2", "triangulate", "fuse", "fuse_cell_index")
 # kernels M-P: the loop closer's (M runs with the mapper's keyframe events)
 LOOP_KERNELS = ("bow_transform", "pnp_ransac", "sim3_transform", "pose_graph", "spd_solve",
                 "match_frame_and_keyframe")
 # the stereo path's own: B's strip mode and T (S runs on every path)
 STEREO_KERNELS = ("orb_describe_strips", "stereo_match")
 # the kernels line's rows whose launches are the stereo leg's
-STEREO_PATH_ROWS = ("resize_level",) + STEREO_KERNELS
+STEREO_PATH_ROWS = ("resize_pyramid",) + STEREO_KERNELS
 # kernel U: the five-point sweep, run when the bearing-vector initializer
 # escalates (the equirectangular leg's escalation run)
 EQUIRECT_KERNELS = ("essential_5pt",)
@@ -362,25 +373,6 @@ def _times(fn, before_run=None, **median_kw) -> dict:
     in it (_median_ms, with median_kw)."""
     return dict(ms=_device_ms(fn, before_run=before_run),
                 one_call_ms=_median_ms(fn, **median_kw), timing=DEVICE_TIMING)
-
-
-def _per_launch(row: dict, counter, fn) -> dict:
-    """A row timed on a call that launches its kernel several times (one
-    launch per pyramid level): its times and bound divided by the launches
-    one call of `fn` makes (read on the wrapper's counter), so that the row,
-    like its `launches`, counts single launches."""
-    import torch
-
-    before = counter.launches
-    fn()
-    torch.cuda.synchronize()
-    per = counter.launches - before
-    for k in ("ms", "one_call_ms", "plain_ms", "library_ms", "library_one_call_ms",
-              "bound_ms"):
-        if row.get(k) is not None:
-            row[k] /= per
-    row["launches_per_timed_call"] = per
-    return row
 
 
 def _bound(nbytes: float, ops: float) -> dict:
@@ -627,8 +619,8 @@ def check_kernels(dev, world):
     cells = H.build_cell_index(win.col_u, win.col_v, 752.0, 480.0)
     ci_plain = H.build_cell_index_plain(win.col_u, win.col_v, 752.0, 480.0)
     torch.cuda.synchronize()
-    assert torch.equal(cells.start, ci_plain.start) and torch.equal(cells.order, ci_plain.order), \
-        "kernel C's cell index disagrees with its plain version"
+    assert same_cells(cells.start[None], cells.order[None], ci_plain.start[None],
+                      ci_plain.order[None]), "kernel C's cell index disagrees with its plain version"
     cases = [("phase 3 window 4096 x 2872", (q_desc, kp_desc, row_ok, col_ok), wkw),
              ("brute force 2872 x 2872 with the orientation gate",
               (kp_desc, kp_desc, valid, valid), dict(orient=ori)),
@@ -684,7 +676,7 @@ def check_kernels(dev, world):
         library_one_call_ms=_median_ms(lambda: torch.argsort(cu, stable=True)),
         library_call="torch.argsort(stable=True) of N keys",
         # (u, v) read, order and the cell starts written; ~20 operations a
-        # target (cell, match, rank) twice
+        # target (its cell and an atomic) twice
         **_bound(N * 8.0 + N * 4.0 + 4.0 * cells.start.numel(), 40.0 * N)))
 
     # ---- D: motion-only pose optimization, N slots, 20% outliers ----
@@ -1706,6 +1698,352 @@ def _check_epipolar(dev, kern, tri, name="epipolar_top2", label=""):
         shape=f"{B}x{N1}x{N2}")
 
 
+def fuse_edge_yaml(model: str = "perspective") -> dict:
+    """fuse_edge_chunk's camera: 752x480 perspective or 640x320
+    equirectangular."""
+    equirect = model == "equirectangular"
+    return {"name": "edge", "setup": "monocular", "model": model,
+            "cols": 640 if equirect else 752, "rows": 320 if equirect else 480,
+            **({} if equirect else {"fx": 458.0, "fy": 458.0, "cx": 376.0, "cy": 240.0,
+                                    "k1": 0.0, "k2": 0.0, "p1": 0.0, "p2": 0.0, "k3": 0.0}),
+            "fps": 20.0, "color_order": "Gray"}
+
+
+def fuse_edge_chunk(dev, seed: int = 0, model: str = "perspective", B: int = 4,
+                    N: int = 1500, M: int = 700):
+    """A fuse chunk for kernel L's cell walk at its edges (its generator,
+    shared with the CPU and card tests): a 752x480 perspective or a 640x320
+    equirectangular camera, B keyframes (the last a padding one) a few
+    centimetres apart, M landmarks 3-5 m away whose projections in
+    keyframe 0 lie all over the image and for a third within 4 px of an
+    edge, each seen by every keyframe as a keypoint at its projection with
+    1 px of noise (so keypoints near an edge fall outside the image), at
+    its octave 0-7, with 0-60 flipped descriptor bits; then clutter
+    keypoints over the image, keypoints far outside it (valid, as fisheye
+    and division keypoints can lie) and NaN coordinates in invalid slots;
+    a fifth of the keypoints stereo. Returns (MappingKernels, the fuse
+    arguments after cam: kfs, poses [B, 12], kf_valid, lm_f, lm_desc,
+    lm_valid)."""
+    import torch
+
+    from stella_vslam_tpu_torch.camera.base import camera_from_yaml, reproject_to_image
+    from stella_vslam_tpu_torch.feature.orb_params import OrbParams
+    from stella_vslam_tpu_torch.module import mapping_kernels as mk
+
+    rng = np.random.default_rng(seed)
+    equirect = model == "equirectangular"
+    cam = camera_from_yaml(fuse_edge_yaml(model))
+    W, Hh = int(cam.params.width), int(cam.params.height)
+    kern = mk.MappingKernels(cam, OrbParams(num_levels=8), device=dev)
+    u = rng.uniform(0, W, M)
+    v = rng.uniform(0, Hh, M)
+    edge = rng.random(M) < 1 / 3
+    side = rng.integers(0, 4, M)
+    d = rng.uniform(0.0, 4.0, M)
+    u = np.where(edge & (side == 0), d, np.where(edge & (side == 1), W - 1e-3 - d, u))
+    v = np.where(edge & (side == 2), d, np.where(edge & (side == 3), Hh - 1e-3 - d, v))
+    if equirect:
+        lon, lat = (u - W / 2) * 2 * np.pi / W, (v - Hh / 2) * np.pi / Hh
+        ray = np.stack([np.cos(lat) * np.sin(lon), np.sin(lat), np.cos(lat) * np.cos(lon)], -1)
+    else:
+        ray = np.stack([(u - 376.0) / 458.0, (v - 240.0) / 458.0, np.ones(M)], -1)
+        ray /= np.linalg.norm(ray, axis=1, keepdims=True)
+    dist = rng.uniform(3.0, 5.0, M)
+    X = ray * dist[:, None]
+    level = rng.integers(0, 8, M)
+    desc = rng.integers(0, 2 ** 32, (M, 8), dtype=np.uint64).astype(np.uint32)
+    lm_f = np.zeros((M, 8), np.float32)
+    lm_f[:, :3] = X
+    # the predicted octave ceil(log(dmax / dist) / log 1.2) half an octave
+    # from a rounding that could move it
+    lm_f[:, 4] = dist * 1.2 ** (level - 0.5)
+    lm_f[:, 3] = lm_f[:, 4] / 1.2 ** 7
+    lm_f[:, 5:] = ray
+    poses = np.zeros((B, 12), np.float32)
+    uv = np.full((B, N, 2), np.nan, np.float32)
+    lvl = np.zeros((B, N), np.int32)
+    kdesc = np.zeros((B, N, 8), np.uint32)
+    valid = np.zeros((B, N), bool)
+    for b in range(B):
+        a = 0.002 * b
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+        t = np.array([-0.02 * b, 0.01 * b, 0.0])
+        poses[b, :9], poses[b, 9:] = R.reshape(9), t
+        puv, _, _ = reproject_to_image(cam.model, cam.params, torch.as_tensor(R),
+                                       torch.as_tensor(t), torch.as_tensor(X))
+        n_lm = min(M, N // 2)
+        slots = rng.permutation(N)
+        own, rest = slots[:n_lm], slots[n_lm:]
+        uv[b, own] = puv.numpy()[:n_lm] + rng.normal(0, 1.0, (n_lm, 2))
+        lvl[b, own] = level[:n_lm]
+        kd = desc[:n_lm].copy()
+        for i, k in enumerate(rng.integers(0, 60, n_lm)):
+            for bit in rng.choice(256, k, replace=False):
+                kd[i, bit // 32] ^= np.uint32(1 << (bit % 32))
+        kdesc[b, own] = kd
+        valid[b, own] = True
+        n_far, n_nan = len(rest) // 10, len(rest) // 10
+        far, nan, clutter = rest[:n_far], rest[n_far:n_far + n_nan], rest[n_far + n_nan:]
+        uv[b, clutter] = np.stack([rng.uniform(0, W, len(clutter)),
+                                   rng.uniform(0, Hh, len(clutter))], -1)
+        uv[b, far] = np.stack([rng.choice([-900.0, -40.0, W + 40.0, W + 900.0], len(far)),
+                               rng.uniform(-600.0, Hh + 600.0, len(far))], -1)
+        valid[b, clutter] = valid[b, far] = True
+        uv[b, nan[: len(nan) // 2], 0] = np.nan  # the rest NaN in both coordinates
+        lvl[b, rest] = rng.integers(0, 8, len(rest))
+        kdesc[b, rest] = rng.integers(0, 2 ** 32, (len(rest), 8), dtype=np.uint64)
+    xr = np.where(rng.random((B, N)) < 0.2, uv[..., 0] - 20.0, -1.0).astype(np.float32)
+    t_ = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    kfs = mk.FuseKeyframes(t_(uv), t_(lvl), t_(kdesc.view(np.int32)), t_(valid), t_(xr))
+    return kern, (kfs, t_(poses), t_(np.arange(B) < B - 1), t_(lm_f),
+                  t_(desc.view(np.int32)), t_(rng.random(M) < 0.95))
+
+
+def same_cells(start, order, want_start, want_order) -> bool:
+    """Whether two cell indexes [B, G + 2], [B, N] hold the same points in
+    each cell (the batched index of kernel L places a cell's points in no
+    fixed order; the plain index in ascending order)."""
+    import torch
+
+    if not torch.equal(start.cpu(), want_start.cpu()):
+        return False
+    start, order = start.cpu().long(), order.cpu().long()
+    N = order.shape[1]
+    for b in range(order.shape[0]):
+        cell = torch.repeat_interleave(torch.arange(start.shape[1] - 1),
+                                       start[b, 1:] - start[b, :-1])
+        key = torch.sort(cell * N + order[b]).values
+        if not torch.equal(key % N, want_order[b].cpu().long()):
+            return False
+    return True
+
+
+def fuse_work(kern, fargs, margin: float, model) -> dict:
+    """Kernel L's work on one chunk, counted in plain torch: gated (keyframe,
+    landmark) pairs, (landmark, keypoint) pairs in the windows, candidates
+    (every gate passed), and the pairs the cell walk visits
+    (fuse_cells_plain)."""
+    from stella_vslam_tpu_torch.match import fuse as fuse_match
+    from stella_vslam_tpu_torch.module import mapping_kernels as mk
+
+    kfs, kf_poses, batch_valid, lm_f, lm_desc, lm_valid = fargs
+    n_gated = n_window = n_cand = 0
+    for b in range(kfs.uv.shape[0]):
+        if not bool(batch_valid[b]):
+            continue
+        uv, xr, pred, g = mk.reproject_for_fuse(kern.cam, kern.log_scale,
+                                                kern.scale_factors.shape[0],
+                                                kf_poses[b, :9].reshape(3, 3), kf_poses[b, 9:12],
+                                                lm_f, lm_valid, model)
+        win, cand = fuse_match.candidate_mask(
+            kfs.uv[b], kfs.level[b], kfs.valid[b], kfs.x_right[b], uv[g], xr[g], pred[g],
+            g[g], scale_factors=kern.scale_factors, level_sigma_sq=kern.level_sigma_sq,
+            margin=margin)
+        n_gated += int(g.sum())
+        n_window += int(win.sum())
+        n_cand += int(cand.sum())
+    *walk, visited = mk.fuse_cells_plain(*fargs, kern.cam, kern.scale_factors,
+                                          kern.level_sigma_sq, kern.log_scale, margin, model)
+    return dict(gated=n_gated, in_window=n_window, candidates=n_cand, visited=visited,
+                walk=walk)
+
+
+def fuse_at_threshold(kern, fargs, margin: float, model, b: int, m: int) -> str:
+    """Which gate of kernel L's (keyframe b, landmark m) the plain prologue
+    puts within rounding of its threshold ("" where none): the image bounds
+    (1e-3 px), the distance range (1e-5 relative), the viewing cosine, the
+    predicted octave's ceil (1e-5 of an octave), or a keypoint's window
+    edge (1e-3 px) or chi-square bound (1e-5 relative) at a level the
+    landmark's octave admits. An ulp of the prologue's projection (CUDA's
+    float expressions against torch's) moves a row only there."""
+    import torch
+
+    from stella_vslam_tpu_torch.camera.base import CameraModel
+    from stella_vslam_tpu_torch.match import fuse as fuse_match
+    from stella_vslam_tpu_torch.module import mapping_kernels as mk
+
+    kfs, poses, _, lm_f, _, _ = fargs
+    cam, L = kern.cam, kern.scale_factors.shape[0]
+    R, t = poses[b, :9].reshape(3, 3), poses[b, 9:12]
+    pos, dmin, dmax, normal = lm_f[m, :3], lm_f[m, 3], lm_f[m, 4], lm_f[m, 5:8]
+    u, v, _, _ = (x[0] for x in mk._reproject(model, cam, R, t, pos[None]))
+    ray = pos - mk._centre(R, t)
+    dist = torch.linalg.norm(ray)
+    cosang = torch.sum(ray * normal) / torch.clamp(dist, min=1e-9)
+    x = torch.log(torch.clamp(dmax, min=1e-9) / torch.clamp(dist, min=1e-9)) / kern.log_scale
+    near = lambda a, thr, tol: abs(float(a) - float(thr)) <= tol
+    if model != CameraModel.EQUIRECTANGULAR:
+        for name, a, thr in (("u", u, 0.0), ("u", u, cam.width), ("v", v, 0.0),
+                             ("v", v, cam.height)):
+            if near(a, thr, 1e-3):
+                return f"image bound {name}"
+    for name, thr in (("dmin / 1.3", dmin / 1.3), ("dmax * 1.3", dmax * 1.3)):
+        if near(dist, thr, 1e-5 * float(dist)):
+            return f"distance {name}"
+    if near(cosang, 0.5, 1e-5):
+        return "viewing cosine"
+    if near(x, torch.round(x), 1e-5):
+        return "octave"
+    pred = int(torch.clamp(torch.ceil(x), 0, L - 1))
+    r = margin * float(kern.scale_factors[pred])
+    du, dv = kfs.uv[b, :, 0] - u, kfs.uv[b, :, 1] - v
+    lvl = kfs.level[b].long()
+    ok = kfs.valid[b] & (lvl >= pred - 1) & (lvl <= pred + 1)
+    inside = (du.abs() <= r + 1e-3) & (dv.abs() <= r + 1e-3)
+    edge = ((du.abs() - r).abs() <= 1e-3) | ((dv.abs() - r).abs() <= 1e-3)
+    if bool((ok & inside & edge).any()):
+        return "a keypoint's window edge"
+    sig = kern.level_sigma_sq[lvl]
+    chi = (du * du + dv * dv) / sig
+    for thr in (fuse_match.CHI_SQ_2D, fuse_match.CHI_SQ_3D):
+        if bool((ok & inside & ((chi - thr).abs() <= 1e-5 * thr)).any()):
+            return "a keypoint's chi-square bound"
+    return ""
+
+
+def check_fuse_chunk(dev, kern, fargs, model_name: str) -> list:
+    """Kernel L (the cell indexes, then the walk) against fuse_scan_plain on
+    a recorded fuse chunk at margins 3 (the keyframe event) and 4 (loop
+    fusion), and on fuse_edge_chunk (landmarks at the image's edges,
+    keypoints outside it, NaN coordinates) at both margins. The walk is
+    exact: the plain cell walk (fuse_cells_plain) must equal the full scan
+    with 0 outputs differing. The kernel's best, index and gate must equal
+    the full scan's on every (keyframe, landmark) row except a row whose
+    plain prologue puts a gate within rounding of its threshold
+    (fuse_at_threshold: CUDA's float expressions against torch's may round
+    it the other way); each such row is printed with its gate, and its
+    chunk is saved to chiprun_out/ so that another tree's kernel can be run
+    on it. L's max_abs_err is the largest share of rows differing over the
+    four checks. Prints the pairs the walk visits beside gated x N. Returns
+    the rows of L and of its cell index, timed on the recorded chunk at
+    margin 3."""
+    import torch
+
+    from stella_vslam_tpu_torch.match import hamming as H
+    from stella_vslam_tpu_torch.module import mapping_kernels as mk
+
+    model = kern.camera.model
+    tag = "" if model_name == "perspective" else "_equirect"
+    cam = kern.cam
+    fixed = lambda kern_, fargs_, margin: fargs_ + (
+        kern_.cam, kern_.scale_factors, kern_.level_sigma_sq, kern_.log_scale, margin,
+        kern_.camera.model)
+    edge_kern, edge_args = fuse_edge_chunk(dev, seed=5, model=model_name)
+    stats = {}
+    for label, kk, aa in (("recorded", kern, fargs), ("edge", edge_kern, edge_args)):
+        for margin in (3.0, 4.0):
+            largs = fixed(kk, aa, margin)
+            before = mk.fuse_scan.launches, H.build_cell_index_batch.launches
+            lk = mk.fuse_scan(*largs)
+            torch.cuda.synchronize()
+            assert (mk.fuse_scan.launches, H.build_cell_index_batch.launches) == \
+                (before[0] + 1, before[1] + 1), "kernel L: one index and one walk a call"
+            lp = mk.fuse_scan_plain(*largs)
+            work = fuse_work(kk, aa, margin, kk.camera.model)
+            rows = torch.nonzero((lk[0] != lp[0]) | (lk[1] != lp[1]) | (lk[2] != lp[2])).tolist()
+            differ = len(rows)
+            at_thr = [fuse_at_threshold(kk, aa, margin, kk.camera.model, b, m) for b, m in rows]
+            for (b, m), why in zip(rows, at_thr):
+                print(f"  kernel L ({model_name}, {label}, margin {margin:g}) keyframe {b} "
+                      f"landmark {m}: kernel {[int(x[b, m]) for x in lk]}, plain "
+                      f"{[int(x[b, m]) for x in lp]}; at a threshold: {why or 'none'}")
+            walk_differ = int(sum(int((x != y).sum()) for x, y in zip(work.pop("walk"), lp)))
+            N = aa[0].uv.shape[1]
+            acc, acc_p = mk.accept_fused(*lk, N), mk.accept_fused(*lp, N)
+            stats[f"{label}_margin{int(margin)}"] = dict(
+                chunk=f"{aa[0].uv.shape[0]}x{aa[3].shape[0]}x{N}",
+                keyframes=int(aa[2].sum()), landmarks=int(aa[5].sum()),
+                outputs_differing=differ, outputs_differing_at_a_threshold=sum(map(bool, at_thr)),
+                rows_differing_share=differ / lk[2].numel(),
+                accepted_flags_differing_share=float((acc != acc_p).float().mean()),
+                cell_walk_plain_differing=walk_differ,
+                accepted=int(acc.sum()), gated_times_n=work["gated"] * N, **work)
+            if differ:
+                torch.save(dict(model=model_name, num_levels=int(kk.scale_factors.shape[0]),
+                                margin=margin, rows=rows, kfs=[t.cpu() for t in aa[0]],
+                                rest=[t.cpu() for t in aa[1:6]]),
+                           os.path.join(OUT_DIR, f"fuse_chunk_{model_name}_{label}_margin"
+                                        f"{int(margin)}_differing.pt"))
+            print(f"kernel L fuse ({model_name}, {label} chunk {aa[0].uv.shape[0]}x"
+                  f"{aa[3].shape[0]}, N={N}, margin {margin:g}): {work['gated']} gated, pairs "
+                  f"visited {work['visited']} (of {work['gated'] * N} gated x N), "
+                  f"{work['in_window']} in a window, {work['candidates']} candidates, "
+                  f"{int(acc.sum())} accepted; outputs differing from the full scan {differ} "
+                  f"({sum(map(bool, at_thr))} at a threshold of the prologue's gates), the "
+                  f"plain cell walk's {walk_differ}")
+            # the walk is exact (the plain cell walk equals the full scan);
+            # the kernel's prologue may round a gate that sits at its
+            # threshold the other way, as the parent's did
+            assert walk_differ == 0 and all(at_thr), \
+                f"kernel L disagrees with its plain version ({model_name}, {label}, {margin})"
+        if label == "recorded":
+            torch.save(dict(model=model_name, num_levels=int(kk.scale_factors.shape[0]),
+                            kfs=[t.cpu() for t in aa[0]], rest=[t.cpu() for t in aa[1:6]]),
+                       os.path.join(OUT_DIR, f"fuse_chunk_{model_name}.pt"))
+    # the cell indexes against one plain index a keyframe, as sets a cell
+    for label, aa, cc in (("recorded", fargs, cam), ("edge", edge_args, edge_kern.cam)):
+        uv = aa[0].uv
+        start, order, *_ = H.build_cell_index_batch(uv, cc.width, cc.height)
+        plain = [H.build_cell_index_plain(x[:, 0], x[:, 1], cc.width, cc.height) for x in uv]
+        ok = same_cells(start, order, torch.stack([p.start for p in plain]),
+                        torch.stack([p.order for p in plain]))
+        print(f"kernel L's cell indexes ({model_name}, {label} chunk): the same points in "
+              f"each cell as the plain index: {ok}")
+        assert ok, f"kernel L's cell indexes disagree with plain ({model_name}, {label})"
+    # times on the recorded chunk at margin 3
+    kfs, kf_poses, batch_valid, lm_f, lm_desc, lm_valid = fargs
+    largs = fixed(kern, fargs, 3.0)
+    Bf, N, M = kfs.uv.shape[0], kfs.uv.shape[1], lm_f.shape[0]
+    work = stats["recorded_margin3"]
+    cells = H.build_cell_index_batch(kfs.uv, cam.width, cam.height)
+    prologue = 90.0 if model_name == "perspective" else 140.0
+    # bytes: the keypoint fields (uv, level, descriptor, flag, x_right) and
+    # their sorted order read once, poses, landmark rows, the output; ops:
+    # the prologue per (keyframe, landmark), ~15 a visited pair's gates
+    # where it lies in the window (the cell walk's rejects are not needed
+    # work), 24 a candidate's Hamming distance
+    l_bytes = Bf * N * 53.0 + Bf * 49.0 + M * 65.0 + Bf * M * 12.0
+    l_ops = prologue * Bf * M + 15.0 * work["in_window"] + 24.0 * work["candidates"]
+    rows = [dict(
+        name="fuse" + tag, route="cuda",
+        source="stella_vslam_tpu_torch/csrc/fuse.cu + cells.cuh"
+        + ("" if model_name == "perspective" else " + camera.cuh"),
+        replaces="stella_vslam_tpu/module/mapping_kernels.py:228",
+        max_abs_err=max(s["rows_differing_share"] for s in stats.values()),
+        max_abs_err_is="the largest share of (keyframe, landmark) rows whose outputs differ "
+        "from fuse_scan_plain over the four checks",
+        rows_differing_at_a_threshold=sum(s["outputs_differing_at_a_threshold"]
+                                          for s in stats.values()),
+        shape=f"{Bf}x{M}x{N}", checks=stats, pairs_visited=work["visited"],
+        pairs_full_scan=work["gated_times_n"],
+        **_times(lambda: mk.fuse_scan(*largs)),
+        plain_ms=_median_ms(lambda: mk.fuse_scan_plain(*largs), reps=5, warmup=1),
+        cell_walk_plain_ms=_median_ms(lambda: mk.fuse_cells_plain(*largs), reps=3, warmup=1),
+        library_ms=None, timing_call="ms and one_call_ms: the call, its cell index "
+        "(fuse_cell_index's row) and the walk", bound_ms_all_pairs=_bound(
+            l_bytes, l_ops + 10.0 * work["gated"] * N)["bound_ms"], **_bound(l_bytes, l_ops))]
+    G = cells[3] * cells[4]
+    ids = torch.where(torch.isnan(kfs.uv).any(-1), G, (torch.floor(kfs.uv[..., 1] * cells[2])
+                      .nan_to_num(0).clamp(0, cells[4] - 1) * cells[3]
+                      + torch.floor(kfs.uv[..., 0] * cells[2]).nan_to_num(0)
+                      .clamp(0, cells[3] - 1)).long())
+    rows.append(dict(
+        name="fuse_cell_index" + tag, route="cuda",
+        source="stella_vslam_tpu_torch/csrc/hamming_top2.cu (cell_index_kernel) + "
+        "cells.cuh",
+        replaces="stella_vslam_tpu/match/fuse.py:26 (the windows of its [M,N] masks)",
+        note="kernel C's cell index kernel, a block a keyframe",
+        max_abs_err=0.0, shape=f"{Bf} x {N} keypoints, {G} cells",
+        **_times(lambda: H.build_cell_index_batch(kfs.uv, cam.width, cam.height)),
+        plain_ms=_median_ms(lambda: [H.build_cell_index_plain(
+            kfs.uv[b, :, 0], kfs.uv[b, :, 1], cam.width, cam.height) for b in range(Bf)],
+            reps=5),
+        library_ms=_device_ms(lambda: torch.argsort(ids, dim=1, stable=True)),
+        library_call="torch.argsort (stable) of the keypoints' cell ids",
+        **_bound(Bf * N * (8.0 + 4.0) + Bf * (G + 2) * 4.0, 20.0 * Bf * N)))
+    return rows
+
+
 def check_mapping_kernels(dev, mapper, inputs):
     """Kernels J, K and L against their plain versions on the map slice's
     own inputs (the triangulation with the most neighbours, the fuse chunk
@@ -1759,49 +2097,8 @@ def check_mapping_kernels(dev, mapper, inputs):
         **_bound(N1 * 24.0 + B * N2 * 24.0 + B * N1 * 5.0 + (B + 1) * 48.0
                  + B * N1 * 17.0, 400.0 * B * N1)))
 
-    # ---- L: fuse reprojection and duplicate scan, one chunk ----
-    kfs, kf_poses, batch_valid, lm_f, lm_desc, lm_valid = fargs
-    largs = (kfs, kf_poses, batch_valid, lm_f, lm_desc, lm_valid, kern.cam,
-             kern.scale_factors, kern.level_sigma_sq, kern.log_scale)
-    Bf, N, M = kfs.uv.shape[0], kfs.uv.shape[1], lm_f.shape[0]
-    lk, lp = mk.fuse_scan(*largs), mk.fuse_scan_plain(*largs)
-    acc_k = mk.accept_fused(*lk, N)
-    acc_p = mk.accept_fused(*lp, N)
-    share_l = float((acc_k != acc_p).float().mean())
-    scan_differ = float(((lk[0] != lp[0]) | (lk[1] != lp[1]) | (lk[2] != lp[2]))
-                        .float().mean())
-    # this run's work: the prologue per (keyframe, landmark); the window test
-    # per gated pair; level, validity and chi-square per pair in the window;
-    # the Hamming distance per candidate
-    n_gated = n_window = n_cand_l = 0
-    for b in range(Bf):
-        if not bool(batch_valid[b]):
-            continue
-        R, t = kf_poses[b, :9].reshape(3, 3), kf_poses[b, 9:12]
-        uv, xr, pred, g = mk.reproject_for_fuse(kern.cam, kern.log_scale,
-                                                kern.scale_factors.shape[0], R, t,
-                                                lm_f, lm_valid)
-        win, cand = fuse_match.candidate_mask(
-            kfs.uv[b], kfs.level[b], kfs.valid[b], kfs.x_right[b], uv[g], xr[g], pred[g],
-            g[g], scale_factors=kern.scale_factors, level_sigma_sq=kern.level_sigma_sq)
-        n_gated += int(g.sum())
-        n_window += int(win.sum())
-        n_cand_l += int(cand.sum())
-    torch.cuda.synchronize()
-    print(f"kernel L fuse: {int(batch_valid.sum())} keyframes x {int(lm_valid.sum())} "
-          f"landmarks (chunk {Bf}x{M}, N={N}), {n_gated} gated, {n_window} pairs in "
-          f"window, {n_cand_l} candidates, {int(acc_k.sum())} accepted (plain "
-          f"{int(acc_p.sum())}); accepted flags differing {share_l:.6f}, scan outputs "
-          f"differing {scan_differ:.6f}")
-    assert share_l <= 1e-3, "kernel L disagrees with its plain version"
-    rows.append(dict(
-        name="fuse", route="cuda", source="stella_vslam_tpu_torch/csrc/fuse.cu",
-        replaces="stella_vslam_tpu/module/mapping_kernels.py:228", max_abs_err=share_l,
-        **_times(lambda: mk.fuse_scan(*largs)),
-        plain_ms=_median_ms(lambda: mk.fuse_scan_plain(*largs), reps=5, warmup=1),
-        library_ms=None,
-        **_bound(Bf * N * 49.0 + Bf * 49.0 + M * 65.0 + Bf * M * 12.0,
-                 90.0 * Bf * M + 10.0 * n_gated * N + 12.0 * n_window + 24.0 * n_cand_l)))
+    # ---- L: the fuse chunk's cell indexes and walk, margins 3 and 4 ----
+    rows += check_fuse_chunk(dev, kern, fargs, "perspective")
 
     # ---- F-I at the local-BA shape ----
     prob, cam = _ba_problem(dev, 16, 4096, 12, False, 16, spacing=0.1, ordered=True)
@@ -3560,6 +3857,9 @@ def run_threaded_slice(dev, world, wrappers, card):
     for name, n in launches.items():
         assert n > 0 or name in STEREO_KERNELS + EQUIRECT_KERNELS + DISTORTED_KERNELS \
             + FBOW_KERNELS + SHARDED_KERNELS, f"{name} was not launched by the threaded slice"
+    # kernel S: one launch a frame, the pyramid's every level (A's launches)
+    assert launches["resize_pyramid"] == launches["fast_nms_pyramid"], \
+        "kernel S: not one launch a frame on the threaded slice"
     return stats, launches, slam, calls
 
 
@@ -3880,6 +4180,125 @@ def _check_stereo_call(args, kw, label, verbose=True):
     return n_diff, err, int(mk.sum()), int(cand.sum()), band_pairs(cells), sad_rows
 
 
+def pyramid_cases(dev, ex, pair):
+    """Kernel S's shapes: (label, extractor, images [B, H, W] on dev) for a
+    752x480 bench frame and the stereo pair (8 levels), the pair as f32 with
+    fractional values (the rectifier's dtype), the equirectangular leg's
+    640x320 frame (6 levels), a 1280x720 frame (8 levels) and a seeded
+    1920x960 u8 image at 6 levels (the equirectangular camera kernel Q's
+    12839 slots come from)."""
+    import torch
+
+    from stella_vslam_tpu_torch.feature import orb_extractor as ox
+    from stella_vslam_tpu_torch.feature.orb_params import OrbParams
+    from stella_vslam_tpu_torch.util import equirect_slice as es
+    from stella_vslam_tpu_torch.util.drift import pose_at_xy
+    from stella_vslam_tpu_torch.util.synthetic import equirect_circle
+
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    g = np.random.default_rng(15)
+    ee = ox.OrbExtractor(OrbParams(num_levels=6), 640, 320, min_area=800, device=dev)
+    hw = hd_world()
+    eh = ox.OrbExtractor(OrbParams(num_levels=8), hw.W, hw.H, min_area=800, device=dev)
+    e19 = ox.OrbExtractor(OrbParams(num_levels=6), 1920, 960, min_area=800, device=dev)
+    frac = pair.to(torch.float32) + up(g.random(tuple(pair.shape), np.float32))
+    return [("752x480, 8 levels", ex, pair[:1]), ("stereo pair 2 x 752x480", ex, pair),
+            ("stereo pair, f32 input", ex, frac.contiguous()),
+            ("equirect 640x320, 6 levels", ee,
+             up(es.bench_world().render(equirect_circle(250)[0][0])[None])),
+            ("1280x720, 8 levels", eh, up(hw.render(pose_at_xy(0.6, 0.0))[None])),
+            ("1920x960, 6 levels", e19, up(g.integers(0, 256, (1, 960, 1920), np.uint8)))]
+
+
+def _pyramid_bytes(ex, images) -> float:
+    """Kernel S's bytes: level 0 read once in its dtype, every level written
+    once as f32."""
+    B, H0, W0 = images.shape
+    return B * (H0 * W0 * images.element_size() + 4.0 * ex.pyramid_size)
+
+
+def check_pyramid_kernel(dev, ex, ex_cpu, imgs, pair) -> dict:
+    """Kernel S against its two-tap plain version (resize_level_taps_plain
+    on the CPU) at every shape of pyramid_cases, bit for bit, one launch a
+    call, with the pixels its tiles' halos compute twice; on the stereo
+    pair also against the two torch.matmul per level on the card (cuBLAS)
+    and on the CPU, and kernel A's cell keys on its levels against the
+    cuBLAS pyramid's. Returns S's row (timed on the pair)."""
+    import torch
+
+    from stella_vslam_tpu_torch.feature import orb_extractor as ox
+
+    shapes = {}
+    for label, e, images in pyramid_cases(dev, ex, pair):
+        before = ox.resize_pyramid.launches
+        pyr = e.pyramid_flat(images)
+        torch.cuda.synchronize()
+        assert ox.resize_pyramid.launches == before + 1, "kernel S: one launch a call"
+        pyr = pyr.cpu()
+        n_diff = 0
+        for b in range(images.shape[0]):
+            want = torch.cat([x.reshape(-1) for x in e.pyramid_taps_plain(images[b].cpu())])
+            n_diff += int((pyr[b] != want).sum())
+        lvl_px = sum(g.H * g.W for g in e.levels[1:])
+        plan = e.pyramid_plan_for(images.shape[0])
+        shapes[label] = dict(
+            pixels=images.shape[0] * e.pyramid_size, pixels_differing=n_diff,
+            pixels_computed_twice=images.shape[0] * (plan.computed - lvl_px),
+            tile=plan.tile, block=f"32x{plan.block_rows}",
+            blocks=images.shape[0] * plan.rows.shape[0] * plan.cols.shape[0],
+            smem_bytes=plan.smem_bytes,
+            ms=_device_ms(lambda: e.pyramid_flat(images)),
+            bound_ms=_bound(_pyramid_bytes(e, images), 0.0)["bound_ms"])
+        print(f"kernel S resize_pyramid {label}: {n_diff} of {shapes[label]['pixels']} pixels "
+              f"differ from the two-tap plain; {shapes[label]['pixels_computed_twice']} "
+              f"pixels computed twice (halos), {shapes[label]['blocks']} blocks of "
+              f"{shapes[label]['block']} (tile {plan.tile}), "
+              f"{shapes[label]['ms']:.5f} ms device (bound {shapes[label]['bound_ms']:.5f})")
+        assert n_diff == 0, f"kernel S disagrees with its two-tap plain version ({label})"
+    # against the matmul pyramids, and kernel A's keys, on the stereo pair
+    params = ex.params
+    thr = (float(params.ini_fast_thr), float(params.min_fast_thr))
+    n_px = n_diff = n_cpu_diff = keys = keys_moved = 0
+    max_diff = 0.0
+    for img in imgs:
+        pk, pp = ex.pyramid(img), ex.pyramid_plain(img)
+        pc = ex_cpu.pyramid_plain(img.cpu())
+        for lvl, (a, b, c, g) in enumerate(zip(pk, pp, pc, ex.levels)):
+            if lvl:
+                n_px += a.numel()
+                n_diff += int((a != b).sum())
+                n_cpu_diff += int((a.cpu() != c).sum())
+                max_diff = max(max_diff, float((a - b).abs().max()))
+            ka = ox.fast_nms(a.contiguous(), g, ex.border, *thr)
+            kb = ox.fast_nms(b.contiguous(), g, ex.border, *thr)
+            keys += ka.numel()
+            keys_moved += int((ka != kb).sum())
+    torch.cuda.synchronize()
+    print(f"kernel S resize_pyramid: levels 1-7 of 2 frames, {n_px} pixels: {n_diff} "
+          f"({n_diff / n_px:.4%}) differ from cuBLAS's matmul, max |diff| {max_diff:.3g}; "
+          f"{n_cpu_diff} differ from the CPU's matmul; kernel A's cell keys moved "
+          f"{keys_moved} of {keys} ({keys_moved / keys:.4%})")
+    assert max_diff <= 1e-4, "kernel S disagrees with the matmul pyramid"
+    assert keys_moved <= 0.005 * keys, "kernel S moves kernel A's keys"
+    plain_pair = lambda: [ex.pyramid_plain(i) for i in imgs]
+    plain_ms = _median_ms(plain_pair)
+    pair_case = shapes["stereo pair 2 x 752x480"]
+    return dict(
+        name="resize_pyramid", route="cuda", source="stella_vslam_tpu_torch/csrc/resize.cu",
+        replaces="stella_vslam_tpu/feature/orb_extractor.py:118",
+        max_abs_err=0.0, max_abs_err_cublas=max_diff, pixels_differing_cublas=n_diff,
+        pixels=n_px, pixels_differing_cpu_matmul=n_cpu_diff, fast_keys_moved=keys_moved,
+        fast_keys=keys, pixels_computed_twice=pair_case["pixels_computed_twice"],
+        shape="2 x 752x480, 8 levels (the stereo pair), one launch for every level of both",
+        shapes=shapes, **_times(lambda: ex.pyramid_flat(pair)),
+        ms_one_image=_device_ms(lambda: ex.pyramid_flat(pair[:1])),
+        one_call_ms_one_image=_median_ms(lambda: ex.pyramid_flat(pair[:1])),
+        plain_ms=plain_ms, library_ms=_device_ms(plain_pair), library_one_call_ms=plain_ms,
+        library_call="two torch.matmul a level (the plain pyramid)",
+        **_bound(_pyramid_bytes(ex, pair),
+                 2 * 6.0 * sum(g.H * g.W for g in ex.levels[1:])))
+
+
 def check_stereo_kernels(dev, world):
     """Kernel S (the pyramid resize), B's strip mode and kernel T (the
     stereo matcher) against their plain versions at the stereo leg's
@@ -3899,46 +4318,9 @@ def check_stereo_kernels(dev, world):
     imgs = [torch.from_numpy(world.render(pose_at_xy(x, 0.0))).to(dev) for x in (0.6, 3.0)]
     pair = torch.stack(imgs)
 
-    # ---- S: the pyramid, against the two torch.matmul per level ----
+    # ---- S: the whole pyramid in one launch, at every shape ----
     thr = (float(params.ini_fast_thr), float(params.min_fast_thr))
-    n_px = n_diff = n_cpu_diff = keys = keys_moved = 0
-    max_diff = 0.0
-    for img in imgs:
-        pk, pp = ex.pyramid(img), ex.pyramid_plain(img)
-        pc = ex_cpu.pyramid_plain(img.cpu())
-        for lvl, (a, b, c, g) in enumerate(zip(pk, pp, pc, ex.levels)):
-            if lvl:
-                n_px += a.numel()
-                n_diff += int((a != b).sum())
-                n_cpu_diff += int((a.cpu() != c).sum())
-                max_diff = max(max_diff, float((a - b).abs().max()))
-            ka = ox.fast_nms(a.contiguous(), g, ex.border, *thr)
-            kb = ox.fast_nms(b.contiguous(), g, ex.border, *thr)
-            keys += ka.numel()
-            keys_moved += int((ka != kb).sum())
-    torch.cuda.synchronize()
-    print(f"kernel S resize_level: levels 1-7 of 2 frames, {n_px} pixels: {n_diff} "
-          f"({n_diff / n_px:.4%}) differ from cuBLAS's matmul, max |diff| {max_diff:.3g}; "
-          f"{n_cpu_diff} differ from the CPU's matmul; kernel A's cell keys moved "
-          f"{keys_moved} of {keys} ({keys_moved / keys:.4%})")
-    assert max_diff <= 1e-4, "kernel S disagrees with the matmul pyramid"
-    assert keys_moved <= 0.005 * keys, "kernel S moves kernel A's keys"
-    lvl_px = [g.H * g.W for g in ex.levels]
-    s_bytes = 2 * 4.0 * sum(lvl_px[l - 1] + lvl_px[l] for l in range(1, len(lvl_px)))
-    plain_pair = lambda: [ex.pyramid_plain(i) for i in imgs]
-    plain_ms = _median_ms(plain_pair)
-    rows.append(_per_launch(dict(
-        name="resize_level", route="cuda", source="stella_vslam_tpu_torch/csrc/resize.cu",
-        replaces="stella_vslam_tpu/feature/orb_extractor.py:118",
-        max_abs_err=max_diff, pixels_differing_cublas=n_diff, pixels=n_px,
-        pixels_differing_cpu_matmul=n_cpu_diff, fast_keys_moved=keys_moved, fast_keys=keys,
-        shape="2 x 752x480, 8 levels (the stereo pair), one launch a level for both",
-        **_times(lambda: ex.pyramid_flat(pair)),
-        ms_one_image=_median_ms(lambda: ex.pyramid_flat(pair[:1])),
-        plain_ms=plain_ms, library_ms=_device_ms(plain_pair), library_one_call_ms=plain_ms,
-        library_call="two torch.matmul a level (the plain pyramid)",
-        **_bound(s_bytes, 2 * 6.0 * sum(lvl_px[1:]))),
-        ox.resize_level, lambda: ex.pyramid_flat(pair)))
+    rows.append(check_pyramid_kernel(dev, ex, ex_cpu, imgs, pair))
 
     # ---- B's strip mode: both images of a pair ----
     pyr = ex.pyramid_flat(pair)
@@ -4027,10 +4409,11 @@ def record_stereo_inputs(sample: int = 20):
 
 
 # what the stereo leg and the RGBD leg with mapping launch
-LEG_KERNELS = ("resize_level", "fast_nms_pyramid", "hamming_top2", "cell_index", "pose_lm",
+LEG_KERNELS = ("resize_pyramid", "fast_nms_pyramid", "hamming_top2", "cell_index", "pose_lm",
                "scatter_to_current", "dedup_by_id", "project_window_rows", "undistort_norm",
-               "epipolar_top2", "triangulate", "fuse", "ba_linearize_schur", "schur_index",
-               "ba_reduced_solve", "ba_backsub_cost", "ba_classify", "bow_transform")
+               "epipolar_top2", "triangulate", "fuse", "fuse_cell_index", "ba_linearize_schur",
+               "schur_index", "ba_reduced_solve", "ba_backsub_cost", "ba_classify",
+               "bow_transform")
 
 
 def run_stereo_legs(dev, world, wrappers, card):
@@ -4069,6 +4452,8 @@ def run_stereo_legs(dev, world, wrappers, card):
         own = STEREO_KERNELS if setup == "stereo" else ("orb_describe",)
         for name in LEG_KERNELS + own:
             assert launches[setup][name] > 0, f"{name} was not launched by the {setup} leg"
+        assert launches[setup]["resize_pyramid"] == launches[setup]["fast_nms_pyramid"], \
+            f"kernel S: not one launch a frame on the {setup} leg"
         if setup == "stereo":
             torch.cuda.synchronize()
             res = [_check_stereo_call(args, kw, "stereo leg call", verbose=False)
@@ -4145,24 +4530,25 @@ def run_hd_slice(dev, wrappers, card, n_frames: int = 30):
     return stats, launches
 
 
-EQUIRECT_LEG_KERNELS = ("resize_level", "fast_nms_pyramid", "orb_describe", "hamming_top2",
+EQUIRECT_LEG_KERNELS = ("resize_pyramid", "fast_nms_pyramid", "orb_describe", "hamming_top2",
                         "cell_index", "pose_lm", "ransac_two_view", "scatter_to_current",
                         "dedup_by_id", "project_window_rows", "epipolar_top2", "triangulate",
-                        "fuse", "ba_linearize_schur", "schur_index", "ba_reduced_solve",
-                        "ba_backsub_cost", "ba_classify", "bow_transform")
+                        "fuse", "fuse_cell_index", "ba_linearize_schur", "schur_index",
+                        "ba_reduced_solve", "ba_backsub_cost", "ba_classify", "bow_transform")
 # the rows of the equirectangular modes and of the kernels the leg runs
 # unchanged, held at its own shapes, by the counter they read
 EQUIRECT_ROWS = {"project_window_rows_equirect": "project_window_rows",
                  "project_window_rows_equirect_points": "project_window_rows",
                  "pose_lm_equirect": "pose_lm",
                  "triangulate_equirect": "triangulate", "fuse_equirect": "fuse",
+                 "fuse_cell_index_equirect": "fuse_cell_index",
                  "ransac_two_view_essential": "ransac_two_view",
                  "ransac_two_view_essential_escalated": "ransac_two_view",
                  "essential_5pt": "essential_5pt",
                  **{f"ba_{k}_equirect": f"ba_{k}" for k in (
                      "linearize_schur", "reduced_solve", "backsub_cost", "classify")},
                  **{f"{k}_equirect_leg": k for k in (
-                     "resize_level", "fast_nms_pyramid", "orb_describe", "epipolar_top2",
+                     "resize_pyramid", "fast_nms_pyramid", "orb_describe", "epipolar_top2",
                      "bow_transform", "scatter_to_current", "dedup_by_id")},
                  "hamming_top2_equirect_leg": "hamming_top2_window"}
 # kernel U's candidates against its plain version's, as sets, up to sign:
@@ -4313,8 +4699,10 @@ def check_equirect_shapes(dev, slam_like, calls):
     shape = f"{ex.width}x{ex.height}, {L} levels, {ex.num_slots} slots"
     thr = (float(params.ini_fast_thr), float(params.min_fast_thr))
 
-    # ---- S: the pyramid, against the matmul pyramid ----
+    # ---- S: the pyramid, against its two-tap plain and the matmul pyramid ----
     pk, pp = ex.pyramid(img), ex.pyramid_plain(img)
+    pt = ex.pyramid_taps_plain(img.cpu())
+    n_taps = sum(int((a.cpu() != b).sum()) for a, b in zip(pk, pt))
     n_px = sum(a.numel() for a in pk[1:])
     n_diff = sum(int((a != b).sum()) for a, b in zip(pk[1:], pp[1:]))
     max_s = max(float((a - b).abs().max()) for a, b in zip(pk[1:], pp[1:]))
@@ -4324,22 +4712,24 @@ def check_equirect_shapes(dev, slam_like, calls):
         keys += ka.numel()
         moved += int((ka != ox.fast_nms(b.contiguous(), g, ex.border, *thr)).sum())
     torch.cuda.synchronize()
-    print(f"kernel S resize_level at the equirect leg's shape ({shape}): {n_px} pixels of "
-          f"levels 1-{L - 1}, {n_diff} differ from the matmul's, max |diff| {max_s:.3g}; kernel "
-          f"A's cell keys moved {moved} of {keys}")
+    print(f"kernel S resize_pyramid at the equirect leg's shape ({shape}): {n_taps} pixels "
+          f"differ from the two-tap plain; {n_px} pixels of levels 1-{L - 1}, {n_diff} differ "
+          f"from the matmul's, max |diff| {max_s:.3g}; kernel A's cell keys moved {moved} of "
+          f"{keys}")
+    assert n_taps == 0, "kernel S disagrees with its two-tap plain version at the leg's shape"
     assert max_s <= 1e-4 and moved <= 0.005 * keys, "kernel S disagrees at the leg's shape"
-    lvl_px = [g.H * g.W for g in ex.levels]
     plain_s = _median_ms(lambda: ex.pyramid_plain(img))
-    rows.append(_per_launch(dict(
-        name="resize_level_equirect_leg", route="cuda",
+    rows.append(dict(
+        name="resize_pyramid_equirect_leg", route="cuda",
         source="stella_vslam_tpu_torch/csrc/resize.cu",
-        replaces="stella_vslam_tpu/feature/orb_extractor.py:118", max_abs_err=max_s,
-        pixels_differing_cublas=n_diff, pixels=n_px, fast_keys_moved=moved, fast_keys=keys,
-        shape=shape + ", one launch a level", **_times(lambda: ex.pyramid(img)),
+        replaces="stella_vslam_tpu/feature/orb_extractor.py:118", max_abs_err=0.0,
+        max_abs_err_cublas=max_s, pixels_differing_cublas=n_diff, pixels=n_px,
+        fast_keys_moved=moved, fast_keys=keys,
+        pixels_computed_twice=ex.pyramid_plan_for(1).computed - n_px,
+        shape=shape + ", one launch for every level", **_times(lambda: ex.pyramid(img)),
         plain_ms=plain_s, library_ms=_device_ms(lambda: ex.pyramid_plain(img)),
         library_one_call_ms=plain_s, library_call="two torch.matmul a level (the plain pyramid)",
-        **_bound(4.0 * sum(lvl_px[l - 1] + lvl_px[l] for l in range(1, L)),
-                 6.0 * sum(lvl_px[1:]))), ox.resize_level, lambda: ex.pyramid(img)))
+        **_bound(_pyramid_bytes(ex, img[None]), 6.0 * n_px)))
 
     # ---- A: FAST + NMS on every level, one launch ----
     pyr = torch.cat([l.reshape(-1) for l in pk])[None]
@@ -4587,44 +4977,7 @@ def check_equirect_kernels(dev, slam_like, calls):
         library_ms=None,
         **_bound(N1 * 24.0 + B * nbrs.desc.shape[1] * 24.0 + B * N1 * 5.0 + (B + 1) * 48.0
                  + B * N1 * 17.0, 450.0 * B * N1)))
-    kfs, kf_poses, batch_valid, lm_f, lm_desc, lm_valid = fargs
-    largs = (kfs, kf_poses, batch_valid, lm_f, lm_desc, lm_valid, kern.cam,
-             kern.scale_factors, kern.level_sigma_sq, kern.log_scale, 3.0, model)
-    Bf, Nk, M = kfs.uv.shape[0], kfs.uv.shape[1], lm_f.shape[0]
-    lk, lp = mk.fuse_scan(*largs), mk.fuse_scan_plain(*largs)
-    acc_k, acc_p = mk.accept_fused(*lk, Nk), mk.accept_fused(*lp, Nk)
-    share_l = float((acc_k != acc_p).float().mean())
-    # this run's work, as kernel L's row counts it
-    n_gated = n_window = n_cand_l = 0
-    for b in range(Bf):
-        if not bool(batch_valid[b]):
-            continue
-        uv, xr, pred, g = mk.reproject_for_fuse(kern.cam, kern.log_scale,
-                                                kern.scale_factors.shape[0],
-                                                kf_poses[b, :9].reshape(3, 3), kf_poses[b, 9:12],
-                                                lm_f, lm_valid, model)
-        win, cand = fuse_match.candidate_mask(
-            kfs.uv[b], kfs.level[b], kfs.valid[b], kfs.x_right[b], uv[g], xr[g], pred[g],
-            g[g], scale_factors=kern.scale_factors, level_sigma_sq=kern.level_sigma_sq)
-        n_gated += int(g.sum())
-        n_window += int(win.sum())
-        n_cand_l += int(cand.sum())
-    torch.cuda.synchronize()
-    print(f"kernel L fuse (equirectangular): {int(batch_valid.sum())} keyframes x "
-          f"{int(lm_valid.sum())} landmarks (chunk {Bf}x{M}, N={Nk}), {int(acc_k.sum())} "
-          f"accepted (plain {int(acc_p.sum())}); accepted flags differing {share_l:.6f}")
-    assert share_l <= 1e-3, "kernel L's equirectangular mode disagrees with its plain version"
-    rows.append(dict(
-        name="fuse_equirect", route="cuda", source="stella_vslam_tpu_torch/csrc/fuse.cu + "
-        "camera.cuh", replaces="stella_vslam_tpu/module/mapping_kernels.py:228",
-        max_abs_err=share_l, shape=f"{Bf}x{M}x{Nk}",
-        **_times(lambda: mk.fuse_scan(*largs)),
-        plain_ms=_median_ms(lambda: mk.fuse_scan_plain(*largs), reps=5, warmup=1),
-        library_ms=None,
-        # as kernel L's row, with ~140 operations for the prologue's
-        # trigonometry per (keyframe, landmark)
-        **_bound(Bf * Nk * 49.0 + Bf * 49.0 + M * 65.0 + Bf * M * 12.0,
-                 140.0 * Bf * M + 10.0 * n_gated * Nk + 12.0 * n_window + 24.0 * n_cand_l)))
+    rows += check_fuse_chunk(dev, kern, fargs, "equirectangular")
 
     # ---- F-I: the leg's init and local bundle adjustments ----
     probs = [q for q in calls["bundle_adjust"] if q.cam_R.shape[0] == 2][:1] + local[:4]
@@ -4782,11 +5135,11 @@ DISTORTED_KERNELS = ("undistort_fisheye", "undistort_radial")
 # kernel V: the FBoW leg's own
 FBOW_KERNELS = ("fbow_transform",)
 # what every distorted leg launches (R's mode of its model besides)
-DISTORTED_LEG_KERNELS = ("resize_level", "fast_nms_pyramid", "orb_describe", "hamming_top2",
+DISTORTED_LEG_KERNELS = ("resize_pyramid", "fast_nms_pyramid", "orb_describe", "hamming_top2",
                          "cell_index", "pose_lm", "ransac_two_view", "scatter_to_current",
                          "dedup_by_id", "project_window_rows", "epipolar_top2", "triangulate",
-                         "fuse", "ba_linearize_schur", "schur_index", "ba_reduced_solve",
-                         "ba_backsub_cost", "ba_classify", "bow_transform")
+                         "fuse", "fuse_cell_index", "ba_linearize_schur", "schur_index",
+                         "ba_reduced_solve", "ba_backsub_cost", "ba_classify", "bow_transform")
 # the rows whose launches are a distorted leg's (and its counter there)
 DISTORTED_ROWS = {"undistort_fisheye": ("fisheye", "undistort_fisheye"),
                   "undistort_radial": ("radial_division", "undistort_radial"),

@@ -10,17 +10,20 @@
 // passes over the rows.
 //
 // On Hopper, three kernels:
-//  - cell_index_kernel (svt_cell_index): one block sorts the N targets by a
-//    grid cell of their (u, v) (a stable counting sort: each warp counts
-//    its contiguous share of the targets per cell, one scan orders the
-//    (cell, warp) counts, each warp places its targets by rank within its
-//    share). Targets outside the grid go to its border cells (the clamp of
-//    the cell coordinate), so fisheye and division coordinates far outside
-//    the image are still found; targets with a NaN coordinate go to a
-//    bucket after every cell, which no window reaches (no window test
-//    passes for them in the dense walk either). The wrapper builds the
-//    index of a window call's targets over the window's image extent, then
-//    launches the walk.
+//  - cell_index_kernel (svt_cell_index): the targets sorted by a grid cell
+//    of their (u, v), one block of 1024 threads per set of targets (kernel
+//    C's one set; kernel L's fuse chunk, a set per keyframe, fuse.cu): each
+//    thread counts its targets into shared-memory cell counters with
+//    atomics, one block scan turns the counts into cell starts, and each
+//    target takes its place in its cell with a second atomic, so a cell's
+//    targets are in no fixed order (the walks below keep the least keys of
+//    what they visit, which does not depend on it). Targets outside the
+//    grid go to its border cells (the clamp of the cell coordinate), so
+//    fisheye and division coordinates far outside the image are still
+//    found; targets with a NaN coordinate go to a bucket after every cell,
+//    which no window reaches (no window test passes for them in the dense
+//    walk either). The wrapper builds the index of a window call's targets
+//    over the window's image extent, then launches the walk.
 //  - window_top2_kernel (the window modes: stages 1 and 3, the loop
 //    rematch, the area matcher): one warp per query row. A row whose row_ok
 //    is false writes what the dense walk writes at once. Otherwise the row
@@ -66,13 +69,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cells.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
 constexpr uint32_t kNone = 0xffffffffu;
 constexpr uint32_t kMasked = 257u << 16;
-constexpr int kIndexThreads = 512;
-constexpr int kIndexWarps = kIndexThreads / 32;
+constexpr int kIndexThreads = 1024;  // cell_index_kernel's block
 constexpr int kMaxCells = 1024;
 constexpr int kWindowRows = 4;  // one warp each: a row's visit is a chain of loads
 constexpr int kBruteRows = 8;   // one warp each
@@ -117,103 +121,70 @@ __device__ __forceinline__ void seeds(int N, uint32_t& k1, uint32_t& k2) {
   k2 = N > 1 ? (kMasked | 1u) : kNone;
 }
 
-// the cell of a target coordinate on one axis: floor(x * inv), clamped to
-// the grid (the border cells take what lies outside it)
-__device__ __forceinline__ int cell_of(float x, float inv, int g) {
-  return (int)fminf(fmaxf(floorf(__fmul_rn(x, inv)), 0.f), (float)(g - 1));
-}
+using svt_cells::cell_of;
+using svt_cells::cell_span;
 
-// the cells a window [c - rad, c + rad] meets on one axis, widened by a
-// rounding margin; a NaN bound takes the grid's end
-__device__ __forceinline__ void cell_span(float c, float rad, float inv, int g, int& a, int& b) {
-  const float m = __fadd_rn(__fadd_rn(rad, 0.01f),
-                            __fmul_rn(1e-5f, __fadd_rn(fabsf(c), fabsf(rad))));
-  const float lo = floorf(__fmul_rn(__fsub_rn(c, m), inv));
-  const float hi = floorf(__fmul_rn(__fadd_rn(c, m), inv));
-  a = isnan(lo) ? 0 : (int)fminf(fmaxf(lo, 0.f), (float)(g - 1));
-  b = isnan(hi) ? g - 1 : (int)fminf(fmaxf(hi, 0.f), (float)(g - 1));
-}
-
-// One block: order[] = the targets sorted by cell (ascending target index
-// within a cell), start[c] = the first position of cell c, for c = 0..G
-// (G = gx * gy; cell G holds the NaN targets), start[G + 1] = N.
+// The cell indexes (svt_cell_index): one block of kIndexThreads per set b
+// of N targets (blockIdx.x), target j at u[b set_stride + j stride], v[...]
+// (C's separate u, v arrays: stride 1; L's interleaved [B, N, 2] keypoints
+// of a fuse chunk, read in place: u = uv, v = uv + 1, stride 2). order[b N
+// ..] = the targets sorted by cell, in no fixed order within a cell;
+// start[b (G + 2) + c] = the first position of cell c, for c = 0..G (G = gx
+// * gy; cell G holds the NaN targets), start[b (G + 2) + G + 1] = N.
 __global__ void __launch_bounds__(kIndexThreads)
-cell_index_kernel(int N, const float* __restrict__ col_u, const float* __restrict__ col_v,
-                  float inv, int gx, int gy, int* __restrict__ start, int* __restrict__ order) {
-  __shared__ uint16_t cnt[kIndexWarps][kMaxCells + 1];
-  __shared__ int total[kMaxCells + 1];
+cell_index_kernel(int N, const float* __restrict__ u_, const float* __restrict__ v_,
+                  int stride, long long set_stride, float inv, int gx, int gy,
+                  int* __restrict__ start, int* __restrict__ order) {
+  __shared__ int cnt[kMaxCells + 1];
+  __shared__ int warp_sum[kIndexThreads / 32];
   const int G = gx * gy;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int share = (N + kIndexWarps - 1) / kIndexWarps;
-  const int j_lo = warp * share, j_hi = min(N, j_lo + share);
+  u_ += blockIdx.x * set_stride;
+  v_ += blockIdx.x * set_stride;
+  start += (size_t)blockIdx.x * (G + 2);
+  order += (size_t)blockIdx.x * N;
   auto cell = [&](int j) {
-    const float u = col_u[j], v = col_v[j];
+    const float u = u_[(size_t)j * stride], v = v_[(size_t)j * stride];
     if (isnan(u) || isnan(v)) return G;
     return cell_of(v, inv, gy) * gx + cell_of(u, inv, gx);
   };
-  for (int i = tid; i < kIndexWarps * (G + 1); i += kIndexThreads)
-    cnt[i / (G + 1)][i % (G + 1)] = 0;
+  for (int c = tid; c <= G; c += kIndexThreads) cnt[c] = 0;
   __syncthreads();
-  // each warp counts its share, 32 targets a step
-  for (int j0 = j_lo; j0 < j_hi; j0 += 32) {
-    const int j = j0 + lane;
-    const int c = j < j_hi ? cell(j) : -1;
-    const unsigned peers = __match_any_sync(0xffffffffu, c);
-    if (c >= 0 && lane == __ffs(peers) - 1) cnt[warp][c] += __popc(peers);
-    __syncwarp();
+  for (int j = tid; j < N; j += kIndexThreads) atomicAdd(&cnt[cell(j)], 1);
+  __syncthreads();
+  // exclusive scan of the G + 1 counts: each thread a run of cells, a warp
+  // scan of the runs' sums, then one of the warps' totals
+  const int per = (G + 1 + kIndexThreads - 1) / kIndexThreads;
+  const int c_lo = min(G + 1, tid * per), c_hi = min(G + 1, c_lo + per);
+  int sum = 0;
+  for (int c = c_lo; c < c_hi; ++c) sum += cnt[c];
+  int incl = sum;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
   }
+  if (lane == 31) warp_sum[warp] = incl;
   __syncthreads();
-  // per cell: the warps' exclusive prefix within the cell, and its total
-  for (int c = tid; c <= G; c += kIndexThreads) {
-    int run = 0;
-    for (int w = 0; w < kIndexWarps; ++w) {
-      const int n = cnt[w][c];
-      cnt[w][c] = (uint16_t)run;
-      run += n;
-    }
-    total[c] = run;
-  }
-  __syncthreads();
-  // exclusive scan of the cell totals by warp 0: each lane a run of cells
   if (warp == 0) {
-    const int per = (G + 1 + 31) / 32;
-    const int c_lo = min(G + 1, lane * per), c_hi = min(G + 1, c_lo + per);
-    int sum = 0;
-    for (int c = c_lo; c < c_hi; ++c) sum += total[c];
-    int incl = sum;
+    const int w = lane < kIndexThreads / 32 ? warp_sum[lane] : 0;
+    int wi = w;
     for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += v;
+      const int v = __shfl_up_sync(0xffffffffu, wi, o);
+      if (lane >= o) wi += v;
     }
-    int run = incl - sum;
-    for (int c = c_lo; c < c_hi; ++c) {
-      const int n = total[c];
-      total[c] = run;
-      start[c] = run;
-      run += n;
-    }
-    if (lane == 0) start[G + 1] = N;
+    if (lane < kIndexThreads / 32) warp_sum[lane] = wi - w;
   }
   __syncthreads();
-  for (int i = tid; i < kIndexWarps * (G + 1); i += kIndexThreads) {
-    const int w = i / (G + 1), c = i % (G + 1);
-    cnt[w][c] = (uint16_t)(cnt[w][c] + total[c]);
+  int run = warp_sum[warp] + incl - sum;
+  for (int c = c_lo; c < c_hi; ++c) {
+    const int n = cnt[c];
+    cnt[c] = run;
+    start[c] = run;
+    run += n;
   }
+  if (tid == 0) start[G + 1] = N;
   __syncthreads();
-  // each warp places its share: position = its base in the cell + rank
-  for (int j0 = j_lo; j0 < j_hi; j0 += 32) {
-    const int j = j0 + lane;
-    const int c = j < j_hi ? cell(j) : -1;
-    const unsigned peers = __match_any_sync(0xffffffffu, c);
-    int pos = 0;
-    if (c >= 0) pos = cnt[warp][c] + __popc(peers & ((1u << lane) - 1u));
-    __syncwarp();
-    if (c >= 0) {
-      order[pos] = j;
-      if (lane == __ffs(peers) - 1) cnt[warp][c] = (uint16_t)(cnt[warp][c] + __popc(peers));
-    }
-    __syncwarp();
-  }
+  for (int j = tid; j < N; j += kIndexThreads) order[atomicAdd(&cnt[cell(j)], 1)] = j;
 }
 
 // The gate arrays of a call (the window's target fields are read only in
@@ -483,13 +454,16 @@ extern "C" int svt_epipolar_top2(int B, int N1, int N2, const uint32_t* q, const
   return (int)cudaGetLastError();
 }
 
-// The cell index of N targets (svt_cell_index): start [gx * gy + 2], order [N].
-extern "C" int svt_cell_index(int N, const float* col_u, const float* col_v, float inv_cell,
-                              int gx, int gy, int* start, int* order, void* stream) {
-  if (gx < 1 || gy < 1 || gx * gy > kMaxCells || N < 0 || N > 65535)
+// The cell indexes of B sets of N targets (svt_cell_index): start
+// [B, gx * gy + 2], order [B, N] (cell_index_kernel).
+extern "C" int svt_cell_index(int B, int N, const float* u, const float* v, int stride,
+                              long long set_stride, float inv_cell, int gx, int gy, int* start,
+                              int* order, void* stream) {
+  if (gx < 1 || gy < 1 || gx * gy > kMaxCells || N < 0 || N > 65535 || B < 0 || stride < 1)
     return (int)cudaErrorInvalidValue;
-  cell_index_kernel<<<1, kIndexThreads, 0, (cudaStream_t)stream>>>(N, col_u, col_v, inv_cell,
-                                                                   gx, gy, start, order);
+  if (B > 0)
+    cell_index_kernel<<<B, kIndexThreads, 0, (cudaStream_t)stream>>>(
+        N, u, v, stride, set_stride, inv_cell, gx, gy, start, order);
   return (int)cudaGetLastError();
 }
 

@@ -5,15 +5,15 @@ and every table (resize matrices, blur taps, moment masks, steered BRIEF
 offsets) are built by the same numpy code as the JAX version, so slot k of
 a frame means the same cell of the same level on both sides:
 
-* pyramid, kernel S (K3), `resize_level`: bilinear INTER_LINEAR resize
-  level to level, the JAX version's `R @ img @ C^T`; on the card each output
-  pixel forms its four taps from the two non-zero entries of its rows of R
-  and C as a dot product that walks the source index upwards (the CPU's
-  matmul rounds so; cuBLAS splits its sums every 8 source indices on most
-  of these shapes, so one pixel in ~16 differs from it by an ulp). Plain
-  version: the two `torch.matmul`, f32 with TF32 off. The levels of all
-  images of a batch live in one flat buffer [B, sum of H*W] that kernels A
-  and B read;
+* pyramid, kernel S (K3), `resize_pyramid`: bilinear INTER_LINEAR resize
+  level to level, the JAX version's `R @ img @ C^T`; on the card one launch
+  builds every level of a batch of images, tile by tile of the coarsest
+  level (`pyramid_plan`), each output pixel formed from the two non-zero
+  entries of its rows of R and C with a product and one fused multiply-add
+  per pass (`resize_level_taps_plain`; torch's CPU matmul rounds otherwise
+  in ~1 pixel in 10^4, cuBLAS in ~1 in 16). Plain version: level 0 copied
+  and the two `torch.matmul` a level. The levels of all images of a batch
+  live in one flat buffer [B, sum of H*W] that kernels A and B read;
 * kernel A, `fast_nms_pyramid`: one launch for every level of a batch of
   pyramids; per NMS cell, the exact FAST-9/16 score of every pixel above
   `min_fast_thr` and the cell's best packed key (iscore<<12 | row<<6 |
@@ -45,6 +45,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from stella_vslam_tpu_torch.camera.base import _fma_f32
 from stella_vslam_tpu_torch.feature import orb_pattern
 from stella_vslam_tpu_torch.feature.orb_params import OrbParams
 from stella_vslam_tpu_torch.kernels import build as kbuild
@@ -190,7 +191,7 @@ def extractor_tables(params: OrbParams, levels, pattern: str = "native") -> dict
 
 
 # ---------------------------------------------------------------------------
-# kernel S: level-to-level resize
+# kernel S: the pyramid, one launch for a batch of images
 # ---------------------------------------------------------------------------
 
 
@@ -210,30 +211,214 @@ def resize_level_plain(img: torch.Tensor, R: torch.Tensor, Ct: torch.Tensor) -> 
     return (R @ img) @ Ct
 
 
-def resize_level(pyr: torch.Tensor, off_in: int, g_in, off_out: int, g_out,
-                 step: ResizeLevel):
-    """Level l-1 (at off_in of each row of the flat pyramid [B, P]) ->
-    level l (written at off_out): kernel S on a CUDA pyramid, the plain
-    version on a CPU one."""
-    n_in, n_out = g_in.H * g_in.W, g_out.H * g_out.W
-    if not pyr.is_cuda:
-        for b in range(pyr.shape[0]):
-            src = pyr[b, off_in:off_in + n_in].view(g_in.H, g_in.W)
-            pyr[b, off_out:off_out + n_out] = resize_level_plain(src, step.R, step.Ct).reshape(-1)
-        return
-    if pyr.dtype != torch.float32 or pyr.dim() != 2 or not pyr.is_contiguous() \
-            or off_out + n_out > pyr.shape[1] or off_in + n_in > off_out:
-        raise ValueError("resize_level: expects a contiguous f32 [B, P] pyramid")
+def resize_level_taps_plain(img: torch.Tensor, step: ResizeLevel) -> torch.Tensor:
+    """[h_in, w_in] -> [h_out, w_out] with kernel S's arithmetic: the row
+    pass at each source column fma(rw1, b, rw0 a) (one rounding for the
+    product, one for the fused add), then the column pass from those two
+    values the same way (camera.base._fma_f32 in float64)."""
+    dev = img.device
+    rj, cj = step.row_j.to(dev).long(), step.col_j.to(dev).long()
+    rw, cw = step.row_w.to(dev), step.col_w.to(dev)
+    t = _fma_f32(rw[:, 1:2], img[rj[:, 1]], rw[:, 0:1] * img[rj[:, 0]])  # [h_out, w_in]
+    return _fma_f32(cw[None, :, 1], t[:, cj[:, 1]], cw[None, :, 0] * t[:, cj[:, 0]])
+
+
+TILES = (8, 12, 16, 24)  # kernel S's tiles: coarsest-level pixels a side
+BLOCK_ROWS = (4, 8, 16, 32)  # kernel S's blocks: 32 x BLOCK_ROWS threads
+SMS = 132  # an H100 SXM's multiprocessors (plan_cost; the card's own count on the card)
+MAX_LEVELS_S = 16  # kMaxLevels in csrc/resize.cu
+MAX_SMEM_S = 227 * 1024  # an H100 block's shared memory, static and dynamic
+# kernel S's static shared arrays (csrc/resize.cu): per level the level
+# table (5 ints) and the row and column plans (4 each), and the tap offsets
+STATIC_SMEM_S = 4 * (MAX_LEVELS_S * (5 + 2 * 4) + 2 * (MAX_LEVELS_S + 1))
+
+
+class PyramidPlan(NamedTuple):
+    """Kernel S's plan of one pyramid layout (pyramid_plan): per tile of the
+    coarsest level and per level, on each axis apart, the owned interval
+    (the owned intervals partition the level's rows, or columns) and the
+    computed interval (it holds the owned one and both taps of every row,
+    or column, of the computed interval one level up); a tile's rectangle
+    is its row interval times its column interval."""
+
+    levels: tuple  # _LevelGeom per level
+    level_off: tuple  # each level's offset in a flat pyramid row
+    size: int  # floats of one pyramid
+    steps: tuple  # ResizeLevel per level 1..L-1
+    tile: int
+    block_rows: int  # the block's rows of 32 threads
+    rows: np.ndarray  # [nty, L, 4] int32 owned lo, hi, computed lo, hi
+    cols: np.ndarray  # [ntx, L, 4] int32
+    odd_at: int  # floats of the even levels' buffer, where the odd levels' starts
+    buf_words: int  # floats of both buffers (even)
+    row_taps: int  # the most row taps of levels 1..L-1 a tile computes
+    col_taps: int  # ... column taps
+    smem_bytes: int  # shared memory a block takes: the buffers and 16 bytes a tap
+    computed: int  # pixels of levels 1..L-1 the blocks of one image compute
+    level_tab: torch.Tensor  # [L, 5] int32 H, W, offset, first row tap, first column tap
+    row_plan: torch.Tensor  # rows on the device
+    col_plan: torch.Tensor
+    # [sum H_1.., 2] i32, the taps of levels 1..L-1 concatenated (None at L = 1)
+    row_j: Optional[torch.Tensor]
+    row_w: Optional[torch.Tensor]
+    col_j: Optional[torch.Tensor]
+    col_w: Optional[torch.Tensor]
+
+
+def axis_plan(sizes, taps, tile: int) -> np.ndarray:
+    """One axis of kernel S's plan: sizes [L] (the levels' heights, or
+    widths), taps[l - 1] [sizes[l], 2] the source indices at level l - 1 of
+    level l's rows (or columns) -> [nt, L, 4] int32 (owned lo, hi, computed
+    lo, hi per tile and level) for tiles of `tile` on the coarsest level."""
+    L = len(sizes)
+    cuts = list(range(0, sizes[-1], tile)) + [sizes[-1]]
+    plan = np.zeros((len(cuts) - 1, L, 4), np.int64)
+    for t in range(len(cuts) - 1):
+        plan[t, L - 1] = (cuts[t], cuts[t + 1], cuts[t], cuts[t + 1])
+    for l in range(L - 1, 0, -1):
+        j = np.asarray(taps[l - 1], np.int64)
+        cuts = [0] + [int(j[c, 0]) for c in cuts[1:-1]] + [sizes[l - 1]]
+        for t in range(len(cuts) - 1):
+            lo, hi = plan[t, l, 2:]
+            plan[t, l - 1] = (cuts[t], cuts[t + 1], min(cuts[t], j[lo:hi].min()),
+                              max(cuts[t + 1], j[lo:hi].max() + 1))
+    return plan.astype(np.int32)
+
+
+def _tile_layout(levels, rtaps, ctaps, tile: int):
+    """(rows, cols, odd_at, buf_words, row_taps, col_taps, smem bytes) of
+    kernel S's tiles of `tile` coarsest-level pixels a side."""
+    L = len(levels)
+    rows = axis_plan([g.H for g in levels], rtaps, tile)
+    cols = axis_plan([g.W for g in levels], ctaps, tile)
+    area = [int((rows[:, l, 3] - rows[:, l, 2]).max() * (cols[:, l, 3] - cols[:, l, 2]).max())
+            for l in range(L)]
+    odd_at = max(area[0::2])
+    buf_words = odd_at + max(area[1::2] + [1])
+    buf_words += buf_words % 2
+    row_taps = int((rows[:, 1:, 3] - rows[:, 1:, 2]).sum(axis=1).max()) if L > 1 else 0
+    col_taps = int((cols[:, 1:, 3] - cols[:, 1:, 2]).sum(axis=1).max()) if L > 1 else 0
+    return (rows, cols, odd_at, buf_words, row_taps, col_taps,
+            4 * buf_words + 16 * (row_taps + col_taps))
+
+
+def plan_cost(blocks: int, pixels: int, threads: int, smem_bytes: int, levels: int,
+              sms: int = SMS) -> float:
+    """Kernel S's time in arbitrary units, the model its plan is chosen by:
+    waves of blocks (a block of up to 1024 threads at 64 registers each
+    fills an SM's register file) times a block's work, the pixels a
+    thread stages or computes plus 3.4 per level's barrier. Fitted to
+    device times of 16 tiles and block sizes at five shapes on an H100
+    (scripts/torch_pyramid_fuse_probe.py --variants; PERF.md); it
+    picks the fastest plan measured for one 752x480 frame, a pair and a
+    640x320 frame."""
+    per_sm = max(1, min(1024 // threads,
+                        MAX_SMEM_S // (smem_bytes + STATIC_SMEM_S + 1024)))
+    waves = math.ceil(blocks / (sms * per_sm))
+    return waves * (pixels / blocks / threads + 3.4 * levels)
+
+
+def pyramid_plan(levels, level_off, steps, device, batch: int = 1,
+                 tile: Optional[int] = None, block_rows: Optional[int] = None) -> PyramidPlan:
+    """Kernel S's plan for `levels` laid out at level_off in a flat pyramid
+    row, with the level steps' taps (ResizeLevel per level 1..L-1), for
+    launches of `batch` images. The tile and the block's rows (32 threads
+    each) are `tile` and `block_rows`, or the pair of TILES x BLOCK_ROWS
+    that plan_cost ranks first among those whose shared memory (with the
+    kernel's static arrays) fits MAX_SMEM_S (smaller tiles, down to 1,
+    where none does); a layout that no tile fits is refused (ValueError)."""
+    L = len(levels)
+    shape = f"{levels[0].W}x{levels[0].H}, {L} levels"
+    if L > MAX_LEVELS_S:
+        raise ValueError(f"kernel S: at most {MAX_LEVELS_S} levels ({shape})")
+    rtaps = [st.row_j.cpu().numpy() for st in steps]
+    ctaps = [st.col_j.cpu().numpy() for st in steps]
+    dev = torch.device(device)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" \
+        else SMS
+    best = None
+    # the smaller tiles only where none of TILES fits (scale factors from
+    # ~1.5 up, whose coarsest pixel spans many of level 0)
+    for tiles in ([tile],) if tile else (TILES, (4, 2, 1)):
+        for t in tiles:
+            lay = _tile_layout(levels, rtaps, ctaps, t)
+            rows, cols, smem = lay[0], lay[1], lay[-1]
+            if smem + STATIC_SMEM_S > MAX_SMEM_S:
+                continue
+            blocks = batch * rows.shape[0] * cols.shape[0]
+            pixels = batch * sum(int((rows[:, l, 3] - rows[:, l, 2]).sum()
+                                     * (cols[:, l, 3] - cols[:, l, 2]).sum()) for l in range(L))
+            for r in ([block_rows] if block_rows else BLOCK_ROWS):
+                cost = plan_cost(blocks, pixels, 32 * r, smem, L, sms)
+                if best is None or cost < best[0]:
+                    best = (cost, t, r, lay)
+        if best is not None:
+            break
+    if best is None:
+        raise ValueError(f"kernel S: no tile of the coarsest level fits {MAX_SMEM_S} bytes "
+                         f"of shared memory ({shape})")
+    _, t, block_rows, (rows, cols, odd_at, buf_words, row_taps, col_taps, smem_bytes) = best
+    computed = sum(int((rows[:, l, 3] - rows[:, l, 2]).sum() * (cols[:, l, 3] - cols[:, l, 2]).sum())
+                   for l in range(1, L))
+    tab = np.zeros((L, 5), np.int32)
+    nr = nc = 0
+    for l, (g, off) in enumerate(zip(levels, level_off)):
+        tab[l, :3] = (g.H, g.W, off)
+        if l:
+            tab[l, 3:] = (nr, nc)
+            nr, nc = nr + g.H, nc + g.W
+    i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
+    cat = lambda ts: torch.cat(ts).to(device).contiguous() if ts else None
+    return PyramidPlan(
+        levels=tuple(levels), level_off=tuple(level_off),
+        size=int(level_off[-1] + levels[-1].H * levels[-1].W), steps=tuple(steps), tile=t,
+        block_rows=int(block_rows), rows=rows, cols=cols, odd_at=odd_at, buf_words=buf_words,
+        row_taps=row_taps, col_taps=col_taps, smem_bytes=smem_bytes, computed=computed,
+        level_tab=i32(tab), row_plan=i32(rows), col_plan=i32(cols),
+        row_j=cat([st.row_j for st in steps]), row_w=cat([st.row_w for st in steps]),
+        col_j=cat([st.col_j for st in steps]), col_w=cat([st.col_w for st in steps]))
+
+
+def resize_pyramid(images: torch.Tensor, plan: PyramidPlan) -> torch.Tensor:
+    """[B, H0, W0] grayscale images (u8 or f32) -> their flat f32 pyramids
+    [B, plan.size]: kernel S, one launch for every level of every image, on
+    CUDA images; on CPU images the plain version, level 0 copied and the
+    two matmuls a level (resize_level_plain)."""
+    B = images.shape[0]
+    g0 = plan.levels[0]
+    pyr = torch.empty((B, plan.size), dtype=torch.float32, device=images.device)
+    if not images.is_cuda:
+        pyr[:, :g0.H * g0.W] = images.reshape(B, -1)
+        for l in range(1, len(plan.levels)):
+            g_in, g = plan.levels[l - 1], plan.levels[l]
+            o_in, o = plan.level_off[l - 1], plan.level_off[l]
+            step = plan.steps[l - 1]
+            for b in range(B):
+                src = pyr[b, o_in:o_in + g_in.H * g_in.W].view(g_in.H, g_in.W)
+                pyr[b, o:o + g.H * g.W] = resize_level_plain(src, step.R, step.Ct).reshape(-1)
+        return pyr
+    if images.dtype not in (torch.uint8, torch.float32) or images.dim() != 3 \
+            or tuple(images.shape[1:]) != (g0.H, g0.W):
+        raise ValueError(f"resize_pyramid: expects u8 or f32 images [B, {g0.H}, {g0.W}]")
+    if plan.level_tab.device != images.device:
+        raise ValueError("resize_pyramid: a plan from pyramid_plan on the images' device")
+    if images.stride(2) != 1 or images.stride(1) != g0.W:
+        images = images.contiguous()
     lib = kbuild.load()
-    ptr = lambda off: pyr.data_ptr() + 4 * off
-    kbuild.check(lib.svt_resize_level(
-        pyr.shape[0], ptr(off_in), pyr.shape[1], g_in.W, ptr(off_out), g_out.H, g_out.W,
-        step.row_j.data_ptr(), step.row_w.data_ptr(), step.col_j.data_ptr(),
-        step.col_w.data_ptr(), kbuild.stream_ptr(pyr.device)), "resize_level")
-    resize_level.launches += 1
+    kbuild.check(lib.svt_resize_pyramid(
+        B, len(plan.levels), int(images.dtype == torch.uint8), images.data_ptr(),
+        images.stride(0), pyr.data_ptr(), plan.size, plan.level_tab.data_ptr(),
+        plan.row_plan.data_ptr(), plan.rows.shape[0], plan.col_plan.data_ptr(),
+        plan.cols.shape[0], plan.row_j.data_ptr() if plan.steps else None,
+        plan.row_w.data_ptr() if plan.steps else None,
+        plan.col_j.data_ptr() if plan.steps else None,
+        plan.col_w.data_ptr() if plan.steps else None, plan.odd_at, plan.buf_words,
+        plan.row_taps, plan.col_taps, plan.block_rows, kbuild.stream_ptr(images.device)), "resize_pyramid")
+    resize_pyramid.launches += 1
+    return pyr
 
 
-resize_level.launches = 0
+resize_pyramid.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -832,6 +1017,8 @@ class OrbExtractor:
         self._batch_slots = {}
         self._fast = fast_pyramid_tables(self.levels, self.border, self._level_off,
                                          (self.height, self.width), dev)
+        # kernel S's plan per batch size (one image; a stereo pair)
+        self._pyramids = {1: pyramid_plan(self.levels, self._level_off, self._resize, dev)}
         self.slot_layout = slot_layout(self.levels, self.border, dev)
         # level scale per slot, rounded to f32 as `px * g.scale` rounds it
         self._slot_scale = torch.cat(
@@ -841,15 +1028,15 @@ class OrbExtractor:
     def pyramid_flat(self, images: torch.Tensor) -> torch.Tensor:
         """[B,H,W] grayscale (u8 or f32) on the extractor's device -> the f32
         levels of each image, one flat row [B, pyramid_size] each (kernel S
-        on the card, the two matmuls on the CPU)."""
-        B = images.shape[0]
-        g0 = self.levels[0]
-        pyr = torch.empty((B, self.pyramid_size), dtype=torch.float32, device=self.device)
-        pyr[:, :g0.H * g0.W] = images.reshape(B, -1)
-        for l in range(1, len(self.levels)):
-            resize_level(pyr, self._level_off[l - 1], self.levels[l - 1],
-                         self._level_off[l], self.levels[l], self._resize[l - 1])
-        return pyr
+        on the card, one launch; the two matmuls a level on the CPU)."""
+        return resize_pyramid(images, self.pyramid_plan_for(images.shape[0]))
+
+    def pyramid_plan_for(self, batch: int) -> PyramidPlan:
+        """Kernel S's plan for launches of `batch` images (built once)."""
+        if batch not in self._pyramids:
+            self._pyramids[batch] = pyramid_plan(self.levels, self._level_off, self._resize,
+                                                 self.device, batch=batch)
+        return self._pyramids[batch]
 
     def level_views(self, pyr: torch.Tensor) -> list:
         """The flat pyramid [B, P] -> per level a [B,H,W] view."""
@@ -871,6 +1058,16 @@ class OrbExtractor:
             out.append(img)
         return out
 
+    def pyramid_taps_plain(self, image: torch.Tensor) -> list:
+        """Kernel S's arithmetic in plain form: resize_level_taps_plain level
+        by level on the image's device (the level images, f32)."""
+        img = image.to(torch.float32)
+        out = [img]
+        for step in self._resize:
+            img = resize_level_taps_plain(img, step)
+            out.append(img)
+        return out
+
     def _slots(self, B: int):
         """Per-slot (base offset, H, W) of a batch of B pyramids."""
         if B not in self._batch_slots:
@@ -882,8 +1079,8 @@ class OrbExtractor:
 
     def _extract_batch(self, images: torch.Tensor, strips: bool, mask=None):
         """[B,H,W] -> a list of B FrameFeatures and, with `strips`, the
-        [B, N, 11, 21] uint8 blurred strips; one launch of S per level, one
-        of A and one of B for the whole batch. `mask`: a level-0 extraction
+        [B, N, 11, 21] uint8 blurred strips; one launch each of S, A and B
+        for the whole batch. `mask`: a level-0 extraction
         mask [H,W] uint8 the batch shares."""
         p = self.params
         B = images.shape[0]

@@ -49,9 +49,11 @@ _L = ctypes.c_longlong
 
 # argument types of every C entry point (pointers and the stream as void*)
 _SIGNATURES = {
-    # B, src, batch_stride, w_in, dst, h_out, w_out, row_j, row_w, col_j,
-    # col_w, stream
-    "svt_resize_level": [_I, _P, _L, _I, _P, _I, _I, _P, _P, _P, _P, _P],
+    # B, L, in_u8, in, in_stride, out, out_stride, level_tab, row_plan, nty,
+    # col_plan, ntx, row_j, row_w, col_j, col_w, odd_at, buf_words, row_taps,
+    # col_taps, block_rows, stream
+    "svt_resize_pyramid": [_I, _I, _I, _P, _L, _P, _L, _P, _P, _I, _P, _I] + [_P] * 4
+                          + [_I] * 5 + [_P],
     # B, pyr, pyr_stride, level_tab, work, nwork, smem_words, border,
     # num_slots, ini_thr, min_thr, mask, mask_w, mask_rows, mask_cols,
     # out_key, out_px, out_py, out_valid, out_resp, stream
@@ -71,8 +73,9 @@ _SIGNATURES = {
     # col_c, col_s, cos_thr, out, stream
     "svt_hamming_top2": [_I, _I, _P, _P, _P, _P, _I] + [_P] * 12 + [_F, _I, _I, _I]
                         + [_P] * 4 + [_F, _P, _P],
-    # N, col_u, col_v, inv_cell, gx, gy, cell_start, cell_order, stream
-    "svt_cell_index": [_I, _P, _P, _F, _I, _I, _P, _P, _P],
+    # B, N, u, v, stride, set_stride, inv_cell, gx, gy, cell_start,
+    # cell_order, stream
+    "svt_cell_index": [_I, _I, _P, _P, _I, _L, _F, _I, _I, _P, _P, _P],
     # model, B, N, then pos, uv, xr, inv_sigma_sq, valid each with its batch
     # stride, R0, t0, fx, fy, cx, cy, fxb, width, height, num_rounds,
     # num_robust_rounds, num_each_iter, R_out, t_out, inlier_out, chi2_out,
@@ -134,9 +137,10 @@ _SIGNATURES = {
                        + [_P] * 4,
     # model, B, N, M, kp_uv, kp_level, kp_desc, kp_valid, kp_xr, poses,
     # kf_valid, lm_f, lm_desc, lm_valid, fx, fy, cx, cy, width, height, fxb,
-    # scale_factors, sigma_sq, num_levels, log_scale, margin, out, stream
+    # scale_factors, sigma_sq, num_levels, log_scale, margin, cell_start,
+    # cell_order, inv_cell, gx, gy, out, gate_out, stream
     "svt_fuse": [_I, _I, _I, _I] + [_P] * 10 + [_F] * 7 + [_P] * 2 + [_I] + [_F] * 2
-                + [_P] * 2,
+                + [_P] * 2 + [_F, _I, _I] + [_P] * 3,
     # N, desc, centers, out, stream
     "svt_bow_transform": [_I] + [_P] * 4,
     # N, nblocks, m_k, max_depth, desc, centers, node_info, n_children, out,

@@ -11,7 +11,7 @@ and second-best distance and their target indices over the gated targets:
   are a projection window, an orientation cosine (tracking) or an angle
   difference (the initializer's area matcher). With a window, the call
   first sorts the targets into grid cells over the window's image extent
-  (`build_cell_index`, the same source's counting sort) and a row visits
+  (`build_cell_index`, the same source's index kernel) and a row visits
   only the targets of the cells its window meets; without one, blocks of
   rows share tiles of targets;
 * on CPU tensors, `hamming_top2_plain`: the JAX version's dense form (a
@@ -110,8 +110,9 @@ class CellIndex(NamedTuple):
     finite point is (floor(u * inv_cell), floor(v * inv_cell)) clamped to
     the gx x gy grid (the border cells take what lies outside it), cell id
     cy * gx + cx; a NaN coordinate goes to cell gx * gy, after every cell.
-    order lists the targets by cell id (ascending index within a cell);
-    start[c] is cell c's first position in it, start[gx * gy + 1] = N."""
+    order lists the targets by cell id (the plain version: ascending index
+    within a cell; the kernel: in no fixed order within a cell); start[c]
+    is cell c's first position in it, start[gx * gy + 1] = N."""
 
     start: torch.Tensor  # [gx * gy + 2] i32
     order: torch.Tensor  # [N] i32
@@ -132,7 +133,7 @@ class LaunchCount:
 window_walk = LaunchCount()  # window mode: the cell walk
 brute_force = LaunchCount()  # no window: shared target tiles
 
-MAX_CELLS = 1024  # kernel C's index holds a count per (warp, cell) in shared memory
+MAX_CELLS = 1024  # kernel C's index holds a count per cell in shared memory
 
 
 def cell_grid(width: float, height: float):
@@ -164,28 +165,60 @@ def build_cell_index_plain(col_u, col_v, width: float, height: float) -> CellInd
     return CellIndex(start.to(torch.int32), order.to(torch.int32), inv, gx, gy)
 
 
+def _cell_index_launch(B: int, N: int, u, v, stride: int, set_stride: int, width: float,
+                       height: float, name: str):
+    """One launch of the cell index kernel over B sets of N targets: u, v
+    f32 CUDA tensors, target j of set b at element b set_stride + j stride
+    of each -> (start [B, gx * gy + 2], order [B, N], inv_cell, gx, gy)."""
+    if N >= 1 << 16:
+        raise ValueError(f"{name}: at most 65535 targets a set")
+    inv, gx, gy = cell_grid(width, height)
+    start = torch.empty((B, gx * gy + 2), dtype=torch.int32, device=u.device)
+    order = torch.empty((B, N), dtype=torch.int32, device=u.device)
+    lib = kbuild.load()
+    kbuild.check(lib.svt_cell_index(B, N, u.data_ptr(), v.data_ptr(), stride, set_stride, inv,
+                                    gx, gy, start.data_ptr(), order.data_ptr(),
+                                    kbuild.stream_ptr(u.device)), name)
+    return start, order, inv, gx, gy
+
+
 def build_cell_index(col_u, col_v, width: float, height: float) -> CellIndex:
-    """Kernel C's cell index (one launch of its counting sort) on CUDA
-    tensors, the plain version on CPU tensors. col_u, col_v [N] f32."""
+    """Kernel C's cell index (one launch of the index kernel, one set) on
+    CUDA tensors, the plain version on CPU tensors. col_u, col_v [N] f32."""
     if not col_u.is_cuda:
         return build_cell_index_plain(col_u, col_v, width, height)
     N = col_u.shape[0]
-    if N >= 1 << 16:
-        raise ValueError("build_cell_index: at most 65535 targets")
     _check(col_u, (N,), torch.float32, "col_u")
     _check(col_v, (N,), torch.float32, "col_v")
-    inv, gx, gy = cell_grid(width, height)
-    start = torch.empty(gx * gy + 2, dtype=torch.int32, device=col_u.device)
-    order = torch.empty(N, dtype=torch.int32, device=col_u.device)
-    lib = kbuild.load()
-    kbuild.check(lib.svt_cell_index(N, col_u.data_ptr(), col_v.data_ptr(), inv, gx, gy,
-                                    start.data_ptr(), order.data_ptr(),
-                                    kbuild.stream_ptr(col_u.device)), "cell_index")
+    start, order, inv, gx, gy = _cell_index_launch(1, N, col_u, col_v, 1, 0, width, height,
+                                                   "cell_index")
     build_cell_index.launches += 1
-    return CellIndex(start, order, inv, gx, gy)
+    return CellIndex(start[0], order[0], inv, gx, gy)
 
 
 build_cell_index.launches = 0
+
+
+def build_cell_index_batch(uv: torch.Tensor, width: float, height: float):
+    """The cell indexes of B sets of N points, uv [B, N, 2] f32 (a fuse
+    chunk's keypoints): per set the cells and starts build_cell_index
+    gives, stacked as (start [B, gx * gy + 2], order [B, N], inv_cell, gx,
+    gy). On CUDA one launch of kernel C's index kernel, a block per set,
+    reading uv in place, a cell's points in no fixed order (kernel L's walk
+    does not depend on it); on the CPU build_cell_index_plain per set."""
+    if not uv.is_cuda:
+        inv, gx, gy = cell_grid(width, height)
+        idx = [build_cell_index_plain(x[:, 0], x[:, 1], width, height) for x in uv]
+        return (torch.stack([c.start for c in idx]), torch.stack([c.order for c in idx]), inv,
+                gx, gy)
+    B, N = uv.shape[0], uv.shape[1]
+    _check(uv, (B, N, 2), torch.float32, "uv")
+    out = _cell_index_launch(B, N, uv, uv[..., 1], 2, 2 * N, width, height, "cell_index_batch")
+    build_cell_index_batch.launches += 1
+    return out
+
+
+build_cell_index_batch.launches = 0
 
 
 def _cell_span(c, rad, inv_cell, g):
@@ -205,8 +238,15 @@ def cell_walk_mask(window: WindowGate) -> torch.Tensor:
     in the cells its window meets, on the index of the window's targets over
     its extent; never the NaN cell)."""
     cells = build_cell_index_plain(window.col_u, window.col_v, *window.extent)
-    x0, x1 = _cell_span(window.row_u, window.row_rad, cells.inv_cell, cells.gx)
-    y0, y1 = _cell_span(window.row_v, window.row_rad, cells.inv_cell, cells.gy)
+    return cells_visited(cells, window.row_u, window.row_v, window.row_rad)
+
+
+def cells_visited(cells: CellIndex, u, v, rad) -> torch.Tensor:
+    """[M,N] bool: the targets of `cells` in the cells a window [u +- rad] x
+    [v +- rad] meets, widened by kernel C's rounding margin (the walk of
+    kernel C's window rows and of kernel L); never the NaN cell."""
+    x0, x1 = _cell_span(u, rad, cells.inv_cell, cells.gx)
+    y0, y1 = _cell_span(v, rad, cells.inv_cell, cells.gy)
     N = cells.order.shape[0]
     G = cells.gx * cells.gy
     cell = torch.empty(N, dtype=torch.int64, device=cells.order.device)

@@ -78,7 +78,7 @@ def kernel_wrappers() -> dict:
     from stella_vslam_tpu_torch.ops.optim import sim3
     from stella_vslam_tpu_torch.ops.solve import essential_5pt, pnp, ransac
 
-    return {"resize_level": ox.resize_level, "fast_nms_pyramid": ox.fast_nms_pyramid,
+    return {"resize_pyramid": ox.resize_pyramid, "fast_nms_pyramid": ox.fast_nms_pyramid,
             "orb_describe": ox.orb_describe, "orb_describe_strips": ox.orb_describe_strips,
             "stereo_match": stereo.stereo_match,
             "hamming_top2": H.hamming_top2, "hamming_top2_window": H.window_walk,
@@ -92,7 +92,8 @@ def kernel_wrappers() -> dict:
             "ba_backsub_cost": ba.ba_backsub_cost, "ba_classify": ba.ba_classify,
             "ba_shard_assemble": ba.ba_shard_assemble,
             "epipolar_top2": H.epipolar_top2, "triangulate": mk.triangulate_checks,
-            "fuse": mk.fuse_scan, "bow_transform": bow.bow_transform,
+            "fuse": mk.fuse_scan, "fuse_cell_index": H.build_cell_index_batch,
+            "bow_transform": bow.bow_transform,
             "pnp_ransac": pnp.pnp_hypotheses, "sim3_transform": sim3.sim3_transform,
             "pose_graph": sim3.pose_graph_linearize, "spd_solve": linalg.spd_solve,
             "scatter_to_current": tk.scatter_to_current, "dedup_by_id": tk.dedup_by_id,

@@ -425,9 +425,11 @@ def test_triangulate_kernel_equirect_matches_plain(dev):
 
 
 def test_fuse_kernel_matches_plain(dev):
-    """Kernel L against its plain version: B keyframes (one padding) x M
+    """Kernel L (the keyframes' cell indexes, then the cell walk: one
+    launch each) against its plain version: B keyframes (one padding) x M
     landmarks (the scene's points with their ranges and normals, a tail of
-    padding rows): accepted flags differing <= 1e-3."""
+    padding rows): accepted flags differing <= 1e-3 (the prologue's float
+    expressions against torch's)."""
     from stella_vslam_tpu_torch.module import mapping_kernels as mkm
 
     mk, _, nbrs, poses, X, desc, level = _mapping_scene(dev, seed=1)
@@ -448,9 +450,10 @@ def test_fuse_kernel_matches_plain(dev):
     args = (kfs, poses[1:].contiguous(), t(np.arange(B) < B - 1), t(lm_f),
             t(lm_desc.view(np.int32)), t(np.arange(M) < P - 20), mk.cam, mk.scale_factors,
             mk.level_sigma_sq, mk.log_scale)
-    before = mkm.fuse_scan.launches
+    before = mkm.fuse_scan.launches, H.build_cell_index_batch.launches
     k, p = mkm.fuse_scan(*args), mkm.fuse_scan_plain(*args)
-    assert mkm.fuse_scan.launches == before + 1
+    assert (mkm.fuse_scan.launches, H.build_cell_index_batch.launches) == \
+        (before[0] + 1, before[1] + 1)
     acc_k, acc_p = mkm.accept_fused(*k, N), mkm.accept_fused(*p, N)
     assert int(acc_p.sum()) > 100 and not bool(acc_k[B - 1].any())
     assert float((acc_k != acc_p).float().mean()) <= 1e-3
@@ -480,6 +483,43 @@ def test_fuse_kernel_equirect_matches_plain(dev):
     acc_k, acc_p = mkm.accept_fused(*k, N), mkm.accept_fused(*p, N)
     assert int(acc_p.sum()) > 100 and not bool(acc_k[B - 1].any())
     assert float((acc_k != acc_p).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("model", ["perspective", "equirectangular"])
+def test_fuse_cell_index_batch_matches_plain(dev, model):
+    """Kernel L's cell indexes (one launch, a block a keyframe) against one
+    plain index a keyframe: the same starts, the same points in each cell
+    (in no fixed order), NaN and far-outside keypoints included."""
+    import chip_smoke
+
+    kern, fargs = chip_smoke.fuse_edge_chunk(dev, seed=5, model=model)
+    uv, cam = fargs[0].uv, kern.cam
+    before = H.build_cell_index_batch.launches
+    start, order, inv, gx, gy = H.build_cell_index_batch(uv, cam.width, cam.height)
+    assert H.build_cell_index_batch.launches == before + 1
+    plain = [H.build_cell_index_plain(x[:, 0], x[:, 1], cam.width, cam.height) for x in uv]
+    assert (inv, gx, gy) == (plain[0].inv_cell, plain[0].gx, plain[0].gy)
+    assert chip_smoke.same_cells(start, order, torch.stack([p.start for p in plain]),
+                                 torch.stack([p.order for p in plain]))
+
+
+@pytest.mark.parametrize("margin", [3.0, 4.0])
+@pytest.mark.parametrize("model", ["perspective", "equirectangular"])
+def test_fuse_kernel_at_the_edges(dev, model, margin):
+    """Kernel L's cell walk on chip_smoke.fuse_edge_chunk: landmarks at the
+    image's edges, keypoints just and far outside it (the border cells hold
+    them), NaN coordinates in invalid slots; 0 outputs differing from the
+    full scan, at the keyframe event's margin 3 and loop fusion's 4."""
+    import chip_smoke
+    from stella_vslam_tpu_torch.module import mapping_kernels as mkm
+
+    kern, fargs = chip_smoke.fuse_edge_chunk(dev, seed=5, model=model)
+    args = fargs + (kern.cam, kern.scale_factors, kern.level_sigma_sq, kern.log_scale, margin,
+                    kern.camera.model)
+    k, p = mkm.fuse_scan(*args), mkm.fuse_scan_plain(*args)
+    assert int(mkm.accept_fused(*p, fargs[0].uv.shape[1]).sum()) > 100
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -710,22 +750,43 @@ def test_pose_graph_kernel_repeats_bit_for_bit(dev):
 
 
 def test_resize_level_kernel_matches_matmul_pyramid(dev):
-    """Kernel S: a pair's pyramid (one launch per level) equals the two
-    images' single pyramids bit for bit, and the matmul pyramid to a few
-    ulps (cuBLAS splits its sums differently on some entries)."""
+    """Kernel S: a pair's pyramid (one launch for every level of both)
+    equals the two images' single pyramids and the two-tap plain version
+    bit for bit, and the matmul pyramid to a few ulps (cuBLAS splits its
+    sums differently on some entries)."""
     params = OrbParams(num_levels=5)
     ex = ox.OrbExtractor(params, 401, 299, min_area=400, device=dev)
     world = PlaneWorld(width=401, height=299, noise_sigma=2.0)
     imgs = torch.stack([torch.from_numpy(world.render(T)) for T in lateral_trajectory(2)]).to(dev)
-    before = ox.resize_level.launches
+    before = ox.resize_pyramid.launches
     pair = ex.level_views(ex.pyramid_flat(imgs))
-    assert ox.resize_level.launches == before + len(ex.levels) - 1
+    assert ox.resize_pyramid.launches == before + 1
     for b in range(2):
         one = ex.pyramid(imgs[b])
         plain = ex.pyramid_plain(imgs[b])
-        for lvl, (a, s, p) in enumerate(zip(pair, one, plain)):
+        taps = ex.pyramid_taps_plain(imgs[b].cpu())
+        for lvl, (a, s, p, t) in enumerate(zip(pair, one, plain, taps)):
             assert torch.equal(a[b], s)
+            assert torch.equal(s.cpu(), t), lvl
             assert float((s - p).abs().max()) <= 1e-4, lvl
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_resize_pyramid_kernel_matches_taps_plain_at_every_shape(dev, case):
+    """Kernel S against its two-tap plain version at chip_smoke.py's
+    shapes (752x480 at 8 levels, one image, the pair and the pair as f32;
+    640x320 at 6; 1280x720 at 8; 1920x960 at 6): 0 pixels differing."""
+    import chip_smoke
+
+    ex = ox.OrbExtractor(OrbParams(num_levels=8), 752, 480, min_area=800, device=dev)
+    world = PlaneWorld(width=752, height=480, noise_sigma=2.0)
+    pair = torch.stack([torch.from_numpy(world.render(T))
+                        for T in lateral_trajectory(2)]).to(dev)
+    label, e, images = chip_smoke.pyramid_cases(dev, ex, pair)[case]
+    pyr = e.pyramid_flat(images).cpu()
+    for b in range(images.shape[0]):
+        want = torch.cat([x.reshape(-1) for x in e.pyramid_taps_plain(images[b].cpu())])
+        assert int((pyr[b] != want).sum()) == 0, label
 
 
 def test_extractor_kernels_at_equirect_shape(dev):
@@ -1306,9 +1367,12 @@ def test_solve_kernels_repeat_under_concurrent_streams(dev):
 
 @pytest.mark.parametrize("N", [0, 1, 37, 2872, 65535])
 def test_cell_index_kernel_equals_plain(dev, N):
-    """Kernel C's counting sort against its plain version (argsort, stable):
-    the same order and cell starts, with NaN coordinates and points far
-    outside the grid."""
+    """Kernel C's cell index against its plain version (argsort, stable):
+    the same cell starts and the same targets in each cell (the kernel's in
+    no fixed order), with NaN coordinates and points far outside the
+    grid."""
+    import chip_smoke
+
     g = torch.Generator().manual_seed(N)
     u = (torch.rand(N, generator=g) * 4000 - 1500).to(dev)
     v = (torch.rand(N, generator=g) * 3000 - 1000).to(dev)
@@ -1317,7 +1381,7 @@ def test_cell_index_kernel_equals_plain(dev, N):
     k = H.build_cell_index(u.contiguous(), v.contiguous(), 752.0, 480.0)
     p = H.build_cell_index_plain(u, v, 752.0, 480.0)
     assert H.build_cell_index.launches == before + 1
-    assert torch.equal(k.start, p.start) and torch.equal(k.order, p.order)
+    assert chip_smoke.same_cells(k.start[None], k.order[None], p.start[None], p.order[None])
 
 
 @pytest.mark.parametrize("name", ["image", "fisheye_outside", "division_far_outside",
