@@ -68,19 +68,20 @@ Phases, each fatal on failure (nothing is caught):
      < 0.10 m, at least 12 local BAs and 5 keyframes kept at the end, kernels
      A-L launched; frame and keyframe-event times by phase
      (util/map_slice.py);
-  8. the mapping kernels on the map slice's own inputs: J (epipolar top-2)
-     and K (DLT and checks) on its triangulation with the most neighbours,
-     L (the fuse chunk's cell indexes, then the cell walk) on its fuse chunk
-     with the most landmarks and on fuse_edge_chunk (landmarks at the
-     image's edges, keypoints outside it, NaN coordinates), each at margins
-     3 and 4: its plain cell walk equal to the full-scan plain version (0
-     outputs differing), the kernel's outputs equal to the full scan's but
-     for rows whose plain prologue puts a gate within rounding of its
-     threshold (each such row printed with its gate, the chunk saved; the
-     largest share of rows differing is L's max_abs_err), the pairs
-     visited beside gated x N; J and K
-     against their plain versions (rows or flags differing <= 1e-3, K's
-     positions within 1e-4 relative where both are ok); F-I at the local-BA shape (K=16, L=4096,
+  8. the mapping kernels on the map slice's own inputs: J (epipolar top-2:
+     the band index, then the band walk) and K (DLT and checks) on its
+     triangulation with the most neighbours, L (the fuse chunk's cell
+     indexes, then the cell walk) on its fuse chunk with the most landmarks
+     and on fuse_edge_chunk (landmarks at the image's edges, keypoints
+     outside it, NaN coordinates), each at margins 3 and 4: its plain cell
+     walk equal to the full-scan plain version and the kernel's outputs
+     equal to it (0 rows differing; the chunk saved); J's outputs equal to
+     plain's (0 rows), also with the band index given, its plain band walk
+     equal to the dense walk, its band index against the plain index (the
+     basis within 1e-6, targets in another bucket <= 1e-3 and the next bin
+     at most), the pairs visited beside the dense pairs; K against its
+     plain version (flags differing <= 1e-3, positions within 1e-4
+     relative where both are ok); F-I at the local-BA shape (K=16, L=4096,
      D=12, 3 + 6 iterations, the local BA's layout of observers) against
      the plain BA with phase 4's bounds, and on every local problem of the
      slice kernel by kernel on the kernels' own state (_lockstep_ba): F's
@@ -293,7 +294,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 # kernels J, K, L: the mapping module's, which the mono and RGBD slices
 # (mapping disabled) never launch
-MAPPING_KERNELS = ("epipolar_top2", "triangulate", "fuse", "fuse_cell_index")
+MAPPING_KERNELS = ("epipolar_top2", "epipolar_band_index", "triangulate", "fuse",
+                   "fuse_cell_index")
 # kernels M-P: the loop closer's (M runs with the mapper's keyframe events)
 LOOP_KERNELS = ("bow_transform", "pnp_ransac", "sim3_transform", "pose_graph", "spd_solve",
                 "match_frame_and_keyframe")
@@ -1637,10 +1639,32 @@ def largest_inputs(calls):
     return tri, fuse, local
 
 
+def band_index_differs(band, plain):
+    """Kernel J's band index against the plain one on the same inputs: (the
+    share of targets whose bucket differs, those that differ other than by
+    one angle bin, mod the bins, or between an angle bin and the bucket
+    every row visits). A target whose angle lies at a bin edge, or whose
+    normal lies at the off-plane limit, may round into the next bucket: the
+    walk visits one more bin on each side of a row's band for that."""
+    import torch
+
+    from stella_vslam_tpu_torch.match import hamming as H
+
+    nb = H.J_BAND_BINS
+    k, q = H.band_index_buckets(band), H.band_index_buckets(plain)
+    differ = k != q
+    step = torch.remainder(k - q, nb)
+    adjacent = (k < nb) & (q < nb) & ((step == 1) | (step == nb - 1))
+    always = ((k == nb) & (q < nb)) | ((q == nb) & (k < nb))
+    return float(differ.float().mean()), int((differ & ~adjacent & ~always).sum())
+
+
 def _check_epipolar(dev, kern, tri, name="epipolar_top2", label=""):
     """Kernel J against its plain version on one triangulation's inputs
     (`tri`: the current keyframe, its neighbours, their poses and valid
-    flags); returns its row of the kernels line."""
+    flags); returns its rows of the kernels line: the call (band index and
+    walk), and the band index alone (`epipolar_band_index`, its own
+    counter)."""
     import torch
 
     from stella_vslam_tpu_torch.match import hamming as H
@@ -1660,12 +1684,24 @@ def _check_epipolar(dev, kern, tri, name="epipolar_top2", label=""):
     for u, v in zip(outk, outp):
         differ |= u != v
     share_j = float(differ.float().mean())
+    # the band index against its plain version, and the walk on it
+    band = H.epipolar_band_index(nbrs.unassoc, gate)
+    band_plain = H.epipolar_band_index_plain(nbrs.unassoc, gate)
+    basis_err = float((band.basis - band_plain.basis).abs().max())
+    share_idx, far_idx = band_index_differs(band, band_plain)
+    walk_differ = sum(int((u != v).sum()) for u, v in zip(H.epipolar_top2(*jargs, band=band),
+                                                          outp))
+    # the band walk in plain form: the same outputs, and the pairs it visits
+    *band_out, visit = H.epipolar_band_plain(*jargs)
+    band_differ = sum(int((u != v).sum()) for u, v in zip(band_out, outp))
     # this run's work: per (unassociated row, target) the target's flag;
     # per valid pair the orientation and epipole tests; per pair past them
     # the epipolar residual; per candidate XOR + popcount + add over 8 words
     # and the top-2 update. A row that is not unassociated needs no per-pair
-    # work: its output is the constant (257, 0, 257, 0).
-    n_rowpairs = n_valid = n_orient = n_cand = 0
+    # work: its output is the constant (257, 0, 257, 0). Counted over every
+    # pair, and over the pairs in the rows' bands (what the walk needs: a
+    # pair outside its row's band cannot pass the residual gate).
+    n_rowpairs = n_valid = n_orient = n_cand = n_orient_band = n_cand_targets = 0
     for b in range(B):
         n_rowpairs += int(cur.unassoc.sum()) * N2
         ok = cur.unassoc[:, None] & nbrs.unassoc[b][None, :]
@@ -1675,27 +1711,71 @@ def _check_epipolar(dev, kern, tri, name="epipolar_top2", label=""):
                                                  & ~gate.row_stereo[:, None])
         n_valid += int(ok.sum())
         n_orient += int(orient.sum())
-        n_cand += int(H.epipolar_gate_matrix(b, cur.unassoc, nbrs.unassoc, gate).sum())
+        n_orient_band += int((orient & visit[b]).sum())
+        cand = H.epipolar_gate_matrix(b, cur.unassoc, nbrs.unassoc, gate)
+        n_cand += int(cand.sum())
+        n_cand_targets += int(cand.any(0).sum())
+    n_band = int(visit.sum())
+    n_live, n_tvalid = int(cur.unassoc.sum()), int(nbrs.unassoc.sum())
     n_acc = int(robust.match_for_triangulation(
         cur.angle, cur.level, cur.desc, cur.bear, cur.unassoc, cur.stereo, nbrs.angle,
         nbrs.desc, nbrs.bear, nbrs.unassoc, nbrs.stereo, E_12, epl2,
         scale_factors=kern.scale_factors)[1].sum())
     torch.cuda.synchronize()
     print(f"kernel J epipolar_top2{label}: {B}x{N1}x{N2}, {int(pair_valid.sum())} valid "
-          f"neighbours, {int(cur.unassoc.sum())} unassociated rows, {n_valid} valid, "
-          f"{n_orient} past orientation and epipole, {n_cand} candidate pairs, {n_acc} "
-          f"accepted; rows differing from plain {share_j:.6f}")
-    assert share_j <= 1e-3, f"kernel J disagrees with its plain version{label}"
-    return dict(
+          f"neighbours, {n_live} unassociated rows, {n_tvalid} unassociated targets, "
+          f"{n_valid} valid, {n_orient} past orientation and epipole, {n_cand} candidate "
+          f"pairs on {n_cand_targets} targets, {n_acc} accepted; pairs in the rows' bands "
+          f"{n_band} ({n_orient_band} past orientation and epipole); rows differing from "
+          f"plain {int(differ.sum())}, the walk on a given index {walk_differ}, the plain "
+          f"band walk's outputs {band_differ}; the band index: basis within {basis_err:.3g} "
+          f"of plain, targets in another bucket than plain's {share_idx:.6f} ({far_idx} "
+          f"farther than the next bin)")
+    assert not bool(differ.any()) and walk_differ == 0, \
+        f"kernel J disagrees with its plain version{label}"
+    assert band_differ == 0, f"the plain band walk disagrees with the dense walk{label}"
+    assert basis_err <= 1e-6 and share_idx <= 1e-3 and far_idx == 0, \
+        f"kernel J's band index disagrees with its plain version{label}"
+    # bytes the function needs on this run's data: every flag; a live row's
+    # descriptor and gate terms (56 B); an unassociated target's gate terms
+    # and near flag (25 B); a candidate target's descriptor; E; the output
+    j_bytes = (N1 + n_live * 56.0 + B * N2 + n_tvalid * 25.0 + n_cand_targets * 32.0
+               + B * 36.0 + B * N1 * 16.0)
+    j_bytes_all = N1 * (32 + 24 + 1) + B * N2 * (32 + 24 + 1) + B * N1 * 16
+    # the index: flags, an unassociated target's normal and length, E; the
+    # basis, the bucket starts and the order written; ~45 operations a
+    # valid target (three divisions, three dot products, atan2, the bin)
+    idx_bytes = B * N2 + n_tvalid * 16.0 + B * 36.0 + B * 36.0 \
+        + B * (H.J_BAND_BINS + 3) * 4.0 + B * N2 * 4.0
+    bucket_ids = H.band_buckets(nbrs.unassoc, gate, band_plain.basis)
+    shape = f"{B}x{N1}x{N2}"
+    return [dict(
         name=name, route="cuda",
         source="stella_vslam_tpu_torch/csrc/hamming_top2.cu",
         replaces="stella_vslam_tpu/match/robust.py:22", max_abs_err=share_j,
         **_times(lambda: H.epipolar_top2(*jargs)),
+        walk_ms=_device_ms(lambda: H.epipolar_top2(*jargs, band=band)),
         plain_ms=_median_ms(lambda: H.epipolar_top2_plain(*jargs), reps=5, warmup=1),
-        library_ms=None,
-        **_bound(N1 * (32 + 24 + 1) + B * N2 * (32 + 24 + 1) + B * N1 * 16,
-                 1.0 * n_rowpairs + 5.0 * n_valid + 10.0 * n_orient + 30.0 * n_cand),
-        shape=f"{B}x{N1}x{N2}")
+        library_ms=None, pairs_visited=n_band, pairs_dense=n_valid,
+        bound_ms_all_pairs=_bound(j_bytes_all, 1.0 * n_rowpairs + 5.0 * n_valid
+                                  + 10.0 * n_orient + 30.0 * n_cand)["bound_ms"],
+        **_bound(j_bytes, 6.0 * n_band + 10.0 * n_orient_band + 30.0 * n_cand),
+        timing_call="ms and one_call_ms: the call, its band index (the "
+        "epipolar_band_index row) and the walk; walk_ms: the walk on a given index",
+        bytes_counted="flags, live rows' fields, unassociated targets' gate terms, "
+        "candidate targets' descriptors, E, the output", shape=shape), dict(
+        name=name.replace("epipolar_top2", "epipolar_band_index"), route="cuda",
+        source="stella_vslam_tpu_torch/csrc/hamming_top2.cu (epipolar_band_index_kernel)",
+        replaces="stella_vslam_tpu/match/robust.py:22 (the residual mask of its [N1,N2] "
+        "gates)", note="kernel J's band index, a block a neighbour",
+        max_abs_err=share_idx, max_abs_err_is="the share of targets in another bucket than "
+        "the plain index's (the next bin at most)", shape=f"{B} x {N2} targets, "
+        f"{H.J_BAND_BINS} bins",
+        **_times(lambda: H.epipolar_band_index(nbrs.unassoc, gate)),
+        plain_ms=_median_ms(lambda: H.epipolar_band_index_plain(nbrs.unassoc, gate), reps=5),
+        library_ms=_device_ms(lambda: torch.argsort(bucket_ids, dim=1, stable=True)),
+        library_call="torch.argsort (stable) of the targets' bucket ids",
+        **_bound(idx_bytes, 45.0 * n_tvalid + 2.0 * B * N2))]
 
 
 def fuse_edge_yaml(model: str = "perspective") -> dict:
@@ -1848,75 +1928,21 @@ def fuse_work(kern, fargs, margin: float, model) -> dict:
                 walk=walk)
 
 
-def fuse_at_threshold(kern, fargs, margin: float, model, b: int, m: int) -> str:
-    """Which gate of kernel L's (keyframe b, landmark m) the plain prologue
-    puts within rounding of its threshold ("" where none): the image bounds
-    (1e-3 px), the distance range (1e-5 relative), the viewing cosine, the
-    predicted octave's ceil (1e-5 of an octave), or a keypoint's window
-    edge (1e-3 px) or chi-square bound (1e-5 relative) at a level the
-    landmark's octave admits. An ulp of the prologue's projection (CUDA's
-    float expressions against torch's) moves a row only there."""
-    import torch
-
-    from stella_vslam_tpu_torch.camera.base import CameraModel
-    from stella_vslam_tpu_torch.match import fuse as fuse_match
-    from stella_vslam_tpu_torch.module import mapping_kernels as mk
-
-    kfs, poses, _, lm_f, _, _ = fargs
-    cam, L = kern.cam, kern.scale_factors.shape[0]
-    R, t = poses[b, :9].reshape(3, 3), poses[b, 9:12]
-    pos, dmin, dmax, normal = lm_f[m, :3], lm_f[m, 3], lm_f[m, 4], lm_f[m, 5:8]
-    u, v, _, _ = (x[0] for x in mk._reproject(model, cam, R, t, pos[None]))
-    ray = pos - mk._centre(R, t)
-    dist = torch.linalg.norm(ray)
-    cosang = torch.sum(ray * normal) / torch.clamp(dist, min=1e-9)
-    x = torch.log(torch.clamp(dmax, min=1e-9) / torch.clamp(dist, min=1e-9)) / kern.log_scale
-    near = lambda a, thr, tol: abs(float(a) - float(thr)) <= tol
-    if model != CameraModel.EQUIRECTANGULAR:
-        for name, a, thr in (("u", u, 0.0), ("u", u, cam.width), ("v", v, 0.0),
-                             ("v", v, cam.height)):
-            if near(a, thr, 1e-3):
-                return f"image bound {name}"
-    for name, thr in (("dmin / 1.3", dmin / 1.3), ("dmax * 1.3", dmax * 1.3)):
-        if near(dist, thr, 1e-5 * float(dist)):
-            return f"distance {name}"
-    if near(cosang, 0.5, 1e-5):
-        return "viewing cosine"
-    if near(x, torch.round(x), 1e-5):
-        return "octave"
-    pred = int(torch.clamp(torch.ceil(x), 0, L - 1))
-    r = margin * float(kern.scale_factors[pred])
-    du, dv = kfs.uv[b, :, 0] - u, kfs.uv[b, :, 1] - v
-    lvl = kfs.level[b].long()
-    ok = kfs.valid[b] & (lvl >= pred - 1) & (lvl <= pred + 1)
-    inside = (du.abs() <= r + 1e-3) & (dv.abs() <= r + 1e-3)
-    edge = ((du.abs() - r).abs() <= 1e-3) | ((dv.abs() - r).abs() <= 1e-3)
-    if bool((ok & inside & edge).any()):
-        return "a keypoint's window edge"
-    sig = kern.level_sigma_sq[lvl]
-    chi = (du * du + dv * dv) / sig
-    for thr in (fuse_match.CHI_SQ_2D, fuse_match.CHI_SQ_3D):
-        if bool((ok & inside & ((chi - thr).abs() <= 1e-5 * thr)).any()):
-            return "a keypoint's chi-square bound"
-    return ""
-
-
 def check_fuse_chunk(dev, kern, fargs, model_name: str) -> list:
     """Kernel L (the cell indexes, then the walk) against fuse_scan_plain on
     a recorded fuse chunk at margins 3 (the keyframe event) and 4 (loop
     fusion), and on fuse_edge_chunk (landmarks at the image's edges,
     keypoints outside it, NaN coordinates) at both margins. The walk is
     exact: the plain cell walk (fuse_cells_plain) must equal the full scan
-    with 0 outputs differing. The kernel's best, index and gate must equal
-    the full scan's on every (keyframe, landmark) row except a row whose
-    plain prologue puts a gate within rounding of its threshold
-    (fuse_at_threshold: CUDA's float expressions against torch's may round
-    it the other way); each such row is printed with its gate, and its
-    chunk is saved to chiprun_out/ so that another tree's kernel can be run
-    on it. L's max_abs_err is the largest share of rows differing over the
-    four checks. Prints the pairs the walk visits beside gated x N. Returns
-    the rows of L and of its cell index, timed on the recorded chunk at
-    margin 3."""
+    with 0 outputs differing, and so must the kernel's best, index and
+    gate on every (keyframe, landmark) row: its prologue rounds as the
+    plain one does (the FMA chains, the reciprocals of 1.3 and of
+    log(scale factor)), so a row at a gate's threshold goes the same way.
+    A differing row is printed and its chunk saved to chiprun_out/, so that
+    another tree's kernel can be run on it. L's max_abs_err is the largest
+    share of rows differing over the four checks. Prints the pairs the walk
+    visits beside gated x N. Returns the rows of L and of its cell index,
+    timed on the recorded chunk at margin 3."""
     import torch
 
     from stella_vslam_tpu_torch.match import hamming as H
@@ -1942,18 +1968,17 @@ def check_fuse_chunk(dev, kern, fargs, model_name: str) -> list:
             work = fuse_work(kk, aa, margin, kk.camera.model)
             rows = torch.nonzero((lk[0] != lp[0]) | (lk[1] != lp[1]) | (lk[2] != lp[2])).tolist()
             differ = len(rows)
-            at_thr = [fuse_at_threshold(kk, aa, margin, kk.camera.model, b, m) for b, m in rows]
-            for (b, m), why in zip(rows, at_thr):
+            for b, m in rows[:20]:
                 print(f"  kernel L ({model_name}, {label}, margin {margin:g}) keyframe {b} "
                       f"landmark {m}: kernel {[int(x[b, m]) for x in lk]}, plain "
-                      f"{[int(x[b, m]) for x in lp]}; at a threshold: {why or 'none'}")
+                      f"{[int(x[b, m]) for x in lp]}")
             walk_differ = int(sum(int((x != y).sum()) for x, y in zip(work.pop("walk"), lp)))
             N = aa[0].uv.shape[1]
             acc, acc_p = mk.accept_fused(*lk, N), mk.accept_fused(*lp, N)
             stats[f"{label}_margin{int(margin)}"] = dict(
                 chunk=f"{aa[0].uv.shape[0]}x{aa[3].shape[0]}x{N}",
                 keyframes=int(aa[2].sum()), landmarks=int(aa[5].sum()),
-                outputs_differing=differ, outputs_differing_at_a_threshold=sum(map(bool, at_thr)),
+                outputs_differing=differ,
                 rows_differing_share=differ / lk[2].numel(),
                 accepted_flags_differing_share=float((acc != acc_p).float().mean()),
                 cell_walk_plain_differing=walk_differ,
@@ -1968,13 +1993,9 @@ def check_fuse_chunk(dev, kern, fargs, model_name: str) -> list:
                   f"{aa[3].shape[0]}, N={N}, margin {margin:g}): {work['gated']} gated, pairs "
                   f"visited {work['visited']} (of {work['gated'] * N} gated x N), "
                   f"{work['in_window']} in a window, {work['candidates']} candidates, "
-                  f"{int(acc.sum())} accepted; outputs differing from the full scan {differ} "
-                  f"({sum(map(bool, at_thr))} at a threshold of the prologue's gates), the "
-                  f"plain cell walk's {walk_differ}")
-            # the walk is exact (the plain cell walk equals the full scan);
-            # the kernel's prologue may round a gate that sits at its
-            # threshold the other way, as the parent's did
-            assert walk_differ == 0 and all(at_thr), \
+                  f"{int(acc.sum())} accepted; outputs differing from the full scan {differ}, "
+                  f"the plain cell walk's {walk_differ}")
+            assert walk_differ == 0 and differ == 0, \
                 f"kernel L disagrees with its plain version ({model_name}, {label}, {margin})"
         if label == "recorded":
             torch.save(dict(model=model_name, num_levels=int(kk.scale_factors.shape[0]),
@@ -2012,9 +2033,8 @@ def check_fuse_chunk(dev, kern, fargs, model_name: str) -> list:
         max_abs_err=max(s["rows_differing_share"] for s in stats.values()),
         max_abs_err_is="the largest share of (keyframe, landmark) rows whose outputs differ "
         "from fuse_scan_plain over the four checks",
-        rows_differing_at_a_threshold=sum(s["outputs_differing_at_a_threshold"]
-                                          for s in stats.values()),
-        shape=f"{Bf}x{M}x{N}", checks=stats, pairs_visited=work["visited"],
+        shape=f"{Bf}x{M}x{N}", checks=stats,
+        pairs_visited=work["visited"],
         pairs_full_scan=work["gated_times_n"],
         **_times(lambda: mk.fuse_scan(*largs)),
         plain_ms=_median_ms(lambda: mk.fuse_scan_plain(*largs), reps=5, warmup=1),
@@ -2063,7 +2083,7 @@ def check_mapping_kernels(dev, mapper, inputs):
     B, N2 = nbrs.desc.shape[0], nbrs.desc.shape[1]
     N1 = cur.desc.shape[0]
 
-    rows.append(_check_epipolar(dev, kern, (cur, nbrs, poses, pair_valid)))
+    rows += _check_epipolar(dev, kern, (cur, nbrs, poses, pair_valid))
 
     # ---- K: DLT and checks on kernel J's matches ----
     E_12, epl2 = mk.epipolar_terms(poses)
@@ -3632,17 +3652,102 @@ def record_window_rows_inputs(sample: int = 97):
 
 def check_recorded_rows(calls, label):
     """Kernel R's window rows against plain on a slice's recorded calls
-    (_check_rows_call's bounds). Returns the largest relative error."""
-    err, n_diff, n_near = 0.0, 0, 0
+    (_check_rows_call's bounds), and the predicted octave of every table
+    row equal to plain's, with no allowance at a ceil. Returns the largest
+    relative error."""
+    from stella_vslam_tpu_torch.camera import base as cb
+
+    err, n_diff, n_near, n_rows, pred_diff = 0.0, 0, 0, 0, 0
     for recs in calls.values():
         for p, R, t, pos, kw in recs:
             e, d, n = _check_rows_call(p, R, t, pos, kw)
             err, n_diff, n_near = max(err, e), n_diff + d, n_near + n
+            if kw.get("tbl_u32") is not None:
+                k = cb.project_window_rows(p, R, t, pos, **kw)
+                q = cb.project_window_rows_plain(p, R, t, pos, **kw)
+                pred_diff += int((k.pred_scale != q.pred_scale).sum())
+                n_rows += pos.shape[0]
     print(f"kernel R on the {label}'s recorded calls: "
           f"{json.dumps({k: len(v) for k, v in calls.items()})}, floats within {err:.3g} "
-          f"relative, {n_diff} rows apart, {n_near} within 1e-6 of a threshold")
+          f"relative, {n_diff} rows apart, {n_near} within 1e-6 of a threshold; predicted "
+          f"octaves differing from plain {pred_diff} of {n_rows} table rows")
     assert all(calls.values()), f"kernel R: no recorded call of a stage on the {label}"
+    assert pred_diff == 0, f"kernel R's predicted octave differs from plain on the {label}"
     return err
+
+
+def octave_ceil_case(dev, sf: float = 1.2, num_levels: int = 8, ulps: int = 1500,
+                     seed: int = 16):
+    """Landmarks whose predicted octave sits at a ceil: on the optical axis
+    of a camera at the origin, (0, 0, z) with z a power of two, so that the
+    distance is z and dmax / dist a chosen float32 ratio: every float32
+    ratio within `ulps` of sf^k, k = 1..L-1. Returns (pos [M,3], dmin,
+    dmax) float32 tensors on dev."""
+    import torch
+
+    near = [np.arange(c - ulps, c + ulps, dtype=np.int32).view(np.float32)
+            for c in (np.float32(sf ** k).view(np.int32) for k in range(1, num_levels))]
+    r = np.concatenate(near)
+    z = (np.float32(2.0) ** np.random.default_rng(seed).integers(0, 4, len(r))).astype(np.float32)
+    pos = np.zeros((len(r), 3), np.float32)
+    pos[:, 2] = z
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return f(pos), f(z / 2), f(r * z)
+
+
+def check_octave_ceils(dev, tk, mk):
+    """Kernels R and L against their plain versions where the predicted
+    octave sits at a ceil (octave_ceil_case): R's table rows at the
+    identity pose must give plain's octave on every row; L's chunk puts L
+    keypoints at the landmarks' pixel, one a level, the highest level first
+    and every descriptor the landmark's, so that the best index is the
+    highest level the octave admits (pred + 1, clamped) and must equal
+    plain's on every row. Returns the rows differing (0 required)."""
+    import torch
+
+    from stella_vslam_tpu_torch.camera import base as cb
+    from stella_vslam_tpu_torch.module import mapping_kernels as mkm
+
+    L = tk.orb.num_levels
+    pos, dmin, dmax = octave_ceil_case(dev, tk.orb.scale_factor, L)
+    M = pos.shape[0]
+    normal = torch.zeros_like(pos)
+    normal[:, 2] = 1.0
+    tbl = torch.cat([pos, normal, dmin[:, None], dmax[:, None]], 1).contiguous()
+    tu = torch.zeros((M, 10), dtype=torch.int32, device=dev)
+    tu[:, 9] = 1
+    eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+    kw = dict(scale_factors=tk.scale_factors, margin=5.0, tbl_u32=tu, log_scale=tk.log_scale,
+              num_levels=L)
+    k = cb.project_window_rows(tk.camera.params, eye, zero, tbl, **kw)
+    q = cb.project_window_rows_plain(tk.camera.params, eye, zero, tbl, **kw)
+    r_diff = int((k.pred_scale != q.pred_scale).sum())
+    p = mk.cam
+    uv = torch.tensor([[p.cx, p.cy]] * L, dtype=torch.float32, device=dev)
+    desc = torch.zeros((M, 8), dtype=torch.int32, device=dev)
+    kfs = mkm.FuseKeyframes(
+        uv[None].contiguous(), torch.arange(L - 1, -1, -1, dtype=torch.int32,
+                                            device=dev)[None].contiguous(),
+        torch.zeros((1, L, 8), dtype=torch.int32, device=dev),
+        torch.ones((1, L), dtype=torch.bool, device=dev),
+        torch.full((1, L), -1.0, device=dev))
+    poses = torch.cat([eye.reshape(9), zero])[None].contiguous()
+    lm_f = torch.cat([pos, dmin[:, None], dmax[:, None], normal], 1).contiguous()
+    largs = (kfs, poses, torch.ones(1, dtype=torch.bool, device=dev), lm_f, desc,
+             torch.ones(M, dtype=torch.bool, device=dev), mk.cam, mk.scale_factors,
+             mk.level_sigma_sq, mk.log_scale, 3.0, mk.camera.model)
+    lk, lp = mkm.fuse_scan(*largs), mkm.fuse_scan_plain(*largs)
+    l_diff = int(((lk[0] != lp[0]) | (lk[1] != lp[1]) | (lk[2] != lp[2])).sum())
+    pred = q.pred_scale.long()
+    admitted = int((lp[1].long()[0] == (L - 1) - torch.clamp(pred + 1, max=L - 1)).sum())
+    torch.cuda.synchronize()
+    print(f"kernels R and L at octave ceils: {M} landmarks within 1500 ulps of "
+          f"{tk.orb.scale_factor}^k, octaves {json.dumps(torch.bincount(pred).tolist())}; "
+          f"R's octave differing from plain {r_diff}, L's rows {l_diff}; L's best index "
+          f"the highest admitted level on {admitted} of {M}")
+    assert admitted == M, "the octave-ceil chunk does not read L's octave from its index"
+    assert r_diff == 0 and l_diff == 0, "kernel R or L rounds an octave ceil unlike plain"
+    return r_diff + l_diff
 
 
 def check_recorded_matches(calls):
@@ -4411,9 +4516,9 @@ def record_stereo_inputs(sample: int = 20):
 # what the stereo leg and the RGBD leg with mapping launch
 LEG_KERNELS = ("resize_pyramid", "fast_nms_pyramid", "hamming_top2", "cell_index", "pose_lm",
                "scatter_to_current", "dedup_by_id", "project_window_rows", "undistort_norm",
-               "epipolar_top2", "triangulate", "fuse", "fuse_cell_index", "ba_linearize_schur",
-               "schur_index", "ba_reduced_solve", "ba_backsub_cost", "ba_classify",
-               "bow_transform")
+               "epipolar_top2", "epipolar_band_index", "triangulate", "fuse", "fuse_cell_index",
+               "ba_linearize_schur", "schur_index", "ba_reduced_solve", "ba_backsub_cost",
+               "ba_classify", "bow_transform")
 
 
 def run_stereo_legs(dev, world, wrappers, card):
@@ -4532,9 +4637,10 @@ def run_hd_slice(dev, wrappers, card, n_frames: int = 30):
 
 EQUIRECT_LEG_KERNELS = ("resize_pyramid", "fast_nms_pyramid", "orb_describe", "hamming_top2",
                         "cell_index", "pose_lm", "ransac_two_view", "scatter_to_current",
-                        "dedup_by_id", "project_window_rows", "epipolar_top2", "triangulate",
-                        "fuse", "fuse_cell_index", "ba_linearize_schur", "schur_index",
-                        "ba_reduced_solve", "ba_backsub_cost", "ba_classify", "bow_transform")
+                        "dedup_by_id", "project_window_rows", "epipolar_top2",
+                        "epipolar_band_index", "triangulate", "fuse", "fuse_cell_index",
+                        "ba_linearize_schur", "schur_index", "ba_reduced_solve",
+                        "ba_backsub_cost", "ba_classify", "bow_transform")
 # the rows of the equirectangular modes and of the kernels the leg runs
 # unchanged, held at its own shapes, by the counter they read
 EQUIRECT_ROWS = {"project_window_rows_equirect": "project_window_rows",
@@ -4549,7 +4655,8 @@ EQUIRECT_ROWS = {"project_window_rows_equirect": "project_window_rows",
                      "linearize_schur", "reduced_solve", "backsub_cost", "classify")},
                  **{f"{k}_equirect_leg": k for k in (
                      "resize_pyramid", "fast_nms_pyramid", "orb_describe", "epipolar_top2",
-                     "bow_transform", "scatter_to_current", "dedup_by_id")},
+                     "epipolar_band_index", "bow_transform", "scatter_to_current",
+                     "dedup_by_id")},
                  "hamming_top2_equirect_leg": "hamming_top2_window"}
 # kernel U's candidates against its plain version's, as sets, up to sign:
 # the share within 1e-4 / 1e-3 / 1e-2 each way (the lesser), at least this
@@ -4820,9 +4927,9 @@ def check_equirect_shapes(dev, slam_like, calls):
 
     # ---- J: the leg's largest triangulation ----
     tri, _, _ = largest_inputs(calls)
-    rows.append(_check_epipolar(dev, slam_like.mapper.kernels, tri,
-                                name="epipolar_top2_equirect_leg",
-                                label=" on the equirect leg's largest triangulation"))
+    rows += _check_epipolar(dev, slam_like.mapper.kernels, tri,
+                            name="epipolar_top2_equirect_leg",
+                            label=" on the equirect leg's largest triangulation")
 
     # ---- Q: the leg's sampled scatters and dedups ----
     err_q = 0.0
@@ -5137,9 +5244,10 @@ FBOW_KERNELS = ("fbow_transform",)
 # what every distorted leg launches (R's mode of its model besides)
 DISTORTED_LEG_KERNELS = ("resize_pyramid", "fast_nms_pyramid", "orb_describe", "hamming_top2",
                          "cell_index", "pose_lm", "ransac_two_view", "scatter_to_current",
-                         "dedup_by_id", "project_window_rows", "epipolar_top2", "triangulate",
-                         "fuse", "fuse_cell_index", "ba_linearize_schur", "schur_index",
-                         "ba_reduced_solve", "ba_backsub_cost", "ba_classify", "bow_transform")
+                         "dedup_by_id", "project_window_rows", "epipolar_top2",
+                         "epipolar_band_index", "triangulate", "fuse", "fuse_cell_index",
+                         "ba_linearize_schur", "schur_index", "ba_reduced_solve",
+                         "ba_backsub_cost", "ba_classify", "bow_transform")
 # the rows whose launches are a distorted leg's (and its counter there)
 DISTORTED_ROWS = {"undistort_fisheye": ("fisheye", "undistort_fisheye"),
                   "undistort_radial": ("radial_division", "undistort_radial"),
@@ -5499,6 +5607,7 @@ def main() -> int:
     twice["ate_m"][0], twice["loops"][0] = loop["ate_m"], loop["loops_closed"]
     print("loop slice twice in one process (the second sharded): " + json.dumps(twice))
     map_rows = check_mapping_kernels(dev, slam.mapper, inputs)
+    check_octave_ceils(dev, slam.tracker.kernels, slam.mapper.kernels)
     map_rows += check_loop_kernels(dev, slam, loop_rec)
     map_rows += check_sharded_ba(dev, loop_rec, slam.mapper.cam_scalars)
     repeat = check_repeatability(dev, loop_rec, slam.mapper.cam_scalars)

@@ -27,9 +27,7 @@ launch included, chip_smoke._median_ms) and the device time by CUDA kernel
     because a row differed, `fuse_chunk_*_differing.pt`) and on
     fuse_edge_chunk (perspective and equirectangular), margins 3 and 4,
     with the (keyframe, landmark) rows whose outputs differ from
-    fuse_scan_plain's and the gate each sits at (chip_smoke.
-    fuse_at_threshold; run it on two trees to see whether both kernels'
-    prologues round those rows alike);
+    fuse_scan_plain's;
   - the RGBD slice's extraction (120 frames): create_RGBD_frame's time a
     frame, p50 / p99, and the CUDA kernels it launches a frame
     (torch.profiler on frames 40-80).
@@ -214,8 +212,6 @@ def main() -> int:
                 dict(device_ms=cs._device_ms(fn), one_call_ms=cs._median_ms(fn),
                      launches_per_call=launches_of(l_counters, fn), gated=int(p[2].sum()),
                      outputs_differing_plain=rows,
-                     at_a_threshold=[cs.fuse_at_threshold(kk, fargs, margin, kk.camera.model,
-                                                          b, m) for b, m in rows],
                      by_kernel_us=by_kernel(fn) or "not measured"))
 
     if a.only == "all":

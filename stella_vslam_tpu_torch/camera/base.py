@@ -313,6 +313,39 @@ class WindowRows(NamedTuple):
     pred_scale: Optional[torch.Tensor]  # [M] i32 predicted level (the table), else None
 
 
+def log_scale_of(scale_factor: float) -> float:
+    """The float32 log of an ORB scale factor as the JAX package takes it
+    (`jnp.log(jnp.float32(sf))`, correctly rounded): the double log of the
+    float32 factor, rounded to float32. numpy's float32 log is an ulp off
+    it for 1.2, sqrt(2) and 1.1."""
+    return float(np.float32(math.log(float(np.float32(scale_factor)))))
+
+
+def f32_reciprocal(x: float) -> float:
+    """1 / x in float32 from float32 x: what a jitted division by the
+    constant x multiplies by (XLA folds `v / c` into `v * (1 / c)`)."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
+# the fusion gate's dmin / 1.3, as the JAX version's jitted code takes it
+DMIN_SCALE = f32_reciprocal(1.3)
+
+
+def times_f32(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x times the float32 constant c, one float32 product on the CPU and on
+    the card alike (c as a float32 scalar tensor)."""
+    return x * torch.tensor(c, dtype=torch.float32)
+
+
+def predicted_octave(ratio: torch.Tensor, inv_log_scale: float, num_levels: int) -> torch.Tensor:
+    """clip(ceil(log(max(ratio, 1e-9)) * inv_log_scale), 0, num_levels - 1)
+    as int32: the JAX version's jitted `ceil(log(r) / log_scale)`, whose
+    division by the constant is a product with its float32 reciprocal
+    (inv_log_scale = f32_reciprocal(log_scale))."""
+    lv = torch.ceil(times_f32(torch.log(torch.clamp(ratio, min=1e-9)), inv_log_scale))
+    return torch.clamp(lv, 0, num_levels - 1).to(torch.int32)
+
+
 def _fma_f32(a, b, c):
     """a b + c for float32 tensors with one rounding, as `__fmaf_rn` gives
     it: the float64 product a b is exact, and its sum with c is rounded to
@@ -328,7 +361,7 @@ def _fma_f32(a, b, c):
     return torch.where(fix, torch.nextafter(s, away), s).float()
 
 
-def _camera_points(R_cw, t_cw, pts):
+def camera_points(R_cw, t_cw, pts):
     """R p + t [M,3] as a float32 matmul rounds it on the CPU (and the JAX
     version's einsum): per row an FMA chain over k = 0, 1, 2, then + t, each
     FMA rounded once (_fma_f32), so the card gives the same bits as kernel
@@ -342,6 +375,28 @@ def _camera_points(R_cw, t_cw, pts):
             acc = _fma_f32(pts[:, k], R_cw[i, k], acc)
         rows.append(acc + t_cw[i])
     return torch.stack(rows, dim=-1)
+
+
+def dot3_f32(a, b):
+    """The dot product over the last axis of [...,3] float32 tensors as the
+    JAX version's jitted `sum(a * b, -1)` and a float32 matmul on the CPU
+    round it: fma(a2, b2, fma(a1, b1, a0 b0)) (kernels L and R use the same
+    `__fmaf_rn` chain)."""
+    return _fma_f32(a[..., 2], b[..., 2], _fma_f32(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
+
+
+def norm3_f32(v):
+    """|v| over the last axis of [...,3] float32, as the JAX version's
+    jitted `linalg.norm` rounds it: sqrt(dot3_f32(v, v)), the root
+    correctly rounded (taken in float64: torch's float32 sqrt on the CPU
+    is not, on some inputs)."""
+    return torch.sqrt(dot3_f32(v, v).double()).float()
+
+
+def centre_f32(R_cw, t_cw):
+    """The camera centre -R^T t [3] of a [3,3] / [3] pose, each entry the
+    FMA chain of dot3_f32 (the JAX version's jitted `-R.T @ t`)."""
+    return -dot3_f32(R_cw.T, t_cw[None, :])
 
 
 def project_window_rows_plain(p: CameraParams, R_cw, t_cw, pos, *, scale_factors,
@@ -362,9 +417,11 @@ def project_window_rows_plain(p: CameraParams, R_cw, t_cw, pos, *, scale_factors
       level, radius margin * scale_factors[pred], levels pred -+ 1 clamped
       to [0, num_levels - 1] (match_frame_and_landmarks)."""
     pts = pos[:, 0:3] if tbl_u32 is not None else pos
-    uv, depth, vis = project_camera_points(model, p, _camera_points(R_cw, t_cw, pts))
-    # `float / tensor` is the reciprocal times the float, as the kernel takes it
-    xr = torch.where(depth > 1e-6, uv[:, 0] - p.focal_x_baseline / torch.clamp(depth, min=1e-6),
+    uv, depth, vis = project_camera_points(model, p, camera_points(R_cw, t_cw, pts))
+    # fxb / depth a true division, as the JAX version's (its divisor varies)
+    # and the kernel's: torch's `float / tensor` would take the reciprocal
+    xr = torch.where(depth > 1e-6, uv[:, 0] - torch.full_like(depth, p.focal_x_baseline)
+                     / torch.clamp(depth, min=1e-6),
                      torch.full_like(depth, -1.0))
     u, v = uv[:, 0].contiguous(), uv[:, 1].contiguous()
     if tbl_u32 is None:
@@ -372,16 +429,13 @@ def project_window_rows_plain(p: CameraParams, R_cw, t_cw, pos, *, scale_factors
         return WindowRows(u, v, xr, margin * scale_factors[lvl.long()], lvl - 1, lvl + 1,
                           last_valid & vis, None)
     normal, dmin, dmax = pos[:, 3:6], pos[:, 6], pos[:, 7]
-    cam_center = -R_cw.T @ t_cw
-    ray = pts - cam_center
-    dist = torch.linalg.norm(ray, dim=-1)
+    ray = pts - centre_f32(R_cw, t_cw)
+    dist = norm3_f32(ray)
     dist_ok = (dist >= 0.8 * dmin) & (dist <= 1.3 * dmax)
-    cosang = torch.sum(ray * normal, dim=-1) / torch.clamp(dist, min=1e-9)
+    cosang = dot3_f32(ray, normal) / torch.clamp(dist, min=1e-9)
     observable = (tbl_u32[:, 9] > 0) & vis & dist_ok & (cosang > 0.5) & (depth > 0)
     ratio = torch.clamp(dmax, min=1e-9) / torch.clamp(dist, min=1e-9)
-    pred = torch.clamp(
-        torch.ceil(torch.log(torch.clamp(ratio, min=1e-9)) / log_scale),
-        0, num_levels - 1).to(torch.int32)
+    pred = predicted_octave(ratio, f32_reciprocal(log_scale), num_levels)
     return WindowRows(u, v, xr, margin * scale_factors[pred.long()],
                       torch.clamp(pred - 1, min=0), torch.clamp(pred + 1, max=num_levels - 1),
                       observable, pred)
@@ -425,7 +479,8 @@ def project_window_rows(p: CameraParams, R_cw, t_cw, pos, *, scale_factors, marg
         p.focal_x_baseline, R_cw.data_ptr(), t_cw.data_ptr(), pos.data_ptr(),
         tbl_u32.data_ptr() if table else 0, 0 if table else last_level.data_ptr(),
         0 if table else last_valid.data_ptr(), scale_factors.data_ptr(), float(margin),
-        float(log_scale), int(num_levels), *(base + 4 * M * q for q in range(8)),
+        f32_reciprocal(log_scale) if table else 0.0, int(num_levels),
+        *(base + 4 * M * q for q in range(8)),
         kbuild.stream_ptr(dev)), "project_window_rows")
     project_window_rows.launches += 1
     u, v, xr, rad = buf[:4].view(f32).unbind(0)

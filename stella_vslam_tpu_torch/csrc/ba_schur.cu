@@ -41,11 +41,12 @@
 //    sit in a device-memory scratch with one launch per panel phase (the
 //    note above spd_tiled_kernel). svt_spd_solve runs the same
 //    factorization on a plain SPD system (kernel P's dense solve).
-//  H ba_backsub_kernel (grid over landmarks): back-substitutes each point
-//    update, evaluates the trial cost (each block writes its sum to a
-//    scratch slot), and the last block to finish (a fence-and-counter
-//    handshake) adds the slots in block order and compares the trial cost
-//    with F's: it accepts or
+//  H ba_backsub_kernel (a thread per observation, whole blocks per
+//    128-landmark chunk): back-substitutes each point update, evaluates the
+//    trial cost (each chunk's landmark costs into the chunk's scratch slot,
+//    by the chunk's last block), and the block that completes the last
+//    chunk (a fence-and-ticket handshake) adds the slots in chunk order and
+//    compares the trial cost with F's: it accepts or
 //    rejects the trial state, halves or quadruples lambda, sets the
 //    gain < 1e-3 stop flag, and every later F, G and H launch of the stage
 //    returns at once when the flag is set. The LM loop needs no host read.
@@ -86,7 +87,7 @@
 // no stereo row, :398-403); G does not depend on it.
 //
 // Every sum runs in an order fixed by the index and the launch shape (F's
-// groups and chunks, H's blocks), so a launch is bit-for-bit repeatable. The chip check
+// groups and chunks, H's chunks), so a launch is bit-for-bit repeatable. The chip check
 // holds a whole BA to the plain version on synthetic problems (poses within
 // 1e-4, points seen twice within 1e-3), each kernel to its plain version on
 // the same inputs on the map slice's local problems, whose reduced systems
@@ -203,7 +204,7 @@ __device__ __forceinline__ void obs_residual(const Problem& P, const Cam& c, con
 
 // One observation's residual rows, Jacobians and row weights.
 struct ObsTerms {
-  float r[3], Jc[3][6], Jp[3][3], wr[3], w_base, sq_w;
+  float r[3], Jc[3][6], Jp[3][3], wr[3], w_base, sq, sq_w;
   bool active;
 };
 
@@ -223,6 +224,7 @@ __device__ __forceinline__ void obs_terms(const Problem& P, const Cam& c, const 
   const float sthr = sqrtf(thr);
   const float hw = (use_huber && chi > sthr) ? sthr / chi : 1.f;
   const float w = o.w_base * hw;
+  o.sq = sq;
   o.sq_w = w * sq;
   o.wr[0] = w;
   o.wr[1] = w;
@@ -1514,84 +1516,223 @@ __device__ __forceinline__ bool lm_decide(float* ctrl, float c0, float c1, float
   return imp;
 }
 
-// DECIDE: the last block takes the decision (one device); without it each
-// block only writes its trial cost, for W's decide mode (shards).
+// H (svt_ba_backsub). Up to D = 3 observations a landmark (the init BA), a
+// block a 128-landmark chunk and a thread a landmark, its observations in
+// turn (few, so one pass with one barrier beats spreading them). Above, a
+// thread an observation, lpb = 128 / D (D rounded up to a power of two)
+// landmarks a block, so that L = 4096 landmarks at D = 12 run as 512
+// blocks over the card: each observation's thread reads its camera's dx
+// and its landmark's block, point and flags while the block's W rows
+// arrive in shared memory (coalesced), forms W_d^T dx_k, then, after one
+// barrier, every thread of a landmark adds the landmark's D terms to b_p in
+// d order and solves dp = -G (b_p + sum_d W_d^T dx_k) (the same operations
+// in the same order in each, so no thread waits on another), takes the
+// trial point and its own observation's weight and squared residual there;
+// the landmark's thread sums w_d sq_d in d order. A chunk's costs are added
+// in the order one block of 128 threads did (a shuffle-down over each warp,
+// the warps' sums in order) into the chunk's partial: by the block itself
+// where it holds the whole chunk, else by the chunk's last block to finish
+// (a fence and a ticket, an atomicInc that wraps to 0 for the next
+// launch). So every sum keeps the single-thread-per-landmark kernel's
+// order and bits, and the partials, shards cut on chunk boundaries and W's
+// decide mode keep theirs. DECIDE: the block that completes the last chunk
+// (a second ticket) adds the partials in chunk order (a warp loads them,
+// one lane adds) and decides; on accept its threads commit the trial state,
+// eight 16-byte loads in flight each. Without DECIDE the chunk partials are
+// the output, for W's decide mode (shards).
+__device__ __forceinline__ void copy_f32(float* __restrict__ dst, const float* src, int n) {
+  const bool vec =
+      ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0;
+  int i0 = 0;
+  if (vec) {
+    const int n4 = n / 4, bd = blockDim.x;
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    for (int i = threadIdx.x; i < n4; i += 8 * bd) {
+      float4 v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (i + u * bd < n4) v[u] = __ldcg(s4 + i + u * bd);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (i + u * bd < n4) d4[i + u * bd] = v[u];
+    }
+    i0 = 4 * n4;
+  }
+  for (int i = i0 + threadIdx.x; i < n; i += blockDim.x) dst[i] = __ldcg(src + i);
+}
+
+// a warp's shuffle-down sum (lane 0's): the first step of a chunk's cost,
+// whose warps' sums are then added in order
+__device__ __forceinline__ float warp_sum_down(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
+  return v;
+}
+
 template <int MODEL, bool DECIDE>
 __global__ void __launch_bounds__(kThreadsLm)
 ba_backsub_kernel(Problem P, Cam cam, float* __restrict__ cam_R, float* __restrict__ cam_t,
                   float* __restrict__ lm, int use_huber, float* __restrict__ ctrl,
-                  unsigned int* __restrict__ counter, const float* __restrict__ Wg,
+                  unsigned int* __restrict__ tickets, const float* __restrict__ Wg,
                   const float* __restrict__ lmblk, const float* __restrict__ dx_g,
                   const float* __restrict__ cam_Rn, const float* __restrict__ cam_tn,
-                  float* __restrict__ lmn, float* cost_part) {
+                  float* __restrict__ lmn, float* __restrict__ cost_l, float* cost_part,
+                  int lpb) {
   if (ctrl[kDone] != 0.f) return;
+  extern __shared__ float hs[];  // at most 128 x 23 floats
   __shared__ float red[kThreadsLm / 32];
   __shared__ bool last;
   __shared__ bool improved;
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int D = P.D, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float lam = ctrl[kLam];
-  float cost = 0.f;
-  if (l < P.L) {
-    const float* blk = lmblk + 10 * l;
-    float G[6];
-    sym3_inv(blk, lam, G);
-    const bool keep = !(P.lm_fixed && P.lm_fixed[l]);
-    const float upd = (P.lm_valid[l] && blk[9] != 0.f && keep) ? 1.f : 0.f;
-    float rp[3] = {blk[6], blk[7], blk[8]};
-    for (int d = 0; d < P.D; ++d) {
-      const float* Wd = Wg + (l * P.D + d) * 18;
-      const float* dx = dx_g + 6 * P.obs_cam[l * P.D + d];
+  const int l0 = blockIdx.x * lpb, c = l0 / kThreadsLm;
+  if (lpb == kThreadsLm) {
+    // a block a chunk, a thread a landmark, its few observations in turn
+    const int l = l0 + tid;
+    float cost = 0.f;
+    if (l < P.L) {
+      const float* blk = lmblk + 10 * l;
+      float G[6];
+      sym3_inv(blk, lam, G);
+      const bool keep = !(P.lm_fixed && P.lm_fixed[l]);
+      const float upd = (P.lm_valid[l] && blk[9] != 0.f && keep) ? 1.f : 0.f;
+      float rp[3] = {blk[6], blk[7], blk[8]};
+      for (int d = 0; d < D; ++d) {
+        const float* Wd = Wg + (l * D + d) * 18;
+        const float* dx = dx_g + 6 * P.obs_cam[l * D + d];
+        for (int a = 0; a < 3; ++a) {
+          float s = 0.f;
+          for (int i = 0; i < 6; ++i) s += Wd[i * 3 + a] * dx[i];
+          rp[a] += s;
+        }
+      }
+      float pn[3];
+      for (int a = 0; a < 3; ++a) {
+        const float dp = -(sym_get(G, a, 0) * rp[0] + sym_get(G, a, 1) * rp[1] +
+                           sym_get(G, a, 2) * rp[2]) * upd;
+        pn[a] = lm[3 * l + a] + dp;
+        lmn[3 * l + a] = pn[a];
+      }
+      for (int d = 0; d < D; ++d) {
+        const int k = P.obs_cam[l * D + d];
+        ObsTerms o;
+        obs_terms<MODEL>(P, cam, cam_Rn + 9 * k, cam_tn + 3 * k, pn, l, d, use_huber != 0, o);
+        cost += o.sq_w;
+      }
+    }
+    const float v = warp_sum_down(cost);
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    if (tid == 0) {
+      float sum = 0.f;
+      for (int w = 0; w < kThreadsLm / 32; ++w) sum += red[w];
+      cost_part[c] = sum;
+    }
+  } else {
+    const int n = lpb * D;
+    const int nl = min(lpb, P.L - l0), nobs = nl * D;
+    float* sW = hs;              // [n][18]: the block's W rows
+    float* sS = sW + n * 18;     // [n][3]: W_d^T dx_k
+    float* sQ = sS + n * 3;      // [n][2]: weight, squared residual at the trial state
+    const int t = tid / D, d = tid - t * D;
+    const int l = l0 + t, od = l * D + d;
+    const bool obs = tid < nobs;
+    // read while the W rows arrive: this observation's camera step, and its
+    // landmark's block, point and flags (every thread of the landmark takes
+    // its update, in the same order, so that none waits for another's)
+    float dx[6], blk[10], p0[3], upd = 0.f;
+    int k = 0;
+    if (obs) {
+      k = P.obs_cam[od];
+      for (int i = 0; i < 6; ++i) dx[i] = dx_g[6 * k + i];
+      for (int i = 0; i < 10; ++i) blk[i] = lmblk[10 * l + i];
+      for (int a = 0; a < 3; ++a) p0[a] = lm[3 * l + a];
+      const bool keep = !(P.lm_fixed && P.lm_fixed[l]);
+      upd = (P.lm_valid[l] && blk[9] != 0.f && keep) ? 1.f : 0.f;
+    }
+    const float* Wb = Wg + (size_t)l0 * D * 18;
+    for (int i = tid; i < nobs * 18; i += blockDim.x) sW[i] = Wb[i];
+    __syncthreads();
+    if (obs) {
+      const float* Wd = sW + tid * 18;
       for (int a = 0; a < 3; ++a) {
         float s = 0.f;
         for (int i = 0; i < 6; ++i) s += Wd[i * 3 + a] * dx[i];
-        rp[a] += s;
+        sS[tid * 3 + a] = s;
       }
     }
-    float pn[3];
-    for (int a = 0; a < 3; ++a) {
-      const float dp = -(sym_get(G, a, 0) * rp[0] + sym_get(G, a, 1) * rp[1] +
-                         sym_get(G, a, 2) * rp[2]) * upd;
-      pn[a] = lm[3 * l + a] + dp;
-      lmn[3 * l + a] = pn[a];
+    __syncthreads();
+    if (obs) {
+      float G[6];
+      sym3_inv(blk, lam, G);
+      float rp[3] = {blk[6], blk[7], blk[8]};
+      for (int e = 0; e < D; ++e)
+        for (int a = 0; a < 3; ++a) rp[a] += sS[(t * D + e) * 3 + a];
+      float pn[3];
+      for (int a = 0; a < 3; ++a) {
+        const float dp = -(sym_get(G, a, 0) * rp[0] + sym_get(G, a, 1) * rp[1] +
+                           sym_get(G, a, 2) * rp[2]) * upd;
+        pn[a] = p0[a] + dp;
+        if (d == 0) lmn[3 * l + a] = pn[a];
+      }
+      ObsTerms ob;
+      obs_terms<MODEL>(P, cam, cam_Rn + 9 * k, cam_tn + 3 * k, pn, l, d, use_huber != 0, ob);
+      sQ[2 * tid] = ob.wr[0];
+      sQ[2 * tid + 1] = ob.sq;
     }
-    for (int d = 0; d < P.D; ++d) {
-      const int k = P.obs_cam[l * P.D + d];
-      ObsTerms o;
-      obs_terms<MODEL>(P, cam, cam_Rn + 9 * k, cam_tn + 3 * k, pn, l, d, use_huber != 0, o);
-      cost += o.sq_w;
+    __syncthreads();
+    if (tid < nl) {
+      // the landmark's cost in d order, as one thread summed w_d sq_d
+      float cost = 0.f;
+      for (int e = 0; e < D; ++e) cost += sQ[2 * (tid * D + e)] * sQ[2 * (tid * D + e) + 1];
+      cost_l[l0 + tid] = cost;
     }
-  }
-  for (int o = 16; o > 0; o >>= 1) cost += __shfl_down_sync(0xffffffffu, cost, o);
-  if (lane == 0) red[warp] = cost;
-  __threadfence();  // this thread's lmn rows, before the counter moves
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int w = 0; w < kThreadsLm / 32; ++w) s += red[w];
-    cost_part[blockIdx.x] = s;
-    if (DECIDE) {
-      __threadfence();
-      const unsigned int prev = atomicInc(counter, gridDim.x - 1);
-      last = prev == gridDim.x - 1;
+    // the chunk's ticket: its last block adds its costs
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      const int in_chunk = min(kThreadsLm, P.L - c * kThreadsLm);
+      const unsigned int blocks = (unsigned int)((in_chunk + lpb - 1) / lpb);
+      last = atomicInc(tickets + c, blocks - 1) == blocks - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    if (tid < 32) {
+      float sum = 0.f;
+      for (int w = 0; w < kThreadsLm / 32; ++w) {
+        const int lc = c * kThreadsLm + w * 32 + lane;
+        sum += warp_sum_down(lc < P.L ? __ldcg(cost_l + lc) : 0.f);
+      }
+      if (lane == 0) cost_part[c] = sum;  // lane 0's: the warps' sums in order
     }
   }
   if (!DECIDE) return;
+  const int C = (P.L + kThreadsLm - 1) / kThreadsLm;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicInc(tickets + C, C - 1) == (unsigned int)(C - 1);
   __syncthreads();
   if (!last) return;
-  // the last block: every block's trial cost and lmn are in; decide
+  // every chunk's partial is in: add them in chunk order and decide
   __threadfence();
-  if (threadIdx.x == 0) {
-    // every block's trial cost, added in block order
+  if (tid < 32) {
     float c1 = 0.f;
-    for (unsigned int b = 0; b < gridDim.x; ++b) c1 += __ldcg(cost_part + b);
-    improved = lm_decide(ctrl, __ldcg(ctrl + kCost0), c1, lam);
+    for (int b0 = 0; b0 < C; b0 += 32) {
+      const float v = b0 + lane < C ? __ldcg(cost_part + b0 + lane) : 0.f;
+      const int m = min(32, C - b0);
+      for (int i = 0; i < m; ++i) {
+        const float x = __shfl_sync(kFull, v, i);
+        if (lane == 0) c1 += x;
+      }
+    }
+    if (lane == 0) improved = lm_decide(ctrl, __ldcg(ctrl + kCost0), c1, lam);
   }
   __syncthreads();
   if (!improved) return;
-  for (int i = threadIdx.x; i < 9 * P.K; i += blockDim.x) cam_R[i] = __ldcg(cam_Rn + i);
-  for (int i = threadIdx.x; i < 3 * P.K; i += blockDim.x) cam_t[i] = __ldcg(cam_tn + i);
-  for (int i = threadIdx.x; i < 3 * P.L; i += blockDim.x) lm[i] = __ldcg(lmn + i);
+  copy_f32(cam_R, cam_Rn, 9 * P.K);
+  copy_f32(cam_t, cam_tn, 3 * P.K);
+  copy_f32(lm, lmn, 3 * P.L);
 }
 
 // W's decide mode (one block): every shard's H trial costs added in
@@ -1821,8 +1962,11 @@ extern "C" int svt_spd_solve(int n, const float* A, const float* b, float* x, fl
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-// decide: 1 for one device (the last block decides), 0 on one shard of a
-// sharded BA (each block writes its trial cost; W's decide mode decides)
+// decide: 1 for one device (the block that completes the last chunk
+// decides), 0 on one shard of a sharded BA (the chunk partials only; W's
+// decide mode decides). tickets: C + 1 zeroed counters (C = the
+// 128-landmark chunks), left at zero by every launch; cost_l: C * 128
+// floats of scratch; cost_part: C floats.
 extern "C" int svt_ba_backsub(int model, int K, int L, int D, const int* obs_cam,
                               const float* obs_uv, const float* obs_xr, const float* obs_isig,
                               const uint8_t* obs_valid, const uint8_t* inlier,
@@ -1830,25 +1974,37 @@ extern "C" int svt_ba_backsub(int model, int K, int L, int D, const int* obs_cam
                               const float* cam_free, float fx, float fy, float cx, float cy,
                               float fxb, float width, float height, float* cam_R,
                               float* cam_t, float* lm, int use_huber, float* ctrl,
-                              unsigned int* counter, const float* Wg, const float* lmblk,
+                              unsigned int* tickets, const float* Wg, const float* lmblk,
                               const float* dx, const float* cam_Rn, const float* cam_tn,
-                              float* lmn, float* cost_part, int decide, void* stream) {
-  // cost_part: one float of device memory per block of kThreadsLm landmarks
+                              float* lmn, float* cost_l, float* cost_part, int decide,
+                              void* stream) {
   if (model != svt_cam::kPerspective && model != svt_cam::kEquirect)
     return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > kThreadsLm) return (int)cudaErrorInvalidValue;
   Problem P{K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier, lm_valid,
             lm_fixed, cam_free};
   Cam c{fx, fy, cx, cy, fxb, width, height};
-  const int blocks = (L + kThreadsLm - 1) / kThreadsLm;
+  // a thread a landmark up to D = 3, else lpb landmarks a block and a
+  // thread an observation (ba_backsub_kernel's note)
+  int lpb = kThreadsLm, threads = kThreadsLm;
+  size_t smem = 0;
+  if (D > 3) {
+    int d2 = 1;
+    while (d2 < D) d2 *= 2;
+    lpb = kThreadsLm / d2;
+    threads = (lpb * D + 31) / 32 * 32;
+    smem = sizeof(float) * (size_t)lpb * D * 23;
+  }
+  const int blocks = (L + lpb - 1) / lpb;
   const bool eq = model == svt_cam::kEquirect;
   auto kernel = decide ? (eq ? ba_backsub_kernel<svt_cam::kEquirect, true>
                              : ba_backsub_kernel<svt_cam::kPerspective, true>)
                        : (eq ? ba_backsub_kernel<svt_cam::kEquirect, false>
                              : ba_backsub_kernel<svt_cam::kPerspective, false>);
   if (blocks > 0)
-    kernel<<<blocks, kThreadsLm, 0, (cudaStream_t)stream>>>(
-        P, c, cam_R, cam_t, lm, use_huber, ctrl, counter, Wg, lmblk, dx, cam_Rn, cam_tn, lmn,
-        cost_part);
+    kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+        P, c, cam_R, cam_t, lm, use_huber, ctrl, tickets, Wg, lmblk, dx, cam_Rn, cam_tn, lmn,
+        cost_l, cost_part, lpb);
   return (int)cudaGetLastError();
 }
 

@@ -20,9 +20,9 @@
 // fixed order. Then this kernel: kLanes lanes per (keyframe
 // b = blockIdx.y, landmark m); a padding keyframe (kf_valid 0) or
 // landmark (lm_valid 0) is gated out before the prologue. Every lane computes the landmark's prologue in registers
-// (projection, the distance range [dmin/1.3, dmax*1.3], viewing cosine >
-// 0.5, predicted octave clip(ceil(log(ratio)/log(scale_factor)), 0, L-1),
-// predicted x_right); a gated landmark's lanes then visit only the
+// (projection, the distance range [dmin * f32(1/1.3), dmax*1.3], viewing
+// cosine > 0.5, predicted octave clip(ceil(log(ratio) * f32(1 /
+// log(scale_factor))), 0, L-1), predicted x_right); a gated landmark's lanes then visit only the
 // keypoints in the cells its window [u +- r] x [v +- r], r = margin *
 // scale_factor[pred], meets (widened by kernel C's rounding margin,
 // cells.cuh; in a cell row the cells between its ends are one run of the
@@ -35,7 +35,11 @@
 // skips fails the window test, and the minimum does not depend on the
 // order of the visit, so the output is the full scan's bit for bit
 // (module/mapping_kernels.fuse_cells_plain). Float expressions follow the
-// JAX version's order with separate roundings.
+// JAX version's jitted order: separate roundings, the camera-frame point,
+// the camera centre, the norm and the cosine's sum as FMA chains (XLA's
+// matmul and reductions on the CPU), and the divisions by a constant as
+// products with the reciprocal, which the wrapper passes; the plain
+// prologue rounds each the same way, so the two equal on the card.
 // Bound: the prologue per (keyframe, landmark) (~90 operations, ~140 with
 // the equirectangular trigonometry), the keypoints the windows' cells hold
 // (~15 gate operations each, 8 XOR and popcounts a candidate), and the
@@ -73,6 +77,12 @@ struct CellGrid {
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+// a0 b0 + a1 b1 + a2 b2 as one FMA chain in k order: the JAX version's
+// jitted matmul, norm and sum on the CPU (camera.base.dot3_f32)
+__device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0, float b1,
+                                      float b2) {
+  return __fmaf_rn(a2, b2, __fmaf_rn(a1, b1, __fmul_rn(a0, b0)));
+}
 
 template <int MODEL>
 __global__ void __launch_bounds__(kThreads)
@@ -82,7 +92,8 @@ fuse_kernel(int N, int M, const float* __restrict__ kp_uv, const int* __restrict
             const uint8_t* __restrict__ kf_valid, const float* __restrict__ lm_f,
             const uint32_t* __restrict__ lm_desc, const uint8_t* __restrict__ lm_valid, FuseCam cam,
             const float* __restrict__ scale_factors, const float* __restrict__ sigma_sq,
-            int num_levels, float log_scale, float margin, CellGrid cells, int* __restrict__ out,
+            int num_levels, float inv_log_scale, float dmin_scale, float margin, CellGrid cells,
+            int* __restrict__ out,
             uint8_t* __restrict__ gate_out) {
   __shared__ float s_sf[kMaxLevels], s_sig[kMaxLevels];
   for (int i = threadIdx.x; i < num_levels; i += blockDim.x) {
@@ -111,16 +122,12 @@ fuse_kernel(int N, int M, const float* __restrict__ kp_uv, const int* __restrict
   const float* f = lm_f + 8 * m;  // pos(3) dmin dmax normal(3)
   const float p[3] = {f[0], f[1], f[2]};
   const float dmin = f[3], dmax = f[4];
-  float pc[3], cc[3], ray[3];
+  float pc[3], ray[3];
 #pragma unroll
   for (int r = 0; r < 3; ++r)
-    pc[r] = add(add(add(mul(p[0], R[3 * r]), mul(p[1], R[3 * r + 1])), mul(p[2], R[3 * r + 2])),
-                t[r]);
+    pc[r] = add(dot3(p[0], p[1], p[2], R[3 * r], R[3 * r + 1], R[3 * r + 2]), t[r]);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    cc[k] = -add(add(mul(R[k], t[0]), mul(R[3 + k], t[1])), mul(R[6 + k], t[2]));
-    ray[k] = sub(p[k], cc[k]);
-  }
+  for (int k = 0; k < 3; ++k) ray[k] = sub(p[k], -dot3(R[k], R[3 + k], R[6 + k], t[0], t[1], t[2]));
   float u, v, z;  // z: the depth (the norm for the equirectangular model)
   bool in_img;
   if constexpr (MODEL == svt_cam::kEquirect) {
@@ -133,14 +140,17 @@ fuse_kernel(int N, int M, const float* __restrict__ kp_uv, const int* __restrict
     v = add(__fdiv_rn(mul(cam.fy, pc[1]), zs), cam.cy);
     in_img = z > 0.f && u >= 0.f && u < cam.width && v >= 0.f && v < cam.height;
   }
-  const float dist = sqrtf(add(add(mul(ray[0], ray[0]), mul(ray[1], ray[1])), mul(ray[2], ray[2])));
-  const bool dist_ok = dist >= __fdiv_rn(dmin, 1.3f) && dist <= mul(dmax, 1.3f);
+  const float dist = __fsqrt_rn(dot3(ray[0], ray[1], ray[2], ray[0], ray[1], ray[2]));
+  // dmin / 1.3 and log(ratio) / log(scale factor): the JAX version's jitted
+  // divisions by a constant, which XLA takes as products with the float32
+  // reciprocals dmin_scale and inv_log_scale
+  const bool dist_ok = dist >= mul(dmin, dmin_scale) && dist <= mul(dmax, 1.3f);
   const float cosang =
-      __fdiv_rn(add(add(mul(ray[0], f[5]), mul(ray[1], f[6])), mul(ray[2], f[7])),
-                fmaxf(dist, 1e-9f));
+      __fdiv_rn(dot3(ray[0], ray[1], ray[2], f[5], f[6], f[7]), fmaxf(dist, 1e-9f));
   const float ratio = __fdiv_rn(fmaxf(dmax, 1e-9f), fmaxf(dist, 1e-9f));
-  const float lvl_f = ceilf(__fdiv_rn(logf(fmaxf(ratio, 1e-9f)), log_scale));
+  const float lvl_f = ceilf(mul(logf(fmaxf(ratio, 1e-9f)), inv_log_scale));
   const int pred = (int)fminf(fmaxf(lvl_f, 0.f), (float)(num_levels - 1));
+  // fxb / z a true division, as the JAX version's (its divisor varies)
   const float lm_xr = z > 1e-6f ? sub(u, __fdiv_rn(cam.fxb, fmaxf(z, 1e-6f))) : -1.f;
   const bool gate = in_img && dist_ok && cosang > 0.5f && z > 0.f;
   // ---- the cell walk: detect_duplication over the window's cells ----
@@ -199,7 +209,8 @@ fuse_kernel(int N, int M, const float* __restrict__ kp_uv, const int* __restrict
 
 }  // namespace
 
-// model: 0 perspective, 2 equirectangular (camera.cuh); cell_start [B, gx *
+// model: 0 perspective, 2 equirectangular (camera.cuh); inv_log_scale and
+// dmin_scale the float32 reciprocals of log(scale factor) and 1.3; cell_start [B, gx *
 // gy + 2] and cell_order [B, N]: the keypoints' cell indexes
 // (svt_cell_index over the image extent with inv_cell, gx, gy); out
 // [B, M, 2] (distance, keypoint), gate_out [B, M] (0 or 1)
@@ -209,9 +220,9 @@ extern "C" int svt_fuse(int model, int B, int N, int M, const float* kp_uv,
                         const float* lm_f, const uint32_t* lm_desc, const uint8_t* lm_valid,
                         float fx, float fy, float cx, float cy, float width, float height,
                         float fxb, const float* scale_factors, const float* sigma_sq,
-                        int num_levels, float log_scale, float margin, const int* cell_start,
-                        const int* cell_order, float inv_cell, int gx, int gy, int* out,
-                        uint8_t* gate_out, void* stream) {
+                        int num_levels, float inv_log_scale, float dmin_scale, float margin,
+                        const int* cell_start, const int* cell_order, float inv_cell, int gx,
+                        int gy, int* out, uint8_t* gate_out, void* stream) {
   if (num_levels > kMaxLevels || gx < 1 || gy < 1) return (int)cudaErrorInvalidValue;
   if (model != svt_cam::kPerspective && model != svt_cam::kEquirect)
     return (int)cudaErrorInvalidValue;
@@ -222,8 +233,8 @@ extern "C" int svt_fuse(int model, int B, int N, int M, const float* kp_uv,
     kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         N, M, kp_uv, kp_level, kp_desc, kp_valid, kp_xr, poses, kf_valid, lm_f, lm_desc,
         lm_valid, FuseCam{fx, fy, cx, cy, width, height, fxb}, scale_factors, sigma_sq,
-        num_levels, log_scale, margin, CellGrid{cell_start, cell_order, inv_cell, gx, gy}, out,
-        gate_out);
+        num_levels, inv_log_scale, dmin_scale, margin,
+        CellGrid{cell_start, cell_order, inv_cell, gx, gy}, out, gate_out);
   }
   return (int)cudaGetLastError();
 }

@@ -73,7 +73,6 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
 constexpr uint32_t kNone = 0xffffffffu;
 constexpr uint32_t kMasked = 257u << 16;
 constexpr int kIndexThreads = 1024;  // cell_index_kernel's block
@@ -124,38 +123,27 @@ __device__ __forceinline__ void seeds(int N, uint32_t& k1, uint32_t& k2) {
 using svt_cells::cell_of;
 using svt_cells::cell_span;
 
-// The cell indexes (svt_cell_index): one block of kIndexThreads per set b
-// of N targets (blockIdx.x), target j at u[b set_stride + j stride], v[...]
-// (C's separate u, v arrays: stride 1; L's interleaved [B, N, 2] keypoints
-// of a fuse chunk, read in place: u = uv, v = uv + 1, stride 2). order[b N
-// ..] = the targets sorted by cell, in no fixed order within a cell;
-// start[b (G + 2) + c] = the first position of cell c, for c = 0..G (G = gx
-// * gy; cell G holds the NaN targets), start[b (G + 2) + G + 1] = N.
-__global__ void __launch_bounds__(kIndexThreads)
-cell_index_kernel(int N, const float* __restrict__ u_, const float* __restrict__ v_,
-                  int stride, long long set_stride, float inv, int gx, int gy,
-                  int* __restrict__ start, int* __restrict__ order) {
-  __shared__ int cnt[kMaxCells + 1];
+// A counting sort of N targets into G1 buckets by one block of
+// kIndexThreads (bucket_of(j) in [0, G1)): each thread counts its targets
+// into shared-memory counters with atomics, one block scan turns the counts
+// into bucket starts, and each target takes its place in its bucket with a
+// second atomic, so a bucket's targets are in no fixed order. start[c] =
+// the first position of bucket c, start[G1] = N; order = the targets by
+// bucket.
+template <class Bucket>
+__device__ void bucket_sort(int N, int G1, const Bucket& bucket_of, int* __restrict__ start,
+                            int* __restrict__ order) {
+  __shared__ int cnt[kMaxCells + 2];
   __shared__ int warp_sum[kIndexThreads / 32];
-  const int G = gx * gy;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  u_ += blockIdx.x * set_stride;
-  v_ += blockIdx.x * set_stride;
-  start += (size_t)blockIdx.x * (G + 2);
-  order += (size_t)blockIdx.x * N;
-  auto cell = [&](int j) {
-    const float u = u_[(size_t)j * stride], v = v_[(size_t)j * stride];
-    if (isnan(u) || isnan(v)) return G;
-    return cell_of(v, inv, gy) * gx + cell_of(u, inv, gx);
-  };
-  for (int c = tid; c <= G; c += kIndexThreads) cnt[c] = 0;
+  for (int c = tid; c < G1; c += kIndexThreads) cnt[c] = 0;
   __syncthreads();
-  for (int j = tid; j < N; j += kIndexThreads) atomicAdd(&cnt[cell(j)], 1);
+  for (int j = tid; j < N; j += kIndexThreads) atomicAdd(&cnt[bucket_of(j)], 1);
   __syncthreads();
-  // exclusive scan of the G + 1 counts: each thread a run of cells, a warp
+  // exclusive scan of the G1 counts: each thread a run of buckets, a warp
   // scan of the runs' sums, then one of the warps' totals
-  const int per = (G + 1 + kIndexThreads - 1) / kIndexThreads;
-  const int c_lo = min(G + 1, tid * per), c_hi = min(G + 1, c_lo + per);
+  const int per = (G1 + kIndexThreads - 1) / kIndexThreads;
+  const int c_lo = min(G1, tid * per), c_hi = min(G1, c_lo + per);
   int sum = 0;
   for (int c = c_lo; c < c_hi; ++c) sum += cnt[c];
   int incl = sum;
@@ -182,9 +170,32 @@ cell_index_kernel(int N, const float* __restrict__ u_, const float* __restrict__
     start[c] = run;
     run += n;
   }
-  if (tid == 0) start[G + 1] = N;
+  if (tid == 0) start[G1] = N;
   __syncthreads();
-  for (int j = tid; j < N; j += kIndexThreads) order[atomicAdd(&cnt[cell(j)], 1)] = j;
+  for (int j = tid; j < N; j += kIndexThreads) order[atomicAdd(&cnt[bucket_of(j)], 1)] = j;
+}
+
+// The cell indexes (svt_cell_index): one block of kIndexThreads per set b
+// of N targets (blockIdx.x), target j at u[b set_stride + j stride], v[...]
+// (C's separate u, v arrays: stride 1; L's interleaved [B, N, 2] keypoints
+// of a fuse chunk, read in place: u = uv, v = uv + 1, stride 2). order[b N
+// ..] = the targets sorted by cell, in no fixed order within a cell;
+// start[b (G + 2) + c] = the first position of cell c, for c = 0..G (G = gx
+// * gy; cell G holds the NaN targets), start[b (G + 2) + G + 1] = N.
+__global__ void __launch_bounds__(kIndexThreads)
+cell_index_kernel(int N, const float* __restrict__ u_, const float* __restrict__ v_,
+                  int stride, long long set_stride, float inv, int gx, int gy,
+                  int* __restrict__ start, int* __restrict__ order) {
+  const int G = gx * gy;
+  u_ += blockIdx.x * set_stride;
+  v_ += blockIdx.x * set_stride;
+  const auto cell = [&](int j) {
+    const float u = u_[(size_t)j * stride], v = v_[(size_t)j * stride];
+    if (isnan(u) || isnan(v)) return G;
+    return cell_of(v, inv, gy) * gx + cell_of(u, inv, gx);
+  };
+  bucket_sort(N, G + 1, cell, start + (size_t)blockIdx.x * (G + 2),
+              order + (size_t)blockIdx.x * N);
 }
 
 // The gate arrays of a call (the window's target fields are read only in
@@ -359,97 +370,258 @@ brute_top2_kernel(int M, int N, const uint32_t* __restrict__ q, const uint32_t* 
 // module/mapping_kernels.py _triangulate_pair_impl (:58, vmapped over B
 // neighbours in _triangulate_multi_impl :145). The TPU form builds the
 // [N1,N2] distance, orientation, epipole and epipolar-residual matrices and
-// reduces them. Here one warp per (neighbour b = blockIdx.y, query row): the
-// lanes stride over the neighbour's N2 targets, test the gates in registers
-// and keep a top-2 of packed keys, as kernel C does. The per-target terms
-// (E_12 b2, its clamped norm, the near-epipole flag) and the per-row ones
-// (cos / sin of the angle, the bearing, sin(0.2 deg x scale factor)) are
-// computed once by the wrapper in the order the JAX version computes them,
-// so the pair test is the JAX expression: clip(dot(E b2, b1) / max(|E b2|,
-// 1e-12), -1, 1), its magnitude below the row's sine, with separate
-// roundings (no FMA). Bound: operations, and they depend on the data: a
-// row that is not unassociated needs no per-pair work, a pair that fails
-// the flags or the orientation needs a few operations, and only the pairs
-// past every gate need the ~30 of the Hamming distance and the top-2
-// update; the inputs (~0.8 MB for 5 x 2872 targets) stay in L2. The kernel
-// tests the cheap gates first so a pair leaves as early as it can, and one
-// launch serves all neighbours.
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-epipolar_top2_kernel(int N1, int N2, const uint32_t* __restrict__ q,
-                     const float* __restrict__ row_f, const uint8_t* __restrict__ row_flag,
-                     const uint32_t* __restrict__ t, const float* __restrict__ col_f,
-                     const uint8_t* __restrict__ col_flag, float cos_thr,
-                     int* __restrict__ out) {
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+// reduces them.
+//
+// Here two launches. Every target's epipolar plane, normal n = E_12 b2 in
+// the new keyframe's frame, contains the epipole e1 (the other keyframe's
+// centre seen from the new one), so n lies on the circle of directions
+// perpendicular to e1. The band index (epipolar_band_index_kernel, one
+// block per neighbour) takes e1 from E_12 (its columns are such normals),
+// an orthonormal basis (u, v) of the plane perpendicular to it, and sorts
+// the neighbour's targets (bucket_sort) by the angle phi = atan2(n.v, n.u)
+// mod pi of their normal, in band.bins bins; a target whose unit normal
+// lies more than band.off_plane off that plane, or whose normal is shorter
+// than band.min_norm, goes to a bucket every row visits; one that fails
+// col_ok to a bucket none visits. The band's constants come from the
+// wrapper (match/hamming.py J_BAND_*), which the plain band walk reads too. Then the walk (epipolar_top2_kernel), one warp per
+// (neighbour b = blockIdx.y, query row): a row that fails row_ok writes
+// the dense output (257, 0, 257, 0) at once. For a row with bearing b1 let
+// s = |b1 - (b1.e1) e1| (the sine of its angle to the epipole) and psi its
+// angle in (u, v): a unit normal at phi gives n.b1 = s cos(phi - psi), up to
+// n's part along e1 (< off_plane) and float rounding, so a target passes
+// the residual gate |n.b1| < thr only within the band |phi - psi - pi/2| <
+// asin((thr + tau) / s) (mod pi): the margin tau covers the part off the
+// plane and the rounding. The warp visits the bins that band meets (one
+// more on each side) and the bucket every row visits; a row near the
+// epipole (thr + tau >= s) visits every bin. A stereo row
+// takes its band too: the residual gate is the same for it, only the
+// epipole gate (a per-pair test) differs. Each visited target goes through the gates with the float
+// expressions of the dense test, cheapest first: col_ok, the orientation
+// (two products, one sum), the epipole gate, the residual clip(dot(E b2,
+// b1) / max(|E b2|, 1e-12), -1, 1) against the row's sine with separate
+// roundings (no FMA), as the JAX expression and the plain version
+// (hamming.epipolar_gate_matrix) round them; the lanes keep a top-2 of
+// packed keys (dist << 16 | target), merged by shuffles and seeded with the
+// dense walk's keys of targets 0 and 1, so the result is the dense walk's
+// bit for bit (ties to the lowest target; hamming.epipolar_band_plain holds
+// the band in plain form).
+// Bound: operations, on this run's data: per (live row, visited target)
+// the flag, per valid pair the orientation and epipole tests, per pair
+// past them the residual, per candidate the distance and the top-2 update.
+constexpr int kJWarps = 4;  // rows a block of the walk
+constexpr float kJPi = 3.14159265358979f;
+
+struct JBand {
+  int bins;         // angle bins over [0, pi), at most kMaxCells
+  float tau;        // margin on the residual bound of the band
+  float off_plane;  // |n.e1| above which a target is visited always
+  float min_norm;   // |E b2| below which a target is visited always
+};
+
+struct JRows {
+  const uint32_t* q;          // [N1, 8]
+  const float *c, *s, *bear;  // [N1], [N1], [N1, 3]
+  const float* thr;           // [N1]
+  const uint8_t *ok, *stereo; // [N1]
+};
+
+struct JCols {
+  const uint32_t* t;          // [B, N2, 8]
+  const float *c, *s, *epl;   // [B, N2], [B, N2], [B, N2, 3]
+  const float* nrm;           // [B, N2]
+  const uint8_t *ok, *near;   // [B, N2]
+};
+
+// e1 and the basis (u, v) of the plane perpendicular to it, from E [9]
+// (row-major, E b2 = the normal in the new keyframe's frame): e1 is the
+// longest cross product of two columns of E, normalised (in double).
+__device__ void epipole_basis(const float* E, float* out) {
+  double col[3][3], best[3] = {0.0, 0.0, 0.0}, best_n = -1.0;
+  for (int k = 0; k < 3; ++k)
+    for (int i = 0; i < 3; ++i) col[k][i] = E[3 * i + k];
+  for (int a = 0; a < 3; ++a) {
+    const int b = (a + 1) % 3;
+    const double x[3] = {col[a][1] * col[b][2] - col[a][2] * col[b][1],
+                         col[a][2] * col[b][0] - col[a][0] * col[b][2],
+                         col[a][0] * col[b][1] - col[a][1] * col[b][0]};
+    const double n = x[0] * x[0] + x[1] * x[1] + x[2] * x[2];
+    if (n > best_n) {
+      best_n = n;
+      for (int i = 0; i < 3; ++i) best[i] = x[i];
+    }
+  }
+  const double inv = best_n > 0.0 ? 1.0 / sqrt(best_n) : 0.0;
+  double e[3] = {best[0] * inv, best[1] * inv, best[2] * inv};
+  if (best_n <= 0.0) e[2] = 1.0;
+  // u: e1 x the axis e1 is least along, normalised; v = e1 x u
+  int ax = 0;
+  for (int i = 1; i < 3; ++i)
+    if (fabs(e[i]) < fabs(e[ax])) ax = i;
+  double a[3] = {0.0, 0.0, 0.0};
+  a[ax] = 1.0;
+  double u[3] = {e[1] * a[2] - e[2] * a[1], e[2] * a[0] - e[0] * a[2], e[0] * a[1] - e[1] * a[0]};
+  const double un = 1.0 / sqrt(u[0] * u[0] + u[1] * u[1] + u[2] * u[2]);
+  for (int i = 0; i < 3; ++i) u[i] *= un;
+  const double v[3] = {e[1] * u[2] - e[2] * u[1], e[2] * u[0] - e[0] * u[2],
+                       e[0] * u[1] - e[1] * u[0]};
+  for (int i = 0; i < 3; ++i) {
+    out[i] = (float)e[i];
+    out[3 + i] = (float)u[i];
+    out[6 + i] = (float)v[i];
+  }
+}
+
+// the band index of neighbour b = blockIdx.x: basis [B, 9] (e1, u, v),
+// start [B, bins + 3], order [B, N2]
+__global__ void __launch_bounds__(kIndexThreads)
+epipolar_band_index_kernel(int N2, const float* __restrict__ E, JCols C, JBand band,
+                           float* __restrict__ basis, int* __restrict__ start,
+                           int* __restrict__ order) {
+  __shared__ float bs[9];
+  const int b = blockIdx.x;
+  if (threadIdx.x == 0) {
+    epipole_basis(E + 9 * b, bs);
+    for (int i = 0; i < 9; ++i) basis[9 * b + i] = bs[i];
+  }
+  __syncthreads();
+  const size_t cb = (size_t)b * N2;
+  const int nb = band.bins;
+  const float inv_bin = (float)nb / kJPi;
+  const auto bucket = [&](int j) {
+    if (C.ok[cb + j] == 0) return nb + 1;
+    const float nrm = C.nrm[cb + j];
+    const float* e = C.epl + 3 * (cb + j);
+    const float n0 = e[0] / nrm, n1 = e[1] / nrm, n2 = e[2] / nrm;
+    const float off = n0 * bs[0] + n1 * bs[1] + n2 * bs[2];
+    if (!(nrm >= band.min_norm) || !(fabsf(off) <= band.off_plane)) return nb;
+    float phi = atan2f(n0 * bs[6] + n1 * bs[7] + n2 * bs[8], n0 * bs[3] + n1 * bs[4] + n2 * bs[5]);
+    if (phi < 0.f) phi += kJPi;
+    return min(nb - 1, max(0, (int)(phi * inv_bin)));
+  };
+  bucket_sort(N2, nb + 2, bucket, start + (size_t)b * (nb + 3), order + cb);
+}
+
+__global__ void __launch_bounds__(kJWarps * 32)
+epipolar_top2_kernel(int N1, int N2, JRows R, JCols C, JBand band,
+                     const float* __restrict__ basis, const int* __restrict__ start,
+                     const int* __restrict__ order, float cos_thr, int* __restrict__ out) {
+  const int row = blockIdx.x * kJWarps + (threadIdx.x >> 5);
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31;
   if (row >= N1) return;
+  int* o = out + ((size_t)b * N1 + row) * 4;
+  if (R.ok[row] == 0) {  // the dense output of a row with no candidate
+    if (lane == 0) {
+      o[0] = 257; o[1] = 0; o[2] = 257; o[3] = 0;
+    }
+    return;
+  }
   uint32_t qd[8];
 #pragma unroll
-  for (int w = 0; w < 8; ++w) qd[w] = q[row * 8 + w];
-  const float* rf = row_f + 6 * row;
-  const float rc = rf[0], rs = rf[1], bx = rf[2], by = rf[3], bz = rf[4], thr = rf[5];
-  const uint8_t rflag = row_flag[row];
-  const bool rok = (rflag & 1) != 0, rstereo = (rflag & 2) != 0;
-  const uint32_t* tb = t + (size_t)b * N2 * 8;
-  const float* cfb = col_f + (size_t)b * N2 * 6;
-  const uint8_t* cflb = col_flag + (size_t)b * N2;
-  uint32_t k1 = kNone, k2 = kNone;
-  for (int j = lane; j < N2; j += 32) {
-    const uint8_t cflag = cflb[j];
-    bool cand = rok && (cflag & 1) != 0;
-    if (cand) {
-      const float* cf = cfb + 6 * j;
-      cand = __fadd_rn(__fmul_rn(rc, cf[0]), __fmul_rn(rs, cf[1])) >= cos_thr &&
-             !((cflag & 2) != 0 && !rstereo);
+  for (int w = 0; w < 8; ++w) qd[w] = R.q[row * 8 + w];
+  const float rc = R.c[row], rs = R.s[row], thr = R.thr[row];
+  const float bx = R.bear[3 * row], by = R.bear[3 * row + 1], bz = R.bear[3 * row + 2];
+  const bool mono = R.stereo[row] == 0;
+  uint32_t k1, k2;
+  seeds(N2, k1, k2);
+  if (lane != 0) k1 = k2 = kNone;
+  const size_t cb = (size_t)b * N2;
+  const int nb = band.bins;
+  const int* st = start + (size_t)b * (nb + 3);
+  const int* ord = order + cb;
+  const auto visit = [&](int k0, int k_end) {
+    for (int k = k0 + lane; k < k_end; k += 32) {
+      const int j = ord[k];
+      const uint8_t near = C.near[cb + j];
+      bool cand = __fadd_rn(__fmul_rn(rc, C.c[cb + j]), __fmul_rn(rs, C.s[cb + j])) >= cos_thr &&
+                  !(near != 0 && mono);
       if (cand) {
-        const float dot = __fadd_rn(__fadd_rn(__fmul_rn(cf[2], bx), __fmul_rn(cf[3], by)),
-                                    __fmul_rn(cf[4], bz));
-        const float c = fminf(fmaxf(__fdiv_rn(dot, cf[5]), -1.f), 1.f);
+        const float* e = C.epl + 3 * (cb + j);
+        const float dot = __fadd_rn(__fadd_rn(__fmul_rn(e[0], bx), __fmul_rn(e[1], by)),
+                                    __fmul_rn(e[2], bz));
+        const float c = fminf(fmaxf(__fdiv_rn(dot, C.nrm[cb + j]), -1.f), 1.f);
         cand = fabsf(c) < thr;
       }
+      if (cand) {
+        const uint4* td = reinterpret_cast<const uint4*>(C.t + (cb + j) * 8);
+        const uint4 lo = __ldg(td), hi = __ldg(td + 1);
+        const uint32_t d = __popc(qd[0] ^ lo.x) + __popc(qd[1] ^ lo.y) + __popc(qd[2] ^ lo.z) +
+                           __popc(qd[3] ^ lo.w) + __popc(qd[4] ^ hi.x) + __popc(qd[5] ^ hi.y) +
+                           __popc(qd[6] ^ hi.z) + __popc(qd[7] ^ hi.w);
+        push((d << 16) | (uint32_t)j, k1, k2);
+      }
     }
-    uint32_t dist = 257;
-    if (cand) {
-      dist = 0;
-#pragma unroll
-      for (int w = 0; w < 8; ++w) dist += __popc(qd[w] ^ tb[j * 8 + w]);
-    }
-    push((dist << 16) | (uint32_t)j, k1, k2);
+  };
+  // the band of bins this row's candidates can lie in
+  const float* bs = basis + 9 * b;
+  const float wu = bx * bs[3] + by * bs[4] + bz * bs[5];
+  const float wv = bx * bs[6] + by * bs[7] + bz * bs[8];
+  const float sn = sqrtf(wu * wu + wv * wv);
+  const float bound = thr + band.tau;
+  int lo = 0, hi = nb - 1;
+  if (bound < sn) {
+    const float inv_bin = (float)nb / kJPi;
+    const float delta = asinf(bound / sn);
+    float centre = atan2f(wv, wu) + 0.5f * kJPi;
+    centre -= kJPi * floorf(centre / kJPi);
+    lo = (int)floorf((centre - delta) * inv_bin) - 1;
+    hi = (int)floorf((centre + delta) * inv_bin) + 1;
+    if (hi - lo + 1 >= nb) lo = 0, hi = nb - 1;
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const uint32_t o1 = __shfl_xor_sync(0xffffffffu, k1, o);
-    const uint32_t o2 = __shfl_xor_sync(0xffffffffu, k2, o);
-    const uint32_t n1 = min(k1, o1);
-    const uint32_t n2 = min(max(k1, o1), min(k2, o2));
-    k1 = n1;
-    k2 = n2;
+  if (lo < 0) {
+    visit(st[lo + nb], st[nb]);
+    visit(st[0], st[hi + 1]);
+  } else if (hi >= nb) {
+    visit(st[lo], st[nb]);
+    visit(st[0], st[hi - nb + 1]);
+  } else {
+    visit(st[lo], st[hi + 1]);
   }
-  if (lane == 0) {
-    int* o = out + ((size_t)b * N1 + row) * 4;
-    o[0] = (int)(k1 >> 16);
-    o[1] = (int)(k1 & 0xffffu);
-    int second = 257, second_idx = 0;
-    if (k2 != kNone && (k2 >> 16) < 257) {
-      second = (int)(k2 >> 16);
-      second_idx = (int)(k2 & 0xffffu);
-    }
-    o[2] = second;
-    o[3] = second_idx;
-  }
+  visit(st[nb], st[nb + 1]);  // the targets every row visits
+  merge(k1, k2, 0xffffffffu, 32);
+  if (lane == 0) write_top2(o, k1, k2);
 }
 
 }  // namespace
 
-extern "C" int svt_epipolar_top2(int B, int N1, int N2, const uint32_t* q, const float* row_f,
-                                 const uint8_t* row_flag, const uint32_t* t, const float* col_f,
-                                 const uint8_t* col_flag, float cos_thr, int* out,
-                                 void* stream) {
+// Kernel J's band index (one block a neighbour): E [B, 3, 3], col_epl
+// [B, N2, 3], col_norm [B, N2] floats, col_ok [B, N2] bytes; bins, off_plane
+// and min_norm the band's constants; writes basis [B, 9] floats, start
+// [B, bins + 3] and order [B, N2] ints.
+extern "C" int svt_epipolar_band_index(int B, int N2, const float* E, const float* col_epl,
+                                       const float* col_norm, const uint8_t* col_ok, int bins,
+                                       float off_plane, float min_norm, float* basis,
+                                       int* start, int* order, void* stream) {
+  if (N2 < 1 || N2 > 65535 || bins < 1 || bins > kMaxCells) return (int)cudaErrorInvalidValue;
+  if (B > 0) {
+    const JCols C{nullptr, nullptr, nullptr, col_epl, col_norm, col_ok, nullptr};
+    epipolar_band_index_kernel<<<B, kIndexThreads, 0, (cudaStream_t)stream>>>(
+        N2, E, C, JBand{bins, 0.f, off_plane, min_norm}, basis, start, order);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Kernel J's walk: the gate terms as match/hamming.EpipolarGate holds them,
+// each array contiguous (row_bear [N1, 3], col_epl [B, N2, 3]), flags one
+// byte each; t [B, N2, 8] 16-byte aligned; the band index (basis, start,
+// order) of svt_epipolar_band_index with the same bins; tau the band's
+// margin; out [B, N1, 4].
+extern "C" int svt_epipolar_top2(int B, int N1, int N2, const uint32_t* q, const float* row_c,
+                                 const float* row_s, const float* row_bear,
+                                 const float* row_thr, const uint8_t* row_ok,
+                                 const uint8_t* row_stereo, const uint32_t* t,
+                                 const float* col_c, const float* col_s, const float* col_epl,
+                                 const float* col_norm, const uint8_t* col_ok,
+                                 const uint8_t* col_near, float cos_thr, int bins, float tau,
+                                 const float* basis, const int* start, const int* order,
+                                 int* out, void* stream) {
+  if (N2 < 1 || N2 > 65535 || bins < 1 || bins > kMaxCells) return (int)cudaErrorInvalidValue;
   if (N1 > 0 && B > 0) {
-    const dim3 grid((N1 + kWarpsPerBlock - 1) / kWarpsPerBlock, B);
-    epipolar_top2_kernel<<<grid, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
-        N1, N2, q, row_f, row_flag, t, col_f, col_flag, cos_thr, out);
+    const JRows R{q, row_c, row_s, row_bear, row_thr, row_ok, row_stereo};
+    const JCols C{t, col_c, col_s, col_epl, col_norm, col_ok, col_near};
+    const dim3 grid((N1 + kJWarps - 1) / kJWarps, B);
+    epipolar_top2_kernel<<<grid, kJWarps * 32, 0, (cudaStream_t)stream>>>(
+        N1, N2, R, C, JBand{bins, tau, 0.f, 0.f}, basis, start, order, cos_thr, out);
   }
   return (int)cudaGetLastError();
 }

@@ -27,9 +27,10 @@
 //    table; the f32 row read as two 16-byte vectors): the distance to the
 //    camera centre, the gate distance in [0.8 min, 1.3 max], cos(ray,
 //    normal) > 0.5, depth > 0, the table's valid flag make the flag; the
-//    predicted level clip(ceil(log(max / dist) / log(scale factor)), 0,
-//    L-1) is written too and sets the radius and the bounds, clamped to
-//    [0, L-1].
+//    predicted level clip(ceil(log(max / dist) * inv_log_scale), 0, L-1)
+//    is written too and sets the radius and the bounds, clamped to [0,
+//    L-1]. inv_log_scale is the float32 reciprocal of log(scale factor):
+//    the JAX version's jitted division by that constant is this product.
 //  undistort_kernel (one thread per keypoint), templated on the model:
 //    normalize; radial-tangential: 10 iterations of x = xd - (distort(x) -
 //    x); Kannala-Brandt: 10 Newton steps on theta, then tan(theta) /
@@ -42,8 +43,11 @@
 // hundredths of a pixel of u), the pinhole projection and x_right round
 // every operation as the plain version does, so u, v and x_right of the
 // perspective model equal it; the gate's
-// distance, cosine and log are the card's own and a flag or level differs
-// from the plain version's only where its quantity sits at the threshold;
+// camera centre, distance and cosine are FMA chains in k order (the JAX
+// version's jitted matmul, norm and sum on the CPU; camera.base.dot3_f32
+// in the plain version), the ratio a true division and the log CUDA's
+// logf, as torch's log on the card, so the flag and the predicted level
+// equal the plain version's on the card;
 // the equirectangular projection (camera.cuh) agrees to a few ulps. The undistortion rounds every operation
 // as its plain version does on the card and equals it bit for bit: a true
 // division and an FMA there moved the monocular initializer's input by an
@@ -83,7 +87,7 @@ __global__ void __launch_bounds__(kRowThreads)
 window_rows_kernel(int M, Intr k, const float* __restrict__ Rg, const float* __restrict__ tg,
                    const float* __restrict__ pos, const int* __restrict__ tbl_u32,
                    const int* __restrict__ last_level, const uint8_t* __restrict__ last_valid,
-                   const float* __restrict__ scale_factors, float margin, float log_scale,
+                   const float* __restrict__ scale_factors, float margin, float inv_log_scale,
                    int num_levels, Rows out) {
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= M) return;
@@ -128,8 +132,8 @@ window_rows_kernel(int M, Intr k, const float* __restrict__ Rg, const float* __r
   }
   out.u[m] = u;
   out.v[m] = v;
-  // fxb / depth as torch's `float / tensor` takes it: the reciprocal, times fxb
-  out.xr[m] = depth > 1e-6f ? __fsub_rn(u, __fmul_rn(__frcp_rn(fmaxf(depth, 1e-6f)), k.fxb))
+  // fxb / depth a true division, as the JAX version's (its divisor varies)
+  out.xr[m] = depth > 1e-6f ? __fsub_rn(u, __fdiv_rn(k.fxb, fmaxf(depth, 1e-6f)))
                             : -1.f;
   if constexpr (MODE == 0) {
     const int lvl = last_level[m];
@@ -138,19 +142,27 @@ window_rows_kernel(int M, Intr k, const float* __restrict__ Rg, const float* __r
     out.hi[m] = lvl + 1;
     out.valid[m] = (last_valid[m] != 0 && in_img) ? 1 : 0;
   } else {
-    // camera centre -R^T t
-    const float c0 = -(R[0] * t[0] + R[3] * t[1] + R[6] * t[2]);
-    const float c1 = -(R[1] * t[0] + R[4] * t[1] + R[7] * t[2]);
-    const float c2 = -(R[2] * t[0] + R[5] * t[1] + R[8] * t[2]);
-    const float r0 = p0 - c0, r1 = p1 - c1, r2 = p2 - c2;
-    const float dist = sqrtf(r0 * r0 + r1 * r1 + r2 * r2);
+    // the camera centre -R^T t, the distance and the viewing cosine as the
+    // JAX version's jitted matmul, norm and sum round them on the CPU (and
+    // the plain version's dot3_f32): one FMA chain over k = 0, 1, 2 each
+    const auto dot3 = [](float a0, float a1, float a2, float b0, float b1, float b2) {
+      return __fmaf_rn(a2, b2, __fmaf_rn(a1, b1, __fmul_rn(a0, b0)));
+    };
+    const float c0 = -dot3(R[0], R[3], R[6], t[0], t[1], t[2]);
+    const float c1 = -dot3(R[1], R[4], R[7], t[0], t[1], t[2]);
+    const float c2 = -dot3(R[2], R[5], R[8], t[0], t[1], t[2]);
+    const float r0 = __fsub_rn(p0, c0), r1 = __fsub_rn(p1, c1), r2 = __fsub_rn(p2, c2);
+    const float dist = __fsqrt_rn(dot3(r0, r1, r2, r0, r1, r2));
     const float dmin = row_b.z, dmax = row_b.w;
-    const bool dist_ok = dist >= 0.8f * dmin && dist <= 1.3f * dmax;
-    const float cosang = (r0 * row_a.w + r1 * row_b.x + r2 * row_b.y) / fmaxf(dist, 1e-9f);
+    const bool dist_ok = dist >= __fmul_rn(0.8f, dmin) && dist <= __fmul_rn(1.3f, dmax);
+    const float cosang =
+        __fdiv_rn(dot3(r0, r1, r2, row_a.w, row_b.x, row_b.y), fmaxf(dist, 1e-9f));
     const bool valid = tbl_u32[10 * m + 9] > 0;
     out.valid[m] = (valid && in_img && dist_ok && cosang > 0.5f && depth > 0.f) ? 1 : 0;
-    const float ratio = fmaxf(dmax, 1e-9f) / fmaxf(dist, 1e-9f);
-    const float lv = ceilf(logf(fmaxf(ratio, 1e-9f)) / log_scale);
+    const float ratio = __fdiv_rn(fmaxf(dmax, 1e-9f), fmaxf(dist, 1e-9f));
+    // the JAX version's jitted ceil(log(ratio) / log_scale) divides by a
+    // constant, which XLA takes as a product with its float32 reciprocal
+    const float lv = ceilf(__fmul_rn(logf(fmaxf(ratio, 1e-9f)), inv_log_scale));
     const int pred = (int)fminf(fmaxf(lv, 0.f), (float)(num_levels - 1));
     out.pred[m] = pred;
     out.rad[m] = __fmul_rn(margin, scale_factors[pred]);
@@ -233,13 +245,14 @@ undistort_kernel(int N, Intr k, Dist dc, const float* __restrict__ pts, float* _
 // model: 0 perspective, 2 equirectangular. R [9] and t [3] f32.
 // mode 0: pos [M,3] with last_level [M] int32 and last_valid [M] bytes.
 // mode 1: pos is the packed f32 table [M,8] (16-byte aligned) with tbl_u32
-// [M,10]; pred (the predicted level) is written too.
+// [M,10]; pred (the predicted level) is written too, with inv_log_scale the
+// float32 reciprocal of log(scale factor).
 // out: u, v, xr, rad [M] f32, lo, hi, pred [M] int32, valid [M] bytes.
 extern "C" int svt_window_rows(int model, int M, int mode, float fx, float fy, float cx,
                                float cy, float width, float height, float fxb, const float* R,
                                const float* t, const float* pos, const int* tbl_u32,
                                const int* last_level, const uint8_t* last_valid,
-                               const float* scale_factors, float margin, float log_scale,
+                               const float* scale_factors, float margin, float inv_log_scale,
                                int num_levels, float* u, float* v, float* xr, float* rad,
                                int* lo, int* hi, int* pred, uint8_t* valid, void* stream) {
   if ((model != svt_cam::kPerspective && model != svt_cam::kEquirect) || mode < 0 || mode > 1)
@@ -251,7 +264,7 @@ extern "C" int svt_window_rows(int model, int M, int mode, float fx, float fy, f
   cudaStream_t s = (cudaStream_t)stream;
 #define SVT_ROWS(MODEL, MODE)                                                            \
   window_rows_kernel<MODEL, MODE><<<grid, kRowThreads, 0, s>>>(                          \
-      M, k, R, t, pos, tbl_u32, last_level, last_valid, scale_factors, margin, log_scale, \
+      M, k, R, t, pos, tbl_u32, last_level, last_valid, scale_factors, margin, inv_log_scale, \
       num_levels, out)
   if (model == svt_cam::kEquirect) {
     if (mode == 1) SVT_ROWS(svt_cam::kEquirect, 1);

@@ -114,10 +114,10 @@ _SIGNATURES = {
     "svt_spd_solve": [_I] + [_P] * 4 + [_L, _P],
     # model, K, L, D, obs_cam, obs_uv, obs_xr, obs_isig, obs_valid, inlier,
     # lm_valid, lm_fixed, cam_free, fx, fy, cx, cy, fxb, width, height,
-    # cam_R, cam_t, lm, use_huber, ctrl, counter, Wg, lmblk, dx, cam_Rn,
-    # cam_tn, lmn, cost_part, decide, stream
+    # cam_R, cam_t, lm, use_huber, ctrl, tickets, Wg, lmblk, dx, cam_Rn,
+    # cam_tn, lmn, cost_l, cost_part, decide, stream
     "svt_ba_backsub": [_I, _I, _I, _I] + [_P] * 9 + [_F] * 7 + [_P] * 3
-                      + [_I] + [_P] * 9 + [_I, _P],
+                      + [_I] + [_P] * 10 + [_I, _P],
     # mode, K, L, nshards, parts (host array), blocks (host array), ctrl, hc,
     # S, rhs, cam_R, cam_t, lm, cam_Rn, cam_tn, lmn, stream
     "svt_ba_shard_assemble": [_I] * 4 + [_P] * 13,
@@ -127,9 +127,13 @@ _SIGNATURES = {
     # cx, cy, fxb, width, height, cam_R, cam_t, lm, keep, mode, out, stream
     "svt_ba_classify": [_I, _I, _I, _I] + [_P] * 5 + [_F] * 7 + [_P] * 4 + [_I]
                        + [_P] * 2,
-    # B, N1, N2, q_desc, row_f, row_flag, t_desc, col_f, col_flag, cos_thr,
-    # out, stream
-    "svt_epipolar_top2": [_I, _I, _I] + [_P] * 6 + [_F] + [_P] * 2,
+    # B, N2, E, col_epl, col_norm, col_ok, bins, off_plane, min_norm,
+    # basis, start, order, stream
+    "svt_epipolar_band_index": [_I, _I] + [_P] * 4 + [_I, _F, _F] + [_P] * 4,
+    # B, N1, N2, q_desc, row_c, row_s, row_bear, row_thr, row_ok,
+    # row_stereo, t_desc, col_c, col_s, col_epl, col_norm, col_ok,
+    # col_near, cos_thr, bins, tau, basis, start, order, out, stream
+    "svt_epipolar_top2": [_I, _I, _I] + [_P] * 14 + [_F, _I, _F] + [_P] * 5,
     # model, B, N1, N2, uv1, lvl1, bear1, uv2, lvl2, bear2, poses, match,
     # accepted, pair_valid, fx, fy, cx, cy, width, height, sigma_sq,
     # scale_factors, num_levels, pos_out, idx_out, ok_out, stream
@@ -137,9 +141,9 @@ _SIGNATURES = {
                        + [_P] * 4,
     # model, B, N, M, kp_uv, kp_level, kp_desc, kp_valid, kp_xr, poses,
     # kf_valid, lm_f, lm_desc, lm_valid, fx, fy, cx, cy, width, height, fxb,
-    # scale_factors, sigma_sq, num_levels, log_scale, margin, cell_start,
-    # cell_order, inv_cell, gx, gy, out, gate_out, stream
-    "svt_fuse": [_I, _I, _I, _I] + [_P] * 10 + [_F] * 7 + [_P] * 2 + [_I] + [_F] * 2
+    # scale_factors, sigma_sq, num_levels, inv_log_scale, dmin_scale, margin,
+    # cell_start, cell_order, inv_cell, gx, gy, out, gate_out, stream
+    "svt_fuse": [_I, _I, _I, _I] + [_P] * 10 + [_F] * 7 + [_P] * 2 + [_I] + [_F] * 3
                 + [_P] * 2 + [_F, _I, _I] + [_P] * 3,
     # N, desc, centers, out, stream
     "svt_bow_transform": [_I] + [_P] * 4,
@@ -166,7 +170,7 @@ _SIGNATURES = {
     # t_last, R_prev, t_prev, pos_out, valid_out, id_out, pose_out, stream
     "svt_rebase_chain": [_I, _I] + [_P] * 16,
     # model, M, mode, fx, fy, cx, cy, width, height, fxb, R, t, pos, tbl_u32,
-    # last_level, last_valid, scale_factors, margin, log_scale, num_levels,
+    # last_level, last_valid, scale_factors, margin, inv_log_scale, num_levels,
     # u, v, xr, rad, lo, hi, pred, valid, stream
     "svt_window_rows": [_I, _I, _I] + [_F] * 7 + [_P] * 7 + [_F, _F, _I] + [_P] * 9,
     # model, N, fx, fy, cx, cy, k1, k2, p1, p2, k3, k4, pts, out, stream

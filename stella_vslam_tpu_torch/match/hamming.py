@@ -22,7 +22,10 @@ and second-best distance and their target indices over the gated targets:
 Kernel J (the same source) is the mapping module's matcher: the gates of
 match_for_triangulation (orientation cosine, near-epipole rejection, the
 epipolar residual) for one query row against each of B neighbour
-keyframes, one launch for all B.
+keyframes. It first sorts each neighbour's targets by the angle of their
+epipolar plane about the epipole (the band index), and a row visits only
+the targets whose plane can pass its residual gate
+(`epipolar_band_plain` is that walk in plain form).
 
 Masked entries count as distance 257 and ties break to the lowest target
 index, as jnp.argmin breaks them. Ratio tests, orientation checks and
@@ -102,6 +105,7 @@ class EpipolarGate(NamedTuple):
     col_epl: torch.Tensor  # [B,N2,3] f32 E_12 b2
     col_norm: torch.Tensor  # [B,N2] f32 max(|E_12 b2|, 1e-12)
     col_near: torch.Tensor  # [B,N2] bool near the epipole and not stereo
+    E: torch.Tensor  # [B,3,3] f32 E_12 (kf1 <- kf2 in bearing space): col_epl = E b2
     cos_thr: float
 
 
@@ -426,48 +430,220 @@ def epipolar_gate_matrix(b: int, row_ok, col_ok, g: EpipolarGate) -> torch.Tenso
     return cand & (torch.abs(c) < g.row_thr[:, None])
 
 
+def _top2_of(dist) -> torch.Tensor:
+    """[4,N1] (best, best_idx, second, second_idx) int32 of a masked [N1,N2]
+    distance matrix: the minima of the packed keys dist * N2 + target, so
+    that ties go to the lowest target on every device, as jnp.argmin and
+    kernel J break them."""
+    N2 = dist.shape[1]
+    key = dist.long() * N2 + torch.arange(N2, device=dist.device)
+    k1 = key.min(dim=1).values
+    best_idx = k1 % N2
+    k2 = key.scatter(1, best_idx[:, None], _MASKED * N2 + best_idx[:, None]).min(dim=1).values
+    return torch.stack([k1 // N2, best_idx, k2 // N2, k2 % N2]).to(torch.int32)
+
+
 def epipolar_top2_plain(q_desc, t_desc, row_ok, col_ok, gate: EpipolarGate):
     """(best, best_idx, second, second_idx), each [B,N1] int32."""
     outs = []
     for b in range(t_desc.shape[0]):
         dist = pairwise_hamming(q_desc, t_desc[b])
-        dist = torch.where(epipolar_gate_matrix(b, row_ok, col_ok, gate), dist,
-                           torch.full_like(dist, _MASKED))
-        best, best_idx = dist.min(dim=1)
-        second, second_idx = dist.scatter(1, best_idx[:, None], _MASKED).min(dim=1)
-        outs.append(torch.stack([best, best_idx, second, second_idx]).to(torch.int32))
+        outs.append(_top2_of(torch.where(epipolar_gate_matrix(b, row_ok, col_ok, gate), dist,
+                                         torch.full_like(dist, _MASKED))))
     o = torch.stack(outs, dim=1)  # [4,B,N1]
     return o[0], o[1], o[2], o[3]
 
 
-def epipolar_top2(q_desc, t_desc, row_ok, col_ok, gate: EpipolarGate):
-    """Kernel J on CUDA tensors, the plain version on CPU tensors. q_desc
-    [N1,8] int32, t_desc [B,N2,8] int32, row_ok [N1] bool, col_ok [B,N2]
-    bool."""
+# kernel J's band index: angle bins over [0, pi), the margin on the
+# residual bound, and the off-plane and length limits past which a target
+# is visited by every row. The kernels take them from epipolar_band_index
+# and epipolar_top2, so the plain band and the card's are one band.
+J_BAND_BINS = 1024
+J_BAND_TAU = 2e-4
+J_OFF_PLANE = 1e-4
+J_MIN_NORM = 1e-6
+
+
+class EpipolarBand(NamedTuple):
+    """Kernel J's band index: each neighbour's targets sorted by bucket,
+    J_BAND_BINS angle bins, then the bucket every row visits, then the
+    bucket none visits (targets that fail col_ok)."""
+
+    basis: torch.Tensor  # [B,9] f32 (e1, u, v), epipole_basis
+    start: torch.Tensor  # [B,J_BAND_BINS+3] i32 bucket starts
+    order: torch.Tensor  # [B,N2] i32 targets by bucket
+
+
+def epipole_basis(E) -> torch.Tensor:
+    """[B,9] float32 (e1, u, v) of each neighbour, as kernel J's band index
+    takes it (in float64): e1 the longest cross product of two columns of
+    E_12, normalised (every epipolar plane's normal E b2 is perpendicular
+    to it); u = e1 x the axis e1 is least along, normalised; v = e1 x u."""
+    cols = E.double().transpose(-1, -2)  # [B,3,3]: column k of E at [:, k]
+    cr = torch.stack([torch.linalg.cross(cols[:, a], cols[:, (a + 1) % 3], dim=-1)
+                      for a in range(3)], 1)
+    n2 = (cr * cr).sum(-1)
+    best = n2.argmax(dim=1)
+    ar = torch.arange(E.shape[0], device=E.device)
+    nb = n2[ar, best]
+    e = torch.where((nb > 0)[:, None], cr[ar, best] / torch.sqrt(nb.clamp(min=1e-300))[:, None],
+                    torch.tensor([0.0, 0.0, 1.0], dtype=torch.float64, device=E.device))
+    axis = torch.nn.functional.one_hot(e.abs().argmin(dim=1), 3).double()
+    u = torch.linalg.cross(e, axis, dim=-1)
+    u = u / torch.linalg.norm(u, dim=-1, keepdim=True)
+    v = torch.linalg.cross(e, u, dim=-1)
+    return torch.cat([e, u, v], -1).float()
+
+
+def band_buckets(col_ok, gate: EpipolarGate, basis) -> torch.Tensor:
+    """[B,N2] int64 bucket of every target in plain form: the bin of the
+    angle phi (mod pi) of its unit epipolar normal in (u, v), J_BAND_BINS
+    for one off the plane perpendicular to e1 or too short (every row
+    visits it), J_BAND_BINS + 1 for one that fails col_ok."""
+    nb, inv = J_BAND_BINS, J_BAND_BINS / math.pi
+    n = gate.col_epl / gate.col_norm[..., None]
+    off = (n * basis[:, None, 0:3]).sum(-1)
+    phi = torch.atan2((n * basis[:, None, 6:9]).sum(-1), (n * basis[:, None, 3:6]).sum(-1))
+    phi = torch.where(phi < 0, phi + math.pi, phi)
+    bins = torch.clamp((phi * inv).long(), 0, nb - 1)
+    always = ~(gate.col_norm >= J_MIN_NORM) | ~(off.abs() <= J_OFF_PLANE)
+    return torch.where(~col_ok, torch.full_like(bins, nb + 1),
+                       torch.where(always, torch.full_like(bins, nb), bins))
+
+
+def epipolar_band_index_plain(col_ok, gate: EpipolarGate) -> EpipolarBand:
+    """Kernel J's band index in plain form (within a bucket, targets in
+    index order; the kernel's order there is its atomics')."""
+    basis = epipole_basis(gate.E)
+    bucket = band_buckets(col_ok, gate, basis)
+    counts = torch.stack([torch.bincount(b, minlength=J_BAND_BINS + 2) for b in bucket])
+    start = torch.cat([torch.zeros_like(counts[:, :1]), torch.cumsum(counts, 1)], 1)
+    return EpipolarBand(basis, start.to(torch.int32),
+                        torch.argsort(bucket, dim=1, stable=True).to(torch.int32))
+
+
+def band_index_buckets(band: EpipolarBand) -> torch.Tensor:
+    """[B,N2] int64: the bucket each target sits in within a band index."""
+    order = band.order.long()
+    pos = torch.empty_like(order).scatter_(
+        1, order, torch.arange(order.shape[1], device=order.device).expand_as(order))
+    return torch.searchsorted(band.start.long(), pos, right=True) - 1
+
+
+def epipolar_band_plain(q_desc, t_desc, row_ok, col_ok, gate: EpipolarGate):
+    """Kernel J's band walk in plain form: epipolar_top2_plain's outputs,
+    each row of each neighbour testing only the targets its band visits
+    (band_buckets; a row away from the epipole visits the bins within
+    asin((thr + J_BAND_TAU) / s) of its band's centre, s its sine to the
+    epipole, and one more on each side, and a row near the epipole every
+    bin). Returns (best, best_idx, second, second_idx, the pairs visited
+    [B,N1,N2] bool: live rows and valid targets)."""
+    B = t_desc.shape[0]
+    nb, inv = J_BAND_BINS, J_BAND_BINS / math.pi
+    basis = epipole_basis(gate.E)
+    buckets = band_buckets(col_ok, gate, basis)
+    outs, visits = [], []
+    for b in range(B):
+        u, v = basis[b, 3:6], basis[b, 6:9]
+        bucket = buckets[b]
+        wu, wv = gate.row_bear @ u, gate.row_bear @ v
+        sn = torch.sqrt(wu * wu + wv * wv)
+        bound = gate.row_thr + J_BAND_TAU
+        band = bound < sn
+        delta = torch.asin(torch.clamp(bound / sn, max=1.0))
+        centre = torch.atan2(wv, wu) + 0.5 * math.pi
+        centre = centre - math.pi * torch.floor(centre / math.pi)
+        lo = torch.floor((centre - delta) * inv).long() - 1
+        hi = torch.floor((centre + delta) * inv).long() + 1
+        whole = ~band | (hi - lo + 1 >= nb)
+        lo = torch.where(whole, torch.zeros_like(lo), lo)
+        width = torch.where(whole, torch.full_like(hi, nb - 1), hi - lo)
+        in_band = torch.remainder(bucket[None, :] - lo[:, None], nb) <= width[:, None]
+        visit = ((bucket[None, :] < nb) & in_band) | (bucket[None, :] == nb)
+        visits.append(visit & row_ok[:, None])
+        dist = pairwise_hamming(q_desc, t_desc[b])
+        mask = epipolar_gate_matrix(b, row_ok, col_ok, gate) & visit
+        outs.append(_top2_of(torch.where(mask, dist, torch.full_like(dist, _MASKED))))
+    o = torch.stack(outs, dim=1)
+    return o[0], o[1], o[2], o[3], torch.stack(visits)
+
+
+def _f32(x):
+    return x.to(torch.float32).contiguous()
+
+
+def _u8(x):
+    return x.contiguous().view(torch.uint8)
+
+
+def epipolar_band_index(col_ok, gate: EpipolarGate) -> EpipolarBand:
+    """Kernel J's band index (csrc/hamming_top2.cu, one launch, a block a
+    neighbour) on CUDA tensors, the plain version on CPU tensors. col_ok
+    [B,N2] bool."""
+    if not col_ok.is_cuda:
+        return epipolar_band_index_plain(col_ok, gate)
+    B, N2 = col_ok.shape
+    if not 0 < N2 < 1 << 16:
+        raise ValueError("epipolar_band_index: 1 to 65535 targets")
+    args = ((_f32(gate.E), (B, 3, 3), torch.float32, "E"),
+            (_f32(gate.col_epl), (B, N2, 3), torch.float32, "col_epl"),
+            (_f32(gate.col_norm), (B, N2), torch.float32, "col_norm"),
+            (_u8(col_ok), (B, N2), torch.uint8, "col_ok"))
+    for x, shape, dt, name in args:
+        _check(x, shape, dt, name)
+    dev = col_ok.device
+    band = EpipolarBand(torch.empty((B, 9), dtype=torch.float32, device=dev),
+                        torch.empty((B, J_BAND_BINS + 3), dtype=torch.int32, device=dev),
+                        torch.empty((B, N2), dtype=torch.int32, device=dev))
+    kbuild.check(kbuild.load().svt_epipolar_band_index(
+        B, N2, *(x[0].data_ptr() for x in args), J_BAND_BINS, J_OFF_PLANE, J_MIN_NORM,
+        *(x.data_ptr() for x in band), kbuild.stream_ptr(dev)), "epipolar_band_index")
+    epipolar_band_index.launches += 1
+    return band
+
+
+epipolar_band_index.launches = 0
+
+
+def epipolar_top2(q_desc, t_desc, row_ok, col_ok, gate: EpipolarGate,
+                  band: Optional[EpipolarBand] = None):
+    """Kernel J on CUDA tensors: the band index (epipolar_band_index, or
+    `band` when given) and the band walk (one launch, counted here); the
+    plain version on CPU tensors. q_desc [N1,8] int32, t_desc [B,N2,8]
+    int32, row_ok [N1] bool, col_ok [B,N2] bool."""
     if not q_desc.is_cuda:
         return epipolar_top2_plain(q_desc, t_desc, row_ok, col_ok, gate)
     B, N2 = t_desc.shape[0], t_desc.shape[1]
     N1 = q_desc.shape[0]
-    if N2 >= 1 << 16:
-        raise ValueError("epipolar_top2: at most 65535 targets")
-    _check(q_desc, (N1, 8), torch.int32, "q_desc")
-    _check(t_desc, (B, N2, 8), torch.int32, "t_desc")
-    _check(row_ok, (N1,), torch.bool, "row_ok")
-    _check(col_ok, (B, N2), torch.bool, "col_ok")
-    row_f = torch.cat([gate.row_c[:, None], gate.row_s[:, None], gate.row_bear,
-                       gate.row_thr[:, None]], 1).to(torch.float32).contiguous()
-    row_flag = (row_ok.to(torch.uint8) | (gate.row_stereo.to(torch.uint8) << 1)).contiguous()
-    col_f = torch.cat([gate.col_c[..., None], gate.col_s[..., None], gate.col_epl,
-                       gate.col_norm[..., None]], -1).to(torch.float32).contiguous()
-    col_flag = (col_ok.to(torch.uint8) | (gate.col_near.to(torch.uint8) << 1)).contiguous()
-    _check(row_f, (N1, 6), torch.float32, "row terms")
-    _check(col_f, (B, N2, 6), torch.float32, "target terms")
+    if not 0 < N2 < 1 << 16:
+        raise ValueError("epipolar_top2: 1 to 65535 targets")
+    args = ((q_desc.contiguous(), (N1, 8), torch.int32, "q_desc"),
+            (_f32(gate.row_c), (N1,), torch.float32, "row_c"),
+            (_f32(gate.row_s), (N1,), torch.float32, "row_s"),
+            (_f32(gate.row_bear), (N1, 3), torch.float32, "row_bear"),
+            (_f32(gate.row_thr), (N1,), torch.float32, "row_thr"),
+            (_u8(row_ok), (N1,), torch.uint8, "row_ok"),
+            (_u8(gate.row_stereo), (N1,), torch.uint8, "row_stereo"),
+            (_aligned(t_desc.contiguous()), (B, N2, 8), torch.int32, "t_desc"),
+            (_f32(gate.col_c), (B, N2), torch.float32, "col_c"),
+            (_f32(gate.col_s), (B, N2), torch.float32, "col_s"),
+            (_f32(gate.col_epl), (B, N2, 3), torch.float32, "col_epl"),
+            (_f32(gate.col_norm), (B, N2), torch.float32, "col_norm"),
+            (_u8(col_ok), (B, N2), torch.uint8, "col_ok"),
+            (_u8(gate.col_near), (B, N2), torch.uint8, "col_near"))
+    for x, shape, dt, name in args:
+        _check(x, shape, dt, name)
+    if band is None:
+        band = epipolar_band_index(col_ok, gate)
+    for x, shape, dt, name in zip(band, ((B, 9), (B, J_BAND_BINS + 3), (B, N2)),
+                                  (torch.float32, torch.int32, torch.int32),
+                                  ("basis", "start", "order")):
+        _check(x, shape, dt, name)
     out = torch.empty((B, N1, 4), dtype=torch.int32, device=q_desc.device)
-    lib = kbuild.load()
-    kbuild.check(lib.svt_epipolar_top2(
-        B, N1, N2, q_desc.data_ptr(), row_f.data_ptr(), row_flag.data_ptr(),
-        t_desc.data_ptr(), col_f.data_ptr(), col_flag.data_ptr(), float(gate.cos_thr),
-        out.data_ptr(), kbuild.stream_ptr(q_desc.device)), "epipolar_top2")
+    kbuild.check(kbuild.load().svt_epipolar_top2(
+        B, N1, N2, *(x[0].data_ptr() for x in args), float(gate.cos_thr), J_BAND_BINS,
+        J_BAND_TAU, *(x.data_ptr() for x in band), out.data_ptr(),
+        kbuild.stream_ptr(q_desc.device)), "epipolar_top2")
     epipolar_top2.launches += 1
     return out[..., 0], out[..., 1], out[..., 2], out[..., 3]
 

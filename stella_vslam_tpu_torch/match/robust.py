@@ -73,7 +73,7 @@ def epipolar_gate(kp1_angle, kp1_level, kp1_bearing, kp1_is_stereo, kp2_angle,
         row_stereo=kp1_is_stereo,
         col_c=torch.cos(kp2_angle), col_s=torch.sin(kp2_angle), col_epl=epl,
         col_norm=torch.clamp(norm, min=1e-12),
-        col_near=(cos_dist > _COS_EPIPOLE_THR) & ~kp2_is_stereo,
+        col_near=(cos_dist > _COS_EPIPOLE_THR) & ~kp2_is_stereo, E=E_12,
         cos_thr=cos_30deg())
 
 

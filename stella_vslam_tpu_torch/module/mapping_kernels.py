@@ -29,10 +29,12 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
-from stella_vslam_tpu_torch.camera.base import CameraModel, projection_family, reproject_to_image
+from stella_vslam_tpu_torch.camera.base import (
+    DMIN_SCALE, CameraModel, camera_points, centre_f32, dot3_f32, f32_reciprocal, log_scale_of,
+    norm3_f32, predicted_octave, project_camera_points, projection_family, reproject_to_image,
+    times_f32)
 from stella_vslam_tpu_torch.kernels import build as kbuild
 from stella_vslam_tpu_torch.match import fuse as fuse_match
 from stella_vslam_tpu_torch.match import hamming as H
@@ -199,17 +201,24 @@ def reproject_for_fuse(cam, log_scale: float, num_levels: int, R, t, lm_f, lm_va
     """Visibility, distance and direction gates of fuse candidates
     (`_reproject_for_fuse_impl`, reference fuse.cc:50-71) for one keyframe:
     lm_f [M,8] = pos(3) | dmin | dmax | normal(3). Returns (uv [M,2],
-    x_right [M], predicted octave [M] i32, gate [M] bool)."""
+    x_right [M], predicted octave [M] i32, gate [M] bool). Rounded as the
+    JAX version's jitted code rounds it on the CPU, and as kernel L does:
+    the camera-frame point, the centre, the norm and the cosine's sum as
+    FMA chains, dmin / 1.3 and log(ratio) / log_scale as products with the
+    float32 reciprocals."""
     pos, dmin, dmax, normal = lm_f[:, 0:3], lm_f[:, 3], lm_f[:, 4], lm_f[:, 5:8]
-    u, v, z, in_img = _reproject(model, cam, R, t, pos)
-    ray = pos - _centre(R, t)
-    dist = torch.linalg.norm(ray, dim=-1)
-    dist_ok = (dist >= dmin / 1.3) & (dist <= dmax * 1.3)
-    cosang = torch.sum(ray * normal, dim=-1) / torch.clamp(dist, min=1e-9)
+    uv, z, in_img = project_camera_points(model, cam, camera_points(R, t, pos))
+    u, v = uv[:, 0], uv[:, 1]
+    ray = pos - centre_f32(R, t)
+    dist = norm3_f32(ray)
+    dist_ok = (dist >= times_f32(dmin, DMIN_SCALE)) & (dist <= dmax * 1.3)
+    cosang = dot3_f32(ray, normal) / torch.clamp(dist, min=1e-9)
     ratio = torch.clamp(dmax, min=1e-9) / torch.clamp(dist, min=1e-9)
-    pred = torch.clamp(torch.ceil(torch.log(torch.clamp(ratio, min=1e-9)) / log_scale),
-                       0, num_levels - 1).to(torch.int32)
-    xr = torch.where(z > 1e-6, u - cam.focal_x_baseline / torch.clamp(z, min=1e-6),
+    pred = predicted_octave(ratio, f32_reciprocal(log_scale), num_levels)
+    # fxb / z a true division, as the JAX version's (its divisor varies):
+    # torch's `float / tensor` would take the reciprocal, times fxb
+    xr = torch.where(z > 1e-6, u - torch.full_like(z, cam.focal_x_baseline)
+                     / torch.clamp(z, min=1e-6),
                      torch.full_like(z, -1.0))
     gate = lm_valid & in_img & dist_ok & (cosang > 0.5) & (z > 0)
     return torch.stack([u, v], -1), xr, pred, gate
@@ -327,7 +336,8 @@ def fuse_scan(kfs: FuseKeyframes, poses, kf_valid, lm_f, lm_desc, lm_valid, cam,
         kf_valid.data_ptr(), lm_f.data_ptr(),
         lm_desc.data_ptr(), lm_valid.data_ptr(), cam.fx, cam.fy, cam.cx, cam.cy,
         cam.width, cam.height, cam.focal_x_baseline, scale_factors.data_ptr(),
-        sigma_sq.data_ptr(), L, float(log_scale), float(margin), start.data_ptr(),
+        sigma_sq.data_ptr(), L, f32_reciprocal(log_scale), DMIN_SCALE, float(margin),
+        start.data_ptr(),
         order.data_ptr(), inv, gx, gy, out.data_ptr(), gate.data_ptr(),
         kbuild.stream_ptr(lm_f.device)), "fuse")
     fuse_scan.launches += 1
@@ -354,8 +364,7 @@ class MappingKernels:
         f = lambda v: torch.tensor(v, dtype=torch.float32, device=self.device)
         self.scale_factors = f(orb_params.scale_factors)
         self.level_sigma_sq = f(orb_params.level_sigma_sq)
-        # f32 log of the scale factor, as the JAX version takes it
-        self.log_scale = float(np.log(np.float32(orb_params.scale_factor)))
+        self.log_scale = log_scale_of(orb_params.scale_factor)
 
     def triangulate(self, cur: TriKeyframe, nbrs: TriKeyframe, poses: torch.Tensor,
                     pair_valid: torch.Tensor) -> TriangulationResult:

@@ -32,7 +32,6 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from stella_vslam_tpu_torch.camera import base as cam_base
@@ -248,8 +247,7 @@ class TrackingKernels:
                                           dtype=torch.float32, device=self.device)
         self.inv_sigma_sq = torch.tensor(orb_params.inv_level_sigma_sq,
                                          dtype=torch.float32, device=self.device)
-        # f32 log of the scale factor, as the JAX version takes it
-        self.log_scale = float(np.log(np.float32(orb_params.scale_factor)))
+        self.log_scale = cam_base.log_scale_of(orb_params.scale_factor)
         self.margin_last = margin_last
         self.margin_local = margin_local
         self.num_matches_thr = num_matches_thr

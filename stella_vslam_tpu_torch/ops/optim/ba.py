@@ -567,13 +567,17 @@ class _KernelState:
         floats = linalg.solve_scratch_floats(6 * K)
         self.factor = f(floats) if floats else None
         self.ctrl = f(8)
-        self.counter = torch.zeros(1, dtype=torch.int32, device=dev)
-        # F's per-block partials and H's per-block trial costs
+        # F's per-block partials; H's per-chunk trial costs, its landmarks'
+        # costs and its tickets (one a chunk and one for the decision, left
+        # at zero by every launch)
         self.f_blocks = f_blocks(K, L) if L else 0
         self.f_part = torch.empty(self.f_blocks * (33 * K + 1 + 36 * K * K),
                                   dtype=torch.float32, device=dev)
         self.h_blocks = -(-L // LM_CHUNK)
         self.h_part = torch.empty(max(1, self.h_blocks), dtype=torch.float32, device=dev)
+        self.h_cost = torch.empty(max(1, self.h_blocks) * LM_CHUNK, dtype=torch.float32,
+                                  device=dev)
+        self.tickets = torch.zeros(self.h_blocks + 1, dtype=torch.int32, device=dev)
         # F's per-observation scratch: A = W G, the camera-side terms, the
         # landmarks' costs
         e = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
@@ -683,9 +687,10 @@ def ba_backsub_cost(st: _KernelState, inlier, use_huber: bool, decide: bool = Tr
     lib = kbuild.load()
     kbuild.check(lib.svt_ba_backsub(
         *st.problem_args(inlier), st.cam_R.data_ptr(), st.cam_t.data_ptr(),
-        st.lm.data_ptr(), int(use_huber), st.ctrl.data_ptr(), st.counter.data_ptr(),
+        st.lm.data_ptr(), int(use_huber), st.ctrl.data_ptr(), st.tickets.data_ptr(),
         st.Wg.data_ptr(), st.lmblk.data_ptr(), st.dx.data_ptr(), st.cam_Rn.data_ptr(),
-        st.cam_tn.data_ptr(), st.lmn.data_ptr(), st.h_part.data_ptr(), int(decide),
+        st.cam_tn.data_ptr(), st.lmn.data_ptr(), st.h_cost.data_ptr(), st.h_part.data_ptr(),
+        int(decide),
         kbuild.stream_ptr(st.lm.device)), "ba_backsub")
     ba_backsub_cost.launches += 1
 

@@ -91,7 +91,8 @@ def kernel_wrappers() -> dict:
             "ba_reduced_solve": ba.ba_reduced_solve,
             "ba_backsub_cost": ba.ba_backsub_cost, "ba_classify": ba.ba_classify,
             "ba_shard_assemble": ba.ba_shard_assemble,
-            "epipolar_top2": H.epipolar_top2, "triangulate": mk.triangulate_checks,
+            "epipolar_top2": H.epipolar_top2, "epipolar_band_index": H.epipolar_band_index,
+            "triangulate": mk.triangulate_checks,
             "fuse": mk.fuse_scan, "fuse_cell_index": H.build_cell_index_batch,
             "bow_transform": bow.bow_transform,
             "pnp_ransac": pnp.pnp_hypotheses, "sim3_transform": sim3.sim3_transform,

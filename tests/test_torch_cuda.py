@@ -361,10 +361,10 @@ def _mapping_scene(dev, B=3, N1=300, N2=517, P=600, seed=0, model="perspective")
 
 
 def test_epipolar_top2_and_triangulate_kernels_match_plain(dev):
-    """Kernel J against its plain version on the same gate terms (rows
-    differing <= 1e-3), then kernel K on J's matches (ok flags differing
-    <= 1e-3, positions within 1e-4 relative where both are ok), a padding
-    neighbour masked."""
+    """Kernel J against its plain version on the same gate terms (no row
+    differing), then kernel K on J's matches (ok flags differing <= 1e-3,
+    positions within 1e-4 relative where both are ok), a padding neighbour
+    masked."""
     from stella_vslam_tpu_torch.match import robust
     from stella_vslam_tpu_torch.module import mapping_kernels as mkm
 
@@ -374,13 +374,12 @@ def test_epipolar_top2_and_triangulate_kernels_match_plain(dev):
                                 nbrs.bear, nbrs.stereo, E_12, epl2,
                                 scale_factors=mk.scale_factors)
     args = (cur.desc, nbrs.desc, cur.unassoc, nbrs.unassoc, gate)
-    before = H.epipolar_top2.launches
+    before = H.epipolar_top2.launches, H.epipolar_band_index.launches
     k, p = H.epipolar_top2(*args), H.epipolar_top2_plain(*args)
-    assert H.epipolar_top2.launches == before + 1
-    differ = torch.zeros_like(k[0], dtype=torch.bool)
+    assert (H.epipolar_top2.launches, H.epipolar_band_index.launches) == \
+        (before[0] + 1, before[1] + 1)
     for a, b in zip(k, p):
-        differ |= a != b
-    assert float(differ.float().mean()) <= 1e-3
+        assert torch.equal(a, b)
     idx2, accepted, _ = robust.match_for_triangulation(
         cur.angle, cur.level, cur.desc, cur.bear, cur.unassoc, cur.stereo, nbrs.angle,
         nbrs.desc, nbrs.bear, nbrs.unassoc, nbrs.stereo, E_12, epl2,
@@ -397,6 +396,84 @@ def test_epipolar_top2_and_triangulate_kernels_match_plain(dev):
     both = rk.ok & rp.ok
     rel = torch.linalg.norm(rk.pos_w - rp.pos_w, dim=-1) / torch.linalg.norm(rp.pos_w, dim=-1)
     assert float(rel[both].max()) < 1e-4
+
+
+def _epipolar_args(dev, B, N2, seed, near=0.0, stereo=0.1, pad=False, model="perspective",
+                   near_rows=0.0):
+    """Kernel J's arguments on _mapping_scene's triangulation with B
+    neighbours of N2 keypoints: a share `near` of each neighbour's targets
+    moved to within ~0.06 degrees of the epipole (where the epipole gate
+    rejects a mono pair), a share `near_rows` of the rows to within ~0.06
+    degrees of neighbour 1's epipole (a band wider than the bins), a share
+    `stereo` of the rows stereo, and with `pad` the last neighbour a padding
+    one (no unassociated target)."""
+    from stella_vslam_tpu_torch.match import robust
+    from stella_vslam_tpu_torch.module import mapping_kernels as mkm
+
+    mk, cur, nbrs, poses, _, _, _ = _mapping_scene(dev, B=B, N2=N2, P=max(600, N2 + 100),
+                                                   seed=seed, model=model)
+    E_12, epl2 = mkm.epipolar_terms(poses)
+    g = torch.Generator().manual_seed(seed)
+    sel = (torch.rand(B, N2, generator=g) < near).to(dev)
+    moved = torch.nn.functional.normalize(
+        epl2[:, None, :] + 1e-3 * torch.randn(B, N2, 3, generator=g).to(dev), dim=-1)
+    nbrs = nbrs._replace(bear=torch.where(sel[..., None], moved, nbrs.bear).contiguous())
+    N1 = cur.desc.shape[0]
+    R, t = poses[:, :9].reshape(-1, 3, 3), poses[:, 9:12]
+    centre = lambda i: -(R[i].T @ t[i])
+    e1 = torch.nn.functional.normalize(R[0] @ (centre(1) - centre(0)), dim=0)
+    rows = (torch.rand(N1, generator=g) < near_rows).to(dev)
+    at_e1 = torch.nn.functional.normalize(
+        e1[None, :] + 1e-3 * torch.randn(N1, 3, generator=g).to(dev), dim=-1)
+    cur = cur._replace(stereo=(torch.rand(N1, generator=g) < stereo).to(dev),
+                       bear=torch.where(rows[:, None], at_e1, cur.bear).contiguous())
+    unassoc = nbrs.unassoc.clone()
+    if pad:
+        unassoc[-1] = False
+    gate = robust.epipolar_gate(cur.angle, cur.level, cur.bear, cur.stereo, nbrs.angle,
+                                nbrs.bear, nbrs.stereo, E_12, epl2,
+                                scale_factors=mk.scale_factors)
+    return cur.desc, nbrs.desc, cur.unassoc, unassoc, gate
+
+
+@pytest.mark.parametrize("B,N2,near,near_rows,stereo,pad,model", [
+    (1, 517, 0.0, 0.0, 0.1, False, "perspective"),
+    (2, 256, 0.0, 0.0, 0.1, False, "perspective"),
+    (3, 700, 0.3, 0.0, 0.1, False, "perspective"),
+    (3, 700, 0.0, 0.2, 0.1, False, "perspective"),
+    (3, 700, 0.3, 0.0, 0.6, False, "perspective"),
+    (4, 999, 0.0, 0.0, 0.1, True, "perspective"),
+    (5, 517, 0.1, 0.1, 0.3, True, "perspective"),
+    (3, 517, 0.1, 0.1, 0.1, False, "equirectangular")])
+def test_epipolar_top2_kernel_equals_plain(dev, B, N2, near, near_rows, stereo, pad, model):
+    """Kernel J (the band index, then the band walk) equals its dense
+    plain version on every output: B = 1..5 neighbours, padded ones, N2 not
+    a multiple of 256, targets and rows at the epipole, stereo rows, a 360
+    camera; the plain band walk too."""
+    args = _epipolar_args(dev, B, N2, seed=B * 7 + N2, near=near, stereo=stereo, pad=pad,
+                          model=model, near_rows=near_rows)
+    before = H.epipolar_top2.launches, H.epipolar_band_index.launches
+    k, p = H.epipolar_top2(*args), H.epipolar_top2_plain(*args)
+    assert (H.epipolar_top2.launches, H.epipolar_band_index.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    for a, b in zip(H.epipolar_band_plain(*args)[:4], p):
+        assert torch.equal(a, b)
+    assert int((p[0] <= H.HAMMING_DIST_THR_LOW).sum()) > 50
+    if pad:
+        assert bool((k[0][-1] == 257).all())
+    # the walk on a band index given by the caller: the same outputs
+    band = H.epipolar_band_index(args[3], args[4])
+    for a, b in zip(H.epipolar_top2(*args, band=band), p):
+        assert torch.equal(a, b)
+    # the index against its plain version on the card, as chip_smoke.py holds it
+    import chip_smoke
+
+    plain = H.epipolar_band_index_plain(args[3], args[4])
+    share, far = chip_smoke.band_index_differs(band, plain)
+    assert float((band.basis - plain.basis).abs().max()) <= 1e-6
+    assert share <= 1e-3 and far == 0, (share, far)
 
 
 def test_triangulate_kernel_equirect_matches_plain(dev):
@@ -1222,6 +1299,74 @@ def test_shard_reduce_kernel_matches_plain_exactly(dev):
     st = states[1]
     assert torch.equal(st.hc, hc) and torch.equal(st.rhs, rhs) and torch.equal(st.S, S)
     assert torch.equal(st.ctrl[0], cost)
+
+
+@pytest.mark.parametrize("K,L,D,model", [
+    (2, 1000, 2, "perspective"), (16, 4133, 12, "perspective"), (32, 1000, 16, "perspective"),
+    (16, 1000, 12, "equirectangular")])
+def test_backsub_kernel_matches_plain_in_float64(dev, K, L, D, model):
+    """Kernel H on G's step against H in float64 on the same inputs, kernel
+    by kernel through the BA's schedule (chip_smoke._lockstep_ba: trial
+    points within max(1e-3, 1e-4 rad of their ray sensitivity), the trial
+    cost within 1e-4 relative, no accept / stop decision apart), on
+    chip_smoke.schur_problem's edge cases: L not a multiple of 128, fixed
+    and invalid landmarks, a chunk without a valid observation, padded and
+    repeated observer slots, stereo rows or the 360 camera."""
+    import chip_smoke
+
+    prob, cam = chip_smoke.schur_problem(K, L, D, K + D, device=dev, model=model)
+    w = chip_smoke._lockstep_ba(prob, cam, 3, 3, model)
+    assert w["iterations"] >= 2
+    assert w["point_share"] < 1.0 and w["cost_rel"] < 1e-4 and w["decisions"] == 0, w
+
+
+@pytest.mark.parametrize("K,L,D", [(2, 4096, 2), (16, 1000, 12), (64, 4133, 16)])
+def test_backsub_kernel_repeats_and_decides_as_its_shard_mode(dev, K, L, D):
+    """Kernel H from one state of F and G: two launches give the same bits
+    (trial points, chunk partials, decision word, committed state); its
+    shard mode (decide = 0) writes the same trial points and chunk
+    partials and leaves the decision word and the state as they were."""
+    import chip_smoke
+    from stella_vslam_tpu_torch.ops.optim import ba
+
+    prob, cam = chip_smoke.schur_problem(K, L, D, 3 * K + D, device=dev)
+    st = ba._KernelState(prob, cam)
+    inl = torch.ones((L, D), dtype=torch.uint8, device=dev)
+    st.ctrl[ba._LAM] = 1e-4
+    ba.ba_linearize_schur(st, inl, True)
+    ba.ba_reduced_solve(st)
+    ctrl0, lm0, R0, t0 = (x.clone() for x in (st.ctrl, st.lm, st.cam_R, st.cam_t))
+
+    def run(decide):
+        st.ctrl.copy_(ctrl0), st.lm.copy_(lm0), st.cam_R.copy_(R0), st.cam_t.copy_(t0)
+        st.lmn.zero_(), st.h_part.zero_()
+        ba.ba_backsub_cost(st, inl, True, decide)
+        return [x.clone() for x in (st.lmn, st.h_part, st.ctrl, st.lm, st.cam_R, st.cam_t)]
+
+    a, b, s = run(True), run(True), run(False)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert torch.equal(s[0], a[0]) and torch.equal(s[1], a[1])
+    assert torch.equal(s[2], ctrl0) and torch.equal(s[3], lm0) and torch.equal(s[4], R0)
+    assert not torch.equal(a[2], ctrl0)
+    assert int(torch.count_nonzero(st.tickets)) == 0
+
+
+def test_window_rows_and_fuse_octave_at_ceils_match_plain(dev):
+    """Kernels R and L where the predicted octave sits at a ceil
+    (chip_smoke.check_octave_ceils: every float32 ratio within 1500 ulps of
+    1.2^k): R's octave and L's outputs equal their plain versions'."""
+    import chip_smoke
+    from stella_vslam_tpu_torch.camera.base import camera_from_yaml
+    from stella_vslam_tpu_torch.module.mapping_kernels import MappingKernels
+    from stella_vslam_tpu_torch.module.tracking_kernels import TrackingKernels
+
+    cam = camera_from_yaml({"name": "t", "setup": "monocular", "model": "perspective",
+                            "fx": 458.654, "fy": 457.296, "cx": 367.215, "cy": 248.375,
+                            "cols": 752, "rows": 480})
+    orb = OrbParams(num_levels=8)
+    assert chip_smoke.check_octave_ceils(
+        dev, TrackingKernels(cam, orb, device=dev), MappingKernels(cam, orb, device=dev)) == 0
 
 
 @pytest.mark.parametrize("K,L,D", [(32, 4096, 16), (8, 1000, 4)])
