@@ -86,22 +86,64 @@ def _radtan_distort(p: CameraParams, x, y):
     return xd, yd
 
 
+def _c32(v: float, like: torch.Tensor) -> torch.Tensor:
+    """The float32 constant v as a 0-d tensor on like's device."""
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def _normalise(p: CameraParams, pts: torch.Tensor):
+    """(u - cx) / fx and (v - cy) / fy as the JAX version's jitted
+    preprocessing rounds them: a division by a constant is a product with
+    its float32 reciprocal."""
+    return (times_f32(pts[..., 0] - p.cx, f32_reciprocal(p.fx)),
+            times_f32(pts[..., 1] - p.cy, f32_reciprocal(p.fy)))
+
+
+def _to_pixels(p: CameraParams, x, y) -> torch.Tensor:
+    """x fx + cx and y fy + cy, each one FMA as XLA contracts them."""
+    return torch.stack([_fma_f32(x, _c32(p.fx, x), _c32(p.cx, x)),
+                        _fma_f32(y, _c32(p.fy, y), _c32(p.cy, y))], dim=-1)
+
+
+def _pinhole_bearings(p: CameraParams, x, y) -> torch.Tensor:
+    """Unit bearings of normalised undistorted coordinates as the JAX
+    version's jitted preprocessing rounds `bearings(undistort(pts))`: XLA
+    folds ((x fx + cx) - cx) / fx into x times the float32 fx (1 / fx) (1
+    for most focal lengths, 1 - 2^-24 for EuRoC's fx), sums x^2 + y^2 with
+    an FMA before adding 1, and divides by the correctly rounded root."""
+    xb = times_f32(x, float(np.float32(p.fx) * np.float32(f32_reciprocal(p.fx))))
+    yb = times_f32(y, float(np.float32(p.fy) * np.float32(f32_reciprocal(p.fy))))
+    n = torch.sqrt((_fma_f32(yb, yb, xb * xb) + 1.0).double()).float()
+    return torch.stack([xb / n, yb / n, 1.0 / n], dim=-1)
+
+
 def _perspective_undistort_norm(p: CameraParams, xd, yd, iters: int = 10):
-    """Invert radtan by fixed-point iteration on normalized coords."""
+    """Invert radtan by fixed-point iteration on normalized coords, each
+    step x <- xd - (distort(x) - x) rounded as XLA's CPU code for the JAX
+    version's jitted loop rounds it (its contractions, read from the bits):
+    r^2 = x x + y y with both products rounded, the radial polynomial an
+    FMA chain, and each tangential sum an FMA onto the product before it."""
+    c = lambda v: _c32(v, xd)
+    k1, k2, k3, p1, p2 = c(p.k1), c(p.k2), c(p.k3), c(p.p1), c(p.p2)
+    two_p1, two_p2, one = c(2.0 * p.p1), c(2.0 * p.p2), c(1.0)
     x, y = xd, yd
     for _ in range(iters):
-        dx, dy = _radtan_distort(p, x, y)
+        r2 = x * x + y * y
+        radial = _fma_f32(r2, _fma_f32(r2, _fma_f32(r2, k3, k2), k1), one)
+        dx = _fma_f32(_fma_f32(x * 2.0, x, r2), p2, _fma_f32(x * two_p1, y, x * radial))
+        dy = _fma_f32(x * two_p2, y, _fma_f32(_fma_f32(y * 2.0, y, r2), p1, y * radial))
         x = xd - (dx - x)
         y = yd - (dy - y)
     return x, y
 
 
-def perspective_undistort(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
-    """Pixel keypoints [N,2] -> undistorted pixel keypoints (same K)."""
-    xn = (pts[..., 0] - p.cx) / p.fx
-    yn = (pts[..., 1] - p.cy) / p.fy
-    x, y = _perspective_undistort_norm(p, xn, yn)
-    return torch.stack([x * p.fx + p.cx, y * p.fy + p.cy], dim=-1)
+def perspective_undistort(p: CameraParams, pts: torch.Tensor, bearings: bool = False):
+    """Pixel keypoints [N,2] -> undistorted pixel keypoints (same K), and
+    with `bearings` their unit bearing vectors [N,3] too, as the JAX
+    version's jitted preprocessing gives both."""
+    x, y = _perspective_undistort_norm(p, *_normalise(p, pts))
+    und = _to_pixels(p, x, y)
+    return (und, _pinhole_bearings(p, x, y)) if bearings else und
 
 
 def _kb_distort_theta(p: CameraParams, theta):
@@ -120,13 +162,20 @@ def _kb_undistort_theta(p: CameraParams, theta_d, iters: int = 10):
     return theta
 
 
-def fisheye_undistort(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
+def fisheye_undistort(p: CameraParams, pts: torch.Tensor, bearings: bool = False):
+    """The Kannala-Brandt undistortion in the JAX version's eager rounding
+    (a true division by fx, no FMA): XLA's CPU tan differs from torch's by
+    ulps, so no contraction brings it to the jitted bits, and the jitted
+    normalisation leaves it more than 4 ulps from either form (ROADMAP
+    Queue 3's kept differences)."""
     xn = (pts[..., 0] - p.cx) / p.fx
     yn = (pts[..., 1] - p.cy) / p.fy
     theta_d = torch.sqrt(xn * xn + yn * yn)
     theta = _kb_undistort_theta(p, theta_d)
     scale = torch.where(theta_d > 1e-8, torch.tan(theta) / torch.clamp(theta_d, min=1e-8), 1.0)
-    return torch.stack([xn * scale * p.fx + p.cx, yn * scale * p.fy + p.cy], dim=-1)
+    x, y = xn * scale, yn * scale
+    und = torch.stack([x * p.fx + p.cx, y * p.fy + p.cy], dim=-1)
+    return (und, _pinhole_bearings(p, x, y)) if bearings else und
 
 
 def fisheye_distort(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
@@ -138,13 +187,15 @@ def fisheye_distort(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
     return torch.stack([xn * scale * p.fx + p.cx, yn * scale * p.fy + p.cy], dim=-1)
 
 
-def radial_division_undistort(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
-    xn = (pts[..., 0] - p.cx) / p.fx
-    yn = (pts[..., 1] - p.cy) / p.fy
-    r2 = xn * xn + yn * yn
-    denom = 1.0 + p.k1 * r2
+def radial_division_undistort(p: CameraParams, pts: torch.Tensor, bearings: bool = False):
+    xn, yn = _normalise(p, pts)
+    # the contractions XLA makes in the JAX version's jitted code
+    r2 = _fma_f32(xn, xn, yn * yn)
+    denom = _fma_f32(r2, _c32(p.k1, r2), _c32(1.0, r2))
     scale = 1.0 / torch.where(torch.abs(denom) < 1e-8, 1e-8, denom)
-    return torch.stack([xn * scale * p.fx + p.cx, yn * scale * p.fy + p.cy], dim=-1)
+    x, y = xn * scale, yn * scale
+    und = _to_pixels(p, x, y)
+    return (und, _pinhole_bearings(p, x, y)) if bearings else und
 
 
 def radial_division_distort(p: CameraParams, pts: torch.Tensor, iters: int = 10) -> torch.Tensor:
@@ -183,26 +234,30 @@ def undistortion_mode(model) -> int:
     return int(_as_model(model))
 
 
-def _undistort_launch(mode: int, p: CameraParams, pts: torch.Tensor, name: str):
+def _undistort_launch(mode: int, p: CameraParams, pts: torch.Tensor, name: str,
+                      bearings: bool):
     N = pts.shape[0]
     if tuple(pts.shape) != (N, 2) or pts.dtype != torch.float32:
         raise ValueError(f"{name}: expected float32 [N,2] pixel keypoints")
     pts = pts.contiguous()
     out = torch.empty_like(pts)
+    bear = torch.empty((N, 3), dtype=torch.float32, device=pts.device) if bearings else None
     lib = kbuild.load()
     kbuild.check(lib.svt_undistort(mode, N, p.fx, p.fy, p.cx, p.cy, p.k1, p.k2, p.p1, p.p2,
                                    p.k3, p.k4, pts.data_ptr(), out.data_ptr(),
+                                   bear.data_ptr() if bearings else 0,
                                    kbuild.stream_ptr(pts.device)), name)
-    return out
+    return (out, bear) if bearings else out
 
 
-def undistort_norm(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
+def undistort_norm(p: CameraParams, pts: torch.Tensor, bearings: bool = False):
     """Kernel R's radial-tangential undistortion on CUDA tensors (normalize,
-    the 10 iterations of _perspective_undistort_norm, back to pixels), the
-    plain version `perspective_undistort` on CPU tensors."""
+    the 10 iterations of _perspective_undistort_norm, back to pixels; with
+    `bearings` the unit bearings too, from the same launch), the plain
+    version `perspective_undistort` on CPU tensors."""
     if not pts.is_cuda:
-        return perspective_undistort(p, pts)
-    out = _undistort_launch(0, p, pts, "undistort_norm")
+        return perspective_undistort(p, pts, bearings)
+    out = _undistort_launch(0, p, pts, "undistort_norm", bearings)
     undistort_norm.launches += 1
     return out
 
@@ -210,13 +265,13 @@ def undistort_norm(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
 undistort_norm.launches = 0
 
 
-def undistort_fisheye(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
+def undistort_fisheye(p: CameraParams, pts: torch.Tensor, bearings: bool = False):
     """Kernel R's Kannala-Brandt mode on CUDA tensors (10 Newton steps on
-    theta, the tan scale), the plain version `fisheye_undistort` on CPU
-    tensors."""
+    theta, the tan scale; the bearings with `bearings`), the plain version
+    `fisheye_undistort` on CPU tensors."""
     if not pts.is_cuda:
-        return fisheye_undistort(p, pts)
-    out = _undistort_launch(1, p, pts, "undistort_fisheye")
+        return fisheye_undistort(p, pts, bearings)
+    out = _undistort_launch(1, p, pts, "undistort_fisheye", bearings)
     undistort_fisheye.launches += 1
     return out
 
@@ -224,13 +279,13 @@ def undistort_fisheye(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
 undistort_fisheye.launches = 0
 
 
-def undistort_radial(p: CameraParams, pts: torch.Tensor) -> torch.Tensor:
+def undistort_radial(p: CameraParams, pts: torch.Tensor, bearings: bool = False):
     """Kernel R's division-model mode on CUDA tensors (one division by
-    1 + k1 r^2), the plain version `radial_division_undistort` on CPU
-    tensors."""
+    1 + k1 r^2; the bearings with `bearings`), the plain version
+    `radial_division_undistort` on CPU tensors."""
     if not pts.is_cuda:
-        return radial_division_undistort(p, pts)
-    out = _undistort_launch(3, p, pts, "undistort_radial")
+        return radial_division_undistort(p, pts, bearings)
+    out = _undistort_launch(3, p, pts, "undistort_radial", bearings)
     undistort_radial.launches += 1
     return out
 
@@ -248,18 +303,30 @@ def undistort_keypoints(model: CameraModel, p: CameraParams,
     return _UNDISTORT[mode](p, pts)
 
 
+def undistort_and_bearings(model: CameraModel, p: CameraParams, pts: torch.Tensor):
+    """(undistorted keypoints [N,2], unit bearings [N,3]) as the JAX
+    version's jitted preprocessing computes `bearings(undistort(pts))` in
+    one program: the pinhole models' bearings come from the normalised
+    coordinates (kernel R writes both on the card)."""
+    mode = undistortion_mode(model)
+    if mode == CameraModel.EQUIRECTANGULAR:
+        return pts, bearings_from_undistorted(model, p, pts)
+    return _UNDISTORT[mode](p, pts, bearings=True)
+
+
 def bearings_from_undistorted(model: CameraModel, p: CameraParams,
                               pts: torch.Tensor) -> torch.Tensor:
-    """Undistorted keypoints [N,2] -> unit bearing vectors [N,3]."""
+    """Undistorted keypoints [N,2] -> unit bearing vectors [N,3]; the
+    pinhole models as the JAX version's jitted code rounds them (a product
+    with the float32 reciprocals, the squared norm's FMA)."""
     if model == CameraModel.EQUIRECTANGULAR:
         lon = (pts[..., 0] - p.cx) * (2.0 * math.pi) / p.width
         lat = -(pts[..., 1] - p.cy) * math.pi / p.height
         return torch.stack([torch.cos(lat) * torch.sin(lon), -torch.sin(lat),
                             torch.cos(lat) * torch.cos(lon)], dim=-1)
-    xn = (pts[..., 0] - p.cx) / p.fx
-    yn = (pts[..., 1] - p.cy) / p.fy
-    v = torch.stack([xn, yn, torch.ones_like(xn)], dim=-1)
-    return v / torch.linalg.norm(v, dim=-1, keepdim=True)
+    xn, yn = _normalise(p, pts)
+    n = torch.sqrt((_fma_f32(yn, yn, xn * xn) + 1.0).double()).float()
+    return torch.stack([xn / n, yn / n, 1.0 / n], dim=-1)
 
 
 def undistorted_from_bearings(model: CameraModel, p: CameraParams,
@@ -518,6 +585,9 @@ class Camera:
 
     def bearings(self, und_pts):
         return bearings_from_undistorted(self.model, self.params, und_pts)
+
+    def undistort_and_bearings(self, pts):
+        return undistort_and_bearings(self.model, self.params, pts)
 
 
 _MODEL_ALIASES = {

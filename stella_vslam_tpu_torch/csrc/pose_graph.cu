@@ -9,27 +9,33 @@
 // [E,K] matmuls, takes the Jacobian by jax.jacfwd under vmap, and assembles
 // H [K,K,7,7] by three segment sums and a transpose.
 //
-//  pg_linearize_kernel (one thread per edge): the residual in float, then
-//    its 14 Jacobian columns by forward-mode dual numbers through the same
-//    sim3_exp / compose / inverse / sim3_log program (sim3.cuh), one pass per
-//    column; the edge's terms J^T J [14,14], J^T r [14] and |r|^2 go to its
-//    row of a scratch.
-//  pg_assemble_kernel (grid over the system's entries): each entry of the
-//    dense [7K,7K] system gathers the terms of the edges that touch it in
-//    edge order, each entry of the [7K] vector likewise, one thread the cost;
-//    then the gauge: rows and columns of fixed and invalid vertices are
-//    cleared and get a unit diagonal, every diagonal entry gets 1e-6. No
-//    atomics: the same inputs give the same bits on every launch.
+//  pg_index_kernel (once an optimization, one thread a vertex): each
+//    vertex's valid edges in edge order, the index the assembly walks (the
+//    graph's topology holds for all its iterations).
+//  pg_linearize_kernel (a warp an edge): lanes 0-13 each run one Jacobian
+//    column's forward-mode dual pass through the sim3_exp / compose /
+//    inverse / sim3_log program (sim3.cuh), lane 14 the residual in float;
+//    the columns meet in shared memory and the lanes form the edge's terms
+//    J^T J [14,14], J^T r [14] and |r|^2 in its row of a scratch, each entry
+//    summed over p in order as one thread took it (an edge's latency is one
+//    pass, where one thread an edge ran fifteen).
+//  pg_assemble_kernel (a thread per entry of the dense [7K,7K] system): the
+//    terms of the edges that touch both its vertices, walking its row
+//    vertex's edges in edge order, each entry of the [7K] vector likewise,
+//    one thread the cost over all edges in order; then the gauge: rows and
+//    columns of fixed and invalid vertices are cleared and get a unit
+//    diagonal, every diagonal entry gets 1e-6. No atomics: the same inputs
+//    give the same bits on every launch, and each sum runs in edge order,
+//    as a scan of all E edges would take it.
 //  pg_update_kernel (one thread per vertex): dx = -x on the free vertices,
 //    Exp(dx) composed on the left.
 // The dense solve between them is the caller's.
 //
 // Bound: operations and latency. An edge costs ~15 passes of ~600
-// operations plus 14 x 15 x 7 x 2 for its terms; at E = 256 that is ~3 M
-// operations against 4 (7K)^2 bytes of system (200 KB at K = 32): microseconds
-// either way, so the kernel is bound by one thread's serial residual passes.
-// The gather reads E edge indices per entry ((7K)^2 E = 6.4 M at K = 32,
-// E = 128), the price of a fixed summation order.
+// operations plus 14 x 15 x 7 x 2 for its terms; at E = 128 that is ~1.5 M
+// operations against 4 (7K)^2 bytes of system (200 KB at K = 32):
+// microseconds either way, so the kernel is bound by one dual pass's chain
+// and by its launches.
 #include <stdint.h>
 
 #include "sim3.cuh"
@@ -89,39 +95,18 @@ __device__ void edge_residual(const Sim3f& Si, const Sim3f& Sj, const Sim3f& Sm,
 // per edge in the scratch: J^T J [14,14], J^T r [14], |r|^2
 constexpr int kEdgeTerms = 14 * 14 + 14 + 1;
 
-__global__ void __launch_bounds__(64)
-pg_linearize_kernel(int E, const float* __restrict__ s, const float* __restrict__ R,
-                    const float* __restrict__ t, const int* __restrict__ edge_i,
-                    const int* __restrict__ edge_j, const float* __restrict__ edge_s,
-                    const float* __restrict__ edge_R, const float* __restrict__ edge_t,
-                    const uint8_t* __restrict__ edge_valid, float* __restrict__ terms) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E || !edge_valid[e]) return;
-  const int vi = edge_i[e], vj = edge_j[e];
-  const Sim3f Si = load_sim3(s, R, t, vi), Sj = load_sim3(s, R, t, vj);
-  const Sim3f Sm = load_sim3(edge_s, edge_R, edge_t, e);
-  float r[7];
-  edge_residual<float>(Si, Sj, Sm, -1, r);
-  float J[7][14];
-  for (int c = 0; c < 14; ++c) {
-    Dual rd[7];
-    edge_residual<Dual>(Si, Sj, Sm, c, rd);
-    for (int p = 0; p < 7; ++p) J[p][c] = rd[p].d;
-  }
-  float* out = terms + (size_t)e * kEdgeTerms;
-  for (int a = 0; a < 14; ++a) {
-    for (int c = 0; c < 14; ++c) {
-      float h = 0.f;
-      for (int p = 0; p < 7; ++p) h += J[p][a] * J[p][c];
-      out[a * 14 + c] = h;
-    }
-    float g = 0.f;
-    for (int p = 0; p < 7; ++p) g += J[p][a] * r[p];
-    out[196 + a] = g;
-  }
-  float c2 = 0.f;
-  for (int p = 0; p < 7; ++p) c2 += r[p] * r[p];
-  out[210] = c2;
+// each vertex's valid edges (an edge once) in edge order: inc[k * E + d],
+// d < deg[k]
+__global__ void pg_index_kernel(int K, int E, const int* __restrict__ edge_i,
+                                const int* __restrict__ edge_j,
+                                const uint8_t* __restrict__ edge_valid, int* __restrict__ inc,
+                                int* __restrict__ deg) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;
+  int d = 0;
+  for (int e = 0; e < E; ++e)
+    if (edge_valid[e] && (edge_i[e] == k || edge_j[e] == k)) inc[(size_t)k * E + d++] = e;
+  deg[k] = d;
 }
 
 // the end slots (0..13) of an edge (vi, vj) that map to system row `row`:
@@ -132,20 +117,68 @@ __device__ __forceinline__ void end_slots(int row, int vi, int vj, int* a) {
   a[1] = v == vj ? 7 + c : -1;
 }
 
+constexpr int kWarpsPerBlock = 4;
+
+// A warp an edge: lane c < 14 the dual pass of Jacobian column c, lane 14
+// the residual; then the edge's terms, each entry summed over p in order.
+// An edge's residual can round an ulp apart from a layout that runs all
+// fifteen passes in one thread, whose compiler merges the float pass with
+// the dual passes (PERF.md §6, K17b).
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+pg_linearize_kernel(int E, const float* __restrict__ s, const float* __restrict__ R,
+                    const float* __restrict__ t, const int* __restrict__ edge_i,
+                    const int* __restrict__ edge_j, const float* __restrict__ edge_s,
+                    const float* __restrict__ edge_R, const float* __restrict__ edge_t,
+                    const uint8_t* __restrict__ edge_valid, float* __restrict__ terms) {
+  __shared__ float Js[kWarpsPerBlock][7][15];  // J[p][c], column 14 the residual
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int e = blockIdx.x * kWarpsPerBlock + warp;
+  if (e >= E || !edge_valid[e]) return;  // the whole warp leaves together
+  float(&J)[7][15] = Js[warp];
+  const int vi = edge_i[e], vj = edge_j[e];
+  const Sim3f Si = load_sim3(s, R, t, vi), Sj = load_sim3(s, R, t, vj);
+  const Sim3f Sm = load_sim3(edge_s, edge_R, edge_t, e);
+  if (lane < 14) {
+    Dual rd[7];
+    edge_residual<Dual>(Si, Sj, Sm, lane, rd);
+    for (int p = 0; p < 7; ++p) J[p][lane] = rd[p].d;
+  } else if (lane == 14) {
+    float r[7];
+    edge_residual<float>(Si, Sj, Sm, -1, r);
+    for (int p = 0; p < 7; ++p) J[p][14] = r[p];
+  }
+  __syncwarp();
+  float* out = terms + (size_t)e * kEdgeTerms;
+  // 196 + 14 + 1 entries over the 32 lanes; column 14 holds r, so J^T r is
+  // the row's 15th entry and |r|^2 the (14, 14) one
+  for (int q = lane; q < 15 * 15; q += 32) {
+    const int a = q / 15, c = q % 15;
+    if (a == 14 && c < 14) continue;
+    float h = 0.f;
+    for (int p = 0; p < 7; ++p) h += J[p][a] * J[p][c];
+    out[a == 14 ? 210 : (c == 14 ? 196 + a : a * 14 + c)] = h;
+  }
+}
+
+// Each entry of the system walks its row vertex's edges (pg_index_kernel)
+// and adds the terms of those that touch its column vertex, in edge order.
 __global__ void pg_assemble_kernel(int K, int E, const int* __restrict__ edge_i,
                                    const int* __restrict__ edge_j,
                                    const uint8_t* __restrict__ edge_valid,
                                    const uint8_t* __restrict__ fixed,
                                    const uint8_t* __restrict__ valid,
+                                   const int* __restrict__ inc, const int* __restrict__ deg,
                                    const float* __restrict__ terms, float* __restrict__ Hd,
                                    float* __restrict__ b, float* __restrict__ cost) {
   const int n = 7 * K;
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= n * n) return;
   const int row = q / n, col = q % n;
+  const int* ie = inc + (size_t)(row / 7) * E;
+  const int nd = deg[row / 7];
   float h = 0.f;
-  for (int e = 0; e < E; ++e) {
-    if (!edge_valid[e]) continue;
+  for (int d = 0; d < nd; ++d) {
+    const int e = ie[d];
     const int vi = edge_i[e], vj = edge_j[e];
     int ra[2], ca[2];
     end_slots(row, vi, vj, ra);
@@ -161,8 +194,8 @@ __global__ void pg_assemble_kernel(int K, int E, const int* __restrict__ edge_i,
   if (row == col) {
     v = v + (1.f - fi) + 1e-6f;
     float g = 0.f;
-    for (int e = 0; e < E; ++e) {
-      if (!edge_valid[e]) continue;
+    for (int d = 0; d < nd; ++d) {
+      const int e = ie[d];
       int ra[2];
       end_slots(row, edge_i[e], edge_j[e], ra);
       for (int x = 0; x < 2; ++x)
@@ -200,22 +233,36 @@ __global__ void pg_update_kernel(int K, const float* __restrict__ s, const float
 
 }  // namespace
 
+// The graph's index, once an optimization: inc [K,E], deg [K] ints.
+extern "C" int svt_pose_graph_index(int K, int E, const int* edge_i, const int* edge_j,
+                                    const uint8_t* edge_valid, int* inc, int* deg,
+                                    void* stream) {
+  if (K > 0)
+    pg_index_kernel<<<(K + 63) / 64, 64, 0, (cudaStream_t)stream>>>(K, E, edge_i, edge_j,
+                                                                      edge_valid, inc, deg);
+  return (int)cudaGetLastError();
+}
+
+// terms: E x 211 floats of device memory; inc and deg from
+// svt_pose_graph_index
 extern "C" int svt_pose_graph_linearize(int K, int E, const float* s, const float* R,
                                         const float* t, const uint8_t* fixed,
                                         const uint8_t* valid, const int* edge_i,
                                         const int* edge_j, const float* edge_s,
                                         const float* edge_R, const float* edge_t,
-                                        const uint8_t* edge_valid, float* Hd, float* b,
-                                        float* cost, float* terms, void* stream) {
-  // terms: E x 211 floats of device memory
+                                        const uint8_t* edge_valid, const int* inc,
+                                        const int* deg, float* Hd, float* b, float* cost,
+                                        float* terms, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (E > 0)
-    pg_linearize_kernel<<<(E + 63) / 64, 64, 0, st>>>(E, s, R, t, edge_i, edge_j, edge_s, edge_R,
-                                                      edge_t, edge_valid, terms);
   const int n = 7 * K;
+  if (E > 0)
+    pg_linearize_kernel<<<(E + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock, 0,
+                          st>>>(E, s, R, t, edge_i, edge_j, edge_s, edge_R, edge_t, edge_valid,
+                                terms);
   if (n > 0)
     pg_assemble_kernel<<<(n * n + 255) / 256, 256, 0, st>>>(K, E, edge_i, edge_j, edge_valid,
-                                                            fixed, valid, terms, Hd, b, cost);
+                                                            fixed, valid, inc, deg, terms, Hd, b,
+                                                            cost);
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,8 @@
 // sample_minimal_sets (:50): slot s of set b takes the argmax over the N
 // matches of the hashed uniform of the flat index (b * K + s) * N + n,
 // -1.0 where the match is invalid, the lowest index on ties. The hash is
-// integer arithmetic and its uniforms are exact in f32, so the indices equal
-// the JAX version's bit for bit.
+// integer arithmetic and its uniforms are exact in f32, so comparing the
+// integers they scale gives the JAX version's indices bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,34 +14,33 @@
 
 namespace svt_ransac {
 
-__device__ __forceinline__ float hash_uniform(uint32_t seed, uint32_t i) {
-  uint32_t x = i + seed * 2654435761u;
+// The hash's uniform (hash_uniform of the JAX version: (x >> 8) / 2^24) as
+// the integer it scales: the same order, without the conversion and the
+// product.
+__device__ __forceinline__ int hash_key(uint32_t seed_mul, uint32_t i) {
+  uint32_t x = i + seed_mul;
   x ^= x >> 16;
   x *= 0x7FEB352Du;
   x ^= x >> 15;
   x *= 0x846CA68Bu;
   x ^= x >> 16;
-  return (float)(x >> 8) * (1.0f / 16777216.0f);
+  return (int)(x >> 8);
 }
 
-// argmax order: larger value first, then the lower index
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
-
-// The whole block draws set b's K indices into idx (shared memory, K ints);
-// every thread calls it. Up to 32 warps.
+// The whole block draws set b's K indices into idx (shared memory, K ints)
+// in one pass over the N matches: a position that is not valid keys -1,
+// below every valid one. Every thread calls it. Up to 32 warps.
 template <int K>
 __device__ void sample_set(uint32_t seed, int b, int N, const uint8_t* __restrict__ valid,
                            int* idx) {
-  __shared__ float bv_s[32][K];
+  __shared__ int bv_s[32][K];
   __shared__ int bi_s[32][K];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float bv[K];
-  int bi[K];
+  const uint32_t seed_mul = seed * 2654435761u;
+  int bv[K], bi[K];
 #pragma unroll
   for (int s = 0; s < K; ++s) {
-    bv[s] = -2.f;
+    bv[s] = -2;
     bi[s] = 0x7fffffff;
   }
   for (int n = tid; n < N; n += blockDim.x) {
@@ -49,9 +48,10 @@ __device__ void sample_set(uint32_t seed, int b, int N, const uint8_t* __restric
 #pragma unroll
     for (int s = 0; s < K; ++s) {
       const uint32_t flat = ((uint32_t)b * K + s) * (uint32_t)N + (uint32_t)n;
-      const float u = ok ? hash_uniform(seed, flat) : -1.f;
-      if (better(u, n, bv[s], bi[s])) {
-        bv[s] = u;
+      const int key = ok ? hash_key(seed_mul, flat) : -1;
+      // this thread's n only grows: a tie keeps the lower index
+      if (key > bv[s]) {
+        bv[s] = key;
         bi[s] = n;
       }
     }
@@ -59,9 +59,9 @@ __device__ void sample_set(uint32_t seed, int b, int N, const uint8_t* __restric
 #pragma unroll
   for (int s = 0; s < K; ++s) {
     for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv[s], o);
+      const int ov = __shfl_xor_sync(0xffffffffu, bv[s], o);
       const int oi = __shfl_xor_sync(0xffffffffu, bi[s], o);
-      if (better(ov, oi, bv[s], bi[s])) {
+      if (ov > bv[s] || (ov == bv[s] && oi < bi[s])) {
         bv[s] = ov;
         bi[s] = oi;
       }
@@ -73,10 +73,9 @@ __device__ void sample_set(uint32_t seed, int b, int N, const uint8_t* __restric
   }
   __syncthreads();
   if (tid < K) {
-    float v = bv_s[0][tid];
-    int i = bi_s[0][tid];
+    int v = bv_s[0][tid], i = bi_s[0][tid];
     for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
-      if (better(bv_s[w][tid], bi_s[w][tid], v, i)) {
+      if (bv_s[w][tid] > v || (bv_s[w][tid] == v && bi_s[w][tid] < i)) {
         v = bv_s[w][tid];
         i = bi_s[w][tid];
       }

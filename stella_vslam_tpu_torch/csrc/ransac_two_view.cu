@@ -4,47 +4,64 @@
 // homography.py (_find_core :107, find_via_ransac :137,
 // find_via_ransac_escalated :152) and fundamental.py (:73, :102, :117), with
 // the sampler of ransac.py (hash_uniform :30, sample_minimal_sets :50,
-// select_best :110) and the null-vector extractor of linalg.py
-// (smallest_eigvec_spd :143). The TPU form materialises a [B,k,N] tensor of
-// hashed uniforms for a Gumbel-argmax, one-hot gathers, [B,9,9] batched
-// matmuls for 18 squarings, a batched SVD for the rank-2 projection of F and
-// a [B,N] score matrix.
+// escalate_scan :84, select_best :110) and the null-vector extractor of
+// linalg.py (smallest_eigvec_spd :143). The TPU form materialises a [B,k,N]
+// tensor of hashed uniforms for a Gumbel-argmax, one-hot gathers, [B,9,9]
+// batched matmuls for 18 squarings, a batched SVD for the rank-2 projection
+// of F and a [B,N] score matrix, then selects, refits and (escalated) scans
+// the chunks.
 //
 // And, as MODEL 2, the essential matrix on bearing vectors of
 // ops/solve/essential.py (_find_core :82 with compute_E_21 :46 and
 // _angular_cost :65; find_via_ransac :113, find_via_ransac_escalated :129
-// and the scoring and LO refits of find_via_ransac_5pt :144): the 8-point E
-// fit on bearings [N,3] with no normalisation and no rank step, the same
-// 18-squaring null vector, and the angular score (the sine of each
+// and the scoring, selection and LO refits of find_via_ransac_5pt :144): the
+// 8-point E fit on bearings [N,3] with no normalisation and no rank step,
+// the same 18-squaring null vector, and the angular score (the sine of each
 // bearing's angle to its epipolar plane, both views, inlier above
 // cos(1 deg), cost 1 - worst, capped at 1 - cos(1 deg)).
 //
-// On Hopper, four entry points, templated on the model (0: homography,
-// k = 4; 1: fundamental, k = 8; 2: essential, k = 8):
-//  * svt_ransac_minimal: one block per hypothesis. The block draws its k
-//    indices (per slot the argmax over N of the hash, lowest index on ties,
-//    -1.0 where invalid), gathers and normalises the k points, builds A^T A
-//    (9x9), takes the null vector by the same 18 squarings of
-//    (sigma I - A^T A) / sigma with Frobenius renormalisation (81 threads,
-//    one entry each), projects F to rank 2 (one-sided Jacobi SVD of the 3x3
-//    in double on one thread), denormalises, scores all N matches (H:
-//    symmetric transfer through the adjugate inverse; F: symmetric epipolar
-//    distance; chi-square cap 5.991) and reduces the cost and inlier count.
-//  * svt_ransac_select: one block; argmin of the gated costs (count >
-//    min_inliers, first on ties) and the winner's inlier mask.
-//  * svt_ransac_refit: one block; the LO round's nonminimal DLT, whose
-//    normalisation and A^T A are block reductions over the N masked rows,
-//    then the new inlier mask.
+// On Hopper a batch with its LO rounds is two launches, whatever the number
+// of chunks (one, or the escalated sweep's eight), templated on the model
+// (0: homography, k = 4; 1: fundamental, k = 8; 2: essential, k = 8):
+//  * svt_ransac_minimal: a block of 128 threads a hypothesis, of one chunk
+//    (the grid's y). The block draws the k indices in one pass over the N
+//    matches (per slot the argmax of the hash, lowest index on ties,
+//    invalid positions below every valid one); then warp 0 fits the model
+//    alone: the Hartley normalisation and A^T A by shuffle trees over the
+//    k points, the 18 squarings of (sigma I - A^T A) / sigma with
+//    Frobenius renormalisation on its 9x9 in shared memory under
+//    __syncwarp only, the rank-2 projection of F (one-sided Jacobi SVD of
+//    the 3x3 in double on one lane, ended by the first sweep that rotates
+//    nothing) and the denormalisation; then the block scores the model on
+//    all N matches (H: symmetric transfer through the adjugate inverse;
+//    F: symmetric epipolar distance; chi-square cap 5.991; E: the angular
+//    score) and reduces its cost and inlier count. (Four hypotheses a block
+//    of 128 threads, a warp each, measured slower: F 0.131 against 0.107
+//    ms; their sampler held 32 running maxima a thread.)
+//  * svt_ransac_finish: a block of 1024 threads a chunk: the argmin of the
+//    gated costs (count > min_inliers, first on ties), the winner's inlier
+//    mask, then the LO rounds, each a nonminimal DLT over the masked rows
+//    (normalisation and A^T A as block reductions, the null vector by one
+//    warp) and the new mask, kept when its consensus does not shrink, and
+//    the result fields; with `escalate`, the last block to finish (a ticket
+//    on a per-stream counter, which it leaves at zero) carries
+//    escalate_scan's rule over the chunks in order: a chunk that is valid
+//    and has strictly more inliers is taken (the first of equals), from an
+//    all-zero carry. No host read and no torch operation between the two.
 //  * svt_ransac_score: one block per given model (E only: the 5-point
 //    solver's candidates, kernel U), scored on all N matches; a candidate
-//    flagged invalid scores no inlier.
+//    flagged invalid scores no inlier. Its selection and LO rounds are the
+//    finish launch's.
 // Bound: operations. At B = 1024, N = 2872 a batch hashes B*k*N values
-// (23.5 M for F, ~10 integer operations each) and scores B*N = 2.9 M pairs
-// (~40 flops each); its bytes are ~50 KB of points. The design keeps every
-// [B,k,N] and [B,N] intermediate in registers, so device memory sees only
-// the points and the per-hypothesis results; the serial part is the
-// 18-squaring chain inside each block (latency, hidden by running B blocks
-// at once).
+// (23.5 M for F, integer operations: the hash's 2 multiplies, 3 shifts, 3
+// xors and an add, the argmax compare and select, ~11), which the card's
+// INT32 units take at 64 lanes an SM; it scores B*N = 2.9 M pairs (~40
+// flops each) and fits B models (18 9x9 products); its bytes are ~50 KB of
+// points. Every [B,k,N] and [B,N] intermediate stays in registers. The
+// sums run in a fixed order (the per-point terms in index order,
+// shuffle-down trees, warps in order, the Frobenius norm a serial chain),
+// the order of a fit spread over the whole block, whose models, costs and
+// counts these keep bit for bit.
 //
 // Float32 like the JAX version, but sums are taken in another order, so
 // models agree to a tolerance, not bit for bit; the sampled indices are
@@ -166,7 +183,11 @@ __device__ void rank2_project(float* F) {
   double W[3][3], V[3][3] = {{1, 0, 0}, {0, 1, 0}, {0, 0, 1}};
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j) W[i][j] = F[i * 3 + j];
+  // at most 12 sweeps, ended by the first that rotates no pair: a pair
+  // whose columns are orthogonal to 1e-15 of their norms is left, below
+  // which a rotation moves W by less than float32 can hold
   for (int sweep = 0; sweep < 12; ++sweep) {
+    bool rotated = false;
     for (int p = 0; p < 2; ++p) {
       for (int q = p + 1; q < 3; ++q) {
         double a = 0, b = 0, g = 0;
@@ -175,7 +196,8 @@ __device__ void rank2_project(float* F) {
           b += W[i][q] * W[i][q];
           g += W[i][p] * W[i][q];
         }
-        if (fabs(g) <= 1e-300 || fabs(g) <= 1e-17 * sqrt(a * b)) continue;
+        if (fabs(g) <= 1e-300 || fabs(g) <= 1e-15 * sqrt(a * b)) continue;
+        rotated = true;
         const double zeta = (b - a) / (2.0 * g);
         const double t = (zeta >= 0 ? 1.0 : -1.0) / (fabs(zeta) + sqrt(1.0 + zeta * zeta));
         const double c = 1.0 / sqrt(1.0 + t * t), s = c * t;
@@ -189,6 +211,7 @@ __device__ void rank2_project(float* F) {
         }
       }
     }
+    if (!rotated) break;
   }
   int m = 0;
   double best = 0;
@@ -230,120 +253,6 @@ __device__ void fit_denormalise(float* h, const Norm& nm, float* model) {
   float tmp[9];
   matmul3(L, h, tmp);
   matmul3(tmp, T1, model);
-}
-
-// Shared state of one model fit.
-struct FitSmem {
-  float ata[81];
-  float M[81];
-  float M2[81];
-  float scal[2];  // sigma, then the Frobenius norm
-  float model[9];
-};
-
-// The whole block fits one model from n correspondences (weights w, or all
-// 1); the result lands in fs->model (row-major 3x3).
-template <int MODEL>
-__device__ void fit_model(const float* p1, const float* p2, const uint8_t* w, int n,
-                          float* scratch, FitSmem* fs) {
-  const int tid = threadIdx.x;
-  // E needs no normalisation (bearings)
-  const Norm nm = MODEL == kEssential ? Norm{} : normalization(p1, p2, w, n, scratch);
-  // A^T A: 45 upper-triangle sums over the rows
-  float acc[45];
-#pragma unroll
-  for (int q = 0; q < 45; ++q) acc[q] = 0.f;
-  for (int i = tid; i < n; i += blockDim.x) {
-    if (w && !w[i]) continue;
-    float a[2][9];
-    int nr = 1;
-    if constexpr (MODEL == kEssential) {
-      // rows [b2.x b1, b2.y b1, b2.z b1] (compute_E_21)
-#pragma unroll
-      for (int u = 0; u < 3; ++u)
-#pragma unroll
-        for (int v = 0; v < 3; ++v) a[0][3 * u + v] = p2[3 * i + u] * p1[3 * i + v];
-    } else {
-      const float x1 = (p1[2 * i] - nm.m1x) / nm.d1x, y1 = (p1[2 * i + 1] - nm.m1y) / nm.d1y;
-      const float x2 = (p2[2 * i] - nm.m2x) / nm.d2x, y2 = (p2[2 * i + 1] - nm.m2y) / nm.d2y;
-      nr = dlt_rows<MODEL>(x1, y1, x2, y2, a);
-    }
-    for (int r = 0; r < nr; ++r) {
-      int q = 0;
-#pragma unroll
-      for (int u = 0; u < 9; ++u)
-#pragma unroll
-        for (int v = u; v < 9; ++v) acc[q++] += a[r][u] * a[r][v];
-    }
-  }
-  block_sum<45>(acc, scratch);
-  if (tid == 0) {
-    int q = 0;
-    for (int u = 0; u < 9; ++u)
-      for (int v = u; v < 9; ++v) {
-        fs->ata[u * 9 + v] = acc[q];
-        fs->ata[v * 9 + u] = acc[q];
-        ++q;
-      }
-    float sigma = 0.f;
-    for (int u = 0; u < 9; ++u) {
-      float r = 0.f;
-      for (int v = 0; v < 9; ++v) r += fabsf(fs->ata[u * 9 + v]);
-      sigma = fmaxf(sigma, r);
-    }
-    fs->scal[0] = sigma;
-  }
-  __syncthreads();
-  // null vector: M = (sigma I - A) / sigma, squared 18 times
-  if (tid < 81) {
-    const int i = tid / 9, j = tid % 9;
-    const float sigma = fs->scal[0];
-    fs->M[tid] = ((i == j ? sigma : 0.f) - fs->ata[tid]) / (sigma + 1e-30f);
-  }
-  __syncthreads();
-  for (int it = 0; it < 18; ++it) {
-    if (tid < 81) {
-      const int i = tid / 9, j = tid % 9;
-      float s = 0.f;
-      for (int m = 0; m < 9; ++m) s += fs->M[i * 9 + m] * fs->M[m * 9 + j];
-      fs->M2[tid] = s;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      float s = 0.f;
-      for (int q = 0; q < 81; ++q) s += fs->M2[q] * fs->M2[q];
-      fs->scal[1] = sqrtf(s) + 1e-30f;
-    }
-    __syncthreads();
-    if (tid < 81) fs->M[tid] = fs->M2[tid] / fs->scal[1];
-    __syncthreads();
-  }
-  if (tid == 0) {
-    // the column of largest norm (first on ties), normalised
-    int col = 0;
-    float bestn = -1.f;
-    for (int j = 0; j < 9; ++j) {
-      float s = 0.f;
-      for (int i = 0; i < 9; ++i) s += fs->M[i * 9 + j] * fs->M[i * 9 + j];
-      if (s > bestn) {
-        bestn = s;
-        col = j;
-      }
-    }
-    float h[9], nn = 0.f;
-    for (int i = 0; i < 9; ++i) {
-      h[i] = fs->M[i * 9 + col];
-      nn += h[i] * h[i];
-    }
-    nn = sqrtf(nn) + 1e-12f;
-    for (int i = 0; i < 9; ++i) h[i] /= nn;
-    if (MODEL == kEssential) {
-      for (int q = 0; q < 9; ++q) fs->model[q] = h[q];
-    } else {
-      fit_denormalise<MODEL>(h, nm, fs->model);
-    }
-  }
-  __syncthreads();
 }
 
 // Adjugate inverse of a 3x3 (row-major)
@@ -411,17 +320,17 @@ __device__ __forceinline__ float angular_score(const float* E, const float* b1, 
   return inl ? 1.f - worst : kCosCap;
 }
 
-// Scores all N matches under model M; optionally writes the inlier mask.
-// `none`: the model is invalid, every valid match is an outlier. Returns
-// (cost, count) to every thread.
+// One thread's share of the scores of all N matches under model M (the
+// points n = threadIdx.x, + blockDim.x, ...): s[0] += cost, s[1] += 1 for
+// an inlier; optionally writes the inlier mask. `none`: the model is
+// invalid, every valid match is an outlier.
 template <int MODEL>
-__device__ void score_all(const float* M, const float* p1, const float* p2,
-                          const uint8_t* valid, int N, float thr, uint8_t* mask,
-                          float* scratch, float& cost, int& count, bool none = false) {
+__device__ void score_partial(const float* M, const float* p1, const float* p2,
+                              const uint8_t* valid, int N, float thr, uint8_t* mask,
+                              float (&s)[2], bool none = false) {
   constexpr int D = dim_of<MODEL>();
   float Mi[9];
   if (MODEL == 0) inverse3(M, Mi);
-  float s[2] = {0.f, 0.f};
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
     bool inl = false;
     if (valid[n]) {
@@ -444,39 +353,230 @@ __device__ void score_all(const float* M, const float* p1, const float* p2,
     }
     if (mask) mask[n] = inl ? 1 : 0;
   }
-  block_sum<2>(s, scratch);
-  cost = s[0];
-  count = (int)s[1];
 }
 
+// A warp's 9x9 workspace for one null vector.
+struct WarpFit {
+  float ata[81];
+  float M[81];
+  float M2[81];
+};
+
+// Sum over a warp by the shuffle-down tree of block_sum (lane 0 holds it),
+// then, as block_sum's sum over the warps of a block whose other warps hold
+// nothing, added to 0: every lane gets the total.
+__device__ __forceinline__ float warp_tree_sum(float s) {
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+  return 0.f + __shfl_sync(0xffffffffu, s, 0);
+}
+
+// The null vector of A^T A (upper triangle `acc`, row by row, in every
+// lane) by one warp: sigma = the largest absolute row sum, M = (sigma I -
+// A^T A) / sigma squared 18 times, each square renormalised by its
+// Frobenius norm (a serial chain, as one thread took it), then the column
+// of largest norm (first on ties), normalised; E keeps it, H and F are
+// projected (F to rank 2) and denormalised into `model` by lane 0. Every
+// lane of the warp calls it.
 template <int MODEL>
-__global__ void __launch_bounds__(128)
+__device__ void warp_null_vector(const float (&acc)[45], const Norm& nm, WarpFit* wf,
+                                 float* model) {
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    int q = 0;
+    for (int u = 0; u < 9; ++u)
+      for (int v = u; v < 9; ++v) {
+        wf->ata[u * 9 + v] = acc[q];
+        wf->ata[v * 9 + u] = acc[q];
+        ++q;
+      }
+  }
+  __syncwarp();
+  float r = 0.f;
+  if (lane < 9)
+    for (int v = 0; v < 9; ++v) r += fabsf(wf->ata[lane * 9 + v]);
+  float sigma = fmaxf(0.f, r);
+  for (int o = 16; o > 0; o >>= 1) sigma = fmaxf(sigma, __shfl_xor_sync(0xffffffffu, sigma, o));
+  for (int q = lane; q < 81; q += 32) {
+    const int i = q / 9, j = q % 9;
+    wf->M[q] = ((i == j ? sigma : 0.f) - wf->ata[q]) / (sigma + 1e-30f);
+  }
+  __syncwarp();
+  for (int it = 0; it < 18; ++it) {
+    for (int q = lane; q < 81; q += 32) {
+      const int i = q / 9, j = q % 9;
+      float s = 0.f;
+      for (int m = 0; m < 9; ++m) s += wf->M[i * 9 + m] * wf->M[m * 9 + j];
+      wf->M2[q] = s;
+    }
+    __syncwarp();
+    float s = 0.f;
+    for (int q = 0; q < 81; ++q) s += wf->M2[q] * wf->M2[q];
+    const float nrm = sqrtf(s) + 1e-30f;
+    for (int q = lane; q < 81; q += 32) wf->M[q] = wf->M2[q] / nrm;
+    __syncwarp();
+  }
+  if (lane == 0) {
+    int col = 0;
+    float bestn = -1.f;
+    for (int j = 0; j < 9; ++j) {
+      float s = 0.f;
+      for (int i = 0; i < 9; ++i) s += wf->M[i * 9 + j] * wf->M[i * 9 + j];
+      if (s > bestn) {
+        bestn = s;
+        col = j;
+      }
+    }
+    float h[9], nn = 0.f;
+    for (int i = 0; i < 9; ++i) {
+      h[i] = wf->M[i * 9 + col];
+      nn += h[i] * h[i];
+    }
+    nn = sqrtf(nn) + 1e-12f;
+    for (int i = 0; i < 9; ++i) h[i] /= nn;
+    if (MODEL == kEssential) {
+      for (int q = 0; q < 9; ++q) model[q] = h[q];
+    } else {
+      fit_denormalise<MODEL>(h, nm, model);
+    }
+  }
+  __syncwarp();
+}
+
+// Lane i < n of a warp adds correspondence i's DLT rows (on normalised
+// points; bearings for E) to the 45 upper-triangle sums of A^T A.
+template <int MODEL>
+__device__ __forceinline__ void add_ata_rows(const float* p1, const float* p2, int i,
+                                             const Norm& nm, float (&acc)[45]) {
+  float a[2][9];
+  int nr = 1;
+  if constexpr (MODEL == kEssential) {
+    // rows [b2.x b1, b2.y b1, b2.z b1] (compute_E_21)
+#pragma unroll
+    for (int u = 0; u < 3; ++u)
+#pragma unroll
+      for (int v = 0; v < 3; ++v) a[0][3 * u + v] = p2[3 * i + u] * p1[3 * i + v];
+  } else {
+    const float x1 = (p1[2 * i] - nm.m1x) / nm.d1x, y1 = (p1[2 * i + 1] - nm.m1y) / nm.d1y;
+    const float x2 = (p2[2 * i] - nm.m2x) / nm.d2x, y2 = (p2[2 * i + 1] - nm.m2y) / nm.d2y;
+    nr = dlt_rows<MODEL>(x1, y1, x2, y2, a);
+  }
+  for (int r = 0; r < nr; ++r) {
+    int q = 0;
+#pragma unroll
+    for (int u = 0; u < 9; ++u)
+#pragma unroll
+      for (int v = u; v < 9; ++v) acc[q++] += a[r][u] * a[r][v];
+  }
+}
+
+// One warp fits the model of its K points (set1, set2: D*K floats).
+template <int MODEL, int K>
+__device__ void warp_fit_minimal(const float* set1, const float* set2, WarpFit* wf,
+                                 float* model) {
+  const int lane = threadIdx.x & 31;
+  Norm nm{};
+  if constexpr (MODEL != kEssential) {
+    float s[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    if (lane < K) {
+      s[0] = 1.f;
+      s[1] = set1[2 * lane];
+      s[2] = set1[2 * lane + 1];
+      s[3] = set2[2 * lane];
+      s[4] = set2[2 * lane + 1];
+    }
+#pragma unroll
+    for (int q = 0; q < 5; ++q) s[q] = warp_tree_sum(s[q]);
+    const float cnt = (float)K;
+    nm.m1x = s[1] / cnt;
+    nm.m1y = s[2] / cnt;
+    nm.m2x = s[3] / cnt;
+    nm.m2y = s[4] / cnt;
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    if (lane < K) {
+      d[0] = fabsf(set1[2 * lane] - nm.m1x);
+      d[1] = fabsf(set1[2 * lane + 1] - nm.m1y);
+      d[2] = fabsf(set2[2 * lane] - nm.m2x);
+      d[3] = fabsf(set2[2 * lane + 1] - nm.m2y);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) d[q] = warp_tree_sum(d[q]);
+    nm.d1x = d[0] / cnt + 1e-12f;
+    nm.d1y = d[1] / cnt + 1e-12f;
+    nm.d2x = d[2] / cnt + 1e-12f;
+    nm.d2y = d[3] / cnt + 1e-12f;
+  }
+  float acc[45];
+#pragma unroll
+  for (int q = 0; q < 45; ++q) acc[q] = 0.f;
+  if (lane < K) add_ata_rows<MODEL>(set1, set2, lane, nm, acc);
+#pragma unroll
+  for (int q = 0; q < 45; ++q) acc[q] = warp_tree_sum(acc[q]);
+  warp_null_vector<MODEL>(acc, nm, wf, model);
+}
+
+// The whole block fits one model over the rows of mask w (the LO refit):
+// normalisation and A^T A as block reductions, the null vector by warp 0.
+// The result lands in `model` (shared memory), visible to every thread.
+template <int MODEL>
+__device__ void block_fit_masked(const float* p1, const float* p2, const uint8_t* w, int n,
+                                 float* scratch, WarpFit* wf, float* model) {
+  const int tid = threadIdx.x;
+  const Norm nm = MODEL == kEssential ? Norm{} : normalization(p1, p2, w, n, scratch);
+  float acc[45];
+#pragma unroll
+  for (int q = 0; q < 45; ++q) acc[q] = 0.f;
+  for (int i = tid; i < n; i += blockDim.x) {
+    if (!w[i]) continue;
+    add_ata_rows<MODEL>(p1, p2, i, nm, acc);
+  }
+  block_sum<45>(acc, scratch);
+  if (tid < 32) warp_null_vector<MODEL>(acc, nm, wf, model);
+  __syncthreads();
+}
+
+constexpr int kMinThreads = 128;
+constexpr int kFinishThreads = 1024;
+constexpr int kMaxChunks = 16;
+
+struct Seeds {
+  uint32_t s[kMaxChunks];
+};
+
+// At most 64 registers a thread, so that 8 blocks fit an SM and B = 1024
+// hypotheses run in one wave on 132 SMs: at the 66-100 the compiler takes
+// unbounded, a batch ran in two (H 0.077, F 0.083, E 0.055 ms against 0.046,
+// 0.061, 0.036; F spills 200 bytes a thread, in L1).
+template <int MODEL>
+__global__ void __launch_bounds__(kMinThreads, 8)
 ransac_minimal_kernel(int N, const float* __restrict__ pts1, const float* __restrict__ pts2,
-                      const uint8_t* __restrict__ valid, uint32_t seed, float thr,
+                      const uint8_t* __restrict__ valid, Seeds seeds, int B, float thr,
                       float* __restrict__ out_model, float* __restrict__ out_cost,
                       int* __restrict__ out_count) {
   constexpr int K = MODEL == 0 ? 4 : 8;
   constexpr int D = dim_of<MODEL>();
-  __shared__ float scratch[(128 / 32 + 1) * 45];
-  __shared__ FitSmem fs;
+  __shared__ float scratch[(kMinThreads / 32 + 1) * 2];
+  __shared__ WarpFit wf;
+  __shared__ float model[9];
   __shared__ int idx[K];
   __shared__ float set1[D * K], set2[D * K];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  svt_ransac::sample_set<K>(seed, b, N, valid, idx);
-  if (tid < D * K) {
-    set1[tid] = pts1[D * idx[tid / D] + tid % D];
-    set2[tid] = pts2[D * idx[tid / D] + tid % D];
+  const int c = blockIdx.y, b = blockIdx.x;
+  svt_ransac::sample_set<K>(seeds.s[c], b, N, valid, idx);
+  if (threadIdx.x < D * K) {
+    set1[threadIdx.x] = pts1[D * idx[threadIdx.x / D] + threadIdx.x % D];
+    set2[threadIdx.x] = pts2[D * idx[threadIdx.x / D] + threadIdx.x % D];
   }
   __syncthreads();
-  fit_model<MODEL>(set1, set2, nullptr, K, scratch, &fs);
-  float cost;
-  int count;
-  score_all<MODEL>(fs.model, pts1, pts2, valid, N, thr, nullptr, scratch, cost, count);
-  if (tid < 9) out_model[b * 9 + tid] = fs.model[tid];
-  if (tid == 0) {
-    out_cost[b] = cost;
-    out_count[b] = count;
+  if (threadIdx.x < 32) warp_fit_minimal<MODEL, K>(set1, set2, &wf, model);
+  __syncthreads();
+  float s[2] = {0.f, 0.f};
+  score_partial<MODEL>(model, pts1, pts2, valid, N, thr, nullptr, s);
+  block_sum<2>(s, scratch);
+  const size_t q = (size_t)c * B + b;
+  if (threadIdx.x == 0) {
+    out_cost[q] = s[0];
+    out_count[q] = (int)s[1];
   }
+  if (threadIdx.x < 9) out_model[q * 9 + threadIdx.x] = model[threadIdx.x];
 }
 
 // One block per given model: its cost and inlier count over all N matches
@@ -492,34 +592,47 @@ ransac_score_kernel(int N, const float* __restrict__ pts1, const float* __restri
   const int b = blockIdx.x;
   if (threadIdx.x < 9) M[threadIdx.x] = models[b * 9 + threadIdx.x];
   __syncthreads();
-  float cost;
-  int count;
-  score_all<MODEL>(M, pts1, pts2, valid, N, thr, nullptr, scratch, cost, count, ok[b] == 0);
+  float s[2] = {0.f, 0.f};
+  score_partial<MODEL>(M, pts1, pts2, valid, N, thr, nullptr, s, ok[b] == 0);
+  block_sum<2>(s, scratch);
   if (threadIdx.x == 0) {
-    out_cost[b] = cost;
-    out_count[b] = count;
+    out_cost[b] = s[0];
+    out_count[b] = (int)s[1];
   }
 }
 
+// A chunk's selection and LO rounds (a block each), then, with `escalate`,
+// escalate_scan's carry over the chunks by the last block to finish.
+// masks: [C][2][N] bytes of scratch (a chunk's mask and its refit's);
+// chunk: [C][13] words (model, cost, then as ints the inlier count, the
+// valid flag and which half holds the mask); ticket: a counter at zero,
+// left at zero.
 template <int MODEL>
-__global__ void __launch_bounds__(1024)
-ransac_select_kernel(int N, const float* __restrict__ pts1, const float* __restrict__ pts2,
-                     const uint8_t* __restrict__ valid, int B,
+__global__ void __launch_bounds__(kFinishThreads)
+ransac_finish_kernel(int N, const float* __restrict__ pts1, const float* __restrict__ pts2,
+                     const uint8_t* __restrict__ valid, int C, int B,
                      const float* __restrict__ models, const float* __restrict__ costs,
-                     const int* __restrict__ counts, int min_inliers, float thr,
+                     const int* __restrict__ counts, int min_inliers, float thr, int lo_rounds,
+                     int escalate, uint8_t* masks, float* chunk, unsigned int* ticket,
                      float* __restrict__ out_model, uint8_t* __restrict__ out_mask,
-                     float* __restrict__ out_cost, uint8_t* __restrict__ out_ok) {
-  __shared__ float scratch[(1024 / 32 + 1) * 2];
+                     float* __restrict__ out_cost, long long* __restrict__ out_n,
+                     uint8_t* __restrict__ out_ok) {
+  __shared__ float scratch[(kFinishThreads / 32 + 1) * 45];
+  __shared__ WarpFit wf;
+  __shared__ float M[9], M_re[9];
   __shared__ float wv[32];
   __shared__ int wi[32];
-  __shared__ float M[9];
-  __shared__ int best_s;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __shared__ int best_s, ok_s, last_s;
+  __shared__ float total_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, c = blockIdx.x;
+  const float* mc = models + (size_t)c * B * 9;
+  const float* cc = costs + (size_t)c * B;
+  const int* nc = counts + (size_t)c * B;
   // argmin of the gated costs, first on ties
   float v = kBig * 2.f;
   int bi = 0x7fffffff;
   for (int b = tid; b < B; b += blockDim.x) {
-    const float g = counts[b] > min_inliers ? costs[b] : kBig;
+    const float g = nc[b] > min_inliers ? cc[b] : kBig;
     if (g < v || (g == v && b < bi)) {
       v = g;
       bi = b;
@@ -545,98 +658,135 @@ ransac_select_kernel(int N, const float* __restrict__ pts1, const float* __restr
         bi = wi[w];
       }
     best_s = bi;
-    const bool ok = v < kBig;
-    *out_ok = ok ? 1 : 0;
-    *out_cost = ok ? costs[bi] : kBig;
+    ok_s = v < kBig;
+    total_s = v < kBig ? cc[bi] : kBig;
   }
   __syncthreads();
-  if (tid < 9) {
-    M[tid] = models[best_s * 9 + tid];
-    out_model[tid] = M[tid];
+  if (tid < 9) M[tid] = mc[best_s * 9 + tid];
+  __syncthreads();
+  uint8_t* inl = masks + (size_t)c * 2 * N;
+  uint8_t* alt = inl + N;
+  float sc[2] = {0.f, 0.f};
+  score_partial<MODEL>(M, pts1, pts2, valid, N, thr, inl, sc);
+  block_sum<2>(sc, scratch);
+  int n_inl = (int)sc[1];
+  for (int r = 0; r < lo_rounds; ++r) {
+    block_fit_masked<MODEL>(pts1, pts2, inl, N, scratch, &wf, M_re);
+    float sr[2] = {0.f, 0.f};
+    score_partial<MODEL>(M_re, pts1, pts2, valid, N, thr, alt, sr);
+    block_sum<2>(sr, scratch);
+    const int n_re = (int)sr[1];
+    if (n_re >= n_inl) {  // the same decision in every thread
+      if (tid < 9) M[tid] = M_re[tid];
+      uint8_t* t = inl;
+      inl = alt;
+      alt = t;
+      n_inl = n_re;
+    }
+    __syncthreads();
+  }
+  if (!escalate) {
+    if (tid < 9) out_model[tid] = M[tid];
+    for (int n = tid; n < N; n += blockDim.x) out_mask[n] = inl[n];
+    if (tid == 0) {
+      *out_cost = total_s;
+      *out_n = n_inl;
+      *out_ok = ok_s;
+    }
+    return;
+  }
+  float* cf = chunk + (size_t)c * 13;
+  if (tid < 9) cf[tid] = M[tid];
+  if (tid == 0) {
+    cf[9] = total_s;
+    int* ci = (int*)(cf + 10);
+    ci[0] = n_inl;
+    ci[1] = ok_s;
+    ci[2] = inl == masks + (size_t)c * 2 * N ? 0 : 1;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last_s = atomicAdd(ticket, 1u) == (unsigned int)(C - 1);
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  if (tid == 0) {
+    // escalate_scan from an all-zero carry: a valid chunk with strictly
+    // more inliers is taken, the first of equals kept
+    int sel = -1, cn = 0;
+    for (int k = 0; k < C; ++k) {
+      const int* ck = (const int*)(chunk + (size_t)k * 13 + 10);
+      const int nk = __ldcg(ck), vk = __ldcg(ck + 1);
+      if (vk && (sel < 0 || nk > cn)) {
+        sel = k;
+        cn = nk;
+      }
+    }
+    best_s = sel;
+    *out_cost = sel >= 0 ? __ldcg(chunk + (size_t)sel * 13 + 9) : 0.f;
+    *out_n = sel >= 0 ? cn : 0;
+    *out_ok = sel >= 0;
+    *ticket = 0u;
   }
   __syncthreads();
-  float cost;
-  int count;
-  score_all<MODEL>(M, pts1, pts2, valid, N, thr, out_mask, scratch, cost, count);
-}
-
-template <int MODEL>
-__global__ void __launch_bounds__(1024)
-ransac_refit_kernel(int N, const float* __restrict__ pts1, const float* __restrict__ pts2,
-                    const uint8_t* __restrict__ valid, const uint8_t* __restrict__ mask_in,
-                    float thr, float* __restrict__ out_model, uint8_t* __restrict__ out_mask) {
-  __shared__ float scratch[(1024 / 32 + 1) * 45];
-  __shared__ FitSmem fs;
-  fit_model<MODEL>(pts1, pts2, mask_in, N, scratch, &fs);
-  float cost;
-  int count;
-  score_all<MODEL>(fs.model, pts1, pts2, valid, N, thr, out_mask, scratch, cost, count);
-  if (threadIdx.x < 9) out_model[threadIdx.x] = fs.model[threadIdx.x];
-}
-
-template <int MODEL>
-void launch_minimal(int N, const float* pts1, const float* pts2, const uint8_t* valid,
-                    unsigned int seed, int B, float thr, float* out_model, float* out_cost,
-                    int* out_count, cudaStream_t s) {
-  ransac_minimal_kernel<MODEL><<<B, 128, 0, s>>>(N, pts1, pts2, valid, seed, thr, out_model,
-                                                 out_cost, out_count);
-}
-
-template <int MODEL>
-void launch_select(int N, const float* pts1, const float* pts2, const uint8_t* valid, int B,
-                   const float* models, const float* costs, const int* counts,
-                   int min_inliers, float thr, float* out_model, uint8_t* out_mask,
-                   float* out_cost, uint8_t* out_ok, cudaStream_t s) {
-  ransac_select_kernel<MODEL><<<1, 1024, 0, s>>>(N, pts1, pts2, valid, B, models, costs, counts,
-                                                 min_inliers, thr, out_model, out_mask,
-                                                 out_cost, out_ok);
-}
-
-template <int MODEL>
-void launch_refit(int N, const float* pts1, const float* pts2, const uint8_t* valid,
-                  const uint8_t* mask_in, float thr, float* out_model, uint8_t* out_mask,
-                  cudaStream_t s) {
-  ransac_refit_kernel<MODEL><<<1, 1024, 0, s>>>(N, pts1, pts2, valid, mask_in, thr, out_model,
-                                                out_mask);
+  const int sel = best_s;
+  if (tid < 9) out_model[tid] = sel >= 0 ? __ldcg(chunk + (size_t)sel * 13 + tid) : 0.f;
+  const uint8_t* src =
+      sel >= 0 ? masks + ((size_t)sel * 2 + __ldcg((const int*)(chunk + (size_t)sel * 13 + 12))) * N
+               : nullptr;
+  for (int n = tid; n < N; n += blockDim.x) out_mask[n] = src ? __ldcg(src + n) : 0;
 }
 
 }  // namespace
 
 // model: 0 homography (pts [N,2]), 1 fundamental (pts [N,2]), 2 essential
-// (bearings [N,3]); thr: the chi-square cap (H, F; E's angle is fixed)
+// (bearings [N,3]); seeds: C chunk seeds (host memory), B hypotheses each;
+// thr: the chi-square cap (H, F; E's angle is fixed). out: models [C,B,9],
+// cost [C,B], count [C,B].
 extern "C" int svt_ransac_minimal(int model, int N, const float* pts1, const float* pts2,
-                                  const uint8_t* valid, unsigned int seed, int B, float thr,
-                                  float* out_model, float* out_cost, int* out_count,
+                                  const uint8_t* valid, const unsigned int* seeds, int C, int B,
+                                  float thr, float* out_model, float* out_cost, int* out_count,
                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (model < 0 || model > kEssential) return (int)cudaErrorInvalidValue;
+  if (model < 0 || model > kEssential || C < 1 || C > kMaxChunks)
+    return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaGetLastError();
-  auto launch = model == 0 ? launch_minimal<0> : model == 1 ? launch_minimal<1>
-                                                            : launch_minimal<kEssential>;
-  launch(N, pts1, pts2, valid, seed, B, thr, out_model, out_cost, out_count, s);
+  Seeds sd{};
+  for (int k = 0; k < C; ++k) sd.s[k] = seeds[k];
+  const dim3 grid(B, C);
+#define SVT_MINIMAL(M)                                                                    \
+  ransac_minimal_kernel<M><<<grid, kMinThreads, 0, s>>>(N, pts1, pts2, valid, sd, B, thr, \
+                                                        out_model, out_cost, out_count)
+  if (model == 0) SVT_MINIMAL(0);
+  else if (model == 1) SVT_MINIMAL(1);
+  else SVT_MINIMAL(kEssential);
+#undef SVT_MINIMAL
   return (int)cudaGetLastError();
 }
 
-extern "C" int svt_ransac_select(int model, int N, const float* pts1, const float* pts2,
-                                 const uint8_t* valid, int B, const float* models,
+// The C chunks' selection (count > min_inliers), winner's mask and
+// lo_rounds LO refits; escalate (C chunks) or not (C == 1, the chunk's
+// result as it is). masks: [C,2,N] bytes, chunk: [C,13] words of scratch;
+// ticket: a zero counter of this stream. out: model [9], mask [N], cost,
+// inlier count (int64), valid flag.
+extern "C" int svt_ransac_finish(int model, int N, const float* pts1, const float* pts2,
+                                 const uint8_t* valid, int C, int B, const float* models,
                                  const float* costs, const int* counts, int min_inliers,
-                                 float thr, float* out_model, uint8_t* out_mask,
-                                 float* out_cost, uint8_t* out_ok, void* stream) {
-  if (model < 0 || model > kEssential) return (int)cudaErrorInvalidValue;
-  auto launch = model == 0 ? launch_select<0> : model == 1 ? launch_select<1>
-                                                           : launch_select<kEssential>;
-  launch(N, pts1, pts2, valid, B, models, costs, counts, min_inliers, thr, out_model, out_mask,
-         out_cost, out_ok, (cudaStream_t)stream);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int svt_ransac_refit(int model, int N, const float* pts1, const float* pts2,
-                                const uint8_t* valid, const uint8_t* mask_in, float thr,
-                                float* out_model, uint8_t* out_mask, void* stream) {
-  if (model < 0 || model > kEssential) return (int)cudaErrorInvalidValue;
-  auto launch = model == 0 ? launch_refit<0> : model == 1 ? launch_refit<1>
-                                                          : launch_refit<kEssential>;
-  launch(N, pts1, pts2, valid, mask_in, thr, out_model, out_mask, (cudaStream_t)stream);
+                                 float thr, int lo_rounds, int escalate, uint8_t* masks,
+                                 float* chunk, unsigned int* ticket, float* out_model,
+                                 uint8_t* out_mask, float* out_cost, long long* out_n,
+                                 uint8_t* out_ok, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (model < 0 || model > kEssential || C < 1 || (!escalate && C != 1) || B <= 0)
+    return (int)cudaErrorInvalidValue;
+#define SVT_FINISH(M)                                                                   \
+  ransac_finish_kernel<M><<<C, kFinishThreads, 0, s>>>(                                 \
+      N, pts1, pts2, valid, C, B, models, costs, counts, min_inliers, thr, lo_rounds,  \
+      escalate, masks, chunk, ticket, out_model, out_mask, out_cost, out_n, out_ok)
+  if (model == 0) SVT_FINISH(0);
+  else if (model == 1) SVT_FINISH(1);
+  else SVT_FINISH(kEssential);
+#undef SVT_FINISH
   return (int)cudaGetLastError();
 }
 

@@ -34,7 +34,9 @@
 //  undistort_kernel (one thread per keypoint), templated on the model:
 //    normalize; radial-tangential: 10 iterations of x = xd - (distort(x) -
 //    x); Kannala-Brandt: 10 Newton steps on theta, then tan(theta) /
-//    theta_d; division: 1 / (1 + k1 r^2); back to pixels.
+//    theta_d; division: 1 / (1 + k1 r^2); back to pixels; with a bearing
+//    output, the unit bearings of the normalised coordinates (the JAX
+//    version's jitted preprocessing computes both in one program).
 // Bound: ~40-70 bytes and ~100 operations per row (the slice's 2872 slots
 // or 4096 table rows): ~0.1 us of bytes, so it is bound by its launch.
 // Floats follow the torch expressions' order. In the window rows the
@@ -48,11 +50,12 @@
 // in the plain version), the ratio a true division and the log CUDA's
 // logf, as torch's log on the card, so the flag and the predicted level
 // equal the plain version's on the card;
-// the equirectangular projection (camera.cuh) agrees to a few ulps. The undistortion rounds every operation
-// as its plain version does on the card and equals it bit for bit: a true
-// division and an FMA there moved the monocular initializer's input by an
-// ulp and, through the near-degenerate two-view geometry of a planar
-// scene, its init frame. The fisheye and division modes follow the same
+// the equirectangular projection (camera.cuh) agrees to a few ulps. The
+// undistortion rounds as its plain version, which rounds as the JAX
+// version's jitted code (XLA's reciprocal product, its FMA contractions),
+// and equals it bit for bit: an ulp in the monocular initializer's input
+// moves, through the near-degenerate two-view geometry of a planar scene,
+// which hypothesis wins. The fisheye and division modes follow the same
 // rule (tanf is the function torch calls on the card).
 #include <cuda_runtime.h>
 #include <math.h>
@@ -172,18 +175,22 @@ window_rows_kernel(int M, Intr k, const float* __restrict__ Rg, const float* __r
 }
 
 // kernel R's undistortion, one thread per keypoint, templated on the
-// distortion model: every product, sum and division rounded on its own, in
-// the plain torch expressions' order (no contraction into FMAs), and the
-// normalisation's division by fx as torch divides a CUDA tensor by a scalar
-// (times the float32 reciprocal): the result equals the plain version on
-// the card bit for bit
+// distortion model, rounded as the plain versions round it (camera/base.py;
+// the perspective and division models follow the JAX version's jitted
+// preprocessing): the normalisation a product with the float32 reciprocal
+// of fx, every contraction XLA makes an `__fmaf_rn` and every other product
+// and sum rounded on its own, and x fx + cx one FMA. With `bear`, the unit bearings of the same keypoints from the
+// normalised coordinates (x times fx (1 / fx), the squared norm's FMA, the
+// correctly rounded root): the result equals the plain version on the card
+// bit for bit.
 template <int MODEL>
 __global__ void __launch_bounds__(kThreads)
-undistort_kernel(int N, Intr k, Dist dc, const float* __restrict__ pts, float* __restrict__ out) {
+undistort_kernel(int N, Intr k, Dist dc, const float* __restrict__ pts, float* __restrict__ out,
+                 float* __restrict__ bear) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  const float xd = __fmul_rn(__fsub_rn(pts[2 * n], k.cx), __fdiv_rn(1.f, k.fx));
-  const float yd = __fmul_rn(__fsub_rn(pts[2 * n + 1], k.cy), __fdiv_rn(1.f, k.fy));
+  const float xd = __fmul_rn(__fsub_rn(pts[2 * n], k.cx), __frcp_rn(k.fx));
+  const float yd = __fmul_rn(__fsub_rn(pts[2 * n + 1], k.cy), __frcp_rn(k.fy));
   float x, y;
   if constexpr (MODEL == svt_cam::kPerspective) {
     // perspective_undistort: 10 fixed-point steps x = xd - (distort(x) - x)
@@ -192,20 +199,20 @@ undistort_kernel(int N, Intr k, Dist dc, const float* __restrict__ pts, float* _
     y = yd;
     for (int it = 0; it < 10; ++it) {
       const float r2 = __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y));
-      const float radial = __fadd_rn(
-          1.f, __fmul_rn(r2, __fadd_rn(dc.k1, __fmul_rn(r2, __fadd_rn(dc.k2, __fmul_rn(r2, dc.k3))))));
-      const float dx = __fadd_rn(
-          __fadd_rn(__fmul_rn(x, radial), __fmul_rn(__fmul_rn(two_p1, x), y)),
-          __fmul_rn(dc.p2, __fadd_rn(r2, __fmul_rn(__fmul_rn(2.f, x), x))));
-      const float dy = __fadd_rn(
-          __fadd_rn(__fmul_rn(y, radial),
-                    __fmul_rn(dc.p1, __fadd_rn(r2, __fmul_rn(__fmul_rn(2.f, y), y)))),
-          __fmul_rn(__fmul_rn(two_p2, x), y));
+      const float radial =
+          __fmaf_rn(r2, __fmaf_rn(r2, __fmaf_rn(r2, dc.k3, dc.k2), dc.k1), 1.f);
+      const float dx = __fmaf_rn(__fmaf_rn(2.f * x, x, r2), dc.p2,
+                                 __fmaf_rn(__fmul_rn(x, two_p1), y, __fmul_rn(x, radial)));
+      const float dy = __fmaf_rn(__fmul_rn(x, two_p2), y,
+                                 __fmaf_rn(__fmaf_rn(2.f * y, y, r2), dc.p1,
+                                           __fmul_rn(y, radial)));
       x = __fsub_rn(xd, __fsub_rn(dx, x));
       y = __fsub_rn(yd, __fsub_rn(dy, y));
     }
   } else if constexpr (MODEL == svt_cam::kFisheye) {
-    // fisheye_undistort: theta_d = |(xd, yd)|, 10 Newton steps on the
+    // fisheye_undistort, in the JAX version's eager rounding as its plain
+    // version (torch on the card divides by the scalar fx through its
+    // reciprocal, as above): theta_d = |(xd, yd)|, 10 Newton steps on the
     // Kannala-Brandt theta (a derivative under 1e-6 counts as 1), then the
     // scale tan(theta) / theta_d (1 at the centre). 3 k1, 5 k2 and 7 k3 are
     // one rounding each, as torch takes them (a double product of a float
@@ -230,14 +237,27 @@ undistort_kernel(int N, Intr k, Dist dc, const float* __restrict__ pts, float* _
   } else {
     // radial_division_undistort: one division by 1 + k1 r^2 (|.| < 1e-8
     // taken as 1e-8)
-    const float r2 = __fadd_rn(__fmul_rn(xd, xd), __fmul_rn(yd, yd));
-    const float denom = __fadd_rn(1.f, __fmul_rn(r2, dc.k1));
+    const float r2 = __fmaf_rn(xd, xd, __fmul_rn(yd, yd));
+    const float denom = __fmaf_rn(r2, dc.k1, 1.f);
     const float scale = __fdiv_rn(1.f, fabsf(denom) < 1e-8f ? 1e-8f : denom);
     x = __fmul_rn(xd, scale);
     y = __fmul_rn(yd, scale);
   }
-  out[2 * n] = __fadd_rn(__fmul_rn(x, k.fx), k.cx);
-  out[2 * n + 1] = __fadd_rn(__fmul_rn(y, k.fy), k.cy);
+  if constexpr (MODEL == svt_cam::kFisheye) {
+    out[2 * n] = __fadd_rn(__fmul_rn(x, k.fx), k.cx);
+    out[2 * n + 1] = __fadd_rn(__fmul_rn(y, k.fy), k.cy);
+  } else {
+    out[2 * n] = __fmaf_rn(x, k.fx, k.cx);
+    out[2 * n + 1] = __fmaf_rn(y, k.fy, k.cy);
+  }
+  if (bear) {
+    const float xb = __fmul_rn(x, __fmul_rn(k.fx, __frcp_rn(k.fx)));
+    const float yb = __fmul_rn(y, __fmul_rn(k.fy, __frcp_rn(k.fy)));
+    const float nrm = __fsqrt_rn(__fadd_rn(__fmaf_rn(yb, yb, __fmul_rn(xb, xb)), 1.f));
+    bear[3 * n] = __fdiv_rn(xb, nrm);
+    bear[3 * n + 1] = __fdiv_rn(yb, nrm);
+    bear[3 * n + 2] = __fdiv_rn(1.f, nrm);
+  }
 }
 
 }  // namespace
@@ -277,21 +297,25 @@ extern "C" int svt_window_rows(int model, int M, int mode, float fx, float fy, f
   return (int)cudaGetLastError();
 }
 
-// model: 0 radial-tangential, 1 Kannala-Brandt, 3 division
+// model: 0 radial-tangential, 1 Kannala-Brandt, 3 division; bear (may be
+// null): [N,3] unit bearings of the undistorted keypoints
 extern "C" int svt_undistort(int model, int N, float fx, float fy, float cx, float cy, float k1,
                              float k2, float p1, float p2, float k3, float k4, const float* pts,
-                             float* out, void* stream) {
+                             float* out, float* bear, void* stream) {
   Intr k{fx, fy, cx, cy, 0.f, 0.f, 0.f};
   Dist dc{k1, k2, p1, p2, k3, k4};
   const int grid = (N + kThreads - 1) / kThreads;
   cudaStream_t s = (cudaStream_t)stream;
   if (model == svt_cam::kPerspective) {
-    if (N > 0) undistort_kernel<svt_cam::kPerspective><<<grid, kThreads, 0, s>>>(N, k, dc, pts, out);
+    if (N > 0)
+      undistort_kernel<svt_cam::kPerspective><<<grid, kThreads, 0, s>>>(N, k, dc, pts, out, bear);
   } else if (model == svt_cam::kFisheye) {
-    if (N > 0) undistort_kernel<svt_cam::kFisheye><<<grid, kThreads, 0, s>>>(N, k, dc, pts, out);
+    if (N > 0)
+      undistort_kernel<svt_cam::kFisheye><<<grid, kThreads, 0, s>>>(N, k, dc, pts, out, bear);
   } else if (model == svt_cam::kRadialDivision) {
     if (N > 0)
-      undistort_kernel<svt_cam::kRadialDivision><<<grid, kThreads, 0, s>>>(N, k, dc, pts, out);
+      undistort_kernel<svt_cam::kRadialDivision><<<grid, kThreads, 0, s>>>(N, k, dc, pts, out,
+                                                                            bear);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -81,15 +81,14 @@ _SIGNATURES = {
     # num_robust_rounds, num_each_iter, R_out, t_out, inlier_out, chi2_out,
     # stream
     "svt_pose_lm": [_I] * 3 + [_P, _L] * 5 + [_P] * 2 + [_F] * 7 + [_I] * 3 + [_P] * 5,
-    # model, N, pts1, pts2, valid, seed, B, thr, out_model, out_cost,
-    # out_count, stream
-    "svt_ransac_minimal": [_I, _I, _P, _P, _P, _U, _I, _F, _P, _P, _P, _P],
-    # model, N, pts1, pts2, valid, B, models, costs, counts, min_inliers,
-    # thr, out_model, out_mask, out_cost, out_ok, stream
-    "svt_ransac_select": [_I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _F, _P, _P,
-                          _P, _P, _P],
-    # model, N, pts1, pts2, valid, mask_in, thr, out_model, out_mask, stream
-    "svt_ransac_refit": [_I, _I, _P, _P, _P, _P, _F, _P, _P, _P],
+    # model, N, pts1, pts2, valid, seeds (host), C, B, thr, out_model,
+    # out_cost, out_count, stream
+    "svt_ransac_minimal": [_I, _I, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P],
+    # model, N, pts1, pts2, valid, C, B, models, costs, counts, min_inliers,
+    # thr, lo_rounds, escalate, masks, chunk, ticket, out_model, out_mask,
+    # out_cost, out_n, out_ok, stream
+    "svt_ransac_finish": [_I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I, _F, _I, _I, _P, _P,
+                          _P, _P, _P, _P, _P, _P, _P],
     # N, b1, b2, valid, B, models, ok, out_cost, out_count, stream
     "svt_ransac_score": [_I, _P, _P, _P, _I] + [_P] * 5,
     # N, b1, b2, valid, seed, B, theta, probe, out_idx, out_E, out_ok, stream
@@ -156,9 +155,11 @@ _SIGNATURES = {
     # N, pts1, pts2, obs1, obs2, isig1, isig2, valid, R0, t0, s0, fx, fy, cx,
     # cy, chi_sq, fix_scale, num_iter, out, inlier, stream
     "svt_sim3_transform": [_I] + [_P] * 10 + [_F] * 5 + [_I] * 2 + [_P] * 3,
+    # K, E, edge_i, edge_j, edge_valid, inc, deg, stream
+    "svt_pose_graph_index": [_I, _I] + [_P] * 6,
     # K, E, s, R, t, fixed, valid, edge_i, edge_j, edge_s, edge_R, edge_t,
-    # edge_valid, Hd, b, cost, terms, stream
-    "svt_pose_graph_linearize": [_I, _I] + [_P] * 16,
+    # edge_valid, inc, deg, Hd, b, cost, terms, stream
+    "svt_pose_graph_linearize": [_I, _I] + [_P] * 18,
     # K, s, R, t, fixed, valid, x, s2, R2, t2, stream
     "svt_pose_graph_update": [_I] + [_P] * 10,
     # M, N, best_idx, idx_stride, accepted, src_pos, pos_stride, src_id,
@@ -174,7 +175,7 @@ _SIGNATURES = {
     # u, v, xr, rad, lo, hi, pred, valid, stream
     "svt_window_rows": [_I, _I, _I] + [_F] * 7 + [_P] * 7 + [_F, _F, _I] + [_P] * 9,
     # model, N, fx, fy, cx, cy, k1, k2, p1, p2, k3, k4, pts, out, stream
-    "svt_undistort": [_I, _I] + [_F] * 10 + [_P] * 3,
+    "svt_undistort": [_I, _I] + [_F] * 10 + [_P] * 4,
 }
 
 

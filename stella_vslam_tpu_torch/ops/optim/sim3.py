@@ -290,6 +290,66 @@ def pose_graph_linearize_plain(g: PoseGraph, s, R, t):
     return H.permute(0, 2, 1, 3).reshape(7 * K, 7 * K), b.reshape(-1), torch.sum(r * r)
 
 
+def pose_graph_index_plain(g: PoseGraph):
+    """Plain version of kernel P's graph index: per vertex its valid edges
+    (an edge once) in edge order, (inc [K, E] i32 padded with -1, deg [K]
+    i32)."""
+    K, E = g.fixed.shape[0], g.edge_i.shape[0]
+    ar = torch.arange(K, device=g.edge_i.device)[:, None]
+    touch = g.edge_valid[None, :] & ((g.edge_i[None, :] == ar) | (g.edge_j[None, :] == ar))
+    order = torch.argsort((~touch).to(torch.int8), dim=1, stable=True).to(torch.int32)
+    deg = touch.sum(1).to(torch.int32)
+    inc = torch.where(torch.arange(E, device=ar.device)[None, :] < deg[:, None], order,
+                      torch.full_like(order, -1))
+    return inc, deg
+
+
+def pose_graph_terms_plain(g: PoseGraph, s, R, t):
+    """Each edge's terms as kernel P's scratch holds them, [E, 211]: J^T J
+    [14,14], J^T r [14], |r|^2, from the plain Jacobian by the products
+    pose_graph_linearize_plain forms (its (j, i) block the transpose of
+    the (i, j) one)."""
+    r, J = edge_residuals_plain(g, s, R, t)
+    J_i, J_j = J[:, :, :7], J[:, :, 7:]
+    ij = torch.einsum("epi,epj->eij", J_i, J_j)
+    JJ = torch.cat([torch.cat([torch.einsum("epi,epj->eij", J_i, J_i), ij], 2),
+                    torch.cat([ij.transpose(1, 2), torch.einsum("epi,epj->eij", J_j, J_j)], 2)],
+                   1).reshape(-1, 196)
+    g_r = torch.cat([torch.einsum("epi,ep->ei", J_i, r), torch.einsum("epi,ep->ei", J_j, r)], 1)
+    return torch.cat([JJ, g_r, torch.sum(r * r, -1)[:, None]], 1)
+
+
+def pose_graph_assemble_plain(g: PoseGraph, terms, inc, deg):
+    """Plain version of kernel P's assembly: the system of the edge terms
+    `terms` [E, 211] summed over the graph's index, each entry over its row
+    vertex's edges that touch its column vertex in edge order (then end i
+    before end j on each side), the gauge rows applied; (Hd, b, cost)."""
+    K = g.fixed.shape[0]
+    H = torch.zeros((7 * K, 7 * K), dtype=terms.dtype, device=terms.device)
+    b = torch.zeros(7 * K, dtype=terms.dtype, device=terms.device)
+    ei, ej = g.edge_i.tolist(), g.edge_j.tolist()
+    for u in range(K):
+        rows = slice(7 * u, 7 * u + 7)
+        for e in inc[u, :int(deg[u])].tolist():
+            JJ = terms[e, :196].reshape(14, 14)
+            ends = (ei[e], ej[e])
+            for x in range(2):
+                if ends[x] != u:
+                    continue
+                for y in range(2):
+                    v = ends[y]
+                    H[rows, 7 * v:7 * v + 7] += JJ[7 * x:7 * x + 7, 7 * y:7 * y + 7]
+                b[rows] += terms[e, 196 + 7 * x:203 + 7 * x]
+    free = _free(g).repeat_interleave(7)
+    H = H * free[:, None] * free[None, :]
+    idx = torch.arange(7 * K, device=H.device)
+    H[idx, idx] = H[idx, idx] + (1.0 - free) + 1e-6
+    cost = torch.zeros((), dtype=terms.dtype, device=terms.device)
+    for e in torch.nonzero(g.edge_valid)[:, 0].tolist():
+        cost = cost + terms[e, 210]
+    return H, b * free, cost
+
+
 def pose_graph_update_plain(g: PoseGraph, s, R, t, x):
     """Plain version of kernel P's update: S_k <- Exp(-x_k free_k) S_k."""
     dx = -x.reshape(-1, 7) * _free(g)[:, None]
@@ -312,26 +372,71 @@ def _check_graph(g: PoseGraph, s, R, t):
     return K, E, dev
 
 
-def pose_graph_linearize(g: PoseGraph, s, R, t):
-    """Kernel P, first half, on CUDA tensors: (Hd [7K,7K], b [7K], sum of
-    squared residuals)."""
-    if not s.is_cuda:
-        return pose_graph_linearize_plain(g, s, R, t)
+class _Workspace(NamedTuple):
+    """Kernel P's buffers for one optimization on the card: the graph's
+    index (each vertex's valid edges in edge order, built once) and the
+    system it is linearized into."""
+
+    K: int
+    E: int
+    inc: torch.Tensor  # [K, E] i32
+    deg: torch.Tensor  # [K] i32
+    Hd: torch.Tensor  # [7K, 7K]
+    b: torch.Tensor  # [7K]
+    cost: torch.Tensor  # ()
+    terms: torch.Tensor  # [E, 211] per edge: J^T J, J^T r, |r|^2
+
+
+def _workspace(g: PoseGraph, s, R, t) -> _Workspace:
+    """Validate the graph and the state, allocate the system and build the
+    index (one launch of kernel P)."""
     K, E, dev = _check_graph(g, s, R, t)
-    Hd = torch.empty((7 * K, 7 * K), dtype=torch.float32, device=dev)
-    b = torch.empty(7 * K, dtype=torch.float32, device=dev)
-    cost = torch.empty((), dtype=torch.float32, device=dev)
-    # per edge: J^T J [14,14], J^T r [14], |r|^2, gathered in edge order
-    terms = torch.empty((max(E, 1), 211), dtype=torch.float32, device=dev)
+    f32, i32 = torch.float32, torch.int32
+    inc = torch.empty((K, max(E, 1)), dtype=i32, device=dev)
+    deg = torch.empty(K, dtype=i32, device=dev)
+    ws = _Workspace(K, E, inc, deg, torch.empty((7 * K, 7 * K), dtype=f32, device=dev),
+                    torch.empty(7 * K, dtype=f32, device=dev),
+                    torch.empty((), dtype=f32, device=dev),
+                    torch.empty((max(E, 1), 211), dtype=f32, device=dev))
+    lib = kbuild.load()
+    kbuild.check(lib.svt_pose_graph_index(
+        K, E, g.edge_i.data_ptr(), g.edge_j.data_ptr(), g.edge_valid.data_ptr(),
+        inc.data_ptr(), deg.data_ptr(), kbuild.stream_ptr(dev)), "pose_graph_index")
+    pose_graph_linearize.launches += 1
+    return ws
+
+
+def _linearize(ws: _Workspace, g: PoseGraph, s, R, t):
     lib = kbuild.load()
     kbuild.check(lib.svt_pose_graph_linearize(
-        K, E, s.data_ptr(), R.data_ptr(), t.data_ptr(), g.fixed.data_ptr(),
+        ws.K, ws.E, s.data_ptr(), R.data_ptr(), t.data_ptr(), g.fixed.data_ptr(),
         g.valid.data_ptr(), g.edge_i.data_ptr(), g.edge_j.data_ptr(), g.edge_s.data_ptr(),
-        g.edge_R.data_ptr(), g.edge_t.data_ptr(), g.edge_valid.data_ptr(), Hd.data_ptr(),
-        b.data_ptr(), cost.data_ptr(), terms.data_ptr(), kbuild.stream_ptr(dev)),
-        "pose_graph_linearize")
+        g.edge_R.data_ptr(), g.edge_t.data_ptr(), g.edge_valid.data_ptr(), ws.inc.data_ptr(),
+        ws.deg.data_ptr(), ws.Hd.data_ptr(), ws.b.data_ptr(), ws.cost.data_ptr(),
+        ws.terms.data_ptr(), kbuild.stream_ptr(s.device)), "pose_graph_linearize")
     pose_graph_linearize.launches += 1
-    return Hd, b, cost
+
+
+def _update(g: PoseGraph, s, R, t, x, out):
+    s2, R2, t2 = out
+    lib = kbuild.load()
+    kbuild.check(lib.svt_pose_graph_update(
+        s.shape[0], s.data_ptr(), R.data_ptr(), t.data_ptr(), g.fixed.data_ptr(), g.valid.data_ptr(),
+        x.data_ptr(), s2.data_ptr(), R2.data_ptr(), t2.data_ptr(), kbuild.stream_ptr(s.device)),
+        "pose_graph_update")
+    pose_graph_linearize.launches += 1
+    return out
+
+
+def pose_graph_linearize(g: PoseGraph, s, R, t):
+    """Kernel P, first half, on CUDA tensors: (Hd [7K,7K], b [7K], sum of
+    squared residuals); it builds the graph's index first (optimize_pose_graph
+    builds it once for all its iterations)."""
+    if not s.is_cuda:
+        return pose_graph_linearize_plain(g, s, R, t)
+    ws = _workspace(g, s, R, t)
+    _linearize(ws, g, s, R, t)
+    return ws.Hd, ws.b, ws.cost
 
 
 def pose_graph_update(g: PoseGraph, s, R, t, x):
@@ -342,17 +447,11 @@ def pose_graph_update(g: PoseGraph, s, R, t, x):
     x = x.to(torch.float32).contiguous()
     if tuple(x.shape) != (7 * K,) or x.device != dev:
         raise ValueError(f"pose_graph_update: x must have shape ({7 * K},) on {dev}")
-    s2, R2, t2 = torch.empty_like(s), torch.empty_like(R), torch.empty_like(t)
-    lib = kbuild.load()
-    kbuild.check(lib.svt_pose_graph_update(
-        K, s.data_ptr(), R.data_ptr(), t.data_ptr(), g.fixed.data_ptr(), g.valid.data_ptr(),
-        x.data_ptr(), s2.data_ptr(), R2.data_ptr(), t2.data_ptr(), kbuild.stream_ptr(dev)),
-        "pose_graph_update")
-    pose_graph_linearize.launches += 1
-    return s2, R2, t2
+    return _update(g, s, R, t, x, (torch.empty_like(s), torch.empty_like(R),
+                                  torch.empty_like(t)))
 
 
-# one count for kernel P, whichever of its two entry points launched
+# one count for kernel P, whichever of its entry points launched
 pose_graph_linearize.launches = 0
 
 
@@ -379,8 +478,13 @@ def optimize_pose_graph(s_cw, R_cw, t_cw, fixed, valid, edge_i, edge_j, edge_s, 
                                          edge_s, edge_R, edge_t, edge_valid,
                                          num_iter=num_iter)
     g = PoseGraph(fixed, valid, edge_i, edge_j, edge_s, edge_R, edge_t, edge_valid)
+    # validation, buffers and the graph's index once; then no host work but
+    # the launches: linearize, kernel G's solve, the update into the other
+    # of two state buffers
+    ws = _workspace(g, s_cw, R_cw, t_cw)
+    bufs = [tuple(torch.empty_like(x) for x in (s_cw, R_cw, t_cw)) for _ in range(2)]
     s, R, t = s_cw, R_cw, t_cw
-    for _ in range(num_iter):
-        Hd, b, _ = pose_graph_linearize(g, s, R, t)
-        s, R, t = pose_graph_update(g, s, R, t, linalg.spd_solve(Hd, b))
+    for it in range(num_iter):
+        _linearize(ws, g, s, R, t)
+        s, R, t = _update(g, s, R, t, linalg.spd_solve(ws.Hd, ws.b), bufs[it % 2])
     return PoseGraphResult(s, R, t)

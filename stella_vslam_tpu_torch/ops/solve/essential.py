@@ -58,10 +58,10 @@ def _angular_cost(E_21, b1, b2):
     return inlier, torch.where(inlier, 1.0 - worst, torch.full_like(worst, 1.0 - COS_ANGLE_THR))
 
 
-# kernel E's MODEL 2: 8-point sets; the 5-point candidates' selection
+# kernel E's MODEL 2: 8-point sets (the 5-point candidates' selection gates
+# at more than 5 inliers)
 MODEL = ransac.TwoViewModel(kind=2, set_size=8, compute=compute_E_21,
                             cost=lambda E, b1, b2, sigma: _angular_cost(E, b1, b2))
-MODEL_5PT = MODEL._replace(set_size=5)
 
 
 def find_via_ransac(seed: int, b1, b2, match_valid, *, num_hypotheses: int = 256,
@@ -77,10 +77,9 @@ def find_via_ransac_escalated(seeds: Sequence[int], b1, b2, match_valid, *,
                               lo_rounds: int = 3) -> EssentialResult:
     """Low-inlier fallback: one chunk of `num_hypotheses` sets per seed,
     each with `lo_rounds` LO refits; the valid result with the most inliers
-    (ransac.escalate)."""
-    return EssentialResult(*ransac.escalate(
-        lambda s: ransac.find_core(MODEL, s, b1, b2, match_valid, num_hypotheses, 1.0,
-                                   lo_rounds), seeds))
+    (ransac.find_escalated)."""
+    return EssentialResult(*ransac.find_escalated(MODEL, seeds, b1, b2, match_valid,
+                                                  num_hypotheses, 1.0, lo_rounds))
 
 
 def find_via_ransac_5pt(seed: int, b1, b2, match_valid, *, num_hypotheses: int = 512,
@@ -93,14 +92,8 @@ def find_via_ransac_5pt(seed: int, b1, b2, match_valid, *, num_hypotheses: int =
     Ef = E.reshape(-1, 3, 3)
     cost, count = ransac.score_models(MODEL, Ef, ok.reshape(-1), b1, b2, match_valid,
                                       1.0 - COS_ANGLE_THR)
-    M, inl, total, valid = ransac.select_best_model(MODEL_5PT, Ef, cost, count, b1, b2,
-                                                    match_valid)
-    for _ in range(lo_rounds):
-        M_re, in_re = ransac.refit_model(MODEL, b1, b2, match_valid, inl)
-        better = in_re.sum() >= inl.sum()
-        M = torch.where(better, M_re, M)
-        inl = torch.where(better, in_re, inl)
-    return EssentialResult(M, inl, total, inl.sum(), valid)
+    return EssentialResult(*ransac.finish_core(MODEL, Ef, cost, count, b1, b2, match_valid,
+                                               lo_rounds=lo_rounds, min_inliers=5))
 
 
 def create_E_21(R_1w: torch.Tensor, t_1w: torch.Tensor, R_2w: torch.Tensor,

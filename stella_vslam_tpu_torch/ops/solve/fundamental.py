@@ -87,7 +87,6 @@ def find_via_ransac_escalated(seeds: Sequence[int], pts1, pts2, match_valid, *,
                               num_hypotheses: int = 4096, sigma: float = 1.0,
                               lo_rounds: int = 3) -> FundamentalResult:
     """Low-inlier fallback: one chunk per seed with LO refits (see
-    ransac.escalate)."""
-    return FundamentalResult(*ransac.escalate(
-        lambda s: ransac.find_core(MODEL, s, pts1, pts2, match_valid,
-                                   num_hypotheses, sigma, lo_rounds), seeds))
+    ransac.find_escalated)."""
+    return FundamentalResult(*ransac.find_escalated(
+        MODEL, seeds, pts1, pts2, match_valid, num_hypotheses, sigma, lo_rounds))

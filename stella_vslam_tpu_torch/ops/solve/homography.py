@@ -127,9 +127,8 @@ def find_via_ransac_escalated(seeds: Sequence[int], pts1, pts2, match_valid, *,
                               lo_rounds: int = 3) -> HomographyResult:
     """Low-inlier fallback: one chunk of `num_hypotheses` per seed (8 in the
     JAX version) with LO refits, the chunk with the most inliers kept."""
-    return HomographyResult(*ransac.escalate(
-        lambda s: ransac.find_core(MODEL, s, pts1, pts2, match_valid,
-                                   num_hypotheses, sigma, lo_rounds), seeds))
+    return HomographyResult(*ransac.find_escalated(
+        MODEL, seeds, pts1, pts2, match_valid, num_hypotheses, sigma, lo_rounds))
 
 
 def decompose(H_21: np.ndarray):

@@ -16,15 +16,20 @@ them from jax.random keys, `_seed_from_key` :21). The hash is reproduced bit
 for bit: uint32 wraparound in int64 with `& 0xFFFFFFFF`, argmax ties to the
 lowest index, invalid positions at -1.0.
 
-Kernel E (csrc/ransac_two_view.cu) runs the batch on CUDA tensors in three
-launches: `minimal_hypotheses` (one block per hypothesis: sample, fit, score,
-reduce), `select_best_model` (argmin and the winner's inlier mask) and
-`refit_model` (the nonminimal LO refit over a masked set); `score_models`
-scores given essential matrices (the 5-point solver's candidates). On CPU
-tensors the same functions run their plain versions below.
+Kernel E (csrc/ransac_two_view.cu) runs a batch on CUDA tensors in two
+launches: `minimal_hypotheses` (a block a hypothesis: sample, one warp to
+fit, score, reduce; one launch for all the chunks of an escalated sweep)
+and `finish_core` (a block a chunk: the argmin, the winner's inlier
+mask and the LO refits over masked sets, and an escalated sweep's carry
+over the chunks); `score_models` scores given essential matrices (the
+5-point solver's candidates), whose selection and LO rounds are
+finish_core's. On CPU tensors the same functions run their plain versions
+below.
 """
 from __future__ import annotations
 
+import ctypes
+import threading
 from typing import Callable, NamedTuple, Sequence
 
 import torch
@@ -35,6 +40,8 @@ _M32 = 0xFFFFFFFF
 _BIG = 3.0e38
 # hypotheses per chunk of the plain sampler: bounds its [b, k, N] int64 hash
 _PLAIN_CHUNK = 256
+# chunk seeds of one minimal launch (the escalated sweep takes 8)
+MAX_CHUNKS = 16
 
 
 class TwoViewModel(NamedTuple):
@@ -143,77 +150,117 @@ def check_points(dim: int, pts1, pts2, match_valid):
     return dev, N
 
 
-def minimal_hypotheses(model: TwoViewModel, seed: int, pts1, pts2, match_valid,
+def minimal_hypotheses(model: TwoViewModel, seed, pts1, pts2, match_valid,
                        num_hypotheses: int, sigma: float = 1.0):
     """B models from hashed minimal sets, each scored on all N matches:
-    (models [B,3,3] f32, total cost [B] f32, inlier count [B] i32)."""
+    (models [B,3,3] f32, total cost [B] f32, inlier count [B] i32). A
+    sequence of C seeds draws C chunks of B in one launch: [C,B,...]."""
+    chunked = hasattr(seed, "__len__")
+    seeds = [int(x) for x in seed] if chunked else [int(seed)]
     if not pts1.is_cuda:
-        return minimal_hypotheses_plain(model, seed, pts1, pts2, match_valid,
-                                        num_hypotheses, sigma)
+        outs = [minimal_hypotheses_plain(model, x, pts1, pts2, match_valid, num_hypotheses,
+                                         sigma) for x in seeds]
+        return tuple(torch.stack(o) for o in zip(*outs)) if chunked else outs[0]
     dev, N = check_points(model.dim, pts1, pts2, match_valid)
-    B = int(num_hypotheses)
+    B, C = int(num_hypotheses), len(seeds)
     if B * model.set_size * N >= 1 << 32:
         raise ValueError("ransac_two_view: B*k*N must stay below 2^32")
-    models = torch.empty((B, 3, 3), dtype=torch.float32, device=dev)
-    cost = torch.empty(B, dtype=torch.float32, device=dev)
-    count = torch.empty(B, dtype=torch.int32, device=dev)
+    if not 1 <= C <= MAX_CHUNKS:
+        raise ValueError(f"ransac_two_view: 1 to {MAX_CHUNKS} chunk seeds")
+    models = torch.empty((C, B, 3, 3), dtype=torch.float32, device=dev)
+    cost = torch.empty((C, B), dtype=torch.float32, device=dev)
+    count = torch.empty((C, B), dtype=torch.int32, device=dev)
+    seed_arr = (ctypes.c_uint32 * C)(*[x & _M32 for x in seeds])
     lib = kbuild.load()
     kbuild.check(lib.svt_ransac_minimal(
         model.kind, N, pts1.data_ptr(), pts2.data_ptr(), match_valid.data_ptr(),
-        int(seed) & _M32, B, _chi_thr(sigma), models.data_ptr(), cost.data_ptr(),
+        ctypes.addressof(seed_arr), C, B, _chi_thr(sigma), models.data_ptr(), cost.data_ptr(),
         count.data_ptr(), kbuild.stream_ptr(dev)), "ransac_minimal")
     minimal_hypotheses.launches += 1
-    return models, cost, count
+    return (models, cost, count) if chunked else (models[0], cost[0], count[0])
 
 
-def select_best_model(model: TwoViewModel, models, cost, count, pts1, pts2,
-                      match_valid, sigma: float = 1.0):
-    """The winner of a scored batch: (model [3,3], inlier mask [N] bool,
-    its total cost or 3e38, valid)."""
+def _chunk_plain(model: TwoViewModel, models, cost, count, pts1, pts2, match_valid,
+                 sigma: float, lo_rounds: int, min_inliers: int) -> TwoViewResult:
+    """One chunk's selection, winner's mask and LO rounds (a refit is kept
+    when its consensus does not shrink)."""
+    best, ok = select_best(cost, count, min_inliers)
+    M = models[best]
+    inl = model.cost(M, pts1, pts2, sigma)[0] & match_valid
+    for _ in range(lo_rounds):
+        M_re = model.compute(pts1, pts2, valid=inl)
+        in_re = model.cost(M_re, pts1, pts2, sigma)[0] & match_valid
+        better = in_re.sum() >= inl.sum()
+        M = torch.where(better, M_re, M)
+        inl = torch.where(better, in_re, inl)
+    total = torch.where(ok, cost[best], torch.full_like(cost[best], _BIG))
+    return TwoViewResult(M, inl, total, inl.sum(), ok)
+
+
+def finish_core_plain(model: TwoViewModel, models, cost, count, pts1, pts2, match_valid,
+                      sigma: float = 1.0, lo_rounds: int = 0,
+                      min_inliers: int | None = None) -> TwoViewResult:
+    """Plain version of finish_core: each chunk through _chunk_plain, then
+    (chunked input) escalate's carry over them."""
+    min_in = model.set_size if min_inliers is None else min_inliers
+    run = lambda m, c, n: _chunk_plain(model, m, c, n, pts1, pts2, match_valid, sigma,
+                                       lo_rounds, min_in)
+    if models.dim() == 3:
+        return run(models, cost, count)
+    return _carry([run(m, c, n) for m, c, n in zip(models, cost, count)])
+
+
+# the finish launch's ticket, one int32 per (device, stream): the last block
+# of an escalated sweep leaves it zero for the next launch on its stream
+_tickets = {}
+_tickets_lock = threading.Lock()
+
+
+def _stream_ticket(dev, stream: int):
+    key = (dev.index, stream)
+    with _tickets_lock:
+        if key not in _tickets:
+            _tickets[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+        return _tickets[key]
+
+
+def finish_core(model: TwoViewModel, models, cost, count, pts1, pts2, match_valid,
+                sigma: float = 1.0, lo_rounds: int = 0,
+                min_inliers: int | None = None) -> TwoViewResult:
+    """The rest of a RANSAC batch in one launch of kernel E: the lowest cost
+    among hypotheses with more than `min_inliers` inliers (the model's set
+    size by default), its inlier mask and `lo_rounds` LO refits. Chunked
+    hypotheses ([C,B,...], minimal_hypotheses of C seeds) are escalated:
+    the valid chunk with the most inliers, the first of equals. Stays on the
+    device: no host reads."""
     if not pts1.is_cuda:
-        best, ok = select_best(cost, count, model.set_size)
-        M = models[best]
-        inlier, _ = model.cost(M, pts1, pts2, sigma)
-        return (M, inlier & match_valid,
-                torch.where(ok, cost[best], torch.full_like(cost[best], _BIG)), ok)
+        return finish_core_plain(model, models, cost, count, pts1, pts2, match_valid, sigma,
+                                 lo_rounds, min_inliers)
     dev, N = check_points(model.dim, pts1, pts2, match_valid)
-    B = models.shape[0]
-    _check(models, (B, 3, 3), torch.float32, dev, "models")
-    _check(cost, (B,), torch.float32, dev, "cost")
-    _check(count, (B,), torch.int32, dev, "count")
-    M = torch.empty((3, 3), dtype=torch.float32, device=dev)
+    escalated = models.dim() == 4
+    C, B = (models.shape[0], models.shape[1]) if escalated else (1, models.shape[0])
+    lead = (C, B) if escalated else (B,)
+    _check(models, lead + (3, 3), torch.float32, dev, "models")
+    _check(cost, lead, torch.float32, dev, "cost")
+    _check(count, lead, torch.int32, dev, "count")
+    out_f = torch.empty(10, dtype=torch.float32, device=dev)  # model, cost
+    n = torch.empty((), dtype=torch.int64, device=dev)
     mask = torch.empty(N, dtype=torch.bool, device=dev)
-    best_cost = torch.empty((), dtype=torch.float32, device=dev)
     ok = torch.empty((), dtype=torch.bool, device=dev)
+    masks = torch.empty((C, 2, N), dtype=torch.uint8, device=dev)
+    chunk = torch.empty((C, 13), dtype=torch.float32, device=dev) if escalated else out_f
+    stream = kbuild.stream_ptr(dev)
+    ticket = _stream_ticket(dev, stream).data_ptr() if escalated else 0
+    min_in = model.set_size if min_inliers is None else min_inliers
     lib = kbuild.load()
-    kbuild.check(lib.svt_ransac_select(
-        model.kind, N, pts1.data_ptr(), pts2.data_ptr(), match_valid.data_ptr(),
-        B, models.data_ptr(), cost.data_ptr(), count.data_ptr(), model.set_size,
-        _chi_thr(sigma), M.data_ptr(), mask.data_ptr(), best_cost.data_ptr(),
-        ok.data_ptr(), kbuild.stream_ptr(dev)), "ransac_select")
+    kbuild.check(lib.svt_ransac_finish(
+        model.kind, N, pts1.data_ptr(), pts2.data_ptr(), match_valid.data_ptr(), C, B,
+        models.data_ptr(), cost.data_ptr(), count.data_ptr(), int(min_in), _chi_thr(sigma),
+        int(lo_rounds), int(escalated), masks.data_ptr(), chunk.data_ptr(), ticket,
+        out_f.data_ptr(), mask.data_ptr(), out_f[9:].data_ptr(), n.data_ptr(), ok.data_ptr(),
+        stream), "ransac_finish")
     minimal_hypotheses.launches += 1
-    return M, mask, best_cost, ok
-
-
-def refit_model(model: TwoViewModel, pts1, pts2, match_valid, inlier,
-                sigma: float = 1.0):
-    """Nonminimal DLT over the rows of `inlier`, rescored on all N:
-    (model [3,3], inlier mask [N] bool)."""
-    if not pts1.is_cuda:
-        M = model.compute(pts1, pts2, valid=inlier)
-        in_re, _ = model.cost(M, pts1, pts2, sigma)
-        return M, in_re & match_valid
-    dev, N = check_points(model.dim, pts1, pts2, match_valid)
-    _check(inlier, (N,), torch.bool, dev, "inlier")
-    M = torch.empty((3, 3), dtype=torch.float32, device=dev)
-    mask = torch.empty(N, dtype=torch.bool, device=dev)
-    lib = kbuild.load()
-    kbuild.check(lib.svt_ransac_refit(
-        model.kind, N, pts1.data_ptr(), pts2.data_ptr(), match_valid.data_ptr(),
-        inlier.data_ptr(), _chi_thr(sigma), M.data_ptr(), mask.data_ptr(),
-        kbuild.stream_ptr(dev)), "ransac_refit")
-    minimal_hypotheses.launches += 1
-    return M, mask
+    return TwoViewResult(out_f[:9].view(3, 3), mask, out_f[9], n, ok)
 
 
 def score_models_plain(model: TwoViewModel, models, model_ok, pts1, pts2, match_valid,
@@ -265,51 +312,45 @@ minimal_hypotheses.launches = 0
 def find_core(model: TwoViewModel, seed: int, pts1, pts2, match_valid,
               num_hypotheses: int, sigma: float, lo_rounds: int) -> TwoViewResult:
     """One RANSAC batch plus `lo_rounds` LO refits (a refit is kept when its
-    consensus does not shrink). Stays on the device: no host reads."""
-    models, cost, count = minimal_hypotheses(model, seed, pts1, pts2, match_valid,
-                                             num_hypotheses, sigma)
-    M, inl, total, ok = select_best_model(model, models, cost, count, pts1, pts2,
-                                          match_valid, sigma)
-    for _ in range(lo_rounds):
-        M_re, in_re = refit_model(model, pts1, pts2, match_valid, inl, sigma)
-        better = in_re.sum() >= inl.sum()
-        M = torch.where(better, M_re, M)
-        inl = torch.where(better, in_re, inl)
-    return TwoViewResult(M, inl, total, inl.sum(), ok)
+    consensus does not shrink): two launches of kernel E, no host reads."""
+    return finish_core(model, *minimal_hypotheses(model, seed, pts1, pts2, match_valid,
+                                                  num_hypotheses, sigma),
+                       pts1, pts2, match_valid, sigma, lo_rounds)
+
+
+def find_escalated(model: TwoViewModel, seeds: Sequence[int], pts1, pts2, match_valid,
+                   num_hypotheses: int, sigma: float, lo_rounds: int) -> TwoViewResult:
+    """find_core per chunk seed, the valid result with the most inliers (the
+    first of equals) kept, as escalate_scan's lax.scan does from an
+    all-zero carry: two launches of kernel E for every chunk."""
+    return finish_core(model, *minimal_hypotheses(model, list(seeds), pts1, pts2, match_valid,
+                                                  num_hypotheses, sigma),
+                       pts1, pts2, match_valid, sigma, lo_rounds)
 
 
 def find_core_plain(model: TwoViewModel, seed: int, pts1, pts2, match_valid,
                     num_hypotheses: int, sigma: float, lo_rounds: int) -> TwoViewResult:
     """find_core through the plain versions on any device (the reference
     kernel E is held against on the card)."""
-    models, cost, count = minimal_hypotheses_plain(model, seed, pts1, pts2, match_valid,
-                                                   num_hypotheses, sigma)
-    best, ok = select_best(cost, count, model.set_size)
-    M = models[best]
-    inl = model.cost(M, pts1, pts2, sigma)[0] & match_valid
-    for _ in range(lo_rounds):
-        M_re = model.compute(pts1, pts2, valid=inl)
-        in_re = model.cost(M_re, pts1, pts2, sigma)[0] & match_valid
-        better = in_re.sum() >= inl.sum()
-        M = torch.where(better, M_re, M)
-        inl = torch.where(better, in_re, inl)
-    total = torch.where(ok, cost[best], torch.full_like(cost[best], _BIG))
-    return TwoViewResult(M, inl, total, inl.sum(), ok)
+    return finish_core_plain(model, *minimal_hypotheses_plain(
+        model, seed, pts1, pts2, match_valid, num_hypotheses, sigma), pts1, pts2, match_valid,
+        sigma, lo_rounds)
+
+
+def _carry(results: Sequence[TwoViewResult]) -> TwoViewResult:
+    """escalate_scan's carry over chunk results in order, from all zeros:
+    a valid result with strictly more inliers is taken."""
+    carry = None
+    for res in results:
+        if carry is None:
+            carry = TwoViewResult(*(torch.zeros_like(x) for x in res))
+        take = res.valid & (~carry.valid | (res.num_inliers > carry.num_inliers))
+        carry = TwoViewResult(*(torch.where(take, a, b) for a, b in zip(res, carry)))
+    return carry
 
 
 def escalate(core: Callable[[int], TwoViewResult], seeds: Sequence[int]) -> TwoViewResult:
     """Run `core(seed)` per chunk seed and keep the valid result with the
     most inliers (the first of equals), as escalate_scan's lax.scan does
-    from an all-zero carry."""
-    carry = None
-    for s in seeds:
-        res = core(s)
-        if carry is None:
-            carry = TwoViewResult(torch.zeros_like(res.model),
-                                  torch.zeros_like(res.is_inlier),
-                                  torch.zeros_like(res.cost),
-                                  torch.zeros_like(res.num_inliers),
-                                  torch.zeros_like(res.valid))
-        take = res.valid & (~carry.valid | (res.num_inliers > carry.num_inliers))
-        carry = TwoViewResult(*(torch.where(take, a, b) for a, b in zip(res, carry)))
-    return carry
+    from an all-zero carry (the plain reference of find_escalated)."""
+    return _carry([core(s) for s in seeds])

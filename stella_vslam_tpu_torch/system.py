@@ -391,8 +391,7 @@ class System:
             scale_factors=self._scale_factors,
             focal_x_baseline=cam.params.focal_x_baseline, true_baseline=cam.true_baseline,
             layout=self.extractor.slot_layout)
-        und = cam.undistort(fl.xy)
-        bear = cam.bearings(und)
+        und, bear = cam.undistort_and_bearings(fl.xy)
         frm = Frame(timestamp, cam, self.orb_params, fl, und, bear, x_right=x_right,
                     depths=depths)
         frm.attach_packed_host(pack_host_cols(
@@ -464,8 +463,8 @@ class System:
             pair = streams.upload(np.stack([gray, (mask != 0).astype(np.uint8)]), self.device)
             image, dev_mask = pair[0], pair[1]
         feats = self.extractor.extract(image, dev_mask)
-        und = self.camera.undistort(feats.xy)
-        return feats, und, self.camera.bearings(und)
+        und, bear = self.camera.undistort_and_bearings(feats.xy)
+        return feats, und, bear
 
     @staticmethod
     def _to_gray(img) -> np.ndarray:

@@ -8,6 +8,7 @@ parity is tests/test_torch_equirect_camera.py); fisheye and radial
 division build as the JAX version's (their functions' parity is
 tests/test_torch_distorted_camera.py).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,7 +31,9 @@ def test_perspective_functions_match_jax():
     pts = np.stack([rng.uniform(0, 752, 500), rng.uniform(0, 480, 500)], -1).astype(np.float32)
     jp, tp = jcam.make_params(**PARAMS), tcam.make_params(**PARAMS)
     M = jcam.CameraModel.PERSPECTIVE
-    und_j = np.asarray(jcam.undistort_keypoints(M, jp, jnp.asarray(pts)))
+    # the JAX System's preprocessing runs the undistortion jitted (XLA's
+    # reciprocal products and FMAs), which the port follows
+    und_j = np.asarray(jax.jit(lambda a: jcam.undistort_keypoints(M, jp, a))(jnp.asarray(pts)))
     und_t = tcam.undistort_keypoints(M, tp, torch.from_numpy(pts)).numpy()
     np.testing.assert_allclose(und_t, und_j, atol=1e-4)
     b_j = np.asarray(jcam.bearings_from_undistorted(M, jp, jnp.asarray(und_j)))

@@ -178,8 +178,9 @@ def _two_view_dev(dev, n, planar, seed):
 @pytest.mark.parametrize("seed", [1, 2, 3, 4])
 @pytest.mark.parametrize("which", ["H", "F"])
 def test_ransac_kernel_matches_plain(dev, which, seed):
-    """Kernel E's three entry points against their plain versions: the same
-    hashed sets, models within f32 tolerance, the same best inlier count."""
+    """Kernel E's two launches against their plain versions: the same hashed
+    sets, models within f32 tolerance, the same best inlier count; a batch
+    with its LO round is two launches."""
     from stella_vslam_tpu_torch.ops.solve import fundamental as Fm
     from stella_vslam_tpu_torch.ops.solve import homography as Hm
     from stella_vslam_tpu_torch.ops.solve import ransac as R
@@ -198,11 +199,51 @@ def test_ransac_kernel_matches_plain(dev, which, seed):
     # divergence in the null vector, not in the rank-2 step.
     share = float((nk == np_).float().mean())
     assert share >= (0.95 if which == "H" else 0.85), share
+    before = R.minimal_hypotheses.launches
     rk = R.find_core(mod.MODEL, 98 + seed, p1, p2, v, 300, 1.0, 1)
+    assert R.minimal_hypotheses.launches == before + 2
     rp = R.find_core_plain(mod.MODEL, 98 + seed, p1, p2, v, 300, 1.0, 1)
     assert bool(rk.valid) and bool(rp.valid)
     assert int(rk.num_inliers) == int(rp.num_inliers)
     assert float((rk.is_inlier == rp.is_inlier).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("lo", [0, 3])
+@pytest.mark.parametrize("which", ["H", "F", "E"])
+def test_ransac_finish_kernel_equals_plain_on_the_same_hypotheses(dev, which, lo):
+    """Kernel E's finish launch against finish_core_plain on the kernel's own
+    hypotheses, one chunk and an escalated sweep of 8: the same winner (its
+    cost bit for bit), inlier count and mask; the sweep's chunks in one
+    minimal launch equal one launch a seed bit for bit, and the sweep is two
+    launches."""
+    from stella_vslam_tpu_torch.ops.solve import essential as Em
+    from stella_vslam_tpu_torch.ops.solve import fundamental as Fm
+    from stella_vslam_tpu_torch.ops.solve import homography as Hm
+    from stella_vslam_tpu_torch.ops.solve import ransac as R
+
+    mod = {"H": Hm, "F": Fm, "E": Em}[which]
+    data = _bearing_matches(dev, 733, 3) if which == "E" else \
+        _two_view_dev(dev, 517, which == "H", 5)
+    seeds = [700 + i for i in range(8)]
+    before = R.minimal_hypotheses.launches
+    hyp = R.minimal_hypotheses(mod.MODEL, seeds, *data, 256)
+    assert R.minimal_hypotheses.launches == before + 1
+    for c, sd in enumerate(seeds):
+        one = R.minimal_hypotheses(mod.MODEL, sd, *data, 256)
+        assert all(torch.equal(a[c], b) for a, b in zip(hyp, one))
+    for h in ([x[0] for x in hyp], hyp):
+        before = R.minimal_hypotheses.launches
+        rk = R.finish_core(mod.MODEL, *h, *data, 1.0, lo)
+        assert R.minimal_hypotheses.launches == before + 1
+        rp = R.finish_core_plain(mod.MODEL, *h, *data, 1.0, lo)
+        torch.cuda.synchronize()
+        assert bool(rk.valid) == bool(rp.valid) and bool(rk.valid)
+        assert torch.equal(rk.cost, rp.cost)
+        assert int(rk.num_inliers) == int(rp.num_inliers)
+        assert float((rk.is_inlier == rp.is_inlier).float().mean()) >= 0.99
+    before = R.minimal_hypotheses.launches
+    mod.find_via_ransac_escalated(seeds, *data)
+    assert R.minimal_hypotheses.launches == before + 2
 
 
 def _ba_problem(dev, K, L, D, stereo, keep=False, spacing=0.4, ordered=False):
@@ -787,11 +828,11 @@ def test_undistort_norm_kernel_matches_plain(dev):
 
 @pytest.mark.parametrize("distorted", [False, True])
 def test_undistort_norm_kernel_equals_plain_bit_for_bit(dev, distorted):
-    """Kernel R's undistortion rounds every operation as the torch
-    expressions do on the card (a scalar divisor through its float32
-    reciprocal, no FMA): with a true division and an FMA in `x * fx + cx`
-    the bench camera's keypoints moved by an ulp and the mono slice
-    initialized a frame earlier (ROADMAP Queue 3)."""
+    """Kernel R's undistortion rounds every operation as its plain version
+    does on the card (the JAX version's jitted form: a scalar divisor
+    through its float32 reciprocal, XLA's FMAs), the bearings of the same
+    launch too: an ulp in the initializer's input moves which near-degenerate
+    hypothesis wins (ROADMAP Queue 3)."""
     from stella_vslam_tpu_torch.camera import base as cb
 
     k = dict(k1=-0.28340811, k2=0.07395907, p1=0.00019359, p2=1.76187114e-05) \
@@ -800,6 +841,9 @@ def test_undistort_norm_kernel_equals_plain_bit_for_bit(dev, distorted):
     g = torch.Generator().manual_seed(1)
     pts = (torch.rand(2872, 2, generator=g) * torch.tensor([752.0, 480.0])).to(dev)
     assert torch.equal(cb.undistort_norm(p, pts), cb.perspective_undistort(p, pts))
+    for k_out, p_out in zip(cb.undistort_norm(p, pts, bearings=True),
+                            cb.perspective_undistort(p, pts, bearings=True)):
+        assert torch.equal(k_out, p_out)
 
 
 @pytest.mark.parametrize("K,L,D", [(2, 4096, 2), (16, 4096, 12), (32, 1024, 16), (64, 1024, 16)])
@@ -1226,6 +1270,9 @@ def test_undistort_modes_equal_plain_bit_for_bit(dev, model, n):
     out = cb.undistort_keypoints(cb.CameraModel[model.upper()], p, pts)
     assert kern.launches == before + 1
     assert torch.equal(out, plain(p, pts))
+    und, bear = cb.undistort_and_bearings(cb.CameraModel[model.upper()], p, pts)
+    assert kern.launches == before + 2
+    assert torch.equal(und, out) and torch.equal(bear, plain(p, pts, bearings=True)[1])
 
 
 @pytest.mark.parametrize("size,levels", [((400, 300), 4), ((752, 480), 8)])

@@ -150,3 +150,65 @@ def test_escalated_sweep_matches_jax(which):
                                         num_chunks=4)
     rt = tmod.find_via_ransac_escalated(seeds, tp1, tp2, tv, num_hypotheses=256)
     _check_result(rj, rt)
+
+
+def plane_world_matches(n=400, frames=(0, 15), outlier_frac=0.3, noise=0.5, seed=3):
+    """Matches between two frames of tests/synthetic_world.py's PlaneWorld
+    camera (400x300, fx 320) on its lateral trajectory: points of the
+    world's plane (z = depth) seen from both poses, pixel noise, a share of
+    random outliers and 10% of the slots invalid."""
+    from tests.synthetic_world import PlaneWorld, lateral_trajectory
+
+    world = PlaneWorld()
+    poses = lateral_trajectory(frames[1] + 1)
+    rng = np.random.default_rng(seed)
+    Pw = np.stack([rng.uniform(-1.8, 1.8, n), rng.uniform(-1.3, 1.3, n),
+                   np.full(n, world.depth)], -1)
+
+    def project(T):
+        pc = Pw @ T[:3, :3].T + T[:3, 3]
+        return np.stack([world.fx * pc[:, 0] / pc[:, 2] + world.cx,
+                         world.fy * pc[:, 1] / pc[:, 2] + world.cy], -1)
+    uv1 = project(poses[frames[0]]) + rng.normal(0, noise, (n, 2))
+    uv2 = project(poses[frames[1]]) + rng.normal(0, noise, (n, 2))
+    out = rng.random(n) < outlier_frac
+    uv2[out] = np.stack([rng.uniform(0, world.W, out.sum()),
+                         rng.uniform(0, world.H, out.sum())], -1)
+    return uv1.astype(np.float32), uv2.astype(np.float32), rng.random(n) < 0.9
+
+
+@pytest.mark.parametrize("which", ["H", "F"])
+def test_finish_plain_matches_jax_core_and_scan(which):
+    """Kernel E's finish step, plain (select, the winner's mask, the LO keep
+    rule, an escalated sweep's carry), fed the hypotheses JAX's _find_core
+    scores, against _find_core and escalate_scan on the same keys: the
+    winner JAX's select_best takes on those costs, equal inlier counts,
+    masks equal on >= 99% of the matches, and the same chunk carried (its
+    cost within _check_result's bound)."""
+    p1, p2, v = plane_world_matches()
+    (jp1, jp2, jv), (tp1, tp2, tv) = _both(p1, p2, v)
+    jmod, tmod = (jH, tH) if which == "H" else (jF, tF)
+    compute, cost_fn, k = ((jH.compute_H_21, jH._symmetric_transfer_cost, 4) if which == "H"
+                           else (jF.compute_F_21, jF._epipolar_cost, 8))
+    B = 128
+    keys = jax.random.split(jax.random.PRNGKey(11), 3)
+    hyps = []
+    for key in keys:
+        idx = jR.sample_minimal_sets(key, jv, B, k)
+        M = compute(jR.gather_sets(jp1, idx), jR.gather_sets(jp2, idx))
+        inl, c = cost_fn(M, jp1[None], jp2[None], 1.0)
+        hyps.append((torch.from_numpy(np.array(M)),
+                     torch.from_numpy(np.array(jnp.where(jv[None], c, 0.0).sum(-1))),
+                     torch.from_numpy(np.array((inl & jv[None]).sum(-1), dtype=np.int32))))
+    for lo in (0, 2):
+        for key, h in zip(keys, hyps):
+            rj = jmod._find_core(key, jp1, jp2, jv, B, 1.0, lo)
+            rt = tR.finish_core_plain(tmod.MODEL, *h, tp1, tp2, tv, 1.0, lo)
+            best, _ = jR.select_best(jnp.asarray(h[1].numpy()), jnp.asarray(h[2].numpy()), k)
+            assert float(rt.cost) == float(h[1][int(best)])
+            _check_result(rj, rt)
+        rj = jmod.find_via_ransac_escalated(jax.random.PRNGKey(11), jp1, jp2, jv,
+                                            num_hypotheses=B, num_chunks=3, lo_rounds=lo)
+        rt = tR.finish_core_plain(tmod.MODEL, *(torch.stack(x) for x in zip(*hyps)), tp1, tp2,
+                                  tv, 1.0, lo)
+        _check_result(rj, rt)

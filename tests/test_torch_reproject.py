@@ -17,6 +17,7 @@ undistorted keypoints within 1e-5 relative (pixels, at least 1 px of
 scale); flags and levels equal except where the deciding quantity lies
 within 1e-6 of its threshold (counted; none on these inputs).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -214,7 +215,10 @@ def _assert_rows_equal(k, valid, pred, rad, lo, hi, near):
 def test_undistort_norm_matches_jax():
     rng = np.random.default_rng(5)
     pts = np.stack([rng.uniform(0, 752, 2872), rng.uniform(0, 480, 2872)], -1).astype(np.float32)
-    j = np.asarray(jcam.perspective_undistort(jcam.make_params(**PARAMS), jnp.asarray(pts)))
+    # jitted, as the JAX System's preprocessing runs it (the port follows its
+    # reciprocal products and FMAs)
+    jp = jcam.make_params(**PARAMS)
+    j = np.asarray(jax.jit(lambda a: jcam.perspective_undistort(jp, a))(jnp.asarray(pts)))
     t = tcam.undistort_norm(tcam.make_params(**PARAMS), torch.from_numpy(pts)).numpy()
     assert _rel(t, j) < 1e-5
 

@@ -173,3 +173,71 @@ def test_edge_jacobian_against_finite_differences():
         fd = (tsim3._edge_residual(d, *a) - tsim3._edge_residual(-d, *a)) / (2 * h)
         assert float((fd - J[e, :, c]).abs().max()) < 1e-5
     assert float(r[e].abs().max()) > 1e-2
+
+
+def _random_graph(K=12, E=40, seed=3):
+    """A graph whose edges touch their ends in both orientations, repeat
+    vertex pairs and include invalid edges: (PoseGraph, s, R, t)."""
+    rng = np.random.default_rng(seed)
+    xi = rng.normal(0, 0.2, (K, 7)).astype(np.float32)
+    xi[:, 6] *= 0.1
+    s, R, t = tlie.sim3_exp(torch.from_numpy(xi))
+    ei = rng.integers(0, K, E).astype(np.int32)
+    ej = ((ei + rng.integers(1, K, E)) % K).astype(np.int32)
+    mx = rng.normal(0, 0.05, (E, 7)).astype(np.float32)
+    ms, mR, mt = tlie.sim3_exp(torch.from_numpy(mx))
+    g = tsim3.PoseGraph(torch.from_numpy(np.arange(K) == 0), torch.from_numpy(np.arange(K) < K - 1),
+                        torch.from_numpy(ei), torch.from_numpy(ej), ms, mR, mt,
+                        torch.from_numpy(rng.random(E) < 0.85))
+    return g, s, R, t
+
+
+def _assemble_scan(g, terms):
+    """Kernel P's sums as the all-edge scan takes them: every entry of the
+    system over all valid edges in order, end i before end j on each side."""
+    K = g.fixed.shape[0]
+    H = torch.zeros((7 * K, 7 * K))
+    b = torch.zeros(7 * K)
+    for e in torch.nonzero(g.edge_valid)[:, 0].tolist():
+        ends = (int(g.edge_i[e]), int(g.edge_j[e]))
+        JJ = terms[e, :196].reshape(14, 14)
+        for x in range(2):
+            for y in range(2):
+                u, v = ends[x], ends[y]
+                H[7 * u:7 * u + 7, 7 * v:7 * v + 7] += JJ[7 * x:7 * x + 7, 7 * y:7 * y + 7]
+            u = ends[x]
+            b[7 * u:7 * u + 7] += terms[e, 196 + 7 * x:203 + 7 * x]
+    return H, b
+
+
+@pytest.mark.parametrize("graph", ["circle", "random"])
+def test_pose_graph_index_and_blockwise_assembly(graph):
+    """Kernel P's graph index (each vertex's valid edges in edge order, an
+    edge once) against a brute-force scan, and the blockwise assembly over
+    it: bit for bit the all-edge scan's sums, and on the loop fixture's
+    graph (where each vertex meets its edges as first end before second)
+    bit for bit pose_graph_linearize_plain."""
+    if graph == "circle":
+        g = circle_graph()
+        a = [torch.from_numpy(np.array(g[k])) for k in _GKEYS]
+        pg, state = tsim3.PoseGraph(*a[3:]), a[:3]
+    else:
+        pg, *state = _random_graph()
+    inc, deg = tsim3.pose_graph_index_plain(pg)
+    K, E = pg.fixed.shape[0], pg.edge_i.shape[0]
+    for k in range(K):
+        want = [e for e in range(E) if bool(pg.edge_valid[e])
+                and k in (int(pg.edge_i[e]), int(pg.edge_j[e]))]
+        assert inc[k, :int(deg[k])].tolist() == want
+        assert bool((inc[k, int(deg[k]):] == -1).all())
+    terms = tsim3.pose_graph_terms_plain(pg, *state)
+    H, b, cost = tsim3.pose_graph_assemble_plain(pg, terms, inc, deg)
+    Hs, bs = _assemble_scan(pg, terms)
+    free = (pg.valid & ~pg.fixed).to(torch.float32).repeat_interleave(7)
+    idx = torch.arange(7 * K)
+    Hs = Hs * free[:, None] * free[None, :]
+    Hs[idx, idx] = Hs[idx, idx] + (1.0 - free) + 1e-6
+    assert torch.equal(H, Hs) and torch.equal(b, bs * free)
+    if graph == "circle":
+        Hp, bp, cp = tsim3.pose_graph_linearize_plain(pg, *state)
+        assert torch.equal(H, Hp) and torch.equal(b, bp) and torch.equal(cost, cp)
