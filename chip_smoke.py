@@ -154,6 +154,12 @@ Phases, each fatal on failure (nothing is caught):
      camera at 6 levels); R's rows of 2872 points and 4096 table rows:
      u, v, x_right and radius within 1e-5 relative (of at least 100 px),
      levels and flags equal except within 1e-6 of a threshold (counted);
+     R's frame finish (data/frame.py frame_finish, one launch a frame)
+     bit for bit against its plain version, every output (undistorted
+     keypoints, bearings, x_right, depths, the packed host rows), for each
+     camera model and feed (mono, stereo with kernel T's outputs, RGBD
+     with a depth map with holes) at 2872 slots (1199 equirectangular) and
+     on the world's extracted frame;
  12. the inline loop slice a second time in the same process on a fresh
      System whose global and loop BAs run sharded over 4 landmark shards of
      this card (ba_devices, kernel W; launch counts set to 0 before it and
@@ -2099,6 +2105,15 @@ def check_fuse_chunk(dev, kern, fargs, model_name: str) -> list:
     return rows
 
 
+def tri_bits_apart(a, b) -> dict:
+    """Elements whose bits differ between two TriangulationResults, by
+    field (the positions as float32 bits)."""
+    import torch
+
+    return dict(pos_w=int((a.pos_w.view(torch.int32) != b.pos_w.view(torch.int32)).sum()),
+                idx2=int((a.idx2 != b.idx2).sum()), ok=int((a.ok != b.ok).sum()))
+
+
 def check_mapping_kernels(dev, mapper, inputs):
     """Kernels J, K and L against their plain versions on the map slice's
     own inputs (the triangulation with the most neighbours, the fuse chunk
@@ -2136,16 +2151,18 @@ def check_mapping_kernels(dev, mapper, inputs):
     rel = (torch.linalg.norm(rk.pos_w - rp.pos_w, dim=-1)
            / torch.clamp(torch.linalg.norm(rp.pos_w, dim=-1), min=1e-12))[both]
     rel_max = float(rel.max()) if rel.numel() else 0.0
+    apart_k = tri_bits_apart(rk, rp)
     print(f"kernel K triangulate: {B}x{N1} slots, {int(accepted.sum())} matched, "
           f"{int(rk.ok.sum())} ok (plain {int(rp.ok.sum())}), ok flags differing "
-          f"{share_k:.6f}, max relative position difference where both ok {rel_max:.3g}")
+          f"{share_k:.6f}, max relative position difference where both ok {rel_max:.3g}; "
+          f"elements whose bits differ from plain {json.dumps(apart_k)}")
     assert share_k <= 1e-3 and rel_max < 1e-4, "kernel K disagrees with its plain version"
     # per slot: DLT rows and normalisation ~100, normal equations ~90, the
     # adjugate solve ~60, depth / parallax / reprojection / scale checks ~150
     rows.append(dict(
         name="triangulate", route="cuda", source="stella_vslam_tpu_torch/csrc/triangulate.cu",
         replaces="stella_vslam_tpu/module/mapping_kernels.py:58", max_abs_err=rel_max,
-        ok_flags_differing=share_k,
+        ok_flags_differing=share_k, elements_differing_from_plain=apart_k,
         **_times(lambda: mk.triangulate_checks(*kargs)),
         plain_ms=_median_ms(lambda: mk.triangulate_checks_plain(*kargs), reps=10),
         library_ms=None,
@@ -2345,7 +2362,7 @@ def run_loop_slice(dev, world, wrappers, card):
     assert all(stats["frame_after_loop_tracked"]), "the frame after a correction was lost"
     for name, n in launches.items():
         assert n > 0 or name in THREADED_KERNELS + STEREO_KERNELS + EQUIRECT_KERNELS \
-            + DISTORTED_KERNELS + FBOW_KERNELS + SHARDED_KERNELS, \
+            + FBOW_KERNELS + SHARDED_KERNELS, \
             f"{name} was not launched by the loop slice"
     return stats, launches, slam, inputs, loop_calls
 
@@ -3156,13 +3173,155 @@ def check_track_kernels(dev, world):
     print(f"kernel R undistort_norm: {N} keypoints (EuRoC's radtan), within {err_u:.3g} "
           f"relative; with bearings {apart} rows apart from plain")
     assert err_u < 1e-5 and apart == 0, "kernel R's undistortion disagrees with its plain version"
-    rows.append(dict(
-        name="undistort_norm", route="cuda", source=srcr,
-        replaces="stella_vslam_tpu/camera/base.py:89", max_abs_err=err_u, shape=f"N={N}",
-        **_times(lambda: cb.undistort_norm(pe, kp)),
-        plain_ms=_median_ms(lambda: cb.perspective_undistort(pe, kp)), library_ms=None,
-        # 10 iterations of ~25 operations per keypoint
-        **_bound(N * 8.0 + N * 8.0, 260.0 * N)))
+    # (the undistortion alone is the camera's entry point into the frame
+    # finish's kernel; its row is the frame finish's, check_frame_finish)
+    return rows
+
+
+# kernel R's frame finish: the cameras of the slices and legs (EuRoC's
+# radial-tangential pinhole at 752x480, the fisheye and division legs'
+# cameras, the equirectangular box room at 640x320), with the feeds
+FINISH_CAMERAS = ("perspective", "fisheye", "radial_division", "equirectangular")
+FINISH_FEEDS = ("mono", "stereo", "RGBD")
+# the kernels line's rows of the frame finish beside "frame_finish" (the
+# perspective camera), and the leg whose launches each reads
+FINISH_ROWS = {"fisheye": "frame_finish_fisheye", "radial_division": "frame_finish_radial",
+               "equirectangular": "frame_finish_equirect"}
+
+
+def finish_camera(model: str):
+    """A camera of `model` as the slices and legs run it, with a stereo
+    baseline (x_right of the RGBD feed)."""
+    from stella_vslam_tpu_torch.camera import base as cb
+    from stella_vslam_tpu_torch.util import synthetic
+
+    if model == "equirectangular":
+        p, w, h = cb.make_params(cx=320.0, cy=160.0, width=640, height=320), 640, 320
+    else:
+        k = (dict(fx=458.654, fy=457.296, cx=367.215, cy=248.375, k1=-0.28340811,
+                  k2=0.07395907, p1=0.00019359, p2=1.76187114e-05) if model == "perspective"
+             else dict(fx=458.0, fy=458.0, cx=376.0, cy=240.0,
+                       **(dict(zip(("k1", "k2", "k3", "k4"), synthetic.FISH_D))
+                          if model == "fisheye" else dict(k1=synthetic.RADIAL_K1))))
+        p, w, h = cb.make_params(width=752, height=480, focal_x_baseline=50.38, **k), 752, 480
+    return cb.Camera(model, cb.CameraModel[model.upper()], cb.Setup.MONOCULAR, p,
+                     width=w, height=h)
+
+
+def finish_case(dev, cam, feed: str, n: int, seed: int, feats=None):
+    """Kernel R's frame-finish inputs: n seeded slots over the image (the
+    first at the principal point; 80% valid, levels 0-7, random descriptor
+    bits) or the given features; with `feed` stereo, kernel T's outputs
+    (60% matched, -1 elsewhere), with RGBD a raw depth map of the image's
+    size with 20% holes (zeros) and a factor of 5000. Returns (features,
+    keyword arguments of frame_finish)."""
+    import torch
+
+    from stella_vslam_tpu_torch.feature.orb_extractor import FrameFeatures
+
+    rng = np.random.default_rng(seed)
+    W, H = cam.width, cam.height
+    if feats is None:
+        xy = np.stack([rng.uniform(0, W, n), rng.uniform(0, H, n)], -1).astype(np.float32)
+        xy[0] = [cam.params.cx, cam.params.cy]
+        t = lambda a: torch.as_tensor(a, device=dev)
+        feats = FrameFeatures(
+            xy=t(xy), response=t(rng.uniform(0, 100, n).astype(np.float32)),
+            angle=t(rng.uniform(-np.pi, np.pi, n).astype(np.float32)),
+            level=t(rng.integers(0, 8, n).astype(np.int32)), valid=t(rng.random(n) < 0.8),
+            desc=t(rng.integers(-2**31, 2**31, (n, 8), dtype=np.int32)))
+    n = feats.num_slots
+    if feed == "stereo":
+        d = rng.uniform(0.5, 10.0, n).astype(np.float32)
+        hit = rng.random(n) < 0.6
+        x = feats.xy[:, 0].cpu().numpy()
+        return feats, dict(
+            x_right=torch.as_tensor(np.where(hit, x - 50.38 / d, -1.0).astype(np.float32),
+                                    device=dev),
+            depths=torch.as_tensor(np.where(hit, d, -1.0).astype(np.float32), device=dev))
+    if feed == "RGBD":
+        raw = rng.integers(1, 40000, (H, W)).astype(np.float32)
+        raw[rng.random((H, W)) < 0.2] = 0.0
+        return feats, dict(depth_map=torch.as_tensor(raw, device=dev),
+                           inv_depth_factor=1.0 / 5000.0)
+    return feats, {}
+
+
+def finish_bits_apart(a, b) -> dict:
+    """Elements whose bits differ between two FrameFinish results, by field."""
+    import torch
+
+    bits = lambda t: t.contiguous().view(torch.int32)
+    return {name: int((bits(getattr(a, name)) != bits(getattr(b, name))).sum())
+            for name in a._fields}
+
+
+def check_frame_finish(dev, world):
+    """Kernel R's frame finish (data/frame.py frame_finish, one launch a
+    frame) against its plain version on the card, bit for bit, every
+    output: for each camera model and each feed (mono, stereo, RGBD) on
+    2872 seeded slots (1199 for the equirectangular camera), and on the
+    world's extracted frame with the perspective camera. Rows of the
+    kernels line, one a model (device time of the mono feed; stereo and
+    RGBD beside)."""
+    import torch
+
+    from stella_vslam_tpu_torch.data import frame as fm
+    from stella_vslam_tpu_torch.feature import orb_extractor as ox
+    from stella_vslam_tpu_torch.feature.orb_params import OrbParams
+    from stella_vslam_tpu_torch.util.drift import pose_at_xy
+
+    rows = []
+    ex = ox.OrbExtractor(OrbParams(num_levels=8), world.W, world.H, min_area=800, device=dev)
+    real = ex.extract(torch.from_numpy(world.render(pose_at_xy(0.6, 0.0))).to(dev))
+    # per slot: 53 bytes of features read, 84 of the pack written, the
+    # undistorted pixel (none for the equirectangular model), the bearing
+    # and x_right / depth; the undistortion's operations (10 steps of ~25
+    # for radial-tangential, of ~40 with tanf for Kannala-Brandt, the
+    # division model's ~16, the equirectangular model's sines and cosines)
+    ops = {"perspective": 265.0, "fisheye": 445.0, "radial_division": 31.0,
+           "equirectangular": 90.0}
+    for model in FINISH_CAMERAS:
+        cam = finish_camera(model)
+        n = 1199 if model == "equirectangular" else 2872
+        apart, ms = {}, {}
+        cases = [(feed, None) for feed in FINISH_FEEDS]
+        if model == "perspective":
+            cases += [(feed + " (extracted frame)", real) for feed in ("mono", "RGBD")]
+        for seed, (label, feats_in) in enumerate(cases):
+            feed = label.split()[0]
+            feats, kw = finish_case(dev, cam, feed, n, 40 + seed, feats_in)
+            before = fm.frame_finish.launches
+            k = fm.frame_finish(cam, feats, **kw)
+            assert fm.frame_finish.launches == before + 1, "frame_finish: not one launch"
+            q = fm.frame_finish_plain(cam, feats, **kw)
+            torch.cuda.synchronize()
+            apart[label] = finish_bits_apart(k, q)
+            if feats_in is None:
+                ms[feed] = (_times(lambda: fm.frame_finish(cam, feats, **kw)),
+                            _median_ms(lambda: fm.frame_finish_plain(cam, feats, **kw)))
+        print(f"kernel R frame_finish ({model}, {n} slots): elements whose bits differ "
+              f"from plain by feed and output: {json.dumps(apart)}")
+        assert not any(v for d in apart.values() for v in d.values()), \
+            f"kernel R's frame finish ({model}) is not bit-equal to its plain version"
+        und = 0.0 if model == "equirectangular" else 8.0
+        # the equirectangular row's launches are its leg's (EQUIRECT_ROWS
+        # maps its name), the fisheye and division rows' their legs'
+        # (DISTORTED_ROWS)
+        counter = {} if model == "equirectangular" else dict(counter="frame_finish")
+        rows.append(dict(
+            name=FINISH_ROWS.get(model, "frame_finish"), **counter, route="cuda",
+            source="stella_vslam_tpu_torch/csrc/reproject.cu",
+            replaces="stella_vslam_tpu/camera/base.py:89,134,160,202-232 (undistort, "
+                     "bearings), system.py:178-189,486-505 (the preprocess tail), "
+                     "data/frame.py:27 (pack_host_cols)",
+            max_abs_err=0.0, bit_equal=True, elements_differing_from_plain=apart,
+            shape=f"N={n}, the mono feed (stereo and RGBD beside)", **ms["mono"][0],
+            plain_ms=ms["mono"][1], library_ms=None,
+            **{f"{k}_{feed.lower()}": v for feed in ("stereo", "RGBD")
+               for k, v in dict(ms=ms[feed][0]["ms"], one_call_ms=ms[feed][0]["one_call_ms"],
+                                plain_ms=ms[feed][1]).items()},
+            **_bound(n * (53.0 + 84.0 + und + 12.0 + 8.0), ops[model] * n)))
     return rows
 
 
@@ -4005,8 +4164,8 @@ def run_threaded_slice(dev, world, wrappers, card):
     assert not st["staged_event"] and st["queued"] == 0 and not st["pending_ba"] \
         and st["loop_queue"] == 0, f"work left at shutdown: {st}"
     for name, n in launches.items():
-        assert n > 0 or name in STEREO_KERNELS + EQUIRECT_KERNELS + DISTORTED_KERNELS \
-            + FBOW_KERNELS + SHARDED_KERNELS, f"{name} was not launched by the threaded slice"
+        assert n > 0 or name in STEREO_KERNELS + EQUIRECT_KERNELS + FBOW_KERNELS \
+            + SHARDED_KERNELS, f"{name} was not launched by the threaded slice"
     # kernel S: one launch a frame, the pyramid's every level (A's launches)
     assert launches["resize_pyramid"] == launches["fast_nms_pyramid"], \
         "kernel S: not one launch a frame on the threaded slice"
@@ -4560,7 +4719,7 @@ def record_stereo_inputs(sample: int = 20):
 
 # what the stereo leg and the RGBD leg with mapping launch
 LEG_KERNELS = ("resize_pyramid", "fast_nms_pyramid", "hamming_top2", "cell_index", "pose_lm",
-               "scatter_to_current", "dedup_by_id", "project_window_rows", "undistort_norm",
+               "scatter_to_current", "dedup_by_id", "project_window_rows", "frame_finish",
                "epipolar_top2", "epipolar_band_index", "triangulate", "fuse", "fuse_cell_index",
                "ba_linearize_schur", "schur_index", "ba_reduced_solve", "ba_backsub_cost",
                "ba_classify", "bow_transform")
@@ -4633,7 +4792,7 @@ def run_slices(dev, world, wrappers, card):
     assert stats["ate_m"] < 0.10, f"rigid ATE {stats['ate_m']:.4f} m"
     assert stats["scale_err"] < 0.05, f"scale error {stats['scale_err']:.2%}"
     for name in ("fast_nms_pyramid", "orb_describe", "hamming_top2", "cell_index", "pose_lm",
-                 "scatter_to_current", "dedup_by_id", "project_window_rows", "undistort_norm"):
+                 "scatter_to_current", "dedup_by_id", "project_window_rows", "frame_finish"):
         assert launches["rgbd"][name] > 0, f"{name} was not launched by the RGBD slice"
 
     for w in wrappers.values():
@@ -4647,7 +4806,7 @@ def run_slices(dev, world, wrappers, card):
     assert mono["ate_m"] < 0.10, f"Sim3 ATE {mono['ate_m']:.4f} m"
     for name, n in launches["mono"].items():
         assert n > 0 or name in MAPPING_KERNELS + LOOP_KERNELS + THREADED_KERNELS \
-            + STEREO_KERNELS + EQUIRECT_KERNELS + DISTORTED_KERNELS + FBOW_KERNELS \
+            + STEREO_KERNELS + EQUIRECT_KERNELS + FBOW_KERNELS \
             + SHARDED_KERNELS, f"{name} was not launched by the mono slice"
     return stats, mono, launches
 
@@ -4695,7 +4854,7 @@ EQUIRECT_ROWS = {"project_window_rows_equirect": "project_window_rows",
                  "fuse_cell_index_equirect": "fuse_cell_index",
                  "ransac_two_view_essential": "ransac_two_view",
                  "ransac_two_view_essential_escalated": "ransac_two_view",
-                 "essential_5pt": "essential_5pt",
+                 "essential_5pt": "essential_5pt", "frame_finish_equirect": "frame_finish",
                  **{f"ba_{k}_equirect": f"ba_{k}" for k in (
                      "linearize_schur", "reduced_solve", "backsub_cost", "classify")},
                  **{f"{k}_equirect_leg": k for k in (
@@ -5115,15 +5274,17 @@ def check_equirect_kernels(dev, slam_like, calls):
     rel = (torch.linalg.norm(rk.pos_w - rp.pos_w, dim=-1)
            / torch.clamp(torch.linalg.norm(rp.pos_w, dim=-1), min=1e-12))[both]
     rel_max = float(rel.max()) if rel.numel() else 0.0
+    apart_k = tri_bits_apart(rk, rp)
     print(f"kernel K triangulate (equirectangular): {B}x{N1} slots, {int(accepted.sum())} "
           f"matched, {int(rk.ok.sum())} ok (plain {int(rp.ok.sum())}), ok flags differing "
-          f"{share_k:.6f}, positions within {rel_max:.3g} relative where both ok")
+          f"{share_k:.6f}, positions within {rel_max:.3g} relative where both ok; elements "
+          f"whose bits differ from plain {json.dumps(apart_k)}")
     assert share_k <= 1e-3 and rel_max < 1e-4, "kernel K's equirectangular mode disagrees"
     rows.append(dict(
         name="triangulate_equirect", route="cuda",
         source="stella_vslam_tpu_torch/csrc/triangulate.cu + camera.cuh",
         replaces="stella_vslam_tpu/module/mapping_kernels.py:58", max_abs_err=rel_max,
-        ok_flags_differing=share_k, shape=f"{B}x{N1}",
+        ok_flags_differing=share_k, elements_differing_from_plain=apart_k, shape=f"{B}x{N1}",
         **_times(lambda: mk.triangulate_checks(*kargs)),
         plain_ms=_median_ms(lambda: mk.triangulate_checks_plain(*kargs), reps=10),
         library_ms=None,
@@ -5286,20 +5447,18 @@ def check_equirect_kernels(dev, slam_like, calls):
     return rows
 
 
-# kernel R's Kannala-Brandt and division modes: the distorted legs' own
-DISTORTED_KERNELS = ("undistort_fisheye", "undistort_radial")
 # kernel V: the FBoW leg's own
 FBOW_KERNELS = ("fbow_transform",)
-# what every distorted leg launches (R's mode of its model besides)
-DISTORTED_LEG_KERNELS = ("resize_pyramid", "fast_nms_pyramid", "orb_describe", "hamming_top2",
-                         "cell_index", "pose_lm", "ransac_two_view", "scatter_to_current",
-                         "dedup_by_id", "project_window_rows", "epipolar_top2",
-                         "epipolar_band_index", "triangulate", "fuse", "fuse_cell_index",
-                         "ba_linearize_schur", "schur_index", "ba_reduced_solve",
-                         "ba_backsub_cost", "ba_classify", "bow_transform")
+# what every distorted leg launches (kernel R's frame finish in its model)
+DISTORTED_LEG_KERNELS = ("frame_finish", "resize_pyramid", "fast_nms_pyramid", "orb_describe",
+                         "hamming_top2", "cell_index", "pose_lm", "ransac_two_view",
+                         "scatter_to_current", "dedup_by_id", "project_window_rows",
+                         "epipolar_top2", "epipolar_band_index", "triangulate", "fuse",
+                         "fuse_cell_index", "ba_linearize_schur", "schur_index",
+                         "ba_reduced_solve", "ba_backsub_cost", "ba_classify", "bow_transform")
 # the rows whose launches are a distorted leg's (and its counter there)
-DISTORTED_ROWS = {"undistort_fisheye": ("fisheye", "undistort_fisheye"),
-                  "undistort_radial": ("radial_division", "undistort_radial"),
+DISTORTED_ROWS = {"frame_finish_fisheye": ("fisheye", "frame_finish"),
+                  "frame_finish_radial": ("radial_division", "frame_finish"),
                   "fast_nms_pyramid_masked": ("fisheye_masked", "fast_nms_pyramid_masked")}
 
 
@@ -5358,8 +5517,8 @@ def run_distorted_legs(dev, world, wrappers, card):
         assert s["keyframes_created"] >= 1, f"{leg}: no keyframe event"
         for name in DISTORTED_LEG_KERNELS:
             assert la[name] > 0, f"{name} was not launched by the {leg} leg"
-        own = ds.UNDISTORT[ds.MODEL[leg]]
-        assert la[own] == s["frames"], f"{leg}: {la[own]} launches of {own} for {s['frames']}"
+        assert la["frame_finish"] == s["frames"], \
+            f"{leg}: {la['frame_finish']} launches of frame_finish for {s['frames']} frames"
         masked = la["fast_nms_pyramid_masked"]
         assert masked == (la["fast_nms_pyramid"] if s["masked"] else 0), \
             f"{leg}: {masked} masked launches of kernel A of {la['fast_nms_pyramid']}"
@@ -5367,9 +5526,11 @@ def run_distorted_legs(dev, world, wrappers, card):
 
 
 def check_distorted_kernels(dev, world, recs):
-    """Kernel R's Kannala-Brandt and division modes against their plain
-    versions on the card, bit for bit, on every keypoint of the legs' frames
-    and on 2872 random keypoints over the whole image; kernel A with a mask
+    """Kernel R's Kannala-Brandt and division modes (the undistortion alone,
+    the camera's entry point into the frame finish's kernel) against their
+    plain versions on the card, bit for bit, on every keypoint of the legs'
+    frames and on 2872 random keypoints over the whole image (the frame
+    finish's rows are check_frame_finish's); kernel A with a mask
     against its plain version, exactly, on every level of a fisheye leg
     frame (752x480, 8 levels) with the half-image mask of
     tests/test_orb_extractor.py, a seeded random mask and the leg's
@@ -5386,11 +5547,9 @@ def check_distorted_kernels(dev, world, recs):
     rng = np.random.default_rng(17)
     rand = torch.as_tensor(np.stack([rng.uniform(0, world.W, N), rng.uniform(0, world.H, N)],
                                     -1).astype(np.float32), device=dev)
-    modes = {"fisheye": (cb.undistort_fisheye, cb.fisheye_undistort,
-                         "stella_vslam_tpu/camera/base.py:134", 10 * 40.0 + 30.0),
-             "radial_division": (cb.undistort_radial, cb.radial_division_undistort,
-                                 "stella_vslam_tpu/camera/base.py:160", 16.0)}
-    for model, (kern, plain, replaces, ops_per_point) in modes.items():
+    modes = {"fisheye": (cb.undistort_fisheye, cb.fisheye_undistort),
+             "radial_division": (cb.undistort_radial, cb.radial_division_undistort)}
+    for model, (kern, plain) in modes.items():
         p = cb.camera_from_yaml(ds.leg_world(model, world).camera_yaml()).params
         legs = [leg for leg in ds.LEGS if ds.MODEL[leg] == model]
         leg_kp = torch.cat([xy for leg in legs for xy in recs[leg]["xy"]]).contiguous()
@@ -5405,13 +5564,6 @@ def check_distorted_kernels(dev, world, recs):
               f"the image; keypoints "
               f"not bit-equal to plain: {differ}")
         assert not any(differ.values()), f"{kern.__name__} is not bit-equal to its plain version"
-        # per point: 8 bytes in, 8 out; the normalisation, the inversion's
-        # operations (10 Newton steps of ~40 with tanf for Kannala-Brandt)
-        rows.append(dict(
-            name=kern.__name__, route="cuda", source="stella_vslam_tpu_torch/csrc/reproject.cu",
-            replaces=replaces, max_abs_err=0.0, bit_equal=True, shape=f"N={N}",
-            **_times(lambda: kern(p, rand)), plain_ms=_median_ms(lambda: plain(p, rand)),
-            library_ms=None, **_bound(16.0 * N, ops_per_point * N)))
 
     # ---- kernel A with an extraction mask ----
     params = OrbParams(num_levels=8)
@@ -5635,6 +5787,7 @@ def main() -> int:
     world = bench_world()
     rows = check_kernels(dev, world) + check_init_kernels(dev, world)
     rows += check_track_kernels(dev, world)
+    rows += check_frame_finish(dev, world)
     rows += check_stereo_kernels(dev, world)
     lap("kernel_checks")
     for r in rows:

@@ -23,8 +23,9 @@ drift injected (0.55 m, 3 degrees), 104 frames back. Per package and seed
 it prints the init frame and rotation, the landmarks after the init pair's
 keyframe event, frames tracked and lost, loops closed and the Sim3 ATE;
 then, for the F-RANSAC call that initialized each package, both packages'
-per-hypothesis costs on their own inputs (the JAX function on JAX's
-points, the port's plain version on the port's): the largest difference of
+per-hypothesis costs on their own inputs (the JAX functions jitted, as the
+JAX System's find_via_ransac runs them, on JAX's points; the port's plain
+version on the port's): the largest difference of
 the inputs, each winner and its cost, and the share of hypotheses whose
 costs differ by more than 1e-3 relative (an 8-point F of a planar scene is
 near-degenerate). With --jax-takes-port-inputs the port runs first and the
@@ -138,14 +139,21 @@ def loop_world(args):
     spy(jinit, "jax")
     spy(tinit, "port")
 
+    def jax_hypotheses(key, p1, p2, mv, B):
+        """Every hypothesis's cost and inlier count as the JAX System's
+        jitted find_via_ransac computes them (its _find_core's first half)."""
+        idx = jransac.sample_minimal_sets(key, mv, B, 8)
+        F = jfm.compute_F_21(jransac.gather_sets(p1, idx), jransac.gather_sets(p2, idx))
+        inl, c = jfm._epipolar_cost(F, p1[None], p2[None], 1.0)
+        return (jnp.sum(jnp.where(mv[None], c, 0.0), axis=-1),
+                jnp.sum(inl & mv[None], axis=-1))
+
+    jax_hypotheses = jax.jit(jax_hypotheses, static_argnames=("B",))
+
     def f_costs():
         key, p1, p2, mv, B = calls["jax"][-1]
-        idx = jransac.sample_minimal_sets(key, jnp.asarray(mv), B, 8)
-        F = jfm.compute_F_21(jransac.gather_sets(jnp.asarray(p1), idx),
-                             jransac.gather_sets(jnp.asarray(p2), idx))
-        inl, c = jfm._epipolar_cost(F, jnp.asarray(p1)[None], jnp.asarray(p2)[None], 1.0)
-        cj = np.asarray(jnp.where(jnp.asarray(mv)[None], c, 0.0)).sum(-1)
-        nj = np.asarray(inl & jnp.asarray(mv)[None]).sum(-1)
+        cj, nj = (np.asarray(a) for a in jax_hypotheses(
+            key, jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(mv), B=B))
         seed, q1, q2, qv, _ = calls["port"][-1]
         _, ct, nt = transac.minimal_hypotheses_plain(
             tfm.MODEL, seed, torch.from_numpy(q1), torch.from_numpy(q2), torch.from_numpy(qv),

@@ -314,6 +314,18 @@ def undistort_and_bearings(model: CameraModel, p: CameraParams, pts: torch.Tenso
     return _UNDISTORT[mode](p, pts, bearings=True)
 
 
+_PLAIN_UNDISTORT = {0: perspective_undistort, 1: fisheye_undistort, 3: radial_division_undistort}
+
+
+def undistort_and_bearings_plain(model: CameraModel, p: CameraParams, pts: torch.Tensor):
+    """undistort_and_bearings as torch expressions on any device: kernel R's
+    plain twin (the frame's finish, data/frame.py frame_finish_plain)."""
+    mode = undistortion_mode(model)
+    if mode == CameraModel.EQUIRECTANGULAR:
+        return pts, bearings_from_undistorted(model, p, pts)
+    return _PLAIN_UNDISTORT[mode](p, pts, bearings=True)
+
+
 def bearings_from_undistorted(model: CameraModel, p: CameraParams,
                               pts: torch.Tensor) -> torch.Tensor:
     """Undistorted keypoints [N,2] -> unit bearing vectors [N,3]; the
@@ -415,12 +427,27 @@ def predicted_octave(ratio: torch.Tensor, inv_log_scale: float, num_levels: int)
 
 def _fma_f32(a, b, c):
     """a b + c for float32 tensors with one rounding, as `__fmaf_rn` gives
-    it: the float64 product a b is exact, and its sum with c is rounded to
-    odd (a float64 TwoSum gives the sum's error; an inexact sum with an even
-    last bit moves one ulp towards it), which a rounding to float32 then
-    rounds correctly (53 >= 2 x 24 + 2 bits)."""
-    p, c = a.double() * b.double(), c.double()
+    it (the float64 product a b is exact; round_sum_f32 adds c)."""
+    return round_sum_f32(a.double() * b.double(), c)
+
+
+def round_sum_f32(p, c):
+    """p + c rounded once to float32, for a float64 tensor p that holds an
+    exact product of float32s and a float32 tensor c: the float64 sum is
+    rounded to odd (a float64 TwoSum gives the sum's error; an inexact sum
+    with an even last bit moves one ulp towards it), which a rounding to
+    float32 then rounds correctly (53 >= 2 x 24 + 2 bits). On the CPU, where
+    no float64 sum lies on a float32 tie (its 29 low bits 1 followed by
+    zeros) or below float32's normal range, the sum rounds to float32 as it
+    is: the exact sum lies within half a float64 ulp of it, on the same side
+    of every float32 tie."""
+    c = c.double()
     s = p + c
+    if not s.is_cuda:
+        a = s.abs()
+        if not bool(((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000).any()
+                    | ((a < 2.0 ** -126) & (a > 0.0)).any()):
+            return s.float()
     e = s - p
     err = (p - (s - e)) + (c - e)
     fix = (err != 0) & ((s.view(torch.int64) & 1) == 0)
@@ -585,9 +612,6 @@ class Camera:
 
     def bearings(self, und_pts):
         return bearings_from_undistorted(self.model, self.params, und_pts)
-
-    def undistort_and_bearings(self, pts):
-        return undistort_and_bearings(self.model, self.params, pts)
 
 
 _MODEL_ALIASES = {

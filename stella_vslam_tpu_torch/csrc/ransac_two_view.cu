@@ -27,10 +27,10 @@
 //    (the grid's y). The block draws the k indices in one pass over the N
 //    matches (per slot the argmax of the hash, lowest index on ties,
 //    invalid positions below every valid one); then warp 0 fits the model
-//    alone: the Hartley normalisation and A^T A by shuffle trees over the
-//    k points, the 18 squarings of (sigma I - A^T A) / sigma with
-//    Frobenius renormalisation on its 9x9 in shared memory under
-//    __syncwarp only, the rank-2 projection of F (one-sided Jacobi SVD of
+//    alone: the Hartley normalisation (sums in point order) and A^T A (a
+//    lane an entry, the FMA chain over the rows), the 18 squarings of
+//    (sigma I - A^T A) / sigma with Frobenius renormalisation on its 9x9
+//    in shared memory under __syncwarp only, the rank-2 projection of F (one-sided Jacobi SVD of
 //    the 3x3 in double on one lane, ended by the first sweep that rotates
 //    nothing) and the denormalisation; then the block scores the model on
 //    all N matches (H: symmetric transfer through the adjugate inverse;
@@ -57,20 +57,21 @@
 // xors and an add, the argmax compare and select, ~11), which the card's
 // INT32 units take at 64 lanes an SM; it scores B*N = 2.9 M pairs (~40
 // flops each) and fits B models (18 9x9 products); its bytes are ~50 KB of
-// points. Every [B,k,N] and [B,N] intermediate stays in registers. The
-// sums run in a fixed order (the per-point terms in index order,
-// shuffle-down trees, warps in order, the Frobenius norm a serial chain),
-// the order of a fit spread over the whole block, whose models, costs and
-// counts these keep bit for bit.
+// points. Every [B,k,N] and [B,N] intermediate stays in registers.
 //
-// Float32 like the JAX version, but sums are taken in another order, so
-// models agree to a tolerance, not bit for bit; the sampled indices are
-// exact (the hash is integer arithmetic and its uniforms are exact in f32).
-// Where a minimal set's A^T A has a small eigen-gap the 18 squarings do not
-// converge, and the summation order moves the null vector: on the card
-// ~78% of F and 96-99% of H hypotheses score the same inlier count as the
-// plain version, and the rank-2 step accounts for under 1% (chip_smoke.py,
-// F route readings).
+// Float32 like the JAX version. The minimal fit rounds as the plain
+// version's, which rounds as the JAX version's jitted program on the CPU
+// (every sum in its order, every contraction an `__fmaf_rn`, every other
+// operation rounded on its own; ops/linalg.py), up to F's rank-2 step: the
+// plain takes LAPACK's sgesdd, the kernel a Jacobi SVD in double. The
+// score of F rounds as the plain's too; H's transfer error and the LO
+// refits' block sums (shuffle-down trees, warps in order) take their own
+// order. So models agree to a tolerance, not bit for bit; the sampled
+// indices are exact (the hash is integer arithmetic and its uniforms are
+// exact in f32). Where a minimal set's A^T A has a small eigen-gap the 18
+// squarings do not converge, and a rounding moves the null vector
+// (chip_smoke.py holds the share of hypotheses whose inlier count equals
+// plain's).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -162,8 +163,8 @@ template <int MODEL>
 __device__ __forceinline__ int dlt_rows(float x1, float y1, float x2, float y2,
                                         float a[2][9]) {
   if (MODEL == 0) {
-    const float ra[9] = {0.f, 0.f, 0.f, -x1, -y1, -1.f, y2 * x1, y2 * y1, y2};
-    const float rb[9] = {x1, y1, 1.f, 0.f, 0.f, 0.f, -x2 * x1, -x2 * y1, -x2};
+    const float ra[9] = {0.f, 0.f, 0.f, -x1, -y1, -1.f, __fmul_rn(y2, x1), __fmul_rn(y2, y1), y2};
+    const float rb[9] = {x1, y1, 1.f, 0.f, 0.f, 0.f, __fmul_rn(-x2, x1), __fmul_rn(-x2, y1), -x2};
 #pragma unroll
     for (int i = 0; i < 9; ++i) {
       a[0][i] = ra[i];
@@ -171,7 +172,8 @@ __device__ __forceinline__ int dlt_rows(float x1, float y1, float x2, float y2,
     }
     return 2;
   }
-  const float r[9] = {x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1, 1.f};
+  const float r[9] = {__fmul_rn(x2, x1), __fmul_rn(x2, y1), x2, __fmul_rn(y2, x1),
+                      __fmul_rn(y2, y1), y2, x1, y1, 1.f};
 #pragma unroll
   for (int i = 0; i < 9; ++i) a[0][i] = r[i];
   return 1;
@@ -226,24 +228,31 @@ __device__ void rank2_project(float* F) {
     for (int j = 0; j < 3; ++j) F[i * 3 + j] = (float)((double)F[i * 3 + j] - W[i][m] * V[j][m]);
 }
 
+// C = A B, each entry the FMA chain a_i0 b_0j, then + a_ik b_kj in k order
+// (the plain version's matmul_f32, XLA's CPU dot)
 __device__ __forceinline__ void matmul3(const float* A, const float* B, float* C) {
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j)
-      C[i * 3 + j] = A[i * 3 + 0] * B[0 * 3 + j] + A[i * 3 + 1] * B[1 * 3 + j] +
-                     A[i * 3 + 2] * B[2 * 3 + j];
+      C[i * 3 + j] = __fmaf_rn(A[i * 3 + 2], B[2 * 3 + j],
+                               __fmaf_rn(A[i * 3 + 1], B[1 * 3 + j],
+                                         __fmul_rn(A[i * 3 + 0], B[0 * 3 + j])));
 }
 
 // H = T2^-1 Hn T1, F = T2^T rank2(Fn) T1 from the normalised null vector h
 template <int MODEL>
 __device__ void fit_denormalise(float* h, const Norm& nm, float* model) {
   if (MODEL == 1) rank2_project(h);
-  const float sx1 = 1.f / nm.d1x, sy1 = 1.f / nm.d1y;
-  const float sx2 = 1.f / nm.d2x, sy2 = 1.f / nm.d2y;
-  const float T1[9] = {sx1, 0.f, -nm.m1x * sx1, 0.f, sy1, -nm.m1y * sy1, 0.f, 0.f, 1.f};
-  const float tx2 = -nm.m2x * sx2, ty2 = -nm.m2y * sy2;
+  const float sx1 = __fdiv_rn(1.f, nm.d1x), sy1 = __fdiv_rn(1.f, nm.d1y);
+  const float sx2 = __fdiv_rn(1.f, nm.d2x), sy2 = __fdiv_rn(1.f, nm.d2y);
+  const float T1[9] = {sx1, 0.f, __fmul_rn(-nm.m1x, sx1), 0.f, sy1, __fmul_rn(-nm.m1y, sy1),
+                       0.f, 0.f, 1.f};
+  const float tx2 = __fmul_rn(-nm.m2x, sx2), ty2 = __fmul_rn(-nm.m2y, sy2);
   float L[9];
   if (MODEL == 0) {
-    const float T2i[9] = {1.f / sx2, 0.f, -tx2 / sx2, 0.f, 1.f / sy2, -ty2 / sy2,
+    // T2^-1 as jnp.linalg.inv takes it on the CPU (homography._inverse_T):
+    // the translation times the diagonal's reciprocal
+    const float rx = __fdiv_rn(1.f, sx2), ry = __fdiv_rn(1.f, sy2);
+    const float T2i[9] = {rx, 0.f, __fmul_rn(-tx2, rx), 0.f, ry, __fmul_rn(-ty2, ry),
                           0.f, 0.f, 1.f};
     for (int q = 0; q < 9; ++q) L[q] = T2i[q];
   } else {
@@ -286,13 +295,21 @@ __device__ __forceinline__ void pair_dist(const float* M, const float* Mi, float
     d1 = transfer_err(M, x1, y1, x2, y2);
     d2 = transfer_err(Mi, x2, y2, x1, y1);
   } else {
+    // fundamental._epipolar_cost's rounding (the JAX version's jitted
+    // einsums): each epiline entry fma(F_i1, y, F_i0 x) + F_i2, the
+    // residual fma(y', l1, x' l0) + l2, the denominator fma(l0, l0, l1 l1)
     float l2[3], l1[3];
-    for (int i = 0; i < 3; ++i) l2[i] = M[i * 3 + 0] * x1 + M[i * 3 + 1] * y1 + M[i * 3 + 2];
-    for (int j = 0; j < 3; ++j) l1[j] = M[0 * 3 + j] * x2 + M[1 * 3 + j] * y2 + M[2 * 3 + j];
-    const float e2 = x2 * l2[0] + y2 * l2[1] + l2[2];
-    const float e1 = x1 * l1[0] + y1 * l1[1] + l1[2];
-    d2 = e2 * e2 / (l2[0] * l2[0] + l2[1] * l2[1] + 1e-12f);
-    d1 = e1 * e1 / (l1[0] * l1[0] + l1[1] * l1[1] + 1e-12f);
+    for (int i = 0; i < 3; ++i)
+      l2[i] = __fadd_rn(__fmaf_rn(M[i * 3 + 1], y1, __fmul_rn(M[i * 3 + 0], x1)), M[i * 3 + 2]);
+    for (int j = 0; j < 3; ++j)
+      l1[j] = __fadd_rn(__fmaf_rn(M[1 * 3 + j], y2, __fmul_rn(M[0 * 3 + j], x2)), M[2 * 3 + j]);
+    const auto dist = [](float x, float y, const float* l) {
+      const float e = __fadd_rn(__fmaf_rn(y, l[1], __fmul_rn(x, l[0])), l[2]);
+      return __fdiv_rn(__fmul_rn(e, e),
+                       __fadd_rn(__fmaf_rn(l[0], l[0], __fmul_rn(l[1], l[1])), 1e-12f));
+    };
+    d2 = dist(x2, y2, l2);
+    d1 = dist(x1, y1, l1);
   }
 }
 
@@ -362,12 +379,63 @@ struct WarpFit {
   float M2[81];
 };
 
-// Sum over a warp by the shuffle-down tree of block_sum (lane 0 holds it),
-// then, as block_sum's sum over the warps of a block whose other warps hold
-// nothing, added to 0: every lane gets the total.
-__device__ __forceinline__ float warp_tree_sum(float s) {
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
-  return 0.f + __shfl_sync(0xffffffffu, s, 0);
+// The null vector of the A^T A in wf->ata (full 9x9): the body of
+// warp_null_vector. Every lane of the warp calls it.
+template <int MODEL>
+__device__ void warp_null_vector_of_ata(const Norm& nm, WarpFit* wf, float* model) {
+  const int lane = threadIdx.x & 31;
+  float r = 0.f;  // the row sums in order from 0 (linalg.sum_in_order)
+  if (lane < 9)
+    for (int v = 0; v < 9; ++v) r = __fadd_rn(r, fabsf(wf->ata[lane * 9 + v]));
+  float sigma = fmaxf(0.f, r);
+  for (int o = 16; o > 0; o >>= 1) sigma = fmaxf(sigma, __shfl_xor_sync(0xffffffffu, sigma, o));
+  for (int q = lane; q < 81; q += 32) {
+    const int i = q / 9, j = q % 9;
+    wf->M[q] = __fdiv_rn(__fsub_rn(i == j ? sigma : 0.f, wf->ata[q]), __fadd_rn(sigma, 1e-30f));
+  }
+  __syncwarp();
+  // as the plain version (linalg.smallest_eigvec_spd_in_order) rounds it:
+  // each square's entry an FMA chain over m, the squared norms FMA chains
+  // from 0 in order, the roots correctly rounded
+  for (int it = 0; it < 18; ++it) {
+    for (int q = lane; q < 81; q += 32) {
+      const int i = q / 9, j = q % 9;
+      float s = __fmul_rn(wf->M[i * 9], wf->M[j]);
+      for (int m = 1; m < 9; ++m) s = __fmaf_rn(wf->M[i * 9 + m], wf->M[m * 9 + j], s);
+      wf->M2[q] = s;
+    }
+    __syncwarp();
+    float s = 0.f;
+    for (int q = 0; q < 81; ++q) s = __fmaf_rn(wf->M2[q], wf->M2[q], s);
+    const float nrm = __fadd_rn(__fsqrt_rn(s), 1e-30f);
+    for (int q = lane; q < 81; q += 32) wf->M[q] = __fdiv_rn(wf->M2[q], nrm);
+    __syncwarp();
+  }
+  if (lane == 0) {
+    int col = 0;
+    float bestn = -1.f;
+    for (int j = 0; j < 9; ++j) {
+      float s = 0.f;
+      for (int i = 0; i < 9; ++i) s = __fmaf_rn(wf->M[i * 9 + j], wf->M[i * 9 + j], s);
+      if (s > bestn) {
+        bestn = s;
+        col = j;
+      }
+    }
+    float h[9], nn = 0.f;
+    for (int i = 0; i < 9; ++i) {
+      h[i] = wf->M[i * 9 + col];
+      nn = __fmaf_rn(h[i], h[i], nn);
+    }
+    nn = __fadd_rn(__fsqrt_rn(nn), 1e-12f);
+    for (int i = 0; i < 9; ++i) h[i] = __fdiv_rn(h[i], nn);
+    if (MODEL == kEssential) {
+      for (int q = 0; q < 9; ++q) model[q] = h[q];
+    } else {
+      fit_denormalise<MODEL>(h, nm, model);
+    }
+  }
+  __syncwarp();
 }
 
 // The null vector of A^T A (upper triangle `acc`, row by row, in every
@@ -391,55 +459,7 @@ __device__ void warp_null_vector(const float (&acc)[45], const Norm& nm, WarpFit
       }
   }
   __syncwarp();
-  float r = 0.f;
-  if (lane < 9)
-    for (int v = 0; v < 9; ++v) r += fabsf(wf->ata[lane * 9 + v]);
-  float sigma = fmaxf(0.f, r);
-  for (int o = 16; o > 0; o >>= 1) sigma = fmaxf(sigma, __shfl_xor_sync(0xffffffffu, sigma, o));
-  for (int q = lane; q < 81; q += 32) {
-    const int i = q / 9, j = q % 9;
-    wf->M[q] = ((i == j ? sigma : 0.f) - wf->ata[q]) / (sigma + 1e-30f);
-  }
-  __syncwarp();
-  for (int it = 0; it < 18; ++it) {
-    for (int q = lane; q < 81; q += 32) {
-      const int i = q / 9, j = q % 9;
-      float s = 0.f;
-      for (int m = 0; m < 9; ++m) s += wf->M[i * 9 + m] * wf->M[m * 9 + j];
-      wf->M2[q] = s;
-    }
-    __syncwarp();
-    float s = 0.f;
-    for (int q = 0; q < 81; ++q) s += wf->M2[q] * wf->M2[q];
-    const float nrm = sqrtf(s) + 1e-30f;
-    for (int q = lane; q < 81; q += 32) wf->M[q] = wf->M2[q] / nrm;
-    __syncwarp();
-  }
-  if (lane == 0) {
-    int col = 0;
-    float bestn = -1.f;
-    for (int j = 0; j < 9; ++j) {
-      float s = 0.f;
-      for (int i = 0; i < 9; ++i) s += wf->M[i * 9 + j] * wf->M[i * 9 + j];
-      if (s > bestn) {
-        bestn = s;
-        col = j;
-      }
-    }
-    float h[9], nn = 0.f;
-    for (int i = 0; i < 9; ++i) {
-      h[i] = wf->M[i * 9 + col];
-      nn += h[i] * h[i];
-    }
-    nn = sqrtf(nn) + 1e-12f;
-    for (int i = 0; i < 9; ++i) h[i] /= nn;
-    if (MODEL == kEssential) {
-      for (int q = 0; q < 9; ++q) model[q] = h[q];
-    } else {
-      fit_denormalise<MODEL>(h, nm, model);
-    }
-  }
-  __syncwarp();
+  warp_null_vector_of_ata<MODEL>(nm, wf, model);
 }
 
 // Lane i < n of a warp adds correspondence i's DLT rows (on normalised
@@ -469,49 +489,80 @@ __device__ __forceinline__ void add_ata_rows(const float* p1, const float* p2, i
   }
 }
 
-// One warp fits the model of its K points (set1, set2: D*K floats).
+// One warp fits the model of its K points (set1, set2: D*K floats), rounded
+// as the plain version's minimal fit (and the JAX version's jitted one):
+// the normalisation's sums in point order from 0, times 1 / K
+// (homography._normalize), the normalised coordinates true divisions, and
+// each A^T A entry the FMA chain over the DLT rows in order (H's rows: the
+// K first rows of every point, then the K second), a lane an entry.
 template <int MODEL, int K>
 __device__ void warp_fit_minimal(const float* set1, const float* set2, WarpFit* wf,
                                  float* model) {
   const int lane = threadIdx.x & 31;
+  constexpr int kRows = MODEL == 0 ? 2 * K : K;
+  static_assert(kRows * 9 <= 81, "the DLT rows are staged in wf->M2");
+  float* a = wf->M2;  // the DLT rows [kRows][9], free until the squarings
   Norm nm{};
-  if constexpr (MODEL != kEssential) {
-    float s[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-    if (lane < K) {
-      s[0] = 1.f;
-      s[1] = set1[2 * lane];
-      s[2] = set1[2 * lane + 1];
-      s[3] = set2[2 * lane];
-      s[4] = set2[2 * lane + 1];
-    }
+  if constexpr (MODEL == kEssential) {
+    if (lane < K)
 #pragma unroll
-    for (int q = 0; q < 5; ++q) s[q] = warp_tree_sum(s[q]);
-    const float cnt = (float)K;
-    nm.m1x = s[1] / cnt;
-    nm.m1y = s[2] / cnt;
-    nm.m2x = s[3] / cnt;
-    nm.m2y = s[4] / cnt;
+      for (int u = 0; u < 3; ++u)
+#pragma unroll
+        for (int v = 0; v < 3; ++v)
+          a[lane * 9 + 3 * u + v] = __fmul_rn(set2[3 * lane + u], set1[3 * lane + v]);
+  } else {
+    constexpr float kInv = 1.f / K;  // exact for K = 4 and 8
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k = 0; k < K; ++k) {
+      s[0] = __fadd_rn(s[0], set1[2 * k]);
+      s[1] = __fadd_rn(s[1], set1[2 * k + 1]);
+      s[2] = __fadd_rn(s[2], set2[2 * k]);
+      s[3] = __fadd_rn(s[3], set2[2 * k + 1]);
+    }
+    nm.m1x = __fmul_rn(s[0], kInv);
+    nm.m1y = __fmul_rn(s[1], kInv);
+    nm.m2x = __fmul_rn(s[2], kInv);
+    nm.m2y = __fmul_rn(s[3], kInv);
     float d[4] = {0.f, 0.f, 0.f, 0.f};
-    if (lane < K) {
-      d[0] = fabsf(set1[2 * lane] - nm.m1x);
-      d[1] = fabsf(set1[2 * lane + 1] - nm.m1y);
-      d[2] = fabsf(set2[2 * lane] - nm.m2x);
-      d[3] = fabsf(set2[2 * lane + 1] - nm.m2y);
+    for (int k = 0; k < K; ++k) {
+      d[0] = __fadd_rn(d[0], fabsf(__fsub_rn(set1[2 * k], nm.m1x)));
+      d[1] = __fadd_rn(d[1], fabsf(__fsub_rn(set1[2 * k + 1], nm.m1y)));
+      d[2] = __fadd_rn(d[2], fabsf(__fsub_rn(set2[2 * k], nm.m2x)));
+      d[3] = __fadd_rn(d[3], fabsf(__fsub_rn(set2[2 * k + 1], nm.m2y)));
     }
+    nm.d1x = __fadd_rn(__fmul_rn(d[0], kInv), 1e-12f);
+    nm.d1y = __fadd_rn(__fmul_rn(d[1], kInv), 1e-12f);
+    nm.d2x = __fadd_rn(__fmul_rn(d[2], kInv), 1e-12f);
+    nm.d2y = __fadd_rn(__fmul_rn(d[3], kInv), 1e-12f);
+    if (lane < K) {
+      const float x1 = __fdiv_rn(__fsub_rn(set1[2 * lane], nm.m1x), nm.d1x);
+      const float y1 = __fdiv_rn(__fsub_rn(set1[2 * lane + 1], nm.m1y), nm.d1y);
+      const float x2 = __fdiv_rn(__fsub_rn(set2[2 * lane], nm.m2x), nm.d2x);
+      const float y2 = __fdiv_rn(__fsub_rn(set2[2 * lane + 1], nm.m2y), nm.d2y);
+      float r[2][9];
+      dlt_rows<MODEL>(x1, y1, x2, y2, r);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) d[q] = warp_tree_sum(d[q]);
-    nm.d1x = d[0] / cnt + 1e-12f;
-    nm.d1y = d[1] / cnt + 1e-12f;
-    nm.d2x = d[2] / cnt + 1e-12f;
-    nm.d2y = d[3] / cnt + 1e-12f;
+      for (int u = 0; u < 9; ++u) {
+        a[lane * 9 + u] = r[0][u];
+        if (MODEL == 0) a[(K + lane) * 9 + u] = r[1][u];
+      }
+    }
   }
-  float acc[45];
-#pragma unroll
-  for (int q = 0; q < 45; ++q) acc[q] = 0.f;
-  if (lane < K) add_ata_rows<MODEL>(set1, set2, lane, nm, acc);
-#pragma unroll
-  for (int q = 0; q < 45; ++q) acc[q] = warp_tree_sum(acc[q]);
-  warp_null_vector<MODEL>(acc, nm, wf, model);
+  __syncwarp();
+  for (int q = lane; q < 45; q += 32) {
+    int u = 0, v = q;  // the upper triangle's entry q, row by row
+    while (v >= 9 - u) {
+      v -= 9 - u;
+      ++u;
+    }
+    v += u;
+    float e = __fmul_rn(a[u], a[v]);
+    for (int k = 1; k < kRows; ++k) e = __fmaf_rn(a[k * 9 + u], a[k * 9 + v], e);
+    wf->ata[u * 9 + v] = e;
+    wf->ata[v * 9 + u] = e;
+  }
+  __syncwarp();
+  warp_null_vector_of_ata<MODEL>(nm, wf, model);
 }
 
 // The whole block fits one model over the rows of mask w (the LO refit):

@@ -31,14 +31,23 @@
 //    is written too and sets the radius and the bounds, clamped to [0,
 //    L-1]. inv_log_scale is the float32 reciprocal of log(scale factor):
 //    the JAX version's jitted division by that constant is this product.
-//  undistort_kernel (one thread per keypoint), templated on the model:
-//    normalize; radial-tangential: 10 iterations of x = xd - (distort(x) -
-//    x); Kannala-Brandt: 10 Newton steps on theta, then tan(theta) /
-//    theta_d; division: 1 / (1 + k1 r^2); back to pixels; with a bearing
-//    output, the unit bearings of the normalised coordinates (the JAX
-//    version's jitted preprocessing computes both in one program).
+//  frame_finish_kernel (one thread per keypoint slot, 128 a block),
+//    templated on the model: normalize; radial-tangential: 10 iterations
+//    of x = xd - (distort(x) - x); Kannala-Brandt: 10 Newton steps on
+//    theta, then tan(theta) / theta_d; division: 1 / (1 + k1 r^2);
+//    equirectangular: the identity; back to pixels and the unit bearings
+//    of the normalised coordinates (longitude / latitude for the
+//    equirectangular model). The frame's finish also writes what JAX's
+//    jitted _mono_preprocess and _rgbd_preprocess (stella_vslam_tpu/
+//    system.py:178-189, :486-505) build in the same program: x_right and
+//    the depths (-1 for mono, kernel T's for stereo, the depth map sampled
+//    at the keypoint for RGBD) and the packed [N,21] host-mirror row of
+//    data/frame.py pack_host_cols, staged in shared memory and written as
+//    16-byte stores. One launch a frame, where the parent launched the
+//    undistortion and ~4 (mono) to ~20 (RGBD) torch kernels around it.
 // Bound: ~40-70 bytes and ~100 operations per row (the slice's 2872 slots
-// or 4096 table rows): ~0.1 us of bytes, so it is bound by its launch.
+// or 4096 table rows; the finish ~170 bytes a slot): ~0.1 us of bytes, so
+// each is bound by its launch.
 // Floats follow the torch expressions' order. In the window rows the
 // camera-frame point (an FMA chain in k order, then + t, as a CPU matmul
 // and the plain version round it: near the camera an ulp of x is
@@ -65,8 +74,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kRowThreads = 32;
+constexpr int kFinishThreads = 128;
+constexpr int kPackCols = 21;  // data/frame.py pack_host_cols
 
 struct Intr {
   float fx, fy, cx, cy, width, height, fxb;
@@ -174,23 +184,35 @@ window_rows_kernel(int M, Intr k, const float* __restrict__ Rg, const float* __r
   }
 }
 
-// kernel R's undistortion, one thread per keypoint, templated on the
-// distortion model, rounded as the plain versions round it (camera/base.py;
-// the perspective and division models follow the JAX version's jitted
+// kernel R's undistortion of one keypoint, templated on the distortion
+// model, rounded as the plain versions round it (camera/base.py; the
+// perspective and division models follow the JAX version's jitted
 // preprocessing): the normalisation a product with the float32 reciprocal
 // of fx, every contraction XLA makes an `__fmaf_rn` and every other product
-// and sum rounded on its own, and x fx + cx one FMA. With `bear`, the unit bearings of the same keypoints from the
-// normalised coordinates (x times fx (1 / fx), the squared norm's FMA, the
-// correctly rounded root): the result equals the plain version on the card
-// bit for bit.
+// and sum rounded on its own, and x fx + cx one FMA. The unit bearing comes
+// from the normalised coordinates (x times fx (1 / fx), the squared norm's
+// FMA, the correctly rounded root). The equirectangular model's
+// undistortion is the identity; its bearing is longitude / latitude on the
+// unit sphere as torch's ops on the card round it (a division by the
+// scalar width or height is a product with its float32 reciprocal there).
+// The result equals the plain version on the card bit for bit.
 template <int MODEL>
-__global__ void __launch_bounds__(kThreads)
-undistort_kernel(int N, Intr k, Dist dc, const float* __restrict__ pts, float* __restrict__ out,
-                 float* __restrict__ bear) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const float xd = __fmul_rn(__fsub_rn(pts[2 * n], k.cx), __frcp_rn(k.fx));
-  const float yd = __fmul_rn(__fsub_rn(pts[2 * n + 1], k.cy), __frcp_rn(k.fy));
+__device__ __forceinline__ void undistort_point(const Intr& k, const Dist& dc, float rcp_w,
+                                                float rcp_h, float px, float py, float& ux,
+                                                float& uy, float b[3]) {
+  if constexpr (MODEL == svt_cam::kEquirect) {
+    ux = px;
+    uy = py;
+    const float lon = __fmul_rn(__fmul_rn(__fsub_rn(px, k.cx), svt_cam::kTwoPi), rcp_w);
+    const float lat = __fmul_rn(__fmul_rn(-__fsub_rn(py, k.cy), svt_cam::kPi), rcp_h);
+    const float cl = cosf(lat);
+    b[0] = __fmul_rn(cl, sinf(lon));
+    b[1] = -sinf(lat);
+    b[2] = __fmul_rn(cl, cosf(lon));
+    return;
+  }
+  const float xd = __fmul_rn(__fsub_rn(px, k.cx), __frcp_rn(k.fx));
+  const float yd = __fmul_rn(__fsub_rn(py, k.cy), __frcp_rn(k.fy));
   float x, y;
   if constexpr (MODEL == svt_cam::kPerspective) {
     // perspective_undistort: 10 fixed-point steps x = xd - (distort(x) - x)
@@ -244,20 +266,149 @@ undistort_kernel(int N, Intr k, Dist dc, const float* __restrict__ pts, float* _
     y = __fmul_rn(yd, scale);
   }
   if constexpr (MODEL == svt_cam::kFisheye) {
-    out[2 * n] = __fadd_rn(__fmul_rn(x, k.fx), k.cx);
-    out[2 * n + 1] = __fadd_rn(__fmul_rn(y, k.fy), k.cy);
+    ux = __fadd_rn(__fmul_rn(x, k.fx), k.cx);
+    uy = __fadd_rn(__fmul_rn(y, k.fy), k.cy);
   } else {
-    out[2 * n] = __fmaf_rn(x, k.fx, k.cx);
-    out[2 * n + 1] = __fmaf_rn(y, k.fy, k.cy);
+    ux = __fmaf_rn(x, k.fx, k.cx);
+    uy = __fmaf_rn(y, k.fy, k.cy);
   }
-  if (bear) {
-    const float xb = __fmul_rn(x, __fmul_rn(k.fx, __frcp_rn(k.fx)));
-    const float yb = __fmul_rn(y, __fmul_rn(k.fy, __frcp_rn(k.fy)));
-    const float nrm = __fsqrt_rn(__fadd_rn(__fmaf_rn(yb, yb, __fmul_rn(xb, xb)), 1.f));
-    bear[3 * n] = __fdiv_rn(xb, nrm);
-    bear[3 * n + 1] = __fdiv_rn(yb, nrm);
-    bear[3 * n + 2] = __fdiv_rn(1.f, nrm);
+  const float xb = __fmul_rn(x, __fmul_rn(k.fx, __frcp_rn(k.fx)));
+  const float yb = __fmul_rn(y, __fmul_rn(k.fy, __frcp_rn(k.fy)));
+  const float nrm = __fsqrt_rn(__fadd_rn(__fmaf_rn(yb, yb, __fmul_rn(xb, xb)), 1.f));
+  b[0] = __fdiv_rn(xb, nrm);
+  b[1] = __fdiv_rn(yb, nrm);
+  b[2] = __fdiv_rn(1.f, nrm);
+}
+
+// what a frame's finish reads besides the keypoints, and where it writes
+enum Feed { kUndistortOnly = 0, kMono = 1, kStereo = 2, kRGBD = 3 };
+
+struct FinishIn {
+  const float* xy;        // [N,2]
+  const int* level;       // [N]
+  const float* angle;     // [N]
+  const uint8_t* valid;   // [N] bool bytes
+  const float* response;  // [N]
+  const int4* desc;       // [N,8] int32 as two 16-byte vectors a row
+  const float* xr;        // stereo: kernel T's x_right [N]
+  const float* depth;     // stereo: kernel T's depths [N]
+  const float* depth_map;  // RGBD: [H,W] raw depth
+  int H, W;
+  float inv_factor;  // RGBD: the float32 of 1 / depthmap_factor
+};
+
+struct FinishOut {
+  float *und, *bear, *xr, *depth, *packed;
+};
+
+// The frame's finish, one thread a slot (kernel R's undistortion with all
+// that JAX's jitted _mono_preprocess / _rgbd_preprocess build around it in
+// the same program): the undistorted keypoint and its bearing; x_right and
+// the depth (-1 for mono; kernel T's for stereo; for RGBD the depth map
+// sampled at the keypoint's pixel, truncated and clamped as JAX's
+// astype(int32) and clip, times inv_factor, -1 unless valid and positive,
+// and x_right = und_x - fxb / max(d, 1e-6) as a true division); and the
+// packed [N,21] host-mirror row (data/frame.py pack_host_cols: xy, und,
+// bearing, level, angle, valid, response, x_right, depth, the descriptor's
+// bits). A row is 84 bytes, so a block stages its rows in shared memory
+// (stride 21 floats: no bank conflicts) and writes them out as contiguous
+// 16-byte stores. kUndistortOnly writes und and (when given) bear only:
+// the camera's undistortion entry point (svt_undistort).
+template <int MODEL>
+__global__ void __launch_bounds__(kFinishThreads)
+frame_finish_kernel(int N, int feed, Intr k, Dist dc, float rcp_w, float rcp_h, FinishIn in,
+                    FinishOut out) {
+  __shared__ __align__(16) float rows[kFinishThreads * kPackCols];
+  const int n0 = blockIdx.x * kFinishThreads;
+  const int n = n0 + threadIdx.x;
+  if (n < N) {
+    const float2 p = reinterpret_cast<const float2*>(in.xy)[n];
+    float ux, uy, b[3];
+    undistort_point<MODEL>(k, dc, rcp_w, rcp_h, p.x, p.y, ux, uy, b);
+    if (out.und) reinterpret_cast<float2*>(out.und)[n] = make_float2(ux, uy);
+    if (out.bear) {
+      out.bear[3 * n] = b[0];
+      out.bear[3 * n + 1] = b[1];
+      out.bear[3 * n + 2] = b[2];
+    }
+    if (feed != kUndistortOnly) {
+      const bool valid = in.valid[n] != 0;
+      float xr = -1.f, d = -1.f;
+      if (feed == kStereo) {
+        xr = in.xr[n];
+        d = in.depth[n];
+      } else if (feed == kRGBD) {
+        const int xs = min(max(__float2int_rz(p.x), 0), in.W - 1);
+        const int ys = min(max(__float2int_rz(p.y), 0), in.H - 1);
+        const float raw =
+            __fmul_rn(__ldg(in.depth_map + (size_t)ys * in.W + xs), in.inv_factor);
+        d = (valid && raw > 0.f) ? raw : -1.f;
+        // fxb / d a true division, as the JAX version's (its divisor varies)
+        xr = d > 0.f ? __fsub_rn(ux, __fdiv_rn(k.fxb, fmaxf(d, 1e-6f))) : -1.f;
+      }
+      if (out.xr) {
+        out.xr[n] = xr;
+        out.depth[n] = d;
+      }
+      float* r = rows + threadIdx.x * kPackCols;
+      r[0] = p.x;
+      r[1] = p.y;
+      r[2] = ux;
+      r[3] = uy;
+      r[4] = b[0];
+      r[5] = b[1];
+      r[6] = b[2];
+      r[7] = __int2float_rn(in.level[n]);
+      r[8] = in.angle[n];
+      r[9] = valid ? 1.f : 0.f;
+      r[10] = in.response[n];
+      r[11] = xr;
+      r[12] = d;
+      const int4 d0 = __ldg(in.desc + 2 * n), d1 = __ldg(in.desc + 2 * n + 1);
+      r[13] = __int_as_float(d0.x);
+      r[14] = __int_as_float(d0.y);
+      r[15] = __int_as_float(d0.z);
+      r[16] = __int_as_float(d0.w);
+      r[17] = __int_as_float(d1.x);
+      r[18] = __int_as_float(d1.y);
+      r[19] = __int_as_float(d1.z);
+      r[20] = __int_as_float(d1.w);
+    }
   }
+  if (feed == kUndistortOnly) return;  // the same for the whole block
+  __syncthreads();
+  // the block's rows are contiguous in the pack (and start 16-byte aligned:
+  // 128 rows of 84 bytes a block): 16-byte stores, then the tail's floats
+  const int nf = min(kFinishThreads, N - n0) * kPackCols;
+  float* dst = out.packed + (size_t)n0 * kPackCols;
+  const int nv = nf / 4;
+  for (int q = threadIdx.x; q < nv; q += kFinishThreads)
+    reinterpret_cast<float4*>(dst)[q] = reinterpret_cast<const float4*>(rows)[q];
+  for (int q = 4 * nv + threadIdx.x; q < nf; q += kFinishThreads) dst[q] = rows[q];
+}
+
+template <int MODEL>
+void launch_finish(int N, int feed, const Intr& k, const Dist& dc, float rcp_w, float rcp_h,
+                   const FinishIn& in, const FinishOut& out, cudaStream_t s) {
+  const int grid = (N + kFinishThreads - 1) / kFinishThreads;
+  frame_finish_kernel<MODEL><<<grid, kFinishThreads, 0, s>>>(N, feed, k, dc, rcp_w, rcp_h, in,
+                                                              out);
+}
+
+int finish(int model, int N, int feed, const Intr& k, const Dist& dc, float rcp_w, float rcp_h,
+           const FinishIn& in, const FinishOut& out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (N > 0) {
+    if (model == svt_cam::kPerspective)
+      launch_finish<svt_cam::kPerspective>(N, feed, k, dc, rcp_w, rcp_h, in, out, s);
+    else if (model == svt_cam::kFisheye)
+      launch_finish<svt_cam::kFisheye>(N, feed, k, dc, rcp_w, rcp_h, in, out, s);
+    else if (model == svt_cam::kEquirect)
+      launch_finish<svt_cam::kEquirect>(N, feed, k, dc, rcp_w, rcp_h, in, out, s);
+    else
+      launch_finish<svt_cam::kRadialDivision>(N, feed, k, dc, rcp_w, rcp_h, in, out, s);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -302,22 +453,42 @@ extern "C" int svt_window_rows(int model, int M, int mode, float fx, float fy, f
 extern "C" int svt_undistort(int model, int N, float fx, float fy, float cx, float cy, float k1,
                              float k2, float p1, float p2, float k3, float k4, const float* pts,
                              float* out, float* bear, void* stream) {
-  Intr k{fx, fy, cx, cy, 0.f, 0.f, 0.f};
-  Dist dc{k1, k2, p1, p2, k3, k4};
-  const int grid = (N + kThreads - 1) / kThreads;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (model == svt_cam::kPerspective) {
-    if (N > 0)
-      undistort_kernel<svt_cam::kPerspective><<<grid, kThreads, 0, s>>>(N, k, dc, pts, out, bear);
-  } else if (model == svt_cam::kFisheye) {
-    if (N > 0)
-      undistort_kernel<svt_cam::kFisheye><<<grid, kThreads, 0, s>>>(N, k, dc, pts, out, bear);
-  } else if (model == svt_cam::kRadialDivision) {
-    if (N > 0)
-      undistort_kernel<svt_cam::kRadialDivision><<<grid, kThreads, 0, s>>>(N, k, dc, pts, out,
-                                                                            bear);
-  } else {
+  if (model != svt_cam::kPerspective && model != svt_cam::kFisheye &&
+      model != svt_cam::kRadialDivision)
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  FinishIn in{};
+  in.xy = pts;
+  return finish(model, N, kUndistortOnly, Intr{fx, fy, cx, cy, 0.f, 0.f, 0.f},
+                Dist{k1, k2, p1, p2, k3, k4}, 0.f, 0.f, in,
+                FinishOut{out, bear, nullptr, nullptr, nullptr}, stream);
+}
+
+// The frame's finish: model 0-3 (camera.cuh), feed 1 mono, 2 stereo (xr_in,
+// d_in: kernel T's outputs), 3 RGBD (depth_map [H,W], inv_factor, fxb).
+// xy [N,2], level [N] int32, angle [N], valid [N] bytes, response [N],
+// desc [N,8] int32 (16-byte aligned); rcp_w, rcp_h: the float32
+// reciprocals of the equirectangular image's width and height. Writes und
+// [N,2] (null for the equirectangular model, whose undistortion is the
+// identity), bear [N,3], xr_out and d_out [N] (null for stereo) and packed
+// [N,21] (16-byte aligned).
+extern "C" int svt_frame_finish(int model, int feed, int N, float fx, float fy, float cx,
+                                float cy, float k1, float k2, float p1, float p2, float k3,
+                                float k4, float rcp_w, float rcp_h, float fxb, const float* xy,
+                                const int* level, const float* angle, const uint8_t* valid,
+                                const float* response, const int* desc, const float* xr_in,
+                                const float* d_in, const float* depth_map, int H, int W,
+                                float inv_factor, float* und, float* bear, float* xr_out,
+                                float* d_out, float* packed, void* stream) {
+  if (model < 0 || model > 3 || feed < kMono || feed > kRGBD || !bear || !packed ||
+      (model != svt_cam::kEquirect && !und) || (feed == kStereo && (!xr_in || !d_in)) ||
+      (feed != kStereo && (!xr_out || !d_out)) ||
+      (feed == kRGBD && (!depth_map || H < 1 || W < 1)))
+    return (int)cudaErrorInvalidValue;
+  FinishIn in{xy, level, angle, valid, response, reinterpret_cast<const int4*>(desc),
+              xr_in, d_in, depth_map, H, W, inv_factor};
+  return finish(model, N, feed, Intr{fx, fy, cx, cy, 0.f, 0.f, fxb},
+                Dist{k1, k2, p1, p2, k3, k4}, rcp_w, rcp_h, in,
+                FinishOut{und, bear, feed == kStereo ? nullptr : xr_out,
+                          feed == kStereo ? nullptr : d_out, packed},
+                stream);
 }

@@ -135,9 +135,8 @@ _SIGNATURES = {
     "svt_epipolar_top2": [_I, _I, _I] + [_P] * 14 + [_F, _I, _F] + [_P] * 5,
     # model, B, N1, N2, uv1, lvl1, bear1, uv2, lvl2, bear2, poses, match,
     # accepted, pair_valid, fx, fy, cx, cy, width, height, sigma_sq,
-    # scale_factors, num_levels, pos_out, idx_out, ok_out, stream
-    "svt_triangulate": [_I, _I, _I, _I] + [_P] * 10 + [_F] * 6 + [_P] * 2 + [_I]
-                       + [_P] * 4,
+    # scale_factors, pos_out, idx_out, ok_out, stream
+    "svt_triangulate": [_I, _I, _I, _I] + [_P] * 10 + [_F] * 6 + [_P] * 6,
     # model, B, N, M, kp_uv, kp_level, kp_desc, kp_valid, kp_xr, poses,
     # kf_valid, lm_f, lm_desc, lm_valid, fx, fy, cx, cy, width, height, fxb,
     # scale_factors, sigma_sq, num_levels, inv_log_scale, dmin_scale, margin,
@@ -174,8 +173,12 @@ _SIGNATURES = {
     # last_level, last_valid, scale_factors, margin, inv_log_scale, num_levels,
     # u, v, xr, rad, lo, hi, pred, valid, stream
     "svt_window_rows": [_I, _I, _I] + [_F] * 7 + [_P] * 7 + [_F, _F, _I] + [_P] * 9,
-    # model, N, fx, fy, cx, cy, k1, k2, p1, p2, k3, k4, pts, out, stream
+    # model, N, fx, fy, cx, cy, k1, k2, p1, p2, k3, k4, pts, out, bear, stream
     "svt_undistort": [_I, _I] + [_F] * 10 + [_P] * 4,
+    # model, feed, N, fx, fy, cx, cy, k1, k2, p1, p2, k3, k4, rcp_w, rcp_h,
+    # fxb, xy, level, angle, valid, response, desc, xr_in, d_in, depth_map,
+    # H, W, inv_factor, und, bear, xr_out, d_out, packed, stream
+    "svt_frame_finish": [_I] * 3 + [_F] * 13 + [_P] * 9 + [_I, _I, _F] + [_P] * 6,
 }
 
 

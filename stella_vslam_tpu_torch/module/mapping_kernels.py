@@ -154,7 +154,8 @@ def _check(t, shape, dtype, name, fn):
 def triangulate_checks(kp1_uv, kp1_level, kp1_bear, kp2_uv, kp2_level, kp2_bear,
                        poses, idx2, accepted, pair_valid, cam, sigma_sq,
                        scale_factors, model=CameraModel.PERSPECTIVE) -> TriangulationResult:
-    """Kernel K on CUDA tensors, the plain version on CPU tensors."""
+    """Kernel K on CUDA tensors (one launch; the bool tensors read and
+    written as bytes), the plain version on CPU tensors."""
     if not kp1_uv.is_cuda:
         return triangulate_checks_plain(kp1_uv, kp1_level, kp1_bear, kp2_uv, kp2_level,
                                         kp2_bear, poses, idx2, accepted, pair_valid, cam,
@@ -163,29 +164,28 @@ def triangulate_checks(kp1_uv, kp1_level, kp1_bear, kp2_uv, kp2_level, kp2_bear,
     B, N2 = kp2_uv.shape[0], kp2_uv.shape[1]
     N1 = kp1_uv.shape[0]
     L = sigma_sq.shape[0]
-    f, i, u8 = torch.float32, torch.int32, torch.uint8
-    accepted, pair_valid = accepted.to(u8).contiguous(), pair_valid.to(u8).contiguous()
+    f, i, bl = torch.float32, torch.int32, torch.bool
     for t, shape, dt, name in (
             (kp1_uv, (N1, 2), f, "kp1_uv"), (kp1_level, (N1,), i, "kp1_level"),
             (kp1_bear, (N1, 3), f, "kp1_bear"), (kp2_uv, (B, N2, 2), f, "kp2_uv"),
             (kp2_level, (B, N2), i, "kp2_level"), (kp2_bear, (B, N2, 3), f, "kp2_bear"),
             (poses, (B + 1, 12), f, "poses"), (idx2, (B, N1), i, "idx2"),
-            (accepted, (B, N1), u8, "accepted"), (pair_valid, (B,), u8, "pair_valid"),
+            (accepted, (B, N1), bl, "accepted"), (pair_valid, (B,), bl, "pair_valid"),
             (sigma_sq, (L,), f, "sigma_sq"), (scale_factors, (L,), f, "scale_factors")):
         _check(t, shape, dt, name, "triangulate_checks")
     pos = torch.empty((B, N1, 3), dtype=f, device=kp1_uv.device)
     idx_out = torch.empty((B, N1), dtype=i, device=kp1_uv.device)
-    ok = torch.empty((B, N1), dtype=u8, device=kp1_uv.device)
+    ok = torch.empty((B, N1), dtype=bl, device=kp1_uv.device)
     lib = kbuild.load()
     kbuild.check(lib.svt_triangulate(
         kind, B, N1, N2, kp1_uv.data_ptr(), kp1_level.data_ptr(), kp1_bear.data_ptr(),
         kp2_uv.data_ptr(), kp2_level.data_ptr(), kp2_bear.data_ptr(), poses.data_ptr(),
         idx2.data_ptr(), accepted.data_ptr(), pair_valid.data_ptr(), cam.fx, cam.fy,
         cam.cx, cam.cy, cam.width, cam.height, sigma_sq.data_ptr(),
-        scale_factors.data_ptr(), L, pos.data_ptr(), idx_out.data_ptr(), ok.data_ptr(),
+        scale_factors.data_ptr(), pos.data_ptr(), idx_out.data_ptr(), ok.data_ptr(),
         kbuild.stream_ptr(kp1_uv.device)), "triangulate")
     triangulate_checks.launches += 1
-    return TriangulationResult(pos, idx_out, ok.bool())
+    return TriangulationResult(pos, idx_out, ok)
 
 
 triangulate_checks.launches = 0

@@ -8,11 +8,21 @@ of bundle adjustment's reduced-camera solve and of `spd_solve`),
 `smallest_eigvec_spd` (:143, the RANSAC null vector) and `inv3x3` (:174).
 `spd_solve` is the dense SPD solve on the card: kernel G's tiled Cholesky
 (csrc/ba_schur.cu svt_spd_solve), the pose graph's 7K x 7K solve.
+
+`sum_in_order`, `dot_in_order`, `matmul_f32` and `svd3_lapack` round as the
+JAX version's jitted programs do on the CPU (read from XLA's optimized HLO
+and the bits): a short reduction is a loop that adds in index order from 0,
+a reduction of a product an FMA chain, a small dot (and a float32 matmul on
+the CPU) an FMA chain over k, and jnp.linalg.svd LAPACK's sgesdd, which
+jaxlib calls through scipy. Written as explicit chains, they give the same
+bits on the CPU and on the card.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from stella_vslam_tpu_torch.camera.base import round_sum_f32
 from stella_vslam_tpu_torch.kernels import build as kbuild
 
 # kernel G's routes (csrc/ba_schur.cu): up to this n one block or a cluster
@@ -176,13 +186,71 @@ def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 spd_solve.launches = 0
 
 
+def sum_in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum over `dim` from 0 in index order, each addition rounded
+    (XLA's CPU loop for a reduction of a few dozen elements)."""
+    x = x.movedim(dim, 0)
+    acc = torch.zeros_like(x[0])
+    for k in range(x.shape[0]):
+        acc = acc + x[k]
+    return acc
+
+
+def dot_in_order(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """sum(a * b) over `dim` of float32 tensors as an FMA chain from 0 in
+    index order, each step rounded once (XLA's CPU reduction of a fused
+    product)."""
+    p = (a.double() * b.double()).movedim(dim, 0)
+    acc = torch.zeros(p.shape[1:], dtype=torch.float32, device=p.device)
+    for k in range(p.shape[0]):
+        acc = round_sum_f32(p[k], acc)
+    return acc
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for float32 [..., m, k] and [..., k, n] as XLA's CPU dot of
+    small matrices (and a float32 matmul on the CPU) rounds it: each entry
+    a_i0 b_0j, then + a_ik b_kj in k order, each step one FMA."""
+    A, B = a.double(), b.double()
+    acc = (A[..., :, 0, None] * B[..., None, 0, :]).float()
+    for k in range(1, a.shape[-1]):
+        acc = round_sum_f32(A[..., :, k, None] * B[..., None, k, :], acc)
+    return acc
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 root (torch's float32 sqrt on the CPU is
+    not, on some inputs)."""
+    return torch.sqrt(x.double()).float()
+
+
+def svd3_lapack(F: torch.Tensor):
+    """(U, S, Vt) of float32 [..., 3, 3] as the JAX version's
+    jnp.linalg.svd computes them on the CPU: LAPACK's sgesdd (jaxlib binds
+    scipy's LAPACK), matrix by matrix on the host; NaN where it fails, as
+    jaxlib fills them."""
+    from scipy.linalg import lapack
+
+    f = F.detach().cpu().numpy().reshape(-1, 3, 3)
+    U = np.full_like(f, np.nan)
+    S = np.full(f.shape[:-1], np.nan, np.float32)
+    Vt = np.full_like(f, np.nan)
+    for b in range(f.shape[0]):
+        u, s, vt, info = lapack.sgesdd(f[b], compute_uv=1, full_matrices=1)
+        if info == 0:
+            U[b], S[b], Vt[b] = u, s, vt
+    t = lambda a, shape: torch.from_numpy(a).reshape(shape).to(F.device)
+    return t(U, F.shape), t(S, F.shape[:-1]), t(Vt, F.shape)
+
+
 def smallest_eigvec_spd(A: torch.Tensor, num_squarings: int = 18) -> torch.Tensor:
     """Eigenvector of the smallest eigenvalue of batched symmetric PSD
     [..., D, D] (port of smallest_eigvec_spd, stella_vslam_tpu/ops/linalg.py
     :143): M = (sigma I - A) / sigma with sigma the largest absolute row sum,
     squared num_squarings times with Frobenius renormalisation, then the
-    column of largest norm (first on ties), normalised. The RANSAC solvers'
-    DLT null vector; kernel E runs the same 18 squarings."""
+    column of largest norm (first on ties), normalised. PnP's DLT null
+    vector, in torch's rounding; the two-view fits take
+    smallest_eigvec_spd_in_order."""
     D = A.shape[-1]
     sigma = torch.amax(torch.sum(torch.abs(A), dim=-1), dim=-1)[..., None, None]
     eye = torch.eye(D, dtype=A.dtype, device=A.device)
@@ -193,6 +261,26 @@ def smallest_eigvec_spd(A: torch.Tensor, num_squarings: int = 18) -> torch.Tenso
     col = torch.argmax(torch.sum(M * M, dim=-2), dim=-1)
     v = torch.gather(M, -1, col[..., None, None].expand(M.shape[:-1] + (1,)))[..., 0]
     return v / (torch.linalg.norm(v, dim=-1, keepdim=True) + 1e-12)
+
+
+def smallest_eigvec_spd_in_order(A: torch.Tensor, num_squarings: int = 18) -> torch.Tensor:
+    """smallest_eigvec_spd rounded as the JAX version's jitted program: the
+    row sums in order, each square an FMA chain (matmul_f32), the squared
+    norms FMA chains in order, the roots correctly rounded, the divisions
+    true. The two-view RANSAC fits' null vector (their plain versions;
+    kernel E runs the same chains); each step is a few torch operations per
+    element of a chain, so it is for the CPU and for checks on the card."""
+    D = A.shape[-1]
+    sigma = torch.amax(sum_in_order(torch.abs(A), -1), dim=-1)[..., None, None]
+    eye = torch.eye(D, dtype=A.dtype, device=A.device)
+    M = (sigma * eye - A) / (sigma + 1e-30)
+    for _ in range(num_squarings):
+        M = matmul_f32(M, M)
+        flat = M.reshape(M.shape[:-2] + (D * D,))
+        M = M / (sqrt_f32(dot_in_order(flat, flat, -1)) + 1e-30)[..., None, None]
+    col = torch.argmax(dot_in_order(M, M, -2), dim=-1)
+    v = torch.gather(M, -1, col[..., None, None].expand(M.shape[:-1] + (1,)))[..., 0]
+    return v / (sqrt_f32(dot_in_order(v, v, -1))[..., None] + 1e-12)
 
 
 def inv3x3(A: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,7 @@ import torch
 
 from stella_vslam_tpu_torch.ops import lie, linalg
 from stella_vslam_tpu_torch.ops.solve import essential_5pt, ransac
+from stella_vslam_tpu_torch.ops.solve.homography import normal_matrix
 
 COS_ANGLE_THR = math.cos(math.pi / 180.0)
 
@@ -39,7 +40,7 @@ def compute_E_21(b1: torch.Tensor, b2: torch.Tensor, valid=None) -> torch.Tensor
     A = torch.cat([b2[..., 0:1] * b1, b2[..., 1:2] * b1, b2[..., 2:3] * b1], dim=-1)
     if valid is not None:
         A = A * valid[..., None].to(A.dtype)
-    e = linalg.smallest_eigvec_spd(torch.einsum("...ki,...kj->...ij", A, A))
+    e = linalg.smallest_eigvec_spd_in_order(normal_matrix(A, valid is None))
     return e.reshape(e.shape[:-1] + (3, 3))
 
 

@@ -11,9 +11,10 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from stella_vslam_tpu_torch.camera.base import _fma_f32
 from stella_vslam_tpu_torch.ops import linalg
 from stella_vslam_tpu_torch.ops.solve import ransac
-from stella_vslam_tpu_torch.ops.solve.homography import _normalize
+from stella_vslam_tpu_torch.ops.solve.homography import _normalize, normal_matrix
 
 CHI_SQ = 5.991
 
@@ -26,46 +27,58 @@ class FundamentalResult(NamedTuple):
     valid: torch.Tensor
 
 
+def dlt_rows(n1: torch.Tensor, n2: torch.Tensor) -> torch.Tensor:
+    """The 8-point DLT rows [..., k, 9] of normalized pairs [..., k, 2]."""
+    x1, y1 = n1[..., 0], n1[..., 1]
+    x2, y2 = n2[..., 0], n2[..., 1]
+    return torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1,
+                        torch.ones_like(x1)], -1)
+
+
 def null_vector_F(pts1: torch.Tensor, pts2: torch.Tensor, valid=None):
     """The normalized 8-point null vector before the rank-2 step, batched
     over [..., k, 2] pairs: (Fn [..., 3, 3] in normalized coordinates, T1,
     T2), with F = T2^T rank2(Fn) T1."""
     n1, T1 = _normalize(pts1, valid)
     n2, T2 = _normalize(pts2, valid)
-    x1, y1 = n1[..., 0], n1[..., 1]
-    x2, y2 = n2[..., 0], n2[..., 1]
-    A = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1,
-                     torch.ones_like(x1)], -1)  # [..., k, 9]
+    A = dlt_rows(n1, n2)
     if valid is not None:
         A = A * valid[..., None].to(A.dtype)
-    AtA = torch.einsum("...ki,...kj->...ij", A, A)
-    f = linalg.smallest_eigvec_spd(AtA)
+    f = linalg.smallest_eigvec_spd_in_order(normal_matrix(A, valid is None))
     return f.reshape(f.shape[:-1] + (3, 3)), T1, T2
 
 
 def compute_F_21(pts1: torch.Tensor, pts2: torch.Tensor, valid=None) -> torch.Tensor:
     """Normalized 8-point algorithm on [..., k, 2] pairs, batched, with the
-    rank-2 projection (smallest singular value set to 0)."""
+    rank-2 projection (smallest singular value set to 0) by LAPACK's sgesdd
+    and the products as FMA chains, as the JAX version's jitted program
+    computes them on the CPU."""
     Fn, T1, T2 = null_vector_F(pts1, pts2, valid)
-    U, S, Vt = torch.linalg.svd(Fn)
+    U, S, Vt = linalg.svd3_lapack(Fn)
     S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], dim=-1)
-    Fn = U @ (S[..., :, None] * Vt)
-    return T2.transpose(-1, -2) @ Fn @ T1
+    Fn = linalg.matmul_f32(U, S[..., :, None] * Vt)
+    return linalg.matmul_f32(linalg.matmul_f32(T2.transpose(-1, -2), Fn), T1)
 
 
 def _epipolar_cost(F_21, pts1, pts2, sigma: float):
     """[..., N] (inlier, capped cost) of the symmetric point-to-epiline
     distance (reference fundamental_solver::check_inliers); F_21
-    [..., 3, 3] against points [..., N, 2]."""
+    [..., 3, 3] against points [..., N, 2]. Rounded as the JAX version's
+    jitted einsums: each epiline entry fma(F_i1, y, F_i0 x) + F_i2, the
+    point's residual fma(y', l_1, x' l_0) + l_2, the denominator fma(l_0,
+    l_0, l_1 l_1) + 1e-12."""
     F = lambda i, j: F_21[..., i, j, None]
+    fma = _fma_f32
     x1, y1 = pts1[..., 0], pts1[..., 1]
     x2, y2 = pts2[..., 0], pts2[..., 1]
     # epiline of p1 in image 2 (F p1) and of p2 in image 1 (F^T p2)
-    l2 = [F(i, 0) * x1 + F(i, 1) * y1 + F(i, 2) for i in range(3)]
-    l1 = [F(0, j) * x2 + F(1, j) * y2 + F(2, j) for j in range(3)]
-    d2 = (x2 * l2[0] + y2 * l2[1] + l2[2]) ** 2 / (l2[0] ** 2 + l2[1] ** 2 + 1e-12)
-    d1 = (x1 * l1[0] + y1 * l1[1] + l1[2]) ** 2 / (l1[0] ** 2 + l1[1] ** 2 + 1e-12)
-    dist_sq = torch.maximum(d1, d2)
+    l2 = [fma(F(i, 1), y1, F(i, 0) * x1) + F(i, 2) for i in range(3)]
+    l1 = [fma(F(1, j), y2, F(0, j) * x2) + F(2, j) for j in range(3)]
+
+    def dist(x, y, l):
+        e = fma(y, l[1], x * l[0]) + l[2]
+        return e * e / (fma(l[0], l[0], l[1] * l[1]) + 1e-12)
+    dist_sq = torch.maximum(dist(x1, y1, l1), dist(x2, y2, l2))
     thr = CHI_SQ * sigma * sigma
     inlier = dist_sq < thr
     return inlier, torch.where(inlier, dist_sq, torch.full_like(dist_sq, thr))

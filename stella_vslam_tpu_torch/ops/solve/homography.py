@@ -29,10 +29,14 @@ class HomographyResult(NamedTuple):
 
 def _normalize(pts: torch.Tensor, valid=None):
     """Hartley normalization (mean / mean absolute deviation per axis):
-    (normed [..., k, 2], T [..., 3, 3]) with normed_h = T @ pt_h."""
+    (normed [..., k, 2], T [..., 3, 3]) with normed_h = T @ pt_h. Without
+    `valid` (a minimal set) the sums run in order from 0 and the mean is a
+    product with 1 / k, as the JAX version's jitted program rounds them;
+    with `valid` (a refit over every match) they are torch's sums."""
     if valid is None:
-        mean = torch.mean(pts, dim=-2, keepdim=True)
-        dev = torch.mean(torch.abs(pts - mean), dim=-2, keepdim=True) + 1e-12
+        inv_k = 1.0 / pts.shape[-2]
+        mean = linalg.sum_in_order(pts, -2)[..., None, :] * inv_k
+        dev = linalg.sum_in_order(torch.abs(pts - mean), -2)[..., None, :] * inv_k + 1e-12
     else:
         w = valid[..., None].to(pts.dtype)
         cnt = torch.sum(w, dim=-2, keepdim=True) + 1e-12
@@ -50,11 +54,17 @@ def _normalize(pts: torch.Tensor, valid=None):
     return normed, T
 
 
-def compute_H_21(pts1: torch.Tensor, pts2: torch.Tensor, valid=None) -> torch.Tensor:
-    """DLT from [..., k, 2] correspondences (k >= 4) with normalization;
-    rows where `valid` is false contribute no equation."""
-    n1, T1 = _normalize(pts1, valid)
-    n2, T2 = _normalize(pts2, valid)
+def normal_matrix(A: torch.Tensor, minimal: bool) -> torch.Tensor:
+    """A^T A of DLT rows [..., k, 9]: for a minimal set the FMA chain over
+    the rows in order (the JAX version's jitted dot), else torch's einsum."""
+    if minimal:
+        return linalg.matmul_f32(A.transpose(-1, -2), A)
+    return torch.einsum("...ki,...kj->...ij", A, A)
+
+
+def dlt_rows(n1: torch.Tensor, n2: torch.Tensor) -> torch.Tensor:
+    """The 4-point DLT rows [..., 2k, 9] of normalized pairs [..., k, 2]:
+    every pair's first row, then every pair's second."""
     x1, y1 = n1[..., 0], n1[..., 1]
     x2, y2 = n2[..., 0], n2[..., 1]
     zeros, ones = torch.zeros_like(x1), torch.ones_like(x1)
@@ -62,13 +72,33 @@ def compute_H_21(pts1: torch.Tensor, pts2: torch.Tensor, valid=None) -> torch.Te
                           y2 * x1, y2 * y1, y2], -1)
     rows_b = torch.stack([x1, y1, ones, zeros, zeros, zeros,
                           -x2 * x1, -x2 * y1, -x2], -1)
-    A = torch.cat([rows_a, rows_b], dim=-2)  # [..., 2k, 9]
+    return torch.cat([rows_a, rows_b], dim=-2)
+
+
+def compute_H_21(pts1: torch.Tensor, pts2: torch.Tensor, valid=None) -> torch.Tensor:
+    """DLT from [..., k, 2] correspondences (k >= 4) with normalization;
+    rows where `valid` is false contribute no equation."""
+    n1, T1 = _normalize(pts1, valid)
+    n2, T2 = _normalize(pts2, valid)
+    A = dlt_rows(n1, n2)
     if valid is not None:
         A = A * torch.cat([valid, valid], dim=-1)[..., None].to(A.dtype)
-    AtA = torch.einsum("...ki,...kj->...ij", A, A)
-    h = linalg.smallest_eigvec_spd(AtA)
+    h = linalg.smallest_eigvec_spd_in_order(normal_matrix(A, valid is None))
     Hn = h.reshape(h.shape[:-1] + (3, 3))
-    return torch.linalg.inv(T2) @ Hn @ T1
+    return linalg.matmul_f32(linalg.matmul_f32(_inverse_T(T2), Hn), T1)
+
+
+def _inverse_T(T: torch.Tensor) -> torch.Tensor:
+    """The inverse of a normalization [[sx, 0, tx], [0, sy, ty], [0, 0, 1]]
+    as the JAX version's jnp.linalg.inv computes it on the CPU (LAPACK's
+    sgetrf leaves the triangle as it is, and the triangular solve
+    multiplies by the diagonal's reciprocals): [[r, 0, -tx r], [0, s, -ty
+    s], [0, 0, 1]] with r = 1 / sx, s = 1 / sy."""
+    r, s = 1.0 / T[..., 0, 0], 1.0 / T[..., 1, 1]
+    zeros, ones = torch.zeros_like(r), torch.ones_like(r)
+    return torch.stack([torch.stack([r, zeros, -T[..., 0, 2] * r], -1),
+                        torch.stack([zeros, s, -T[..., 1, 2] * s], -1),
+                        torch.stack([zeros, zeros, ones], -1)], -2)
 
 
 def _adj_inverse(H: torch.Tensor) -> torch.Tensor:

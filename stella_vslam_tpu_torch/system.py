@@ -41,7 +41,7 @@ from stella_vslam_tpu_torch.camera.base import Camera, Setup, camera_from_yaml
 from stella_vslam_tpu_torch.config import Config
 from stella_vslam_tpu_torch.data.bow_database import BowDatabase
 from stella_vslam_tpu_torch.data.bow_vocabulary import BowVocabulary
-from stella_vslam_tpu_torch.data.frame import Frame, pack_host_cols
+from stella_vslam_tpu_torch.data.frame import Frame, frame_finish
 from stella_vslam_tpu_torch.data.map_database import MapDatabase
 from stella_vslam_tpu_torch.feature.orb_extractor import OrbExtractor
 from stella_vslam_tpu_torch.feature.orb_params import OrbParams
@@ -188,7 +188,7 @@ class System:
             if self.camera.setup == Setup.STEREO:
                 self.create_stereo_frame(blank, blank, 0.0)
             else:
-                self._extract(blank, None)
+                frame_finish(self.camera, self._extract(blank, None))
         self.tracker.warmup(n, self.map_db.device_table.capacity)
         self.mapper.warmup(n)
         if self.global_optimizer.loop_detector_is_enabled():
@@ -349,12 +349,8 @@ class System:
         excludes."""
         if self.camera.setup != Setup.MONOCULAR:
             raise ValueError("feed_monocular_frame needs a camera with setup monocular")
-        feats, und, bear = self._extract(img, mask)
-        frm = Frame(timestamp, self.camera, self.orb_params, feats, und, bear)
-        frm.attach_packed_host(pack_host_cols(
-            feats.xy, und, bear, feats.level, feats.angle, feats.valid,
-            feats.response, frm.x_right, frm.depths, feats.desc))
-        return frm
+        feats = self._extract(img, mask)
+        return self._frame(timestamp, feats, frame_finish(self.camera, feats))
 
     def feed_monocular_frame(self, img, timestamp: float, mask=None):
         """Initialize or track one frame. Inline, the keyframe events it
@@ -391,13 +387,8 @@ class System:
             scale_factors=self._scale_factors,
             focal_x_baseline=cam.params.focal_x_baseline, true_baseline=cam.true_baseline,
             layout=self.extractor.slot_layout)
-        und, bear = cam.undistort_and_bearings(fl.xy)
-        frm = Frame(timestamp, cam, self.orb_params, fl, und, bear, x_right=x_right,
-                    depths=depths)
-        frm.attach_packed_host(pack_host_cols(
-            fl.xy, und, bear, fl.level, fl.angle, fl.valid, fl.response, x_right, depths,
-            fl.desc))
-        return frm
+        return self._frame(timestamp, fl, frame_finish(cam, fl, x_right=x_right,
+                                                       depths=depths))
 
     def feed_stereo_frame(self, img_left, img_right, timestamp: float, mask=None):
         """Track one stereo pair; inline, returns its pose_cw, or None when
@@ -416,25 +407,12 @@ class System:
         accepted and not applied, as in the JAX version."""
         if self.camera.setup != Setup.RGBD:
             raise ValueError("feed_RGBD_frame needs a camera with setup RGBD")
-        feats, und, bear = self._extract(img, None)
-        cam = self.camera
+        feats = self._extract(img, None)
         depth_map = streams.upload(np.asarray(depth, np.float32), self.device)
-        h, w = depth_map.shape
-        xs = torch.clamp(feats.xy[:, 0].to(torch.int64), 0, w - 1)
-        ys = torch.clamp(feats.xy[:, 1].to(torch.int64), 0, h - 1)
         # raw units -> meters (reference image_converter.cc convert_to_true_depth)
-        d = depth_map[ys, xs] * (1.0 / self.depthmap_factor)
-        neg = torch.full_like(d, -1.0)
-        d = torch.where(feats.valid & (d > 0), d, neg)
-        x_right = torch.where(
-            d > 0, und[:, 0] - cam.params.focal_x_baseline / torch.clamp(d, min=1e-6),
-            neg)
-        frm = Frame(timestamp, cam, self.orb_params, feats, und, bear,
-                    x_right=x_right, depths=d)
-        frm.attach_packed_host(pack_host_cols(
-            feats.xy, und, bear, feats.level, feats.angle, feats.valid,
-            feats.response, x_right, d, feats.desc))
-        return frm
+        return self._frame(timestamp, feats, frame_finish(
+            self.camera, feats, depth_map=depth_map,
+            inv_depth_factor=1.0 / self.depthmap_factor))
 
     def feed_RGBD_frame(self, img, depth, timestamp: float, mask=None):
         """Track one frame; inline, returns its pose_cw, or None when lost."""
@@ -446,9 +424,17 @@ class System:
         self._after_feed(img, frm, pose, t0, t_ext)
         return pose
 
+    def _frame(self, timestamp: float, feats, fin) -> Frame:
+        """The Frame of extracted features and their finish (data/frame.py
+        frame_finish), its packed host mirror on its way to the host."""
+        frm = Frame(timestamp, self.camera, self.orb_params, feats, fin.undist_xy,
+                    fin.bearings, x_right=fin.x_right, depths=fin.depths)
+        frm.attach_packed_host(fin.packed)
+        return frm
+
     def _extract(self, img, mask):
-        """(features, undistorted keypoints, bearings) of one image; `mask`
-        ([H,W], 0 = excluded) goes up with the image in one copy."""
+        """The features of one image; `mask` ([H,W], 0 = excluded) goes up
+        with the image in one copy."""
         # through pinned memory: a copy from pageable memory would make the
         # host wait for the stream, i.e. for the frames still in flight
         gray = self._to_gray(img)
@@ -462,9 +448,7 @@ class System:
                                  f"shape {gray.shape}")
             pair = streams.upload(np.stack([gray, (mask != 0).astype(np.uint8)]), self.device)
             image, dev_mask = pair[0], pair[1]
-        feats = self.extractor.extract(image, dev_mask)
-        und, bear = self.camera.undistort_and_bearings(feats.xy)
-        return feats, und, bear
+        return self.extractor.extract(image, dev_mask)
 
     @staticmethod
     def _to_gray(img) -> np.ndarray:

@@ -65,6 +65,7 @@ def kernel_wrappers() -> dict:
     launches)."""
     from stella_vslam_tpu_torch.camera import base as cam_base
     from stella_vslam_tpu_torch.data import bow_vocabulary as bow
+    from stella_vslam_tpu_torch.data import frame as frame_mod
     from stella_vslam_tpu_torch.data import fbow_io
     from stella_vslam_tpu_torch.feature import orb_extractor as ox
     from stella_vslam_tpu_torch.match import hamming as H
@@ -99,9 +100,7 @@ def kernel_wrappers() -> dict:
             "pose_graph": sim3.pose_graph_linearize, "spd_solve": linalg.spd_solve,
             "scatter_to_current": tk.scatter_to_current, "dedup_by_id": tk.dedup_by_id,
             "rebase_chain": tk.rebase_chain, "project_window_rows": cam_base.project_window_rows,
-            "undistort_norm": cam_base.undistort_norm,
-            "undistort_fisheye": cam_base.undistort_fisheye,
-            "undistort_radial": cam_base.undistort_radial,
+            "frame_finish": frame_mod.frame_finish,
             "fbow_transform": fbow_io.fbow_transform}
 
 

@@ -1275,6 +1275,77 @@ def test_undistort_modes_equal_plain_bit_for_bit(dev, model, n):
     assert torch.equal(und, out) and torch.equal(bear, plain(p, pts, bearings=True)[1])
 
 
+def _cuda_kernels(fn) -> int:
+    """The CUDA kernels one call of fn launches (torch.profiler; copies and
+    memsets not counted)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset")))
+
+
+@pytest.mark.parametrize("feed", ["mono", "stereo", "RGBD"])
+@pytest.mark.parametrize("model", ["perspective", "fisheye", "radial_division",
+                                   "equirectangular"])
+@pytest.mark.parametrize("n", [1, 333, 2872])
+def test_frame_finish_equals_plain_bit_for_bit(dev, model, feed, n):
+    """Kernel R's frame finish, one launch, against its plain version on the
+    card: the undistorted keypoints, bearings, x_right, depths and packed
+    host rows bit for bit, for each camera model and feed (kernel T's
+    outputs passed in; a depth map with holes), ragged slot counts."""
+    import chip_smoke
+    from stella_vslam_tpu_torch.data import frame as fm
+
+    cam = chip_smoke.finish_camera(model)
+    feats, kw = chip_smoke.finish_case(dev, cam, feed, n, seed=n)
+    before = fm.frame_finish.launches
+    k = fm.frame_finish(cam, feats, **kw)
+    assert fm.frame_finish.launches == before + 1
+    q = fm.frame_finish_plain(cam, feats, **kw)
+    assert chip_smoke.finish_bits_apart(k, q) == dict.fromkeys(fm.FrameFinish._fields, 0)
+
+
+@pytest.mark.parametrize("feed", ["mono", "stereo", "RGBD"])
+def test_frame_finish_is_one_cuda_kernel(dev, feed):
+    """The finish of a frame is one CUDA kernel whatever the feed (the
+    parent launched the undistortion and 4-20 torch kernels around it)."""
+    import chip_smoke
+    from stella_vslam_tpu_torch.data import frame as fm
+
+    cam = chip_smoke.finish_camera("perspective")
+    feats, kw = chip_smoke.finish_case(dev, cam, feed, 2872, seed=5)
+    assert _cuda_kernels(lambda: fm.frame_finish(cam, feats, **kw)) == 1
+
+
+@pytest.mark.parametrize("model", ["perspective", "equirectangular"])
+def test_triangulate_kernel_is_one_launch_and_repeatable(dev, model):
+    """Kernel K takes the bool match flags and writes `ok` as bool itself:
+    one CUDA kernel a call, no conversion; two calls give the same bits."""
+    import chip_smoke
+    from stella_vslam_tpu_torch.match import robust
+    from stella_vslam_tpu_torch.module import mapping_kernels as mkm
+
+    mk, cur, nbrs, poses, _, _, _ = _mapping_scene(dev, model=model)
+    E_12, epl2 = mkm.epipolar_terms(poses)
+    idx2, accepted, _ = robust.match_for_triangulation(
+        cur.angle, cur.level, cur.desc, cur.bear, cur.unassoc, cur.stereo, nbrs.angle,
+        nbrs.desc, nbrs.bear, nbrs.unassoc, nbrs.stereo, E_12, epl2,
+        scale_factors=mk.scale_factors)
+    kargs = (cur.uv, cur.level, cur.bear, nbrs.uv, nbrs.level, nbrs.bear, poses,
+             idx2.contiguous(), accepted, torch.tensor([True, True, False], device=dev),
+             mk.cam, mk.level_sigma_sq, mk.scale_factors, mk.camera.model)
+    assert accepted.dtype == torch.bool
+    assert _cuda_kernels(lambda: mkm.triangulate_checks(*kargs)) == 1
+    a, b = mkm.triangulate_checks(*kargs), mkm.triangulate_checks(*kargs)
+    assert a.ok.dtype == torch.bool and int(a.ok.sum()) > 100
+    assert chip_smoke.tri_bits_apart(a, b) == dict(pos_w=0, idx2=0, ok=0)
+
+
 @pytest.mark.parametrize("size,levels", [((400, 300), 4), ((752, 480), 8)])
 def test_fast_nms_mask_kernel_equals_plain(dev, size, levels):
     """Kernel A with an extraction mask against its plain version on every
