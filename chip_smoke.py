@@ -35,7 +35,9 @@ Phases, each fatal on failure (nothing is caught):
      where E's F hypotheses part from plain (the counts of each
      hypothesis on four seeds, against plain and against plain's null
      vector projected to rank 2 in float64, the kernel's route for that
-     step); F, G, H, I (bundle adjustment) against the plain BA on an
+     step); the LO refit's normalisation on the card (XLA's windows of 32)
+     equal to plain's bits at 2872, 1199, 700 and 33 matches; F, G, H, I
+     (bundle adjustment) against the plain BA on an
      init-sized problem (K=2, L=4096, D=2) and a K=8, D=4 problem with
      stereo rows: poses within 1e-4, points seen twice within 1e-3,
      identical outlier flags;
@@ -110,8 +112,9 @@ Phases, each fatal on failure (nothing is caught):
      created and 10 kept, a loop edge in the graph, the frame after each
      correction tracked, kernels A-P launched; the loop event's time by phase;
  10. the loop kernels against their plain versions, on synthetic inputs at
-     the slice's shapes and on the inputs the loop slice recorded: M (BoW
-     descent, 2872 descriptors) equal leaf ids; N (PnP RANSAC, 256 sets x 8
+     the slice's shapes and on the inputs the loop slice recorded: V on the
+     .npz vocabulary's tree (BoW descent, 2872 descriptors) equal word ids;
+     N (PnP RANSAC, 256 sets x 8
      starts x 2872) hypothesis by hypothesis (ok flags and inlier counts
      equal and (R, t) within 1e-4 on at least 99% of the hypotheses, costs
      within 1e-4 relative), the same winner with the same inlier set and a
@@ -228,7 +231,7 @@ Phases, each fatal on failure (nothing is caught):
  18. the kernels the leg runs unchanged, at its own shapes and inputs
      (640x320, 6 levels, 1199 slots): S, A and B on one of its frames
      through its extractor with phase 3's and the stereo phase's bounds,
-     M on that frame's descriptors, C's angle gate on the init pair's area
+     V on that frame's descriptors, C's angle gate on the init pair's area
      match, J on its largest triangulation, Q on its sampled scatters and
      dedups; then the equirectangular modes against their plain versions
      on the leg's own inputs (R's rows of 1199 points and 4096 table rows
@@ -265,11 +268,12 @@ Phases, each fatal on failure (nothing is caught):
  20. the FBoW leg (util/fbow_slice.py): the threaded circuit with the
      fixture vocabulary tests/data/reference_layout_vocab.fbow: no worker
      exception, at most 8 frames lost after init, kernel V once per
-     keyframe event and kernel M never, the loops it closed reported (with
-     one, Sim3 ATE < 0.10 m); then V against plain, exactly, on the fixture
-     tree with 2872 random descriptors and with every keyframe event's
-     descriptors, and on the complete tree the port's write_fbow writes
-     from the packaged vocabulary (equal to kernel M's words there too).
+     keyframe event, the loops it closed reported (with one, Sim3 ATE <
+     0.10 m); then V against plain, exactly, on the fixture tree with 2872
+     random descriptors and with every keyframe event's descriptors, on
+     the packaged .npz vocabulary's tree (whose tables equal those the
+     port's write_fbow and read_fbow give) and on synthetic trees with
+     more than 16 children a block and with clamped child blocks.
 Launch counts are set to 0 just before each slice and read just after it;
 the kernels line's `launches` is the count on the path of the slice that
 ported the kernel (the stereo leg for S, B's strip mode and T; the
@@ -305,8 +309,9 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # (mapping disabled) never launch
 MAPPING_KERNELS = ("epipolar_top2", "epipolar_band_index", "triangulate", "fuse",
                    "fuse_cell_index")
-# kernels M-P: the loop closer's (M runs with the mapper's keyframe events)
-LOOP_KERNELS = ("bow_transform", "pnp_ransac", "sim3_transform", "pose_graph", "spd_solve",
+# kernels V and N-P: the loop closer's (V, the vocabulary's descent, runs
+# with the mapper's keyframe events)
+LOOP_KERNELS = ("fbow_transform", "pnp_ransac", "sim3_transform", "pose_graph", "spd_solve",
                 "match_frame_and_keyframe")
 # the stereo path's own: B's strip mode and T (S runs on every path)
 STEREO_KERNELS = ("orb_describe_strips", "stereo_match")
@@ -1180,6 +1185,18 @@ def check_init_kernels(dev, world):
             <= 0.01 * int(ref.num_inliers) and n_esc == 2, f"escalated {name} disagrees"
     for r in _f_route_readings(dev, (2, 3, 4, 5)):
         print("kernel E F route: " + json.dumps(r))
+    # the LO refit's normalisation (XLA's windows of 32) equals the plain's
+    # bits, on the slice's matches and past the window rules' edges
+    apart = {}
+    for name, data in (("H", pl), ("F", gen)):
+        for n in (N, 1199, 700, 33):
+            mask = data[2][:n] & (torch.arange(n, device=dev) % 3 != 0)
+            args = (data[0][:n].contiguous(), data[1][:n].contiguous(), mask.contiguous())
+            k = R.refit_normalization(*args)
+            q = R.refit_normalization(*(a.cpu() for a in args))
+            apart[f"{name} N={n}"] = int((k.cpu().view(torch.int32) != q.view(torch.int32)).sum())
+    print(f"kernel E LO refit normalisation, elements apart from plain's bits: {apart}")
+    assert not any(apart.values()), "kernel E's refit normalisation differs from plain's bits"
 
     def run_e(core):
         for mod, data in ((Hm, pl), (Fm, gen)):
@@ -2362,7 +2379,7 @@ def run_loop_slice(dev, world, wrappers, card):
     assert all(stats["frame_after_loop_tracked"]), "the frame after a correction was lost"
     for name, n in launches.items():
         assert n > 0 or name in THREADED_KERNELS + STEREO_KERNELS + EQUIRECT_KERNELS \
-            + FBOW_KERNELS + SHARDED_KERNELS, \
+            + SHARDED_KERNELS, \
             f"{name} was not launched by the loop slice"
     return stats, launches, slam, inputs, loop_calls
 
@@ -2630,12 +2647,12 @@ def _check_pose_graph(args, label, num_iter=20):
 
 
 def check_loop_kernels(dev, slam, rec):
-    """Kernels M, N, C's keyframe-match call, O and P against their plain
+    """Kernels V (the .npz tree), N, C's keyframe-match call, O and P against their plain
     versions on synthetic inputs at the slice's shapes and on the loop
     slice's recorded inputs; F-I at the global shape. Returns their rows."""
     import torch
 
-    from stella_vslam_tpu_torch.data import bow_vocabulary as bow
+    from stella_vslam_tpu_torch.data import fbow_io
     from stella_vslam_tpu_torch.match import hamming as H
     from stella_vslam_tpu_torch.match import projection as proj
     from stella_vslam_tpu_torch.ops import linalg
@@ -2646,29 +2663,23 @@ def check_loop_kernels(dev, slam, rec):
     rng = np.random.default_rng(40)
     N = 2872
 
-    # ---- M: BoW tree descent ----
-    packed = slam.bow_vocab.packed_centers()
+    # ---- V on the .npz vocabulary's tree: the keyframe events' descent ----
+    vocab = slam.bow_vocab
+    tab = vocab.tables()
     rand = torch.from_numpy(rng.integers(0, 2 ** 32, (N, 8), dtype=np.uint64).astype(np.uint32)
                             .view(np.int32)).to(dev)
     descs = [("random", rand)] + [(f"keyframe {i}", a[0][0].contiguous())
                                   for i, a in enumerate(rec["bow"][:3])]
-    differ_m = 0
+    differ_v = 0
     for label, d in descs:
-        differ_m += int((bow.bow_transform(d, packed) != bow.bow_transform_plain(d, packed)).sum())
+        differ_v += int((fbow_io.fbow_transform(d, tab)
+                         != fbow_io.fbow_transform_plain(d, tab)).sum())
     torch.cuda.synchronize()
-    print(f"kernel M bow_transform: {len(descs)} sets of {N} descriptors (random and the loop "
-          f"slice's keyframes), leaf ids differing from plain: {differ_m}")
-    assert differ_m == 0, "kernel M disagrees with its plain version"
-    d_m = descs[-1][1]
-    rows.append(dict(
-        name="bow_transform", route="cuda",
-        source="stella_vslam_tpu_torch/csrc/bow_transform.cu",
-        replaces="stella_vslam_tpu/data/bow_vocabulary.py:76", max_abs_err=float(differ_m),
-        **_times(lambda: bow.bow_transform(d_m, packed)),
-        plain_ms=_median_ms(lambda: bow.bow_transform_plain(d_m, packed), reps=10),
-        library_ms=None,
-        # per descriptor 4 levels x 10 children x 8 words of XOR, popcount, add
-        **_bound(N * 36.0 + packed.numel() * 4.0, N * 40 * 24.0)))
+    print(f"kernel V fbow_transform on the .npz tree ({tab.n_children.shape[0]} blocks x "
+          f"{tab.m_k}): {len(descs)} sets of {N} descriptors (random and the loop slice's "
+          f"keyframes), word ids differing from plain: {differ_v}")
+    assert differ_v == 0, "kernel V disagrees with its plain version on the .npz tree"
+    rows.append(_fbow_row("fbow_transform_npz", descs[-1][1], tab, counter="fbow_transform"))
 
     # ---- N: PnP RANSAC ----
     syn, sf = _pnp_problem(dev, N, 41)
@@ -2679,7 +2690,7 @@ def check_loop_kernels(dev, slam, rec):
     pa, psf = (tuple(x.contiguous() for x in rec["pnp"][0][0][1:5]),
                rec["pnp"][0][1]["scale_factors"]) if rec["pnp"] else (syn, sf)
     mc = pnp.max_cos_errors(psf, pa[2])
-    n_valid = int(pa[3].sum())
+    n_pa, n_valid = pa[0].shape[0], int(pa[3].sum())
     rows.append(dict(
         name="pnp_ransac", route="cuda", source="stella_vslam_tpu_torch/csrc/pnp_ransac.cu",
         replaces="stella_vslam_tpu/ops/solve/pnp.py:187", max_abs_err=err_n,
@@ -2687,10 +2698,12 @@ def check_loop_kernels(dev, slam, rec):
         plain_ms=_median_ms(lambda: pnp.pnp_hypotheses_plain(7, pa[0], pa[1], mc, pa[3], 256),
                             reps=5, warmup=1),
         library_ms=None,
-        # the hash of 3 B N draws (~12 integer operations), 2048 Newton solves
-        # (~24 x 60), and ~25 operations per (hypothesis, valid correspondence)
-        **_bound(N * 29.0 + 2048 * 60.0,
-                 256 * 3 * N * 12.0 + 2048 * 24 * 60.0 + 2048 * n_valid * 25.0)))
+        # bytes: the matches once (bearing, point, max_cos, valid) and the 2048
+        # hypotheses out; the hash of 3 B draws of each valid match (~12
+        # integer operations), 2048 Newton solves (~24 x 60) and ~25
+        # operations per (hypothesis, valid correspondence)
+        **_bound(n_pa * 29.0 + 2048 * 60.0, 2048 * 24 * 60.0 + 2048 * n_valid * 25.0,
+                 int_ops=256 * 3 * n_valid * 12.0)))
 
     # ---- C: the keyframe-match call (window mode, best only) ----
     def kf_match_inputs(margin):
@@ -4164,8 +4177,8 @@ def run_threaded_slice(dev, world, wrappers, card):
     assert not st["staged_event"] and st["queued"] == 0 and not st["pending_ba"] \
         and st["loop_queue"] == 0, f"work left at shutdown: {st}"
     for name, n in launches.items():
-        assert n > 0 or name in STEREO_KERNELS + EQUIRECT_KERNELS + FBOW_KERNELS \
-            + SHARDED_KERNELS, f"{name} was not launched by the threaded slice"
+        assert n > 0 or name in STEREO_KERNELS + EQUIRECT_KERNELS + SHARDED_KERNELS, \
+            f"{name} was not launched by the threaded slice"
     # kernel S: one launch a frame, the pyramid's every level (A's launches)
     assert launches["resize_pyramid"] == launches["fast_nms_pyramid"], \
         "kernel S: not one launch a frame on the threaded slice"
@@ -4722,7 +4735,7 @@ LEG_KERNELS = ("resize_pyramid", "fast_nms_pyramid", "hamming_top2", "cell_index
                "scatter_to_current", "dedup_by_id", "project_window_rows", "frame_finish",
                "epipolar_top2", "epipolar_band_index", "triangulate", "fuse", "fuse_cell_index",
                "ba_linearize_schur", "schur_index", "ba_reduced_solve", "ba_backsub_cost",
-               "ba_classify", "bow_transform")
+               "ba_classify", "fbow_transform")
 
 
 def run_stereo_legs(dev, world, wrappers, card):
@@ -4844,7 +4857,7 @@ EQUIRECT_LEG_KERNELS = ("resize_pyramid", "fast_nms_pyramid", "orb_describe", "h
                         "dedup_by_id", "project_window_rows", "epipolar_top2",
                         "epipolar_band_index", "triangulate", "fuse", "fuse_cell_index",
                         "ba_linearize_schur", "schur_index", "ba_reduced_solve",
-                        "ba_backsub_cost", "ba_classify", "bow_transform")
+                        "ba_backsub_cost", "ba_classify", "fbow_transform")
 # the rows of the equirectangular modes and of the kernels the leg runs
 # unchanged, held at its own shapes, by the counter they read
 EQUIRECT_ROWS = {"project_window_rows_equirect": "project_window_rows",
@@ -4859,8 +4872,8 @@ EQUIRECT_ROWS = {"project_window_rows_equirect": "project_window_rows",
                      "linearize_schur", "reduced_solve", "backsub_cost", "classify")},
                  **{f"{k}_equirect_leg": k for k in (
                      "resize_pyramid", "fast_nms_pyramid", "orb_describe", "epipolar_top2",
-                     "epipolar_band_index", "bow_transform", "scatter_to_current",
-                     "dedup_by_id")},
+                     "epipolar_band_index", "scatter_to_current", "dedup_by_id")},
+                 "fbow_transform_npz_equirect_leg": "fbow_transform",
                  "hamming_top2_equirect_leg": "hamming_top2_window"}
 # kernel U's candidates against its plain version's, as sets, up to sign:
 # the share within 1e-4 / 1e-3 / 1e-2 each way (the lesser), at least this
@@ -4989,13 +5002,13 @@ def check_equirect_shapes(dev, slam_like, calls):
     plain versions at its own shapes: S, A and B on one of its frames
     through its extractor (640x320, 6 levels, min_size 800: 1199 slots on
     a grid unlike the 752x480 slices'), with phase 3's and the stereo
-    phase's bounds; M on that frame's descriptors (exact); C's angle-gate
+    phase's bounds; V on that frame's descriptors (.npz tree, exact); C's angle-gate
     mode on the init pair's last area match and J on the leg's largest
     triangulation (rows differing <= 1e-3, as phases 4 and 8); Q on the
     leg's sampled scatters and dedups (exact). Returns their rows."""
     import torch
 
-    from stella_vslam_tpu_torch.data import bow_vocabulary as bow
+    from stella_vslam_tpu_torch.data import fbow_io
     from stella_vslam_tpu_torch.feature import orb_extractor as ox
     from stella_vslam_tpu_torch.match import area
     from stella_vslam_tpu_torch.match import hamming as H
@@ -5084,22 +5097,16 @@ def check_equirect_shapes(dev, slam_like, calls):
         plain_ms=_median_ms(lambda: ox.orb_describe_plain(*bargs)), library_ms=None,
         **_bound(pyr_bytes + 36.0 * ex.num_slots, _describe_ops(ang_k, valid, ex._tables))))
 
-    # ---- M: the BoW descent of the frame's descriptors ----
-    packed = slam_like.bow_vocab.packed_centers()
-    d_m = desc_k.contiguous()
-    differ_m = int((bow.bow_transform(d_m, packed) != bow.bow_transform_plain(d_m, packed)).sum())
+    # ---- V: the .npz vocabulary's descent of the frame's descriptors ----
+    tab = slam_like.bow_vocab.tables()
+    d_v = desc_k.contiguous()
+    differ_v = int((fbow_io.fbow_transform(d_v, tab) != fbow_io.fbow_transform_plain(d_v, tab))
+                   .sum())
     torch.cuda.synchronize()
-    print(f"kernel M bow_transform at the equirect leg's shape: {ex.num_slots} descriptors, "
-          f"leaf ids differing from plain: {differ_m}")
-    assert differ_m == 0, "kernel M disagrees with its plain version at the leg's shape"
-    rows.append(dict(
-        name="bow_transform_equirect_leg", route="cuda",
-        source="stella_vslam_tpu_torch/csrc/bow_transform.cu",
-        replaces="stella_vslam_tpu/data/bow_vocabulary.py:76", max_abs_err=float(differ_m),
-        shape=f"N={ex.num_slots}", **_times(lambda: bow.bow_transform(d_m, packed)),
-        plain_ms=_median_ms(lambda: bow.bow_transform_plain(d_m, packed), reps=10),
-        library_ms=None,
-        **_bound(ex.num_slots * 36.0 + packed.numel() * 4.0, ex.num_slots * 40 * 24.0)))
+    print(f"kernel V fbow_transform on the .npz tree at the equirect leg's shape: "
+          f"{ex.num_slots} descriptors, word ids differing from plain: {differ_v}")
+    assert differ_v == 0, "kernel V disagrees with its plain version at the leg's shape"
+    rows.append(_fbow_row("fbow_transform_npz_equirect_leg", d_v, tab))
 
     # ---- C, angle-gate mode: the init pair's area match ----
     a_args, a_kw = calls["area"][-1]
@@ -5447,7 +5454,8 @@ def check_equirect_kernels(dev, slam_like, calls):
     return rows
 
 
-# kernel V: the FBoW leg's own
+# kernel V's row on the FBoW leg's fixture tree (its launches are that leg's;
+# the .npz tree's rows read the threaded slice's and the equirect leg's)
 FBOW_KERNELS = ("fbow_transform",)
 # what every distorted leg launches (kernel R's frame finish in its model)
 DISTORTED_LEG_KERNELS = ("frame_finish", "resize_pyramid", "fast_nms_pyramid", "orb_describe",
@@ -5455,7 +5463,7 @@ DISTORTED_LEG_KERNELS = ("frame_finish", "resize_pyramid", "fast_nms_pyramid", "
                          "scatter_to_current", "dedup_by_id", "project_window_rows",
                          "epipolar_top2", "epipolar_band_index", "triangulate", "fuse",
                          "fuse_cell_index", "ba_linearize_schur", "schur_index",
-                         "ba_reduced_solve", "ba_backsub_cost", "ba_classify", "bow_transform")
+                         "ba_reduced_solve", "ba_backsub_cost", "ba_classify", "fbow_transform")
 # the rows whose launches are a distorted leg's (and its counter there)
 DISTORTED_ROWS = {"frame_finish_fisheye": ("fisheye", "frame_finish"),
                   "frame_finish_radial": ("radial_division", "frame_finish"),
@@ -5608,8 +5616,9 @@ def check_distorted_kernels(dev, world, recs):
 
 
 def _fbow_work(desc, tab):
-    """(popcount words, blocks visited) of the fixture tree's descent of
-    `desc`: what kernel V's loop runs for these descriptors."""
+    """(popcount words, distinct blocks visited) of the descent of `desc`
+    through the tables `tab`: what kernel V's loop runs for these
+    descriptors."""
     import torch
 
     from stella_vslam_tpu_torch.data.fbow_io import _POPCOUNT8
@@ -5623,11 +5632,11 @@ def _fbow_work(desc, tab):
     kidx = torch.arange(m_k, device=desc.device)
     blk = torch.zeros(N, dtype=torch.int64, device=desc.device)
     done = torch.zeros(N, dtype=torch.bool, device=desc.device)
-    words, visits = 0, 0
+    words, seen = 0, []
     for _ in range(tab.max_depth):
-        nc = tab.n_children[blk]
+        nc = tab.n_children[blk].clamp(max=m_k)
         words += int((nc * ~done).sum()) * 8
-        visits += int((~done).sum())
+        seen.append(blk[~done])
         dist = pop[torch.bitwise_xor(d8, c8[blk]).long()].sum(-1)
         dist = torch.where(kidx[None] < nc[:, None], dist, torch.full_like(dist, 257))
         node = info[blk, torch.argmin(dist, -1)]
@@ -5635,16 +5644,83 @@ def _fbow_work(desc, tab):
         blk = torch.where(done | leaf, blk, torch.clamp((node & 0x7FFFFFFF).long(),
                                                         max=nblocks - 1))
         done = done | leaf
-    return words, visits
+    return words, int(torch.unique(torch.cat(seen)).numel())
+
+
+def _fbow_row(name, desc, tab, **extra) -> dict:
+    """Kernel V's kernels-line row on descriptors `desc` and tables `tab`:
+    times, plain time, and the bound of this run's descent (bytes: the
+    descriptors in, the word ids out, each visited block's centres,
+    node_info and child count once; integer operations: XOR, popcount and
+    add per word of every present child of every visited block)."""
+    from stella_vslam_tpu_torch.data import fbow_io
+
+    words, blocks = _fbow_work(desc, tab)
+    nblocks, m_k, N = tab.n_children.shape[0], tab.m_k, desc.shape[0]
+    return dict(
+        name=name, route="cuda", source="stella_vslam_tpu_torch/csrc/bow_fbow.cu",
+        replaces="stella_vslam_tpu/data/fbow_io.py:128 and "
+                 "stella_vslam_tpu/data/bow_vocabulary.py:76", max_abs_err=0.0,
+        shape=f"N={N}, {nblocks} blocks x {m_k}, depth {tab.max_depth}",
+        blocks_visited=blocks, **extra,
+        **_times(lambda: fbow_io.fbow_transform(desc, tab)),
+        plain_ms=_median_ms(lambda: fbow_io.fbow_transform_plain(desc, tab), reps=10),
+        library_ms=None,
+        **_bound(36.0 * N + blocks * (m_k * 36.0 + 4.0), 0.0, int_ops=3.0 * words))
+
+
+def synthetic_fbow_tables(dev, case: str, seed: int):
+    """FBoW tables that the fixture and the .npz tree do not reach: "m_k=20"
+    and "m_k=40" (blocks of up to 20 or 40 children, 1 to m_k present, three
+    levels), "clamped" (m_k = 10, some interior children naming blocks past
+    the last, which read the last block; a block with no child; the last
+    block's children its own block, so a descent that reaches it ends
+    without a leaf after max_depth rounds)."""
+    import torch
+
+    from stella_vslam_tpu_torch.data.fbow_io import FbowTables
+
+    rng = np.random.default_rng(seed)
+    m_k = {"m_k=20": 20, "m_k=40": 40, "clamped": 10}[case]
+    depth = 3
+    n_children, info, levels, word = [], [], [0], 0
+    b = 0
+    while b < len(levels):
+        nc = m_k if b == 0 else int(rng.integers(1, m_k + 1))
+        row = np.zeros(m_k, np.uint32)
+        for k in range(m_k):
+            if levels[b] + 1 < depth and k < nc and rng.random() < 0.7 and len(levels) < 300:
+                row[k] = len(levels)
+                levels.append(levels[b] + 1)
+            else:
+                row[k] = 0x80000000 | word
+                word += 1
+        n_children.append(nc)
+        info.append(row)
+        b += 1
+    info, n_children = np.stack(info), np.array(n_children, np.int32)
+    nblocks = len(levels)
+    if case == "clamped":
+        interior = np.nonzero((info[0] & 0x80000000) == 0)[0]
+        info[0, interior[:2]] = nblocks + np.array([5, 1000])  # past the last block
+        n_children[1] = 0
+        info[-1] = nblocks - 1  # the last block: children its own block
+    centers = rng.integers(0, 2 ** 32, (nblocks * m_k, 8), dtype=np.uint64).astype(np.uint32)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+    return FbowTables(centers=up(centers), node_info=up(info.reshape(-1)),
+                      n_children=torch.from_numpy(n_children).to(dev), m_k=m_k,
+                      max_depth=depth + (1 if case == "clamped" else 0))
 
 
 def check_fbow_kernels(dev, recorded):
     """Kernel V against its plain version on the card, exactly: on the
     fixture tree (tests/data/reference_layout_vocab.fbow) with 2872 random
     descriptors and with the descriptors of every keyframe event of the
-    FBoW leg; on a complete tree that the port's write_fbow writes from the
-    packaged vocabulary, where the word ids also equal kernel M's on the
-    .npz form. Returns the kernels line's row."""
+    FBoW leg; on the .npz vocabulary's tree through BowVocabulary.transform
+    (one launch), whose tables must equal those read_fbow gives for the
+    same tree written by write_fbow; on synthetic trees with more than 16
+    children a block and with clamped child blocks. Returns the kernels
+    line's row of the fixture tree."""
     import tempfile
 
     import torch
@@ -5669,36 +5745,49 @@ def check_fbow_kernels(dev, recorded):
         path = os.path.join(tmp, "default.fbow")
         npz.save_fbow(path)
         full = fbow_io.read_fbow(path, dev)
-    ftab = full.tables()
-    k, q = fbow_io.fbow_transform(rand, ftab), fbow_io.fbow_transform_plain(rand, ftab)
+    ftab, ntab = full.tables(), npz.tables()
+    same_tables = all(torch.equal(a, b) for a, b in zip(ftab[:3], ntab[:3])) \
+        and (ftab.m_k, ftab.max_depth) == (ntab.m_k, ntab.max_depth)
+    before = fbow_io.fbow_transform.launches
     m = npz.transform(rand)
+    one_launch = fbow_io.fbow_transform.launches == before + 1
+    q = fbow_io.fbow_transform_plain(rand, ntab)
     torch.cuda.synchronize()
-    checked["complete tree"] = (N, int((k != q).sum()), int(torch.unique(k).numel()))
-    differ_m = int((k != m).sum())
+    checked[".npz tree"] = (N, int((m != q).sum()), int(torch.unique(m).numel()))
+    for case in ("m_k=20", "m_k=40", "clamped"):
+        stab = synthetic_fbow_tables(dev, case, seed=17)
+        k, q = fbow_io.fbow_transform(rand, stab), fbow_io.fbow_transform_plain(rand, stab)
+        torch.cuda.synchronize()
+        checked[f"synthetic {case}"] = (N, int((k != q).sum()), int(torch.unique(k).numel()))
     print(f"kernel V fbow_transform (descriptors, word ids differing from plain, distinct "
-          f"words): {checked}; the complete tree ({full.node_info.shape[0]} blocks, "
-          f"{full.num_words} words) against kernel M on the .npz form: {differ_m} differ")
+          f"words): {checked}; the .npz tree's tables equal read_fbow(write_fbow()): "
+          f"{same_tables}, its transform one launch: {one_launch}")
     assert not any(v[1] for v in checked.values()), "kernel V disagrees with its plain version"
-    assert differ_m == 0, "kernel V on the complete tree disagrees with kernel M"
-    words, visits = _fbow_work(rand, tab)
-    nblocks, m_k = tab.n_children.shape[0], tab.m_k
-    # bytes: the descriptors in, the word ids out, the tables once; operations:
-    # XOR, popcount and add per word of every child of every visited block
-    return [dict(
-        name="fbow_transform", route="cuda", source="stella_vslam_tpu_torch/csrc/bow_fbow.cu",
-        replaces="stella_vslam_tpu/data/fbow_io.py:128", max_abs_err=0.0,
-        shape=f"N={N}, {nblocks} blocks x {m_k}, depth {tab.max_depth}",
-        blocks_visited=visits,
-        **_times(lambda: fbow_io.fbow_transform(rand, tab)),
-        plain_ms=_median_ms(lambda: fbow_io.fbow_transform_plain(rand, tab)), library_ms=None,
-        **_bound(36.0 * N + nblocks * m_k * 36.0 + 4.0 * nblocks, 3.0 * words))]
+    assert same_tables and one_launch, "kernel V's .npz route is not the FBoW tables' one launch"
+    return [_fbow_row("fbow_transform", rand, tab)]
+
+
+def save_bow_pnp_inputs(loop_rec, fbow_desc, path=None):
+    """Save kernels V's and N's recorded inputs for
+    scripts/torch_bow_pnp_probe.py (chiprun_out/bow_pnp_inputs.pt): the loop
+    slice's keyframe descriptors and PnP calls, the FBoW leg's keyframe
+    descriptors."""
+    import torch
+
+    cpu = lambda t: t.detach().cpu() if isinstance(t, torch.Tensor) else t
+    torch.save(dict(
+        loop_desc=[cpu(a[0][0]) for a in loop_rec["bow"][:8]],
+        pnp=[(int(a[0]),) + tuple(cpu(x) for x in a[1:5]) + (cpu(kw["scale_factors"]),)
+             for a, kw in loop_rec["pnp"][:4]],
+        fbow_desc=[cpu(d) for d in fbow_desc[:8]]),
+        path or os.path.join(OUT_DIR, "bow_pnp_inputs.pt"))
 
 
 def run_fbow_leg(dev, world, wrappers, card):
     """The FBoW leg (util/fbow_slice.py): the threaded circuit with the
     fixture .fbow vocabulary, every launch count at 0 just before it and read
-    just after it, with the leg's gates: kernel V once per keyframe event,
-    kernel M never. Returns (stats, launches, the recorded descriptors of
+    just after it, with the leg's gates: kernel V once per keyframe event.
+    Returns (stats, launches, the recorded descriptors of
     every keyframe event)."""
     from stella_vslam_tpu_torch.util import fbow_slice as fs
 
@@ -5833,6 +5922,7 @@ def main() -> int:
     lap("distorted_legs_and_checks")
     fbow, fbow_launches, fbow_desc = run_fbow_leg(dev, world, wrappers, card)
     map_rows += check_fbow_kernels(dev, fbow_desc)
+    save_bow_pnp_inputs(loop_rec, fbow_desc)
     lap("fbow_leg_and_checks")
     for r in map_rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
@@ -5860,7 +5950,7 @@ def main() -> int:
         if row_name in DISTORTED_ROWS:
             leg, counter = DISTORTED_ROWS[row_name]
             row["launches"] = dist_launches[leg][counter]
-        elif name in FBOW_KERNELS:
+        elif row_name in FBOW_KERNELS:
             row["launches"] = fbow_launches[name]
         elif name in SHARDED_KERNELS:
             row["launches"] = launches["sharded"][name]

@@ -98,6 +98,7 @@ def loop_world(args):
     from stella_vslam_tpu.config import Config as JConfig
     from stella_vslam_tpu.module import initializer as jinit
     from stella_vslam_tpu.ops.solve import fundamental as jfm
+    from stella_vslam_tpu.ops.solve import homography as jhm
     from stella_vslam_tpu.ops.solve import ransac as jransac
     from stella_vslam_tpu.system import System as JSystem
     from stella_vslam_tpu.util.drift import inject_segment_drift as jax_drift
@@ -105,6 +106,7 @@ def loop_world(args):
     from stella_vslam_tpu_torch.module import initializer as tinit
     from stella_vslam_tpu_torch.module.initializer import key_seed_source
     from stella_vslam_tpu_torch.ops.solve import fundamental as tfm
+    from stella_vslam_tpu_torch.ops.solve import homography as thm
     from stella_vslam_tpu_torch.ops.solve import ransac as transac
     from stella_vslam_tpu_torch.system import System
     from stella_vslam_tpu_torch.util.drift import inject_segment_drift, pose_at_x
@@ -120,6 +122,8 @@ def loop_world(args):
     frames = [world.render(pose_at_x(x)) for x in xs + xs_back]
     # each package's F-RANSAC calls in order: (seed or key, p1, p2, mask, B)
     calls = {"jax": [], "port": []}
+    # and their results: (F_21 after the LO refit, the inlier mask)
+    results = {"jax": [], "port": []}
 
     def spy(mod, package):
         fn = mod.fsolve.find_via_ransac
@@ -133,7 +137,9 @@ def loop_world(args):
                 p1, p2 = jnp.asarray(q1), jnp.asarray(q2)
             log.append((seed_or_key, np.asarray(p1).copy(), np.asarray(p2).copy(),
                         np.asarray(mv).copy(), kw.get("num_hypotheses", 256)))
-            return fn(seed_or_key, p1, p2, mv, **kw)
+            out = fn(seed_or_key, p1, p2, mv, **kw)
+            results[package].append((np.asarray(out.F_21).copy(), np.asarray(out.is_inlier).copy()))
+            return out
         mod.fsolve.find_via_ransac = rec
 
     spy(jinit, "jax")
@@ -160,7 +166,25 @@ def loop_world(args):
             B, 1.0)
         ct, nt = ct.numpy(), nt.numpy()
         gj, gt = np.where(nj > 8, cj, np.inf), np.where(nt > 8, ct, np.inf)
-        return dict(input_max_diff_px=float(max(np.abs(p1 - q1).max(), np.abs(p2 - q2).max())),
+        (Fj, inl_j), (Ft, inl_t) = results["jax"][-1], results["port"][-1]
+        # the winner's refit: its normalisation over the winner's inliers in
+        # both packages (JAX's jitted _normalize), then the refit's model
+        wj = jransac.sample_minimal_sets(key, jnp.asarray(mv), B, 8)[int(gj.argmin())]
+        Fw = jax.jit(jfm.compute_F_21)(jnp.asarray(p1)[wj], jnp.asarray(p2)[wj])
+        win = np.asarray(jax.jit(lambda F, a, b: jfm._epipolar_cost(F, a, b, 1.0)[0])(
+            Fw, jnp.asarray(p1), jnp.asarray(p2))) & mv
+        norm_j = [np.asarray(a) for p in (p1, p2) for a in jax.jit(jhm._normalize)(
+            jnp.asarray(p), jnp.asarray(win))]
+        norm_t = [a.numpy() for q in (q1, q2) for a in thm._normalize(
+            torch.from_numpy(q), torch.from_numpy(win))]
+        bits = lambda a: np.asarray(a, np.float32).view(np.int32)
+        refit = dict(
+            winner_inliers=int(win.sum()),
+            normalize_apart=int(sum((bits(a) != bits(b)).sum() for a, b in zip(norm_j, norm_t))),
+            final_F_apart=int((bits(Fj) != bits(Ft)).sum()),
+            final_F_max_rel=float(np.abs(Fj / np.linalg.norm(Fj) - Ft / np.linalg.norm(Ft)).max()),
+            final_inliers_equal=bool(np.array_equal(inl_j, inl_t)))
+        return dict(refit=refit,input_max_diff_px=float(max(np.abs(p1 - q1).max(), np.abs(p2 - q2).max())),
                     matches_equal=bool(np.array_equal(mv, qv)), hypotheses=B,
                     jax_winner=int(gj.argmin()), jax_cost=float(gj.min()),
                     port_winner=int(gt.argmin()), port_cost=float(gt.min()),

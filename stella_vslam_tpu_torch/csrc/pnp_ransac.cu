@@ -7,32 +7,58 @@
 // one-hot gathers, the Newton iteration on [B,8] arrays and a [B*8,N] cosine
 // matrix reduced along N.
 //
-//  pnp_solve_kernel (one block per minimal set): draws the set's 3 indices
-//    (per slot the argmax over N of the counter hash of ransac.py, masked to
-//    -1 where invalid, lowest index on ties: bit-exact), then threads 0..7
-//    each run one Newton start of Grunert's quartic (24 iterations, clamp
-//    [1e-4, 50], |Q'| < 1e-8 guard), recover the depths and build (R, t) by
-//    the two triads.
-//  pnp_score_kernel (one block per hypothesis): the cosine test of every
-//    correspondence against its per-level threshold, the inlier count and
-//    the total cost, reduced over the block.
+// One launch, a block of 256 threads per minimal set:
+//  * the block draws the set's 3 indices (ransac_sample.cuh, shared with
+//    kernels E and U: per slot the argmax over N of the counter hash of
+//    ransac.py, invalid positions below every valid one, the lowest index
+//    on ties: bit-exact; an invalid position is not hashed, and a thread
+//    has the validity of its 24 matches in flight at once), and in the same
+//    pass lists the valid matches (a ballot a step, each warp into its own
+//    region in n order; a loop validation's call holds 45-81 valid of
+//    2872);
+//  * lanes 0..7 of warp 0 each run one Newton start of Grunert's quartic
+//    (up to 24 iterations, clamp [1e-4, 50], |Q'| < 1e-8 guard; a start
+//    that reaches a fixed point stops there, which changes no bit), recover
+//    the depths and build (R, t) by the two triads;
+//  * every thread scores the 8 poses (broadcast reads of shared memory) on
+//    its listed matches, each read once a set: per thread 8 (cost, count)
+//    accumulators, then per hypothesis a shuffle-down sum in each warp and
+//    the warps added in order. Past 16384 matches the list does not fit,
+//    and the block scores every valid match in turn.
+// Counts, R, t and ok are the two-launch kernel's bits; the costs add in
+// another order (the listed matches', where the two launches took every
+// 128th), within 1e-7 of
+// plain's (chip_smoke.py _check_pnp).
 //
 // Every product and sum is rounded on its own (__fmul_rn / __fadd_rn, no
 // fused multiply-add) in the order of the Python expressions, so a start
-// lands on the same root as in the plain version.
-// Bound: operations. B = 256 sets hash 3 B N values (~12 integer operations
-// each) and score 8 B N pairs at ~25 operations: ~0.18 G operations at
-// N = 2872 against ~80 KB of input. The design keeps every hypothesis in
-// registers and writes only (R, t, ok, cost, count) per hypothesis.
+// lands on the same root as in the plain version. The cosine test
+// c = dot / (sqrt(|pc|^2) + 1e-12) > max_cos is decided without the root
+// and the division where it cannot pass: a point behind the camera
+// (dot <= 0) or dot^2 < max_cos^2 (1 - 2^-16) |pc|^2 (|pc|^2 in [2^-60,
+// 2^60]) lies further below the threshold than the few roundings of c can
+// move it (c rounds to at most dot / |pc| (1 + 2^-22)), so its count and
+// cost are the exact test's.
+// Bound: operations. B = 256 sets hash 3 B V values for V valid matches
+// (~12 integer operations each), run 2048 Newton solves and score 8 B V
+// pairs at ~25 operations, against ~29 bytes a match read once. Each set
+// writes only (R, t, ok, cost, count) per hypothesis.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "ransac_sample.cuh"
 
 namespace {
 
 constexpr int kStarts = 8;
 constexpr int kNewtonIters = 24;
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
+// validity loads in flight a thread while sampling (4096 matches in one)
+constexpr int kBatch = 16;
+// the list of valid matches (16-bit indices): up to N = 16384 matches;
+// past that the block scores every 256th match with its validity test
+constexpr int kListCap = 16384;
 __constant__ float kStartV[kStarts] = {0.2f, 0.4f, 0.7f, 1.0f, 1.4f, 2.0f, 3.2f, 5.0f};
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
@@ -40,21 +66,6 @@ __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b);
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float dv(float a, float b) { return __fdiv_rn(a, b); }
 __device__ __forceinline__ float sq(float a) { return __fsqrt_rn(a); }
-
-__device__ __forceinline__ float hash_uniform(uint32_t seed, uint32_t i) {
-  uint32_t x = i + seed * 2654435761u;
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return (float)(x >> 8) * (1.0f / 16777216.0f);
-}
-
-// argmax order: larger value first, then the lower index
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
 
 __device__ __forceinline__ float dot3(const float* a, const float* b) {
   return add(add(mul(a[0], b[0]), mul(a[1], b[1])), mul(a[2], b[2]));
@@ -94,64 +105,9 @@ __device__ __forceinline__ void terms(const Quartic& k, float v, float& q, float
   Q = add(sub(mul(N, N), mul(mul(mul(2.0f, k.cg), N), D)), mul(mul(D, D), E));
 }
 
-__global__ void __launch_bounds__(kThreads)
-pnp_solve_kernel(int N, const float* __restrict__ bearings, const float* __restrict__ pos_w,
-                 const uint8_t* __restrict__ valid, uint32_t seed, float* __restrict__ out_R,
-                 float* __restrict__ out_t, uint8_t* __restrict__ out_ok) {
-  __shared__ float bv_s[kThreads / 32][3];
-  __shared__ int bi_s[kThreads / 32][3];
-  __shared__ float f_s[9], P_s[9];
-  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float bv[3];
-  int bi[3];
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    bv[s] = -2.f;
-    bi[s] = 0x7fffffff;
-  }
-  for (int n = tid; n < N; n += blockDim.x) {
-    const bool ok = valid[n] != 0;
-#pragma unroll
-    for (int s = 0; s < 3; ++s) {
-      const uint32_t flat = ((uint32_t)b * 3 + s) * (uint32_t)N + (uint32_t)n;
-      const float u = ok ? hash_uniform(seed, flat) : -1.f;
-      if (better(u, n, bv[s], bi[s])) {
-        bv[s] = u;
-        bi[s] = n;
-      }
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv[s], o);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi[s], o);
-      if (better(ov, oi, bv[s], bi[s])) {
-        bv[s] = ov;
-        bi[s] = oi;
-      }
-    }
-    if (lane == 0) {
-      bv_s[warp][s] = bv[s];
-      bi_s[warp][s] = bi[s];
-    }
-  }
-  __syncthreads();
-  if (tid < 3) {
-    float v = bv_s[0][tid];
-    int i = bi_s[0][tid];
-    for (int w = 1; w < kThreads / 32; ++w)
-      if (better(bv_s[w][tid], bi_s[w][tid], v, i)) {
-        v = bv_s[w][tid];
-        i = bi_s[w][tid];
-      }
-    for (int j = 0; j < 3; ++j) {
-      f_s[3 * tid + j] = bearings[3 * i + j];
-      P_s[3 * tid + j] = pos_w[3 * i + j];
-    }
-  }
-  __syncthreads();
-  if (tid >= kStarts) return;
+// One Newton start (start 0..7) on the set's bearings f_s and points P_s
+// (3 x 3 each): its pose (R row-major, t) and whether it is a root.
+__device__ bool solve_start(const float* f_s, const float* P_s, int start, float* R, float* t) {
   const float* f1 = f_s;
   const float* f2 = f_s + 3;
   const float* f3 = f_s + 6;
@@ -172,7 +128,7 @@ pnp_solve_kernel(int N, const float* __restrict__ bearings, const float* __restr
   const float A = dv(a2, add(b2, 1e-20f));
   k.C = dv(c2, add(b2, 1e-20f));
   k.AC = sub(A, k.C);
-  float v = kStartV[tid];
+  float v = kStartV[start];
   float q, Nn, D, E, Q;
   for (int it = 0; it < kNewtonIters; ++it) {
     terms(k, v, q, Nn, D, E, Q);
@@ -187,7 +143,12 @@ pnp_solve_kernel(int N, const float* __restrict__ bearings, const float* __restr
     if (fabsf(Qp) < 1e-8f) Qp = 1e-8f;
     const float vn = sub(v, dv(Q, Qp));
     // clamp that keeps a NaN, as torch.clamp does
-    v = vn < 1e-4f ? 1e-4f : (vn > 50.0f ? 50.0f : vn);
+    const float next = vn < 1e-4f ? 1e-4f : (vn > 50.0f ? 50.0f : vn);
+    // a step is a function of v alone: at a fixed point the remaining
+    // iterations return v unchanged, so they are skipped (a NaN never
+    // compares equal and runs them all)
+    if (next == v) break;
+    v = next;
   }
   terms(k, v, q, Nn, D, E, Q);
   const float u = dv(Nn, fabsf(D) < 1e-9f ? 1e-9f : D);
@@ -210,64 +171,160 @@ pnp_solve_kernel(int N, const float* __restrict__ bearings, const float* __restr
   float c1[3], c2v[3], c3[3], w1[3], w2[3], w3[3];
   triad(X1, X2, X3, c1, c2v, c3);
   triad(P1, P2, P3, w1, w2, w3);
-  const int h = b * kStarts + tid;
-  float R[9], t[3];
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j)
       R[3 * i + j] = add(add(mul(c1[i], w1[j]), mul(c2v[i], w2[j])), mul(c3[i], w3[j]));
   for (int i = 0; i < 3; ++i)
     t[i] = sub(X1[i], add(add(mul(R[3 * i], P1[0]), mul(R[3 * i + 1], P1[1])),
                           mul(R[3 * i + 2], P1[2])));
-  for (int i = 0; i < 9; ++i) out_R[9 * h + i] = ok ? R[i] : (i % 4 == 0 ? 1.f : 0.f);
-  for (int i = 0; i < 3; ++i) out_t[3 * h + i] = ok ? t[i] : 0.f;
-  out_ok[h] = ok ? 1 : 0;
+  return ok;
 }
 
-__global__ void __launch_bounds__(kThreads)
-pnp_score_kernel(int N, const float* __restrict__ bearings, const float* __restrict__ pos_w,
-                 const float* __restrict__ max_cos, const uint8_t* __restrict__ valid,
-                 const float* __restrict__ hyp_R, const float* __restrict__ hyp_t,
-                 const uint8_t* __restrict__ hyp_ok, float* __restrict__ out_cost,
-                 int* __restrict__ out_count) {
-  __shared__ float cost_s[kThreads / 32];
-  __shared__ int count_s[kThreads / 32];
-  const int h = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float R[9], t[3];
-  for (int i = 0; i < 9; ++i) R[i] = hyp_R[9 * h + i];
-  for (int i = 0; i < 3; ++i) t[i] = hyp_t[3 * h + i];
-  const bool ok = hyp_ok[h] != 0;
-  float cost = 0.f;
-  int count = 0;
-  for (int n = tid; n < N; n += blockDim.x) {
-    if (!valid[n]) continue;
-    const float* p = pos_w + 3 * n;
-    const float* bn = bearings + 3 * n;
-    float pc[3];
-    for (int i = 0; i < 3; ++i)
-      pc[i] = add(add(add(mul(R[3 * i], p[0]), mul(R[3 * i + 1], p[1])), mul(R[3 * i + 2], p[2])),
-                  t[i]);
-    const float c = dv(dot3(pc, bn), add(sq(dot3(pc, pc)), 1e-12f));
-    const float mc = max_cos[n];
-    const bool in = ok && c > mc;
-    cost += in ? sub(1.0f, c) : sub(1.0f, mc);
-    count += in ? 1 : 0;
+// The sampler's hook that lists the valid matches: each warp appends the
+// valid n it meets, in n order, to its own region of the list (a ballot a
+// step), so the list needs no pass of its own.
+struct ListValid {
+  uint16_t* region;
+  int count;
+  __device__ void operator()(int n, bool ok, unsigned live) {
+    const unsigned m = __ballot_sync(live, ok);
+    if (ok) region[count + __popc(m & ((1u << (threadIdx.x & 31)) - 1u))] = (uint16_t)n;
+    count += __popc(m);
   }
-  for (int o = 16; o > 0; o >>= 1) {
-    cost += __shfl_down_sync(0xffffffffu, cost, o);
-    count += __shfl_down_sync(0xffffffffu, count, o);
+};
+
+// two blocks an SM (at most 128 registers a thread): B = 256 sets in one
+// wave on 132 SMs
+__global__ void __launch_bounds__(kThreads, 2)
+pnp_ransac_kernel(int N, const float* __restrict__ bearings, const float* __restrict__ pos_w,
+                  const float* __restrict__ max_cos, const uint8_t* __restrict__ valid,
+                  uint32_t seed, float* __restrict__ out_R, float* __restrict__ out_t,
+                  uint8_t* __restrict__ out_ok, float* __restrict__ out_cost,
+                  int* __restrict__ out_count) {
+  __shared__ int idx[3];
+  __shared__ float f_s[9], P_s[9];
+  __shared__ float pose_s[kStarts][12];
+  __shared__ int ok_s[kStarts];
+  __shared__ uint16_t list_s[kListCap];
+  __shared__ int counts_s[kThreads / 32];
+  __shared__ float cost_s[kThreads / 32][kStarts];
+  __shared__ int count_s[kThreads / 32][kStarts];
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // a warp meets 32 of every 256 matches: its region holds them all
+  const int region = 32 * ((N + kThreads - 1) / kThreads);
+  const bool listed = (kThreads / 32) * region <= kListCap;
+  if (listed) {
+    ListValid hook{list_s + warp * region, 0};
+    svt_ransac::sample_set<3, kBatch>(seed, b, N, valid, idx, hook);
+    if (lane == 0) counts_s[warp] = hook.count;
+  } else {
+    svt_ransac::sample_set<3, kBatch>(seed, b, N, valid, idx);
   }
-  if (lane == 0) {
-    cost_s[warp] = cost;
-    count_s[warp] = count;
+  if (tid < 9) {
+    f_s[tid] = bearings[3 * idx[tid / 3] + tid % 3];
+    P_s[tid] = pos_w[3 * idx[tid / 3] + tid % 3];
   }
   __syncthreads();
-  if (tid == 0) {
-    for (int w = 1; w < kThreads / 32; ++w) {
-      cost += cost_s[w];
-      count += count_s[w];
+  if (tid < kStarts) {
+    float R[9], t[3];
+    const bool ok = solve_start(f_s, P_s, tid, R, t);
+    const int h = b * kStarts + tid;
+    for (int i = 0; i < 9; ++i) {
+      const float r = ok ? R[i] : (i % 4 == 0 ? 1.f : 0.f);
+      out_R[9 * h + i] = r;
+      pose_s[tid][i] = r;
     }
-    out_cost[h] = cost;
-    out_count[h] = count;
+    for (int i = 0; i < 3; ++i) {
+      const float v = ok ? t[i] : 0.f;
+      out_t[3 * h + i] = v;
+      pose_s[tid][9 + i] = v;
+    }
+    out_ok[h] = ok ? 1 : 0;
+    ok_s[tid] = ok;
+  }
+  __syncthreads();
+  bool okh[kStarts];
+  float cost[kStarts];
+  int count[kStarts];
+#pragma unroll
+  for (int h = 0; h < kStarts; ++h) {
+    okh[h] = ok_s[h] != 0;
+    cost[h] = 0.f;
+    count[h] = 0;
+  }
+  // the listed matches (warp 0's region first), or every match with its
+  // validity test where the list would not fit
+  int total = N, start[kThreads / 32];
+  if (listed) {
+    total = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      start[w] = total;
+      total += counts_s[w];
+    }
+  }
+  for (int j = tid; j < total; j += kThreads) {
+    int n = j;
+    if (listed) {
+      int w = 0;
+#pragma unroll
+      for (int q = 1; q < kThreads / 32; ++q) w += j >= start[q];
+      n = list_s[w * region + j - start[w]];
+    } else if (!valid[n]) {
+      continue;
+    }
+    const float p[3] = {pos_w[3 * n], pos_w[3 * n + 1], pos_w[3 * n + 2]};
+    const float bn[3] = {bearings[3 * n], bearings[3 * n + 1], bearings[3 * n + 2]};
+    const float mc = max_cos[n];
+    const float out_cost_n = sub(1.0f, mc);
+    // the bound of the cheap rejection: max_cos^2 (1 - 2^-16), for max_cos > 0
+    const bool cheap = mc > 0.f;
+    const float mc2 = mul(mul(mc, mc), 0.9999847412109375f);
+#pragma unroll
+    for (int h = 0; h < kStarts; ++h) {
+      bool in = false;
+      float c = 0.f;
+      if (okh[h]) {
+        const float* P = pose_s[h];  // a broadcast read from shared memory
+        float pc[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          pc[i] = add(add(add(mul(P[3 * i], p[0]), mul(P[3 * i + 1], p[1])), mul(P[3 * i + 2], p[2])),
+                      P[9 + i]);
+        const float dot = dot3(pc, bn), pp = dot3(pc, pc);
+        const bool rejected = cheap && (!(dot > 0.f) ||
+                                        (pp >= 8.673617e-19f && pp <= 1.1529215e18f &&
+                                         mul(dot, dot) < mul(mc2, pp)));
+        if (!rejected) {
+          c = dv(dot, add(sq(pp), 1e-12f));
+          in = c > mc;
+        }
+      }
+      cost[h] = add(cost[h], in ? sub(1.0f, c) : out_cost_n);
+      count[h] += in ? 1 : 0;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < kStarts; ++h) {
+    for (int o = 16; o > 0; o >>= 1) {
+      cost[h] = add(cost[h], __shfl_down_sync(0xffffffffu, cost[h], o));
+      count[h] += __shfl_down_sync(0xffffffffu, count[h], o);
+    }
+    if (lane == 0) {
+      cost_s[warp][h] = cost[h];
+      count_s[warp][h] = count[h];
+    }
+  }
+  __syncthreads();
+  if (tid < kStarts) {
+    float c = cost_s[0][tid];
+    int k = count_s[0][tid];
+    for (int w = 1; w < kThreads / 32; ++w) {
+      c = add(c, cost_s[w][tid]);
+      k += count_s[w][tid];
+    }
+    out_cost[b * kStarts + tid] = c;
+    out_count[b * kStarts + tid] = k;
   }
 }
 
@@ -278,9 +335,7 @@ extern "C" int svt_pnp_ransac(int N, const float* bearings, const float* pos_w,
                               float* out_R, float* out_t, uint8_t* out_ok, float* out_cost,
                               int* out_count, void* stream) {
   if (B <= 0 || N <= 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-  pnp_solve_kernel<<<B, kThreads, 0, s>>>(N, bearings, pos_w, valid, seed, out_R, out_t, out_ok);
-  pnp_score_kernel<<<B * kStarts, kThreads, 0, s>>>(N, bearings, pos_w, max_cos, valid, out_R,
-                                                    out_t, out_ok, out_cost, out_count);
+  pnp_ransac_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
+      N, bearings, pos_w, max_cos, valid, seed, out_R, out_t, out_ok, out_cost, out_count);
   return (int)cudaGetLastError();
 }

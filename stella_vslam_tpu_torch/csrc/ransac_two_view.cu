@@ -64,9 +64,11 @@
 // (every sum in its order, every contraction an `__fmaf_rn`, every other
 // operation rounded on its own; ops/linalg.py), up to F's rank-2 step: the
 // plain takes LAPACK's sgesdd, the kernel a Jacobi SVD in double. The
-// score of F rounds as the plain's too; H's transfer error and the LO
-// refits' block sums (shuffle-down trees, warps in order) take their own
-// order. So models agree to a tolerance, not bit for bit; the sampled
+// score of F rounds as the plain's too, and so do the LO refits'
+// normalisation sums (XLA's windows of 32: a thread a window, then a
+// thread a window of partials, then one thread; windowed_sum). H's
+// transfer error and the refits' A^T A (shuffle-down trees, warps in
+// order) take their own order. So models agree to a tolerance, not bit for bit; the sampled
 // indices are exact (the hash is integer arithmetic and its uniforms are
 // exact in f32). Where a minimal set's A^T A has a small eigen-gap the 18
 // squarings do not converge, and a rounding moves the null vector
@@ -117,44 +119,127 @@ __device__ void block_sum(float (&v)[NV], float* scratch) {
   __syncthreads();
 }
 
+// The sums over rows 0..n-1 of NV values each in XLA's CPU order (its
+// optimized HLO of the JAX version's masked sums, ops/linalg.sum_windowed):
+// up to 32 rows one thread adds them in order from 0; above, the rows are
+// padded with zeros to a multiple of 32, floor(P / 2) before and ceil(P /
+// 2) after, a thread sums each window of 32 in order from 0 (the padding
+// and the rows that `row` skips add nothing: a sum from +0 never holds -0),
+// the same again over the partials while more than 32 remain, and one
+// thread adds the last in order. row(i, v) fills row i's values and returns
+// false for a row to skip. part: 2 * NV * (ceil(n / 32) + 2) floats of
+// global scratch for this block. Every thread gets the totals in out.
+__device__ __forceinline__ int window_pad_lo(int n) { return ((32 - (n & 31)) & 31) >> 1; }
+
+template <int NV, class Row>
+__device__ void windowed_sum(int n, Row row, float* part, float (&out)[NV], float* shared) {
+  const int tid = threadIdx.x;
+  if (n <= 32) {
+    if (tid == 0) {
+      float s[NV] = {};
+      for (int i = 0; i < n; ++i) {
+        float v[NV];
+        if (!row(i, v)) continue;
+#pragma unroll
+        for (int q = 0; q < NV; ++q) s[q] = __fadd_rn(s[q], v[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < NV; ++q) shared[q] = s[q];
+    }
+  } else {
+    int w = (n + 31) >> 5, lo = window_pad_lo(n);
+    for (int j = tid; j < w; j += blockDim.x) {
+      float s[NV] = {};
+      const int i0 = 32 * j - lo;
+      for (int i = max(i0, 0); i < min(i0 + 32, n); ++i) {
+        float v[NV];
+        if (!row(i, v)) continue;
+#pragma unroll
+        for (int q = 0; q < NV; ++q) s[q] = __fadd_rn(s[q], v[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < NV; ++q) part[j * NV + q] = s[q];
+    }
+    __syncthreads();
+    float* src = part;
+    float* dst = part + NV * (w + 2);
+    while (w > 32) {
+      const int w2 = (w + 31) >> 5;
+      lo = window_pad_lo(w);
+      for (int j = tid; j < w2; j += blockDim.x) {
+        float s[NV] = {};
+        const int k0 = 32 * j - lo;
+        for (int k = max(k0, 0); k < min(k0 + 32, w); ++k)
+#pragma unroll
+          for (int q = 0; q < NV; ++q) s[q] = __fadd_rn(s[q], src[k * NV + q]);
+#pragma unroll
+        for (int q = 0; q < NV; ++q) dst[j * NV + q] = s[q];
+      }
+      __syncthreads();
+      float* t = src;
+      src = dst;
+      dst = t;
+      w = w2;
+    }
+    if (tid == 0) {
+      float s[NV] = {};
+      for (int k = 0; k < w; ++k)
+#pragma unroll
+        for (int q = 0; q < NV; ++q) s[q] = __fadd_rn(s[q], src[k * NV + q]);
+#pragma unroll
+      for (int q = 0; q < NV; ++q) shared[q] = s[q];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < NV; ++q) out[q] = shared[q];
+  __syncthreads();
+}
+
 // Hartley normalization: T = [[sx,0,tx],[0,sy,ty],[0,0,1]] per image, over
-// the n points (weights w in {0,1}, or all 1 when w is null)
+// the rows of mask w, its sums in XLA's windowed order (windowed_sum), the
+// mean and the deviation true divisions by the count
 struct Norm {
   float m1x, m1y, d1x, d1y, m2x, m2y, d2x, d2y;
 };
 
-__device__ Norm normalization(const float* p1, const float* p2, const uint8_t* w,
-                              int n, float* scratch) {
-  float s[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if (w && !w[i]) continue;
-    s[0] += 1.f;
-    s[1] += p1[2 * i];
-    s[2] += p1[2 * i + 1];
-    s[3] += p2[2 * i];
-    s[4] += p2[2 * i + 1];
-  }
-  block_sum<5>(s, scratch);
-  // weighted: sum / (count + 1e-12); unweighted: mean (the same in f32)
-  const float cnt = w ? s[0] + 1e-12f : (float)n;
+__device__ Norm normalization(const float* p1, const float* p2, const uint8_t* w, int n,
+                              float* part, float* scratch) {
+  float s[5];
+  windowed_sum<5>(
+      n,
+      [&](int i, float (&v)[5]) {
+        if (!w[i]) return false;
+        v[0] = 1.f;
+        v[1] = p1[2 * i];
+        v[2] = p1[2 * i + 1];
+        v[3] = p2[2 * i];
+        v[4] = p2[2 * i + 1];
+        return true;
+      },
+      part, s, scratch);
+  const float cnt = __fadd_rn(s[0], 1e-12f);
   Norm r;
-  r.m1x = s[1] / cnt;
-  r.m1y = s[2] / cnt;
-  r.m2x = s[3] / cnt;
-  r.m2y = s[4] / cnt;
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if (w && !w[i]) continue;
-    d[0] += fabsf(p1[2 * i] - r.m1x);
-    d[1] += fabsf(p1[2 * i + 1] - r.m1y);
-    d[2] += fabsf(p2[2 * i] - r.m2x);
-    d[3] += fabsf(p2[2 * i + 1] - r.m2y);
-  }
-  block_sum<4>(d, scratch);
-  r.d1x = d[0] / cnt + 1e-12f;
-  r.d1y = d[1] / cnt + 1e-12f;
-  r.d2x = d[2] / cnt + 1e-12f;
-  r.d2y = d[3] / cnt + 1e-12f;
+  r.m1x = __fdiv_rn(s[1], cnt);
+  r.m1y = __fdiv_rn(s[2], cnt);
+  r.m2x = __fdiv_rn(s[3], cnt);
+  r.m2y = __fdiv_rn(s[4], cnt);
+  float d[4];
+  windowed_sum<4>(
+      n,
+      [&](int i, float (&v)[4]) {
+        if (!w[i]) return false;
+        v[0] = fabsf(__fsub_rn(p1[2 * i], r.m1x));
+        v[1] = fabsf(__fsub_rn(p1[2 * i + 1], r.m1y));
+        v[2] = fabsf(__fsub_rn(p2[2 * i], r.m2x));
+        v[3] = fabsf(__fsub_rn(p2[2 * i + 1], r.m2y));
+        return true;
+      },
+      part, d, scratch);
+  r.d1x = __fadd_rn(__fdiv_rn(d[0], cnt), 1e-12f);
+  r.d1y = __fadd_rn(__fdiv_rn(d[1], cnt), 1e-12f);
+  r.d2x = __fadd_rn(__fdiv_rn(d[2], cnt), 1e-12f);
+  r.d2y = __fadd_rn(__fdiv_rn(d[3], cnt), 1e-12f);
   return r;
 }
 
@@ -570,9 +655,9 @@ __device__ void warp_fit_minimal(const float* set1, const float* set2, WarpFit* 
 // The result lands in `model` (shared memory), visible to every thread.
 template <int MODEL>
 __device__ void block_fit_masked(const float* p1, const float* p2, const uint8_t* w, int n,
-                                 float* scratch, WarpFit* wf, float* model) {
+                                 float* part, float* scratch, WarpFit* wf, float* model) {
   const int tid = threadIdx.x;
-  const Norm nm = MODEL == kEssential ? Norm{} : normalization(p1, p2, w, n, scratch);
+  const Norm nm = MODEL == kEssential ? Norm{} : normalization(p1, p2, w, n, part, scratch);
   float acc[45];
 #pragma unroll
   for (int q = 0; q < 45; ++q) acc[q] = 0.f;
@@ -584,6 +669,9 @@ __device__ void block_fit_masked(const float* p1, const float* p2, const uint8_t
   if (tid < 32) warp_null_vector<MODEL>(acc, nm, wf, model);
   __syncthreads();
 }
+
+// floats of windowed_sum's scratch a chunk: two buffers of 5 sums a window
+__host__ __device__ constexpr size_t part_floats(int n) { return 2 * 5 * ((size_t)(n + 31) / 32 + 2); }
 
 constexpr int kMinThreads = 128;
 constexpr int kFinishThreads = 1024;
@@ -664,8 +752,8 @@ ransac_finish_kernel(int N, const float* __restrict__ pts1, const float* __restr
                      const uint8_t* __restrict__ valid, int C, int B,
                      const float* __restrict__ models, const float* __restrict__ costs,
                      const int* __restrict__ counts, int min_inliers, float thr, int lo_rounds,
-                     int escalate, uint8_t* masks, float* chunk, unsigned int* ticket,
-                     float* __restrict__ out_model, uint8_t* __restrict__ out_mask,
+                     int escalate, uint8_t* masks, float* part, float* chunk,
+                     unsigned int* ticket, float* __restrict__ out_model, uint8_t* __restrict__ out_mask,
                      float* __restrict__ out_cost, long long* __restrict__ out_n,
                      uint8_t* __restrict__ out_ok) {
   __shared__ float scratch[(kFinishThreads / 32 + 1) * 45];
@@ -722,7 +810,8 @@ ransac_finish_kernel(int N, const float* __restrict__ pts1, const float* __restr
   block_sum<2>(sc, scratch);
   int n_inl = (int)sc[1];
   for (int r = 0; r < lo_rounds; ++r) {
-    block_fit_masked<MODEL>(pts1, pts2, inl, N, scratch, &wf, M_re);
+    block_fit_masked<MODEL>(pts1, pts2, inl, N, part + (size_t)c * part_floats(N), scratch,
+                            &wf, M_re);
     float sr[2] = {0.f, 0.f};
     score_partial<MODEL>(M_re, pts1, pts2, valid, N, thr, alt, sr);
     block_sum<2>(sr, scratch);
@@ -788,7 +877,30 @@ ransac_finish_kernel(int N, const float* __restrict__ pts1, const float* __restr
   for (int n = tid; n < N; n += blockDim.x) out_mask[n] = src ? __ldcg(src + n) : 0;
 }
 
+// The LO refit's normalisation alone (one block of kFinishThreads, as the
+// finish launch runs it): out = m1x, m1y, d1x, d1y, m2x, m2y, d2x, d2y.
+__global__ void __launch_bounds__(kFinishThreads)
+ransac_normalization_kernel(int N, const float* __restrict__ pts1, const float* __restrict__ pts2,
+                            const uint8_t* __restrict__ w, float* part, float* __restrict__ out) {
+  __shared__ float scratch[8];
+  const Norm r = normalization(pts1, pts2, w, N, part, scratch);
+  if (threadIdx.x == 0) {
+    const float v[8] = {r.m1x, r.m1y, r.d1x, r.d1y, r.m2x, r.m2y, r.d2x, r.d2y};
+    for (int q = 0; q < 8; ++q) out[q] = v[q];
+  }
+}
+
 }  // namespace
+
+// The finish launch's refit normalisation of pixels [N,2] over mask w [N]
+// (a check of its sums): part [part_floats(N)] floats, out [8].
+extern "C" int svt_ransac_normalization(int N, const float* pts1, const float* pts2,
+                                        const uint8_t* w, float* part, float* out, void* stream) {
+  if (N <= 0) return (int)cudaErrorInvalidValue;
+  ransac_normalization_kernel<<<1, kFinishThreads, 0, (cudaStream_t)stream>>>(N, pts1, pts2, w,
+                                                                             part, out);
+  return (int)cudaGetLastError();
+}
 
 // model: 0 homography (pts [N,2]), 1 fundamental (pts [N,2]), 2 essential
 // (bearings [N,3]); seeds: C chunk seeds (host memory), B hypotheses each;
@@ -817,14 +929,15 @@ extern "C" int svt_ransac_minimal(int model, int N, const float* pts1, const flo
 
 // The C chunks' selection (count > min_inliers), winner's mask and
 // lo_rounds LO refits; escalate (C chunks) or not (C == 1, the chunk's
-// result as it is). masks: [C,2,N] bytes, chunk: [C,13] words of scratch;
+// result as it is). masks: [C,2,N] bytes, part: [C, part_floats(N)] floats,
+// chunk: [C,13] words of scratch;
 // ticket: a zero counter of this stream. out: model [9], mask [N], cost,
 // inlier count (int64), valid flag.
 extern "C" int svt_ransac_finish(int model, int N, const float* pts1, const float* pts2,
                                  const uint8_t* valid, int C, int B, const float* models,
                                  const float* costs, const int* counts, int min_inliers,
                                  float thr, int lo_rounds, int escalate, uint8_t* masks,
-                                 float* chunk, unsigned int* ticket, float* out_model,
+                                 float* part, float* chunk, unsigned int* ticket, float* out_model,
                                  uint8_t* out_mask, float* out_cost, long long* out_n,
                                  uint8_t* out_ok, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -833,7 +946,7 @@ extern "C" int svt_ransac_finish(int model, int N, const float* pts1, const floa
 #define SVT_FINISH(M)                                                                   \
   ransac_finish_kernel<M><<<C, kFinishThreads, 0, s>>>(                                 \
       N, pts1, pts2, valid, C, B, models, costs, counts, min_inliers, thr, lo_rounds,  \
-      escalate, masks, chunk, ticket, out_model, out_mask, out_cost, out_n, out_ok)
+      escalate, masks, part, chunk, ticket, out_model, out_mask, out_cost, out_n, out_ok)
   if (model == 0) SVT_FINISH(0);
   else if (model == 1) SVT_FINISH(1);
   else SVT_FINISH(kEssential);

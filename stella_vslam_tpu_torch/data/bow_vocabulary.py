@@ -1,4 +1,4 @@
-"""Bag-of-visual-words vocabulary: tree descent on kernel M.
+"""Bag-of-visual-words vocabulary: tree descent on kernel V.
 
 Port of stella_vslam_tpu/data/bow_vocabulary.py (reference
 src/stella_vslam/data/bow_vocabulary.{h,cc}, which wraps a pretrained FBoW
@@ -11,18 +11,19 @@ the last level is its word.
 
 The JAX version computes the similarity of every descriptor to every node
 of a level as a bf16 +-1 matmul with f32 sums (exact integers) and selects
-the current node's children by a one-hot product. `bow_transform` does the
-descent itself: on CUDA tensors kernel M (csrc/bow_transform.cu: one thread
-per descriptor, XOR + popcount against the 10 children of its node, the
-centers packed to 8 words per node); on CPU tensors `bow_transform_plain`
-(a gather of the children and a +-1 f32 product, exact for the same reason).
-The word ids are equal to the JAX version's, not close.
+the current node's children by a one-hot product. Here the regular tree is
+held as FBoW block tables (`tables`, built once: a block per interior node
+in breadth-first order, as `write_fbow` lays it out, a leaf's payload the
+last level's node index), and `transform` is data/fbow_io.py's
+`fbow_transform`: kernel V (csrc/bow_fbow.cu) on CUDA tensors, its plain
+version on CPU tensors. The word ids are equal to the JAX version's, not
+close.
 
 Host code builds tf (L1-normalised) BoW vectors and the inverted index
 (bow_database.py). `load` reads the .npz form, or the reference's .fbow
 (detected by its signature) as an `FbowVocabulary` with the same surface
-(data/fbow_io.py, its descent on kernel V); `save_fbow` writes the tree in
-that form. `train` and `save` are not ported (ROADMAP Queue 1 item 13).
+(data/fbow_io.py); `save_fbow` writes the tree in that form. `train` and
+`save` are not ported (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -31,68 +32,32 @@ import os
 import numpy as np
 import torch
 
-from stella_vslam_tpu_torch.data.fbow_io import FBOW_SIGNATURE, read_fbow, write_fbow
-from stella_vslam_tpu_torch.kernels import build as kbuild
+from stella_vslam_tpu_torch.data.fbow_io import (FBOW_SIGNATURE, FbowTables, fbow_transform,
+                                                 pack_centers, read_fbow, write_fbow)
 
 K_BRANCH = 10
 DEPTH = 4  # 10^4 = 10000 words
 _VOCAB_SEED = 0xB0A
 _FBOW_MAGIC = FBOW_SIGNATURE.to_bytes(8, "little")
+_LEAF = 0x80000000
 
 
-def pack_centers(centers) -> np.ndarray:
-    """Per-level [n,256] +-1 centers -> one [sum n, 8] int32 array (the
-    uint32 bits; bit k of word w is element 32 w + k, as in a descriptor),
-    levels in order."""
-    out = []
-    for c in centers:
-        bits = (np.asarray(c) > 0).astype(np.uint32).reshape(len(c), 8, 32)
-        out.append((bits << np.arange(32, dtype=np.uint32)).sum(-1, dtype=np.uint32))
-    return np.ascontiguousarray(np.concatenate(out)).view(np.int32)
-
-
-def bow_transform_plain(desc: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
-    """Plain version of kernel M: [N,8] int32 descriptors, packed centers
-    [11110,8] int32 -> [N] int32 leaf ids."""
-    from stella_vslam_tpu_torch.match.hamming import unpack_bits_pm1
-
-    N = desc.shape[0]
-    pm1 = unpack_bits_pm1(desc)  # [N,256]
-    node = torch.zeros(N, dtype=torch.int64, device=desc.device)
-    child = torch.arange(K_BRANCH, device=desc.device)
-    base = 0
-    for lvl in range(DEPTH):
-        rows = base + node[:, None] * K_BRANCH + child[None, :]  # [N,K]
-        c = unpack_bits_pm1(packed[rows.reshape(-1)]).reshape(N, K_BRANCH, 256)
-        sim = torch.einsum("nd,nkd->nk", pm1, c)  # 256 - 2 * Hamming, exact
-        node = node * K_BRANCH + torch.argmax(sim, dim=-1)  # first maximum
-        base += K_BRANCH ** (lvl + 1)
-    return node.to(torch.int32)
-
-
-def bow_transform(desc: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
-    """Kernel M on CUDA tensors, the plain version on CPU tensors."""
-    if not desc.is_cuda:
-        return bow_transform_plain(desc, packed)
-    N = desc.shape[0]
-    n_nodes = sum(K_BRANCH ** (l + 1) for l in range(DEPTH))
-    for t, shape, name in ((desc, (N, 8), "desc"), (packed, (n_nodes, 8), "centers")):
-        if tuple(t.shape) != shape or t.dtype != torch.int32 or t.device != desc.device \
-                or not t.is_contiguous():
-            raise ValueError(f"bow_transform: {name} must be a contiguous int32 "
-                             f"tensor of shape {shape} on {desc.device}")
-    out = torch.empty(N, dtype=torch.int32, device=desc.device)
-    if N == 0:
-        return out
-    lib = kbuild.load()
-    kbuild.check(lib.svt_bow_transform(N, desc.data_ptr(), packed.data_ptr(),
-                                       out.data_ptr(), kbuild.stream_ptr(desc.device)),
-                 "bow_transform")
-    bow_transform.launches += 1
-    return out
-
-
-bow_transform.launches = 0
+def regular_tree_tables(centers, device) -> FbowTables:
+    """Kernel V's tables of a complete tree (per-level [K^(l+1), 256] +-1
+    centers): the blocks in breadth-first order, so that level l's centres
+    in row order are its blocks' children in order; an interior child's
+    payload is its block (the first block of level l+1 plus its node
+    index), a leaf's the MSB and its node index. The tables that
+    read_fbow(write_fbow(centers)) gives."""
+    K, depth = len(centers[0]), len(centers)
+    first = np.cumsum([0] + [K ** l for l in range(depth)])
+    info = [first[l + 1] + np.arange(K ** (l + 1), dtype=np.uint32) for l in range(depth - 1)]
+    info.append(np.uint32(_LEAF) | np.arange(K ** depth, dtype=np.uint32))
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return FbowTables(
+        centers=up(pack_centers(np.concatenate(centers))),
+        node_info=up(np.concatenate(info).astype(np.uint32).view(np.int32)),
+        n_children=up(np.full(int(first[-1]), K, np.int32)), m_k=int(K), max_depth=depth)
 
 
 class BowVocabulary:
@@ -105,21 +70,28 @@ class BowVocabulary:
             self.centers.append(rng.integers(0, 2, size=(n, 256)).astype(np.float32) * 2 - 1)
         self.device = torch.device(device)
         self.num_words = K_BRANCH ** DEPTH
-        self._packed = None
+        self._tables = None
 
     def set_centers(self, centers):
         self.centers = [np.ascontiguousarray(c, dtype=np.float32) for c in centers]
-        self._packed = None
+        self._tables = None
+
+    def tables(self) -> FbowTables:
+        """Kernel V's tables of the tree on the vocabulary's device, built
+        once."""
+        if self._tables is None:
+            self._tables = regular_tree_tables(self.centers, self.device)
+        return self._tables
 
     def packed_centers(self) -> torch.Tensor:
-        if self._packed is None:
-            self._packed = torch.from_numpy(pack_centers(self.centers)).to(self.device)
-        return self._packed
+        """[sum of the level sizes, 8] int32: every center's bits, levels in
+        order (the tables' centres)."""
+        return self.tables().centers
 
     # ------------------------------------------------------------------
     def transform(self, desc: torch.Tensor) -> torch.Tensor:
         """[N,8] int32 descriptors (the uint32 bits) -> [N] int32 word ids."""
-        return bow_transform(desc.contiguous(), self.packed_centers())
+        return fbow_transform(desc.contiguous(), self.tables())
 
     def compute_bow(self, desc_u32: np.ndarray, valid: np.ndarray):
         """Host entry: (word ids [N] i64 with -1 where invalid, bow dict

@@ -36,11 +36,12 @@ centre is at the least Hamming distance from the descriptor (the lowest
 child on ties: the JAX version's first argmax of 256 - 2 Hamming), until a
 leaf; `max_depth` rounds, a finished descriptor holds its word, one that
 never reaches a leaf gets word 0. On CUDA tensors kernel V
-(csrc/bow_fbow.cu) walks it, one thread per descriptor, against the
-centres packed to 8 words each once at load; on CPU tensors
-`fbow_transform_plain` gathers each descriptor's block and takes the
-popcount of the XOR byte by byte. The word ids are equal to the JAX
-version's, not close.
+(csrc/bow_fbow.cu) walks it, a group of 16 lanes per descriptor (a lane a
+child), against the centres packed to 8 words each once at load; on CPU
+tensors `fbow_transform_plain` gathers each descriptor's block and takes
+the popcount of the XOR byte by byte. The .npz vocabulary's regular tree
+takes the same route (data/bow_vocabulary.py regular_tree_tables). The
+word ids are equal to the JAX version's, not close.
 """
 from __future__ import annotations
 
@@ -127,6 +128,10 @@ def fbow_transform(desc: torch.Tensor, tab: FbowTables) -> torch.Tensor:
     out = torch.empty(N, dtype=torch.int32, device=desc.device)
     if N == 0:
         return out
+    if desc.data_ptr() % 16:  # the kernel reads a descriptor as two 16-byte words
+        desc = desc.clone()
+    if tab.centers.data_ptr() % 16:
+        raise ValueError("fbow_transform: the centres must be 16-byte aligned")
     lib = kbuild.load()
     kbuild.check(lib.svt_fbow_transform(
         N, nblocks, tab.m_k, tab.max_depth, desc.data_ptr(), tab.centers.data_ptr(),

@@ -85,10 +85,12 @@ _SIGNATURES = {
     # out_cost, out_count, stream
     "svt_ransac_minimal": [_I, _I, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P],
     # model, N, pts1, pts2, valid, C, B, models, costs, counts, min_inliers,
-    # thr, lo_rounds, escalate, masks, chunk, ticket, out_model, out_mask,
+    # thr, lo_rounds, escalate, masks, part, chunk, ticket, out_model, out_mask,
     # out_cost, out_n, out_ok, stream
     "svt_ransac_finish": [_I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I, _F, _I, _I, _P, _P,
-                          _P, _P, _P, _P, _P, _P, _P],
+                          _P, _P, _P, _P, _P, _P, _P, _P],
+    # N, pts1, pts2, mask, part, out, stream
+    "svt_ransac_normalization": [_I] + [_P] * 6,
     # N, b1, b2, valid, B, models, ok, out_cost, out_count, stream
     "svt_ransac_score": [_I, _P, _P, _P, _I] + [_P] * 5,
     # N, b1, b2, valid, seed, B, theta, probe, out_idx, out_E, out_ok, stream
@@ -143,8 +145,6 @@ _SIGNATURES = {
     # cell_start, cell_order, inv_cell, gx, gy, out, gate_out, stream
     "svt_fuse": [_I, _I, _I, _I] + [_P] * 10 + [_F] * 7 + [_P] * 2 + [_I] + [_F] * 3
                 + [_P] * 2 + [_F, _I, _I] + [_P] * 3,
-    # N, desc, centers, out, stream
-    "svt_bow_transform": [_I] + [_P] * 4,
     # N, nblocks, m_k, max_depth, desc, centers, node_info, n_children, out,
     # stream
     "svt_fbow_transform": [_I] * 4 + [_P] * 6,

@@ -5,7 +5,7 @@ src/stella_vslam/mapping_module.cc). One keyframe event runs the JAX
 version's steps in order:
 
 1. settle the previous event's BA, start the keyframe's BoW transform
-   (kernel M) when a BoW database is attached, queue the new keyframe's
+   (kernel V) when a BoW database is attached, queue the new keyframe's
    landmarks for the event's one stats refresh, cull fresh landmarks whose
    observed ratio fell below 0.3 (local_map_cleaner);
 2. triangulate against up to 5 covisible neighbours that pass the baseline

@@ -36,6 +36,7 @@ import torch
 from stella_vslam_tpu_torch.camera.base import CameraModel
 from stella_vslam_tpu_torch.data.frame import Frame
 from stella_vslam_tpu_torch.match import area as area_match
+from stella_vslam_tpu_torch.ops import linalg
 from stella_vslam_tpu_torch.ops import triangulation as tri
 from stella_vslam_tpu_torch.ops.solve import essential as esolve
 from stella_vslam_tpu_torch.ops.solve import fundamental as fsolve
@@ -223,7 +224,7 @@ class Initializer:
                                               num_hypotheses=self.num_ransac_iters)
             if not bool(eres.valid):
                 return None
-            R4, t4 = esolve.decompose(eres.E_21.cpu().numpy())
+            R4, t4 = esolve.decompose_f64(eres.E_21.cpu().numpy())
             return f32(R4), f32(t4), torch.ones(4, dtype=torch.bool, device=dev), \
                 eres.is_inlier
         if escalated:
@@ -248,7 +249,10 @@ class Initializer:
             R8, t8, _, okh = hsolve.decompose(Hn)
             return f32(R8), f32(t8), torch.as_tensor(okh, device=dev), hres.is_inlier
         if bool(fres.valid):
-            E = K.T @ fres.F_21.cpu().numpy().astype(np.float64) @ K
+            # E = K^T F K in float32, each product an FMA chain (the JAX
+            # version's eager dots)
+            Kt = torch.from_numpy(K.astype(np.float32))
+            E = linalg.matmul_f32(linalg.matmul_f32(Kt.T.contiguous(), fres.F_21.cpu()), Kt)
             R4, t4 = esolve.decompose(E)
             return f32(R4), f32(t4), torch.ones(4, dtype=torch.bool, device=dev), \
                 fres.is_inlier

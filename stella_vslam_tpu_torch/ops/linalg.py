@@ -9,9 +9,11 @@ of bundle adjustment's reduced-camera solve and of `spd_solve`),
 `spd_solve` is the dense SPD solve on the card: kernel G's tiled Cholesky
 (csrc/ba_schur.cu svt_spd_solve), the pose graph's 7K x 7K solve.
 
-`sum_in_order`, `dot_in_order`, `matmul_f32` and `svd3_lapack` round as the
-JAX version's jitted programs do on the CPU (read from XLA's optimized HLO
-and the bits): a short reduction is a loop that adds in index order from 0,
+`sum_in_order`, `sum_windowed`, `dot_in_order`, `matmul_f32` and
+`svd3_lapack` round as the JAX version's jitted programs do on the CPU (read
+from XLA's optimized HLO and the bits): a short reduction is a loop that
+adds in index order from 0, a long one sums windows of 32, then windows of
+their partials,
 a reduction of a product an FMA chain, a small dot (and a float32 matmul on
 the CPU) an FMA chain over k, and jnp.linalg.svd LAPACK's sgesdd, which
 jaxlib calls through scipy. Written as explicit chains, they give the same
@@ -194,6 +196,27 @@ def sum_in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
     for k in range(x.shape[0]):
         acc = acc + x[k]
     return acc
+
+
+XLA_WINDOW = 32
+
+
+def sum_windowed(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum over `dim` as XLA's CPU program splits a long reduction (its
+    optimized HLO): while more than 32 values remain, they are padded with
+    zeros to a multiple of 32, floor(P / 2) before and ceil(P / 2) after,
+    and each window of 32 is summed in order from 0 (a reduce-window); the
+    32 or fewer partials left are summed in order from 0."""
+    x = x.movedim(dim, 0)
+    while x.shape[0] > XLA_WINDOW:
+        n = x.shape[0]
+        pad = -n % XLA_WINDOW
+        lo, hi = pad // 2, pad - pad // 2
+        z = lambda k: torch.zeros((k,) + x.shape[1:], dtype=x.dtype, device=x.device)
+        x = torch.cat([z(lo), x, z(hi)]).reshape((n + pad) // XLA_WINDOW, XLA_WINDOW,
+                                                   *x.shape[1:])
+        x = sum_in_order(x, 1)
+    return sum_in_order(x, 0)
 
 
 def dot_in_order(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:

@@ -27,21 +27,30 @@ class HomographyResult(NamedTuple):
     valid: torch.Tensor  # scalar bool
 
 
+def masked_mean_dev(pts: torch.Tensor, valid: torch.Tensor):
+    """The masked mean and mean absolute deviation [..., 1, 2] of points
+    [..., N, 2] over `valid` [..., N], as the JAX version's jitted program
+    rounds them: the sums in XLA's windows of 32 (linalg.sum_windowed), the
+    mean and the deviation true divisions by the count."""
+    w = valid[..., None].to(pts.dtype)
+    cnt = linalg.sum_windowed(w, -2)[..., None, :] + 1e-12
+    mean = linalg.sum_windowed(pts * w, -2)[..., None, :] / cnt
+    dev = linalg.sum_windowed(torch.abs(pts - mean) * w, -2)[..., None, :] / cnt + 1e-12
+    return mean, dev
+
+
 def _normalize(pts: torch.Tensor, valid=None):
     """Hartley normalization (mean / mean absolute deviation per axis):
-    (normed [..., k, 2], T [..., 3, 3]) with normed_h = T @ pt_h. Without
-    `valid` (a minimal set) the sums run in order from 0 and the mean is a
-    product with 1 / k, as the JAX version's jitted program rounds them;
-    with `valid` (a refit over every match) they are torch's sums."""
+    (normed [..., k, 2], T [..., 3, 3]) with normed_h = T @ pt_h, rounded as
+    the JAX version's jitted program. Without `valid` (a minimal set) the
+    sums run in order from 0 and the mean is a product with 1 / k; with
+    `valid` (a refit over every match) they are masked_mean_dev's."""
     if valid is None:
         inv_k = 1.0 / pts.shape[-2]
         mean = linalg.sum_in_order(pts, -2)[..., None, :] * inv_k
         dev = linalg.sum_in_order(torch.abs(pts - mean), -2)[..., None, :] * inv_k + 1e-12
     else:
-        w = valid[..., None].to(pts.dtype)
-        cnt = torch.sum(w, dim=-2, keepdim=True) + 1e-12
-        mean = torch.sum(pts * w, dim=-2, keepdim=True) / cnt
-        dev = torch.sum(torch.abs(pts - mean) * w, dim=-2, keepdim=True) / cnt + 1e-12
+        mean, dev = masked_mean_dev(pts, valid)
     normed = (pts - mean) / dev
     sx = 1.0 / dev[..., 0, 0]
     sy = 1.0 / dev[..., 0, 1]
@@ -54,10 +63,17 @@ def _normalize(pts: torch.Tensor, valid=None):
     return normed, T
 
 
+# XLA's CPU program computes A^T A of up to this many rows as an FMA chain
+# over the rows from 0 (its emitted loop); from 385 rows it calls a runtime
+# matrix product whose order the bits do not show (ROADMAP Queue 3)
+CHAIN_ROWS = 384
+
+
 def normal_matrix(A: torch.Tensor, minimal: bool) -> torch.Tensor:
-    """A^T A of DLT rows [..., k, 9]: for a minimal set the FMA chain over
-    the rows in order (the JAX version's jitted dot), else torch's einsum."""
-    if minimal:
+    """A^T A of DLT rows [..., k, 9]: the FMA chain over the rows in order
+    (the JAX version's jitted dot) for a minimal set and for up to
+    CHAIN_ROWS rows, else torch's einsum."""
+    if minimal or A.shape[-2] <= CHAIN_ROWS:
         return linalg.matmul_f32(A.transpose(-1, -2), A)
     return torch.einsum("...ki,...kj->...ij", A, A)
 

@@ -210,6 +210,32 @@ def finish_core_plain(model: TwoViewModel, models, cost, count, pts1, pts2, matc
     return _carry([run(m, c, n) for m, c, n in zip(models, cost, count)])
 
 
+def refit_normalization(pts1, pts2, mask) -> torch.Tensor:
+    """The LO refit's normalisation of pixels [N,2] over `mask` [N] bool:
+    [8] = mean x, mean y, deviation x, deviation y of pts1, then of pts2.
+    On CUDA tensors the finish launch's device code alone (a check of its
+    windowed sums), on CPU tensors homography.masked_mean_dev."""
+    if not pts1.is_cuda:
+        from stella_vslam_tpu_torch.ops.solve.homography import masked_mean_dev
+
+        m1, d1 = masked_mean_dev(pts1, mask)
+        m2, d2 = masked_mean_dev(pts2, mask)
+        return torch.cat([m1[0], d1[0], m2[0], d2[0]])
+    dev, N = check_points(2, pts1, pts2, mask)
+    part = torch.empty(_part_floats(N), dtype=torch.float32, device=dev)
+    out = torch.empty(8, dtype=torch.float32, device=dev)
+    kbuild.check(kbuild.load().svt_ransac_normalization(
+        N, pts1.data_ptr(), pts2.data_ptr(), mask.data_ptr(), part.data_ptr(), out.data_ptr(),
+        kbuild.stream_ptr(dev)), "ransac_normalization")
+    return out
+
+
+def _part_floats(n: int) -> int:
+    """Floats of the finish launch's windowed-sum scratch a chunk
+    (csrc/ransac_two_view.cu part_floats)."""
+    return 2 * 5 * ((n + 31) // 32 + 2)
+
+
 # the finish launch's ticket, one int32 per (device, stream): the last block
 # of an escalated sweep leaves it zero for the next launch on its stream
 _tickets = {}
@@ -248,6 +274,7 @@ def finish_core(model: TwoViewModel, models, cost, count, pts1, pts2, match_vali
     mask = torch.empty(N, dtype=torch.bool, device=dev)
     ok = torch.empty((), dtype=torch.bool, device=dev)
     masks = torch.empty((C, 2, N), dtype=torch.uint8, device=dev)
+    part = torch.empty((C, _part_floats(N)), dtype=torch.float32, device=dev)
     chunk = torch.empty((C, 13), dtype=torch.float32, device=dev) if escalated else out_f
     stream = kbuild.stream_ptr(dev)
     ticket = _stream_ticket(dev, stream).data_ptr() if escalated else 0
@@ -256,7 +283,8 @@ def finish_core(model: TwoViewModel, models, cost, count, pts1, pts2, match_vali
     kbuild.check(lib.svt_ransac_finish(
         model.kind, N, pts1.data_ptr(), pts2.data_ptr(), match_valid.data_ptr(), C, B,
         models.data_ptr(), cost.data_ptr(), count.data_ptr(), int(min_in), _chi_thr(sigma),
-        int(lo_rounds), int(escalated), masks.data_ptr(), chunk.data_ptr(), ticket,
+        int(lo_rounds), int(escalated), masks.data_ptr(), part.data_ptr(), chunk.data_ptr(),
+        ticket,
         out_f.data_ptr(), mask.data_ptr(), out_f[9:].data_ptr(), n.data_ptr(), ok.data_ptr(),
         stream), "ransac_finish")
     minimal_hypotheses.launches += 1

@@ -13,7 +13,7 @@ and 2.5 degrees of yaw, with the observations across the seam severed), a
 100-frame turn up to y = 1.4, the 470-frame return to x = 0.45 and a
 220-frame slow diagonal approach through the drifted start region, 1290
 frames in all. Only the loop closer can stitch the seam: BoW candidates of
-every new keyframe (kernel M), validation (kernels C, N, D, O), correction
+every new keyframe (kernel V), validation (kernels C, N, D, O), correction
 and fusion (kernel L), the Sim3 pose graph (kernel P) and a global bundle
 adjustment (kernels F-I at the global shape).
 

@@ -64,7 +64,6 @@ def kernel_wrappers() -> dict:
     """Every kernel wrapper of the slice, by kernel name (each counts its
     launches)."""
     from stella_vslam_tpu_torch.camera import base as cam_base
-    from stella_vslam_tpu_torch.data import bow_vocabulary as bow
     from stella_vslam_tpu_torch.data import frame as frame_mod
     from stella_vslam_tpu_torch.data import fbow_io
     from stella_vslam_tpu_torch.feature import orb_extractor as ox
@@ -95,7 +94,6 @@ def kernel_wrappers() -> dict:
             "epipolar_top2": H.epipolar_top2, "epipolar_band_index": H.epipolar_band_index,
             "triangulate": mk.triangulate_checks,
             "fuse": mk.fuse_scan, "fuse_cell_index": H.build_cell_index_batch,
-            "bow_transform": bow.bow_transform,
             "pnp_ransac": pnp.pnp_hypotheses, "sim3_transform": sim3.sim3_transform,
             "pose_graph": sim3.pose_graph_linearize, "spd_solve": linalg.spd_solve,
             "scatter_to_current": tk.scatter_to_current, "dedup_by_id": tk.dedup_by_id,

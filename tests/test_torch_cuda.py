@@ -641,24 +641,48 @@ def test_fuse_kernel_at_the_edges(dev, model, margin):
 
 
 # ---------------------------------------------------------------------------
-# the loop closer's kernels M, N, O, P, and F-I at the global shape
+# the loop closer's kernels V, N, O, P, and F-I at the global shape
 # (problem builders shared with chip_smoke.py, at small and ragged sizes)
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("N", [1, 130, 2872])
 def test_bow_transform_kernel_matches_plain(dev, N):
+    """The .npz vocabulary's descent: one launch of kernel V on its regular
+    tree's tables, equal to V's plain version."""
     from stella_vslam_tpu_torch.data import bow_vocabulary as bow
+    from stella_vslam_tpu_torch.data import fbow_io
 
     vocab = bow.BowVocabulary.default(dev)
     rng = np.random.default_rng(N)
     d = torch.from_numpy(rng.integers(0, 2 ** 32, (N, 8), dtype=np.uint64).astype(np.uint32)
                          .view(np.int32)).to(dev)
-    before = bow.bow_transform.launches
+    before = fbow_io.fbow_transform.launches
     k = vocab.transform(d)
-    assert bow.bow_transform.launches == before + 1
-    assert torch.equal(k, bow.bow_transform_plain(d, vocab.packed_centers()))
+    assert fbow_io.fbow_transform.launches == before + 1
+    assert torch.equal(k, fbow_io.fbow_transform_plain(d, vocab.tables()))
     assert int(k.min()) >= 0 and int(k.max()) < vocab.num_words
+
+
+@pytest.mark.parametrize("case", ["m_k=20", "m_k=40", "clamped"])
+def test_fbow_transform_kernel_on_synthetic_trees(dev, case):
+    """Kernel V where a block has more than 16 children (lanes loop over
+    them; at m_k = 40 only the root is staged), and where child blocks lie
+    past the last block (read clamped, as the plain reads them) and a block
+    has no child, against its plain version."""
+    import chip_smoke
+    from stella_vslam_tpu_torch.data import fbow_io
+
+    tab = chip_smoke.synthetic_fbow_tables(dev, case, seed=17)
+    rng = np.random.default_rng(18)
+    d = torch.from_numpy(rng.integers(0, 2 ** 32, (2049, 8), dtype=np.uint64).astype(np.uint32)
+                         .view(np.int32)).to(dev)
+    before = fbow_io.fbow_transform.launches
+    k = fbow_io.fbow_transform(d, tab)
+    assert fbow_io.fbow_transform.launches == before + 1
+    p = fbow_io.fbow_transform_plain(d, tab)
+    assert torch.equal(k, p)
+    assert int(torch.unique(p).numel()) > 20
 
 
 @pytest.mark.parametrize("N", [40, 700])
@@ -667,6 +691,49 @@ def test_pnp_kernel_matches_plain(dev, N):
 
     args, sf = chip_smoke._pnp_problem(dev, N, N)
     chip_smoke._check_pnp(args, sf, f"N={N}", seed=N)
+
+
+@pytest.mark.parametrize("N", [40, 700, 2872, 17000])
+def test_pnp_one_launch_equals_plain_where_the_roots_agree(dev, N):
+    """Kernel N is one launch, and its (R, t, ok, count) equal the plain
+    version's bit for bit on every hypothesis whose Newton start lands on
+    the same root in both (R and t within 1e-4): at least 99% of them, and
+    of all hypotheses. At 17000 matches the valid list does not fit shared
+    memory and the block scores every match in turn."""
+    import chip_smoke
+    from stella_vslam_tpu_torch.ops.solve import pnp
+
+    (b, X, oc, v), sf = chip_smoke._pnp_problem(dev, N, N + 1)
+    mc = pnp.max_cos_errors(sf, oc)
+    before = pnp.pnp_hypotheses.launches
+    Rk, tk, okk, ck, nk = pnp.pnp_hypotheses(N + 1, b, X, mc, v, 256)
+    assert pnp.pnp_hypotheses.launches == before + 1
+    Rp, tp, okp, cp, npl = pnp.pnp_hypotheses_plain(N + 1, b, X, mc, v, 256)
+    same_root = (okk == okp) & (~okp | (torch.maximum(
+        (Rk - Rp).abs().flatten(1).amax(1), (tk - tp).abs().amax(1)) <= 1e-4))
+    equal = (okk == okp) & (nk == npl) & torch.eq(Rk, Rp).flatten(1).all(1) \
+        & torch.eq(tk, tp).all(1)
+    share_root = float(same_root.float().mean())
+    share = float(equal[same_root].float().mean())
+    print(f"N={N}: same root {share_root:.4f}, bit-equal where the roots agree {share:.4f}")
+    assert share_root >= 0.99 and share >= 0.99
+
+
+@pytest.mark.parametrize("N", [33, 700, 2872, 40000])
+def test_refit_normalization_kernel_equals_plain(dev, N):
+    """Kernel E's LO refit normalisation (XLA's windows of 32) equals the
+    plain's bits."""
+    from stella_vslam_tpu_torch.ops.solve import ransac as R
+
+    rng = np.random.default_rng(N)
+    p1 = np.stack([rng.uniform(0, 752, N), rng.uniform(0, 480, N)], -1).astype(np.float32)
+    p2 = (p1 + rng.normal(0, 6.0, (N, 2))).astype(np.float32)
+    mask = rng.random(N) < 0.75
+    cpu = R.refit_normalization(torch.from_numpy(p1), torch.from_numpy(p2),
+                                torch.from_numpy(mask))
+    card = R.refit_normalization(torch.from_numpy(p1).to(dev), torch.from_numpy(p2).to(dev),
+                                 torch.from_numpy(mask).to(dev))
+    assert torch.equal(card.cpu().view(torch.int32), cpu.view(torch.int32))
 
 
 @pytest.mark.parametrize("N,fix_scale", [(15, False), (500, False), (500, True)])
